@@ -1,0 +1,94 @@
+"""JAX package variables -> this package's ``state_dict``.
+
+``stage1_state_dict_from_flax`` turns the JAX ``TRISStage1`` variables (a
+nested dict of numpy arrays: ``{"params": ..., "batch_stats": ...}``) into a
+``state_dict`` that ``TRISStage1.load_state_dict(..., strict=True)`` takes;
+``state_dict_from_flax`` does the same for any ported module (a CLIP, a
+block, a layer). The inverse of ``tris_tpu/ckpt/convert*.py``:
+
+- Dense kernel [in, out] -> weight [out, in], or [out, in, 1, 1] for the
+  reference's 1x1 convs (``vis_project``, ``v_proj*.0``, ``v_output.0``);
+- conv kernel HWIO -> OIHW;
+- ``in_proj_kernel`` [C, 3C] -> ``in_proj_weight`` [3C, C];
+- BN and InstanceNorm ``scale``/``bias``/``mean``/``var`` ->
+  ``weight``/``bias``/``running_mean``/``running_var`` (plus a zero
+  ``num_batches_tracked`` per BN);
+- LayerNorm ``<name>/ln/scale`` -> ``<name>.weight``; PReLU ``alpha`` ->
+  ``weight``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+# flax module names -> torch module paths
+_MODULE_RULES = [
+    (re.compile(r"layer([1-4])_(\d+)"), r"layer\1.\2"),
+    (re.compile(r"ds_conv"), "downsample.0"),
+    (re.compile(r"ds_bn"), "downsample.1"),
+    (re.compile(r"block_(\d+)"), r"transformer.resblocks.\1"),
+    (re.compile(r"mlp_(c_fc|c_proj)"), r"mlp.\1"),
+    (re.compile(r"(v_proj[123]|v_output|t_proj[123]|t_output)_fc"), r"\1.0"),
+    (re.compile(r"(v_proj[123]|v_output)_in"), r"\1.1"),
+]
+_CONV1X1 = re.compile(r"(^|\.)(vis_project|v_proj[123]\.0|v_output\.0)$")
+_LEAVES = {"scale": "weight", "mean": "running_mean", "var": "running_var",
+           "embedding": "weight", "in_proj_kernel": "in_proj_weight", "alpha": "weight"}
+
+
+def _flatten(tree: dict, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _torch_module(path: Tuple[str, ...]) -> str:
+    out = []
+    for p in path:
+        if p == "ln":                      # LayerNormFp32 wraps an inner "ln"
+            continue
+        for pat, rep in _MODULE_RULES:
+            if pat.fullmatch(p):
+                p = pat.sub(rep, p)
+                break
+        out.append(p)
+    return ".".join(out)
+
+
+def _key(mod: str, leaf: str) -> str:
+    return f"{mod}.{leaf}" if mod else leaf
+
+
+def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX variables of a ported module -> that module's state_dict here."""
+    sd: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, val in _flatten(variables.get(coll, {})):
+            arr = np.asarray(val, np.float32)
+            mod, leaf = _torch_module(path[:-1]), path[-1]
+            if leaf == "kernel":
+                if arr.ndim == 4:
+                    arr = arr.transpose(3, 2, 0, 1)
+                else:
+                    arr = arr.T
+                    if _CONV1X1.search(mod):
+                        arr = arr[:, :, None, None]
+                leaf = "weight"
+            elif leaf == "in_proj_kernel":
+                arr = arr.T
+            if coll == "batch_stats" and leaf == "mean":
+                sd[_key(mod, "num_batches_tracked")] = torch.tensor(0, dtype=torch.long)
+            # copy: C order, and 0-d leaves stay 0-d
+            sd[_key(mod, _LEAVES.get(leaf, leaf))] = torch.from_numpy(arr.copy())
+    return sd
+
+
+def stage1_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``TRISStage1`` variables -> this package's ``TRISStage1`` state_dict."""
+    return state_dict_from_flax(variables)

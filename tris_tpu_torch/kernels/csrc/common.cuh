@@ -1,0 +1,66 @@
+// Warp and block reductions shared by the kernels in this directory.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace tris {
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Block-wide max / sum; every thread gets the result. `red` holds >= 32
+// floats of shared memory; blockDim.x is a multiple of 32.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < nw ? red[lane] : -INFINITY;
+  return warp_max(v);
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < nw ? red[lane] : 0.f;
+  return warp_sum(v);
+}
+
+// Bilinear sample with the interpolation-matrix taps, rows first then
+// columns, each product and sum rounded on its own (no FMA contraction) so
+// the plain PyTorch version, which does the same operations, agrees bit for
+// bit:  t_j = wy0*x[y0][j] + wy1*x[y1][j];  out = wx0*t_x0 + wx1*t_x1.
+__device__ __forceinline__ float sample2(const float* __restrict__ plane, int w, int y0,
+                                         int y1, float wy0, float wy1, int x0, int x1,
+                                         float wx0, float wx1) {
+  const float t0 = __fadd_rn(__fmul_rn(wy0, plane[y0 * w + x0]), __fmul_rn(wy1, plane[y1 * w + x0]));
+  const float t1 = __fadd_rn(__fmul_rn(wy0, plane[y0 * w + x1]), __fmul_rn(wy1, plane[y1 * w + x1]));
+  return __fadd_rn(__fmul_rn(wx0, t0), __fmul_rn(wx1, t1));
+}
+
+// Opt `kernel` in to `bytes` of dynamic shared memory when that is more than
+// the 48 KiB every kernel may use without asking.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace tris

@@ -1,0 +1,71 @@
+"""K3: the stage-1 response head (``csrc/response_head.cu``) and its plain
+PyTorch version.
+
+Replaces ``tris_tpu/models/stage1.py`` lines 168-179 (and 97-113): per
+pair ``i`` of image ``b = i // S``, ``relu(upsample(scale * <vis_p, lan[i]>))``
+with ``vis_p = vis_new[i] * alpha + vis_base[b]`` (just ``vis_base[b]`` when
+``vis_new`` is None), upsampled ``align_corners=False`` from the [h, w] score
+plane to [H, W]. Returns ``[N*S, H, W]``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from tris_tpu_torch.kernels import build
+from tris_tpu_torch.ops.resize import interp_taps
+
+
+@functools.lru_cache(maxsize=64)
+def taps_on(in_size: int, out_size: int, align_corners: bool, device: torch.device):
+    """:func:`interp_taps` as four tensors on ``device`` (cached)."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in interp_taps(in_size, out_size, align_corners))
+
+
+def upsample_taps_plain(x, ty, tx):
+    """``[..., h, w]`` -> ``[..., H, W]`` with taps, rows first, each product
+    and sum rounded on its own: the kernels' sampling, written out."""
+    ylo, yhi, wy0, wy1 = ty
+    xlo, xhi, wx0, wx1 = tx
+    r = wy0[:, None] * x[..., ylo.long(), :] + wy1[:, None] * x[..., yhi.long(), :]
+    return wx0 * r[..., xlo.long()] + wx1 * r[..., xhi.long()]
+
+
+def response_head_plain(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_shape, out_hw):
+    """The plain version: the JAX einsum and the resize written out."""
+    (h, w), (H, W) = hw_shape, out_hw
+    N, HW, D = vis_base.shape
+    base = vis_base.reshape(N, 1, HW, D)
+    v = base if vis_new is None else vis_new.reshape(N, S, HW, D) * alpha + base
+    score = scale * torch.einsum("nspc,nsc->nsp", v, lan.reshape(N, S, D))
+    ty = taps_on(h, H, False, vis_base.device)
+    tx = taps_on(w, W, False, vis_base.device)
+    return torch.relu(upsample_taps_plain(score.reshape(N * S, h, w), ty, tx))
+
+
+def response_head(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_shape, out_hw):
+    """K3 on CUDA tensors; the plain version on CPU tensors. ``scale`` is a
+    0-d tensor (``exp(logit_scale)``) that the kernel reads on the device."""
+    if vis_base.device.type == "cpu":
+        return response_head_plain(vis_new, vis_base, lan, S, scale, alpha, hw_shape, out_hw)
+    build.require_cuda_f32("response_head", vis_new, vis_base, lan, scale)
+    (h, w), (H, W) = hw_shape, out_hw
+    N, HW, D = vis_base.shape
+    P = lan.shape[0]
+    if HW != h * w or P != N * S or lan.shape[1] != D or (
+            vis_new is not None and vis_new.shape != (P, HW, D)):
+        raise ValueError(f"response_head: bad shapes vis_base{tuple(vis_base.shape)} "
+                         f"lan{tuple(lan.shape)} S={S} hw={hw_shape}")
+    if 4 * HW > 227 * 1024:
+        raise ValueError(f"response_head: h*w = {HW} scores must fit shared memory")
+    vis_base, lan = vis_base.contiguous(), lan.contiguous()
+    vis_new = None if vis_new is None else vis_new.contiguous()
+    ty = taps_on(h, H, False, vis_base.device)
+    tx = taps_on(w, W, False, vis_base.device)
+    out = build.ops().response_head(vis_new, vis_base, lan, scale.reshape(()).contiguous(),
+                                    list(ty), list(tx), S, h, w, float(alpha))
+    build.count("response_head")
+    return out

@@ -1,0 +1,105 @@
+"""Stage-1 TRIS: the text-supervised response-map network, eval paths.
+
+Port of ``tris_tpu/models/stage1.py::TRISStage1``: ``response_maps`` (the
+eval protocol, one fusion per (image, sentence) pair) and
+``forward(train=False)``. The pixel-text score, its upsample and relu are
+K3 (``kernels.response_head``); the fusion is K2 and the text tower K1. The
+``train=True`` classification head comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from tris_tpu_torch import kernels
+from tris_tpu_torch.models.clip import CLIP, CLIP_CONFIGS, CLIPConfig
+from tris_tpu_torch.models.fusion import BilateralPrompt
+from tris_tpu_torch.models.layers import Conv1x1
+
+FUSION_RESIDUAL = 0.1  # fixed residual weight of the fusion (model_stage1.py:73-74)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage1Config:
+    backbone: str = "RN50"  # "RN50" | "RN101"
+    hidden_dim: int = 1024
+    txt_length: int = 20
+    attn_multi: float = 0.1
+    focal_p: float = 3.0
+    focal_lambda: float = 0.01
+    clip_override: Optional[CLIPConfig] = None  # for tests / custom backbones
+
+    @property
+    def clip_config(self) -> CLIPConfig:
+        base = self.clip_override or CLIP_CONFIGS[self.backbone]
+        return dataclasses.replace(base, txt_length=self.txt_length)
+
+    @property
+    def text_dim(self) -> int:
+        return self.clip_config.embed_dim
+
+
+class TRISStage1(nn.Module):
+    def __init__(self, config: Stage1Config):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        ccfg = cfg.clip_config
+        self.backbone = CLIP(ccfg)
+        self.vis_project = Conv1x1(ccfg.vision_width * 32, cfg.hidden_dim)
+        self.lan_project = nn.Linear(cfg.text_dim, cfg.hidden_dim)
+        self.logit_scale = nn.Parameter(torch.tensor(float(np.log(1 / 0.07))))
+        if cfg.attn_multi > 0:
+            self.attn_fusion = BilateralPrompt(cfg.hidden_dim, cfg.hidden_dim)
+
+    def _features(self, image: torch.Tensor, word_ids: torch.Tensor):
+        """L2-normalised pixel tokens [B, hw, D] (once per image), text
+        embeddings [N, D], and the c4 grid (h, w)."""
+        _, hidden = self.backbone.encode_text(word_ids)
+        c4 = self.backbone.encode_image(image, pool=False)[3]          # [B, C4, h, w]
+        h, w = c4.shape[2], c4.shape[3]
+        vis = self.vis_project(c4.flatten(2).transpose(1, 2))          # [B, hw, D]
+        lan = self.lan_project(hidden)
+        norm_vis = vis / torch.linalg.vector_norm(vis, dim=-1, keepdim=True)
+        norm_lan = lan / torch.linalg.vector_norm(lan, dim=-1, keepdim=True)
+        return norm_vis, norm_lan, (h, w)
+
+    def forward(self, image: torch.Tensor, word_ids: torch.Tensor, train: bool = False):
+        """image [B, 3, H, W], word_ids [B, L] -> relu map [B, 1, H, W]: image
+        b against its own text, with the fusion over all B texts."""
+        if train:
+            raise NotImplementedError("the stage-1 training head is not ported yet")
+        B, _, H, W = image.shape
+        norm_vis, norm_lan, hw = self._features(image, word_ids)
+        scale = self.logit_scale.exp()
+        new_vis = None
+        lan_p = norm_lan
+        if self.config.attn_multi > 0:
+            lan_all = norm_lan[None].expand(B, B, norm_lan.shape[-1])  # every image, all B texts
+            new_vis, new_lan = self.attn_fusion(norm_vis, lan_all)
+            lan_p = new_lan.diagonal(dim1=0, dim2=1).T * FUSION_RESIDUAL + norm_lan
+        maps = kernels.response_head(new_vis, norm_vis, lan_p, 1, scale, FUSION_RESIDUAL, hw, (H, W))
+        return maps[:, None]
+
+    def response_maps(self, image: torch.Tensor, word_ids: torch.Tensor) -> torch.Tensor:
+        """Per-(image, sentence) eval maps: [B, 3, H, W] x [B, S, L] -> [B, S, H, W].
+
+        The reference's eval protocol runs the model at batch 1 per sentence,
+        so each pair's fusion and score see only that pair's own text. The
+        vision trunk runs once per image and serves its S sentences."""
+        B, S, L = word_ids.shape
+        H, W = image.shape[2], image.shape[3]
+        norm_vis, norm_lan, hw = self._features(image, word_ids.reshape(B * S, L))
+        scale = self.logit_scale.exp()
+        new_vis = None
+        lan_p = norm_lan
+        if self.config.attn_multi > 0:
+            new_vis, new_lan = self.attn_fusion(norm_vis, norm_lan[:, None], S)
+            lan_p = new_lan[:, 0] * FUSION_RESIDUAL + norm_lan
+        maps = kernels.response_head(new_vis, norm_vis, lan_p, S, scale, FUSION_RESIDUAL, hw, (H, W))
+        return maps.reshape(B, S, H, W)
