@@ -10,7 +10,9 @@ machine need not have.)
 
 Shapes are small but cover the edges the main path does not: the longest
 sequence K1 takes, several text tokens in K2, K3 without the fusion, ties in
-K4's peak, and the inputs every wrapper refuses.
+K4's peak, K5 at equal sizes (identity taps), K6 on odd shapes, and the
+inputs every wrapper refuses. K1 at the critic's L = 50 and K4 on PRMS's
+selected maps are here too.
 """
 
 import math
@@ -46,7 +48,8 @@ def _err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-@pytest.mark.parametrize("L,causal", [(20, True), (101, False), (128, True), (1, False)])
+@pytest.mark.parametrize("L,causal", [(20, True), (101, False), (128, True), (1, False),
+                                      (50, False)])
 def test_mha_short(randn, L, causal):
     # 2e-5 against float64 on N(0, 1) inputs: f32 sums of 64 products
     n, C, H = 3, 256, 4
@@ -125,3 +128,64 @@ def test_launches_are_counted(randn):
     before = K.launches["mha_short"]
     K.mha_short(q, q, q, 1)
     assert K.launches["mha_short"] == before + 1
+
+
+def test_eval_metrics_on_selected_maps(randn, dev):
+    # PRMS: one map per image, picked by best; exact as above
+    sizes = [(30, 44), (48, 64), (17, 9)]
+    maps = torch.relu(randn(3, 4, 16, 16))
+    best = torch.tensor([3, 0, 2], device=dev)
+    sel = maps.gather(1, best[:, None, None, None].expand(3, 1, 16, 16))
+    tables = K.eval_tables(16, 16, sizes, (48, 64), dev)
+    tgt = torch.zeros(3, 48, 64, dtype=torch.uint8, device=dev)
+    for b, (h, w) in enumerate(sizes):       # zero outside each image, as padded
+        tgt[b, 5:min(h, 20), 3:min(w, 30)] = 1
+    boxes = torch.tensor([[3, 5, 29, 19]] * 3, device=dev, dtype=torch.float32)
+    got = torch.stack(K.eval_metrics(sel, tables, tgt, boxes))
+    assert got.shape == (4, 3, 1)
+    assert torch.equal(got, torch.stack(K.eval_metrics_plain(sel, tables, tgt, boxes)))
+    assert torch.equal(K.eval_metrics(sel, tables, want_norm=True),
+                       K.eval_metrics_plain(sel, tables, want_norm=True))
+
+
+@pytest.mark.parametrize("size,out,patch,S", [(320, 224, 32, 4), (64, 64, 16, 2),
+                                              (96, 64, 16, 1)])
+def test_critic_input(randn, size, out, patch, S):
+    # exact: the kernel samples with the plain version's taps in its order
+    # and rounds each product and sum alone; 64 -> 64 takes identity taps
+    B = 2
+    cams = torch.relu(randn(B * S, size, size))
+    image = randn(B, 3, size, size)
+    got = K.critic_input(cams, image, S, out, patch)
+    g = out // patch
+    assert got.shape == (B * S * g * g, 3 * patch * patch)
+    assert torch.equal(got, K.critic_input_plain(cams, image, S, out, patch))
+    if size == out:   # a pure layout change: image b's channel c, pixel (y, x)
+        a = got.reshape(B * S, g, g, 3, patch, patch)
+        assert torch.equal(a[S, 1, 2, 1, 3, 4], cams[S, patch + 3, 2 * patch + 4]
+                           * image[1, 1, patch + 3, 2 * patch + 4])
+
+
+def test_critic_input_refuses(randn):
+    cams, image = randn(4, 64, 64), randn(2, 3, 64, 64)
+    with pytest.raises(ValueError, match="bad shapes"):
+        K.critic_input(cams, image, 3, 64, 16)       # 4 pairs != 2 images x 3
+    with pytest.raises(ValueError, match="bad shapes"):
+        K.critic_input(cams, image, 2, 60, 16)       # 60 is not a multiple of 16
+
+
+@pytest.mark.parametrize("shape", [(8, 320, 320), (1, 7, 5), (3, 1, 1)])
+def test_normalize_u8(dev, shape):
+    # exact: one rounded multiply and one rounded add, as the plain version
+    g = torch.Generator(device=dev).manual_seed(1)
+    u8 = torch.randint(0, 256, (*shape, 3), generator=g, device=dev, dtype=torch.uint8)
+    got = K.normalize_u8_nchw(u8)
+    assert got.dtype == torch.float32 and got.shape == (shape[0], 3, shape[1], shape[2])
+    assert torch.equal(got, K.normalize_u8_nchw_plain(u8))
+
+
+def test_normalize_u8_refuses(dev):
+    with pytest.raises(ValueError, match="uint8"):
+        K.normalize_u8_nchw(torch.zeros(1, 4, 4, 3, device=dev))
+    with pytest.raises(ValueError, match="uint8"):
+        K.normalize_u8_nchw(torch.zeros(1, 4, 4, 4, dtype=torch.uint8, device=dev))

@@ -78,16 +78,36 @@ def test_load_pretrained_reads_a_torch_save(tmp_path):
         load_pretrained(args, dst)
 
 
-@pytest.mark.parametrize("flags", [["--prms"], ["--stage", "2"], ["--dataset", "referit"]])
+@pytest.mark.parametrize("flags", [["--stage", "2"], ["--dataset", "referit"]])
 def test_cli_paths_not_yet_ported_exit(flags):
     args = get_parser().parse_args(flags + ["--device", "cpu"])
     with pytest.raises(SystemExit, match="not ported"):
         cli_validate.main(args)
 
 
+@pytest.mark.parametrize("flags", [["--prms"], ["--prms", "--critic_weights", "vit.pt"]])
+def test_cli_prms_runs_and_critic_weights_parses(monkeypatch, flags):
+    # --prms runs PRMS with the critic that --critic_weights names (random
+    # weights without it); both exited or failed to parse before PRMS was
+    # ported
+    seen = {}
+    monkeypatch.setattr(cli_validate, "build_stage1", lambda args: "model")
+    monkeypatch.setattr(cli_validate, "load_pretrained", lambda args, model: model)
+    monkeypatch.setattr(cli_validate, "build_critic",
+                        lambda args: seen.setdefault("weights", args.critic_weights) or "critic")
+    monkeypatch.setattr(cli_validate, "build_eval_loaders",
+                        lambda args, splits: {s: "loader" for s in splits})
+    monkeypatch.setattr(cli_validate, "validate_prms",
+                        lambda model, critic, loader, **kw: seen.update(critic=critic, **kw) or {})
+    cli_validate.main(get_parser().parse_args(flags + ["--device", "cpu"]))
+    assert seen["critic"] == (seen["weights"] or "critic")
+    assert seen["weights"] == (flags[-1] if len(flags) > 1 else None)
+    assert seen["device_resize"] is True
+
+
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--multihost"], ["--profile", "trace"],
                                    ["--ema_eval"], ["--scales", "1.0"],
-                                   ["--critic_weights", "vit.pt"], ["--clip_weights", "rn50.pt"]])
+                                   ["--clip_weights", "rn50.pt"]])
 def test_parser_refuses_options_only_the_jax_package_has(flags, capsys):
     # accepted and ignored, they would promise what the port does not do
     with pytest.raises(SystemExit):
@@ -117,6 +137,10 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         kernels.mha_short(q, q, q, 4)
     with pytest.raises(ValueError, match="expected CUDA"):
         kernels.cross_attn(q, q, q, q, q, q, 1, 8.0)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.critic_input(q, q, 1, 32, 16)
+    with pytest.raises(ValueError, match="expected a CUDA"):
+        kernels.normalize_u8_nchw(torch.empty(2, 8, 8, 3, dtype=torch.uint8, device="meta"))
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

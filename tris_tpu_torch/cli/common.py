@@ -1,19 +1,24 @@
 """Shared CLI helpers: model construction, weight loading, eval loaders.
 
-Port of the stage-1 eval parts of ``tris_tpu/cli/common.py``. Models live on
-``args.device`` (``cuda`` unless the caller asks for ``cpu``); random init is
-seeded from ``--seed`` without touching the global RNG.
+Port of the stage-1 eval and PRMS parts of ``tris_tpu/cli/common.py``.
+Models live on ``args.device`` (``cuda`` unless the caller asks for
+``cpu``); random init is seeded (stage 1 from ``--seed``) without touching
+the global RNG.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 
 from tris_tpu_torch.config import backbone_name
 from tris_tpu_torch.device import resolve_device
+from tris_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
 from tris_tpu_torch.models.stage1 import Stage1Config, TRISStage1
+
+CRITIC_SEED = 7  # the critic's random init, fixed as in the JAX package
 
 
 def resolve_dataset(args) -> Tuple[str, str]:
@@ -59,6 +64,29 @@ def build_stage1(args, device=None) -> TRISStage1:
         torch.manual_seed(args.seed)
         model = TRISStage1(cfg)
     return model.to(dev).eval()
+
+
+def build_critic(args, device=None) -> CLIP:
+    """The frozen ViT-B/32 critic of PRMS (train_stage1.py:164-168,
+    validate.py:279-284 of the reference) in eval mode on ``device``
+    (default ``args.device``, else ``"cuda"``): OpenAI's released weights
+    from ``--critic_weights`` (a TorchScript ``.pt`` or a ``state_dict``,
+    loaded strictly), else a seeded random init."""
+    if device is None:
+        device = getattr(args, "device", "cuda")
+    dev = resolve_device(device)
+    cfg = dataclasses.replace(CLIP_CONFIGS["ViT-B-32"], txt_length=args.max_query_len)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(CRITIC_SEED)
+        critic = CLIP(cfg)
+    path = getattr(args, "critic_weights", None)
+    if path:
+        from tris_tpu_torch.ckpt.convert import load_torch_checkpoint
+
+        sd = {k: v for k, v in load_torch_checkpoint(path).items()
+              if k not in ("input_resolution", "context_length", "vocab_size")}
+        critic.load_state_dict(sd, strict=True)
+    return critic.to(dev).eval()
 
 
 def load_pretrained(args, model: TRISStage1) -> TRISStage1:

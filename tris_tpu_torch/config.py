@@ -5,8 +5,8 @@ flag surface (same names/defaults, `reference/args.py:3-98`) so shell
 scripts written against the reference work unchanged, plus those of the JAX
 package's additions that this package implements (or refuses by name, as
 ``--bf16``) and its own ``--device``. The JAX package's multi-host, tensor
-parallel, profiler, EMA-eval and weight-init options are not here: passing
-one is an argparse error, not a silent no-op.
+parallel, profiler, EMA-eval and backbone weight-init options are not here:
+passing one is an argparse error, not a silent no-op.
 """
 
 from __future__ import annotations
@@ -85,6 +85,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (not ported yet: the kernels take float32)")
     parser.add_argument("--seed", default=1234, type=int)
+    parser.add_argument("--critic_weights", default=None, type=str,
+                        help="OpenAI ViT-B-32.pt for the PRMS critic (default: random init)")
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device the model runs on (cuda or cpu)")
     parser.add_argument("--eval_batch", default=8, type=int, help="refs per eval batch")

@@ -1,10 +1,12 @@
-"""Batched stage-1 evaluation (non-PRMS).
+"""Batched stage-1 evaluation and PRMS response-map selection.
 
-Port of ``tris_tpu/eval/validate.py::validate``. All padded sentences of a
-batch of refs go through one forward of ``TRISStage1.response_maps``
-(``[B, S, H, W]`` maps, the reference's batch-1-per-sentence semantics);
-the maps are then upsampled to each image's ORIGINAL size, max-normalised
-and thresholded (validate.py:180-208 of the reference):
+Port of ``tris_tpu/eval/validate.py::validate`` and ``validate_prms``. All
+padded sentences of a batch of refs go through one forward of
+``TRISStage1.response_maps`` (``[B, S, H, W]`` maps, the reference's
+batch-1-per-sentence semantics); the u8 feed is normalised on the card by K6.
+PRMS then scores every map with the frozen ViT critic (its input is K5) and
+keeps each ref's best one. The maps are upsampled to each image's ORIGINAL
+size, max-normalised and thresholded (validate.py:180-208 of the reference):
 
 - on the card by K4 (``kernels.eval_metrics``): when neither CAMs nor box
   metrics are wanted only [B, S] (I, U, hit, hitm) scalars reach the host
@@ -30,7 +32,6 @@ import torch
 from tris_tpu_torch import kernels
 from tris_tpu_torch.device import HostFetch, to_device
 from tris_tpu_torch.eval.metrics import SegEvalAccumulator
-from tris_tpu_torch.ops.normalize import image_input_to_f32
 from tris_tpu_torch.ops.resize import _resize_matrix_np
 
 
@@ -89,14 +90,54 @@ def _max_orig_size(loader) -> tuple:
     return int(maxh), int(maxw)
 
 
+def image_to_nchw(image: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, 3] u8 (normalised by K6) or already-normalised f32 ->
+    [B, 3, H, W] float32."""
+    if image.dtype == torch.uint8:
+        return kernels.normalize_u8_nchw(image)
+    return image.permute(0, 3, 1, 2).contiguous()
+
+
 def make_eval_forward(model):
     """(image [B, H, W, 3] numpy f32 or u8, word_ids [B, S, L] numpy) ->
     relu maps [B, S, H, W] on the model's device (queued, not waited for)."""
     device = next(model.parameters()).device
 
     def forward(image: np.ndarray, word_ids: np.ndarray) -> torch.Tensor:
-        x = image_input_to_f32(to_device(image, device)).permute(0, 3, 1, 2).contiguous()
+        x = image_to_nchw(to_device(image, device))
         return model.response_maps(x, to_device(word_ids, device))
+
+    return forward
+
+
+def make_prms_forward(model, critic):
+    """One PRMS step for a ref batch, on the models' device (queued).
+
+    (image [B, H, W, 3] numpy f32 or u8, word_ids [B, S, L], valid [B, S]
+    bool) -> (best [B], relu maps [B, S, H, W], scores [B, S]), with
+    ``score_j = sum_i cos(critic_img(map_j * image), critic_txt(sent_i))``
+    over the valid sentences i (validate.py:311-334 of the reference); an
+    invalid j scores -inf."""
+    device = next(model.parameters()).device
+    size = critic.config.image_resolution
+    patch = critic.config.vision_patch_size
+
+    def forward(image: np.ndarray, word_ids: np.ndarray, valid: np.ndarray):
+        x = image_to_nchw(to_device(image, device))
+        ids = to_device(word_ids, device)
+        valid_t = to_device(valid, device)
+        B, S, L = ids.shape
+        cams = model.response_maps(x, ids)                              # [B, S, H, W]
+        a = kernels.critic_input(cams.reshape(B * S, *cams.shape[2:]), x, S, size, patch)
+        img_feat = critic.visual.forward_patches(a)                     # [B*S, C]
+        _, txt_feat = critic.encode_text(ids.reshape(B * S, L))
+        img_feat = img_feat / torch.linalg.vector_norm(img_feat, dim=-1, keepdim=True)
+        txt_feat = txt_feat / torch.linalg.vector_norm(txt_feat, dim=-1, keepdim=True)
+        score_mat = torch.einsum("bjc,bic->bji", img_feat.reshape(B, S, -1),
+                                 txt_feat.reshape(B, S, -1))            # [B, Sj, Si]
+        scores = score_mat.masked_fill(~valid_t[:, None, :], 0.0).sum(dim=2)
+        scores = scores.masked_fill(~valid_t, -torch.inf)
+        return scores.argmax(dim=1), cams, scores
 
     return forward
 
@@ -199,4 +240,123 @@ def validate(
         os.makedirs(name_save_dir, exist_ok=True)
         with open(os.path.join(name_save_dir, f"{dataset_name}_train_cam_name.json"), "w") as f:
             json.dump(cam_out_names, f)
+    return acc.merge_across_processes().results()
+
+
+def _names_of_all_processes(names: list):
+    """(every process's names, rank 0 first; whether this process writes
+    them): gathered over ``torch.distributed`` when a group is initialised."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return names, True
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, names)
+    return [n for part in parts for n in part], dist.get_rank() == 0
+
+
+@torch.no_grad()
+def validate_prms(
+    model,
+    critic,
+    loader,
+    save_cam: bool = False,
+    cam_save_dir: Optional[str] = None,
+    name_save_dir: Optional[str] = None,
+    dataset_name: str = "refcoco",
+    print_freq: int = 50,
+    log=print,
+    host_threads: int = 0,
+    device_resize: bool = True,
+) -> dict:
+    """PRMS evaluation and the CAM dump that feeds IRNet
+    (validate.py:253-387 of the reference): per ref, the best-scoring
+    sentence's map is kept, scored with weight ``num_sents``, and with
+    ``save_cam`` saved as ``{cam_save_dir}/{idx}_{img_id}.npy`` at the
+    original size, its name listed in ``{dataset}_train_names.json``.
+
+    Pipelined like :func:`validate`. With ``device_resize`` K4 upsamples
+    and max-normalises the selected map on the card and reduces it to [B]
+    scalars; the normalised map is fetched only for ``save_cam``. With
+    ``device_resize=False`` the host does it. The names json lists every
+    process's names and is written by rank 0 alone (the JAX package writes
+    it from every process with its own names only)."""
+    model.eval()
+    critic.eval()
+    device = next(model.parameters()).device
+    forward = make_prms_forward(model, critic)
+    acc = SegEvalAccumulator(with_boxes=False)
+    cam_out_names = []
+    if save_cam and cam_save_dir:
+        os.makedirs(cam_save_dir, exist_ok=True)
+    max_size = _max_orig_size(loader) if device_resize else None
+    pool = None if max_size else _host_pool(host_threads)
+    step = 0
+
+    def dump(batch, b, cam_norm):
+        if save_cam and cam_save_dir:
+            name = f"{int(batch['index'][b])}_{int(batch['img_id'][b])}"
+            np.save(os.path.join(cam_save_dir, f"{name}.npy"), cam_norm)
+            cam_out_names.append(name)
+
+    def process(fetch, batch):
+        out = fetch.numpy()
+        # n == 0 rows are the padding of a short final batch
+        jobs = [b for b in range(len(batch["target"])) if int(batch["num_sents"][b]) > 0]
+        if max_size:
+            I, U, hit, hitm = out[:4]
+            for b in jobs:
+                acc.add_stats(float(I[b]), float(U[b]), float(hit[b]), float(hitm[b]),
+                              weight=int(batch["num_sents"][b]))
+                if save_cam:
+                    oh, ow = batch["target"][b].shape
+                    dump(batch, b, out[4][b, :oh, :ow])
+            return
+        best, cams = out
+
+        def one(b):
+            oh, ow = batch["target"][b].shape
+            cam = resize_to_original_np(cams[b, int(best[b])], oh, ow)
+            cam_norm, pred = normalize_threshold(cam)
+            return b, pred, cam_norm.astype(np.float32)
+
+        for b, pred, cam_norm in _map_jobs(pool, one, jobs):
+            acc.add(batch["target"][b], pred, cam_norm, batch["bbox"][b],
+                    weight=int(batch["num_sents"][b]))
+            dump(batch, b, cam_norm)
+
+    pending = None
+    for batch in loader.epoch(0):
+        valid = np.arange(batch["word_ids"].shape[1])[None] < batch["num_sents"][:, None]
+        best, cams, _ = forward(batch["image"], batch["word_ids"], valid)
+        if max_size:
+            B, S, H, W = cams.shape
+            sel = cams.gather(1, best[:, None, None, None].expand(B, 1, H, W))
+            tables = kernels.eval_tables(H, W, [t.shape for t in batch["target"]], max_size,
+                                         device)
+            tgt, boxes = _padded_targets_boxes(batch, *max_size)
+            stats = kernels.eval_metrics(sel, tables, to_device(tgt, device),
+                                         to_device(boxes, device))
+            out = [s[:, 0] for s in stats]
+            if save_cam:
+                out.append(kernels.eval_metrics(sel, tables, want_norm=True)[:, 0])
+        else:
+            out = [best, cams]
+        fetch = HostFetch(out)
+        if pending is not None:
+            process(*pending)
+            step += 1
+            if step % print_freq == 0:
+                r = acc.results()
+                log(f"prms [{step}] mIoU {r['mIoU']:.3f} oIoU {r['oIoU']:.3f} hit {r['hit']:.3f}")
+        pending = (fetch, batch)
+    if pending is not None:
+        process(*pending)
+    if pool is not None:
+        pool.shutdown()
+    names, writer = _names_of_all_processes(cam_out_names)
+    if save_cam and name_save_dir and writer:
+        os.makedirs(name_save_dir, exist_ok=True)
+        with open(os.path.join(name_save_dir, f"{dataset_name}_train_names.json"), "w") as f:
+            json.dump(names, f)
     return acc.merge_across_processes().results()

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("mha_short", "cross_attn", "response_head", "eval_metrics")
+KERNELS = ("mha_short", "cross_attn", "response_head", "eval_metrics", "critic_input",
+           "normalize_u8")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 
 launches = {name: 0 for name in KERNELS}

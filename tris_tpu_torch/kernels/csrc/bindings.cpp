@@ -153,6 +153,44 @@ at::Tensor eval_metrics(const at::Tensor& cams, const std::vector<at::Tensor>& t
   return out;
 }
 
+// K5: cams [P, H, W]; image [P/S, 3, H, W]; ty, tx the taps to [n] rows and
+// columns. Returns A [P * (n/ps)^2, 3 * ps * ps].
+at::Tensor critic_input(const at::Tensor& cams, const at::Tensor& image,
+                        const std::vector<at::Tensor>& ty, const std::vector<at::Tensor>& tx,
+                        int64_t S, int64_t ps) {
+  const at::Device dev = cams.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(cams, "critic_input: cams", at::kFloat, dev);
+  check(image, "critic_input: image", at::kFloat, dev);
+  const Taps y = taps(ty, "critic_input: row taps", dev);
+  const Taps x = taps(tx, "critic_input: column taps", dev);
+  const int64_t P = cams.size(0), n = ty[0].size(0), g = n / ps;
+  at::Tensor out = at::empty({P * g * g, 3 * ps * ps}, cams.options());
+  launched(tris::critic_input(cams.data_ptr<float>(), image.data_ptr<float>(),
+                              out.data_ptr<float>(), P, S, cams.size(1), cams.size(2), n, ps,
+                              y.lo, y.hi, y.w0, y.w1, x.lo, x.hi, x.w0, x.w1, stream()),
+           "critic_input");
+  return out;
+}
+
+// K6: image uint8 [B, H, W, 3]; scale, bias 3 values each. Returns the
+// normalised [B, 3, H, W] float32.
+at::Tensor normalize_u8(const at::Tensor& image, const std::vector<double>& scale,
+                        const std::vector<double>& bias) {
+  const at::Device dev = image.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(image, "normalize_u8: image", at::kByte, dev);
+  TORCH_CHECK(scale.size() == 3 && bias.size() == 3, "normalize_u8: 3 scales and 3 biases");
+  const int64_t B = image.size(0), H = image.size(1), W = image.size(2);
+  const float s[3] = {(float)scale[0], (float)scale[1], (float)scale[2]};
+  const float b[3] = {(float)bias[0], (float)bias[1], (float)bias[2]};
+  at::Tensor out = at::empty({B, 3, H, W}, image.options().dtype(at::kFloat));
+  launched(tris::normalize_u8(image.data_ptr<unsigned char>(), out.data_ptr<float>(), B * H * W,
+                              H * W, s, b, stream()),
+           "normalize_u8");
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -160,4 +198,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("cross_attn", &cross_attn, "K2: BilateralPrompt cross-attention");
   m.def("response_head", &response_head, "K3: stage-1 response head");
   m.def("eval_metrics", &eval_metrics, "K4: eval resize, normalise and metrics");
+  m.def("critic_input", &critic_input, "K5: the critic's resized, modulated patch matrix");
+  m.def("normalize_u8", &normalize_u8, "K6: u8 NHWC image to normalised f32 NCHW");
 }

@@ -40,4 +40,16 @@ cudaError_t eval_metrics(const float* cams, int B, int S, int h, int w, int maxH
                          const int* orig_hw, const unsigned char* targets, const float* boxes,
                          float* norm_out, float* stats, cudaStream_t stream);
 
+// K5: cams [P, H, W]; image [P/S, 3, H, W]; y taps [n], x taps [n];
+// out [P * (n/ps)^2, 3 * ps * ps], columns (c, py, px).
+cudaError_t critic_input(const float* cams, const float* image, float* out, int P, int S, int H,
+                         int W, int n, int ps, const int* ylo, const int* yhi, const float* wy0,
+                         const float* wy1, const int* xlo, const int* xhi, const float* wx0,
+                         const float* wx1, cudaStream_t stream);
+
+// K6: image uint8 [B, H, W, 3] (n_pix = B*H*W pixels, hw = H*W); out [B, 3, H, W];
+// scale and bias point to 3 floats each in host memory.
+cudaError_t normalize_u8(const unsigned char* image, float* out, int64_t n_pix, int64_t hw,
+                         const float* scale, const float* bias, cudaStream_t stream);
+
 }  // namespace tris

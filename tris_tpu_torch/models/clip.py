@@ -1,13 +1,14 @@
-"""Modified CLIP backbone (ResNet variants), NCHW.
+"""Modified CLIP backbone (ResNet and ViT vision towers), NCHW.
 
 Port of ``tris_tpu/models/clip.py`` (the reference's surgically modified
 OpenAI CLIP): ``ModifiedResNet`` returns the pyramid ``(c1, c2, c3, c4)``
 plus, when asked for, the attention pool's ``(global, map)``;
-``encode_text`` returns the token sequence after ``ln_final`` and the EOT
-embedding projected by ``text_projection``, with the causal mask built at
-the ids' length. Module tree and ``state_dict`` keys follow the reference
-CLIP (``visual.layer1.0.conv1.weight``, ``transformer.resblocks.0.attn.
-in_proj_weight``, ...). The ViT towers are not ported yet.
+``VisionTransformer`` (the ViT-B/32 critic) returns the projected CLS
+embedding; ``encode_text`` returns the token sequence after ``ln_final`` and
+the EOT embedding projected by ``text_projection``, with the causal mask
+built at the ids' length. Module tree and ``state_dict`` keys follow the
+reference CLIP (``visual.layer1.0.conv1.weight``, ``visual.conv1.weight``,
+``transformer.resblocks.0.attn.in_proj_weight``, ...).
 """
 
 from __future__ import annotations
@@ -164,18 +165,77 @@ class Transformer(nn.Module):
         return x
 
 
+class PatchEmbed(nn.Module):
+    """ViT patch embedding: the stride == patch convolution written as one
+    product ``A @ weight.reshape(width, -1).T`` over the patch matrix A
+    [N*grid^2, 3*ps*ps], as the JAX package's ``PatchEmbed`` does. ``weight``
+    keeps the reference's conv layout, OIHW [width, 3, ps, ps] without bias,
+    so A's columns run (c, py, px)."""
+
+    def __init__(self, patch_size: int, width: int, in_channels: int = 3):
+        super().__init__()
+        self.patch_size = patch_size
+        fan_in = in_channels * patch_size * patch_size
+        self.weight = nn.Parameter(
+            torch.randn(width, in_channels, patch_size, patch_size) * fan_in ** -0.5)
+
+    def patchify(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW image -> the patch matrix A [N*grid^2, C*ps*ps]."""
+        N, C, H, W = x.shape
+        ps = self.patch_size
+        p = x.reshape(N, C, H // ps, ps, W // ps, ps).permute(0, 2, 4, 1, 3, 5)
+        return p.reshape(N * (H // ps) * (W // ps), C * ps * ps)
+
+    def forward(self, a: torch.Tensor) -> torch.Tensor:
+        return a @ self.weight.reshape(self.weight.shape[0], -1).T
+
+
+class VisionTransformer(nn.Module):
+    """Plain CLIP ViT returning the projected CLS embedding; the frozen
+    critic (ViT-B/32) of PRMS and of the stage-1 losses."""
+
+    def __init__(self, input_resolution: int, patch_size: int, width: int, layers: int,
+                 heads: int, output_dim: int):
+        super().__init__()
+        self.grid = input_resolution // patch_size
+        scale = width ** -0.5
+        self.conv1 = PatchEmbed(patch_size, width)
+        self.class_embedding = nn.Parameter(scale * torch.randn(width))
+        self.positional_embedding = nn.Parameter(scale * torch.randn(self.grid ** 2 + 1, width))
+        self.ln_pre = LayerNormFp32(width)
+        self.transformer = Transformer(width, layers, heads)
+        self.ln_post = LayerNormFp32(width)
+        self.proj = nn.Parameter(scale * torch.randn(width, output_dim))
+
+    def forward_patches(self, a: torch.Tensor) -> torch.Tensor:
+        """Patch matrix A [N*grid^2, 3*ps*ps] (as K5 writes it) -> [N, output_dim]."""
+        x = self.conv1(a)
+        width = x.shape[-1]
+        x = x.reshape(-1, self.grid ** 2, width)
+        cls = self.class_embedding.expand(x.shape[0], 1, width)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        x = self.transformer(self.ln_pre(x))
+        return self.ln_post(x[:, 0]) @ self.proj
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: NCHW image at ``input_resolution`` -> [N, output_dim]."""
+        return self.forward_patches(self.conv1.patchify(x))
+
+
 class CLIP(nn.Module):
-    """CLIP with the reference's modified outputs (ResNet vision towers)."""
+    """CLIP with the reference's modified outputs."""
 
     def __init__(self, config: CLIPConfig):
         super().__init__()
         cfg = config
-        if cfg.is_vit:
-            raise NotImplementedError(
-                "the ViT vision tower is not ported yet (it comes with the PRMS/critic slice)")
         self.config = cfg
-        self.visual = ModifiedResNet(cfg.vision_layers, cfg.embed_dim, cfg.vision_heads,
-                                     cfg.image_resolution, cfg.vision_width)
+        if cfg.is_vit:
+            self.visual = VisionTransformer(cfg.image_resolution, cfg.vision_patch_size,
+                                            cfg.vision_width, cfg.vision_layers,
+                                            cfg.vision_heads, cfg.embed_dim)
+        else:
+            self.visual = ModifiedResNet(cfg.vision_layers, cfg.embed_dim, cfg.vision_heads,
+                                         cfg.image_resolution, cfg.vision_width)
         self.transformer = Transformer(cfg.transformer_width, cfg.transformer_layers,
                                        cfg.transformer_heads)
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.transformer_width)
@@ -187,7 +247,10 @@ class CLIP(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(float(np.log(1 / 0.07))))
 
     def encode_image(self, image: torch.Tensor, pool: bool = True):
-        """image: NCHW float -> ``(c1, c2, c3, c4, (global, map) or None)``."""
+        """image: NCHW float. ResNet: ``(c1, c2, c3, c4, (global, map) or
+        None)``; ViT: the global embedding [N, embed_dim] (``pool`` unused)."""
+        if self.config.is_vit:
+            return self.visual(image)
         return self.visual(image, pool=pool)
 
     def encode_text(self, text_ids: torch.Tensor):
