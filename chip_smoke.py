@@ -8,16 +8,17 @@ and a failed check of phases 3-5 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
-2. build   - the six hand-written kernels from
-             ``tris_tpu_torch/kernels/csrc`` (``torch.utils.cpp_extension``,
-             ``nvcc``, ``sm_90a``);
+2. build   - the hand-written kernels from ``tris_tpu_torch/kernels/csrc``
+             (``torch.utils.cpp_extension``, ``nvcc``, ``sm_90a``; ninja
+             compiles the sources in parallel);
 3. kernels - each kernel against its plain PyTorch version on the card at
              the main paths' shapes (K1 at the text towers', the ViT
              critic's and attnpool's; K4 at stage-1 eval's and on PRMS's
-             selected maps), with its stated tolerance; device times of
-             kernel, plain version and, where one exists, the one PyTorch
-             call computing the same thing; the least time the card could
-             take (bytes or FP32 operations over the published peak);
+             selected maps; the backward kernels and K3's training head at
+             the stage-1 train step's), with its stated tolerance; device
+             times of kernel, plain version and, where one exists, the one
+             PyTorch call computing the same thing; the least time the card
+             could take (bytes or FP32 operations over the published peak);
 4. stage-1 eval - RN50 stage 1 at full width (hidden 1024, 20 tokens,
              320 px, B=8 refs x S=4 sentences, seeded random weights):
              ``response_maps``, ``forward(train=False)`` and
@@ -62,6 +63,17 @@ B, S, SIZE, TXT_LEN = 8, 4, 320, 20
 CRITIC = "ViT-B-32"
 N_EVAL_BATCHES = 8
 ROUNDS = 7  # host step times: median and range over this many rounds per route
+# the forward kernels of stage-1 eval (PRMS adds critic_input)
+EVAL_KERNELS = ("mha_short", "cross_attn", "response_head", "eval_metrics", "normalize_u8")
+# the stage-1 train step (bench.py:266-270 of the JAX package): B=48, 3 negatives
+TRAIN_B, TRAIN_NEG, TRAIN_STEPS, N_TRAIN_BATCHES = 48, 3, 3, 4
+# kernel launches per train step at that shape: K1 forward in the stage-1
+# text tower, the critic's vision tower and its text tower (12 layers each),
+# its backward in the first two; K2 2 + 4; K3's head 3 + 4; K5 1 + 2; K6 1
+TRAIN_LAUNCHES_PER_STEP = {"mha_short": 36, "mha_short_bwd": 24, "cross_attn": 2,
+                           "cross_attn_bwd": 4, "stage1_head": 3, "stage1_head_bwd": 4,
+                           "critic_input": 1, "critic_input_bwd": 2, "normalize_u8": 1,
+                           "response_head": 0, "eval_metrics": 0}
 # H100 SXM published peaks: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
@@ -126,6 +138,33 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def measure_row(failures, name, err, tol, ms, plain_ms, nbytes, flops, library_ms, **extra):
+    """A kernel's numbers, logged; a failure noted when ``err`` exceeds ``tol``."""
+    b_ms, b_by = bound_ms(nbytes, flops)
+    row = {"name": name, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, **extra}
+    log(f"kernel {name}: max_abs_err {err:.3g} (tol {tol:.3g}) ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {library_ms}")
+    if not err <= tol:
+        failures.append(f"{name}: max_abs_err {err} > {tol}")
+    return row
+
+
+def kernel_row(name, source, replaces, row, shapes=()):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, **{k: v for k, v in row.items() if k != "name"},
+            "shapes": list(shapes)}
+
+
+def sdpa(q, k, v, H, mask):
+    """The library's attention on [N, L, C] tensors, output in heads layout."""
+    import torch.nn.functional as F
+
+    n, _, c = q.shape
+    heads = [x.view(n, x.shape[1], H, c // H).transpose(1, 2) for x in (q, k, v)]
+    return F.scaled_dot_product_attention(*heads, attn_mask=mask)
+
+
 # ---- phase 3: each kernel against its plain version -------------------------
 
 
@@ -145,25 +184,8 @@ def check_kernels(K, dev):
 
     failures = []
 
-    def measure(name, err, tol, ms, plain_ms, nbytes, flops, library_ms, **extra):
-        b_ms, b_by = bound_ms(nbytes, flops)
-        row = {"name": name, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, **extra}
-        log(f"kernel {name}: max_abs_err {err:.3g} (tol {tol:g}) ms {ms:.4f} plain_ms "
-            f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {library_ms}")
-        if not err <= tol:
-            failures.append(f"{name}: max_abs_err {err} > {tol}")
-        return row
-
-    def kernel_row(name, source, replaces, row, shapes=()):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": None, **{k: v for k, v in row.items() if k != "name"},
-                "shapes": list(shapes)}
-
-    def sdpa(q, k, v, H, mask):
-        n, l, c = q.shape
-        heads = [x.view(n, x.shape[1], H, c // H).transpose(1, 2) for x in (q, k, v)]
-        return F.scaled_dot_product_attention(*heads, attn_mask=mask)
+    def measure(*args, **kw):
+        return measure_row(failures, *args, **kw)
 
     def mha(name, N, L, C, H, causal):
         # q/k/v read in place from one fused qkv tensor; the plain einsums
@@ -302,6 +324,173 @@ def check_kernels(K, dev):
     return rows, failures
 
 
+def check_train_kernels(K, dev):
+    """One row per backward kernel and for K3's training head, at the
+    stage-1 train step's shapes (B=48, T=48 texts, 320 px), each against
+    autograd of its plain version on the same inputs. A backward row's
+    ``ms``, ``plain_ms`` and ``library_ms`` time the backward alone (on a
+    retained graph); K1's also carry forward-plus-backward times, the SDPA
+    comparison. K2's forward at T=48 is a sub-row of ``cross_attn``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.models.clip import CLIP_CONFIGS
+    from tris_tpu_torch.models.layers import causal_mask
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    failures, rows, extra_rows = [], [], {}
+
+    def grads(fn, inputs, cots):
+        outs = fn(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, c) for o, c in zip(outs, cots) if c is not None]
+        return [o for o, _ in pairs], [c for _, c in pairs]
+
+    def bwd_ms(fn, inputs, cots):
+        outs, cs = grads(fn, inputs, cots)
+        return device_ms(lambda: torch.autograd.grad(outs, inputs, cs, retain_graph=True))
+
+    def fwd_bwd_ms(fn, inputs, cots):
+        def step():
+            outs, cs = grads(fn, inputs, cots)
+            torch.autograd.grad(outs, inputs, cs)
+        return device_ms(step)
+
+    def leaves(*ts):
+        return [t.detach().requires_grad_() for t in ts]
+
+    def compare(name, fn, plain, inputs, cots, rel_tol):
+        """max error of the kernel's input gradients against the plain
+        version's, and the tolerance (rel_tol of the largest gradient)."""
+        outs, cs = grads(fn, inputs, cots)
+        got = torch.autograd.grad(outs, inputs, cs)
+        outs, cs = grads(plain, inputs, cots)
+        want = torch.autograd.grad(outs, inputs, cs)
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        if not finite:
+            failures.append(f"{name}: non-finite gradient")
+        return err, rel_tol * max(scale, 1.0), scale
+
+    def row(name, source, replaces, *args, **extra):
+        return kernel_row(name, source, replaces, measure_row(failures, name, *args, **extra))
+
+    # K1 backward: the stage-1 text tower and the critic's vision tower, q/k/v
+    # the strided column views of one fused qkv tensor, as on the path; 2e-5
+    # of the gradient's scale (f32 sums of up to 50 products, both routes)
+    vit = CLIP_CONFIGS[CRITIC]
+    n_vit = (vit.image_resolution // vit.vision_patch_size) ** 2 + 1
+    mha_rows = []
+    for name, (N, L, C, H, causal) in (
+            ("mha_short_bwd", (TRAIN_B, TXT_LEN, 512, 8, True)),
+            ("mha_short_bwd@vit", (TRAIN_B, n_vit, vit.vision_width, vit.vision_heads, False))):
+        mask = causal_mask(L, device=dev) if causal else None
+        (qkv,) = leaves(randn(N, L, 3 * C))
+        cot, cot_lib = [randn(N, L, C)], [randn(N, H, L, C // H)]   # SDPA's heads layout
+        kern = lambda x: K.mha_short(*x.chunk(3, dim=-1), H, mask)  # noqa: E731
+        plain = lambda x: K.mha_short_plain(*x.chunk(3, dim=-1), H, mask)  # noqa: E731
+        lib = lambda x: sdpa(*x.chunk(3, dim=-1), H, mask)  # noqa: E731
+        err, tol, _ = compare(name, kern, plain, [qkv], cot, 2e-5)
+        hd = C // H
+        mha_rows.append(row(
+            name, "tris_tpu_torch/kernels/csrc/mha_short_bwd.cu", "tris_tpu/models/layers.py:25",
+            err, tol, bwd_ms(kern, [qkv], cot), bwd_ms(plain, [qkv], cot),
+            4 * (7 * N * L * C + (L * L if causal else 0)), 8 * N * H * L * L * hd,
+            bwd_ms(lib, [qkv], cot_lib), shape=[N, L, C, H], causal=causal,
+            fwd_bwd_ms=fwd_bwd_ms(kern, [qkv], cot), plain_fwd_bwd_ms=fwd_bwd_ms(plain, [qkv], cot),
+            library_fwd_bwd_ms=fwd_bwd_ms(lib, [qkv], cot_lib)))
+    mha_rows[0]["shapes"] = [mha_rows.pop()]
+    rows += mha_rows
+
+    # K2 at T=48 (every text of the batch), S=1: the forward, timed, and the
+    # backward; relu'd inputs like the projections that feed it; 1e-4 of the
+    # gradient's scale (1024-long f32 dot products on both routes)
+    hw, m, T = (SIZE // 32) ** 2, 1024, TRAIN_B
+    ins = leaves(*(torch.relu(randn(TRAIN_B, hw, m)) for _ in range(3)),
+                 *(torch.relu(randn(TRAIN_B, T, m)) for _ in range(3)))
+    div = math.sqrt(m)
+    with torch.no_grad():
+        got, want = K.cross_attn(*ins, 1, div), K.cross_attn_plain(*ins, 1, div)
+        fwd_err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        fwd = {"name": "cross_attn@train", "shape": [TRAIN_B, 1, hw, m, T], "max_abs_err": fwd_err,
+               "tol": 1e-4, "ms": device_ms(lambda: K.cross_attn(*ins, 1, div)),
+               "plain_ms": device_ms(lambda: K.cross_attn_plain(*ins, 1, div))}
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(4 * (3 * TRAIN_B * hw * m + 3 * TRAIN_B * T * m
+                                                     + TRAIN_B * (hw + T) * m),
+                                                8 * TRAIN_B * hw * T * m)
+    if not fwd_err <= 1e-4:
+        failures.append(f"cross_attn@train: max_abs_err {fwd_err} > 1e-4")
+    log(f"kernel cross_attn@train: {json.dumps(fwd)}")
+    extra_rows["cross_attn"] = fwd
+    cot = [randn(TRAIN_B, hw, m), randn(TRAIN_B, T, m)]
+    kern = lambda *x: K.cross_attn(*x, 1, div)  # noqa: E731
+    plain = lambda *x: K.cross_attn_plain(*x, 1, div)  # noqa: E731
+    err, tol, _ = compare("cross_attn_bwd", kern, plain, ins, cot, 1e-4)
+    rows.append(row(
+        "cross_attn_bwd", "tris_tpu_torch/kernels/csrc/cross_attn_bwd.cu",
+        "tris_tpu/models/fusion.py:85", err, tol, bwd_ms(kern, ins, cot), bwd_ms(plain, ins, cot),
+        4 * 7 * TRAIN_B * (hw + T) * m, 16 * TRAIN_B * hw * T * m, None,
+        shape=[TRAIN_B, hw, T, m]))
+
+    # K3's training head: vis_p [48, 100, 1024], lan_p [48, 48, 1024] -> cls
+    # [48, 48] and maps [48, 320, 320]; forward outputs within 1e-5 and the
+    # gradients within 1e-4 of their scale (1024-long dots, 4800-long sums)
+    D, hs = 1024, SIZE // 32
+    vis, lan = leaves(F.normalize(randn(TRAIN_B, hw, D), dim=-1),
+                      F.normalize(randn(TRAIN_B, T, D), dim=-1))
+    scale = torch.tensor(1 / 0.07, device=dev)
+    args = (scale, (hs, hs), (SIZE, SIZE), 3.0, 0.01)
+    with torch.no_grad():
+        got, want = K.stage1_head(vis, lan, *args), K.stage1_head_plain(vis, lan, *args)
+    out_scale = max(float(w.abs().max()) for w in want)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    maps_bytes = 2 * TRAIN_B * SIZE * SIZE
+    rows.append(row(
+        "stage1_head", "tris_tpu_torch/kernels/csrc/stage1_head.cu", "tris_tpu/models/stage1.py:100",
+        err, 1e-5 * max(out_scale, 1.0),
+        device_ms(lambda: K.stage1_head(vis.detach(), lan.detach(), *args)),
+        device_ms(lambda: K.stage1_head_plain(vis.detach(), lan.detach(), *args)),
+        4 * (TRAIN_B * hw * D + TRAIN_B * T * D + TRAIN_B * T + TRAIN_B + maps_bytes),
+        2 * TRAIN_B * hw * T * D + 20 * TRAIN_B * hw * T + 10 * maps_bytes, None,
+        shape=[TRAIN_B, hw, T, D, SIZE]))
+    cot = [randn(TRAIN_B, T), None, None, randn(TRAIN_B, SIZE, SIZE)]   # the loss's: cls and sig
+    kern = lambda v, l: K.stage1_head(v, l, *args)  # noqa: E731
+    plain = lambda v, l: K.stage1_head_plain(v, l, *args)  # noqa: E731
+    err, tol, _ = compare("stage1_head_bwd", kern, plain, [vis, lan], cot, 1e-4)
+    rows.append(row(
+        "stage1_head_bwd", "tris_tpu_torch/kernels/csrc/stage1_head.cu",
+        "tris_tpu/models/stage1.py:100", err, tol, bwd_ms(kern, [vis, lan], cot),
+        bwd_ms(plain, [vis, lan], cot),
+        4 * (2 * (TRAIN_B * hw * D + TRAIN_B * T * D) + TRAIN_B * T + TRAIN_B * hw * T
+             + TRAIN_B * SIZE * SIZE),
+        4 * TRAIN_B * hw * T * D + 30 * TRAIN_B * hw * T + 12 * TRAIN_B * SIZE * SIZE, None,
+        shape=[TRAIN_B, hw, T, D, SIZE]))
+
+    # K5 backward: 48 sigmoid maps and images, 320 -> 224, patch 32; the
+    # plain version's index backward scatters with atomics (its sums' order
+    # changes from run to run), so 1e-5 of the gradient's scale
+    n, ps = vit.image_resolution, vit.vision_patch_size
+    (cams,) = leaves(torch.sigmoid(randn(TRAIN_B, SIZE, SIZE)))
+    image = randn(TRAIN_B, 3, SIZE, SIZE)
+    cot = [randn(TRAIN_B * (n // ps) ** 2, 3 * ps * ps)]
+    kern = lambda c: K.critic_input(c, image, 1, n, ps)  # noqa: E731
+    plain = lambda c: K.critic_input_plain(c, image, 1, n, ps)  # noqa: E731
+    err, tol, _ = compare("critic_input_bwd", kern, plain, [cams], cot, 1e-5)
+    rows.append(row(
+        "critic_input_bwd", "tris_tpu_torch/kernels/csrc/critic_input_bwd.cu",
+        "tris_tpu/train/stage1.py:70", err, tol, bwd_ms(kern, [cams], cot),
+        bwd_ms(plain, [cams], cot),
+        4 * (cot[0].numel() + image.numel() + cams.numel()),
+        TRAIN_B * n * n * 3 * 8 + TRAIN_B * (n * SIZE + SIZE * SIZE) * 4, None,
+        shape=[TRAIN_B, SIZE, n, ps]))
+    return rows, extra_rows, failures
+
+
 # ---- phase 4: the main path ------------------------------------------------
 
 
@@ -360,8 +549,9 @@ class SyntheticEvalLoader:
 def plain_kernels(K):
     """Route the models' kernel calls to the plain versions, for comparison."""
     plain = {"mha_short": K.mha_short_plain, "cross_attn": K.cross_attn_plain,
-             "response_head": K.response_head_plain, "eval_metrics": K.eval_metrics_plain,
-             "critic_input": K.critic_input_plain, "normalize_u8_nchw": K.normalize_u8_nchw_plain}
+             "response_head": K.response_head_plain, "stage1_head": K.stage1_head_plain,
+             "eval_metrics": K.eval_metrics_plain, "critic_input": K.critic_input_plain,
+             "normalize_u8_nchw": K.normalize_u8_nchw_plain}
     saved = {name: getattr(K, name) for name in plain}
     for name, fn in plain.items():
         setattr(K, name, fn)
@@ -436,8 +626,8 @@ def stage1_path(K, dev, model, batches):
                     for k, fn in steps.items():
                         times[route][k].append(host_ms(fn) / per[k])
 
-    failures = [f"stage-1 eval: {name} launched no time" for name, n in launches.items()
-                if n == 0 and name != "critic_input"]
+    failures = [f"stage-1 eval: {name} launched no time" for name in EVAL_KERNELS
+                if launches[name] == 0]
     for name, t, shape in (("response_maps", maps, (B, S, SIZE, SIZE)), ("forward", fwd, (B, 1, SIZE, SIZE))):
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()) or bool((t < 0).any()):
             failures.append(f"{name}: want finite non-negative {shape}, got {tuple(t.shape)}")
@@ -517,7 +707,8 @@ def prms_path(K, dev, model, batches):
                     times[route].append(host_ms(lambda: validate_prms(model, critic, loader, log=quiet))
                                         / len(batches))
 
-        failures += [f"PRMS: {name} launched no time" for name, n in launches.items() if n == 0]
+        failures += [f"PRMS: {name} launched no time" for name in EVAL_KERNELS + ("critic_input",)
+                     if launches[name] == 0]
         # scores: within 1e-4 of their scale (K1's, K2's and K3's sums run
         # in another order than the plain einsums; sums of cosines, so the
         # scale may be well below 1); best: equal wherever the top two
@@ -592,6 +783,153 @@ def prms_path(K, dev, model, batches):
     return summary, failures
 
 
+# ---- phase 6: stage-1 training ---------------------------------------------------
+
+
+def make_train_batches(n_batches: int, seed: int):
+    """Train batches with the ``Loader``'s layout: u8 320 px images, [B, 20]
+    ids and [B, 3, 20] negatives of 6 to 18 tokens (the EOS position picks
+    the text feature), made from a seed."""
+    rng = np.random.default_rng(seed)
+
+    def ids(shape):
+        out = np.zeros(shape + (TXT_LEN,), np.int32)
+        for idx in np.ndindex(*shape):
+            n_tok = int(rng.integers(6, 19))
+            out[idx][0], out[idx][n_tok - 1] = 49406, 49407
+            out[idx][1:n_tok - 1] = rng.integers(1, 49000, n_tok - 2)
+        return out
+
+    return [{"image": rng.integers(0, 256, (TRAIN_B, SIZE, SIZE, 3), dtype=np.uint8),
+             "word_ids": ids((TRAIN_B,)), "neg_word_ids": ids((TRAIN_B, TRAIN_NEG))}
+            for _ in range(n_batches)]
+
+
+def train_path(K, dev, batches):
+    import copy
+
+    import torch
+
+    from tris_tpu_torch.cli.common import build_critic
+    from tris_tpu_torch.config import get_parser
+    from tris_tpu_torch.train.stage1 import batch_to_device, train_step
+    from tris_tpu_torch.train.state import label_params, make_optimizer
+
+    critic = build_critic(get_parser().parse_args(["--max_query_len", str(TXT_LEN)]), dev)
+    init_model = build_stage1(dev).train()
+    init_opt, init_sched = make_optimizer(init_model, total_steps=100)
+    data = [batch_to_device(b, dev) for b in batches]
+    labels = label_params(init_model)
+    failures = []
+
+    def copy_of_init():
+        """A deep copy of the initial model, optimizer and schedule (the
+        optimizer through its state_dict: a scheduler's step hook holds a
+        reference to the optimizer it was made for, which copy.deepcopy
+        would share)."""
+        model = copy.deepcopy(init_model)
+        opt, sched = make_optimizer(model, total_steps=100)
+        opt.load_state_dict(init_opt.state_dict())
+        sched.load_state_dict(init_sched.state_dict())
+        return model, opt, sched
+
+    def steps(state, n, start=0):
+        """n train steps from batch ``start`` on; step 1's gradients kept."""
+        model, opt, sched = state
+        out, grads = [], None
+        for i in range(n):
+            m = train_step(model, critic, opt, sched, data[(start + i) % len(data)])
+            out.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                         if p.grad is not None}
+        return out, grads
+
+    steps(copy_of_init(), 1)                     # warm-up (cuDNN, allocator), kernel route
+    torch.cuda.synchronize()
+    state = copy_of_init()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    metrics, grads = steps(state, TRAIN_STEPS)   # the counted run
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_kernels(K):
+        plain_state = copy_of_init()
+        metrics_p, grads_p = steps(plain_state, TRAIN_STEPS)
+    torch.cuda.synchronize()
+
+    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            failures.append(f"stage-1 train: {name} launched {launches[name]} times, want "
+                            f"{per_step} per step x {TRAIN_STEPS}")
+    # step 1: the loss and each term within 1e-5 relative; steps 2-3's
+    # losses within 1e-3 relative (Adam's first step moves an element whose
+    # gradient is rounding noise by +-lr on each route). Each gradient leaf
+    # within 1e-4 of its max-abs gradient, or, where the leaf is a residue of
+    # cancellation (the biases of the 1x1 convs right before an InstanceNorm
+    # are exactly zero in exact arithmetic; the fusion's text values feed a
+    # near-uniform softmax whose output the same norm centres), within 4x the
+    # plain route's own rounding noise there: the plain route run again on
+    # the batch in reversed order, the same gradient in exact arithmetic
+    term_err = {k: abs(metrics[0][k] - metrics_p[0][k]) / max(abs(metrics_p[0][k]), 1e-12)
+                for k in ("loss", "l1", "l4", "l5")}
+    if not max(term_err.values()) <= 1e-5:
+        failures.append(f"stage-1 train: step-1 loss terms vs plain {term_err} > 1e-5 relative")
+    later = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(metrics[1:], metrics_p[1:])]
+    if not max(later) <= 1e-3:
+        failures.append(f"stage-1 train: steps 2-3 losses vs plain {later} > 1e-3 relative")
+    with plain_kernels(K):
+        rev = {k: v.flip(0) for k, v in data[0].items()}
+        model_r, opt_r, sched_r = copy_of_init()
+        train_step(model_r, critic, opt_r, sched_r, rev)
+        grads_r = {k: p.grad.detach().clone() for k, p in model_r.named_parameters()
+                   if p.grad is not None}
+        del model_r, opt_r, sched_r
+    worst, by_floor, noisiest = (0.0, ""), {}, (0.0, "")
+    for k, gp in grads_p.items():
+        if labels[k] == "frozen":
+            continue          # logit_scale: the plain route's d scale, no group holds it
+        err, floor = max_err(grads[k], gp), max_err(grads_r[k], gp)
+        bar = 1e-4 * float(gp.abs().max())
+        noisiest = max(noisiest, (floor / bar * 1e-4 if bar > 0 else 0.0, k))
+        if err <= bar:
+            worst = max(worst, (err / bar * 1e-4 if bar > 0 else 0.0, k))
+        elif err <= 4 * floor:
+            by_floor[k] = {"err": err, "plain_noise": floor, "max": float(gp.abs().max())}
+        else:
+            failures.append(f"stage-1 train: gradient {k} vs plain {err} > 1e-4 of its max "
+                            f"({bar}) and > 4x the plain route's noise ({floor})")
+            worst = max(worst, (err / bar * 1e-4 if bar > 0 else float("inf"), k))
+    if {k for k in grads if labels[k] != "frozen"} != {k for k in grads_p if labels[k] != "frozen"}:
+        failures.append("stage-1 train: the routes' gradient leaves differ")
+    if not all(np.isfinite(m["loss"]) for m in metrics + metrics_p):
+        failures.append("stage-1 train: a loss is not finite")
+    if not torch.equal(state[0].logit_scale, init_model.logit_scale):
+        failures.append("stage-1 train: logit_scale moved")
+
+    times = {"kernels": [], "plain": []}
+    for i in range(ROUNDS):
+        for route, st, ctx in (("kernels", state, contextlib.nullcontext),
+                               ("plain", plain_state, lambda: plain_kernels(K))):
+            with ctx():
+                times[route].append(host_ms(lambda: steps(st, 1, start=i)))
+    summary = {
+        "model": f"RN50 stage 1 (hidden 1024, 320 px) + {CRITIC} critic (224 px), random "
+                 f"weights (seeds 0 and 7), AdamW lr 5e-5 (backbone 0.1x)",
+        "B": TRAIN_B, "negatives": TRAIN_NEG, "steps": TRAIN_STEPS, "batches": len(batches),
+        "launches": launches, "launches_per_step_expected": TRAIN_LAUNCHES_PER_STEP,
+        "metrics": metrics, "metrics_plain": metrics_p, "step1_term_rel_err": term_err,
+        "later_loss_rel_err": later, "grad_worst_rel_err": worst[0], "grad_worst_leaf": worst[1],
+        "grad_leaves": len(grads), "grad_within_plain_noise": by_floor,
+        "plain_noise_worst_rel": noisiest[0], "plain_noise_worst_leaf": noisiest[1],
+        "peak_memory_gb": peak_gb,
+        "step_host_ms": {route: spread(t) for route, t in times.items()},
+    }
+    log(f"stage-1 train: {json.dumps(summary)}")
+    return summary, failures
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Drive the PyTorch port of TRIS on one GPU.")
     p.add_argument("--report", default=None, help="write a fuller JSON report here")
@@ -623,6 +961,13 @@ def main(argv=None) -> int:
 
     # 3. kernels
     rows, failures = check_kernels(K, dev)
+    train_rows, train_extra, train_failures = check_train_kernels(K, dev)
+    failures += train_failures
+    for r in rows:
+        if r["name"] in train_extra:
+            r["shapes"].append(train_extra[r["name"]])
+    rows[1:1] = [r for r in train_rows if r["name"] == "mha_short_bwd"]
+    rows += [r for r in train_rows if r["name"] != "mha_short_bwd"]
 
     # 4. stage-1 eval and 5. PRMS, on one stage-1 model and one set of batches
     model = build_stage1(dev)
@@ -630,21 +975,32 @@ def main(argv=None) -> int:
     stage1, stage1_failures = stage1_path(K, dev, model, batches)
     prms, prms_failures = prms_path(K, dev, model, batches)
     failures += stage1_failures + prms_failures
-    # launches: on the PRMS path, the one that runs all six; per path beside
+    del model
+    torch.cuda.empty_cache()
+
+    # 6. stage-1 train
+    train, train_failures = train_path(K, dev, make_train_batches(N_TRAIN_BATCHES, seed=2))
+    failures += train_failures
+
+    # launches: on the stage-1 train path for its kernels (all but K3's eval
+    # half and K4), else on the PRMS path; per path beside
     by_shape = prms["mha_short_launches_by_shape"]
     for row in rows:
-        row["launches"] = prms["launches"][row["name"]]
-        row["launches_by_path"] = {"stage1_eval": stage1["launches"][row["name"]],
-                                   "prms": prms["launches"][row["name"]]}
+        name = row["name"]
+        paths = {"stage1_eval": stage1["launches"][name], "prms": prms["launches"][name],
+                 "stage1_train": train["launches"][name]}
+        row["launches"] = paths["stage1_train"] or paths["prms"]
+        row["launches_by_path"] = paths
         for sub in row["shapes"]:
-            sub["launches_prms"] = (by_shape.get("x".join(map(str, sub["shape"][:3])), 0)
-                                    if row["name"] == "mha_short" else row["launches"])
+            if name == "mha_short":
+                sub["launches_prms"] = by_shape.get("x".join(map(str, sub["shape"][:3])), 0)
     rows[0]["launches_prms_at_this_shape"] = by_shape.get(f"{B * S}x{TXT_LEN}x512", 0)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s,
-                       "kernels": rows, "stage1_eval": stage1, "prms": prms}, f, indent=1)
+                       "kernels": rows, "stage1_eval": stage1, "prms": prms,
+                       "stage1_train": train}, f, indent=1)
     if failures:
         fail("; ".join(failures))
 

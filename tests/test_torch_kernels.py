@@ -189,3 +189,165 @@ def test_normalize_u8_refuses(dev):
         K.normalize_u8_nchw(torch.zeros(1, 4, 4, 3, device=dev))
     with pytest.raises(ValueError, match="uint8"):
         K.normalize_u8_nchw(torch.zeros(1, 4, 4, 4, dtype=torch.uint8, device=dev))
+
+
+# ---- backward kernels (the stage-1 train path) ---------------------------------
+
+
+def _grads(fn, inputs, cotangents):
+    """Gradients of sum(<out_i, cot_i>) with respect to ``inputs``."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, c) for o, c in zip(outs, cotangents) if c is not None]
+    return torch.autograd.grad([o for o, _ in pairs], inputs, [c for _, c in pairs])
+
+
+def _leaves(*ts, double=False):
+    return [(t.double() if double else t).detach().requires_grad_() for t in ts]
+
+
+@pytest.mark.parametrize("L,causal,fused", [(1, False, True), (20, True, True), (50, False, True),
+                                            (128, True, True), (128, False, False),
+                                            (37, True, False)])
+def test_mha_short_bwd(randn, L, causal, fused):
+    # against autograd of the plain version in float64: 2e-5 of the
+    # gradient's scale (f32 sums of up to 128 products); fused: q, k, v are
+    # strided column views of one qkv tensor and autograd sums their three
+    # gradients into it
+    n, C, H = 3, 256, 4
+    mask = causal_mask(L, device=randn(1).device) if causal else None
+    g = randn(n, L, C)
+    if fused:
+        (qkv,) = _leaves(randn(n, L, 3 * C))
+        (qkv64,) = _leaves(qkv, double=True)
+        got = _grads(lambda x: K.mha_short(*x.chunk(3, dim=-1), H, mask), [qkv], [g])
+        want = _grads(lambda x: K.mha_short_plain(*x.chunk(3, dim=-1), H,
+                                                  None if mask is None else mask.double()),
+                      [qkv64], [g.double()])
+    else:
+        ins = _leaves(randn(n, L, C), randn(n, L, C), randn(n, L, C))
+        got = _grads(lambda q, k, v: K.mha_short(q, k, v, H, mask), ins, [g])
+        want = _grads(lambda q, k, v: K.mha_short_plain(q, k, v, H, None if mask is None
+                                                        else mask.double()),
+                      _leaves(*ins, double=True), [g.double()])
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _err(a, b) <= 2e-5 * max(1.0, float(b.abs().max()))
+
+
+def test_mha_short_saves_nothing_without_grad(randn):
+    # the critic's text tower runs without autograd: no graph, nothing kept
+    q = randn(4, 20, 64).requires_grad_()
+    with torch.no_grad():
+        out = K.mha_short(q, q, q, 1)
+    assert out.grad_fn is None
+    assert K.mha_short(q.detach(), q.detach(), q.detach(), 1).grad_fn is None
+
+
+@pytest.mark.parametrize("T,hw", [(1, 100), (48, 100), (5, 37)])
+def test_cross_attn_bwd(randn, T, hw):
+    # all six input gradients against autograd of the plain version in
+    # float64, within 1e-5 of each gradient's scale; T = 1 and HW = 37 (not
+    # a multiple of 32) are the edges
+    n, m = 3, 256
+    ins = _leaves(*(torch.relu(randn(n, hw, m)) for _ in range(3)),
+                  *(torch.relu(randn(n, T, m)) for _ in range(3)))
+    cot = [randn(n, hw, m), randn(n, T, m)]
+    got = _grads(lambda *x: K.cross_attn(*x, 1, math.sqrt(m)), ins, cot)
+    want = _grads(lambda *x: K.cross_attn_plain(*x, 1, math.sqrt(m)), _leaves(*ins, double=True),
+                  [c.double() for c in cot])
+    for a, b in zip(got, want):
+        assert _err(a, b) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+def test_cross_attn_bwd_refuses_several_sentences(randn):
+    qv = randn(2, 10, 64).requires_grad_()
+    qt = randn(4, 1, 64)
+    with pytest.raises(ValueError, match="S = 1"):
+        K.cross_attn(qv, qv, qv, qt, qt, qt, 2, 8.0)
+
+
+@pytest.mark.parametrize("B,hw,out,relu", [(1, (3, 3), (24, 24), False), (4, (10, 10), (10, 10), True),
+                                           (6, (10, 10), (320, 288), False), (5, (4, 7), (33, 50), True)])
+def test_stage1_head(randn, dev, B, hw, out, relu):
+    # forward outputs and the gradients of vis_p and lan_p against the plain
+    # version in float64: 2e-5 of each output's / gradient's scale. B = 1
+    # (a softmax over bg and one text) and identity taps (out == hw) are the
+    # edges; with relu the map gradient also comes through relu_map
+    h, w = hw
+    D = 256
+    vis = F.normalize(randn(B, h * w, D), dim=-1)
+    lan = F.normalize(randn(B, B, D), dim=-1)
+    scale = torch.tensor(1 / 0.07, device=dev)
+    cot = [randn(B, B), None, randn(B, *out) if relu else None, randn(B, *out)]
+
+    def run(fn, v, l):
+        return fn(v, l, scale.to(v.dtype), hw, out, 3.0, 0.01)
+
+    got_out = run(K.stage1_head, vis, lan)
+    want_out = run(K.stage1_head_plain, vis.double(), lan.double())
+    for a, b in zip(got_out, want_out):
+        assert a.shape == b.shape
+        assert _err(a, b) <= 2e-5 * max(1.0, float(b.abs().max()))
+    got = _grads(lambda v, l: run(K.stage1_head, v, l), _leaves(vis, lan), cot)
+    want = _grads(lambda v, l: run(K.stage1_head_plain, v, l), _leaves(vis, lan, double=True),
+                  [None if c is None else c.double() for c in cot])
+    for a, b in zip(got, want):
+        assert _err(a, b) <= 2e-5 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("size,out,patch,S", [(64, 64, 16, 1), (320, 224, 32, 1), (96, 64, 16, 2)])
+def test_critic_input_bwd(randn, size, out, patch, S):
+    # the maps' gradient against autograd of the plain version in float64,
+    # 1e-5 of its scale; 64 -> 64 takes identity taps; the image is data
+    B = 2
+    cams = torch.relu(randn(B * S, size, size))
+    image = randn(B, 3, size, size)
+    g = out // patch
+    cot = randn(B * S * g * g, 3 * patch * patch)
+    (got,) = _grads(lambda c: K.critic_input(c, image, S, out, patch), _leaves(cams), [cot])
+    (want,) = _grads(lambda c: K.critic_input_plain(c, image.double(), S, out, patch),
+                     _leaves(cams, double=True), [cot.double()])
+    assert _err(got, want) <= 1e-5 * max(1.0, float(want.abs().max()))
+    with pytest.raises(ValueError, match="image is data"):
+        K.critic_input(cams, image.requires_grad_(), S, out, patch)
+
+
+def _directional(fn, x, u, eps):
+    """Central difference of sum(fn(x)) along u, in float32."""
+    with torch.no_grad():
+        return float((fn(x + eps * u).sum() - fn(x - eps * u).sum()) / (2 * eps))
+
+
+@pytest.mark.parametrize("which", ["mha_short", "cross_attn", "stage1_head", "critic_input"])
+def test_backward_kernels_match_finite_differences(randn, dev, which):
+    # the kernels' gradient along a random direction against a float32
+    # central difference (eps 1e-2, 1e-3 for K3) of the kernels' own
+    # forward: agreement within 2 % of the directional derivative, the f32 bar
+    eps = 1e-2
+    if which == "mha_short":
+        x = randn(2, 9, 64)
+        fn = lambda t: K.mha_short(t, t, t, 2, causal_mask(9, device=dev))  # noqa: E731
+    elif which == "cross_attn":
+        x = randn(2, 7, 32)
+        t_part = randn(2, 3, 32)
+        fn = lambda t: sum(o.square().sum() for o in  # noqa: E731
+                           K.cross_attn(t, t, t, t_part, t_part, t_part, 1, 4.0)).reshape(1)
+    elif which == "stage1_head":
+        lan = F.normalize(randn(3, 3, 32), dim=-1)
+        # pixel q of each image is text q's own direction: every channel's
+        # GMP argmax is clear of the others by far more than the step
+        x = torch.cat([lan, F.normalize(randn(3, 13, 32), dim=-1)], dim=1)
+        scale = torch.tensor(2.0, device=dev)
+        fn = lambda t: (lambda o: o[0].sum() + o[3].square().sum())(  # noqa: E731
+            K.stage1_head(t, lan, scale, (4, 4), (9, 9), 3.0, 0.01)).reshape(1)
+        eps = 1e-3   # smaller: GMP's argmax must not move within the step
+    else:
+        x = torch.relu(randn(2, 20, 20)) + 0.5
+        image = randn(2, 3, 20, 20)
+        fn = lambda t: K.critic_input(t, image, 1, 16, 8).square()  # noqa: E731
+    u = randn(*x.shape)
+    (g,) = _grads(lambda t: fn(t).sum(), _leaves(x), [torch.ones((), device=dev)])
+    analytic = float((g * u).sum())
+    numeric = _directional(fn, x, u, eps)
+    assert abs(analytic - numeric) <= 2e-2 * max(abs(numeric), 1e-3), (analytic, numeric)

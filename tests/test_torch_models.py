@@ -153,8 +153,15 @@ def test_forward_eval(stage1):
         got = tm(_nchw(img), torch.from_numpy(ids[:, 0])).numpy()
     assert got.shape == (3, 1, 64, 64)
     np.testing.assert_allclose(got[:, 0], want[..., 0], rtol=1e-4, atol=1e-4 * np.abs(want).max())
-    with pytest.raises(NotImplementedError):
-        tm(_nchw(img), torch.from_numpy(ids[:, 0]), train=True)
+    # train=True (ported since; held against JAX in test_torch_train.py)
+    # returns the head's five outputs, and with the running statistics its
+    # relu map is this map: image b's pixels against its own fused text
+    with torch.no_grad():
+        cls_out, cls_fg, relu_map, sig_map, scale = tm(_nchw(img), torch.from_numpy(ids[:, 0]),
+                                                       train=True)
+    assert cls_out.shape == (3, 3) and cls_fg.shape == (3,) and scale.shape == ()
+    assert relu_map.shape == sig_map.shape == (3, 1, 64, 64)
+    np.testing.assert_allclose(relu_map.numpy(), got, rtol=1e-5, atol=1e-5 * np.abs(got).max())
 
 
 @pytest.mark.parametrize("fusion", [True, False])

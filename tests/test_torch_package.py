@@ -139,6 +139,8 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         kernels.cross_attn(q, q, q, q, q, q, 1, 8.0)
     with pytest.raises(ValueError, match="expected CUDA"):
         kernels.critic_input(q, q, 1, 32, 16)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.stage1_head(q, q, torch.empty((), device="meta"), (4, 5), (8, 8), 3.0, 0.01)
     with pytest.raises(ValueError, match="expected a CUDA"):
         kernels.normalize_u8_nchw(torch.empty(2, 8, 8, 3, dtype=torch.uint8, device="meta"))
 

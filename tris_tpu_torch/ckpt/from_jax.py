@@ -92,3 +92,11 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
 def stage1_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     """JAX ``TRISStage1`` variables -> this package's ``TRISStage1`` state_dict."""
     return state_dict_from_flax(variables)
+
+
+def grads_from_flax(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of a ported module's ``params`` -> ``{name:
+    tensor}`` under the port's parameter names, moved into the port's
+    layouts as :func:`state_dict_from_flax` moves the parameters, so a test
+    compares ``p.grad`` by name."""
+    return state_dict_from_flax({"params": grads})

@@ -1,6 +1,6 @@
-"""Shared CLI helpers: model construction, weight loading, eval loaders.
+"""Shared CLI helpers: model construction, weight loading, data loaders.
 
-Port of the stage-1 eval and PRMS parts of ``tris_tpu/cli/common.py``.
+Port of the stage-1 parts of ``tris_tpu/cli/common.py``.
 Models live on ``args.device`` (``cuda`` unless the caller asks for
 ``cpu``); random init is seeded (stage 1 from ``--seed``) without touching
 the global RNG.
@@ -44,9 +44,10 @@ def dist_rank_world() -> Tuple[int, int]:
     return 0, 1
 
 
-def build_stage1(args, device=None) -> TRISStage1:
-    """A ``TRISStage1`` in eval mode on ``device`` (default ``args.device``,
-    else ``"cuda"``), randomly initialised from ``args.seed``."""
+def build_stage1(args, device=None, train: bool = False) -> TRISStage1:
+    """A ``TRISStage1`` on ``device`` (default ``args.device``, else
+    ``"cuda"``), randomly initialised from ``args.seed``, in train mode
+    (BatchNorm's batch statistics) when ``train``, else in eval mode."""
     if device is None:
         device = getattr(args, "device", "cuda")
     dev = resolve_device(device)
@@ -63,15 +64,16 @@ def build_stage1(args, device=None) -> TRISStage1:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = TRISStage1(cfg)
-    return model.to(dev).eval()
+    return model.to(dev).train(train)
 
 
 def build_critic(args, device=None) -> CLIP:
-    """The frozen ViT-B/32 critic of PRMS (train_stage1.py:164-168,
-    validate.py:279-284 of the reference) in eval mode on ``device``
-    (default ``args.device``, else ``"cuda"``): OpenAI's released weights
-    from ``--critic_weights`` (a TorchScript ``.pt`` or a ``state_dict``,
-    loaded strictly), else a seeded random init."""
+    """The frozen ViT-B/32 critic of PRMS and of stage-1 training
+    (train_stage1.py:164-168, validate.py:279-284 of the reference) in eval
+    mode on ``device`` (default ``args.device``, else ``"cuda"``), its
+    parameters without gradients: OpenAI's released weights from
+    ``--critic_weights`` (a TorchScript ``.pt`` or a ``state_dict``, loaded
+    strictly), else a seeded random init."""
     if device is None:
         device = getattr(args, "device", "cuda")
     dev = resolve_device(device)
@@ -86,7 +88,7 @@ def build_critic(args, device=None) -> CLIP:
         sd = {k: v for k, v in load_torch_checkpoint(path).items()
               if k not in ("input_resolution", "context_length", "vocab_size")}
         critic.load_state_dict(sd, strict=True)
-    return critic.to(dev).eval()
+    return critic.requires_grad_(False).to(dev).eval()
 
 
 def load_pretrained(args, model: TRISStage1) -> TRISStage1:
@@ -122,3 +124,20 @@ def build_eval_loaders(args, splits):
         loaders[split] = Loader(ds, args.eval_batch, shuffle=False, drop_last=False,
                                 process_index=rank, process_count=world)
     return loaders
+
+
+def build_train_loader(args):
+    """The training ``Loader``: one sampled sentence per ref plus
+    ``--negative_samples`` negatives, shuffled from ``--seed``, refs sharded
+    over the ``torch.distributed`` ranks when a group is initialised."""
+    from tris_tpu_torch.data.dataset import Loader, ReferSegDataset
+
+    dataset, split_by = resolve_dataset(args)
+    rank, world = dist_rank_world()
+    ds = ReferSegDataset(
+        args.refer_data_root, dataset, split_by, "train", size=args.size,
+        max_tokens=args.max_query_len, eval_mode=False,
+        negative_samples=args.negative_samples, pseudo_path=args.pseudo_path,
+    )
+    return Loader(ds, args.batch_size, shuffle=True, seed=args.seed, process_index=rank,
+                  process_count=world)

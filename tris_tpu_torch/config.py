@@ -37,7 +37,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_decay_steps", default=40, type=int)
     # training
     parser.add_argument("--batch_size", default=1, type=int,
-                        help="per-process training batch (training is not ported yet)")
+                        help="per-process training batch")
     parser.add_argument("--epoch", default=30, type=int)
     parser.add_argument("--print-freq", dest="print_freq", default=100, type=int)
     parser.add_argument("--size", default=384, type=int)

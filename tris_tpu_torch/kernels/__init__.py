@@ -1,9 +1,11 @@
-"""Hand-written Hopper kernels of the stage-1 eval and PRMS paths, each
-beside its plain PyTorch version.
+"""Hand-written Hopper kernels of the stage-1 eval, PRMS and stage-1 train
+paths, each beside its plain PyTorch version.
 
 A wrapper launches its CUDA kernel when given CUDA tensors and uses the
-plain version when given CPU tensors; there is no other switch. The
-extension is built from ``csrc/`` at the first launch (``build.py``).
+plain version when given CPU tensors; there is no other switch. On CUDA the
+differentiable ones (K1, K2, K3's training head, K5) are
+``torch.autograd.Function``s whose backward is a kernel too. The extension
+is built from ``csrc/`` at the first launch (``build.py``).
 """
 
 from tris_tpu_torch.kernels.build import KERNELS, build_all, launches, reset_launches
@@ -13,10 +15,12 @@ from tris_tpu_torch.kernels.eval_metrics import eval_metrics, eval_metrics_plain
 from tris_tpu_torch.kernels.mha import mha_short, mha_short_plain
 from tris_tpu_torch.kernels.normalize import normalize_u8_nchw, normalize_u8_nchw_plain
 from tris_tpu_torch.kernels.response_head import response_head, response_head_plain
+from tris_tpu_torch.kernels.stage1_head import stage1_head, stage1_head_plain
 
 __all__ = [
     "KERNELS", "build_all", "launches", "reset_launches",
     "mha_short", "mha_short_plain", "cross_attn", "cross_attn_plain",
-    "response_head", "response_head_plain", "eval_metrics", "eval_metrics_plain", "eval_tables",
+    "response_head", "response_head_plain", "stage1_head", "stage1_head_plain",
+    "eval_metrics", "eval_metrics_plain", "eval_tables",
     "critic_input", "critic_input_plain", "normalize_u8_nchw", "normalize_u8_nchw_plain",
 ]

@@ -10,7 +10,9 @@ package needs neither ``nvcc`` nor a card.
 
 ``csrc/launchers.h`` declares each kernel's launcher once, for the ``.cu``
 that defines it and for the bindings that call it. An op raises when its
-launch fails. ``launches`` counts, per kernel, the launches its wrapper made.
+launch fails. ``launches`` counts, per kernel family and direction
+(``KERNELS``; a backward is ``<name>_bwd``), the kernel launches its
+wrapper made.
 """
 
 from __future__ import annotations
@@ -21,9 +23,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("mha_short", "cross_attn", "response_head", "eval_metrics", "critic_input",
+# one csrc/<name>.cu each; stage1_head.cu holds K3's training head and its backward
+SOURCES = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "response_head",
+           "stage1_head", "eval_metrics", "critic_input", "critic_input_bwd", "normalize_u8")
+# the launch counters: one per kernel family and direction
+KERNELS = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "response_head",
+           "stage1_head", "stage1_head_bwd", "eval_metrics", "critic_input", "critic_input_bwd",
            "normalize_u8")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
+MAX_SMEM = 227 * 1024  # shared memory one block may use on Hopper (opt-in above 48 KiB)
 
 launches = {name: 0 for name in KERNELS}
 
@@ -47,7 +55,7 @@ def ops():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             _ops = load(
                 name="tris_kernels",
-                sources=[str(CSRC / "bindings.cpp")] + [str(CSRC / f"{n}.cu") for n in KERNELS],
+                sources=[str(CSRC / "bindings.cpp")] + [str(CSRC / f"{n}.cu") for n in SOURCES],
                 extra_cflags=["-O2"],
                 extra_cuda_cflags=NVCC_FLAGS,
                 build_directory=str(BUILD_DIR),
@@ -63,7 +71,7 @@ def build_all() -> float:
 
 
 def count(name: str, n: int = 1) -> None:
-    """Count ``n`` launches of kernel ``name``: called by its wrapper right
+    """Count ``n`` kernel launches of ``name``: called by its wrapper right
     after the op that launched them returned."""
     launches[name] += n
 

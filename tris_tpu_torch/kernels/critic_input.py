@@ -1,5 +1,5 @@
-"""K5: the critic's input (``csrc/critic_input.cu``) and its plain PyTorch
-version.
+"""K5: the critic's input, forward (``csrc/critic_input.cu``) and backward to
+the maps (``csrc/critic_input_bwd.cu``), and its plain PyTorch version.
 
 Replaces ``tris_tpu/eval/validate.py`` lines 276-284 (``to224`` of the relu
 maps and of the image, their product; the same step is
@@ -8,7 +8,9 @@ maps and of the image, their product; the same step is
 image ``p // S``, ``resize(cams[p]) * resize(image[p // S])``, resized
 ``align_corners=True`` to ``out_size``², laid out as the patch matrix
 ``[P * g², 3 * patch²]`` (g = out_size / patch, columns (c, py, px)) that
-``VisionTransformer.forward_patches`` takes.
+``VisionTransformer.forward_patches`` takes. On CUDA tensors it is a
+``torch.autograd.Function`` whose backward, the hand-written kernel, gives
+the maps' gradient; the image is data and must not require one.
 """
 
 from __future__ import annotations
@@ -16,12 +18,14 @@ from __future__ import annotations
 import torch
 
 from tris_tpu_torch.kernels import build
-from tris_tpu_torch.kernels.response_head import taps_on, upsample_taps_plain
+from tris_tpu_torch.kernels.response_head import adjoint_taps_on, taps_on, upsample_taps_plain
 
 
 def critic_input_plain(cams, image, S: int, out_size: int, patch: int):
     """The plain version: both resizes with the kernel's taps in its order
-    (rows, then columns), the product, then reshape and permute."""
+    (rows, then columns), the product, then reshape and permute (its
+    gradient is autograd's, whose index backward scatters with atomics on
+    CUDA)."""
     P, H, W = cams.shape
     ty = taps_on(H, out_size, True, cams.device)
     tx = taps_on(W, out_size, True, cams.device)
@@ -34,8 +38,35 @@ def critic_input_plain(cams, image, S: int, out_size: int, patch: int):
     return fg.reshape(P * g * g, 3 * patch * patch)
 
 
+class _CriticInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cams, image, S, out_size, patch, save):
+        P, H, W = cams.shape
+        ty = taps_on(H, out_size, True, cams.device)
+        tx = taps_on(W, out_size, True, cams.device)
+        out = build.ops().critic_input(cams, image, list(ty), list(tx), S, patch)
+        build.count("critic_input")
+        ctx.meta = (P, H, W, S, out_size, patch)
+        if save:  # nothing is kept when the maps need no gradient
+            ctx.save_for_backward(image)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_a):
+        (image,) = ctx.saved_tensors
+        P, H, W, S, n, patch = ctx.meta
+        dev = image.device
+        d_cams = build.ops().critic_input_bwd(
+            d_a.contiguous(), image, list(taps_on(H, n, True, dev)), list(taps_on(W, n, True, dev)),
+            list(adjoint_taps_on(H, n, True, dev)), list(adjoint_taps_on(W, n, True, dev)),
+            P, S, patch)
+        build.count("critic_input_bwd", n=2)
+        return d_cams, None, None, None, None, None
+
+
 def critic_input(cams, image, S: int, out_size: int, patch: int):
-    """K5 on CUDA tensors; the plain version on CPU tensors.
+    """K5 on CUDA tensors (1 launch forward, 2 backward); the plain version on
+    CPU tensors.
 
     cams [P, H, W] f32 (P = B * S), image [B, 3, H, W] f32 (normalised).
     Returns A [P * g², 3 * patch²]."""
@@ -47,9 +78,8 @@ def critic_input(cams, image, S: int, out_size: int, patch: int):
             or out_size % patch):
         raise ValueError(f"critic_input: bad shapes cams{tuple(cams.shape)} "
                          f"image{tuple(image.shape)} S={S} out={out_size} patch={patch}")
-    ty = taps_on(H, out_size, True, cams.device)
-    tx = taps_on(W, out_size, True, cams.device)
-    out = build.ops().critic_input(cams.contiguous(), image.contiguous(), list(ty), list(tx),
-                                   S, patch)
-    build.count("critic_input")
-    return out
+    grad = torch.is_grad_enabled()
+    if grad and image.requires_grad:
+        raise ValueError("critic_input: the image is data; it gets no gradient here")
+    return _CriticInput.apply(cams.contiguous(), image.contiguous(), S, out_size, patch,
+                              grad and cams.requires_grad)

@@ -42,6 +42,21 @@ Taps taps(const std::vector<at::Tensor>& t, const char* what, const at::Device& 
           t[3].data_ptr<float>()};
 }
 
+tris::TapArrays tap_arrays(const std::vector<at::Tensor>& t, const char* what,
+                           const at::Device& device) {
+  const Taps x = taps(t, what, device);
+  return {x.lo, x.hi, x.w0, x.w1};
+}
+
+// A resize's adjoint ranges (lo_begin, lo_end, hi_begin, hi_end), int32.
+tris::TapRanges tap_ranges(const std::vector<at::Tensor>& t, const char* what,
+                           const at::Device& device) {
+  TORCH_CHECK(t.size() == 4, what, ": expected (lo_begin, lo_end, hi_begin, hi_end)");
+  for (const at::Tensor& r : t) check(r, what, at::kInt, device);
+  return {t[0].data_ptr<int>(), t[1].data_ptr<int>(), t[2].data_ptr<int>(),
+          t[3].data_ptr<int>()};
+}
+
 void launched(cudaError_t err, const char* name) {
   TORCH_CHECK(err == cudaSuccess, name, ": CUDA launch failed: ", cudaGetErrorString(err));
 }
@@ -73,6 +88,32 @@ at::Tensor mha_short(const at::Tensor& q, const at::Tensor& k, const at::Tensor&
   return out;
 }
 
+// K1 backward: dout [N, Lq, C] contiguous; q, k, v and mask as the forward.
+// Returns (dq, dk, dv), each contiguous [N, L, C].
+std::vector<at::Tensor> mha_short_bwd(const at::Tensor& dout, const at::Tensor& q,
+                                      const at::Tensor& k, const at::Tensor& v,
+                                      const std::optional<at::Tensor>& mask, int64_t n_head,
+                                      double scale) {
+  const at::Device dev = q.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(dout, "mha_short_bwd: dout", at::kFloat, dev);
+  check(q, "mha_short_bwd: q", at::kFloat, dev, true);
+  check(k, "mha_short_bwd: k", at::kFloat, dev, true);
+  check(v, "mha_short_bwd: v", at::kFloat, dev, true);
+  if (mask) check(*mask, "mha_short_bwd: mask", at::kFloat, dev);
+  const int64_t N = q.size(0), Lq = q.size(1), Lk = k.size(1), C = q.size(2);
+  at::Tensor dq = at::empty({N, Lq, C}, q.options());
+  at::Tensor dk = at::empty({N, Lk, C}, q.options());
+  at::Tensor dv = at::empty({N, Lk, C}, q.options());
+  launched(tris::mha_short_bwd(dout.data_ptr<float>(), q.data_ptr<float>(), k.data_ptr<float>(),
+                               v.data_ptr<float>(), ptr<float>(mask), dq.data_ptr<float>(),
+                               dk.data_ptr<float>(), dv.data_ptr<float>(), N, Lq, Lk, C / n_head,
+                               n_head, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                               v.stride(0), v.stride(1), (float)scale, stream()),
+           "mha_short_bwd");
+  return {dq, dk, dv};
+}
+
 // K2: qv, kv, vv [N, HW, m]; qt, kt, vt [N*S, T, m]. Returns (new_vis
 // [N*S, HW, m], new_lan [N*S, T, m]).
 std::vector<at::Tensor> cross_attn(const at::Tensor& qv, const at::Tensor& kv,
@@ -92,6 +133,34 @@ std::vector<at::Tensor> cross_attn(const at::Tensor& qv, const at::Tensor& kv,
                             S, (float)div, stream()),
            "cross_attn");
   return {new_vis, new_lan};
+}
+
+// K2 backward at S = 1: g_vis [N, HW, m], g_lan [N, T, m] and the forward's
+// inputs. Returns (dqv, dkv, dvv, dqt, dkt, dvt).
+std::vector<at::Tensor> cross_attn_bwd(const at::Tensor& g_vis, const at::Tensor& g_lan,
+                                       const at::Tensor& qv, const at::Tensor& kv,
+                                       const at::Tensor& vv, const at::Tensor& qt,
+                                       const at::Tensor& kt, const at::Tensor& vt, double div) {
+  const at::Device dev = qv.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  for (const at::Tensor* t : {&g_vis, &g_lan, &qv, &kv, &vv, &qt, &kt, &vt})
+    check(*t, "cross_attn_bwd", at::kFloat, dev);
+  const int64_t N = qv.size(0), HW = qv.size(1), m = qv.size(2), T = qt.size(1);
+  TORCH_CHECK(qt.size(0) == N, "cross_attn_bwd: one sentence per image");
+  at::Tensor pv = at::empty({N, HW, T}, qv.options()), dlv = at::empty({N, HW, T}, qv.options());
+  at::Tensor pt = at::empty({N, T, HW}, qv.options()), dlt = at::empty({N, T, HW}, qv.options());
+  std::vector<at::Tensor> out;
+  for (const at::Tensor* t : {&qv, &kv, &vv, &qt, &kt, &vt}) out.push_back(at::empty_like(*t));
+  launched(tris::cross_attn_bwd(
+               g_vis.data_ptr<float>(), g_lan.data_ptr<float>(), qv.data_ptr<float>(),
+               kv.data_ptr<float>(), vv.data_ptr<float>(), qt.data_ptr<float>(),
+               kt.data_ptr<float>(), vt.data_ptr<float>(), pv.data_ptr<float>(),
+               dlv.data_ptr<float>(), pt.data_ptr<float>(), dlt.data_ptr<float>(),
+               out[0].data_ptr<float>(), out[1].data_ptr<float>(), out[2].data_ptr<float>(),
+               out[3].data_ptr<float>(), out[4].data_ptr<float>(), out[5].data_ptr<float>(), N,
+               HW, T, m, (float)div, stream()),
+           "cross_attn_bwd");
+  return out;
 }
 
 // K3: vis_new [N*S, h*w, D] or None; vis_base [N, h*w, D]; lan [N*S, D];
@@ -117,6 +186,70 @@ at::Tensor response_head(const std::optional<at::Tensor>& vis_new, const at::Ten
                                x.lo, x.hi, x.w0, x.w1, stream()),
            "response_head");
   return out;
+}
+
+// K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D]; scale a 0-d tensor;
+// ty, tx the taps to [H] rows and [W] columns. Returns (score [B, h*w, B],
+// cls_out [B, B], cls_fg [B], relu_map [B, H, W], sig_map [B, H, W]).
+std::vector<at::Tensor> stage1_head(const at::Tensor& vis_p, const at::Tensor& lan_p,
+                                    const at::Tensor& scale, const std::vector<at::Tensor>& ty,
+                                    const std::vector<at::Tensor>& tx, int64_t h, int64_t w,
+                                    double focal_p, double focal_c) {
+  const at::Device dev = vis_p.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(vis_p, "stage1_head: vis_p", at::kFloat, dev);
+  check(lan_p, "stage1_head: lan_p", at::kFloat, dev);
+  check(scale, "stage1_head: scale", at::kFloat, dev);
+  const tris::TapArrays y = tap_arrays(ty, "stage1_head: row taps", dev);
+  const tris::TapArrays x = tap_arrays(tx, "stage1_head: column taps", dev);
+  const int64_t B = vis_p.size(0), D = vis_p.size(2), H = ty[0].size(0), W = tx[0].size(0);
+  const at::TensorOptions o = vis_p.options();
+  at::Tensor score = at::empty({B, h * w, B}, o), cls_out = at::empty({B, B}, o);
+  at::Tensor cls_fg = at::empty({B}, o);
+  at::Tensor relu_map = at::empty({B, H, W}, o), sig_map = at::empty({B, H, W}, o);
+  launched(tris::stage1_head(vis_p.data_ptr<float>(), lan_p.data_ptr<float>(),
+                             scale.data_ptr<float>(), score.data_ptr<float>(),
+                             cls_out.data_ptr<float>(), cls_fg.data_ptr<float>(),
+                             relu_map.data_ptr<float>(), sig_map.data_ptr<float>(), B, h, w, D, H,
+                             W, (float)focal_p, (float)focal_c, y, x, stream()),
+           "stage1_head");
+  return {score, cls_out, cls_fg, relu_map, sig_map};
+}
+
+// K3 backward: g_cls [B, B]; g_relu, g_sig [B, H, W] or None; the forward's
+// inputs and score; ry, rx the adjoint ranges of the taps. Returns
+// (d_vis [B, h*w, D], d_lan [B, B, D]).
+std::vector<at::Tensor> stage1_head_bwd(
+    const at::Tensor& g_cls, const std::optional<at::Tensor>& g_relu,
+    const std::optional<at::Tensor>& g_sig, const at::Tensor& vis_p, const at::Tensor& lan_p,
+    const at::Tensor& scale, const at::Tensor& score, const std::vector<at::Tensor>& ty,
+    const std::vector<at::Tensor>& tx, const std::vector<at::Tensor>& ry,
+    const std::vector<at::Tensor>& rx, int64_t h, int64_t w, double focal_p, double focal_c) {
+  const at::Device dev = vis_p.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(g_cls, "stage1_head_bwd: g_cls", at::kFloat, dev);
+  if (g_relu) check(*g_relu, "stage1_head_bwd: g_relu", at::kFloat, dev);
+  if (g_sig) check(*g_sig, "stage1_head_bwd: g_sig", at::kFloat, dev);
+  check(vis_p, "stage1_head_bwd: vis_p", at::kFloat, dev);
+  check(lan_p, "stage1_head_bwd: lan_p", at::kFloat, dev);
+  check(scale, "stage1_head_bwd: scale", at::kFloat, dev);
+  check(score, "stage1_head_bwd: score", at::kFloat, dev);
+  const tris::TapArrays y = tap_arrays(ty, "stage1_head_bwd: row taps", dev);
+  const tris::TapArrays x = tap_arrays(tx, "stage1_head_bwd: column taps", dev);
+  const tris::TapRanges yr = tap_ranges(ry, "stage1_head_bwd: row ranges", dev);
+  const tris::TapRanges xr = tap_ranges(rx, "stage1_head_bwd: column ranges", dev);
+  const int64_t B = vis_p.size(0), D = vis_p.size(2), H = ty[0].size(0), W = tx[0].size(0);
+  const at::TensorOptions o = vis_p.options();
+  at::Tensor dt = at::empty({B, H, w}, o), dscore = at::empty({B, h * w, B}, o);
+  at::Tensor d_vis = at::empty_like(vis_p), d_lan = at::empty_like(lan_p);
+  launched(tris::stage1_head_bwd(g_cls.data_ptr<float>(), ptr<float>(g_relu), ptr<float>(g_sig),
+                                 vis_p.data_ptr<float>(), lan_p.data_ptr<float>(),
+                                 scale.data_ptr<float>(), score.data_ptr<float>(),
+                                 dt.data_ptr<float>(), dscore.data_ptr<float>(),
+                                 d_vis.data_ptr<float>(), d_lan.data_ptr<float>(), B, h, w, D, H,
+                                 W, (float)focal_p, (float)focal_c, y, x, yr, xr, stream()),
+           "stage1_head_bwd");
+  return {d_vis, d_lan};
 }
 
 // K4: cams [B, S, h, w]; ty [B, maxH] x4, tx [B, maxW] x4; orig_hw [B, 2]
@@ -173,6 +306,31 @@ at::Tensor critic_input(const at::Tensor& cams, const at::Tensor& image,
   return out;
 }
 
+// K5 backward: dA [P * (n/ps)^2, 3 * ps * ps]; image [P/S, 3, H, W]; ty, tx
+// the taps to [n] rows and columns, ry, rx their adjoint ranges over [H]
+// and [W]. Returns d cams [P, H, W].
+at::Tensor critic_input_bwd(const at::Tensor& dA, const at::Tensor& image,
+                            const std::vector<at::Tensor>& ty, const std::vector<at::Tensor>& tx,
+                            const std::vector<at::Tensor>& ry, const std::vector<at::Tensor>& rx,
+                            int64_t P, int64_t S, int64_t ps) {
+  const at::Device dev = dA.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(dA, "critic_input_bwd: dA", at::kFloat, dev);
+  check(image, "critic_input_bwd: image", at::kFloat, dev);
+  const tris::TapArrays y = tap_arrays(ty, "critic_input_bwd: row taps", dev);
+  const tris::TapArrays x = tap_arrays(tx, "critic_input_bwd: column taps", dev);
+  const tris::TapRanges yr = tap_ranges(ry, "critic_input_bwd: row ranges", dev);
+  const tris::TapRanges xr = tap_ranges(rx, "critic_input_bwd: column ranges", dev);
+  const int64_t H = image.size(2), W = image.size(3), n = ty[0].size(0);
+  at::Tensor dt = at::empty({P, n, W}, dA.options());
+  at::Tensor dcams = at::empty({P, H, W}, dA.options());
+  launched(tris::critic_input_bwd(dA.data_ptr<float>(), image.data_ptr<float>(),
+                                  dt.data_ptr<float>(), dcams.data_ptr<float>(), P, S, H, W, n,
+                                  ps, y, x, yr, xr, stream()),
+           "critic_input_bwd");
+  return dcams;
+}
+
 // K6: image uint8 [B, H, W, 3]; scale, bias 3 values each. Returns the
 // normalised [B, 3, H, W] float32.
 at::Tensor normalize_u8(const at::Tensor& image, const std::vector<double>& scale,
@@ -195,9 +353,14 @@ at::Tensor normalize_u8(const at::Tensor& image, const std::vector<double>& scal
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mha_short", &mha_short, "K1: short-sequence multi-head attention");
+  m.def("mha_short_bwd", &mha_short_bwd, "K1 backward");
   m.def("cross_attn", &cross_attn, "K2: BilateralPrompt cross-attention");
+  m.def("cross_attn_bwd", &cross_attn_bwd, "K2 backward (one sentence per image)");
   m.def("response_head", &response_head, "K3: stage-1 response head");
+  m.def("stage1_head", &stage1_head, "K3: stage-1 training head");
+  m.def("stage1_head_bwd", &stage1_head_bwd, "K3: stage-1 training head, backward");
   m.def("eval_metrics", &eval_metrics, "K4: eval resize, normalise and metrics");
   m.def("critic_input", &critic_input, "K5: the critic's resized, modulated patch matrix");
+  m.def("critic_input_bwd", &critic_input_bwd, "K5 backward, to the maps");
   m.def("normalize_u8", &normalize_u8, "K6: u8 NHWC image to normalised f32 NCHW");
 }

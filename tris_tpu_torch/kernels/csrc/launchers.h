@@ -11,6 +11,20 @@
 
 namespace tris {
 
+// A resize's interpolation taps (ops/resize.py::interp_taps), one entry per
+// output index o: out[o] = w0[o] * x[lo[o]] + w1[o] * x[hi[o]].
+struct TapArrays {
+  const int *lo, *hi;
+  const float *w0, *w1;
+};
+
+// The same resize's adjoint as a gather, one entry per input index i: the
+// output indices o with lo[o] == i are [lo_begin[i], lo_end[i]), those with
+// hi[o] == i are [hi_begin[i], hi_end[i]) (the taps are monotone).
+struct TapRanges {
+  const int *lo_begin, *lo_end, *hi_begin, *hi_end;
+};
+
 // K1: q/k/v element (n, l, c) at base + n*x_seq + l*x_row + c; out [N, Lq, n_head*hd];
 // mask [Lq, Lk] or null.
 cudaError_t mha_short(const float* q, const float* k, const float* v, const float* mask,
@@ -18,10 +32,45 @@ cudaError_t mha_short(const float* q, const float* k, const float* v, const floa
                       int64_t q_row, int64_t k_seq, int64_t k_row, int64_t v_seq,
                       int64_t v_row, float scale, cudaStream_t stream);
 
+// K1 backward: dout [N, Lq, C]; q/k/v as the forward; dq [N, Lq, C], dk and dv [N, Lk, C].
+cudaError_t mha_short_bwd(const float* dout, const float* q, const float* k, const float* v,
+                          const float* mask, float* dq, float* dk, float* dv, int N, int Lq,
+                          int Lk, int hd, int n_head, int64_t q_seq, int64_t q_row,
+                          int64_t k_seq, int64_t k_row, int64_t v_seq, int64_t v_row,
+                          float scale, cudaStream_t stream);
+
 // K2: qv/kv/vv [P/S, HW, m]; qt/kt/vt [P, T, m]; new_vis [P, HW, m]; new_lan [P, T, m].
 cudaError_t cross_attn(const float* qv, const float* kv, const float* vv, const float* qt,
                        const float* kt, const float* vt, float* new_vis, float* new_lan, int P,
                        int HW, int T, int m, int S, float div, cudaStream_t stream);
+
+// K2 backward, one sentence per image: g_vis, qv/kv/vv and their gradients [N, HW, m];
+// g_lan, qt/kt/vt and their gradients [N, T, m]; scratch pv, dlv [N, HW, T] and
+// pt, dlt [N, T, HW].
+cudaError_t cross_attn_bwd(const float* g_vis, const float* g_lan, const float* qv,
+                           const float* kv, const float* vv, const float* qt, const float* kt,
+                           const float* vt, float* pv, float* dlv, float* pt, float* dlt,
+                           float* dqv, float* dkv, float* dvv, float* dqt, float* dkt,
+                           float* dvt, int N, int HW, int T, int m, float div,
+                           cudaStream_t stream);
+
+// K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D]; scale a device scalar; taps
+// h -> H rows and w -> W columns. Writes score [B, h*w, B], cls_out [B, B], cls_fg [B],
+// relu_map and sig_map [B, H, W].
+cudaError_t stage1_head(const float* vis_p, const float* lan_p, const float* scale,
+                        float* score, float* cls_out, float* cls_fg, float* relu_map,
+                        float* sig_map, int B, int h, int w, int D, int H, int W, float focal_p,
+                        float focal_c, TapArrays ty, TapArrays tx, cudaStream_t stream);
+
+// K3 backward: g_cls [B, B]; g_relu and g_sig [B, H, W] or null (both null: no map
+// gradient); score as the forward wrote it; scratch dt [B, H, w] and dscore
+// [B, h*w, B]; d_vis [B, h*w, D], d_lan [B, B, D].
+cudaError_t stage1_head_bwd(const float* g_cls, const float* g_relu, const float* g_sig,
+                            const float* vis_p, const float* lan_p, const float* scale,
+                            const float* score, float* dt, float* dscore, float* d_vis,
+                            float* d_lan, int B, int h, int w, int D, int H, int W,
+                            float focal_p, float focal_c, TapArrays ty, TapArrays tx,
+                            TapRanges ry, TapRanges rx, cudaStream_t stream);
 
 // K3: vis_new [P, h*w, D] or null; vis_base [P/S, h*w, D]; lan [P, D]; out [P, H, W];
 // scale a device scalar; y taps [H], x taps [W].
@@ -46,6 +95,12 @@ cudaError_t critic_input(const float* cams, const float* image, float* out, int 
                          int W, int n, int ps, const int* ylo, const int* yhi, const float* wy0,
                          const float* wy1, const int* xlo, const int* xhi, const float* wx0,
                          const float* wx1, cudaStream_t stream);
+
+// K5 backward: dA [P * (n/ps)^2, 3 * ps * ps]; image [P/S, 3, H, W]; taps H -> n rows
+// and W -> n columns with their ranges; scratch dt [P, n, W]; dcams [P, H, W].
+cudaError_t critic_input_bwd(const float* dA, const float* image, float* dt, float* dcams, int P,
+                             int S, int H, int W, int n, int ps, TapArrays ty, TapArrays tx,
+                             TapRanges ry, TapRanges rx, cudaStream_t stream);
 
 // K6: image uint8 [B, H, W, 3] (n_pix = B*H*W pixels, hw = H*W); out [B, 3, H, W];
 // scale and bias point to 3 floats each in host memory.

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from tris_tpu_torch.kernels import build
@@ -23,6 +24,22 @@ def taps_on(in_size: int, out_size: int, align_corners: bool, device: torch.devi
     """:func:`interp_taps` as four tensors on ``device`` (cached)."""
     return tuple(torch.as_tensor(a, device=device)
                  for a in interp_taps(in_size, out_size, align_corners))
+
+
+@functools.lru_cache(maxsize=64)
+def adjoint_taps_on(in_size: int, out_size: int, align_corners: bool, device: torch.device):
+    """The resize's adjoint as a gather, on ``device`` (cached): for each
+    input index ``i``, the output indices whose ``lo`` tap is ``i`` are
+    ``[lo_begin[i], lo_end[i])`` and those whose ``hi`` tap is ``i`` are
+    ``[hi_begin[i], hi_end[i])`` (four int32 tensors of ``in_size``). The
+    taps never decrease along the output, so each set is one range."""
+    lo, hi, _, _ = interp_taps(in_size, out_size, align_corners)
+    if np.any(np.diff(lo) < 0) or np.any(np.diff(hi) < 0):
+        raise ValueError(f"taps {in_size} -> {out_size} are not monotone")
+    idx = np.arange(in_size)
+    ranges = (np.searchsorted(lo, idx, "left"), np.searchsorted(lo, idx, "right"),
+              np.searchsorted(hi, idx, "left"), np.searchsorted(hi, idx, "right"))
+    return tuple(torch.as_tensor(r.astype(np.int32), device=device) for r in ranges)
 
 
 def upsample_taps_plain(x, ty, tx):
@@ -59,7 +76,7 @@ def response_head(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_shape,
             vis_new is not None and vis_new.shape != (P, HW, D)):
         raise ValueError(f"response_head: bad shapes vis_base{tuple(vis_base.shape)} "
                          f"lan{tuple(lan.shape)} S={S} hw={hw_shape}")
-    if 4 * HW > 227 * 1024:
+    if 4 * HW > build.MAX_SMEM:
         raise ValueError(f"response_head: h*w = {HW} scores must fit shared memory")
     vis_base, lan = vis_base.contiguous(), lan.contiguous()
     vis_new = None if vis_new is None else vis_new.contiguous()

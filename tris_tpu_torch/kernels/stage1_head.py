@@ -1,0 +1,97 @@
+"""K3, training half: the stage-1 classification head, forward and backward
+(``csrc/stage1_head.cu``), and its plain PyTorch version.
+
+Replaces ``tris_tpu/models/stage1.py::TRISStage1.__call__`` lines 100-131
+with ``train=True``: per image ``b``, the scores of its pixels against all
+``B`` texts of the batch, ``scale * <vis_p[b, p], lan_p[b, q]>``; over the
+``1 + B`` channels (a constant bg logit 1 first) the softmax, GAP + GMP and
+the focal term ``(1 - x)^p * log(c + x)`` of the mean mask give
+``cls_out [B, B]`` (bg dropped) and ``cls_fg [B]``; the diagonal score
+plane, upsampled ``align_corners=False`` to ``[H, W]``, gives the relu and
+sigmoid maps. On CUDA tensors it is a ``torch.autograd.Function`` whose
+backward is the hand-written kernel, from ``d cls_out``, ``d sig_map`` and
+``d relu_map`` to ``d vis_p`` and ``d lan_p``. ``cls_fg`` is a metric and
+gets no gradient; nor does ``scale`` (``logit_scale`` is frozen in stage 1,
+``tris_tpu/train/state.py:85-86``), though the plain version, being
+autograd's, computes one that the optimizer ignores.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tris_tpu_torch.kernels import build
+from tris_tpu_torch.kernels.response_head import adjoint_taps_on, taps_on, upsample_taps_plain
+
+
+def stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float):
+    """The plain version: the JAX head written out, the upsample with the
+    kernel's taps in its order. vis_p [B, h*w, D], lan_p [B, B, D], scale a
+    0-d tensor -> (cls_out [B, B], cls_fg [B], relu_map, sig_map [B, H, W])."""
+    (h, w), (H, W) = hw_shape, out_hw
+    B = vis_p.shape[0]
+    score = scale * torch.einsum("bpc,bqc->bpq", vis_p, lan_p)       # [B, hw, B]
+    own = torch.diagonal(score, dim1=0, dim2=2).T                    # [B, hw]: score[b, :, b]
+    ty = taps_on(h, H, False, vis_p.device)
+    tx = taps_on(w, W, False, vis_p.device)
+    seg = upsample_taps_plain(own.reshape(B, h, w), ty, tx)
+    feats = torch.cat([score.new_ones(B, 1, h * w), score.transpose(1, 2)], dim=1)
+    masks = torch.softmax(feats, dim=1)                              # [B, 1+B, hw]
+    mbar = masks.mean(dim=-1)
+    cls = feats.mean(dim=-1) + feats.amax(dim=-1) \
+        + torch.pow(1.0 - mbar, focal_p) * torch.log(focal_lambda + mbar)
+    cls_fg = torch.diagonal(mbar[:, 1:]).detach()
+    return cls[:, 1:], cls_fg, torch.relu(seg), torch.sigmoid(seg)
+
+
+class _Stage1Head(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vis_p, lan_p, scale, h, w, H, W, focal_p, focal_lambda, save):
+        ty = taps_on(h, H, False, vis_p.device)
+        tx = taps_on(w, W, False, vis_p.device)
+        score, cls_out, cls_fg, relu_map, sig_map = build.ops().stage1_head(
+            vis_p, lan_p, scale, list(ty), list(tx), h, w, focal_p, focal_lambda)
+        build.count("stage1_head", n=3)
+        ctx.mark_non_differentiable(cls_fg)
+        ctx.set_materialize_grads(False)
+        ctx.shape, ctx.focal = (h, w, H, W), (focal_p, focal_lambda)
+        if save:  # nothing is kept when no input needs a gradient
+            ctx.save_for_backward(vis_p, lan_p, scale, score)
+        return cls_out, cls_fg, relu_map, sig_map
+
+    @staticmethod
+    def backward(ctx, g_cls, _g_fg, g_relu, g_sig):
+        vis_p, lan_p, scale, score = ctx.saved_tensors
+        h, w, H, W = ctx.shape
+        dev = vis_p.device
+        if g_cls is None:
+            g_cls = torch.zeros(score.shape[0], score.shape[2], device=dev)
+        d_vis, d_lan = build.ops().stage1_head_bwd(
+            g_cls.contiguous(), None if g_relu is None else g_relu.contiguous(),
+            None if g_sig is None else g_sig.contiguous(), vis_p, lan_p, scale, score,
+            list(taps_on(h, H, False, dev)), list(taps_on(w, W, False, dev)),
+            list(adjoint_taps_on(h, H, False, dev)), list(adjoint_taps_on(w, W, False, dev)),
+            h, w, *ctx.focal)
+        build.count("stage1_head_bwd", n=3 if g_relu is None and g_sig is None else 4)
+        return d_vis, d_lan, None, None, None, None, None, None, None, None
+
+
+def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float):
+    """K3's training head on CUDA tensors (3 launches forward, 3 or 4
+    backward); the plain version on CPU tensors. ``scale`` is a 0-d tensor
+    (``exp(logit_scale)``) that the kernels read on the device."""
+    if vis_p.device.type == "cpu":
+        return stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p, focal_lambda)
+    build.require_cuda_f32("stage1_head", vis_p, lan_p, scale)
+    (h, w), (H, W) = hw_shape, out_hw
+    B, HW, D = vis_p.shape
+    if HW != h * w or lan_p.shape != (B, B, D):
+        raise ValueError(f"stage1_head: bad shapes vis_p{tuple(vis_p.shape)} "
+                         f"lan_p{tuple(lan_p.shape)} hw={hw_shape}")
+    if 4 * (HW * B + 4 * HW + 3 * B) > build.MAX_SMEM:
+        raise ValueError(f"stage1_head: the [h*w, B] = [{HW}, {B}] score plane must fit "
+                         f"shared memory")
+    save = torch.is_grad_enabled() and (vis_p.requires_grad or lan_p.requires_grad)
+    return _Stage1Head.apply(vis_p.contiguous(), lan_p.contiguous(),
+                             scale.reshape(()).contiguous(), h, w, H, W, float(focal_p),
+                             float(focal_lambda), save)

@@ -1,10 +1,12 @@
-"""Stage-1 TRIS: the text-supervised response-map network, eval paths.
+"""Stage-1 TRIS: the text-supervised response-map network.
 
 Port of ``tris_tpu/models/stage1.py::TRISStage1``: ``response_maps`` (the
-eval protocol, one fusion per (image, sentence) pair) and
-``forward(train=False)``. The pixel-text score, its upsample and relu are
-K3 (``kernels.response_head``); the fusion is K2 and the text tower K1. The
-``train=True`` classification head comes with the training slice.
+eval protocol, one fusion per (image, sentence) pair), ``forward(train=False)``
+and ``forward(train=True)`` (the batch-contrastive classification head). The
+pixel-text score with its upsample is K3 (``kernels.response_head`` for
+eval, ``kernels.stage1_head`` for training); the fusion is K2 and the text
+tower K1. BatchNorm follows the module's mode: ``model.train()`` for batch
+statistics, as the JAX package's ``train=True``.
 """
 
 from __future__ import annotations
@@ -70,16 +72,30 @@ class TRISStage1(nn.Module):
         return norm_vis, norm_lan, (h, w)
 
     def forward(self, image: torch.Tensor, word_ids: torch.Tensor, train: bool = False):
-        """image [B, 3, H, W], word_ids [B, L] -> relu map [B, 1, H, W]: image
-        b against its own text, with the fusion over all B texts."""
-        if train:
-            raise NotImplementedError("the stage-1 training head is not ported yet")
+        """image [B, 3, H, W], word_ids [B, L], the fusion over all B texts.
+
+        ``train=False``: the relu map [B, 1, H, W] of image b against its own
+        text. ``train=True``: ``(cls_out [B, B], cls_fg [B], relu_map,
+        sig_map [B, 1, H, W], scale)``, every image scored against every
+        text (call ``model.train()`` first for BatchNorm's batch statistics,
+        as the JAX package's ``train=True`` takes them)."""
         B, _, H, W = image.shape
         norm_vis, norm_lan, hw = self._features(image, word_ids)
         scale = self.logit_scale.exp()
+        cfg = self.config
+        if train:
+            lan_p = norm_lan[None].expand(B, B, norm_lan.shape[-1])   # every image, all B texts
+            vis_p = norm_vis
+            if cfg.attn_multi > 0:
+                new_vis, new_lan = self.attn_fusion(norm_vis, lan_p)
+                vis_p = new_vis * FUSION_RESIDUAL + norm_vis
+                lan_p = new_lan * FUSION_RESIDUAL + lan_p
+            cls_out, cls_fg, relu_map, sig_map = kernels.stage1_head(
+                vis_p, lan_p, scale, hw, (H, W), cfg.focal_p, cfg.focal_lambda)
+            return cls_out, cls_fg, relu_map[:, None], sig_map[:, None], scale
         new_vis = None
         lan_p = norm_lan
-        if self.config.attn_multi > 0:
+        if cfg.attn_multi > 0:
             lan_all = norm_lan[None].expand(B, B, norm_lan.shape[-1])  # every image, all B texts
             new_vis, new_lan = self.attn_fusion(norm_vis, lan_all)
             lan_p = new_lan.diagonal(dim1=0, dim2=1).T * FUSION_RESIDUAL + norm_lan

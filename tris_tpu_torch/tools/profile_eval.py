@@ -1,12 +1,16 @@
-"""Where the stage-1 eval forward, or the PRMS step, spends its time on the card.
+"""Where the stage-1 eval forward, the PRMS step or the stage-1 train step
+spends its time on the card.
 
-    python -m tris_tpu_torch.tools.profile_eval [--prms] [--batch 8] [--sents 4] \\
-        [--size 320] [--iters 5] [--out PATH]
+    python -m tris_tpu_torch.tools.profile_eval [--prms | --train] [--batch 8] \\
+        [--sents 4] [--negatives 3] [--size 320] [--iters 5] [--out PATH]
 
 Builds RN50 stage 1 at full width with seeded random weights (as
 ``chip_smoke.py`` does), times ``response_maps`` on the host clock (with
 ``--prms``: ``make_prms_forward``'s step, which adds the u8 upload and its
-normalisation, and the ViT-B/32 critic with seeded random weights), then
+normalisation, and the ViT-B/32 critic with seeded random weights; with
+``--train``: one ``train_step`` of stage 1 against that critic on a u8
+batch of ``--batch`` images with ``--negatives`` negatives each, forward,
+backward and AdamW update), then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times; one stream, so they do not overlap) and its idle share, and the
@@ -25,9 +29,11 @@ import time
 import numpy as np
 import torch
 
-HAND_KERNELS = ("mha_short_kernel", "vis_to_text_kernel", "text_to_vis_kernel",
-                "response_head_kernel", "eval_metrics_kernel", "critic_input_kernel",
-                "normalize_u8_kernel")
+HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "vis_to_text_kernel",
+                "text_to_vis_kernel", "a_vis_kernel", "a_lan_kernel", "b_vis_kernel",
+                "b_lan_kernel", "response_head_kernel", "bmm_kernel", "head_fwd_kernel",
+                "maps_fwd_kernel", "head_bwd_kernel", "maps_bwd_kernel", "eval_metrics_kernel",
+                "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel")
 
 
 def kernel_class(name: str) -> str:
@@ -50,9 +56,12 @@ def main(argv=None) -> dict:
     from tris_tpu_torch.models.stage1 import Stage1Config, TRISStage1
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--prms", action="store_true", help="profile the PRMS step instead")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--prms", action="store_true", help="profile the PRMS step instead")
+    mode.add_argument("--train", action="store_true", help="profile one stage-1 train step")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--sents", type=int, default=4)
+    p.add_argument("--negatives", type=int, default=3, help="negatives per image (--train)")
     p.add_argument("--size", type=int, default=320)
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--out", default=None, help="also write the JSON here")
@@ -62,12 +71,25 @@ def main(argv=None) -> dict:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = TRISStage1(Stage1Config(backbone="RN50", hidden_dim=1024, txt_length=20))
-    model = model.to(dev).eval()
+    model = model.to(dev).train(args.train)
     rng = np.random.default_rng(0)
     image_u8 = rng.integers(0, 256, (args.batch, args.size, args.size, 3), dtype=np.uint8)
     ids = np.zeros((args.batch, args.sents, 20), np.int32)
     ids[..., 0], ids[..., 1:6], ids[..., 6] = 49406, rng.integers(1, 49000, 5), 49407
-    if args.prms:
+    grad = False
+    if args.train:
+        from tris_tpu_torch.train.stage1 import batch_to_device, train_step
+        from tris_tpu_torch.train.state import make_optimizer
+
+        critic = build_critic(get_parser().parse_args([]), dev)
+        optimizer, scheduler = make_optimizer(model, total_steps=1000)
+        neg = np.zeros((args.batch, args.negatives, 20), np.int32)
+        neg[..., 0], neg[..., 1:4], neg[..., 4] = 49406, rng.integers(1, 49000, 3), 49407
+        batch = batch_to_device({"image": image_u8, "word_ids": ids[:, 0], "neg_word_ids": neg},
+                                dev)
+        step = lambda: train_step(model, critic, optimizer, scheduler, batch)  # noqa: E731
+        grad = True
+    elif args.prms:
         forward = make_prms_forward(model, build_critic(get_parser().parse_args([]), dev))
         valid = np.ones((args.batch, args.sents), bool)
         step = lambda: forward(image_u8, ids, valid)  # noqa: E731
@@ -76,7 +98,7 @@ def main(argv=None) -> dict:
         ids_d = torch.as_tensor(ids, device=dev)
         step = lambda: model.response_maps(image, ids_d)  # noqa: E731
 
-    with torch.no_grad():
+    with torch.set_grad_enabled(grad):
         for _ in range(3):
             step()
         torch.cuda.synchronize()
@@ -106,8 +128,10 @@ def main(argv=None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     res = {
         "device": torch.cuda.get_device_name(0),
-        "step": "make_prms_forward" if args.prms else "response_maps",
-        "shape": {"batch": args.batch, "sents": args.sents, "size": args.size},
+        "step": ("train_step" if args.train else
+                 "make_prms_forward" if args.prms else "response_maps"),
+        "shape": {"batch": args.batch, "sents": args.sents, "size": args.size,
+                  **({"negatives": args.negatives} if args.train else {})},
         "wall_ms_per_forward": wall_ms,
         "device_busy_ms_per_forward": busy,
         "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,

@@ -1,0 +1,123 @@
+"""Optimizer, parameter groups and LR schedules of the stage-1 trainer.
+
+Port of ``tris_tpu/train/state.py`` (the reference's train_stage1.py:133-144
+recipe) in PyTorch's idiom: ``torch.optim.AdamW`` parameter groups and a
+``LambdaLR`` stepped after every optimizer step.
+
+- AdamW, base lr 5e-5, weight decay 0.01, betas (0.9, 0.999), eps 1e-8; the
+  backbone at ``lr * lr_multi``.
+- Per-iteration polynomial decay ``(1 - step/total)^power`` (power 0.9 in
+  stage 1). optax evaluates a schedule at the update count before
+  incrementing it, so the first update uses the base lr; ``LambdaLR`` does
+  the same when ``scheduler.step()`` follows ``optimizer.step()``.
+- ``logit_scale`` is frozen in stage 1 (the reference puts it in no group):
+  it is in no group here, so it never moves and is never decayed.
+- optax's ``adamw`` decays every leaf, including those whose gradient is
+  zero because the step never uses them (the attention pool's). AdamW here
+  skips a parameter whose ``.grad`` is None, so :func:`apply_gradients`
+  gives such parameters zero gradients first.
+
+``ema_update`` and stage 2's grouping (its positional embeddings in the
+head group) come with stage 2.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+from torch import nn
+
+Schedule = Callable[[int], float]
+
+
+def poly_schedule(base_lr: float, total_steps: int, power: float = 0.9) -> Schedule:
+    """``base_lr * (1 - clip(step/total, 0, 1))^power``, per iteration."""
+
+    def schedule(step: int) -> float:
+        frac = min(max(step / total_steps, 0.0), 1.0)
+        return base_lr * (1.0 - frac) ** power
+
+    return schedule
+
+
+def poly_epoch_schedule(base_lr: float, end_lr: float, power: float, max_decay_steps: int,
+                        steps_per_epoch: int) -> Schedule:
+    """The reference's ``PolynomialLRDecay`` (utils/poly_lr_decay.py:3-39):
+    ``(base - end) * (1 - epoch/max)^power + end`` with ``epoch = step //
+    steps_per_epoch``, frozen at ``end_lr`` after ``max_decay_steps`` epochs."""
+
+    def schedule(step: int) -> float:
+        epoch = min(step // steps_per_epoch, max_decay_steps)
+        return (base_lr - end_lr) * (1.0 - epoch / max_decay_steps) ** power + end_lr
+
+    return schedule
+
+
+def label_params(model: nn.Module) -> Dict[str, str]:
+    """Each stage-1 parameter's group: ``backbone``, ``head`` or ``frozen``
+    (``_label_params`` of the JAX package, by ``named_parameters`` name)."""
+    labels = {}
+    for name, _ in model.named_parameters():
+        if name == "logit_scale":
+            labels[name] = "frozen"
+        else:
+            labels[name] = "backbone" if name.split(".")[0] == "backbone" else "head"
+    return labels
+
+
+def make_optimizer(model: nn.Module, base_lr: float = 5e-5, lr_multi: float = 0.1,
+                   weight_decay: float = 0.01, total_steps: int = 1, power: float = 0.9,
+                   schedule_factory: Optional[Callable[[float], Schedule]] = None):
+    """``(AdamW, LambdaLR)`` over the ``backbone`` (``base_lr * lr_multi``)
+    and ``head`` (``base_lr``) groups; ``frozen`` parameters are in none.
+    ``schedule_factory(group_base_lr) -> schedule(step) -> lr`` replaces the
+    per-step poly decay (the reference's PolynomialLRDecay branch)."""
+    labels = label_params(model)
+    params = dict(model.named_parameters())
+    groups: List[dict] = []
+    schedules: List[Schedule] = []
+    for label, scale in (("backbone", lr_multi), ("head", 1.0)):
+        group_lr = base_lr * scale
+        groups.append({"params": [p for n, p in params.items() if labels[n] == label],
+                       "lr": group_lr, "name": label})
+        schedules.append(schedule_factory(group_lr) if schedule_factory is not None
+                         else poly_schedule(group_lr, total_steps, power))
+    optimizer = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=weight_decay)
+    lambdas = [(lambda step, f=f, lr=g["lr"]: f(step) / lr if lr else 0.0)
+               for f, g in zip(schedules, groups)]
+    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """A model with its optimizer and LR schedule (the model holds the
+    parameters and BatchNorm's buffers that the JAX ``TrainState`` holds)."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+
+
+def create_train_state(model: nn.Module, total_steps: int, base_lr: float = 5e-5,
+                       lr_multi: float = 0.1, weight_decay: float = 0.01,
+                       schedule_factory: Optional[Callable[[float], Schedule]] = None
+                       ) -> TrainState:
+    optimizer, scheduler = make_optimizer(model, base_lr=base_lr, lr_multi=lr_multi,
+                                          weight_decay=weight_decay, total_steps=total_steps,
+                                          schedule_factory=schedule_factory)
+    return TrainState(model, optimizer, scheduler)
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer, scheduler) -> None:
+    """One update: parameters of a group that got no gradient take a zero
+    one (so AdamW decays them, as optax does), then the optimizer steps and
+    the schedule advances."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    optimizer.step()
+    scheduler.step()
