@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--report PATH]
 
 Run from the root of a checkout. Phases, in order; an error stops the run,
-and a failed check of phases 3-5 exits 1 once all have run (so the report
+and a failed check of phases 3-7 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
@@ -15,7 +15,8 @@ holds every number):
              the main paths' shapes (K1 at the text towers', the ViT
              critic's and attnpool's; K4 at stage-1 eval's and on PRMS's
              selected maps; the backward kernels and K3's training head at
-             the stage-1 train step's), with its stated tolerance; device
+             the stage-1 train step's; K6's bilinear half, K7, K9 and K10 at
+             a 480x640 image's IRNet pass), with its stated tolerance; device
              times of kernel, plain version and, where one exists, the one
              PyTorch call computing the same thing; the least time the card
              could take (bytes or FP32 operations over the published peak);
@@ -35,7 +36,22 @@ holds every number):
              ``make_prms_forward`` on every batch, with the plain versions,
              which scores, best maps, metrics and dumped maps must agree
              with; then ``validate_prms`` per batch for both routes,
-             alternating, over ``ROUNDS``.
+             alternating, over ``ROUNDS``;
+6. stage-1 train - 3 steps at B=48 (3 negatives, 320 px, u8) against the
+             critic, with the exact launch count of every kernel per step,
+             held against the plain route (loss terms, gradients, later
+             losses); step times of both routes over ``ROUNDS``;
+7. ins_seg - IRNet's instance pseudo-mask pass at full width (seeded
+             ResNet-50 IRNet) on three COCO-sized JPEGs and CAMs written to
+             a temporary directory: ``run_make_ins_seg`` with the counters
+             set to 0 just before and read just after (the exact launches
+             per image of K6, K7, K9 and K10's two kernels, the transition
+             and its products), then with the plain versions,
+             whose npy dicts (keys, masks, cam) must agree; each image's
+             stages one by one on both routes (IRNet and K9 outputs exact,
+             the walk within 1e-4 of its max) with the host time of each
+             stage; the pass on one image per route over
+             ``INS_SEG_ROUNDS``, alternating.
 
 Prints the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``--report`` writes a fuller JSON report
@@ -74,6 +90,15 @@ TRAIN_LAUNCHES_PER_STEP = {"mha_short": 36, "mha_short_bwd": 24, "cross_attn": 2
                            "cross_attn_bwd": 4, "stage1_head": 3, "stage1_head_bwd": 4,
                            "critic_input": 1, "critic_input_bwd": 2, "normalize_u8": 1,
                            "response_head": 0, "eval_metrics": 0}
+# phase 7: IRNet's instance pseudo-masks on COCO-sized originals (each grid
+# buckets to 128x160 or 160x128: HW = 20480), the reference walk (radius 5,
+# beta 10, 8 squarings); one image per route timed over a few rounds (each
+# walk is seconds of matrix products)
+INS_SEG_SIZES = ((480, 640), (427, 640), (640, 480))
+INS_SEG_ROUNDS = 3
+INS_SEG_DP_SCALE = 16.0  # the seeded IRNet's last displacement conv, scaled: a few instances
+INS_SEG_KERNELS = ("bilinear_resize", "path_max_affinity", "refine_centroids", "walk_transition",
+                   "walk_matmul")
 # H100 SXM published peaks: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
@@ -491,6 +516,173 @@ def check_train_kernels(K, dev):
     return rows, extra_rows, failures
 
 
+def check_ins_seg_kernels(K, dev):
+    """One row per kernel of the IRNet instance pseudo-mask path at a
+    480x640 image's shapes (K6's bilinear half at the heads' largest
+    upsample, its other shapes as sub-rows), each against its plain version:
+    exact (K10's T: the same powf, column sums in the same order), K10's
+    products within one float32 rounding."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.pseudo.indexing import _padded_path_index, transition_band
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    failures = []
+
+    def measure(*args, **kw):
+        return measure_row(failures, *args, **kw)
+
+    def resize(name, shape, size, align_corners):
+        x = torch.randn(*shape, generator=g, device=dev)
+        got = K.bilinear_resize(x, size, align_corners)
+        lib = lambda: F.interpolate(x.reshape(-1, 1, *shape[-2:]), size=size,  # noqa: E731
+                                    mode="bilinear", align_corners=align_corners)
+        n_out = got.numel()
+        return measure(name, max_err(got, K.bilinear_resize_plain(x, size, align_corners)), 0.0,
+                       device_ms(lambda: K.bilinear_resize(x, size, align_corners)),
+                       device_ms(lambda: K.bilinear_resize_plain(x, size, align_corners)),
+                       4 * (x.numel() + n_out), 9 * n_out, device_ms(lib),
+                       shape=[*shape, *size], align_corners=align_corners,
+                       library_max_abs_err=max_err(got, lib().reshape(got.shape)))
+
+    oh, ow = INS_SEG_SIZES[0]
+    gh, gw = oh // 4, ow // 4
+    rows = [kernel_row(
+        "bilinear_resize", "tris_tpu_torch/kernels/csrc/bilinear_resize.cu",
+        "tris_tpu/ops/resize.py:57",
+        # the displacement head's dp6 tap: [2, 256, 60, 80] -> x2
+        resize("bilinear_resize", (2, 256, gh // 2, gw // 2), (gh, gw), False),
+        [resize("bilinear_resize@edge_x4", (2, 32, gh // 4, gw // 4), (gh, gw), False),
+         resize("bilinear_resize@cam_to_grid", (oh, ow), (gh, gw), True),
+         resize("bilinear_resize@walk_x4", (4, gh, gw), (oh, ow), False)])]
+
+    # K7 on the walk's padded edge map of the 128x160 bucket: [133, 170] ->
+    # [34, 129, 162]; exact
+    H, W, radius = -(-gh // 32) * 32, -(-gw // 32) * 32, 5
+    pi = _padded_path_index(radius, (H + radius, W + 2 * radius))
+    edge = F.pad(torch.rand(H, W, generator=g, device=dev), (radius, radius, 0, radius), value=1.0)
+    paths, rf = pi.paths_by_length, pi.radius_floor
+    got = K.path_max_affinity(edge, paths, rf)
+    n_steps = sum(len(p) for grp in paths for p in grp)
+    ch, cw = got.shape[1:]
+    rows.append(kernel_row(
+        "path_max_affinity", "tris_tpu_torch/kernels/csrc/path_max_affinity.cu",
+        "tris_tpu/pseudo/indexing.py:110",
+        measure("path_max_affinity", max_err(got, K.path_max_affinity_plain(edge, paths, rf)),
+                0.0, device_ms(lambda: K.path_max_affinity(edge, paths, rf)),
+                device_ms(lambda: K.path_max_affinity_plain(edge, paths, rf)),
+                4 * (edge.numel() + got.numel()), (n_steps + got.shape[0]) * ch * cw, None,
+                shape=[*edge.shape, *got.shape], path_steps=n_steps)))
+
+    # K9 on the 120x160 grid: a smooth field of a few pixels, 300 steps; exact
+    field = F.avg_pool2d(torch.randn(1, 2, gh + 8, gw + 8, generator=g, device=dev), 9, 1)[0] * 12
+    got = K.refine_centroids(field)
+    rows.append(kernel_row(
+        "refine_centroids", "tris_tpu_torch/kernels/csrc/refine_centroids.cu",
+        "tris_tpu/pseudo/labels.py:71",
+        measure("refine_centroids", max_err(got, K.refine_centroids_plain(field)), 0.0,
+                device_ms(lambda: K.refine_centroids(field)),
+                device_ms(lambda: K.refine_centroids_plain(field), n=3), 4 * 4 * gh * gw,
+                300 * 30 * gh * gw, None, shape=[2, gh, gw], iterations=300)))
+
+    # K10 on the bucket from K7's grids: T [20480, 20480]
+    dirs = np.asarray(pi.search_dst, np.int64)
+    woff = radius - pi.radius_floor
+    aff = K.path_max_affinity(edge, paths, rf)
+    got = K.walk_transition(aff, dirs, H, W, woff, 10.0)
+    want = K.walk_transition_plain(aff, dirs, H, W, woff, 10.0)
+    t_scale = float(want.abs().max())
+    err = max_err(got, want)
+    del want
+    band_nnz = int((got != 0).sum())
+    rows.append(kernel_row(
+        "walk_transition", "tris_tpu_torch/kernels/csrc/walk_transition.cu",
+        "tris_tpu/pseudo/indexing.py:441",
+        measure("walk_transition", err, 0.0,
+                device_ms(lambda: K.walk_transition(aff, dirs, H, W, woff, 10.0), n=5),
+                device_ms(lambda: K.walk_transition_plain(aff, dirs, H, W, woff, 10.0), n=3),
+                4 * (aff.numel() + got.numel()), 4 * H * W * 2 * len(dirs) + 2 * band_nnz,
+                None, shape=[*aff.shape, H, W], t_scale=t_scale, nonzeros=band_nnz)))
+    rows.append(check_walk_matmul(K, dev, got, transition_band(radius, W), failures))
+    del got
+    torch.cuda.empty_cache()
+    return rows, failures
+
+
+def check_walk_matmul(K, dev, trans, band, failures):
+    """K10's products on the walk's T [20480, 20480]: the main path's 8
+    squarings (the band doubling from T's) and the thin step on 16 maps,
+    each against its plain version (a float64 product) on the same input,
+    within one float32 rounding of the output's largest entry. The row: the
+    last (dense) squaring; under ``shapes``: the first squaring, a half-band
+    one, the thin step and the whole chain. Operations: 2 per product of
+    two nonzeros of this T's powers."""
+    import torch
+
+    n = trans.shape[0]
+
+    def nonzero_products(a, b):
+        return float(((a != 0).sum(0).double() * (b != 0).sum(1).double()).sum())
+
+    def measure(name, a, b, band_a, band_b, flops, got, reps):
+        want = K.walk_matmul_plain(a, b)
+        scale = float(want.abs().max())
+        err = max_err(got, want)
+        del want
+        lib = lambda: torch.mm(a, b)  # noqa: E731
+        lib_err = max_err(lib(), K.walk_matmul_plain(a, b))
+        nbytes = 4 * ((a.numel() if a is b else a.numel() + b.numel()) + got.numel())
+        return measure_row(failures, name, err, scale * 2.0 ** -23,
+                           device_ms(lambda: K.walk_matmul(a, b, band_a, band_b), *reps),
+                           device_ms(lambda: K.walk_matmul_plain(a, b), *reps), nbytes, flops,
+                           device_ms(lib, *reps), shape=[list(a.shape), list(b.shape)],
+                           bands=[band_a, band_b], scale=scale, library_max_abs_err=lib_err)
+
+    x = torch.rand(16, n, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    x = x * (torch.rand(16, 1, device=dev) > 0.3)
+    powers, flops, t, b = [trans], [], trans, band
+    for s in range(8):
+        flops.append(2 * nonzero_products(t, t))
+        t = K.walk_matmul(t, t, b, b)
+        b = min(2 * b, n)
+        powers.append(t)
+    flops.append(2 * nonzero_products(x, t))
+    bands = [min(band * 2 ** s, n) for s in range(9)]
+    sub = [measure("walk_matmul@sq1", trans, trans, band, band, flops[0], powers[1], (5, 3)),
+           measure("walk_matmul@sq5", powers[4], powers[4], bands[4], bands[4], flops[4],
+                   powers[5], (2, 1)),
+           measure("walk_matmul@thin", x, powers[8], n, n, flops[8],
+                   K.walk_matmul(x, powers[8], None, n), (5, 3))]
+    main = measure("walk_matmul", powers[7], powers[7], n, n, flops[7], powers[8], (2, 1))
+    # every squaring against its plain version; the chain's card time per image
+    for s in (1, 2, 3, 5, 6):
+        want = K.walk_matmul_plain(powers[s], powers[s])
+        if not max_err(powers[s + 1], want) <= float(want.abs().max()) * 2.0 ** -23:
+            failures.append(f"walk_matmul: squaring {s + 1} beyond one rounding of its plain version")
+        del want
+    del powers[1:]
+    torch.cuda.empty_cache()
+
+    def chain(mm):
+        t, b = trans, band
+        for _ in range(8):
+            t = mm(t, t, b, b)
+            b = min(2 * b, n)
+        return mm(x, t, None, b)
+
+    chain_ms = device_ms(lambda: chain(K.walk_matmul), 1, 1)
+    chain_plain_ms = device_ms(lambda: chain(K.walk_matmul_plain), 1, 1)
+    b_ms, b_by = bound_ms(4 * (8 * 2 * n * n + n * n + x.numel() + 16 * n), sum(flops))
+    sub.append({"name": "walk_matmul@chain", "ms": chain_ms, "plain_ms": chain_plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "flops": sum(flops),
+                "dense_flops": 8 * 2.0 * n ** 3 + 2.0 * 16 * n * n})
+    log(f"kernel walk_matmul@chain: ms {chain_ms:.1f} plain_ms {chain_plain_ms:.1f} bound_ms "
+        f"{b_ms:.1f} ({b_by}), {sum(flops) / 1e12:.2f} TFLOP of nonzero products")
+    return kernel_row("walk_matmul", "tris_tpu_torch/kernels/csrc/walk_matmul.cu",
+                      "tris_tpu/pseudo/indexing.py:524", main, sub)
+
+
 # ---- phase 4: the main path ------------------------------------------------
 
 
@@ -551,7 +743,11 @@ def plain_kernels(K):
     plain = {"mha_short": K.mha_short_plain, "cross_attn": K.cross_attn_plain,
              "response_head": K.response_head_plain, "stage1_head": K.stage1_head_plain,
              "eval_metrics": K.eval_metrics_plain, "critic_input": K.critic_input_plain,
-             "normalize_u8_nchw": K.normalize_u8_nchw_plain}
+             "normalize_u8_nchw": K.normalize_u8_nchw_plain,
+             "bilinear_resize": K.bilinear_resize_plain,
+             "path_max_affinity": K.path_max_affinity_plain,
+             "refine_centroids": K.refine_centroids_plain,
+             "walk_transition": K.walk_transition_plain, "walk_matmul": K.walk_matmul_plain}
     saved = {name: getattr(K, name) for name in plain}
     for name, fn in plain.items():
         setattr(K, name, fn)
@@ -930,6 +1126,212 @@ def train_path(K, dev, batches):
     return summary, failures
 
 
+# ---- phase 7: IRNet instance pseudo-masks -------------------------------------------
+
+
+def make_ins_seg_data(root: str, seed: int):
+    """COCO-sized u8 JPEGs (a few flat rectangles on dim noise), smooth CAMs
+    at the original sizes peaking on one rectangle, and the names json, as
+    ``cli.validate --prms --save_cam`` leaves them. Returns the names."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img_dir, cam_dir = os.path.join(root, "train2014"), os.path.join(root, "cam")
+    os.makedirs(img_dir)
+    os.makedirs(cam_dir)
+    names = []
+    for k, (h, w) in enumerate(INS_SEG_SIZES):
+        img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+        boxes = []
+        for _ in range(3):
+            bh, bw = int(rng.integers(h // 6, h // 2)), int(rng.integers(w // 6, w // 2))
+            y0, x0 = int(rng.integers(0, h - bh)), int(rng.integers(0, w - bw))
+            img[y0:y0 + bh, x0:x0 + bw] = rng.integers(80, 256, 3)
+            boxes.append((y0 + bh / 2, x0 + bw / 2, bh, bw))
+        Image.fromarray(img).save(os.path.join(img_dir, f"COCO_train2014_{k + 1:012d}.jpg"),
+                                  quality=90)
+        cy, cx, bh, bw = boxes[0]
+        yy, xx = np.mgrid[:h, :w]
+        cam = np.exp(-0.5 * (((yy - cy) / (0.6 * bh)) ** 2 + ((xx - cx) / (0.6 * bw)) ** 2))
+        names.append(f"{k}_{k + 1}")
+        np.save(os.path.join(cam_dir, f"{names[-1]}.npy"), cam.astype(np.float32))
+    with open(os.path.join(root, "names.json"), "w") as f:
+        json.dump(names, f)
+    return names
+
+
+def build_smoke_irnet(dev):
+    """The seeded full-width IRNet, its last displacement conv scaled so
+    that a random field splits each image into a few instances."""
+    import torch
+
+    from tris_tpu_torch.pseudo.irnet import build_irnet as build
+
+    model = build(None, dev, seed=0)
+    with torch.no_grad():
+        model.fc_dp7[3].weight.mul_(INS_SEG_DP_SCALE)
+    return model
+
+
+def timed(fn):
+    """(host ms, result) of ``fn()`` between two synchronises."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def ins_seg_stages(K, cfg, model, name, dev):
+    """One image through the pass's stages one after the other, each timed
+    on the host clock between synchronises: the intermediates and the times."""
+    import torch
+
+    from tris_tpu_torch.pseudo import indexing as idx
+    from tris_tpu_torch.pseudo.irnet import edge_displacement_infer
+    from tris_tpu_torch.pseudo.labels import (
+        cluster_centroids, detect_from_walk, instance_cams, upsample_argmax)
+    from tris_tpu_torch.pseudo.pipeline import _ins_seg_load
+
+    t = {}
+    _, osize, img, cam = _ins_seg_load(cfg, name)
+    with torch.no_grad():
+        t["irnet_forward"], (edge, disp) = timed(
+            lambda: edge_displacement_infer(model, torch.as_tensor(img, device=dev)))
+        t["refine_centroids"], cents = timed(lambda: K.refine_centroids(disp))
+        t["host_ccl"], inst = timed(lambda: cluster_centroids(cents.cpu().numpy(),
+                                                              disp.cpu().numpy()))
+        t["instance_cams"], (x, e) = timed(lambda: idx.bucket_pad(instance_cams(inst, cam, dev),
+                                                                  edge))
+        t["transition_build"], trans = timed(lambda: idx.transition_matrix(e, 5, cfg.beta))
+        t["squarings"], (trans, band) = timed(
+            lambda: idx.square(trans, cfg.exp_times, idx.transition_band(5, e.shape[1])))
+        n, gh, gw = inst.shape
+        t["thin_step"], rw = timed(lambda: idx.thin_step(x, e, trans, band)[:n, :gh, :gw])
+        del trans
+        t["upsample_argmax"], (rw_up, shape) = timed(
+            lambda: upsample_argmax(rw, osize, cfg.ins_seg_bg_thres))
+        t["detect"], det = timed(lambda: detect_from_walk(rw_up.cpu().numpy(),
+                                                          shape.cpu().numpy(), osize))
+    return {"edge": edge, "disp": disp, "cents": cents, "rw": rw, "shape": shape,
+            "instances": int(n), "fragments": int(det["mask"].shape[0]),
+            "grid": [int(gh), int(gw)], "bucket": list(x.shape), "host_ms": t}
+
+
+def ins_seg_path(K, dev):
+    import torch
+
+    from tris_tpu_torch.pseudo.irnet import IRNet
+    from tris_tpu_torch.pseudo.pipeline import PseudoConfig, run_make_ins_seg
+
+    model = build_smoke_irnet(dev)
+    tmp = tempfile.TemporaryDirectory()
+    quiet = lambda *a: None  # noqa: E731
+    failures = []
+    with tmp:
+        names = make_ins_seg_data(tmp.name, seed=5)
+
+        def cfg(tag):
+            return PseudoConfig(train_list=os.path.join(tmp.name, "names.json"),
+                                data_root=os.path.join(tmp.name, "train2014"),
+                                cam_dir=os.path.join(tmp.name, "cam"),
+                                ins_seg_dir=os.path.join(tmp.name, tag))
+
+        def run(tag, subset=None):
+            run_make_ins_seg(cfg(tag), model=model, names=subset, log=quiet, device=dev)
+
+        run("warm", names[:1])                   # cuDNN at these shapes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        run("kernels")                           # the counted run
+        torch.cuda.synchronize()
+        launches = dict(K.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        with plain_kernels(K):
+            run("plain")
+        stages = {"kernels": [ins_seg_stages(K, cfg("x"), model, n, dev) for n in names]}
+        with plain_kernels(K):
+            stages["plain"] = [ins_seg_stages(K, cfg("x"), model, n, dev) for n in names]
+        times = {"kernels": [], "plain": []}
+        for i in range(INS_SEG_ROUNDS):
+            for route, ctx in (("kernels", contextlib.nullcontext),
+                               ("plain", lambda: plain_kernels(K))):
+                with ctx():
+                    times[route].append(host_ms(lambda: run(f"t_{route}_{i}", names[:1])))
+
+        # K6: IRNet's upsamples, the CAM and the walk's x4; K10's products:
+        # the squarings and the thin step
+        per_image = {name: IRNet.UP_CALLS + 2 if name == "bilinear_resize" else
+                     PseudoConfig.exp_times + 1 if name == "walk_matmul" else
+                     (1 if name in INS_SEG_KERNELS else 0) for name in K.KERNELS}
+        for name, n in per_image.items():
+            if launches[name] != n * len(names):
+                failures.append(f"ins_seg: {name} launched {launches[name]} times, want {n} per "
+                                f"image x {len(names)}")
+        # the intermediates: IRNet's and K9's outputs exact (the routes differ
+        # in K6 alone there, which is exact); the walk within 1e-4 of its max
+        # and the argmax at >= 99.9 % (K10 against its plain version)
+        exact, rw_err, shape_agree = True, 0.0, 1.0
+        for a, b in zip(stages["kernels"], stages["plain"]):
+            exact &= all(torch.equal(a[k], b[k]) for k in ("edge", "disp", "cents"))
+            if a["rw"].shape == b["rw"].shape:
+                rw_err = max(rw_err, max_err(a["rw"], b["rw"]) / max(float(b["rw"].abs().max()),
+                                                                     1e-30))
+                shape_agree = min(shape_agree, float((a["shape"] == b["shape"]).float().mean()))
+            else:
+                rw_err = float("inf")
+        if not exact:
+            failures.append("ins_seg: edge, displacement or centroids differ from the plain route")
+        if not (rw_err <= 1e-4 and shape_agree >= 0.999):
+            failures.append(f"ins_seg: walk vs plain {rw_err} of its max (> 1e-4) or argmax "
+                            f"agreement {shape_agree} < 0.999")
+        # the npy dicts: same files and keys, masks >= 99.9 %, cam 1e-4 of max
+        dict_err, mask_agree, shapes_ok = 0.0, 1.0, True
+        dirs = [os.path.join(tmp.name, t) for t in ("kernels", "plain")]
+        files = [sorted(os.listdir(d)) for d in dirs]
+        if files[0] != files[1] or files[0] != sorted(f"{n}.npy" for n in names):
+            failures.append(f"ins_seg: the routes wrote {files}")
+        for name, osize in zip(names, INS_SEG_SIZES):
+            a, b = (np.load(os.path.join(d, f"{name}.npy"), allow_pickle=True).item() for d in dirs)
+            ok = (sorted(a) == sorted(b) == ["cam", "class", "mask", "score"]
+                  and a["mask"].shape == b["mask"].shape and a["cam"].shape == b["cam"].shape
+                  and a["cam"].shape[1:] == osize and bool(np.isfinite(a["cam"]).all()))
+            shapes_ok &= ok
+            if ok:
+                dict_err = max(dict_err, float(np.abs(a["cam"] - b["cam"]).max())
+                               / float(np.abs(b["cam"]).max()))
+                mask_agree = min(mask_agree, float((a["mask"] == b["mask"]).mean()))
+        if not (shapes_ok and dict_err <= 1e-4 and mask_agree >= 0.999):
+            failures.append(f"ins_seg npy vs plain: shapes/keys ok {shapes_ok}, cam {dict_err} "
+                            f"of max (> 1e-4) or masks {mask_agree} < 0.999")
+
+    def split(route):
+        keys = stages[route][0]["host_ms"]
+        return {k: [s["host_ms"][k] for s in stages[route]] for k in keys}
+
+    summary = {
+        "model": f"IRNet (ResNet-50 strides 2-2-2-1, edge and displacement heads), seeded "
+                 f"random weights (seed 0, fc_dp7.3 x {INS_SEG_DP_SCALE}); radius 5, beta 10, "
+                 f"8 squarings, bucket 32",
+        "images": [list(s) for s in INS_SEG_SIZES], "launches": launches,
+        "launches_per_image_expected": {k: v for k, v in per_image.items() if v},
+        "instances_per_image": [s["instances"] for s in stages["kernels"]],
+        "fragments_per_image": [s["fragments"] for s in stages["kernels"]],
+        "grid": [s["grid"] for s in stages["kernels"]],
+        "bucket": [s["bucket"] for s in stages["kernels"]],
+        "peak_memory_gb": peak_gb,
+        "stage_host_ms_per_image": {route: split(route) for route in stages},
+        "pass_host_ms_one_image": {route: spread(t) for route, t in times.items()},
+        "intermediates_exact": exact, "rw_rel_err": rw_err, "argmax_agreement": shape_agree,
+        "npy_cam_rel_err": dict_err, "npy_mask_agreement": mask_agree,
+    }
+    log(f"ins_seg: {json.dumps(summary)}")
+    return summary, failures
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Drive the PyTorch port of TRIS on one GPU.")
     p.add_argument("--report", default=None, help="write a fuller JSON report here")
@@ -968,6 +1370,9 @@ def main(argv=None) -> int:
             r["shapes"].append(train_extra[r["name"]])
     rows[1:1] = [r for r in train_rows if r["name"] == "mha_short_bwd"]
     rows += [r for r in train_rows if r["name"] != "mha_short_bwd"]
+    ins_rows, ins_failures = check_ins_seg_kernels(K, dev)
+    rows += ins_rows
+    failures += ins_failures
 
     # 4. stage-1 eval and 5. PRMS, on one stage-1 model and one set of batches
     model = build_stage1(dev)
@@ -981,15 +1386,21 @@ def main(argv=None) -> int:
     # 6. stage-1 train
     train, train_failures = train_path(K, dev, make_train_batches(N_TRAIN_BATCHES, seed=2))
     failures += train_failures
+    torch.cuda.empty_cache()
+
+    # 7. IRNet instance pseudo-masks
+    ins_seg, ins_seg_failures = ins_seg_path(K, dev)
+    failures += ins_seg_failures
 
     # launches: on the stage-1 train path for its kernels (all but K3's eval
-    # half and K4), else on the PRMS path; per path beside
+    # half and K4), else on the PRMS path, else on the ins-seg path; per path
+    # beside
     by_shape = prms["mha_short_launches_by_shape"]
     for row in rows:
         name = row["name"]
         paths = {"stage1_eval": stage1["launches"][name], "prms": prms["launches"][name],
-                 "stage1_train": train["launches"][name]}
-        row["launches"] = paths["stage1_train"] or paths["prms"]
+                 "stage1_train": train["launches"][name], "ins_seg": ins_seg["launches"][name]}
+        row["launches"] = paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
         row["launches_by_path"] = paths
         for sub in row["shapes"]:
             if name == "mha_short":
@@ -1000,7 +1411,7 @@ def main(argv=None) -> int:
         with open(args.report, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s,
                        "kernels": rows, "stage1_eval": stage1, "prms": prms,
-                       "stage1_train": train}, f, indent=1)
+                       "stage1_train": train, "ins_seg": ins_seg}, f, indent=1)
     if failures:
         fail("; ".join(failures))
 

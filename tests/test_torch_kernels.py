@@ -12,7 +12,11 @@ Shapes are small but cover the edges the main path does not: the longest
 sequence K1 takes, several text tokens in K2, K3 without the fusion, ties in
 K4's peak, K5 at equal sizes (identity taps), K6 on odd shapes, and the
 inputs every wrapper refuses. K1 at the critic's L = 50 and K4 on PRMS's
-selected maps are here too.
+selected maps are here too. The IRNet path's kernels: K6's bilinear resize
+at the pass's shapes and odd ones, K7 at radius 5 and 10 and on the
+narrowest grids, K9 with centroids clamped on the edge, K10's transition
+on the walk's buckets and its banded products (squarings, the thin step,
+partial tiles).
 """
 
 import math
@@ -351,3 +355,143 @@ def test_backward_kernels_match_finite_differences(randn, dev, which):
     analytic = float((g * u).sum())
     numeric = _directional(fn, x, u, eps)
     assert abs(analytic - numeric) <= 2e-2 * max(abs(numeric), 1e-3), (analytic, numeric)
+
+
+# ---- the IRNet instance pseudo-mask path (K6 bilinear, K7, K9, K10) ------------------
+
+
+@pytest.mark.parametrize("shape,size,align_corners", [
+    ((2, 64, 30, 40), (120, 160), False),    # an IRNet head's x4
+    ((480, 640), (120, 160), True),          # the CAM to the grid
+    ((3, 120, 160), (480, 640), False),      # the walk back, x4
+    ((5, 7, 9), (13, 4), True), ((1, 1, 1), (3, 5), False), ((4, 6), (4, 11), False)])
+def test_bilinear_resize(randn, shape, size, align_corners):
+    # exact: the kernel samples with the plain version's taps in its order
+    # and rounds each product and sum alone; within 1e-4 of F.interpolate's
+    # scale, which computes the source coordinate in float32 where the taps
+    # take float64 (4e-5 apart at 480x640 -> 120x160 with align_corners)
+    x = randn(*shape)
+    got = K.bilinear_resize(x, size, align_corners)
+    assert got.shape == (*shape[:-2], *size)
+    assert torch.equal(got, K.bilinear_resize_plain(x, size, align_corners))
+    lib = F.interpolate(x.reshape(-1, 1, *shape[-2:]), size=size, mode="bilinear",
+                        align_corners=align_corners).reshape(got.shape)
+    assert _err(got, lib) <= 1e-4 * max(float(lib.abs().max()), 1.0)
+
+
+def _path_index(radius, size):
+    from tris_tpu_torch.pseudo.indexing import PathIndex
+
+    return PathIndex(radius, size)
+
+
+@pytest.mark.parametrize("radius,shape", [(5, (133, 170)), (5, (37, 18)), (10, (2, 128, 128)),
+                                          (10, (10, 19)), (3, (3, 5, 6))])
+def test_path_max_affinity(dev, radius, shape):
+    # exact (a max and 1 - m): the walk's padded grid at radius 5, a narrow
+    # one, IRN training's batch at radius 10, the narrowest grids each takes
+    g = torch.Generator(device=dev).manual_seed(2)
+    edge = torch.rand(*shape, generator=g, device=dev)
+    pi = _path_index(radius, shape[-2:])
+    got = K.path_max_affinity(edge, pi.paths_by_length, pi.radius_floor)
+    rf = pi.radius_floor
+    assert got.shape == (*shape[:-2], len(pi.search_dst), shape[-2] - rf, shape[-1] - 2 * rf)
+    assert torch.equal(got, K.path_max_affinity_plain(edge, pi.paths_by_length, rf))
+
+
+@pytest.mark.parametrize("iterations,hw", [(1, (120, 160)), (300, (120, 160)), (300, (7, 5)),
+                                           (300, (1, 9))])
+def test_refine_centroids(dev, iterations, hw):
+    # exact int32 centroids: a smooth field of a few pixels plus a push
+    # towards the corners, so many centroids end clamped on the edge
+    H, W = hw
+    g = torch.Generator(device=dev).manual_seed(3)
+    field = F.avg_pool2d(torch.randn(1, 2, H + 8, W + 8, generator=g, device=dev), 9, 1)[0] * 12
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None].expand(H, W)
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :].expand(H, W)
+    field = field + torch.stack([torch.sign(yy - H / 2), torch.sign(xx - W / 2)]) * 0.7
+    got = K.refine_centroids(field, iterations)
+    assert got.dtype == torch.int32 and got.shape == (2, H, W)
+    assert torch.equal(got, K.refine_centroids_plain(field, iterations))
+    if iterations == 300:   # some centroids end on the clamp edge
+        assert bool(((got[0] == 0) | (got[0] == H - 1) | (got[1] == 0) | (got[1] == W - 1)).any())
+
+
+@pytest.mark.parametrize("H,W", [(32, 32), (64, 32), (32, 64)])
+def test_walk_transition(dev, H, W):
+    # the walk's buckets; exact against the plain version (the same powf,
+    # column sums added in the same order, IEEE quotients), zero off the
+    # band, columns summing to 1
+    from tris_tpu_torch.pseudo.indexing import _padded_path_index
+
+    pi = _padded_path_index(5, (H + 5, W + 10))
+    dirs = np.asarray(pi.search_dst, np.int64)
+    edge = F.pad(torch.rand(H, W, generator=torch.Generator(device=dev).manual_seed(4),
+                            device=dev), (5, 5, 0, 5), value=1.0)
+    aff = K.path_max_affinity(edge, pi.paths_by_length, pi.radius_floor)
+    got = K.walk_transition(aff, dirs, H, W, 5 - pi.radius_floor, 10.0)
+    want = K.walk_transition_plain(aff, dirs, H, W, 5 - pi.radius_floor, 10.0)
+    assert got.shape == (H * W, H * W)
+    assert torch.equal(got, want)
+    band = (torch.arange(H * W, device=dev)[None] - torch.arange(H * W, device=dev)[:, None]).abs()
+    assert bool((got[band > 4 * W + 4] == 0).all())
+    assert torch.allclose(got.sum(0), torch.ones(H * W, device=dev), atol=1e-5)
+
+
+def _banded(dev, M, N, band, seed, signed=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand(M, N, generator=g, device=dev) - (0.5 if signed else 0.0)
+    if band is not None:
+        off = torch.arange(N, device=dev)[None] - torch.arange(M, device=dev)[:, None]
+        a = a * (off.abs() <= band)
+    return a
+
+
+@pytest.mark.parametrize("M,Kd,N,band_a,band_b,signed", [
+    (1024, 1024, 1024, 36, 36, False),      # the 32x32 bucket's T squared (band 4 * 32 + 2)
+    (1024, 1024, 1024, 288, 288, False),    # a later squaring, bands past a tile
+    (2048, 2048, 2048, 1030, 1030, False),  # half the tiles off the product's band
+    (16, 1024, 1024, None, 520, False),     # the thin step: 16 maps through T
+    (200, 1000 - 1000 % 8, 1000, None, None, True)])  # partial tiles, signed, dense
+def test_walk_matmul(dev, M, Kd, N, band_a, band_b, signed):
+    # within one float32 rounding of the float64 product (both sum in
+    # float64 and round once), zero off the product's band, and bit-equal to
+    # the same product run dense: the skipped products are exact zeros
+    a = _banded(dev, M, Kd, band_a, 5, signed)
+    b = _banded(dev, Kd, N, band_b, 6, signed)
+    got = K.walk_matmul(a, b, band_a, band_b)
+    want = K.walk_matmul_plain(a, b)
+    assert got.shape == (M, N)
+    assert _err(got, want) <= float(want.abs().max()) * 2.0 ** -23
+    assert torch.equal(got, K.walk_matmul(a, b))
+    if band_a is not None and band_b is not None:
+        off = torch.arange(N, device=dev)[None] - torch.arange(M, device=dev)[:, None]
+        assert bool((got[off.abs() > band_a + band_b] == 0).all())
+
+
+def test_irnet_kernels_refuse(dev):
+    x = torch.zeros(2, 8, 8, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        K.walk_matmul(x[0].bfloat16(), x[0].bfloat16())
+    with pytest.raises(ValueError, match="bad shapes"):
+        K.walk_matmul(torch.zeros(4, 12, device=dev), torch.zeros(12, 8, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        K.bilinear_resize(x.bfloat16(), (16, 16))
+    with pytest.raises(TypeError, match="float32"):
+        K.path_max_affinity(x.bfloat16(), _path_index(3, (8, 8)).paths_by_length, 2)
+    with pytest.raises(TypeError, match="float32"):
+        K.refine_centroids(x.bfloat16())
+    with pytest.raises(ValueError, match="share a flat offset"):
+        from tris_tpu_torch.pseudo.indexing import transition_matrix
+
+        transition_matrix(torch.zeros(12, 8, device=dev))     # W <= 2 * (radius - 1)
+    # the ops themselves take no CPU tensor
+    from tris_tpu_torch.kernels.response_head import taps_on
+
+    ty = list(taps_on(8, 16, False, torch.device("cpu")))
+    with pytest.raises(RuntimeError):
+        K.build.ops().bilinear_resize(x.cpu(), ty, ty)
+    with pytest.raises(RuntimeError):
+        K.build.ops().refine_centroids(x[:2].cpu(), 3)
+    with pytest.raises(RuntimeError):
+        K.build.ops().walk_matmul(x[0].cpu(), x[0].cpu(), 1, 1)

@@ -11,6 +11,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -143,6 +144,37 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         kernels.stage1_head(q, q, torch.empty((), device="meta"), (4, 5), (8, 8), 3.0, 0.01)
     with pytest.raises(ValueError, match="expected a CUDA"):
         kernels.normalize_u8_nchw(torch.empty(2, 8, 8, 3, dtype=torch.uint8, device="meta"))
+    e = torch.empty(12, 16, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.bilinear_resize(e, (24, 32))
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.path_max_affinity(e, [np.zeros((1, 1, 2), np.int64)], 1)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.refine_centroids(torch.empty(2, 12, 16, device="meta"))
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.walk_transition(torch.empty(1, 13, 18, device="meta"), np.array([[0, 1]]), 12, 16,
+                                1, 10.0)
+    m = torch.empty(64, 64, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.walk_matmul(m, m, 4, 4)
+    # nor does the walk's transition on a grid too small for K10's band build
+    from tris_tpu_torch.pseudo.indexing import transition_matrix
+
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        transition_matrix(torch.empty(6, 10, device="meta"))
+
+
+def test_walk_defaults_to_cuda_for_host_arrays():
+    # numpy maps and edge go to the card unless the caller asks for the CPU
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    from tris_tpu_torch.pseudo.indexing import bucket_pad, propagate_to_edge_bucketed
+
+    x, edge = np.zeros((2, 12, 14), np.float32), np.zeros((12, 14), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        propagate_to_edge_bucketed(x, edge)
+    xp, ep = bucket_pad(x, edge, device="cpu")
+    assert xp.shape == (16, 32, 32) and ep.shape == (32, 32) and float(ep[-1, -1]) == 1.0
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

@@ -15,6 +15,11 @@ block, a layer). The inverse of ``tris_tpu/ckpt/convert*.py``:
   ``num_batches_tracked`` per BN);
 - LayerNorm ``<name>/ln/scale`` -> ``<name>.weight``; PReLU ``alpha`` ->
   ``weight``.
+
+``irnet_state_dict_from_flax`` adds IRNet's module names: ``trunk`` ->
+``resnet50``, ``<head>_conv`` / ``<head>_gn`` -> ``<head>.0`` / ``<head>.1``,
+``fc_dp7_conv1`` / ``fc_dp7_gn`` / ``fc_dp7_conv2`` -> ``fc_dp7.0`` / ``.1``
+/ ``.3``, and the ``mean_shift`` statistic -> ``mean_shift.running_mean``.
 """
 
 from __future__ import annotations
@@ -92,6 +97,35 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
 def stage1_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     """JAX ``TRISStage1`` variables -> this package's ``TRISStage1`` state_dict."""
     return state_dict_from_flax(variables)
+
+
+_IRNET_RULES = [
+    (re.compile(r"trunk"), "resnet50"),
+    (re.compile(r"(fc_edge[1-5]|fc_dp[1-6])_conv"), r"\1.0"),
+    (re.compile(r"(fc_edge[1-5]|fc_dp[1-6])_gn"), r"\1.1"),
+    (re.compile(r"fc_dp7_conv1"), "fc_dp7.0"),
+    (re.compile(r"fc_dp7_gn"), "fc_dp7.1"),
+    (re.compile(r"fc_dp7_conv2"), "fc_dp7.3"),
+]
+
+
+def _irnet_module(name: str) -> str:
+    for pat, rep in _IRNET_RULES:
+        if pat.fullmatch(name):
+            return pat.sub(rep, name)
+    return name
+
+
+def irnet_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``IRNet`` variables -> this package's ``IRNet`` state_dict."""
+    stats = dict(variables.get("batch_stats", {}))
+    mean_shift = stats.pop("mean_shift")
+    sd = state_dict_from_flax({
+        "params": {_irnet_module(k): v for k, v in variables["params"].items()},
+        "batch_stats": {_irnet_module(k): v for k, v in stats.items()},
+    })
+    sd["mean_shift.running_mean"] = torch.from_numpy(np.asarray(mean_shift, np.float32).copy())
+    return sd
 
 
 def grads_from_flax(grads) -> Dict[str, torch.Tensor]:

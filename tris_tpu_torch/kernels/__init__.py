@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the stage-1 eval, PRMS and stage-1 train
-paths, each beside its plain PyTorch version.
+"""Hand-written Hopper kernels of the stage-1 eval, PRMS, stage-1 train and
+IRNet instance pseudo-mask paths, each beside its plain PyTorch version.
 
 A wrapper launches its CUDA kernel when given CUDA tensors and uses the
 plain version when given CPU tensors; there is no other switch. On CUDA the
@@ -9,13 +9,18 @@ is built from ``csrc/`` at the first launch (``build.py``).
 """
 
 from tris_tpu_torch.kernels.build import KERNELS, build_all, launches, reset_launches
+from tris_tpu_torch.kernels.centroids import refine_centroids, refine_centroids_plain
 from tris_tpu_torch.kernels.critic_input import critic_input, critic_input_plain
 from tris_tpu_torch.kernels.cross_attn import cross_attn, cross_attn_plain
 from tris_tpu_torch.kernels.eval_metrics import eval_metrics, eval_metrics_plain, eval_tables
 from tris_tpu_torch.kernels.mha import mha_short, mha_short_plain
 from tris_tpu_torch.kernels.normalize import normalize_u8_nchw, normalize_u8_nchw_plain
+from tris_tpu_torch.kernels.path_max import path_max_affinity, path_max_affinity_plain
+from tris_tpu_torch.kernels.resize import bilinear_resize, bilinear_resize_plain
 from tris_tpu_torch.kernels.response_head import response_head, response_head_plain
 from tris_tpu_torch.kernels.stage1_head import stage1_head, stage1_head_plain
+from tris_tpu_torch.kernels.walk import (
+    walk_matmul, walk_matmul_plain, walk_transition, walk_transition_plain)
 
 __all__ = [
     "KERNELS", "build_all", "launches", "reset_launches",
@@ -23,4 +28,7 @@ __all__ = [
     "response_head", "response_head_plain", "stage1_head", "stage1_head_plain",
     "eval_metrics", "eval_metrics_plain", "eval_tables",
     "critic_input", "critic_input_plain", "normalize_u8_nchw", "normalize_u8_nchw_plain",
+    "bilinear_resize", "bilinear_resize_plain", "path_max_affinity", "path_max_affinity_plain",
+    "refine_centroids", "refine_centroids_plain", "walk_transition", "walk_transition_plain",
+    "walk_matmul", "walk_matmul_plain",
 ]

@@ -4,6 +4,8 @@
 // inputs' device and raises if the launch fails. Shapes are checked by the
 // Python wrappers beside build.py, which are the only callers.
 
+#include <algorithm>
+#include <cstdint>
 #include <optional>
 #include <vector>
 
@@ -349,6 +351,98 @@ at::Tensor normalize_u8(const at::Tensor& image, const std::vector<double>& scal
   return out;
 }
 
+// K6, bilinear half: x [N, h, w]; ty, tx the taps to [oh] rows and [ow] columns.
+// Returns [N, oh, ow].
+at::Tensor bilinear_resize(const at::Tensor& x, const std::vector<at::Tensor>& ty,
+                           const std::vector<at::Tensor>& tx) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(x, "bilinear_resize: x", at::kFloat, dev);
+  const tris::TapArrays y = tap_arrays(ty, "bilinear_resize: row taps", dev);
+  const tris::TapArrays c = tap_arrays(tx, "bilinear_resize: column taps", dev);
+  const int64_t N = x.size(0), oh = ty[0].size(0), ow = tx[0].size(0);
+  at::Tensor out = at::empty({N, oh, ow}, x.options());
+  launched(tris::bilinear_resize(x.data_ptr<float>(), out.data_ptr<float>(), N, x.size(1),
+                                 x.size(2), oh, ow, y, c, stream()),
+           "bilinear_resize");
+  return out;
+}
+
+// K7: edge [B, H, W]; steps [n_steps, 2] and offsets [n_dirs + 1] int32, the path
+// table. Returns [B, n_dirs, H - rf, W - 2 * rf].
+at::Tensor path_max_affinity(const at::Tensor& edge, const at::Tensor& steps,
+                             const at::Tensor& offsets, int64_t rf) {
+  const at::Device dev = edge.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(edge, "path_max_affinity: edge", at::kFloat, dev);
+  check(steps, "path_max_affinity: steps", at::kInt, dev);
+  check(offsets, "path_max_affinity: offsets", at::kInt, dev);
+  const int64_t B = edge.size(0), H = edge.size(1), W = edge.size(2);
+  const int64_t n_dirs = offsets.size(0) - 1;
+  at::Tensor out = at::empty({B, n_dirs, H - rf, W - 2 * rf}, edge.options());
+  launched(tris::path_max_affinity(edge.data_ptr<float>(), out.data_ptr<float>(), B, H, W, rf,
+                                   n_dirs, steps.data_ptr<int>(), offsets.data_ptr<int>(),
+                                   stream()),
+           "path_max_affinity");
+  return out;
+}
+
+// K9: disp [2, H, W]. Returns the int32 centroids [2, H, W].
+at::Tensor refine_centroids(const at::Tensor& disp, int64_t iterations) {
+  const at::Device dev = disp.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(disp, "refine_centroids: disp", at::kFloat, dev);
+  const int64_t H = disp.size(1), W = disp.size(2);
+  at::Tensor out = at::empty({2, H, W}, disp.options().dtype(at::kInt));
+  launched(tris::refine_centroids(disp.data_ptr<float>(), out.data_ptr<int>(), H, W, iterations,
+                                  stream()),
+           "refine_centroids");
+  return out;
+}
+
+// K10: aff [n_dirs, ch, cw]; dirs [n_dirs, 2], seq [n_seq] and lut [2 * max_off + 1]
+// int32. Returns T [H * W, H * W].
+at::Tensor walk_transition(const at::Tensor& aff, const at::Tensor& dirs, const at::Tensor& seq,
+                           const at::Tensor& lut, int64_t H, int64_t W, int64_t woff,
+                           double beta) {
+  const at::Device dev = aff.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(aff, "walk_transition: aff", at::kFloat, dev);
+  check(dirs, "walk_transition: dirs", at::kInt, dev);
+  check(seq, "walk_transition: seq", at::kInt, dev);
+  check(lut, "walk_transition: lut", at::kInt, dev);
+  at::Tensor out = at::empty({H * W, H * W}, aff.options());
+  launched(tris::walk_transition(aff.data_ptr<float>(), dirs.data_ptr<int>(), seq.data_ptr<int>(),
+                                 seq.size(0), lut.data_ptr<int>(), out.data_ptr<float>(),
+                                 aff.size(1), aff.size(2), H, W, woff, (lut.size(0) - 1) / 2,
+                                 (float)beta, stream()),
+           "walk_transition");
+  return out;
+}
+
+// K10, the walk's products: a [M, K], b [K, N]; a zero where |k - i| > band_a, b where
+// |j - k| > band_b. Returns a @ b [M, N].
+at::Tensor walk_matmul(const at::Tensor& a, const at::Tensor& b, int64_t band_a,
+                       int64_t band_b) {
+  const at::Device dev = a.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(a, "walk_matmul: a", at::kFloat, dev);
+  check(b, "walk_matmul: b", at::kFloat, dev);
+  TORCH_CHECK(a.dim() == 2 && b.dim() == 2 && a.size(1) == b.size(0),
+              "walk_matmul: expected [M, K] @ [K, N]");
+  const int64_t M = a.size(0), K = a.size(1), N = b.size(1);
+  TORCH_CHECK(K % 8 == 0 && N % 4 == 0, "walk_matmul: expected K % 8 == 0 and N % 4 == 0");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(a.data_ptr()) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(b.data_ptr()) % 16 == 0,
+              "walk_matmul: expected 16-byte aligned operands");
+  TORCH_CHECK(band_a >= 0 && band_b >= 0, "walk_matmul: bands must be >= 0");
+  at::Tensor out = at::empty({M, N}, a.options());
+  launched(tris::walk_matmul(a.data_ptr<float>(), b.data_ptr<float>(), out.data_ptr<float>(), M,
+                             N, K, std::min(band_a, K), std::min(band_b, K), stream()),
+           "walk_matmul");
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -363,4 +457,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("critic_input", &critic_input, "K5: the critic's resized, modulated patch matrix");
   m.def("critic_input_bwd", &critic_input_bwd, "K5 backward, to the maps");
   m.def("normalize_u8", &normalize_u8, "K6: u8 NHWC image to normalised f32 NCHW");
+  m.def("bilinear_resize", &bilinear_resize, "K6: bilinear resize of a stack of planes");
+  m.def("path_max_affinity", &path_max_affinity, "K7: 1 - max(edge along each pair's path)");
+  m.def("refine_centroids", &refine_centroids, "K9: centroid refinement by displacement");
+  m.def("walk_transition", &walk_transition, "K10: the walk's column-normalised transition");
+  m.def("walk_matmul", &walk_matmul, "K10: the walk's banded products, summed in double");
 }

@@ -107,4 +107,31 @@ cudaError_t critic_input_bwd(const float* dA, const float* image, float* dt, flo
 cudaError_t normalize_u8(const unsigned char* image, float* out, int64_t n_pix, int64_t hw,
                          const float* scale, const float* bias, cudaStream_t stream);
 
+// K6, bilinear half: x [planes, h, w]; out [planes, oh, ow]; taps h -> oh rows, w -> ow columns.
+cudaError_t bilinear_resize(const float* x, float* out, int64_t planes, int h, int w, int oh,
+                            int ow, TapArrays ty, TapArrays tx, cudaStream_t stream);
+
+// K7: edge [B, H, W]; out [B, n_dirs, H - rf, W - 2 * rf]; steps [n_steps, 2] the (dy, dx)
+// of every direction's path, direction d's at [offsets[d], offsets[d + 1]).
+cudaError_t path_max_affinity(const float* edge, float* out, int64_t B, int H, int W, int rf,
+                              int n_dirs, const int* steps, const int* offsets,
+                              cudaStream_t stream);
+
+// K9: disp [2, H, W]; out int32 [2, H, W], the rounded centroids after `iterations` steps.
+cudaError_t refine_centroids(const float* disp, int* out, int H, int W, int iterations,
+                             cudaStream_t stream);
+
+// K10: aff [n_dirs, ch, cw]; dirs [n_dirs, 2] (dy, dx); seq [n_seq] the band's nonzero
+// offsets in ascending order (2 * d + (offset > 0), -1 the diagonal); lut [2 * max_off + 1]
+// the direction of each flat offset (-2 the diagonal, -1 none); out [H * W, H * W].
+cudaError_t walk_transition(const float* aff, const int* dirs, const int* seq, int n_seq,
+                            const int* lut, float* out, int ch, int cw, int H, int W, int woff,
+                            int max_off, float beta, cudaStream_t stream);
+
+// K10, the walk's products: c [M, N] = a [M, K] @ b [K, N], summed in double; a is zero
+// where |k - i| > band_a, b where |j - k| > band_b (0 <= band <= K). K % 8 == 0, N % 4 == 0,
+// 16-byte aligned rows.
+cudaError_t walk_matmul(const float* a, const float* b, float* c, int M, int N, int K,
+                        int band_a, int band_b, cudaStream_t stream);
+
 }  // namespace tris

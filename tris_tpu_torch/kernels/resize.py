@@ -1,0 +1,50 @@
+"""K6, bilinear half: ``[..., H, W]`` float32 resized bilinearly
+(``csrc/bilinear_resize.cu``), and its plain PyTorch version.
+
+Replaces ``tris_tpu/ops/resize.py::bilinear_resize`` (two HIGHEST-precision
+products with the interpolation matrices) where the IRNet ins-seg pass
+calls it: the heads' upsamples, the CAM to the stride-4 grid and the walk
+back to the image. Both sample with the matrices' taps
+(``ops/resize.py::interp_taps``) rows first, each product and sum rounded
+alone, so kernel and plain version agree bit for bit; against the JAX
+matrix products they agree to rounding. ``ops/resize.py::bilinear_resize``
+(``F.interpolate``) stays for the stage-1 positional-embedding resize,
+which needs gradients.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tris_tpu_torch.kernels import build
+from tris_tpu_torch.kernels.response_head import taps_on, upsample_taps_plain
+
+
+def bilinear_resize_plain(x, size, align_corners: bool = False):
+    """The plain version: the taps gathered, rows then columns."""
+    h, w = x.shape[-2:]
+    oh, ow = int(size[0]), int(size[1])
+    return upsample_taps_plain(x, taps_on(h, oh, align_corners, x.device),
+                               taps_on(w, ow, align_corners, x.device))
+
+
+def bilinear_resize(x, size, align_corners: bool = False):
+    """K6 on a CUDA tensor (one launch); the plain version on a CPU tensor.
+    ``[..., H, W]`` float32 -> ``[..., size[0], size[1]]``; the input itself
+    when the size is unchanged, as the JAX function returns it."""
+    oh, ow = int(size[0]), int(size[1])
+    h, w = x.shape[-2:]
+    if (h, w) == (oh, ow):
+        return x
+    if x.device.type == "cpu":
+        return bilinear_resize_plain(x, (oh, ow), align_corners)
+    build.require_cuda_f32("bilinear_resize", x)
+    if x.dtype != torch.float32:
+        raise TypeError(f"bilinear_resize: expected float32, got {x.dtype}")
+    lead = x.shape[:-2]
+    out = build.ops().bilinear_resize(
+        x.reshape(-1, h, w).contiguous(), list(taps_on(h, oh, align_corners, x.device)),
+        list(taps_on(w, ow, align_corners, x.device)))
+    build.count("bilinear_resize")
+    return out.reshape(*lead, oh, ow)
+

@@ -1,8 +1,8 @@
-"""Where the stage-1 eval forward, the PRMS step or the stage-1 train step
-spends its time on the card.
+"""Where the stage-1 eval forward, the PRMS step, the stage-1 train step or
+one image of IRNet's instance pseudo-mask pass spends its time on the card.
 
-    python -m tris_tpu_torch.tools.profile_eval [--prms | --train] [--batch 8] \\
-        [--sents 4] [--negatives 3] [--size 320] [--iters 5] [--out PATH]
+    python -m tris_tpu_torch.tools.profile_eval [--prms | --train | --ins_seg] \\
+        [--batch 8] [--sents 4] [--negatives 3] [--size 320] [--iters 5] [--out PATH]
 
 Builds RN50 stage 1 at full width with seeded random weights (as
 ``chip_smoke.py`` does), times ``response_maps`` on the host clock (with
@@ -10,7 +10,10 @@ Builds RN50 stage 1 at full width with seeded random weights (as
 normalisation, and the ViT-B/32 critic with seeded random weights; with
 ``--train``: one ``train_step`` of stage 1 against that critic on a u8
 batch of ``--batch`` images with ``--negatives`` negatives each, forward,
-backward and AdamW update), then
+backward and AdamW update; with ``--ins_seg``: one 480x640 image of the
+pass, a seeded full-width IRNet's forward, K9, the host clustering, the
+walk, the upsample and the host detection, on a synthetic image and CAM),
+then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times; one stream, so they do not overlap) and its idle share, and the
@@ -33,7 +36,9 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "vis_to_text_kernel"
                 "text_to_vis_kernel", "a_vis_kernel", "a_lan_kernel", "b_vis_kernel",
                 "b_lan_kernel", "response_head_kernel", "bmm_kernel", "head_fwd_kernel",
                 "maps_fwd_kernel", "head_bwd_kernel", "maps_bwd_kernel", "eval_metrics_kernel",
-                "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel")
+                "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel",
+                "bilinear_resize_kernel", "path_max_kernel", "refine_centroids_kernel",
+                "walk_transition_kernel", "walk_matmul_kernel")
 
 
 def kernel_class(name: str) -> str:
@@ -48,6 +53,33 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def ins_seg_step(dev, rng, size=(480, 640), dp_scale=16.0):
+    """One image of the instance pseudo-mask pass, its host stages included:
+    a u8 image of flat rectangles on noise, a Gaussian CAM on the first, a
+    seeded IRNet whose last displacement conv is scaled by ``dp_scale``
+    (as ``chip_smoke.py`` builds it)."""
+    from tris_tpu_torch.pseudo.irnet import build_irnet, edge_displacement_infer
+    from tris_tpu_torch.pseudo.labels import make_instance_masks
+    from tris_tpu_torch.pseudo.pipeline import normalize_image
+
+    h, w = size
+    img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+    for y0, x0, bh, bw in ((60, 80, 200, 240), (250, 380, 180, 200), (20, 400, 120, 160)):
+        img[y0:y0 + bh, x0:x0 + bw] = rng.integers(80, 256, 3)
+    yy, xx = np.mgrid[:h, :w]
+    cam = np.exp(-0.5 * (((yy - 160) / 120) ** 2 + ((xx - 200) / 144) ** 2)).astype(np.float32)
+    model = build_irnet(None, dev, seed=0)
+    with torch.no_grad():
+        model.fc_dp7[3].weight.mul_(dp_scale)
+    img_d = torch.as_tensor(normalize_image(img), device=dev)
+
+    def step():
+        edge, disp = edge_displacement_infer(model, img_d)
+        return make_instance_masks(edge, disp, cam, size, device=dev)
+
+    return step
+
+
 def main(argv=None) -> dict:
     from tris_tpu_torch.cli.common import build_critic
     from tris_tpu_torch.config import get_parser
@@ -59,13 +91,17 @@ def main(argv=None) -> dict:
     mode = p.add_mutually_exclusive_group()
     mode.add_argument("--prms", action="store_true", help="profile the PRMS step instead")
     mode.add_argument("--train", action="store_true", help="profile one stage-1 train step")
+    mode.add_argument("--ins_seg", action="store_true",
+                      help="profile one 480x640 image of the instance pseudo-mask pass")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--sents", type=int, default=4)
     p.add_argument("--negatives", type=int, default=3, help="negatives per image (--train)")
     p.add_argument("--size", type=int, default=320)
-    p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--iters", type=int, default=None, help="default 5 (1 with --ins_seg)")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
+    if args.iters is None:
+        args.iters = 1 if args.ins_seg else 5
 
     dev = resolve_device("cuda")
     with torch.random.fork_rng(devices=[]):
@@ -77,7 +113,9 @@ def main(argv=None) -> dict:
     ids = np.zeros((args.batch, args.sents, 20), np.int32)
     ids[..., 0], ids[..., 1:6], ids[..., 6] = 49406, rng.integers(1, 49000, 5), 49407
     grad = False
-    if args.train:
+    if args.ins_seg:
+        step = ins_seg_step(dev, rng)
+    elif args.train:
         from tris_tpu_torch.train.stage1 import batch_to_device, train_step
         from tris_tpu_torch.train.state import make_optimizer
 
@@ -99,7 +137,7 @@ def main(argv=None) -> dict:
         step = lambda: model.response_maps(image, ids_d)  # noqa: E731
 
     with torch.set_grad_enabled(grad):
-        for _ in range(3):
+        for _ in range(1 if args.ins_seg else 3):   # warm-up (cuDNN, cuBLAS, allocator)
             step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -128,10 +166,11 @@ def main(argv=None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     res = {
         "device": torch.cuda.get_device_name(0),
-        "step": ("train_step" if args.train else
-                 "make_prms_forward" if args.prms else "response_maps"),
-        "shape": {"batch": args.batch, "sents": args.sents, "size": args.size,
-                  **({"negatives": args.negatives} if args.train else {})},
+        "step": ("train_step" if args.train else "make_prms_forward" if args.prms else
+                 "ins_seg_image" if args.ins_seg else "response_maps"),
+        "shape": ({"image": [480, 640]} if args.ins_seg else
+                  {"batch": args.batch, "sents": args.sents, "size": args.size,
+                   **({"negatives": args.negatives} if args.train else {})}),
         "wall_ms_per_forward": wall_ms,
         "device_busy_ms_per_forward": busy,
         "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
