@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--report PATH]
 
 Run from the root of a checkout. Phases, in order; an error stops the run,
-and a failed check of phases 3-7 exits 1 once all have run (so the report
+and a failed check of phases 3-8 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
@@ -16,7 +16,9 @@ holds every number):
              critic's and attnpool's; K4 at stage-1 eval's and on PRMS's
              selected maps; the backward kernels and K3's training head at
              the stage-1 train step's; K6's bilinear half, K7, K9 and K10 at
-             a 480x640 image's IRNet pass), with its stated tolerance; device
+             a 480x640 image's IRNet pass; K6's bilinear backward, K7's
+             backward (ties planted) and K8 forward and backward at IRN
+             training's B=24, crop 512, radius 10), with its stated tolerance; device
              times of kernel, plain version and, where one exists, the one
              PyTorch call computing the same thing; the least time the card
              could take (bytes or FP32 operations over the published peak);
@@ -51,7 +53,20 @@ holds every number):
              stages one by one on both routes (IRNet and K9 outputs exact,
              the walk within 1e-4 of its max) with the host time of each
              stage; the pass on one image per route over
-             ``INS_SEG_ROUNDS``, alternating.
+             ``INS_SEG_ROUNDS``, alternating;
+8. irn_train - IRNet's pass 1 (the CRF, on the host, timed per image) on
+             phase 7's images, then IRN training at the JAX recipe's shape
+             (B=24, crop 512, radius 10, the full-width frozen trunk,
+             seeded heads) on batches built from them by
+             ``irn_train_batches``: ``IRN_STEPS`` steps with the counters
+             set to 0 just before and read just after (the exact launches
+             per step of K6 forward and backward, K7, K8), the same steps
+             on the plain route from the same weights (step-1 loss terms
+             and every head gradient, nonzero), step times of both routes
+             over ``ROUNDS``; then the user's chain as CLI processes on a
+             fake RefCOCO tree: ``cli.train_stage1`` (one epoch) ->
+             ``cli.validate --prms --save_cam`` -> ``cli.irnet`` with its
+             three passes, and the files each leaves.
 
 Prints the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``--report`` writes a fuller JSON report
@@ -99,6 +114,16 @@ INS_SEG_ROUNDS = 3
 INS_SEG_DP_SCALE = 16.0  # the seeded IRNet's last displacement conv, scaled: a few instances
 INS_SEG_KERNELS = ("bilinear_resize", "path_max_affinity", "refine_centroids", "walk_transition",
                    "walk_matmul")
+# phase 8: IRN training at the JAX recipe's shape (IRNTrainConfig,
+# train_irn.py:35-42 of the JAX package): crop 512, radius 10 (152
+# directions, 119x110 windows), B=24, lr 0.1 (the displacement heads 1.0),
+# the full-width trunk frozen; batches from phase 7's three images, their
+# ir labels from pass 1, 24 names cycling them
+IRN_B, IRN_CROP, IRN_RADIUS, IRN_STEPS, IRN_LR = 24, 512, 10, 3, 0.1
+# kernel launches per IRN step: K6 at IRNet's six upsamples, forward and
+# backward; K7 one forward, its backward two passes; K8 two each way
+IRN_LAUNCHES_PER_STEP = {"bilinear_resize": 6, "bilinear_resize_bwd": 6, "path_max_affinity": 1,
+                         "path_max_affinity_bwd": 2, "irn_loss": 2, "irn_loss_bwd": 2}
 # H100 SXM published peaks: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
@@ -188,6 +213,38 @@ def sdpa(q, k, v, H, mask):
     n, _, c = q.shape
     heads = [x.view(n, x.shape[1], H, c // H).transpose(1, 2) for x in (q, k, v)]
     return F.scaled_dot_product_attention(*heads, attn_mask=mask)
+
+
+def _outs_cots(fn, inputs, cots):
+    """``fn(*inputs)``'s outputs that have a cotangent, and those cotangents."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, c) for o, c in zip(outs, cots) if c is not None]
+    return [o for o, _ in pairs], [c for _, c in pairs]
+
+
+def input_grads(fn, inputs, cots):
+    """The gradients of ``inputs`` from ``fn``'s outputs and cotangents."""
+    import torch
+
+    outs, cs = _outs_cots(fn, inputs, cots)
+    return torch.autograd.grad(outs, inputs, cs)
+
+
+def bwd_ms(fn, inputs, cots, n: int = 20, repeats: int = 3):
+    """Card time of the backward alone, on a retained graph."""
+    import torch
+
+    outs, cs = _outs_cots(fn, inputs, cots)
+    return device_ms(lambda: torch.autograd.grad(outs, inputs, cs, retain_graph=True), n, repeats)
+
+
+def fwd_bwd_ms(fn, inputs, cots):
+    return device_ms(lambda: input_grads(fn, inputs, cots))
+
+
+def leaves(*ts):
+    return [t.detach().requires_grad_() for t in ts]
 
 
 # ---- phase 3: each kernel against its plain version -------------------------
@@ -369,32 +426,10 @@ def check_train_kernels(K, dev):
 
     failures, rows, extra_rows = [], [], {}
 
-    def grads(fn, inputs, cots):
-        outs = fn(*inputs)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        pairs = [(o, c) for o, c in zip(outs, cots) if c is not None]
-        return [o for o, _ in pairs], [c for _, c in pairs]
-
-    def bwd_ms(fn, inputs, cots):
-        outs, cs = grads(fn, inputs, cots)
-        return device_ms(lambda: torch.autograd.grad(outs, inputs, cs, retain_graph=True))
-
-    def fwd_bwd_ms(fn, inputs, cots):
-        def step():
-            outs, cs = grads(fn, inputs, cots)
-            torch.autograd.grad(outs, inputs, cs)
-        return device_ms(step)
-
-    def leaves(*ts):
-        return [t.detach().requires_grad_() for t in ts]
-
     def compare(name, fn, plain, inputs, cots, rel_tol):
         """max error of the kernel's input gradients against the plain
         version's, and the tolerance (rel_tol of the largest gradient)."""
-        outs, cs = grads(fn, inputs, cots)
-        got = torch.autograd.grad(outs, inputs, cs)
-        outs, cs = grads(plain, inputs, cots)
-        want = torch.autograd.grad(outs, inputs, cs)
+        got, want = input_grads(fn, inputs, cots), input_grads(plain, inputs, cots)
         scale = max(float(w.abs().max()) for w in want)
         err = max(max_err(a, b) for a, b in zip(got, want))
         finite = all(bool(torch.isfinite(a).all()) for a in got)
@@ -673,14 +708,172 @@ def check_walk_matmul(K, dev, trans, band, failures):
 
     chain_ms = device_ms(lambda: chain(K.walk_matmul), 1, 1)
     chain_plain_ms = device_ms(lambda: chain(K.walk_matmul_plain), 1, 1)
+    chain_lib_ms = device_ms(lambda: chain(lambda a, b, *bands: torch.mm(a, b)), 1, 1)
     b_ms, b_by = bound_ms(4 * (8 * 2 * n * n + n * n + x.numel() + 16 * n), sum(flops))
     sub.append({"name": "walk_matmul@chain", "ms": chain_ms, "plain_ms": chain_plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "flops": sum(flops),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": chain_lib_ms, "flops": sum(flops),
                 "dense_flops": 8 * 2.0 * n ** 3 + 2.0 * 16 * n * n})
     log(f"kernel walk_matmul@chain: ms {chain_ms:.1f} plain_ms {chain_plain_ms:.1f} bound_ms "
-        f"{b_ms:.1f} ({b_by}), {sum(flops) / 1e12:.2f} TFLOP of nonzero products")
+        f"{b_ms:.1f} ({b_by}) library_ms {chain_lib_ms:.1f} (torch.mm, f32), "
+        f"{sum(flops) / 1e12:.2f} TFLOP of nonzero products")
     return kernel_row("walk_matmul", "tris_tpu_torch/kernels/csrc/walk_matmul.cu",
                       "tris_tpu/pseudo/indexing.py:524", main, sub)
+
+
+def check_irn_train_kernels(K, dev):
+    """One row per kernel of IRN training's backward and for K8, at the
+    training step's shapes (B=24, crop 512, radius 10: the edge map and the
+    displacement field at 128x128, 152 directions, 119x110 windows), each
+    against autograd of its plain version on the same inputs: K6's
+    bilinear backward at the heads' upsamples (the dp6 tap the row, the
+    others sub-rows), K7's backward on an edge map with planted ties, K8's
+    forward (sums and counts) and backward. A backward row times the
+    backward alone (on a retained graph)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.pseudo.indexing import PathIndex
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    failures = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def row(name, source, replaces, *args, shapes=(), **extra):
+        return kernel_row(name, source, replaces, measure_row(failures, name, *args, **extra),
+                          shapes)
+
+    # K6 backward: 1e-5 of the gradient's scale (the plain version's index
+    # backward adds with atomics, in another order); F.interpolate's backward
+    # as the library
+    def resize_bwd(name, shape, size):
+        (x,) = leaves(randn(*shape))
+        cot = [randn(*shape[:-2], *size)]
+        kern = lambda t: K.bilinear_resize(t, size, False)  # noqa: E731
+        plain = lambda t: K.bilinear_resize_plain(t, size, False)  # noqa: E731
+        lib = lambda t: F.interpolate(t, size=size, mode="bilinear",  # noqa: E731
+                                      align_corners=False)
+        got, want = input_grads(kern, [x], cot)[0], input_grads(plain, [x], cot)[0]
+        scale = float(want.abs().max())
+        return measure_row(failures, name, max_err(got, want), 1e-5 * scale,
+                           bwd_ms(kern, [x], cot), bwd_ms(plain, [x], cot, 5),
+                           4 * (cot[0].numel() + x.numel()), 8 * cot[0].numel(),
+                           bwd_ms(lib, [x], cot), shape=[*shape, *size], scale=scale,
+                           library_max_abs_err=max_err(got, input_grads(lib, [x], cot)[0]))
+
+    q = IRN_CROP // 4
+    rows = [kernel_row(
+        "bilinear_resize_bwd", "tris_tpu_torch/kernels/csrc/bilinear_resize_bwd.cu",
+        "tris_tpu/ops/resize.py:57",
+        resize_bwd("bilinear_resize_bwd", (IRN_B, 256, q // 2, q // 2), (q, q)),
+        [resize_bwd("bilinear_resize_bwd@edge_x4", (IRN_B, 32, q // 4, q // 4), (q, q)),
+         resize_bwd("bilinear_resize_bwd@edge_x2", (IRN_B, 32, q // 2, q // 2), (q, q)),
+         resize_bwd("bilinear_resize_bwd@dp_x2", (IRN_B, 256, q // 4, q // 4), (q // 2, q // 2))])]
+    torch.cuda.empty_cache()
+
+    # K7 backward on an edge map of 4 levels (exact ties along most paths)
+    # with noise in its top third, against amax's autograd, which splits
+    # ties evenly as JAX does. The kernel adds each pixel's terms (up to 2134)
+    # in double and rounds once, so it is held to the plain version run in
+    # float64 (edge and cotangent promoted) within 1e-6 of the gradient's
+    # scale (8 float32 ulps at the largest value); the float32 plain
+    # version, whose sums round at every add, within 1e-5, with its own
+    # distance from float64 reported beside it
+    pi = PathIndex(IRN_RADIUS, (q, q))
+    paths, rf = pi.paths_by_length, pi.radius_floor
+    edge = torch.randint(0, 4, (IRN_B, q, q), generator=g, device=dev).float() / 4
+    edge[:, : q // 3] = torch.rand(IRN_B, q // 3, q, generator=g, device=dev)
+    (edge,) = leaves(edge)
+    n_dirs, ch, cw = len(pi.search_dst), q - rf, q - 2 * rf
+    cot = [randn(IRN_B, n_dirs, ch, cw)]
+    kern = lambda e: K.path_max_affinity(e, paths, rf)  # noqa: E731
+    plain = lambda e: K.path_max_affinity_plain(e, paths, rf)  # noqa: E731
+    got, want = input_grads(kern, [edge], cot)[0], input_grads(plain, [edge], cot)[0]
+    want64 = input_grads(plain, leaves(edge.double()), [cot[0].double()])[0]
+    scale = float(want64.abs().max())
+    err32, tol32 = max_err(got, want), 1e-5 * scale
+    if not err32 <= tol32:
+        failures.append(f"path_max_affinity_bwd: vs the float32 plain version {err32} > {tol32}")
+    torch.cuda.empty_cache()
+    steps = K.path_max.path_steps(paths)
+    with torch.no_grad():
+        ties = 0
+        for p in steps:
+            w = torch.stack([edge[:, dy:dy + ch, rf + dx:rf + dx + cw] for dy, dx in p])
+            ties += int(((w == w.amax(0)).sum(0) > 1).sum())
+        # the library: one amax over the paths' gathered steps (padded with -inf)
+        flat = torch.cat([edge.detach().reshape(IRN_B, -1),
+                          torch.full((IRN_B, 1), -math.inf, device=dev)], 1)
+        plen = max(len(p) for p in steps)
+        rr, cc = np.mgrid[:ch, :cw]
+        idx = np.full((n_dirs, plen, ch * cw), q * q, np.int64)
+        for d, p in enumerate(steps):
+            for k, (dy, dx) in enumerate(p):
+                idx[d, k] = ((rr + dy) * q + rf + cc + dx).reshape(-1)
+        gathered = flat[:, torch.as_tensor(idx, device=dev)]
+    (gathered,) = leaves(gathered)
+    lib = lambda t: t.amax(2)  # noqa: E731
+    lib_cot = [cot[0].reshape(IRN_B, n_dirs, ch * cw)]
+    n_steps = sum(len(p) for p in steps)
+    rows.append(row(
+        "path_max_affinity_bwd", "tris_tpu_torch/kernels/csrc/path_max_affinity_bwd.cu",
+        "tris_tpu/pseudo/indexing.py:110", max_err(got, want64), 1e-6 * scale,
+        bwd_ms(kern, [edge], cot), bwd_ms(plain, [edge], cot, 3, 1),
+        4 * (cot[0].numel() + 2 * edge.numel()), 2 * IRN_B * n_steps * ch * cw,
+        bwd_ms(lib, [gathered], lib_cot, 5), shape=[IRN_B, q, q, IRN_RADIUS],
+        tied_entries=ties, entries=cot[0].numel(), reference="plain in float64", scale=scale,
+        f32_plain_max_abs_err=err32, f32_plain_tol=tol32,
+        f32_plain_vs_float64=max_err(want, want64)))
+    if ties < cot[0].numel() // 4:
+        failures.append(f"path_max_affinity_bwd: only {ties} tied entries planted")
+    del gathered, flat, got, want, want64, cot
+    torch.cuda.empty_cache()
+
+    # K8 on a blocky {0, 1, 255} label map, K7's affinity of a random edge
+    # map and a field of a few pixels: the sums within 1e-5 relative and the
+    # counts exact (forward); d aff within 1e-6 and d dp within 1e-5 of their
+    # scales (backward)
+    lab = torch.tensor([0, 1, 255], dtype=torch.uint8, device=dev)[
+        torch.randint(0, 3, (IRN_B, q // 8, q // 8), generator=g, device=dev)]
+    lab = lab.repeat_interleave(8, 1).repeat_interleave(8, 2).contiguous()
+    with torch.no_grad():
+        aff = K.path_max_affinity(torch.rand(IRN_B, q, q, generator=g, device=dev), paths, rf)
+    aff, dp = leaves(aff, 3 * randn(IRN_B, 2, q, q))
+    dirs = pi.search_dst
+    with torch.no_grad():
+        sums, counts = K.irn_loss(lab, aff, dp, dirs, rf)
+        want_s, want_c = K.irn_loss_plain(lab, aff, dp, dirs, rf)
+    rel = float(((sums.double() - want_s.double()).abs() / want_s.double().abs()).max())
+    if not (torch.equal(counts, want_c) and rel <= 1e-5):
+        failures.append(f"irn_loss: counts {counts.tolist()} vs {want_c.tolist()}, sums {rel} "
+                        f"relative (> 1e-5)")
+    n_ent = aff.numel()
+    rows.append(row(
+        "irn_loss", "tris_tpu_torch/kernels/csrc/irn_loss.cu", "tris_tpu/pseudo/train_irn.py:91",
+        max_err(sums, want_s), 1e-5 * float(want_s.abs().min()),
+        device_ms(lambda: K.irn_loss(lab, aff.detach(), dp.detach(), dirs, rf)),
+        device_ms(lambda: K.irn_loss_plain(lab, aff.detach(), dp.detach(), dirs, rf), 5),
+        4 * n_ent + lab.numel() + 4 * dp.numel() + 4 * 5 + 8 * 3, 16 * n_ent, None,
+        shape=[IRN_B, q, q, n_dirs, ch, cw], sums=sums.tolist(), counts=counts.tolist(),
+        sums_rel_err=rel))
+    cot = [randn(5)]
+    kern = lambda a, d: K.irn_loss(lab, a, d, dirs, rf)  # noqa: E731
+    plain = lambda a, d: K.irn_loss_plain(lab, a, d, dirs, rf)  # noqa: E731
+    got, want = input_grads(kern, [aff, dp], cot), input_grads(plain, [aff, dp], cot)
+    err_dp, tol_dp = max_err(got[1], want[1]), 1e-5 * float(want[1].abs().max())
+    if not err_dp <= tol_dp:
+        failures.append(f"irn_loss_bwd: d dp max_abs_err {err_dp} > {tol_dp}")
+    rows.append(row(
+        "irn_loss_bwd", "tris_tpu_torch/kernels/csrc/irn_loss.cu",
+        "tris_tpu/pseudo/train_irn.py:91",
+        max_err(got[0], want[0]), 1e-6 * float(want[0].abs().max()),
+        bwd_ms(kern, [aff, dp], cot), bwd_ms(plain, [aff, dp], cot, 5),
+        4 * 2 * n_ent + lab.numel() + 4 * 2 * dp.numel(), 8 * n_ent + 4 * 2 * 2 * n_ent, None,
+        shape=[IRN_B, q, q, n_dirs, ch, cw], d_dp_max_abs_err=err_dp, d_dp_tol=tol_dp))
+    del aff, dp, got, want
+    torch.cuda.empty_cache()
+    return rows, failures
 
 
 # ---- phase 4: the main path ------------------------------------------------
@@ -747,7 +940,8 @@ def plain_kernels(K):
              "bilinear_resize": K.bilinear_resize_plain,
              "path_max_affinity": K.path_max_affinity_plain,
              "refine_centroids": K.refine_centroids_plain,
-             "walk_transition": K.walk_transition_plain, "walk_matmul": K.walk_matmul_plain}
+             "walk_transition": K.walk_transition_plain, "walk_matmul": K.walk_matmul_plain,
+             "irn_loss": K.irn_loss_plain}
     saved = {name: getattr(K, name) for name in plain}
     for name, fn in plain.items():
         setattr(K, name, fn)
@@ -1072,7 +1266,8 @@ def train_path(K, dev, batches):
                 for k in ("loss", "l1", "l4", "l5")}
     if not max(term_err.values()) <= 1e-5:
         failures.append(f"stage-1 train: step-1 loss terms vs plain {term_err} > 1e-5 relative")
-    later = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(metrics[1:], metrics_p[1:])]
+    later = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(metrics[1:], metrics_p[1:])]
     if not max(later) <= 1e-3:
         failures.append(f"stage-1 train: steps 2-3 losses vs plain {later} > 1e-3 relative")
     with plain_kernels(K):
@@ -1332,6 +1527,236 @@ def ins_seg_path(K, dev):
     return summary, failures
 
 
+# ---- phase 8: IRN training, pass 1 and the user's chain ------------------------------
+
+
+def irn_train_path(K, dev):
+    """IRNet's pass 1 (the CRF, on the host) on phase 7's three images, then
+    IRN training at the recipe's full width on batches built from them:
+    ``IRN_STEPS`` steps on the kernel route under reset launch counters,
+    the same steps on the plain route from the same weights, held against
+    each other; step times of both routes alternating over ``ROUNDS``."""
+    import copy
+
+    import torch
+    from PIL import Image
+
+    from tris_tpu_torch.pseudo.indexing import PathIndex
+    from tris_tpu_torch.pseudo.irnet import IRNet
+    from tris_tpu_torch.pseudo.pipeline import PseudoConfig, _ir_label_one, irn_train_batches
+    from tris_tpu_torch.pseudo.train_irn import (
+        IRNTrainConfig, batch_to_device, label_irn_params, make_irn_optimizer, train_step)
+
+    failures = []
+    tmp = tempfile.TemporaryDirectory()
+    with tmp:
+        names = make_ins_seg_data(tmp.name, seed=5)
+        cfg = PseudoConfig(train_list=os.path.join(tmp.name, "names.json"),
+                           data_root=os.path.join(tmp.name, "train2014"),
+                           cam_dir=os.path.join(tmp.name, "cam"),
+                           ir_label_dir=os.path.join(tmp.name, "ir_label"),
+                           crop_size=IRN_CROP, radius=IRN_RADIUS)
+        os.makedirs(cfg.ir_label_dir)
+        crf_ms = [host_ms(lambda: _ir_label_one((cfg, n))) for n in names]   # pass 1, serial
+        ir_values = sorted({int(v) for n in names for v in np.unique(np.asarray(
+            Image.open(os.path.join(cfg.ir_label_dir, n + ".png"))))})
+        if not set(ir_values) <= {0, 1, 255} or len(ir_values) < 2:
+            failures.append(f"irn_train: ir labels hold {ir_values}")
+        pi = PathIndex(IRN_RADIUS, (IRN_CROP // 4, IRN_CROP // 4))
+        t0 = time.perf_counter()
+        batches = list(irn_train_batches(cfg, [names[i % len(names)] for i in range(IRN_B)], pi,
+                                         IRN_B, IRN_STEPS, num_threads=8))
+        batch_build_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    data = [batch_to_device(b, dev) for b in batches]
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        init = IRNet().to(dev).train()
+    tcfg = IRNTrainConfig(crop_size=IRN_CROP, radius=IRN_RADIUS, lr=IRN_LR, batch_size=IRN_B)
+    labels = label_irn_params(init)
+
+    def fresh():
+        model = copy.deepcopy(init)
+        return (model, *make_irn_optimizer(model, tcfg, 100))
+
+    def steps(state, n, start=0):
+        """n steps from batch ``start`` on: the loss terms, step 1's gradients."""
+        model, opt, sched = state
+        out, grads = [], None
+        for i in range(n):
+            m = train_step(model, opt, sched, pi, data[(start + i) % len(data)])
+            out.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                         if p.grad is not None}
+        return out, grads
+
+    steps(fresh(), 1)                            # warm-up (cuDNN, allocator), kernel route
+    torch.cuda.synchronize()
+    state = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    metrics, grads = steps(state, IRN_STEPS)     # the counted run
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_kernels(K):
+        plain_state = fresh()
+        torch.cuda.reset_peak_memory_stats()
+        metrics_p, grads_p = steps(plain_state, IRN_STEPS)
+        torch.cuda.synchronize()
+    peak_plain_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for name in K.KERNELS:
+        want = IRN_LAUNCHES_PER_STEP.get(name, 0) * IRN_STEPS
+        if launches[name] != want:
+            failures.append(f"irn_train: {name} launched {launches[name]} times, want {want}")
+    # step 1: each loss term within 1e-5 relative; every head gradient within
+    # 1e-4 of its leaf's max and nonzero on the kernel route; later losses
+    # within 1e-3 relative (sign() in the displacement loss and the path
+    # max's argmax route gradients discontinuously, so the routes drift
+    # apart after step 1 by more than their rounding)
+    term_err = {k: abs(metrics[0][k] - metrics_p[0][k]) / max(abs(metrics_p[0][k]), 1e-12)
+                for k in metrics[0]}
+    if not max(term_err.values()) <= 1e-5:
+        failures.append(f"irn_train: step-1 loss terms vs plain {term_err} > 1e-5 relative")
+    later = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(metrics[1:], metrics_p[1:])]
+    if not max(later, default=0.0) <= 1e-3:
+        failures.append(f"irn_train: later losses vs plain {later} > 1e-3 relative")
+    heads = sorted(k for k, v in labels.items() if v != "frozen")
+    if set(grads) != set(heads) or set(grads_p) != set(heads):
+        failures.append(f"irn_train: gradient leaves {sorted(set(heads) ^ set(grads))} differ "
+                        f"from the heads")
+    worst, zero = (0.0, ""), []
+    for k in heads:
+        if k not in grads or k not in grads_p:
+            continue
+        bar = 1e-4 * float(grads_p[k].abs().max())
+        err = max_err(grads[k], grads_p[k])
+        worst = max(worst, (err / bar * 1e-4 if bar > 0 else float("inf"), k))
+        if not err <= bar:
+            failures.append(f"irn_train: gradient {k} vs plain {err} > 1e-4 of its max ({bar})")
+        if not float(grads[k].abs().max()) > 0:
+            zero.append(k)
+    if zero:
+        failures.append(f"irn_train: zero gradient on the kernel route for {zero}")
+    if not all(np.isfinite(m["loss"]) for m in metrics + metrics_p):
+        failures.append("irn_train: a loss is not finite")
+    param_rel = max(max_err(p.detach(), q.detach()) / max(float(q.abs().max()), 1e-30)
+                    for (k, p), q in zip(state[0].named_parameters(),
+                                         plain_state[0].parameters()) if labels[k] != "frozen")
+    frozen_moved = [k for (k, p), q in zip(state[0].named_parameters(), init.parameters())
+                    if labels[k] == "frozen" and not torch.equal(p, q)]
+    if frozen_moved:
+        failures.append(f"irn_train: frozen trunk parameters moved: {frozen_moved[:3]}")
+
+    times = {"kernels": [], "plain": []}
+    for i in range(ROUNDS):
+        for route, st, ctx in (("kernels", state, contextlib.nullcontext),
+                               ("plain", plain_state, lambda: plain_kernels(K))):
+            with ctx():
+                times[route].append(host_ms(lambda: steps(st, 1, start=i)))
+    del data, state, plain_state
+    torch.cuda.empty_cache()
+    summary = {
+        "model": "IRNet (ResNet-50 strides 2-2-2-1, frozen; edge and displacement heads), "
+                 f"seeded torch init (seed 0); SGD lr {IRN_LR} (dp heads x10), momentum 1e-4",
+        "B": IRN_B, "crop": IRN_CROP, "radius": IRN_RADIUS, "directions": len(pi.search_dst),
+        "steps": IRN_STEPS, "images": [list(s) for s in INS_SEG_SIZES],
+        "crf_host_ms_per_image": crf_ms, "ir_label_values": ir_values,
+        "batch_build_host_ms": batch_build_ms,
+        "launches": launches, "launches_per_step_expected": IRN_LAUNCHES_PER_STEP,
+        "metrics": metrics, "metrics_plain": metrics_p, "step1_term_rel_err": term_err,
+        "later_loss_rel_err": later, "grad_worst_rel_err": worst[0], "grad_worst_leaf": worst[1],
+        "grad_leaves": len(grads), "params_after_steps_max_rel_diff": param_rel,
+        "peak_memory_gb": peak_gb, "peak_memory_plain_gb": peak_plain_gb,
+        "step_host_ms": {route: spread(t) for route, t in times.items()},
+    }
+    log(f"irn_train: {json.dumps(summary)}")
+    return summary, failures
+
+
+def run_cli(args, timeout):
+    """``python -m <args>`` from the checkout's root: (seconds, return code,
+    the end of its output)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=timeout)
+    return time.perf_counter() - t0, out.returncode, (out.stdout + out.stderr)[-2000:]
+
+
+def cli_chain():
+    """The user's chain on a small fake RefCOCO tree, each step a CLI in its
+    own process on the card: ``cli.train_stage1`` (one epoch), ``cli.validate
+    --prms --save_cam`` on its best checkpoint, ``cli.irnet`` with all three
+    passes (CRF ir labels, IRN training at crop 512 and radius 10, the
+    instance pseudo-masks). Checks the files each leaves. The tree is the
+    test suite's fixture (``tests/fixtures.py``, numpy and PIL only),
+    loaded from its file: another installed package may be named
+    ``tests``."""
+    import importlib.util
+
+    from PIL import Image
+
+    spec = importlib.util.spec_from_file_location("fixtures", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+
+    failures, secs = [], {}
+    tmp = tempfile.TemporaryDirectory()
+    with tmp:
+        data, out = os.path.join(tmp.name, "data"), os.path.join(tmp.name, "out")
+        fixtures.make_fake_refcoco(data, n_images=6, img_hw=(48, 64))
+        common = ["--dataset", "refcoco", "--splitBy", "unc", "--refer_data_root", data,
+                  "--size", "320"]
+        cam, names = os.path.join(out, "cam"), os.path.join(out, "names")
+        steps = [
+            ("train_stage1", ["tris_tpu_torch.cli.train_stage1", *common, "--batch_size", "4",
+                              "--negative_samples", "2", "--epoch", "1", "--test_split", "val",
+                              "--output", out, "--print-freq", "1", "--eval_batch", "2",
+                              "--fast_eval"]),
+            ("validate_prms", ["tris_tpu_torch.cli.validate", *common, "--test_split", "train",
+                               "--prms", "--save_cam", "--cam_save_dir", cam, "--name_save_dir",
+                               names, "--eval_batch", "2", "--pretrain",
+                               os.path.join(out, "ckpt_320_epoch_0_best.pth")]),
+            ("irnet", ["tris_tpu_torch.cli.irnet", "--train_list",
+                       os.path.join(names, "refcoco_train_names.json"), "--data_root",
+                       os.path.join(data, "train2014"), "--cam_dir", cam, "--ir_label_out_dir",
+                       os.path.join(out, "ir_label"), "--ins_seg_out_dir",
+                       os.path.join(out, "ins_seg"), "--irn_weights",
+                       os.path.join(out, "res50_irn.pth"), "--irn_batch_size", "2",
+                       "--irn_num_epoches", "1", "--num_workers", "2", "--cam_to_ir_label_pass",
+                       "--train_irn_pass", "--make_ins_seg_pass"]),
+        ]
+        for name, args in steps:
+            secs[name], rc, tail = run_cli(args, 600)
+            if rc != 0:
+                failures.append(f"chain: {name} exited {rc}: {tail}")
+                break
+        files = {d: sorted(os.listdir(os.path.join(out, d))) if os.path.isdir(
+            os.path.join(out, d)) else [] for d in ("cam", "ir_label", "ins_seg")}
+        n = len(files["cam"])
+        values = set()
+        for f in files["ir_label"]:
+            values |= {int(v) for v in np.unique(np.asarray(Image.open(
+                os.path.join(out, "ir_label", f))))}
+        dicts_ok = all(sorted(np.load(os.path.join(out, "ins_seg", f), allow_pickle=True).item())
+                       == ["cam", "class", "mask", "score"] for f in files["ins_seg"])
+        pth = os.path.isfile(os.path.join(out, "res50_irn.pth"))
+        if not (n > 0 and len(files["ir_label"]) == n and len(files["ins_seg"]) == n
+                and values <= {0, 1, 255} and dicts_ok and pth):
+            failures.append(f"chain: files {files}, ir label values {sorted(values)}, "
+                            f"dicts ok {dicts_ok}, .pth {pth}")
+    summary = {"seconds": secs, "cams": n, "ir_labels": len(files["ir_label"]),
+               "ins_seg_dicts": len(files["ins_seg"]), "ir_label_values": sorted(values),
+               "irn_weights_written": pth}
+    log(f"chain: {json.dumps(summary)}")
+    return summary, failures
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Drive the PyTorch port of TRIS on one GPU.")
     p.add_argument("--report", default=None, help="write a fuller JSON report here")
@@ -1373,6 +1798,9 @@ def main(argv=None) -> int:
     ins_rows, ins_failures = check_ins_seg_kernels(K, dev)
     rows += ins_rows
     failures += ins_failures
+    irn_rows, irn_failures = check_irn_train_kernels(K, dev)
+    rows += irn_rows
+    failures += irn_failures
 
     # 4. stage-1 eval and 5. PRMS, on one stage-1 model and one set of batches
     model = build_stage1(dev)
@@ -1391,16 +1819,24 @@ def main(argv=None) -> int:
     # 7. IRNet instance pseudo-masks
     ins_seg, ins_seg_failures = ins_seg_path(K, dev)
     failures += ins_seg_failures
+    torch.cuda.empty_cache()
+
+    # 8. IRN training (after IRNet's pass 1), then the user's chain from the CLIs
+    irn, irn_failures = irn_train_path(K, dev)
+    chain, chain_failures = cli_chain()
+    failures += irn_failures + chain_failures
 
     # launches: on the stage-1 train path for its kernels (all but K3's eval
-    # half and K4), else on the PRMS path, else on the ins-seg path; per path
-    # beside
+    # half and K4), else on the PRMS path, else on the ins-seg path, else on
+    # the IRN training path; per path beside
     by_shape = prms["mha_short_launches_by_shape"]
     for row in rows:
         name = row["name"]
         paths = {"stage1_eval": stage1["launches"][name], "prms": prms["launches"][name],
-                 "stage1_train": train["launches"][name], "ins_seg": ins_seg["launches"][name]}
-        row["launches"] = paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
+                 "stage1_train": train["launches"][name], "ins_seg": ins_seg["launches"][name],
+                 "irn_train": irn["launches"][name]}
+        row["launches"] = (paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
+                           or paths["irn_train"])
         row["launches_by_path"] = paths
         for sub in row["shapes"]:
             if name == "mha_short":
@@ -1411,7 +1847,8 @@ def main(argv=None) -> int:
         with open(args.report, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s,
                        "kernels": rows, "stage1_eval": stage1, "prms": prms,
-                       "stage1_train": train, "ins_seg": ins_seg}, f, indent=1)
+                       "stage1_train": train, "ins_seg": ins_seg, "irn_train": irn,
+                       "chain": chain}, f, indent=1)
     if failures:
         fail("; ".join(failures))
 

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 from flax.traverse_util import flatten_dict, unflatten_dict
 from scipy import ndimage
 
@@ -516,9 +517,37 @@ def test_cli_make_ins_seg_pass(irnet_pair, tmp_path):
         assert d["mask"].shape[1:] == IMG_HW and d["mask"].dtype == bool
 
 
-@pytest.mark.parametrize("flag", ["--cam_to_ir_label_pass", "--train_irn_pass"])
-def test_cli_passes_not_yet_ported_exit(flag):
-    args = cli_irnet.get_irn_parser().parse_args(["--train_list", "n.json", flag,
-                                                  "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_irnet.main(args)
+@pytest.mark.parametrize("passes", [["--cam_to_ir_label_pass"], ["--train_irn_pass"],
+                                    ["--cam_to_ir_label_pass", "--train_irn_pass",
+                                     "--make_ins_seg_pass"]],
+                         ids=["cam_to_ir_label", "train_irn", "chain"])
+def test_cli_passes(tmp_path, passes):
+    # --device cpu at crop 64, radius 5, B=2, one epoch: the CRF pass writes
+    # one {0, 1, 255} PNG per name (in a worker process), the training pass
+    # a .pth that loads strictly into IRNet, and the chain the ins-seg dicts
+    names = _ins_seg_data(tmp_path, n=3)
+    ir_dir, weights = tmp_path / "ir_label", tmp_path / "out" / "res50_irn.pth"
+    common = dict(train_list=str(tmp_path / "names.json"), data_root=str(tmp_path / "train2014"),
+                  cam_dir=str(tmp_path / "cam"), ir_label_dir=str(ir_dir))
+    if passes == ["--train_irn_pass"]:
+        PL_pipeline.run_cam_to_ir_label(PseudoConfig(**common), parallel=False)
+    args = cli_irnet.get_irn_parser().parse_args([
+        "--train_list", common["train_list"], "--data_root", common["data_root"],
+        "--cam_dir", common["cam_dir"], "--ir_label_out_dir", str(ir_dir),
+        "--ins_seg_out_dir", str(tmp_path / "ins_seg"), "--irn_weights", str(weights),
+        "--irn_crop_size", "64", "--irn_radius", "5", "--irn_batch_size", "2",
+        "--irn_num_epoches", "1", "--exp_times", "3", "--num_workers", "1", "--device", "cpu",
+        *passes])
+    cli_irnet.main(args)
+    for name in names:
+        lab = np.asarray(Image.open(ir_dir / f"{name}.png"))
+        assert lab.shape == IMG_HW and set(np.unique(lab)) <= {0, 1, 255}
+    assert weights.exists() == ("--train_irn_pass" in passes)
+    if weights.exists():
+        model = irnet_mod.load_irnet_weights(IRNet(), str(weights))
+        assert float(model.mean_shift.running_mean.abs().max()) > 0
+    if "--make_ins_seg_pass" in passes:
+        for name in names:
+            d = np.load(tmp_path / "ins_seg" / f"{name}.npy", allow_pickle=True).item()
+            assert sorted(d) == ["cam", "class", "mask", "score"]
+            assert d["mask"].shape[1:] == IMG_HW

@@ -16,7 +16,12 @@ selected maps are here too. The IRNet path's kernels: K6's bilinear resize
 at the pass's shapes and odd ones, K7 at radius 5 and 10 and on the
 narrowest grids, K9 with centroids clamped on the edge, K10's transition
 on the walk's buckets and its banded products (squarings, the thin step,
-partial tiles).
+partial tiles). IRN training's backward kernels: K6's bilinear backward,
+K7's backward with ties planted (the gradient split evenly among them), and
+K8's fused pair labels and masked sums, forward and backward, at radius 5
+and 10, odd sizes and B=1. One test is static and runs anywhere: each
+differentiable wrapper's CUDA branch goes through its
+``torch.autograd.Function``.
 """
 
 import math
@@ -495,3 +500,171 @@ def test_irnet_kernels_refuse(dev):
         K.build.ops().refine_centroids(x[:2].cpu(), 3)
     with pytest.raises(RuntimeError):
         K.build.ops().walk_matmul(x[0].cpu(), x[0].cpu(), 1, 1)
+
+
+# ---- IRN training: K6's bilinear backward, K7's backward, K8 ------------------------------
+
+
+def test_differentiable_wrappers_apply_an_autograd_function():
+    # static, no card needed: the CUDA branch of each differentiable wrapper
+    # calls .apply of a torch.autograd.Function defined beside it (a kernel
+    # output returned bare would carry no grad_fn, and training would get
+    # no gradient without an error)
+    import importlib
+    import inspect
+
+    wrappers = [("mha", "mha_short"), ("cross_attn", "cross_attn"),
+                ("stage1_head", "stage1_head"), ("critic_input", "critic_input"),
+                ("resize", "bilinear_resize"), ("path_max", "path_max_affinity"),
+                ("irn_loss", "irn_loss")]
+    for mod_name, name in wrappers:
+        mod = importlib.import_module(f"tris_tpu_torch.kernels.{mod_name}")
+        src = inspect.getsource(getattr(mod, name))
+        fns = [c for c in vars(mod).values() if isinstance(c, type)
+               and issubclass(c, torch.autograd.Function) and f"{c.__name__}.apply(" in src]
+        assert len(fns) == 1, name
+        assert "backward" in vars(fns[0]) and "build.count" in inspect.getsource(fns[0].backward)
+
+
+def _input_grads(fn, *inputs, upstream):
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = fn(*xs)
+    out = out[0] if isinstance(out, tuple) else out
+    (out * upstream).sum().backward()
+    return [x.grad for x in xs]
+
+
+@pytest.mark.parametrize("shape,size,align_corners", [
+    ((2, 32, 64, 64), (128, 128), False),    # an edge tap's x2 at crop 512
+    ((2, 32, 32, 32), (128, 128), False),    # the x4 taps
+    ((3, 256, 16, 16), (32, 32), False),     # a dp tap's x2
+    ((5, 7, 9), (13, 4), True), ((1, 1, 1), (3, 5), False), ((4, 6), (4, 11), False),
+    ((2, 9, 13), (5, 6), False)])            # a shrink: taps skip inputs
+def test_bilinear_resize_bwd(randn, shape, size, align_corners):
+    # the adjoint gathered over tap ranges against autograd through the plain
+    # taps (index backward, atomics) and through F.interpolate: 1e-5 of the
+    # gradient's scale (f32 sums of up to 64 terms in other orders)
+    K.reset_launches()
+    x, up = randn(*shape), randn(*shape[:-2], *size)
+    kern = lambda t: K.bilinear_resize(t, size, align_corners)  # noqa: E731
+    (got,) = _input_grads(kern, x, upstream=up)
+    assert K.launches["bilinear_resize"] == 1 and K.launches["bilinear_resize_bwd"] == 1
+    (want,) = _input_grads(lambda t: K.bilinear_resize_plain(t, size, align_corners), x,
+                           upstream=up)
+    lib = F.interpolate
+    (lib_g,) = _input_grads(lambda t: lib(t.reshape(-1, 1, *shape[-2:]), size=size,
+                                          mode="bilinear", align_corners=align_corners
+                                          ).reshape(up.shape), x, upstream=up)
+    scale = max(float(want.abs().max()), 1e-30)
+    assert got.shape == x.shape
+    assert _err(got, want) <= 1e-5 * scale
+    assert _err(got, lib_g) <= 1e-4 * scale
+    assert torch.equal(got, _input_grads(kern, x, upstream=up)[0])   # no atomics: run to run
+
+
+def _tied_edge(dev, shape, levels, seed):
+    """An edge map of a few distinct values (many exact ties along paths) with
+    a patch of noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    edge = torch.randint(0, levels, shape, generator=g, device=dev).float() / levels
+    edge[..., :shape[-2] // 3, :] = torch.rand(*shape[:-2], shape[-2] // 3, shape[-1],
+                                               generator=g, device=dev)
+    return edge
+
+
+@pytest.mark.parametrize("radius,shape", [(10, (2, 128, 128)), (5, (1, 37, 18)), (5, (3, 16, 16)),
+                                          (10, (1, 19, 23)), (3, (2, 5, 6))])
+@pytest.mark.parametrize("tied", [False, True])
+def test_path_max_affinity_bwd(dev, radius, shape, tied):
+    # against amax's autograd (which, like JAX's reduce_max VJP, splits a
+    # tied max evenly): run in float64, within 1e-6 of the gradient's scale
+    # (the kernel adds each pixel's terms, up to 2134 at radius 10, in
+    # double and rounds once); in float32, whose sums round at every add,
+    # within 1e-5; ties planted by quantising the edge map
+    pi = _path_index(radius, shape[-2:])
+    g = torch.Generator(device=dev).manual_seed(7)
+    edge = (_tied_edge(dev, shape, 4, 8) if tied
+            else torch.rand(*shape, generator=g, device=dev))
+    rf = pi.radius_floor
+    up = torch.randn(*shape[:-2], len(pi.search_dst), shape[-2] - rf, shape[-1] - 2 * rf,
+                     generator=g, device=dev)
+    K.reset_launches()
+    (got,) = _input_grads(lambda e: K.path_max_affinity(e, pi.paths_by_length, rf), edge,
+                          upstream=up)
+    assert K.launches["path_max_affinity_bwd"] == 2
+    plain = lambda e: K.path_max_affinity_plain(e, pi.paths_by_length, rf)  # noqa: E731
+    (want,) = _input_grads(plain, edge, upstream=up)
+    (want64,) = _input_grads(plain, edge.double(), upstream=up.double())
+    scale = float(want64.abs().max())
+    assert _err(got, want64) <= 1e-6 * scale
+    assert _err(got, want) <= 1e-5 * scale
+    assert torch.equal(got, _input_grads(lambda e: K.path_max_affinity(e, pi.paths_by_length, rf),
+                                         edge, upstream=up)[0])   # the same run to run
+    if tied:   # a first-argmax routing would be far off
+        ch, cw = shape[-2] - rf, shape[-1] - 2 * rf
+        n_tied = 0
+        for path in K.path_max.path_steps(pi.paths_by_length):
+            w = torch.stack([edge[..., dy:dy + ch, rf + dx:rf + dx + cw] for dy, dx in path])
+            n_tied += int(((w == w.amax(0)).sum(0) > 1).sum())
+        assert n_tied > 0
+
+
+def _irn_inputs(dev, B, H, W, radius, seed):
+    pi = _path_index(radius, (H, W))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    labels = torch.tensor([0, 1, 255], dtype=torch.uint8, device=dev)[
+        torch.randint(0, 3, (B, H // 4 + 1, W // 4 + 1), generator=g, device=dev)]
+    labels = labels.repeat_interleave(4, 1).repeat_interleave(4, 2)[:, :H, :W].contiguous()
+    rf = pi.radius_floor
+    aff = torch.rand(B, len(pi.search_dst), H - rf, W - 2 * rf, generator=g, device=dev)
+    dp = 3 * torch.randn(B, 2, H, W, generator=g, device=dev)
+    dp[:, :, : H // 4] = torch.round(dp[:, :, : H // 4])   # exact zeros of |pair - target|
+    return pi, labels, aff, dp
+
+
+@pytest.mark.parametrize("B,H,W,radius", [(2, 128, 128, 10), (1, 16, 16, 5), (3, 21, 30, 5),
+                                          (1, 19, 23, 10)])
+def test_irn_loss(dev, B, H, W, radius):
+    # the five sums within 1e-5 relative and the counts exact against the
+    # plain version; d aff within 1e-6 and d dp within 1e-5 of their scales
+    # (d dp adds up to 2 * n_dirs terms of +-g in another order)
+    pi, labels, aff, dp = _irn_inputs(dev, B, H, W, radius, 9)
+    rf = pi.radius_floor
+    K.reset_launches()
+    sums, counts = K.irn_loss(labels, aff, dp, pi.search_dst, rf)
+    want_s, want_c = K.irn_loss_plain(labels, aff, dp, pi.search_dst, rf)
+    assert K.launches["irn_loss"] == 2
+    assert counts.dtype == torch.int64 and torch.equal(counts, want_c) and int(counts.sum()) > 0
+    assert H < 32 or bool((counts > 0).all())
+    assert bool(((sums.double() - want_s.double()).abs() <= 1e-5 * want_s.double().abs()).all())
+    w = torch.tensor([0.3, -1.2, 0.7, 2.0, -0.4], device=dev)
+    got_g = _input_grads(lambda a, d: K.irn_loss(labels, a, d, pi.search_dst, rf), aff, dp,
+                         upstream=w)
+    want_g = _input_grads(lambda a, d: K.irn_loss_plain(labels, a, d, pi.search_dst, rf), aff, dp,
+                    upstream=w)
+    assert K.launches["irn_loss_bwd"] == 2
+    assert _err(got_g[0], want_g[0]) <= 1e-6 * float(want_g[0].abs().max())
+    assert _err(got_g[1], want_g[1]) <= 1e-5 * float(want_g[1].abs().max())
+    again = K.irn_loss(labels, aff, dp, pi.search_dst, rf)[0]
+    assert torch.equal(again, sums)    # a fixed order: the same run to run
+
+
+def test_irn_training_kernels_refuse(dev):
+    pi, labels, aff, dp = _irn_inputs(dev, 1, 16, 16, 5, 1)
+    rf = pi.radius_floor
+    with pytest.raises(ValueError, match="bad inputs"):
+        K.irn_loss(labels.int(), aff, dp, pi.search_dst, rf)
+    with pytest.raises(ValueError, match="bad inputs"):
+        K.irn_loss(labels, aff[:, :-1], dp, pi.search_dst, rf)
+    with pytest.raises(TypeError, match="float32"):
+        K.irn_loss(labels, aff.double(), dp, pi.search_dst, rf)
+    with pytest.raises(RuntimeError):
+        K.build.ops().irn_loss_bwd(labels, aff, dp, torch.zeros(34, 2, dtype=torch.int32,
+                                                               device=dev),
+                                   torch.zeros(4, device=dev), rf, 1e-5, 1.00001)
+    with pytest.raises(RuntimeError, match="do not match"):   # the forward's shape check
+        K.build.ops().irn_loss_bwd(labels, aff[:, :, :-1].contiguous(), dp,
+                                   torch.zeros(aff.shape[1], 2, dtype=torch.int32, device=dev),
+                                   torch.zeros(5, device=dev), rf, 1e-5, 1.00001)
+    with pytest.raises(ValueError, match="outside the window"):   # another radius's table
+        K.irn_loss(labels, aff, dp, np.asarray(pi.search_dst) * 2, rf)

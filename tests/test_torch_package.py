@@ -157,11 +157,47 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
     m = torch.empty(64, 64, device="meta")
     with pytest.raises(ValueError, match="expected CUDA"):
         kernels.walk_matmul(m, m, 4, 4)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.irn_loss(torch.empty(1, 16, 16, dtype=torch.uint8, device="meta"),
+                         torch.empty(1, 1, 12, 8, device="meta"),
+                         torch.empty(1, 2, 16, 16, device="meta"), np.array([[0, 1]]), 4)
     # nor does the walk's transition on a grid too small for K10's band build
     from tris_tpu_torch.pseudo.indexing import transition_matrix
 
     with pytest.raises(ValueError, match="CPU tensors only"):
         transition_matrix(torch.empty(6, 10, device="meta"))
+
+
+def test_irn_host_mask_feed_refuses_tensors_off_the_cpu():
+    # the IRN loss's host-mask feed is the plain version (no kernel reads
+    # precomputed masks): off the CPU it raises before the model runs
+    from tris_tpu_torch.pseudo.train_irn import irn_loss
+
+    masks = {k: torch.empty(1, 1, 12, device="meta") for k in ("aff_bg_pos", "aff_fg_pos",
+                                                               "aff_neg")}
+    with pytest.raises(ValueError, match="host-mask feed has no kernel"):
+        irn_loss(None, None, {"image": torch.empty(1, 3, 8, 8, device="meta"), **masks})
+
+
+def test_irn_loss_table_refuses_directions_outside_the_window():
+    # K8 reads each direction's destination window: a (dy, dx) table from a
+    # larger radius than the one given would read out of bounds on the card,
+    # so the wrapper checks the table once, when it caches it
+    import importlib
+
+    from tris_tpu_torch.pseudo.indexing import PathIndex
+
+    table = importlib.import_module("tris_tpu_torch.kernels.irn_loss")._dirs_table
+    small, large = PathIndex(5, (16, 16)), PathIndex(10, (32, 32))
+    key = lambda pi: tuple(map(tuple, np.asarray(pi.search_dst).tolist()))  # noqa: E731
+    cpu = torch.device("cpu")
+    got = table(key(small), small.radius_floor, cpu)
+    assert got.dtype == torch.int32 and got.tolist() == np.asarray(small.search_dst).tolist()
+    assert table(key(small), large.radius_floor, cpu).shape == got.shape
+    with pytest.raises(ValueError, match="outside the window of radius floor 4"):
+        table(key(large), small.radius_floor, cpu)
+    with pytest.raises(ValueError, match="outside the window"):
+        table(((-1, 0),), 4, cpu)
 
 
 def test_walk_defaults_to_cuda_for_host_arrays():

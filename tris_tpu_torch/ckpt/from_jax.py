@@ -134,3 +134,10 @@ def grads_from_flax(grads) -> Dict[str, torch.Tensor]:
     layouts as :func:`state_dict_from_flax` moves the parameters, so a test
     compares ``p.grad`` by name."""
     return state_dict_from_flax({"params": grads})
+
+
+def irnet_grads_from_flax(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of ``IRNet`` params -> ``{name: tensor}`` under
+    this package's IRNet parameter names and layouts (the trunk's leaves
+    included: the JAX package's are zeros behind its ``stop_gradient``)."""
+    return state_dict_from_flax({"params": {_irnet_module(k): v for k, v in grads.items()}})

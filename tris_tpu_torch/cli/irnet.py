@@ -1,23 +1,25 @@
 """IRNet pseudo-label entry point, on the card by default.
 
     python -m tris_tpu_torch.cli.irnet --train_list out/names/refcoco_train_names.json \\
-        --data_root data/train2014 --cam_dir out/cam --ins_seg_out_dir out/ins_seg \\
-        --irn_weights res50_irn.pth --make_ins_seg_pass [--device cuda|cpu]
+        --data_root data/train2014 --cam_dir out/cam --ir_label_out_dir out/ir_label \\
+        --ins_seg_out_dir out/ins_seg --irn_weights out/res50_irn.pth \\
+        --cam_to_ir_label_pass --train_irn_pass --make_ins_seg_pass [--device cuda|cpu]
 
 Port of ``tris_tpu/cli/irnet.py`` with the same options and ``--device``.
-``--make_ins_seg_pass`` writes the instance pseudo-masks from the PRMS CAMs
-(``cli.validate --prms --save_cam``) and a torch IRNet checkpoint;
-``--cam_to_ir_label_pass`` and ``--train_irn_pass`` are not ported yet and
-exit with an error.
+The passes run in order: ``--cam_to_ir_label_pass`` writes the ir label
+PNGs from the PRMS CAMs (``cli.validate --prms --save_cam``) with the CRF
+on the host; ``--train_irn_pass`` trains IRNet on them
+(``--irn_batch_size``, ``--irn_num_epoches``, ``--irn_learning_rate``) and
+saves a torch checkpoint to ``--irn_weights``; ``--make_ins_seg_pass``
+writes the instance pseudo-masks from the CAMs and that checkpoint.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from tris_tpu_torch.pseudo.pipeline import PseudoConfig, run_make_ins_seg
-
-_NOT_PORTED = "is not ported to the PyTorch package yet; use tris_tpu.cli.irnet"
+from tris_tpu_torch.pseudo.pipeline import (
+    PseudoConfig, run_cam_to_ir_label, run_make_ins_seg, run_train_irn)
 
 
 def get_irn_parser() -> argparse.ArgumentParser:
@@ -53,10 +55,6 @@ def get_irn_parser() -> argparse.ArgumentParser:
 
 
 def main(args):
-    if args.cam_to_ir_label_pass:
-        raise SystemExit(f"--cam_to_ir_label_pass {_NOT_PORTED}")
-    if args.train_irn_pass:
-        raise SystemExit(f"--train_irn_pass {_NOT_PORTED}")
     cfg = PseudoConfig(
         train_list=args.train_list,
         data_root=args.data_root,
@@ -73,6 +71,13 @@ def main(args):
         ins_seg_bg_thres=args.ins_seg_bg_thres,
         num_workers=args.num_workers,
     )
+    if args.cam_to_ir_label_pass:
+        print("== cam_to_ir_label ==")
+        run_cam_to_ir_label(cfg)
+    if args.train_irn_pass:
+        print("== train_irn ==")
+        run_train_irn(cfg, epochs=args.irn_num_epoches, batch_size=args.irn_batch_size,
+                      lr=args.irn_learning_rate, device=args.device)
     if args.make_ins_seg_pass:
         print("== make_ins_seg ==")
         run_make_ins_seg(cfg, device=args.device)

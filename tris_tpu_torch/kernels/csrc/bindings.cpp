@@ -7,6 +7,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <optional>
+#include <string>
 #include <vector>
 
 #include <c10/cuda/CUDAGuard.h>
@@ -387,6 +388,117 @@ at::Tensor path_max_affinity(const at::Tensor& edge, const at::Tensor& steps,
   return out;
 }
 
+// K6, bilinear half, backward: g [N, oh, ow]; ty, tx the forward's taps to [oh] rows and
+// [ow] columns, ry, rx their adjoint ranges over [h] and [w]. Returns dx [N, h, w].
+at::Tensor bilinear_resize_bwd(const at::Tensor& g, const std::vector<at::Tensor>& ty,
+                               const std::vector<at::Tensor>& tx,
+                               const std::vector<at::Tensor>& ry,
+                               const std::vector<at::Tensor>& rx) {
+  const at::Device dev = g.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(g, "bilinear_resize_bwd: g", at::kFloat, dev);
+  const tris::TapArrays y = tap_arrays(ty, "bilinear_resize_bwd: row taps", dev);
+  const tris::TapArrays c = tap_arrays(tx, "bilinear_resize_bwd: column taps", dev);
+  const tris::TapRanges yr = tap_ranges(ry, "bilinear_resize_bwd: row ranges", dev);
+  const tris::TapRanges cr = tap_ranges(rx, "bilinear_resize_bwd: column ranges", dev);
+  const int64_t N = g.size(0), oh = g.size(1), ow = g.size(2), h = ry[0].size(0),
+                w = rx[0].size(0);
+  TORCH_CHECK(ty[0].size(0) == oh && tx[0].size(0) == ow,
+              "bilinear_resize_bwd: taps do not match g");
+  at::Tensor dx = at::empty({N, h, w}, g.options());
+  launched(tris::bilinear_resize_bwd(g.data_ptr<float>(), dx.data_ptr<float>(), N, h, w, oh, ow,
+                                     y, c, yr, cr, stream()),
+           "bilinear_resize_bwd");
+  return dx;
+}
+
+// K7 backward: edge [B, H, W]; g [B, n_dirs, H - rf, W - 2 * rf]; the path table.
+// Returns d edge [B, H, W].
+at::Tensor path_max_affinity_bwd(const at::Tensor& edge, const at::Tensor& g,
+                                 const at::Tensor& steps, const at::Tensor& offsets, int64_t rf) {
+  const at::Device dev = edge.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(edge, "path_max_affinity_bwd: edge", at::kFloat, dev);
+  check(g, "path_max_affinity_bwd: g", at::kFloat, dev);
+  check(steps, "path_max_affinity_bwd: steps", at::kInt, dev);
+  check(offsets, "path_max_affinity_bwd: offsets", at::kInt, dev);
+  const int64_t B = edge.size(0), H = edge.size(1), W = edge.size(2);
+  const int64_t n_dirs = offsets.size(0) - 1;
+  TORCH_CHECK(g.dim() == 4 && g.size(0) == B && g.size(1) == n_dirs && g.size(2) == H - rf &&
+                  g.size(3) == W - 2 * rf,
+              "path_max_affinity_bwd: g does not match the edge map and the table");
+  // the path table's wrapper holds every path to at most 255 steps: a tie count fits a byte
+  at::Tensor pmax = at::empty_like(g), count = at::empty_like(g, g.options().dtype(at::kByte));
+  at::Tensor dedge = at::empty_like(edge);
+  launched(tris::path_max_affinity_bwd(edge.data_ptr<float>(), g.data_ptr<float>(),
+                                       pmax.data_ptr<float>(), count.data_ptr<unsigned char>(),
+                                       dedge.data_ptr<float>(), B, H, W, rf, n_dirs,
+                                       steps.data_ptr<int>(), offsets.data_ptr<int>(), stream()),
+           "path_max_affinity_bwd");
+  return dedge;
+}
+
+// K8's inputs, forward and backward: labels uint8 [B, H, W]; aff [B, n_dirs, H - rf,
+// W - 2 * rf]; dp [B, 2, H, W]; dirs [n_dirs, 2] int32 (the wrapper checks that each (dy, dx)
+// lies in the window: 0 <= dy <= rf, |dx| <= rf).
+void check_irn_loss(const char* name, const at::Tensor& labels, const at::Tensor& aff,
+                    const at::Tensor& dp, const at::Tensor& dirs, int64_t rf) {
+  const at::Device dev = aff.device();
+  check(labels, (std::string(name) + ": labels").c_str(), at::kByte, dev);
+  check(aff, (std::string(name) + ": aff").c_str(), at::kFloat, dev);
+  check(dp, (std::string(name) + ": dp").c_str(), at::kFloat, dev);
+  check(dirs, (std::string(name) + ": dirs").c_str(), at::kInt, dev);
+  TORCH_CHECK(labels.dim() == 3 && dirs.dim() == 2 && dirs.size(1) == 2, name,
+              ": expected labels [B, H, W] and dirs [n_dirs, 2]");
+  const int64_t B = labels.size(0), H = labels.size(1), W = labels.size(2);
+  TORCH_CHECK(aff.dim() == 4 && aff.size(0) == B && aff.size(1) == dirs.size(0) &&
+                  aff.size(2) == H - rf && aff.size(3) == W - 2 * rf && dp.dim() == 4 &&
+                  dp.size(0) == B && dp.size(1) == 2 && dp.size(2) == H && dp.size(3) == W,
+              name, ": aff, dp and labels do not match");
+}
+
+// K8. Returns (sums [5] float32, counts [3] int64).
+std::vector<at::Tensor> irn_loss(const at::Tensor& labels, const at::Tensor& aff,
+                                 const at::Tensor& dp, const at::Tensor& dirs, int64_t rf,
+                                 double eps, double one_eps) {
+  const c10::cuda::CUDAGuard guard(aff.device());
+  check_irn_loss("irn_loss", labels, aff, dp, dirs, rf);
+  const int64_t B = labels.size(0), H = labels.size(1), W = labels.size(2);
+  const int64_t n_dirs = dirs.size(0);
+  const int64_t blocks = tris::irn_loss_blocks(aff.numel());
+  at::Tensor psum = at::empty({std::max<int64_t>(blocks, 1), 5}, aff.options().dtype(at::kDouble));
+  at::Tensor pcount = at::empty({std::max<int64_t>(blocks, 1), 3}, aff.options().dtype(at::kLong));
+  at::Tensor sums = at::empty({5}, aff.options());
+  at::Tensor counts = at::empty({3}, aff.options().dtype(at::kLong));
+  launched(tris::irn_loss(labels.data_ptr<unsigned char>(), aff.data_ptr<float>(),
+                          dp.data_ptr<float>(), dirs.data_ptr<int>(), psum.data_ptr<double>(),
+                          reinterpret_cast<long long*>(pcount.data_ptr<int64_t>()),
+                          sums.data_ptr<float>(),
+                          reinterpret_cast<long long*>(counts.data_ptr<int64_t>()), B, H, W, rf,
+                          n_dirs, (float)eps, (float)one_eps, stream()),
+           "irn_loss");
+  return {sums, counts};
+}
+
+// K8 backward: gsum [5] float32, the gradients of the sums. Returns (d aff, d dp).
+std::vector<at::Tensor> irn_loss_bwd(const at::Tensor& labels, const at::Tensor& aff,
+                                     const at::Tensor& dp, const at::Tensor& dirs,
+                                     const at::Tensor& gsum, int64_t rf, double eps,
+                                     double one_eps) {
+  const c10::cuda::CUDAGuard guard(aff.device());
+  check_irn_loss("irn_loss_bwd", labels, aff, dp, dirs, rf);
+  check(gsum, "irn_loss_bwd: gsum", at::kFloat, aff.device());
+  TORCH_CHECK(gsum.numel() == 5, "irn_loss_bwd: expected the 5 sums' gradients");
+  const int64_t B = labels.size(0), H = labels.size(1), W = labels.size(2);
+  at::Tensor daff = at::empty_like(aff), ddp = at::empty_like(dp);
+  launched(tris::irn_loss_bwd(labels.data_ptr<unsigned char>(), aff.data_ptr<float>(),
+                              dp.data_ptr<float>(), dirs.data_ptr<int>(), gsum.data_ptr<float>(),
+                              daff.data_ptr<float>(), ddp.data_ptr<float>(), B, H, W, rf,
+                              dirs.size(0), (float)eps, (float)one_eps, stream()),
+           "irn_loss_bwd");
+  return {daff, ddp};
+}
+
 // K9: disp [2, H, W]. Returns the int32 centroids [2, H, W].
 at::Tensor refine_centroids(const at::Tensor& disp, int64_t iterations) {
   const at::Device dev = disp.device();
@@ -459,6 +571,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("normalize_u8", &normalize_u8, "K6: u8 NHWC image to normalised f32 NCHW");
   m.def("bilinear_resize", &bilinear_resize, "K6: bilinear resize of a stack of planes");
   m.def("path_max_affinity", &path_max_affinity, "K7: 1 - max(edge along each pair's path)");
+  m.def("bilinear_resize_bwd", &bilinear_resize_bwd, "K6 backward: the resize's adjoint");
+  m.def("path_max_affinity_bwd", &path_max_affinity_bwd, "K7 backward, ties split evenly");
+  m.def("irn_loss", &irn_loss, "K8: IRN's masked loss sums and pair counts");
+  m.def("irn_loss_bwd", &irn_loss_bwd, "K8 backward: d aff and d dp");
   m.def("refine_centroids", &refine_centroids, "K9: centroid refinement by displacement");
   m.def("walk_transition", &walk_transition, "K10: the walk's column-normalised transition");
   m.def("walk_matmul", &walk_matmul, "K10: the walk's banded products, summed in double");

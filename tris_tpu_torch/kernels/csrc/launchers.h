@@ -111,11 +111,40 @@ cudaError_t normalize_u8(const unsigned char* image, float* out, int64_t n_pix, 
 cudaError_t bilinear_resize(const float* x, float* out, int64_t planes, int h, int w, int oh,
                             int ow, TapArrays ty, TapArrays tx, cudaStream_t stream);
 
+// K6, bilinear half, backward: g [planes, oh, ow]; dx [planes, h, w]; the forward's taps and
+// their adjoint ranges over [h] rows and [w] columns.
+cudaError_t bilinear_resize_bwd(const float* g, float* dx, int64_t planes, int h, int w, int oh,
+                                int ow, TapArrays ty, TapArrays tx, TapRanges ry, TapRanges rx,
+                                cudaStream_t stream);
+
 // K7: edge [B, H, W]; out [B, n_dirs, H - rf, W - 2 * rf]; steps [n_steps, 2] the (dy, dx)
 // of every direction's path, direction d's at [offsets[d], offsets[d + 1]).
 cudaError_t path_max_affinity(const float* edge, float* out, int64_t B, int H, int W, int rf,
                               int n_dirs, const int* steps, const int* offsets,
                               cudaStream_t stream);
+
+// K7 backward: edge [B, H, W]; g, and the scratch pmax (float) and count (one byte, so no path
+// has more than 255 steps), [B, n_dirs, H - rf, W - 2 * rf]; dedge [B, H, W]; the forward's
+// path table.
+cudaError_t path_max_affinity_bwd(const float* edge, const float* g, float* pmax,
+                                  unsigned char* count, float* dedge, int64_t B, int H, int W,
+                                  int rf, int n_dirs, const int* steps, const int* offsets,
+                                  cudaStream_t stream);
+
+// K8: labels uint8 [B, H, W]; aff [B, n_dirs, H - rf, W - 2 * rf]; dp [B, 2, H, W]; dirs
+// [n_dirs, 2] each direction's (dy, dx); scratch psum [blocks, 5] and pcount [blocks, 3] with
+// blocks = irn_loss_blocks(aff's numel); sums [5] float and counts [3] int64 on the device.
+int irn_loss_blocks(int64_t n);
+cudaError_t irn_loss(const unsigned char* labels, const float* aff, const float* dp,
+                     const int* dirs, double* psum, long long* pcount, float* sums,
+                     long long* counts, int64_t B, int H, int W, int rf, int n_dirs, float eps,
+                     float one_eps, cudaStream_t stream);
+
+// K8 backward: gsum [5] the sums' gradients on the device; daff as aff, ddp as dp.
+cudaError_t irn_loss_bwd(const unsigned char* labels, const float* aff, const float* dp,
+                         const int* dirs, const float* gsum, float* daff, float* ddp, int64_t B,
+                         int H, int W, int rf, int n_dirs, float eps, float one_eps,
+                         cudaStream_t stream);
 
 // K9: disp [2, H, W]; out int32 [2, H, W], the rounded centroids after `iterations` steps.
 cudaError_t refine_centroids(const float* disp, int* out, int H, int W, int iterations,

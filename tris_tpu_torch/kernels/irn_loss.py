@@ -1,0 +1,147 @@
+"""K8: IRNet's affinity and displacement losses as masked sums, with the pair
+labels built on the fly (``csrc/irn_loss.cu``), forward and backward, and
+the plain PyTorch version.
+
+Replaces ``tris_tpu/pseudo/train_irn.py::affinity_labels_on_device`` and the
+masked sums of ``irn_loss`` (lines 91-157), with the loss fields of
+``tris_tpu/pseudo/irnet.py::affinity_displacement_losses``. From the
+quarter-scale ir label map (uint8: 0 bg, 1 fg, 255 ignore), K7's affinity
+``[B, n_dirs, ch, cw]`` and the displacement field ``[B, 2, H, W]`` it
+returns the five sums (the bg-positive, fg-positive and negative affinity
+losses, the fg and bg displacement losses) and the three pair counts (bg
+positive, fg positive, negative) as int64: at B = 24 a mask has 47.7 M
+entries, beyond float32's exact integers, where the JAX package's float32
+``mask.sum()`` depends on the order of its sum. The kernel never writes the
+masks or the pair-displacement fields; its sums are in a fixed order. On a
+CUDA tensor it is a ``torch.autograd.Function`` whose backward, a kernel
+too, gives the gradients of the affinity and the displacement field.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tris_tpu_torch.kernels import build
+
+# the losses' constants as the JAX package's float32 arithmetic rounds them:
+# ``aff + 1e-5`` and ``1.0 + 1e-5 - aff``
+EPS = float(np.float32(1e-5))
+ONE_EPS = float(np.float32(1.0 + 1e-5))
+
+
+def src_window(x, rf: int):
+    """``x [..., H, W]`` -> the pairs' source window ``[..., H - rf, W - 2 rf]``."""
+    H, W = x.shape[-2:]
+    return x[..., :H - rf, rf:W - rf]
+
+
+def dst_windows(x, search_dst, rf: int):
+    """``x [..., H, W]`` -> every direction's destination window
+    ``[..., n_dirs, H - rf, W - 2 rf]`` (``search_dst`` [n_dirs, 2] (dy, dx))."""
+    H, W = x.shape[-2:]
+    ch, cw = H - rf, W - 2 * rf
+    return torch.stack([x[..., dy:dy + ch, rf + dx:rf + dx + cw]
+                        for dy, dx in np.asarray(search_dst).tolist()], dim=-3)
+
+
+def pair_labels_plain(labels, search_dst, rf: int):
+    """(bg_pos, fg_pos, neg) boolean ``[B, n_dirs, ch, cw]`` from the label
+    map ``[B, H, W]``: the JAX package's static-slice build."""
+    lab_from = src_window(labels, rf)[:, None]
+    lab_to = dst_windows(labels, search_dst, rf)
+    valid = (lab_from < 21) & (lab_to < 21)
+    equal = lab_from == lab_to
+    pos = equal & valid
+    return pos & (lab_from == 0), pos & (lab_from > 0), ~equal & valid
+
+
+def masked_sums(pos_aff, neg_aff, dp_fg, dp_bg, bg, fg, neg):
+    """The five masked sums and the three counts (int64) of ``irn_loss``
+    from the loss fields (``pos_aff``, ``neg_aff`` and the masks of one
+    shape, ``dp_fg``/``dp_bg`` with the displacement channel at dim 1)."""
+    bgf, fgf, negf = (m.to(pos_aff.dtype) for m in (bg, fg, neg))
+    sums = torch.stack([(bgf * pos_aff).sum(), (fgf * pos_aff).sum(), (negf * neg_aff).sum(),
+                        (dp_fg * fgf.unsqueeze(1)).sum(), (dp_bg * bgf.unsqueeze(1)).sum()])
+    return sums, torch.stack([(m != 0).sum() for m in (bg, fg, neg)])
+
+
+def pair_displacement(dp, search_dst, rf: int):
+    """The displacement field ``[B, 2, H, W]`` at each pair's source minus
+    at its destination: ``[B, 2, n_dirs, H - rf, W - 2 rf]``."""
+    return src_window(dp, rf)[:, :, None] - dst_windows(dp, search_dst, rf)
+
+
+def loss_fields(aff, dp, search_dst, rf: int):
+    """IRN's per-pair loss fields (resnet50_irn.py:204-222 of the reference)
+    from the affinity ``[B, n_dirs, ...]`` and the displacement field
+    ``[B, 2, H, W]``: (pos_aff_loss, neg_aff_loss) of aff's shape and
+    (dp_fg_loss, dp_bg_loss) ``[B, 2, n_dirs, H - rf, W - 2 rf]``."""
+    pair = pair_displacement(dp, search_dst, rf)
+    target = torch.as_tensor(np.asarray(search_dst, np.float32).T, device=dp.device)
+    return (-torch.log(aff + 1e-5), -torch.log(1.0 + 1e-5 - aff),
+            (pair - target[None, :, :, None, None]).abs(), pair.abs())
+
+
+def irn_loss_plain(labels, aff, dp, search_dst, rf: int):
+    """The plain version: the masks, the loss fields and the pair
+    displacement materialised, as the JAX package computes them."""
+    return masked_sums(*loss_fields(aff, dp, search_dst, rf),
+                       *pair_labels_plain(labels, search_dst, rf))
+
+
+@functools.lru_cache(maxsize=16)
+def _dirs_table(search_dst: tuple, rf: int, device: torch.device):
+    """The directions as int32 [n_dirs, 2] on ``device``, once each has been
+    checked to lie in the window the kernels read (0 <= dy <= rf, |dx| <= rf):
+    a table from another radius would read out of bounds."""
+    dirs = np.asarray(search_dst, np.int32).reshape(-1, 2)
+    if dirs.size and not ((dirs[:, 0] >= 0) & (dirs[:, 0] <= rf) &
+                          (np.abs(dirs[:, 1]) <= rf)).all():
+        raise ValueError(f"irn_loss: directions outside the window of radius floor {rf}: "
+                         f"dy in [{dirs[:, 0].min()}, {dirs[:, 0].max()}], "
+                         f"|dx| <= {np.abs(dirs[:, 1]).max()}")
+    return torch.as_tensor(dirs, device=device)
+
+
+class _IrnLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, aff, dp, labels, dirs, rf, save):
+        sums, counts = build.ops().irn_loss(labels, aff, dp, dirs, rf, EPS, ONE_EPS)
+        build.count("irn_loss", n=2)
+        ctx.rf = rf
+        ctx.mark_non_differentiable(counts)
+        if save:  # nothing is kept when neither input needs a gradient
+            ctx.save_for_backward(aff, dp, labels, dirs)
+        return sums, counts
+
+    @staticmethod
+    def backward(ctx, g_sums, g_counts):
+        aff, dp, labels, dirs = ctx.saved_tensors
+        d_aff, d_dp = build.ops().irn_loss_bwd(labels, aff, dp, dirs, g_sums.contiguous(), ctx.rf,
+                                               EPS, ONE_EPS)
+        build.count("irn_loss_bwd", n=2)
+        return d_aff, d_dp, None, None, None, None
+
+
+def irn_loss(labels, aff, dp, search_dst, rf: int):
+    """K8 on CUDA tensors (two launches forward, two backward); the plain
+    version on CPU tensors. labels uint8 ``[B, H, W]``, aff ``[B, n_dirs,
+    H - rf, W - 2 rf]`` (K7's output), dp ``[B, 2, H, W]`` float32 ->
+    (sums [5] float32, counts [3] int64)."""
+    if aff.device.type == "cpu":
+        return irn_loss_plain(labels, aff, dp, search_dst, rf)
+    build.require_cuda_f32("irn_loss", aff, dp, labels)
+    B, H, W = labels.shape
+    n_dirs = len(search_dst)
+    if (labels.dtype != torch.uint8 or aff.shape != (B, n_dirs, H - rf, W - 2 * rf)
+            or dp.shape != (B, 2, H, W)):
+        raise ValueError(f"irn_loss: bad inputs labels {labels.dtype} {tuple(labels.shape)}, "
+                         f"aff {tuple(aff.shape)}, dp {tuple(dp.shape)}, {n_dirs} directions, "
+                         f"rf {rf}")
+    dirs = _dirs_table(tuple(map(tuple, np.asarray(search_dst).tolist())), int(rf), aff.device)
+    save = torch.is_grad_enabled() and (aff.requires_grad or dp.requires_grad)
+    return _IrnLoss.apply(aff.contiguous(), dp.contiguous(), labels.contiguous(), dirs, int(rf),
+                          save)

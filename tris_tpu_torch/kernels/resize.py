@@ -1,15 +1,18 @@
 """K6, bilinear half: ``[..., H, W]`` float32 resized bilinearly
-(``csrc/bilinear_resize.cu``), and its plain PyTorch version.
+(``csrc/bilinear_resize.cu``), its backward (``csrc/bilinear_resize_bwd.cu``)
+and its plain PyTorch version.
 
 Replaces ``tris_tpu/ops/resize.py::bilinear_resize`` (two HIGHEST-precision
-products with the interpolation matrices) where the IRNet ins-seg pass
-calls it: the heads' upsamples, the CAM to the stride-4 grid and the walk
-back to the image. Both sample with the matrices' taps
-(``ops/resize.py::interp_taps``) rows first, each product and sum rounded
-alone, so kernel and plain version agree bit for bit; against the JAX
-matrix products they agree to rounding. ``ops/resize.py::bilinear_resize``
-(``F.interpolate``) stays for the stage-1 positional-embedding resize,
-which needs gradients.
+products with the interpolation matrices) on the IRNet path: the heads'
+upsamples, the CAM to the stride-4 grid and the walk back to the image.
+Both sample with the matrices' taps (``ops/resize.py::interp_taps``) rows
+first, each product and sum rounded alone, so kernel and plain version
+agree bit for bit; against the JAX matrix products they agree to rounding.
+On a CUDA tensor it is a ``torch.autograd.Function`` whose backward, the
+resize's adjoint, is a gather over tap ranges (IRN training backpropagates
+through the heads' upsamples); the plain version's gradient is autograd's
+through the taps' gather. ``ops/resize.py::bilinear_resize``
+(``F.interpolate``) stays for the stage-1 positional-embedding resize.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from tris_tpu_torch.kernels import build
-from tris_tpu_torch.kernels.response_head import taps_on, upsample_taps_plain
+from tris_tpu_torch.kernels.response_head import adjoint_taps_on, taps_on, upsample_taps_plain
 
 
 def bilinear_resize_plain(x, size, align_corners: bool = False):
@@ -28,10 +31,32 @@ def bilinear_resize_plain(x, size, align_corners: bool = False):
                                taps_on(w, ow, align_corners, x.device))
 
 
+class _BilinearResize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, oh, ow, align_corners):
+        h, w = x.shape[-2:]
+        out = build.ops().bilinear_resize(x, list(taps_on(h, oh, align_corners, x.device)),
+                                          list(taps_on(w, ow, align_corners, x.device)))
+        build.count("bilinear_resize")
+        ctx.meta = (h, w, oh, ow, align_corners)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, oh, ow, ac = ctx.meta
+        dev = g.device
+        dx = build.ops().bilinear_resize_bwd(
+            g.contiguous(), list(taps_on(h, oh, ac, dev)), list(taps_on(w, ow, ac, dev)),
+            list(adjoint_taps_on(h, oh, ac, dev)), list(adjoint_taps_on(w, ow, ac, dev)))
+        build.count("bilinear_resize_bwd")
+        return dx, None, None, None
+
+
 def bilinear_resize(x, size, align_corners: bool = False):
-    """K6 on a CUDA tensor (one launch); the plain version on a CPU tensor.
-    ``[..., H, W]`` float32 -> ``[..., size[0], size[1]]``; the input itself
-    when the size is unchanged, as the JAX function returns it."""
+    """K6 on a CUDA tensor (one launch forward, one backward); the plain
+    version on a CPU tensor. ``[..., H, W]`` float32 -> ``[..., size[0],
+    size[1]]``; the input itself when the size is unchanged, as the JAX
+    function returns it."""
     oh, ow = int(size[0]), int(size[1])
     h, w = x.shape[-2:]
     if (h, w) == (oh, ow):
@@ -42,9 +67,6 @@ def bilinear_resize(x, size, align_corners: bool = False):
     if x.dtype != torch.float32:
         raise TypeError(f"bilinear_resize: expected float32, got {x.dtype}")
     lead = x.shape[:-2]
-    out = build.ops().bilinear_resize(
-        x.reshape(-1, h, w).contiguous(), list(taps_on(h, oh, align_corners, x.device)),
-        list(taps_on(w, ow, align_corners, x.device)))
-    build.count("bilinear_resize")
+    out = _BilinearResize.apply(x.reshape(-1, h, w).contiguous(), oh, ow, align_corners)
     return out.reshape(*lead, oh, ow)
 

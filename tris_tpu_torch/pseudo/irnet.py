@@ -1,10 +1,13 @@
-"""IRNet, inference half: the edge and displacement heads over a frozen
-ResNet-50, and the flip-averaged inference of the instance pseudo-mask pass.
+"""IRNet: the edge and displacement heads over a frozen ResNet-50, their
+training losses, and the flip-averaged inference of the instance
+pseudo-mask pass.
 
 Port of ``tris_tpu/pseudo/irnet.py`` (``FrozenBatchNorm``, the torchvision
 bottleneck and trunk with strides (2, 2, 2, 1), ``IRNet``,
+``to_pair_displacement``, ``affinity_displacement_losses``,
 ``edge_displacement_infer``), NCHW throughout, convolutions on cuDNN. The
-heads' upsamples go through K6 (``kernels.bilinear_resize``). Parameter
+heads' upsamples go through K6 (``kernels.bilinear_resize``) and the pair
+affinities through K7 (``kernels.path_max_affinity``). Parameter
 names are the reference IRNet's (``resnet50.*``, ``fc_edge{1-6}``,
 ``fc_dp{1-7}``, ``mean_shift.running_mean``), so its ``res50_irn.pth``
 loads strictly once the aliases of the same modules are dropped
@@ -12,8 +15,7 @@ loads strictly once the aliases of the same modules are dropped
 
 The GroupNorms use PyTorch's eps, 1e-5, as the reference's
 ``nn.GroupNorm(groups, ch)`` does; the JAX package's flax GroupNorm uses
-1e-6 (its default), a divergence this port does not copy. The training
-half (the affinity and displacement losses) is not ported yet.
+1e-6 (its default), a divergence this port does not copy.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tris_tpu_torch import kernels as K
+from tris_tpu_torch.kernels.irn_loss import loss_fields, pair_displacement
 
 GN_EPS = 1e-5  # torch.nn.GroupNorm's default, the reference IRNet's
 
@@ -116,9 +119,11 @@ def _up(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 class IRNet(nn.Module):
-    """Edge and displacement network over the frozen trunk (inference).
+    """Edge and displacement network over the frozen trunk.
     ``forward(x [B, 3, H, W])`` -> (edge logits [B, 1, h4, w4], displacement
-    [B, 2, h4, w4]); :data:`UP_CALLS` K6 launches per forward."""
+    [B, 2, h4, w4]); :data:`UP_CALLS` K6 launches per forward. The trunk
+    runs without autograd (the JAX package's ``stop_gradient`` of its
+    features): only the heads train."""
 
     UP_CALLS = 6  # e3, e4, e5, d4, d5 and the dp6 tap
 
@@ -137,7 +142,8 @@ class IRNet(nn.Module):
         self.mean_shift = MeanShift(2)
 
     def forward(self, x: torch.Tensor, apply_mean_shift: bool = False):
-        x1, x2, x3, x4, x5 = self.resnet50(x)
+        with torch.no_grad():
+            x1, x2, x3, x4, x5 = self.resnet50(x)
 
         def tap(block, x, up=1, crop_to=None):
             y = block(x)
@@ -156,6 +162,26 @@ class IRNet(nn.Module):
         if apply_mean_shift:
             dp_out = dp_out - self.mean_shift.running_mean[None, :, None, None]
         return edge_out, dp_out
+
+
+def to_pair_displacement(disp: torch.Tensor, path_index) -> torch.Tensor:
+    """disp [B, 2, H, W] -> the pairs' displacement difference source minus
+    destination, [B, 2, n_dirs, n_pairs] (resnet50_irn.py:183-199)."""
+    pair = pair_displacement(disp, path_index.search_dst, path_index.radius_floor)
+    return pair.flatten(3)
+
+
+def affinity_displacement_losses(edge_out: torch.Tensor, dp_out: torch.Tensor, path_index):
+    """The per-pair loss fields (resnet50_irn.py:204-222): edge logits
+    [B, 1, H, W] and displacement [B, 2, H, W] -> (pos_aff_loss and
+    neg_aff_loss [B, n_dirs * n_pairs], dp_fg_loss and dp_bg_loss
+    [B, 2, n_dirs, n_pairs]); the affinity through K7. The training step
+    on the device-label feed reads K8's sums instead
+    (``train_irn.irn_loss``), which never materialise these fields."""
+    B, rf = edge_out.shape[0], path_index.radius_floor
+    aff = K.path_max_affinity(torch.sigmoid(edge_out[:, 0]), path_index.paths_by_length, rf)
+    pos, neg, dp_fg, dp_bg = loss_fields(aff.reshape(B, -1), dp_out, path_index.search_dst, rf)
+    return pos, neg, dp_fg.flatten(3), dp_bg.flatten(3)
 
 
 @torch.no_grad()

@@ -1,7 +1,10 @@
-"""Instance pseudo-masks from CAMs, edges and displacements.
+"""IRNet's label maps: ir labels from CAMs by the CRF, and instance
+pseudo-masks from CAMs, edges and displacements.
 
-Port of the ``make_ins_seg`` half of ``tris_tpu/pseudo/labels.py``:
+Port of ``tris_tpu/pseudo/labels.py``:
 
+- :func:`cam_to_ir_label`: the CRF pass's label map (``pseudo/crf.py``, on
+  the host);
 - :func:`find_centroids_with_refinement` (K9, ``kernels.refine_centroids``);
 - :func:`cluster_centroids` and :func:`detect_instance`: connected
   components on the host with scipy.ndimage (copies of the JAX package's);
@@ -11,8 +14,7 @@ Port of the ``make_ins_seg`` half of ``tris_tpu/pseudo/labels.py``:
 - :func:`detect_from_walk` and :func:`make_instance_masks`.
 
 The file contract is the reference's: ``ins_seg/{name}.npy`` holds a dict
-``{'score', 'mask', 'class', 'cam'}``. ``cam_to_ir_label`` (the CRF pass)
-is not ported yet.
+``{'score', 'mask', 'class', 'cam'}``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,29 @@ import torch
 from scipy import ndimage
 
 from tris_tpu_torch import kernels as K
+from tris_tpu_torch.pseudo.crf import crf_inference_label_multi
 from tris_tpu_torch.pseudo.indexing import propagate_to_edge_bucketed
+
+
+def cam_to_ir_label(image: np.ndarray, cam: np.ndarray, conf_fg_thres: float = 0.3,
+                    conf_bg_thres: float = 0.1) -> np.ndarray:
+    """image [H, W, 3] uint8 (raw); cam [H, W] in [0, 1] -> the uint8 ir
+    label map: 1 confident foreground, 0 confident background, 255
+    uncertain (cam_to_ir_label.py:48-76 of the reference). The two seeds,
+    the CAM padded with each threshold and argmaxed, are refined by one
+    fused CRF over the image."""
+    cams = np.maximum(cam, 0.0)[None]
+
+    def seed_label(thres: float) -> np.ndarray:
+        padded = np.concatenate([np.full_like(cams[:1], thres), cams], axis=0)
+        return np.argmax(padded, axis=0).astype(np.int32)
+
+    seeds = np.stack([seed_label(conf_fg_thres), seed_label(conf_bg_thres)])
+    fg_conf, bg_conf = crf_inference_label_multi(image, seeds, n_labels=2)
+    conf = fg_conf.copy().astype(np.uint8)
+    conf[fg_conf == 0] = 255
+    conf[(bg_conf + fg_conf) == 0] = 0
+    return conf
 
 
 def find_centroids_with_refinement(displacement, iterations: int = 300,

@@ -1,12 +1,18 @@
-"""IRNet's instance pseudo-mask pass (``make_ins_seg``) on the card.
+"""IRNet's pseudo-label pipeline: its three passes, with the reference's
+file contract.
 
-Port of pass 3 of ``tris_tpu/pseudo/pipeline.py``: CAMs
-(``{cam_dir}/{name}.npy`` at the original image size, from PRMS) and a
-trained IRNet give ``{ins_seg_dir}/{name}.npy`` dicts. Image naming follows
-the reference (voc12/dataloader.py:117-188): names are ``{idx}_{img_id}``,
-resolving to ``COCO_train2014_{img_id:012d}.jpg`` or ``{img_id}.jpg`` for
-ReferIt. Images decode with PIL. Passes 1 (CRF ir-labels) and 2 (IRN
-training) are not ported yet.
+Port of ``tris_tpu/pseudo/pipeline.py``:
+
+  1. cam_to_ir_label: ``{cam_dir}/{name}.npy`` -> ``{ir_label_dir}/{name}.png``
+     (the dense CRF on the host, in worker processes);
+  2. train_irn: ir labels -> a trained IRNet, ``torch.save`` of its
+     ``state_dict`` to ``irn_weights`` (``.pth``), on one device;
+  3. make_ins_seg: CAMs (at the original image size, from PRMS) and an
+     IRNet -> ``{ins_seg_dir}/{name}.npy`` dicts, on one device.
+
+Image naming follows the reference (voc12/dataloader.py:117-188): names are
+``{idx}_{img_id}``, resolving to ``COCO_train2014_{img_id:012d}.jpg`` or
+``{img_id}.jpg`` for ReferIt. Images decode with PIL.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import collections
 import dataclasses
 import json
 import os
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -70,6 +76,200 @@ def load_raw_image(cfg: PseudoConfig, name: str) -> np.ndarray:
 
 def normalize_image(img: np.ndarray) -> np.ndarray:
     return ((img.astype(np.float32) / 255.0) - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def _ir_label_one(args) -> str:
+    cfg, name = args
+    from PIL import Image
+
+    from tris_tpu_torch.pseudo.labels import cam_to_ir_label
+
+    img = load_raw_image(cfg, name)
+    cam = np.asarray(np.load(os.path.join(cfg.cam_dir, name + ".npy"), allow_pickle=True),
+                     np.float32)
+    conf = cam_to_ir_label(img, cam, cfg.conf_fg_thres, cfg.conf_bg_thres)
+    out = os.path.join(cfg.ir_label_dir, name + ".png")
+    Image.fromarray(conf).save(out)
+    return out
+
+
+def run_cam_to_ir_label(cfg: PseudoConfig, names: Optional[List[str]] = None,
+                        parallel: bool = True):
+    """The CRF labelling of every name on the host, in ``cfg.num_workers``
+    spawned processes, as the reference's multiprocessing.spawn
+    (cam_to_ir_label.py:82-92): a fork would copy a parent whose CUDA
+    context and thread pools the workers must not share."""
+    import multiprocessing
+
+    names = names if names is not None else load_names(cfg)
+    os.makedirs(cfg.ir_label_dir, exist_ok=True)
+    tasks = [(cfg, n) for n in names]
+    if parallel and len(names) > 1:
+        with ProcessPoolExecutor(max_workers=min(cfg.num_workers, len(names)),
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            list(ex.map(_ir_label_one, tasks, chunksize=4))
+    else:
+        for t in tasks:
+            _ir_label_one(t)
+
+
+def irn_train_batches(cfg: PseudoConfig, names: List[str], path_index, batch_size: int,
+                      epochs: int, seed: int = 1234, num_threads: Optional[int] = None,
+                      labels: str = "device"):
+    """Augmented IRN training batches as numpy, the reference's
+    ``ReferAffinityDataset``: rescale by (0.5, 1.5), normalise, flip, random
+    crop to ``cfg.crop_size`` (image padded with 0, label with 255), the
+    label map at quarter scale. The same batches as the JAX package's for
+    the same seed.
+
+    Built by ``num_threads`` worker threads (default ``cfg.num_workers``)
+    and yielded in order, so the host builds the next batches while the
+    card trains. A short final batch wraps around to the epoch's first
+    samples. Every batch's augmentations draw from their own stream, seeded
+    from (seed, epoch, batch), whatever the threads' timing. These are the
+    JAX pass's batches for process 0 of 1: its per-process slices belong
+    to data-parallel training, which the port does not have yet.
+
+    ``labels="device"`` yields ``image`` [B, crop, crop, 3] float32 and
+    ``reduced_label`` [B, crop/4, crop/4] uint8, from which K8 builds the
+    pair masks on the card; ``labels="host"`` yields the three masks
+    ``aff_bg_pos``, ``aff_fg_pos``, ``aff_neg`` [B, n_dirs, n_pairs] float32
+    instead (about 24 MB per example at crop 512), which only the loss on
+    the CPU reads. Values are the same."""
+    import queue
+    import threading
+
+    from PIL import Image
+
+    from tris_tpu_torch.pseudo.aug import (
+        affinity_labels_from_indices, pil_rescale, random_crop_pair, random_lr_flip_pair,
+        random_scale_pair)
+
+    num_threads = cfg.num_workers if num_threads is None else num_threads
+    n = len(names)
+    nb_per_epoch = -(-n // batch_size)
+
+    epoch_rng = np.random.default_rng(seed)
+    orders = [epoch_rng.permutation(n) for _ in range(epochs)]
+
+    def make_batch(epoch: int, b: int) -> dict:
+        order = orders[epoch]
+        idxs = order[b * batch_size:(b + 1) * batch_size]
+        if len(idxs) < batch_size:  # wrap the final short batch (tiled if n < batch_size)
+            idxs = np.concatenate([idxs, np.resize(order, batch_size - len(idxs))])
+        rng = np.random.default_rng((seed * 1000003 + epoch * 131 + b) % (2 ** 63))
+        imgs, reduceds, bgs, fgs, negs = [], [], [], [], []
+        for i in idxs:
+            name = names[i]
+            img = load_raw_image(cfg, name)
+            label = np.asarray(Image.open(os.path.join(cfg.ir_label_dir, name + ".png")))
+            img, label = random_scale_pair(img, label, (0.5, 1.5), rng)
+            img = normalize_image(img)
+            img, label = random_lr_flip_pair(img, label, rng)
+            img, label = random_crop_pair(img, label, cfg.crop_size, rng)
+            reduced = pil_rescale(label, 0.25, 0)
+            imgs.append(img)
+            if labels == "device":
+                reduceds.append(reduced.astype(np.uint8))
+            else:
+                bg, fg, neg = affinity_labels_from_indices(
+                    reduced, path_index.src_indices, path_index.dst_indices)
+                bgs.append(bg)
+                fgs.append(fg)
+                negs.append(neg)
+        out = {"image": np.stack(imgs).astype(np.float32)}
+        if labels == "device":
+            out["reduced_label"] = np.stack(reduceds)
+        else:
+            out["aff_bg_pos"], out["aff_fg_pos"], out["aff_neg"] = (
+                np.stack(bgs), np.stack(fgs), np.stack(negs))
+        return out
+
+    tasks = [(e, b) for e in range(epochs) for b in range(nb_per_epoch)]
+    if num_threads <= 1 or len(tasks) <= 1:
+        for e, b in tasks:
+            yield make_batch(e, b)
+        return
+
+    q: "queue.Queue" = queue.Queue(maxsize=num_threads)
+    stop = threading.Event()
+
+    def worker(tid: int):
+        for t in range(tid, len(tasks), num_threads):
+            if stop.is_set():
+                return
+            q.put((t, make_batch(*tasks[t])))
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True)
+               for t in range(min(num_threads, len(tasks)))]
+    for t in threads:
+        t.start()
+    try:
+        pending, next_t = {}, 0
+        for _ in range(len(tasks)):
+            t, batch = q.get()
+            pending[t] = batch
+            while next_t in pending:
+                yield pending.pop(next_t)
+                next_t += 1
+    finally:
+        stop.set()
+
+
+def calibration_images(cfg: PseudoConfig, names: List[str], batch_size: int):
+    """The mean-shift calibration's batches: the images of each full batch
+    of ``names`` in order, normalised and top-left cropped to
+    ``cfg.crop_size`` (padded with 0), NHWC float32."""
+    from tris_tpu_torch.pseudo.aug import top_left_crop
+
+    for start in range(0, len(names) - batch_size + 1, batch_size):
+        yield np.stack([top_left_crop(normalize_image(load_raw_image(cfg, name)), cfg.crop_size, 0)
+                        for name in names[start:start + batch_size]]).astype(np.float32)
+
+
+def run_train_irn(cfg: PseudoConfig, names: Optional[List[str]] = None, epochs: int = 3,
+                  batch_size: int = 24, lr: float = 0.1, log=print, device="cuda", model=None):
+    """IRN training on one device (``"cuda"`` unless the caller asks for the
+    CPU): IRNet's heads from a seeded init (``model`` to start from another
+    IRNet), ``epochs`` over ``names`` at ``batch_size``, then the mean-shift
+    calibration over the top-left crops of the full batches of ``names``
+    (it raises, as the JAX pass does, when ``names`` has fewer than
+    ``batch_size``), saved as a ``state_dict`` to ``cfg.irn_weights``.
+    Returns the model. The JAX pass's data parallelism over devices and
+    processes is not ported."""
+    from tris_tpu_torch.device import resolve_device
+    from tris_tpu_torch.pseudo.indexing import PathIndex
+    from tris_tpu_torch.pseudo.irnet import IRNet
+    from tris_tpu_torch.pseudo.train_irn import (
+        IRNTrainConfig, batch_to_device, calibrate_mean_shift, make_irn_optimizer, train_step)
+
+    dev = resolve_device(device)
+    names = names if names is not None else load_names(cfg)
+    path_index = PathIndex(cfg.radius, (cfg.crop_size // 4, cfg.crop_size // 4))
+    if model is None:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = IRNet()
+    model = model.to(dev).train()
+    tcfg = IRNTrainConfig(crop_size=cfg.crop_size, radius=cfg.radius, lr=lr, epochs=epochs,
+                          batch_size=batch_size)
+    max_step = -(-len(names) // batch_size) * epochs  # the short batch wraps
+    opt, sched = make_irn_optimizer(model, tcfg, max(max_step, 1))
+
+    it = 0
+    for batch in irn_train_batches(cfg, names, path_index, batch_size, epochs):
+        metrics = train_step(model, opt, sched, path_index, batch_to_device(batch, dev))
+        it += 1
+        if it % 50 == 0:
+            log(f"irn step {it}/{max_step} loss={float(metrics['loss']):.4f}")
+
+    model.eval().requires_grad_(False)
+    calibrate_mean_shift(model, (torch.as_tensor(x, device=dev).permute(0, 3, 1, 2)
+                                 for x in calibration_images(cfg, names, batch_size)))
+    if os.path.dirname(cfg.irn_weights):
+        os.makedirs(os.path.dirname(cfg.irn_weights), exist_ok=True)
+    torch.save(model.state_dict(), cfg.irn_weights)
+    return model
 
 
 def _ins_seg_load(cfg: PseudoConfig, name: str):

@@ -1,7 +1,8 @@
-"""Where the stage-1 eval forward, the PRMS step, the stage-1 train step or
-one image of IRNet's instance pseudo-mask pass spends its time on the card.
+"""Where the stage-1 eval forward, the PRMS step, the stage-1 train step, one
+image of IRNet's instance pseudo-mask pass or one IRN training step spends
+its time on the card.
 
-    python -m tris_tpu_torch.tools.profile_eval [--prms | --train | --ins_seg] \\
+    python -m tris_tpu_torch.tools.profile_eval [--prms | --train | --ins_seg | --train_irn] \\
         [--batch 8] [--sents 4] [--negatives 3] [--size 320] [--iters 5] [--out PATH]
 
 Builds RN50 stage 1 at full width with seeded random weights (as
@@ -12,8 +13,10 @@ normalisation, and the ViT-B/32 critic with seeded random weights; with
 batch of ``--batch`` images with ``--negatives`` negatives each, forward,
 backward and AdamW update; with ``--ins_seg``: one 480x640 image of the
 pass, a seeded full-width IRNet's forward, K9, the host clustering, the
-walk, the upsample and the host detection, on a synthetic image and CAM),
-then
+walk, the upsample and the host detection, on a synthetic image and CAM;
+with ``--train_irn``: one IRN ``train_step`` at crop 512, radius 10 and
+``--batch`` (24 unless given) of a seeded full-width IRNet on a synthetic
+batch, forward, K7, K8, backward and SGD update), then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times; one stream, so they do not overlap) and its idle share, and the
@@ -37,8 +40,10 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "vis_to_text_kernel"
                 "b_lan_kernel", "response_head_kernel", "bmm_kernel", "head_fwd_kernel",
                 "maps_fwd_kernel", "head_bwd_kernel", "maps_bwd_kernel", "eval_metrics_kernel",
                 "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel",
-                "bilinear_resize_kernel", "path_max_kernel", "refine_centroids_kernel",
-                "walk_transition_kernel", "walk_matmul_kernel")
+                "bilinear_resize_kernel", "bilinear_resize_bwd_kernel", "path_max_kernel",
+                "path_max_prep_kernel", "path_max_gather_kernel", "irn_loss_partial_kernel",
+                "irn_loss_final_kernel", "irn_loss_daff_kernel", "irn_loss_ddp_kernel",
+                "refine_centroids_kernel", "walk_transition_kernel", "walk_matmul_kernel")
 
 
 def kernel_class(name: str) -> str:
@@ -80,6 +85,30 @@ def ins_seg_step(dev, rng, size=(480, 640), dp_scale=16.0):
     return step
 
 
+def train_irn_step(dev, rng, batch_size=24, crop=512, radius=10):
+    """One IRN training step at full width: a seeded IRNet, SGD as
+    ``pipeline.run_train_irn`` builds it, and a synthetic batch (normalised
+    noise with flat rectangles, a blocky {0, 1, 255} label map at quarter
+    scale)."""
+    from tris_tpu_torch.pseudo.indexing import PathIndex
+    from tris_tpu_torch.pseudo.irnet import IRNet
+    from tris_tpu_torch.pseudo.train_irn import (
+        IRNTrainConfig, batch_to_device, make_irn_optimizer, train_step)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = IRNet().to(dev).train()
+    opt, sched = make_irn_optimizer(model, IRNTrainConfig(crop_size=crop, radius=radius), 1000)
+    image = rng.standard_normal((batch_size, crop, crop, 3)).astype(np.float32)
+    image[:, crop // 4:crop // 2, crop // 4:3 * crop // 4] = 1.0
+    q = crop // 4
+    blocks = rng.choice(np.array([0, 1, 255], np.uint8), (batch_size, q // 8, q // 8))
+    label = blocks.repeat(8, 1).repeat(8, 2)
+    batch = batch_to_device({"image": image, "reduced_label": label}, dev)
+    path_index = PathIndex(radius, (q, q))
+    return lambda: train_step(model, opt, sched, path_index, batch)
+
+
 def main(argv=None) -> dict:
     from tris_tpu_torch.cli.common import build_critic
     from tris_tpu_torch.config import get_parser
@@ -93,7 +122,9 @@ def main(argv=None) -> dict:
     mode.add_argument("--train", action="store_true", help="profile one stage-1 train step")
     mode.add_argument("--ins_seg", action="store_true",
                       help="profile one 480x640 image of the instance pseudo-mask pass")
-    p.add_argument("--batch", type=int, default=8)
+    mode.add_argument("--train_irn", action="store_true",
+                      help="profile one IRN training step (crop 512, radius 10)")
+    p.add_argument("--batch", type=int, default=None, help="default 8 (24 with --train_irn)")
     p.add_argument("--sents", type=int, default=4)
     p.add_argument("--negatives", type=int, default=3, help="negatives per image (--train)")
     p.add_argument("--size", type=int, default=320)
@@ -102,6 +133,8 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     if args.iters is None:
         args.iters = 1 if args.ins_seg else 5
+    if args.batch is None:
+        args.batch = 24 if args.train_irn else 8
 
     dev = resolve_device("cuda")
     with torch.random.fork_rng(devices=[]):
@@ -115,6 +148,10 @@ def main(argv=None) -> dict:
     grad = False
     if args.ins_seg:
         step = ins_seg_step(dev, rng)
+    elif args.train_irn:
+        del model
+        step = train_irn_step(dev, rng, args.batch)
+        grad = True
     elif args.train:
         from tris_tpu_torch.train.stage1 import batch_to_device, train_step
         from tris_tpu_torch.train.state import make_optimizer
@@ -167,8 +204,10 @@ def main(argv=None) -> dict:
     res = {
         "device": torch.cuda.get_device_name(0),
         "step": ("train_step" if args.train else "make_prms_forward" if args.prms else
-                 "ins_seg_image" if args.ins_seg else "response_maps"),
+                 "ins_seg_image" if args.ins_seg else "irn_train_step" if args.train_irn else
+                 "response_maps"),
         "shape": ({"image": [480, 640]} if args.ins_seg else
+                  {"batch": args.batch, "crop": 512, "radius": 10} if args.train_irn else
                   {"batch": args.batch, "sents": args.sents, "size": args.size,
                    **({"negatives": args.negatives} if args.train else {})}),
         "wall_ms_per_forward": wall_ms,
