@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--report PATH]
 
 Run from the root of a checkout. Phases, in order; an error stops the run,
-and a failed check of phases 3-8 exits 1 once all have run (so the report
+and a failed check of phases 3-9 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
@@ -18,9 +18,13 @@ holds every number):
              the stage-1 train step's; K6's bilinear half, K7, K9 and K10 at
              a 480x640 image's IRNet pass; K6's bilinear backward, K7's
              backward (ties planted) and K8 forward and backward at IRN
-             training's B=24, crop 512, radius 10), with its stated tolerance; device
-             times of kernel, plain version and, where one exists, the one
-             PyTorch call computing the same thing; the least time the card
+             training's B=24, crop 512, radius 10; K11 forward at stage 2's
+             c2, c3 and c4 for B=48 and for eval's 8 images x 4 pairs, its
+             backward at the train levels; K12 over the whole stage-2 tree,
+             bit for bit; K6 bilinear forward and backward at the stage-2
+             decoder's align_corners=False taps), with its stated tolerance;
+             device times of kernel, plain version and, where one exists, the
+             one PyTorch call computing the same thing; the least time the card
              could take (bytes or FP32 operations over the published peak);
 4. stage-1 eval - RN50 stage 1 at full width (hidden 1024, 20 tokens,
              320 px, B=8 refs x S=4 sentences, seeded random weights):
@@ -66,7 +70,19 @@ holds every number):
              over ``ROUNDS``; then the user's chain as CLI processes on a
              fake RefCOCO tree: ``cli.train_stage1`` (one epoch) ->
              ``cli.validate --prms --save_cam`` -> ``cli.irnet`` with its
-             three passes, and the files each leaves.
+             three passes -> ``cli.train_stage2 --model_ema`` (one epoch, on
+             the pseudo-masks the chain wrote) -> ``cli.validate --stage 2``,
+             and the files each leaves;
+9. stage 2 - full-width RN50 stage 2 (seeded) at B=48, 320 px, u8, random
+             0/1 pseudo-masks: ``TRAIN2_STEPS`` steps with the EMA teacher
+             updated every step (update_after 0: two copies, then decay
+             steps; the last step's consistency term is live) under reset
+             counters (the
+             exact launches per step of K1, K6, K11 and K12), the same on the
+             plain route (step-1 loss terms, every gradient, the teacher after
+             the last step), step times of both routes at the default gate
+             over ``ROUNDS``, peak memory; then ``validate`` of the trained
+             model on phase 4's batches on both routes.
 
 Prints the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``--report`` writes a fuller JSON report
@@ -124,6 +140,26 @@ IRN_B, IRN_CROP, IRN_RADIUS, IRN_STEPS, IRN_LR = 24, 512, 10, 3, 0.1
 # backward; K7 one forward, its backward two passes; K8 two each way
 IRN_LAUNCHES_PER_STEP = {"bilinear_resize": 6, "bilinear_resize_bwd": 6, "path_max_affinity": 1,
                          "path_max_affinity_bwd": 2, "irn_loss": 2, "irn_loss_bwd": 2}
+# phase 9: stage 2 at bench.py::bench_train2's shape (RN50, text 512 x 12,
+# 20 tokens, 320 px, B=48, the EMA teacher on, consistency mse, AdamW with
+# the stage-2 groups); 4 counted steps with the teacher updated at every
+# step (update_after 0: copies at counters 0 and 1, so the teacher equals
+# the student at the first three forwards and l5 is 0 there; decays
+# 1 - 2^-2/3 at 2 and 1 - 3^-2/3 at 3, so step 4's l5 is live)
+TRAIN2_B, TRAIN2_STEPS, N_TRAIN2_BATCHES = 48, 4, 3
+# kernel launches per stage-2 step there: K1 in the student's and the
+# teacher's text towers (12 layers each), its backward in the student's;
+# K11 at c2, c3 and c4 in both forwards, its backward (three kernels) in the
+# student's; K6 bilinear at the decoder's three x2 taps and the four heads'
+# upsamples in both forwards, backward in the student's; K6 normalise once
+# (one u8 batch feeds both); K12 once
+TRAIN2_LAUNCHES_PER_STEP = {"mha_short": 24, "mha_short_bwd": 12, "normalize_u8": 1,
+                            "bilinear_resize": 14, "bilinear_resize_bwd": 7, "pixel_attn": 6,
+                            "pixel_attn_bwd": 9, "ema_update": 1}
+# and per eval batch of stage 2's validate: the text tower, K11 at 3 levels,
+# K6 at the decoder's 3 taps and out1's upsample, the u8 feed, K4
+EVAL2_LAUNCHES_PER_BATCH = {"mha_short": 12, "pixel_attn": 3, "bilinear_resize": 4,
+                            "normalize_u8": 1, "eval_metrics": 1}
 # H100 SXM published peaks: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
@@ -245,6 +281,46 @@ def fwd_bwd_ms(fn, inputs, cots):
 
 def leaves(*ts):
     return [t.detach().requires_grad_() for t in ts]
+
+
+def resize_row(K, failures, name, x, size, align_corners):
+    """K6 bilinear forward on ``x`` [..., h, w]: exact against its plain
+    version (the same taps in the same order); ``F.interpolate`` as the
+    library."""
+    import torch.nn.functional as F
+
+    got = K.bilinear_resize(x, size, align_corners)
+    lib = lambda: F.interpolate(x.reshape(-1, 1, *x.shape[-2:]), size=size,  # noqa: E731
+                                mode="bilinear", align_corners=align_corners)
+    n_out = got.numel()
+    return measure_row(failures, name,
+                       max_err(got, K.bilinear_resize_plain(x, size, align_corners)), 0.0,
+                       device_ms(lambda: K.bilinear_resize(x, size, align_corners)),
+                       device_ms(lambda: K.bilinear_resize_plain(x, size, align_corners)),
+                       4 * (x.numel() + n_out), 9 * n_out, device_ms(lib),
+                       shape=[*x.shape, *size], align_corners=align_corners,
+                       library_max_abs_err=max_err(got, lib().reshape(got.shape)))
+
+
+def resize_bwd_row(K, failures, name, x, cot):
+    """K6 bilinear backward (align_corners=False) from ``x`` to the size of
+    the cotangent ``cot``: 1e-5 of the gradient's scale (the plain version's
+    index backward adds with atomics, in another order); ``F.interpolate``'s
+    backward as the library."""
+    import torch.nn.functional as F
+
+    (x,) = leaves(x)
+    size, cot = tuple(cot.shape[-2:]), [cot]
+    kern = lambda t: K.bilinear_resize(t, size, False)  # noqa: E731
+    plain = lambda t: K.bilinear_resize_plain(t, size, False)  # noqa: E731
+    lib = lambda t: F.interpolate(t, size=size, mode="bilinear", align_corners=False)  # noqa: E731
+    got, want = input_grads(kern, [x], cot)[0], input_grads(plain, [x], cot)[0]
+    scale = float(want.abs().max())
+    return measure_row(failures, name, max_err(got, want), 1e-5 * scale,
+                       bwd_ms(kern, [x], cot), bwd_ms(plain, [x], cot, 5),
+                       4 * (cot[0].numel() + x.numel()), 8 * cot[0].numel(),
+                       bwd_ms(lib, [x], cot), shape=[*x.shape, *size], scale=scale,
+                       library_max_abs_err=max_err(got, input_grads(lib, [x], cot)[0]))
 
 
 # ---- phase 3: each kernel against its plain version -------------------------
@@ -569,17 +645,8 @@ def check_ins_seg_kernels(K, dev):
         return measure_row(failures, *args, **kw)
 
     def resize(name, shape, size, align_corners):
-        x = torch.randn(*shape, generator=g, device=dev)
-        got = K.bilinear_resize(x, size, align_corners)
-        lib = lambda: F.interpolate(x.reshape(-1, 1, *shape[-2:]), size=size,  # noqa: E731
-                                    mode="bilinear", align_corners=align_corners)
-        n_out = got.numel()
-        return measure(name, max_err(got, K.bilinear_resize_plain(x, size, align_corners)), 0.0,
-                       device_ms(lambda: K.bilinear_resize(x, size, align_corners)),
-                       device_ms(lambda: K.bilinear_resize_plain(x, size, align_corners)),
-                       4 * (x.numel() + n_out), 9 * n_out, device_ms(lib),
-                       shape=[*shape, *size], align_corners=align_corners,
-                       library_max_abs_err=max_err(got, lib().reshape(got.shape)))
+        return resize_row(K, failures, name, torch.randn(*shape, generator=g, device=dev), size,
+                          align_corners)
 
     oh, ow = INS_SEG_SIZES[0]
     gh, gw = oh // 4, ow // 4
@@ -730,7 +797,6 @@ def check_irn_train_kernels(K, dev):
     forward (sums and counts) and backward. A backward row times the
     backward alone (on a retained graph)."""
     import torch
-    import torch.nn.functional as F
 
     from tris_tpu_torch.pseudo.indexing import PathIndex
 
@@ -744,23 +810,8 @@ def check_irn_train_kernels(K, dev):
         return kernel_row(name, source, replaces, measure_row(failures, name, *args, **extra),
                           shapes)
 
-    # K6 backward: 1e-5 of the gradient's scale (the plain version's index
-    # backward adds with atomics, in another order); F.interpolate's backward
-    # as the library
     def resize_bwd(name, shape, size):
-        (x,) = leaves(randn(*shape))
-        cot = [randn(*shape[:-2], *size)]
-        kern = lambda t: K.bilinear_resize(t, size, False)  # noqa: E731
-        plain = lambda t: K.bilinear_resize_plain(t, size, False)  # noqa: E731
-        lib = lambda t: F.interpolate(t, size=size, mode="bilinear",  # noqa: E731
-                                      align_corners=False)
-        got, want = input_grads(kern, [x], cot)[0], input_grads(plain, [x], cot)[0]
-        scale = float(want.abs().max())
-        return measure_row(failures, name, max_err(got, want), 1e-5 * scale,
-                           bwd_ms(kern, [x], cot), bwd_ms(plain, [x], cot, 5),
-                           4 * (cot[0].numel() + x.numel()), 8 * cot[0].numel(),
-                           bwd_ms(lib, [x], cot), shape=[*shape, *size], scale=scale,
-                           library_max_abs_err=max_err(got, input_grads(lib, [x], cot)[0]))
+        return resize_bwd_row(K, failures, name, randn(*shape), randn(*shape[:-2], *size))
 
     q = IRN_CROP // 4
     rows = [kernel_row(
@@ -876,6 +927,140 @@ def check_irn_train_kernels(K, dev):
     return rows, failures
 
 
+def build_stage2(dev):
+    """Full-width RN50 stage 2 from seed 0, in train mode."""
+    import torch
+
+    from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = TRISStage2(Stage2Config(backbone="RN50", txt_length=TXT_LEN))
+    return model.to(dev).train()
+
+
+def check_stage2_kernels(K, dev, model):
+    """Stage 2's kernels at its paths' shapes: K11 forward at the train
+    step's c2 (the row), c3 and c4 (B=48, one sentence each) and at eval's
+    8 images x S=4 pairs, its backward at the train levels; K12 over the
+    whole stage-2 tree of ``model``, bit for bit; K6 bilinear forward and
+    backward at the decoder's ``align_corners=False`` shapes (returned
+    apart, sub-rows of K6's rows). Returns (rows, K6 forward sub-rows, K6
+    backward sub-rows, failures)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.train.stage2 import Stage2TrainConfig, ema_decay
+    from tris_tpu_torch.train.state import ema_leaves, make_teacher
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    failures = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    # q InstanceNorm'd (unit scale), keys at half scale so that the softmax
+    # over the 20 tokens is neither flat nor one-hot
+    levels = [(f"c{i}", (SIZE // 2 ** (i + 1)) ** 2, 64 * 2 ** (i + 1)) for i in (2, 3, 4)]
+
+    def pixel_fwd(name, N, S, hw, c):
+        q, lk, lv = randn(N, hw, c), 0.5 * randn(N * S, TXT_LEN, c), randn(N * S, TXT_LEN, c)
+        with torch.no_grad():
+            got, want = K.pixel_attn(q, lk, lv, S), K.pixel_attn_plain(q, lk, lv, S)
+        scale = float(want.abs().max())
+        qs = q.repeat_interleave(S, 0)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs[:, None], lk[:, None], lv[:, None])
+        P = N * S
+        return measure_row(failures, name, max_err(got, want), 1e-5 * scale,
+                           device_ms(lambda: K.pixel_attn(q, lk, lv, S)),
+                           device_ms(lambda: K.pixel_attn_plain(q, lk, lv, S)),
+                           4 * (N * hw * c + 2 * P * TXT_LEN * c + P * hw * c),
+                           4 * P * hw * TXT_LEN * c, device_ms(lib), shape=[N, S, hw, c, TXT_LEN],
+                           scale=scale, library_max_abs_err=max_err(got, lib()[:, 0]))
+
+    fwd = [pixel_fwd("pixel_attn" if lv == "c2" else f"pixel_attn@{lv}", TRAIN2_B, 1, hw, c)
+           for lv, hw, c in levels]
+    fwd += [pixel_fwd(f"pixel_attn@eval_{lv}", B, S, hw, c) for lv, hw, c in levels]
+    rows = [kernel_row("pixel_attn", "tris_tpu_torch/kernels/csrc/pixel_attn.cu",
+                       "tris_tpu/models/fusion.py:20", fwd[0], fwd[1:])]
+
+    # the backward: each gradient within 1e-4 of its max (the row reports
+    # the gradient nearest its bar); SDPA's backward as the library
+    def pixel_bwd(name, hw, c):
+        ins = leaves(randn(TRAIN2_B, hw, c), 0.5 * randn(TRAIN2_B, TXT_LEN, c),
+                     randn(TRAIN2_B, TXT_LEN, c))
+        cot = [randn(TRAIN2_B, hw, c)]
+        kern = lambda *x: K.pixel_attn(*x, 1)  # noqa: E731
+        plain = lambda *x: K.pixel_attn_plain(*x, 1)  # noqa: E731
+        lib = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
+            *(t[:, None] for t in x))[:, 0]
+        got, want = input_grads(kern, ins, cot), input_grads(plain, ins, cot)
+        err, tol = max(((max_err(a, b), 1e-4 * float(b.abs().max())) for a, b in zip(got, want)),
+                       key=lambda et: et[0] / et[1])
+        P, T = TRAIN2_B, TXT_LEN
+        return measure_row(failures, name, err, tol, bwd_ms(kern, ins, cot),
+                           bwd_ms(plain, ins, cot), 4 * (3 * P * hw * c + 4 * P * T * c),
+                           10 * P * hw * T * c, bwd_ms(lib, ins, cot), shape=[P, 1, hw, c, T],
+                           library_max_abs_err=max(max_err(a, b) for a, b in zip(
+                               got, input_grads(lib, ins, cot))))
+
+    bwd = [pixel_bwd("pixel_attn_bwd" if lv == "c2" else f"pixel_attn_bwd@{lv}", hw, c)
+           for lv, hw, c in levels]
+    rows.append(kernel_row("pixel_attn_bwd", "tris_tpu_torch/kernels/csrc/pixel_attn_bwd.cu",
+                           "tris_tpu/models/fusion.py:37", bwd[0], bwd[1:]))
+    torch.cuda.empty_cache()
+
+    # K12 over the whole tree: two teachers scaled alike, one updated by the
+    # kernel, one by the plain version, at the decay of counter 2 (1 - 2^-2/3)
+    teachers = [make_teacher(model) for _ in range(2)]
+    for t in teachers:
+        for leaf in ema_leaves(t):
+            if leaf.is_floating_point():
+                leaf.mul_(0.75)
+    student = ema_leaves(model)
+    (ek, ep) = (ema_leaves(t) for t in teachers)
+    d = ema_decay(2, Stage2TrainConfig(use_ema=True, ema_update_after=0, ema_update_every=1))
+    table = K.EmaTable(ek, student)
+    K.ema_update(ek, student, d, table=table)
+    K.ema_update_plain(ep, student, d)
+    exact = all(torch.equal(a, b) for a, b in zip(ek, ep))
+    err = max(max_err(a, b) for a, b in zip(ek, ep))
+    floats = [i for i, t in enumerate(student) if t.is_floating_point()]
+    n_float = sum(student[i].numel() for i in floats)
+    n_int = sum(t.numel() for t in student if not t.is_floating_point())
+    fe, fs = [ek[i] for i in floats], [student[i] for i in floats]
+    rows.append(kernel_row(
+        "ema_update", "tris_tpu_torch/kernels/csrc/ema_update.cu", "tris_tpu/train/state.py:161",
+        measure_row(failures, "ema_update", err, 0.0,
+                    device_ms(lambda: K.ema_update(ek, student, d, table=table)),
+                    device_ms(lambda: K.ema_update_plain(ep, student, d), n=5),
+                    3 * 4 * n_float + 2 * 8 * n_int, 3 * n_float,
+                    device_ms(lambda: torch._foreach_lerp_(fe, fs, 1.0 - d)),
+                    leaves=len(student), float_elements=n_float, int_elements=n_int,
+                    bit_exact=exact, decay=d, tree_bytes=4 * n_float + 8 * n_int)))
+    if not exact:
+        failures.append("ema_update: not bit for bit the plain version")
+    del teachers, ek, ep, fe, table
+    torch.cuda.empty_cache()
+
+    # K6 at the decoder's shapes: the three x2 taps and the heads' upsamples
+    # to 320 px, forward (exact) and backward
+    hs = [SIZE // 32, SIZE // 16, SIZE // 8, SIZE // 4]            # 10, 20, 40, 80
+    shapes = [("dec_x2_c4", (TRAIN2_B, 256, hs[0], hs[0]), (hs[1], hs[1])),
+              ("dec_x2_c3", (TRAIN2_B, 128, hs[1], hs[1]), (hs[2], hs[2])),
+              ("dec_x2_c2", (TRAIN2_B, 64, hs[2], hs[2]), (hs[3], hs[3])),
+              ("head_x4", (TRAIN2_B, 1, hs[3], hs[3]), (SIZE, SIZE)),
+              ("head_x8", (TRAIN2_B, 1, hs[2], hs[2]), (SIZE, SIZE)),
+              ("head_x16", (TRAIN2_B, 1, hs[1], hs[1]), (SIZE, SIZE))]
+    k6 = [resize_row(K, failures, f"bilinear_resize@{n}", randn(*shape), size, False)
+          for n, shape, size in shapes]
+    k6_bwd = [resize_bwd_row(K, failures, f"bilinear_resize_bwd@{n}", randn(*shape),
+                             randn(*shape[:2], *size)) for n, shape, size in shapes]
+    torch.cuda.empty_cache()
+    return rows, k6, k6_bwd, failures
+
+
 # ---- phase 4: the main path ------------------------------------------------
 
 
@@ -941,7 +1126,8 @@ def plain_kernels(K):
              "path_max_affinity": K.path_max_affinity_plain,
              "refine_centroids": K.refine_centroids_plain,
              "walk_transition": K.walk_transition_plain, "walk_matmul": K.walk_matmul_plain,
-             "irn_loss": K.irn_loss_plain}
+             "irn_loss": K.irn_loss_plain, "pixel_attn": K.pixel_attn_plain,
+             "ema_update": K.ema_update_plain}
     saved = {name: getattr(K, name) for name in plain}
     for name, fn in plain.items():
         setattr(K, name, fn)
@@ -1181,18 +1367,21 @@ def make_train_batches(n_batches: int, seed: int):
     ids and [B, 3, 20] negatives of 6 to 18 tokens (the EOS position picks
     the text feature), made from a seed."""
     rng = np.random.default_rng(seed)
-
-    def ids(shape):
-        out = np.zeros(shape + (TXT_LEN,), np.int32)
-        for idx in np.ndindex(*shape):
-            n_tok = int(rng.integers(6, 19))
-            out[idx][0], out[idx][n_tok - 1] = 49406, 49407
-            out[idx][1:n_tok - 1] = rng.integers(1, 49000, n_tok - 2)
-        return out
-
     return [{"image": rng.integers(0, 256, (TRAIN_B, SIZE, SIZE, 3), dtype=np.uint8),
-             "word_ids": ids((TRAIN_B,)), "neg_word_ids": ids((TRAIN_B, TRAIN_NEG))}
+             "word_ids": token_ids(rng, (TRAIN_B,)),
+             "neg_word_ids": token_ids(rng, (TRAIN_B, TRAIN_NEG))}
             for _ in range(n_batches)]
+
+
+def token_ids(rng, shape):
+    """[*shape, 20] CLIP ids of 6 to 18 tokens (the EOS position picks the
+    text feature)."""
+    out = np.zeros(shape + (TXT_LEN,), np.int32)
+    for idx in np.ndindex(*shape):
+        n_tok = int(rng.integers(6, 19))
+        out[idx][0], out[idx][n_tok - 1] = 49406, 49407
+        out[idx][1:n_tok - 1] = rng.integers(1, 49000, n_tok - 2)
+    return out
 
 
 def train_path(K, dev, batches):
@@ -1677,14 +1866,255 @@ def irn_train_path(K, dev):
     return summary, failures
 
 
+# ---- phase 9: stage 2 -------------------------------------------------------------------------
+
+
+def make_train2_batches(n_batches: int, seed: int):
+    """Stage-2 train batches with the ``Loader``'s layout: u8 320 px images,
+    [B, 20] ids of 6 to 18 tokens and random 0/1 pseudo-masks [B, 320, 320,
+    1] (blocks of 8 pixels), made from a seed."""
+    rng = np.random.default_rng(seed)
+
+    def pseudo():
+        blocks = rng.random((TRAIN2_B, SIZE // 8, SIZE // 8, 1)) > 0.6
+        return blocks.repeat(8, 1).repeat(8, 2).astype(np.float32)
+
+    return [{"image": rng.integers(0, 256, (TRAIN2_B, SIZE, SIZE, 3), dtype=np.uint8),
+             "word_ids": token_ids(rng, (TRAIN2_B,)), "pseudo": pseudo()}
+            for _ in range(n_batches)]
+
+
+def stage2_path(K, dev, init, eval_batches):
+    """Stage 2 at full width from ``init``: ``TRAIN2_STEPS`` train steps on
+    the kernel route under reset launch counters with the teacher updated
+    every step, the same steps on the plain route from the same weights,
+    held against each other (step-1 loss terms, every gradient, the teacher
+    after the last step); step times of both routes at the default gate
+    over ``ROUNDS``; then ``validate`` of the trained model on phase 4's
+    batches on both routes."""
+    import copy
+
+    import torch
+
+    from tris_tpu_torch.eval.validate import image_to_nchw, validate
+    from tris_tpu_torch.train.stage2 import (
+        Stage2TrainConfig, batch_to_device, ema_decay, train_step)
+    from tris_tpu_torch.train.state import create_train_state, ema_leaves, label_params
+
+    data = [batch_to_device(b, dev) for b in make_train2_batches(N_TRAIN2_BATCHES, seed=6)]
+    counted = Stage2TrainConfig(use_ema=True, ema_update_after=0, ema_update_every=1)
+    default = Stage2TrainConfig(use_ema=True)
+    labels = label_params(init, "stage2")
+    failures = []
+
+    def fresh():
+        return create_train_state(copy.deepcopy(init), total_steps=100, stage="stage2",
+                                  with_ema=True)
+
+    def steps(state, n, cfg, start=0, keep=False):
+        """n steps from batch ``start`` on: the loss terms, step 1's
+        gradients, and with ``keep`` the student's leaves after each step."""
+        out, grads, students = [], None, []
+        for i in range(n):
+            m = train_step(state, data[(start + i) % len(data)], cfg)
+            out.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()
+                         if p.grad is not None}
+            if keep:
+                students.append([t.detach().clone() for t in ema_leaves(state.model)])
+        return out, grads, students
+
+    steps(fresh(), 1, counted)                   # warm-up (cuDNN, allocator), kernel route
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    state = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    metrics, grads, students = steps(state, TRAIN2_STEPS, counted, keep=True)   # counted
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_kernels(K):
+        plain_state = fresh()
+        torch.cuda.reset_peak_memory_stats()
+        metrics_p, grads_p, students_p = steps(plain_state, TRAIN2_STEPS, counted, keep=True)
+        torch.cuda.synchronize()
+        peak_plain_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        rev = {k: v.flip(0) for k, v in data[0].items()}
+        st_r = fresh()
+        train_step(st_r, rev, counted)
+        grads_r = {k: p.grad.detach().clone() for k, p in st_r.model.named_parameters()
+                   if p.grad is not None}
+        del st_r
+
+    for name in K.KERNELS:
+        want = TRAIN2_LAUNCHES_PER_STEP.get(name, 0) * TRAIN2_STEPS
+        if launches[name] != want:
+            failures.append(f"stage-2 train: {name} launched {launches[name]} times, want {want}")
+    # step 1: l1-l4 and the loss within 1e-5 relative; l5 (the teacher is
+    # the initial student at step 1, so l5 is 0 or rounding noise) within
+    # 1e-5 of the loss; the later losses within 1e-3 relative (Adam's first
+    # step moves an element whose gradient is rounding noise by +-lr on each
+    # route); the last step's l5 live (> 0) on both routes
+    term_err = {k: abs(metrics[0][k] - metrics_p[0][k]) / max(abs(metrics_p[0][k]), 1e-12)
+                for k in ("loss", "l1", "l2", "l3", "l4")}
+    term_err["l5_of_loss"] = abs(metrics[0]["l5"] - metrics_p[0]["l5"]) / abs(metrics_p[0]["loss"])
+    if not max(term_err.values()) <= 1e-5:
+        failures.append(f"stage-2 train: step-1 loss terms vs plain {term_err} > 1e-5 relative")
+    later = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(metrics[1:], metrics_p[1:])]
+    if not max(later) <= 1e-3:
+        failures.append(f"stage-2 train: later losses vs plain {later} > 1e-3 relative")
+    if not all(np.isfinite(m["loss"]) and m["l5"] >= 0 for m in metrics + metrics_p):
+        failures.append("stage-2 train: a loss is not finite")
+    if not (metrics[-1]["l5"] > 0 and metrics_p[-1]["l5"] > 0):
+        failures.append(f"stage-2 train: the last step's consistency term is not live: "
+                        f"{metrics[-1]['l5']}, plain {metrics_p[-1]['l5']}")
+    # every gradient within 1e-4 of its leaf's max, or within 4x the plain
+    # route's own noise (the batch reversed) where the leaf is a residue of
+    # cancellation (the biases a norm or the softmax removes: attention*.W
+    # {q,k,v,w}.bias, ln_final.bias); nonzero on the kernel route except on
+    # the leaves the step does not use (the attention pool, text_projection,
+    # logit_scale), which apply_gradients gives zero gradients so that AdamW
+    # decays them, as optax does
+    unused = sorted(k for k in grads if "attnpool" in k
+                    or k in ("backbone.text_projection", "backbone.logit_scale"))
+    zero = sorted(k for k, gk in grads.items() if not float(gk.abs().max()) > 0)
+    if set(grads) != set(grads_p) or set(grads) != {k for k, _ in init.named_parameters()}:
+        failures.append("stage-2 train: the routes' gradient leaves differ")
+    if zero != unused:
+        failures.append(f"stage-2 train: zero gradients on the kernel route at {zero}, want "
+                        f"exactly the unused leaves {unused}")
+    worst, by_floor = (0.0, ""), {}
+    for k, gp in grads_p.items():
+        if k not in grads:
+            continue
+        err, floor = max_err(grads[k], gp), max_err(grads_r[k], gp)
+        bar = 1e-4 * float(gp.abs().max())
+        if err <= bar:
+            worst = max(worst, (err / bar * 1e-4 if bar > 0 else 0.0, k))
+        elif err <= 4 * floor:
+            by_floor[k] = {"err": err, "plain_noise": floor, "max": float(gp.abs().max())}
+        else:
+            failures.append(f"stage-2 train: gradient {k} vs plain {err} > 1e-4 of its max "
+                            f"({bar}) and > 4x the plain route's noise ({floor})")
+    # the teacher after the last step: the EMA rule replayed in plain
+    # PyTorch from the initial teacher over this route's students after each
+    # step (copies at counters 0 and 1, decays at 2 and 3), within 1e-6 of
+    # each leaf's scale (K12 is bit for bit); against the plain route's
+    # teacher within 1e-6 of the scale plus the routes' own students'
+    # distance, which the teacher inherits (the Adam steps above)
+    want = [t.detach().clone() for t in ema_leaves(init)]
+    for i, snap in enumerate(students):
+        d = ema_decay(i, counted)
+        if d is not None:
+            K.ema_update_plain(want, snap, d)
+    names = [k for k, _ in init.named_parameters()] + [k for k, _ in init.named_buffers()]
+    teacher, teacher_p = ema_leaves(state.ema), ema_leaves(plain_state.ema)
+    self_worst, route_worst, within_1e6 = (0.0, ""), (0.0, ""), 0
+    for i, k in enumerate(names):
+        scale = max(float(want[i].abs().max()), 1e-30) if want[i].is_floating_point() else 1.0
+        err = max_err(teacher[i], want[i])
+        self_worst = max(self_worst, (err / scale, k))
+        if not err <= 1e-6 * scale:
+            failures.append(f"stage-2 teacher: {k} {err} from the EMA of its students")
+        route = max_err(teacher[i], teacher_p[i])
+        drift = max(max_err(s[i], sp[i]) for s, sp in zip(students, students_p))
+        route_worst = max(route_worst, (route / scale, k))
+        within_1e6 += route <= 1e-6 * scale
+        if not route <= 1e-6 * scale + drift:
+            failures.append(f"stage-2 teacher: {k} vs the plain route's {route} > 1e-6 of its "
+                            f"scale + the students' distance {drift}")
+    del students, students_p, grads_r, want
+
+    times = {"kernels": [], "plain": []}
+    for i in range(ROUNDS):
+        for route, st, ctx in (("kernels", state, contextlib.nullcontext),
+                               ("plain", plain_state, lambda: plain_kernels(K))):
+            with ctx():
+                times[route].append(host_ms(lambda: steps(st, 1, default, start=i)))
+
+    # validate with the trained stage-2 model on phase 4's batches
+    model = state.model
+    del plain_state, state, data
+    torch.cuda.empty_cache()
+    loader = SyntheticEvalLoader(eval_batches)
+    quiet = lambda *a: None  # noqa: E731
+    image = image_to_nchw(torch.as_tensor(eval_batches[0]["image"], device=dev))
+    ids = torch.as_tensor(eval_batches[0]["word_ids"], device=dev)
+    eval_times = {"kernels": [], "plain": []}
+    with torch.no_grad():
+        validate(model, loader, with_boxes=False, log=quiet)            # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        res = validate(model, loader, with_boxes=False, log=quiet)      # counted
+        torch.cuda.synchronize()
+        eval_launches = dict(K.launches)
+        maps = model.response_maps(image, ids)
+        with plain_kernels(K):
+            res_p = validate(model, loader, with_boxes=False, log=quiet)
+            maps_p = model.response_maps(image, ids)
+        for _ in range(3):
+            for route, ctx in (("kernels", contextlib.nullcontext),
+                               ("plain", lambda: plain_kernels(K))):
+                with ctx():
+                    eval_times[route].append(host_ms(
+                        lambda: validate(model, loader, with_boxes=False, log=quiet))
+                        / len(eval_batches))
+    for name in K.KERNELS:
+        want = EVAL2_LAUNCHES_PER_BATCH.get(name, 0) * len(eval_batches)
+        if eval_launches[name] != want:
+            failures.append(f"stage-2 eval: {name} launched {eval_launches[name]} times, "
+                            f"want {want}")
+    map_scale = float(maps_p.abs().max())
+    maps_err = max_err(maps, maps_p)
+    if tuple(maps.shape) != (B, S, SIZE, SIZE) or not bool(torch.isfinite(maps).all()) \
+            or not maps_err <= 1e-4 * map_scale:
+        failures.append(f"stage-2 response_maps: shape {tuple(maps.shape)}, vs plain "
+                        f"{maps_err} > 1e-4 of {map_scale}")
+    metric_err = max(abs(res[k] - res_p[k]) for k in res)
+    if not metric_err <= 1e-4:
+        failures.append(f"stage-2 validate vs plain: {res} vs {res_p}")
+    if not all(0.0 <= res[k] <= 100.0 for k in ("mIoU", "oIoU", "hit", "hitm")):
+        failures.append(f"stage-2 validate metrics out of range: {res}")
+    del model
+    torch.cuda.empty_cache()
+
+    summary = {
+        "model": "RN50 stage 2 (text 512 x 12, 20 tokens, 320 px), random weights (seed 0); "
+                 "AdamW lr 5e-5 (backbone 0.1x, positional embeddings in head), EMA teacher, "
+                 "consistency mse",
+        "B": TRAIN2_B, "steps": TRAIN2_STEPS, "batches": N_TRAIN2_BATCHES,
+        "launches": launches, "launches_per_step_expected": TRAIN2_LAUNCHES_PER_STEP,
+        "metrics": metrics, "metrics_plain": metrics_p, "step1_term_rel_err": term_err,
+        "later_loss_rel_err": later, "grad_worst_rel_err": worst[0], "grad_worst_leaf": worst[1],
+        "grad_leaves": len(grads), "grad_within_plain_noise": by_floor, "unused_leaves": unused,
+        "groups": {g: sum(v == g for v in labels.values()) for g in ("backbone", "head")},
+        "teacher_decays": [ema_decay(i, counted) for i in range(TRAIN2_STEPS)], "teacher_vs_own_ema_worst_rel": self_worst[0],
+        "teacher_vs_own_ema_worst_leaf": self_worst[1],
+        "teacher_vs_plain_route_worst_rel": route_worst[0],
+        "teacher_vs_plain_route_worst_leaf": route_worst[1],
+        "teacher_leaves_within_1e-6_of_plain_route": within_1e6, "teacher_leaves": len(names),
+        "peak_memory_gb": peak_gb, "peak_memory_plain_gb": peak_plain_gb,
+        "step_host_ms_default_gate": {route: spread(t) for route, t in times.items()},
+        "eval": {"launches": eval_launches, "launches_per_batch_expected": EVAL2_LAUNCHES_PER_BATCH,
+                 "metrics": res, "metrics_plain": res_p, "metrics_max_abs_diff": metric_err,
+                 "maps_max_abs_err": maps_err, "map_scale": map_scale,
+                 "validate_host_ms_per_batch": {r: spread(t) for r, t in eval_times.items()}},
+    }
+    log(f"stage-2: {json.dumps(summary)}")
+    return summary, failures
+
+
 def run_cli(args, timeout):
     """``python -m <args>`` from the checkout's root: (seconds, return code,
-    the end of its output)."""
+    its output)."""
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", *args],
                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                          text=True, timeout=timeout)
-    return time.perf_counter() - t0, out.returncode, (out.stdout + out.stderr)[-2000:]
+    return time.perf_counter() - t0, out.returncode, out.stdout + out.stderr
 
 
 def cli_chain():
@@ -1692,7 +2122,9 @@ def cli_chain():
     own process on the card: ``cli.train_stage1`` (one epoch), ``cli.validate
     --prms --save_cam`` on its best checkpoint, ``cli.irnet`` with all three
     passes (CRF ir labels, IRN training at crop 512 and radius 10, the
-    instance pseudo-masks). Checks the files each leaves. The tree is the
+    instance pseudo-masks), ``cli.train_stage2 --model_ema`` (one epoch) on
+    those pseudo-masks and ``cli.validate --stage 2`` on its best
+    checkpoint. Checks the files each leaves. The tree is the
     test suite's fixture (``tests/fixtures.py``, numpy and PIL only),
     loaded from its file: another installed package may be named
     ``tests``."""
@@ -1730,12 +2162,32 @@ def cli_chain():
                        os.path.join(out, "res50_irn.pth"), "--irn_batch_size", "2",
                        "--irn_num_epoches", "1", "--num_workers", "2", "--cam_to_ir_label_pass",
                        "--train_irn_pass", "--make_ins_seg_pass"]),
+            ("train_stage2", ["tris_tpu_torch.cli.train_stage2", *common, "--pseudo_path",
+                              os.path.join(out, "ins_seg"), "--batch_size", "2", "--epoch", "1",
+                              "--test_split", "val", "--output", os.path.join(out, "stage2"),
+                              "--print-freq", "1", "--eval_batch", "2", "--model_ema",
+                              "--fast_eval"]),
+            ("validate_stage2", ["tris_tpu_torch.cli.validate", *common, "--test_split", "val",
+                                 "--stage", "2", "--eval_batch", "2", "--fast_eval", "--pretrain",
+                                 os.path.join(out, "stage2", "ckpt_320_epoch_0_best.pth")]),
         ]
+        logs = {}
         for name, args in steps:
-            secs[name], rc, tail = run_cli(args, 600)
+            secs[name], rc, logs[name] = run_cli(args, 600)
             if rc != 0:
-                failures.append(f"chain: {name} exited {rc}: {tail}")
+                failures.append(f"chain: {name} exited {rc}: {logs[name][-2000:]}")
                 break
+        # stage 2 read the masks cli.irnet wrote, and validate --stage 2 ran
+        read_pseudo = f"pseudo-masks from {os.path.join(out, 'ins_seg')}:" in logs.get(
+            "train_stage2", "")
+        s2_files = {f: os.path.getsize(os.path.join(out, "stage2", f)) for f in sorted(
+            os.listdir(os.path.join(out, "stage2")))} if os.path.isdir(
+            os.path.join(out, "stage2")) else {}
+        s2_val = [ln for ln in logs.get("validate_stage2", "").splitlines() if "[val]" in ln]
+        if not (read_pseudo and set(s2_files) == {"ckpt_320_epoch_0_best.pth",
+                                                  "ckpt_320_epoch_0_hit.pth"} and s2_val):
+            failures.append(f"chain: stage 2 read the pseudo-masks {read_pseudo}, left "
+                            f"{s2_files}, validate --stage 2 logged {s2_val}")
         files = {d: sorted(os.listdir(os.path.join(out, d))) if os.path.isdir(
             os.path.join(out, d)) else [] for d in ("cam", "ir_label", "ins_seg")}
         n = len(files["cam"])
@@ -1752,7 +2204,8 @@ def cli_chain():
                             f"dicts ok {dicts_ok}, .pth {pth}")
     summary = {"seconds": secs, "cams": n, "ir_labels": len(files["ir_label"]),
                "ins_seg_dicts": len(files["ins_seg"]), "ir_label_values": sorted(values),
-               "irn_weights_written": pth}
+               "irn_weights_written": pth, "stage2_read_pseudo_masks": read_pseudo,
+               "stage2_files_bytes": s2_files, "validate_stage2_log": s2_val[-1:]}
     log(f"chain: {json.dumps(summary)}")
     return summary, failures
 
@@ -1801,6 +2254,13 @@ def main(argv=None) -> int:
     irn_rows, irn_failures = check_irn_train_kernels(K, dev)
     rows += irn_rows
     failures += irn_failures
+    stage2_init = build_stage2(dev)
+    s2_rows, k6_rows, k6_bwd_rows, s2_failures = check_stage2_kernels(K, dev, stage2_init)
+    for r in rows:
+        if r["name"] in ("bilinear_resize", "bilinear_resize_bwd"):
+            r["shapes"] += k6_rows if r["name"] == "bilinear_resize" else k6_bwd_rows
+    rows += s2_rows
+    failures += s2_failures
 
     # 4. stage-1 eval and 5. PRMS, on one stage-1 model and one set of batches
     model = build_stage1(dev)
@@ -1823,20 +2283,28 @@ def main(argv=None) -> int:
 
     # 8. IRN training (after IRNet's pass 1), then the user's chain from the CLIs
     irn, irn_failures = irn_train_path(K, dev)
+    torch.cuda.empty_cache()
     chain, chain_failures = cli_chain()
     failures += irn_failures + chain_failures
 
+    # 9. stage 2: training with the EMA teacher, then validate
+    stage2, stage2_failures = stage2_path(K, dev, stage2_init, batches)
+    failures += stage2_failures
+    del stage2_init
+    torch.cuda.empty_cache()
+
     # launches: on the stage-1 train path for its kernels (all but K3's eval
     # half and K4), else on the PRMS path, else on the ins-seg path, else on
-    # the IRN training path; per path beside
+    # the IRN training path, else on the stage-2 train path; per path beside
     by_shape = prms["mha_short_launches_by_shape"]
     for row in rows:
         name = row["name"]
         paths = {"stage1_eval": stage1["launches"][name], "prms": prms["launches"][name],
                  "stage1_train": train["launches"][name], "ins_seg": ins_seg["launches"][name],
-                 "irn_train": irn["launches"][name]}
+                 "irn_train": irn["launches"][name], "stage2_train": stage2["launches"][name],
+                 "stage2_eval": stage2["eval"]["launches"][name]}
         row["launches"] = (paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
-                           or paths["irn_train"])
+                           or paths["irn_train"] or paths["stage2_train"])
         row["launches_by_path"] = paths
         for sub in row["shapes"]:
             if name == "mha_short":
@@ -1848,7 +2316,7 @@ def main(argv=None) -> int:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s,
                        "kernels": rows, "stage1_eval": stage1, "prms": prms,
                        "stage1_train": train, "ins_seg": ins_seg, "irn_train": irn,
-                       "chain": chain}, f, indent=1)
+                       "chain": chain, "stage2": stage2}, f, indent=1)
     if failures:
         fail("; ".join(failures))
 

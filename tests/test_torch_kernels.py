@@ -19,8 +19,11 @@ on the walk's buckets and its banded products (squarings, the thin step,
 partial tiles). IRN training's backward kernels: K6's bilinear backward,
 K7's backward with ties planted (the gradient split evenly among them), and
 K8's fused pair labels and masked sums, forward and backward, at radius 5
-and 10, odd sizes and B=1. One test is static and runs anywhere: each
-differentiable wrapper's CUDA branch goes through its
+and 10, odd sizes and B=1. Stage 2's: K11 forward and backward at odd
+pixel counts, channel counts off the 128-channel chunk, 1 to 32 tokens and
+S > 1 pairs sharing an image's pixels; K12 over leaves of odd length, a
+0-d leaf and an integer buffer, bit for bit. One test is static and runs
+anywhere: each differentiable wrapper's CUDA branch goes through its
 ``torch.autograd.Function``.
 """
 
@@ -516,7 +519,7 @@ def test_differentiable_wrappers_apply_an_autograd_function():
     wrappers = [("mha", "mha_short"), ("cross_attn", "cross_attn"),
                 ("stage1_head", "stage1_head"), ("critic_input", "critic_input"),
                 ("resize", "bilinear_resize"), ("path_max", "path_max_affinity"),
-                ("irn_loss", "irn_loss")]
+                ("irn_loss", "irn_loss"), ("pixel_attn", "pixel_attn")]
     for mod_name, name in wrappers:
         mod = importlib.import_module(f"tris_tpu_torch.kernels.{mod_name}")
         src = inspect.getsource(getattr(mod, name))
@@ -668,3 +671,88 @@ def test_irn_training_kernels_refuse(dev):
                                    torch.zeros(5, device=dev), rf, 1e-5, 1.00001)
     with pytest.raises(ValueError, match="outside the window"):   # another radius's table
         K.irn_loss(labels, aff, dp, np.asarray(pi.search_dst) * 2, rf)
+
+
+# ---- stage 2: K11 (PixelAttention's attention) and K12 (the EMA update) -------------------
+
+
+@pytest.mark.parametrize("N,HW,C,T,S", [
+    (3, 63, 200, 20, 1),      # 7x9 pixels, channels off the 128-chunk
+    (2, 100, 2048, 20, 1),    # c4's shape
+    (2, 17, 48, 1, 3),        # one token (softmax of one logit), pairs sharing an image
+    (1, 40, 130, 32, 4),      # the most tokens, S = 4 as eval
+])
+def test_pixel_attn(randn, N, HW, C, T, S):
+    # forward within 1e-5 of the output's scale, each gradient within 1e-4
+    # of its max (dq sums over the image's S pairs), against the plain
+    # version's autograd; nothing atomic: the same gradient run to run
+    q, lk, lv = randn(N, HW, C), randn(N * S, T, C), randn(N * S, T, C)
+    K.reset_launches()
+    with torch.no_grad():
+        got, want = K.pixel_attn(q, lk, lv, S), K.pixel_attn_plain(q, lk, lv, S)
+    assert K.launches["pixel_attn"] == 1 and got.shape == (N * S, HW, C)
+    assert _err(got, want) <= 1e-5 * float(want.abs().max())
+    up = randn(N * S, HW, C)
+    g = _input_grads(lambda *x: K.pixel_attn(*x, S), q, lk, lv, upstream=up)
+    w = _input_grads(lambda *x: K.pixel_attn_plain(*x, S), q, lk, lv, upstream=up)
+    assert K.launches["pixel_attn_bwd"] == 3
+    for a, b in zip(g, w):
+        assert _err(a, b) <= 1e-4 * float(b.abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(
+        g, _input_grads(lambda *x: K.pixel_attn(*x, S), q, lk, lv, upstream=up)))
+
+
+def test_pixel_attn_saves_nothing_without_grad(randn):
+    q, lk = randn(2, 9, 64).requires_grad_(), randn(2, 20, 64)
+    with torch.no_grad():
+        out = K.pixel_attn(q, lk, lk, 1)
+    assert out.grad_fn is None
+
+
+def test_pixel_attn_refuses(randn):
+    q, lk = randn(2, 9, 64), randn(2, 33, 64)
+    with pytest.raises(ValueError, match="1 to 32 tokens"):
+        K.pixel_attn(q, lk, lk, 1)
+    with pytest.raises(ValueError, match="bad shapes"):
+        K.pixel_attn(q, lk[:, :20], lk[:, :20], 2)
+    with pytest.raises(TypeError, match="float32"):
+        K.pixel_attn(q.double(), lk[:, :20].double(), lk[:, :20].double(), 1)
+    with pytest.raises(RuntimeError):
+        K.build.ops().pixel_attn(q.cpu(), lk.cpu(), lk.cpu(), 1, 8.0)
+
+
+@pytest.mark.parametrize("decay", [0.0, 0.37003947, 0.9999])
+def test_ema_update(dev, decay):
+    # one launch over leaves of odd and chunk-straddling lengths, a 0-d leaf
+    # and an int64 buffer: float leaves bit for bit as the plain version
+    # (each product and the sum rounded alone), the integer one copied
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = [(), (1,), (7, 3), (4097,), (3, 4096 + 5), (2, 2, 3, 3)]
+    ema = [torch.randn(s, generator=g, device=dev) for s in shapes] + \
+        [torch.tensor(4, device=dev)]
+    model = [torch.randn(s, generator=g, device=dev) for s in shapes] + \
+        [torch.tensor(9, device=dev)]
+    want = [e.clone() for e in ema]
+    K.ema_update_plain(want, model, decay)
+    table = K.EmaTable(ema, model)
+    assert table.n_chunks == 1 + 1 + 1 + 2 + 4 + 1 + 1
+    K.reset_launches()
+    K.ema_update(ema, model, decay, table=table)
+    assert K.launches["ema_update"] == 1
+    for e, w in zip(ema, want):
+        assert e.dtype == w.dtype and torch.equal(e, w)
+    assert int(ema[-1]) == 9
+    if decay == 0.0:
+        assert all(torch.equal(e, p) for e, p in zip(ema, model))
+
+
+def test_ema_update_refuses(dev):
+    a = torch.zeros(3, device=dev)
+    with pytest.raises(ValueError, match="must match"):
+        K.ema_update([a], [torch.zeros(4, device=dev)], 0.5)
+    with pytest.raises(TypeError, match="float32 or int64"):
+        K.ema_update([a.double()], [a.double()], 0.5)
+    with pytest.raises(ValueError, match="teacher leaves"):
+        K.ema_update([a, a], [a], 0.5)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        K.ema_update([a], [a.cpu()], 0.5)

@@ -55,6 +55,22 @@ def test_build_stage1_defaults_to_cuda():
         build_stage1(args)
 
 
+@pytest.mark.parametrize("entry", ["build_stage2", "train_stage2", "validate_stage2"])
+def test_stage2_entry_points_default_to_cuda(entry):
+    # stage 2's builder and both CLIs go to the card unless told --device cpu
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    from tris_tpu_torch.cli import train_stage2
+    from tris_tpu_torch.cli.common import build_stage2
+
+    args = get_parser().parse_args(["--stage", "2"])
+    run = {"build_stage2": lambda: build_stage2(args),
+           "train_stage2": lambda: train_stage2.main(args),
+           "validate_stage2": lambda: cli_validate.main(args)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run()
+
+
 def test_load_pretrained_reads_a_torch_save(tmp_path):
     # --pretrain: a torch.save of the port's state_dict (the reference's
     # keys, so a released TRIS .pth too) loads strictly; other formats exit
@@ -79,7 +95,8 @@ def test_load_pretrained_reads_a_torch_save(tmp_path):
         load_pretrained(args, dst)
 
 
-@pytest.mark.parametrize("flags", [["--stage", "2"], ["--dataset", "referit"]])
+@pytest.mark.parametrize("flags", [["--dataset", "referit", "--stage", "2"],
+                                   ["--dataset", "referit"]])
 def test_cli_paths_not_yet_ported_exit(flags):
     args = get_parser().parse_args(flags + ["--device", "cpu"])
     with pytest.raises(SystemExit, match="not ported"):
@@ -107,8 +124,8 @@ def test_cli_prms_runs_and_critic_weights_parses(monkeypatch, flags):
 
 
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--multihost"], ["--profile", "trace"],
-                                   ["--ema_eval"], ["--scales", "1.0"],
-                                   ["--clip_weights", "rn50.pt"]])
+                                   ["--multihost", "--tp", "4"], ["--scales", "1.0"],
+                                   ["--profile", "steps", "--tp", "1"]])
 def test_parser_refuses_options_only_the_jax_package_has(flags, capsys):
     # accepted and ignored, they would promise what the port does not do
     with pytest.raises(SystemExit):
@@ -161,6 +178,10 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         kernels.irn_loss(torch.empty(1, 16, 16, dtype=torch.uint8, device="meta"),
                          torch.empty(1, 1, 12, 8, device="meta"),
                          torch.empty(1, 2, 16, 16, device="meta"), np.array([[0, 1]]), 4)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.pixel_attn(q, q, q, 1)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.ema_update([q], [q], 0.5)
     # nor does the walk's transition on a grid too small for K10's band build
     from tris_tpu_torch.pseudo.indexing import transition_matrix
 

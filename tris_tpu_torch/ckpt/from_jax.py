@@ -16,6 +16,11 @@ block, a layer). The inverse of ``tris_tpu/ckpt/convert*.py``:
 - LayerNorm ``<name>/ln/scale`` -> ``<name>.weight``; PReLU ``alpha`` ->
   ``weight``.
 
+``stage2_state_dict_from_flax`` adds stage 2's: ``<ConvBNRelu>/act`` ->
+``<ConvBNRelu>.relu``, ``final_segN/conv1`` / ``conv2`` -> ``final_segN.0`` /
+``.1``, and PixelAttention's Dense kernels to the reference's 1x1 convs
+(``Wk``/``Wv`` Conv1d [out, in, 1], ``Wq``/``Wm``/``Ww``/``Wo`` Conv2d).
+
 ``irnet_state_dict_from_flax`` adds IRNet's module names: ``trunk`` ->
 ``resnet50``, ``<head>_conv`` / ``<head>_gn`` -> ``<head>.0`` / ``<head>.1``,
 ``fc_dp7_conv1`` / ``fc_dp7_gn`` / ``fc_dp7_conv2`` -> ``fc_dp7.0`` / ``.1``
@@ -97,6 +102,43 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
 def stage1_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     """JAX ``TRISStage1`` variables -> this package's ``TRISStage1`` state_dict."""
     return state_dict_from_flax(variables)
+
+
+_PIXEL_ATTN_CONV = re.compile(r"attention[234]\.(W[kv]|W[qmwo])\.weight")
+
+
+def _conv_bn_relu(tree: dict) -> dict:
+    return {("relu" if k == "act" else k): v for k, v in tree.items()}
+
+
+def _stage2_tree(tree: dict) -> dict:
+    """A JAX ``TRISStage2`` collection with stage 2's module names renamed."""
+    out = {}
+    for k, v in tree.items():
+        if k.startswith("final_seg"):
+            v = {{"conv1": "0", "conv2": "1"}[sub]: (_conv_bn_relu(leaf) if sub == "conv1"
+                                                     else leaf) for sub, leaf in v.items()}
+        elif k.startswith(("reduced_c", "output")):
+            v = _conv_bn_relu(v)
+        out[k] = v
+    return out
+
+
+def stage2_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``TRISStage2`` variables -> this package's ``TRISStage2`` state_dict."""
+    sd = state_dict_from_flax({coll: _stage2_tree(dict(variables[coll]))
+                               for coll in ("params", "batch_stats") if coll in variables})
+    for k, t in sd.items():
+        m = _PIXEL_ATTN_CONV.fullmatch(k)
+        if m:
+            sd[k] = t[:, :, None] if m.group(1) in ("Wk", "Wv") else t[:, :, None, None]
+    return sd
+
+
+def stage2_grads_from_flax(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of ``TRISStage2`` params -> ``{name: tensor}``
+    under this package's parameter names and layouts."""
+    return stage2_state_dict_from_flax({"params": grads})
 
 
 _IRNET_RULES = [

@@ -1,9 +1,10 @@
 """Training checkpoints in a torch-native format, and the best-checkpoint
-bookkeeping of the stage-1 trainer.
+bookkeeping of the stage-1 and stage-2 trainers.
 
 Port of ``tris_tpu/ckpt/io.py``'s training part. A training checkpoint is a
 ``torch.save`` of ``{"model": state_dict, "optimizer", "scheduler",
-"step", "extra"}``; ``"model"`` keeps the reference TRIS keys, so
+"step", "extra"}`` (and the stage-2 EMA teacher's ``state_dict`` under
+``"ema"``); ``"model"`` keeps the reference TRIS keys, so
 ``cli/common.py::load_pretrained`` (``--pretrain``) reads the file as it is.
 Files are written to a temporary name and renamed, so a crash mid-write
 never leaves a broken checkpoint. The JAX package writes asynchronously on
@@ -27,17 +28,27 @@ from tris_tpu_torch.ckpt.convert import load_torch_checkpoint
 
 
 def save_train_checkpoint(path: str, model, optimizer, scheduler,
-                          extra: Optional[dict] = None) -> str:
+                          extra: Optional[dict] = None, ema=None) -> str:
     """Write model, optimizer and schedule state (and ``extra``, e.g. the
-    epoch) to ``path``; the step is the schedule's count."""
+    epoch, and the EMA teacher ``ema``) to ``path``; the step is the
+    schedule's count."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
                "scheduler": scheduler.state_dict(), "step": scheduler.last_epoch,
                "extra": dict(extra or {})}
+    if ema is not None:
+        payload["ema"] = ema.state_dict()
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
+
+
+def is_train_checkpoint(path: str) -> bool:
+    """Whether ``path`` is a training checkpoint (it holds an optimizer),
+    which ``--resume`` continues, rather than a plain ``state_dict``."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return isinstance(payload, dict) and "optimizer" in payload
 
 
 def load_params_only(path: str, model):
@@ -47,11 +58,13 @@ def load_params_only(path: str, model):
     return model
 
 
-def resume_train_state(path: str, model, optimizer, scheduler) -> Tuple[int, Optional[int]]:
-    """Full resume (model, optimizer, schedule) when ``path`` is a training
-    checkpoint (the reference's load_checkpoint, utils/util.py:81-96); the
-    model alone for a plain ``state_dict``. Returns ``(step, the epoch to
-    start at, or None when the file names none)``."""
+def resume_train_state(path: str, model, optimizer, scheduler,
+                       ema=None) -> Tuple[int, Optional[int]]:
+    """Full resume (model, optimizer, schedule, and the EMA teacher ``ema``
+    when the file holds one) when ``path`` is a training checkpoint (the
+    reference's load_checkpoint, utils/util.py:81-96); the model alone for a
+    plain ``state_dict``. Returns ``(step, the epoch to start at, or None
+    when the file names none)``."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(payload, dict) and "optimizer" in payload):
         load_params_only(path, model)
@@ -59,6 +72,8 @@ def resume_train_state(path: str, model, optimizer, scheduler) -> Tuple[int, Opt
     model.load_state_dict(payload["model"], strict=True)
     optimizer.load_state_dict(payload["optimizer"])
     scheduler.load_state_dict(payload["scheduler"])
+    if ema is not None and "ema" in payload:
+        ema.load_state_dict(payload["ema"], strict=True)
     epoch = payload.get("extra", {}).get("epoch")
     return int(payload["step"]), (int(epoch) + 1 if epoch is not None else None)
 

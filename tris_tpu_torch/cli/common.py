@@ -1,9 +1,9 @@
 """Shared CLI helpers: model construction, weight loading, data loaders.
 
-Port of the stage-1 parts of ``tris_tpu/cli/common.py``.
-Models live on ``args.device`` (``cuda`` unless the caller asks for
-``cpu``); random init is seeded (stage 1 from ``--seed``) without touching
-the global RNG.
+Port of ``tris_tpu/cli/common.py``. Models live on ``args.device``
+(``cuda`` unless the caller asks for ``cpu``); random init is seeded (the
+stage models from ``--seed``) without touching the global RNG, and
+``--clip_weights`` loads OpenAI's released CLIP into their backbone.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from tris_tpu_torch.config import backbone_name
 from tris_tpu_torch.device import resolve_device
 from tris_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
 from tris_tpu_torch.models.stage1 import Stage1Config, TRISStage1
+from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
 
 CRITIC_SEED = 7  # the critic's random init, fixed as in the JAX package
 
@@ -46,13 +47,9 @@ def dist_rank_world() -> Tuple[int, int]:
 
 def build_stage1(args, device=None, train: bool = False) -> TRISStage1:
     """A ``TRISStage1`` on ``device`` (default ``args.device``, else
-    ``"cuda"``), randomly initialised from ``args.seed``, in train mode
-    (BatchNorm's batch statistics) when ``train``, else in eval mode."""
-    if device is None:
-        device = getattr(args, "device", "cuda")
-    dev = resolve_device(device)
-    if getattr(args, "bf16", False):
-        raise NotImplementedError("bf16 is not ported yet: the kernels take float32")
+    ``"cuda"``), randomly initialised from ``args.seed`` (the backbone from
+    ``--clip_weights`` when given), in train mode (BatchNorm's batch
+    statistics) when ``train``, else in eval mode."""
     cfg = Stage1Config(
         backbone=backbone_name(args),
         hidden_dim=args.hidden_dim,
@@ -61,10 +58,55 @@ def build_stage1(args, device=None, train: bool = False) -> TRISStage1:
         focal_p=args.FOCAL_P,
         focal_lambda=args.FOCAL_LAMBDA,
     )
+    return _build(args, device, train, lambda: TRISStage1(cfg))
+
+
+def build_stage2(args, device=None, train: bool = False) -> TRISStage2:
+    """A ``TRISStage2`` as :func:`build_stage1` builds stage 1."""
+    cfg = Stage2Config(backbone=backbone_name(args), txt_length=args.max_query_len)
+    return _build(args, device, train, lambda: TRISStage2(cfg))
+
+
+def _build(args, device, train: bool, make):
+    if device is None:
+        device = getattr(args, "device", "cuda")
+    dev = resolve_device(device)
+    if getattr(args, "bf16", False):
+        raise NotImplementedError("bf16 is not ported yet: the kernels take float32")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = TRISStage1(cfg)
-    return model.to(dev).train(train)
+        model = make()
+    return load_clip_weights(args, model).to(dev).train(train)
+
+
+_CLIP_META = ("input_resolution", "context_length", "vocab_size")
+
+
+def load_clip_weights(args, model):
+    """``--clip_weights``: OpenAI's released CLIP (a TorchScript ``.pt`` or a
+    ``state_dict``) into ``model.backbone``, strictly (the reference builds
+    both stages on ``clip.load``; the JAX package's ``_maybe_load_clip``).
+    The release's metadata entries are dropped, and of its positional
+    embedding the first rows, at least the ``txt_length`` the text tower
+    reads, replace the model's."""
+    path = getattr(args, "clip_weights", None)
+    if not path:
+        return model
+    from tris_tpu_torch.ckpt.convert import load_torch_checkpoint
+
+    sd = {k: v for k, v in load_torch_checkpoint(path).items() if k not in _CLIP_META}
+    own = model.backbone.positional_embedding.detach().clone()
+    pe = sd.get("positional_embedding")
+    txt = model.backbone.config.txt_length
+    if pe is None or pe.shape[0] < txt or pe.shape[1] != own.shape[1]:
+        raise ValueError(f"--clip_weights {path}: positional_embedding "
+                         f"{None if pe is None else tuple(pe.shape)} does not cover "
+                         f"{txt} tokens of width {own.shape[1]}")
+    n = min(pe.shape[0], own.shape[0])
+    own[:n] = pe[:n]
+    sd["positional_embedding"] = own
+    model.backbone.load_state_dict(sd, strict=True)
+    return model
 
 
 def build_critic(args, device=None) -> CLIP:
@@ -91,10 +133,11 @@ def build_critic(args, device=None) -> CLIP:
     return critic.requires_grad_(False).to(dev).eval()
 
 
-def load_pretrained(args, model: TRISStage1) -> TRISStage1:
-    """--pretrain: a reference TRIS ``.pth`` or this package's ``torch.save``
-    of a ``state_dict`` (plain or under ``"model"``); both carry the
-    reference's keys and load with ``strict=True``."""
+def load_pretrained(args, model):
+    """--pretrain: a reference TRIS ``.pth`` (stage 1 or stage 2, as
+    ``model``) or this package's ``torch.save`` of a ``state_dict`` (plain or
+    under ``"model"``); both carry the reference's keys and load with
+    ``strict=True``."""
     path = args.pretrain
     if not path:
         return model

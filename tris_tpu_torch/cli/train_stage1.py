@@ -26,6 +26,7 @@ import numpy as np
 
 from tris_tpu_torch.ckpt.io import (
     BestCheckpointKeeper,
+    is_train_checkpoint,
     load_params_only,
     resume_train_state,
     save_train_checkpoint,
@@ -45,13 +46,6 @@ from tris_tpu_torch.train.state import create_train_state
 from tris_tpu_torch.utils.logging import MetricsWriter, create_logger
 
 
-def _is_train_checkpoint(path: str) -> bool:
-    import torch
-
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    return isinstance(payload, dict) and "optimizer" in payload
-
-
 def main(args):
     rank, _ = dist_rank_world()
     logger = create_logger(rank)
@@ -62,7 +56,7 @@ def main(args):
 
     resume_from = None
     if args.resume and args.pretrain:
-        if _is_train_checkpoint(args.pretrain) and not args.eval:
+        if is_train_checkpoint(args.pretrain) and not args.eval:
             resume_from = args.pretrain    # full resume once the optimizer exists
         else:
             load_pretrained(args, model)

@@ -1,16 +1,18 @@
-"""Stage-1 evaluation and PRMS entry point, on the card by default.
+"""Evaluation and PRMS entry point, on the card by default.
 
     python -m tris_tpu_torch.cli.validate --dataset refcoco --splitBy unc \\
         --refer_data_root ./data --test_split val --size 320 \\
-        --pretrain stage1.pth [--device cuda|cpu]
+        --pretrain stage1.pth [--stage 2] [--device cuda|cpu]
 
 PRMS CAM dump for IRNet: add ``--prms --save_cam --cam_save_dir ...
 --name_save_dir ...`` (and ``--critic_weights ViT-B-32.pt``).
 
-Port of ``tris_tpu/cli/validate.py`` for stage 1. ``--stage 2`` and
-``--dataset referit`` are not ported yet and exit with an error.
-``--fast_eval`` skips the box metrics, so that the eval reduces to
-per-sentence scalars on the card.
+Port of ``tris_tpu/cli/validate.py``. ``--stage 2`` evaluates the stage-2
+encoder-decoder (the reference switches validate.py between its two models
+by editing an import); ``--prms`` scores stage-1 maps and exits with
+``--stage 2``, as the JAX CLI does. ``--dataset referit`` is not ported yet
+and exits with an error. ``--fast_eval`` skips the box metrics, so that the
+eval reduces to per-sentence scalars on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from tris_tpu_torch.cli.common import (
     build_critic,
     build_eval_loaders,
     build_stage1,
+    build_stage2,
     dist_rank_world,
     load_pretrained,
 )
@@ -30,12 +33,13 @@ _NOT_PORTED = "is not ported to the PyTorch package yet; use tris_tpu.cli.valida
 
 
 def main(args):
-    if int(getattr(args, "stage", 1)) != 1:
-        raise SystemExit(f"--stage {args.stage} {_NOT_PORTED}")
+    stage = int(getattr(args, "stage", 1))
+    if stage == 2 and args.prms:
+        raise SystemExit("--prms scores stage-1 response maps; use --stage 1")
     if args.dataset == "referit":
         raise SystemExit(f"--dataset referit {_NOT_PORTED}")
     logger = create_logger(dist_rank_world()[0])
-    model = load_pretrained(args, build_stage1(args))
+    model = load_pretrained(args, build_stage2(args) if stage == 2 else build_stage1(args))
     critic = build_critic(args) if args.prms else None
     splits = args.test_split.split(",")
     loaders = build_eval_loaders(args, splits)

@@ -22,8 +22,6 @@ prefetch and per-process sharding (the TPU equivalent of DistributedSampler).
 from __future__ import annotations
 
 import os
-import queue
-import threading
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -31,6 +29,7 @@ import numpy as np
 from tris_tpu_torch.data.refer import REFER
 from tris_tpu_torch.data.transforms import load_transformed, resize_mask_nearest
 from tris_tpu_torch.tokenizer import tokenize
+from tris_tpu_torch.utils.threads import threaded_in_order
 
 
 class ReferSegDataset:
@@ -248,35 +247,8 @@ class Loader:
             for b in range(nb):
                 yield make_batch(b)
             return
-
-        q: "queue.Queue" = queue.Queue(maxsize=self.num_threads)
-        stop = threading.Event()
-
-        def worker(tid: int):
-            for b in range(tid, nb, self.num_threads):
-                if stop.is_set():
-                    return
-                q.put((b, make_batch(b)))
-
-        threads = [threading.Thread(target=worker, args=(t,), daemon=True) for t in range(self.num_threads)]
-        for t in threads:
-            t.start()
-        try:
-            pending = {}
-            next_b = 0
-            received = 0
-            while received < nb:
-                b, batch = q.get()
-                pending[b] = batch
-                received += 1
-                while next_b in pending:
-                    yield pending.pop(next_b)
-                    next_b += 1
-            while next_b in pending:
-                yield pending.pop(next_b)
-                next_b += 1
-        finally:
-            stop.set()
+        # a failed batch (a missing image or pseudo-mask) raises here
+        yield from threaded_in_order(make_batch, nb, self.num_threads)
 
 
 def _pow2_bucket(n: int) -> int:

@@ -156,8 +156,9 @@ def validate(
     host_threads: int = 0,
     device_resize: bool = True,
 ) -> dict:
-    """Standard (non-PRMS) evaluation of a ``TRISStage1`` over an eval-mode
-    Loader, on the device its parameters live on.
+    """Standard (non-PRMS) evaluation of a ``TRISStage1`` or ``TRISStage2``
+    (its ``response_maps``) over an eval-mode Loader, on the device its
+    parameters live on.
 
     With ``device_resize`` the original-size upsample and max-normalise run
     on the device, padded to ``loader.ds.max_orig_size()`` (a loader whose
@@ -165,12 +166,16 @@ def validate(
     (``save_cam=False, with_boxes=False``), I/U/hit reduce there too and
     only per-sentence scalars are fetched. With ``device_resize=False`` the
     host does the resize, fanning (ref, sentence) jobs over ``host_threads``
-    (0 = cpu_count)."""
+    (0 = cpu_count). With ``save_cam`` each map is saved as
+    ``{cam_save_dir}/{idx}_{j}_{img_id}.npy`` and the names json lists
+    every process's names, written by rank 0 alone."""
     model.eval()
     device = next(model.parameters()).device
     forward = make_eval_forward(model)
     acc = SegEvalAccumulator(with_boxes=with_boxes)
     cam_out_names = []
+    if save_cam and cam_save_dir:
+        os.makedirs(cam_save_dir, exist_ok=True)
     max_size = _max_orig_size(loader) if device_resize else None
     scalars_only = bool(max_size) and not save_cam and not with_boxes
     # the pool serves every non-scalars process() path: host resize matmuls
@@ -236,10 +241,11 @@ def validate(
         process(*pending)
     if pool is not None:
         pool.shutdown()
-    if save_cam and name_save_dir:
+    names, writer = _names_of_all_processes(cam_out_names)
+    if save_cam and name_save_dir and writer:
         os.makedirs(name_save_dir, exist_ok=True)
         with open(os.path.join(name_save_dir, f"{dataset_name}_train_cam_name.json"), "w") as f:
-            json.dump(cam_out_names, f)
+            json.dump(names, f)
     return acc.merge_across_processes().results()
 
 

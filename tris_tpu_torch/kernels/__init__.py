@@ -1,11 +1,11 @@
 """Hand-written Hopper kernels of the stage-1 eval, PRMS, stage-1 train,
-IRN training and IRNet instance pseudo-mask paths, each beside its plain
-PyTorch version.
+IRN training, IRNet instance pseudo-mask and stage-2 train and eval paths,
+each beside its plain PyTorch version.
 
 A wrapper launches its CUDA kernel when given CUDA tensors and uses the
 plain version when given CPU tensors; there is no other switch. On CUDA the
 differentiable ones (K1, K2, K3's training head, K5, K6's bilinear resize,
-K7 and K8) are ``torch.autograd.Function``s whose backward is a kernel too.
+K7, K8 and K11) are ``torch.autograd.Function``s whose backward is a kernel too.
 The extension is built from ``csrc/`` at the first launch (``build.py``).
 """
 
@@ -13,11 +13,13 @@ from tris_tpu_torch.kernels.build import KERNELS, build_all, launches, reset_lau
 from tris_tpu_torch.kernels.centroids import refine_centroids, refine_centroids_plain
 from tris_tpu_torch.kernels.critic_input import critic_input, critic_input_plain
 from tris_tpu_torch.kernels.cross_attn import cross_attn, cross_attn_plain
+from tris_tpu_torch.kernels.ema import EmaTable, ema_update, ema_update_plain
 from tris_tpu_torch.kernels.eval_metrics import eval_metrics, eval_metrics_plain, eval_tables
 from tris_tpu_torch.kernels.irn_loss import irn_loss, irn_loss_plain
 from tris_tpu_torch.kernels.mha import mha_short, mha_short_plain
 from tris_tpu_torch.kernels.normalize import normalize_u8_nchw, normalize_u8_nchw_plain
 from tris_tpu_torch.kernels.path_max import path_max_affinity, path_max_affinity_plain
+from tris_tpu_torch.kernels.pixel_attn import pixel_attn, pixel_attn_plain
 from tris_tpu_torch.kernels.resize import bilinear_resize, bilinear_resize_plain
 from tris_tpu_torch.kernels.response_head import response_head, response_head_plain
 from tris_tpu_torch.kernels.stage1_head import stage1_head, stage1_head_plain
@@ -33,4 +35,5 @@ __all__ = [
     "bilinear_resize", "bilinear_resize_plain", "path_max_affinity", "path_max_affinity_plain",
     "refine_centroids", "refine_centroids_plain", "walk_transition", "walk_transition_plain",
     "walk_matmul", "walk_matmul_plain", "irn_loss", "irn_loss_plain",
+    "pixel_attn", "pixel_attn_plain", "EmaTable", "ema_update", "ema_update_plain",
 ]

@@ -555,6 +555,58 @@ at::Tensor walk_matmul(const at::Tensor& a, const at::Tensor& b, int64_t band_a,
   return out;
 }
 
+// K11: q [N, HW, C]; lk, lv [N*S, T, C]. Returns G [N*S, HW, C].
+at::Tensor pixel_attn(const at::Tensor& q, const at::Tensor& lk, const at::Tensor& lv, int64_t S,
+                      double div) {
+  const at::Device dev = q.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  for (const at::Tensor* t : {&q, &lk, &lv}) check(*t, "pixel_attn", at::kFloat, dev);
+  const int64_t HW = q.size(1), C = q.size(2), P = lk.size(0), T = lk.size(1);
+  TORCH_CHECK(T <= tris::kPixelAttnMaxT, "pixel_attn: at most ", tris::kPixelAttnMaxT,
+              " tokens");
+  at::Tensor out = at::empty({P, HW, C}, q.options());
+  launched(tris::pixel_attn(q.data_ptr<float>(), lk.data_ptr<float>(), lv.data_ptr<float>(),
+                            out.data_ptr<float>(), P, HW, T, C, S, (float)div, stream()),
+           "pixel_attn");
+  return out;
+}
+
+// K11 backward: dg [N*S, HW, C] and the forward's inputs. Returns (dq, dlk, dlv).
+std::vector<at::Tensor> pixel_attn_bwd(const at::Tensor& dg, const at::Tensor& q,
+                                       const at::Tensor& lk, const at::Tensor& lv, int64_t S,
+                                       double div) {
+  const at::Device dev = q.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  for (const at::Tensor* t : {&dg, &q, &lk, &lv}) check(*t, "pixel_attn_bwd", at::kFloat, dev);
+  const int64_t HW = q.size(1), C = q.size(2), P = lk.size(0), T = lk.size(1);
+  TORCH_CHECK(T <= tris::kPixelAttnMaxT, "pixel_attn_bwd: at most ", tris::kPixelAttnMaxT,
+              " tokens");
+  at::Tensor a = at::empty({P, HW, T}, q.options()), dl = at::empty({P, HW, T}, q.options());
+  at::Tensor dq = at::empty_like(q), dlk = at::empty_like(lk), dlv = at::empty_like(lv);
+  launched(tris::pixel_attn_bwd(dg.data_ptr<float>(), q.data_ptr<float>(), lk.data_ptr<float>(),
+                                lv.data_ptr<float>(), a.data_ptr<float>(), dl.data_ptr<float>(),
+                                dq.data_ptr<float>(), dlk.data_ptr<float>(),
+                                dlv.data_ptr<float>(), P, HW, T, C, S, (float)div, stream()),
+           "pixel_attn_bwd");
+  return {dq, dlk, dlv};
+}
+
+// K12: table [L, 4] and starts [L] int64 on the card (kernels/ema.py builds them);
+// teacher := teacher * d + student * omd over every float leaf, int64 leaves copied.
+void ema_update(const at::Tensor& table, const at::Tensor& starts, int64_t n_chunks,
+                int64_t chunk, double d, double omd) {
+  const at::Device dev = table.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(table, "ema_update: table", at::kLong, dev);
+  check(starts, "ema_update: starts", at::kLong, dev);
+  TORCH_CHECK(table.dim() == 2 && table.size(1) == 4 && starts.size(0) == table.size(0),
+              "ema_update: expected a [L, 4] table and [L] chunk starts");
+  launched(tris::ema_update(reinterpret_cast<const long long*>(table.data_ptr<int64_t>()),
+                            reinterpret_cast<const long long*>(starts.data_ptr<int64_t>()),
+                            table.size(0), n_chunks, chunk, (float)d, (float)omd, stream()),
+           "ema_update");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -578,4 +630,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("refine_centroids", &refine_centroids, "K9: centroid refinement by displacement");
   m.def("walk_transition", &walk_transition, "K10: the walk's column-normalised transition");
   m.def("walk_matmul", &walk_matmul, "K10: the walk's banded products, summed in double");
+  m.def("pixel_attn", &pixel_attn, "K11: PixelAttention's pixel-word attention");
+  m.def("pixel_attn_bwd", &pixel_attn_bwd, "K11 backward: dq, dLk, dLv");
+  m.def("ema_update", &ema_update, "K12: the EMA teacher update over a leaf table");
 }

@@ -163,4 +163,23 @@ cudaError_t walk_transition(const float* aff, const int* dirs, const int* seq, i
 cudaError_t walk_matmul(const float* a, const float* b, float* c, int M, int N, int K,
                         int band_a, int band_b, cudaStream_t stream);
 
+// K11: q [P/S, HW, C]; lk, lv [P, T, C] (T <= kPixelAttnMaxT); out [P, HW, C].
+constexpr int kPixelAttnMaxT = 32;
+cudaError_t pixel_attn(const float* q, const float* lk, const float* lv, float* out, int P, int HW,
+                       int T, int C, int S, float div, cudaStream_t stream);
+
+// K11 backward: dg [P, HW, C]; q, lk, lv as the forward; scratch a and dl [P, HW, T];
+// dq [P/S, HW, C], dlk and dlv [P, T, C]. Its dq kernel takes 4 * (32 * S * T + 128 * T)
+// bytes of dynamic shared memory.
+cudaError_t pixel_attn_bwd(const float* dg, const float* q, const float* lk, const float* lv,
+                           float* a, float* dl, float* dq, float* dlk, float* dlv, int P, int HW,
+                           int T, int C, int S, float div, cudaStream_t stream);
+
+// K12: table [n_leaves, 4] of (teacher pointer, student pointer, numel, kind: 0 float32
+// lerp, 1 int64 copy); starts [n_leaves] the first chunk of each leaf, n_chunks in all,
+// `chunk` elements each. Teacher e := e * d + p * omd.
+cudaError_t ema_update(const long long* table, const long long* starts, int n_leaves,
+                       long long n_chunks, long long chunk, float d, float omd,
+                       cudaStream_t stream);
+
 }  // namespace tris

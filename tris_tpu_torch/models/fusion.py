@@ -1,11 +1,14 @@
-"""Cross-modal attention fusion: ``BilateralPrompt``.
+"""Cross-modal attention fusion: ``PixelAttention`` and ``BilateralPrompt``.
 
-Port of ``tris_tpu/models/fusion.py::BilateralPrompt`` (the reference's
-model/attn.py:68-136) in the token layout [N, HW, C]. Submodules keep the
-reference's keys (``v_proj1.0`` a 1x1 conv, ``v_proj1.1`` an InstanceNorm,
-``t_proj1.0`` a Linear, ``v_output.{0,1}``, ``t_output.0``). The two
-cross-attentions are K2 (``kernels.cross_attn``). ``PixelAttention`` comes
-with stage 2.
+Port of ``tris_tpu/models/fusion.py`` (the reference's model/attn.py) in the
+token layout [N, HW, C]. Submodules keep the reference's keys:
+
+- ``PixelAttention`` (attn.py:9-65): ``Wk``/``Wv`` 1x1 Conv1d, ``Wq``/``Wm``/
+  ``Ww``/``Wo`` 1x1 Conv2d, ``ins_q``/``ins_w`` InstanceNorms. Its
+  pixel-word attention is K11 (``kernels.pixel_attn``).
+- ``BilateralPrompt`` (attn.py:68-136): ``v_proj1.0`` a 1x1 conv,
+  ``v_proj1.1`` an InstanceNorm, ``t_proj1.0`` a Linear, ``v_output.{0,1}``,
+  ``t_output.0``. The two cross-attentions are K2 (``kernels.cross_attn``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,38 @@ from torch import nn
 
 from tris_tpu_torch import kernels
 from tris_tpu_torch.models.layers import Conv1x1, InstanceNorm2d
+
+
+class PixelAttention(nn.Module):
+    """Pixel-word attention: every pixel attends over the T language tokens.
+
+    The 1x1 projections are Dense layers on the channel axis (cuBLAS), the
+    attention K11."""
+
+    def __init__(self, visual_channel: int, language_channel: int):
+        super().__init__()
+        ci, ct = visual_channel, language_channel
+        self.Wk = Conv1x1(ct, ci, dims=1)
+        self.Wv = Conv1x1(ct, ci, dims=1)
+        self.Wq = Conv1x1(ci, ci)
+        self.Wm = Conv1x1(ci, ci)
+        self.Ww = Conv1x1(ci, ci)
+        self.Wo = Conv1x1(ci, ci)
+        self.ins_q = InstanceNorm2d(ci)
+        self.ins_w = InstanceNorm2d(ci)
+
+    def forward(self, vis: torch.Tensor, lan: torch.Tensor, S: int = 1) -> torch.Tensor:
+        """vis [N, HW, Ci] per image, lan [N*S, T, Ct] per (image, sentence)
+        pair, pair i belonging to image i // S -> [N*S, HW, Ci].
+
+        ``Wq``, ``ins_q`` and ``relu(Wm vis)`` run once per image; the
+        attention, ``Ww``, ``ins_w`` and ``Wo`` per pair: the same numbers
+        as repeating ``vis`` S times, without the S-fold work."""
+        N, HW, ci = vis.shape
+        G = kernels.pixel_attn(self.ins_q(self.Wq(vis)), self.Wk(lan), self.Wv(lan), S)
+        Gi = self.ins_w(self.Ww(G)).reshape(N, S, HW, ci)
+        Vo = torch.relu(self.Wm(vis))
+        return torch.relu(self.Wo((Vo[:, None] * Gi).reshape(N * S, HW, ci)))
 
 
 class BilateralPrompt(nn.Module):

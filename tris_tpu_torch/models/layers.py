@@ -143,12 +143,17 @@ class TorchBatchNorm(nn.Module):
     (``rsqrt`` then two products); ``F.batch_norm`` rounds differently, and
     the difference grows through 16 bottlenecks. Train: batch statistics,
     the running variance updated with the unbiased batch variance (torch's
-    rule), eps 1e-5, momentum 0.1."""
+    rule), eps 1e-5, momentum 0.1. With ``update_stats`` False a train-mode
+    forward normalises by the batch statistics and leaves the buffers as
+    they are: the stage-2 EMA teacher's (the JAX package discards the
+    statistics its teacher forward returns; its buffers move only through
+    the EMA)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -165,22 +170,27 @@ class TorchBatchNorm(nn.Module):
         n = x.numel() // x.shape[1]
         mean = xf.mean(dim=(0, 2, 3))
         var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-            self.num_batches_tracked.add_(1)
+        if self.update_stats:
+            self._update_stats(mean, var, n)
         y = (xf - mean[:, None, None]) * torch.rsqrt(var[:, None, None] + self.eps)
         return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+
+    @torch.no_grad()
+    def _update_stats(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean)
+        self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        self.num_batches_tracked.add_(1)
 
 
 class Conv1x1(nn.Module):
     """A 1x1 convolution kept in the reference's Conv2d layout (``weight``
-    [out, in, 1, 1]) and applied as a Dense layer on the channel-last axis."""
+    [out, in, 1, 1]; with ``dims=1`` its Conv1d layout [out, in, 1]) and
+    applied as a Dense layer on the channel-last axis."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, dims: int = 2):
         super().__init__()
-        conv = nn.Conv2d(in_channels, out_channels, 1)   # torch's default init
+        conv = (nn.Conv2d if dims == 2 else nn.Conv1d)(in_channels, out_channels, 1)
         self.weight = conv.weight
         self.bias = conv.bias
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from tris_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from tris_tpu_torch.utils.threads import threaded_in_order
 
 
 @dataclasses.dataclass
@@ -136,9 +137,6 @@ def irn_train_batches(cfg: PseudoConfig, names: List[str], path_index, batch_siz
     ``aff_bg_pos``, ``aff_fg_pos``, ``aff_neg`` [B, n_dirs, n_pairs] float32
     instead (about 24 MB per example at crop 512), which only the loss on
     the CPU reads. Values are the same."""
-    import queue
-    import threading
-
     from PIL import Image
 
     from tris_tpu_torch.pseudo.aug import (
@@ -191,29 +189,9 @@ def irn_train_batches(cfg: PseudoConfig, names: List[str], path_index, batch_siz
             yield make_batch(e, b)
         return
 
-    q: "queue.Queue" = queue.Queue(maxsize=num_threads)
-    stop = threading.Event()
-
-    def worker(tid: int):
-        for t in range(tid, len(tasks), num_threads):
-            if stop.is_set():
-                return
-            q.put((t, make_batch(*tasks[t])))
-
-    threads = [threading.Thread(target=worker, args=(t,), daemon=True)
-               for t in range(min(num_threads, len(tasks)))]
-    for t in threads:
-        t.start()
-    try:
-        pending, next_t = {}, 0
-        for _ in range(len(tasks)):
-            t, batch = q.get()
-            pending[t] = batch
-            while next_t in pending:
-                yield pending.pop(next_t)
-                next_t += 1
-    finally:
-        stop.set()
+    # a failed batch (a missing image or ir label) raises here
+    yield from threaded_in_order(lambda t: make_batch(*tasks[t]), len(tasks),
+                                 min(num_threads, len(tasks)))
 
 
 def calibration_images(cfg: PseudoConfig, names: List[str], batch_size: int):

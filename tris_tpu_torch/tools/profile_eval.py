@@ -1,9 +1,10 @@
 """Where the stage-1 eval forward, the PRMS step, the stage-1 train step, one
-image of IRNet's instance pseudo-mask pass or one IRN training step spends
-its time on the card.
+image of IRNet's instance pseudo-mask pass, one IRN training step or one
+stage-2 training step spends its time on the card.
 
-    python -m tris_tpu_torch.tools.profile_eval [--prms | --train | --ins_seg | --train_irn] \\
-        [--batch 8] [--sents 4] [--negatives 3] [--size 320] [--iters 5] [--out PATH]
+    python -m tris_tpu_torch.tools.profile_eval [--prms | --train | --ins_seg | --train_irn |
+        --train_stage2] [--batch 8] [--sents 4] [--negatives 3] [--size 320] [--iters 5] \\
+        [--out PATH]
 
 Builds RN50 stage 1 at full width with seeded random weights (as
 ``chip_smoke.py`` does), times ``response_maps`` on the host clock (with
@@ -16,7 +17,11 @@ pass, a seeded full-width IRNet's forward, K9, the host clustering, the
 walk, the upsample and the host detection, on a synthetic image and CAM;
 with ``--train_irn``: one IRN ``train_step`` at crop 512, radius 10 and
 ``--batch`` (24 unless given) of a seeded full-width IRNet on a synthetic
-batch, forward, K7, K8, backward and SGD update), then
+batch, forward, K7, K8, backward and SGD update; with ``--train_stage2``:
+one stage-2 ``train_step`` of seeded full-width RN50 stage 2 with the EMA
+teacher at the default gate (an update every 10 steps, after 100) and
+consistency mse on a u8 batch of ``--batch`` (48 unless given) images and
+random 0/1 pseudo-masks, student and teacher forward, backward, AdamW), then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times; one stream, so they do not overlap) and its idle share, and the
@@ -43,7 +48,9 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "vis_to_text_kernel"
                 "bilinear_resize_kernel", "bilinear_resize_bwd_kernel", "path_max_kernel",
                 "path_max_prep_kernel", "path_max_gather_kernel", "irn_loss_partial_kernel",
                 "irn_loss_final_kernel", "irn_loss_daff_kernel", "irn_loss_ddp_kernel",
-                "refine_centroids_kernel", "walk_transition_kernel", "walk_matmul_kernel")
+                "refine_centroids_kernel", "walk_transition_kernel", "walk_matmul_kernel",
+                "pixel_attn_kernel", "probs_kernel", "dq_kernel", "dkv_kernel",
+                "ema_update_kernel")
 
 
 def kernel_class(name: str) -> str:
@@ -109,6 +116,28 @@ def train_irn_step(dev, rng, batch_size=24, crop=512, radius=10):
     return lambda: train_step(model, opt, sched, path_index, batch)
 
 
+def train_stage2_step(dev, rng, batch_size=48, size=320):
+    """One stage-2 training step at full width: seeded RN50 stage 2, its EMA
+    teacher and AdamW groups as ``cli.train_stage2`` builds them, and a
+    synthetic u8 batch with random 0/1 pseudo-masks (blocks of 8 pixels)."""
+    from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
+    from tris_tpu_torch.train.stage2 import Stage2TrainConfig, batch_to_device, train_step
+    from tris_tpu_torch.train.state import create_train_state
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = TRISStage2(Stage2Config(backbone="RN50", txt_length=20)).to(dev)
+    state = create_train_state(model, total_steps=1000, stage="stage2", with_ema=True)
+    ids = np.zeros((batch_size, 20), np.int32)
+    ids[:, 0], ids[:, 1:6], ids[:, 6] = 49406, rng.integers(1, 49000, (batch_size, 5)), 49407
+    blocks = rng.random((batch_size, size // 8, size // 8, 1)) > 0.6
+    batch = batch_to_device({
+        "image": rng.integers(0, 256, (batch_size, size, size, 3), dtype=np.uint8),
+        "word_ids": ids, "pseudo": blocks.repeat(8, 1).repeat(8, 2).astype(np.float32)}, dev)
+    cfg = Stage2TrainConfig(use_ema=True)
+    return lambda: train_step(state, batch, cfg)
+
+
 def main(argv=None) -> dict:
     from tris_tpu_torch.cli.common import build_critic
     from tris_tpu_torch.config import get_parser
@@ -124,7 +153,10 @@ def main(argv=None) -> dict:
                       help="profile one 480x640 image of the instance pseudo-mask pass")
     mode.add_argument("--train_irn", action="store_true",
                       help="profile one IRN training step (crop 512, radius 10)")
-    p.add_argument("--batch", type=int, default=None, help="default 8 (24 with --train_irn)")
+    mode.add_argument("--train_stage2", action="store_true",
+                      help="profile one stage-2 training step with the EMA teacher")
+    p.add_argument("--batch", type=int, default=None,
+                   help="default 8 (24 with --train_irn, 48 with --train_stage2)")
     p.add_argument("--sents", type=int, default=4)
     p.add_argument("--negatives", type=int, default=3, help="negatives per image (--train)")
     p.add_argument("--size", type=int, default=320)
@@ -134,7 +166,7 @@ def main(argv=None) -> dict:
     if args.iters is None:
         args.iters = 1 if args.ins_seg else 5
     if args.batch is None:
-        args.batch = 24 if args.train_irn else 8
+        args.batch = 24 if args.train_irn else 48 if args.train_stage2 else 8
 
     dev = resolve_device("cuda")
     with torch.random.fork_rng(devices=[]):
@@ -151,6 +183,10 @@ def main(argv=None) -> dict:
     elif args.train_irn:
         del model
         step = train_irn_step(dev, rng, args.batch)
+        grad = True
+    elif args.train_stage2:
+        del model
+        step = train_stage2_step(dev, rng, args.batch, args.size)
         grad = True
     elif args.train:
         from tris_tpu_torch.train.stage1 import batch_to_device, train_step
@@ -205,9 +241,11 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(0),
         "step": ("train_step" if args.train else "make_prms_forward" if args.prms else
                  "ins_seg_image" if args.ins_seg else "irn_train_step" if args.train_irn else
-                 "response_maps"),
+                 "stage2_train_step" if args.train_stage2 else "response_maps"),
         "shape": ({"image": [480, 640]} if args.ins_seg else
                   {"batch": args.batch, "crop": 512, "radius": 10} if args.train_irn else
+                  {"batch": args.batch, "size": args.size, "ema": "default gate"}
+                  if args.train_stage2 else
                   {"batch": args.batch, "sents": args.sents, "size": args.size,
                    **({"negatives": args.negatives} if args.train else {})}),
         "wall_ms_per_forward": wall_ms,

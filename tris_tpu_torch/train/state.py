@@ -1,4 +1,5 @@
-"""Optimizer, parameter groups and LR schedules of the stage-1 trainer.
+"""Optimizer, parameter groups, LR schedules and the EMA teacher of the
+trainers.
 
 Port of ``tris_tpu/train/state.py`` (the reference's train_stage1.py:133-144
 recipe) in PyTorch's idiom: ``torch.optim.AdamW`` parameter groups and a
@@ -12,22 +13,31 @@ recipe) in PyTorch's idiom: ``torch.optim.AdamW`` parameter groups and a
   the same when ``scheduler.step()`` follows ``optimizer.step()``.
 - ``logit_scale`` is frozen in stage 1 (the reference puts it in no group):
   it is in no group here, so it never moves and is never decayed.
+- Stage 2 puts every backbone parameter whose name holds
+  ``positional_embedding`` (the text tower's and the attention pool's) in
+  the head group (model_stage2.py:93-103 of the reference).
 - optax's ``adamw`` decays every leaf, including those whose gradient is
   zero because the step never uses them (the attention pool's). AdamW here
   skips a parameter whose ``.grad`` is None, so :func:`apply_gradients`
   gives such parameters zero gradients first.
-
-``ema_update`` and stage 2's grouping (its positional embeddings in the
-head group) come with stage 2.
+- The stage-2 EMA teacher (``create_train_state(with_ema=True)``) is a
+  copy of the model with storage of its own, its parameters without
+  gradients and in no group, its BatchNorms normalising by batch statistics
+  without updating their buffers (those move only through the EMA).
+  :func:`ema_update` is K12 over a leaf table built once per train state.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+
+from tris_tpu_torch import kernels
+from tris_tpu_torch.models.layers import TorchBatchNorm
 
 Schedule = Callable[[int], float]
 
@@ -55,26 +65,31 @@ def poly_epoch_schedule(base_lr: float, end_lr: float, power: float, max_decay_s
     return schedule
 
 
-def label_params(model: nn.Module) -> Dict[str, str]:
-    """Each stage-1 parameter's group: ``backbone``, ``head`` or ``frozen``
-    (``_label_params`` of the JAX package, by ``named_parameters`` name)."""
+def label_params(model: nn.Module, stage: str = "stage1") -> Dict[str, str]:
+    """Each parameter's group: ``backbone``, ``head`` or ``frozen``
+    (``_label_params`` of the JAX package, by ``named_parameters`` name;
+    ``stage`` is ``"stage1"`` or ``"stage2"``)."""
     labels = {}
     for name, _ in model.named_parameters():
-        if name == "logit_scale":
+        if stage == "stage1" and name == "logit_scale":
             labels[name] = "frozen"
+        elif name.split(".")[0] == "backbone":
+            head = stage == "stage2" and "positional_embedding" in name
+            labels[name] = "head" if head else "backbone"
         else:
-            labels[name] = "backbone" if name.split(".")[0] == "backbone" else "head"
+            labels[name] = "head"
     return labels
 
 
 def make_optimizer(model: nn.Module, base_lr: float = 5e-5, lr_multi: float = 0.1,
                    weight_decay: float = 0.01, total_steps: int = 1, power: float = 0.9,
-                   schedule_factory: Optional[Callable[[float], Schedule]] = None):
+                   schedule_factory: Optional[Callable[[float], Schedule]] = None,
+                   stage: str = "stage1"):
     """``(AdamW, LambdaLR)`` over the ``backbone`` (``base_lr * lr_multi``)
     and ``head`` (``base_lr``) groups; ``frozen`` parameters are in none.
     ``schedule_factory(group_base_lr) -> schedule(step) -> lr`` replaces the
     per-step poly decay (the reference's PolynomialLRDecay branch)."""
-    labels = label_params(model)
+    labels = label_params(model, stage)
     params = dict(model.named_parameters())
     groups: List[dict] = []
     schedules: List[Schedule] = []
@@ -94,21 +109,56 @@ def make_optimizer(model: nn.Module, base_lr: float = 5e-5, lr_multi: float = 0.
 @dataclasses.dataclass
 class TrainState:
     """A model with its optimizer and LR schedule (the model holds the
-    parameters and BatchNorm's buffers that the JAX ``TrainState`` holds)."""
+    parameters and BatchNorm's buffers that the JAX ``TrainState`` holds),
+    the optimizer steps taken, and with stage 2's EMA the teacher and the
+    K12 table pairing its leaves with the model's."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
+    step: int = 0
+    ema: Optional[nn.Module] = None
+    ema_table: Optional[kernels.EmaTable] = None
+
+
+def ema_leaves(model: nn.Module) -> List[torch.Tensor]:
+    """The leaves the EMA reads or writes: every parameter, then every
+    buffer, in ``named_parameters`` / ``named_buffers`` order."""
+    return [p.data for p in model.parameters()] + list(model.buffers())
+
+
+def make_teacher(model: nn.Module) -> nn.Module:
+    """The EMA teacher: a copy of ``model`` with its own storage, its
+    parameters without gradients, its BatchNorms leaving their buffers to
+    the EMA."""
+    teacher = copy.deepcopy(model).requires_grad_(False)
+    for m in teacher.modules():
+        if isinstance(m, TorchBatchNorm):
+            m.update_stats = False
+    return teacher
 
 
 def create_train_state(model: nn.Module, total_steps: int, base_lr: float = 5e-5,
                        lr_multi: float = 0.1, weight_decay: float = 0.01,
-                       schedule_factory: Optional[Callable[[float], Schedule]] = None
-                       ) -> TrainState:
+                       schedule_factory: Optional[Callable[[float], Schedule]] = None,
+                       stage: str = "stage1", with_ema: bool = False) -> TrainState:
     optimizer, scheduler = make_optimizer(model, base_lr=base_lr, lr_multi=lr_multi,
                                           weight_decay=weight_decay, total_steps=total_steps,
-                                          schedule_factory=schedule_factory)
-    return TrainState(model, optimizer, scheduler)
+                                          schedule_factory=schedule_factory, stage=stage)
+    state = TrainState(model, optimizer, scheduler)
+    if with_ema:
+        state.ema = make_teacher(model)
+        if next(model.parameters()).is_cuda:
+            state.ema_table = kernels.EmaTable(ema_leaves(state.ema), ema_leaves(model))
+    return state
+
+
+def ema_update(state: TrainState, decay: float) -> None:
+    """The teacher's every leaf ``e * decay + p * (1 - decay)`` from the
+    model's, in place (K12 on the card, one launch over the state's table);
+    integer buffers copied."""
+    kernels.ema_update(ema_leaves(state.ema), ema_leaves(state.model), decay,
+                       table=state.ema_table)
 
 
 def apply_gradients(optimizer: torch.optim.Optimizer, scheduler) -> None:
