@@ -22,10 +22,15 @@ holds every number):
              c2, c3 and c4 for B=48 and for eval's 8 images x 4 pairs, its
              backward at the train levels; K12 over the whole stage-2 tree,
              bit for bit; K6 bilinear forward and backward at the stage-2
-             decoder's align_corners=False taps), with its stated tolerance;
+             decoder's align_corners=False taps; K10's products also on a
+             dense random operand against cuBLAS DGEMM and as the chain on a
+             closed-region edge map, with the share of k-tiles skipped, banded
+             equal to dense and skip to no skip bit for bit; K10's occupancy
+             maps), with its stated tolerance;
              device times of kernel, plain version and, where one exists, the
              one PyTorch call computing the same thing; the least time the card
-             could take (bytes or FP32 operations over the published peak);
+             could take (bytes or operations over the published peak: FP32, and
+             the FP64 tensor cores' for K10's products);
 4. stage-1 eval - RN50 stage 1 at full width (hidden 1024, 20 tokens,
              320 px, B=8 refs x S=4 sentences, seeded random weights):
              ``response_maps``, ``forward(train=False)`` and
@@ -51,8 +56,8 @@ holds every number):
              ResNet-50 IRNet) on three COCO-sized JPEGs and CAMs written to
              a temporary directory: ``run_make_ins_seg`` with the counters
              set to 0 just before and read just after (the exact launches
-             per image of K6, K7, K9 and K10's two kernels, the transition
-             and its products), then with the plain versions,
+             per image of K6, K7, K9 and K10's kernels, the transition, the
+             occupancy maps and the products), then with the plain versions,
              whose npy dicts (keys, masks, cam) must agree; each image's
              stages one by one on both routes (IRNet and K9 outputs exact,
              the walk within 1e-4 of its max) with the host time of each
@@ -129,7 +134,13 @@ INS_SEG_SIZES = ((480, 640), (427, 640), (640, 480))
 INS_SEG_ROUNDS = 3
 INS_SEG_DP_SCALE = 16.0  # the seeded IRNet's last displacement conv, scaled: a few instances
 INS_SEG_KERNELS = ("bilinear_resize", "path_max_affinity", "refine_centroids", "walk_transition",
-                   "walk_matmul")
+                   "walk_matmul", "walk_tile_occupancy")
+# the walk's products on an edge map of a few closed regions: 2-px edges at 1.0 around
+# rectangles (top, left, bottom, right, as fractions of the bucket's grid), noise up to
+# 0.02 elsewhere
+REGION_BOXES = ((0.05, 0.05, 0.45, 0.45), (0.11, 0.52, 0.88, 0.95), (0.52, 0.09, 0.95, 0.49),
+                (0.23, 0.19, 0.38, 0.38))
+REGION_NOISE = 0.02
 # phase 8: IRN training at the JAX recipe's shape (IRNTrainConfig,
 # train_irn.py:35-42 of the JAX package): crop 512, radius 10 (152
 # directions, 119x110 windows), B=24, lr 0.1 (the displacement heads 1.0),
@@ -160,7 +171,8 @@ TRAIN2_LAUNCHES_PER_STEP = {"mha_short": 24, "mha_short_bwd": 12, "normalize_u8"
 # K6 at the decoder's 3 taps and out1's upsample, the u8 feed, K4
 EVAL2_LAUNCHES_PER_BATCH = {"mha_short": 12, "pixel_attn": 3, "bilinear_resize": 4,
                             "normalize_u8": 1, "eval_metrics": 1}
-# H100 SXM published peaks: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s
+# H100 SXM published peaks: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s, which
+# is also the FP64 tensor cores' peak (67 TFLOP/s both): the rate of K10's products
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of card time queued ahead of a timed run
@@ -249,6 +261,17 @@ def sdpa(q, k, v, H, mask):
     n, _, c = q.shape
     heads = [x.view(n, x.shape[1], H, c // H).transpose(1, 2) for x in (q, k, v)]
     return F.scaled_dot_product_attention(*heads, attn_mask=mask)
+
+
+def k2_sdpa(qv, kv, vv, qt, kt, vt, S, div):
+    """K2's function as two ``F.scaled_dot_product_attention`` calls, ``Av``
+    and ``At`` of ``tris_tpu/models/fusion.py:85-89`` (timed as the library
+    call, never used by the port)."""
+    import torch.nn.functional as F
+
+    rep = (lambda x: x) if S == 1 else (lambda x: x.repeat_interleave(S, 0))  # noqa: E731
+    return (F.scaled_dot_product_attention(rep(qv), kt, vt, scale=1 / div),
+            F.scaled_dot_product_attention(qt, rep(kv), rep(vv), scale=1 / div))
 
 
 def _outs_cots(fn, inputs, cots):
@@ -387,13 +410,16 @@ def check_kernels(K, dev):
     exact_vt = bool(torch.equal(got[0], vt.expand(P, hw, m)))  # T = 1: softmax over one key is 1
     if not exact_vt:
         failures.append("cross_attn: with T = 1 the vision->text output is not exactly Vt")
+    lib = k2_sdpa(*args)
+    lib_err = max(max_err(lib[0], want[0]), max_err(lib[1], want[1]))
     rows.append(kernel_row(
         "cross_attn", "tris_tpu_torch/kernels/csrc/cross_attn.cu", "tris_tpu/models/fusion.py:78",
         measure("cross_attn", err, 1e-4,
                 device_ms(lambda: K.cross_attn(*args)), device_ms(lambda: K.cross_attn_plain(*args)),
                 4 * (3 * B * hw * m + 3 * P * m + P * hw * m + P * m),
-                2 * 2 * P * hw * 1 * m * 2, None, shape=[B, S, hw, m, 1],
-                t1_exactly_vt=exact_vt)))
+                2 * 2 * P * hw * 1 * m * 2, device_ms(lambda: k2_sdpa(*args)),
+                shape=[B, S, hw, m, 1], t1_exactly_vt=exact_vt,
+                library="two F.scaled_dot_product_attention calls", library_max_abs_err=lib_err)))
 
     # K3 at response_maps' shape: 32 pairs, D = 1024, 10x10 -> 320x320
     D = 1024
@@ -555,7 +581,8 @@ def check_train_kernels(K, dev):
         fwd_err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
         fwd = {"name": "cross_attn@train", "shape": [TRAIN_B, 1, hw, m, T], "max_abs_err": fwd_err,
                "tol": 1e-4, "ms": device_ms(lambda: K.cross_attn(*ins, 1, div)),
-               "plain_ms": device_ms(lambda: K.cross_attn_plain(*ins, 1, div))}
+               "plain_ms": device_ms(lambda: K.cross_attn_plain(*ins, 1, div)),
+               "library_ms": device_ms(lambda: k2_sdpa(*ins, 1, div))}
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(4 * (3 * TRAIN_B * hw * m + 3 * TRAIN_B * T * m
                                                      + TRAIN_B * (hw + T) * m),
                                                 8 * TRAIN_B * hw * T * m)
@@ -570,8 +597,9 @@ def check_train_kernels(K, dev):
     rows.append(row(
         "cross_attn_bwd", "tris_tpu_torch/kernels/csrc/cross_attn_bwd.cu",
         "tris_tpu/models/fusion.py:85", err, tol, bwd_ms(kern, ins, cot), bwd_ms(plain, ins, cot),
-        4 * 7 * TRAIN_B * (hw + T) * m, 16 * TRAIN_B * hw * T * m, None,
-        shape=[TRAIN_B, hw, T, m]))
+        4 * 7 * TRAIN_B * (hw + T) * m, 16 * TRAIN_B * hw * T * m,
+        bwd_ms(lambda *x: k2_sdpa(*x, 1, div), ins, cot), shape=[TRAIN_B, hw, T, m],
+        library="two F.scaled_dot_product_attention calls, backward"))
 
     # K3's training head: vis_p [48, 100, 1024], lan_p [48, 48, 1024] -> cls
     # [48, 48] and maps [48, 320, 320]; forward outputs within 1e-5 and the
@@ -706,10 +734,104 @@ def check_ins_seg_kernels(K, dev):
                 device_ms(lambda: K.walk_transition_plain(aff, dirs, H, W, woff, 10.0), n=3),
                 4 * (aff.numel() + got.numel()), 4 * H * W * 2 * len(dirs) + 2 * band_nnz,
                 None, shape=[*aff.shape, H, W], t_scale=t_scale, nonzeros=band_nnz)))
-    rows.append(check_walk_matmul(K, dev, got, transition_band(radius, W), failures))
+    rows += check_walk_matmul(K, dev, got, transition_band(radius, W), failures)
     del got
     torch.cuda.empty_cache()
+    # the same products on T from an edge map of a few closed regions
+    edge = torch.rand(H, W, generator=g, device=dev) * REGION_NOISE
+    for top, left, bottom, right in REGION_BOXES:
+        box = edge[int(top * H):int(bottom * H), int(left * W):int(right * W)]
+        box[[0, 1, -2, -1], :] = 1.0
+        box[:, [0, 1, -2, -1]] = 1.0
+    edge = F.pad(edge, (radius, radius, 0, radius), value=1.0)
+    trans = K.walk_transition(K.path_max_affinity(edge, paths, rf), dirs, H, W, woff, 10.0)
+    rows[-2]["shapes"].append(walk_chain_row(K, dev, "walk_matmul@chain_regions", trans,
+                                             transition_band(radius, W), failures))
+    del trans
+    torch.cuda.empty_cache()
     return rows, failures
+
+
+def skipped_share(K, t, band):
+    """(k-tiles the square kernel skips for empty tiles, k-tiles in the
+    band's range) of ``t @ t``, by the schedule the CPU tests emulate."""
+    from tris_tpu_torch.tools.walk_schedule import skipped_share as share
+
+    n = t.shape[0]
+    rows, cols = K.walk_tile_occupancy(t)
+    return share(rows, cols, n, n, n, band, band)
+
+
+def nonzero_products(a, b):
+    return float(((a != 0).sum(0).double() * (b != 0).sum(1).double()).sum())
+
+
+def walk_chain(mm, trans, band, x, check=None):
+    """The walk's 8 squarings and thin step through ``mm(a, b, band_a,
+    band_b)``; ``check(s, a, b, out, band)`` after each product (s = 8: the
+    thin step)."""
+    n = trans.shape[0]
+    t, b = trans, band
+    for s in range(8):
+        nxt = mm(t, t, b, b)
+        if check is not None:
+            check(s, t, t, nxt, b)
+        t, b = nxt, min(2 * b, n)
+    out = mm(x, t, None, b)
+    if check is not None:
+        check(8, x, t, out, b)
+    return out
+
+
+def walk_chain_row(K, dev, name, trans, band, failures, x=None):
+    """The chain per image on T: card time of the kernel route (occupancy
+    passes included) against the plain float64 chain (cuBLAS DGEMM) and
+    float32 ``torch.mm``, every squaring within one float32 rounding of its
+    plain version on the same input, the walk within 1e-4 of the plain
+    chain's max, the share of the band's k-tiles skipped for empty tiles.
+    Operations: 2 per product of two nonzeros, over the FP64 tensor cores'
+    peak."""
+    import torch
+
+    n = trans.shape[0]
+    if x is None:
+        x = torch.rand(16, n, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+        x = x * (torch.rand(16, 1, device=dev) > 0.3)
+    flops, skipped, in_band = [], [], []
+
+    def check(s, a, b, out, band_b):
+        flops.append(2 * nonzero_products(a, b))
+        if s == 8:
+            return
+        sk, ib = skipped_share(K, a, band_b)
+        skipped.append(sk)
+        in_band.append(ib)
+        want = K.walk_matmul_plain(a, a)
+        if not max_err(out, want) <= float(want.abs().max()) * 2.0 ** -23:
+            failures.append(f"{name}: squaring {s + 1} beyond one rounding of its plain version")
+
+    out = walk_chain(K.walk_matmul, trans, band, x, check)
+    want = walk_chain(K.walk_matmul_plain, trans, band, x)
+    rel = max_err(out, want) / max(float(want.abs().max()), 1e-30)
+    if not rel <= 1e-4:
+        failures.append(f"{name}: the walk {rel} of its max from the plain chain's (> 1e-4)")
+    del out, want
+    torch.cuda.empty_cache()
+
+    ms = device_ms(lambda: walk_chain(K.walk_matmul, trans, band, x), 1, 1)
+    plain_ms = device_ms(lambda: walk_chain(K.walk_matmul_plain, trans, band, x), 1, 1)
+    lib_ms = device_ms(lambda: walk_chain(lambda a, b, *bands: torch.mm(a, b), trans, band, x),
+                       1, 1)
+    b_ms, b_by = bound_ms(4 * (8 * 2 * n * n + n * n + x.numel() + 16 * n), sum(flops))
+    share = sum(skipped) / max(sum(in_band), 1)
+    log(f"kernel {name}: ms {ms:.2f} plain_ms {plain_ms:.2f} bound_ms {b_ms:.2f} ({b_by}) "
+        f"library_ms {lib_ms:.2f} (torch.mm, f32), {sum(flops) / 1e12:.3f} TFLOP of nonzero "
+        f"products, k-tiles skipped for empty tiles {share:.4f} "
+        f"({sum(skipped)} of {sum(in_band)}), walk vs plain {rel:.3g} of its max")
+    return {"name": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "flops": sum(flops),
+            "dense_flops": 8 * 2.0 * n ** 3 + 2.0 * 16 * n * n, "skipped_share": share,
+            "k_tiles_skipped": skipped, "k_tiles_in_band": in_band, "walk_rel_err": rel}
 
 
 def check_walk_matmul(K, dev, trans, band, failures):
@@ -718,28 +840,32 @@ def check_walk_matmul(K, dev, trans, band, failures):
     each against its plain version (a float64 product) on the same input,
     within one float32 rounding of the output's largest entry. The row: the
     last (dense) squaring; under ``shapes``: the first squaring, a half-band
-    one, the thin step and the whole chain. Operations: 2 per product of
-    two nonzeros of this T's powers."""
+    one, the thin step, a dense random positive squaring against cuBLAS
+    DGEMM (no zeros: the tensor cores alone) and the whole chain, every
+    squaring of it within one rounding of its plain version. Banded
+    equals dense and skip equals no skip bit for bit, and a rerun equals the
+    first. Operations: 2 per product of two nonzeros of this T's powers,
+    over the FP64 tensor cores' peak. A second row: the occupancy maps,
+    exact against their plain version."""
     import torch
 
     n = trans.shape[0]
 
-    def nonzero_products(a, b):
-        return float(((a != 0).sum(0).double() * (b != 0).sum(1).double()).sum())
-
-    def measure(name, a, b, band_a, band_b, flops, got, reps):
+    def measure(name, a, b, band_a, band_b, flops, got, reps, nbytes=None):
         want = K.walk_matmul_plain(a, b)
         scale = float(want.abs().max())
         err = max_err(got, want)
         del want
         lib = lambda: torch.mm(a, b)  # noqa: E731
         lib_err = max_err(lib(), K.walk_matmul_plain(a, b))
-        nbytes = 4 * ((a.numel() if a is b else a.numel() + b.numel()) + got.numel())
+        if nbytes is None:
+            nbytes = 4 * ((a.numel() if a is b else a.numel() + b.numel()) + got.numel())
         return measure_row(failures, name, err, scale * 2.0 ** -23,
                            device_ms(lambda: K.walk_matmul(a, b, band_a, band_b), *reps),
                            device_ms(lambda: K.walk_matmul_plain(a, b), *reps), nbytes, flops,
-                           device_ms(lib, *reps), shape=[list(a.shape), list(b.shape)],
-                           bands=[band_a, band_b], scale=scale, library_max_abs_err=lib_err)
+                           device_ms(lib, *reps),
+                           shape=[list(a.shape), list(b.shape)], bands=[band_a, band_b],
+                           scale=scale, library_max_abs_err=lib_err)
 
     x = torch.rand(16, n, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
     x = x * (torch.rand(16, 1, device=dev) > 0.3)
@@ -754,37 +880,72 @@ def check_walk_matmul(K, dev, trans, band, failures):
     sub = [measure("walk_matmul@sq1", trans, trans, band, band, flops[0], powers[1], (5, 3)),
            measure("walk_matmul@sq5", powers[4], powers[4], bands[4], bands[4], flops[4],
                    powers[5], (2, 1)),
+           # bytes: T read once, x and the output
            measure("walk_matmul@thin", x, powers[8], n, n, flops[8],
                    K.walk_matmul(x, powers[8], None, n), (5, 3))]
+    x64, p64 = x.double(), powers[8].double()
+    sub[-1]["dgemm_ms"] = device_ms(lambda: torch.mm(x64, p64), 5, 3)
+    log(f"kernel walk_matmul@thin: DGEMM on float64 operands {sub[-1]['dgemm_ms']:.4f} ms")
+    del x64, p64
     main = measure("walk_matmul", powers[7], powers[7], n, n, flops[7], powers[8], (2, 1))
-    # every squaring against its plain version; the chain's card time per image
-    for s in (1, 2, 3, 5, 6):
-        want = K.walk_matmul_plain(powers[s], powers[s])
-        if not max_err(powers[s + 1], want) <= float(want.abs().max()) * 2.0 ** -23:
-            failures.append(f"walk_matmul: squaring {s + 1} beyond one rounding of its plain version")
-        del want
+    # banded = dense, skip = no skip and a rerun = the first run, bit for bit
+    # (the chain's row holds every squaring to its plain version)
+    exact = {}
+    for s in (0, 4):
+        rows, cols = K.walk_tile_occupancy(powers[s])
+        exact[f"sq{s + 1}_banded_vs_dense"] = torch.equal(
+            powers[s + 1], K.walk_matmul(powers[s], powers[s]))
+        exact[f"sq{s + 1}_skip_vs_no_skip"] = torch.equal(
+            powers[s + 1], K.walk_square(powers[s], powers[s], torch.ones_like(rows),
+                                         torch.ones_like(cols), bands[s], bands[s]))
+    exact["sq8_rerun"] = torch.equal(powers[8], K.walk_matmul(powers[7], powers[7], n, n))
+    exact["thin_banded_vs_dense"] = torch.equal(K.walk_matmul(x, powers[4], None, bands[4]),
+                                                K.walk_matmul(x, powers[4]))
+    for k, ok in exact.items():
+        if not ok:
+            failures.append(f"walk_matmul: {k} not bit for bit")
+    log(f"walk_matmul bit for bit: {exact}")
+
+    # the occupancy maps of T and of a half-band power, exact; timed on T
+    occ_errs = []
+    for t in (trans, powers[4]):
+        got_maps, want_maps = K.walk_tile_occupancy(t), K.walk_tile_occupancy_plain(t)
+        occ_errs += [float((gm != wm).sum()) for gm, wm in zip(got_maps, want_maps)]
+    rows, cols = K.walk_tile_occupancy(trans)
+    occ = kernel_row(
+        "walk_tile_occupancy", "tris_tpu_torch/kernels/csrc/walk_matmul.cu",
+        "tris_tpu/pseudo/indexing.py:293",
+        measure_row(failures, "walk_tile_occupancy", max(occ_errs), 0.0,
+                    device_ms(lambda: K.walk_tile_occupancy(trans), 5, 3),
+                    device_ms(lambda: K.walk_tile_occupancy_plain(trans), 2, 1),
+                    4 * n * n + rows.numel() + cols.numel(), n * n, None,
+                    shape=[n, n], maps=[list(rows.shape), list(cols.shape)],
+                    occupied=[float(rows.float().mean()), float(cols.float().mean())]))
     del powers[1:]
     torch.cuda.empty_cache()
 
-    def chain(mm):
-        t, b = trans, band
-        for _ in range(8):
-            t = mm(t, t, b, b)
-            b = min(2 * b, n)
-        return mm(x, t, None, b)
+    # a dense random positive operand: no zero tile, no band, the tensor cores alone
+    dense = torch.rand(n, n, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    dense = dense * 0.5 + 0.5
+    dense64 = dense.double()
+    dense_flops = 2.0 * n ** 3
+    dgemm_ms = device_ms(lambda: torch.mm(dense64, dense64), 2, 1)
+    row = measure("walk_matmul@dense_random", dense, dense, n, n, dense_flops,
+                  K.walk_matmul(dense, dense), (2, 1))
+    row.update(library_f32_ms=row["library_ms"], library_ms=dgemm_ms,
+               library="torch.mm float64 (cuBLAS DGEMM)",
+               tflops=dense_flops / row["ms"] / 1e9, dgemm_tflops=dense_flops / dgemm_ms / 1e9,
+               ratio_to_dgemm=row["ms"] / dgemm_ms)
+    log(f"kernel walk_matmul@dense_random: {row['tflops']:.2f} TFLOP/s against DGEMM's "
+        f"{row['dgemm_tflops']:.2f} ({row['ms']:.2f} ms against {dgemm_ms:.2f}, "
+        f"{row['ratio_to_dgemm']:.3f}x)")
+    sub.insert(3, row)
+    del dense, dense64
+    torch.cuda.empty_cache()
 
-    chain_ms = device_ms(lambda: chain(K.walk_matmul), 1, 1)
-    chain_plain_ms = device_ms(lambda: chain(K.walk_matmul_plain), 1, 1)
-    chain_lib_ms = device_ms(lambda: chain(lambda a, b, *bands: torch.mm(a, b)), 1, 1)
-    b_ms, b_by = bound_ms(4 * (8 * 2 * n * n + n * n + x.numel() + 16 * n), sum(flops))
-    sub.append({"name": "walk_matmul@chain", "ms": chain_ms, "plain_ms": chain_plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": chain_lib_ms, "flops": sum(flops),
-                "dense_flops": 8 * 2.0 * n ** 3 + 2.0 * 16 * n * n})
-    log(f"kernel walk_matmul@chain: ms {chain_ms:.1f} plain_ms {chain_plain_ms:.1f} bound_ms "
-        f"{b_ms:.1f} ({b_by}) library_ms {chain_lib_ms:.1f} (torch.mm, f32), "
-        f"{sum(flops) / 1e12:.2f} TFLOP of nonzero products")
-    return kernel_row("walk_matmul", "tris_tpu_torch/kernels/csrc/walk_matmul.cu",
-                      "tris_tpu/pseudo/indexing.py:524", main, sub)
+    sub.append(walk_chain_row(K, dev, "walk_matmul@chain", trans, band, failures, x))
+    return [kernel_row("walk_matmul", "tris_tpu_torch/kernels/csrc/walk_matmul.cu",
+                       "tris_tpu/pseudo/indexing.py:524", main, sub), occ]
 
 
 def check_irn_train_kernels(K, dev):
@@ -1647,9 +1808,10 @@ def ins_seg_path(K, dev):
                     times[route].append(host_ms(lambda: run(f"t_{route}_{i}", names[:1])))
 
         # K6: IRNet's upsamples, the CAM and the walk's x4; K10's products:
-        # the squarings and the thin step
+        # the squarings and the thin step, and one occupancy pass a squaring
         per_image = {name: IRNet.UP_CALLS + 2 if name == "bilinear_resize" else
                      PseudoConfig.exp_times + 1 if name == "walk_matmul" else
+                     PseudoConfig.exp_times if name == "walk_tile_occupancy" else
                      (1 if name in INS_SEG_KERNELS else 0) for name in K.KERNELS}
         for name, n in per_image.items():
             if launches[name] != n * len(names):

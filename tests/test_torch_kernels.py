@@ -16,7 +16,9 @@ selected maps are here too. The IRNet path's kernels: K6's bilinear resize
 at the pass's shapes and odd ones, K7 at radius 5 and 10 and on the
 narrowest grids, K9 with centroids clamped on the edge, K10's transition
 on the walk's buckets and its banded products (squarings, the thin step,
-partial tiles). IRN training's backward kernels: K6's bilinear backward,
+partial tiles, M across the thin kernel's bound, subnormals, one nonzero per
+tile, an all-zero operand, skip against no skip) and occupancy maps. IRN
+training's backward kernels: K6's bilinear backward,
 K7's backward with ties planted (the gradient split evenly among them), and
 K8's fused pair labels and masked sums, forward and backward, at radius 5
 and 10, odd sizes and B=1. Stage 2's: K11 forward and backward at odd
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from tris_tpu_torch import kernels as K
 from tris_tpu_torch.models.layers import causal_mask
+from tris_tpu_torch.tools import walk_schedule as S
 
 pytestmark = pytest.mark.cuda
 
@@ -477,6 +480,102 @@ def test_walk_matmul(dev, M, Kd, N, band_a, band_b, signed):
         assert bool((got[off.abs() > band_a + band_b] == 0).all())
 
 
+def _rounding(got, want):
+    return _err(got, want) <= float(want.abs().max()) * 2.0 ** -23
+
+
+@pytest.mark.parametrize("M", [1, 16, 17, 32, 33])
+def test_walk_matmul_thin_boundary(dev, M):
+    # M <= 32 takes the thin kernel, M = 33 the tensor-core kernel: both
+    # within one rounding of the float64 product, banded equal to dense and
+    # the same on a rerun, bit for bit; a zero row of a stays zero
+    a = _banded(dev, M, 1024, None, 7)
+    a[M // 2] = 0.0
+    b = _banded(dev, 1024, 1000, 300, 8)
+    got = K.walk_matmul(a, b, None, 300)
+    assert got.shape == (M, 1000)
+    assert _rounding(got, K.walk_matmul_plain(a, b))
+    assert torch.equal(got, K.walk_matmul(a, b))
+    assert torch.equal(got, K.walk_matmul(a, b, None, 300))
+    assert bool((got[M // 2] == 0).all())
+
+
+@pytest.mark.parametrize("M", [16, 256])
+def test_walk_matmul_subnormal(dev, M):
+    # float32 subnormals in a and in the result are kept, not flushed:
+    # equal to the float64 product rounded once
+    a = _banded(dev, M, 512, None, 9) * 1e-41
+    b = _banded(dev, 512, 512, None, 10)
+    got = K.walk_matmul(a, b)
+    assert bool((a != 0).any()) and float(a.abs().max()) < 1.2e-38
+    assert bool((got != 0).all()) and float(got.abs().max()) < 1.2e-38
+    assert torch.equal(got, K.walk_matmul_plain(a, b))
+
+
+def _corners(dev, rows, cols, rt, ct, seed):
+    # one nonzero per rt x ct tile, at one of its four corners
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.zeros(rows, cols)
+    for i in range(0, rows, rt):
+        for k in range(0, cols, ct):
+            r = min(i + rt, rows) - 1 if torch.rand(1, generator=g) < 0.5 else i
+            c = min(k + ct, cols) - 1 if torch.rand(1, generator=g) < 0.5 else k
+            x[r, c] = 0.5 + float(torch.rand(1, generator=g))
+    return x.to(dev)
+
+
+def test_walk_matmul_tile_corners(dev):
+    # one nonzero per tile of the k-step grid, at its corners, on partial
+    # tiles (M, K, N off the 128 / 16 grid): no such product is skipped
+    a = _corners(dev, 300, 200, 128, 16, 11)
+    b = _corners(dev, 200, 260, 16, 128, 12)
+    got = K.walk_matmul(a, b)
+    assert _rounding(got, K.walk_matmul_plain(a, b))
+    assert bool((got != 0).sum() > 0)
+    rows, cols = K.walk_tile_occupancy(a)[0], K.walk_tile_occupancy(b)[1]
+    assert bool(rows.all()) and bool(cols.all())
+
+
+def test_walk_matmul_zero_operand(dev):
+    # an all-zero operand: every k-tile skipped, zeros written
+    a = torch.zeros(256, 512, device=dev)
+    b = _banded(dev, 512, 384, None, 13)
+    assert not bool(K.walk_tile_occupancy(a)[0].any())
+    assert bool((K.walk_matmul(a, b) == 0).all())
+    assert bool((K.walk_matmul(b.T.contiguous(), a.T.contiguous()) == 0).all())
+    assert bool((K.walk_matmul(a[:16], b) == 0).all())
+
+
+def test_walk_matmul_skip_is_exact(dev):
+    # T-like powers: a band that underflows to zero far from the diagonal,
+    # with whole tiles empty; skip equals no skip and banded equals dense,
+    # bit for bit, and some k-tiles are skipped
+    n = 2048
+    off = (torch.arange(n, device=dev)[None] - torch.arange(n, device=dev)[:, None]).abs()
+    t = _banded(dev, n, n, 600, 14) * (off <= 150) + _banded(dev, n, n, 600, 15) * (off > 400)
+    t = t * (off <= 600)
+    rows, cols = K.walk_tile_occupancy(t)
+    assert S.skipped_share(rows, cols, n, n, n, 600, 600)[0] > 0
+    got = K.walk_matmul(t, t, 600, 600)
+    assert _rounding(got, K.walk_matmul_plain(t, t))
+    assert torch.equal(got, K.walk_square(t, t, torch.ones_like(rows), torch.ones_like(cols),
+                                          600, 600))
+    assert torch.equal(got, K.walk_matmul(t, t))
+
+
+@pytest.mark.parametrize("R,C", [(2048, 2048), (300, 1000), (16, 20), (129, 132)])
+def test_walk_tile_occupancy(dev, R, C):
+    # exact against the plain version: random sparse entries, a corner
+    # nonzero, an all-zero operand
+    g = torch.Generator(device=dev).manual_seed(R + C)
+    x = torch.rand(R, C, generator=g, device=dev)
+    for case in (x * (x > 0.9995), torch.zeros_like(x), _corners(dev, R, C, 128, 128, R)):
+        got, want = K.walk_tile_occupancy(case), K.walk_tile_occupancy_plain(case)
+        assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+        assert [tuple(m.shape) for m in got] == [(-(-R // 128), -(-C // 16)),
+                                                 (-(-R // 16), -(-C // 128))]
+
+
 def test_irnet_kernels_refuse(dev):
     x = torch.zeros(2, 8, 8, device=dev)
     with pytest.raises(TypeError, match="float32"):
@@ -502,7 +601,12 @@ def test_irnet_kernels_refuse(dev):
     with pytest.raises(RuntimeError):
         K.build.ops().refine_centroids(x[:2].cpu(), 3)
     with pytest.raises(RuntimeError):
-        K.build.ops().walk_matmul(x[0].cpu(), x[0].cpu(), 1, 1)
+        K.build.ops().walk_thin(x[0].cpu(), x[0].cpu(), 1, 1)
+    with pytest.raises(RuntimeError):
+        K.build.ops().walk_square(x[0].cpu(), x[0].cpu(), x[0].cpu().bool(),
+                                  x[0].cpu().bool(), 1, 1)
+    with pytest.raises(RuntimeError):
+        K.build.ops().walk_tile_occupancy(x[0].cpu())
 
 
 # ---- IRN training: K6's bilinear backward, K7's backward, K8 ------------------------------

@@ -175,6 +175,10 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
     with pytest.raises(ValueError, match="expected CUDA"):
         kernels.walk_matmul(m, m, 4, 4)
     with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.walk_square(m, m, m.bool(), m.bool(), 4, 4)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.walk_tile_occupancy(m)
+    with pytest.raises(ValueError, match="expected CUDA"):
         kernels.irn_loss(torch.empty(1, 16, 16, dtype=torch.uint8, device="meta"),
                          torch.empty(1, 1, 12, 8, device="meta"),
                          torch.empty(1, 2, 16, 16, device="meta"), np.array([[0, 1]]), 4)

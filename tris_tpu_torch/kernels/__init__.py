@@ -24,7 +24,8 @@ from tris_tpu_torch.kernels.resize import bilinear_resize, bilinear_resize_plain
 from tris_tpu_torch.kernels.response_head import response_head, response_head_plain
 from tris_tpu_torch.kernels.stage1_head import stage1_head, stage1_head_plain
 from tris_tpu_torch.kernels.walk import (
-    walk_matmul, walk_matmul_plain, walk_transition, walk_transition_plain)
+    walk_matmul, walk_matmul_plain, walk_square, walk_tile_occupancy, walk_tile_occupancy_plain,
+    walk_transition, walk_transition_plain)
 
 __all__ = [
     "KERNELS", "build_all", "launches", "reset_launches",
@@ -34,6 +35,7 @@ __all__ = [
     "critic_input", "critic_input_plain", "normalize_u8_nchw", "normalize_u8_nchw_plain",
     "bilinear_resize", "bilinear_resize_plain", "path_max_affinity", "path_max_affinity_plain",
     "refine_centroids", "refine_centroids_plain", "walk_transition", "walk_transition_plain",
-    "walk_matmul", "walk_matmul_plain", "irn_loss", "irn_loss_plain",
+    "walk_matmul", "walk_matmul_plain", "walk_square", "walk_tile_occupancy",
+    "walk_tile_occupancy_plain", "irn_loss", "irn_loss_plain",
     "pixel_attn", "pixel_attn_plain", "EmaTable", "ema_update", "ema_update_plain",
 ]

@@ -533,26 +533,86 @@ at::Tensor walk_transition(const at::Tensor& aff, const at::Tensor& dirs, const 
 }
 
 // K10, the walk's products: a [M, K], b [K, N]; a zero where |k - i| > band_a, b where
-// |j - k| > band_b. Returns a @ b [M, N].
-at::Tensor walk_matmul(const at::Tensor& a, const at::Tensor& b, int64_t band_a,
-                       int64_t band_b) {
-  const at::Device dev = a.device();
-  const c10::cuda::CUDAGuard guard(dev);
-  check(a, "walk_matmul: a", at::kFloat, dev);
-  check(b, "walk_matmul: b", at::kFloat, dev);
+// |j - k| > band_b. Checks what both kernels need; returns the dense band clamped to the
+// largest size, which no offset exceeds.
+void check_products(const at::Tensor& a, const at::Tensor& b, const at::Device& dev,
+                    int64_t& band_a, int64_t& band_b) {
+  check(a, "walk products: a", at::kFloat, dev);
+  check(b, "walk products: b", at::kFloat, dev);
   TORCH_CHECK(a.dim() == 2 && b.dim() == 2 && a.size(1) == b.size(0),
-              "walk_matmul: expected [M, K] @ [K, N]");
+              "walk products: expected [M, K] @ [K, N]");
   const int64_t M = a.size(0), K = a.size(1), N = b.size(1);
-  TORCH_CHECK(K % 8 == 0 && N % 4 == 0, "walk_matmul: expected K % 8 == 0 and N % 4 == 0");
+  TORCH_CHECK(K % 8 == 0 && N % 4 == 0, "walk products: expected K % 8 == 0 and N % 4 == 0");
   TORCH_CHECK(reinterpret_cast<uintptr_t>(a.data_ptr()) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(b.data_ptr()) % 16 == 0,
-              "walk_matmul: expected 16-byte aligned operands");
-  TORCH_CHECK(band_a >= 0 && band_b >= 0, "walk_matmul: bands must be >= 0");
+              "walk products: expected 16-byte aligned operands");
+  TORCH_CHECK(band_a >= 0 && band_b >= 0, "walk products: bands must be >= 0");
+  band_a = std::min(band_a, std::max({M, N, K}));
+  band_b = std::min(band_b, std::max({M, N, K}));
+}
+
+// The FP64 tensor-core kernel with the occupancy maps of walk_tile_occupancy (bool, the rows
+// map of a and the cols map of b); it skips the k-tiles they mark empty. Returns a @ b.
+at::Tensor walk_square(const at::Tensor& a, const at::Tensor& b, const at::Tensor& occ_a,
+                       const at::Tensor& occ_b, int64_t band_a, int64_t band_b) {
+  const at::Device dev = a.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check_products(a, b, dev, band_a, band_b);
+  check(occ_a, "walk_square: occ_a", at::kBool, dev);
+  check(occ_b, "walk_square: occ_b", at::kBool, dev);
+  const int64_t M = a.size(0), K = a.size(1), N = b.size(1);
+  const int64_t tiles_m = (M + tris::kWalkTile - 1) / tris::kWalkTile;
+  const int64_t tiles_n = (N + tris::kWalkTile - 1) / tris::kWalkTile;
+  const int64_t steps = (K + tris::kWalkStep - 1) / tris::kWalkStep;
+  TORCH_CHECK(occ_a.dim() == 2 && occ_a.size(0) == tiles_m && occ_a.size(1) == steps &&
+                  occ_b.dim() == 2 && occ_b.size(0) == steps && occ_b.size(1) == tiles_n,
+              "walk_square: expected maps [", tiles_m, ", ", steps, "] and [", steps, ", ",
+              tiles_n, "], got ", occ_a.sizes(), " and ", occ_b.sizes());
+  int smem_max = 0;
+  TORCH_CHECK(cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                     dev.index()) == cudaSuccess,
+              "walk_square: cannot read the card's shared memory size");
+  TORCH_CHECK(tris::walk_square_smem(K) <= static_cast<size_t>(smem_max), "walk_square: K = ",
+              K, " needs ", tris::walk_square_smem(K), " bytes of shared memory, the card has ",
+              smem_max);
   at::Tensor out = at::empty({M, N}, a.options());
-  launched(tris::walk_matmul(a.data_ptr<float>(), b.data_ptr<float>(), out.data_ptr<float>(), M,
-                             N, K, std::min(band_a, K), std::min(band_b, K), stream()),
-           "walk_matmul");
+  launched(tris::walk_square(a.data_ptr<float>(), b.data_ptr<float>(), occ_a.data_ptr<bool>(),
+                             occ_b.data_ptr<bool>(), out.data_ptr<float>(), M, N, K, band_a,
+                             band_b, stream()),
+           "walk_square");
   return out;
+}
+
+// The thin-step kernel, which streams b once. Returns a @ b.
+at::Tensor walk_thin(const at::Tensor& a, const at::Tensor& b, int64_t band_a, int64_t band_b) {
+  const at::Device dev = a.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check_products(a, b, dev, band_a, band_b);
+  at::Tensor out = at::empty({a.size(0), b.size(1)}, a.options());
+  launched(tris::walk_thin(a.data_ptr<float>(), b.data_ptr<float>(), out.data_ptr<float>(),
+                           a.size(0), b.size(1), a.size(1), band_a, band_b, stream()),
+           "walk_thin");
+  return out;
+}
+
+// K10's occupancy maps: x [R, C] (C % 4 == 0). Returns (rows [ceil(R / kWalkTile),
+// ceil(C / kWalkStep)], cols [ceil(R / kWalkStep), ceil(C / kWalkTile)]), bool.
+std::vector<at::Tensor> walk_tile_occupancy(const at::Tensor& x) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(x, "walk_tile_occupancy: x", at::kFloat, dev);
+  TORCH_CHECK(x.dim() == 2 && x.size(1) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0,
+              "walk_tile_occupancy: expected [R, C] with C % 4 == 0, 16-byte aligned");
+  const int64_t R = x.size(0), C = x.size(1), tile = tris::kWalkTile, step = tris::kWalkStep;
+  at::Tensor rows = at::empty({(R + tile - 1) / tile, (C + step - 1) / step},
+                              x.options().dtype(at::kBool));
+  at::Tensor cols = at::empty({(R + step - 1) / step, (C + tile - 1) / tile},
+                              x.options().dtype(at::kBool));
+  launched(tris::walk_tile_occupancy(x.data_ptr<float>(), rows.data_ptr<bool>(),
+                                     cols.data_ptr<bool>(), R, C, stream()),
+           "walk_tile_occupancy");
+  return {rows, cols};
 }
 
 // K11: q [N, HW, C]; lk, lv [N*S, T, C]. Returns G [N*S, HW, C].
@@ -629,7 +689,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("irn_loss_bwd", &irn_loss_bwd, "K8 backward: d aff and d dp");
   m.def("refine_centroids", &refine_centroids, "K9: centroid refinement by displacement");
   m.def("walk_transition", &walk_transition, "K10: the walk's column-normalised transition");
-  m.def("walk_matmul", &walk_matmul, "K10: the walk's banded products, summed in double");
+  m.def("walk_square", &walk_square, "K10: the walk's squarings on the FP64 tensor cores");
+  m.def("walk_thin", &walk_thin, "K10: the walk's thin step, summed in double");
+  m.def("walk_tile_occupancy", &walk_tile_occupancy, "K10: the operands' tile occupancy maps");
   m.def("pixel_attn", &pixel_attn, "K11: PixelAttention's pixel-word attention");
   m.def("pixel_attn_bwd", &pixel_attn_bwd, "K11 backward: dq, dLk, dLv");
   m.def("ema_update", &ema_update, "K12: the EMA teacher update over a leaf table");

@@ -158,10 +158,38 @@ cudaError_t walk_transition(const float* aff, const int* dirs, const int* seq, i
                             int max_off, float beta, cudaStream_t stream);
 
 // K10, the walk's products: c [M, N] = a [M, K] @ b [K, N], summed in double; a is zero
-// where |k - i| > band_a, b where |j - k| > band_b (0 <= band <= K). K % 8 == 0, N % 4 == 0,
-// 16-byte aligned rows.
-cudaError_t walk_matmul(const float* a, const float* b, float* c, int M, int N, int K,
-                        int band_a, int band_b, cudaStream_t stream);
+// where |k - i| > band_a, b where |j - k| > band_b (0 <= band <= max(M, N, K)). K % 8 == 0,
+// N % 4 == 0, 16-byte aligned rows. Either kernel serves any M; the caller sends the thin
+// step (few rows of a) to walk_thin.
+//
+// walk_square (FP64 tensor cores): a block per kWalkTile x kWalkTile tile of c, k-tiles of
+// kWalkStep on a global grid; it skips the k-tiles where occ_a [ceil(M / kWalkTile),
+// ceil(K / kWalkStep)] or occ_b [ceil(K / kWalkStep), ceil(N / kWalkTile)] (the rows map of
+// a, the cols map of b) is false, and takes walk_square_smem(K) bytes of dynamic shared
+// memory.
+constexpr int kWalkTile = 128;
+constexpr int kWalkStep = 16;
+cudaError_t walk_square(const float* a, const float* b, const bool* occ_a, const bool* occ_b,
+                        float* c, int M, int N, int K, int band_a, int band_b,
+                        cudaStream_t stream);
+size_t walk_square_smem(int K);
+// walk_thin: a block per kWalkThinRows rows of a and kWalkThinCols columns of b; its
+// kWalkThinWarps warps take the kWalkThinChunk-row chunks of b by turns, from a multiple of
+// kWalkThinChunk * kWalkThinWarps below the band's first row, and their sums are added in
+// ascending warp.
+constexpr int kWalkThinRows = 16;
+constexpr int kWalkThinCols = 32;
+constexpr int kWalkThinChunk = 16;
+constexpr int kWalkThinWarps = 8;
+cudaError_t walk_thin(const float* a, const float* b, float* c, int M, int N, int K, int band_a,
+                      int band_b, cudaStream_t stream);
+
+// K10's occupancy maps of x [R, C] (C % 4 == 0) on walk_square's grid: rows
+// [ceil(R / kWalkTile), ceil(C / kWalkStep)] true where the kWalkTile x kWalkStep tile holds a
+// nonzero, cols [ceil(R / kWalkStep), ceil(C / kWalkTile)] the same for the kWalkStep x
+// kWalkTile tiles.
+cudaError_t walk_tile_occupancy(const float* x, bool* rows, bool* cols, int R, int C,
+                                cudaStream_t stream);
 
 // K11: q [P/S, HW, C]; lk, lv [P, T, C] (T <= kPixelAttnMaxT); out [P, HW, C].
 constexpr int kPixelAttnMaxT = 32;

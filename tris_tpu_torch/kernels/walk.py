@@ -8,8 +8,13 @@ in two kernels, each beside its plain PyTorch version:
   ``[n_dirs, ch, cw]`` in band form (``_affinity_band``), made dense
   (``_band_to_dense``), raised to ``beta`` and divided by its column sums;
 - :func:`walk_matmul` (``csrc/walk_matmul.cu``): the products after it, the
-  squarings ``T @ T`` and the thin step ``x * (1 - edge) @ T``, banded as
-  the JAX package's ``_block_banded_squarings`` and summed in float64.
+  squarings ``T @ T`` and the thin step ``x * (1 - edge) @ T``, summed in
+  float64 on the FP64 tensor cores. A squaring runs each 128 x 128 tile of
+  the output only over the k-tiles of 16 inside the band (as the JAX
+  package's ``_block_banded_squarings``) where both operands' tiles hold a
+  nonzero: :func:`walk_tile_occupancy` maps them first (T's powers round to
+  float32, and far from the diagonal they underflow to exact zeros). The
+  thin step (at most 32 rows) takes a kernel of its own that streams T once.
 
 Both sum in float64 and round once to float32, so that the result does not
 depend on the order of the sum: the walk's eight squarings amplify T's
@@ -149,6 +154,12 @@ def walk_transition(aff_grids, dirs, H: int, W: int, woff: int, beta: float):
     return out
 
 
+# K10's products: the square kernel's tile of C and k-step (``csrc/launchers.h``
+# kWalkTile, kWalkStep), on which the occupancy maps lie, and the most rows of a
+# that take the thin kernel
+TILE, STEP, THIN_ROWS = 128, 16, 32
+
+
 def walk_matmul_plain(a, b, band_a=None, band_b=None):
     """The plain version: ``a @ b`` in float64, rounded once to float32 (the
     bands only say which entries are zero)."""
@@ -156,23 +167,85 @@ def walk_matmul_plain(a, b, band_a=None, band_b=None):
     return (a64 @ (a64 if b is a else b.double())).to(torch.float32)
 
 
-def walk_matmul(a, b, band_a=None, band_b=None):
-    """K10's products on CUDA tensors (one launch); the plain version on CPU
-    tensors. a [M, K], b [K, N] float32; ``a[i, k]`` is zero where
-    ``|k - i| > band_a`` and ``b[k, j]`` where ``|j - k| > band_b`` (None:
-    dense). Returns ``a @ b`` [M, N], summed in float64 and rounded once, so
-    the result does not depend on the order of the sum: float32 sums in
-    two orders put the walk's outputs 1e-4 of their max apart."""
-    if a.device.type == "cpu":
-        return walk_matmul_plain(a, b, band_a, band_b)
+def walk_tile_occupancy_plain(x):
+    """The plain version: ``(rows, cols)``, bool: ``rows[i, k]`` whether the
+    TILE x STEP tile (i, k) of x [R, C] holds a nonzero, ``cols[k, j]`` the
+    same for the STEP x TILE tile (k, j); a tile cut by the edge counts what
+    it has."""
+    nz = x != 0
+
+    def tiles(rt, ct):
+        R, C = nz.shape
+        padded = nz.new_zeros(-(-R // rt) * rt, -(-C // ct) * ct)
+        padded[:R, :C] = nz
+        return padded.reshape(padded.shape[0] // rt, rt, -1, ct).any(3).any(1)
+
+    return tiles(TILE, STEP), tiles(STEP, TILE)
+
+
+def walk_tile_occupancy(x):
+    """K10's occupancy maps on a CUDA tensor (one launch); the plain version
+    on a CPU tensor. x [R, C] float32, C % 4 == 0."""
+    if x.device.type == "cpu":
+        return walk_tile_occupancy_plain(x)
+    build.require_cuda_f32("walk_tile_occupancy", x)
+    if x.dim() != 2 or x.shape[1] % 4:
+        raise ValueError(f"walk_tile_occupancy: bad shape {tuple(x.shape)} (needs [R, C], "
+                         f"C % 4 == 0)")
+    rows, cols = build.ops().walk_tile_occupancy(x.contiguous())
+    build.count("walk_tile_occupancy")
+    return rows, cols
+
+
+def _check_products(a, b):
     build.require_cuda_f32("walk_matmul", a, b)
     if (a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] or a.shape[1] % 8
             or b.shape[1] % 4):
         raise ValueError(f"walk_matmul: bad shapes {tuple(a.shape)} @ {tuple(b.shape)} "
                          f"(needs [M, K] @ [K, N], K % 8 == 0, N % 4 == 0)")
-    n = a.shape[1]
-    out = build.ops().walk_matmul(a.contiguous(), b.contiguous(),
-                                  n if band_a is None else int(band_a),
-                                  n if band_b is None else int(band_b))
+
+
+def _bands(a, b, band_a, band_b):
+    """The bands as ints; None (dense) is the largest size, which no offset exceeds."""
+    dense = max(a.shape[0], a.shape[1], b.shape[1])
+    return tuple(dense if band is None else int(band) for band in (band_a, band_b))
+
+
+def walk_square(a, b, occ_a, occ_b, band_a=None, band_b=None):
+    """The square kernel on CUDA tensors (one launch) with the occupancy
+    maps given: ``occ_a`` the rows map of a, ``occ_b`` the cols map of b
+    (:func:`walk_tile_occupancy`; all true runs every k-tile of the band);
+    the plain version on CPU tensors (the maps, as the bands, only say
+    where the products are zero)."""
+    if a.device.type == "cpu":
+        return walk_matmul_plain(a, b, band_a, band_b)
+    _check_products(a, b)
+    out = build.ops().walk_square(a.contiguous(), b.contiguous(), occ_a.contiguous(),
+                                  occ_b.contiguous(), *_bands(a, b, band_a, band_b))
     build.count("walk_matmul")
     return out
+
+
+def walk_matmul(a, b, band_a=None, band_b=None):
+    """K10's products on CUDA tensors; the plain version on CPU tensors.
+    a [M, K], b [K, N] float32; ``a[i, k]`` is zero where ``|k - i| >
+    band_a`` and ``b[k, j]`` where ``|j - k| > band_b`` (None: dense).
+    Returns ``a @ b`` [M, N], summed in float64 and rounded once, so the
+    result does not depend on the order of the sum: float32 sums in two
+    orders put the walk's outputs 1e-4 of their max apart. M <= THIN_ROWS
+    (the thin step) takes the thin kernel (one launch); larger M the FP64
+    tensor-core kernel (one launch, :func:`walk_square`), which skips the
+    k-tiles that :func:`walk_tile_occupancy` finds empty (one launch of it
+    for a square ``walk_matmul(t, t)``, two otherwise)."""
+    if a.device.type == "cpu":
+        return walk_matmul_plain(a, b, band_a, band_b)
+    _check_products(a, b)
+    if a.shape[0] <= THIN_ROWS:
+        out = build.ops().walk_thin(a.contiguous(), b.contiguous(),
+                                    *_bands(a, b, band_a, band_b))
+        build.count("walk_matmul")
+        return out
+    occ_a, occ_b = walk_tile_occupancy(a)
+    if b is not a:
+        occ_b = walk_tile_occupancy(b)[1]
+    return walk_square(a, b, occ_a, occ_b, band_a, band_b)

@@ -48,7 +48,8 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "vis_to_text_kernel"
                 "bilinear_resize_kernel", "bilinear_resize_bwd_kernel", "path_max_kernel",
                 "path_max_prep_kernel", "path_max_gather_kernel", "irn_loss_partial_kernel",
                 "irn_loss_final_kernel", "irn_loss_daff_kernel", "irn_loss_ddp_kernel",
-                "refine_centroids_kernel", "walk_transition_kernel", "walk_matmul_kernel",
+                "refine_centroids_kernel", "walk_transition_kernel", "walk_square_kernel",
+                "walk_thin_kernel", "walk_tile_occupancy_kernel",
                 "pixel_attn_kernel", "probs_kernel", "dq_kernel", "dkv_kernel",
                 "ema_update_kernel")
 
