@@ -15,10 +15,12 @@ holds every number):
              the main paths' shapes (K1 at the text towers', the ViT
              critic's and attnpool's; K4 at stage-1 eval's and on PRMS's
              selected maps; the backward kernels and K3's training head at
-             the stage-1 train step's; K6's bilinear half, K7, K9 and K10 at
-             a 480x640 image's IRNet pass; K6's bilinear backward, K7's
-             backward (ties planted) and K8 forward and backward at IRN
-             training's B=24, crop 512, radius 10; K11 forward at stage 2's
+             the stage-1 train step's, K2's backward twice, bit for bit, and
+             with K1's and K2's forward-plus-backward times; K6's bilinear
+             half, K7, K9 and K10 at a 480x640 image's IRNet pass; K6's
+             bilinear backward, K7's backward (ties planted) and K8
+             forward and backward at IRN training's B=24, crop 512,
+             radius 10; K11 forward at stage 2's
              c2, c3 and c4 for B=48 and for eval's 8 images x 4 pairs, its
              backward at the train levels; K12 over the whole stage-2 tree,
              bit for bit; K6 bilinear forward and backward at the stage-2
@@ -121,9 +123,9 @@ EVAL_KERNELS = ("mha_short", "cross_attn", "response_head", "eval_metrics", "nor
 TRAIN_B, TRAIN_NEG, TRAIN_STEPS, N_TRAIN_BATCHES = 48, 3, 3, 4
 # kernel launches per train step at that shape: K1 forward in the stage-1
 # text tower, the critic's vision tower and its text tower (12 layers each),
-# its backward in the first two; K2 2 + 4; K3's head 3 + 4; K5 1 + 2; K6 1
-TRAIN_LAUNCHES_PER_STEP = {"mha_short": 36, "mha_short_bwd": 24, "cross_attn": 2,
-                           "cross_attn_bwd": 4, "stage1_head": 3, "stage1_head_bwd": 4,
+# its backward in the first two; K2 1 + 2; K3's head 3 + 4; K5 1 + 2; K6 1
+TRAIN_LAUNCHES_PER_STEP = {"mha_short": 36, "mha_short_bwd": 24, "cross_attn": 1,
+                           "cross_attn_bwd": 2, "stage1_head": 3, "stage1_head_bwd": 4,
                            "critic_input": 1, "critic_input_bwd": 2, "normalize_u8": 1,
                            "response_head": 0, "eval_metrics": 0}
 # phase 7: IRNet's instance pseudo-masks on COCO-sized originals (each grid
@@ -274,6 +276,14 @@ def k2_sdpa(qv, kv, vv, qt, kt, vt, S, div):
             F.scaled_dot_product_attention(qt, rep(kv), rep(vv), scale=1 / div))
 
 
+def k2_launch_shapes(*launches):
+    """The grid of K2's last launch of each name, as its launcher gave it to
+    CUDA: blocks, blocks a cluster, threads, query rows a tile, shared memory."""
+    from tris_tpu_torch import kernels as K
+
+    return {"launch_shape": {k: K.cross_attn_launch_shape(k) for k in launches}}
+
+
 def _outs_cots(fn, inputs, cots):
     """``fn(*inputs)``'s outputs that have a cotangent, and those cotangents."""
     outs = fn(*inputs)
@@ -419,7 +429,8 @@ def check_kernels(K, dev):
                 4 * (3 * B * hw * m + 3 * P * m + P * hw * m + P * m),
                 2 * 2 * P * hw * 1 * m * 2, device_ms(lambda: k2_sdpa(*args)),
                 shape=[B, S, hw, m, 1], t1_exactly_vt=exact_vt,
-                library="two F.scaled_dot_product_attention calls", library_max_abs_err=lib_err)))
+                library="two F.scaled_dot_product_attention calls", library_max_abs_err=lib_err,
+                **k2_launch_shapes("cross_attn"))))
 
     # K3 at response_maps' shape: 32 pairs, D = 1024, 10x10 -> 320x320
     D = 1024
@@ -582,24 +593,36 @@ def check_train_kernels(K, dev):
         fwd = {"name": "cross_attn@train", "shape": [TRAIN_B, 1, hw, m, T], "max_abs_err": fwd_err,
                "tol": 1e-4, "ms": device_ms(lambda: K.cross_attn(*ins, 1, div)),
                "plain_ms": device_ms(lambda: K.cross_attn_plain(*ins, 1, div)),
-               "library_ms": device_ms(lambda: k2_sdpa(*ins, 1, div))}
+               "library_ms": device_ms(lambda: k2_sdpa(*ins, 1, div)),
+               **k2_launch_shapes("cross_attn")}
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(4 * (3 * TRAIN_B * hw * m + 3 * TRAIN_B * T * m
                                                      + TRAIN_B * (hw + T) * m),
                                                 8 * TRAIN_B * hw * T * m)
     if not fwd_err <= 1e-4:
         failures.append(f"cross_attn@train: max_abs_err {fwd_err} > 1e-4")
-    log(f"kernel cross_attn@train: {json.dumps(fwd)}")
     extra_rows["cross_attn"] = fwd
     cot = [randn(TRAIN_B, hw, m), randn(TRAIN_B, T, m)]
     kern = lambda *x: K.cross_attn(*x, 1, div)  # noqa: E731
     plain = lambda *x: K.cross_attn_plain(*x, 1, div)  # noqa: E731
+    lib = lambda *x: k2_sdpa(*x, 1, div)  # noqa: E731
     err, tol, _ = compare("cross_attn_bwd", kern, plain, ins, cot, 1e-4)
+    # no atomics, every sum in a fixed order: a second backward is the first bit for bit
+    bitwise = all(bool(torch.equal(a, b)) for a, b in
+                  zip(input_grads(kern, ins, cot), input_grads(kern, ins, cot)))
+    if not bitwise:
+        failures.append("cross_attn_bwd: two runs differ")
+    fwd_bwd = {"fwd_bwd_ms": fwd_bwd_ms(kern, ins, cot),
+               "plain_fwd_bwd_ms": fwd_bwd_ms(plain, ins, cot),
+               "library_fwd_bwd_ms": fwd_bwd_ms(lib, ins, cot)}
+    fwd.update(fwd_bwd)
+    log(f"kernel cross_attn@train: {json.dumps(fwd)}")
     rows.append(row(
         "cross_attn_bwd", "tris_tpu_torch/kernels/csrc/cross_attn_bwd.cu",
         "tris_tpu/models/fusion.py:85", err, tol, bwd_ms(kern, ins, cot), bwd_ms(plain, ins, cot),
-        4 * 7 * TRAIN_B * (hw + T) * m, 16 * TRAIN_B * hw * T * m,
-        bwd_ms(lambda *x: k2_sdpa(*x, 1, div), ins, cot), shape=[TRAIN_B, hw, T, m],
-        library="two F.scaled_dot_product_attention calls, backward"))
+        4 * 7 * TRAIN_B * (hw + T) * m, 16 * TRAIN_B * hw * T * m, bwd_ms(lib, ins, cot),
+        shape=[TRAIN_B, hw, T, m], library="two F.scaled_dot_product_attention calls, backward",
+        bit_for_bit_run_to_run=bitwise, **fwd_bwd,
+        **k2_launch_shapes("cross_attn_bwd_a", "cross_attn_bwd_b")))
 
     # K3's training head: vis_p [48, 100, 1024], lan_p [48, 48, 1024] -> cls
     # [48, 48] and maps [48, 320, 320]; forward outputs within 1e-5 and the

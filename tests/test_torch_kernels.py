@@ -11,7 +11,10 @@ machine need not have.)
 Shapes are small but cover the edges the main path does not: the longest
 sequence K1 takes, several text tokens in K2, K3 without the fusion, ties in
 K4's peak, K5 at equal sizes (identity taps), K6 on odd shapes, and the
-inputs every wrapper refuses. K1 at the critic's L = 50 and K4 on PRMS's
+inputs every wrapper refuses. K2 also at its tiles' edges (HW and T
+across 32-row tiles and 32-key slots up to the 256 keys a tile holds, S > 1,
+channel slices cut short), beyond its limits, and bit for bit from run to
+run in the backward. K1 at the critic's L = 50 and K4 on PRMS's
 selected maps are here too. The IRNet path's kernels: K6's bilinear resize
 at the pass's shapes and odd ones, K7 at radius 5 and 10 and on the
 narrowest grids, K9 with centroids clamped on the edge, K10's transition
@@ -87,19 +90,65 @@ def test_mha_short_refuses(randn):
         K.mha_short(q.bfloat16(), q.bfloat16(), q.bfloat16(), 1)
 
 
-@pytest.mark.parametrize("T,S", [(1, 4), (3, 2), (8, 1)])
-def test_cross_attn(randn, T, S):
-    # 1e-5 against float64 on relu'd inputs (logits of O(10))
-    n, hw, m = 2, 100, 256
-    qv, kv, vv = (torch.relu(randn(n, hw, m)) for _ in range(3))
-    qt, kt, vt = (torch.relu(randn(n * S, T, m)) for _ in range(3))
+@pytest.mark.parametrize("N,S,hw,T,m", [
+    (2, 4, 100, 1, 256), (2, 2, 100, 3, 256), (2, 1, 100, 8, 256),
+    (2, 1, 37, 5, 256), (2, 1, 100, 48, 1024), (1, 2, 129, 33, 256), (2, 4, 100, 70, 256),
+    (2, 4, 129, 1, 1024), (1, 2, 37, 70, 1000), (1, 1, 256, 33, 96), (2, 2, 100, 48, 1024),
+    (1, 1, 300, 5, 256), (1, 2, 37, 260, 1024), (1, 1, 513, 3, 96), (1, 4, 600, 1, 256)])
+def test_cross_attn(randn, N, S, hw, T, m):
+    # 1e-5 against float64 on relu'd inputs (logits of O(10)), one launch, at
+    # the tiles' edges: HW and T across the 32-row tiles and 32-key slots,
+    # and past a 256-key block (300, 260, 513: a last block of one key), S >
+    # 1 pairs sharing their image's keys, m = 256 (one slice), 1024 (a
+    # cluster of 4), 1000 and 96 (a slice cut short)
+    qv, kv, vv = (torch.relu(randn(N, hw, m)) for _ in range(3))
+    qt, kt, vt = (torch.relu(randn(N * S, T, m)) for _ in range(3))
     args = (qv, kv, vv, qt, kt, vt, S, math.sqrt(m))
+    K.reset_launches()
     got = K.cross_attn(*args)
+    torch.cuda.synchronize()
+    assert K.launches["cross_attn"] == 1
     want = K.cross_attn_plain(*(a.double() for a in args[:6]), S, math.sqrt(m))
     for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
         assert _err(g, w) <= 1e-5
     if T == 1:   # a softmax over one key is exactly 1: the output is Vt
-        assert torch.equal(got[0], vt.expand(n * S, hw, m))
+        assert torch.equal(got[0], vt.expand(N * S, hw, m))
+
+
+@pytest.mark.parametrize("N,S,hw,T,m", [(48, 1, 100, 48, 1024), (8, 4, 100, 1, 1024),
+                                        (1, 2, 37, 260, 1000)])
+def test_cross_attn_launches_the_schedules_grid(randn, N, S, hw, T, m):
+    # the grids the launchers made are those tools/cross_attn_schedule.py
+    # emulates (the CPU tests' tile map): the paths' shapes and one past a key block
+    from tris_tpu_torch.tools.cross_attn_schedule import block_counts
+
+    want = block_counts(N, S, hw, T, m)
+    ins = [randn(N, hw, m).requires_grad_() for _ in range(3)] + \
+          [randn(N * S, T, m).requires_grad_() for _ in range(3)]
+    with torch.set_grad_enabled(S == 1):
+        out = K.cross_attn(*ins, S, math.sqrt(m))
+    launches = ["cross_attn"]
+    if S == 1:
+        torch.autograd.grad(out, ins, [torch.ones_like(o) for o in out])
+        launches += ["cross_attn_bwd_a", "cross_attn_bwd_b"]
+    for name in launches:
+        shape = K.cross_attn_launch_shape(name)
+        assert shape["blocks"] == want[name], name
+        assert shape["tile_rows"] == want["rows_per_tile"]
+        assert shape["cluster"] == (1 if name == "cross_attn_bwd_b" else want["cluster"])
+
+
+def test_cross_attn_refuses_widths_beyond_its_tiles(randn):
+    # m a multiple of 4 up to 2048 (a cluster of 8 slices of 256); HW and T
+    # have no limit
+    def call(m):
+        v, t = randn(1, 10, m), randn(1, 4, m)
+        return K.cross_attn(v, v, v, t, t, t, 1, 8.0)
+
+    for m in (66, 2052):
+        with pytest.raises(ValueError, match=f"do not take m = {m}"):
+            call(m)
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -259,12 +308,14 @@ def test_mha_short_saves_nothing_without_grad(randn):
     assert K.mha_short(q.detach(), q.detach(), q.detach(), 1).grad_fn is None
 
 
-@pytest.mark.parametrize("T,hw", [(1, 100), (48, 100), (5, 37)])
-def test_cross_attn_bwd(randn, T, hw):
+@pytest.mark.parametrize("n,T,hw,m", [
+    (3, 1, 100, 256), (3, 48, 100, 256), (3, 5, 37, 256),
+    (2, 33, 129, 1024), (3, 70, 37, 256), (2, 48, 100, 1024), (1, 5, 256, 96), (2, 1, 37, 1000),
+    (1, 5, 300, 256), (1, 260, 37, 1024), (1, 3, 513, 96)])
+def test_cross_attn_bwd(randn, n, T, hw, m):
     # all six input gradients against autograd of the plain version in
-    # float64, within 1e-5 of each gradient's scale; T = 1 and HW = 37 (not
-    # a multiple of 32) are the edges
-    n, m = 3, 256
+    # float64, within 1e-5 of each gradient's scale, at the tiles' edges (see
+    # test_cross_attn): T = 1, HW and T across a tile and past a key block
     ins = _leaves(*(torch.relu(randn(n, hw, m)) for _ in range(3)),
                   *(torch.relu(randn(n, T, m)) for _ in range(3)))
     cot = [randn(n, hw, m), randn(n, T, m)]
@@ -272,7 +323,23 @@ def test_cross_attn_bwd(randn, T, hw):
     want = _grads(lambda *x: K.cross_attn_plain(*x, 1, math.sqrt(m)), _leaves(*ins, double=True),
                   [c.double() for c in cot])
     for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
         assert _err(a, b) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+def test_cross_attn_bwd_is_the_same_run_to_run(randn):
+    # no atomics and a fixed order of every sum: two backward runs at the
+    # train step's shape (fewer images) agree bit for bit; two launches
+    n, hw, T, m = 6, 100, 48, 1024
+    ins = _leaves(*(torch.relu(randn(n, hw, m)) for _ in range(3)),
+                  *(torch.relu(randn(n, T, m)) for _ in range(3)))
+    cot = [randn(n, hw, m), randn(n, T, m)]
+    K.reset_launches()
+    first = _grads(lambda *x: K.cross_attn(*x, 1, math.sqrt(m)), ins, cot)
+    second = _grads(lambda *x: K.cross_attn(*x, 1, math.sqrt(m)), ins, cot)
+    assert K.launches["cross_attn"] == 2 and K.launches["cross_attn_bwd"] == 4
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_cross_attn_bwd_refuses_several_sentences(randn):

@@ -12,7 +12,7 @@ The extension is built from ``csrc/`` at the first launch (``build.py``).
 from tris_tpu_torch.kernels.build import KERNELS, build_all, launches, reset_launches
 from tris_tpu_torch.kernels.centroids import refine_centroids, refine_centroids_plain
 from tris_tpu_torch.kernels.critic_input import critic_input, critic_input_plain
-from tris_tpu_torch.kernels.cross_attn import cross_attn, cross_attn_plain
+from tris_tpu_torch.kernels.cross_attn import cross_attn, cross_attn_launch_shape, cross_attn_plain
 from tris_tpu_torch.kernels.ema import EmaTable, ema_update, ema_update_plain
 from tris_tpu_torch.kernels.eval_metrics import eval_metrics, eval_metrics_plain, eval_tables
 from tris_tpu_torch.kernels.irn_loss import irn_loss, irn_loss_plain
@@ -29,7 +29,7 @@ from tris_tpu_torch.kernels.walk import (
 
 __all__ = [
     "KERNELS", "build_all", "launches", "reset_launches",
-    "mha_short", "mha_short_plain", "cross_attn", "cross_attn_plain",
+    "mha_short", "mha_short_plain", "cross_attn", "cross_attn_plain", "cross_attn_launch_shape",
     "response_head", "response_head_plain", "stage1_head", "stage1_head_plain",
     "eval_metrics", "eval_metrics_plain", "eval_tables",
     "critic_input", "critic_input_plain", "normalize_u8_nchw", "normalize_u8_nchw_plain",

@@ -7,7 +7,8 @@ projections ``qv, kv, vv`` are per image ``[N, HW, m]``; the text ones
 ``qt, kt, vt`` per pair ``[N*S, T, m]``, pair ``i`` belonging to image
 ``i // S``. Returns ``(new_vis [N*S, HW, m], new_lan [N*S, T, m])`` before
 the output projections. On CUDA tensors it is a ``torch.autograd.Function``
-whose backward is the hand-written kernel, for one sentence per image
+whose backward is the hand-written kernel (with the probabilities the
+forward kept, [N, HW, T] and [N, T, HW]), for one sentence per image
 (S = 1, training's shape): with S > 1 a pair's gradient would have to be
 summed into its image's, and no path differentiates ``response_maps``, so
 the wrapper refuses it.
@@ -36,24 +37,36 @@ def cross_attn_plain(qv, kv, vv, qt, kt, vt, S: int, div: float):
 class _CrossAttn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qv, kv, vv, qt, kt, vt, S, div, save):
-        new_vis, new_lan = build.ops().cross_attn(qv, kv, vv, qt, kt, vt, S, div)
-        build.count("cross_attn", n=2)
+        # with save, the kernel also writes the probabilities the backward needs
+        outs = build.ops().cross_attn(qv, kv, vv, qt, kt, vt, S, div, save)
+        build.count("cross_attn")
         ctx.div = div
         if save:  # nothing is kept when no input needs a gradient
-            ctx.save_for_backward(qv, kv, vv, qt, kt, vt)
-        return new_vis, new_lan
+            ctx.save_for_backward(qv, kv, vv, qt, kt, vt, *outs[2:])
+        return outs[0], outs[1]
 
     @staticmethod
     def backward(ctx, g_vis, g_lan):
         grads = build.ops().cross_attn_bwd(g_vis.contiguous(), g_lan.contiguous(),
                                            *ctx.saved_tensors, ctx.div)
-        build.count("cross_attn_bwd", n=4)
+        build.count("cross_attn_bwd", n=2)
         return (*grads, None, None, None)
 
 
+def cross_attn_launch_shape(name: str) -> dict:
+    """The grid of the last launch of K2's ``name`` (``cross_attn``,
+    ``cross_attn_bwd_a`` or ``cross_attn_bwd_b``, the backward's two passes)
+    on the card, as its launcher made it: ``blocks``, ``cluster`` (blocks a
+    cluster), ``threads``, ``tile_rows`` (query rows a tile) and
+    ``smem_bytes``."""
+    return dict(build.ops().cross_attn_launch_shape(name))
+
+
 def cross_attn(qv, kv, vv, qt, kt, vt, S: int, div: float):
-    """K2 on CUDA tensors (two launches forward, four backward); the plain
-    version on CPU tensors."""
+    """K2 on CUDA tensors (one launch forward, two backward); the plain
+    version on CPU tensors. The kernels take any HW and T, and m a positive
+    multiple of 4 up to 2048 (``csrc/launchers.h::cross_attn_takes``, which
+    the extension asks): another m raises ``ValueError``."""
     if qv.device.type == "cpu":
         return cross_attn_plain(qv, kv, vv, qt, kt, vt, S, div)
     build.require_cuda_f32("cross_attn", qv, kv, vv, qt, kt, vt)
@@ -62,14 +75,12 @@ def cross_attn(qv, kv, vv, qt, kt, vt, S: int, div: float):
     if P != N * S or kv.shape != qv.shape or vv.shape != qv.shape or \
             kt.shape != qt.shape or vt.shape != qt.shape or qt.shape[2] != m:
         raise ValueError(f"cross_attn: bad shapes qv{tuple(qv.shape)} qt{tuple(qt.shape)} S={S}")
-    if 4 * (m + HW + 32) > build.MAX_SMEM or 4 * T > build.MAX_SMEM:
-        raise ValueError(f"cross_attn: m + HW = {m + HW} and T = {T} must fit shared memory")
+    if not build.ops().cross_attn_takes(m):
+        raise ValueError(f"cross_attn: the kernels do not take m = {m} "
+                         f"(csrc/launchers.h::cross_attn_takes)")
     inputs = (qv, kv, vv, qt, kt, vt)
     save = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
     if save and S != 1:
         raise ValueError(f"cross_attn: the backward takes one sentence per image (S = 1), "
                          f"got S = {S}; run S > 1 without gradients")
-    if save and 4 * 8 * (m + max(HW, T)) > build.MAX_SMEM:
-        raise ValueError(f"cross_attn: the backward's tiles of m = {m} channels must fit "
-                         f"shared memory")
     return _CrossAttn.apply(*(x.contiguous() for x in inputs), S, float(div), save)

@@ -6,6 +6,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <map>
 #include <optional>
 #include <string>
 #include <vector>
@@ -66,6 +67,9 @@ void launched(cudaError_t err, const char* name) {
 
 cudaStream_t stream() { return at::cuda::getCurrentCUDAStream().stream(); }
 
+// The shape of the last launch of each of K2's kernels, as its launcher made it.
+std::map<std::string, tris::LaunchShape> k2_shapes;
+
 template <typename T>
 T* ptr(const std::optional<at::Tensor>& t) {
   return t ? t->data_ptr<T>() : nullptr;
@@ -118,52 +122,80 @@ std::vector<at::Tensor> mha_short_bwd(const at::Tensor& dout, const at::Tensor& 
 }
 
 // K2: qv, kv, vv [N, HW, m]; qt, kt, vt [N*S, T, m]. Returns (new_vis
-// [N*S, HW, m], new_lan [N*S, T, m]).
+// [N*S, HW, m], new_lan [N*S, T, m]) and, with save_p, the probabilities for
+// the backward (pv [N*S, HW, T], pt [N, S*T, HW]).
 std::vector<at::Tensor> cross_attn(const at::Tensor& qv, const at::Tensor& kv,
                                    const at::Tensor& vv, const at::Tensor& qt,
                                    const at::Tensor& kt, const at::Tensor& vt, int64_t S,
-                                   double div) {
+                                   double div, bool save_p) {
   const at::Device dev = qv.device();
   const c10::cuda::CUDAGuard guard(dev);
   for (const at::Tensor* t : {&qv, &kv, &vv, &qt, &kt, &vt})
     check(*t, "cross_attn", at::kFloat, dev);
-  const int64_t HW = qv.size(1), m = qv.size(2), P = qt.size(0), T = qt.size(1);
+  const int64_t N = qv.size(0), HW = qv.size(1), m = qv.size(2), P = qt.size(0), T = qt.size(1);
   at::Tensor new_vis = at::empty({P, HW, m}, qv.options());
   at::Tensor new_lan = at::empty({P, T, m}, qv.options());
+  std::vector<at::Tensor> out = {new_vis, new_lan};
+  if (save_p) {
+    out.push_back(at::empty({P, HW, T}, qv.options()));
+    out.push_back(at::empty({N, P / N * T, HW}, qv.options()));
+  }
   launched(tris::cross_attn(qv.data_ptr<float>(), kv.data_ptr<float>(), vv.data_ptr<float>(),
                             qt.data_ptr<float>(), kt.data_ptr<float>(), vt.data_ptr<float>(),
-                            new_vis.data_ptr<float>(), new_lan.data_ptr<float>(), P, HW, T, m,
-                            S, (float)div, stream()),
+                            new_vis.data_ptr<float>(), new_lan.data_ptr<float>(),
+                            save_p ? out[2].data_ptr<float>() : nullptr,
+                            save_p ? out[3].data_ptr<float>() : nullptr, P, HW, T, m, S,
+                            (float)div, stream(), &k2_shapes["cross_attn"]),
            "cross_attn");
-  return {new_vis, new_lan};
+  return out;
 }
 
-// K2 backward at S = 1: g_vis [N, HW, m], g_lan [N, T, m] and the forward's
-// inputs. Returns (dqv, dkv, dvv, dqt, dkt, dvt).
+// K2 backward at S = 1: g_vis [N, HW, m], g_lan [N, T, m], the forward's
+// inputs and its probabilities pv [N, HW, T], pt [N, T, HW]. Returns (dqv,
+// dkv, dvv, dqt, dkt, dvt).
 std::vector<at::Tensor> cross_attn_bwd(const at::Tensor& g_vis, const at::Tensor& g_lan,
                                        const at::Tensor& qv, const at::Tensor& kv,
                                        const at::Tensor& vv, const at::Tensor& qt,
-                                       const at::Tensor& kt, const at::Tensor& vt, double div) {
+                                       const at::Tensor& kt, const at::Tensor& vt,
+                                       const at::Tensor& pv, const at::Tensor& pt, double div) {
   const at::Device dev = qv.device();
   const c10::cuda::CUDAGuard guard(dev);
-  for (const at::Tensor* t : {&g_vis, &g_lan, &qv, &kv, &vv, &qt, &kt, &vt})
+  for (const at::Tensor* t : {&g_vis, &g_lan, &qv, &kv, &vv, &qt, &kt, &vt, &pv, &pt})
     check(*t, "cross_attn_bwd", at::kFloat, dev);
   const int64_t N = qv.size(0), HW = qv.size(1), m = qv.size(2), T = qt.size(1);
   TORCH_CHECK(qt.size(0) == N, "cross_attn_bwd: one sentence per image");
-  at::Tensor pv = at::empty({N, HW, T}, qv.options()), dlv = at::empty({N, HW, T}, qv.options());
-  at::Tensor pt = at::empty({N, T, HW}, qv.options()), dlt = at::empty({N, T, HW}, qv.options());
+  TORCH_CHECK(pv.numel() == N * HW * T && pt.numel() == N * T * HW,
+              "cross_attn_bwd: the forward's probabilities");
+  at::Tensor dlv = at::empty({N, HW, T}, qv.options()), dlt = at::empty({N, T, HW}, qv.options());
   std::vector<at::Tensor> out;
   for (const at::Tensor* t : {&qv, &kv, &vv, &qt, &kt, &vt}) out.push_back(at::empty_like(*t));
+  tris::LaunchShape shapes[2] = {};
   launched(tris::cross_attn_bwd(
                g_vis.data_ptr<float>(), g_lan.data_ptr<float>(), qv.data_ptr<float>(),
                kv.data_ptr<float>(), vv.data_ptr<float>(), qt.data_ptr<float>(),
                kt.data_ptr<float>(), vt.data_ptr<float>(), pv.data_ptr<float>(),
-               dlv.data_ptr<float>(), pt.data_ptr<float>(), dlt.data_ptr<float>(),
+               pt.data_ptr<float>(), dlv.data_ptr<float>(), dlt.data_ptr<float>(),
                out[0].data_ptr<float>(), out[1].data_ptr<float>(), out[2].data_ptr<float>(),
                out[3].data_ptr<float>(), out[4].data_ptr<float>(), out[5].data_ptr<float>(), N,
-               HW, T, m, (float)div, stream()),
+               HW, T, m, (float)div, stream(), shapes),
            "cross_attn_bwd");
+  k2_shapes["cross_attn_bwd_a"] = shapes[0];
+  k2_shapes["cross_attn_bwd_b"] = shapes[1];
   return out;
+}
+
+// Whether K2's kernels take channel width m (launchers.h).
+bool cross_attn_takes(int64_t m) { return m <= INT32_MAX && tris::cross_attn_takes((int)m); }
+
+// The last launch of K2's `name` (cross_attn, cross_attn_bwd_a, cross_attn_bwd_b) in this
+// process: blocks, blocks a cluster, threads a block, query rows a tile, bytes of shared
+// memory a block.
+std::map<std::string, int64_t> cross_attn_launch_shape(const std::string& name) {
+  const auto it = k2_shapes.find(name);
+  TORCH_CHECK(it != k2_shapes.end(), "cross_attn_launch_shape: no launch of ", name);
+  const tris::LaunchShape& s = it->second;
+  return {{"blocks", s.blocks}, {"cluster", s.cluster}, {"threads", s.threads},
+          {"tile_rows", s.rows}, {"smem_bytes", s.smem}};
 }
 
 // K3: vis_new [N*S, h*w, D] or None; vis_base [N, h*w, D]; lan [N*S, D];
@@ -674,6 +706,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mha_short_bwd", &mha_short_bwd, "K1 backward");
   m.def("cross_attn", &cross_attn, "K2: BilateralPrompt cross-attention");
   m.def("cross_attn_bwd", &cross_attn_bwd, "K2 backward (one sentence per image)");
+  m.def("cross_attn_takes", &cross_attn_takes, "K2: whether its kernels take width m");
+  m.def("cross_attn_launch_shape", &cross_attn_launch_shape, "K2: its last launch's grid");
   m.def("response_head", &response_head, "K3: stage-1 response head");
   m.def("stage1_head", &stage1_head, "K3: stage-1 training head");
   m.def("stage1_head_bwd", &stage1_head_bwd, "K3: stage-1 training head, backward");

@@ -9,129 +9,197 @@
 // one of its S sentences (pairs) reads them in place, so the JAX package's
 // jnp.repeat over sentences (stage1.py:164-166) is never materialised.
 //
-// Shapes on the stage-1 eval path: m = 1024, HW = 100 pixels (320 px), T = 1
-// text token per pair in response_maps (T = B in forward(train=False)); two
-// launches per forward. At T = 1 the vision->text softmax is over one key,
-// exp(0)/1 = 1 exactly, so new_vis is exactly Vt.
+// Shapes on the paths: the stage-1 train step and forward(train=False), N =
+// 48 images, HW = 100 pixels (320 px), T = 48 texts, S = 1, m = 1024;
+// response_maps (eval, PRMS, stage-2 eval) 8 images, S = 4, T = 1.
 //
-// Bound: bytes (each output float costs T (or HW) multiply-adds, a few per
-// byte). A 1024-wide head does not fit in shared memory at HW = 100 keys
-// (K and V are 400 KB each), so neither kernel tiles K/V: one block per
-// (pair, query) computes its logits with warps over keys and lanes over
-// channels, keeps the softmax in shared memory, then forms sum_k p_k V_k with
-// threads over channels (coalesced rows of V, which the other queries of the
-// same image find in L2).
+// Bound: bytes (each output float costs T or HW multiply-adds). One launch
+// for both halves: a tile is kCrossAttnRows query rows of one group against
+// the group's keys -
+//  - text -> vision: a group is an image, its rows all S x T text queries of
+//    its pairs, so the S pairs share one read of the image's Kv and Vv;
+//  - vision -> text: a group is a pair, its rows the image's HW pixels.
+// A cluster of cross_attn_slices(m) blocks takes a tile, one 256-channel
+// slice each (cross_attn_tiles.cuh): each block reads its slice of the
+// tile's Q, K and V once, forms partial logits, sums the cluster's partials
+// in rank order through distributed shared memory, takes the row softmax
+// and writes its slice of P V. So each K/V element is read once per tile
+// of kCrossAttnRows queries, not once per query. The text tiles come first in the grid
+// (HW keys: the longer ones). A tile with more keys than a key block
+// (kCrossAttnKeyBlock: HW past 512 px, or T) forms each block's logits twice:
+// a first round for each row's max and sum of exponentials over all blocks,
+// a second for the softmax and P V, summed over the blocks in order; the
+// paths' tiles have at most 100 keys, one block. At T = 1 a vision tile's softmax is over one
+// key, exp(0) / 1 = 1 exactly: its logits are skipped and P = 1, so new_vis
+// is exactly Vt.
 
-#include "common.cuh"
-#include "launchers.h"
+#include "cross_attn_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace tris::xattn;
 
-// grid (HW, P): one block per (pair, vision query p); smem: T logits.
-__global__ void __launch_bounds__(kThreads)
-vis_to_text_kernel(const float* __restrict__ qv, const float* __restrict__ kt,
-                   const float* __restrict__ vt, float* __restrict__ out, int HW,
-                   int T, int m, int S, float div) {
-  extern __shared__ float probs[];
-  const int p = blockIdx.x, pair = blockIdx.y, b = pair / S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* q = qv + ((long long)b * HW + p) * m;
-  const float* kb = kt + (long long)pair * T * m;
-  const float* vb = vt + (long long)pair * T * m;
+// One half's groups: query plane g / q_div ([rows, m] at q), key and value
+// planes g ([keys, m] at k, v), output plane g ([rows, m] at out), and, when
+// p is not null, the probabilities' plane g ([rows, keys] at p).
+struct Half {
+  const float *q, *k, *v;
+  float *out, *p;
+  int rows, keys, q_div;
+};
 
-  for (int t = warp; t < T; t += kWarps) {
-    float s = 0.f;
-    for (int c = lane; c < m; c += 32) s = fmaf(q[c], kb[(long long)t * m + c], s);
-    s = tris::warp_sum(s);
-    if (lane == 0) probs[t] = s / div;
+// smem: P [kRows][pitch], the partial logits [kRows][pitch], the staging area.
+// kBlocks: a launch whose tiles may have more keys than a key block (a
+// kernel of its own, so the sum it carries from block to block costs the
+// one-block kernel no registers).
+template <int KS, bool kBlocks>
+__global__ void __launch_bounds__(kThreads, KS <= 4 ? kMinBlocks : 1)
+cross_attn_kernel(Half h0, Half h1, int tiles0, int m, int kcap, float div) {
+  extern __shared__ float4 smem4[];
+  float* pm = reinterpret_cast<float*>(smem4);
+  const int pitch = tile_pitch(kcap);
+  float* part = pm + kRows * pitch;
+  float* stage = part + kRows * pitch;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slices = cluster.num_blocks(), rank = cluster.block_rank();
+  const int tile = blockIdx.x / slices;
+  const Half h = tile < tiles0 ? h0 : h1;
+  const int t = tile < tiles0 ? tile : tile - tiles0, tiles = row_tiles(h.rows);
+  const int g = t / tiles, q0 = (t % tiles) * kRows, nrows = min(kRows, h.rows - q0);
+  const int c0 = rank * kSlice, mc = min(kSlice, m - c0), nk = h.keys;
+  const float* q = h.q + ((long long)(g / h.q_div) * h.rows + q0) * m;
+  const float* k = h.k + (long long)g * nk * m;
+  const float* v = h.v + (long long)g * nk * m;
+  float* out = h.out + ((long long)g * h.rows + q0) * m;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kRowsPerWarp = kRows / kWarps;
+  auto keys_of = [&](int kb) { return min(kKeyBlock, nk - kb * kKeyBlock); };
+  // P V over key block kb
+  auto pv_of = [&](int kb) {
+    return PvStream<1>{{pm}, {v + (long long)kb * kKeyBlock * m}, {out}, keys_of(kb), m, c0, mc};
+  };
+  // rank 0 writes key block kb of P (every block of the cluster holds the same)
+  auto store_p = [&](int kb) {
+    if (h.p == nullptr || rank != 0) return;
+    float* po = h.p + ((long long)g * h.rows + q0) * nk + kb * kKeyBlock;
+    for (int r = warp; r < nrows; r += kWarps)
+      for (int j = lane; j < keys_of(kb); j += 32) po[(long long)r * nk + j] = pm[r * pitch + j];
+  };
+  if (nk == 1) {  // a softmax over one key: P = 1, zeros to the 4-key step
+    for (int i = threadIdx.x; i < kRows * 4; i += kThreads)
+      pm[(i / 4) * pitch + i % 4] = i % 4 == 0 ? 1.f : 0.f;
+    const PvStream<1> pv = pv_of(0);
+    pv.prologue(stage);
+    __syncthreads();
+    store_p(0);
+    pv.run(pitch, nrows, stage);
+    return;
   }
-  __syncthreads();
-  if (warp == 0) {
-    float mx = -INFINITY;
-    for (int t = lane; t < T; t += 32) mx = fmaxf(mx, probs[t]);
-    mx = tris::warp_max(mx);
-    float sum = 0.f;
-    for (int t = lane; t < T; t += 32) {
-      const float e = expf(probs[t] - mx);
-      probs[t] = e;
-      sum += e;
+
+  // the tile's logits over key block kb, divided by div, into pm (every block
+  // of the cluster gets all of them); with pv, V's first chunks come in meanwhile
+  int rounds = 0;
+  auto logits = [&](int kb, const PvStream<1>* pv) {
+    if (rounds++ > 0) {
+      __syncthreads();  // the staging area is free
+      cluster_wait();   // no block reads this one's partials any more
     }
-    sum = tris::warp_sum(sum);
-    for (int t = lane; t < T; t += 32) probs[t] = probs[t] / sum;
-  }
-  __syncthreads();
+    slice_logits<KS>(q, k + (long long)kb * kKeyBlock * m, nrows, keys_of(kb), m, c0, mc, kcap,
+                     stage, part, pitch);
+    if (pv != nullptr) pv->prologue(stage);
+    cluster.sync();  // every block's partials are written
+    gather_rows(cluster, part, pm, pitch, (keys_of(kb) + 31) >> 5, kRows, true, div);
+    cluster_arrive();  // this block reads the others' partials no more
+    __syncthreads();
+  };
+  // row r (warp w: rows 4w..4w+3): its running max and sum of exp(x - max)
+  // over key blocks 0..kb, from key block kb's logits in pm
+  float rmax[kRowsPerWarp], rsum[kRowsPerWarp];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) rmax[rr] = -INFINITY, rsum[rr] = 0.f;
+  auto stats = [&](int kb) {
+    const int kn = keys_of(kb), slots = (kn + 31) >> 5;
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      float x[KS], mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const int j = lane + 32 * i;
+        x[i] = i < slots && j < kn ? pm[r * pitch + j] : -INFINITY;
+        mx = fmaxf(mx, x[i]);
+      }
+      mx = fmaxf(rmax[rr], tris::warp_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < KS; ++i) sum += lane + 32 * i < kn ? expf(x[i] - mx) : 0.f;
+      rsum[rr] = rsum[rr] * expf(rmax[rr] - mx) + tris::warp_sum(sum);
+      rmax[rr] = mx;
+    }
+  };
+  // key block kb of the rows' softmax, in place, zeros from its keys to the slots' end
+  auto normalize = [&](int kb) {
+    const int kn = keys_of(kb), slots = (kn + 31) >> 5;
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const int j = lane + 32 * i;
+        if (i < slots)
+          pm[r * pitch + j] = j < kn ? expf(pm[r * pitch + j] - rmax[rr]) / rsum[rr] : 0.f;
+      }
+    }
+    __syncthreads();
+  };
 
-  float* o = out + ((long long)pair * HW + p) * m;
-  for (int c = threadIdx.x; c < m; c += kThreads) {
-    float acc = 0.f;
-    for (int t = 0; t < T; ++t) acc = fmaf(probs[t], vb[(long long)t * m + c], acc);
-    o[c] = acc;
+  const int nkb = key_blocks(nk);
+  if (!kBlocks || nkb == 1) {  // one key block: its logits formed once
+    const PvStream<1> pv = pv_of(0);
+    logits(0, &pv);
+    stats(0);
+    normalize(0);
+    store_p(0);
+    pv.run(pitch, nrows, stage);
+  } else {  // the rows' statistics over every key block, then P V block by block
+    for (int kb = 0; kb < nkb; ++kb) {
+      logits(kb, nullptr);
+      stats(kb);
+    }
+    float4 acc[8];
+    PvStream<1>::clear(acc);
+    for (int kb = 0; kb < nkb; ++kb) {
+      const PvStream<1> pv = pv_of(kb);
+      logits(kb, &pv);
+      normalize(kb);
+      store_p(kb);
+      pv.run(pitch, nrows, stage, acc, kb == nkb - 1);
+    }
   }
-}
-
-// grid (T, P): one block per (pair, text query t); smem: the query row (m)
-// and HW logits, plus 32 floats for reductions.
-__global__ void __launch_bounds__(kThreads)
-text_to_vis_kernel(const float* __restrict__ qt, const float* __restrict__ kv,
-                   const float* __restrict__ vv, float* __restrict__ out, int HW,
-                   int T, int m, int S, float div) {
-  extern __shared__ float smem[];
-  float* qs = smem;             // [m]
-  float* probs = qs + m;        // [HW]
-  float* red = probs + HW;      // [32]
-  const int t = blockIdx.x, pair = blockIdx.y, b = pair / S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* q = qt + ((long long)pair * T + t) * m;
-  const float* kb = kv + (long long)b * HW * m;
-  const float* vb = vv + (long long)b * HW * m;
-
-  for (int c = threadIdx.x; c < m; c += kThreads) qs[c] = q[c];
-  __syncthreads();
-  for (int p = warp; p < HW; p += kWarps) {
-    float s = 0.f;
-    for (int c = lane; c < m; c += 32) s = fmaf(qs[c], kb[(long long)p * m + c], s);
-    s = tris::warp_sum(s);
-    if (lane == 0) probs[p] = s / div;
-  }
-  __syncthreads();
-  float mx = -INFINITY;
-  for (int p = threadIdx.x; p < HW; p += kThreads) mx = fmaxf(mx, probs[p]);
-  mx = tris::block_max(mx, red);
-  float sum = 0.f;
-  for (int p = threadIdx.x; p < HW; p += kThreads) {
-    const float e = expf(probs[p] - mx);
-    probs[p] = e;
-    sum += e;
-  }
-  sum = tris::block_sum(sum, red);   // its barriers also publish the e's
-  for (int p = threadIdx.x; p < HW; p += kThreads) probs[p] = probs[p] / sum;
-  __syncthreads();
-
-  float* o = out + ((long long)pair * T + t) * m;
-  for (int c = threadIdx.x; c < m; c += kThreads) {
-    float acc = 0.f;
-    for (int p = 0; p < HW; ++p) acc = fmaf(probs[p], vb[(long long)p * m + c], acc);
-    o[c] = acc;
-  }
+  cluster_wait();  // no block leaves while its partials may be read
 }
 
 }  // namespace
 
 cudaError_t tris::cross_attn(const float* qv, const float* kv, const float* vv, const float* qt,
                              const float* kt, const float* vt, float* new_vis, float* new_lan,
-                             int P, int HW, int T, int m, int S, float div, cudaStream_t stream) {
-  const size_t smem_a = sizeof(float) * (size_t)T;
-  const size_t smem_b = sizeof(float) * ((size_t)m + HW + 32);
-  cudaError_t err = tris::allow_smem(vis_to_text_kernel, smem_a);
-  if (err != cudaSuccess) return err;
-  err = tris::allow_smem(text_to_vis_kernel, smem_b);
-  if (err != cudaSuccess) return err;
-  vis_to_text_kernel<<<dim3(HW, P), kThreads, smem_a, stream>>>(qv, kt, vt, new_vis, HW, T, m, S, div);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  text_to_vis_kernel<<<dim3(T, P), kThreads, smem_b, stream>>>(qt, kv, vv, new_lan, HW, T, m, S, div);
-  return cudaGetLastError();
+                             float* pv, float* pt, int P, int HW, int T, int m, int S, float div,
+                             cudaStream_t stream, LaunchShape* shape) {
+  if (!cross_attn_takes(m) || S < 1 || P % S) return cudaErrorInvalidValue;
+  const int N = P / S, slices = cross_attn_slices(m);
+  const Half text{qt, kv, vv, new_lan, pt, S * T, HW, 1};
+  const Half vis{qv, kt, vt, new_vis, pv, HW, T, S};
+  const int tiles_text = N * row_tiles(S * T), tiles_vis = P * row_tiles(HW);
+  const int kcap = key_capacity(HW > T ? HW : T);
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * kRows * tile_pitch(kcap) + stage_floats(kcap));
+  const int blocks = slices * (tiles_text + tiles_vis);
+  if (key_blocks(HW > T ? HW : T) > 1)
+    return launch_clusters(cross_attn_kernel<8, true>, blocks, slices, smem, stream, shape, text,
+                           vis, tiles_text, m, kcap, div);
+  if (kcap <= 128)
+    return launch_clusters(cross_attn_kernel<4, false>, blocks, slices, smem, stream, shape, text,
+                           vis, tiles_text, m, kcap, div);
+  return launch_clusters(cross_attn_kernel<8, false>, blocks, slices, smem, stream, shape, text,
+                         vis, tiles_text, m, kcap, div);
 }

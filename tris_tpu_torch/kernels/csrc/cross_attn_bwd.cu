@@ -15,260 +15,242 @@
 // Shapes on the stage-1 train path: N = 48 images, HW = 100 pixels, T = 48
 // texts (every text of the batch), m = 1024; one call per step.
 //
-// Bound: bytes (each output float costs T or HW multiply-adds). As in the
-// forward, a 1024-wide K/V row set does not fit a shared-memory tile, so the
-// channels are streamed from device memory (L2) with lanes over channels.
-// Four kernels, none with atomics, so the gradient is the same run to run:
-//  A_vis, A_lan - per (image, tile of R queries): the logits and dA rows
-//    (warps over keys, lanes over channels, R rows per pass so each key row
-//    is read once per tile), the softmax and the softmax backward; they
-//    write P and dL ([N, HW, T] and [N, T, HW], 0.9 MB each at the train
-//    shape) to scratch. P is recomputed here, never saved by the forward.
-//  B_vis - per (image, tile of R pixels): dQv, dKv, dVv, each a sum over
-//    the T texts of the image done by one thread per channel in a fixed
-//    order (the reduction over T stays inside the block).
-//  B_lan - per (image, tile of R texts): dQt, dKt, dVt, sums over HW.
+// Bound: bytes (each output float costs T or HW multiply-adds). Two
+// launches, the tiles of cross_attn_tiles.cuh, no atomics, so the gradient
+// is the same run to run:
+//  cross_attn_probs_bwd_kernel - per (image, tile of kCrossAttnRows queries)
+//    of each half, a cluster of cross_attn_slices(m) blocks: each block forms
+//    its slice's partial dA = G V^T (slice_logits); the partials are summed
+//    in rank order through distributed shared memory, block `rank` taking
+//    rows rank, rank + slices, ... of the tile: the softmax backward with the
+//    probabilities P the forward wrote, written as dL ([N, HW, T] and [N, T,
+//    HW], 0.9 MB each at the train shape, held in L2) to scratch.
+//  cross_attn_grads_bwd_kernel - the six products coefficient x operand,
+//    each [rows, m] and summed over T or HW, in two groups of three with the
+//    same rows: a block per (group, image, tile of kCrossAttnRows rows,
+//    256-channel slice) holds the group's three coefficient tiles in shared
+//    memory and streams the three operands' rows through one PvStream.
+//    The text rows (summed over HW) come first in the grid.
+// With more keys than a key block (kCrossAttnKeyBlock), pass A writes each
+// block's dA into dL's place and, once every block has added to the rows'
+// sums of P dA, turns it into dL; pass B takes the products one after the
+// other, each summed over the key blocks in order. The train step's tiles
+// have at most 100 keys, one block.
 
-#include "common.cuh"
-#include "launchers.h"
+#include "cross_attn_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int R = 4;  // queries per block
+using namespace tris::xattn;
 
-// Rows q0..q0+R-1 of Q and G ([nq, m] planes of one image) against the nk
-// key rows of K and V: P = softmax(Q K^T / d) and dL = P * (G V^T - D) / d,
-// written as [nq, nk] rows of p_out and dl_out.
-// smem: Q and G tiles [R][m] each, logits and dA [R][nk] each, 32 floats.
-__device__ void attn_rows_bwd(const float* __restrict__ Q, const float* __restrict__ G,
-                              const float* __restrict__ K, const float* __restrict__ V,
-                              float* __restrict__ p_out, float* __restrict__ dl_out, int q0,
-                              int nq, int nk, int m, float div, float* smem) {
-  float* qs = smem;             // [R][m]
-  float* gs = qs + R * m;       // [R][m]
-  float* lg = gs + R * m;       // [R][nk]
-  float* da = lg + R * nk;      // [R][nk]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < R * m; i += kThreads) {
-    const int r = i / m, c = i % m, row = q0 + r;
-    qs[i] = row < nq ? Q[(long long)row * m + c] : 0.f;
-    gs[i] = row < nq ? G[(long long)row * m + c] : 0.f;
-  }
-  __syncthreads();
-  for (int j = warp; j < nk; j += kWarps) {
-    const float* kr = K + (long long)j * m;
-    const float* vr = V + (long long)j * m;
-    float s[R], a[R];
+// One half of pass A: per image n the query plane's cotangent g ([rows, m]),
+// the value plane v ([keys, m]) and the forward's probabilities p ([rows,
+// keys]); dL out, [rows, keys] per image.
+struct ProbsHalf {
+  const float *g, *v, *p;
+  float* dl;
+  int rows, keys;
+};
+
+// smem: the partial dA [kRows][pitch], the staging area. kBlocks: a launch
+// whose tiles may have more keys than a key block (a kernel of its own, as
+// in the forward).
+template <int KS, bool kBlocks>
+__global__ void __launch_bounds__(kThreads, KS <= 4 ? kMinBlocks : 1)
+cross_attn_probs_bwd_kernel(ProbsHalf h0, ProbsHalf h1, int tiles0, int m, int kcap, float div) {
+  extern __shared__ float4 smem4[];
+  float* part = reinterpret_cast<float*>(smem4);
+  const int pitch = tile_pitch(kcap);
+  float* stage = part + kRows * pitch;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slices = cluster.num_blocks(), rank = cluster.block_rank();
+  const int tile = blockIdx.x / slices;
+  const ProbsHalf h = tile < tiles0 ? h0 : h1;
+  const int t = tile < tiles0 ? tile : tile - tiles0, tiles = row_tiles(h.rows);
+  const int n = t / tiles, q0 = (t % tiles) * kRows, nrows = min(kRows, h.rows - q0);
+  const int c0 = rank * kSlice, mc = min(kSlice, m - c0), nk = h.keys;
+  const int nkb = kBlocks ? key_blocks(nk) : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this block's rows rank, rank + slices, ... of the tile, warp w taking its
+  // rows w, w + kWarps, ...: each one's lane-wise partial sum of P dA
+  constexpr int kOwn = kRows / kWarps;
+  float dsum[kOwn];
 #pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = a[r] = 0.f;
-    for (int c = lane; c < m; c += 32) {
-      const float kc = kr[c], vc = vr[c];
+  for (int ki = 0; ki < kOwn; ++ki) dsum[ki] = 0.f;
+  float* rows = stage;  // [kRows][pitch]: this block's rows of dA over a key block
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int j0 = kb * kKeyBlock, kn = min(kKeyBlock, nk - j0), slots = (kn + 31) >> 5;
+    if (kb > 0) {
+      __syncthreads();  // the staging area is free
+      cluster_wait();   // no block reads this one's partials any more
+    }
+    slice_logits<KS>(h.g + ((long long)n * h.rows + q0) * m, h.v + ((long long)n * nk + j0) * m,
+                     nrows, kn, m, c0, mc, kcap, stage, part, pitch);
+    cluster.sync();  // every block's partials are written
+    gather_rows(cluster, part, rows, pitch, slots, nrows, false, 1.f);
+    cluster_arrive();  // this block reads the others' partials no more
+    __syncthreads();
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        s[r] = fmaf(qs[r * m + c], kc, s[r]);
-        a[r] = fmaf(gs[r * m + c], vc, a[r]);
+    for (int ki = 0; ki < kOwn; ++ki) {
+      const int k = warp + kWarps * ki, r = rank + slices * k;
+      if (r >= nrows) break;
+      const long long o = ((long long)n * h.rows + q0 + r) * nk + j0;
+      float x[KS], da[KS], ds = kBlocks ? dsum[ki] : 0.f;
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const int j = lane + 32 * i;
+        const bool in = i < slots && j < kn;
+        x[i] = in ? h.p[o + j] : 0.f;
+        da[i] = in ? rows[k * pitch + j] : 0.f;
+        ds = fmaf(x[i], da[i], ds);
+      }
+      if (kBlocks) dsum[ki] = ds;
+      // one key block: dL at once; more: dA into dL's place until the sum is whole
+      if (nkb == 1) ds = tris::warp_sum(ds);
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const int j = lane + 32 * i;
+        if (j < kn) h.dl[o + j] = nkb == 1 ? x[i] * (da[i] - ds) / div : da[i];
       }
     }
+  }
+  if (nkb > 1) {  // each thread reads back the dA it wrote
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      s[r] = tris::warp_sum(s[r]);
-      a[r] = tris::warp_sum(a[r]);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        lg[r * nk + j] = s[r] / div;
-        da[r * nk + j] = a[r];
-      }
+    for (int ki = 0; ki < kOwn; ++ki) {
+      const int r = rank + slices * (warp + kWarps * ki);
+      if (r >= nrows) break;
+      const float ds = tris::warp_sum(dsum[ki]);
+      const long long o = ((long long)n * h.rows + q0 + r) * nk;
+      for (int j = lane; j < nk; j += 32) h.dl[o + j] = h.p[o + j] * (h.dl[o + j] - ds) / div;
     }
   }
-  __syncthreads();
-  // one warp per query row: softmax, then the softmax backward
-  for (int r = warp; r < R; r += kWarps) {
-    const int row = q0 + r;
-    if (row >= nq) continue;
-    float* l = lg + r * nk;
-    const float* g = da + r * nk;
-    float mx = -INFINITY;
-    for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, l[j]);
-    mx = tris::warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float e = expf(l[j] - mx);
-      l[j] = e;
-      sum += e;
-    }
-    sum = tris::warp_sum(sum);
-    float dsum = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float p = l[j] / sum;
-      l[j] = p;
-      dsum = fmaf(p, g[j], dsum);
-    }
-    dsum = tris::warp_sum(dsum);
-    float* po = p_out + (long long)row * nk;
-    float* dlo = dl_out + (long long)row * nk;
-    for (int j = lane; j < nk; j += 32) {
-      po[j] = l[j];
-      dlo[j] = l[j] * (g[j] - dsum) / div;
-    }
-  }
+  cluster_wait();  // no block leaves while its partials may be read
 }
 
-// grid (ceil(HW/R), N): P and dL of the vision -> text half.
-__global__ void __launch_bounds__(kThreads)
-a_vis_kernel(const float* __restrict__ qv, const float* __restrict__ g_vis,
-             const float* __restrict__ kt, const float* __restrict__ vt, float* __restrict__ pv,
-             float* __restrict__ dlv, int HW, int T, int m, float div) {
-  extern __shared__ float smem[];
-  const long long n = blockIdx.y;
-  attn_rows_bwd(qv + n * HW * m, g_vis + n * HW * m, kt + n * T * m, vt + n * T * m,
-                pv + n * HW * T, dlv + n * HW * T, blockIdx.x * R, HW, T, m, div, smem);
-}
+// Three products of pass B with the same rows and keys: out_q[n] ([rows, m])
+// = C_q[n] x_q[n], x_q[n] [keys, m], C_q[n][r][j] = coef_q[n][r][j] (coef_q
+// [N, rows, keys]) or, transposed, coef_q[n][j][r] (coef_q [N, keys, rows]).
+struct Products {
+  const float* coef[3];
+  const float* x[3];
+  float* out[3];
+  int trans[3];
+  int rows, keys;
+};
 
-// grid (ceil(T/R), N): P and dL of the text -> vision half.
-__global__ void __launch_bounds__(kThreads)
-a_lan_kernel(const float* __restrict__ qt, const float* __restrict__ g_lan,
-             const float* __restrict__ kv, const float* __restrict__ vv, float* __restrict__ pt,
-             float* __restrict__ dlt, int HW, int T, int m, float div) {
-  extern __shared__ float smem[];
-  const long long n = blockIdx.y;
-  attn_rows_bwd(qt + n * T * m, g_lan + n * T * m, kv + n * HW * m, vv + n * HW * m,
-                pt + n * T * HW, dlt + n * T * HW, blockIdx.x * R, T, HW, m, div, smem);
-}
-
-// grid (ceil(HW/R), N): for pixels p of image n,
-//   dQv[p] = sum_t dLv[p,t] Kt[t],  dKv[p] = sum_t dLt[t,p] Qt[t],  dVv[p] = sum_t At[t,p] H[t].
-// smem: the three coefficient tiles [R][T].
-__global__ void __launch_bounds__(kThreads)
-b_vis_kernel(const float* __restrict__ kt, const float* __restrict__ qt,
-             const float* __restrict__ g_lan, const float* __restrict__ dlv,
-             const float* __restrict__ dlt, const float* __restrict__ pt,
-             float* __restrict__ dqv, float* __restrict__ dkv, float* __restrict__ dvv, int HW,
-             int T, int m) {
-  extern __shared__ float smem[];
-  float* cq = smem;          // dLv[p, t]
-  float* ck = cq + R * T;    // dLt[t, p]
-  float* cv = ck + R * T;    // At[t, p]
-  const long long n = blockIdx.y;
-  const int p0 = blockIdx.x * R;
-  for (int i = threadIdx.x; i < R * T; i += kThreads) {
-    const int r = i / T, t = i % T, p = p0 + r;
-    const bool ok = p < HW;
-    cq[i] = ok ? dlv[(n * HW + p) * T + t] : 0.f;
-    ck[i] = ok ? dlt[(n * T + t) * HW + p] : 0.f;
-    cv[i] = ok ? pt[(n * T + t) * HW + p] : 0.f;
-  }
-  __syncthreads();
-  const float* ktn = kt + n * T * m;
-  const float* qtn = qt + n * T * m;
-  const float* gn = g_lan + n * T * m;
-  for (int c = threadIdx.x; c < m; c += kThreads) {
-    float aq[R], ak[R], av[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) aq[r] = ak[r] = av[r] = 0.f;
-    for (int t = 0; t < T; ++t) {
-      const float kc = ktn[(long long)t * m + c], qc = qtn[(long long)t * m + c],
-                  gc = gn[(long long)t * m + c];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        aq[r] = fmaf(cq[r * T + t], kc, aq[r]);
-        ak[r] = fmaf(ck[r * T + t], qc, ak[r]);
-        av[r] = fmaf(cv[r * T + t], gc, av[r]);
-      }
+// smem: the three coefficient tiles [3][kRows][pitch], the staging area.
+// kBlocks as in pass A.
+template <bool kBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cross_attn_grads_bwd_kernel(Products g0, Products g1, int tiles0, int slices, int m, int kcap) {
+  extern __shared__ float4 smem4[];
+  float* cm = reinterpret_cast<float*>(smem4);
+  const int pitch = tile_pitch(kcap);
+  float* stage = cm + 3 * kRows * pitch;
+  const int tile = blockIdx.x / slices, slice = blockIdx.x % slices;
+  const Products pr = tile < tiles0 ? g0 : g1;
+  const int t = tile < tiles0 ? tile : tile - tiles0, tiles = row_tiles(pr.rows);
+  const int n = t / tiles, q0 = (t % tiles) * kRows, nrows = min(kRows, pr.rows - q0);
+  const int nk = pr.keys, nkb = kBlocks ? key_blocks(nk) : 1;
+  const int c0 = slice * kSlice, mc = min(kSlice, m - c0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // product q's coefficient tile over key block kb into dst, zeros past the
+  // rows and keys to the 4-key step
+  auto load_coef = [&](int q, int kb, float* dst) {
+    const int j0 = kb * kKeyBlock, kn = min(kKeyBlock, nk - j0), kr = (kn + 3) / 4 * 4;
+    const float* coef = pr.coef[q] + (long long)n * pr.rows * nk;
+    if (pr.trans[q]) {  // lanes along the rows, which are contiguous in coef_q
+      for (int j = warp; j < kr; j += kWarps)
+        for (int r = lane; r < kRows; r += 32) {
+          const bool ok = r < nrows && j < kn;
+          const float* src = coef + (long long)(j0 + j) * pr.rows + q0 + r;
+          tris::cp_async4(dst + r * pitch + j, ok ? src : coef, ok);
+        }
+    } else {
+      for (int r = warp; r < kRows; r += kWarps)
+        for (int j = lane; j < kr; j += 32) {
+          const bool ok = r < nrows && j < kn;
+          const float* src = coef + (long long)(q0 + r) * nk + j0 + j;
+          tris::cp_async4(dst + r * pitch + j, ok ? src : coef, ok);
+        }
     }
+  };
+  const auto x_of = [&](int q, int kb) {
+    return pr.x[q] + ((long long)n * nk + (long long)kb * kKeyBlock) * m;
+  };
+  const auto out_of = [&](int q) { return pr.out[q] + ((long long)n * pr.rows + q0) * m; };
+  if (nkb == 1) {  // the three products in one stream
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int p = p0 + r;
-      if (p >= HW) break;
-      const long long o = (n * HW + p) * m + c;
-      dqv[o] = aq[r];
-      dkv[o] = ak[r];
-      dvv[o] = av[r];
-    }
+    for (int q = 0; q < 3; ++q) load_coef(q, 0, cm + q * kRows * pitch);
+    const PvStream<3> pv{{cm, cm + kRows * pitch, cm + 2 * kRows * pitch},
+                         {x_of(0, 0), x_of(1, 0), x_of(2, 0)},
+                         {out_of(0), out_of(1), out_of(2)},
+                         nk, m, c0, mc};
+    pv.prologue(stage);  // the coefficients land with the first chunk
+    pv.run(pitch, nrows, stage);
+    return;
   }
-}
-
-// grid (ceil(T/R), N): for texts t of image n,
-//   dKt[t] = sum_p dLv[p,t] Qv[p],  dVt[t] = sum_p Av[p,t] G[p],  dQt[t] = sum_p dLt[t,p] Kv[p].
-// smem: the three coefficient tiles [R][HW].
-__global__ void __launch_bounds__(kThreads)
-b_lan_kernel(const float* __restrict__ qv, const float* __restrict__ g_vis,
-             const float* __restrict__ kv, const float* __restrict__ dlv,
-             const float* __restrict__ pv, const float* __restrict__ dlt,
-             float* __restrict__ dqt, float* __restrict__ dkt, float* __restrict__ dvt, int HW,
-             int T, int m) {
-  extern __shared__ float smem[];
-  float* ck = smem;          // dLv[p, t]
-  float* cv = ck + R * HW;   // Av[p, t]
-  float* cq = cv + R * HW;   // dLt[t, p]
-  const long long n = blockIdx.y;
-  const int t0 = blockIdx.x * R;
-  for (int i = threadIdx.x; i < R * HW; i += kThreads) {
-    const int r = i / HW, p = i % HW, t = t0 + r;
-    const bool ok = t < T;
-    ck[i] = ok ? dlv[(n * HW + p) * T + t] : 0.f;
-    cv[i] = ok ? pv[(n * HW + p) * T + t] : 0.f;
-    cq[i] = ok ? dlt[(n * T + t) * HW + p] : 0.f;
-  }
-  __syncthreads();
-  const float* qvn = qv + n * HW * m;
-  const float* gn = g_vis + n * HW * m;
-  const float* kvn = kv + n * HW * m;
-  for (int c = threadIdx.x; c < m; c += kThreads) {
-    float ak[R], av[R], aq[R];
+  // more keys than a block: one product after the other, each summed over its
+  // key blocks in order through one coefficient tile
+  float4 acc[8];
+  PvStream<1>::clear(acc);
 #pragma unroll
-    for (int r = 0; r < R; ++r) ak[r] = av[r] = aq[r] = 0.f;
-    for (int p = 0; p < HW; ++p) {
-      const float qc = qvn[(long long)p * m + c], gc = gn[(long long)p * m + c],
-                  kc = kvn[(long long)p * m + c];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        ak[r] = fmaf(ck[r * HW + p], qc, ak[r]);
-        av[r] = fmaf(cv[r * HW + p], gc, av[r]);
-        aq[r] = fmaf(cq[r * HW + p], kc, aq[r]);
-      }
+  for (int q = 0; q < 3; ++q)
+    for (int kb = 0; kb < nkb; ++kb) {
+      __syncthreads();  // the coefficient tile and the staging area are free
+      load_coef(q, kb, cm);
+      const PvStream<1> pv{{cm}, {x_of(q, kb)}, {out_of(q)},
+                           min(kKeyBlock, nk - kb * kKeyBlock), m, c0, mc};
+      pv.prologue(stage);
+      pv.run(pitch, nrows, stage, acc, kb == nkb - 1);
     }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int t = t0 + r;
-      if (t >= T) break;
-      const long long o = (n * T + t) * m + c;
-      dkt[o] = ak[r];
-      dvt[o] = av[r];
-      dqt[o] = aq[r];
-    }
-  }
 }
 
 }  // namespace
 
 cudaError_t tris::cross_attn_bwd(const float* g_vis, const float* g_lan, const float* qv,
                                  const float* kv, const float* vv, const float* qt,
-                                 const float* kt, const float* vt, float* pv, float* dlv,
-                                 float* pt, float* dlt, float* dqv, float* dkv, float* dvv,
-                                 float* dqt, float* dkt, float* dvt, int N, int HW, int T, int m,
-                                 float div, cudaStream_t stream) {
-  const size_t smem_av = sizeof(float) * (2 * (size_t)R * m + 2 * (size_t)R * T);
-  const size_t smem_al = sizeof(float) * (2 * (size_t)R * m + 2 * (size_t)R * HW);
-  const size_t smem_bv = sizeof(float) * 3 * (size_t)R * T;
-  const size_t smem_bl = sizeof(float) * 3 * (size_t)R * HW;
+                                 const float* kt, const float* vt, const float* pv,
+                                 const float* pt, float* dlv, float* dlt, float* dqv, float* dkv,
+                                 float* dvv, float* dqt, float* dkt, float* dvt, int N, int HW,
+                                 int T, int m, float div, cudaStream_t stream,
+                                 LaunchShape* shapes) {
+  if (!cross_attn_takes(m)) return cudaErrorInvalidValue;
+  const int slices = cross_attn_slices(m);
+  const int kcap = key_capacity(HW > T ? HW : T), pitch = tile_pitch(kcap);
+
+  // pass A: the text half (HW keys) first
+  const ProbsHalf lan{g_lan, vv, pt, dlt, T, HW};
+  const ProbsHalf vis{g_vis, vt, pv, dlv, HW, T};
+  const int tiles_lan = N * row_tiles(T), tiles_vis = N * row_tiles(HW);
+  const size_t smem_a = sizeof(float) * ((size_t)kRows * pitch + stage_floats(kcap));
+  const int blocks_a = slices * (tiles_lan + tiles_vis);
+  const bool many_keys = key_blocks(HW > T ? HW : T) > 1;
   cudaError_t err;
-  if ((err = tris::allow_smem(a_vis_kernel, smem_av)) != cudaSuccess) return err;
-  if ((err = tris::allow_smem(a_lan_kernel, smem_al)) != cudaSuccess) return err;
-  if ((err = tris::allow_smem(b_vis_kernel, smem_bv)) != cudaSuccess) return err;
-  if ((err = tris::allow_smem(b_lan_kernel, smem_bl)) != cudaSuccess) return err;
-  const dim3 grid_p((HW + R - 1) / R, N), grid_t((T + R - 1) / R, N);
-  a_vis_kernel<<<grid_p, kThreads, smem_av, stream>>>(qv, g_vis, kt, vt, pv, dlv, HW, T, m, div);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  a_lan_kernel<<<grid_t, kThreads, smem_al, stream>>>(qt, g_lan, kv, vv, pt, dlt, HW, T, m, div);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b_vis_kernel<<<grid_p, kThreads, smem_bv, stream>>>(kt, qt, g_lan, dlv, dlt, pt, dqv, dkv, dvv,
-                                                      HW, T, m);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b_lan_kernel<<<grid_t, kThreads, smem_bl, stream>>>(qv, g_vis, kv, dlv, pv, dlt, dqt, dkt, dvt,
-                                                      HW, T, m);
-  return cudaGetLastError();
+  if (many_keys)
+    err = launch_clusters(cross_attn_probs_bwd_kernel<8, true>, blocks_a, slices, smem_a, stream,
+                          &shapes[0], lan, vis, tiles_lan, m, kcap, div);
+  else if (kcap <= 128)
+    err = launch_clusters(cross_attn_probs_bwd_kernel<4, false>, blocks_a, slices, smem_a, stream,
+                          &shapes[0], lan, vis, tiles_lan, m, kcap, div);
+  else
+    err = launch_clusters(cross_attn_probs_bwd_kernel<8, false>, blocks_a, slices, smem_a, stream,
+                          &shapes[0], lan, vis, tiles_lan, m, kcap, div);
+  if (err != cudaSuccess) return err;
+
+  // pass B: rows T (summed over HW) first, then rows HW (summed over T)
+  const Products lan_rows{{dlt, dlv, pv}, {kv, qv, g_vis}, {dqt, dkt, dvt}, {0, 1, 1}, T, HW};
+  const Products vis_rows{{dlv, dlt, pt}, {kt, qt, g_lan}, {dqv, dkv, dvv}, {0, 1, 1}, HW, T};
+  // dQt = dLt Kv, dKt = dLv^T Qv, dVt = Av^T G; dQv = dLv Kt, dKv = dLt^T Qt, dVv = At^T H
+  const int tiles_t = N * row_tiles(T), tiles_p = N * row_tiles(HW);
+  const size_t smem_b = sizeof(float) * ((size_t)3 * kRows * pitch + kPvStages * kPvStage);
+  const int blocks_b = slices * (tiles_t + tiles_p);
+  void (*grads)(Products, Products, int, int, int, int) =
+      many_keys ? &cross_attn_grads_bwd_kernel<true> : &cross_attn_grads_bwd_kernel<false>;
+  if ((err = tris::allow_smem(grads, smem_b)) != cudaSuccess) return err;
+  grads<<<blocks_b, kThreads, smem_b, stream>>>(lan_rows, vis_rows, tiles_t, slices, m, kcap);
+  if ((err = cudaGetLastError()) == cudaSuccess)
+    shapes[1] = {blocks_b, 1, kThreads, kRows, (long long)smem_b};
+  return err;
 }

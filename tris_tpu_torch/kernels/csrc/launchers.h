@@ -40,19 +40,47 @@ cudaError_t mha_short_bwd(const float* dout, const float* q, const float* k, con
                           float scale, cudaStream_t stream);
 
 // K2: qv/kv/vv [P/S, HW, m]; qt/kt/vt [P, T, m]; new_vis [P, HW, m]; new_lan [P, T, m].
+// Its kernels (cross_attn.cu, cross_attn_bwd.cu, cross_attn_tiles.cuh) take tiles of
+// kCrossAttnRows query rows against their keys (T for the vision queries, HW for the text
+// ones) in blocks of at most kCrossAttnKeyBlock, which a tile holds in shared memory; a
+// tile's m channels are split into slices of kCrossAttnSlice over a cluster of
+// cross_attn_slices(m) blocks, each slice's logits summed in chunks of kCrossAttnChunk
+// channels and its P.V in chunks of kCrossAttnKeyChunk keys. HW and T have no limit;
+// m must pass cross_attn_takes.
+constexpr int kCrossAttnRows = 32;
+constexpr int kCrossAttnKeyBlock = 256;
+constexpr int kCrossAttnSlice = 256;
+constexpr int kCrossAttnMaxSlices = 8;
+constexpr int kCrossAttnChunk = 32;
+constexpr int kCrossAttnKeyChunk = 16;
+inline int cross_attn_slices(int m) { return (m + kCrossAttnSlice - 1) / kCrossAttnSlice; }
+// the widths the kernels take: 16-byte copies, at most a cluster of kCrossAttnMaxSlices
+inline bool cross_attn_takes(int m) {
+  return m > 0 && m % 4 == 0 && cross_attn_slices(m) <= kCrossAttnMaxSlices;
+}
+// A launch as its launcher made it: blocks, blocks a cluster, threads a block, query rows
+// a tile and bytes of dynamic shared memory a block.
+struct LaunchShape {
+  int blocks, cluster, threads, rows;
+  long long smem;
+};
+// With pv and pt (both or neither), the forward also writes the probabilities for the
+// backward: pv [P, HW, T] and pt [P/S, S*T, HW]. *shape receives the launch's shape.
 cudaError_t cross_attn(const float* qv, const float* kv, const float* vv, const float* qt,
-                       const float* kt, const float* vt, float* new_vis, float* new_lan, int P,
-                       int HW, int T, int m, int S, float div, cudaStream_t stream);
+                       const float* kt, const float* vt, float* new_vis, float* new_lan, float* pv,
+                       float* pt, int P, int HW, int T, int m, int S, float div,
+                       cudaStream_t stream, LaunchShape* shape);
 
 // K2 backward, one sentence per image: g_vis, qv/kv/vv and their gradients [N, HW, m];
-// g_lan, qt/kt/vt and their gradients [N, T, m]; scratch pv, dlv [N, HW, T] and
-// pt, dlt [N, T, HW].
+// g_lan, qt/kt/vt and their gradients [N, T, m]; pv [N, HW, T] and pt [N, T, HW] as the
+// forward wrote them; scratch dlv [N, HW, T] and dlt [N, T, HW]. The same tiles and
+// limits as the forward; shapes[0] and shapes[1] receive its two launches' shapes.
 cudaError_t cross_attn_bwd(const float* g_vis, const float* g_lan, const float* qv,
                            const float* kv, const float* vv, const float* qt, const float* kt,
-                           const float* vt, float* pv, float* dlv, float* pt, float* dlt,
-                           float* dqv, float* dkv, float* dvv, float* dqt, float* dkt,
+                           const float* vt, const float* pv, const float* pt, float* dlv,
+                           float* dlt, float* dqv, float* dkv, float* dvv, float* dqt, float* dkt,
                            float* dvt, int N, int HW, int T, int m, float div,
-                           cudaStream_t stream);
+                           cudaStream_t stream, LaunchShape* shapes);
 
 // K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D]; scale a device scalar; taps
 // h -> H rows and w -> W columns. Writes score [B, h*w, B], cls_out [B, B], cls_fg [B],

@@ -73,23 +73,10 @@ constexpr int kBPitch = kTile + 4;   // doubles between B's rows in a double sta
 constexpr int kFloatStage = 2 * kTile * kStep;                    // floats: A then B
 constexpr int kDoubleStage = kTile * kAPitch + kStep * kBPitch;   // doubles: A then B
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using tris::cp_async16;
+using tris::cp_async_commit;
+using tris::cp_async_wait;
+using tris::smem_addr;
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)

@@ -40,10 +40,10 @@ import time
 import numpy as np
 import torch
 
-HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "vis_to_text_kernel",
-                "text_to_vis_kernel", "a_vis_kernel", "a_lan_kernel", "b_vis_kernel",
-                "b_lan_kernel", "response_head_kernel", "bmm_kernel", "head_fwd_kernel",
-                "maps_fwd_kernel", "head_bwd_kernel", "maps_bwd_kernel", "eval_metrics_kernel",
+HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
+                "cross_attn_probs_bwd_kernel", "cross_attn_grads_bwd_kernel",
+                "response_head_kernel", "bmm_kernel", "head_fwd_kernel", "maps_fwd_kernel",
+                "head_bwd_kernel", "maps_bwd_kernel", "eval_metrics_kernel",
                 "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel",
                 "bilinear_resize_kernel", "bilinear_resize_bwd_kernel", "path_max_kernel",
                 "path_max_prep_kernel", "path_max_gather_kernel", "irn_loss_partial_kernel",
