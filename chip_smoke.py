@@ -15,8 +15,9 @@ holds every number):
              the main paths' shapes (K1 at the text towers', the ViT
              critic's and attnpool's; K4 at stage-1 eval's and on PRMS's
              selected maps; the backward kernels and K3's training head at
-             the stage-1 train step's, K2's backward twice, bit for bit, and
-             with K1's and K2's forward-plus-backward times; K6's bilinear
+             the stage-1 train step's, K1's and K2's backward twice, bit for
+             bit, with K1's and K2's forward-plus-backward times and the
+             grids their launchers made; K6's bilinear
              half, K7, K9 and K10 at a 480x640 image's IRNet pass; K6's
              bilinear backward, K7's backward (ties planted) and K8
              forward and backward at IRN training's B=24, crop 512,
@@ -396,7 +397,8 @@ def check_kernels(K, dev):
                        4 * (4 * N * L * C + (L * L if causal else 0)),
                        4 * N * H * L * L * (C // H),
                        device_ms(lambda: sdpa(q, k, v, H, mask)),
-                       shape=[N, L, C, H], causal=causal, max_abs_err_f64=err64)
+                       shape=[N, L, C, H], causal=causal, max_abs_err_f64=err64,
+                       launch_shape=K.mha_short_launch_shape("mha_short"))
 
     vit = CLIP_CONFIGS[CRITIC]
     n_vit = (vit.image_resolution // vit.vision_patch_size) ** 2 + 1
@@ -529,6 +531,7 @@ def check_train_kernels(K, dev):
     import torch
     import torch.nn.functional as F
 
+    from tris_tpu_torch.kernels import build
     from tris_tpu_torch.models.clip import CLIP_CONFIGS
     from tris_tpu_torch.models.layers import causal_mask
 
@@ -555,7 +558,9 @@ def check_train_kernels(K, dev):
 
     # K1 backward: the stage-1 text tower and the critic's vision tower, q/k/v
     # the strided column views of one fused qkv tensor, as on the path; 2e-5
-    # of the gradient's scale (f32 sums of up to 50 products, both routes)
+    # of the gradient's scale (f32 sums of up to 50 products, both routes),
+    # against the plain version in float32 and in float64; the ViT's
+    # backward bit for bit over two runs (no atomics, every sum in a fixed order)
     vit = CLIP_CONFIGS[CRITIC]
     n_vit = (vit.image_resolution // vit.vision_patch_size) ** 2 + 1
     mha_rows = []
@@ -569,12 +574,30 @@ def check_train_kernels(K, dev):
         plain = lambda x: K.mha_short_plain(*x.chunk(3, dim=-1), H, mask)  # noqa: E731
         lib = lambda x: sdpa(*x.chunk(3, dim=-1), H, mask)  # noqa: E731
         err, tol, _ = compare(name, kern, plain, [qkv], cot, 2e-5)
+        mask64 = None if mask is None else mask.double()
+        got = input_grads(kern, [qkv], cot)[0]
+        want64 = input_grads(lambda x: K.mha_short_plain(*x.chunk(3, dim=-1), H, mask64),
+                             leaves(qkv.double()), [cot[0].double()])[0]
+        err64 = max_err(got, want64)
+        tol64 = 2e-5 * max(float(want64.abs().max()), 1.0)
+        if not err64 <= tol64:
+            failures.append(f"{name}: max_abs_err vs float64 {err64} > {tol64}")
+        bitwise = bool(torch.equal(got, input_grads(kern, [qkv], cot)[0]))
+        if not bitwise:
+            failures.append(f"{name}: two runs differ")
         hd = C // H
+        # the backward kernel alone, through its op (no autograd, not counted):
+        # the row's ms less this is autograd's sum of dq, dk, dv into qkv's gradient
+        views = qkv.detach().chunk(3, dim=-1)
+        kernel_ms = device_ms(lambda: build.ops().mha_short_bwd(cot[0], *views, mask, H,
+                                                                 hd ** -0.5))
         mha_rows.append(row(
             name, "tris_tpu_torch/kernels/csrc/mha_short_bwd.cu", "tris_tpu/models/layers.py:25",
             err, tol, bwd_ms(kern, [qkv], cot), bwd_ms(plain, [qkv], cot),
             4 * (7 * N * L * C + (L * L if causal else 0)), 8 * N * H * L * L * hd,
             bwd_ms(lib, [qkv], cot_lib), shape=[N, L, C, H], causal=causal,
+            max_abs_err_f64=err64, tol_f64=tol64, bit_for_bit_run_to_run=bitwise,
+            kernel_ms=kernel_ms, launch_shape=K.mha_short_launch_shape("mha_short_bwd"),
             fwd_bwd_ms=fwd_bwd_ms(kern, [qkv], cot), plain_fwd_bwd_ms=fwd_bwd_ms(plain, [qkv], cot),
             library_fwd_bwd_ms=fwd_bwd_ms(lib, [qkv], cot_lib)))
     mha_rows[0]["shapes"] = [mha_rows.pop()]

@@ -8,8 +8,10 @@ elsewhere. Run them on the card with
 (``--noconftest``: the suite's conftest sets up JAX, which the card's
 machine need not have.)
 
-Shapes are small but cover the edges the main path does not: the longest
-sequence K1 takes, several text tokens in K2, K3 without the fusion, ties in
+Shapes are small but cover the edges the main path does not: K1 across its
+length and head-dim buckets' edges (L up to 128, hd 32 to 128), with 4-byte
+loads where C % 4 != 0, its grids against the schedule tool's and its
+backward bit for bit from run to run, several text tokens in K2, K3 without the fusion, ties in
 K4's peak, K5 at equal sizes (identity taps), K6 on odd shapes, and the
 inputs every wrapper refuses. K2 also at its tiles' edges (HW and T
 across 32-row tiles and 32-key slots up to the 256 keys a tile holds, S > 1,
@@ -66,11 +68,18 @@ def _err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-@pytest.mark.parametrize("L,causal", [(20, True), (101, False), (128, True), (1, False),
-                                      (50, False)])
-def test_mha_short(randn, L, causal):
-    # 2e-5 against float64 on N(0, 1) inputs: f32 sums of 64 products
-    n, C, H = 3, 256, 4
+# K1 across its buckets' edges: lengths 16 | 32 | 64 | 128, head dims 32 | 64 | 128
+K1_LENGTHS = [(1, False), (8, True), (16, False), (17, True), (20, True), (50, False), (56, True),
+              (57, False), (64, True), (65, False), (101, False), (128, True)]
+K1_HEAD_DIMS = [32, 48, 64, 80, 128]
+
+
+@pytest.mark.parametrize("hd", K1_HEAD_DIMS)
+@pytest.mark.parametrize("L,causal", K1_LENGTHS)
+def test_mha_short(randn, L, causal, hd):
+    # 2e-5 against float64 on N(0, 1) inputs: f32 sums of up to 128 products
+    n, H = 3, 4
+    C = H * hd
     qkv = randn(n, L, 3 * C)
     q, k, v = qkv.chunk(3, dim=-1)          # read in place, row stride 3C
     mask = causal_mask(L, device=q.device) if causal else None
@@ -80,14 +89,68 @@ def test_mha_short(randn, L, causal):
                              None if mask is None else mask.double())
     assert torch.isfinite(got).all()
     assert _err(got, want) <= 2e-5
+    assert K.mha_short_launch_shape("mha_short")["load_bytes"] == 16
 
 
 def test_mha_short_refuses(randn):
+    # the shapes csrc/launchers.h::mha_short_takes refuses raise ValueError in
+    # Python, before a launch; the extension's rule is the schedule tool's
+    from tris_tpu_torch.kernels import build
+    from tris_tpu_torch.tools import mha_schedule
+
     q = randn(2, 129, 64)
-    with pytest.raises(ValueError, match="L <= 128"):
+    with pytest.raises(ValueError, match="mha_short_takes"):
+        K.mha_short(q, q, q, 1)
+    q = randn(2, 20, 129)
+    with pytest.raises(ValueError, match="do not take Lq=20, Lk=20, hd=129"):
         K.mha_short(q, q, q, 1)
     with pytest.raises(TypeError, match="float32"):
         K.mha_short(q.bfloat16(), q.bfloat16(), q.bfloat16(), 1)
+    for Lq, Lk, hd in [(1, 1, 1), (128, 128, 128), (129, 1, 1), (1, 1, 129), (0, 5, 5),
+                       (50, 50, 64), (20, 101, 33), (128, 64, 96)]:
+        for backward in (False, True):
+            assert build.ops().mha_short_takes(Lq, Lk, hd, backward) == \
+                bool(mha_schedule.takes(Lq, Lk, hd, backward))
+
+
+@pytest.mark.parametrize("L,causal", [(20, True), (50, False), (101, False), (7, False)])
+def test_mha_short_unaligned_loads(randn, L, causal):
+    # C % 4 != 0 (hd = 37): the same kernels with 4-byte loads and stores,
+    # forward and backward, against float64
+    n, H, hd = 2, 3, 37
+    C = H * hd
+    mask = causal_mask(L, device=randn(1).device) if causal else None
+    mask64 = None if mask is None else mask.double()
+    (qkv,) = _leaves(randn(n, L, 3 * C))
+    got = K.mha_short(*qkv.chunk(3, dim=-1), H, mask)
+    assert K.mha_short_launch_shape("mha_short")["load_bytes"] == 4
+    (qkv64,) = _leaves(qkv, double=True)
+    want = K.mha_short_plain(*qkv64.chunk(3, dim=-1), H, mask64)
+    assert _err(got, want) <= 2e-5
+    g = randn(n, L, C)
+    (dgot,) = torch.autograd.grad(got, qkv, g)
+    assert K.mha_short_launch_shape("mha_short_bwd")["load_bytes"] == 4
+    (dwant,) = torch.autograd.grad(want, qkv64, g.double())
+    assert _err(dgot, dwant) <= 2e-5 * max(1.0, float(dwant.abs().max()))
+
+
+@pytest.mark.parametrize("N,H,L,C,causal", [(32, 8, 20, 512, True), (48, 8, 20, 512, True),
+                                            (32, 12, 50, 768, False), (48, 12, 50, 768, False),
+                                            (8, 32, 101, 2048, False), (3, 4, 65, 320, True)])
+def test_mha_short_launches_the_schedules_grid(randn, N, H, L, C, causal):
+    # the grids the launchers made are those tools/mha_schedule.py emulates
+    # (the CPU tests' tile map): the paths' shapes and one off every bucket
+    from tris_tpu_torch.tools.mha_schedule import block_counts
+
+    want = block_counts(N, H, L, L, C // H)
+    mask = causal_mask(L, device=randn(1).device) if causal else None
+    (qkv,) = _leaves(randn(N, L, 3 * C))
+    out = K.mha_short(*qkv.chunk(3, dim=-1), H, mask)
+    torch.autograd.grad(out, qkv, torch.ones_like(out))
+    for name in ("mha_short", "mha_short_bwd"):
+        got = K.mha_short_launch_shape(name)
+        assert got["load_bytes"] == 16
+        assert {k: got[k] for k in want[name]} == want[name], name
 
 
 @pytest.mark.parametrize("N,S,hw,T,m", [
@@ -270,15 +333,19 @@ def _leaves(*ts, double=False):
     return [(t.double() if double else t).detach().requires_grad_() for t in ts]
 
 
-@pytest.mark.parametrize("L,causal,fused", [(1, False, True), (20, True, True), (50, False, True),
-                                            (128, True, True), (128, False, False),
-                                            (37, True, False)])
-def test_mha_short_bwd(randn, L, causal, fused):
+@pytest.mark.parametrize("hd", K1_HEAD_DIMS)
+@pytest.mark.parametrize("L,causal,fused", [(1, False, True), (8, True, True), (16, False, True),
+                                            (17, True, False), (20, True, True), (50, False, True),
+                                            (56, True, True), (57, False, False), (64, True, True),
+                                            (65, False, True), (128, True, True),
+                                            (128, False, False), (37, True, False)])
+def test_mha_short_bwd(randn, L, causal, fused, hd):
     # against autograd of the plain version in float64: 2e-5 of the
     # gradient's scale (f32 sums of up to 128 products); fused: q, k, v are
     # strided column views of one qkv tensor and autograd sums their three
     # gradients into it
-    n, C, H = 3, 256, 4
+    n, H = 3, 4
+    C = H * hd
     mask = causal_mask(L, device=randn(1).device) if causal else None
     g = randn(n, L, C)
     if fused:
@@ -297,6 +364,19 @@ def test_mha_short_bwd(randn, L, causal, fused):
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert _err(a, b) <= 2e-5 * max(1.0, float(b.abs().max()))
+
+
+def test_mha_short_bwd_is_the_same_run_to_run(randn):
+    # no atomics and a fixed order of every sum: two backward runs at the
+    # critic's training shape agree bit for bit; one launch each
+    N, H, L, C = 48, 12, 50, 768
+    (qkv,) = _leaves(randn(N, L, 3 * C))
+    g = randn(N, L, C)
+    K.reset_launches()
+    first = _grads(lambda x: K.mha_short(*x.chunk(3, dim=-1), H), [qkv], [g])
+    second = _grads(lambda x: K.mha_short(*x.chunk(3, dim=-1), H), [qkv], [g])
+    assert K.launches["mha_short"] == 2 and K.launches["mha_short_bwd"] == 2
+    assert torch.equal(first[0], second[0])
 
 
 def test_mha_short_saves_nothing_without_grad(randn):

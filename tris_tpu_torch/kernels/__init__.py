@@ -16,7 +16,7 @@ from tris_tpu_torch.kernels.cross_attn import cross_attn, cross_attn_launch_shap
 from tris_tpu_torch.kernels.ema import EmaTable, ema_update, ema_update_plain
 from tris_tpu_torch.kernels.eval_metrics import eval_metrics, eval_metrics_plain, eval_tables
 from tris_tpu_torch.kernels.irn_loss import irn_loss, irn_loss_plain
-from tris_tpu_torch.kernels.mha import mha_short, mha_short_plain
+from tris_tpu_torch.kernels.mha import mha_short, mha_short_launch_shape, mha_short_plain
 from tris_tpu_torch.kernels.normalize import normalize_u8_nchw, normalize_u8_nchw_plain
 from tris_tpu_torch.kernels.path_max import path_max_affinity, path_max_affinity_plain
 from tris_tpu_torch.kernels.pixel_attn import pixel_attn, pixel_attn_plain
@@ -29,7 +29,8 @@ from tris_tpu_torch.kernels.walk import (
 
 __all__ = [
     "KERNELS", "build_all", "launches", "reset_launches",
-    "mha_short", "mha_short_plain", "cross_attn", "cross_attn_plain", "cross_attn_launch_shape",
+    "mha_short", "mha_short_plain", "mha_short_launch_shape",
+    "cross_attn", "cross_attn_plain", "cross_attn_launch_shape",
     "response_head", "response_head_plain", "stage1_head", "stage1_head_plain",
     "eval_metrics", "eval_metrics_plain", "eval_tables",
     "critic_input", "critic_input_plain", "normalize_u8_nchw", "normalize_u8_nchw_plain",

@@ -67,7 +67,8 @@ void launched(cudaError_t err, const char* name) {
 
 cudaStream_t stream() { return at::cuda::getCurrentCUDAStream().stream(); }
 
-// The shape of the last launch of each of K2's kernels, as its launcher made it.
+// The shape of the last launch of each of K1's and K2's kernels, as its launcher made it.
+std::map<std::string, tris::MhaLaunchShape> k1_shapes;
 std::map<std::string, tris::LaunchShape> k2_shapes;
 
 template <typename T>
@@ -90,7 +91,8 @@ at::Tensor mha_short(const at::Tensor& q, const at::Tensor& k, const at::Tensor&
   launched(tris::mha_short(q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
                            ptr<float>(mask), out.data_ptr<float>(), N, Lq, k.size(1),
                            C / n_head, n_head, q.stride(0), q.stride(1), k.stride(0),
-                           k.stride(1), v.stride(0), v.stride(1), (float)scale, stream()),
+                           k.stride(1), v.stride(0), v.stride(1), (float)scale, stream(),
+                           &k1_shapes["mha_short"]),
            "mha_short");
   return out;
 }
@@ -116,9 +118,27 @@ std::vector<at::Tensor> mha_short_bwd(const at::Tensor& dout, const at::Tensor& 
                                v.data_ptr<float>(), ptr<float>(mask), dq.data_ptr<float>(),
                                dk.data_ptr<float>(), dv.data_ptr<float>(), N, Lq, Lk, C / n_head,
                                n_head, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                               v.stride(0), v.stride(1), (float)scale, stream()),
+                               v.stride(0), v.stride(1), (float)scale, stream(),
+                               &k1_shapes["mha_short_bwd"]),
            "mha_short_bwd");
   return {dq, dk, dv};
+}
+
+// Whether K1's kernels take (Lq, Lk, hd), forward or (with backward) both (launchers.h).
+bool mha_short_takes(int64_t Lq, int64_t Lk, int64_t hd, bool backward) {
+  return Lq <= INT32_MAX && Lk <= INT32_MAX && hd <= INT32_MAX &&
+         tris::mha_short_takes((int)Lq, (int)Lk, (int)hd, backward);
+}
+
+// The last launch of K1's `name` (mha_short, mha_short_bwd) in this process: blocks,
+// threads a block, bytes of shared memory a block, the length and head-dim buckets and
+// the bytes of each global load.
+std::map<std::string, int64_t> mha_short_launch_shape(const std::string& name) {
+  const auto it = k1_shapes.find(name);
+  TORCH_CHECK(it != k1_shapes.end(), "mha_short_launch_shape: no launch of ", name);
+  const tris::MhaLaunchShape& s = it->second;
+  return {{"blocks", s.blocks}, {"threads", s.threads}, {"smem_bytes", s.smem},
+          {"lp", s.lp}, {"hd_bucket", s.hd_bucket}, {"load_bytes", s.load_bytes}};
 }
 
 // K2: qv, kv, vv [N, HW, m]; qt, kt, vt [N*S, T, m]. Returns (new_vis
@@ -704,6 +724,8 @@ void ema_update(const at::Tensor& table, const at::Tensor& starts, int64_t n_chu
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mha_short", &mha_short, "K1: short-sequence multi-head attention");
   m.def("mha_short_bwd", &mha_short_bwd, "K1 backward");
+  m.def("mha_short_takes", &mha_short_takes, "K1: whether its kernels take (Lq, Lk, hd)");
+  m.def("mha_short_launch_shape", &mha_short_launch_shape, "K1: its last launch's grid");
   m.def("cross_attn", &cross_attn, "K2: BilateralPrompt cross-attention");
   m.def("cross_attn_bwd", &cross_attn_bwd, "K2 backward (one sentence per image)");
   m.def("cross_attn_takes", &cross_attn_takes, "K2: whether its kernels take width m");

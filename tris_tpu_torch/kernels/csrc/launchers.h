@@ -25,19 +25,84 @@ struct TapRanges {
   const int *lo_begin, *lo_end, *hi_begin, *hi_end;
 };
 
+// K1: a block per (sequence, head) holds the head's operands padded to
+// lp = mha_short_len_bucket(max(Lq, Lk), backward) rows and hd_bucket = mha_short_hd_bucket(hd)
+// channels, each staged row followed by kMhaShortPad floats, and P (backward: P, then dS in
+// its place) in rows of mha_short_prob_pitch(lp) floats. Its mha_short_threads(lp) threads
+// hold register tiles of mha_short_rows(lp) rows (or keys) each: kMhaShortRows below lp =
+// kMhaShortLong, kMhaShortRowsLong from there; a row's keys and a row's channels are spread
+// over kMhaShortLanes lanes of one warp. The forward holds q, k and v; the backward
+// mha_short_bwd_buffers(lp, hd_bucket) operands at once.
+constexpr int kMhaShortMaxLen = 128;
+constexpr int kMhaShortMaxHeadDim = 128;
+constexpr int kMhaShortRows = 2;
+constexpr int kMhaShortRowsLong = 4;
+constexpr int kMhaShortLong = 64;
+constexpr int kMhaShortLanes = 8;
+constexpr int kMhaShortPad = 4;
+constexpr int kMhaShortProbPad = 8;
+constexpr long long kMhaShortMaxSmem = 227 * 1024;  // bytes one block may use on Hopper
+// the forward also has a 56-row bucket (the ViT's 50 tokens); the backward, whose
+// products over keys take a thread's keys as float4s, goes from 32 to 64
+constexpr int mha_short_len_bucket(int L, bool backward) {
+  return L <= 16 ? 16 : L <= 32 ? 32 : L <= 56 && !backward ? 56 : L <= 64 ? 64 : 128;
+}
+constexpr int mha_short_hd_bucket(int hd) { return hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
+constexpr int mha_short_rows(int lp) {
+  return lp >= kMhaShortLong ? kMhaShortRowsLong : kMhaShortRows;
+}
+constexpr int mha_short_threads(int lp) { return lp / mha_short_rows(lp) * kMhaShortLanes; }
+// floats of one staged operand and of the P / dS tile
+constexpr long long mha_short_operand(int lp, int hdb) {
+  return (long long)lp * (hdb + kMhaShortPad);
+}
+// P's rows: the bucket rounded up to 32 floats plus kMhaShortProbPad, so consecutive rows
+// start kMhaShortProbPad banks apart
+constexpr int mha_short_prob_pitch(int lp) { return (lp + 31) / 32 * 32 + kMhaShortProbPad; }
+constexpr long long mha_short_probs(int lp) {
+  return (long long)lp * mha_short_prob_pitch(lp);
+}
+// operands the backward holds at once: q, dO and k (then v, then k again) where they
+// fit beside P, else q and k (then dO and v, then q and k again)
+constexpr int mha_short_bwd_buffers(int lp, int hdb) {
+  return 4 * (3 * mha_short_operand(lp, hdb) + mha_short_probs(lp)) <= kMhaShortMaxSmem ? 3 : 2;
+}
+// bytes of dynamic shared memory a block takes: forward, P over q and k once the logits
+// are formed, and v; backward, the operands it holds at once and P / dS
+constexpr long long mha_short_smem(int lp, int hdb, bool backward) {
+  const long long op = mha_short_operand(lp, hdb), pr = mha_short_probs(lp);
+  if (!backward) return 4 * ((2 * op > pr ? 2 * op : pr) + op);
+  return 4 * (mha_short_bwd_buffers(lp, hdb) * op + pr);
+}
+// the shapes the kernels take: 1 <= Lq, Lk <= kMhaShortMaxLen, 1 <= hd <= kMhaShortMaxHeadDim,
+// and the block's shared memory within kMhaShortMaxSmem
+constexpr bool mha_short_takes(int Lq, int Lk, int hd, bool backward) {
+  return Lq >= 1 && Lk >= 1 && hd >= 1 && Lq <= kMhaShortMaxLen && Lk <= kMhaShortMaxLen &&
+         hd <= kMhaShortMaxHeadDim &&
+         mha_short_smem(mha_short_len_bucket(Lq > Lk ? Lq : Lk, backward),
+                        mha_short_hd_bucket(hd), backward) <= kMhaShortMaxSmem;
+}
+// A launch of K1 as its launcher made it: blocks, threads a block, the length and head-dim
+// buckets, the bytes of each global load (16, or 4 where a pointer, a stride or hd is not
+// a multiple of 16 bytes) and bytes of dynamic shared memory a block.
+struct MhaLaunchShape {
+  int blocks, threads, lp, hd_bucket, load_bytes;
+  long long smem;
+};
+
 // K1: q/k/v element (n, l, c) at base + n*x_seq + l*x_row + c; out [N, Lq, n_head*hd];
-// mask [Lq, Lk] or null.
+// mask [Lq, Lk] or null. *shape receives the launch's shape.
 cudaError_t mha_short(const float* q, const float* k, const float* v, const float* mask,
                       float* out, int N, int Lq, int Lk, int hd, int n_head, int64_t q_seq,
                       int64_t q_row, int64_t k_seq, int64_t k_row, int64_t v_seq,
-                      int64_t v_row, float scale, cudaStream_t stream);
+                      int64_t v_row, float scale, cudaStream_t stream, MhaLaunchShape* shape);
 
 // K1 backward: dout [N, Lq, C]; q/k/v as the forward; dq [N, Lq, C], dk and dv [N, Lk, C].
 cudaError_t mha_short_bwd(const float* dout, const float* q, const float* k, const float* v,
                           const float* mask, float* dq, float* dk, float* dv, int N, int Lq,
                           int Lk, int hd, int n_head, int64_t q_seq, int64_t q_row,
                           int64_t k_seq, int64_t k_row, int64_t v_seq, int64_t v_row,
-                          float scale, cudaStream_t stream);
+                          float scale, cudaStream_t stream, MhaLaunchShape* shape);
 
 // K2: qv/kv/vv [P/S, HW, m]; qt/kt/vt [P, T, m]; new_vis [P, HW, m]; new_lan [P, T, m].
 // Its kernels (cross_attn.cu, cross_attn_bwd.cu, cross_attn_tiles.cuh) take tiles of

@@ -3,92 +3,71 @@
 // Replaces the JAX package's hand-shaped XLA attention,
 // tris_tpu/models/layers.py::multi_head_attention (lines 25-48):
 //   out = softmax((q * hd^-1/2) . k^T + mask) . v
-// per (sequence, head), q scaled BEFORE the dot and the mask additive (-inf
-// for the causal mask, so masked logits vanish in the exp).
+// per (sequence, head), q scaled and rounded BEFORE the dot and the mask
+// additive (-inf for the causal mask, so masked logits vanish in the exp).
 //
-// Shapes on the stage-1 path: the CLIP text tower, L = 20 causal, 8 heads,
-// hd 64, over N = B*S sequences, 12 launches per forward. The same kernel
-// takes attnpool's 101 tokens (32 heads) and the critic's 50 (12 heads).
+// Shapes on the paths, hd = 64: the CLIP text towers, L = 20 causal, 8 heads
+// (N = 32 at eval, 48 in training), and the ViT-B/32 critic, L = 50, 12
+// heads (N = 32 in PRMS, 48 in training). attnpool's 101 tokens (32 heads)
+// are taken too, on no path.
 //
-// Bound: at L <= 128 the work is ~4*L*hd flops per loaded q/k/v float, far
-// below the card's flop:byte ratio, so it is bound by the bytes of q, k, v
-// and out. Design: one block per (sequence, head) keeps that head's whole K
-// and V tile in shared memory (read from device memory once); each warp
-// takes query rows in turn, lanes over keys for the logits (K rows padded to
-// hd+1 floats so lanes hit distinct banks) and over channels for P.V. The
-// logits and the softmax live in shared memory; nothing but out is written.
+// Bound: at these shapes the FP32 products (4 L^2 hd flops a head) and the
+// bytes of q, k, v and out are within 2x of each other: the ViT's 0.0037 ms
+// of FFMA against 0.0059 of bytes at N = 32. Design (mha_short_tiles.cuh): a
+// block per (sequence, head) stages the head's q (scaled), k and v once with
+// 16-byte cp.async copies, padded to the length bucket (50 tokens to 56) and
+// the head-dim bucket, v landing while the logits are formed; each thread
+// forms a (2 or 4)-row x (LP/8)-key tile of the logits in registers, several
+// FFMAs per 16-byte shared-memory read; the softmax runs in registers with
+// three shuffles a row; P goes to shared memory over q and k, and each
+// thread forms its rows x (HD/8) channels of P V, written with 16-byte
+// stores.
 
-#include "common.cuh"
-#include "launchers.h"
+#include "mha_short_tiles.cuh"
 
 namespace {
 
-using tris::warp_max;
-using tris::warp_sum;
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+using namespace tris::mha;
 
 // q/k/v element (n, l, h*hd + d) lives at base + n*seq + l*row + h*hd + d;
 // out is contiguous [N, Lq, n_head*hd]; mask is [Lq, Lk] or null.
-__global__ void __launch_bounds__(kThreads)
+template <int LP, int HD, bool VEC>
+__global__ void __launch_bounds__(Tiles<LP, HD>::kThreads)
 mha_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ mask,
-                 float* __restrict__ out, int Lq, int Lk, int hd, int n_head,
-                 long long q_seq, long long q_row, long long k_seq, long long k_row,
-                 long long v_seq, long long v_row, float scale) {
-  extern __shared__ float smem[];
-  const int kp = hd + 1;                       // padded K row
-  float* ks = smem;                            // [Lk, hd+1]
-  float* vs = ks + Lk * kp;                    // [Lk, hd]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qs = vs + Lk * hd + warp * (hd + Lk);  // this warp's scaled q row
-  float* ps = qs + hd;                          // this warp's probabilities
+                 float* __restrict__ out, int Lq, int Lk, int hd, int n_head, long long q_seq,
+                 long long q_row, long long k_seq, long long k_row, long long v_seq,
+                 long long v_row, float scale) {
+  using T = Tiles<LP, HD>;
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const ks = qs + T::kOperand;
+  float* const ps = qs;  // P, over q and k once the logits are formed
+  constexpr int kFront = 2 * T::kOperand > LP * T::kPPitch ? 2 * T::kOperand : LP * T::kPPitch;
+  float* const vs = qs + kFront;
 
-  const int h = blockIdx.x, n = blockIdx.y;
-  const float* kb = k + n * k_seq + h * hd;
-  const float* vb = v + n * v_seq + h * hd;
-  for (int i = threadIdx.x; i < Lk * hd; i += kThreads) {
-    const int j = i / hd, d = i % hd;
-    ks[j * kp + d] = kb[j * k_row + d];
-    vs[j * hd + d] = vb[j * v_row + d];
-  }
+  const int n = blockIdx.x / n_head, h = blockIdx.x % n_head;
+  const long long col = (long long)h * hd;
+  stage<LP, HD, VEC>(qs, q + n * q_seq + col, q_row, Lq, hd);
+  stage<LP, HD, VEC>(ks, k + n * k_seq + col, k_row, Lk, hd);
+  tris::cp_async_commit();
+  stage<LP, HD, VEC>(vs, v + n * v_seq + col, v_row, Lk, hd);
+  staged<LP, HD, 1>(qs, scale);  // v lands while the logits are formed
   __syncthreads();
 
-  const int C = n_head * hd;
-  for (int i = warp; i < Lq; i += kWarps) {
-    const float* qr = q + n * q_seq + i * q_row + h * hd;
-    for (int d = lane; d < hd; d += 32) qs[d] = qr[d] * scale;
-    __syncwarp();
+  float s[T::kRows][T::kKeys] = {};
+  logits<LP, HD>(qs, ks, s);
+  softmax<LP, HD>(s, mask, Lq, Lk);
+  tris::cp_async_wait<0>();
+  __syncthreads();  // every thread's logits formed and v landed: P may overwrite q and k
+  put_probs<LP, HD>(ps, s);
+  __syncthreads();
 
-    float m = -INFINITY;
-    for (int j = lane; j < Lk; j += 32) {
-      const float* kr = ks + j * kp;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qs[d], kr[d], s);
-      if (mask) s += mask[i * Lk + j];
-      ps[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(ps[j] - m);
-      ps[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Lk; j += 32) ps[j] = ps[j] / sum;
-    __syncwarp();
-
-    float* orow = out + ((long long)n * Lq + i) * C + h * hd;
-    for (int d = lane; d < hd; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < Lk; ++j) acc = fmaf(ps[j], vs[j * hd + d], acc);
-      orow[d] = acc;
-    }
-    __syncwarp();
-  }
+  float4 o[T::kRows][T::kChan4] = {};
+  rows_by_keys<LP, HD>(ps, vs, (Lk + 3) / 4 * 4, o);
+  const int ty = group_y();
+  put_rows<LP, HD, VEC>(out + (long long)n * Lq * n_head * hd + col, (long long)n_head * hd, Lq,
+                        hd, 1.f, o, [&](int i) { return ty + i * T::kGroups; });
 }
 
 }  // namespace
@@ -96,13 +75,21 @@ mha_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
 cudaError_t tris::mha_short(const float* q, const float* k, const float* v, const float* mask,
                             float* out, int N, int Lq, int Lk, int hd, int n_head,
                             int64_t q_seq, int64_t q_row, int64_t k_seq, int64_t k_row,
-                            int64_t v_seq, int64_t v_row, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)Lk * (hd + 1) + (size_t)Lk * hd +
-                                       (size_t)kWarps * (hd + Lk));
-  const cudaError_t err = tris::allow_smem(mha_short_kernel, smem);
-  if (err != cudaSuccess) return err;
-  mha_short_kernel<<<dim3(n_head, N), kThreads, smem, stream>>>(
-      q, k, v, mask, out, Lq, Lk, hd, n_head, q_seq, q_row, k_seq, k_row, v_seq,
-      v_row, scale);
-  return cudaGetLastError();
+                            int64_t v_seq, int64_t v_row, float scale, cudaStream_t stream,
+                            MhaLaunchShape* shape) {
+  if (!mha_short_takes(Lq, Lk, hd, false)) return cudaErrorInvalidValue;
+  const int lp = mha_short_len_bucket(Lq > Lk ? Lq : Lk, false), hdb = mha_short_hd_bucket(hd);
+  const bool vec = aligned16({q, k, v, out}, {q_seq, q_row, k_seq, k_row, v_seq, v_row}, hd);
+  return dispatch<false>(lp, hdb, vec, [&](auto L, auto H, auto V) {
+    constexpr int LP = decltype(L)::value, HD = decltype(H)::value;
+    static_assert(mha_short_smem(LP, HD, false) ==
+                      4LL * ((2 * Tiles<LP, HD>::kOperand > LP * Tiles<LP, HD>::kPPitch
+                                  ? 2 * Tiles<LP, HD>::kOperand
+                                  : LP * Tiles<LP, HD>::kPPitch) +
+                             Tiles<LP, HD>::kOperand),
+                  "launchers.h's shared memory is the kernel's layout");
+    return launch(mha_short_kernel<LP, HD, decltype(V)::value>, LP, HD, decltype(V)::value, false,
+                  N, n_head, stream, shape, q, k, v, mask, out, Lq, Lk, hd, n_head, q_seq, q_row,
+                  k_seq, k_row, v_seq, v_row, scale);
+  });
 }

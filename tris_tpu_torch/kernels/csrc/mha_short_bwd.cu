@@ -5,133 +5,130 @@
 // P = softmax((q * s) . k^T + mask) per (sequence, head), s = hd^-1/2,
 //   dP = dO . V^T,  D_i = sum_j P_ij dP_ij,  dS = P * (dP - D),
 //   dq = s * dS . K,  dk = dS^T . (q * s),  dv = P^T . dO.
-// D_i uses P and dP, so the forward's output is not needed.
+// D_i uses P and dP, so the forward's output is not needed, and P is formed
+// again from q and k rather than saved.
 //
 // Shapes on the stage-1 train path: the stage-1 text tower (N = 48, L = 20
 // causal, 8 heads) and the frozen ViT-B/32 critic's vision tower (N = 48,
 // L = 50, 12 heads), hd = 64; 24 launches per step. The critic's text tower
 // runs without autograd and never reaches this kernel.
 //
-// Bound: bytes - q, k, v, dO read once and dq, dk, dv written once; about
-// 10 * L flops per float moved, below the card's flop:byte ratio at L <= 128.
-// Design: one block per (sequence, head), as the forward. K and V live in
-// shared memory (rows padded to hd+1 floats so lanes over keys hit distinct
-// banks). P is recomputed from q and k, never saved by the forward: each warp
-// takes query rows in turn, forms its logits and softmax exactly as the
-// forward kernel does, then dP, D and dS, keeping P and dS in shared memory
-// ([Lq, Lk+1] each), and writes its dq row. After a barrier each warp takes
-// key rows and forms dk and dv with lanes over channels, reading q and dO
-// rows from device memory (L2) coalesced. A -inf mask entry gives P = 0 and
-// dS = 0 exactly. Every output element is summed by one thread in a fixed
-// order: the result does not change from run to run.
+// Bound: bytes - q, k, v, dO read once and dq, dk, dv written once (0.0154
+// ms for the ViT at N = 48) - with the five L^2 hd products close behind
+// (0.0110 ms of FFMA). Design (mha_short_tiles.cuh): a block per (sequence,
+// head), the forward's staging and register tiles (the length buckets
+// without 56: the products over keys take a thread's 4 keys as one float4).
+// P is formed again in registers and goes to shared memory; dV = P^T dO;
+// dP = dO V^T in the logits' layout, D by three shuffles a row, and
+// dS = P (dP - D) is written over P; then dK = dS^T (q s) and dQ = s dS K.
+// No operand is read from device memory inside a product. Three operands
+// are held at once (q, dO, and k, then v, then k again), so three blocks fit
+// on an SM at the ViT's shape: v is staged while dV is formed and k again
+// while dK is; where three do not fit beside P (lp = hd = 128), two (q and k,
+// then dO and v, then q and k). A -inf mask entry gives P = 0 and dS = 0
+// exactly. Every output element is summed by one thread in a fixed order:
+// the result does not change from run to run.
 
-#include "common.cuh"
-#include "launchers.h"
+#include "mha_short_tiles.cuh"
 
 namespace {
 
-using tris::warp_max;
-using tris::warp_sum;
+using namespace tris::mha;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-__global__ void __launch_bounds__(kThreads)
+template <int LP, int HD, bool VEC, int BUFS>
+__global__ void __launch_bounds__(Tiles<LP, HD>::kThreads)
 mha_short_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ q,
                      const float* __restrict__ k, const float* __restrict__ v,
                      const float* __restrict__ mask, float* __restrict__ dq,
                      float* __restrict__ dk, float* __restrict__ dv, int Lq, int Lk, int hd,
                      int n_head, long long q_seq, long long q_row, long long k_seq,
                      long long k_row, long long v_seq, long long v_row, float scale) {
-  extern __shared__ float smem[];
-  const int kp = hd + 1, pp = Lk + 1;
-  float* ks = smem;                 // [Lk, hd+1]
-  float* vs = ks + Lk * kp;         // [Lk, hd+1]
-  float* ps = vs + Lk * kp;         // [Lq, Lk+1] probabilities
-  float* dss = ps + Lq * pp;        // [Lq, Lk+1] gradient of the logits
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qs = dss + Lq * pp + warp * 2 * hd;  // this warp's scaled q row
-  float* gs = qs + hd;                        // this warp's dO row
+  static_assert(BUFS == 2 || BUFS == 3, "two or three staged operands");
+  using T = Tiles<LP, HD>;
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const ks = qs + T::kOperand;  // k, then v, then k again
+  float* const vs = ks;
+  float* const gs = BUFS == 3 ? ks + T::kOperand : qs;  // dO
+  float* const ps = qs + BUFS * T::kOperand;            // P, then dS in its place
 
-  const int h = blockIdx.x, n = blockIdx.y, C = n_head * hd;
-  const float* kb = k + n * k_seq + h * hd;
-  const float* vb = v + n * v_seq + h * hd;
-  for (int i = threadIdx.x; i < Lk * hd; i += kThreads) {
-    const int j = i / hd, d = i % hd;
-    ks[j * kp + d] = kb[j * k_row + d];
-    vs[j * kp + d] = vb[j * v_row + d];
+  const int n = blockIdx.x / n_head, h = blockIdx.x % n_head, ty = group_y();
+  const long long col = (long long)h * hd, C = (long long)n_head * hd;
+  const float* const qb = q + n * q_seq + col;
+  const float* const kb = k + n * k_seq + col;
+  const float* const vb = v + n * v_seq + col;
+  const float* const gb = dout + (long long)n * Lq * C + col;
+
+  stage<LP, HD, VEC>(qs, qb, q_row, Lq, hd);
+  stage<LP, HD, VEC>(ks, kb, k_row, Lk, hd);
+  if constexpr (BUFS == 3) {
+    tris::cp_async_commit();
+    stage<LP, HD, VEC>(gs, gb, C, Lq, hd);  // dO lands while P is formed
+    staged<LP, HD, 1>(qs, scale);
+  } else {
+    staged<LP, HD>(qs, scale);
   }
   __syncthreads();
 
-  for (int i = warp; i < Lq; i += kWarps) {
-    const float* qr = q + n * q_seq + i * q_row + h * hd;
-    const float* gr = dout + ((long long)n * Lq + i) * C + h * hd;
-    for (int d = lane; d < hd; d += 32) {
-      qs[d] = qr[d] * scale;
-      gs[d] = gr[d];
-    }
-    __syncwarp();
-    float* prow = ps + i * pp;
-    float* drow = dss + i * pp;
-
-    // P, as the forward computes it
-    float m = -INFINITY;
-    for (int j = lane; j < Lk; j += 32) {
-      const float* kr = ks + j * kp;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qs[d], kr[d], s);
-      if (mask) s += mask[i * Lk + j];
-      prow[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(prow[j] - m);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-
-    // dP, D, dS
-    float dsum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float p = prow[j] / sum;
-      const float* vr = vs + j * kp;
-      float dp = 0.f;
-      for (int d = 0; d < hd; ++d) dp = fmaf(gs[d], vr[d], dp);
-      prow[j] = p;
-      drow[j] = dp;
-      dsum = fmaf(p, dp, dsum);
-    }
-    dsum = warp_sum(dsum);
-    for (int j = lane; j < Lk; j += 32) drow[j] = prow[j] * (drow[j] - dsum);
-    __syncwarp();
-
-    float* dqr = dq + ((long long)n * Lq + i) * C + h * hd;
-    for (int d = lane; d < hd; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < Lk; ++j) acc = fmaf(drow[j], ks[j * kp + d], acc);
-      dqr[d] = acc * scale;
-    }
-    __syncwarp();
+  {  // P, as the forward forms it
+    float s[T::kRows][T::kKeys] = {};
+    logits<LP, HD>(qs, ks, s);
+    softmax<LP, HD>(s, mask, Lq, Lk);
+    __syncthreads();  // every thread's logits formed: v may overwrite k (with two, dO q)
+    stage<LP, HD, VEC>(vs, vb, v_row, Lk, hd);
+    if constexpr (BUFS == 2) stage<LP, HD, VEC>(gs, gb, C, Lq, hd);
+    put_probs<LP, HD>(ps, s);
   }
+  staged<LP, HD, BUFS == 3 ? 1 : 0>(nullptr, 1.f);  // dO landed; with three, v may be landing
   __syncthreads();
 
-  const float* qb = q + n * q_seq + h * hd;
-  const float* gb = dout + (long long)n * Lq * C + h * hd;
-  for (int j = warp; j < Lk; j += kWarps) {
-    float* dkr = dk + ((long long)n * Lk + j) * C + h * hd;
-    float* dvr = dv + ((long long)n * Lk + j) * C + h * hd;
-    for (int d = lane; d < hd; d += 32) {
-      float ak = 0.f, av = 0.f;
-      for (int i = 0; i < Lq; ++i) {
-        ak = fmaf(dss[i * pp + j], qb[i * q_row + d] * scale, ak);
-        av = fmaf(ps[i * pp + j], gb[(long long)i * C + d], av);
-      }
-      dkr[d] = ak;
-      dvr[d] = av;
+  const auto key_of = [&](int i) { return T::kRows * ty + i; };
+  const auto row_of = [&](int i) { return ty + i * T::kGroups; };
+  {  // dV = P^T dO, while v lands
+    float4 acc[T::kRows][T::kChan4] = {};
+    keys_by_rows<LP, HD>(ps, gs, Lq, acc);
+    put_rows<LP, HD, VEC>(dv + (long long)n * Lk * C + col, C, Lk, hd, 1.f, acc, key_of);
+  }
+  tris::cp_async_wait<0>();
+  __syncthreads();  // v landed, and dV's reads of P done: dS may overwrite P
+
+  {  // dP = dO V^T in the logits' layout, D, and dS = P (dP - D) over P
+    float ds[T::kRows][T::kKeys] = {};
+    logits<LP, HD>(gs, vs, ds);
+#pragma unroll
+    for (int i = 0; i < T::kRows; ++i) {
+      float d = 0.f;
+#pragma unroll
+      for (int j = 0; j < T::kKeys; ++j) d = fmaf(get_prob<LP, HD>(ps, i, j), ds[i][j], d);
+      d = lanes_sum(d);
+#pragma unroll
+      for (int j = 0; j < T::kKeys; ++j) ds[i][j] = get_prob<LP, HD>(ps, i, j) * (ds[i][j] - d);
     }
+    put_probs<LP, HD>(ps, ds);
+  }
+  __syncthreads();  // dS written, dP's reads of v and dO done: k may overwrite v
+  stage<LP, HD, VEC>(ks, kb, k_row, Lk, hd);
+  if constexpr (BUFS == 2) {
+    stage<LP, HD, VEC>(qs, qb, q_row, Lq, hd);
+    staged<LP, HD>(qs, scale);
+    __syncthreads();
+  } else {
+    tris::cp_async_commit();
+  }
+
+  {  // dK = dS^T (q s), while k lands (with three)
+    float4 acc[T::kRows][T::kChan4] = {};
+    keys_by_rows<LP, HD>(ps, qs, Lq, acc);
+    put_rows<LP, HD, VEC>(dk + (long long)n * Lk * C + col, C, Lk, hd, 1.f, acc, key_of);
+  }
+  if constexpr (BUFS == 3) {
+    tris::cp_async_wait<0>();
+    __syncthreads();
+  }
+  {  // dQ = s dS K
+    float4 acc[T::kRows][T::kChan4] = {};
+    rows_by_keys<LP, HD>(ps, ks, (Lk + 3) / 4 * 4, acc);
+    put_rows<LP, HD, VEC>(dq + (long long)n * Lq * C + col, C, Lq, hd, scale, acc, row_of);
   }
 }
 
@@ -141,13 +138,19 @@ cudaError_t tris::mha_short_bwd(const float* dout, const float* q, const float* 
                                 const float* mask, float* dq, float* dk, float* dv, int N, int Lq,
                                 int Lk, int hd, int n_head, int64_t q_seq, int64_t q_row,
                                 int64_t k_seq, int64_t k_row, int64_t v_seq, int64_t v_row,
-                                float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)Lk * (hd + 1) + 2 * (size_t)Lq * (Lk + 1) +
-                                       (size_t)kWarps * 2 * hd);
-  const cudaError_t err = tris::allow_smem(mha_short_bwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  mha_short_bwd_kernel<<<dim3(n_head, N), kThreads, smem, stream>>>(
-      dout, q, k, v, mask, dq, dk, dv, Lq, Lk, hd, n_head, q_seq, q_row, k_seq, k_row, v_seq,
-      v_row, scale);
-  return cudaGetLastError();
+                                float scale, cudaStream_t stream, MhaLaunchShape* shape) {
+  if (!mha_short_takes(Lq, Lk, hd, true)) return cudaErrorInvalidValue;
+  const int lp = mha_short_len_bucket(Lq > Lk ? Lq : Lk, true), hdb = mha_short_hd_bucket(hd);
+  const bool vec =
+      aligned16({dout, q, k, v, dq, dk, dv}, {q_seq, q_row, k_seq, k_row, v_seq, v_row}, hd);
+  return dispatch<true>(lp, hdb, vec, [&](auto L, auto H, auto V) {
+    constexpr int LP = decltype(L)::value, HD = decltype(H)::value;
+    constexpr int kBufs = mha_short_bwd_buffers(LP, HD);
+    using T = Tiles<LP, HD>;
+    static_assert(mha_short_smem(LP, HD, true) == 4LL * (kBufs * T::kOperand + LP * T::kPPitch),
+                  "launchers.h's shared memory is the kernel's layout");
+    return launch(mha_short_bwd_kernel<LP, HD, decltype(V)::value, kBufs>, LP, HD,
+                  decltype(V)::value, true, N, n_head, stream, shape, dout, q, k, v, mask, dq, dk,
+                  dv, Lq, Lk, hd, n_head, q_seq, q_row, k_seq, k_row, v_seq, v_row, scale);
+  });
 }

@@ -9,6 +9,11 @@ hand-written kernel: it recomputes the probabilities from q and k rather
 than saving them, and returns dq, dk and dv as three tensors, which
 autograd sums into the fused qkv tensor's gradient where q, k and v are its
 column views. The mask gets no gradient.
+
+The kernels take 1 <= Lq, Lk <= 128 and 1 <= hd <= 128, forward and
+backward (``csrc/launchers.h::mha_short_takes``, which the extension
+exposes): another shape raises ``ValueError`` here, before any launch.
+``mha_short_launch_shape`` reads back the grid of the last launch.
 """
 
 from __future__ import annotations
@@ -18,9 +23,6 @@ from typing import Optional
 import torch
 
 from tris_tpu_torch.kernels import build
-
-MAX_LEN = 128
-MAX_HEAD_DIM = 128
 
 
 def mha_short_plain(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = None):
@@ -38,13 +40,6 @@ def mha_short_plain(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = No
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("nhqk,nhkd->nhqd", weights, vh)
     return out.transpose(1, 2).reshape(N, Lq, C)
-
-
-def bwd_smem_bytes(Lq: int, Lk: int, hd: int) -> int:
-    """Shared memory of one backward block (as ``csrc/mha_short_bwd.cu``
-    lays it out): K and V padded, P and dS, and for each of its 8 warps a q
-    and a dO row."""
-    return 4 * (2 * Lk * (hd + 1) + 2 * Lq * (Lk + 1) + 8 * 2 * hd)
 
 
 class _MhaShort(torch.autograd.Function):
@@ -66,6 +61,15 @@ class _MhaShort(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def mha_short_launch_shape(name: str) -> dict:
+    """The grid of the last launch of K1's ``name`` (``mha_short`` or
+    ``mha_short_bwd``) on the card, as its launcher made it: ``blocks``,
+    ``threads``, ``smem_bytes``, the buckets ``lp`` and ``hd_bucket``, and
+    ``load_bytes`` (16, or 4 where a pointer, a stride or hd is not a
+    multiple of 16 bytes)."""
+    return dict(build.ops().mha_short_launch_shape(name))
+
+
 def mha_short(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = None):
     """K1 on CUDA tensors; the plain version on CPU tensors.
 
@@ -80,9 +84,6 @@ def mha_short(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = None):
     if C % n_head or k.shape != (N, Lk, C) or v.shape != (N, Lk, C):
         raise ValueError(f"mha_short: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} n_head={n_head}")
-    if max(Lq, Lk) > MAX_LEN or hd > MAX_HEAD_DIM:
-        raise ValueError(f"mha_short: L <= {MAX_LEN} and head dim <= {MAX_HEAD_DIM} "
-                         f"(got Lq={Lq}, Lk={Lk}, hd={hd})")
     for t in (q, k, v):
         if t.stride(2) != 1:
             raise ValueError("mha_short: channels must be contiguous")
@@ -91,7 +92,7 @@ def mha_short(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = None):
             raise ValueError(f"mha_short: mask must be [{Lq}, {Lk}], got {tuple(attn_mask.shape)}")
         attn_mask = attn_mask.contiguous()
     save = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if save and bwd_smem_bytes(Lq, Lk, hd) > build.MAX_SMEM:
-        raise ValueError(f"mha_short: the backward at Lq={Lq}, Lk={Lk}, hd={hd} needs "
-                         f"{bwd_smem_bytes(Lq, Lk, hd)} bytes of shared memory (> {build.MAX_SMEM})")
+    if not build.ops().mha_short_takes(Lq, Lk, hd, save):
+        raise ValueError(f"mha_short: the kernels do not take Lq={Lq}, Lk={Lk}, hd={hd} "
+                         f"(L <= 128 and head dim <= 128: csrc/launchers.h::mha_short_takes)")
     return _MhaShort.apply(q, k, v, attn_mask, n_head, float(hd ** -0.5), save)

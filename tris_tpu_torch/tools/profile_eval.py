@@ -40,6 +40,8 @@ import time
 import numpy as np
 import torch
 
+# matched as substrings of the profiler's names, so every instantiation of a
+# templated kernel (K1's mha_short_kernel<56, 64, true>, ...) files under its own
 HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "cross_attn_probs_bwd_kernel", "cross_attn_grads_bwd_kernel",
                 "response_head_kernel", "bmm_kernel", "head_fwd_kernel", "maps_fwd_kernel",
