@@ -23,7 +23,9 @@ holds every number):
              forward and backward at IRN training's B=24, crop 512,
              radius 10; K11 forward at stage 2's
              c2, c3 and c4 for B=48 and for eval's 8 images x 4 pairs, its
-             backward at the train levels; K12 over the whole stage-2 tree,
+             backward at the train levels, each also against float64 and with
+             its launches' grids, the c2 backward twice, bit for bit, and
+             its two launches timed alone; K12 over the whole stage-2 tree,
              bit for bit; K6 bilinear forward and backward at the stage-2
              decoder's align_corners=False taps; K10's products also on a
              dense random operand against cuBLAS DGEMM and as the chain on a
@@ -163,13 +165,13 @@ IRN_LAUNCHES_PER_STEP = {"bilinear_resize": 6, "bilinear_resize_bwd": 6, "path_m
 TRAIN2_B, TRAIN2_STEPS, N_TRAIN2_BATCHES = 48, 4, 3
 # kernel launches per stage-2 step there: K1 in the student's and the
 # teacher's text towers (12 layers each), its backward in the student's;
-# K11 at c2, c3 and c4 in both forwards, its backward (three kernels) in the
+# K11 at c2, c3 and c4 in both forwards, its backward (two kernels) in the
 # student's; K6 bilinear at the decoder's three x2 taps and the four heads'
 # upsamples in both forwards, backward in the student's; K6 normalise once
 # (one u8 batch feeds both); K12 once
 TRAIN2_LAUNCHES_PER_STEP = {"mha_short": 24, "mha_short_bwd": 12, "normalize_u8": 1,
                             "bilinear_resize": 14, "bilinear_resize_bwd": 7, "pixel_attn": 6,
-                            "pixel_attn_bwd": 9, "ema_update": 1}
+                            "pixel_attn_bwd": 6, "ema_update": 1}
 # and per eval batch of stage 2's validate: the text tower, K11 at 3 levels,
 # K6 at the decoder's 3 taps and out1's upsample, the u8 feed, K4
 EVAL2_LAUNCHES_PER_BATCH = {"mha_short": 12, "pixel_attn": 3, "bilinear_resize": 4,
@@ -210,6 +212,28 @@ def device_ms(fn, n: int = 20, repeats: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
+
+
+def kernel_times(fn, names, n: int = 10) -> dict:
+    """Card ms per call of each kernel ``fn`` launches whose name holds one of
+    ``names``, from ``torch.profiler`` over ``n`` calls (CUDA events time the
+    call as a whole)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name in names:
+            if name + "_kernel" in ev.key:
+                out[name] += us / n / 1e3
+    return out
 
 
 def host_ms(fn) -> float:
@@ -1157,6 +1181,7 @@ def check_stage2_kernels(K, dev, model):
     import torch
     import torch.nn.functional as F
 
+    from tris_tpu_torch.kernels import build
     from tris_tpu_torch.train.stage2 import Stage2TrainConfig, ema_decay
     from tris_tpu_torch.train.state import ema_leaves, make_teacher
 
@@ -1171,10 +1196,17 @@ def check_stage2_kernels(K, dev, model):
     levels = [(f"c{i}", (SIZE // 2 ** (i + 1)) ** 2, 64 * 2 ** (i + 1)) for i in (2, 3, 4)]
 
     def pixel_fwd(name, N, S, hw, c):
+        # 1e-5 of the output's scale against the plain version in float32 and
+        # in float64; the grid as the launcher gave it to CUDA
         q, lk, lv = randn(N, hw, c), 0.5 * randn(N * S, TXT_LEN, c), randn(N * S, TXT_LEN, c)
         with torch.no_grad():
             got, want = K.pixel_attn(q, lk, lv, S), K.pixel_attn_plain(q, lk, lv, S)
+            want64 = K.pixel_attn_plain(q.double(), lk.double(), lv.double(), S)
+        launch = K.pixel_attn_launch_shape("pixel_attn")
         scale = float(want.abs().max())
+        err64, tol64 = max_err(got, want64), 1e-5 * float(want64.abs().max())
+        if not err64 <= tol64:
+            failures.append(f"{name}: max_abs_err vs float64 {err64} > {tol64}")
         qs = q.repeat_interleave(S, 0)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qs[:, None], lk[:, None], lv[:, None])
@@ -1184,7 +1216,8 @@ def check_stage2_kernels(K, dev, model):
                            device_ms(lambda: K.pixel_attn_plain(q, lk, lv, S)),
                            4 * (N * hw * c + 2 * P * TXT_LEN * c + P * hw * c),
                            4 * P * hw * TXT_LEN * c, device_ms(lib), shape=[N, S, hw, c, TXT_LEN],
-                           scale=scale, library_max_abs_err=max_err(got, lib()[:, 0]))
+                           scale=scale, library_max_abs_err=max_err(got, lib()[:, 0]),
+                           max_abs_err_f64=err64, tol_f64=tol64, launch_shape=launch)
 
     fwd = [pixel_fwd("pixel_attn" if lv == "c2" else f"pixel_attn@{lv}", TRAIN2_B, 1, hw, c)
            for lv, hw, c in levels]
@@ -1192,8 +1225,11 @@ def check_stage2_kernels(K, dev, model):
     rows = [kernel_row("pixel_attn", "tris_tpu_torch/kernels/csrc/pixel_attn.cu",
                        "tris_tpu/models/fusion.py:20", fwd[0], fwd[1:])]
 
-    # the backward: each gradient within 1e-4 of its max (the row reports
-    # the gradient nearest its bar); SDPA's backward as the library
+    # the backward: each gradient within 1e-4 of its max against the plain
+    # version in float32 and in float64 (the row reports the gradient nearest
+    # its bar); SDPA's backward as the library; c2's bit for bit over two
+    # runs (no atomics, every sum in a fixed order); each of its two
+    # launches timed alone through the op (torch.profiler, not counted)
     def pixel_bwd(name, hw, c):
         ins = leaves(randn(TRAIN2_B, hw, c), 0.5 * randn(TRAIN2_B, TXT_LEN, c),
                      randn(TRAIN2_B, TXT_LEN, c))
@@ -1203,14 +1239,31 @@ def check_stage2_kernels(K, dev, model):
         lib = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
             *(t[:, None] for t in x))[:, 0]
         got, want = input_grads(kern, ins, cot), input_grads(plain, ins, cot)
+        launch = {k: K.pixel_attn_launch_shape(k)
+                  for k in ("pixel_attn_bwd_probs_dq", "pixel_attn_bwd_dkv")}
         err, tol = max(((max_err(a, b), 1e-4 * float(b.abs().max())) for a, b in zip(got, want)),
                        key=lambda et: et[0] / et[1])
+        want64 = input_grads(plain, leaves(*(x.double() for x in ins)), [cot[0].double()])
+        err64, tol64 = max(((max_err(a, b), 1e-4 * float(b.abs().max()))
+                            for a, b in zip(got, want64)), key=lambda et: et[0] / et[1])
+        if not err64 <= tol64:
+            failures.append(f"{name}: max_abs_err vs float64 {err64} > {tol64}")
+        extra = {}
+        if hw == levels[0][1]:
+            bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, input_grads(kern, ins, cot)))
+            if not bitwise:
+                failures.append(f"{name}: two runs differ")
+            extra["bit_for_bit_run_to_run"] = bitwise
+        args = (cot[0], *(x.detach() for x in ins), 1, math.sqrt(c))
+        extra["kernel_ms"] = kernel_times(lambda: build.ops().pixel_attn_bwd(*args),
+                                          ("pixel_attn_bwd_probs_dq", "pixel_attn_bwd_dkv"))
         P, T = TRAIN2_B, TXT_LEN
         return measure_row(failures, name, err, tol, bwd_ms(kern, ins, cot),
                            bwd_ms(plain, ins, cot), 4 * (3 * P * hw * c + 4 * P * T * c),
                            10 * P * hw * T * c, bwd_ms(lib, ins, cot), shape=[P, 1, hw, c, T],
                            library_max_abs_err=max(max_err(a, b) for a, b in zip(
-                               got, input_grads(lib, ins, cot))))
+                               got, input_grads(lib, ins, cot))),
+                           max_abs_err_f64=err64, tol_f64=tol64, launch_shape=launch, **extra)
 
     bwd = [pixel_bwd("pixel_attn_bwd" if lv == "c2" else f"pixel_attn_bwd@{lv}", hw, c)
            for lv, hw, c in levels]

@@ -27,8 +27,10 @@ training's backward kernels: K6's bilinear backward,
 K7's backward with ties planted (the gradient split evenly among them), and
 K8's fused pair labels and masked sums, forward and backward, at radius 5
 and 10, odd sizes and B=1. Stage 2's: K11 forward and backward at odd
-pixel counts, channel counts off the 128-channel chunk, 1 to 32 tokens and
-S > 1 pairs sharing an image's pixels; K12 over leaves of odd length, a
+pixel counts, across its token buckets' edges (1 to 32 tokens), with 4-byte
+loads where C % 4 != 0, past 2048 channels (sub-slices), S > 1 pairs sharing
+an image's pixels, its grids against the schedule tool's and the inputs it
+refuses; K12 over leaves of odd length, a
 0-d leaf and an integer buffer, bit for bit. One test is static and runs
 anywhere: each differentiable wrapper's CUDA branch goes through its
 ``torch.autograd.Function``.
@@ -928,29 +930,56 @@ def test_irn_training_kernels_refuse(dev):
 
 
 @pytest.mark.parametrize("N,HW,C,T,S", [
-    (3, 63, 200, 20, 1),      # 7x9 pixels, channels off the 128-chunk
+    (3, 63, 200, 20, 1),      # 7x9 pixels, channels off the 4-float loads
     (2, 100, 2048, 20, 1),    # c4's shape
     (2, 17, 48, 1, 3),        # one token (softmax of one logit), pairs sharing an image
     (1, 40, 130, 32, 4),      # the most tokens, S = 4 as eval
+    # the token buckets' edges (8 | 16 | 20 | 24 | 32), pixels off the 32-pixel tile
+    (2, 33, 64, 8, 2), (1, 50, 96, 9, 1), (2, 31, 256, 16, 4), (1, 70, 512, 17, 2),
+    (2, 65, 132, 21, 1), (1, 45, 260, 24, 4), (2, 100, 1024, 25, 1),
+    # past 8 ranks of 256 channels: sub-slices, with 16-byte and 4-byte loads
+    (1, 20, 4100, 20, 1), (1, 37, 2050, 12, 2),
 ])
 def test_pixel_attn(randn, N, HW, C, T, S):
     # forward within 1e-5 of the output's scale, each gradient within 1e-4
     # of its max (dq sums over the image's S pairs), against the plain
-    # version's autograd; nothing atomic: the same gradient run to run
+    # version's autograd; 4-byte loads where C % 4 != 0; nothing atomic: the
+    # same gradient run to run
     q, lk, lv = randn(N, HW, C), randn(N * S, T, C), randn(N * S, T, C)
     K.reset_launches()
     with torch.no_grad():
         got, want = K.pixel_attn(q, lk, lv, S), K.pixel_attn_plain(q, lk, lv, S)
     assert K.launches["pixel_attn"] == 1 and got.shape == (N * S, HW, C)
+    assert K.pixel_attn_launch_shape("pixel_attn")["load_bytes"] == (16 if C % 4 == 0 else 4)
     assert _err(got, want) <= 1e-5 * float(want.abs().max())
     up = randn(N * S, HW, C)
     g = _input_grads(lambda *x: K.pixel_attn(*x, S), q, lk, lv, upstream=up)
     w = _input_grads(lambda *x: K.pixel_attn_plain(*x, S), q, lk, lv, upstream=up)
-    assert K.launches["pixel_attn_bwd"] == 3
+    assert K.launches["pixel_attn_bwd"] == 2
+    for name in ("pixel_attn_bwd_probs_dq", "pixel_attn_bwd_dkv"):
+        assert K.pixel_attn_launch_shape(name)["load_bytes"] == (16 if C % 4 == 0 else 4)
     for a, b in zip(g, w):
         assert _err(a, b) <= 1e-4 * float(b.abs().max())
     assert all(torch.equal(a, b) for a, b in zip(
         g, _input_grads(lambda *x: K.pixel_attn(*x, S), q, lk, lv, upstream=up)))
+
+
+@pytest.mark.parametrize("N,S,HW,C", [(48, 1, 1600, 512), (48, 1, 400, 1024), (48, 1, 100, 2048),
+                                      (8, 4, 1600, 512), (8, 4, 100, 2048), (3, 2, 45, 260)])
+def test_pixel_attn_launches_the_schedules_grid(randn, N, S, HW, C):
+    # the grids the launchers made are those tools/pixel_attn_schedule.py
+    # emulates (the CPU tests' tile map): the paths' shapes and one off them
+    from tris_tpu_torch.tools.pixel_attn_schedule import block_counts
+
+    want = block_counts(N, S, HW, C, 20)
+    q, lk, lv = (x.requires_grad_() for x in (randn(N, HW, C), randn(N * S, 20, C),
+                                              randn(N * S, 20, C)))
+    out = K.pixel_attn(q, lk, lv, S)
+    torch.autograd.grad(out, (q, lk, lv), torch.ones_like(out))
+    for name in ("pixel_attn", "pixel_attn_bwd_probs_dq", "pixel_attn_bwd_dkv"):
+        got = K.pixel_attn_launch_shape(name)
+        assert got["load_bytes"] == 16
+        assert {k: got[k] for k in want[name]} == want[name], name
 
 
 def test_pixel_attn_saves_nothing_without_grad(randn):
@@ -961,15 +990,27 @@ def test_pixel_attn_saves_nothing_without_grad(randn):
 
 
 def test_pixel_attn_refuses(randn):
+    # the shapes csrc/launchers.h::pixel_attn_takes refuses raise ValueError in
+    # Python, before a launch; the extension's rule is the schedule tool's
+    from tris_tpu_torch.kernels import build
+    from tris_tpu_torch.tools import pixel_attn_schedule
+
     q, lk = randn(2, 9, 64), randn(2, 33, 64)
-    with pytest.raises(ValueError, match="1 to 32 tokens"):
+    with pytest.raises(ValueError, match="1 to 32 tokens: csrc/launchers.h::pixel_attn_takes"):
         K.pixel_attn(q, lk, lk, 1)
+    with pytest.raises(ValueError, match="do not take T=33, C=64, S=1"):
+        K.pixel_attn(q.requires_grad_(), lk, lk, 1)
     with pytest.raises(ValueError, match="bad shapes"):
         K.pixel_attn(q, lk[:, :20], lk[:, :20], 2)
     with pytest.raises(TypeError, match="float32"):
         K.pixel_attn(q.double(), lk[:, :20].double(), lk[:, :20].double(), 1)
     with pytest.raises(RuntimeError):
         K.build.ops().pixel_attn(q.cpu(), lk.cpu(), lk.cpu(), 1, 8.0)
+    for T, C, S in [(1, 1, 1), (32, 2048, 64), (33, 64, 1), (0, 64, 1), (20, 0, 1), (20, 64, 0),
+                    (20, 4100, 52), (31, 3, 1000)]:
+        for backward in (False, True):
+            assert build.ops().pixel_attn_takes(T, C, S, backward) == \
+                bool(pixel_attn_schedule.takes(T, C, S, backward))
 
 
 @pytest.mark.parametrize("decay", [0.0, 0.37003947, 0.9999])

@@ -19,7 +19,8 @@ from tris_tpu_torch.kernels.irn_loss import irn_loss, irn_loss_plain
 from tris_tpu_torch.kernels.mha import mha_short, mha_short_launch_shape, mha_short_plain
 from tris_tpu_torch.kernels.normalize import normalize_u8_nchw, normalize_u8_nchw_plain
 from tris_tpu_torch.kernels.path_max import path_max_affinity, path_max_affinity_plain
-from tris_tpu_torch.kernels.pixel_attn import pixel_attn, pixel_attn_plain
+from tris_tpu_torch.kernels.pixel_attn import (
+    pixel_attn, pixel_attn_launch_shape, pixel_attn_plain)
 from tris_tpu_torch.kernels.resize import bilinear_resize, bilinear_resize_plain
 from tris_tpu_torch.kernels.response_head import response_head, response_head_plain
 from tris_tpu_torch.kernels.stage1_head import stage1_head, stage1_head_plain
@@ -38,5 +39,6 @@ __all__ = [
     "refine_centroids", "refine_centroids_plain", "walk_transition", "walk_transition_plain",
     "walk_matmul", "walk_matmul_plain", "walk_square", "walk_tile_occupancy",
     "walk_tile_occupancy_plain", "irn_loss", "irn_loss_plain",
-    "pixel_attn", "pixel_attn_plain", "EmaTable", "ema_update", "ema_update_plain",
+    "pixel_attn", "pixel_attn_plain", "pixel_attn_launch_shape",
+    "EmaTable", "ema_update", "ema_update_plain",
 ]

@@ -67,9 +67,10 @@ void launched(cudaError_t err, const char* name) {
 
 cudaStream_t stream() { return at::cuda::getCurrentCUDAStream().stream(); }
 
-// The shape of the last launch of each of K1's and K2's kernels, as its launcher made it.
+// The shape of the last launch of each of K1's, K2's and K11's kernels, as its launcher made it.
 std::map<std::string, tris::MhaLaunchShape> k1_shapes;
 std::map<std::string, tris::LaunchShape> k2_shapes;
+std::map<std::string, tris::PixelAttnLaunchShape> k11_shapes;
 
 template <typename T>
 T* ptr(const std::optional<at::Tensor>& t) {
@@ -674,11 +675,12 @@ at::Tensor pixel_attn(const at::Tensor& q, const at::Tensor& lk, const at::Tenso
   const c10::cuda::CUDAGuard guard(dev);
   for (const at::Tensor* t : {&q, &lk, &lv}) check(*t, "pixel_attn", at::kFloat, dev);
   const int64_t HW = q.size(1), C = q.size(2), P = lk.size(0), T = lk.size(1);
-  TORCH_CHECK(T <= tris::kPixelAttnMaxT, "pixel_attn: at most ", tris::kPixelAttnMaxT,
-              " tokens");
+  TORCH_CHECK(HW <= INT32_MAX && C <= INT32_MAX && P <= INT32_MAX && S <= INT32_MAX,
+              "pixel_attn: sizes past 32-bit indices");
   at::Tensor out = at::empty({P, HW, C}, q.options());
   launched(tris::pixel_attn(q.data_ptr<float>(), lk.data_ptr<float>(), lv.data_ptr<float>(),
-                            out.data_ptr<float>(), P, HW, T, C, S, (float)div, stream()),
+                            out.data_ptr<float>(), P, HW, T, C, S, (float)div, stream(),
+                            &k11_shapes["pixel_attn"]),
            "pixel_attn");
   return out;
 }
@@ -691,16 +693,39 @@ std::vector<at::Tensor> pixel_attn_bwd(const at::Tensor& dg, const at::Tensor& q
   const c10::cuda::CUDAGuard guard(dev);
   for (const at::Tensor* t : {&dg, &q, &lk, &lv}) check(*t, "pixel_attn_bwd", at::kFloat, dev);
   const int64_t HW = q.size(1), C = q.size(2), P = lk.size(0), T = lk.size(1);
-  TORCH_CHECK(T <= tris::kPixelAttnMaxT, "pixel_attn_bwd: at most ", tris::kPixelAttnMaxT,
-              " tokens");
-  at::Tensor a = at::empty({P, HW, T}, q.options()), dl = at::empty({P, HW, T}, q.options());
+  TORCH_CHECK(HW <= INT32_MAX && C <= INT32_MAX && P <= INT32_MAX && S <= INT32_MAX,
+              "pixel_attn_bwd: sizes past 32-bit indices");
+  const int64_t groups = tris::pixel_attn_groups(q.size(0), (int)HW, (int)C, true);
+  at::Tensor partials = at::empty({2, P, groups, T, C}, q.options());
   at::Tensor dq = at::empty_like(q), dlk = at::empty_like(lk), dlv = at::empty_like(lv);
+  tris::PixelAttnLaunchShape shapes[2] = {};
   launched(tris::pixel_attn_bwd(dg.data_ptr<float>(), q.data_ptr<float>(), lk.data_ptr<float>(),
-                                lv.data_ptr<float>(), a.data_ptr<float>(), dl.data_ptr<float>(),
-                                dq.data_ptr<float>(), dlk.data_ptr<float>(),
-                                dlv.data_ptr<float>(), P, HW, T, C, S, (float)div, stream()),
+                                lv.data_ptr<float>(), partials.data_ptr<float>(),
+                                dq.data_ptr<float>(), dlk.data_ptr<float>(), dlv.data_ptr<float>(),
+                                P, HW, T, C, S, (float)div, stream(), shapes),
            "pixel_attn_bwd");
+  if (HW > 0) k11_shapes["pixel_attn_bwd_probs_dq"] = shapes[0];
+  k11_shapes["pixel_attn_bwd_dkv"] = shapes[1];
   return {dq, dlk, dlv};
+}
+
+// Whether K11's kernels take (T, C, S), forward or (with backward) backward (launchers.h).
+bool pixel_attn_takes(int64_t T, int64_t C, int64_t S, bool backward) {
+  return T <= INT32_MAX && C <= INT32_MAX && S <= INT32_MAX &&
+         tris::pixel_attn_takes((int)T, (int)C, (int)S, backward);
+}
+
+// The last launch of K11's `name` (pixel_attn, pixel_attn_bwd_probs_dq, pixel_attn_bwd_dkv)
+// in this process: blocks, blocks a cluster, threads a block, bytes of shared memory a
+// block, the token bucket, pixels a tile, channels a rank, tile groups an image and the
+// bytes of each global load.
+std::map<std::string, int64_t> pixel_attn_launch_shape(const std::string& name) {
+  const auto it = k11_shapes.find(name);
+  TORCH_CHECK(it != k11_shapes.end(), "pixel_attn_launch_shape: no launch of ", name);
+  const tris::PixelAttnLaunchShape& s = it->second;
+  return {{"blocks", s.blocks}, {"cluster", s.cluster}, {"threads", s.threads},
+          {"smem_bytes", s.smem}, {"t_bucket", s.t_bucket}, {"tile", s.tile},
+          {"width", s.width}, {"groups", s.groups}, {"load_bytes", s.load_bytes}};
 }
 
 // K12: table [L, 4] and starts [L] int64 on the card (kernels/ema.py builds them);
@@ -750,5 +775,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("walk_tile_occupancy", &walk_tile_occupancy, "K10: the operands' tile occupancy maps");
   m.def("pixel_attn", &pixel_attn, "K11: PixelAttention's pixel-word attention");
   m.def("pixel_attn_bwd", &pixel_attn_bwd, "K11 backward: dq, dLk, dLv");
+  m.def("pixel_attn_takes", &pixel_attn_takes, "K11: whether its kernels take (T, C, S)");
+  m.def("pixel_attn_launch_shape", &pixel_attn_launch_shape, "K11: its last launch's grid");
   m.def("ema_update", &ema_update, "K12: the EMA teacher update over a leaf table");
 }

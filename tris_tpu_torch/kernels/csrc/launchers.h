@@ -284,17 +284,108 @@ cudaError_t walk_thin(const float* a, const float* b, float* c, int M, int N, in
 cudaError_t walk_tile_occupancy(const float* x, bool* rows, bool* cols, int R, int C,
                                 cudaStream_t stream);
 
-// K11: q [P/S, HW, C]; lk, lv [P, T, C] (T <= kPixelAttnMaxT); out [P, HW, C].
+// K11: a block per (image, group of tiles of kPixelAttnTile pixels, channel slice), taking
+// the group's tiles in turn and serving every one of the image's S pairs from one read of a
+// tile's q ([P/S, HW, C]; pair i reads image i / S). Its kernels (pixel_attn.cu,
+// pixel_attn_bwd.cu, pixel_attn_tiles.cuh) pad the T tokens to pixel_attn_t_bucket(T) (zeros
+// in the staged keys and values, -inf logits), and split C over a cluster of
+// pixel_attn_ranks(C, backward) blocks, pixel_attn_width(C, backward) channels each, whose
+// partial logits are summed in rank order through distributed shared memory. A block holds
+// at most kPixelAttnSlice channels of its slice at once (more are taken in turn, a sub-slice
+// at a time, a tile a block), rows of pixel_attn_pitch(held) floats. Its kPixelAttnThreads
+// threads hold register tiles of 4 pixels x bucket / 4 tokens in the logits (a pixel's
+// tokens on 4 lanes of one warp), 4 pixels x 4 channels in the products over tokens and
+// bucket / 4 tokens x 4 channels in the backward's products over pixels. A block takes
+// pixel_attn_block_tiles(N, HW, C, backward) tiles of an image, so that the grid stays near
+// kPixelAttnWaveBlocks blocks (kPixelAttnWaveBlocksBwd backward); the backward writes its
+// dLk and dLv partials for each of pixel_attn_groups(N, HW, C, true) groups of tiles, which
+// its second kernel adds in ascending order.
 constexpr int kPixelAttnMaxT = 32;
-cudaError_t pixel_attn(const float* q, const float* lk, const float* lv, float* out, int P, int HW,
-                       int T, int C, int S, float div, cudaStream_t stream);
+constexpr int kPixelAttnTile = 32;
+constexpr int kPixelAttnThreads = 256;
+constexpr int kPixelAttnSlice = 256;
+constexpr int kPixelAttnSliceBwd = 256;
+constexpr int kPixelAttnMaxRanks = 8;
+constexpr int kPixelAttnMaxBlockTiles = 8;
+constexpr int kPixelAttnWaveBlocks = 1056;    // the forward's: 8 blocks an SM of 132
+constexpr int kPixelAttnWaveBlocksBwd = 528;  // the backward's: 4 an SM
+constexpr int kPixelAttnSumBlocks = 8 * 132;  // at most the backward's second kernel's grid
+constexpr long long kPixelAttnMaxSmem = 227 * 1024;  // bytes one block may use on Hopper
+constexpr int pixel_attn_t_bucket(int T) {
+  return T <= 8 ? 8 : T <= 16 ? 16 : T <= 20 ? 20 : T <= 24 ? 24 : 32;
+}
+// a [pixel][token] row: the bucket made an odd number of 16-byte units
+constexpr int pixel_attn_token_pitch(int tb) { return tb / 4 % 2 ? tb : tb + 4; }
+constexpr int pixel_attn_ranks(int C, bool backward) {
+  const long long s = backward ? kPixelAttnSliceBwd : kPixelAttnSlice, r = (C + s - 1) / s;
+  return r < 1 ? 1 : r > kPixelAttnMaxRanks ? kPixelAttnMaxRanks : (int)r;
+}
+// channels a rank takes, a multiple of 4
+constexpr int pixel_attn_width(int C, bool backward) {
+  const long long r = pixel_attn_ranks(C, backward);
+  return (int)(((C + r - 1) / r + 3) / 4 * 4);
+}
+// channels a block holds at once, the sub-slices its width takes, and a held row's floats
+// (an odd number of 16-byte units)
+constexpr int pixel_attn_held(int width) {
+  return width < kPixelAttnSlice ? width : kPixelAttnSlice;
+}
+constexpr int pixel_attn_subslices(int width) {
+  return (width + kPixelAttnSlice - 1) / kPixelAttnSlice;
+}
+constexpr int pixel_attn_pitch(int held) { return (held + 7) / 8 * 8 + 4; }
+constexpr int pixel_attn_tiles(int HW) { return (HW + kPixelAttnTile - 1) / kPixelAttnTile; }
+// tiles a block takes in turn (one where its width takes sub-slices), and the groups of
+// tiles an image's tiles make
+constexpr int pixel_attn_block_tiles(long long N, int HW, int C, bool backward) {
+  if (pixel_attn_subslices(pixel_attn_width(C, backward)) > 1) return 1;
+  const long long t = N * pixel_attn_tiles(HW) * pixel_attn_ranks(C, backward) /
+                      (backward ? kPixelAttnWaveBlocksBwd : kPixelAttnWaveBlocks);
+  return t < 1 ? 1 : t > kPixelAttnMaxBlockTiles ? kPixelAttnMaxBlockTiles : (int)t;
+}
+constexpr int pixel_attn_groups(long long N, int HW, int C, bool backward) {
+  const int per = pixel_attn_block_tiles(N, HW, C, backward);
+  return (pixel_attn_tiles(HW) + per - 1) / per;
+}
+// bytes of dynamic shared memory a block takes. Forward: q's tile, the pair's keys and
+// values, the warps' partial logits (the whole logits over them), the block's partial
+// logits and P. Backward: q's and dG's tiles, keys and values, the warps' partial logits
+// and dA, the block's two partials, dL by pixel, and dL and A by token.
+constexpr long long pixel_attn_smem(int tb, int C, bool backward) {
+  const long long pitch = pixel_attn_pitch(pixel_attn_held(pixel_attn_width(C, backward)));
+  const long long tp = pixel_attn_token_pitch(tb), tile = kPixelAttnTile;
+  const long long red = kPixelAttnThreads / 32 * tile * tp, part = tile * tp;
+  if (!backward) return 4 * (tile * pitch + 2 * tb * pitch + red + part + tile * tp);
+  return 4 * (2 * tile * pitch + 2 * tb * pitch + red + 2 * part + tile * tp +
+              2 * tb * (tile + 4));
+}
+// the shapes the kernels take: 1 <= T <= kPixelAttnMaxT tokens, any C >= 1 and S >= 1 (any
+// HW), within kPixelAttnMaxSmem
+constexpr bool pixel_attn_takes(int T, int C, int S, bool backward) {
+  return T >= 1 && T <= kPixelAttnMaxT && C >= 1 && S >= 1 &&
+         pixel_attn_smem(pixel_attn_t_bucket(T), C, backward) <= kPixelAttnMaxSmem;
+}
+// A launch of K11 as its launcher made it: blocks, blocks a cluster, threads a block, the
+// token bucket, pixels a tile, channels a rank, tile groups an image,
+// the bytes of each global load (16, or 4 where a pointer or C is not a multiple of 16
+// bytes) and bytes of dynamic shared memory a block.
+struct PixelAttnLaunchShape {
+  int blocks, cluster, threads, t_bucket, tile, width, groups, load_bytes;
+  long long smem;
+};
 
-// K11 backward: dg [P, HW, C]; q, lk, lv as the forward; scratch a and dl [P, HW, T];
-// dq [P/S, HW, C], dlk and dlv [P, T, C]. Its dq kernel takes 4 * (32 * S * T + 128 * T)
-// bytes of dynamic shared memory.
+// K11: q [P/S, HW, C]; lk, lv [P, T, C]; out [P, HW, C]. *shape receives the launch's shape.
+cudaError_t pixel_attn(const float* q, const float* lk, const float* lv, float* out, int P, int HW,
+                       int T, int C, int S, float div, cudaStream_t stream,
+                       PixelAttnLaunchShape* shape);
+
+// K11 backward: dg [P, HW, C]; q, lk, lv as the forward; scratch partials [2, P,
+// pixel_attn_groups(P / S, HW, C, true), T, C] (dLk's, then dLv's); dq [P/S, HW, C], dlk and
+// dlv [P, T, C]. shapes[0] and shapes[1] receive its two launches' shapes.
 cudaError_t pixel_attn_bwd(const float* dg, const float* q, const float* lk, const float* lv,
-                           float* a, float* dl, float* dq, float* dlk, float* dlv, int P, int HW,
-                           int T, int C, int S, float div, cudaStream_t stream);
+                           float* partials, float* dq, float* dlk, float* dlv, int P, int HW,
+                           int T, int C, int S, float div, cudaStream_t stream,
+                           PixelAttnLaunchShape* shapes);
 
 // K12: table [n_leaves, 4] of (teacher pointer, student pointer, numel, kind: 0 float32
 // lerp, 1 int64 copy); starts [n_leaves] the first chunk of each leaf, n_chunks in all,

@@ -10,7 +10,13 @@ Replaces the two einsums and the softmax between them of
 ``G [N*S, HW, Ci]``. Every token attends: neither JAX nor the reference
 masks the padding. On CUDA tensors it is a ``torch.autograd.Function``
 whose backward (dq summed over an image's pairs, dLk, dLv) is the
-hand-written kernel too.
+hand-written kernel too: it recomputes the probabilities from q and Lk
+rather than saving them.
+
+The kernels take 1 to 32 tokens, any C >= 1, S >= 1 and HW, forward and
+backward (``csrc/launchers.h::pixel_attn_takes``, which the extension
+exposes): another shape raises ``ValueError`` here, before any launch.
+``pixel_attn_launch_shape`` reads back the grid of the last launch.
 """
 
 from __future__ import annotations
@@ -20,8 +26,6 @@ import math
 import torch
 
 from tris_tpu_torch.kernels import build
-
-MAX_TOKENS = 32  # csrc/launchers.h kPixelAttnMaxT: the kernels keep T logits a lane
 
 
 def pixel_attn_plain(q, Lk, Lv, S: int):
@@ -49,12 +53,22 @@ class _PixelAttn(torch.autograd.Function):
     def backward(ctx, g):
         dq, dLk, dLv = build.ops().pixel_attn_bwd(g.contiguous(), *ctx.saved_tensors, ctx.S,
                                                   ctx.div)
-        build.count("pixel_attn_bwd", n=3)
+        build.count("pixel_attn_bwd", n=2)
         return dq, dLk, dLv, None, None
 
 
+def pixel_attn_launch_shape(name: str) -> dict:
+    """The grid of the last launch of K11's ``name`` (``pixel_attn``,
+    ``pixel_attn_bwd_probs_dq`` or ``pixel_attn_bwd_dkv``) on the card, as its
+    launcher made it: ``blocks``, ``cluster``, ``threads``, ``smem_bytes``, the
+    token bucket ``t_bucket``, pixels a ``tile``, channels a rank (``width``),
+    the backward's tile ``groups`` and ``load_bytes`` (16, or 4 where a
+    pointer or C is not a multiple of 16 bytes)."""
+    return dict(build.ops().pixel_attn_launch_shape(name))
+
+
 def pixel_attn(q, Lk, Lv, S: int = 1):
-    """K11 on CUDA tensors (one launch forward, three backward); the plain
+    """K11 on CUDA tensors (one launch forward, two backward); the plain
     version on CPU tensors."""
     if q.device.type == "cpu":
         return pixel_attn_plain(q, Lk, Lv, S)
@@ -63,11 +77,9 @@ def pixel_attn(q, Lk, Lv, S: int = 1):
             or Lk.shape[2] != q.shape[2]:
         raise ValueError(f"pixel_attn: bad shapes q{tuple(q.shape)} Lk{tuple(Lk.shape)} "
                          f"Lv{tuple(Lv.shape)} S={S}")
-    T = Lk.shape[1]
-    if not 1 <= T <= MAX_TOKENS:
-        raise ValueError(f"pixel_attn: 1 to {MAX_TOKENS} tokens, got {T}")
+    T, C = Lk.shape[1], q.shape[2]
     save = torch.is_grad_enabled() and any(x.requires_grad for x in (q, Lk, Lv))
-    if save and 4 * (32 * S * T + 128 * T) > build.MAX_SMEM:
-        raise ValueError(f"pixel_attn: the backward's dq tile of S = {S} pairs must fit "
-                         f"shared memory")
+    if not build.ops().pixel_attn_takes(T, C, S, save):
+        raise ValueError(f"pixel_attn: the kernels do not take T={T}, C={C}, S={S} (1 to 32 "
+                         f"tokens: csrc/launchers.h::pixel_attn_takes)")
     return _PixelAttn.apply(q.contiguous(), Lk.contiguous(), Lv.contiguous(), int(S), save)

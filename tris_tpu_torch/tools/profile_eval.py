@@ -52,7 +52,7 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "irn_loss_final_kernel", "irn_loss_daff_kernel", "irn_loss_ddp_kernel",
                 "refine_centroids_kernel", "walk_transition_kernel", "walk_square_kernel",
                 "walk_thin_kernel", "walk_tile_occupancy_kernel",
-                "pixel_attn_kernel", "probs_kernel", "dq_kernel", "dkv_kernel",
+                "pixel_attn_kernel", "pixel_attn_bwd_probs_dq_kernel", "pixel_attn_bwd_dkv_kernel",
                 "ema_update_kernel")
 
 
