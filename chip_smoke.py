@@ -31,7 +31,10 @@ holds every number):
              dense random operand against cuBLAS DGEMM and as the chain on a
              closed-region edge map, with the share of k-tiles skipped, banded
              equal to dense and skip to no skip bit for bit; K10's occupancy
-             maps), with its stated tolerance;
+             maps; K13's BatchNorm with its activation at the RN50 trunk's
+             and stage 2's shapes, train forward and backward, the teacher's
+             batch statistics and the eval fold, against the JAX package's
+             arithmetic and float64), with its stated tolerance;
              device times of kernel, plain version and, where one exists, the
              one PyTorch call computing the same thing; the least time the card
              could take (bytes or operations over the published peak: FP32, and
@@ -41,9 +44,14 @@ holds every number):
              ``response_maps``, ``forward(train=False)`` and
              ``validate(with_boxes=False)`` over a synthetic in-memory u8
              loader, with every kernel launch counter set to 0 just before
-             and read just after; then the same three with the models routed
+             and read just after (K13's exactly: 55 a trunk forward); then
+             the same three with the models routed
              to the plain versions, which the outputs must agree with; then
-             host step times of both routes, alternating, over ``ROUNDS``;
+             host step times of both routes, alternating, over ``ROUNDS``
+             (here and in every phase, the plain route's times and peak
+             memory take K13's plain version, the JAX package's arithmetic;
+             its comparisons take ``batch_norm_act_reference``, the plain
+             version on the kernels' statistics);
 5. PRMS    - the same stage 1 plus the ViT-B/32 critic at full width
              (224 px, patch 32, width 768 x 12 layers; text 512 x 12;
              seeded random weights): ``validate_prms(save_cam=True)`` into a
@@ -56,7 +64,8 @@ holds every number):
 6. stage-1 train - 3 steps at B=48 (3 negatives, 320 px, u8) against the
              critic, with the exact launch count of every kernel per step,
              held against the plain route (loss terms, gradients, later
-             losses); step times of both routes over ``ROUNDS``;
+             losses); step times of both routes over ``ROUNDS``, peak
+             memory;
 7. ins_seg - IRNet's instance pseudo-mask pass at full width (seeded
              ResNet-50 IRNet) on three COCO-sized JPEGs and CAMs written to
              a temporary directory: ``run_make_ins_seg`` with the counters
@@ -127,10 +136,15 @@ TRAIN_B, TRAIN_NEG, TRAIN_STEPS, N_TRAIN_BATCHES = 48, 3, 3, 4
 # kernel launches per train step at that shape: K1 forward in the stage-1
 # text tower, the critic's vision tower and its text tower (12 layers each),
 # its backward in the first two; K2 1 + 2; K3's head 3 + 4; K5 1 + 2; K6 1
+# K13: the RN50 trunk's 55 norms (3 launches each train forward, 1 eval, 3 backward;
+# tris_tpu_torch/tools/batch_norm_schedule.py, whose test holds them to the model)
+BN_TRUNK, BN_DECODER_TRAIN, BN_DECODER_EVAL = 55, 12, 9
+BN_TRAIN, BN_EVAL, BN_BWD = 3, 1, 3
 TRAIN_LAUNCHES_PER_STEP = {"mha_short": 36, "mha_short_bwd": 24, "cross_attn": 1,
                            "cross_attn_bwd": 2, "stage1_head": 3, "stage1_head_bwd": 4,
                            "critic_input": 1, "critic_input_bwd": 2, "normalize_u8": 1,
-                           "response_head": 0, "eval_metrics": 0}
+                           "response_head": 0, "eval_metrics": 0,
+                           "batch_norm": BN_TRUNK * BN_TRAIN, "batch_norm_bwd": BN_TRUNK * BN_BWD}
 # phase 7: IRNet's instance pseudo-masks on COCO-sized originals (each grid
 # buckets to 128x160 or 160x128: HW = 20480), the reference walk (radius 5,
 # beta 10, 8 squarings); one image per route timed over a few rounds (each
@@ -168,14 +182,30 @@ TRAIN2_B, TRAIN2_STEPS, N_TRAIN2_BATCHES = 48, 4, 3
 # K11 at c2, c3 and c4 in both forwards, its backward (two kernels) in the
 # student's; K6 bilinear at the decoder's three x2 taps and the four heads'
 # upsamples in both forwards, backward in the student's; K6 normalise once
-# (one u8 batch feeds both); K12 once
+# (one u8 batch feeds both); K12 once; K13 at the trunk's and the decoder's
+# norms in both train-mode forwards, backward in the student's
 TRAIN2_LAUNCHES_PER_STEP = {"mha_short": 24, "mha_short_bwd": 12, "normalize_u8": 1,
                             "bilinear_resize": 14, "bilinear_resize_bwd": 7, "pixel_attn": 6,
-                            "pixel_attn_bwd": 6, "ema_update": 1}
+                            "pixel_attn_bwd": 6, "ema_update": 1,
+                            "batch_norm": 2 * (BN_TRUNK + BN_DECODER_TRAIN) * BN_TRAIN,
+                            "batch_norm_bwd": (BN_TRUNK + BN_DECODER_TRAIN) * BN_BWD}
 # and per eval batch of stage 2's validate: the text tower, K11 at 3 levels,
-# K6 at the decoder's 3 taps and out1's upsample, the u8 feed, K4
+# K6 at the decoder's 3 taps and out1's upsample, the u8 feed, K4, K13's eval
+# fold at the trunk's norms and the decoder's without the side heads
 EVAL2_LAUNCHES_PER_BATCH = {"mha_short": 12, "pixel_attn": 3, "bilinear_resize": 4,
-                            "normalize_u8": 1, "eval_metrics": 1}
+                            "normalize_u8": 1, "eval_metrics": 1,
+                            "batch_norm": (BN_TRUNK + BN_DECODER_EVAL) * BN_EVAL}
+# K13's rows in phase 3: (name, shape, activation, residual, mode) at the paths' shapes:
+# the stem's third norm, a bottleneck's tail in layer1 and layer4, layer3's first norms,
+# stage 2's output1 block (PReLU), the teacher's reduced_c2 (batch statistics, buffers left
+# alone) and the eval fold at the stem of a stage-1 eval batch; the train rows' backward
+BN_ROWS = (("batch_norm", (TRAIN_B, 64, 160, 160), "relu", False, "train"),
+           ("batch_norm@layer1_tail", (TRAIN_B, 256, 80, 80), "relu", True, "train"),
+           ("batch_norm@layer3", (TRAIN_B, 1024, 20, 20), "relu", False, "train"),
+           ("batch_norm@layer4_tail", (TRAIN_B, 2048, 10, 10), "relu", True, "train"),
+           ("batch_norm@stage2_output1", (TRAIN2_B, 32, 80, 80), "prelu", False, "train"),
+           ("batch_norm@teacher_reduced_c2", (TRAIN2_B, 128, 40, 40), "prelu", False, "teacher"),
+           ("batch_norm@eval_stem", (B, 64, 160, 160), "relu", False, "eval"))
 # H100 SXM published peaks: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s, which
 # is also the FP64 tensor cores' peak (67 TFLOP/s both): the rate of K10's products
 PEAK_BYTES_S = 3.35e12
@@ -1321,6 +1351,199 @@ def check_stage2_kernels(K, dev, model):
     return rows, k6, k6_bwd, failures
 
 
+def bn_reference64(x, w, b, rm, rv, training, update, act, slope, res, eps=1e-5, m=0.1):
+    """K13's function in float64 (inputs promoted), an independent reference:
+    batch statistics (or the running ones), the affine, the residual and the
+    activation; the running buffers (float64 copies) moved in place."""
+    import torch
+
+    x, w, b = x.double(), w.double(), b.double()
+    if training:
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+        if update:
+            n = x.numel() // x.shape[1]
+            rm.mul_(1 - m).add_(m * mean.detach())
+            rv.mul_(1 - m).add_(m * var.detach() * (n / max(n - 1, 1)))
+    else:
+        mean, var = rm, rv
+    y = (x - mean[:, None, None]) / torch.sqrt(var[:, None, None] + eps)
+    y = y * w[:, None, None] + b[:, None, None]
+    if res is not None:
+        y = y + res.double()
+    if act == "relu":
+        return torch.relu(y)
+    if act == "prelu":
+        return torch.where(y >= 0, y, slope.double() * y)
+    return y
+
+
+def check_batch_norm_kernels(K, dev):
+    """K13 at ``BN_ROWS``: the forward against its plain version, the JAX
+    package's arithmetic (``jax_batch_stats``; 1e-5 of y's scale; the eval
+    fold bit for bit), and against float64 (y 1e-5 of its scale; var, rstd
+    and the running variance within 1e-6 relative, element by element; the
+    mean and the running mean within 1e-6 of the vector's largest magnitude,
+    since a channel's mean may lie near zero, where a float32 batch sum is
+    exact only to the channel's spread; the teacher's buffers untouched);
+    the train rows' backward, each gradient within 1e-4 of its max against
+    the plain version and float64, the stem's twice, bit for bit.
+    ``F.batch_norm`` (cuDNN) is the library call, timed only: it omits the
+    activation and the residual. Returns (rows, failures)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.kernels import build
+    from tris_tpu_torch.kernels.batch_norm import jax_batch_stats
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    failures, fwd, bwd = [], [], []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def rel(a, b):
+        """max |a - b| / |b|, element by element"""
+        return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+    def rel_scale(a, b):
+        """max |a - b| over the vector's largest magnitude"""
+        return max_err(a, b) / max(float(b.double().abs().max()), 1e-30)
+
+    for name, shape, act, with_res, mode in BN_ROWS:
+        C = shape[1]
+        training, update = mode != "eval", mode == "train"
+        x = 1.5 * randn(*shape) + randn(1, C, 1, 1)          # channels off zero
+        w, b = 1 + 0.3 * randn(C), 0.5 * randn(C)
+        rm0, rv0 = randn(C), 0.5 + torch.rand(C, generator=g, device=dev)
+        slope = torch.full((1,), 0.25, device=dev) if act == "prelu" else None
+        res = randn(*shape) if with_res else None
+        kw = dict(training=training, update_stats=update, momentum=0.1, eps=1e-5, act=act,
+                  slope=slope, residual=res)
+        rm, rv, rmp, rvp = rm0.clone(), rv0.clone(), rm0.clone(), rv0.clone()
+        rm64, rv64 = rm0.double(), rv0.double()
+        with torch.no_grad():
+            got = K.batch_norm_act(x, w, b, rm, rv, **kw)
+            want = K.batch_norm_act_plain(x, w, b, rmp, rvp, **kw)
+            want64 = bn_reference64(x, w, b, rm64, rv64, training, update, act, slope, res)
+        scale = float(want64.abs().max())
+        err64, tol = max_err(got, want64), 1e-5 * scale
+        extra = {"shape": list(shape), "act": act, "residual": with_res, "mode": mode,
+                 "scale": scale, "max_abs_err_f64": err64, "tol_f64": tol}
+        if not err64 <= tol:
+            failures.append(f"{name}: y vs float64 {err64} > {tol}")
+        extra["bit_for_bit_plain"] = bool(torch.equal(got, want))
+        if mode == "eval" and not extra["bit_for_bit_plain"]:
+            failures.append(f"{name}: the eval fold is not the plain route bit for bit")
+        else:
+            stats = build.ops().batch_norm_stats(x, None, None, 0.1, 1e-5)
+            x64 = x.double()
+            m64 = x64.mean(dim=(0, 2, 3))
+            v64 = ((x64 - m64[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+            extra["stats_rel_err_f64"] = {
+                "mean_of_scale": rel_scale(stats[0], m64), "var": rel(stats[1], v64),
+                "rstd": rel(stats[2], 1 / torch.sqrt(v64 + 1e-5))}
+            jx = jax_batch_stats(x, 1e-5)                     # reported beside, no bar
+            extra["stats_rel_err_jax"] = {"mean_of_scale": rel_scale(stats[0], jx[0]),
+                                          "var": rel(stats[1], jx[1]), "rstd": rel(stats[2], jx[2])}
+            if update:
+                extra["running_rel_err_f64"] = {"mean_of_scale": rel_scale(rm, rm64),
+                                                "var": rel(rv, rv64)}
+            elif not (torch.equal(rm, rm0) and torch.equal(rv, rv0)):
+                failures.append(f"{name}: update_stats=False moved the running buffers")
+            worst = max(list(extra["stats_rel_err_f64"].values())
+                        + list(extra.get("running_rel_err_f64", {}).values()))
+            if not worst <= 1e-6:
+                failures.append(f"{name}: statistics or running buffers {worst} > 1e-6 "
+                                f"relative (the means: of their scale) from float64")
+        n = x.numel()
+        lib = lambda: F.batch_norm(x, rm, rv, w, b, training, 0.1, 1e-5)  # noqa: E731
+        fwd.append(measure_row(
+            failures, name, max_err(got, want), 1e-5 * float(want.abs().max()),
+            device_ms(lambda: K.batch_norm_act(x, w, b, rm, rv, **kw)),
+            device_ms(lambda: K.batch_norm_act_plain(x, w, b, rmp, rvp, **kw), n=5),
+            4 * (2 * n + (n if with_res else 0)),
+            n * (8 * training + 2 + with_res + (act != "none")), device_ms(lib), **extra))
+        del got, want, want64
+        if mode != "train":
+            continue
+
+        # the backward: dx, dweight, dbias (and the slope, the residual) within
+        # 1e-4 of each gradient's max against the plain version and float64.
+        # Where the activation's input lies within 1e-5 of its scale of the
+        # kink (|y| ~ 0), float32 routes and float64 may put it on either side,
+        # and each such element moves dweight and dbias by its whole
+        # cotangent: the bars take the cotangent zero there (the elements
+        # counted), and the full cotangent's distance is reported beside
+        ins = leaves(*(t for t in (x, w, b, slope, res) if t is not None))
+        full = [randn(*shape)]
+        with torch.no_grad():
+            pre = bn_reference64(x, w, b, rm.double(), rv.double(), True, False, "none", None,
+                                 res)
+            kink = (pre.abs() <= 1e-5 * float(pre.abs().max())) if act != "none" else None
+        cot = [full[0].masked_fill(kink, 0)] if kink is not None else full
+
+        def grad_err(a, c):
+            return max_err(a, c), 1e-4 * float(c.abs().max())
+
+        def call(fn, rmx, rvx):
+            def f(x, w, b, *rest):
+                sl = rest[0] if act == "prelu" else None
+                r = rest[-1] if with_res else None
+                return fn(x, w, b, rmx, rvx, **{**kw, "slope": sl, "residual": r})
+            return f
+
+        kern = call(K.batch_norm_act, rm.clone(), rv.clone())
+        plain = call(K.batch_norm_act_plain, rm.clone(), rv.clone())
+
+        def ref64(x, w, b, *rest):
+            sl = rest[0] if act == "prelu" else None
+            r = rest[-1] if with_res else None
+            return bn_reference64(x, w, b, rm.double(), rv.double(), True, False, act, sl, r)
+
+        got_g, want_g = input_grads(kern, ins, cot), input_grads(plain, ins, cot)
+        want64_g = input_grads(ref64, ins, cot)
+        err, tol = max((grad_err(a, c) for a, c in zip(got_g, want_g)),
+                       key=lambda et: et[0] / et[1])
+        err64, tol64 = max((grad_err(a, c) for a, c in zip(got_g, want64_g)),
+                           key=lambda et: et[0] / et[1])
+        full_err = max((grad_err(a, c) for a, c in zip(input_grads(kern, ins, full),
+                                                       input_grads(plain, ins, full))),
+                       key=lambda et: et[0] / et[1])
+        n_kink = int(kink.sum()) if kink is not None else 0
+        if n_kink > 1e-3 * n:
+            failures.append(f"{name}_bwd: {n_kink} of {n} elements at the activation's kink")
+        extra = {"shape": list(shape), "act": act, "residual": with_res, "kink_elements": n_kink,
+                 "full_cotangent_max_abs_err_and_tol": full_err,
+                 "max_abs_err_f64": err64, "tol_f64": tol64,
+                 "grads": ["dx", "dweight", "dbias"] + (["dslope"] if act == "prelu" else [])
+                 + (["dresidual"] if with_res else [])}
+        if not err64 <= tol64:
+            failures.append(f"{name}_bwd: max_abs_err vs float64 {err64} > {tol64}")
+        if name == "batch_norm":
+            again = input_grads(kern, ins, cot)
+            extra["bit_for_bit_run_to_run"] = all(bool(torch.equal(a, b))
+                                                  for a, b in zip(got_g, again))
+            if not extra["bit_for_bit_run_to_run"]:
+                failures.append(f"{name}_bwd: two runs differ")
+            del again
+        lib_ins = ins[:3]
+        lib = lambda x, w, b: F.batch_norm(x, None, None, w, b, True, 0.1, 1e-5)  # noqa: E731
+        bwd.append(measure_row(
+            failures, name.replace("batch_norm", "batch_norm_bwd"), err, tol,
+            bwd_ms(kern, ins, cot), bwd_ms(plain, ins, cot, 5),
+            4 * n * (3 + (act == "relu") + with_res), 14 * n, bwd_ms(lib, lib_ins, cot),
+            **extra))
+        del ins, cot, full, got_g, want_g, want64_g, pre, kink
+        torch.cuda.empty_cache()
+    rows = [kernel_row("batch_norm", "tris_tpu_torch/kernels/csrc/batch_norm.cu",
+                       "tris_tpu/models/layers.py:181", fwd[0], fwd[1:]),
+            kernel_row("batch_norm_bwd", "tris_tpu_torch/kernels/csrc/batch_norm_bwd.cu",
+                       "tris_tpu/models/layers.py:219", bwd[0], bwd[1:])]
+    torch.cuda.empty_cache()
+    return rows, failures
+
+
 # ---- phase 4: the main path ------------------------------------------------
 
 
@@ -1376,8 +1599,12 @@ class SyntheticEvalLoader:
 
 
 @contextlib.contextmanager
-def plain_kernels(K):
-    """Route the models' kernel calls to the plain versions, for comparison."""
+def plain_kernels(K, baseline: bool = False):
+    """Route the models' kernel calls to the plain versions. K13 goes to its
+    route reference (``batch_norm_act_reference``: the plain version on the
+    kernels' statistics, whose rounding the routes' comparisons need), or
+    with ``baseline`` to its plain version (the JAX package's arithmetic),
+    which the plain route's step times and peak memory measure."""
     plain = {"mha_short": K.mha_short_plain, "cross_attn": K.cross_attn_plain,
              "response_head": K.response_head_plain, "stage1_head": K.stage1_head_plain,
              "eval_metrics": K.eval_metrics_plain, "critic_input": K.critic_input_plain,
@@ -1387,7 +1614,8 @@ def plain_kernels(K):
              "refine_centroids": K.refine_centroids_plain,
              "walk_transition": K.walk_transition_plain, "walk_matmul": K.walk_matmul_plain,
              "irn_loss": K.irn_loss_plain, "pixel_attn": K.pixel_attn_plain,
-             "ema_update": K.ema_update_plain}
+             "ema_update": K.ema_update_plain,
+             "batch_norm_act": K.batch_norm_act_plain if baseline else K.batch_norm_act_reference}
     saved = {name: getattr(K, name) for name in plain}
     for name, fn in plain.items():
         setattr(K, name, fn)
@@ -1457,13 +1685,18 @@ def stage1_path(K, dev, model, batches):
         # the two routes alternate, so a drift of the host or the card's
         # clocks falls on both
         for _ in range(ROUNDS):
-            for route, ctx in (("kernels", contextlib.nullcontext), ("plain", lambda: plain_kernels(K))):
+            for route, ctx in (("kernels", contextlib.nullcontext),
+                               ("plain", lambda: plain_kernels(K, baseline=True))):
                 with ctx():
                     for k, fn in steps.items():
                         times[route][k].append(host_ms(fn) / per[k])
 
     failures = [f"stage-1 eval: {name} launched no time" for name in EVAL_KERNELS
                 if launches[name] == 0]
+    # K13's eval fold at every norm of the trunk's 2 + len(batches) forwards
+    bn_want = {"batch_norm": (2 + len(batches)) * BN_TRUNK * BN_EVAL, "batch_norm_bwd": 0}
+    failures += [f"stage-1 eval: {k} launched {launches[k]} times, want {n}"
+                 for k, n in bn_want.items() if launches[k] != n]
     for name, t, shape in (("response_maps", maps, (B, S, SIZE, SIZE)), ("forward", fwd, (B, 1, SIZE, SIZE))):
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()) or bool((t < 0).any()):
             failures.append(f"{name}: want finite non-negative {shape}, got {tuple(t.shape)}")
@@ -1483,6 +1716,7 @@ def stage1_path(K, dev, model, batches):
     summary = {
         "model": "RN50 stage 1, hidden 1024, 320 px, random weights (seed 0)",
         "B": B, "S": S, "eval_batches": len(batches), "launches": launches,
+        "batch_norm_launches_expected": bn_want,
         "host_ms": {route: {k: spread(t) for k, t in ts.items()} for route, ts in times.items()},
         "maps_max_abs_err": err_maps, "forward_max_abs_err": err_fwd, "maps_tol": tol_maps,
         "map_scale": scale, "metrics": res, "metrics_plain": res_p,
@@ -1538,13 +1772,18 @@ def prms_path(K, dev, model, batches):
             res_dump_p, res_p = run("plain")
             outs_p = forward_all()
         for _ in range(ROUNDS):
-            for route, ctx in (("kernels", contextlib.nullcontext), ("plain", lambda: plain_kernels(K))):
+            for route, ctx in (("kernels", contextlib.nullcontext),
+                               ("plain", lambda: plain_kernels(K, baseline=True))):
                 with ctx():
                     times[route].append(host_ms(lambda: validate_prms(model, critic, loader, log=quiet))
                                         / len(batches))
 
         failures += [f"PRMS: {name} launched no time" for name in EVAL_KERNELS + ("critic_input",)
                      if launches[name] == 0]
+        # K13's eval fold at every norm of one trunk forward a batch, in both validate_prms
+        bn_want = {"batch_norm": 2 * len(batches) * BN_TRUNK * BN_EVAL, "batch_norm_bwd": 0}
+        failures += [f"PRMS: {k} launched {launches[k]} times, want {n}"
+                     for k, n in bn_want.items() if launches[k] != n]
         # scores: within 1e-4 of their scale (K1's, K2's and K3's sums run
         # in another order than the plain einsums; sums of cosines, so the
         # scale may be well below 1); best: equal wherever the top two
@@ -1606,6 +1845,7 @@ def prms_path(K, dev, model, batches):
         "model": f"RN50 stage 1 (hidden 1024, 320 px) + {CRITIC} critic (224 px), random "
                  f"weights (seeds 0 and 7)",
         "B": B, "S": S, "eval_batches": len(batches), "launches": launches,
+        "batch_norm_launches_expected": bn_want,
         "mha_short_launches_by_shape": dict(k1_shapes),
         "validate_prms_host_ms_per_batch": {route: spread(t) for route, t in times.items()},
         "scores_max_abs_err": err_s, "scores_tol": tol_s, "score_scale": score_scale,
@@ -1748,10 +1988,16 @@ def train_path(K, dev, batches):
     if not torch.equal(state[0].logit_scale, init_model.logit_scale):
         failures.append("stage-1 train: logit_scale moved")
 
+    with plain_kernels(K, baseline=True):        # the plain route's peak, at its baseline
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps(plain_state, 1)
+        torch.cuda.synchronize()
+        peak_plain_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     times = {"kernels": [], "plain": []}
     for i in range(ROUNDS):
         for route, st, ctx in (("kernels", state, contextlib.nullcontext),
-                               ("plain", plain_state, lambda: plain_kernels(K))):
+                               ("plain", plain_state, lambda: plain_kernels(K, baseline=True))):
             with ctx():
                 times[route].append(host_ms(lambda: steps(st, 1, start=i)))
     summary = {
@@ -1763,7 +2009,7 @@ def train_path(K, dev, batches):
         "later_loss_rel_err": later, "grad_worst_rel_err": worst[0], "grad_worst_leaf": worst[1],
         "grad_leaves": len(grads), "grad_within_plain_noise": by_floor,
         "plain_noise_worst_rel": noisiest[0], "plain_noise_worst_leaf": noisiest[1],
-        "peak_memory_gb": peak_gb,
+        "peak_memory_gb": peak_gb, "peak_memory_plain_gb": peak_plain_gb,
         "step_host_ms": {route: spread(t) for route, t in times.items()},
     }
     log(f"stage-1 train: {json.dumps(summary)}")
@@ -1902,7 +2148,7 @@ def ins_seg_path(K, dev):
         times = {"kernels": [], "plain": []}
         for i in range(INS_SEG_ROUNDS):
             for route, ctx in (("kernels", contextlib.nullcontext),
-                               ("plain", lambda: plain_kernels(K))):
+                               ("plain", lambda: plain_kernels(K, baseline=True))):
                 with ctx():
                     times[route].append(host_ms(lambda: run(f"t_{route}_{i}", names[:1])))
 
@@ -2104,7 +2350,7 @@ def irn_train_path(K, dev):
     times = {"kernels": [], "plain": []}
     for i in range(ROUNDS):
         for route, st, ctx in (("kernels", state, contextlib.nullcontext),
-                               ("plain", plain_state, lambda: plain_kernels(K))):
+                               ("plain", plain_state, lambda: plain_kernels(K, baseline=True))):
             with ctx():
                 times[route].append(host_ms(lambda: steps(st, 1, start=i)))
     del data, state, plain_state
@@ -2198,10 +2444,7 @@ def stage2_path(K, dev, init, eval_batches):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     with plain_kernels(K):
         plain_state = fresh()
-        torch.cuda.reset_peak_memory_stats()
         metrics_p, grads_p, students_p = steps(plain_state, TRAIN2_STEPS, counted, keep=True)
-        torch.cuda.synchronize()
-        peak_plain_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         rev = {k: v.flip(0) for k, v in data[0].items()}
         st_r = fresh()
         train_step(st_r, rev, counted)
@@ -2289,10 +2532,16 @@ def stage2_path(K, dev, init, eval_batches):
                             f"scale + the students' distance {drift}")
     del students, students_p, grads_r, want
 
+    with plain_kernels(K, baseline=True):        # the plain route's peak, at its baseline
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps(plain_state, 1, default)
+        torch.cuda.synchronize()
+        peak_plain_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     times = {"kernels": [], "plain": []}
     for i in range(ROUNDS):
         for route, st, ctx in (("kernels", state, contextlib.nullcontext),
-                               ("plain", plain_state, lambda: plain_kernels(K))):
+                               ("plain", plain_state, lambda: plain_kernels(K, baseline=True))):
             with ctx():
                 times[route].append(host_ms(lambda: steps(st, 1, default, start=i)))
 
@@ -2318,7 +2567,7 @@ def stage2_path(K, dev, init, eval_batches):
             maps_p = model.response_maps(image, ids)
         for _ in range(3):
             for route, ctx in (("kernels", contextlib.nullcontext),
-                               ("plain", lambda: plain_kernels(K))):
+                               ("plain", lambda: plain_kernels(K, baseline=True))):
                 with ctx():
                     eval_times[route].append(host_ms(
                         lambda: validate(model, loader, with_boxes=False, log=quiet))
@@ -2522,6 +2771,9 @@ def main(argv=None) -> int:
             r["shapes"] += k6_rows if r["name"] == "bilinear_resize" else k6_bwd_rows
     rows += s2_rows
     failures += s2_failures
+    bn_rows, bn_failures = check_batch_norm_kernels(K, dev)
+    rows += bn_rows
+    failures += bn_failures
 
     # 4. stage-1 eval and 5. PRMS, on one stage-1 model and one set of batches
     model = build_stage1(dev)

@@ -6,7 +6,12 @@
 - ``--clip_weights`` loads OpenAI's released CLIP layout into the backbone
   of both stages, from a ``state_dict`` and from a TorchScript file;
 - ``validate(save_cam=True)`` creates its CAM directory and writes one names
-  json with every process's names, from rank 0.
+  json with every process's names, from rank 0;
+- every rank's ``Loader.epoch`` yields ``len(loader)`` batches (the order
+  padded with its head to a multiple of the process count), one process's
+  order unchanged;
+- the IRN pair labels take one validity threshold (``irn_loss.MAX_VALID``),
+  which the loss honours when another is given.
 """
 
 import json
@@ -209,3 +214,76 @@ def test_validate_save_cam_makes_its_dir_and_gathers_every_process(refdata, tmp_
     assert len(cams) > 3 and sorted(names) == cams and len(set(names)) == len(names)
     ranks = {int(n.split("_")[0]) % 2 for n in names}      # refs 0, 2, 4 and 1, 3, 5
     assert ranks == {0, 1}
+
+
+class _StubRefs:
+    """``n`` train refs; each example is its own index."""
+
+    eval_mode = False
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def train_example(self, i: int, rng) -> dict:
+        return {"index": np.int64(i)}
+
+
+# the first three are the cases where the ranks' counts used to disagree with len(loader)
+@pytest.mark.parametrize("drop_last", [True, False])
+@pytest.mark.parametrize("n_refs,world,batch", [(11, 2, 2), (9, 2, 2), (12, 5, 3), (10, 1, 3),
+                                                (7, 3, 2), (2, 4, 1), (16, 4, 4), (5, 3, 8)])
+def test_loader_ranks_yield_len_batches(n_refs, world, batch, drop_last):
+    loaders = [Loader(_StubRefs(n_refs), batch, drop_last=drop_last, num_threads=1,
+                      process_index=r, process_count=world) for r in range(world)]
+    per_rank = [[b["index"] for b in ld.epoch(3)] for ld in loaders]
+    assert [len(b) for b in per_rank] == [len(loaders[0])] * world
+    assert all(len(x) == batch for b in per_rank for x in b[:-1])
+    seen = np.concatenate([x for b in per_rank for x in b] or [np.zeros(0, np.int64)])
+    if not drop_last:   # every ref on some rank; only the padding repeats one
+        assert set(seen.tolist()) == set(range(n_refs))
+        assert len(seen) == -(-n_refs // world) * world
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_loader_one_process_keeps_its_order(drop_last):
+    order = np.arange(11)
+    np.random.default_rng(1234 + 2).shuffle(order)
+    got = np.concatenate([b["index"] for b in Loader(_StubRefs(11), 4, drop_last=drop_last,
+                                                      num_threads=1).epoch(2)])
+    np.testing.assert_array_equal(got, order[:8] if drop_last else order)
+
+
+def test_irn_pair_labels_take_one_threshold(monkeypatch):
+    import importlib
+    import inspect
+
+    from tris_tpu_torch import kernels as K
+    from tris_tpu_torch.pseudo import aug
+
+    IL = importlib.import_module("tris_tpu_torch.kernels.irn_loss")
+
+    assert inspect.signature(aug.affinity_labels_from_indices).parameters[
+        "max_valid"].default == IL.MAX_VALID == 21
+    # labels 0, 1, 2, 5 and 255: with the threshold at 3 the 5s are ignored as 255 is
+    rng = np.random.default_rng(4)
+    pi = PathIndex(5, (16, 16))
+    rf = pi.radius_floor
+    lab = rng.choice(np.array([0, 1, 2, 5, 255], np.uint8), (2, 16, 16))
+    aff = torch.rand(2, len(pi.search_dst), 16 - rf, 16 - 2 * rf,
+                     generator=torch.Generator().manual_seed(0))
+    dp = torch.zeros(2, 2, 16, 16)
+    for max_valid in (3, 21):
+        monkeypatch.setattr(IL, "MAX_VALID", max_valid)
+        _, counts = K.irn_loss(torch.from_numpy(lab), aff, dp, pi.search_dst, rf)
+        want = np.zeros(3, np.int64)
+        for dy, dx in np.asarray(pi.search_dst).tolist():
+            a = lab[:, :16 - rf, rf:16 - rf]
+            b = lab[:, dy:dy + 16 - rf, rf + dx:rf + dx + 16 - 2 * rf]
+            valid = (a < max_valid) & (b < max_valid)
+            want += [(valid & (a == b) & (a == 0)).sum(), (valid & (a == b) & (a > 0)).sum(),
+                     (valid & (a != b)).sum()]
+        np.testing.assert_array_equal(counts.numpy(), want)
+        assert want.min() > 0

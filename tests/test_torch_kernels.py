@@ -31,7 +31,13 @@ pixel counts, across its token buckets' edges (1 to 32 tokens), with 4-byte
 loads where C % 4 != 0, past 2048 channels (sub-slices), S > 1 pairs sharing
 an image's pixels, its grids against the schedule tool's and the inputs it
 refuses; K12 over leaves of odd length, a
-0-d leaf and an integer buffer, bit for bit. One test is static and runs
+0-d leaf and an integer buffer, bit for bit. K8 at another pair-label
+threshold. K13 (BatchNorm with its activation) in train, eval and the
+teacher's mode with each fused activation, at C = 1, one element a channel
+(the unbiased variance's max(n - 1, 1) guard), HW % 4 != 0 and unaligned
+data (its scalar loads), several chunks a channel, its launch counts, its
+chunking against the schedule tool's, the backward bit for bit run to run,
+and the layouts it refuses. One test is static and runs
 anywhere: each differentiable wrapper's CUDA branch goes through its
 ``torch.autograd.Function``.
 """
@@ -772,7 +778,8 @@ def test_differentiable_wrappers_apply_an_autograd_function():
     wrappers = [("mha", "mha_short"), ("cross_attn", "cross_attn"),
                 ("stage1_head", "stage1_head"), ("critic_input", "critic_input"),
                 ("resize", "bilinear_resize"), ("path_max", "path_max_affinity"),
-                ("irn_loss", "irn_loss"), ("pixel_attn", "pixel_attn")]
+                ("irn_loss", "irn_loss"), ("pixel_attn", "pixel_attn"),
+                ("batch_norm", "batch_norm_act")]
     for mod_name, name in wrappers:
         mod = importlib.import_module(f"tris_tpu_torch.kernels.{mod_name}")
         src = inspect.getsource(getattr(mod, name))
@@ -905,6 +912,35 @@ def test_irn_loss(dev, B, H, W, radius):
     assert torch.equal(again, sums)    # a fixed order: the same run to run
 
 
+def test_irn_loss_honours_another_threshold(dev, monkeypatch):
+    # labels 0, 1, 2, 5 and 255 with irn_loss.MAX_VALID at 3 (the launchers'
+    # argument): the 5s are as invalid as 255; counts exact and sums within
+    # 1e-5 relative of the plain version, the gradients within 1e-6 and 1e-5
+    # of their scales
+    import importlib
+
+    IL = importlib.import_module("tris_tpu_torch.kernels.irn_loss")
+    pi, labels, aff, dp = _irn_inputs(dev, 2, 21, 30, 5, 4)
+    rf = pi.radius_floor
+    g = torch.Generator(device=dev).manual_seed(5)
+    labels = torch.tensor([0, 1, 2, 5, 255], dtype=torch.uint8, device=dev)[
+        torch.randint(0, 5, labels.shape, generator=g, device=dev)]
+    counts_21 = K.irn_loss(labels, aff, dp, pi.search_dst, rf)[1]
+    monkeypatch.setattr(IL, "MAX_VALID", 3)
+    sums, counts = K.irn_loss(labels, aff, dp, pi.search_dst, rf)
+    want_s, want_c = K.irn_loss_plain(labels, aff, dp, pi.search_dst, rf)
+    assert torch.equal(counts, want_c) and bool((counts > 0).all())
+    assert not torch.equal(counts, counts_21)
+    assert bool(((sums.double() - want_s.double()).abs() <= 1e-5 * want_s.double().abs()).all())
+    w = torch.tensor([0.3, -1.2, 0.7, 2.0, -0.4], device=dev)
+    got_g = _input_grads(lambda a, d: K.irn_loss(labels, a, d, pi.search_dst, rf), aff, dp,
+                         upstream=w)
+    want_g = _input_grads(lambda a, d: K.irn_loss_plain(labels, a, d, pi.search_dst, rf), aff,
+                          dp, upstream=w)
+    assert _err(got_g[0], want_g[0]) <= 1e-6 * float(want_g[0].abs().max())
+    assert _err(got_g[1], want_g[1]) <= 1e-5 * float(want_g[1].abs().max())
+
+
 def test_irn_training_kernels_refuse(dev):
     pi, labels, aff, dp = _irn_inputs(dev, 1, 16, 16, 5, 1)
     rf = pi.radius_floor
@@ -917,11 +953,11 @@ def test_irn_training_kernels_refuse(dev):
     with pytest.raises(RuntimeError):
         K.build.ops().irn_loss_bwd(labels, aff, dp, torch.zeros(34, 2, dtype=torch.int32,
                                                                device=dev),
-                                   torch.zeros(4, device=dev), rf, 1e-5, 1.00001)
+                                   torch.zeros(4, device=dev), rf, 1e-5, 1.00001, 21)
     with pytest.raises(RuntimeError, match="do not match"):   # the forward's shape check
         K.build.ops().irn_loss_bwd(labels, aff[:, :, :-1].contiguous(), dp,
                                    torch.zeros(aff.shape[1], 2, dtype=torch.int32, device=dev),
-                                   torch.zeros(5, device=dev), rf, 1e-5, 1.00001)
+                                   torch.zeros(5, device=dev), rf, 1e-5, 1.00001, 21)
     with pytest.raises(ValueError, match="outside the window"):   # another radius's table
         K.irn_loss(labels, aff, dp, np.asarray(pi.search_dst) * 2, rf)
 
@@ -1048,3 +1084,127 @@ def test_ema_update_refuses(dev):
         K.ema_update([a, a], [a], 0.5)
     with pytest.raises(ValueError, match="expected CUDA"):
         K.ema_update([a], [a.cpu()], 0.5)
+
+
+# ---- K13: BatchNorm with the activation that follows it -----------------------------------
+
+
+def _bn_inputs(dev, shape, act, residual, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = shape[1]
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    x = 1.5 * randn(*shape) + randn(1, C, 1, 1)
+    w, b = 1 + 0.3 * randn(C), 0.5 * randn(C)
+    rm, rv = randn(C), 0.5 + torch.rand(C, generator=g, device=dev)
+    slope = torch.full((1,), 0.25, device=dev) if act == "prelu" else None
+    return x, w, b, rm, rv, slope, randn(*shape) if residual else None
+
+
+def _bn_call(fn, x, w, b, rm, rv, slope, res, mode, act):
+    return fn(x, w, b, rm, rv, training=mode != "eval", update_stats=mode == "train",
+              momentum=0.1, eps=1e-5, act=act, slope=slope, residual=res)
+
+
+def _bn_grads(fn, x, w, b, rm, rv, slope, res, mode, act, cot):
+    ins = [t.detach().clone().requires_grad_() for t in (x, w, b, slope, res) if t is not None]
+    sl = ins[3] if slope is not None else None
+    r = ins[-1] if res is not None else None
+    y = _bn_call(fn, ins[0], ins[1], ins[2], rm.clone(), rv.clone(), sl, r, mode, act)
+    return torch.autograd.grad(y, ins, cot)
+
+
+BN_ACTS = [("none", False), ("relu", False), ("relu", True), ("none", True), ("prelu", False)]
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (4, 8, 16, 16), (1, 1, 1, 1), (2, 1, 64, 64),
+                                   (3, 5, 1, 3), (2, 16, 10, 10)])
+@pytest.mark.parametrize("act,residual", BN_ACTS)
+@pytest.mark.parametrize("mode", ["train", "eval", "teacher"])
+def test_batch_norm_act(dev, shape, act, residual, mode):
+    # y within 1e-5 of its scale against the plain version (the eval fold
+    # bit for bit); the running buffers within 1e-6 of their scale from their
+    # float64 update (the teacher's untouched); every gradient within 1e-4 of
+    # its max against the plain version (eval: dx bit for bit)
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, shape, act, residual, 3)
+    rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    got = _bn_call(K.batch_norm_act, x, w, b, rm_k, rv_k, slope, res, mode, act)
+    want = _bn_call(K.batch_norm_act_plain, x, w, b, rm_p, rv_p, slope, res, mode, act)
+    if mode == "eval":
+        assert torch.equal(got, want)
+    assert _err(got, want) <= 1e-5 * float(want.abs().max())
+    if mode == "train":
+        x64 = x.double()
+        n = x[:, 0].numel()
+        m64 = x64.mean(dim=(0, 2, 3))
+        v64 = ((x64 - m64[:, None, None]) ** 2).mean(dim=(0, 2, 3)) * (n / max(n - 1, 1))
+        for buf, old, new in ((rm_k, rm, m64), (rv_k, rv, v64)):
+            ref = 0.9 * old.double() + 0.1 * new
+            assert _err(buf, ref) <= 1e-6 * float(ref.abs().max())
+    else:
+        assert torch.equal(rm_k, rm) and torch.equal(rv_k, rv)
+    cot = (torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(9), device=dev),)
+    got_g = _bn_grads(K.batch_norm_act, x, w, b, rm, rv, slope, res, mode, act, cot)
+    want_g = _bn_grads(K.batch_norm_act_plain, x, w, b, rm, rv, slope, res, mode, act, cot)
+    for a, c in zip(got_g, want_g):
+        assert _err(a, c) <= 1e-4 * max(float(c.abs().max()), 1e-6)
+    if mode == "eval":
+        assert torch.equal(got_g[0], want_g[0])
+
+
+def test_batch_norm_act_unaligned_data(dev):
+    # a contiguous view 4 bytes into its storage: the scalar loads
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, (2, 6, 8, 8), "relu", True, 4)
+    xs = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+    rs = torch.empty(res.numel() + 1, device=dev)[1:].view(res.shape).copy_(res)
+    for mode in ("train", "eval"):
+        got = _bn_call(K.batch_norm_act, xs, w, b, rm.clone(), rv.clone(), None, rs, mode, "relu")
+        want = _bn_call(K.batch_norm_act_plain, x, w, b, rm.clone(), rv.clone(), None, res, mode,
+                        "relu")
+        assert _err(got, want) <= 1e-5 * float(want.abs().max())
+        cot = (torch.ones_like(x),)
+        got_g = _bn_grads(K.batch_norm_act, xs, w, b, rm, rv, None, rs, mode, "relu", cot)
+        want_g = _bn_grads(K.batch_norm_act_plain, x, w, b, rm, rv, None, res, mode, "relu", cot)
+        for a, c in zip(got_g, want_g):
+            assert _err(a, c) <= 1e-4 * max(float(c.abs().max()), 1e-6)
+
+
+def test_batch_norm_act_launches_and_repeats(dev):
+    # 3 launches a train forward (statistics 2, apply 1), 1 an eval forward,
+    # 3 a backward; the backward and the statistics the same bits run to run
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, (4, 64, 40, 40), "relu", True, 5)
+    cot = (torch.randn_like(x),)
+    K.reset_launches()
+    first = _bn_grads(K.batch_norm_act, x, w, b, rm, rv, None, res, "train", "relu", cot)
+    assert K.launches["batch_norm"] == 3 and K.launches["batch_norm_bwd"] == 3
+    again = _bn_grads(K.batch_norm_act, x, w, b, rm, rv, None, res, "train", "relu", cot)
+    assert all(torch.equal(a, c) for a, c in zip(first, again))
+    s1 = K.build.ops().batch_norm_stats(x, None, None, 0.1, 1e-5)
+    assert torch.equal(s1, K.build.ops().batch_norm_stats(x, None, None, 0.1, 1e-5))
+    K.reset_launches()
+    with torch.no_grad():
+        _bn_call(K.batch_norm_act, x, w, b, rm, rv, None, None, "eval", "relu")
+    assert K.launches["batch_norm"] == 1 and K.launches["batch_norm_bwd"] == 0
+
+
+def test_batch_norm_act_refuses(dev):
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, (2, 4, 6, 6), "prelu", True, 6)
+    kw = dict(training=True, update_stats=False, momentum=0.1, eps=1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.batch_norm_act(x.transpose(2, 3), w, b, rm, rv, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.batch_norm_act(x.to(memory_format=torch.channels_last), w, b, rm, rv, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        K.batch_norm_act(x.double(), w, b, rm, rv, **kw)
+    with pytest.raises(ValueError, match="N, C, H, W"):
+        K.batch_norm_act(x[0], w, b, rm, rv, **kw)
+    with pytest.raises(ValueError, match="residual"):
+        K.batch_norm_act(x, w, b, rm, rv, act="relu", residual=res[:, :, :5].contiguous(), **kw)
+    with pytest.raises(ValueError, match="one value"):
+        K.batch_norm_act(x, w, b, rm, rv, act="prelu", slope=torch.ones(2, device=dev), **kw)
+    with pytest.raises(ValueError, match="weight, bias"):
+        K.batch_norm_act(x, w[:3], b, rm, rv, **kw)
+    with pytest.raises(ValueError, match="act must be one of"):
+        K.batch_norm_act(x, w, b, rm, rv, act="gelu", **kw)

@@ -186,6 +186,10 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         kernels.pixel_attn(q, q, q, 1)
     with pytest.raises(ValueError, match="expected CUDA"):
         kernels.ema_update([q], [q], 0.5)
+    c = torch.empty(3, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.batch_norm_act(torch.empty(2, 3, 4, 4, device="meta"), c, c, c, c, training=True,
+                               update_stats=True, momentum=0.1, eps=1e-5, act="relu")
     # nor does the walk's transition on a grid too small for K10's band build
     from tris_tpu_torch.pseudo.indexing import transition_matrix
 

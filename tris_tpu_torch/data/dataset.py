@@ -211,18 +211,31 @@ class Loader:
         self.process_index = process_index
         self.process_count = process_count
 
+    def _per_process(self) -> int:
+        """Refs each process takes an epoch: all of them on one process; on
+        several, ``ceil(len / process_count)``, the shuffled order padded with
+        its own head to a multiple of the process count (as torch's
+        ``DistributedSampler``), so that every rank yields the same number of
+        batches."""
+        n = len(self.ds)
+        return n if self.process_count == 1 else -(-n // self.process_count)
+
     def __len__(self) -> int:
-        n = len(self.ds) // self.process_count
+        n = self._per_process()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def epoch(self, epoch: int = 0) -> Iterator[dict]:
-        """Yield batches for one epoch (deterministic given (seed, epoch))."""
+        """Yield batches for one epoch (deterministic given (seed, epoch));
+        ``len(self)`` of them on every process."""
         rng = np.random.default_rng(self.seed + epoch)
         order = np.arange(len(self.ds))
         if self.shuffle:
             rng.shuffle(order)
-        order = order[self.process_index :: self.process_count]
-        nb = len(order) // self.batch_size if self.drop_last else -(-len(order) // self.batch_size)
+        if self.process_count > 1:
+            total = self._per_process() * self.process_count
+            order = np.resize(order, total)        # the head repeated after the tail
+            order = order[self.process_index :: self.process_count]
+        nb = len(self)
 
         def make_batch(batch_idx: int) -> dict:
             idxs = order[batch_idx * self.batch_size : (batch_idx + 1) * self.batch_size]

@@ -1,14 +1,17 @@
 """Hand-written Hopper kernels of the stage-1 eval, PRMS, stage-1 train,
 IRN training, IRNet instance pseudo-mask and stage-2 train and eval paths,
-each beside its plain PyTorch version.
+each beside its plain PyTorch version; K13, BatchNorm with its activation,
+serves every BatchNorm of the CLIP trunk and stage 2's decoder.
 
 A wrapper launches its CUDA kernel when given CUDA tensors and uses the
 plain version when given CPU tensors; there is no other switch. On CUDA the
 differentiable ones (K1, K2, K3's training head, K5, K6's bilinear resize,
-K7, K8 and K11) are ``torch.autograd.Function``s whose backward is a kernel too.
+K7, K8, K11 and K13) are ``torch.autograd.Function``s whose backward is a kernel too.
 The extension is built from ``csrc/`` at the first launch (``build.py``).
 """
 
+from tris_tpu_torch.kernels.batch_norm import (batch_norm_act, batch_norm_act_plain,
+                                               batch_norm_act_reference)
 from tris_tpu_torch.kernels.build import KERNELS, build_all, launches, reset_launches
 from tris_tpu_torch.kernels.centroids import refine_centroids, refine_centroids_plain
 from tris_tpu_torch.kernels.critic_input import critic_input, critic_input_plain
@@ -40,5 +43,6 @@ __all__ = [
     "walk_matmul", "walk_matmul_plain", "walk_square", "walk_tile_occupancy",
     "walk_tile_occupancy_plain", "irn_loss", "irn_loss_plain",
     "pixel_attn", "pixel_attn_plain", "pixel_attn_launch_shape",
-    "EmaTable", "ema_update", "ema_update_plain",
+    "EmaTable", "ema_update", "ema_update_plain", "batch_norm_act", "batch_norm_act_plain",
+    "batch_norm_act_reference",
 ]

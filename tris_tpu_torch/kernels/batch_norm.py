@@ -1,0 +1,242 @@
+"""K13: BatchNorm (batch statistics or the eval fold) with the activation that
+follows it, forward (``csrc/batch_norm.cu``) and backward
+(``csrc/batch_norm_bwd.cu``), and the plain PyTorch version.
+
+Replaces ``tris_tpu/models/layers.py:181`` ``TorchBatchNorm`` (train path
+``:219-229``, eval fold ``:213-217``) together with what its callers apply
+next: ReLU (CLIP's stem and a bottleneck's first two norms,
+``tris_tpu/models/clip.py:95-100``), the residual add then ReLU (a
+bottleneck's tail), nothing (its downsample), or the channel-shared PReLU
+``where(y >= 0, y, a * y)`` (stage 2's ``ConvBNRelu``,
+``tris_tpu/models/stage2.py:35-50``).
+
+Train: per-channel mean and biased variance over N*H*W, ``((x - mean) *
+rstd) * weight + bias``; with ``update_stats`` the running statistics move
+by ``momentum`` with the unbiased variance, ``n / max(n - 1, 1)``. Eval: the
+running statistics fold into one affine ``x * a + b``. The plain version
+is the JAX package's arithmetic. On CUDA tensors the kernels form the
+statistics as :func:`batch_stats_plain` does (each sample's sums in double,
+the batch in float32 in order), and apply the norm with each product and sum
+rounded alone in the plain version's order; :func:`batch_norm_act_reference`,
+the plain version on those statistics, is the routes' comparison on the card:
+its forward is the kernels' bit for bit (but for a sample sum whose double
+value lies within an ulp of double of a float32 rounding boundary).
+The wrapper is then a ``torch.autograd.Function``; its forward keeps x, the
+mean and rstd, and its output where the activation is ReLU (whose mask that
+output is); PReLU's pre-activation is recomputed from x.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tris_tpu_torch.kernels import build
+
+# the activation codes of csrc/launchers.h (kBatchNormAct*) and its kBatchNormMaxBatch
+ACTS = {"none": 0, "relu": 1, "prelu": 2}
+MAX_BATCH = 4096
+
+
+def _check_act(act, slope, residual):
+    """The fused forms: the residual before a ReLU or alone; PReLU with its
+    slope and no residual. Raises on any other."""
+    if act not in ACTS:
+        raise ValueError(f"batch_norm_act: act must be one of {sorted(ACTS)}, got {act!r}")
+    if (act == "prelu") != (slope is not None):
+        raise ValueError("batch_norm_act: a slope goes with act='prelu' and only with it")
+    if act == "prelu" and residual is not None:
+        raise ValueError("batch_norm_act: no residual before a PReLU")
+
+
+def _update_running_stats(running_mean, running_var, mean, var, n: int, momentum: float) -> None:
+    """torch's rule: the running variance takes the unbiased batch variance."""
+    with torch.no_grad():
+        running_mean.mul_(1 - momentum).add_(momentum * mean)
+        running_var.mul_(1 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
+
+
+def _fold(weight, bias, running_mean, running_var, eps: float):
+    """The eval path's per-channel affine (a, b): the JAX package's fold."""
+    inv = weight * torch.rsqrt(running_var + eps)
+    return inv, bias - running_mean * inv
+
+
+def _activate(y, act: str, slope=None, residual=None):
+    if residual is not None:
+        y = y + residual
+    if act == "relu":
+        return F.relu(y)
+    if act == "prelu":
+        return torch.where(y >= 0, y, slope * y)
+    return y
+
+
+def batch_stats_plain(xf, eps: float):
+    """The batch statistics as the kernels form them, (mean, var, rstd) [C]
+    in float32: each sample's mean m_n and sum of squared deviations q_n in
+    float64, rounded once; then in float32, the samples in batch order:
+    mean = (sum m_n) / N, var = (sum q_n + HW * sum (m_n - mean)^2) / M;
+    rstd = 1 / sqrt(var + eps) in float64, rounded once. A sample's moments
+    are exact to float32, and the batch combine keeps float32's dependence
+    on the batch order, as the JAX package's float32 means have."""
+    N, HW = xf.shape[0], xf.shape[2] * xf.shape[3]
+    x64 = xf.double()
+    m64 = x64.mean(dim=(2, 3))                                       # [N, C]
+    m = m64.float()
+    q = (x64 - m64[:, :, None, None]).square().sum(dim=(2, 3)).float()
+    s, qs = m[0], q[0]
+    for n in range(1, N):
+        s, qs = s + m[n], qs + q[n]
+    # divisors as tensors: a division by a Python number may run as a product with its
+    # reciprocal, which rounds otherwise than the kernels' division
+    mean = s / torch.full_like(s, N)
+    t = m[0] - mean
+    between = t * t
+    for n in range(1, N):
+        t = m[n] - mean
+        between = between + t * t
+    var = (qs + float(HW) * between) / torch.full_like(s, N * HW)
+    return mean, var, torch.rsqrt(var.double() + eps).float()
+
+
+def jax_batch_stats(xf, eps: float):
+    """The JAX package's batch statistics op for op: float32 means, the
+    variance of x - mean, rstd in float32."""
+    mean = xf.mean(dim=(0, 2, 3))
+    var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+    return mean, var, torch.rsqrt(var + eps)
+
+
+def batch_norm_act_plain(x, weight, bias, running_mean, running_var, *, training: bool,
+                         update_stats: bool, momentum: float, eps: float, act: str = "none",
+                         slope=None, residual=None):
+    """The plain version: the JAX package's arithmetic op for op (its eval
+    fold, then its batch normalisation with :func:`jax_batch_stats`), then
+    the activation."""
+    _check_act(act, slope, residual)
+    if not training:
+        a, b = (t.to(x.dtype) for t in _fold(weight, bias, running_mean, running_var, eps))
+        return _activate(x * a[:, None, None] + b[:, None, None], act, slope, residual)
+    xf = x.float()
+    mean, var, rstd = jax_batch_stats(xf, eps)
+    if update_stats:
+        _update_running_stats(running_mean, running_var, mean, var, x.numel() // x.shape[1],
+                              momentum)
+    y = (xf - mean[:, None, None]) * rstd[:, None, None]
+    y = y * weight[:, None, None] + bias[:, None, None]
+    return _activate(y.to(x.dtype), act, slope, residual)
+
+
+def batch_norm_act_reference(x, weight, bias, running_mean, running_var, *, training: bool,
+                             update_stats: bool, momentum: float, eps: float,
+                             act: str = "none", slope=None, residual=None):
+    """The plain version with the kernels' rounding: the routes' comparison
+    on the card, not a speed baseline (its Python loops over the batch are
+    slow). Batch statistics from :func:`batch_stats_plain`, so that both
+    routes normalise by the same bits: statistics rounded otherwise move y
+    by an ulp, which flips a ReLU's mask wherever its input is that close to
+    zero, and a random network's gradients then differ by their batch-order
+    noise. Weight, bias and the slope enter broadcast from float64, so that
+    their gradients are summed in float64 as the kernels sum them: a float32
+    sum of a random network's cancelling terms can be off by 1e-2 of the
+    gradient, more than its batch-order noise shows (a sample's partial sums
+    move together when the batch turns). The eval fold is the plain
+    version's."""
+    if not training:
+        return batch_norm_act_plain(x, weight, bias, running_mean, running_var,
+                                    training=training, update_stats=update_stats,
+                                    momentum=momentum, eps=eps, act=act, slope=slope,
+                                    residual=residual)
+    _check_act(act, slope, residual)
+    xf = x.float()
+    mean, var, rstd = batch_stats_plain(xf, eps)
+    if update_stats:
+        _update_running_stats(running_mean, running_var, mean, var, x.numel() // x.shape[1],
+                              momentum)
+    y = (xf - mean[:, None, None]) * rstd[:, None, None]
+    weight, bias = (_from_double(t[:, None, None], y) for t in (weight, bias))
+    slope = None if slope is None else _from_double(slope, y)
+    return _activate((y * weight + bias).to(x.dtype), act, slope, residual)
+
+
+def _from_double(p, like):
+    """``p`` broadcast to ``like``'s shape through float64: the same values,
+    and a gradient summed in float64."""
+    return p.double().expand(like.shape).float()
+
+
+class _BatchNormAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, slope, residual, running_mean, running_var, training,
+                momentum, eps, act, save):
+        ops = build.ops()
+        mean = rstd = None
+        if training:
+            stats = ops.batch_norm_stats(x, running_mean, running_var, momentum, eps)
+            build.count("batch_norm", n=2)
+            mean, rstd = stats[0], stats[2]
+        y = ops.batch_norm_apply(x, mean, rstd, weight, bias, residual, slope, ACTS[act])
+        build.count("batch_norm")
+        ctx.meta = (act, residual is not None)
+        if save:  # nothing is kept when no input needs a gradient
+            ctx.save_for_backward(x, y if act == "relu" else None, mean, rstd, weight, bias,
+                                  slope)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, mean, rstd, weight, bias, slope = ctx.saved_tensors
+        act, has_residual = ctx.meta
+        dx, dw, db, dslope, dres = build.ops().batch_norm_bwd(
+            g.contiguous(), x, out, mean, rstd, weight, bias, slope, ACTS[act], has_residual)
+        build.count("batch_norm_bwd", n=3)
+        return (dx, dw, db, None if slope is None else dslope.reshape(slope.shape), dres,
+                None, None, None, None, None, None, None)
+
+
+def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool,
+                   update_stats: bool, momentum: float, eps: float, act: str = "none",
+                   slope=None, residual=None):
+    """K13 on CUDA tensors; the plain version on CPU tensors.
+
+    x [N, C, H, W] contiguous float32 (N * H * W >= 1, fewer than 2^31
+    elements); weight, bias, running_mean, running_var [C]; act "none",
+    "relu" (with an optional residual of x's shape added first) or "prelu"
+    (with ``slope``, PReLU's one-element weight). ``training``: batch
+    statistics, the running buffers moved in place when ``update_stats``;
+    else the eval fold. Launches: train 3 forward (statistics, 2; apply, 1),
+    eval 1; backward 3."""
+    _check_act(act, slope, residual)
+    if x.device.type == "cpu":
+        return batch_norm_act_plain(x, weight, bias, running_mean, running_var,
+                                    training=training, update_stats=update_stats,
+                                    momentum=momentum, eps=eps, act=act, slope=slope,
+                                    residual=residual)
+    build.require_cuda_f32("batch_norm_act", x, weight, bias, running_mean, running_var, slope,
+                           residual)
+    C = x.shape[1] if x.dim() == 4 else -1
+    if (x.dim() != 4 or x.numel() == 0 or x.numel() >= 2 ** 31
+            or x.numel() // x.shape[1] >= 2 ** 24 or x.shape[0] > MAX_BATCH):
+        raise ValueError(f"batch_norm_act: expected x [N, C, H, W] with 1 to 2^31 - 1 "
+                         f"elements, below 2^24 a channel and N <= {MAX_BATCH}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("batch_norm_act: x must be contiguous NCHW (not channels-last or a "
+                         "strided view)")
+    if any(t.shape != (C,) for t in (weight, bias, running_mean, running_var)):
+        raise ValueError(f"batch_norm_act: expected [{C}] weight, bias and running statistics")
+    if residual is not None and (residual.shape != x.shape or not residual.is_contiguous()):
+        raise ValueError(f"batch_norm_act: the residual must be contiguous {tuple(x.shape)}")
+    if slope is not None and slope.numel() != 1:
+        raise ValueError("batch_norm_act: PReLU's slope must be one value (channel-shared)")
+    if training:
+        w_eff, b_eff = weight, bias
+        rm, rv = (running_mean, running_var) if update_stats else (None, None)
+    else:
+        w_eff, b_eff = _fold(weight, bias, running_mean, running_var, eps)
+        rm = rv = None
+    save = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w_eff, b_eff, slope, residual))
+    return _BatchNormAct.apply(x, w_eff, b_eff, slope, residual, rm, rv, training, momentum,
+                               eps, act, save)

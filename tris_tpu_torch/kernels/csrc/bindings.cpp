@@ -5,6 +5,7 @@
 // Python wrappers beside build.py, which are the only callers.
 
 #include <algorithm>
+#include <array>
 #include <cstdint>
 #include <map>
 #include <optional>
@@ -513,7 +514,7 @@ void check_irn_loss(const char* name, const at::Tensor& labels, const at::Tensor
 // K8. Returns (sums [5] float32, counts [3] int64).
 std::vector<at::Tensor> irn_loss(const at::Tensor& labels, const at::Tensor& aff,
                                  const at::Tensor& dp, const at::Tensor& dirs, int64_t rf,
-                                 double eps, double one_eps) {
+                                 double eps, double one_eps, int64_t max_valid) {
   const c10::cuda::CUDAGuard guard(aff.device());
   check_irn_loss("irn_loss", labels, aff, dp, dirs, rf);
   const int64_t B = labels.size(0), H = labels.size(1), W = labels.size(2);
@@ -528,7 +529,7 @@ std::vector<at::Tensor> irn_loss(const at::Tensor& labels, const at::Tensor& aff
                           reinterpret_cast<long long*>(pcount.data_ptr<int64_t>()),
                           sums.data_ptr<float>(),
                           reinterpret_cast<long long*>(counts.data_ptr<int64_t>()), B, H, W, rf,
-                          n_dirs, (float)eps, (float)one_eps, stream()),
+                          n_dirs, (float)eps, (float)one_eps, (int)max_valid, stream()),
            "irn_loss");
   return {sums, counts};
 }
@@ -537,7 +538,7 @@ std::vector<at::Tensor> irn_loss(const at::Tensor& labels, const at::Tensor& aff
 std::vector<at::Tensor> irn_loss_bwd(const at::Tensor& labels, const at::Tensor& aff,
                                      const at::Tensor& dp, const at::Tensor& dirs,
                                      const at::Tensor& gsum, int64_t rf, double eps,
-                                     double one_eps) {
+                                     double one_eps, int64_t max_valid) {
   const c10::cuda::CUDAGuard guard(aff.device());
   check_irn_loss("irn_loss_bwd", labels, aff, dp, dirs, rf);
   check(gsum, "irn_loss_bwd: gsum", at::kFloat, aff.device());
@@ -547,7 +548,8 @@ std::vector<at::Tensor> irn_loss_bwd(const at::Tensor& labels, const at::Tensor&
   launched(tris::irn_loss_bwd(labels.data_ptr<unsigned char>(), aff.data_ptr<float>(),
                               dp.data_ptr<float>(), dirs.data_ptr<int>(), gsum.data_ptr<float>(),
                               daff.data_ptr<float>(), ddp.data_ptr<float>(), B, H, W, rf,
-                              dirs.size(0), (float)eps, (float)one_eps, stream()),
+                              dirs.size(0), (float)eps, (float)one_eps, (int)max_valid,
+                              stream()),
            "irn_loss_bwd");
   return {daff, ddp};
 }
@@ -744,6 +746,133 @@ void ema_update(const at::Tensor& table, const at::Tensor& starts, int64_t n_chu
            "ema_update");
 }
 
+// K13's x [N, C, H, W] (or any [N, C, ...]): contiguous float32 on `dev`, N * HW >= 1 and
+// fewer than 2^31 elements. Returns (N, C, HW).
+std::array<int, 3> check_batch_norm(const at::Tensor& x, const char* name) {
+  check(x, name, at::kFloat, x.device());
+  TORCH_CHECK(x.dim() >= 2 && x.numel() > 0 && x.numel() < INT32_MAX, name,
+              ": expected [N, C, ...] with 1 to 2^31 - 1 elements, got ", x.sizes());
+  return {(int)x.size(0), (int)x.size(1), (int)(x.numel() / (x.size(0) * x.size(1)))};
+}
+
+void check_channels(const at::Tensor& t, const char* what, const at::Device& dev, int64_t C) {
+  check(t, what, at::kFloat, dev);
+  TORCH_CHECK(t.numel() == C, what, ": expected ", C, " values, got ", t.numel());
+}
+
+// K13 statistics of x [N, C, ...]: returns [3, C] (mean, biased var, rstd); with the running
+// buffers given, they move by `momentum` in place.
+at::Tensor batch_norm_stats(const at::Tensor& x, const std::optional<at::Tensor>& running_mean,
+                            const std::optional<at::Tensor>& running_var, double momentum,
+                            double eps) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const auto [N, C, HW] = check_batch_norm(x, "batch_norm_stats: x");
+  TORCH_CHECK(running_mean.has_value() == running_var.has_value(),
+              "batch_norm_stats: give both running buffers or neither");
+  if (running_mean) {
+    check_channels(*running_mean, "batch_norm_stats: running_mean", x.device(), C);
+    check_channels(*running_var, "batch_norm_stats: running_var", x.device(), C);
+  }
+  TORCH_CHECK((int64_t)N * HW < (1 << 24) && N <= tris::kBatchNormMaxBatch,
+              "batch_norm_stats: N * HW must be below 2^24 and N at most ",
+              tris::kBatchNormMaxBatch);
+  const int64_t slices = tris::batch_norm_slices(HW);
+  at::Tensor partial = at::empty({C * N * slices * 2}, x.options().dtype(at::kDouble));
+  at::Tensor stats = at::empty({3, C}, x.options());
+  launched(tris::batch_norm_stats(x.data_ptr<float>(), partial.data_ptr<double>(),
+                                  stats.data_ptr<float>(), ptr<float>(running_mean),
+                                  ptr<float>(running_var), N, C, HW, momentum, eps, stream()),
+           "batch_norm_stats");
+  return stats;
+}
+
+// K13 apply: y = act(((x - mean) * rstd) * weight + bias [+ residual]); without mean and rstd
+// the eval fold y = act(x * weight + bias). act: 0 none, 1 ReLU, 2 PReLU (slope [1]).
+at::Tensor batch_norm_apply(const at::Tensor& x, const std::optional<at::Tensor>& mean,
+                            const std::optional<at::Tensor>& rstd, const at::Tensor& weight,
+                            const at::Tensor& bias, const std::optional<at::Tensor>& residual,
+                            const std::optional<at::Tensor>& slope, int64_t act) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const auto [N, C, HW] = check_batch_norm(x, "batch_norm_apply: x");
+  TORCH_CHECK(mean.has_value() == rstd.has_value(), "batch_norm_apply: mean and rstd go together");
+  if (mean) {
+    check_channels(*mean, "batch_norm_apply: mean", dev, C);
+    check_channels(*rstd, "batch_norm_apply: rstd", dev, C);
+  }
+  check_channels(weight, "batch_norm_apply: weight", dev, C);
+  check_channels(bias, "batch_norm_apply: bias", dev, C);
+  if (residual) {
+    check(*residual, "batch_norm_apply: residual", at::kFloat, dev);
+    TORCH_CHECK(residual->sizes() == x.sizes(), "batch_norm_apply: residual not x's shape");
+  }
+  TORCH_CHECK(act >= tris::kBatchNormActNone && act <= tris::kBatchNormActPrelu,
+              "batch_norm_apply: unknown activation ", act);
+  TORCH_CHECK((act == tris::kBatchNormActPrelu) == slope.has_value(),
+              "batch_norm_apply: a slope goes with PReLU and only with it");
+  if (slope) check_channels(*slope, "batch_norm_apply: slope", dev, 1);
+  at::Tensor y = at::empty_like(x);
+  launched(tris::batch_norm_apply(x.data_ptr<float>(), ptr<float>(mean), ptr<float>(rstd),
+                                  weight.data_ptr<float>(), bias.data_ptr<float>(),
+                                  ptr<float>(residual), ptr<float>(slope), y.data_ptr<float>(),
+                                  N, C, HW, (int)act, stream()),
+           "batch_norm_apply");
+  return y;
+}
+
+// K13 backward from g = dL/dout: out the forward's output (ReLU only), mean and rstd as the
+// forward's (none: the eval fold). Returns (dx, dweight, dbias, dslope [1] or empty, dres or
+// empty); dres is written when `residual` is set.
+std::vector<at::Tensor> batch_norm_bwd(const at::Tensor& g, const at::Tensor& x,
+                                       const std::optional<at::Tensor>& out,
+                                       const std::optional<at::Tensor>& mean,
+                                       const std::optional<at::Tensor>& rstd,
+                                       const at::Tensor& weight, const at::Tensor& bias,
+                                       const std::optional<at::Tensor>& slope, int64_t act,
+                                       bool residual) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const auto [N, C, HW] = check_batch_norm(x, "batch_norm_bwd: x");
+  check(g, "batch_norm_bwd: g", at::kFloat, dev);
+  TORCH_CHECK(g.sizes() == x.sizes(), "batch_norm_bwd: g not x's shape");
+  TORCH_CHECK(act >= tris::kBatchNormActNone && act <= tris::kBatchNormActPrelu,
+              "batch_norm_bwd: unknown activation ", act);
+  TORCH_CHECK((act == tris::kBatchNormActRelu) == out.has_value(),
+              "batch_norm_bwd: the output goes with ReLU and only with it");
+  TORCH_CHECK((act == tris::kBatchNormActPrelu) == slope.has_value(),
+              "batch_norm_bwd: a slope goes with PReLU and only with it");
+  if (out) {
+    check(*out, "batch_norm_bwd: out", at::kFloat, dev);
+    TORCH_CHECK(out->sizes() == x.sizes(), "batch_norm_bwd: out not x's shape");
+  }
+  TORCH_CHECK(mean.has_value() == rstd.has_value(), "batch_norm_bwd: mean and rstd go together");
+  if (mean) {
+    check_channels(*mean, "batch_norm_bwd: mean", dev, C);
+    check_channels(*rstd, "batch_norm_bwd: rstd", dev, C);
+  }
+  check_channels(weight, "batch_norm_bwd: weight", dev, C);
+  check_channels(bias, "batch_norm_bwd: bias", dev, C);
+  if (slope) check_channels(*slope, "batch_norm_bwd: slope", dev, 1);
+  const int64_t warps = (int64_t)C * N * tris::batch_norm_slices(HW);
+  at::Tensor partial =
+      at::empty({warps * 3 + (slope ? C : 0)}, x.options().dtype(at::kDouble));
+  at::Tensor coef = at::empty({2, C}, x.options());
+  at::Tensor dx = at::empty_like(x), dw = at::empty({C}, x.options()),
+             db = at::empty({C}, x.options());
+  at::Tensor dslope = slope ? at::empty({1}, x.options()) : at::Tensor();
+  at::Tensor dres = residual ? at::empty_like(x) : at::Tensor();
+  launched(tris::batch_norm_bwd(g.data_ptr<float>(), x.data_ptr<float>(), ptr<float>(out),
+                                ptr<float>(mean), ptr<float>(rstd), weight.data_ptr<float>(),
+                                bias.data_ptr<float>(), ptr<float>(slope),
+                                partial.data_ptr<double>(), coef.data_ptr<float>(),
+                                dw.data_ptr<float>(), db.data_ptr<float>(),
+                                slope ? dslope.data_ptr<float>() : nullptr, dx.data_ptr<float>(),
+                                residual ? dres.data_ptr<float>() : nullptr, N, C, HW, (int)act,
+                                stream()),
+           "batch_norm_bwd");
+  return {dx, dw, db, dslope, dres};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -778,4 +907,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pixel_attn_takes", &pixel_attn_takes, "K11: whether its kernels take (T, C, S)");
   m.def("pixel_attn_launch_shape", &pixel_attn_launch_shape, "K11: its last launch's grid");
   m.def("ema_update", &ema_update, "K12: the EMA teacher update over a leaf table");
+  m.def("batch_norm_stats", &batch_norm_stats, "K13: BatchNorm's batch statistics");
+  m.def("batch_norm_apply", &batch_norm_apply, "K13: the norm, its affine and activation");
+  m.def("batch_norm_bwd", &batch_norm_bwd, "K13 backward: dx, dweight, dbias, dslope, dres");
 }

@@ -8,7 +8,7 @@
 // search offset (dy, dx), source pixel (r, rf + c), destination (r + dy,
 // rf + c + dx)) of the quarter-scale ir label map L (0 bg, 1 fg, 255
 // ignore):
-//   valid = L[src] < 21 && L[dst] < 21;  equal = L[src] == L[dst]
+//   valid = L[src] < max_valid && L[dst] < max_valid;  equal = L[src] == L[dst]
 //   bg = valid && equal && L[src] == 0;  fg = valid && equal && L[src] > 0
 //   neg = valid && !equal
 // and with p_k = dp[b, k, src] - dp[b, k, dst] the pair displacement:
@@ -57,14 +57,14 @@ struct Entry {
 };
 
 __device__ __forceinline__ Entry entry(const unsigned char* __restrict__ lab, int W, int r, int c,
-                                       int rf, int dy, int dx) {
+                                       int rf, int dy, int dx, int max_valid) {
   Entry e;
   e.dy = dy;
   e.dx = dx;
   e.src = (long long)r * W + rf + c;
   e.dst = (long long)(r + dy) * W + rf + c + dx;
   const int a = lab[e.src], b = lab[e.dst];
-  const bool valid = a < 21 && b < 21, equal = a == b;
+  const bool valid = a < max_valid && b < max_valid, equal = a == b;
   e.bg = valid && equal && a == 0;
   e.fg = valid && equal && a > 0;
   e.neg = valid && !equal;
@@ -78,7 +78,7 @@ irn_loss_partial_kernel(const unsigned char* __restrict__ labels, const float* _
                         const float* __restrict__ dp, const int* __restrict__ dirs,
                         double* __restrict__ psum, long long* __restrict__ pcount,
                         long long n, int H, int W, int rf, int n_dirs, int ch, int cw, float eps,
-                        float one_eps) {
+                        float one_eps, int max_valid) {
   __shared__ double sred[5][kThreads];
   __shared__ long long cred[3][kThreads];
   float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
@@ -94,7 +94,8 @@ irn_loss_partial_kernel(const unsigned char* __restrict__ labels, const float* _
     t /= ch;
     const int d = (int)(t % n_dirs);
     const long long b = t / n_dirs;
-    const Entry e = entry(labels + b * hw, W, r, c, rf, dirs[2 * d], dirs[2 * d + 1]);
+    const Entry e =
+        entry(labels + b * hw, W, r, c, rf, dirs[2 * d], dirs[2 * d + 1], max_valid);
     if (!(e.bg || e.fg || e.neg)) continue;
     const float a = aff[i];
     if (e.neg) {
@@ -161,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
 irn_loss_daff_kernel(const unsigned char* __restrict__ labels, const float* __restrict__ aff,
                      const int* __restrict__ dirs, const float* __restrict__ gsum,
                      float* __restrict__ daff, long long n, int H, int W, int rf, int n_dirs,
-                     int ch, int cw, float eps, float one_eps) {
+                     int ch, int cw, float eps, float one_eps, int max_valid) {
   const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
   if (i >= n) return;
   const int c = (int)(i % cw);
@@ -170,7 +171,8 @@ irn_loss_daff_kernel(const unsigned char* __restrict__ labels, const float* __re
   t /= ch;
   const int d = (int)(t % n_dirs);
   const long long b = t / n_dirs;
-  const Entry e = entry(labels + b * (long long)H * W, W, r, c, rf, dirs[2 * d], dirs[2 * d + 1]);
+  const Entry e = entry(labels + b * (long long)H * W, W, r, c, rf, dirs[2 * d], dirs[2 * d + 1],
+                        max_valid);
   float v = 0.f;
   if (e.neg) v = __fdiv_rn(gsum[2], __fsub_rn(one_eps, aff[i]));
   else if (e.bg || e.fg) v = -__fdiv_rn(gsum[e.bg ? 0 : 1], __fadd_rn(aff[i], eps));
@@ -181,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
 irn_loss_ddp_kernel(const unsigned char* __restrict__ labels, const float* __restrict__ dp,
                     const int* __restrict__ dirs, const float* __restrict__ gsum,
                     float* __restrict__ ddp, long long n_pix, int H, int W, int rf, int n_dirs,
-                    int ch, int cw) {
+                    int ch, int cw, int max_valid) {
   const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
   if (i >= n_pix) return;
   const int x = (int)(i % W);
@@ -211,9 +213,9 @@ irn_loss_ddp_kernel(const unsigned char* __restrict__ labels, const float* __res
   const int cs = x - rf;
   for (int d = 0; d < n_dirs; ++d) {
     const int dy = dirs[2 * d], dx = dirs[2 * d + 1];
-    if (y < ch && cs >= 0 && cs < cw) add(entry(lab, W, y, cs, rf, dy, dx), 1.f);
+    if (y < ch && cs >= 0 && cs < cw) add(entry(lab, W, y, cs, rf, dy, dx, max_valid), 1.f);
     const int r = y - dy, c = cs - dx;
-    if (r >= 0 && r < ch && c >= 0 && c < cw) add(entry(lab, W, r, c, rf, dy, dx), -1.f);
+    if (r >= 0 && r < ch && c >= 0 && c < cw) add(entry(lab, W, r, c, rf, dy, dx, max_valid), -1.f);
   }
   ddp[b * 2 * hw + (long long)y * W + x] = acc0;
   ddp[b * 2 * hw + hw + (long long)y * W + x] = acc1;
@@ -230,14 +232,14 @@ int tris::irn_loss_blocks(int64_t n) { return (int)grid(n, (long long)kThreads *
 cudaError_t tris::irn_loss(const unsigned char* labels, const float* aff, const float* dp,
                            const int* dirs, double* psum, long long* pcount, float* sums,
                            long long* counts, int64_t B, int H, int W, int rf, int n_dirs,
-                           float eps, float one_eps, cudaStream_t stream) {
+                           float eps, float one_eps, int max_valid, cudaStream_t stream) {
   const int ch = H - rf, cw = W - 2 * rf;
   const long long n = B * n_dirs * (long long)ch * cw;
   const int blocks = irn_loss_blocks(n);
   if (blocks > 0) {
     irn_loss_partial_kernel<<<blocks, kThreads, 0, stream>>>(labels, aff, dp, dirs, psum, pcount, n,
                                                              H, W, rf, n_dirs, ch, cw, eps,
-                                                             one_eps);
+                                                             one_eps, max_valid);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -248,18 +250,18 @@ cudaError_t tris::irn_loss(const unsigned char* labels, const float* aff, const 
 cudaError_t tris::irn_loss_bwd(const unsigned char* labels, const float* aff, const float* dp,
                                const int* dirs, const float* gsum, float* daff, float* ddp,
                                int64_t B, int H, int W, int rf, int n_dirs, float eps,
-                               float one_eps, cudaStream_t stream) {
+                               float one_eps, int max_valid, cudaStream_t stream) {
   const int ch = H - rf, cw = W - 2 * rf;
   const long long n = B * n_dirs * (long long)ch * cw, n_pix = B * H * (long long)W;
   if (n_pix <= 0) return cudaSuccess;
   if (n > 0) {
     irn_loss_daff_kernel<<<grid(n, kThreads), kThreads, 0, stream>>>(
-        labels, aff, dirs, gsum, daff, n, H, W, rf, n_dirs, ch, cw, eps, one_eps);
+        labels, aff, dirs, gsum, daff, n, H, W, rf, n_dirs, ch, cw, eps, one_eps, max_valid);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   irn_loss_ddp_kernel<<<grid(n_pix, kThreads), kThreads, 0, stream>>>(labels, dp, dirs, gsum, ddp,
                                                                       n_pix, H, W, rf, n_dirs, ch,
-                                                                      cw);
+                                                                      cw, max_valid);
   return cudaGetLastError();
 }

@@ -227,17 +227,18 @@ cudaError_t path_max_affinity_bwd(const float* edge, const float* g, float* pmax
 // K8: labels uint8 [B, H, W]; aff [B, n_dirs, H - rf, W - 2 * rf]; dp [B, 2, H, W]; dirs
 // [n_dirs, 2] each direction's (dy, dx); scratch psum [blocks, 5] and pcount [blocks, 3] with
 // blocks = irn_loss_blocks(aff's numel); sums [5] float and counts [3] int64 on the device.
+// A pair is valid where both its labels are below max_valid.
 int irn_loss_blocks(int64_t n);
 cudaError_t irn_loss(const unsigned char* labels, const float* aff, const float* dp,
                      const int* dirs, double* psum, long long* pcount, float* sums,
                      long long* counts, int64_t B, int H, int W, int rf, int n_dirs, float eps,
-                     float one_eps, cudaStream_t stream);
+                     float one_eps, int max_valid, cudaStream_t stream);
 
 // K8 backward: gsum [5] the sums' gradients on the device; daff as aff, ddp as dp.
 cudaError_t irn_loss_bwd(const unsigned char* labels, const float* aff, const float* dp,
                          const int* dirs, const float* gsum, float* daff, float* ddp, int64_t B,
                          int H, int W, int rf, int n_dirs, float eps, float one_eps,
-                         cudaStream_t stream);
+                         int max_valid, cudaStream_t stream);
 
 // K9: disp [2, H, W]; out int32 [2, H, W], the rounded centroids after `iterations` steps.
 cudaError_t refine_centroids(const float* disp, int* out, int H, int W, int iterations,
@@ -393,5 +394,49 @@ cudaError_t pixel_attn_bwd(const float* dg, const float* q, const float* lk, con
 cudaError_t ema_update(const long long* table, const long long* starts, int n_leaves,
                        long long n_chunks, long long chunk, float d, float omd,
                        cudaStream_t stream);
+
+// K13: BatchNorm over x [N, C, HW] (contiguous float32) with the activation that follows it
+// (batch_norm.cu, batch_norm_bwd.cu). The statistics and the backward's sums take a warp per
+// (channel, sample, slice of at most kBatchNormSlice elements of the sample's plane):
+// batch_norm_slices(HW) slices a plane, warp w = (c * N + n) * slices + slice,
+// kBatchNormThreads / 32 warps a block. tools/batch_norm_schedule.py reads these constants
+// and rules.
+constexpr int kBatchNormThreads = 256;
+constexpr int kBatchNormSlice = 4096;
+constexpr int kBatchNormMaxBatch = 4096;  // the statistics hold a channel's N moments in 32 KB
+// the activation after the norm: none, ReLU, or the channel-shared PReLU where(y >= 0, y, a y)
+constexpr int kBatchNormActNone = 0;
+constexpr int kBatchNormActRelu = 1;
+constexpr int kBatchNormActPrelu = 2;
+constexpr long long batch_norm_slices(long long HW) {
+  return (HW + kBatchNormSlice - 1) / kBatchNormSlice;
+}
+
+// K13 statistics, two launches: partial [C * N * batch_norm_slices(HW) * 2] double scratch;
+// stats [3, C] receives mean, biased var and rstd = 1 / sqrt(var + eps); running_mean and
+// running_var [C] move by `momentum` (the unbiased var) unless null. N * C * HW < 2^31,
+// 1 <= N * HW < 2^24, N <= kBatchNormMaxBatch.
+cudaError_t batch_norm_stats(const float* x, double* partial, float* stats, float* running_mean,
+                             float* running_var, int N, int C, int HW, double momentum,
+                             double eps, cudaStream_t stream);
+
+// K13 apply, one launch: y = act(((x - mean) * rstd) * weight + bias [+ residual]), each
+// product and sum rounded alone; mean and rstd null: y = act(x * weight + bias) (the eval
+// fold, weight and bias its a and b). residual as x or null; slope [1] (PReLU) or null.
+cudaError_t batch_norm_apply(const float* x, const float* mean, const float* rstd,
+                             const float* weight, const float* bias, const float* residual,
+                             const float* slope, float* y, int N, int C, int HW, int act,
+                             cudaStream_t stream);
+
+// K13 backward, three launches, from g = dL/dy: out the forward's y (ReLU's mask; null for
+// the other activations); mean and rstd as the forward (null: the eval fold, x-hat = x and
+// no batch-statistics terms); partial [C * N * batch_norm_slices(HW) * 3 (+ C with a slope)]
+// double scratch; coef [2, C] scratch; dweight, dbias [C]; dslope [1] (PReLU) or null; dx as
+// x; dres as x (the residual's gradient) or null.
+cudaError_t batch_norm_bwd(const float* g, const float* x, const float* out, const float* mean,
+                           const float* rstd, const float* weight, const float* bias,
+                           const float* slope, double* partial, float* coef, float* dweight,
+                           float* dbias, float* dslope, float* dx, float* dres, int N, int C,
+                           int HW, int act, cudaStream_t stream);
 
 }  // namespace tris

@@ -30,6 +30,9 @@ from tris_tpu_torch.kernels import build
 # ``aff + 1e-5`` and ``1.0 + 1e-5 - aff``
 EPS = float(np.float32(1e-5))
 ONE_EPS = float(np.float32(1.0 + 1e-5))
+# a pair is valid where both its ir labels are below this (0 bg, 1 fg, 255 ignore): the one
+# threshold of the port's pair labels, host (pseudo/aug.py) and card alike
+MAX_VALID = 21
 
 
 def src_window(x, rf: int):
@@ -52,7 +55,7 @@ def pair_labels_plain(labels, search_dst, rf: int):
     map ``[B, H, W]``: the JAX package's static-slice build."""
     lab_from = src_window(labels, rf)[:, None]
     lab_to = dst_windows(labels, search_dst, rf)
-    valid = (lab_from < 21) & (lab_to < 21)
+    valid = (lab_from < MAX_VALID) & (lab_to < MAX_VALID)
     equal = lab_from == lab_to
     pos = equal & valid
     return pos & (lab_from == 0), pos & (lab_from > 0), ~equal & valid
@@ -109,7 +112,7 @@ def _dirs_table(search_dst: tuple, rf: int, device: torch.device):
 class _IrnLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, aff, dp, labels, dirs, rf, save):
-        sums, counts = build.ops().irn_loss(labels, aff, dp, dirs, rf, EPS, ONE_EPS)
+        sums, counts = build.ops().irn_loss(labels, aff, dp, dirs, rf, EPS, ONE_EPS, MAX_VALID)
         build.count("irn_loss", n=2)
         ctx.rf = rf
         ctx.mark_non_differentiable(counts)
@@ -121,7 +124,7 @@ class _IrnLoss(torch.autograd.Function):
     def backward(ctx, g_sums, g_counts):
         aff, dp, labels, dirs = ctx.saved_tensors
         d_aff, d_dp = build.ops().irn_loss_bwd(labels, aff, dp, dirs, g_sums.contiguous(), ctx.rf,
-                                               EPS, ONE_EPS)
+                                               EPS, ONE_EPS, MAX_VALID)
         build.count("irn_loss_bwd", n=2)
         return d_aff, d_dp, None, None, None, None
 
@@ -130,7 +133,8 @@ def irn_loss(labels, aff, dp, search_dst, rf: int):
     """K8 on CUDA tensors (two launches forward, two backward); the plain
     version on CPU tensors. labels uint8 ``[B, H, W]``, aff ``[B, n_dirs,
     H - rf, W - 2 rf]`` (K7's output), dp ``[B, 2, H, W]`` float32 ->
-    (sums [5] float32, counts [3] int64)."""
+    (sums [5] float32, counts [3] int64); a pair counts where both its
+    labels are below ``MAX_VALID``."""
     if aff.device.type == "cpu":
         return irn_loss_plain(labels, aff, dp, search_dst, rf)
     build.require_cuda_f32("irn_loss", aff, dp, labels)

@@ -19,7 +19,6 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tris_tpu_torch.models.layers import (
@@ -106,13 +105,12 @@ class Bottleneck(nn.Module):
             ]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = F.relu(self.bn2(self.conv2(h)))
+        h = self.bn1(self.conv1(x), act="relu")
+        h = self.bn2(self.conv2(h), act="relu")
         if self.stride > 1:
             h = avg_pool(h, self.stride)
-        h = self.bn3(self.conv3(h))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(h + identity)
+        return self.bn3(self.conv3(h), act="relu", residual=identity)
 
 
 class ModifiedResNet(nn.Module):
@@ -143,9 +141,9 @@ class ModifiedResNet(nn.Module):
         ``pool=False`` the attention pool does not run and the last entry is
         None. Both stage-1 paths discard it (XLA drops it as dead code in the
         JAX package; eager PyTorch would compute it)."""
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        x = F.relu(self.bn3(self.conv3(x)))
+        x = self.bn1(self.conv1(x), act="relu")
+        x = self.bn2(self.conv2(x), act="relu")
+        x = self.bn3(self.conv3(x), act="relu")
         x = avg_pool(x, 2)
         c1 = self.layer1(x)
         c2 = self.layer2(c1)

@@ -136,7 +136,9 @@ class PReLU(nn.PReLU):
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm2d (NCHW) with a folded eval path.
+    """BatchNorm2d (NCHW) with a folded eval path, and the activation that
+    follows it fused: K13 (``kernels.batch_norm_act``) on the card, its
+    plain version on the host.
 
     Eval: ``(running_mean, running_var, weight, bias)`` fold into one
     per-channel affine ``x * a + b``, exactly as the JAX package computes it
@@ -147,7 +149,9 @@ class TorchBatchNorm(nn.Module):
     forward normalises by the batch statistics and leaves the buffers as
     they are: the stage-2 EMA teacher's (the JAX package discards the
     statistics its teacher forward returns; its buffers move only through
-    the EMA)."""
+    the EMA). ``forward(x, act, slope, residual)``: ``act`` "none", "relu"
+    (after adding ``residual``, where given) or "prelu" (``slope`` its
+    weight)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -160,27 +164,15 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            inv = self.weight * torch.rsqrt(self.running_var + self.eps)
-            a = inv.to(x.dtype)
-            b = (self.bias - self.running_mean * inv).to(x.dtype)
-            return x * a[:, None, None] + b[:, None, None]
-        xf = x.float()
-        n = x.numel() // x.shape[1]
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
-        if self.update_stats:
-            self._update_stats(mean, var, n)
-        y = (xf - mean[:, None, None]) * torch.rsqrt(var[:, None, None] + self.eps)
-        return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
-
-    @torch.no_grad()
-    def _update_stats(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
-        m = self.momentum
-        self.running_mean.mul_(1 - m).add_(m * mean)
-        self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-        self.num_batches_tracked.add_(1)
+    def forward(self, x: torch.Tensor, act: str = "none", slope: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        update = self.training and self.update_stats
+        if update:
+            self.num_batches_tracked.add_(1)
+        return kernels.batch_norm_act(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            training=self.training, update_stats=update, momentum=self.momentum, eps=self.eps,
+            act=act, slope=slope, residual=residual)
 
 
 class Conv1x1(nn.Module):

@@ -42,7 +42,8 @@ class Stage2Config:
 
 
 class ConvBNRelu(nn.Module):
-    """3x3 conv without bias, BatchNorm, PReLU (model_stage2.py:11-27)."""
+    """3x3 conv without bias, BatchNorm, PReLU (model_stage2.py:11-27); the
+    norm and the PReLU are one K13 call (``relu`` keeps the slope)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
         super().__init__()
@@ -52,7 +53,9 @@ class ConvBNRelu(nn.Module):
         self.relu = PReLU()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.relu(self.bn(self.conv(x)))
+        # the fusion hands reduced_c2..4 a channels-last view, whose convolution cuDNN lays
+        # out channels-last too; K13 takes NCHW
+        return self.bn(self.conv(x).contiguous(), act="prelu", slope=self.relu.weight)
 
 
 class SegHead(nn.Sequential):

@@ -12,6 +12,8 @@ from typing import Tuple
 
 import numpy as np
 
+from tris_tpu_torch.kernels.irn_loss import MAX_VALID
+
 
 def pil_resize(img: np.ndarray, size: Tuple[int, int], order: int) -> np.ndarray:
     if size[0] == img.shape[0] and size[1] == img.shape[1]:
@@ -72,7 +74,7 @@ def top_left_crop(img: np.ndarray, cropsize: int, default) -> np.ndarray:
 
 
 def affinity_labels_from_indices(label_map: np.ndarray, indices_from: np.ndarray,
-                                 indices_to: np.ndarray, max_valid: int = 21
+                                 indices_to: np.ndarray, max_valid: int = MAX_VALID
                                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Quarter-scale ir label map -> (bg_pos, fg_pos, neg) affinity labels,
     each [n_dirs, n_pairs] float32 (voc12/dataloader.py:83-109). Labels are

@@ -25,14 +25,16 @@ random 0/1 pseudo-masks, student and teacher forward, backward, AdamW), then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times; one stream, so they do not overlap) and its idle share, and the
-device time by kernel class (the hand-written kernels by name, cuDNN
-convolutions, GEMMs, everything else) and by kernel name; ``--out`` also
-writes it to a file. Needs a card.
+device time by kernel class (the hand-written kernels by name, K13's six
+summed, cuDNN convolutions, GEMMs, everything else), by kernel name, and
+``InstanceNorm2d``'s (the kernels its forwards and their backward
+launched); ``--out`` also writes it to a file. Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -53,7 +55,10 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "refine_centroids_kernel", "walk_transition_kernel", "walk_square_kernel",
                 "walk_thin_kernel", "walk_tile_occupancy_kernel",
                 "pixel_attn_kernel", "pixel_attn_bwd_probs_dq_kernel", "pixel_attn_bwd_dkv_kernel",
-                "ema_update_kernel")
+                "ema_update_kernel", "batch_norm_stats_partial_kernel",
+                "batch_norm_stats_final_kernel", "batch_norm_apply_kernel",
+                "batch_norm_bwd_partial_kernel", "batch_norm_bwd_final_kernel",
+                "batch_norm_bwd_apply_kernel")
 
 
 def kernel_class(name: str) -> str:
@@ -66,6 +71,46 @@ def kernel_class(name: str) -> str:
     if "gemm" in low or "cutlass" in low or "gemv" in low:
         return "gemm"
     return "other"
+
+
+def module_device_ms(events, name: str, iters: int) -> dict:
+    """Card ms per step of the kernels module ``name`` launched, forward (the
+    ops under its ``record_function`` range) and backward (the autograd
+    nodes those ops recorded, matched by sequence number), and its calls."""
+    def tree(e):
+        yield e
+        for c in e.cpu_children:
+            yield from tree(c)
+
+    def kernel_ms(e):
+        return sum(k.duration for k in e.kernels) / 1e3
+
+    ranges = [e for e in events if e.name == name]
+    fwd = [d for r in ranges for d in tree(r)]
+    seqs = {d.sequence_nr for d in fwd if d.sequence_nr >= 0}
+    bwd = [d for e in events if e.name.startswith("autograd::engine::evaluate_function")
+           and e.sequence_nr in seqs for d in tree(e)]
+    return {"forward_ms": sum(map(kernel_ms, fwd)) / iters,
+            "backward_ms": sum(map(kernel_ms, bwd)) / iters, "calls": len(ranges) / iters}
+
+
+@contextlib.contextmanager
+def instance_norm_ranges():
+    """Each ``InstanceNorm2d`` forward inside a ``record_function`` range of
+    that name, for :func:`module_device_ms`."""
+    from tris_tpu_torch.models.layers import InstanceNorm2d
+
+    forward = InstanceNorm2d.forward
+
+    def ranged(self, *a, **kw):
+        with torch.profiler.record_function("InstanceNorm2d"):
+            return forward(self, *a, **kw)
+
+    InstanceNorm2d.forward = ranged
+    try:
+        yield
+    finally:
+        InstanceNorm2d.forward = forward
 
 
 def ins_seg_step(dev, rng, size=(480, 640), dp_scale=16.0):
@@ -223,7 +268,7 @@ def main(argv=None) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with instance_norm_ranges(), torch.profiler.profile(activities=acts) as prof:
             for _ in range(args.iters):
                 step()
             torch.cuda.synchronize()
@@ -256,6 +301,8 @@ def main(argv=None) -> dict:
         "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
         "kernel_launches_per_forward": sum(n for _, n in by_name.values()) / args.iters,
         "device_ms_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+        "k13_batch_norm_ms": sum(t for c, t in classes.items() if c.startswith("batch_norm_")),
+        "instance_norm_ms": module_device_ms(prof.events(), "InstanceNorm2d", args.iters),
         "top_kernels_ms": [[name[:120], t, n // args.iters] for name, (t, n) in top],
     }
     if args.out:
