@@ -135,16 +135,12 @@ EVAL_KERNELS = ("mha_short", "cross_attn", "response_head", "eval_metrics", "nor
 TRAIN_B, TRAIN_NEG, TRAIN_STEPS, N_TRAIN_BATCHES = 48, 3, 3, 4
 # kernel launches per train step at that shape: K1 forward in the stage-1
 # text tower, the critic's vision tower and its text tower (12 layers each),
-# its backward in the first two; K2 1 + 2; K3's head 3 + 4; K5 1 + 2; K6 1
-# K13: the RN50 trunk's 55 norms (3 launches each train forward, 1 eval, 3 backward;
-# tris_tpu_torch/tools/batch_norm_schedule.py, whose test holds them to the model)
-BN_TRUNK, BN_DECODER_TRAIN, BN_DECODER_EVAL = 55, 12, 9
-BN_TRAIN, BN_EVAL, BN_BWD = 3, 1, 3
+# its backward in the first two; K2 1 + 2; K3's head 3 + 4; K5 1 + 2; K6 1;
+# K13 at the RN50 trunk's 55 norms (bn_launches())
 TRAIN_LAUNCHES_PER_STEP = {"mha_short": 36, "mha_short_bwd": 24, "cross_attn": 1,
                            "cross_attn_bwd": 2, "stage1_head": 3, "stage1_head_bwd": 4,
                            "critic_input": 1, "critic_input_bwd": 2, "normalize_u8": 1,
-                           "response_head": 0, "eval_metrics": 0,
-                           "batch_norm": BN_TRUNK * BN_TRAIN, "batch_norm_bwd": BN_TRUNK * BN_BWD}
+                           "response_head": 0, "eval_metrics": 0}
 # phase 7: IRNet's instance pseudo-masks on COCO-sized originals (each grid
 # buckets to 128x160 or 160x128: HW = 20480), the reference walk (radius 5,
 # beta 10, 8 squarings); one image per route timed over a few rounds (each
@@ -183,29 +179,32 @@ TRAIN2_B, TRAIN2_STEPS, N_TRAIN2_BATCHES = 48, 4, 3
 # student's; K6 bilinear at the decoder's three x2 taps and the four heads'
 # upsamples in both forwards, backward in the student's; K6 normalise once
 # (one u8 batch feeds both); K12 once; K13 at the trunk's and the decoder's
-# norms in both train-mode forwards, backward in the student's
+# norms in both train-mode forwards, backward in the student's (bn_launches())
 TRAIN2_LAUNCHES_PER_STEP = {"mha_short": 24, "mha_short_bwd": 12, "normalize_u8": 1,
                             "bilinear_resize": 14, "bilinear_resize_bwd": 7, "pixel_attn": 6,
-                            "pixel_attn_bwd": 6, "ema_update": 1,
-                            "batch_norm": 2 * (BN_TRUNK + BN_DECODER_TRAIN) * BN_TRAIN,
-                            "batch_norm_bwd": (BN_TRUNK + BN_DECODER_TRAIN) * BN_BWD}
+                            "pixel_attn_bwd": 6, "ema_update": 1}
 # and per eval batch of stage 2's validate: the text tower, K11 at 3 levels,
 # K6 at the decoder's 3 taps and out1's upsample, the u8 feed, K4, K13's eval
 # fold at the trunk's norms and the decoder's without the side heads
 EVAL2_LAUNCHES_PER_BATCH = {"mha_short": 12, "pixel_attn": 3, "bilinear_resize": 4,
-                            "normalize_u8": 1, "eval_metrics": 1,
-                            "batch_norm": (BN_TRUNK + BN_DECODER_EVAL) * BN_EVAL}
+                            "normalize_u8": 1, "eval_metrics": 1}
 # K13's rows in phase 3: (name, shape, activation, residual, mode) at the paths' shapes:
-# the stem's third norm, a bottleneck's tail in layer1 and layer4, layer3's first norms,
-# stage 2's output1 block (PReLU), the teacher's reduced_c2 (batch statistics, buffers left
-# alone) and the eval fold at the stem of a stage-1 eval batch; the train rows' backward
+# the stem's third norm (two-pass), a bottleneck's tail in layer1, layer2 and layer4,
+# layer3's first norms, layer1's first (the forward's widest cluster), stage 2's output1
+# block (PReLU), the teacher's reduced_c2 (batch statistics, buffers left alone) and the
+# eval fold at the stem of a stage-1 eval batch; the train rows' backward. The stem's and
+# layer3's backward run twice, bit for bit; layer1's rows time both designs.
 BN_ROWS = (("batch_norm", (TRAIN_B, 64, 160, 160), "relu", False, "train"),
            ("batch_norm@layer1_tail", (TRAIN_B, 256, 80, 80), "relu", True, "train"),
            ("batch_norm@layer3", (TRAIN_B, 1024, 20, 20), "relu", False, "train"),
            ("batch_norm@layer4_tail", (TRAIN_B, 2048, 10, 10), "relu", True, "train"),
            ("batch_norm@stage2_output1", (TRAIN2_B, 32, 80, 80), "prelu", False, "train"),
            ("batch_norm@teacher_reduced_c2", (TRAIN2_B, 128, 40, 40), "prelu", False, "teacher"),
-           ("batch_norm@eval_stem", (B, 64, 160, 160), "relu", False, "eval"))
+           ("batch_norm@eval_stem", (B, 64, 160, 160), "relu", False, "eval"),
+           ("batch_norm@layer2_tail", (TRAIN_B, 512, 40, 40), "relu", True, "train"),
+           ("batch_norm@layer1", (TRAIN_B, 64, 80, 80), "relu", False, "train"))
+BN_REPEATED = ("batch_norm", "batch_norm@layer3")
+BN_BOTH_DESIGNS = ("batch_norm@layer1",)
 # H100 SXM published peaks: HBM3 bytes/s and FP32 (non-tensor-core) FLOP/s, which
 # is also the FP64 tensor cores' peak (67 TFLOP/s both): the rate of K10's products
 PEAK_BYTES_S = 3.35e12
@@ -1351,6 +1350,39 @@ def check_stage2_kernels(K, dev, model):
     return rows, k6, k6_bwd, failures
 
 
+def bn_launches(max_ranks=None) -> dict:
+    """K13's launches ({"batch_norm": n, "batch_norm_bwd": m}) per stage-1 eval
+    forward, per stage-1 and stage-2 train step and per stage-2 eval batch,
+    from the plans of tris_tpu_torch/tools/batch_norm_schedule.py at the
+    paths' shapes (its tests hold them to the models' calls and
+    launchers.h's rule; phase 3 holds them to the extension's). max_ranks:
+    the widest cluster the card's plans took (the card's, by default)."""
+    import torch
+
+    from tris_tpu_torch.kernels import build
+    from tris_tpu_torch.tools import batch_norm_schedule as S
+
+    if max_ranks is None and torch.cuda.is_available():
+        max_ranks = build.ops().batch_norm_plan(TRAIN_B, 64, 80 * 80, True, True, 1,
+                                                -1)["max_ranks"]
+
+    def fwd(shapes, mode="train"):
+        return S.launches_per_forward(shapes, mode, max_ranks)
+
+    def bwd(shapes, act="relu"):
+        return S.launches_per_backward(shapes, act, max_ranks)
+
+    trunk1, trunk2 = S.trunk_shapes(TRAIN_B), S.trunk_shapes(TRAIN2_B)
+    dec = S.decoder_shapes(TRAIN2_B)
+    eval_trunk = fwd(S.trunk_shapes(B), "eval")
+    return {"stage1_eval": {"batch_norm": eval_trunk, "batch_norm_bwd": 0},
+            "stage1_train": {"batch_norm": fwd(trunk1), "batch_norm_bwd": bwd(trunk1)},
+            "stage2_train": {"batch_norm": 2 * (fwd(trunk2) + fwd(dec)),
+                             "batch_norm_bwd": bwd(trunk2) + bwd(dec, "prelu")},
+            "stage2_eval": {"batch_norm": eval_trunk + fwd(S.decoder_shapes(B, side=False), "eval"),
+                            "batch_norm_bwd": 0}}
+
+
 def bn_reference64(x, w, b, rm, rv, training, update, act, slope, res, eps=1e-5, m=0.1):
     """K13's function in float64 (inputs promoted), an independent reference:
     batch statistics (or the running ones), the affine, the residual and the
@@ -1378,26 +1410,73 @@ def bn_reference64(x, w, b, rm, rv, training, update, act, slope, res, eps=1e-5,
     return y
 
 
+def bn_kernels_of(plan, backward):
+    """The kernels a K13 call of ``plan`` launches, in order."""
+    if plan["design"] == 2:
+        return ["batch_norm_apply"]
+    if plan["design"] == 1:
+        return (["batch_norm_bwd_fused", "batch_norm_bwd_slope"][:plan["launches"]] if backward
+                else ["batch_norm_fwd_fused"])
+    return (["batch_norm_bwd_partial", "batch_norm_bwd_final", "batch_norm_bwd_apply"] if backward
+            else ["batch_norm_stats_partial", "batch_norm_stats_final", "batch_norm_apply"])
+
+
+def check_bn_plans(ops, failures):
+    """The extension's plan at every norm of the RN50 trunk (ReLU) and stage 2's
+    decoder (PReLU) at B=48, forward and backward, against the schedule
+    tool's (the same rule, launchers.h's constants); returns how many of
+    each take the fused design and the widest cluster the card took."""
+    from tris_tpu_torch.kernels.batch_norm import ACTS
+    from tris_tpu_torch.tools import batch_norm_schedule as S
+
+    calls = ([(s, "relu") for s in S.trunk_shapes(TRAIN_B)]
+             + [(s, "prelu") for s in S.decoder_shapes(TRAIN2_B)])
+    fused = collections.Counter()
+    max_ranks = set()
+    for (N, C, H, W), act in calls:
+        for backward in (False, True):
+            got = dict(ops.batch_norm_plan(N, C, H * W, True, backward, ACTS[act], -1))
+            want = S.plan(N, C, H * W, True, backward, act, got["max_ranks"])
+            max_ranks.add(got["max_ranks"])
+            if got != want:
+                failures.append(f"batch_norm_plan{(N, C, H * W, backward, act)}: the "
+                                f"extension's {got}, the schedule tool's {want}")
+            part = "trunk" if act == "relu" else "decoder"
+            fused[f"{part}_{'bwd' if backward else 'fwd'}"] += got["design"] == 1
+    log(f"batch_norm plans: fused norms {dict(fused)} of {len(S.trunk_shapes())} trunk and "
+        f"{len(S.decoder_shapes())} decoder norms; clusters up to {sorted(max_ranks)}")
+    return {"fused_norms": dict(fused), "max_ranks": sorted(max_ranks)}
+
+
 def check_batch_norm_kernels(K, dev):
     """K13 at ``BN_ROWS``: the forward against its plain version, the JAX
     package's arithmetic (``jax_batch_stats``; 1e-5 of y's scale; the eval
-    fold bit for bit), and against float64 (y 1e-5 of its scale; var, rstd
-    and the running variance within 1e-6 relative, element by element; the
-    mean and the running mean within 1e-6 of the vector's largest magnitude,
-    since a channel's mean may lie near zero, where a float32 batch sum is
-    exact only to the channel's spread; the teacher's buffers untouched);
-    the train rows' backward, each gradient within 1e-4 of its max against
-    the plain version and float64, the stem's twice, bit for bit.
-    ``F.batch_norm`` (cuDNN) is the library call, timed only: it omits the
-    activation and the residual. Returns (rows, failures)."""
+    fold bit for bit), against the route reference (``batch_norm_act_reference``:
+    bit for bit, but where a channel's statistics differ from the reference's
+    in their last bit, a sample sum within an ulp of a float32 rounding
+    boundary: then the row counts those channels and holds y to 1e-5 of its
+    scale), and against float64 (y 1e-5 of its scale; the statistics the
+    call returned, var, rstd and the running variance within 1e-6 relative,
+    element by element; the mean and the running mean within 1e-6 of the
+    vector's largest magnitude, since a channel's mean may lie near zero,
+    where a float32 batch sum is exact only to the channel's spread; the
+    teacher's buffers untouched); the train rows' backward, each gradient
+    within 1e-4 of its max against the plain version and float64, the stem's
+    and layer3's twice, bit for bit. Each row reports its plans and the
+    launches' shapes; ``BN_BOTH_DESIGNS`` rows also time the fused and the
+    two-pass design against each other, each way. ``F.batch_norm`` (cuDNN)
+    is the library call, timed only: it omits the activation and the
+    residual. Returns (rows, plans, failures)."""
     import torch
     import torch.nn.functional as F
 
     from tris_tpu_torch.kernels import build
-    from tris_tpu_torch.kernels.batch_norm import jax_batch_stats
+    from tris_tpu_torch.kernels.batch_norm import ACTS, batch_stats_plain, jax_batch_stats
 
+    ops = build.ops()
     g = torch.Generator(device=dev).manual_seed(13)
     failures, fwd, bwd = [], [], []
+    plans = check_bn_plans(ops, failures)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
@@ -1410,8 +1489,11 @@ def check_batch_norm_kernels(K, dev):
         """max |a - b| over the vector's largest magnitude"""
         return max_err(a, b) / max(float(b.double().abs().max()), 1e-30)
 
+    def shapes_of(plan, backward):
+        return {k: dict(ops.batch_norm_launch_shape(k)) for k in bn_kernels_of(plan, backward)}
+
     for name, shape, act, with_res, mode in BN_ROWS:
-        C = shape[1]
+        N, C, H, W = shape
         training, update = mode != "eval", mode == "train"
         x = 1.5 * randn(*shape) + randn(1, C, 1, 1)          # channels off zero
         w, b = 1 + 0.3 * randn(C), 0.5 * randn(C)
@@ -1422,21 +1504,38 @@ def check_batch_norm_kernels(K, dev):
                   slope=slope, residual=res)
         rm, rv, rmp, rvp = rm0.clone(), rv0.clone(), rm0.clone(), rv0.clone()
         rm64, rv64 = rm0.double(), rv0.double()
+        fplan = dict(ops.batch_norm_plan(N, C, H * W, training, False, ACTS[act], -1))
         with torch.no_grad():
             got = K.batch_norm_act(x, w, b, rm, rv, **kw)
+            torch.cuda.synchronize()
+            extra = {"shape": list(shape), "act": act, "residual": with_res, "mode": mode,
+                     "plan": fplan, "launch_shapes": shapes_of(fplan, False)}
             want = K.batch_norm_act_plain(x, w, b, rmp, rvp, **kw)
             want64 = bn_reference64(x, w, b, rm64, rv64, training, update, act, slope, res)
         scale = float(want64.abs().max())
         err64, tol = max_err(got, want64), 1e-5 * scale
-        extra = {"shape": list(shape), "act": act, "residual": with_res, "mode": mode,
-                 "scale": scale, "max_abs_err_f64": err64, "tol_f64": tol}
+        extra.update(scale=scale, max_abs_err_f64=err64, tol_f64=tol)
         if not err64 <= tol:
             failures.append(f"{name}: y vs float64 {err64} > {tol}")
         extra["bit_for_bit_plain"] = bool(torch.equal(got, want))
         if mode == "eval" and not extra["bit_for_bit_plain"]:
             failures.append(f"{name}: the eval fold is not the plain route bit for bit")
-        else:
-            stats = build.ops().batch_norm_stats(x, None, None, 0.1, 1e-5)
+        elif mode != "eval":
+            with torch.no_grad():
+                _, stats = ops.batch_norm_fwd(x, w, b, res, slope, None, None, ACTS[act], 0.1,
+                                              1e-5, -1)   # this call's own statistics
+                ref = K.batch_norm_act_reference(x, w, b, rm0.clone(), rv0.clone(),
+                                                 **{**kw, "update_stats": False})
+                ref_stats = torch.stack(batch_stats_plain(x, 1e-5))
+            boundary = int((stats != ref_stats).any(dim=0).sum())
+            extra["bit_for_bit_reference"] = bool(torch.equal(got, ref))
+            extra["boundary_channels"] = boundary
+            extra["max_abs_err_reference"] = max_err(got, ref)
+            if not extra["bit_for_bit_reference"] and (
+                    boundary == 0 or not extra["max_abs_err_reference"] <= tol):
+                failures.append(f"{name}: y vs the route reference {max_err(got, ref)} with "
+                                f"{boundary} channels' statistics apart (bar: bit for bit, or "
+                                f"{tol} where statistics differ)")
             x64 = x.double()
             m64 = x64.mean(dim=(0, 2, 3))
             v64 = ((x64 - m64[:, None, None]) ** 2).mean(dim=(0, 2, 3))
@@ -1456,7 +1555,20 @@ def check_batch_norm_kernels(K, dev):
             if not worst <= 1e-6:
                 failures.append(f"{name}: statistics or running buffers {worst} > 1e-6 "
                                 f"relative (the means: of their scale) from float64")
+            del ref, ref_stats, x64
         n = x.numel()
+        if name in BN_BOTH_DESIGNS:
+            designs = {}
+            for force, design in ((0, "two_pass"), (1, "fused")):
+                run_fwd = lambda force=force: ops.batch_norm_fwd(  # noqa: E731
+                    x, w, b, res, slope, None, None, ACTS[act], 0.1, 1e-5, force)
+                with torch.no_grad():
+                    designs[design] = run_fwd()
+                    extra[f"{design}_ms"] = device_ms(run_fwd)
+            extra["designs_max_abs_diff"] = max_err(designs["two_pass"][0], designs["fused"][0])
+            if not extra["designs_max_abs_diff"] <= tol:
+                failures.append(f"{name}: the designs' y {extra['designs_max_abs_diff']} apart")
+            del designs
         lib = lambda: F.batch_norm(x, rm, rv, w, b, training, 0.1, 1e-5)  # noqa: E731
         fwd.append(measure_row(
             failures, name, max_err(got, want), 1e-5 * float(want.abs().max()),
@@ -1501,7 +1613,12 @@ def check_batch_norm_kernels(K, dev):
             r = rest[-1] if with_res else None
             return bn_reference64(x, w, b, rm.double(), rv.double(), True, False, act, sl, r)
 
-        got_g, want_g = input_grads(kern, ins, cot), input_grads(plain, ins, cot)
+        bplan = dict(ops.batch_norm_plan(N, C, H * W, True, True, ACTS[act], -1))
+        got_g = input_grads(kern, ins, cot)
+        torch.cuda.synchronize()
+        extra = {"shape": list(shape), "act": act, "residual": with_res, "plan": bplan,
+                 "launch_shapes": shapes_of(bplan, True)}
+        want_g = input_grads(plain, ins, cot)
         want64_g = input_grads(ref64, ins, cot)
         err, tol = max((grad_err(a, c) for a, c in zip(got_g, want_g)),
                        key=lambda et: et[0] / et[1])
@@ -1513,20 +1630,37 @@ def check_batch_norm_kernels(K, dev):
         n_kink = int(kink.sum()) if kink is not None else 0
         if n_kink > 1e-3 * n:
             failures.append(f"{name}_bwd: {n_kink} of {n} elements at the activation's kink")
-        extra = {"shape": list(shape), "act": act, "residual": with_res, "kink_elements": n_kink,
-                 "full_cotangent_max_abs_err_and_tol": full_err,
-                 "max_abs_err_f64": err64, "tol_f64": tol64,
-                 "grads": ["dx", "dweight", "dbias"] + (["dslope"] if act == "prelu" else [])
-                 + (["dresidual"] if with_res else [])}
+        extra.update(kink_elements=n_kink, full_cotangent_max_abs_err_and_tol=full_err,
+                     max_abs_err_f64=err64, tol_f64=tol64,
+                     grads=["dx", "dweight", "dbias"] + (["dslope"] if act == "prelu" else [])
+                     + (["dresidual"] if with_res else []))
         if not err64 <= tol64:
             failures.append(f"{name}_bwd: max_abs_err vs float64 {err64} > {tol64}")
-        if name == "batch_norm":
+        if name in BN_REPEATED:
             again = input_grads(kern, ins, cot)
             extra["bit_for_bit_run_to_run"] = all(bool(torch.equal(a, b))
                                                   for a, b in zip(got_g, again))
             if not extra["bit_for_bit_run_to_run"]:
                 failures.append(f"{name}_bwd: two runs differ")
             del again
+        if name in BN_BOTH_DESIGNS:
+            with torch.no_grad():
+                y, st = ops.batch_norm_fwd(x, w, b, res, slope, None, None, ACTS[act], 0.1, 1e-5,
+                                           -1)
+                designs = {}
+                for force, design in ((0, "two_pass"), (1, "fused")):
+                    call_bwd = lambda force=force: ops.batch_norm_bwd(  # noqa: E731
+                        cot[0], x, y if act == "relu" else None, st[0], st[2], w, b, slope,
+                        ACTS[act], with_res, force)
+                    designs[design] = call_bwd()
+                    extra[f"{design}_ms"] = device_ms(call_bwd)
+            extra["designs_max_abs_err_and_tol"] = max(
+                (grad_err(a, c) for a, c in zip(designs["fused"][:3], designs["two_pass"][:3])),
+                key=lambda et: et[0] / et[1])
+            d_err, d_tol = extra["designs_max_abs_err_and_tol"]
+            if not d_err <= d_tol:
+                failures.append(f"{name}_bwd: the designs' gradients {d_err} > {d_tol} apart")
+            del y, st, designs
         lib_ins = ins[:3]
         lib = lambda x, w, b: F.batch_norm(x, None, None, w, b, True, 0.1, 1e-5)  # noqa: E731
         bwd.append(measure_row(
@@ -1541,7 +1675,7 @@ def check_batch_norm_kernels(K, dev):
             kernel_row("batch_norm_bwd", "tris_tpu_torch/kernels/csrc/batch_norm_bwd.cu",
                        "tris_tpu/models/layers.py:219", bwd[0], bwd[1:])]
     torch.cuda.empty_cache()
-    return rows, failures
+    return rows, plans, failures
 
 
 # ---- phase 4: the main path ------------------------------------------------
@@ -1694,7 +1828,7 @@ def stage1_path(K, dev, model, batches):
     failures = [f"stage-1 eval: {name} launched no time" for name in EVAL_KERNELS
                 if launches[name] == 0]
     # K13's eval fold at every norm of the trunk's 2 + len(batches) forwards
-    bn_want = {"batch_norm": (2 + len(batches)) * BN_TRUNK * BN_EVAL, "batch_norm_bwd": 0}
+    bn_want = {k: (2 + len(batches)) * n for k, n in bn_launches()["stage1_eval"].items()}
     failures += [f"stage-1 eval: {k} launched {launches[k]} times, want {n}"
                  for k, n in bn_want.items() if launches[k] != n]
     for name, t, shape in (("response_maps", maps, (B, S, SIZE, SIZE)), ("forward", fwd, (B, 1, SIZE, SIZE))):
@@ -1781,7 +1915,7 @@ def prms_path(K, dev, model, batches):
         failures += [f"PRMS: {name} launched no time" for name in EVAL_KERNELS + ("critic_input",)
                      if launches[name] == 0]
         # K13's eval fold at every norm of one trunk forward a batch, in both validate_prms
-        bn_want = {"batch_norm": 2 * len(batches) * BN_TRUNK * BN_EVAL, "batch_norm_bwd": 0}
+        bn_want = {k: 2 * len(batches) * n for k, n in bn_launches()["stage1_eval"].items()}
         failures += [f"PRMS: {k} launched {launches[k]} times, want {n}"
                      for k, n in bn_want.items() if launches[k] != n]
         # scores: within 1e-4 of their scale (K1's, K2's and K3's sums run
@@ -1938,7 +2072,8 @@ def train_path(K, dev, batches):
         metrics_p, grads_p = steps(plain_state, TRAIN_STEPS)
     torch.cuda.synchronize()
 
-    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
+    per_step_want = {**TRAIN_LAUNCHES_PER_STEP, **bn_launches()["stage1_train"]}
+    for name, per_step in per_step_want.items():
         if launches[name] != per_step * TRAIN_STEPS:
             failures.append(f"stage-1 train: {name} launched {launches[name]} times, want "
                             f"{per_step} per step x {TRAIN_STEPS}")
@@ -2004,7 +2139,7 @@ def train_path(K, dev, batches):
         "model": f"RN50 stage 1 (hidden 1024, 320 px) + {CRITIC} critic (224 px), random "
                  f"weights (seeds 0 and 7), AdamW lr 5e-5 (backbone 0.1x)",
         "B": TRAIN_B, "negatives": TRAIN_NEG, "steps": TRAIN_STEPS, "batches": len(batches),
-        "launches": launches, "launches_per_step_expected": TRAIN_LAUNCHES_PER_STEP,
+        "launches": launches, "launches_per_step_expected": per_step_want,
         "metrics": metrics, "metrics_plain": metrics_p, "step1_term_rel_err": term_err,
         "later_loss_rel_err": later, "grad_worst_rel_err": worst[0], "grad_worst_leaf": worst[1],
         "grad_leaves": len(grads), "grad_within_plain_noise": by_floor,
@@ -2452,8 +2587,10 @@ def stage2_path(K, dev, init, eval_batches):
                    if p.grad is not None}
         del st_r
 
+    bn = bn_launches()
+    per_step_want = {**TRAIN2_LAUNCHES_PER_STEP, **bn["stage2_train"]}
     for name in K.KERNELS:
-        want = TRAIN2_LAUNCHES_PER_STEP.get(name, 0) * TRAIN2_STEPS
+        want = per_step_want.get(name, 0) * TRAIN2_STEPS
         if launches[name] != want:
             failures.append(f"stage-2 train: {name} launched {launches[name]} times, want {want}")
     # step 1: l1-l4 and the loss within 1e-5 relative; l5 (the teacher is
@@ -2572,8 +2709,9 @@ def stage2_path(K, dev, init, eval_batches):
                     eval_times[route].append(host_ms(
                         lambda: validate(model, loader, with_boxes=False, log=quiet))
                         / len(eval_batches))
+    per_batch_want = {**EVAL2_LAUNCHES_PER_BATCH, **bn["stage2_eval"]}
     for name in K.KERNELS:
-        want = EVAL2_LAUNCHES_PER_BATCH.get(name, 0) * len(eval_batches)
+        want = per_batch_want.get(name, 0) * len(eval_batches)
         if eval_launches[name] != want:
             failures.append(f"stage-2 eval: {name} launched {eval_launches[name]} times, "
                             f"want {want}")
@@ -2596,7 +2734,7 @@ def stage2_path(K, dev, init, eval_batches):
                  "AdamW lr 5e-5 (backbone 0.1x, positional embeddings in head), EMA teacher, "
                  "consistency mse",
         "B": TRAIN2_B, "steps": TRAIN2_STEPS, "batches": N_TRAIN2_BATCHES,
-        "launches": launches, "launches_per_step_expected": TRAIN2_LAUNCHES_PER_STEP,
+        "launches": launches, "launches_per_step_expected": per_step_want,
         "metrics": metrics, "metrics_plain": metrics_p, "step1_term_rel_err": term_err,
         "later_loss_rel_err": later, "grad_worst_rel_err": worst[0], "grad_worst_leaf": worst[1],
         "grad_leaves": len(grads), "grad_within_plain_noise": by_floor, "unused_leaves": unused,
@@ -2608,7 +2746,7 @@ def stage2_path(K, dev, init, eval_batches):
         "teacher_leaves_within_1e-6_of_plain_route": within_1e6, "teacher_leaves": len(names),
         "peak_memory_gb": peak_gb, "peak_memory_plain_gb": peak_plain_gb,
         "step_host_ms_default_gate": {route: spread(t) for route, t in times.items()},
-        "eval": {"launches": eval_launches, "launches_per_batch_expected": EVAL2_LAUNCHES_PER_BATCH,
+        "eval": {"launches": eval_launches, "launches_per_batch_expected": per_batch_want,
                  "metrics": res, "metrics_plain": res_p, "metrics_max_abs_diff": metric_err,
                  "maps_max_abs_err": maps_err, "map_scale": map_scale,
                  "validate_host_ms_per_batch": {r: spread(t) for r, t in eval_times.items()}},
@@ -2771,7 +2909,7 @@ def main(argv=None) -> int:
             r["shapes"] += k6_rows if r["name"] == "bilinear_resize" else k6_bwd_rows
     rows += s2_rows
     failures += s2_failures
-    bn_rows, bn_failures = check_batch_norm_kernels(K, dev)
+    bn_rows, bn_plans, bn_failures = check_batch_norm_kernels(K, dev)
     rows += bn_rows
     failures += bn_failures
 
@@ -2827,7 +2965,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s,
-                       "kernels": rows, "stage1_eval": stage1, "prms": prms,
+                       "kernels": rows, "batch_norm_plans": bn_plans,
+                       "stage1_eval": stage1, "prms": prms,
                        "stage1_train": train, "ins_seg": ins_seg, "irn_train": irn,
                        "chain": chain, "stage2": stage2}, f, indent=1)
     if failures:

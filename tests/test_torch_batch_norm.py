@@ -3,10 +3,13 @@
 ``TorchBatchNorm`` followed by ``jax.nn.relu``, the residual add or ``PReLU``,
 forward, running statistics and ``jax.vjp``; the fused ``Bottleneck`` and
 ``ConvBNRelu`` against their JAX modules; the route reference the card's
-checks use; and the kernels' partition of a channel among their warps,
-emulated by ``tris_tpu_torch/tools/
-batch_norm_schedule.py`` from the constants of ``csrc/launchers.h``, at every
-shape of the RN50 trunk and stage 2's decoder at B=48, 320 px.
+checks use; and, emulated by ``tris_tpu_torch/tools/batch_norm_schedule.py``
+from the constants of ``csrc/launchers.h``, the plan that chooses between
+the fused and the two-pass design, the two-pass design's partition of a
+channel among warps, the fused design's among a cluster's blocks and their
+lane groups, the statistics in each design's order of sums, and the launches
+each main path makes, at every shape of the RN50 trunk and stage 2's decoder
+at B=48, 320 px.
 
 Inputs are made with numpy from a seed. Bars: outputs within 1e-5 of their
 scale, running statistics within 1e-6 relative, gradients within 1e-5 of
@@ -393,3 +396,152 @@ def test_parameters_from_double_sum_their_gradients_in_float64():
     (got,) = torch.autograd.grad(full, w, g)
     want = g.double().sum(dim=(0, 2, 3))
     assert float((got.double() - want).abs().max()) <= 1e-7 * float(want.abs().max())
+
+
+# ---- the plan and the fused design, emulated ------------------------------------------------
+
+
+def test_plan_follows_the_rules_constants():
+    # launchers.h's rule: the first R within the target at 256 threads, else
+    # the first within the most a block may have at 512, else (backward) 16;
+    # R <= N; smem, group and blocks as the helpers give them
+    k = S.constants()
+    assert (k["kBatchNormSmemSmall"], k["kBatchNormSmemTarget"], k["kBatchNormSmemMax"]) == (
+        56 * 1024, 113 * 1024, 227 * 1024)
+    assert k["kBatchNormMaxRanks"] == 8 and k["kBatchNormWideRanks"] == 16
+    for N, HW in [(48, 100), (48, 400), (48, 1600), (48, 6400), (48, 25600), (5, 3), (1, 1),
+                  (16, 9000), (2, 30000), (1, 60000), (4096, 1)]:
+        for backward in (False, True):
+            p = S.plan(N, 7, HW, True, backward)
+            if p["design"] == 0:
+                assert p["launches"] == 3
+                for r in range(1, min(N, 8) + 1):
+                    assert S.fused_smem(N, HW, backward, -(-N // r), 512) > k["kBatchNormSmemMax"]
+                continue
+            R, threads = p["ranks"], p["threads"]
+            assert R <= N and p["samples"] == -(-N // R) and p["blocks"] == 7 * R
+            assert p["smem_bytes"] == S.fused_smem(N, HW, backward, p["samples"], threads)
+            assert p["group"] == S.group(threads, p["samples"], S.items(HW))
+            most = k["kBatchNormSmemTarget"] if threads == 256 else k["kBatchNormSmemMax"]
+            assert p["smem_bytes"] <= most
+            # R: the first that fits the small target at 256 threads, else the target,
+            # else the most at 512
+            portable = range(1, min(N, 8) + 1)
+            fits = [[r for r in portable if S.fused_smem(N, HW, backward, -(-N // r), t) <= b]
+                    for t, b in ((256, k["kBatchNormSmemSmall"]), (256, k["kBatchNormSmemTarget"]),
+                                 (512, k["kBatchNormSmemMax"]))]
+            assert R == (fits[0] or fits[1] or fits[2] or [16])[0]
+            assert threads == (256 if fits[0] or fits[1] else 512)
+    assert S.plan(48, 64, 6400, True, True, max_ranks=8)["design"] == 0
+    assert S.plan(8, 3, 100, training=False)["design"] == 2
+    assert S.plan(8, 3, 100, training=False)["launches"] == 1
+
+
+def test_plan_takes_the_group_and_smem_of_launchers_h():
+    # the emulated helpers are the header's: its constexpr bodies, read as
+    # text, give the same numbers through a tiny C-to-Python reading
+    text = S.LAUNCHERS.read_text()
+    assert "constexpr long long batch_norm_fused_smem" in text
+    assert ("(backward ? 2 : 1) * samples * batch_norm_pitch(HW) * 4 + (backward ? 24LL : 8LL)"
+            " * N +") in text
+    assert "24LL * (threads / 32) + 8LL * samples + 16;" in text
+    assert "while (2LL * g * samples <= threads && g < items) g *= 2;" in text
+    assert S.group(256, 48, 25) == 4 and S.group(512, 3, 1600) == 128 and S.group(256, 1, 1) == 1
+    assert S.pitch(3) == 4 and S.pitch(100) == 100 and S.items(100) == 25 and S.items(3) == 3
+
+
+TRUNK_DESIGNS = {  # (HW, backward) -> (design, R) at B=48
+    (25600, False): (0, 0), (25600, True): (0, 0), (6400, False): (1, 6), (6400, True): (1, 16),
+    (1600, False): (1, 6), (1600, True): (1, 6), (400, False): (1, 2), (400, True): (1, 3),
+    (100, False): (1, 1), (100, True): (1, 1)}
+
+
+@pytest.mark.parametrize("part", ["trunk", "decoder"])
+def test_designs_at_the_paths_shapes(part):
+    # which design each norm of the RN50 trunk and stage 2's decoder takes at
+    # B=48, pinned: the stem's three two-pass, every other fused (HW = 6400
+    # backward on a cluster of 16)
+    shapes = S.trunk_shapes() if part == "trunk" else S.decoder_shapes()
+    act = "relu" if part == "trunk" else "prelu"
+    for backward in (False, True):
+        got = [(S.plan(N, C, H * W, True, backward, act)["design"],
+                S.plan(N, C, H * W, True, backward, act)["ranks"]) for N, C, H, W in shapes]
+        assert got == [TRUNK_DESIGNS[(H * W, backward)] for N, C, H, W in shapes]
+    fused = [S.plan(N, C, H * W)["design"] == 1 for N, C, H, W in S.trunk_shapes()]
+    assert sum(fused) == 52 and not any(fused[:3])
+    small = [s for s in S.trunk_shapes() if s[2] * s[3] <= 1600]
+    assert len(small) == 40
+
+
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_fused_plans_fit_a_block(shape):
+    # every fused plan within 227 KB of shared memory a block, R <= 8 but the
+    # backward at HW = 6400 (16); its threads hold a group a sample
+    N, C, H, W = shape
+    for backward in (False, True):
+        p = S.plan(N, C, H * W, True, backward)
+        if p["design"] != 1:
+            assert H * W == 25600
+            continue
+        assert p["smem_bytes"] <= 227 * 1024
+        assert p["ranks"] <= 8 or (backward and H * W == 6400 and p["ranks"] == 16)
+        assert p["group"] * p["samples"] <= p["threads"] or p["group"] == 1
+
+
+@pytest.mark.parametrize("HW", [1, 3, 100, 400])
+@pytest.mark.parametrize("N", [1, 5, 48])
+def test_fused_blocks_stage_and_write_every_element_once(N, HW):
+    # the fused kernels' blocks at clusters of 1, 2, 4 and 8 (ranks beyond N
+    # stage nothing), forward and backward: each element staged, summed and
+    # written once
+    for R in (1, 2, 4, 8):
+        for backward in (False, True):
+            v = S.fused_visits(N, 2, HW, backward, ranks=R)
+            for what, counts in v.items():
+                assert (counts == 1).all(), (R, backward, what)
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 6), (48, 10, 10), (48, 20, 20), (5, 1, 3), (1, 1, 1),
+                                   (6, 40, 40), (16, 9, 9)])
+def test_fused_statistics_are_the_two_pass_designs(shape):
+    # a channel's statistics in the fused kernel's order of sums (at its
+    # plan's group, and at clusters of 2 and 8 where N allows) equal the
+    # two-pass design's and the route reference's bit for bit on seeded
+    # planes, and numpy's float64 within float32 (1e-6 relative; the mean of
+    # its scale)
+    from tris_tpu_torch.kernels.batch_norm import batch_stats_plain
+
+    N, H, W = shape
+    rng = np.random.default_rng(N * H + W)
+    x = (2.5 + 1.5 * rng.standard_normal((N, 3, H, W))).astype(np.float32)
+    ref = [t.numpy() for t in batch_stats_plain(torch.from_numpy(x), 1e-5)]
+    for c in range(3):
+        planes = x[:, c].reshape(N, H * W)
+        want = S.channel_stats(planes)
+        for ranks in [None] + [r for r in (2, 8) if r <= N]:
+            got = S.fused_channel_stats(planes, ranks=ranks)
+            assert list(got) == list(want) == [r[c] for r in ref], (c, ranks)
+        v64 = planes.astype(np.float64)
+        assert abs(want[0] - v64.mean()) <= 1e-6 * (abs(v64.mean()) + v64.std())
+        assert abs(want[1] - v64.var()) <= 1e-6 * v64.var()
+
+
+def test_launches_per_step_are_chip_smokes():
+    # chip_smoke.py's K13 counts, from the plans: a stage-1 train step's
+    # trunk 52 fused + 3 two-pass norms each way; stage 2 two train-mode
+    # forwards of the trunk and the decoder, one backward (PReLU's second
+    # launch at the decoder's 12); eval one apply a norm. Without the wide
+    # cluster, HW = 6400's backward goes two-pass
+    import chip_smoke
+
+    got = chip_smoke.bn_launches(max_ranks=16)
+    assert got == {"stage1_eval": {"batch_norm": 55, "batch_norm_bwd": 0},
+                   "stage1_train": {"batch_norm": 61, "batch_norm_bwd": 61},
+                   "stage2_train": {"batch_norm": 2 * (61 + 12), "batch_norm_bwd": 61 + 24},
+                   "stage2_eval": {"batch_norm": 55 + 9, "batch_norm_bwd": 0}}
+    narrow = chip_smoke.bn_launches(max_ranks=8)
+    assert narrow["stage1_train"] == {"batch_norm": 61, "batch_norm_bwd": 40 + 15 * 3}
+    assert narrow["stage2_train"]["batch_norm_bwd"] == 40 + 15 * 3 + 8 * 2 + 4 * 3
+    trunk = S.trunk_shapes()
+    assert S.launches_per_forward(trunk, "eval") == len(trunk)
+    assert S.launches_per_forward(trunk, "teacher") == S.launches_per_forward(trunk, "train")

@@ -80,12 +80,17 @@ def test_loader_raises_a_missing_image_instead_of_hanging(refdata, tmp_path):
 
 def test_loader_workers_end_when_the_consumer_stops_early(refdata):
     # one batch taken, then the generator closed: every worker ends (none
-    # stays blocked on the full queue)
+    # stays blocked on the full queue). The loader's workers are the new
+    # threads named as threaded_in_order names them: a thread that another
+    # library starts meanwhile is not one
+    from tris_tpu_torch.utils.threads import WORKER_NAME
+
     ds = ReferSegDataset(refdata, "refcoco", "unc", "train", size=32)
     before = set(threading.enumerate())
     it = Loader(ds, 1, shuffle=False, num_threads=2).epoch(0)
     assert next(it)["image"].shape == (1, 32, 32, 3)
-    workers = [t for t in threading.enumerate() if t not in before]
+    workers = [t for t in threading.enumerate()
+               if t not in before and t.name.startswith(WORKER_NAME + "-")]
     assert len(workers) == 2
     it.close()
     deadline = time.time() + TIMEOUT_S

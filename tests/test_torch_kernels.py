@@ -35,9 +35,12 @@ refuses; K12 over leaves of odd length, a
 threshold. K13 (BatchNorm with its activation) in train, eval and the
 teacher's mode with each fused activation, at C = 1, one element a channel
 (the unbiased variance's max(n - 1, 1) guard), HW % 4 != 0 and unaligned
-data (its scalar loads), several chunks a channel, its launch counts, its
-chunking against the schedule tool's, the backward bit for bit run to run,
-and the layouts it refuses. One test is static and runs
+data (its scalar loads), N = 1, HW = 1, the largest plane each cluster size
+of its fused design takes, shapes of its two-pass design, both designs
+against each other on the same inputs, its launch counts and grids against
+the schedule tool's plans, the backward bit for bit run to run, and the
+layouts it refuses; its forward against the route reference bit for bit
+(but for channels whose statistics round apart). One test is static and runs
 anywhere: each differentiable wrapper's CUDA branch goes through its
 ``torch.autograd.Function``.
 """
@@ -1171,22 +1174,162 @@ def test_batch_norm_act_unaligned_data(dev):
             assert _err(a, c) <= 1e-4 * max(float(c.abs().max()), 1e-6)
 
 
-def test_batch_norm_act_launches_and_repeats(dev):
-    # 3 launches a train forward (statistics 2, apply 1), 1 an eval forward,
-    # 3 a backward; the backward and the statistics the same bits run to run
-    x, w, b, rm, rv, slope, res = _bn_inputs(dev, (4, 64, 40, 40), "relu", True, 5)
+def _bn_plan(x, training, backward, act):
+    from tris_tpu_torch.kernels.batch_norm import ACTS
+
+    N, C = x.shape[:2]
+    return dict(K.build.ops().batch_norm_plan(N, C, x[0, 0].numel(), training, backward,
+                                              ACTS[act], -1))
+
+
+@pytest.mark.parametrize("shape,design", [((4, 64, 40, 40), 1), ((1, 2, 256, 256), 0)])
+def test_batch_norm_act_launches_and_repeats(dev, shape, design):
+    # a train forward and its backward launch what the plan says (fused: 1
+    # and 1; two-pass: statistics 2 and apply 1, then 3), an eval forward 1;
+    # the backward and the statistics the same bits run to run
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, shape, "relu", True, 5)
+    fwd, bwd = _bn_plan(x, True, False, "relu"), _bn_plan(x, True, True, "relu")
+    assert fwd["design"] == bwd["design"] == design
+    assert (fwd["launches"], bwd["launches"]) == ((1, 1) if design else (3, 3))
     cot = (torch.randn_like(x),)
     K.reset_launches()
     first = _bn_grads(K.batch_norm_act, x, w, b, rm, rv, None, res, "train", "relu", cot)
-    assert K.launches["batch_norm"] == 3 and K.launches["batch_norm_bwd"] == 3
+    assert K.launches["batch_norm"] == fwd["launches"]
+    assert K.launches["batch_norm_bwd"] == bwd["launches"]
     again = _bn_grads(K.batch_norm_act, x, w, b, rm, rv, None, res, "train", "relu", cot)
     assert all(torch.equal(a, c) for a, c in zip(first, again))
-    s1 = K.build.ops().batch_norm_stats(x, None, None, 0.1, 1e-5)
-    assert torch.equal(s1, K.build.ops().batch_norm_stats(x, None, None, 0.1, 1e-5))
+    ops = K.build.ops()
+    s1 = ops.batch_norm_fwd(x, w, b, res, None, None, None, 1, 0.1, 1e-5, -1)[1]
+    assert torch.equal(s1, ops.batch_norm_fwd(x, w, b, res, None, None, None, 1, 0.1, 1e-5,
+                                              -1)[1])
+    assert torch.equal(s1, ops.batch_norm_stats(x, None, None, 0.1, 1e-5)) or design == 1
     K.reset_launches()
     with torch.no_grad():
         _bn_call(K.batch_norm_act, x, w, b, rm, rv, None, None, "eval", "relu")
     assert K.launches["batch_norm"] == 1 and K.launches["batch_norm_bwd"] == 0
+
+
+def _bn_against_reference(x, w, b, rm, rv, slope, res, mode, act):
+    """The forward against the plain version (1e-5 of its scale) and the route
+    reference (bit for bit, or 1e-5 where a channel's statistics round apart
+    from the reference's), the backward against the plain version (1e-4 of
+    each gradient's max) and bit for bit run to run."""
+    from tris_tpu_torch.kernels.batch_norm import batch_stats_plain
+
+    got = _bn_call(K.batch_norm_act, x, w, b, rm.clone(), rv.clone(), slope, res, mode, act)
+    want = _bn_call(K.batch_norm_act_plain, x, w, b, rm.clone(), rv.clone(), slope, res, mode,
+                    act)
+    assert _err(got, want) <= 1e-5 * float(want.abs().max())
+    if mode != "eval":
+        ref = _bn_call(K.batch_norm_act_reference, x, w, b, rm.clone(), rv.clone(), slope, res,
+                       mode, act)
+        if not torch.equal(got, ref):
+            stats = K.build.ops().batch_norm_fwd(
+                x.contiguous(), w, b, None if res is None else res.contiguous(), slope, None,
+                None, {"none": 0, "relu": 1, "prelu": 2}[act], 0.1, 1e-5, -1)[1]
+            assert not torch.equal(stats, torch.stack(batch_stats_plain(x, 1e-5)))
+            assert _err(got, ref) <= 1e-5 * float(ref.abs().max())
+    cot = (torch.randn(x.shape, generator=torch.Generator(device=x.device).manual_seed(9),
+                       device=x.device),)
+    got_g = _bn_grads(K.batch_norm_act, x, w, b, rm, rv, slope, res, mode, act, cot)
+    want_g = _bn_grads(K.batch_norm_act_plain, x, w, b, rm, rv, slope, res, mode, act, cot)
+    for a, c in zip(got_g, want_g):
+        assert _err(a, c) <= 1e-4 * max(float(c.abs().max()), 1e-6)
+    again = _bn_grads(K.batch_norm_act, x, w, b, rm, rv, slope, res, mode, act, cot)
+    assert all(torch.equal(a, c) for a, c in zip(got_g, again))
+
+
+@pytest.mark.parametrize("shape", [(5, 3, 7, 7), (1, 4, 6, 6), (6, 5, 1, 1), (48, 3, 5, 5),
+                                   (17, 2, 3, 9)])
+@pytest.mark.parametrize("act,residual", [("relu", True), ("prelu", False), ("none", False)])
+@pytest.mark.parametrize("mode", ["train", "teacher"])
+def test_batch_norm_fused_edges(dev, shape, act, residual, mode):
+    # the fused design at HW % 4 != 0 (its 4-byte loads), N = 1, HW = 1 and a
+    # batch spread over several samples a group
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, shape, act, residual, 21)
+    assert _bn_plan(x, True, False, act)["design"] == 1
+    assert _bn_plan(x, True, True, act)["design"] == 1
+    _bn_against_reference(x, w, b, rm, rv, slope, res, mode, act)
+
+
+def _largest_plane(N, R, backward):
+    """The largest HW (a multiple of 4) whose plan takes R ranks."""
+    from tris_tpu_torch.tools import batch_norm_schedule as BS
+
+    best = None
+    for HW in range(4, 2 ** 24 // N, 4):
+        p = BS.plan(N, 1, HW, True, backward)
+        if p["design"] != 1:
+            break
+        if p["ranks"] == R:
+            best = HW
+    return best
+
+
+@pytest.mark.parametrize("R,backward", [(r, False) for r in range(1, 9)]
+                         + [(r, True) for r in list(range(1, 9)) + [16]])
+def test_batch_norm_fused_largest_plane_per_cluster(dev, R, backward):
+    # at N = 48 (every R of 1..8 its own samples a rank), the largest plane
+    # the rule gives each cluster size (16: the backward's non-portable
+    # cluster), with a residual and ReLU: the plan on the card is the
+    # schedule tool's, and the kernel agrees with the plain version and the
+    # route reference
+    HW = _largest_plane(48, R, backward)
+    assert HW is not None
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, (48, 2, 1, HW), "relu", True, 30 + R)
+    from tris_tpu_torch.tools import batch_norm_schedule as BS
+
+    got = _bn_plan(x, True, backward, "relu")
+    assert got == BS.plan(48, 2, HW, True, backward, "relu", got["max_ranks"])
+    if got["max_ranks"] >= R:
+        assert got["ranks"] == R
+    _bn_against_reference(x, w, b, rm, rv, slope, res, "train", "relu")
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 256), (1, 2, 257, 257), (2, 1, 400, 400)])
+@pytest.mark.parametrize("act,residual", [("relu", True), ("prelu", False)])
+def test_batch_norm_two_pass(dev, shape, act, residual):
+    # planes too large for the fused design (float4 and 4-byte loads)
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, shape, act, residual, 41)
+    assert _bn_plan(x, True, False, act)["design"] == 0
+    assert _bn_plan(x, True, True, act)["design"] == 0
+    _bn_against_reference(x, w, b, rm, rv, slope, res, "train", act)
+
+
+@pytest.mark.parametrize("shape", [(48, 64, 20, 20), (48, 4, 80, 80), (7, 3, 9, 11)])
+@pytest.mark.parametrize("act,residual", [("relu", True), ("prelu", False)])
+def test_batch_norm_designs_agree(dev, shape, act, residual):
+    # the fused and the two-pass design on the same inputs: y bit for bit
+    # where their statistics do (a sample's sums in another order may round
+    # apart at a float32 boundary), the statistics within 1e-6 relative (the
+    # mean of its scale), the gradients within 1e-4 of their max; each
+    # launch's grid as the plan says
+    from tris_tpu_torch.kernels.batch_norm import ACTS
+
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, shape, act, residual, 51)
+    ops = K.build.ops()
+    a = ACTS[act]
+    outs = {f: ops.batch_norm_fwd(x, w, b, res, slope, None, None, a, 0.1, 1e-5, f)
+            for f in (0, 1)}
+    plan = dict(ops.batch_norm_plan(*shape[:2], shape[2] * shape[3], True, False, a, 1))
+    fused_shape = dict(ops.batch_norm_launch_shape("batch_norm_fwd_fused"))
+    assert fused_shape == {"blocks": plan["blocks"], "cluster": plan["ranks"],
+                           "threads": plan["threads"], "smem_bytes": plan["smem_bytes"],
+                           "load_bytes": 4 if shape[2] * shape[3] % 4 else 16}
+    (y0, s0), (y1, s1) = outs[0], outs[1]
+    if torch.equal(s0, s1):
+        assert torch.equal(y0, y1)
+    assert _err(y0, y1) <= 1e-5 * float(y0.abs().max())
+    assert _err(s1[0], s0[0]) <= 1e-6 * float(s0[0].abs().max())
+    for r in (1, 2):
+        assert float(((s1[r] - s0[r]).abs() / s0[r].abs()).max()) <= 1e-6
+    g = torch.randn_like(x)
+    out = y1 if act == "relu" else None
+    grads = {f: ops.batch_norm_bwd(g, x, out, s1[0], s1[2], w, b, slope, a, residual, f)
+             for f in (0, 1)}
+    for t0, t1 in zip(grads[0], grads[1]):
+        if t0 is not None:
+            assert _err(t1, t0) <= 1e-4 * max(float(t0.abs().max()), 1e-6)
 
 
 def test_batch_norm_act_refuses(dev):

@@ -24,9 +24,16 @@ value lies within an ulp of double of a float32 rounding boundary).
 The wrapper is then a ``torch.autograd.Function``; its forward keeps x, the
 mean and rstd, and its output where the activation is ReLU (whose mask that
 output is); PReLU's pre-activation is recomputed from x.
+
+Which design a call takes, fused (one launch, each input read once) or
+two-pass, is ``csrc/launchers.h::batch_norm_plan``'s rule on the shape; the
+extension's ``batch_norm_plan`` op gives it on the card, and the wrapper
+counts its launches from it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -166,19 +173,30 @@ def _from_double(p, like):
     return p.double().expand(like.shape).float()
 
 
+@functools.lru_cache(maxsize=1024)
+def plan(N: int, C: int, HW: int, training: bool, backward: bool, act: str) -> dict:
+    """The design a call of x [N, C, HW] takes on the card and its launch
+    count: the extension's ``batch_norm_plan`` (``csrc/launchers.h``'s rule,
+    a wide cluster where the card fits one)."""
+    return build.ops().batch_norm_plan(N, C, HW, training, backward, ACTS[act], -1)
+
+
 class _BatchNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, slope, residual, running_mean, running_var, training,
                 momentum, eps, act, save):
         ops = build.ops()
+        N, C = x.shape[:2]
+        HW = x.numel() // (N * C)
         mean = rstd = None
         if training:
-            stats = ops.batch_norm_stats(x, running_mean, running_var, momentum, eps)
-            build.count("batch_norm", n=2)
+            y, stats = ops.batch_norm_fwd(x, weight, bias, residual, slope, running_mean,
+                                          running_var, ACTS[act], momentum, eps, -1)
             mean, rstd = stats[0], stats[2]
-        y = ops.batch_norm_apply(x, mean, rstd, weight, bias, residual, slope, ACTS[act])
-        build.count("batch_norm")
-        ctx.meta = (act, residual is not None)
+        else:
+            y = ops.batch_norm_apply(x, None, None, weight, bias, residual, slope, ACTS[act])
+        build.count("batch_norm", n=plan(N, C, HW, training, False, act)["launches"])
+        ctx.meta = (act, residual is not None, (N, C, HW, training))
         if save:  # nothing is kept when no input needs a gradient
             ctx.save_for_backward(x, y if act == "relu" else None, mean, rstd, weight, bias,
                                   slope)
@@ -187,10 +205,10 @@ class _BatchNormAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, out, mean, rstd, weight, bias, slope = ctx.saved_tensors
-        act, has_residual = ctx.meta
+        act, has_residual, (N, C, HW, training) = ctx.meta
         dx, dw, db, dslope, dres = build.ops().batch_norm_bwd(
-            g.contiguous(), x, out, mean, rstd, weight, bias, slope, ACTS[act], has_residual)
-        build.count("batch_norm_bwd", n=3)
+            g.contiguous(), x, out, mean, rstd, weight, bias, slope, ACTS[act], has_residual, -1)
+        build.count("batch_norm_bwd", n=plan(N, C, HW, training, True, act)["launches"])
         return (dx, dw, db, None if slope is None else dslope.reshape(slope.shape), dres,
                 None, None, None, None, None, None, None)
 
@@ -205,8 +223,8 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
     "relu" (with an optional residual of x's shape added first) or "prelu"
     (with ``slope``, PReLU's one-element weight). ``training``: batch
     statistics, the running buffers moved in place when ``update_stats``;
-    else the eval fold. Launches: train 3 forward (statistics, 2; apply, 1),
-    eval 1; backward 3."""
+    else the eval fold. Launches: :func:`plan`'s (train: fused 1, two-pass 3;
+    eval 1; backward: fused 1, with PReLU 2, two-pass 3)."""
     _check_act(act, slope, residual)
     if x.device.type == "cpu":
         return batch_norm_act_plain(x, weight, bias, running_mean, running_var,

@@ -1,5 +1,7 @@
-// K13: BatchNorm with the activation that follows it, forward: the batch statistics (two
-// launches) and the apply pass (one launch).
+// K13: BatchNorm with the activation that follows it, forward: the fused design (one launch a
+// norm: the statistics and the apply from one read of x) where a channel fits on chip, else
+// the two-pass design (the batch statistics, two launches, and the apply pass, one launch);
+// the eval fold is the apply pass alone. launchers.h::batch_norm_plan chooses by the shape.
 //
 // Replaces the JAX package's tris_tpu/models/layers.py:181 TorchBatchNorm (train path
 // :219-229, eval fold :213-217) as its callers use it: followed by ReLU (CLIP's stem and a
@@ -15,36 +17,179 @@
 //
 // Shapes on the main paths: the CLIP RN50 trunk's 55 norms at B = 48, 320 px, from
 // [48, 32, 160, 160] (the stem) to [48, 2048, 10, 10] (layer4), 4.88 GB of inputs a
-// forward; stage 2's decoder [48, 32..512, 10^2..80^2].
+// forward; stage 2's decoder [48, 32..512, 10^2..80^2]. Every one but the stem's three
+// (4.8 MB a channel) takes the fused design.
 //
-// Statistics, the same sums in the same order as the plain version
-// (kernels/batch_norm.py::batch_stats_plain): each sample's plane gives its mean m_n and
-// sum of squared deviations q_n in double (from sums of x - k and (x - k)^2, k = x[0, c, 0]
-// a shift that keeps the squares from cancelling), each rounded once to float32; then in
-// float32, the samples in batch order: mean = (sum m_n) / N and var = (sum q_n + HW *
-// sum (m_n - mean)^2) / M; rstd = 1 / sqrt(var + eps) in double, rounded once. A sample's
-// moments are exact to float32; the batch combine keeps float32's dependence on the batch
-// order, as torch's and the JAX package's statistics have (the train checks' noise floor
-// reverses the batch). batch_norm_stats_partial_kernel: a warp per (channel, sample,
-// slice of its plane) (launchers.h) sums in double, the lanes in a fixed tree, and writes
-// partial[c][n][slice]. batch_norm_stats_final_kernel: a warp per channel adds each
-// sample's slices in order, then one lane combines the samples as above; with `update` it moves
-// the running buffers in double from the float32 mean and var, rounded once. No atomics:
-// the same bits run to run. The two kernels are apart so that a cross-rank combine of the
-// samples' moments can go between them.
+// Statistics, the same numbers as the plain version (kernels/batch_norm.py::
+// batch_stats_plain): each sample's plane gives its mean m_n and sum of squared deviations
+// q_n in double (from sums of x - k and (x - k)^2, k = x[0, c, 0] a shift that keeps the
+// squares from cancelling), each rounded once to float32; then in float32, the samples in
+// batch order: mean = (sum m_n) / N and var = (sum q_n + HW * sum (m_n - mean)^2) / M; rstd =
+// 1 / sqrt(var + eps) in double, rounded once. A sample's moments are exact to float32; the
+// batch combine keeps float32's dependence on the batch order, as torch's and the JAX
+// package's statistics have. The running update in double, rounded once. No atomics: the
+// same bits run to run.
 //
-// Apply: a thread per 4 elements (float4; per element where HW % 4 != 0 or a pointer is not
-// 16-byte aligned), each product and sum rounded alone in the plain version's order: given
-// the same mean and rstd it gives the plain route's bits, and the eval fold gives them
-// exactly.
+// batch_norm_fwd_fused_kernel: a cluster of R blocks a channel, rank r staging samples
+// [r N / R, (r + 1) N / R) in shared memory (a plane a cp.async.bulk on its own mbarrier,
+// issued by warp 0's lanes; or the block's 4-byte loads where HW % 4 != 0 or a pointer is
+// not 16-byte aligned). A group of
+// `group` lanes sums a sample as soon as its plane has landed: lane l the plane's items
+// (float4, or floats) l, l + group, ..., each float4 as (d0 + d1) + (d2 + d3) and its squares
+// alike (d = x - k, every double operation rounded alone), then the group's xor tree (and
+// its warps' totals in warp order); tools/batch_norm_schedule.py::fused_channel_stats
+// emulates that order. Each rank writes its samples' moments into every rank's shared
+// memory (distributed shared memory); after the cluster's barrier every rank combines the
+// N in batch order alike, rank 0 writes stats [3, C] and moves the running buffers, and
+// each rank applies the norm and its activation to its staged planes, reading the residual
+// and writing y with 16-byte accesses. x is read from device memory once.
 //
-// Bound: bytes. Statistics read x once; apply reads x (and the residual) and writes y.
+// batch_norm_stats_partial_kernel: a warp per (channel, sample, slice of its plane)
+// (launchers.h) sums in double, the lanes in a fixed tree, and writes partial[c][n][slice].
+// batch_norm_stats_final_kernel: a warp per channel adds each sample's slices in order,
+// then one lane combines the samples. The two kernels are apart so that a cross-rank
+// combine of the samples' moments can go between them.
+//
+// batch_norm_apply_kernel: a block over (planes, chunk of a plane) in address order: a plane
+// of at least kBatchNormApplyThreads items takes whole blocks, smaller planes share one; a
+// thread an item (no divide an element), each product and sum rounded alone in the plain
+// version's order: given the same mean and rstd it gives the plain route's bits, and the
+// eval fold gives them exactly.
+//
+// Bound: bytes. The fused kernel reads x (and the residual) and writes y; the two-pass design
+// reads x twice.
 
 #include "batch_norm.cuh"
 
 namespace {
 
+using namespace tris;
 using namespace tris::bn;
+
+// Grid C * R blocks in clusters of R: block b is rank b % R of channel b / R.
+template <bool kVec>
+__global__ void __launch_bounds__(kBatchNormFusedThreadsWide)
+batch_norm_fwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                            const float* __restrict__ b, const float* __restrict__ res,
+                            const float* __restrict__ slope, float* __restrict__ y,
+                            float* __restrict__ stats, float* __restrict__ rm,
+                            float* __restrict__ rv, int N, int C, int HW, int samples, int group,
+                            int act, double momentum, double eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  BN_STAMP_ENTRY();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int R = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / R;
+  const int first = rank_first(rank, R, N), count = rank_first(rank + 1, R, N) - first;
+  const FusedSmem s = fused_smem(smem_raw, N, HW, samples, false);
+  const long long pitch = batch_norm_pitch(HW), nstride = (long long)C * HW;
+  const float* xc = x + (long long)c * HW;  // sample 0's plane of channel c
+  if (kVec) {
+    issue_planes(&xc, 1, s.stage, s.set, s.bars, first, count, nstride, HW);
+    __syncthreads();
+  } else {
+    load_planes(&xc, 1, s.stage, s.set, first, count, nstride, HW);
+  }
+  BN_PHASE(2);
+  cluster_arrive_relaxed();  // this block has started: the others may write its moments
+
+  // the channel's parameters, read while its planes land
+  const double k = xc[0];
+  Channel ch;
+  ch.norm = true;
+  ch.w = w[c];
+  ch.b = b[c];
+  const float a = slope != nullptr ? *slope : 0.f;
+  const bool has_res = res != nullptr;
+  const int groups = blockDim.x / group, gi = threadIdx.x / group, gl = threadIdx.x % group;
+  const int items = kVec ? HW / 4 : HW, rounds = (count + groups - 1) / groups;
+  cluster_wait();
+  for (int r = 0; r < rounds; ++r) {  // the same rounds on every thread: group_sums is collective
+    const int i = gi + r * groups;
+    double v[3] = {0.0, 0.0, 0.0};
+    if (i < count) {
+      if (kVec) mbar_wait(&s.bars[i], 0);
+      const float* p = s.stage + i * pitch;
+      for (int e = gl; e < items; e += group) {
+        if (kVec) {
+          const float4 q = reinterpret_cast<const float4*>(p)[e];
+          const double d0 = __dsub_rn((double)q.x, k), d1 = __dsub_rn((double)q.y, k),
+                       d2 = __dsub_rn((double)q.z, k), d3 = __dsub_rn((double)q.w, k);
+          v[0] = __dadd_rn(v[0], __dadd_rn(__dadd_rn(d0, d1), __dadd_rn(d2, d3)));
+          v[1] = __dadd_rn(v[1], __dadd_rn(__dadd_rn(__dmul_rn(d0, d0), __dmul_rn(d1, d1)),
+                                           __dadd_rn(__dmul_rn(d2, d2), __dmul_rn(d3, d3))));
+        } else {
+          const double d = __dsub_rn((double)p[e], k);
+          v[0] = __dadd_rn(v[0], d);
+          v[1] = __dadd_rn(v[1], __dmul_rn(d, d));
+        }
+      }
+    }
+    group_sums(v, group, s.part);
+    if (i < count && gl == 0) {
+      const float2 mq = sample_moments(v[0], v[1], k, HW);
+      for (int q = 0; q < R; ++q) cluster.map_shared_rank(s.moments, q)[first + i] = mq;
+    }
+  }
+  BN_PHASE(3);
+  cluster_arrive();  // every rank now holds the channel's N moments
+  cluster_wait();
+  BN_PHASE(4);
+  if (threadIdx.x == 0) {
+    const BatchStats st = combine_batch(s.moments, N, HW, eps);
+    s.coef[0] = st.mean;
+    s.coef[1] = st.var;
+    s.coef[2] = st.rstd;
+  }
+  __syncthreads();
+  BN_PHASE(5);
+  ch.mean = s.coef[0];
+  ch.rstd = s.coef[2];
+  if (rank == 0 && threadIdx.x == 0)  // off the block's barrier: rm and rv are read here
+    store_stats({ch.mean, s.coef[1], ch.rstd}, stats, rm, rv, c, C, (long long)N * HW, momentum);
+
+  constexpr int U = kBatchNormFusedUnroll;
+  for (int i = gi; i < count; i += groups) {
+    const float* sp = s.stage + i * pitch;
+    const long long off = (first + i) * nstride + (long long)c * HW;
+    for (int e0 = gl; e0 < items; e0 += U * group) {
+      if (kVec) {
+        float4 rr[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * group;
+          rr[u] = has_res && e < items ? reinterpret_cast<const float4*>(res + off)[e]
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * group;
+          if (e >= items) break;
+          const float4 q = reinterpret_cast<const float4*>(sp)[e];
+          reinterpret_cast<float4*>(y + off)[e] =
+              make_float4(forward_one(q.x, rr[u].x, has_res, ch, act, a),
+                          forward_one(q.y, rr[u].y, has_res, ch, act, a),
+                          forward_one(q.z, rr[u].z, has_res, ch, act, a),
+                          forward_one(q.w, rr[u].w, has_res, ch, act, a));
+        }
+      } else {
+        float rr[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * group;
+          rr[u] = has_res && e < items ? res[off + e] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * group;
+          if (e >= items) break;
+          y[off + e] = forward_one(sp[e], rr[u], has_res, ch, act, a);
+        }
+      }
+    }
+  }
+  BN_STAMP_EXIT();
+}
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -81,125 +226,143 @@ batch_norm_stats_partial_kernel(const float* __restrict__ x, double* __restrict_
   }
 }
 
-// Sample n's mean and sum of squared deviations from it, in double from its slices'
-// shifted sums, each rounded once to float32.
-__device__ __forceinline__ void sample_moments(const double* q, int slices, double k, int HW,
-                                               float& mean, float& m2) {
-  double s1 = 0.0, s2 = 0.0;
-  for (int sl = 0; sl < slices; ++sl) {
-    s1 += q[2 * sl];
-    s2 += q[2 * sl + 1];
-  }
-  const double d = s1 / (double)HW, dev = s2 - s1 * d;
-  mean = (float)(k + d);
-  m2 = (float)(dev > 0.0 ? dev : 0.0);
-}
-
-// A warp per channel: the lanes form the samples' moments (sample n on lane n % 32) into
-// shared memory, then lane 0 combines them in batch order.
+// A warp per channel: the lanes form the samples' moments (sample n on lane n % 32, its
+// slices in order) into shared memory, then lane 0 combines them in batch order.
 __global__ void __launch_bounds__(32)
 batch_norm_stats_final_kernel(const float* __restrict__ x, const double* __restrict__ partial,
                               float* __restrict__ stats, float* __restrict__ rm,
                               float* __restrict__ rv, int N, int C, int HW, int slices,
                               double momentum, double eps) {
-  extern __shared__ float moments[];                  // m[N], then q[N]
+  extern __shared__ float2 moments[];  // [N]
   const int c = blockIdx.x;
   const double k = x[(long long)c * HW];
   const double* q = partial + 2 * (long long)c * N * slices;
-  for (int n = threadIdx.x; n < N; n += 32)
-    sample_moments(q + 2 * (long long)n * slices, slices, k, HW, moments[n], moments[N + n]);
+  for (int n = threadIdx.x; n < N; n += 32) {
+    const double* qn = q + 2 * (long long)n * slices;
+    double s1 = 0.0, s2 = 0.0;
+    for (int sl = 0; sl < slices; ++sl) {
+      s1 += qn[2 * sl];
+      s2 += qn[2 * sl + 1];
+    }
+    moments[n] = sample_moments(s1, s2, k, HW);
+  }
   __syncwarp();
   if (threadIdx.x != 0) return;
-  float s = moments[0], m2 = moments[N];              // the batch in order, in float32
-  for (int n = 1; n < N; ++n) {
-    s = __fadd_rn(s, moments[n]);
-    m2 = __fadd_rn(m2, moments[N + n]);
-  }
-  const float mean = __fdiv_rn(s, (float)N);
-  float between = 0.f;
-  for (int n = 0; n < N; ++n) {
-    const float t = __fsub_rn(moments[n], mean), t2 = __fmul_rn(t, t);
-    between = n == 0 ? t2 : __fadd_rn(between, t2);
-  }
-  const long long M = (long long)N * HW;
-  const float var = __fdiv_rn(__fadd_rn(m2, __fmul_rn((float)HW, between)), (float)M);
-  stats[c] = mean;
-  stats[C + c] = var;
-  stats[2 * C + c] = (float)rsqrt((double)var + eps);
-  if (rm != nullptr) {
-    const double unbiased = (double)var * ((double)M / (double)(M > 1 ? M - 1 : 1));
-    rm[c] = (float)((1.0 - momentum) * (double)rm[c] + momentum * (double)mean);
-    rv[c] = (float)((1.0 - momentum) * (double)rv[c] + momentum * unbiased);
-  }
+  store_stats(combine_batch(moments, N, HW, eps), stats, rm, rv, c, C, (long long)N * HW,
+              momentum);
 }
 
+// A block takes `per` = kBatchNormApplyThreads / tpp planes of tpp threads each, and of each
+// plane one chunk of tpp items: block b chunk b % chunks of the planes from (b / chunks) *
+// per, so neighbouring blocks read neighbouring addresses; thread j of a plane takes item
+// chunk * tpp + j.
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBatchNormApplyThreads)
 batch_norm_apply_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                         const float* __restrict__ rstd, const float* __restrict__ w,
                         const float* __restrict__ b, const float* __restrict__ res,
-                        const float* __restrict__ slope, float* __restrict__ y, long long total,
-                        int C, int HW, int act) {
-  const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) * (kVec ? 4 : 1);
-  if (i >= total) return;
-  const int c = (int)(((unsigned)i / (unsigned)HW) % (unsigned)C);
-  const Channel p = channel(mean, rstd, w, b, c);
+                        const float* __restrict__ slope, float* __restrict__ y,
+                        long long planes, int C, int HW, int tpp, int chunks, int act) {
+  const int per = kBatchNormApplyThreads / tpp;
+  if ((int)threadIdx.x >= per * tpp) return;
+  const long long plane = blockIdx.x / chunks * per + threadIdx.x / tpp;
+  const int e = (int)(blockIdx.x % chunks) * tpp + threadIdx.x % tpp;
+  if (plane >= planes || e >= (kVec ? HW / 4 : HW)) return;
+  const Channel p = channel(mean, rstd, w, b, (int)(plane % C));
   const float a = slope != nullptr ? *slope : 0.f;
+  const bool has_res = res != nullptr;
+  const long long off = plane * HW;
   if (kVec) {
-    const float4 v = *reinterpret_cast<const float4*>(x + i);
-    float4 o = make_float4(affine(xhat(v.x, p), p), affine(xhat(v.y, p), p),
-                           affine(xhat(v.z, p), p), affine(xhat(v.w, p), p));
-    if (res != nullptr) {
-      const float4 r = *reinterpret_cast<const float4*>(res + i);
-      o = make_float4(__fadd_rn(o.x, r.x), __fadd_rn(o.y, r.y), __fadd_rn(o.z, r.z),
-                      __fadd_rn(o.w, r.w));
-    }
-    *reinterpret_cast<float4*>(y + i) = make_float4(activate(o.x, act, a), activate(o.y, act, a),
-                                                    activate(o.z, act, a), activate(o.w, act, a));
+    const float4 v = reinterpret_cast<const float4*>(x + off)[e];
+    const float4 r = has_res ? reinterpret_cast<const float4*>(res + off)[e]
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(y + off)[e] = make_float4(
+        forward_one(v.x, r.x, has_res, p, act, a), forward_one(v.y, r.y, has_res, p, act, a),
+        forward_one(v.z, r.z, has_res, p, act, a), forward_one(v.w, r.w, has_res, p, act, a));
   } else {
-    float o = affine(xhat(x[i], p), p);
-    if (res != nullptr) o = __fadd_rn(o, res[i]);
-    y[i] = activate(o, act, a);
+    y[off + e] = forward_one(x[off + e], has_res ? res[off + e] : 0.f, has_res, p, act, a);
   }
 }
 
 }  // namespace
 
+#ifdef TRIS_BN_STAMPS
+// The measurement build's stamp buffer for this file's fused kernel (batch_norm.cuh).
+extern "C" cudaError_t bn_set_stamps_fwd(unsigned long long* stamps) {
+  return cudaMemcpyToSymbol(tris::bn::bn_stamps, &stamps, sizeof(stamps));
+}
+#endif
+
 namespace tris {
 
 cudaError_t batch_norm_stats(const float* x, double* partial, float* stats, float* running_mean,
                              float* running_var, int N, int C, int HW, double momentum,
-                             double eps, cudaStream_t stream) {
+                             double eps, cudaStream_t stream, BatchNormLaunchShape* shapes) {
   const int slices = (int)batch_norm_slices(HW);
   const long long warps = (long long)C * N * slices;
   const unsigned blocks = (unsigned)((warps + bn::kWarps - 1) / bn::kWarps);
-  if (HW % 4 == 0 && bn::aligned16(x))
+  const bool vec = HW % 4 == 0 && bn::aligned16(x);
+  if (vec)
     batch_norm_stats_partial_kernel<true><<<blocks, bn::kThreads, 0, stream>>>(
         x, partial, N, C, HW, slices, warps);
   else
     batch_norm_stats_partial_kernel<false><<<blocks, bn::kThreads, 0, stream>>>(
         x, partial, N, C, HW, slices, warps);
-  batch_norm_stats_final_kernel<<<C, 32, 2 * N * sizeof(float), stream>>>(
-      x, partial, stats, running_mean, running_var, N, C, HW, slices, momentum, eps);
-  return cudaGetLastError();
+  const long long smem = (long long)N * sizeof(float2);
+  batch_norm_stats_final_kernel<<<C, 32, smem, stream>>>(x, partial, stats, running_mean,
+                                                         running_var, N, C, HW, slices, momentum,
+                                                         eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && shapes != nullptr) {
+    shapes[0] = {(int)blocks, 1, bn::kThreads, 0, vec ? 16 : 4};
+    shapes[1] = {C, 1, 32, smem, 8};
+  }
+  return err;
 }
 
 cudaError_t batch_norm_apply(const float* x, const float* mean, const float* rstd,
                              const float* weight, const float* bias, const float* residual,
                              const float* slope, float* y, int N, int C, int HW, int act,
-                             cudaStream_t stream) {
-  const long long total = (long long)N * C * HW;
+                             cudaStream_t stream, BatchNormLaunchShape* shape) {
   const bool vec = HW % 4 == 0 && bn::aligned16(x) && bn::aligned16(residual) &&
                    bn::aligned16(y);
-  const long long items = vec ? total / 4 : total;
-  const unsigned blocks = (unsigned)((items + bn::kThreads - 1) / bn::kThreads);
+  const int items = vec ? HW / 4 : HW;
+  const int tpp = items >= kBatchNormApplyThreads ? kBatchNormApplyThreads : items;
+  const int per = kBatchNormApplyThreads / tpp;
+  const long long planes = (long long)N * C;
+  const int chunks = (items + tpp - 1) / tpp;
+  const long long blocks = (planes + per - 1) / per * chunks;
   if (vec)
-    batch_norm_apply_kernel<true><<<blocks, bn::kThreads, 0, stream>>>(
-        x, mean, rstd, weight, bias, residual, slope, y, total, C, HW, act);
+    batch_norm_apply_kernel<true><<<(unsigned)blocks, kBatchNormApplyThreads, 0, stream>>>(
+        x, mean, rstd, weight, bias, residual, slope, y, planes, C, HW, tpp, chunks, act);
   else
-    batch_norm_apply_kernel<false><<<blocks, bn::kThreads, 0, stream>>>(
-        x, mean, rstd, weight, bias, residual, slope, y, total, C, HW, act);
-  return cudaGetLastError();
+    batch_norm_apply_kernel<false><<<(unsigned)blocks, kBatchNormApplyThreads, 0, stream>>>(
+        x, mean, rstd, weight, bias, residual, slope, y, planes, C, HW, tpp, chunks, act);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && shape != nullptr)
+    *shape = {(int)blocks, 1, kBatchNormApplyThreads, 0, vec ? 16 : 4};
+  return err;
+}
+
+cudaError_t batch_norm_forward(const BatchNormPlan& plan, const float* x, const float* weight,
+                               const float* bias, const float* residual, const float* slope,
+                               float* y, float* stats, double* partial, float* running_mean,
+                               float* running_var, int N, int C, int HW, int act,
+                               double momentum, double eps, cudaStream_t stream,
+                               BatchNormLaunchShape* shapes) {
+  if (plan.design == kBatchNormFused) {
+    const bool vec = HW % 4 == 0 && bn::aligned16(x) && bn::aligned16(residual) &&
+                     bn::aligned16(y);
+    auto* kernel = vec ? &batch_norm_fwd_fused_kernel<true> : &batch_norm_fwd_fused_kernel<false>;
+    return bn::launch(kernel, plan.blocks, plan.ranks, plan.threads, plan.smem, vec ? 16 : 4,
+                      stream, shapes, x, weight, bias, residual, slope, y, stats, running_mean,
+                      running_var, N, C, HW, plan.samples, plan.group, act, momentum, eps);
+  }
+  cudaError_t err = batch_norm_stats(x, partial, stats, running_mean, running_var, N, C, HW,
+                                     momentum, eps, stream, shapes);
+  if (err != cudaSuccess) return err;
+  return batch_norm_apply(x, stats, stats + 2 * C, weight, bias, residual, slope, y, N, C, HW,
+                          act, stream, shapes + 2);
 }
 
 }  // namespace tris

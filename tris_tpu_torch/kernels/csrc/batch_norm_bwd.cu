@@ -1,4 +1,7 @@
-// K13 backward: BatchNorm with the activation that follows it, three launches.
+// K13 backward: BatchNorm with the activation that follows it, in the design
+// launchers.h::batch_norm_plan chooses by the shape: fused (one launch; with PReLU a second
+// adds the channels' slope sums) where a channel's g and x fit on chip, else two-pass (three
+// launches).
 //
 // Replaces the gradient of tris_tpu/models/layers.py:181 TorchBatchNorm's train path
 // (:219-229) and of the ReLU, residual add + ReLU or PReLU after it (see batch_norm.cu).
@@ -11,25 +14,204 @@
 //   dres   = dz                                                (the residual's gradient)
 // The forward keeps x, mean and rstd, and its output where the activation is ReLU: out > 0
 // is the ReLU's mask exactly. PReLU's pre-activation is recomputed from x with the
-// forward's operations, so its mask is the forward's bit for bit.
+// forward's operations, so its mask is the forward's bit for bit. dw, db and the two
+// coefficients db / n, dw / n are each rounded once from their double sums; dx takes each
+// product and sum rounded alone. No atomics: the same bits run to run.
 //
-// batch_norm_bwd_partial_kernel: a warp per (channel, sample, slice of the plane), the
-// statistics' partition (launchers.h), sums dz, dz * x-hat and the slope's terms in double,
-// the lanes in a fixed xor tree. batch_norm_bwd_final_kernel: a warp per channel adds its
-// N * slices partials (lane l those from l in steps of 32, then the xor tree): dw, db and the
-// two coefficients, each rounded once, and the channel's slope sum in double.
-// batch_norm_bwd_apply_kernel: a thread per 4 elements (float4, as the forward's apply)
-// writes dx and dres; for PReLU its first warp also adds the channels' slope sums in a fixed
-// order into dslope. No atomics: the same bits run to run.
+// batch_norm_bwd_fused_kernel: the forward's fused blocks (a cluster of R a channel, rank r
+// staging samples [r N / R, (r + 1) N / R)), here g's and x's planes, both on a sample's
+// mbarrier. A sample's group of lanes, once its planes have landed, forms dz (ReLU's mask
+// from `out`, read beside, kUnroll float4s in flight a lane), writes it over g's plane, sums
+// dz, dz * x-hat and the slope's terms in double (lane l its items l, l + group, ..., the
+// elements in order, then the group's xor tree and its warps' totals in warp order). Each
+// rank writes its samples' sums into every rank's shared memory; after the cluster's
+// barrier every rank adds the N in batch order alike, rank 0 writes dw, db and the channel's
+// slope sum, and each rank writes dx (and dres) from its staged dz and x. g, x and out are
+// read from device memory once. batch_norm_bwd_slope_kernel (PReLU): one warp adds the
+// channels' slope sums, lane l those from l in steps of 32, then the xor tree.
 //
-// Bound: bytes. The sums read g and x (and out); the apply reads them again and writes dx
-// (and dres).
+// The two-pass design: batch_norm_bwd_partial_kernel, a warp per (channel, sample, slice of
+// the plane), the statistics' partition (launchers.h), sums dz, dz * x-hat and the slope's
+// terms in double, the lanes in a fixed xor tree. batch_norm_bwd_final_kernel: a warp per
+// channel adds its N * slices partials (lane l those from l in steps of 32, then the xor
+// tree). batch_norm_bwd_apply_kernel: a thread per 4 elements (float4; per element where HW %
+// 4 != 0 or a pointer is not 16-byte aligned) writes dx and dres; for PReLU its first warp
+// also adds the channels' slope sums into dslope.
+//
+// Bound: bytes. The fused kernel reads g and x (and out) once and writes dx (and dres); the
+// two-pass design reads them twice.
 
 #include "batch_norm.cuh"
 
 namespace {
 
+using namespace tris;
 using namespace tris::bn;
+
+// Grid C * R blocks in clusters of R: block b is rank b % R of channel b / R. slope_sums [C]
+// with PReLU, else null.
+template <bool kVec, int kUnroll>
+__global__ void __launch_bounds__(kBatchNormFusedThreadsWide)
+batch_norm_bwd_fused_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                            const float* __restrict__ out, const float* __restrict__ mean,
+                            const float* __restrict__ rstd, const float* __restrict__ w,
+                            const float* __restrict__ b, const float* __restrict__ slope,
+                            float* __restrict__ dw, float* __restrict__ db,
+                            double* __restrict__ slope_sums, float* __restrict__ dx,
+                            float* __restrict__ dres, int N, int C, int HW, int samples,
+                            int group, int act) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  BN_STAMP_ENTRY();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int R = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int c = blockIdx.x / R;
+  const int first = rank_first(rank, R, N), count = rank_first(rank + 1, R, N) - first;
+  const FusedSmem s = fused_smem(smem_raw, N, HW, samples, true);
+  const long long pitch = batch_norm_pitch(HW), nstride = (long long)C * HW;
+  float* dzs = s.stage;  // g's planes, then dz in their place
+  const float* xs = s.stage + s.set;
+  const float* planes[2] = {g + (long long)c * HW, x + (long long)c * HW};
+  if (kVec) {
+    issue_planes(planes, 2, s.stage, s.set, s.bars, first, count, nstride, HW);
+    __syncthreads();
+  } else {
+    load_planes(planes, 2, s.stage, s.set, first, count, nstride, HW);
+  }
+  BN_PHASE(2);
+  cluster_arrive_relaxed();  // this block has started: the others may write its sums
+
+  // the channel's parameters, read while its planes land
+  const Channel p = channel(mean, rstd, w, b, c);
+  const float a = slope != nullptr ? *slope : 0.f;
+  const int groups = blockDim.x / group, gi = threadIdx.x / group, gl = threadIdx.x % group;
+  const int items = kVec ? HW / 4 : HW, rounds = (count + groups - 1) / groups;
+  constexpr int U = kUnroll;
+  cluster_wait();
+  for (int r = 0; r < rounds; ++r) {  // the same rounds on every thread: group_sums is collective
+    const int i = gi + r * groups;
+    double v[3] = {0.0, 0.0, 0.0};  // dz, dz * x-hat, the slope's g * y
+    if (i < count) {
+      float* dzp = dzs + i * pitch;
+      const float* xp = xs + i * pitch;
+      const float* op = out != nullptr ? out + (first + i) * nstride + (long long)c * HW : nullptr;
+      if (kVec) mbar_wait(&s.bars[i], 0);
+      for (int e0 = gl; e0 < items; e0 += U * group) {
+        if (kVec) {
+          float4 o[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int e = e0 + u * group;
+            o[u] = op != nullptr && e < items ? reinterpret_cast<const float4*>(op)[e]
+                                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int e = e0 + u * group;
+            if (e >= items) break;
+            const float4 gv = reinterpret_cast<const float4*>(dzp)[e];
+            const float4 xv = reinterpret_cast<const float4*>(xp)[e];
+            const float gs[4] = {gv.x, gv.y, gv.z, gv.w}, xq[4] = {xv.x, xv.y, xv.z, xv.w},
+                        os[4] = {o[u].x, o[u].y, o[u].z, o[u].w};
+            float dz[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float xh = xhat(xq[q], p);
+              dz[q] = grad_z(gs[q], xh, os[q], p, act, a, v[2]);
+              v[0] = __dadd_rn(v[0], (double)dz[q]);
+              v[1] = __dadd_rn(v[1], __dmul_rn((double)dz[q], (double)xh));
+            }
+            reinterpret_cast<float4*>(dzp)[e] = make_float4(dz[0], dz[1], dz[2], dz[3]);
+          }
+        } else {
+          float o[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int e = e0 + u * group;
+            o[u] = op != nullptr && e < items ? op[e] : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int e = e0 + u * group;
+            if (e >= items) break;
+            const float xh = xhat(xp[e], p);
+            const float dz = grad_z(dzp[e], xh, o[u], p, act, a, v[2]);
+            v[0] = __dadd_rn(v[0], (double)dz);
+            v[1] = __dadd_rn(v[1], __dmul_rn((double)dz, (double)xh));
+            dzp[e] = dz;
+          }
+        }
+      }
+    }
+    group_sums(v, group, s.part);
+    if (i < count && gl == 0)
+      for (int q = 0; q < R; ++q) {
+        double* to = cluster.map_shared_rank(s.sums, q) + 3 * (first + i);
+        to[0] = v[0];
+        to[1] = v[1];
+        to[2] = v[2];
+      }
+  }
+  BN_PHASE(3);
+  cluster_arrive();  // every rank now holds the channel's N sums
+  cluster_wait();
+  BN_PHASE(4);
+  double t[3] = {0.0, 0.0, 0.0};
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 3; ++k) t[k] = s.sums[k];
+#pragma unroll 4
+    for (int n = 1; n < N; ++n)
+      for (int k = 0; k < 3; ++k) t[k] = __dadd_rn(t[k], s.sums[3 * n + k]);
+    const double M = (double)N * HW;
+    s.coef[0] = (float)__ddiv_rn(t[0], M);
+    s.coef[1] = (float)__ddiv_rn(t[1], M);
+  }
+  __syncthreads();
+  BN_PHASE(5);
+  if (rank == 0 && threadIdx.x == 0) {  // off the block's barrier
+    dw[c] = (float)t[1];
+    db[c] = (float)t[0];
+    if (slope_sums != nullptr) slope_sums[c] = t[2];
+  }
+
+  const float k1 = p.norm ? s.coef[0] : 0.f, k2 = p.norm ? s.coef[1] : 0.f;
+  for (int i = gi; i < count; i += groups) {
+    const float* dzp = dzs + i * pitch;
+    const float* xp = xs + i * pitch;
+    const long long off = (first + i) * nstride + (long long)c * HW;
+    for (int e = gl; e < items; e += group) {
+      if (kVec) {
+        const float4 dz = reinterpret_cast<const float4*>(dzp)[e];
+        const float4 xv = reinterpret_cast<const float4*>(xp)[e];
+        reinterpret_cast<float4*>(dx + off)[e] =
+            make_float4(grad_x(dz.x, xhat(xv.x, p), p, k1, k2),
+                        grad_x(dz.y, xhat(xv.y, p), p, k1, k2),
+                        grad_x(dz.z, xhat(xv.z, p), p, k1, k2),
+                        grad_x(dz.w, xhat(xv.w, p), p, k1, k2));
+        if (dres != nullptr) reinterpret_cast<float4*>(dres + off)[e] = dz;
+      } else {
+        dx[off + e] = grad_x(dzp[e], xhat(xp[e], p), p, k1, k2);
+        if (dres != nullptr) dres[off + e] = dzp[e];
+      }
+    }
+  }
+  BN_STAMP_EXIT();
+}
+
+// One warp: dslope = the channels' slope sums, lane l those from l in steps of 32, then the
+// xor tree.
+__device__ __forceinline__ void slope_total(const double* __restrict__ slope_sums, int C,
+                                            float* __restrict__ dslope) {
+  double t = 0.0;
+  for (int c = threadIdx.x; c < C; c += 32) t += slope_sums[c];
+  t = warp_sum(t);
+  if (threadIdx.x == 0) *dslope = (float)t;
+}
+
+__global__ void __launch_bounds__(32)
+batch_norm_bwd_slope_kernel(const double* __restrict__ slope_sums, int C,
+                            float* __restrict__ dslope) {
+  slope_total(slope_sums, C, dslope);
+}
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -108,14 +290,13 @@ batch_norm_bwd_final_kernel(const double* __restrict__ partial, float* __restric
   if (slope_sums != nullptr) slope_sums[c] = sslope;
 }
 
-// dx (and dres) of one element
-__device__ __forceinline__ float grad_x(float g, float x, float o, const Channel& p, int act,
-                                        float a, float k1, float k2, float& dz) {
+// dx (and dres's dz) of one element from g, x and out
+__device__ __forceinline__ float grad_x_of(float g, float x, float o, const Channel& p, int act,
+                                           float a, float k1, float k2, float& dz) {
   double unused = 0.0;
   const float xh = xhat(x, p);
   dz = grad_z(g, xh, o, p, act, a, unused);
-  if (!p.norm) return __fmul_rn(dz, p.w);
-  return __fmul_rn(__fmul_rn(p.w, p.rstd), __fsub_rn(__fsub_rn(dz, k1), __fmul_rn(xh, k2)));
+  return grad_x(dz, xh, p, k1, k2);
 }
 
 template <bool kVec>
@@ -128,12 +309,8 @@ batch_norm_bwd_apply_kernel(const float* __restrict__ g, const float* __restrict
                             const double* __restrict__ slope_sums, float* __restrict__ dslope,
                             float* __restrict__ dx, float* __restrict__ dres, long long total,
                             int C, int HW, int act) {
-  if (dslope != nullptr && blockIdx.x == 0 && threadIdx.x < 32) {   // the channels' slope sums
-    double t = 0.0;
-    for (int c = threadIdx.x; c < C; c += 32) t += slope_sums[c];
-    t = warp_sum(t);
-    if (threadIdx.x == 0) *dslope = (float)t;
-  }
+  if (dslope != nullptr && blockIdx.x == 0 && threadIdx.x < 32)  // the channels' slope sums
+    slope_total(slope_sums, C, dslope);
   const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) * (kVec ? 4 : 1);
   if (i >= total) return;
   const int c = (int)(((unsigned)i / (unsigned)HW) % (unsigned)C);
@@ -146,15 +323,15 @@ batch_norm_bwd_apply_kernel(const float* __restrict__ g, const float* __restrict
     const float4 ov = out != nullptr ? *reinterpret_cast<const float4*>(out + i)
                                      : make_float4(0.f, 0.f, 0.f, 0.f);
     float4 dz;
-    const float4 d = make_float4(grad_x(gv.x, xv.x, ov.x, p, act, a, k1, k2, dz.x),
-                                 grad_x(gv.y, xv.y, ov.y, p, act, a, k1, k2, dz.y),
-                                 grad_x(gv.z, xv.z, ov.z, p, act, a, k1, k2, dz.z),
-                                 grad_x(gv.w, xv.w, ov.w, p, act, a, k1, k2, dz.w));
+    const float4 d = make_float4(grad_x_of(gv.x, xv.x, ov.x, p, act, a, k1, k2, dz.x),
+                                 grad_x_of(gv.y, xv.y, ov.y, p, act, a, k1, k2, dz.y),
+                                 grad_x_of(gv.z, xv.z, ov.z, p, act, a, k1, k2, dz.z),
+                                 grad_x_of(gv.w, xv.w, ov.w, p, act, a, k1, k2, dz.w));
     *reinterpret_cast<float4*>(dx + i) = d;
     if (dres != nullptr) *reinterpret_cast<float4*>(dres + i) = dz;
   } else {
     float dz;
-    dx[i] = grad_x(g[i], x[i], out != nullptr ? out[i] : 0.f, p, act, a, k1, k2, dz);
+    dx[i] = grad_x_of(g[i], x[i], out != nullptr ? out[i] : 0.f, p, act, a, k1, k2, dz);
     if (dres != nullptr) dres[i] = dz;
   }
 }
@@ -162,18 +339,67 @@ batch_norm_bwd_apply_kernel(const float* __restrict__ g, const float* __restrict
 }  // namespace
 
 namespace tris {
+namespace bn {
 
-cudaError_t batch_norm_bwd(const float* g, const float* x, const float* out, const float* mean,
-                           const float* rstd, const float* weight, const float* bias,
-                           const float* slope, double* partial, float* coef, float* dweight,
-                           float* dbias, float* dslope, float* dx, float* dres, int N, int C,
-                           int HW, int act, cudaStream_t stream) {
+// Whether the card runs a cluster of `plan`'s fused backward blocks at all.
+bool fused_bwd_fits(const BatchNormPlan& plan) {
+  return resident_clusters(&batch_norm_bwd_fused_kernel<true, kBatchNormFusedUnrollWide>,
+                           plan.ranks, plan.threads, plan.smem) > 0;
+}
+
+}  // namespace bn
+}  // namespace tris
+
+#ifdef TRIS_BN_STAMPS
+// The measurement build's stamp buffer for this file's fused kernel (batch_norm.cuh).
+extern "C" cudaError_t bn_set_stamps_bwd(unsigned long long* stamps) {
+  return cudaMemcpyToSymbol(tris::bn::bn_stamps, &stamps, sizeof(stamps));
+}
+#endif
+
+namespace tris {
+
+BatchNormPlan batch_norm_device_plan(int N, int C, int HW, bool training, bool backward, int act,
+                                     int force) {
+  BatchNormPlan p = batch_norm_plan(N, C, HW, training, backward, act,
+                                    backward ? kBatchNormWideRanks : kBatchNormMaxRanks);
+  if (p.design == kBatchNormFused && p.ranks > kBatchNormMaxRanks && !bn::fused_bwd_fits(p))
+    p = batch_norm_plan(N, C, HW, training, backward, act, kBatchNormMaxRanks);
+  if (force == kBatchNormTwoPass && p.design == kBatchNormFused)
+    p = {kBatchNormTwoPass, 0, 0, 0, 0, 0, 0, 3, p.max_ranks};
+  return p;
+}
+
+cudaError_t batch_norm_bwd(const BatchNormPlan& plan, const float* g, const float* x,
+                           const float* out, const float* mean, const float* rstd,
+                           const float* weight, const float* bias, const float* slope,
+                           double* partial, float* coef, float* dweight, float* dbias,
+                           float* dslope, float* dx, float* dres, int N, int C, int HW, int act,
+                           cudaStream_t stream, BatchNormLaunchShape* shapes) {
+  const bool vec = HW % 4 == 0 && bn::aligned16(g) && bn::aligned16(x) && bn::aligned16(out) &&
+                   bn::aligned16(dx) && bn::aligned16(dres);
+  if (plan.design == kBatchNormFused) {
+    double* slope_sums = dslope != nullptr ? partial : nullptr;
+    const bool wide = plan.threads == kBatchNormFusedThreadsWide;
+    constexpr int kU = kBatchNormFusedUnroll, kW = kBatchNormFusedUnrollWide;
+    auto* kernel = vec ? (wide ? &batch_norm_bwd_fused_kernel<true, kW>
+                               : &batch_norm_bwd_fused_kernel<true, kU>)
+                       : (wide ? &batch_norm_bwd_fused_kernel<false, kW>
+                               : &batch_norm_bwd_fused_kernel<false, kU>);
+    cudaError_t err = bn::launch(kernel, plan.blocks, plan.ranks, plan.threads, plan.smem,
+                                 vec ? 16 : 4, stream, shapes, g, x, out, mean, rstd, weight,
+                                 bias, slope, dweight, dbias, slope_sums, dx, dres, N, C, HW,
+                                 plan.samples, plan.group, act);
+    if (err != cudaSuccess || dslope == nullptr) return err;
+    batch_norm_bwd_slope_kernel<<<1, 32, 0, stream>>>(slope_sums, C, dslope);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) shapes[1] = {1, 1, 32, 0, 8};
+    return err;
+  }
   const long long M = (long long)N * HW, total = M * C;
   const int slices = (int)batch_norm_slices(HW);
   const long long warps = (long long)C * N * slices;
   double* slope_sums = dslope != nullptr ? partial + 3 * warps : nullptr;
-  const bool vec = HW % 4 == 0 && bn::aligned16(g) && bn::aligned16(x) && bn::aligned16(out) &&
-                   bn::aligned16(dx) && bn::aligned16(dres);
   const unsigned blocks = (unsigned)((warps + bn::kWarps - 1) / bn::kWarps);
   if (vec)
     batch_norm_bwd_partial_kernel<true><<<blocks, bn::kThreads, 0, stream>>>(
@@ -181,7 +407,8 @@ cudaError_t batch_norm_bwd(const float* g, const float* x, const float* out, con
   else
     batch_norm_bwd_partial_kernel<false><<<blocks, bn::kThreads, 0, stream>>>(
         g, x, out, mean, rstd, weight, bias, slope, partial, N, C, HW, slices, warps, act);
-  batch_norm_bwd_final_kernel<<<(C + bn::kWarps - 1) / bn::kWarps, bn::kThreads, 0, stream>>>(
+  const unsigned final_blocks = (unsigned)((C + bn::kWarps - 1) / bn::kWarps);
+  batch_norm_bwd_final_kernel<<<final_blocks, bn::kThreads, 0, stream>>>(
       partial, coef, dweight, dbias, slope_sums, C, N * slices, M);
   const long long items = vec ? total / 4 : total;
   const unsigned apply_blocks = (unsigned)((items + bn::kThreads - 1) / bn::kThreads);
@@ -193,7 +420,14 @@ cudaError_t batch_norm_bwd(const float* g, const float* x, const float* out, con
     batch_norm_bwd_apply_kernel<false><<<apply_blocks, bn::kThreads, 0, stream>>>(
         g, x, out, mean, rstd, weight, bias, slope, coef, slope_sums, dslope, dx, dres, total, C,
         HW, act);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    const int load = vec ? 16 : 4;
+    shapes[0] = {(int)blocks, 1, bn::kThreads, 0, load};
+    shapes[1] = {(int)final_blocks, 1, bn::kThreads, 0, 8};
+    shapes[2] = {(int)apply_blocks, 1, bn::kThreads, 0, load};
+  }
+  return err;
 }
 
 }  // namespace tris

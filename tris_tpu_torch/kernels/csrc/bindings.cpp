@@ -760,8 +760,45 @@ void check_channels(const at::Tensor& t, const char* what, const at::Device& dev
   TORCH_CHECK(t.numel() == C, what, ": expected ", C, " values, got ", t.numel());
 }
 
-// K13 statistics of x [N, C, ...]: returns [3, C] (mean, biased var, rstd); with the running
-// buffers given, they move by `momentum` in place.
+// K13's plan on this card for a call of x [N, C, HW] (launchers.h, batch_norm_device_plan):
+// design (0 two-pass, 1 fused, 2 the eval fold's apply), ranks, samples, threads, group,
+// smem_bytes, blocks, launches and max_ranks. force: -1 the rule, 0 two-pass (measurements).
+std::map<std::string, int64_t> batch_norm_plan(int64_t N, int64_t C, int64_t HW, bool training,
+                                               bool backward, int64_t act, int64_t force) {
+  TORCH_CHECK(N > 0 && C > 0 && HW > 0 && N * C * HW < INT32_MAX,
+              "batch_norm_plan: expected 1 to 2^31 - 1 elements");
+  const tris::BatchNormPlan p =
+      tris::batch_norm_device_plan((int)N, (int)C, (int)HW, training, backward, (int)act,
+                                   (int)force);
+  return {{"design", p.design}, {"ranks", p.ranks}, {"samples", p.samples},
+          {"threads", p.threads}, {"group", p.group}, {"smem_bytes", p.smem},
+          {"blocks", p.blocks}, {"launches", p.launches}, {"max_ranks", p.max_ranks}};
+}
+
+// The shape of the last launch of each of K13's kernels, as its launcher made it.
+std::map<std::string, tris::BatchNormLaunchShape> k13_shapes;
+
+void record_k13(const char* const* names, const tris::BatchNormLaunchShape* shapes, int n) {
+  for (int i = 0; i < n; ++i) k13_shapes[names[i]] = shapes[i];
+}
+
+// The last launch of K13's `name` in this process (batch_norm_fwd_fused,
+// batch_norm_stats_partial, batch_norm_stats_final, batch_norm_apply, batch_norm_bwd_fused,
+// batch_norm_bwd_slope, batch_norm_bwd_partial, batch_norm_bwd_final, batch_norm_bwd_apply):
+// blocks, blocks a cluster, threads a block, bytes of shared memory a block and of each load.
+std::map<std::string, int64_t> batch_norm_launch_shape(const std::string& name) {
+  const auto it = k13_shapes.find(name);
+  TORCH_CHECK(it != k13_shapes.end(), "batch_norm_launch_shape: no launch of ", name);
+  const tris::BatchNormLaunchShape& s = it->second;
+  return {{"blocks", s.blocks}, {"cluster", s.cluster}, {"threads", s.threads},
+          {"smem_bytes", s.smem}, {"load_bytes", s.load_bytes}};
+}
+
+const char* const kStatsNames[] = {"batch_norm_stats_partial", "batch_norm_stats_final",
+                                   "batch_norm_apply"};
+
+// K13 statistics of x [N, C, ...] (the two-pass design's two launches): returns [3, C] (mean,
+// biased var, rstd); with the running buffers given, they move by `momentum` in place.
 at::Tensor batch_norm_stats(const at::Tensor& x, const std::optional<at::Tensor>& running_mean,
                             const std::optional<at::Tensor>& running_var, double momentum,
                             double eps) {
@@ -779,11 +816,31 @@ at::Tensor batch_norm_stats(const at::Tensor& x, const std::optional<at::Tensor>
   const int64_t slices = tris::batch_norm_slices(HW);
   at::Tensor partial = at::empty({C * N * slices * 2}, x.options().dtype(at::kDouble));
   at::Tensor stats = at::empty({3, C}, x.options());
+  tris::BatchNormLaunchShape shapes[2] = {};
   launched(tris::batch_norm_stats(x.data_ptr<float>(), partial.data_ptr<double>(),
                                   stats.data_ptr<float>(), ptr<float>(running_mean),
-                                  ptr<float>(running_var), N, C, HW, momentum, eps, stream()),
+                                  ptr<float>(running_var), N, C, HW, momentum, eps, stream(),
+                                  shapes),
            "batch_norm_stats");
+  record_k13(kStatsNames, shapes, 2);
   return stats;
+}
+
+void check_apply_args(const at::Tensor& x, int C, const at::Tensor& weight,
+                      const at::Tensor& bias, const std::optional<at::Tensor>& residual,
+                      const std::optional<at::Tensor>& slope, int64_t act, const char* name) {
+  const at::Device dev = x.device();
+  check_channels(weight, name, dev, C);
+  check_channels(bias, name, dev, C);
+  if (residual) {
+    check(*residual, name, at::kFloat, dev);
+    TORCH_CHECK(residual->sizes() == x.sizes(), name, ": residual not x's shape");
+  }
+  TORCH_CHECK(act >= tris::kBatchNormActNone && act <= tris::kBatchNormActPrelu, name,
+              ": unknown activation ", act);
+  TORCH_CHECK((act == tris::kBatchNormActPrelu) == slope.has_value(), name,
+              ": a slope goes with PReLU and only with it");
+  if (slope) check_channels(*slope, name, dev, 1);
 }
 
 // K13 apply: y = act(((x - mean) * rstd) * weight + bias [+ residual]); without mean and rstd
@@ -800,36 +857,73 @@ at::Tensor batch_norm_apply(const at::Tensor& x, const std::optional<at::Tensor>
     check_channels(*mean, "batch_norm_apply: mean", dev, C);
     check_channels(*rstd, "batch_norm_apply: rstd", dev, C);
   }
-  check_channels(weight, "batch_norm_apply: weight", dev, C);
-  check_channels(bias, "batch_norm_apply: bias", dev, C);
-  if (residual) {
-    check(*residual, "batch_norm_apply: residual", at::kFloat, dev);
-    TORCH_CHECK(residual->sizes() == x.sizes(), "batch_norm_apply: residual not x's shape");
-  }
-  TORCH_CHECK(act >= tris::kBatchNormActNone && act <= tris::kBatchNormActPrelu,
-              "batch_norm_apply: unknown activation ", act);
-  TORCH_CHECK((act == tris::kBatchNormActPrelu) == slope.has_value(),
-              "batch_norm_apply: a slope goes with PReLU and only with it");
-  if (slope) check_channels(*slope, "batch_norm_apply: slope", dev, 1);
+  check_apply_args(x, C, weight, bias, residual, slope, act, "batch_norm_apply");
   at::Tensor y = at::empty_like(x);
+  tris::BatchNormLaunchShape shape = {};
   launched(tris::batch_norm_apply(x.data_ptr<float>(), ptr<float>(mean), ptr<float>(rstd),
                                   weight.data_ptr<float>(), bias.data_ptr<float>(),
                                   ptr<float>(residual), ptr<float>(slope), y.data_ptr<float>(),
-                                  N, C, HW, (int)act, stream()),
+                                  N, C, HW, (int)act, stream(), &shape),
            "batch_norm_apply");
+  record_k13(kStatsNames + 2, &shape, 1);
   return y;
 }
 
-// K13 backward from g = dL/dout: out the forward's output (ReLU only), mean and rstd as the
-// forward's (none: the eval fold). Returns (dx, dweight, dbias, dslope [1] or empty, dres or
-// empty); dres is written when `residual` is set.
+// K13 train forward, the design of the plan (`force` as batch_norm_plan's): returns (y,
+// stats [3, C] as batch_norm_stats'); with the running buffers given, they move by
+// `momentum` in place.
+std::vector<at::Tensor> batch_norm_fwd(const at::Tensor& x, const at::Tensor& weight,
+                                       const at::Tensor& bias,
+                                       const std::optional<at::Tensor>& residual,
+                                       const std::optional<at::Tensor>& slope,
+                                       const std::optional<at::Tensor>& running_mean,
+                                       const std::optional<at::Tensor>& running_var, int64_t act,
+                                       double momentum, double eps, int64_t force) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const auto [N, C, HW] = check_batch_norm(x, "batch_norm_fwd: x");
+  TORCH_CHECK(running_mean.has_value() == running_var.has_value(),
+              "batch_norm_fwd: give both running buffers or neither");
+  if (running_mean) {
+    check_channels(*running_mean, "batch_norm_fwd: running_mean", dev, C);
+    check_channels(*running_var, "batch_norm_fwd: running_var", dev, C);
+  }
+  TORCH_CHECK((int64_t)N * HW < (1 << 24) && N <= tris::kBatchNormMaxBatch,
+              "batch_norm_fwd: N * HW must be below 2^24 and N at most ",
+              tris::kBatchNormMaxBatch);
+  check_apply_args(x, C, weight, bias, residual, slope, act, "batch_norm_fwd");
+  const tris::BatchNormPlan plan =
+      tris::batch_norm_device_plan(N, C, HW, true, false, (int)act, (int)force);
+  const bool fused = plan.design == tris::kBatchNormFused;
+  at::Tensor partial =
+      fused ? at::Tensor()
+            : at::empty({C * N * tris::batch_norm_slices(HW) * 2}, x.options().dtype(at::kDouble));
+  at::Tensor y = at::empty_like(x), stats = at::empty({3, C}, x.options());
+  tris::BatchNormLaunchShape shapes[3] = {};
+  launched(tris::batch_norm_forward(plan, x.data_ptr<float>(), weight.data_ptr<float>(),
+                                    bias.data_ptr<float>(), ptr<float>(residual),
+                                    ptr<float>(slope), y.data_ptr<float>(),
+                                    stats.data_ptr<float>(),
+                                    fused ? nullptr : partial.data_ptr<double>(),
+                                    ptr<float>(running_mean), ptr<float>(running_var), N, C, HW,
+                                    (int)act, momentum, eps, stream(), shapes),
+           "batch_norm_fwd");
+  static const char* const fused_names[] = {"batch_norm_fwd_fused"};
+  record_k13(fused ? fused_names : kStatsNames, shapes, plan.launches);
+  return {y, stats};
+}
+
+// K13 backward from g = dL/dout, the design of the plan (`force` as batch_norm_plan's): out
+// the forward's output (ReLU only), mean and rstd as the forward's (none: the eval fold).
+// Returns (dx, dweight, dbias, dslope [1] or empty, dres or empty); dres is written when
+// `residual` is set.
 std::vector<at::Tensor> batch_norm_bwd(const at::Tensor& g, const at::Tensor& x,
                                        const std::optional<at::Tensor>& out,
                                        const std::optional<at::Tensor>& mean,
                                        const std::optional<at::Tensor>& rstd,
                                        const at::Tensor& weight, const at::Tensor& bias,
                                        const std::optional<at::Tensor>& slope, int64_t act,
-                                       bool residual) {
+                                       bool residual, int64_t force) {
   const at::Device dev = x.device();
   const c10::cuda::CUDAGuard guard(dev);
   const auto [N, C, HW] = check_batch_norm(x, "batch_norm_bwd: x");
@@ -853,23 +947,31 @@ std::vector<at::Tensor> batch_norm_bwd(const at::Tensor& g, const at::Tensor& x,
   check_channels(weight, "batch_norm_bwd: weight", dev, C);
   check_channels(bias, "batch_norm_bwd: bias", dev, C);
   if (slope) check_channels(*slope, "batch_norm_bwd: slope", dev, 1);
+  const tris::BatchNormPlan plan = tris::batch_norm_device_plan(
+      N, C, HW, mean.has_value(), true, (int)act, (int)force);
+  const bool fused = plan.design == tris::kBatchNormFused;
   const int64_t warps = (int64_t)C * N * tris::batch_norm_slices(HW);
-  at::Tensor partial =
-      at::empty({warps * 3 + (slope ? C : 0)}, x.options().dtype(at::kDouble));
-  at::Tensor coef = at::empty({2, C}, x.options());
+  at::Tensor partial = at::empty({(fused ? 0 : warps * 3) + (slope ? C : 0)},
+                                 x.options().dtype(at::kDouble));
+  at::Tensor coef = fused ? at::Tensor() : at::empty({2, C}, x.options());
   at::Tensor dx = at::empty_like(x), dw = at::empty({C}, x.options()),
              db = at::empty({C}, x.options());
   at::Tensor dslope = slope ? at::empty({1}, x.options()) : at::Tensor();
   at::Tensor dres = residual ? at::empty_like(x) : at::Tensor();
-  launched(tris::batch_norm_bwd(g.data_ptr<float>(), x.data_ptr<float>(), ptr<float>(out),
+  tris::BatchNormLaunchShape shapes[3] = {};
+  launched(tris::batch_norm_bwd(plan, g.data_ptr<float>(), x.data_ptr<float>(), ptr<float>(out),
                                 ptr<float>(mean), ptr<float>(rstd), weight.data_ptr<float>(),
                                 bias.data_ptr<float>(), ptr<float>(slope),
-                                partial.data_ptr<double>(), coef.data_ptr<float>(),
-                                dw.data_ptr<float>(), db.data_ptr<float>(),
-                                slope ? dslope.data_ptr<float>() : nullptr, dx.data_ptr<float>(),
-                                residual ? dres.data_ptr<float>() : nullptr, N, C, HW, (int)act,
-                                stream()),
+                                partial.data_ptr<double>(),
+                                fused ? nullptr : coef.data_ptr<float>(), dw.data_ptr<float>(),
+                                db.data_ptr<float>(), slope ? dslope.data_ptr<float>() : nullptr,
+                                dx.data_ptr<float>(), residual ? dres.data_ptr<float>() : nullptr,
+                                N, C, HW, (int)act, stream(), shapes),
            "batch_norm_bwd");
+  static const char* const fused_names[] = {"batch_norm_bwd_fused", "batch_norm_bwd_slope"};
+  static const char* const two_pass_names[] = {"batch_norm_bwd_partial", "batch_norm_bwd_final",
+                                               "batch_norm_bwd_apply"};
+  record_k13(fused ? fused_names : two_pass_names, shapes, plan.launches);
   return {dx, dw, db, dslope, dres};
 }
 
@@ -907,7 +1009,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pixel_attn_takes", &pixel_attn_takes, "K11: whether its kernels take (T, C, S)");
   m.def("pixel_attn_launch_shape", &pixel_attn_launch_shape, "K11: its last launch's grid");
   m.def("ema_update", &ema_update, "K12: the EMA teacher update over a leaf table");
-  m.def("batch_norm_stats", &batch_norm_stats, "K13: BatchNorm's batch statistics");
+  m.def("batch_norm_plan", &batch_norm_plan, "K13: the design a call takes on this card");
+  m.def("batch_norm_launch_shape", &batch_norm_launch_shape, "K13: a kernel's last launch");
+  m.def("batch_norm_fwd", &batch_norm_fwd, "K13: the train forward, y and the statistics");
+  m.def("batch_norm_stats", &batch_norm_stats, "K13: BatchNorm's batch statistics (two-pass)");
   m.def("batch_norm_apply", &batch_norm_apply, "K13: the norm, its affine and activation");
   m.def("batch_norm_bwd", &batch_norm_bwd, "K13 backward: dx, dweight, dbias, dslope, dres");
 }

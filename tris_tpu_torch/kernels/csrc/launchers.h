@@ -396,10 +396,15 @@ cudaError_t ema_update(const long long* table, const long long* starts, int n_le
                        cudaStream_t stream);
 
 // K13: BatchNorm over x [N, C, HW] (contiguous float32) with the activation that follows it
-// (batch_norm.cu, batch_norm_bwd.cu). The statistics and the backward's sums take a warp per
-// (channel, sample, slice of at most kBatchNormSlice elements of the sample's plane):
-// batch_norm_slices(HW) slices a plane, warp w = (c * N + n) * slices + slice,
-// kBatchNormThreads / 32 warps a block. tools/batch_norm_schedule.py reads these constants
+// (batch_norm.cu, batch_norm_bwd.cu), in one of two designs, chosen by batch_norm_plan on the
+// shape alone. Fused, where a channel fits on chip: a cluster of R blocks owns a channel,
+// rank r staging its samples [r N / R, (r + 1) N / R) (the forward's x, the backward's g and
+// x) in shared memory, so each input is read from device memory once and a call is one
+// launch (the backward with PReLU two). Two-pass, where it does not: the statistics and the
+// backward's sums take a warp per (channel, sample, slice of at most kBatchNormSlice
+// elements of the sample's plane): batch_norm_slices(HW) slices a plane, warp w = (c * N + n)
+// * slices + slice, kBatchNormThreads / 32 warps a block; an apply pass follows. The eval
+// fold's forward is the apply pass alone. tools/batch_norm_schedule.py reads these constants
 // and rules.
 constexpr int kBatchNormThreads = 256;
 constexpr int kBatchNormSlice = 4096;
@@ -412,13 +417,130 @@ constexpr long long batch_norm_slices(long long HW) {
   return (HW + kBatchNormSlice - 1) / kBatchNormSlice;
 }
 
+// The designs: two-pass (forward: statistics 2 launches and the apply 1; backward 3), fused
+// (1; the backward with PReLU 2: the channels' slope sums are added by a second launch), the
+// eval fold's forward (the apply, 1).
+constexpr int kBatchNormTwoPass = 0;
+constexpr int kBatchNormFused = 1;
+constexpr int kBatchNormApplyOnly = 2;
+// Fused blocks: R up to the portable cluster of 8; the backward may take a non-portable
+// cluster of kBatchNormWideRanks where the card fits one (cudaOccupancyMaxActiveClusters). R: the first whose block fits the small target
+// (four blocks an SM, kBatchNormFusedThreads each), else the first within the target (two
+// blocks an SM), else the first within the most a block may have (one block an SM,
+// kBatchNormFusedThreadsWide), else R = 16 (backward). A cluster owns one channel: the
+// blocks an SM holds at once overlap one's copies with another's sums and writes.
+constexpr int kBatchNormMaxRanks = 8;
+constexpr int kBatchNormWideRanks = 16;
+constexpr int kBatchNormSmemSmall = 57344;    // 56 KiB
+constexpr int kBatchNormSmemTarget = 115712;  // 113 KiB
+constexpr int kBatchNormSmemMax = 232448;     // 227 KiB
+constexpr int kBatchNormFusedThreads = 256;
+constexpr int kBatchNormFusedThreadsWide = 512;
+// the apply pass: blocks of kBatchNormApplyThreads over (planes, chunk of a plane), an item
+// (float4 or float) a thread; the fused kernels keep kBatchNormFusedUnroll items a lane of
+// the residual or ReLU's output in flight, the fused backward's blocks of
+// kBatchNormFusedThreadsWide (one an SM, registers to spare) kBatchNormFusedUnrollWide
+constexpr int kBatchNormApplyThreads = 256;
+constexpr int kBatchNormFusedUnroll = 4;
+constexpr int kBatchNormFusedUnrollWide = 8;
+
+// items of a plane: float4 where HW % 4 == 0, else floats
+constexpr int batch_norm_items(int HW) { return HW % 4 == 0 ? HW / 4 : HW; }
+// floats of a staged plane: HW rounded up to 16 bytes
+constexpr long long batch_norm_pitch(int HW) { return ((long long)HW + 3) / 4 * 4; }
+
+// A fused block's shared memory: `samples` staged planes (the backward's g, then x: two
+// sets), the channel's N exchanged sample sums (forward: float mean and squared deviations;
+// backward: double sums of dz, dz x-hat and PReLU's g y), three double partials a warp, an
+// mbarrier a staged sample and 4 floats of the channel's coefficients.
+constexpr long long batch_norm_fused_smem(int N, int HW, bool backward, int samples,
+                                          int threads) {
+  return (backward ? 2 : 1) * samples * batch_norm_pitch(HW) * 4 + (backward ? 24LL : 8LL) * N +
+         24LL * (threads / 32) + 8LL * samples + 16;
+}
+
+// Lanes that sum a sample: the largest power of two g with g * samples <= threads, no more
+// than the plane has items (g >= items stops the doubling).
+constexpr int batch_norm_group(int threads, int samples, int items) {
+  int g = 1;
+  while (2LL * g * samples <= threads && g < items) g *= 2;
+  return g;
+}
+
+struct BatchNormPlan {
+  int design;      // kBatchNormTwoPass, kBatchNormFused or kBatchNormApplyOnly
+  int ranks;       // fused: blocks a channel, one cluster
+  int samples;     // fused: planes a rank stages at most, ceil(N / ranks)
+  int threads;     // fused: threads a block
+  int group;       // fused: lanes that sum a sample
+  long long smem;  // fused: bytes of dynamic shared memory a block
+  int blocks;      // fused: C * ranks
+  int launches;    // kernel launches of the call
+  int max_ranks;   // the largest cluster the plan could take
+};
+
+// K13's rule: the design of a call, by its shape. training: batch statistics (else the eval
+// fold); backward: the gradient's call; act as kBatchNormAct*; max_ranks: the largest
+// cluster the card takes (kBatchNormMaxRanks, or kBatchNormWideRanks for the backward). The
+// residual is read from device memory, so it changes nothing here.
+constexpr BatchNormPlan batch_norm_plan(int N, int C, int HW, bool training, bool backward,
+                                        int act, int max_ranks) {
+  BatchNormPlan p = {kBatchNormTwoPass, 0, 0, 0, 0, 0, 0, 3, max_ranks};
+  if (!training && !backward) {
+    p.design = kBatchNormApplyOnly;
+    p.launches = 1;
+    return p;
+  }
+  if (N > kBatchNormMaxBatch || (long long)N * HW >= (1LL << 24)) return p;
+  const int portable = N < kBatchNormMaxRanks ? N : kBatchNormMaxRanks;
+  for (int pass = 0; pass < 4 && p.ranks == 0; ++pass) {
+    const int threads = pass < 2 ? kBatchNormFusedThreads : kBatchNormFusedThreadsWide;
+    const long long most = pass == 0   ? kBatchNormSmemSmall
+                           : pass == 1 ? kBatchNormSmemTarget
+                                       : kBatchNormSmemMax;
+    const int first = pass == 3 ? kBatchNormWideRanks : 1;
+    const int last = pass < 3 ? portable
+                     : backward && max_ranks >= kBatchNormWideRanks && N >= kBatchNormWideRanks
+                         ? kBatchNormWideRanks
+                         : 0;
+    for (int r = first; r <= last; ++r) {
+      const int samples = (N + r - 1) / r;
+      const long long smem = batch_norm_fused_smem(N, HW, backward, samples, threads);
+      if (smem <= most) {
+        p = {kBatchNormFused, r, samples, threads,
+             batch_norm_group(threads, samples, batch_norm_items(HW)), smem, C * r,
+             backward && act == kBatchNormActPrelu ? 2 : 1, max_ranks};
+        break;
+      }
+    }
+  }
+  return p;
+}
+
+// The rule on this card: batch_norm_plan with max_ranks kBatchNormWideRanks for the backward
+// where its fused kernel fits a cluster of that many blocks at the plan's shared memory
+// (cudaOccupancyMaxActiveClusters), else kBatchNormMaxRanks. force: -1 or kBatchNormFused
+// the rule; kBatchNormTwoPass the two-pass design wherever the rule fuses (to time one design
+// against the other).
+BatchNormPlan batch_norm_device_plan(int N, int C, int HW, bool training, bool backward, int act,
+                                     int force);
+
+// A launch of K13 as its launcher made it: blocks, blocks a cluster, threads a block, bytes of
+// dynamic shared memory a block and of each load from device memory.
+struct BatchNormLaunchShape {
+  int blocks, cluster, threads;
+  long long smem;
+  int load_bytes;
+};
+
 // K13 statistics, two launches: partial [C * N * batch_norm_slices(HW) * 2] double scratch;
 // stats [3, C] receives mean, biased var and rstd = 1 / sqrt(var + eps); running_mean and
 // running_var [C] move by `momentum` (the unbiased var) unless null. N * C * HW < 2^31,
-// 1 <= N * HW < 2^24, N <= kBatchNormMaxBatch.
+// 1 <= N * HW < 2^24, N <= kBatchNormMaxBatch. shapes[0..2) receive the launches' shapes
+// unless null.
 cudaError_t batch_norm_stats(const float* x, double* partial, float* stats, float* running_mean,
                              float* running_var, int N, int C, int HW, double momentum,
-                             double eps, cudaStream_t stream);
+                             double eps, cudaStream_t stream, BatchNormLaunchShape* shapes);
 
 // K13 apply, one launch: y = act(((x - mean) * rstd) * weight + bias [+ residual]), each
 // product and sum rounded alone; mean and rstd null: y = act(x * weight + bias) (the eval
@@ -426,17 +548,32 @@ cudaError_t batch_norm_stats(const float* x, double* partial, float* stats, floa
 cudaError_t batch_norm_apply(const float* x, const float* mean, const float* rstd,
                              const float* weight, const float* bias, const float* residual,
                              const float* slope, float* y, int N, int C, int HW, int act,
-                             cudaStream_t stream);
+                             cudaStream_t stream, BatchNormLaunchShape* shape);
 
-// K13 backward, three launches, from g = dL/dy: out the forward's y (ReLU's mask; null for
-// the other activations); mean and rstd as the forward (null: the eval fold, x-hat = x and
-// no batch-statistics terms); partial [C * N * batch_norm_slices(HW) * 3 (+ C with a slope)]
-// double scratch; coef [2, C] scratch; dweight, dbias [C]; dslope [1] (PReLU) or null; dx as
-// x; dres as x (the residual's gradient) or null.
-cudaError_t batch_norm_bwd(const float* g, const float* x, const float* out, const float* mean,
-                           const float* rstd, const float* weight, const float* bias,
-                           const float* slope, double* partial, float* coef, float* dweight,
-                           float* dbias, float* dslope, float* dx, float* dres, int N, int C,
-                           int HW, int act, cudaStream_t stream);
+// K13 train forward as `plan` (batch_norm_device_plan, training) says: y = act(((x - mean) *
+// rstd) * weight + bias [+ residual]) on the batch statistics, which stats [3, C] receives as
+// batch_norm_stats does, the running buffers moved unless null. partial: the two-pass
+// design's scratch as batch_norm_stats' (null when fused). shapes[0..plan.launches) receive
+// the launches' shapes.
+cudaError_t batch_norm_forward(const BatchNormPlan& plan, const float* x, const float* weight,
+                               const float* bias, const float* residual, const float* slope,
+                               float* y, float* stats, double* partial, float* running_mean,
+                               float* running_var, int N, int C, int HW, int act,
+                               double momentum, double eps, cudaStream_t stream,
+                               BatchNormLaunchShape* shapes);
+
+// K13 backward as `plan` (batch_norm_device_plan, backward) says, from g = dL/dy: out the
+// forward's y (ReLU's mask; null for the other activations); mean and rstd as the forward
+// (null: the eval fold, x-hat = x and no batch-statistics terms); partial: double scratch,
+// two-pass [C * N * batch_norm_slices(HW) * 3 (+ C with a slope)], fused [C] with a slope
+// (else unused); coef [2, C] scratch (two-pass); dweight, dbias [C]; dslope [1] (PReLU) or
+// null; dx as x; dres as x (the residual's gradient) or null. shapes[0..plan.launches)
+// receive the launches' shapes.
+cudaError_t batch_norm_bwd(const BatchNormPlan& plan, const float* g, const float* x,
+                           const float* out, const float* mean, const float* rstd,
+                           const float* weight, const float* bias, const float* slope,
+                           double* partial, float* coef, float* dweight, float* dbias,
+                           float* dslope, float* dx, float* dres, int N, int C, int HW, int act,
+                           cudaStream_t stream, BatchNormLaunchShape* shapes);
 
 }  // namespace tris

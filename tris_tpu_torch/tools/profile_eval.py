@@ -25,8 +25,8 @@ random 0/1 pseudo-masks, student and teacher forward, backward, AdamW), then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times; one stream, so they do not overlap) and its idle share, and the
-device time by kernel class (the hand-written kernels by name, K13's six
-summed, cuDNN convolutions, GEMMs, everything else), by kernel name, and
+device time by kernel class (the hand-written kernels by name, K13's
+summed and by design, cuDNN convolutions, GEMMs, everything else), by kernel name, and
 ``InstanceNorm2d``'s (the kernels its forwards and their backward
 launched); ``--out`` also writes it to a file. Needs a card.
 """
@@ -55,10 +55,15 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "refine_centroids_kernel", "walk_transition_kernel", "walk_square_kernel",
                 "walk_thin_kernel", "walk_tile_occupancy_kernel",
                 "pixel_attn_kernel", "pixel_attn_bwd_probs_dq_kernel", "pixel_attn_bwd_dkv_kernel",
-                "ema_update_kernel", "batch_norm_stats_partial_kernel",
+                "ema_update_kernel", "batch_norm_fwd_fused_kernel", "batch_norm_bwd_fused_kernel",
+                "batch_norm_bwd_slope_kernel", "batch_norm_stats_partial_kernel",
                 "batch_norm_stats_final_kernel", "batch_norm_apply_kernel",
                 "batch_norm_bwd_partial_kernel", "batch_norm_bwd_final_kernel",
                 "batch_norm_bwd_apply_kernel")
+# K13's kernels by design: the fused (and PReLU's slope sum after the fused backward),
+# the rest two-pass (the eval fold's apply among them)
+K13_FUSED = ("batch_norm_fwd_fused_kernel", "batch_norm_bwd_fused_kernel",
+             "batch_norm_bwd_slope_kernel")
 
 
 def kernel_class(name: str) -> str:
@@ -302,6 +307,9 @@ def main(argv=None) -> dict:
         "kernel_launches_per_forward": sum(n for _, n in by_name.values()) / args.iters,
         "device_ms_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
         "k13_batch_norm_ms": sum(t for c, t in classes.items() if c.startswith("batch_norm_")),
+        "k13_fused_ms": sum(t for c, t in classes.items() if c in K13_FUSED),
+        "k13_two_pass_ms": sum(t for c, t in classes.items()
+                               if c.startswith("batch_norm_") and c not in K13_FUSED),
         "instance_norm_ms": module_device_ms(prof.events(), "InstanceNorm2d", args.iters),
         "top_kernels_ms": [[name[:120], t, n // args.iters] for name, (t, n) in top],
     }

@@ -18,6 +18,7 @@ from typing import Callable, Iterator, TypeVar
 T = TypeVar("T")
 
 _POLL_S = 0.05  # how long a blocked hand-over waits before it checks for a stop
+WORKER_NAME = "threaded_in_order"  # each worker thread's name, before "-<worker index>"
 
 
 def threaded_in_order(make: Callable[[int], T], n: int, num_threads: int) -> Iterator[T]:
@@ -48,7 +49,7 @@ def threaded_in_order(make: Callable[[int], T], n: int, num_threads: int) -> Ite
             if not put(item):
                 return
 
-    threads = [threading.Thread(target=worker, args=(t,), daemon=True)
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True, name=f"{WORKER_NAME}-{t}")
                for t in range(num_threads)]
     for t in threads:
         t.start()
