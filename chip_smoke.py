@@ -13,12 +13,14 @@ holds every number):
              compiles the sources in parallel);
 3. kernels - each kernel against its plain PyTorch version on the card at
              the main paths' shapes (K1 at the text towers', the ViT
-             critic's and attnpool's; K4 at stage-1 eval's and on PRMS's
-             selected maps; the backward kernels and K3's training head at
+             critic's and attnpool's; K4 at stage-1 eval's, on PRMS's
+             selected maps and writing the normalised planes PRMS saves,
+             each with its plan and launch shape; the backward kernels and K3's training head at
              the stage-1 train step's, K1's and K2's backward twice, bit for
              bit, with K1's and K2's forward-plus-backward times and the
              grids their launchers made; K6's bilinear
-             half, K7, K9 and K10 at a 480x640 image's IRNet pass; K6's
+             half (each forward row with its plan and launch shape), K7, K9
+             and K10 at a 480x640 image's IRNet pass; K6's
              bilinear backward, K7's backward (ties planted) and K8
              forward and backward at IRN training's B=24, crop 512,
              radius 10; K11 forward at stage 2's
@@ -377,16 +379,20 @@ def resize_row(K, failures, name, x, size, align_corners):
     import torch.nn.functional as F
 
     got = K.bilinear_resize(x, size, align_corners)
+    launch = K.bilinear_resize_launch_shape()
     lib = lambda: F.interpolate(x.reshape(-1, 1, *x.shape[-2:]), size=size,  # noqa: E731
                                 mode="bilinear", align_corners=align_corners)
     n_out = got.numel()
+    planes = math.prod(x.shape[:-2])
     return measure_row(failures, name,
                        max_err(got, K.bilinear_resize_plain(x, size, align_corners)), 0.0,
                        device_ms(lambda: K.bilinear_resize(x, size, align_corners)),
                        device_ms(lambda: K.bilinear_resize_plain(x, size, align_corners)),
                        4 * (x.numel() + n_out), 9 * n_out, device_ms(lib),
                        shape=[*x.shape, *size], align_corners=align_corners,
-                       library_max_abs_err=max_err(got, lib().reshape(got.shape)))
+                       library_max_abs_err=max_err(got, lib().reshape(got.shape)),
+                       plan=K.bilinear_resize_plan(planes, *x.shape[-2:], *size),
+                       launch_shape=launch)
 
 
 def resize_bwd_row(K, failures, name, x, cot):
@@ -518,14 +524,16 @@ def check_kernels(K, dev):
     n_valid = sum(h * w for h, w in sizes)
 
     def metrics(name, n_maps):
-        # exact: the kernel samples with the plain version's taps in its order
+        # exact: the kernel samples with the plain version's taps in its order;
+        # with the plan the extension gave and the launch it made
         cams = torch.relu(randn(B, n_maps, SIZE, SIZE))
         got = torch.stack(K.eval_metrics(cams, tables, tgt, boxes))
+        launch = K.eval_metrics_launch_shape()
         err = max_err(got, torch.stack(K.eval_metrics_plain(cams, tables, tgt, boxes)))
         err_norm = max_err(K.eval_metrics(cams, tables, want_norm=True),
                            K.eval_metrics_plain(cams, tables, want_norm=True))
-        if not err_norm <= 1e-6:
-            failures.append(f"{name} (normalised maps): max_abs_err {err_norm} > 1e-6")
+        if not err_norm <= 0.0:
+            failures.append(f"{name} (normalised maps): max_abs_err {err_norm} > 0")
         return measure(name, err, 0.0,
                        device_ms(lambda: K.eval_metrics(cams, tables, tgt, boxes)),
                        device_ms(lambda: K.eval_metrics_plain(cams, tables, tgt, boxes)),
@@ -533,12 +541,28 @@ def check_kernels(K, dev):
                        + 16 * B * (640 + 640),
                        n_maps * n_valid * 2 * 6 + n_maps * n_valid * 4, None,
                        shape=[B, n_maps, SIZE, 640, 640], norm_max_abs_err=err_norm,
-                       norm_tol=1e-6)
+                       norm_tol=0.0, plan=K.eval_metrics_plan(B, n_maps, 640, 640, SIZE, SIZE),
+                       launch_shape=launch), cams
 
+    def norm_row(name, cams):
+        # the normalised planes PRMS saves: the maps read, the padded planes written
+        n_maps = cams.shape[1]
+        got = K.eval_metrics(cams, tables, want_norm=True)
+        launch = K.eval_metrics_launch_shape()
+        return measure(name, max_err(got, K.eval_metrics_plain(cams, tables, want_norm=True)),
+                       0.0, device_ms(lambda: K.eval_metrics(cams, tables, want_norm=True)),
+                       device_ms(lambda: K.eval_metrics_plain(cams, tables, want_norm=True)),
+                       4 * B * n_maps * (SIZE * SIZE + 640 * 640) + 16 * B * (640 + 640),
+                       n_maps * n_valid * (2 * 6 + 1), None, shape=[B, n_maps, SIZE, 640, 640],
+                       plan=K.eval_metrics_plan(B, n_maps, 640, 640, SIZE, SIZE),
+                       launch_shape=launch)
+
+    eval_row, _ = metrics("eval_metrics", S)
+    prms_row, prms_cams = metrics("eval_metrics@prms", 1)
     rows.append(kernel_row(
         "eval_metrics", "tris_tpu_torch/kernels/csrc/eval_metrics.cu",
-        "tris_tpu/eval/validate.py:102", metrics("eval_metrics", S),
-        [metrics("eval_metrics@prms", 1)]))
+        "tris_tpu/eval/validate.py:102", eval_row,
+        [prms_row, norm_row("eval_metrics@norm", prms_cams)]))
 
     # K5 at PRMS's shape: 32 pairs' relu maps and 8 images, 320 -> 224,
     # patches of 32 -> A [32*49, 3072]. Same taps, same order: exact, and

@@ -261,6 +261,102 @@ def test_eval_metrics(randn, dev):
                        K.eval_metrics_plain(cams, tables, want_norm=True))
 
 
+def _eval_case(dev, sizes, maps, h, max_hw, seed):
+    """Relu maps [B, maps, h, h], tables to ``sizes`` within ``max_hw``, random
+    zero-padded gt masks and boxes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(sizes)
+    cams = torch.relu(torch.randn(B, maps, h, h, generator=g, device=dev))
+    tables = K.eval_tables(h, h, sizes, max_hw, dev)
+    tgt = torch.zeros(B, *max_hw, dtype=torch.uint8, device=dev)
+    for b, (oh, ow) in enumerate(sizes):
+        tgt[b, :oh, :ow] = torch.rand(oh, ow, generator=g, device=dev) > 0.5
+    boxes = torch.tensor([[ow // 5, oh // 4, ow // 2, oh // 2] for oh, ow in sizes], device=dev,
+                         dtype=torch.float32)
+    return cams, tables, tgt, boxes
+
+
+@pytest.mark.parametrize("maps", [4, 1])
+def test_eval_metrics_at_the_main_path_shape(dev, maps):
+    # stage-1 eval's [8, 4] maps of 320^2 to originals up to 640^2 (R = 8) and PRMS's
+    # selected maps [8, 1] (R = 16 where the card runs such clusters); exact, both outputs,
+    # and the launch as the plan says
+    from tris_tpu_torch.tools import eval_metrics_schedule as ES
+
+    sizes = [(640, 480), (427, 640), (480, 640), (640, 640), (375, 500), (612, 612),
+             (333, 500), (640, 427)]
+    cams, tables, tgt, boxes = _eval_case(dev, sizes, maps, 320, (640, 640), 3)
+    got = torch.stack(K.eval_metrics(cams, tables, tgt, boxes))
+    assert torch.equal(got, torch.stack(K.eval_metrics_plain(cams, tables, tgt, boxes)))
+    shape = K.eval_metrics_launch_shape()
+    plan = K.eval_metrics_plan(8, maps, 640, 640, 320, 320)
+    assert plan == ES.plan(8, maps, 640, 640, 320, 320, plan["max_ranks"])
+    assert plan["ranks"] == (8 if maps == 4 else plan["max_ranks"])
+    assert (shape["cluster"], shape["blocks"], shape["smem_bytes"]) == (
+        plan["ranks"], plan["blocks"], plan["smem_bytes"])
+    assert (shape["map_load_bytes"], shape["staged"]) == (16, 1)
+    assert torch.equal(K.eval_metrics(cams, tables, want_norm=True),
+                       K.eval_metrics_plain(cams, tables, want_norm=True))
+
+
+def test_eval_metrics_tie_across_ranks(dev):
+    # align_corners 16 -> 31 puts even output rows and columns exactly on input pixels:
+    # the peak value planted at input rows 2 and 12 appears at output rows 4 and 24, in
+    # two ranks' bands; the lower flat index wins (the box holds only it)
+    sizes = [(31, 31), (31, 31)]
+    cams = torch.rand(2, 3, 16, 16, device=dev)
+    cams[:, :, 2, 3] = 5.0
+    cams[:, :, 12, 3] = 5.0
+    cams[1, 2] = 0          # all ties: index 0
+    tables = K.eval_tables(16, 16, sizes, (64, 64), dev)
+    tgt = torch.zeros(2, 64, 64, dtype=torch.uint8, device=dev)
+    tgt[:, 4, 6] = 1
+    boxes = torch.tensor([[5, 3, 7, 5]] * 2, device=dev, dtype=torch.float32)
+    assert K.eval_metrics_plan(2, 3, 64, 64, 16, 16)["ranks"] >= 2
+    got = torch.stack(K.eval_metrics(cams, tables, tgt, boxes))
+    assert torch.equal(got, torch.stack(K.eval_metrics_plain(cams, tables, tgt, boxes)))
+    assert got[2, 0].tolist() == [1.0, 1.0, 1.0] and got[3, 0].tolist() == [1.0, 1.0, 1.0]
+    assert got[2, 1, 2] == 0.0      # the all-zero map's peak is (0, 0), outside the box
+
+
+@pytest.mark.parametrize("sizes,max_hw,h", [
+    ([(5, 7), (3, 2)], (48, 64), 16),         # oh < R: empty ranks
+    ([(37, 29), (17, 9)], (48, 60), 16),     # oh not a multiple of R; maxW % 16 != 0
+    ([(17, 9), (48, 64)], (48, 64), 13),     # small originals in a pad; w % 4 != 0
+    ([(9, 700), (700, 9)], (700, 700), 20)])  # maxW % 16 != 0, a wide band
+def test_eval_metrics_edges(dev, sizes, max_hw, h):
+    cams, tables, tgt, boxes = _eval_case(dev, sizes, 3, h, max_hw, 5)
+    got = torch.stack(K.eval_metrics(cams, tables, tgt, boxes))
+    assert torch.equal(got, torch.stack(K.eval_metrics_plain(cams, tables, tgt, boxes)))
+    assert torch.equal(K.eval_metrics(cams, tables, want_norm=True),
+                       K.eval_metrics_plain(cams, tables, want_norm=True))
+
+
+@pytest.mark.parametrize("kind", ["negative", "signed", "tiny"])
+def test_eval_metrics_sign_and_scale(dev, kind):
+    # every sample below -1e-5 (each divided), signed maps, maps near the subnormal range
+    cams, tables, tgt, boxes = _eval_case(dev, [(30, 44), (48, 64), (17, 9)], 2, 16, (48, 64), 8)
+    raw = torch.randn(cams.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                      device=dev)
+    cams = {"negative": -cams - 1.0, "signed": raw, "tiny": raw.abs() * 1e-36}[kind]
+    got = torch.stack(K.eval_metrics(cams, tables, tgt, boxes))
+    assert torch.equal(got, torch.stack(K.eval_metrics_plain(cams, tables, tgt, boxes)))
+    assert torch.equal(K.eval_metrics(cams, tables, want_norm=True),
+                       K.eval_metrics_plain(cams, tables, want_norm=True))
+
+
+def test_eval_metrics_unstaged(dev):
+    # originals past the shared memory's reach sample the map from device memory
+    from tris_tpu_torch.tools import eval_metrics_schedule as ES
+
+    sizes = [(2400, 2400)]
+    assert ES.plan(1, 1, 2400, 2400, 320, 320)["staged"] == 0
+    cams, tables, tgt, boxes = _eval_case(dev, sizes, 1, 320, (2400, 2400), 6)
+    got = torch.stack(K.eval_metrics(cams, tables, tgt, boxes))
+    assert torch.equal(got, torch.stack(K.eval_metrics_plain(cams, tables, tgt, boxes)))
+    assert K.eval_metrics_launch_shape()["staged"] == 0
+
+
 def test_launches_are_counted(randn):
     q = randn(2, 20, 64)
     before = K.launches["mha_short"]
@@ -533,7 +629,12 @@ def test_backward_kernels_match_finite_differences(randn, dev, which):
     ((2, 64, 30, 40), (120, 160), False),    # an IRNet head's x4
     ((480, 640), (120, 160), True),          # the CAM to the grid
     ((3, 120, 160), (480, 640), False),      # the walk back, x4
-    ((5, 7, 9), (13, 4), True), ((1, 1, 1), (3, 5), False), ((4, 6), (4, 11), False)])
+    ((5, 7, 9), (13, 4), True), ((1, 1, 1), (3, 5), False), ((4, 6), (4, 11), False),
+    ((2, 1, 80, 80), (320, 320), False),     # stage 2's heads x4, x16
+    ((2, 1, 20, 20), (320, 320), False),
+    ((2, 64, 40, 40), (80, 80), False),      # the decoder's x2 taps
+    ((2, 256, 10, 10), (20, 20), False),
+    ((60, 80), (240, 320), True)])
 def test_bilinear_resize(randn, shape, size, align_corners):
     # exact: the kernel samples with the plain version's taps in its order
     # and rounds each product and sum alone; within 1e-4 of F.interpolate's
@@ -546,6 +647,45 @@ def test_bilinear_resize(randn, shape, size, align_corners):
     lib = F.interpolate(x.reshape(-1, 1, *shape[-2:]), size=size, mode="bilinear",
                         align_corners=align_corners).reshape(got.shape)
     assert _err(got, lib) <= 1e-4 * max(float(lib.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("shape,size,align_corners", [
+    ((3, 7, 2000), (5, 1001), True),         # column tiles (ow > 1024, odd)
+    ((2, 8, 1500), (3, 1500), False),        # column tiles, 16-byte stores
+    ((2, 3000), (2, 7), False)])             # t-rows past shared memory: unstaged
+def test_bilinear_resize_wide(randn, shape, size, align_corners):
+    # exact against the plain version (F.interpolate's float32 source coordinate drifts
+    # past 1e-4 at these widths, so it is no reference here)
+    x = randn(*shape)
+    assert torch.equal(K.bilinear_resize(x, size, align_corners),
+                       K.bilinear_resize_plain(x, size, align_corners))
+
+
+def test_bilinear_resize_misaligned_view(dev):
+    # a view 4 bytes past a 16-byte boundary: the rows load floats one by one
+    g = torch.Generator(device=dev).manual_seed(1)
+    buf = torch.randn(2 * 64 * 40 * 40 + 1, generator=g, device=dev)
+    x = buf[1:].view(2, 64, 40, 40)
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(K.bilinear_resize(x, (80, 80)), K.bilinear_resize_plain(x, (80, 80)))
+
+
+@pytest.mark.parametrize("shape,size", [
+    ((48, 1, 80, 80), (320, 320)), ((48, 1, 20, 20), (320, 320)), ((48, 64, 40, 40), (80, 80)),
+    ((48, 256, 10, 10), (20, 20)), ((2, 256, 60, 80), (120, 160)), ((4, 120, 160), (480, 640)),
+    ((480, 640), (120, 160)), ((3, 7, 2000), (5, 1001)), ((2, 3000), (2, 7))])
+def test_bilinear_resize_plan_and_launch(dev, shape, size):
+    # the extension's rule equals the schedule tool's, and the launch takes it
+    from tris_tpu_torch.tools import resize_schedule as RS
+
+    planes = math.prod(shape[:-2])
+    plan = K.bilinear_resize_plan(planes, *shape[-2:], *size)
+    assert plan == RS.plan(planes, *shape[-2:], *size)
+    K.bilinear_resize(torch.zeros(*shape, device=dev), size, False)
+    got = K.bilinear_resize_launch_shape()
+    assert got == {"blocks": plan["blocks"], "tiles": plan["tiles"], "threads": plan["threads"],
+                   "band_rows": plan["band_rows"], "vec": plan["vec"], "staged": plan["staged"],
+                   "in_floats": plan["in_floats"], "smem_bytes": plan["smem_bytes"]}
 
 
 def _path_index(radius, size):

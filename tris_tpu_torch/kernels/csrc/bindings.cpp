@@ -313,6 +313,9 @@ std::vector<at::Tensor> stage1_head_bwd(
 // int32. With targets [B, maxH, maxW] uint8 and boxes [B, 4]: returns stats
 // [B, S, 4] (I, U, hit, hitm). Without them: the normalised maps
 // [B, S, maxH, maxW].
+tris::EvalMetricsLaunchShape k4_shape;
+bool k4_launched = false;
+
 at::Tensor eval_metrics(const at::Tensor& cams, const std::vector<at::Tensor>& ty,
                         const std::vector<at::Tensor>& tx, const at::Tensor& orig_hw,
                         const std::optional<at::Tensor>& targets,
@@ -338,9 +341,33 @@ at::Tensor eval_metrics(const at::Tensor& cams, const std::vector<at::Tensor>& t
                               maxW, y.lo, y.hi, y.w0, y.w1, x.lo, x.hi, x.w0, x.w1,
                               orig_hw.data_ptr<int>(), ptr<unsigned char>(targets),
                               ptr<float>(boxes), targets ? nullptr : out.data_ptr<float>(),
-                              targets ? out.data_ptr<float>() : nullptr, stream()),
+                              targets ? out.data_ptr<float>() : nullptr, stream(), &k4_shape),
            "eval_metrics");
+  k4_launched = true;
   return out;
+}
+
+// K4's plan on this card (launchers.h, eval_metrics_device_plan): ranks, threads,
+// band_rows, staged, smem_bytes, blocks and max_ranks.
+std::map<std::string, int64_t> eval_metrics_plan(int64_t B, int64_t S, int64_t maxH, int64_t maxW,
+                                                 int64_t h, int64_t w) {
+  TORCH_CHECK(B > 0 && S > 0 && maxH > 0 && maxW > 0 && h > 0 && w > 0 && B <= 65535 &&
+                  S <= 65535 && maxH * maxW < INT32_MAX && h * w < INT32_MAX,
+              "eval_metrics_plan: shape out of range");
+  const tris::EvalMetricsPlan p =
+      tris::eval_metrics_device_plan((int)B, (int)S, (int)maxH, (int)maxW, (int)h, (int)w);
+  return {{"ranks", p.ranks}, {"threads", p.threads}, {"band_rows", p.band_rows},
+          {"staged", p.staged}, {"smem_bytes", p.smem}, {"blocks", p.blocks},
+          {"max_ranks", p.max_ranks}};
+}
+
+// K4's last launch in this process: blocks, blocks a cluster, threads a block, bytes of
+// shared memory a block, staged, and the bytes of each load of the map.
+std::map<std::string, int64_t> eval_metrics_launch_shape() {
+  TORCH_CHECK(k4_launched, "eval_metrics_launch_shape: no launch of eval_metrics");
+  const tris::EvalMetricsLaunchShape& s = k4_shape;
+  return {{"blocks", s.blocks}, {"cluster", s.cluster}, {"threads", s.threads},
+          {"smem_bytes", s.smem}, {"staged", s.staged}, {"map_load_bytes", s.map_load_bytes}};
 }
 
 // K5: cams [P, H, W]; image [P/S, 3, H, W]; ty, tx the taps to [n] rows and
@@ -408,6 +435,9 @@ at::Tensor normalize_u8(const at::Tensor& image, const std::vector<double>& scal
 
 // K6, bilinear half: x [N, h, w]; ty, tx the taps to [oh] rows and [ow] columns.
 // Returns [N, oh, ow].
+tris::ResizeLaunchShape k6_shape;
+bool k6_launched = false;
+
 at::Tensor bilinear_resize(const at::Tensor& x, const std::vector<at::Tensor>& ty,
                            const std::vector<at::Tensor>& tx) {
   const at::Device dev = x.device();
@@ -418,9 +448,36 @@ at::Tensor bilinear_resize(const at::Tensor& x, const std::vector<at::Tensor>& t
   const int64_t N = x.size(0), oh = ty[0].size(0), ow = tx[0].size(0);
   at::Tensor out = at::empty({N, oh, ow}, x.options());
   launched(tris::bilinear_resize(x.data_ptr<float>(), out.data_ptr<float>(), N, x.size(1),
-                                 x.size(2), oh, ow, y, c, stream()),
+                                 x.size(2), oh, ow, y, c, stream(), &k6_shape),
            "bilinear_resize");
+  k6_launched = true;
   return out;
+}
+
+// K6's plan (launchers.h, bilinear_resize_plan) for [planes, h, w] -> [oh, ow].
+std::map<std::string, int64_t> bilinear_resize_plan(int64_t planes, int64_t h, int64_t w,
+                                                    int64_t oh, int64_t ow) {
+  TORCH_CHECK(planes >= 0 && h > 0 && w > 0 && oh > 0 && ow > 0 && h < INT32_MAX &&
+                  w < INT32_MAX && oh < INT32_MAX && ow < INT32_MAX,
+              "bilinear_resize_plan: shape out of range");
+  const tris::ResizePlan p = tris::bilinear_resize_plan(planes, (int)h, (int)w, (int)oh, (int)ow);
+  return {{"vec", p.vec}, {"groups", p.groups}, {"tile_groups", p.tile_groups},
+          {"tiles", p.tiles}, {"rows", p.rows}, {"rpt", p.rpt}, {"threads", p.threads},
+          {"pitch", p.pitch},
+          {"staged", p.staged}, {"chunks", p.chunks}, {"band_rows", p.band_rows},
+          {"bands", p.bands}, {"blocks", p.blocks}, {"in_floats", p.in_floats},
+          {"smem_bytes", p.smem}};
+}
+
+// K6's last forward launch in this process: blocks, column tiles, threads a block, rows a
+// band, columns a thread, staged, the floats of a band's staged input and bytes of shared
+// memory a block.
+std::map<std::string, int64_t> bilinear_resize_launch_shape() {
+  TORCH_CHECK(k6_launched, "bilinear_resize_launch_shape: no launch of bilinear_resize");
+  const tris::ResizeLaunchShape& s = k6_shape;
+  return {{"blocks", s.blocks}, {"tiles", s.tiles}, {"threads", s.threads},
+          {"band_rows", s.band_rows}, {"vec", s.vec}, {"staged", s.staged},
+          {"in_floats", s.in_floats}, {"smem_bytes", s.smem}};
 }
 
 // K7: edge [B, H, W]; steps [n_steps, 2] and offsets [n_dirs + 1] int32, the path
@@ -990,10 +1047,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stage1_head", &stage1_head, "K3: stage-1 training head");
   m.def("stage1_head_bwd", &stage1_head_bwd, "K3: stage-1 training head, backward");
   m.def("eval_metrics", &eval_metrics, "K4: eval resize, normalise and metrics");
+  m.def("eval_metrics_plan", &eval_metrics_plan, "K4: the cluster a map takes on this card");
+  m.def("eval_metrics_launch_shape", &eval_metrics_launch_shape, "K4: its last launch's grid");
   m.def("critic_input", &critic_input, "K5: the critic's resized, modulated patch matrix");
   m.def("critic_input_bwd", &critic_input_bwd, "K5 backward, to the maps");
   m.def("normalize_u8", &normalize_u8, "K6: u8 NHWC image to normalised f32 NCHW");
   m.def("bilinear_resize", &bilinear_resize, "K6: bilinear resize of a stack of planes");
+  m.def("bilinear_resize_plan", &bilinear_resize_plan, "K6: the bands and tiles a resize takes");
+  m.def("bilinear_resize_launch_shape", &bilinear_resize_launch_shape,
+        "K6: its last forward launch's grid");
   m.def("path_max_affinity", &path_max_affinity, "K7: 1 - max(edge along each pair's path)");
   m.def("bilinear_resize_bwd", &bilinear_resize_bwd, "K6 backward: the resize's adjoint");
   m.def("path_max_affinity_bwd", &path_max_affinity_bwd, "K7 backward, ties split evenly");

@@ -173,14 +173,79 @@ cudaError_t response_head(const float* vis_new, const float* vis_base, const flo
                           const float* wy0, const float* wy1, const int* xlo, const int* xhi,
                           const float* wx0, const float* wx1, cudaStream_t stream);
 
+// K4: a cluster of R blocks a map (eval_metrics.cu). Rank r of map (b, s) owns the valid
+// output rows [r oh / R, (r + 1) oh / R) of image b's original (oh, ow) and holds in shared
+// memory its rows' y taps and interpolated rows t = wy0 x[y0] + wy1 x[y1], each w floats
+// (staged: where they fit kEvalSmemTarget, else every sample reads the map from device memory).
+// A block's kEvalThreads threads each own an output column, its x taps in registers, and rows
+// of the band. The ranks trade their maxes, then their counts and argmax, through distributed
+// shared memory. R: doubled from 1 while the grid B * S * R is below kEvalWaveBlocks and a rank
+// keeps at least kEvalMinRows of maxH, then while the band does not fit kEvalSmemTarget (two
+// blocks an SM), up to kEvalMaxRanks (portable) or, where the card runs such clusters
+// (cudaOccupancyMaxActiveClusters), kEvalWideRanks.
+constexpr int kEvalThreads = 640;  // a column a thread at the widest COCO original
+constexpr int kEvalMaxRanks = 8;
+constexpr int kEvalWideRanks = 16;
+constexpr int kEvalMinRows = 8;
+constexpr int kEvalWaveBlocks = 256;
+constexpr int kEvalSmemTarget = 114688;  // 112 KiB of dynamic shared memory: two blocks an SM
+
+// rows a rank's band holds at most, and a staged block's bytes: the band's t-rows and its
+// rows' y taps
+constexpr int eval_metrics_band_rows(int maxH, int R) { return (maxH + R - 1) / R; }
+constexpr long long eval_metrics_smem(int maxH, int w, int R) {
+  return 4LL * eval_metrics_band_rows(maxH, R) * (w + 4);
+}
+
+struct EvalMetricsPlan {
+  int ranks;       // blocks a map, one cluster
+  int threads;     // threads a block
+  int band_rows;   // output rows a rank holds at most
+  int staged;      // 1: the band's t-rows in shared memory
+  long long smem;  // bytes of dynamic shared memory a block (0 unstaged)
+  long long blocks;
+  int max_ranks;   // the largest cluster the plan could take
+};
+
+// K4's rule, by the shape: B images of S maps [h, w] to originals within [maxH, maxW] (h
+// and maxW do not enter it: a band's t-rows are w floats whatever the map's height, and a
+// block's threads take the columns in turn).
+constexpr EvalMetricsPlan eval_metrics_plan(int B, int S, int maxH, int maxW, int h, int w,
+                                            int max_ranks) {
+  int R = 1;
+  while (R < max_ranks && (long long)B * S * R < kEvalWaveBlocks && 2 * R * kEvalMinRows <= maxH)
+    R *= 2;
+  while (R < max_ranks && eval_metrics_smem(maxH, w, R) > kEvalSmemTarget) R *= 2;
+  const long long smem = eval_metrics_smem(maxH, w, R);
+  const bool staged = smem <= kEvalSmemTarget;
+  return {R, kEvalThreads, eval_metrics_band_rows(maxH, R), staged ? 1 : 0, staged ? smem : 0,
+          (long long)B * S * R, max_ranks};
+}
+
+// The rule on this card: eval_metrics_plan with max_ranks kEvalWideRanks where the card runs
+// a cluster of that many of the plan's blocks, else kEvalMaxRanks.
+EvalMetricsPlan eval_metrics_device_plan(int B, int S, int maxH, int maxW, int h, int w);
+
+// A launch of K4 as its launcher made it: blocks, blocks a cluster, threads a block, bytes of
+// dynamic shared memory a block, whether the band was staged, and the bytes of each load of
+// the map (16 or 4).
+struct EvalMetricsLaunchShape {
+  long long blocks;
+  int cluster, threads;
+  long long smem;
+  int staged, map_load_bytes;
+};
+
 // K4: cams [B, S, h, w]; y taps [B, maxH], x taps [B, maxW]; orig_hw [B, 2];
 // either norm_out [B, S, maxH, maxW] (targets, boxes and stats null) or
 // stats [B, S, 4] from targets [B, maxH, maxW] and boxes [B, 4] (norm_out null).
+// *shape receives the launch's shape.
 cudaError_t eval_metrics(const float* cams, int B, int S, int h, int w, int maxH, int maxW,
                          const int* ylo, const int* yhi, const float* wy0, const float* wy1,
                          const int* xlo, const int* xhi, const float* wx0, const float* wx1,
                          const int* orig_hw, const unsigned char* targets, const float* boxes,
-                         float* norm_out, float* stats, cudaStream_t stream);
+                         float* norm_out, float* stats, cudaStream_t stream,
+                         EvalMetricsLaunchShape* shape);
 
 // K5: cams [P, H, W]; image [P/S, 3, H, W]; y taps [n], x taps [n];
 // out [P * (n/ps)^2, 3 * ps * ps], columns (c, py, px).
@@ -200,9 +265,104 @@ cudaError_t critic_input_bwd(const float* dA, const float* image, float* dt, flo
 cudaError_t normalize_u8(const unsigned char* image, float* out, int64_t n_pix, int64_t hw,
                          const float* scale, const float* bias, cudaStream_t stream);
 
+// K6, bilinear half (bilinear_resize.cu): the planes' output rows flattened, planes * oh rows
+// of ow columns. A block takes a band of consecutive rows and a tile of columns; its threads
+// are `rows` rows of `tile_groups` threads, each owning `vec` consecutive columns (4 where
+// ow % 4 == 0 and w <= ow: one 16-byte store), whose x taps it holds in registers for the
+// whole band. With one tile, the block first copies the input rows its band spans (contiguous in x: at
+// most in_floats floats) into shared memory, all copies in flight at once (cp.async). The band
+// is then taken rows * rpt rows at a time (a chunk, a thread taking rpt of them): each row's
+// interpolated row t = wy0 x[y0] + wy1 x[y1] over the input columns its tile spans (at most
+// `pitch`) goes to shared memory (two buffers, one barrier a chunk), then the columns sample
+// it. A band is `chunks` chunks, so that the grid stays near kResizeWaveBlocks blocks; a
+// resize of fewer than kResizeMinBands chunks takes fewer rows a thread, then fewer rows of
+// threads. Where the band's input does not fit beside the t-rows in kResizeSmem, the t-rows
+// read device memory (in_floats 0). Where a t-row would hold more values than its outputs (w
+// > ow) or the t-rows do not fit, every output samples device memory (staged 0).
+constexpr int kResizeThreads = 256;
+constexpr int kResizeTileGroups = 256;
+constexpr int kResizeRowsPerThread = 4;
+constexpr int kResizeWaveBlocks = 528;   // 4 blocks an SM of 132
+constexpr int kResizeMinBands = 132;     // a block an SM
+constexpr int kResizeMaxChunks = 4;
+constexpr int kResizeSmem = 49152;       // 48 KiB: no opt-in
+
+struct ResizePlan {
+  int vec;          // columns a thread: 4 (16-byte stores) or 1 (ow % 4 != 0, or w > ow)
+  int groups;       // column groups a row, ceil(ow / vec)
+  int tile_groups;  // threads a row of a tile
+  int tiles;        // column tiles
+  int rows;         // rows of threads
+  int rpt;          // rows a thread takes of each chunk
+  int threads;      // rows * tile_groups
+  int pitch;        // floats of a t-row: the input columns a tile spans at most
+  int staged;       // 1: t-rows in shared memory
+  int chunks;       // chunks a band
+  int band_rows;    // rows * rpt * chunks
+  long long bands;  // ceil(planes * oh / band_rows)
+  long long blocks; // bands * tiles
+  long long in_floats;  // the band's input rows in shared memory (a multiple of 4; 0: none)
+  long long smem;   // bytes of dynamic shared memory a block
+};
+
+// Input rows (of the planes' flattened [planes * h] rows) that `d` + 1 consecutive output rows
+// span at most: d steps of at most max(h / oh, (h - 1) / (oh - 1)) rows, one row more at each
+// of the at most d / oh + 1 planes' edges crossed, and 3 for the taps' floors and the last
+// row's upper tap.
+constexpr long long bilinear_resize_span_rows(long long d, int h, int oh) {
+  const long long s1 = (d * h + oh - 1) / oh;
+  const long long s2 = oh > 1 ? (d * (h - 1) + oh - 2) / (oh - 1) : 0;
+  return (s1 > s2 ? s1 : s2) + d / oh + 1 + 3;
+}
+
+// K6's rule, by the shape.
+constexpr ResizePlan bilinear_resize_plan(long long planes, int h, int w, int oh, int ow) {
+  ResizePlan p = {};
+  p.vec = ow % 4 == 0 && w <= ow ? 4 : 1;
+  p.groups = (ow + p.vec - 1) / p.vec;
+  p.tile_groups = p.groups < kResizeTileGroups ? p.groups : kResizeTileGroups;
+  p.tiles = (p.groups + p.tile_groups - 1) / p.tile_groups;
+  const long long total = planes * oh;
+  p.rows = kResizeThreads / p.tile_groups;
+  p.rpt = kResizeRowsPerThread;
+  while (p.rpt > 1 && (total + p.rows * p.rpt - 1) / (p.rows * p.rpt) < kResizeMinBands)
+    p.rpt /= 2;
+  if ((total + p.rows - 1) / p.rows < kResizeMinBands)
+    p.rows = total / kResizeMinBands < 1 ? 1 : (int)(total / kResizeMinBands);
+  p.threads = p.rows * p.tile_groups;
+  // a tile of n columns spans at most (n - 1) w / (ow - 1) + 3 input columns (either
+  // align_corners)
+  const long long n = (long long)p.tile_groups * p.vec;
+  const long long span = p.tiles == 1 ? w : (n - 1) * w / (ow > 1 ? ow - 1 : 1) + 3;
+  p.pitch = (int)(span < w ? span : w);
+  const long long t_smem = 2LL * p.rows * p.rpt * p.pitch * 4;
+  p.staged = w <= ow && t_smem <= kResizeSmem ? 1 : 0;
+  const long long chunks = (total + p.rows * p.rpt - 1) / (p.rows * p.rpt);
+  const long long c = chunks * p.tiles / kResizeWaveBlocks;
+  p.chunks = c < 1 ? 1 : c > kResizeMaxChunks ? kResizeMaxChunks : (int)c;
+  p.band_rows = p.rows * p.rpt * p.chunks;
+  p.bands = (total + p.band_rows - 1) / p.band_rows;
+  p.blocks = p.bands * p.tiles;
+  long long in_rows = bilinear_resize_span_rows(p.band_rows - 1, h, oh);
+  if (in_rows > planes * h) in_rows = planes * h;
+  p.in_floats = (in_rows * w + 3) / 4 * 4;
+  if (!p.staged || p.tiles > 1 || p.in_floats * 4 + t_smem > kResizeSmem) p.in_floats = 0;
+  p.smem = p.staged ? p.in_floats * 4 + t_smem : 0;
+  return p;
+}
+
+// A launch of K6's forward as its launcher made it.
+struct ResizeLaunchShape {
+  long long blocks;
+  int tiles, threads, band_rows, vec, staged;
+  long long in_floats, smem;
+};
+
 // K6, bilinear half: x [planes, h, w]; out [planes, oh, ow]; taps h -> oh rows, w -> ow columns.
+// *shape receives the launch's shape.
 cudaError_t bilinear_resize(const float* x, float* out, int64_t planes, int h, int w, int oh,
-                            int ow, TapArrays ty, TapArrays tx, cudaStream_t stream);
+                            int ow, TapArrays ty, TapArrays tx, cudaStream_t stream,
+                            ResizeLaunchShape* shape);
 
 // K6, bilinear half, backward: g [planes, oh, ow]; dx [planes, h, w]; the forward's taps and
 // their adjoint ranges over [h] rows and [w] columns.

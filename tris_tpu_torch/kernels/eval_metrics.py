@@ -8,6 +8,12 @@ the two taps per row of the JAX package's interpolation matrices
 (:func:`eval_tables`), max-normalised over that region, and either reduced
 to per-map ``(I, U, hit, hitm)`` or returned as the normalised plane padded
 to [maxH, maxW] with zeros.
+
+The kernel takes a cluster of blocks a map, each owning a band of its rows;
+the cluster's size is ``csrc/launchers.h::eval_metrics_plan``'s rule, which
+:func:`eval_metrics_plan` reads back from the extension and
+``tris_tpu_torch/tools/eval_metrics_schedule.py`` emulates on the host;
+:func:`eval_metrics_launch_shape` gives the last launch's grid.
 """
 
 from __future__ import annotations
@@ -90,6 +96,24 @@ def eval_metrics_plain(cams, tables, targets=None, boxes=None, want_norm: bool =
     x1, y1, x2, y2 = (boxes[:, i:i + 1].float() for i in range(4))
     hit = ((x1 <= px) & (px <= x2) & (y1 <= py) & (py <= y2)).float()
     return I, U, hit, hitm
+
+
+def eval_metrics_plan(B: int, S: int, maxH: int, maxW: int, h: int, w: int) -> dict:
+    """The launch for B x S maps [h, w] to originals within [maxH, maxW] on this
+    card (``launchers.h``'s rule, from the extension): ranks, threads,
+    band_rows, staged, smem_bytes, blocks and max_ranks."""
+    if (min(B, S, maxH, maxW, h, w) < 1 or max(B, S) > 65535 or maxH * maxW >= 2 ** 31
+            or h * w >= 2 ** 31):
+        raise ValueError(f"eval_metrics_plan: bad shape {(B, S, maxH, maxW, h, w)}")
+    return dict(build.ops().eval_metrics_plan(B, S, maxH, maxW, h, w))
+
+
+def eval_metrics_launch_shape() -> dict:
+    """The grid of the last launch in this process: blocks, cluster, threads,
+    smem_bytes, staged and map_load_bytes."""
+    if build.launches["eval_metrics"] == 0:
+        raise RuntimeError("eval_metrics_launch_shape: no launch of eval_metrics counted")
+    return dict(build.ops().eval_metrics_launch_shape())
 
 
 def eval_metrics(cams, tables, targets=None, boxes=None, want_norm: bool = False):

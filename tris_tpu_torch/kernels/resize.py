@@ -2,6 +2,14 @@
 (``csrc/bilinear_resize.cu``), its backward (``csrc/bilinear_resize_bwd.cu``)
 and its plain PyTorch version.
 
+The forward flattens the planes' output rows and takes them in bands of
+rows, a thread owning 4 consecutive columns (16-byte stores where ow % 4 ==
+0) and each row's interpolated input row formed once in shared memory; the
+bands, tiles and threads are ``csrc/launchers.h::bilinear_resize_plan``'s,
+which :func:`bilinear_resize_plan` reads back from the extension and
+``tris_tpu_torch/tools/resize_schedule.py`` emulates on the host;
+:func:`bilinear_resize_launch_shape` gives the last launch's grid.
+
 Replaces ``tris_tpu/ops/resize.py::bilinear_resize`` (two HIGHEST-precision
 products with the interpolation matrices) on the IRNet path: the heads'
 upsamples, the CAM to the stride-4 grid and the walk back to the image.
@@ -29,6 +37,23 @@ def bilinear_resize_plain(x, size, align_corners: bool = False):
     oh, ow = int(size[0]), int(size[1])
     return upsample_taps_plain(x, taps_on(h, oh, align_corners, x.device),
                                taps_on(w, ow, align_corners, x.device))
+
+
+def bilinear_resize_plan(planes: int, h: int, w: int, oh: int, ow: int) -> dict:
+    """The forward's launch for ``[planes, h, w] -> [oh, ow]`` (``launchers.h``'s
+    rule, from the extension): vec, groups, tile_groups, tiles, rows, threads,
+    pitch, staged, chunks, band_rows, bands, blocks, in_floats and smem_bytes."""
+    if planes < 0 or min(h, w, oh, ow) < 1 or max(h, w, oh, ow) >= 2 ** 31:
+        raise ValueError(f"bilinear_resize_plan: bad shape {(planes, h, w, oh, ow)}")
+    return dict(build.ops().bilinear_resize_plan(planes, h, w, oh, ow))
+
+
+def bilinear_resize_launch_shape() -> dict:
+    """The grid of the last forward launch in this process: blocks, tiles,
+    threads, band_rows, vec, staged, in_floats and smem_bytes."""
+    if build.launches["bilinear_resize"] == 0:
+        raise RuntimeError("bilinear_resize_launch_shape: no launch of bilinear_resize counted")
+    return dict(build.ops().bilinear_resize_launch_shape())
 
 
 class _BilinearResize(torch.autograd.Function):
