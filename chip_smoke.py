@@ -21,9 +21,12 @@ holds every number):
              grids their launchers made; K6's bilinear
              half (each forward row with its plan and launch shape), K7, K9
              and K10 at a 480x640 image's IRNet pass; K6's
-             bilinear backward, K7's backward (ties planted) and K8
-             forward and backward at IRN training's B=24, crop 512,
-             radius 10; K11 forward at stage 2's
+             bilinear backward, K7's forward, K7's backward (ties planted)
+             and the loss fused with K7 (K7 + K8: sums, counts and
+             gradients, each twice bit for bit, the peak memory of forward
+             and backward) at IRN training's B=24, crop 512, radius 10, the
+             tiled rows with their plans and shared-memory loads; K11
+             forward at stage 2's
              c2, c3 and c4 for B=48 and for eval's 8 images x 4 pairs, its
              backward at the train levels, each also against float64 and with
              its launches' grids, the c2 backward twice, bit for bit, and
@@ -85,7 +88,8 @@ holds every number):
              seeded heads) on batches built from them by
              ``irn_train_batches``: ``IRN_STEPS`` steps with the counters
              set to 0 just before and read just after (the exact launches
-             per step of K6 forward and backward, K7, K8), the same steps
+             per step of K6 forward and backward and the fused loss, and
+             none of K7 alone), the same steps
              on the plain route from the same weights (step-1 loss terms
              and every head gradient, nonzero), step times of both routes
              over ``ROUNDS``; then the user's chain as CLI processes on a
@@ -116,6 +120,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -165,9 +170,11 @@ REGION_NOISE = 0.02
 # ir labels from pass 1, 24 names cycling them
 IRN_B, IRN_CROP, IRN_RADIUS, IRN_STEPS, IRN_LR = 24, 512, 10, 3, 0.1
 # kernel launches per IRN step: K6 at IRNet's six upsamples, forward and
-# backward; K7 one forward, its backward two passes; K8 two each way
-IRN_LAUNCHES_PER_STEP = {"bilinear_resize": 6, "bilinear_resize_bwd": 6, "path_max_affinity": 1,
-                         "path_max_affinity_bwd": 2, "irn_loss": 2, "irn_loss_bwd": 2}
+# backward; the loss fused with K7 two forward (the tiles, then the sum of their
+# partials), one backward; K7 alone none
+IRN_LAUNCHES_PER_STEP = {"bilinear_resize": 6, "bilinear_resize_bwd": 6, "path_max_affinity": 0,
+                         "path_max_affinity_bwd": 0, "irn_affinity_loss": 2,
+                         "irn_affinity_loss_bwd": 1}
 # phase 9: stage 2 at bench.py::bench_train2's shape (RN50, text 512 x 12,
 # 20 tokens, 320 px, B=48, the EMA teacher on, consistency mse, AdamW with
 # the stage-2 groups); 4 counted steps with the teacher updated at every
@@ -288,6 +295,23 @@ def bound_ms(nbytes: float, flops: float):
     FP32 operations over the FP32 rate, whichever is larger."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@functools.lru_cache(maxsize=1)
+def smem_rate() -> float:
+    """4-byte shared-memory loads a second the card issues at most: a warp's
+    32 a clock on each SM, at the SM clock's maximum (``nvidia-smi``)."""
+    import torch
+
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.split()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count * 32 * float(mhz) * 1e6
+
+
+def smem_ms(loads: int) -> float:
+    """The least time ``loads`` shared-memory loads take at :func:`smem_rate`."""
+    return loads / smem_rate() * 1e3
 
 
 def max_err(a, b) -> float:
@@ -1072,17 +1096,20 @@ def check_walk_matmul(K, dev, trans, band, failures):
 
 
 def check_irn_train_kernels(K, dev):
-    """One row per kernel of IRN training's backward and for K8, at the
-    training step's shapes (B=24, crop 512, radius 10: the edge map and the
-    displacement field at 128x128, 152 directions, 119x110 windows), each
-    against autograd of its plain version on the same inputs: K6's
-    bilinear backward at the heads' upsamples (the dp6 tap the row, the
-    others sub-rows), K7's backward on an edge map with planted ties, K8's
-    forward (sums and counts) and backward. A backward row times the
-    backward alone (on a retained graph)."""
+    """One row per kernel of IRN training, at the training step's shapes
+    (B=24, crop 512, radius 10: the edge map and the displacement field at
+    128x128, 152 directions, 119x110 windows), each against its plain
+    version on the same inputs: K6's bilinear backward at the heads'
+    upsamples (the dp6 tap the row, the others sub-rows), K7's forward at
+    this shape (a sub-row of K7's, returned beside the rows) and its
+    backward on an edge map with planted ties, and the loss fused with K7
+    (K7 + K8), forward (sums and counts) and backward, with the peak memory
+    of both. A backward row times the backward alone (on a retained graph).
+    The tiled rows carry their plan and their shared-memory yardstick."""
     import torch
 
     from tris_tpu_torch.pseudo.indexing import PathIndex
+    from tris_tpu_torch.tools import irn_affinity_schedule as T
 
     g = torch.Generator(device=dev).manual_seed(11)
     failures = []
@@ -1107,6 +1134,26 @@ def check_irn_train_kernels(K, dev):
          resize_bwd("bilinear_resize_bwd@dp_x2", (IRN_B, 256, q // 4, q // 4), (q // 2, q // 2))])]
     torch.cuda.empty_cache()
 
+    # K7's forward at the training step's shape, where the step no longer calls it (its loss
+    # takes the edge map): exact
+    pi = PathIndex(IRN_RADIUS, (q, q))
+    paths, rf = pi.paths_by_length, pi.radius_floor
+    steps = K.path_max.path_steps(paths)
+    n_steps = sum(len(p) for p in steps)
+    n_dirs, ch, cw = len(pi.search_dst), q - rf, q - 2 * rf
+    with torch.no_grad():
+        edge = torch.rand(IRN_B, q, q, generator=g, device=dev)
+        got = K.path_max_affinity(edge, paths, rf)
+        k7_irn = measure_row(
+            failures, "path_max_affinity@irn",
+            max_err(got, K.path_max_affinity_plain(edge, paths, rf)), 0.0,
+            device_ms(lambda: K.path_max_affinity(edge, paths, rf)),
+            device_ms(lambda: K.path_max_affinity_plain(edge, paths, rf), 3, 1),
+            4 * (edge.numel() + got.numel()), IRN_B * (n_steps + n_dirs) * ch * cw, None,
+            shape=[IRN_B, q, q, IRN_RADIUS, n_dirs, ch, cw], path_steps=n_steps)
+    del edge, got
+    torch.cuda.empty_cache()
+
     # K7 backward on an edge map of 4 levels (exact ties along most paths)
     # with noise in its top third, against amax's autograd, which splits
     # ties evenly as JAX does. The kernel adds each pixel's terms (up to 2134)
@@ -1114,24 +1161,23 @@ def check_irn_train_kernels(K, dev):
     # float64 (edge and cotangent promoted) within 1e-6 of the gradient's
     # scale (8 float32 ulps at the largest value); the float32 plain
     # version, whose sums round at every add, within 1e-5, with its own
-    # distance from float64 reported beside it
-    pi = PathIndex(IRN_RADIUS, (q, q))
-    paths, rf = pi.paths_by_length, pi.radius_floor
+    # distance from float64 reported beside it; twice, bit for bit
     edge = torch.randint(0, 4, (IRN_B, q, q), generator=g, device=dev).float() / 4
     edge[:, : q // 3] = torch.rand(IRN_B, q // 3, q, generator=g, device=dev)
+    tied = edge.clone()
     (edge,) = leaves(edge)
-    n_dirs, ch, cw = len(pi.search_dst), q - rf, q - 2 * rf
     cot = [randn(IRN_B, n_dirs, ch, cw)]
     kern = lambda e: K.path_max_affinity(e, paths, rf)  # noqa: E731
     plain = lambda e: K.path_max_affinity_plain(e, paths, rf)  # noqa: E731
     got, want = input_grads(kern, [edge], cot)[0], input_grads(plain, [edge], cot)[0]
+    if not torch.equal(got, input_grads(kern, [edge], cot)[0]):
+        failures.append("path_max_affinity_bwd: two runs differ")
     want64 = input_grads(plain, leaves(edge.double()), [cot[0].double()])[0]
     scale = float(want64.abs().max())
     err32, tol32 = max_err(got, want), 1e-5 * scale
     if not err32 <= tol32:
         failures.append(f"path_max_affinity_bwd: vs the float32 plain version {err32} > {tol32}")
     torch.cuda.empty_cache()
-    steps = K.path_max.path_steps(paths)
     with torch.no_grad():
         ties = 0
         for p in steps:
@@ -1150,7 +1196,7 @@ def check_irn_train_kernels(K, dev):
     (gathered,) = leaves(gathered)
     lib = lambda t: t.amax(2)  # noqa: E731
     lib_cot = [cot[0].reshape(IRN_B, n_dirs, ch * cw)]
-    n_steps = sum(len(p) for p in steps)
+    loads = T.shared_loads(T.MAX_BACKWARD, IRN_B, q, q, rf, steps)
     rows.append(row(
         "path_max_affinity_bwd", "tris_tpu_torch/kernels/csrc/path_max_affinity_bwd.cu",
         "tris_tpu/pseudo/indexing.py:110", max_err(got, want64), 1e-6 * scale,
@@ -1159,56 +1205,83 @@ def check_irn_train_kernels(K, dev):
         bwd_ms(lib, [gathered], lib_cot, 5), shape=[IRN_B, q, q, IRN_RADIUS],
         tied_entries=ties, entries=cot[0].numel(), reference="plain in float64", scale=scale,
         f32_plain_max_abs_err=err32, f32_plain_tol=tol32,
-        f32_plain_vs_float64=max_err(want, want64)))
+        f32_plain_vs_float64=max_err(want, want64),
+        plan=K.path_max.tile_plan(T.MAX_BACKWARD, IRN_B, q, q, rf), smem_loads=loads,
+        smem_ms=smem_ms(loads)))
     if ties < cot[0].numel() // 4:
         failures.append(f"path_max_affinity_bwd: only {ties} tied entries planted")
-    del gathered, flat, got, want, want64, cot
+    del gathered, flat, got, want, want64, cot, edge
     torch.cuda.empty_cache()
 
-    # K8 on a blocky {0, 1, 255} label map, K7's affinity of a random edge
-    # map and a field of a few pixels: the sums within 1e-5 relative and the
-    # counts exact (forward); d aff within 1e-6 and d dp within 1e-5 of their
-    # scales (backward)
+    # K7 + K8 fused on a blocky {0, 1, 255} label map, the tied edge map (ties, and zeros:
+    # aff = 1) and a field of a few pixels: the sums within 1e-5 relative and the counts exact
+    # (forward); d edge within 1e-6 of the float64 plain gradient's scale and d dp within 1e-5
+    # of its (backward); each twice, bit for bit; forward and backward together allocating
+    # under 32 MB beyond their inputs (no field of the pairs' size)
     lab = torch.tensor([0, 1, 255], dtype=torch.uint8, device=dev)[
         torch.randint(0, 3, (IRN_B, q // 8, q // 8), generator=g, device=dev)]
     lab = lab.repeat_interleave(8, 1).repeat_interleave(8, 2).contiguous()
+    edge, dp = leaves(tied, 3 * randn(IRN_B, 2, q, q))
+    kern = lambda e, d: K.irn_affinity_loss(lab, e, d, pi)  # noqa: E731
+    plain = lambda e, d: K.irn_affinity_loss_plain(lab, e, d, pi)  # noqa: E731
     with torch.no_grad():
-        aff = K.path_max_affinity(torch.rand(IRN_B, q, q, generator=g, device=dev), paths, rf)
-    aff, dp = leaves(aff, 3 * randn(IRN_B, 2, q, q))
-    dirs = pi.search_dst
-    with torch.no_grad():
-        sums, counts = K.irn_loss(lab, aff, dp, dirs, rf)
-        want_s, want_c = K.irn_loss_plain(lab, aff, dp, dirs, rf)
+        sums, counts = kern(edge, dp)
+        again = kern(edge, dp)
+        want_s, want_c = plain(edge, dp)
     rel = float(((sums.double() - want_s.double()).abs() / want_s.double().abs()).max())
     if not (torch.equal(counts, want_c) and rel <= 1e-5):
-        failures.append(f"irn_loss: counts {counts.tolist()} vs {want_c.tolist()}, sums {rel} "
-                        f"relative (> 1e-5)")
-    n_ent = aff.numel()
-    rows.append(row(
-        "irn_loss", "tris_tpu_torch/kernels/csrc/irn_loss.cu", "tris_tpu/pseudo/train_irn.py:91",
-        max_err(sums, want_s), 1e-5 * float(want_s.abs().min()),
-        device_ms(lambda: K.irn_loss(lab, aff.detach(), dp.detach(), dirs, rf)),
-        device_ms(lambda: K.irn_loss_plain(lab, aff.detach(), dp.detach(), dirs, rf), 5),
-        4 * n_ent + lab.numel() + 4 * dp.numel() + 4 * 5 + 8 * 3, 16 * n_ent, None,
-        shape=[IRN_B, q, q, n_dirs, ch, cw], sums=sums.tolist(), counts=counts.tolist(),
-        sums_rel_err=rel))
+        failures.append(f"irn_affinity_loss: counts {counts.tolist()} vs {want_c.tolist()}, "
+                        f"sums {rel} relative (> 1e-5)")
+    if not (torch.equal(again[0], sums) and torch.equal(again[1], counts)):
+        failures.append("irn_affinity_loss: two runs differ")
+    n_pairs = IRN_B * n_dirs * ch * cw
+    path_ops = IRN_B * n_steps * ch * cw
+    io_bytes = lab.numel() + 4 * (edge.numel() + dp.numel())
+    loads = T.shared_loads(T.LOSS_FORWARD, IRN_B, q, q, rf, steps)
+    with torch.no_grad():
+        rows.append(row(
+            "irn_affinity_loss", "tris_tpu_torch/kernels/csrc/irn_affinity.cu",
+            "tris_tpu/pseudo/indexing.py:110 + tris_tpu/pseudo/train_irn.py:91",
+            max_err(sums, want_s), 1e-5 * float(want_s.abs().min()),
+            device_ms(lambda: kern(edge, dp)), device_ms(lambda: plain(edge, dp), 3, 1),
+            io_bytes + 4 * 5 + 8 * 3, path_ops + 16 * int(counts.sum()), None,
+            shape=[IRN_B, q, q, n_dirs, ch, cw], pairs=n_pairs, sums=sums.tolist(),
+            counts=counts.tolist(), sums_rel_err=rel,
+            plan=K.path_max.tile_plan(T.LOSS_FORWARD, IRN_B, q, q, rf), smem_loads=loads,
+            smem_ms=smem_ms(loads)))
     cot = [randn(5)]
-    kern = lambda a, d: K.irn_loss(lab, a, d, dirs, rf)  # noqa: E731
-    plain = lambda a, d: K.irn_loss_plain(lab, a, d, dirs, rf)  # noqa: E731
-    got, want = input_grads(kern, [aff, dp], cot), input_grads(plain, [aff, dp], cot)
-    err_dp, tol_dp = max_err(got[1], want[1]), 1e-5 * float(want[1].abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = input_grads(kern, [edge, dp], cot)
+    torch.cuda.synchronize()
+    extra_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    if not extra_mb < 32:
+        failures.append(f"irn_affinity_loss: forward + backward allocated {extra_mb} MB")
+    if not all(torch.equal(a, b) for a, b in zip(got, input_grads(kern, [edge, dp], cot))):
+        failures.append("irn_affinity_loss_bwd: two runs differ")
+    want = input_grads(plain, [edge, dp], cot)
+    want64 = input_grads(plain, leaves(edge.double(), dp.double()), [cot[0].double()])
+    scales = [float(w.abs().max()) for w in want64]
+    err_dp, tol_dp = max_err(got[1], want64[1]), 1e-5 * scales[1]
     if not err_dp <= tol_dp:
-        failures.append(f"irn_loss_bwd: d dp max_abs_err {err_dp} > {tol_dp}")
+        failures.append(f"irn_affinity_loss_bwd: d dp max_abs_err {err_dp} > {tol_dp}")
+    loads = T.shared_loads(T.LOSS_BACKWARD, IRN_B, q, q, rf, steps)
     rows.append(row(
-        "irn_loss_bwd", "tris_tpu_torch/kernels/csrc/irn_loss.cu",
-        "tris_tpu/pseudo/train_irn.py:91",
-        max_err(got[0], want[0]), 1e-6 * float(want[0].abs().max()),
-        bwd_ms(kern, [aff, dp], cot), bwd_ms(plain, [aff, dp], cot, 5),
-        4 * 2 * n_ent + lab.numel() + 4 * 2 * dp.numel(), 8 * n_ent + 4 * 2 * 2 * n_ent, None,
-        shape=[IRN_B, q, q, n_dirs, ch, cw], d_dp_max_abs_err=err_dp, d_dp_tol=tol_dp))
-    del aff, dp, got, want
+        "irn_affinity_loss_bwd", "tris_tpu_torch/kernels/csrc/irn_affinity.cu",
+        "tris_tpu/pseudo/indexing.py:110 + tris_tpu/pseudo/train_irn.py:91",
+        max_err(got[0], want64[0]), 1e-6 * scales[0],
+        bwd_ms(kern, [edge, dp], cot), bwd_ms(plain, [edge, dp], cot, 3, 1),
+        io_bytes + 4 * 5 + 4 * (edge.numel() + dp.numel()), 4 * path_ops, None,
+        shape=[IRN_B, q, q, n_dirs, ch, cw], reference="plain in float64", scale=scales[0],
+        d_dp_max_abs_err=err_dp, d_dp_tol=tol_dp, d_dp_scale=scales[1],
+        f32_plain_d_edge_max_abs_err=max_err(got[0], want[0]),
+        f32_plain_d_dp_max_abs_err=max_err(got[1], want[1]), fwd_bwd_extra_mb=extra_mb,
+        plan=K.path_max.tile_plan(T.LOSS_BACKWARD, IRN_B, q, q, rf), smem_loads=loads,
+        smem_ms=smem_ms(loads)))
+    del edge, dp, got, want, want64, tied
     torch.cuda.empty_cache()
-    return rows, failures
+    return rows, {"path_max_affinity": [k7_irn]}, failures
 
 
 def build_stage2(dev):
@@ -1771,7 +1844,7 @@ def plain_kernels(K, baseline: bool = False):
              "path_max_affinity": K.path_max_affinity_plain,
              "refine_centroids": K.refine_centroids_plain,
              "walk_transition": K.walk_transition_plain, "walk_matmul": K.walk_matmul_plain,
-             "irn_loss": K.irn_loss_plain, "pixel_attn": K.pixel_attn_plain,
+             "irn_affinity_loss": K.irn_affinity_loss_plain, "pixel_attn": K.pixel_attn_plain,
              "ema_update": K.ema_update_plain,
              "batch_norm_act": K.batch_norm_act_plain if baseline else K.batch_norm_act_reference}
     saved = {name: getattr(K, name) for name in plain}
@@ -2923,7 +2996,9 @@ def main(argv=None) -> int:
     ins_rows, ins_failures = check_ins_seg_kernels(K, dev)
     rows += ins_rows
     failures += ins_failures
-    irn_rows, irn_failures = check_irn_train_kernels(K, dev)
+    irn_rows, irn_extra, irn_failures = check_irn_train_kernels(K, dev)
+    for r in rows:
+        r["shapes"] += irn_extra.get(r["name"], [])
     rows += irn_rows
     failures += irn_failures
     stage2_init = build_stage2(dev)

@@ -24,15 +24,18 @@ on the walk's buckets and its banded products (squarings, the thin step,
 partial tiles, M across the thin kernel's bound, subnormals, one nonzero per
 tile, an all-zero operand, skip against no skip) and occupancy maps. IRN
 training's backward kernels: K6's bilinear backward,
-K7's backward with ties planted (the gradient split evenly among them), and
-K8's fused pair labels and masked sums, forward and backward, at radius 5
-and 10, odd sizes and B=1. Stage 2's: K11 forward and backward at odd
+K7's tiled backward with ties planted (the gradient split evenly among them)
+and the IRN loss fused with K7 from the edge map (pair labels and masked
+sums, forward and backward), at radius 5 and 10, odd sizes, ragged last
+tiles, B=1, an edge map tied everywhere and all-ignore labels, both bit for
+bit against the schedule tool's emulation of their arithmetic, with their
+plans against the tool's. Stage 2's: K11 forward and backward at odd
 pixel counts, across its token buckets' edges (1 to 32 tokens), with 4-byte
 loads where C % 4 != 0, past 2048 channels (sub-slices), S > 1 pairs sharing
 an image's pixels, its grids against the schedule tool's and the inputs it
 refuses; K12 over leaves of odd length, a
-0-d leaf and an integer buffer, bit for bit. K8 at another pair-label
-threshold. K13 (BatchNorm with its activation) in train, eval and the
+0-d leaf and an integer buffer, bit for bit. The fused IRN loss at another
+pair-label threshold. K13 (BatchNorm with its activation) in train, eval and the
 teacher's mode with each fused activation, at C = 1, one element a channel
 (the unbiased variance's max(n - 1, 1) guard), HW % 4 != 0 and unaligned
 data (its scalar loads), N = 1, HW = 1, the largest plane each cluster size
@@ -45,6 +48,7 @@ anywhere: each differentiable wrapper's CUDA branch goes through its
 ``torch.autograd.Function``.
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -54,6 +58,7 @@ import torch.nn.functional as F
 
 from tris_tpu_torch import kernels as K
 from tris_tpu_torch.models.layers import causal_mask
+from tris_tpu_torch.tools import irn_affinity_schedule as T
 from tris_tpu_torch.tools import walk_schedule as S
 
 pytestmark = pytest.mark.cuda
@@ -921,7 +926,7 @@ def test_differentiable_wrappers_apply_an_autograd_function():
     wrappers = [("mha", "mha_short"), ("cross_attn", "cross_attn"),
                 ("stage1_head", "stage1_head"), ("critic_input", "critic_input"),
                 ("resize", "bilinear_resize"), ("path_max", "path_max_affinity"),
-                ("irn_loss", "irn_loss"), ("pixel_attn", "pixel_attn"),
+                ("irn_affinity", "irn_affinity_loss"), ("pixel_attn", "pixel_attn"),
                 ("batch_norm", "batch_norm_act")]
     for mod_name, name in wrappers:
         mod = importlib.import_module(f"tris_tpu_torch.kernels.{mod_name}")
@@ -979,14 +984,16 @@ def _tied_edge(dev, shape, levels, seed):
 
 
 @pytest.mark.parametrize("radius,shape", [(10, (2, 128, 128)), (5, (1, 37, 18)), (5, (3, 16, 16)),
-                                          (10, (1, 19, 23)), (3, (2, 5, 6))])
+                                          (10, (1, 19, 23)), (3, (2, 5, 6)), (10, (1, 45, 77))])
 @pytest.mark.parametrize("tied", [False, True])
 def test_path_max_affinity_bwd(dev, radius, shape, tied):
     # against amax's autograd (which, like JAX's reduce_max VJP, splits a
     # tied max evenly): run in float64, within 1e-6 of the gradient's scale
     # (the kernel adds each pixel's terms, up to 2134 at radius 10, in
     # double and rounds once); in float32, whose sums round at every add,
-    # within 1e-5; ties planted by quantising the edge map
+    # within 1e-5; bit for bit against the schedule tool's emulation of the
+    # gather (the same double terms in the same order); ties planted by
+    # quantising the edge map; one launch; ragged last tiles at 45 x 77
     pi = _path_index(radius, shape[-2:])
     g = torch.Generator(device=dev).manual_seed(7)
     edge = (_tied_edge(dev, shape, 4, 8) if tied
@@ -997,7 +1004,7 @@ def test_path_max_affinity_bwd(dev, radius, shape, tied):
     K.reset_launches()
     (got,) = _input_grads(lambda e: K.path_max_affinity(e, pi.paths_by_length, rf), edge,
                           upstream=up)
-    assert K.launches["path_max_affinity_bwd"] == 2
+    assert K.launches["path_max_affinity_bwd"] == 1
     plain = lambda e: K.path_max_affinity_plain(e, pi.paths_by_length, rf)  # noqa: E731
     (want,) = _input_grads(plain, edge, upstream=up)
     (want64,) = _input_grads(plain, edge.double(), upstream=up.double())
@@ -1006,103 +1013,148 @@ def test_path_max_affinity_bwd(dev, radius, shape, tied):
     assert _err(got, want) <= 1e-5 * scale
     assert torch.equal(got, _input_grads(lambda e: K.path_max_affinity(e, pi.paths_by_length, rf),
                                          edge, upstream=up)[0])   # the same run to run
+    steps = K.path_max.path_steps(pi.paths_by_length)
+    e, u = edge.reshape(-1, *shape[-2:]).cpu().numpy(), up.reshape(-1, *up.shape[-3:]).cpu().numpy()
+    emulated = T.gather(e, [u[:, d] for d in range(len(steps))], steps, rf)
+    assert np.array_equal(got.reshape(emulated.shape).cpu().numpy(), emulated)
     if tied:   # a first-argmax routing would be far off
         ch, cw = shape[-2] - rf, shape[-1] - 2 * rf
         n_tied = 0
-        for path in K.path_max.path_steps(pi.paths_by_length):
+        for path in steps:
             w = torch.stack([edge[..., dy:dy + ch, rf + dx:rf + dx + cw] for dy, dx in path])
             n_tied += int(((w == w.amax(0)).sum(0) > 1).sum())
         assert n_tied > 0
 
 
-def _irn_inputs(dev, B, H, W, radius, seed):
+def _irn_inputs(dev, B, H, W, radius, seed, edge="random"):
     pi = _path_index(radius, (H, W))
     g = torch.Generator(device=dev).manual_seed(seed)
     labels = torch.tensor([0, 1, 255], dtype=torch.uint8, device=dev)[
         torch.randint(0, 3, (B, H // 4 + 1, W // 4 + 1), generator=g, device=dev)]
     labels = labels.repeat_interleave(4, 1).repeat_interleave(4, 2)[:, :H, :W].contiguous()
-    rf = pi.radius_floor
-    aff = torch.rand(B, len(pi.search_dst), H - rf, W - 2 * rf, generator=g, device=dev)
+    if edge == "tied":       # a few levels (zeros among them: aff = 1) and a patch of noise
+        e = _tied_edge(dev, (B, H, W), 4, seed)
+    elif edge == "flat":     # one value: every step of every path ties
+        e = torch.full((B, H, W), 0.375, device=dev)
+    else:
+        e = torch.rand(B, H, W, generator=g, device=dev)
     dp = 3 * torch.randn(B, 2, H, W, generator=g, device=dev)
     dp[:, :, : H // 4] = torch.round(dp[:, :, : H // 4])   # exact zeros of |pair - target|
-    return pi, labels, aff, dp
+    return pi, labels, e, dp
 
 
-@pytest.mark.parametrize("B,H,W,radius", [(2, 128, 128, 10), (1, 16, 16, 5), (3, 21, 30, 5),
-                                          (1, 19, 23, 10)])
-def test_irn_loss(dev, B, H, W, radius):
-    # the five sums within 1e-5 relative and the counts exact against the
-    # plain version; d aff within 1e-6 and d dp within 1e-5 of their scales
-    # (d dp adds up to 2 * n_dirs terms of +-g in another order)
-    pi, labels, aff, dp = _irn_inputs(dev, B, H, W, radius, 9)
-    rf = pi.radius_floor
+def _check_irn_affinity(pi, labels, edge, dp, w):
+    """The fused loss against the plain version (sums 1e-5 relative, counts
+    exact), its launches, and its gradients against the plain version in
+    float64 (d edge 1e-6 and d dp 1e-5 of their scales) and bit for bit
+    against the schedule tool's emulation of the kernels' arithmetic."""
+    IL = importlib.import_module("tris_tpu_torch.kernels.irn_loss")
     K.reset_launches()
-    sums, counts = K.irn_loss(labels, aff, dp, pi.search_dst, rf)
-    want_s, want_c = K.irn_loss_plain(labels, aff, dp, pi.search_dst, rf)
-    assert K.launches["irn_loss"] == 2
-    assert counts.dtype == torch.int64 and torch.equal(counts, want_c) and int(counts.sum()) > 0
-    assert H < 32 or bool((counts > 0).all())
+    sums, counts = K.irn_affinity_loss(labels, edge, dp, pi)
+    want_s, want_c = K.irn_affinity_loss_plain(labels, edge, dp, pi)
+    assert K.launches["irn_affinity_loss"] == 2 and K.launches["path_max_affinity"] == 0
+    assert counts.dtype == torch.int64 and torch.equal(counts, want_c)
     assert bool(((sums.double() - want_s.double()).abs() <= 1e-5 * want_s.double().abs()).all())
-    w = torch.tensor([0.3, -1.2, 0.7, 2.0, -0.4], device=dev)
-    got_g = _input_grads(lambda a, d: K.irn_loss(labels, a, d, pi.search_dst, rf), aff, dp,
-                         upstream=w)
-    want_g = _input_grads(lambda a, d: K.irn_loss_plain(labels, a, d, pi.search_dst, rf), aff, dp,
-                    upstream=w)
-    assert K.launches["irn_loss_bwd"] == 2
+    kern = lambda e, d: K.irn_affinity_loss(labels, e, d, pi)  # noqa: E731
+    got_g = _input_grads(kern, edge, dp, upstream=w)
+    assert K.launches["irn_affinity_loss_bwd"] == 1 and K.launches["path_max_affinity_bwd"] == 0
+    want_g = _input_grads(lambda e, d: K.irn_affinity_loss_plain(labels, e, d, pi), edge.double(),
+                          dp.double(), upstream=w.double())
     assert _err(got_g[0], want_g[0]) <= 1e-6 * float(want_g[0].abs().max())
     assert _err(got_g[1], want_g[1]) <= 1e-5 * float(want_g[1].abs().max())
-    again = K.irn_loss(labels, aff, dp, pi.search_dst, rf)[0]
-    assert torch.equal(again, sums)    # a fixed order: the same run to run
+    d_edge, d_dp = T.fused_backward(labels.cpu().numpy(), edge.cpu().numpy(), dp.cpu().numpy(),
+                                    w.cpu().numpy(), K.path_max.path_steps(pi.paths_by_length),
+                                    pi.radius_floor, IL.EPS, IL.ONE_EPS, IL.MAX_VALID)
+    assert np.array_equal(got_g[0].cpu().numpy(), d_edge)
+    assert np.array_equal(got_g[1].cpu().numpy(), d_dp)
+    again = K.irn_affinity_loss(labels, edge, dp, pi)
+    assert torch.equal(again[0], sums) and torch.equal(again[1], counts)   # a fixed order
+    assert all(torch.equal(a, b) for a, b in zip(_input_grads(kern, edge, dp, upstream=w), got_g))
+    return sums, counts
+
+
+@pytest.mark.parametrize("B,H,W,radius,edge", [
+    (2, 128, 128, 10, "random"), (2, 128, 128, 10, "tied"),    # the training step's shape
+    (1, 16, 16, 5, "random"), (3, 21, 30, 5, "tied"), (1, 19, 23, 10, "random"),
+    (1, 45, 77, 10, "tied"), (2, 37, 41, 5, "flat")])          # ragged last tiles
+def test_irn_loss(dev, B, H, W, radius, edge):
+    # IRN's loss fused with K7 (K7 + K8) from the edge map
+    pi, labels, e, dp = _irn_inputs(dev, B, H, W, radius, 9, edge)
+    w = torch.tensor([0.3, -1.2, 0.7, 2.0, -0.4], device=dev)
+    sums, counts = _check_irn_affinity(pi, labels, e, dp, w)
+    assert int(counts.sum()) > 0 and (H < 32 or bool((counts > 0).all()))
+
+
+def test_irn_loss_all_ignored(dev):
+    # every label 255: no pair counts, the sums and both gradients are 0
+    pi, labels, e, dp = _irn_inputs(dev, 2, 40, 33, 10, 3)
+    labels = torch.full_like(labels, 255)
+    w = torch.tensor([0.3, -1.2, 0.7, 2.0, -0.4], device=dev)
+    sums, counts = _check_irn_affinity(pi, labels, e, dp, w)
+    assert counts.tolist() == [0, 0, 0] and not bool(sums.any())
+    d_edge, d_dp = _input_grads(lambda a, b: K.irn_affinity_loss(labels, a, b, pi), e, dp,
+                                upstream=w)
+    assert not bool(d_edge.any()) and not bool(d_dp.any())
 
 
 def test_irn_loss_honours_another_threshold(dev, monkeypatch):
     # labels 0, 1, 2, 5 and 255 with irn_loss.MAX_VALID at 3 (the launchers'
     # argument): the 5s are as invalid as 255; counts exact and sums within
-    # 1e-5 relative of the plain version, the gradients within 1e-6 and 1e-5
-    # of their scales
-    import importlib
-
+    # 1e-5 relative of the plain version, the gradients as test_irn_loss's
     IL = importlib.import_module("tris_tpu_torch.kernels.irn_loss")
-    pi, labels, aff, dp = _irn_inputs(dev, 2, 21, 30, 5, 4)
-    rf = pi.radius_floor
+    pi, labels, e, dp = _irn_inputs(dev, 2, 21, 30, 5, 4, "tied")
     g = torch.Generator(device=dev).manual_seed(5)
     labels = torch.tensor([0, 1, 2, 5, 255], dtype=torch.uint8, device=dev)[
         torch.randint(0, 5, labels.shape, generator=g, device=dev)]
-    counts_21 = K.irn_loss(labels, aff, dp, pi.search_dst, rf)[1]
+    counts_21 = K.irn_affinity_loss(labels, e, dp, pi)[1]
     monkeypatch.setattr(IL, "MAX_VALID", 3)
-    sums, counts = K.irn_loss(labels, aff, dp, pi.search_dst, rf)
-    want_s, want_c = K.irn_loss_plain(labels, aff, dp, pi.search_dst, rf)
-    assert torch.equal(counts, want_c) and bool((counts > 0).all())
-    assert not torch.equal(counts, counts_21)
-    assert bool(((sums.double() - want_s.double()).abs() <= 1e-5 * want_s.double().abs()).all())
     w = torch.tensor([0.3, -1.2, 0.7, 2.0, -0.4], device=dev)
-    got_g = _input_grads(lambda a, d: K.irn_loss(labels, a, d, pi.search_dst, rf), aff, dp,
-                         upstream=w)
-    want_g = _input_grads(lambda a, d: K.irn_loss_plain(labels, a, d, pi.search_dst, rf), aff,
-                          dp, upstream=w)
-    assert _err(got_g[0], want_g[0]) <= 1e-6 * float(want_g[0].abs().max())
-    assert _err(got_g[1], want_g[1]) <= 1e-5 * float(want_g[1].abs().max())
+    _, counts = _check_irn_affinity(pi, labels, e, dp, w)
+    assert bool((counts > 0).all()) and not torch.equal(counts, counts_21)
+
+
+@pytest.mark.parametrize("kind,B,H,W,radius", [
+    (0, 24, 128, 128, 10), (1, 24, 128, 128, 10), (2, 24, 128, 128, 10),   # the IRN step
+    (2, 1, 133, 170, 5),                                                    # the walk's grid
+    (0, 1, 45, 77, 10), (1, 1, 45, 77, 10), (2, 3, 21, 30, 5), (1, 2, 5, 6, 3)])
+def test_path_tile_plan(dev, kind, B, H, W, radius):
+    # the extension's plan is the schedule tool's (launchers.h's rule read twice)
+    rf = _path_index(radius, (H, W)).radius_floor
+    assert K.path_max.tile_plan(kind, B, H, W, rf) == T.plan(kind, B, H, W, rf)
 
 
 def test_irn_training_kernels_refuse(dev):
-    pi, labels, aff, dp = _irn_inputs(dev, 1, 16, 16, 5, 1)
-    rf = pi.radius_floor
+    pi, labels, e, dp = _irn_inputs(dev, 1, 16, 16, 5, 1)
     with pytest.raises(ValueError, match="bad inputs"):
-        K.irn_loss(labels.int(), aff, dp, pi.search_dst, rf)
+        K.irn_affinity_loss(labels.int(), e, dp, pi)
     with pytest.raises(ValueError, match="bad inputs"):
-        K.irn_loss(labels, aff[:, :-1], dp, pi.search_dst, rf)
+        K.irn_affinity_loss(labels, e[:, :-1], dp, pi)
     with pytest.raises(TypeError, match="float32"):
-        K.irn_loss(labels, aff.double(), dp, pi.search_dst, rf)
-    with pytest.raises(RuntimeError):
-        K.build.ops().irn_loss_bwd(labels, aff, dp, torch.zeros(34, 2, dtype=torch.int32,
-                                                               device=dev),
-                                   torch.zeros(4, device=dev), rf, 1e-5, 1.00001, 21)
-    with pytest.raises(RuntimeError, match="do not match"):   # the forward's shape check
-        K.build.ops().irn_loss_bwd(labels, aff[:, :, :-1].contiguous(), dp,
-                                   torch.zeros(aff.shape[1], 2, dtype=torch.int32, device=dev),
-                                   torch.zeros(5, device=dev), rf, 1e-5, 1.00001, 21)
-    with pytest.raises(ValueError, match="outside the window"):   # another radius's table
-        K.irn_loss(labels, aff, dp, np.asarray(pi.search_dst) * 2, rf)
+        K.irn_affinity_loss(labels, e.double(), dp, pi)
+    with pytest.raises(ValueError, match="irn_affinity_loss"):   # no kernel reads aff
+        K.irn_loss(labels, K.path_max_affinity(e, pi.paths_by_length, pi.radius_floor), dp,
+                   pi.search_dst, pi.radius_floor)
+    other = _path_index(5, (16, 16))
+    other.search_dst = np.asarray(other.search_dst)[::-1].copy()
+    with pytest.raises(ValueError, match="first steps"):
+        K.irn_affinity_loss(labels, e, dp, other)
+    big = _path_index(13, (40, 40))   # 4652 steps: past the tiled kernels' table
+    x = torch.rand(1, 40, 40, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="at most"):
+        K.path_max_affinity(x, big.paths_by_length, big.radius_floor)
+    with pytest.raises(ValueError, match="at most"):
+        K.irn_affinity_loss(torch.zeros(1, 40, 40, dtype=torch.uint8, device=dev), x.detach(),
+                            torch.zeros(1, 2, 40, 40, device=dev), big)
+    with torch.no_grad():   # the forward alone takes any table
+        K.path_max_affinity(x, big.paths_by_length, big.radius_floor)
+    steps, offsets = K.path_max.tile_table(K.path_max.path_steps(pi.paths_by_length),
+                                           pi.radius_floor)
+    with pytest.raises(RuntimeError, match="5 sums"):
+        K.build.ops().irn_affinity_loss_bwd(labels, e, dp, torch.zeros(4, device=dev), steps,
+                                            offsets, pi.radius_floor, 1e-5, 1.00001, 21)
+    with pytest.raises(RuntimeError, match="do not match"):
+        K.build.ops().irn_affinity_loss(labels, e[:, :, :-1].contiguous(), dp, steps, offsets,
+                                        pi.radius_floor, 1e-5, 1.00001, 21)
 
 
 # ---- stage 2: K11 (PixelAttention's attention) and K12 (the EMA update) -------------------

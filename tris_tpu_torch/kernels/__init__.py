@@ -6,7 +6,8 @@ serves every BatchNorm of the CLIP trunk and stage 2's decoder.
 A wrapper launches its CUDA kernel when given CUDA tensors and uses the
 plain version when given CPU tensors; there is no other switch. On CUDA the
 differentiable ones (K1, K2, K3's training head, K5, K6's bilinear resize,
-K7, K8, K11 and K13) are ``torch.autograd.Function``s whose backward is a kernel too.
+K7, K7 + K8 fused, K11 and K13) are ``torch.autograd.Function``s whose backward is a
+kernel too.
 The extension is built from ``csrc/`` at the first launch (``build.py``).
 """
 
@@ -19,6 +20,7 @@ from tris_tpu_torch.kernels.cross_attn import cross_attn, cross_attn_launch_shap
 from tris_tpu_torch.kernels.ema import EmaTable, ema_update, ema_update_plain
 from tris_tpu_torch.kernels.eval_metrics import (
     eval_metrics, eval_metrics_launch_shape, eval_metrics_plain, eval_metrics_plan, eval_tables)
+from tris_tpu_torch.kernels.irn_affinity import irn_affinity_loss, irn_affinity_loss_plain
 from tris_tpu_torch.kernels.irn_loss import irn_loss, irn_loss_plain
 from tris_tpu_torch.kernels.mha import mha_short, mha_short_launch_shape, mha_short_plain
 from tris_tpu_torch.kernels.normalize import normalize_u8_nchw, normalize_u8_nchw_plain
@@ -46,6 +48,7 @@ __all__ = [
     "refine_centroids", "refine_centroids_plain", "walk_transition", "walk_transition_plain",
     "walk_matmul", "walk_matmul_plain", "walk_square", "walk_tile_occupancy",
     "walk_tile_occupancy_plain", "irn_loss", "irn_loss_plain",
+    "irn_affinity_loss", "irn_affinity_loss_plain",
     "pixel_attn", "pixel_attn_plain", "pixel_attn_launch_shape",
     "EmaTable", "ema_update", "ema_update_plain", "batch_norm_act", "batch_norm_act_plain",
     "batch_norm_act_reference",

@@ -24,19 +24,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # one csrc/<name>.cu each; stage1_head.cu holds K3's training head and its backward,
-# irn_loss.cu K8's forward and backward, walk_matmul.cu K10's products and occupancy maps
+# irn_affinity.cu the IRN loss fused with K7 (K7 + K8), forward and backward, walk_matmul.cu
+# K10's products and occupancy maps
 SOURCES = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "response_head",
            "stage1_head", "eval_metrics", "critic_input", "critic_input_bwd", "normalize_u8",
            "bilinear_resize", "bilinear_resize_bwd", "path_max_affinity", "path_max_affinity_bwd",
-           "irn_loss", "refine_centroids", "walk_transition", "walk_matmul", "pixel_attn",
+           "irn_affinity", "refine_centroids", "walk_transition", "walk_matmul", "pixel_attn",
            "pixel_attn_bwd", "ema_update", "batch_norm", "batch_norm_bwd")
 # the launch counters: one per kernel family and direction
 KERNELS = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "response_head",
            "stage1_head", "stage1_head_bwd", "eval_metrics", "critic_input", "critic_input_bwd",
            "normalize_u8", "bilinear_resize", "bilinear_resize_bwd", "path_max_affinity",
-           "path_max_affinity_bwd", "irn_loss", "irn_loss_bwd", "refine_centroids",
-           "walk_transition", "walk_matmul", "walk_tile_occupancy", "pixel_attn", "pixel_attn_bwd",
-           "ema_update", "batch_norm", "batch_norm_bwd")
+           "path_max_affinity_bwd", "irn_affinity_loss", "irn_affinity_loss_bwd",
+           "refine_centroids", "walk_transition", "walk_matmul", "walk_tile_occupancy",
+           "pixel_attn", "pixel_attn_bwd", "ema_update", "batch_norm", "batch_norm_bwd")
 # no --use_fast_math or -ftz=true: K10 converts float32 subnormals to double exactly
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 MAX_SMEM = 227 * 1024  # shared memory one block may use on Hopper (opt-in above 48 KiB)

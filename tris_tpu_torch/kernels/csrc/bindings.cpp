@@ -523,6 +523,39 @@ at::Tensor bilinear_resize_bwd(const at::Tensor& g, const std::vector<at::Tensor
   return dx;
 }
 
+// K7's tiles: a host path table (steps [n_steps, 2], offsets [n_dirs + 1], int32 CPU tensors;
+// the wrappers hold each step within the window of rf and the table within its limits).
+tris::PathSteps path_steps(const at::Tensor& steps, const at::Tensor& offsets, const char* name) {
+  TORCH_CHECK(steps.device().is_cpu() && offsets.device().is_cpu() &&
+                  steps.scalar_type() == at::kInt && offsets.scalar_type() == at::kInt &&
+                  steps.is_contiguous() && offsets.is_contiguous() && steps.dim() == 2 &&
+                  steps.size(1) == 2 && offsets.dim() == 1 && offsets.size(0) >= 1,
+              name, ": expected the path table as int32 CPU tensors [n_steps, 2], [n_dirs + 1]");
+  const int64_t n_dirs = offsets.size(0) - 1;
+  TORCH_CHECK(n_dirs <= tris::kPathTableDirs && steps.size(0) <= tris::kPathTableSteps, name,
+              ": the path table is larger than the kernels take");
+  return {steps.data_ptr<int>(), offsets.data_ptr<int>(), (int)n_dirs};
+}
+
+tris::PathTilePlan tile_plan(int64_t kind, int64_t B, int64_t H, int64_t W, int64_t rf,
+                             const char* name) {
+  TORCH_CHECK(kind >= 0 && kind <= 2 && B >= 0 && rf >= 0 && H > rf && W > 2 * rf &&
+                  H < INT32_MAX && W < INT32_MAX,
+              name, ": shape out of range");
+  return tris::path_tile_plan((int)kind, B, (int)H, (int)W, (int)rf);
+}
+
+// K7's tiles' plan (launchers.h, path_tile_plan): kind 0 the fused loss's forward, 1 its
+// backward, 2 K7's backward.
+std::map<std::string, int64_t> path_tile_plan(int64_t kind, int64_t B, int64_t H, int64_t W,
+                                              int64_t rf) {
+  const tris::PathTilePlan p = tile_plan(kind, B, H, W, rf, "path_tile_plan");
+  return {{"rpt", p.rpt}, {"tile_rows", p.tile_rows}, {"tile_cols", p.tile_cols},
+          {"pitch", p.pitch}, {"staged_rows", p.staged_rows}, {"region_rows", p.region_rows},
+          {"tiles_y", p.tiles_y}, {"tiles_x", p.tiles_x}, {"blocks", p.blocks},
+          {"smem_bytes", p.smem}};
+}
+
 // K7 backward: edge [B, H, W]; g [B, n_dirs, H - rf, W - 2 * rf]; the path table.
 // Returns d edge [B, H, W].
 at::Tensor path_max_affinity_bwd(const at::Tensor& edge, const at::Tensor& g,
@@ -531,84 +564,83 @@ at::Tensor path_max_affinity_bwd(const at::Tensor& edge, const at::Tensor& g,
   const c10::cuda::CUDAGuard guard(dev);
   check(edge, "path_max_affinity_bwd: edge", at::kFloat, dev);
   check(g, "path_max_affinity_bwd: g", at::kFloat, dev);
-  check(steps, "path_max_affinity_bwd: steps", at::kInt, dev);
-  check(offsets, "path_max_affinity_bwd: offsets", at::kInt, dev);
+  const tris::PathSteps table = path_steps(steps, offsets, "path_max_affinity_bwd");
   const int64_t B = edge.size(0), H = edge.size(1), W = edge.size(2);
-  const int64_t n_dirs = offsets.size(0) - 1;
-  TORCH_CHECK(g.dim() == 4 && g.size(0) == B && g.size(1) == n_dirs && g.size(2) == H - rf &&
-                  g.size(3) == W - 2 * rf,
+  TORCH_CHECK(g.dim() == 4 && g.size(0) == B && g.size(1) == table.n_dirs &&
+                  g.size(2) == H - rf && g.size(3) == W - 2 * rf,
               "path_max_affinity_bwd: g does not match the edge map and the table");
-  // the path table's wrapper holds every path to at most 255 steps: a tie count fits a byte
-  at::Tensor pmax = at::empty_like(g), count = at::empty_like(g, g.options().dtype(at::kByte));
+  const tris::PathTilePlan plan =
+      tile_plan(tris::kPathMaxBackward, B, H, W, rf, "path_max_affinity_bwd");
   at::Tensor dedge = at::empty_like(edge);
-  launched(tris::path_max_affinity_bwd(edge.data_ptr<float>(), g.data_ptr<float>(),
-                                       pmax.data_ptr<float>(), count.data_ptr<unsigned char>(),
-                                       dedge.data_ptr<float>(), B, H, W, rf, n_dirs,
-                                       steps.data_ptr<int>(), offsets.data_ptr<int>(), stream()),
+  launched(tris::path_max_affinity_bwd(plan, table, edge.data_ptr<float>(), g.data_ptr<float>(),
+                                       dedge.data_ptr<float>(), H, W, rf, stream()),
            "path_max_affinity_bwd");
   return dedge;
 }
 
-// K8's inputs, forward and backward: labels uint8 [B, H, W]; aff [B, n_dirs, H - rf,
-// W - 2 * rf]; dp [B, 2, H, W]; dirs [n_dirs, 2] int32 (the wrapper checks that each (dy, dx)
-// lies in the window: 0 <= dy <= rf, |dx| <= rf).
-void check_irn_loss(const char* name, const at::Tensor& labels, const at::Tensor& aff,
-                    const at::Tensor& dp, const at::Tensor& dirs, int64_t rf) {
-  const at::Device dev = aff.device();
+// The fused loss's inputs, forward and backward: labels uint8 [B, H, W]; edge [B, H, W]; dp
+// [B, 2, H, W].
+void check_irn_affinity(const char* name, const at::Tensor& labels, const at::Tensor& edge,
+                        const at::Tensor& dp) {
+  const at::Device dev = edge.device();
   check(labels, (std::string(name) + ": labels").c_str(), at::kByte, dev);
-  check(aff, (std::string(name) + ": aff").c_str(), at::kFloat, dev);
+  check(edge, (std::string(name) + ": edge").c_str(), at::kFloat, dev);
   check(dp, (std::string(name) + ": dp").c_str(), at::kFloat, dev);
-  check(dirs, (std::string(name) + ": dirs").c_str(), at::kInt, dev);
-  TORCH_CHECK(labels.dim() == 3 && dirs.dim() == 2 && dirs.size(1) == 2, name,
-              ": expected labels [B, H, W] and dirs [n_dirs, 2]");
-  const int64_t B = labels.size(0), H = labels.size(1), W = labels.size(2);
-  TORCH_CHECK(aff.dim() == 4 && aff.size(0) == B && aff.size(1) == dirs.size(0) &&
-                  aff.size(2) == H - rf && aff.size(3) == W - 2 * rf && dp.dim() == 4 &&
-                  dp.size(0) == B && dp.size(1) == 2 && dp.size(2) == H && dp.size(3) == W,
-              name, ": aff, dp and labels do not match");
+  TORCH_CHECK(labels.dim() == 3 && edge.sizes() == labels.sizes() && dp.dim() == 4 &&
+                  dp.size(0) == labels.size(0) && dp.size(1) == 2 &&
+                  dp.size(2) == labels.size(1) && dp.size(3) == labels.size(2),
+              name, ": labels, edge and dp do not match");
 }
 
-// K8. Returns (sums [5] float32, counts [3] int64).
-std::vector<at::Tensor> irn_loss(const at::Tensor& labels, const at::Tensor& aff,
-                                 const at::Tensor& dp, const at::Tensor& dirs, int64_t rf,
-                                 double eps, double one_eps, int64_t max_valid) {
-  const c10::cuda::CUDAGuard guard(aff.device());
-  check_irn_loss("irn_loss", labels, aff, dp, dirs, rf);
+// K7 + K8, the IRN loss from the edge map. Returns (sums [5] float32, counts [3] int64).
+std::vector<at::Tensor> irn_affinity_loss(const at::Tensor& labels, const at::Tensor& edge,
+                                          const at::Tensor& dp, const at::Tensor& steps,
+                                          const at::Tensor& offsets, int64_t rf, double eps,
+                                          double one_eps, int64_t max_valid) {
+  const c10::cuda::CUDAGuard guard(edge.device());
+  check_irn_affinity("irn_affinity_loss", labels, edge, dp);
+  const tris::PathSteps table = path_steps(steps, offsets, "irn_affinity_loss");
   const int64_t B = labels.size(0), H = labels.size(1), W = labels.size(2);
-  const int64_t n_dirs = dirs.size(0);
-  const int64_t blocks = tris::irn_loss_blocks(aff.numel());
-  at::Tensor psum = at::empty({std::max<int64_t>(blocks, 1), 5}, aff.options().dtype(at::kDouble));
-  at::Tensor pcount = at::empty({std::max<int64_t>(blocks, 1), 3}, aff.options().dtype(at::kLong));
-  at::Tensor sums = at::empty({5}, aff.options());
-  at::Tensor counts = at::empty({3}, aff.options().dtype(at::kLong));
-  launched(tris::irn_loss(labels.data_ptr<unsigned char>(), aff.data_ptr<float>(),
-                          dp.data_ptr<float>(), dirs.data_ptr<int>(), psum.data_ptr<double>(),
-                          reinterpret_cast<long long*>(pcount.data_ptr<int64_t>()),
-                          sums.data_ptr<float>(),
-                          reinterpret_cast<long long*>(counts.data_ptr<int64_t>()), B, H, W, rf,
-                          n_dirs, (float)eps, (float)one_eps, (int)max_valid, stream()),
-           "irn_loss");
+  const tris::PathTilePlan plan =
+      tile_plan(tris::kPathLossForward, B, H, W, rf, "irn_affinity_loss");
+  const int64_t blocks = std::max<int64_t>(plan.blocks, 1);
+  at::Tensor psum = at::empty({blocks, 5}, edge.options().dtype(at::kDouble));
+  at::Tensor pcount = at::empty({blocks, 3}, edge.options().dtype(at::kLong));
+  at::Tensor sums = at::empty({5}, edge.options());
+  at::Tensor counts = at::empty({3}, edge.options().dtype(at::kLong));
+  launched(tris::irn_affinity_loss(plan, table, labels.data_ptr<unsigned char>(),
+                                   edge.data_ptr<float>(), dp.data_ptr<float>(),
+                                   psum.data_ptr<double>(),
+                                   reinterpret_cast<long long*>(pcount.data_ptr<int64_t>()),
+                                   sums.data_ptr<float>(),
+                                   reinterpret_cast<long long*>(counts.data_ptr<int64_t>()), H, W,
+                                   rf, (float)eps, (float)one_eps, (int)max_valid, stream()),
+           "irn_affinity_loss");
   return {sums, counts};
 }
 
-// K8 backward: gsum [5] float32, the gradients of the sums. Returns (d aff, d dp).
-std::vector<at::Tensor> irn_loss_bwd(const at::Tensor& labels, const at::Tensor& aff,
-                                     const at::Tensor& dp, const at::Tensor& dirs,
-                                     const at::Tensor& gsum, int64_t rf, double eps,
-                                     double one_eps, int64_t max_valid) {
-  const c10::cuda::CUDAGuard guard(aff.device());
-  check_irn_loss("irn_loss_bwd", labels, aff, dp, dirs, rf);
-  check(gsum, "irn_loss_bwd: gsum", at::kFloat, aff.device());
-  TORCH_CHECK(gsum.numel() == 5, "irn_loss_bwd: expected the 5 sums' gradients");
+// Its backward: gsum [5] float32, the gradients of the sums. Returns (d edge, d dp).
+std::vector<at::Tensor> irn_affinity_loss_bwd(const at::Tensor& labels, const at::Tensor& edge,
+                                              const at::Tensor& dp, const at::Tensor& gsum,
+                                              const at::Tensor& steps, const at::Tensor& offsets,
+                                              int64_t rf, double eps, double one_eps,
+                                              int64_t max_valid) {
+  const c10::cuda::CUDAGuard guard(edge.device());
+  check_irn_affinity("irn_affinity_loss_bwd", labels, edge, dp);
+  check(gsum, "irn_affinity_loss_bwd: gsum", at::kFloat, edge.device());
+  TORCH_CHECK(gsum.numel() == 5, "irn_affinity_loss_bwd: expected the 5 sums' gradients");
+  const tris::PathSteps table = path_steps(steps, offsets, "irn_affinity_loss_bwd");
   const int64_t B = labels.size(0), H = labels.size(1), W = labels.size(2);
-  at::Tensor daff = at::empty_like(aff), ddp = at::empty_like(dp);
-  launched(tris::irn_loss_bwd(labels.data_ptr<unsigned char>(), aff.data_ptr<float>(),
-                              dp.data_ptr<float>(), dirs.data_ptr<int>(), gsum.data_ptr<float>(),
-                              daff.data_ptr<float>(), ddp.data_ptr<float>(), B, H, W, rf,
-                              dirs.size(0), (float)eps, (float)one_eps, (int)max_valid,
-                              stream()),
-           "irn_loss_bwd");
-  return {daff, ddp};
+  const tris::PathTilePlan plan =
+      tile_plan(tris::kPathLossBackward, B, H, W, rf, "irn_affinity_loss_bwd");
+  at::Tensor dedge = at::empty_like(edge), ddp = at::empty_like(dp);
+  launched(tris::irn_affinity_loss_bwd(plan, table, labels.data_ptr<unsigned char>(),
+                                       edge.data_ptr<float>(), dp.data_ptr<float>(),
+                                       gsum.data_ptr<float>(), dedge.data_ptr<float>(),
+                                       ddp.data_ptr<float>(), H, W, rf, (float)eps,
+                                       (float)one_eps, (int)max_valid, stream()),
+           "irn_affinity_loss_bwd");
+  return {dedge, ddp};
 }
 
 // K9: disp [2, H, W]. Returns the int32 centroids [2, H, W].
@@ -1059,8 +1091,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("path_max_affinity", &path_max_affinity, "K7: 1 - max(edge along each pair's path)");
   m.def("bilinear_resize_bwd", &bilinear_resize_bwd, "K6 backward: the resize's adjoint");
   m.def("path_max_affinity_bwd", &path_max_affinity_bwd, "K7 backward, ties split evenly");
-  m.def("irn_loss", &irn_loss, "K8: IRN's masked loss sums and pair counts");
-  m.def("irn_loss_bwd", &irn_loss_bwd, "K8 backward: d aff and d dp");
+  m.def("path_tile_plan", &path_tile_plan, "K7's tiles: the blocks a fused loss or K7 bwd takes");
+  m.def("irn_affinity_loss", &irn_affinity_loss, "K7 + K8: IRN's loss sums and pair counts");
+  m.def("irn_affinity_loss_bwd", &irn_affinity_loss_bwd, "K7 + K8 backward: d edge and d dp");
   m.def("refine_centroids", &refine_centroids, "K9: centroid refinement by displacement");
   m.def("walk_transition", &walk_transition, "K10: the walk's column-normalised transition");
   m.def("walk_square", &walk_square, "K10: the walk's squarings on the FP64 tensor cores");

@@ -376,29 +376,105 @@ cudaError_t path_max_affinity(const float* edge, float* out, int64_t B, int H, i
                               int n_dirs, const int* steps, const int* offsets,
                               cudaStream_t stream);
 
-// K7 backward: edge [B, H, W]; g, and the scratch pmax (float) and count (one byte, so no path
-// has more than 255 steps), [B, n_dirs, H - rf, W - 2 * rf]; dedge [B, H, W]; the forward's
-// path table.
-cudaError_t path_max_affinity_bwd(const float* edge, const float* g, float* pmax,
-                                  unsigned char* count, float* dedge, int64_t B, int H, int W,
-                                  int rf, int n_dirs, const int* steps, const int* offsets,
+// K7's tiles (path_max_tiles.cuh): K7's backward and the IRN loss fused with K7 (K7 + K8,
+// irn_affinity.cu). A block takes one image's tile of kPathTileCols columns and
+// kPathThreads / kPathTileCols * rpt rows: a warp on consecutive columns of a row, each
+// thread rpt rows 8 apart. The loss's forward tiles the pair window [H - rf, W - 2 rf] of
+// source pixels, each taking every direction of the table in turn; the backwards tile the
+// [H, W] pixels, each gathering over every direction and step in table order. Shared memory
+// holds the edge map (the loss: with the labels and dp) over the tile and its halo, rows of
+// pitch = kPathTileCols + 2 rf values (the forward tile_rows + rf rows from its first
+// source row; a backward tile_rows + 2 rf rows from rf above its first pixel, rf left of its
+// first column), and, in a backward, one direction at a time, the path max and the cotangent
+// over the tie count (double) of every pair whose path reaches the tile (at most tile_rows +
+// rf rows of pitch). rpt: halved from kPathRowsPerThread while the grid is below
+// kPathWaveBlocks. The path table travels as a kernel parameter of at most kPathTableSteps
+// steps and kPathTableDirs directions; a block copies its steps' offsets to shared memory,
+// whence a warp reads each step's at once.
+constexpr int kPathTileCols = 32;
+constexpr int kPathThreads = 256;
+constexpr int kPathRowsPerThread = 4;
+constexpr int kPathPairs = 2;          // a backward's pairs a thread takes at once
+constexpr int kPathWaveBlocks = 264;   // 2 blocks an SM of 132
+constexpr int kPathTableSteps = 4096;  // radius 12: 3606 steps
+constexpr int kPathTableDirs = 256;    // radius 12: 218 directions
+// what a plan tiles
+constexpr int kPathLossForward = 0;    // the fused loss's forward: pairs, edge + labels + dp
+constexpr int kPathLossBackward = 1;   // its backward: pixels, edge + labels + dp
+constexpr int kPathMaxBackward = 2;    // K7's backward: pixels, edge
+
+struct PathTilePlan {
+  int rpt;          // rows a thread
+  int tile_rows;    // kPathThreads / kPathTileCols * rpt
+  int tile_cols;    // kPathTileCols
+  int pitch;        // values of a staged row: tile_cols + 2 rf
+  int staged_rows;  // forward tile_rows + rf, backward tile_rows + 2 rf
+  int region_rows;  // a backward's pairs a direction: tile_rows + rf (forward 0)
+  int tiles_y, tiles_x;
+  long long blocks;
+  long long smem;   // bytes of dynamic shared memory a block
+};
+
+// The tiles of `kind` over B images of [H, W] at radius floor rf (H > rf, W > 2 rf).
+constexpr PathTilePlan path_tile_plan(int kind, long long B, int H, int W, int rf) {
+  PathTilePlan p = {};
+  const bool fwd = kind == kPathLossForward;
+  const int rows = fwd ? H - rf : H, cols = fwd ? W - 2 * rf : W;
+  const int warps = kPathThreads / kPathTileCols;
+  p.tile_cols = kPathTileCols;
+  p.tiles_x = (cols + kPathTileCols - 1) / kPathTileCols;
+  p.rpt = kPathRowsPerThread;
+  while (p.rpt > 1 && B * ((rows + warps * p.rpt - 1) / (warps * p.rpt)) * p.tiles_x <
+                          kPathWaveBlocks)
+    p.rpt /= 2;
+  p.tile_rows = warps * p.rpt;
+  p.tiles_y = (rows + p.tile_rows - 1) / p.tile_rows;
+  p.blocks = B * p.tiles_y * p.tiles_x;
+  p.pitch = kPathTileCols + 2 * rf;
+  p.staged_rows = p.tile_rows + (fwd ? rf : 2 * rf);
+  p.region_rows = fwd ? 0 : p.tile_rows + rf;
+  // the table's step offsets (int16) first, then a backward's q (double) and path max, the
+  // edge map, dp's two planes, the labels
+  const long long staged = (long long)p.staged_rows * p.pitch;
+  const long long region = (long long)p.region_rows * p.pitch;
+  p.smem = 2LL * kPathTableSteps +
+           (region * 12 + staged * (kind == kPathMaxBackward ? 4 : 13) + 15) / 16 * 16;
+  return p;
+}
+
+// A path table in host memory: steps [n_steps, 2] the (dy, dx) of every direction's path,
+// direction d's at [offsets[d], offsets[d + 1]), its first step the pair's destination; every
+// step within 0 <= dy <= rf, |dx| <= rf; n_steps <= kPathTableSteps, n_dirs <= kPathTableDirs
+// (the wrappers check).
+struct PathSteps {
+  const int* steps;
+  const int* offsets;
+  int n_dirs;
+};
+
+// K7 backward as `plan` (kPathMaxBackward) says: edge [B, H, W]; g [B, n_dirs, H - rf,
+// W - 2 rf]; dedge [B, H, W].
+cudaError_t path_max_affinity_bwd(const PathTilePlan& plan, const PathSteps& table,
+                                  const float* edge, const float* g, float* dedge, int H, int W,
+                                  int rf, cudaStream_t stream);
+
+// K7 + K8, the IRN loss from the edge map, as `plan` (kPathLossForward) says: labels uint8
+// [B, H, W]; edge [B, H, W]; dp [B, 2, H, W]; scratch psum [plan.blocks, 5] and pcount
+// [plan.blocks, 3]; sums [5] float and counts [3] int64 on the device. A pair is valid where
+// both its labels are below max_valid.
+cudaError_t irn_affinity_loss(const PathTilePlan& plan, const PathSteps& table,
+                              const unsigned char* labels, const float* edge, const float* dp,
+                              double* psum, long long* pcount, float* sums, long long* counts,
+                              int H, int W, int rf, float eps, float one_eps, int max_valid,
+                              cudaStream_t stream);
+
+// Its backward as `plan` (kPathLossBackward) says: gsum [5] the sums' gradients on the
+// device; dedge as edge, ddp as dp.
+cudaError_t irn_affinity_loss_bwd(const PathTilePlan& plan, const PathSteps& table,
+                                  const unsigned char* labels, const float* edge,
+                                  const float* dp, const float* gsum, float* dedge, float* ddp,
+                                  int H, int W, int rf, float eps, float one_eps, int max_valid,
                                   cudaStream_t stream);
-
-// K8: labels uint8 [B, H, W]; aff [B, n_dirs, H - rf, W - 2 * rf]; dp [B, 2, H, W]; dirs
-// [n_dirs, 2] each direction's (dy, dx); scratch psum [blocks, 5] and pcount [blocks, 3] with
-// blocks = irn_loss_blocks(aff's numel); sums [5] float and counts [3] int64 on the device.
-// A pair is valid where both its labels are below max_valid.
-int irn_loss_blocks(int64_t n);
-cudaError_t irn_loss(const unsigned char* labels, const float* aff, const float* dp,
-                     const int* dirs, double* psum, long long* pcount, float* sums,
-                     long long* counts, int64_t B, int H, int W, int rf, int n_dirs, float eps,
-                     float one_eps, int max_valid, cudaStream_t stream);
-
-// K8 backward: gsum [5] the sums' gradients on the device; daff as aff, ddp as dp.
-cudaError_t irn_loss_bwd(const unsigned char* labels, const float* aff, const float* dp,
-                         const int* dirs, const float* gsum, float* daff, float* ddp, int64_t B,
-                         int H, int W, int rf, int n_dirs, float eps, float one_eps,
-                         int max_valid, cudaStream_t stream);
 
 // K9: disp [2, H, W]; out int32 [2, H, W], the rounded centroids after `iterations` steps.
 cudaError_t refine_centroids(const float* disp, int* out, int H, int W, int iterations,

@@ -1,6 +1,7 @@
-"""K8: IRNet's affinity and displacement losses as masked sums, with the pair
-labels built on the fly (``csrc/irn_loss.cu``), forward and backward, and
-the plain PyTorch version.
+"""K8: IRNet's affinity and displacement losses as masked sums with the pair
+labels built from the label map: the plain PyTorch version, its constants
+and its pieces. On the card K8 is fused with K7 (``kernels/irn_affinity.py``,
+``csrc/irn_affinity.cu``), so no affinity field is written there.
 
 Replaces ``tris_tpu/pseudo/train_irn.py::affinity_labels_on_device`` and the
 masked sums of ``irn_loss`` (lines 91-157), with the loss fields of
@@ -11,10 +12,7 @@ returns the five sums (the bg-positive, fg-positive and negative affinity
 losses, the fg and bg displacement losses) and the three pair counts (bg
 positive, fg positive, negative) as int64: at B = 24 a mask has 47.7 M
 entries, beyond float32's exact integers, where the JAX package's float32
-``mask.sum()`` depends on the order of its sum. The kernel never writes the
-masks or the pair-displacement fields; its sums are in a fixed order. On a
-CUDA tensor it is a ``torch.autograd.Function`` whose backward, a kernel
-too, gives the gradients of the affinity and the displacement field.
+``mask.sum()`` depends on the order of its sum.
 """
 
 from __future__ import annotations
@@ -81,10 +79,12 @@ def loss_fields(aff, dp, search_dst, rf: int):
     """IRN's per-pair loss fields (resnet50_irn.py:204-222 of the reference)
     from the affinity ``[B, n_dirs, ...]`` and the displacement field
     ``[B, 2, H, W]``: (pos_aff_loss, neg_aff_loss) of aff's shape and
-    (dp_fg_loss, dp_bg_loss) ``[B, 2, n_dirs, H - rf, W - 2 rf]``."""
+    (dp_fg_loss, dp_bg_loss) ``[B, 2, n_dirs, H - rf, W - 2 rf]``. The
+    constants are float32's (``EPS``, ``ONE_EPS``) in any dtype, so a float64
+    run differs from float32's by the rounding of the arithmetic alone."""
     pair = pair_displacement(dp, search_dst, rf)
     target = torch.as_tensor(np.asarray(search_dst, np.float32).T, device=dp.device)
-    return (-torch.log(aff + 1e-5), -torch.log(1.0 + 1e-5 - aff),
+    return (-torch.log(aff + EPS), -torch.log(ONE_EPS - aff),
             (pair - target[None, :, :, None, None]).abs(), pair.abs())
 
 
@@ -109,43 +109,14 @@ def _dirs_table(search_dst: tuple, rf: int, device: torch.device):
     return torch.as_tensor(dirs, device=device)
 
 
-class _IrnLoss(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, aff, dp, labels, dirs, rf, save):
-        sums, counts = build.ops().irn_loss(labels, aff, dp, dirs, rf, EPS, ONE_EPS, MAX_VALID)
-        build.count("irn_loss", n=2)
-        ctx.rf = rf
-        ctx.mark_non_differentiable(counts)
-        if save:  # nothing is kept when neither input needs a gradient
-            ctx.save_for_backward(aff, dp, labels, dirs)
-        return sums, counts
-
-    @staticmethod
-    def backward(ctx, g_sums, g_counts):
-        aff, dp, labels, dirs = ctx.saved_tensors
-        d_aff, d_dp = build.ops().irn_loss_bwd(labels, aff, dp, dirs, g_sums.contiguous(), ctx.rf,
-                                               EPS, ONE_EPS, MAX_VALID)
-        build.count("irn_loss_bwd", n=2)
-        return d_aff, d_dp, None, None, None, None
-
-
 def irn_loss(labels, aff, dp, search_dst, rf: int):
-    """K8 on CUDA tensors (two launches forward, two backward); the plain
-    version on CPU tensors. labels uint8 ``[B, H, W]``, aff ``[B, n_dirs,
-    H - rf, W - 2 rf]`` (K7's output), dp ``[B, 2, H, W]`` float32 ->
-    (sums [5] float32, counts [3] int64); a pair counts where both its
-    labels are below ``MAX_VALID``."""
+    """The plain version on CPU tensors. labels uint8 ``[B, H, W]``, aff
+    ``[B, n_dirs, H - rf, W - 2 rf]`` (K7's output), dp ``[B, 2, H, W]``
+    float32 -> (sums [5] float32, counts [3] int64); a pair counts where both
+    its labels are below ``MAX_VALID``. On the card the loss takes the edge
+    map instead (``irn_affinity_loss``): no kernel reads an affinity field."""
     if aff.device.type == "cpu":
         return irn_loss_plain(labels, aff, dp, search_dst, rf)
     build.require_cuda_f32("irn_loss", aff, dp, labels)
-    B, H, W = labels.shape
-    n_dirs = len(search_dst)
-    if (labels.dtype != torch.uint8 or aff.shape != (B, n_dirs, H - rf, W - 2 * rf)
-            or dp.shape != (B, 2, H, W)):
-        raise ValueError(f"irn_loss: bad inputs labels {labels.dtype} {tuple(labels.shape)}, "
-                         f"aff {tuple(aff.shape)}, dp {tuple(dp.shape)}, {n_dirs} directions, "
-                         f"rf {rf}")
-    dirs = _dirs_table(tuple(map(tuple, np.asarray(search_dst).tolist())), int(rf), aff.device)
-    save = torch.is_grad_enabled() and (aff.requires_grad or dp.requires_grad)
-    return _IrnLoss.apply(aff.contiguous(), dp.contiguous(), labels.contiguous(), dirs, int(rf),
-                          save)
+    raise ValueError("irn_loss: no kernel takes the affinity on the card; call "
+                     "kernels.irn_affinity_loss(labels, edge, dp, path_index) with the edge map")

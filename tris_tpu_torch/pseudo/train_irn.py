@@ -5,9 +5,10 @@ Port of ``tris_tpu/pseudo/train_irn.py``: the frozen-trunk forward, the
 affinity and displacement losses, and SGD with a per-step poly learning
 rate ``(1 - t/T)^0.9``, the displacement heads at 10x the rate of the edge
 heads (train_irn.py:33-36 of the reference). On the device-label feed the
-pair affinities are K7 and the masked losses K8, whose backward kernels
-give the gradients; the host-mask feed, which reads the reference's
-precomputed masks, has no kernel and runs on the CPU only.
+pair affinities (K7) and the masked losses (K8) are one fused kernel from
+the edge map to the sums, whose backward kernel gives the gradients; the
+host-mask feed, which reads the reference's precomputed masks, has no
+kernel and runs on the CPU only.
 
 The reference's quirk is kept: its ``PolyOptimizer`` passes
 ``weight_decay`` into SGD's momentum slot (IRNet/misc/torchutils.py:9-11),
@@ -93,7 +94,8 @@ def losses_from_sums(sums: torch.Tensor, counts: torch.Tensor) -> dict:
 def irn_loss(model: IRNet, path_index, batch: dict) -> dict:
     """The loss and its terms for a batch on the model's device: ``image``
     [B, 3, H, W] and either ``reduced_label`` uint8 [B, h4, w4] (the
-    device-label feed: K7, then K8's fused masks and sums) or the host
+    device-label feed: K7 and K8 fused, from the edge map to the masked
+    sums, the affinity never written) or the host
     masks ``aff_bg_pos``, ``aff_fg_pos``, ``aff_neg`` [B, n_dirs, n_pairs]
     (the loss fields, then the masked sums: the plain version, so on CPU
     tensors only)."""
@@ -101,11 +103,9 @@ def irn_loss(model: IRNet, path_index, batch: dict) -> dict:
         raise ValueError("irn_loss: the host-mask feed has no kernel; on "
                          f"{batch['image'].device} feed reduced_label (labels='device')")
     edge_out, dp_out = model(batch["image"])
-    rf = path_index.radius_floor
     if "reduced_label" in batch:
-        aff = K.path_max_affinity(torch.sigmoid(edge_out[:, 0]), path_index.paths_by_length, rf)
         lab = batch["reduced_label"].reshape(edge_out.shape[0], *path_index.size)
-        sums, counts = K.irn_loss(lab, aff, dp_out, path_index.search_dst, rf)
+        sums, counts = K.irn_affinity_loss(lab, torch.sigmoid(edge_out[:, 0]), dp_out, path_index)
     else:
         pos_aff, neg_aff, dp_fg, dp_bg = affinity_displacement_losses(edge_out, dp_out,
                                                                       path_index)

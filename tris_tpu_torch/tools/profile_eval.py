@@ -17,11 +17,12 @@ pass, a seeded full-width IRNet's forward, K9, the host clustering, the
 walk, the upsample and the host detection, on a synthetic image and CAM;
 with ``--train_irn``: one IRN ``train_step`` at crop 512, radius 10 and
 ``--batch`` (24 unless given) of a seeded full-width IRNet on a synthetic
-batch, forward, K7, K8, backward and SGD update; with ``--train_stage2``:
-one stage-2 ``train_step`` of seeded full-width RN50 stage 2 with the EMA
-teacher at the default gate (an update every 10 steps, after 100) and
-consistency mse on a u8 batch of ``--batch`` (48 unless given) images and
-random 0/1 pseudo-masks, student and teacher forward, backward, AdamW), then
+batch, forward, the loss fused with K7 (K7 + K8), backward and SGD update;
+with ``--train_stage2``: one stage-2 ``train_step`` of seeded full-width
+RN50 stage 2 with the EMA teacher at the default gate (an update every 10
+steps, after 100) and consistency mse on a u8 batch of ``--batch`` (48
+unless given) images and random 0/1 pseudo-masks, student and teacher
+forward, backward, AdamW), then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times; one stream, so they do not overlap) and its idle share, and the
@@ -50,11 +51,10 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "head_bwd_kernel", "maps_bwd_kernel", "eval_metrics_kernel",
                 "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel",
                 "bilinear_resize_kernel", "bilinear_resize_bwd_kernel", "path_max_kernel",
-                "path_max_prep_kernel", "path_max_gather_kernel", "irn_loss_partial_kernel",
-                "irn_loss_final_kernel", "irn_loss_daff_kernel", "irn_loss_ddp_kernel",
-                "refine_centroids_kernel", "walk_transition_kernel", "walk_square_kernel",
-                "walk_thin_kernel", "walk_tile_occupancy_kernel",
-                "pixel_attn_kernel", "pixel_attn_bwd_probs_dq_kernel", "pixel_attn_bwd_dkv_kernel",
+                "path_max_gather_kernel", "irn_affinity_loss_kernel",
+                "irn_affinity_loss_final_kernel", "refine_centroids_kernel",
+                "walk_transition_kernel", "walk_square_kernel", "walk_thin_kernel",
+                "walk_tile_occupancy_kernel", "pixel_attn_kernel", "pixel_attn_bwd_probs_dq_kernel", "pixel_attn_bwd_dkv_kernel",
                 "ema_update_kernel", "batch_norm_fwd_fused_kernel", "batch_norm_bwd_fused_kernel",
                 "batch_norm_bwd_slope_kernel", "batch_norm_stats_partial_kernel",
                 "batch_norm_stats_final_kernel", "batch_norm_apply_kernel",
