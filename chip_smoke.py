@@ -13,7 +13,8 @@ holds every number):
              compiles the sources in parallel);
 3. kernels - each kernel against its plain PyTorch version on the card at
              the main paths' shapes (K1 at the text towers', the ViT
-             critic's and attnpool's; K4 at stage-1 eval's, on PRMS's
+             critic's and attnpool's; K3's eval head with its plan and
+             cluster; K4 at stage-1 eval's, on PRMS's
              selected maps and writing the normalised planes PRMS saves,
              each with its plan and launch shape; the backward kernels and K3's training head at
              the stage-1 train step's, K1's and K2's backward twice, bit for
@@ -21,7 +22,8 @@ holds every number):
              grids their launchers made; K6's bilinear
              half (each forward row with its plan and launch shape), K7, K9
              and K10 at a 480x640 image's IRNet pass; K6's
-             bilinear backward, K7's forward, K7's backward (ties planted)
+             bilinear backward (each row with its plan and launch shape, as
+             at stage 2's shapes), K7's forward, K7's backward (ties planted)
              and the loss fused with K7 (K7 + K8: sums, counts and
              gradients, each twice bit for bit, the peak memory of forward
              and backward) at IRN training's B=24, crop 512, radius 10, the
@@ -423,7 +425,8 @@ def resize_bwd_row(K, failures, name, x, cot):
     """K6 bilinear backward (align_corners=False) from ``x`` to the size of
     the cotangent ``cot``: 1e-5 of the gradient's scale (the plain version's
     index backward adds with atomics, in another order); ``F.interpolate``'s
-    backward as the library."""
+    backward as the library; with the plan the extension gave and the launch
+    it made."""
     import torch.nn.functional as F
 
     (x,) = leaves(x)
@@ -432,12 +435,16 @@ def resize_bwd_row(K, failures, name, x, cot):
     plain = lambda t: K.bilinear_resize_plain(t, size, False)  # noqa: E731
     lib = lambda t: F.interpolate(t, size=size, mode="bilinear", align_corners=False)  # noqa: E731
     got, want = input_grads(kern, [x], cot)[0], input_grads(plain, [x], cot)[0]
+    launch = K.bilinear_resize_bwd_launch_shape()
     scale = float(want.abs().max())
+    planes = math.prod(x.shape[:-2])
     return measure_row(failures, name, max_err(got, want), 1e-5 * scale,
                        bwd_ms(kern, [x], cot), bwd_ms(plain, [x], cot, 5),
                        4 * (cot[0].numel() + x.numel()), 8 * cot[0].numel(),
                        bwd_ms(lib, [x], cot), shape=[*x.shape, *size], scale=scale,
-                       library_max_abs_err=max_err(got, input_grads(lib, [x], cot)[0]))
+                       library_max_abs_err=max_err(got, input_grads(lib, [x], cot)[0]),
+                       plan=K.bilinear_resize_bwd_plan(planes, *x.shape[-2:], *size),
+                       launch_shape=launch)
 
 
 # ---- phase 3: each kernel against its plain version -------------------------
@@ -526,6 +533,7 @@ def check_kernels(K, dev):
     hs = SIZE // 32
     args = (vis_new, vis_base, lan, S, scale, 0.1, (hs, hs), (SIZE, SIZE))
     err = max_err(K.response_head(*args), K.response_head_plain(*args))
+    launch = K.response_head_launch_shape()
     rows.append(kernel_row(
         "response_head", "tris_tpu_torch/kernels/csrc/response_head.cu",
         "tris_tpu/models/stage1.py:158",
@@ -533,7 +541,8 @@ def check_kernels(K, dev):
                 device_ms(lambda: K.response_head(*args)),
                 device_ms(lambda: K.response_head_plain(*args)),
                 4 * (P * hw * D + B * hw * D + P * D + P * SIZE * SIZE),
-                P * hw * D * 4 + P * SIZE * SIZE * 7, None, shape=[B, S, hw, D, SIZE])))
+                P * hw * D * 4 + P * SIZE * SIZE * 7, None, shape=[B, S, hw, D, SIZE],
+                plan=K.response_head_plan(P, S, hs, hs, D, SIZE, SIZE), launch_shape=launch)))
 
     # K4 at one eval batch's shape: [8, 4] relu maps of 320x320 to mixed
     # original sizes up to 640x640; and on PRMS's selected maps [8, 1]

@@ -78,19 +78,27 @@ def test_loader_raises_a_missing_image_instead_of_hanging(refdata, tmp_path):
     assert "COCO_train2014_000000000002.jpg" in str(err)
 
 
-def test_loader_workers_end_when_the_consumer_stops_early(refdata):
+def test_loader_workers_end_when_the_consumer_stops_early(refdata, monkeypatch):
     # one batch taken, then the generator closed: every worker ends (none
-    # stays blocked on the full queue). The loader's workers are the new
-    # threads named as threaded_in_order names them: a thread that another
-    # library starts meanwhile is not one
+    # stays blocked on the full queue). The loader's workers are the threads
+    # started meanwhile under the name threaded_in_order gives them (a thread
+    # that another library starts is not one), recorded as they start: a
+    # worker may already have built its share and ended before the first
+    # batch is out, and would be missing from threading.enumerate() then
     from tris_tpu_torch.utils.threads import WORKER_NAME
 
+    started = []
+
+    class Recorded(threading.Thread):
+        def start(self):
+            started.append(self)
+            super().start()
+
+    monkeypatch.setattr(threading, "Thread", Recorded)
     ds = ReferSegDataset(refdata, "refcoco", "unc", "train", size=32)
-    before = set(threading.enumerate())
     it = Loader(ds, 1, shuffle=False, num_threads=2).epoch(0)
     assert next(it)["image"].shape == (1, 32, 32, 3)
-    workers = [t for t in threading.enumerate()
-               if t not in before and t.name.startswith(WORKER_NAME + "-")]
+    workers = [t for t in started if t.name.startswith(WORKER_NAME + "-")]
     assert len(workers) == 2
     it.close()
     deadline = time.time() + TIMEOUT_S

@@ -5,9 +5,9 @@ The fused loss's plain route (K7's plain affinity, then K8's plain masked
 sums) against the JAX package's ``path_max_affinity_slices``, pair labels and
 ``irn_loss``'s masked sums, and their ``jax.vjp`` with respect to the edge
 map and the displacement field: sums within 1e-5 relative, counts exact,
-d edge and d dp within 1e-5 of their scales (JAX sums in float32), on
-displacements with no pair exactly at its target (there JAX's ``abs`` has
-slope 1, torch's and the kernels' 0). The same for
+d edge and d dp within 1e-5 of their scales (JAX sums in float32), also
+on displacements with pairs exactly at their targets, where the port takes
+``abs``' slope as JAX does (1 at 0; torch's ``abs`` would take 0). The same for
 ``tris_tpu_torch/tools/irn_affinity_schedule.py``'s emulation of the
 kernels' arithmetic. The emulation of the tiles, with the constants of
 ``csrc/launchers.h``: each pair of the forward summed by one block; each
@@ -54,7 +54,7 @@ def _inputs(B, H, W, seed, edge="random", zeros=True):
     else:
         e = rng.random((B, H, W), dtype=np.float32)
     dp = (3 * rng.standard_normal((B, 2, H, W))).astype(np.float32)
-    if zeros:   # exact zeros of |pair - target|, where JAX's abs has slope 1 and torch's 0
+    if zeros:   # exact zeros of |pair - target|, where JAX's abs has slope 1 (torch's: 0)
         dp[:, :, :H // 4] = np.round(dp[:, :, :H // 4])
     return labels, e, dp
 
@@ -86,10 +86,10 @@ def _jax_fn(radius, H, W):
 
 
 @functools.lru_cache(maxsize=8)
-def _case(B, H, W, radius, edge):
-    """A case's inputs (no pair displacement exactly at its target) and JAX's
-    (sums, counts, d edge, d dp)."""
-    labels, e, dp = _inputs(B, H, W, radius + H, edge, zeros=False)
+def _case(B, H, W, radius, edge, zeros=False):
+    """A case's inputs (with ``zeros``, pair displacements planted exactly at
+    their targets) and JAX's (sums, counts, d edge, d dp)."""
+    labels, e, dp = _inputs(B, H, W, radius + H, edge, zeros=zeros)
     want = tuple(np.asarray(x) for x in _jax_fn(radius, H, W)(e, dp, labels))
     return (labels, e, dp), want
 
@@ -132,6 +132,27 @@ def test_kernel_arithmetic_matches_jax(B, H, W, radius, edge):
                                     K8.MAX_VALID)
     assert _scaled_err(d_edge, want_de) <= 1e-5
     assert _scaled_err(d_dp, want_ddp) <= 1e-5
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel_arithmetic"])
+@pytest.mark.parametrize("B,H,W,radius,edge", CASES[:2])
+def test_abs_slope_at_zero_follows_jax(B, H, W, radius, edge, route):
+    # pair displacements exactly at their targets (and bg pairs exactly 0): JAX's abs has
+    # slope 1 there (jax.grad(jnp.abs)(0.0) == 1), so d dp follows JAX, not torch's sign()
+    (labels, e, dp), (_, _, _, want_ddp) = _case(B, H, W, radius, edge, zeros=True)
+    pi = PathIndex(radius, (H, W))
+    steps, rf = K7.path_steps(pi.paths_by_length), pi.radius_floor
+    pairs = T._windows(dp[:, 0], [(0, 0), (1, 0)], rf)
+    assert (pairs[0] == pairs[1]).sum() > 0      # some differences are exact zeros
+    if route == "plain":
+        dpt = torch.from_numpy(dp).requires_grad_()
+        sums, _ = kernels.irn_affinity_loss(torch.from_numpy(labels), torch.from_numpy(e), dpt, pi)
+        (sums * torch.from_numpy(W5)).sum().backward()
+        got = dpt.grad.numpy()
+    else:
+        got = T.fused_backward(labels, e, dp, W5, steps, rf, K8.EPS, K8.ONE_EPS,
+                               K8.MAX_VALID)[1]
+    assert _scaled_err(got, want_ddp) <= 1e-5
 
 
 @pytest.mark.parametrize("B,H,W,radius,edge", CASES + [(1, 45, 77, 10, "tied")])

@@ -11,7 +11,9 @@ machine need not have.)
 Shapes are small but cover the edges the main path does not: K1 across its
 length and head-dim buckets' edges (L up to 128, hd 32 to 128), with 4-byte
 loads where C % 4 != 0, its grids against the schedule tool's and its
-backward bit for bit from run to run, several text tokens in K2, K3 without the fusion, ties in
+backward bit for bit from run to run, several text tokens in K2, K3 without the fusion and
+bit for bit with the schedule tool's emulation of its clusters (pair counts not a multiple
+of R, S = 1, ragged shares), ties in
 K4's peak, K5 at equal sizes (identity taps), K6 on odd shapes, and the
 inputs every wrapper refuses. K2 also at its tiles' edges (HW and T
 across 32-row tiles and 32-key slots up to the 256 keys a tile holds, S > 1,
@@ -23,7 +25,8 @@ narrowest grids, K9 with centroids clamped on the edge, K10's transition
 on the walk's buckets and its banded products (squarings, the thin step,
 partial tiles, M across the thin kernel's bound, subnormals, one nonzero per
 tile, an all-zero operand, skip against no skip) and occupancy maps. IRN
-training's backward kernels: K6's bilinear backward,
+training's backward kernels: K6's bilinear backward (bit for bit with the schedule tool's
+emulation of its bands, ragged and across planes, and of its direct path),
 K7's tiled backward with ties planted (the gradient split evenly among them)
 and the IRN loss fused with K7 from the edge map (pair labels and masked
 sums, forward and backward), at radius 5 and 10, odd sizes, ragged last
@@ -228,6 +231,46 @@ def test_cross_attn_refuses_widths_beyond_its_tiles(randn):
     for m in (66, 2052):
         with pytest.raises(ValueError, match=f"do not take m = {m}"):
             call(m)
+
+
+# (N images, S sentences, h, w, D, H, W, fused): the eval batch's shape (R = 4), S = 1 (the
+# eval forward, R = 8), pair counts that are not a multiple of R (33 at R = 4, 13 at R = 8),
+# ragged pixel shares and row bands, W % 4 != 0 (a column a thread), one pair
+K3_CASES = [(8, 4, 10, 10, 1024, 320, 320, True), (8, 1, 10, 10, 1024, 320, 320, True),
+            (11, 3, 5, 7, 32, 37, 41, False), (13, 1, 4, 6, 48, 64, 64, True),
+            (1, 1, 1, 1, 40, 9, 10, False), (40, 4, 3, 3, 16, 24, 24, True)]
+
+
+@pytest.mark.parametrize("N,S,h,w,D,H,W,fused", K3_CASES)
+def test_response_head_equals_the_emulation(dev, N, S, h, w, D, H, W, fused):
+    # bit for bit with the schedule tool's emulation of the cluster (each lane's fmaf chain,
+    # the shuffles' sum, the upsample's products and sums rounded alone), with the plan the
+    # tool gives and the launch the extension made
+    from tris_tpu_torch.tools import response_head_schedule as RH
+
+    g = torch.Generator(device=dev).manual_seed(N + D)
+    vis_base = F.normalize(torch.randn(N, h * w, D, generator=g, device=dev), dim=-1)
+    vis_new = torch.randn(N * S, h * w, D, generator=g, device=dev) if fused else None
+    lan = F.normalize(torch.randn(N * S, D, generator=g, device=dev), dim=-1)
+    scale = torch.tensor(1 / 0.07, device=dev)
+    got = K.response_head(vis_new, vis_base, lan, S, scale, 0.1, (h, w), (H, W))
+    plan = K.response_head_plan(N * S, S, h, w, D, H, W)
+    assert plan == RH.plan(N * S, S, h, w, D, H, W)
+    assert K.response_head_launch_shape() == {
+        "blocks": plan["blocks"], "cluster": plan["ranks"], "threads": plan["threads"],
+        "vec": plan["vec"], "smem_bytes": plan["smem_bytes"]}
+    want = RH.emulate(None if vis_new is None else vis_new.cpu().numpy(), vis_base.cpu().numpy(),
+                      lan.cpu().numpy(), S, float(scale), 0.1, (h, w), (H, W))
+    assert torch.equal(got.cpu(), torch.from_numpy(want))
+
+
+def test_response_head_refuses(dev):
+    z = torch.zeros(1, 4, 8, device=dev)
+    with pytest.raises(ValueError, match="bad shape"):
+        K.response_head_plan(70000, 1, 2, 2, 8, 16, 16)
+    with pytest.raises(ValueError, match="fit shared memory"):
+        K.response_head(None, torch.zeros(1, 240 * 240, 8, device=dev), z[:, 0], 1,
+                        torch.tensor(1.0, device=dev), 0.1, (240, 240), (480, 480))
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -971,6 +1014,42 @@ def test_bilinear_resize_bwd(randn, shape, size, align_corners):
     assert _err(got, want) <= 1e-5 * scale
     assert _err(got, lib_g) <= 1e-4 * scale
     assert torch.equal(got, _input_grads(kern, x, upstream=up)[0])   # no atomics: run to run
+
+
+@pytest.mark.parametrize("shape,size,align_corners", [
+    ((6, 256, 64, 64), (128, 128), False),   # the dp6 tap at 6 images: bands of 16
+    ((651, 13, 12), (26, 24), True),         # bands of 16 across planes, a last band of 15
+    ((300, 20, 20), (320, 320), False),      # the heads' x16: bands of 2 rows, 82 KB staged
+    ((48, 64, 10, 10), (20, 20), False),     # decoder c4: w % 4 != 0, a column a thread
+    ((24, 32, 32, 32), (128, 128), False),   # the edge taps' x4: R's lanes on rows
+    ((5, 7, 9), (13, 4), True), ((1, 1, 1), (3, 5), False), ((4, 6), (4, 11), False),
+    ((2, 9, 13), (5, 6), False),             # a shrink: taps skip inputs
+    ((1, 2, 3000), (2, 70000), False)])      # a row's span past shared memory: direct
+def test_bilinear_resize_bwd_equals_the_emulation(dev, shape, size, align_corners):
+    # bit for bit with the schedule tool's emulation of the bands (the first design's fmaf
+    # chains in its order), with the plan the tool gives and the launch the extension made
+    from tris_tpu_torch.tools import resize_schedule as RS
+
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    x = torch.randn(*shape, generator=g, device=dev, requires_grad=True)
+    up = torch.randn(*shape[:-2], *size, generator=g, device=dev)
+    K.reset_launches()
+    (got,) = torch.autograd.grad(K.bilinear_resize(x, size, align_corners), x, up)
+    planes = math.prod(shape[:-2])
+    plan = K.bilinear_resize_bwd_plan(planes, *shape[-2:], *size)
+    assert plan == RS.bwd_plan(planes, *shape[-2:], *size)
+    assert K.bilinear_resize_bwd_launch_shape() == {
+        "blocks": plan["blocks"], "threads": plan["threads"], "band": plan["band"],
+        "span_rows": plan["span_rows"], "vec": plan["vec"], "staged": plan["staged"],
+        "smem_bytes": plan["smem_bytes"]}
+    want = RS.direct_resize_bwd(up.cpu(), shape[-2:], align_corners) if not plan["staged"] \
+        else RS.banded_resize_bwd(up.cpu(), shape[-2:], align_corners)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bilinear_resize_bwd_plan_refuses(dev):
+    with pytest.raises(ValueError, match="bad shape"):
+        K.bilinear_resize_bwd_plan(2, 0, 4, 8, 8)
 
 
 def _tied_edge(dev, shape, levels, seed):

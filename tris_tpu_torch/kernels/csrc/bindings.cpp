@@ -223,6 +223,9 @@ std::map<std::string, int64_t> cross_attn_launch_shape(const std::string& name) 
 // K3: vis_new [N*S, h*w, D] or None; vis_base [N, h*w, D]; lan [N*S, D];
 // scale a 0-d tensor; ty, tx the taps to [H] rows and [W] columns.
 // Returns [N*S, H, W].
+tris::ResponseHeadLaunchShape k3_shape;
+bool k3_launched = false;
+
 at::Tensor response_head(const std::optional<at::Tensor>& vis_new, const at::Tensor& vis_base,
                          const at::Tensor& lan, const at::Tensor& scale,
                          const std::vector<at::Tensor>& ty, const std::vector<at::Tensor>& tx,
@@ -240,9 +243,33 @@ at::Tensor response_head(const std::optional<at::Tensor>& vis_new, const at::Ten
   launched(tris::response_head(ptr<float>(vis_new), vis_base.data_ptr<float>(),
                                lan.data_ptr<float>(), out.data_ptr<float>(), P, S, h, w, D, H, W,
                                (float)alpha, scale.data_ptr<float>(), y.lo, y.hi, y.w0, y.w1,
-                               x.lo, x.hi, x.w0, x.w1, stream()),
+                               x.lo, x.hi, x.w0, x.w1, stream(), &k3_shape),
            "response_head");
+  k3_launched = true;
   return out;
+}
+
+// K3's plan (launchers.h, response_head_plan): ranks, threads, pixels, band_rows, vec, blocks
+// and smem_bytes.
+std::map<std::string, int64_t> response_head_plan(int64_t P, int64_t S, int64_t h, int64_t w,
+                                                  int64_t D, int64_t H, int64_t W) {
+  TORCH_CHECK(P >= 0 && P <= 65535 && S > 0 && h > 0 && w > 0 && D > 0 && H > 0 && W > 0 &&
+                  h * w < INT32_MAX && H * W < INT32_MAX && D < INT32_MAX,
+              "response_head_plan: shape out of range");
+  const tris::ResponseHeadPlan p =
+      tris::response_head_plan(P, (int)S, (int)h, (int)w, (int)D, (int)H, (int)W);
+  return {{"ranks", p.ranks}, {"threads", p.threads}, {"pixels", p.pixels},
+          {"band_rows", p.band_rows}, {"vec", p.vec}, {"blocks", p.blocks},
+          {"smem_bytes", p.smem}};
+}
+
+// K3's last launch in this process: blocks, blocks a cluster, threads a block, columns a thread
+// and bytes of shared memory a block.
+std::map<std::string, int64_t> response_head_launch_shape() {
+  TORCH_CHECK(k3_launched, "response_head_launch_shape: no launch of response_head");
+  const tris::ResponseHeadLaunchShape& s = k3_shape;
+  return {{"blocks", s.blocks}, {"cluster", s.cluster}, {"threads", s.threads},
+          {"vec", s.vec}, {"smem_bytes", s.smem}};
 }
 
 // K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D]; scale a 0-d tensor;
@@ -501,6 +528,9 @@ at::Tensor path_max_affinity(const at::Tensor& edge, const at::Tensor& steps,
 
 // K6, bilinear half, backward: g [N, oh, ow]; ty, tx the forward's taps to [oh] rows and
 // [ow] columns, ry, rx their adjoint ranges over [h] and [w]. Returns dx [N, h, w].
+tris::ResizeBwdLaunchShape k6_bwd_shape;
+bool k6_bwd_launched = false;
+
 at::Tensor bilinear_resize_bwd(const at::Tensor& g, const std::vector<at::Tensor>& ty,
                                const std::vector<at::Tensor>& tx,
                                const std::vector<at::Tensor>& ry,
@@ -518,9 +548,35 @@ at::Tensor bilinear_resize_bwd(const at::Tensor& g, const std::vector<at::Tensor
               "bilinear_resize_bwd: taps do not match g");
   at::Tensor dx = at::empty({N, h, w}, g.options());
   launched(tris::bilinear_resize_bwd(g.data_ptr<float>(), dx.data_ptr<float>(), N, h, w, oh, ow,
-                                     y, c, yr, cr, stream()),
+                                     y, c, yr, cr, stream(), &k6_bwd_shape),
            "bilinear_resize_bwd");
+  k6_bwd_launched = true;
   return dx;
+}
+
+// K6 backward's plan (launchers.h, bilinear_resize_bwd_plan) for [planes, h, w] <- [oh, ow].
+std::map<std::string, int64_t> bilinear_resize_bwd_plan(int64_t planes, int64_t h, int64_t w,
+                                                        int64_t oh, int64_t ow) {
+  TORCH_CHECK(planes >= 0 && h > 0 && w > 0 && oh > 0 && ow > 0 && h < INT32_MAX &&
+                  w < INT32_MAX && oh < INT32_MAX && ow < INT32_MAX,
+              "bilinear_resize_bwd_plan: shape out of range");
+  const tris::ResizeBwdPlan p =
+      tris::bilinear_resize_bwd_plan(planes, (int)h, (int)w, (int)oh, (int)ow);
+  return {{"staged", p.staged}, {"band", p.band}, {"span_rows", p.span_rows},
+          {"g_pitch", p.g_pitch}, {"r_pitch", p.r_pitch}, {"vec", p.vec},
+          {"col_lanes", p.col_lanes}, {"threads", p.threads}, {"blocks", p.blocks},
+          {"smem_bytes", p.smem}};
+}
+
+// K6's last backward launch in this process: blocks, threads a block, input rows a band, the
+// g rows it may stage, columns a thread, staged and bytes of shared memory a block.
+std::map<std::string, int64_t> bilinear_resize_bwd_launch_shape() {
+  TORCH_CHECK(k6_bwd_launched,
+              "bilinear_resize_bwd_launch_shape: no launch of bilinear_resize_bwd");
+  const tris::ResizeBwdLaunchShape& s = k6_bwd_shape;
+  return {{"blocks", s.blocks}, {"threads", s.threads}, {"band", s.band},
+          {"span_rows", s.span_rows}, {"vec", s.vec}, {"staged", s.staged},
+          {"smem_bytes", s.smem}};
 }
 
 // K7's tiles: a host path table (steps [n_steps, 2], offsets [n_dirs + 1], int32 CPU tensors;
@@ -1076,6 +1132,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("cross_attn_takes", &cross_attn_takes, "K2: whether its kernels take width m");
   m.def("cross_attn_launch_shape", &cross_attn_launch_shape, "K2: its last launch's grid");
   m.def("response_head", &response_head, "K3: stage-1 response head");
+  m.def("response_head_plan", &response_head_plan, "K3: the cluster a pair takes");
+  m.def("response_head_launch_shape", &response_head_launch_shape, "K3: its last launch's grid");
   m.def("stage1_head", &stage1_head, "K3: stage-1 training head");
   m.def("stage1_head_bwd", &stage1_head_bwd, "K3: stage-1 training head, backward");
   m.def("eval_metrics", &eval_metrics, "K4: eval resize, normalise and metrics");
@@ -1090,6 +1148,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K6: its last forward launch's grid");
   m.def("path_max_affinity", &path_max_affinity, "K7: 1 - max(edge along each pair's path)");
   m.def("bilinear_resize_bwd", &bilinear_resize_bwd, "K6 backward: the resize's adjoint");
+  m.def("bilinear_resize_bwd_plan", &bilinear_resize_bwd_plan,
+        "K6 backward: the bands a resize's adjoint takes");
+  m.def("bilinear_resize_bwd_launch_shape", &bilinear_resize_bwd_launch_shape,
+        "K6 backward: its last launch's grid");
   m.def("path_max_affinity_bwd", &path_max_affinity_bwd, "K7 backward, ties split evenly");
   m.def("path_tile_plan", &path_tile_plan, "K7's tiles: the blocks a fused loss or K7 bwd takes");
   m.def("irn_affinity_loss", &irn_affinity_loss, "K7 + K8: IRN's loss sums and pair counts");

@@ -32,8 +32,8 @@
 // Backward, one launch: path_max_tiles.cuh's gather, the pairs' cotangent d aff formed from
 // the staged labels (as K8's d aff: gsum[2] / (1 + eps - aff) for a negative pair,
 // -gsum[0 or 1] / (aff + eps) for a bg or fg one), and d dp gathered at each pixel beside it.
-// abs' derivative is sign(), 0 at 0, as torch's (the plain version's); JAX's abs takes slope 1
-// there, so the two differ where a pair's displacement is exactly its target.
+// abs' slope is the JAX package's: 1 where the difference is >= 0, exact zeros included, and
+// -1 below (torch's abs would take 0 at 0); the plain version's loss fields take the same.
 //
 // Shapes on the IRN training step (crop 512, radius 10, B = 24): labels u8 [24, 128, 128],
 // edge [24, 128, 128], dp [24, 2, 128, 128], 152 directions, 2134 path steps, the pair window

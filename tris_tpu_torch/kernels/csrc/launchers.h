@@ -165,13 +165,66 @@ cudaError_t stage1_head_bwd(const float* g_cls, const float* g_relu, const float
                             float focal_p, float focal_c, TapArrays ty, TapArrays tx,
                             TapRanges ry, TapRanges rx, cudaStream_t stream);
 
+// K3, the eval head (response_head.cu): a cluster of R blocks a pair, grid (R, P). Rank r
+// forms the scores of the pair's pixels [r hw / R, (r + 1) hw / R) (a warp a pixel), the
+// ranks read each other's through distributed shared memory, and rank r writes the output
+// rows [r H / R, (r + 1) H / R), each row's interpolated score row (w floats) formed once in
+// shared memory, `vec` columns a thread (4 where W % 4 == 0: 16-byte stores), their x taps
+// in registers. R: doubled from 1, up to the portable cluster of kResponseHeadMaxRanks,
+// while the doubled grid P * 2R stays within one wave of kResponseHeadWaveBlocks and a rank
+// keeps at least kResponseHeadMinRows rows (two blocks an SM formed their scores more slowly
+// than one).
+constexpr int kResponseHeadThreads = 512;
+constexpr int kResponseHeadMaxRanks = 8;
+constexpr int kResponseHeadWaveBlocks = 132;  // a block an SM
+constexpr int kResponseHeadMinRows = 8;
+
+struct ResponseHeadPlan {
+  int ranks;        // blocks a pair, one cluster
+  int threads;      // threads a block
+  int pixels;       // score pixels a rank forms at most, ceil(hw / R)
+  int band_rows;    // output rows a rank writes at most, ceil(H / R)
+  int vec;          // columns a thread writes: 4 (W % 4 == 0) or 1
+  long long blocks;
+  long long smem;   // bytes of dynamic shared memory a block: the score plane and the t-rows
+};
+
+// K3's rule, by the shape: P pairs of S sentences an image, [h, w] score planes of D
+// channels, maps [H, W] (S and D do not enter it: every pair is a cluster of its own, whatever
+// its image, and a warp takes a pixel's D channels whatever D).
+constexpr ResponseHeadPlan response_head_plan(long long P, int S, int h, int w, int D, int H,
+                                              int W) {
+  const int hw = h * w;
+  int R = 1;
+  while (R < kResponseHeadMaxRanks && P * 2 * R <= kResponseHeadWaveBlocks &&
+         2 * R * kResponseHeadMinRows <= H)
+    R *= 2;
+  const int band = (H + R - 1) / R;
+  return {R,
+          kResponseHeadThreads,
+          (hw + R - 1) / R,
+          band,
+          W % 4 == 0 ? 4 : 1,
+          P * R,
+          4 * ((hw + 3LL) / 4 * 4 + (long long)band * w)};
+}
+
+// A launch of K3's eval head as its launcher made it: blocks, blocks a cluster, threads a
+// block, columns a thread and bytes of dynamic shared memory a block.
+struct ResponseHeadLaunchShape {
+  long long blocks;
+  int cluster, threads, vec;
+  long long smem;
+};
+
 // K3: vis_new [P, h*w, D] or null; vis_base [P/S, h*w, D]; lan [P, D]; out [P, H, W];
-// scale a device scalar; y taps [H], x taps [W].
+// scale a device scalar; y taps [H], x taps [W]. *shape receives the launch's shape.
 cudaError_t response_head(const float* vis_new, const float* vis_base, const float* lan,
                           float* out, int P, int S, int h, int w, int D, int H, int W,
                           float alpha, const float* scale, const int* ylo, const int* yhi,
                           const float* wy0, const float* wy1, const int* xlo, const int* xhi,
-                          const float* wx0, const float* wx1, cudaStream_t stream);
+                          const float* wx0, const float* wx1, cudaStream_t stream,
+                          ResponseHeadLaunchShape* shape);
 
 // K4: a cluster of R blocks a map (eval_metrics.cu). Rank r of map (b, s) owns the valid
 // output rows [r oh / R, (r + 1) oh / R) of image b's original (oh, ow) and holds in shared
@@ -364,11 +417,113 @@ cudaError_t bilinear_resize(const float* x, float* out, int64_t planes, int h, i
                             int ow, TapArrays ty, TapArrays tx, cudaStream_t stream,
                             ResizeLaunchShape* shape);
 
+// K6, bilinear half, backward (bilinear_resize_bwd.cu): dx = Ry^T g Rx. The planes' input rows
+// are flattened, planes * h rows of w columns, and a block takes a band of `band` consecutive
+// ones. The g rows their adjoint ranges cover are one contiguous run of the flattened g (at
+// most span_rows), which the block copies into shared memory (rows of g_pitch floats), with
+// the column taps and ranges. It forms R = g Rx there for every staged row and input column
+// (rows of r_pitch floats), then dx = Ry^T R for its band, `vec` columns a thread (4 where
+// w % 4 == 0: 16-byte stores). Where ow <= 2 w (col_lanes), R's lanes are on consecutive
+// columns, each thread holding its column's taps (at most kResizeBwdTaps a range) in
+// registers for every row it takes, and the rows, of ow floats, are copied 16 bytes a copy
+// where ow % 4 == 0; else R's lanes are on consecutive rows, which rows of an odd number of
+// floats (ow made odd, copied 4 bytes a copy) put in distinct banks, the taps read from
+// shared memory. band: halved from kResizeBwdMaxBand while the
+// grid is below kResizeBwdWaveBlocks or a block's shared memory above kResizeBwdSmem (R's lanes
+// on rows: kResizeBwdRowsWaveBlocks and kResizeBwdRowsSmem, whose wider rows a bigger band
+// reads fewer times). Where one row's span does not fit kResizeBwdSmemMax, a thread takes an
+// input element and reads g from device memory (staged 0). All sum each term in the same
+// order, so dx is the same.
+constexpr int kResizeBwdThreads = 256;
+constexpr int kResizeBwdColThreads = 128;   // a col_lanes block's
+constexpr int kResizeBwdMaxBand = 64;
+constexpr int kResizeBwdWaveBlocks = 528;   // 4 blocks an SM of 132
+constexpr int kResizeBwdSmem = 32768;       // 32 KiB: seven blocks an SM
+constexpr int kResizeBwdRowsWaveBlocks = 264;  // 2 blocks an SM
+constexpr int kResizeBwdRowsSmem = 86016;      // 84 KiB: two blocks an SM
+constexpr int kResizeBwdSmemMax = 232448;   // 227 KiB: the most a block may have
+constexpr int kResizeBwdTaps = 4;           // a range's taps a col_lanes thread holds
+
+// g rows (of the planes' flattened [planes * oh] rows) that d + 1 consecutive input rows' adjoint
+// ranges span at most: source coordinates in an interval of d + 2.5 rows (align_corners=False;
+// the clamp at the top adds half a row) or d + 2 closed at the end (align_corners=True), and two
+// rows more at each of the d / h + 1 planes' edges crossed, and the intervals' rounding.
+constexpr long long bilinear_resize_bwd_span_rows(long long d, int h, int oh) {
+  const long long s1 = ((2 * d + 5) * oh + 2LL * h - 1) / (2LL * h);
+  const long long s2 = h > 1 ? ((d + 2) * (oh - 1) + h - 2) / (h - 1) + 1 : 0;
+  return (s1 > s2 ? s1 : s2) + d / h + 2;
+}
+
+constexpr long long resize_bwd_round4(long long n) { return (n + 3) / 4 * 4; }
+
+// bytes of a staged block: R [span][r_pitch], g [span][g_pitch], the column weights [2][ow],
+// the span rows' weights [2][span] and the column ranges [4][w] (each rounded to 16 bytes)
+constexpr long long bilinear_resize_bwd_smem(long long span, int w, int ow, int g_pitch,
+                                             int r_pitch) {
+  return 4 * (span * r_pitch + resize_bwd_round4(span * g_pitch) + 2 * resize_bwd_round4(ow) +
+              2 * resize_bwd_round4(span) + resize_bwd_round4(4LL * w));
+}
+
+struct ResizeBwdPlan {
+  int staged;       // 1: bands staged in shared memory; 0: a thread an input element
+  int band;         // input rows a band (staged)
+  int span_rows;    // g rows a band spans at most (staged)
+  int g_pitch;      // floats of a staged g row: ow (col_lanes), else ow made odd
+  int r_pitch;      // floats of a row of R: w rounded up to 4, an odd multiple of 4
+  int vec;          // columns a thread writes: 4 (w % 4 == 0) or 1
+  int col_lanes;    // 1: R's lanes on columns, taps in registers (ow <= 2 w); 0: on rows
+  int threads;      // threads a block
+  long long blocks;
+  long long smem;   // bytes of dynamic shared memory a block (0 direct)
+};
+
+// K6 backward's rule, by the shape [planes, h, w] <- [oh, ow].
+constexpr ResizeBwdPlan bilinear_resize_bwd_plan(long long planes, int h, int w, int oh, int ow) {
+  ResizeBwdPlan p = {};
+  const long long total = planes * h;
+  p.vec = w % 4 == 0 ? 4 : 1;
+  p.col_lanes = ow <= 2LL * w ? 1 : 0;
+  p.threads = p.col_lanes ? kResizeBwdColThreads : kResizeBwdThreads;
+  p.g_pitch = p.col_lanes ? ow : ow | 1;
+  p.r_pitch = (w + 3) / 4 * 4;
+  if (p.r_pitch % 8 == 0) p.r_pitch += 4;
+  const long long wave = p.col_lanes ? kResizeBwdWaveBlocks : kResizeBwdRowsWaveBlocks;
+  const long long most = p.col_lanes ? kResizeBwdSmem : kResizeBwdRowsSmem;
+  long long band = kResizeBwdMaxBand, span = 0;
+  for (;;) {
+    span = bilinear_resize_bwd_span_rows(band - 1, h, oh);
+    if (span > planes * oh) span = planes * oh;
+    if (band == 1 || ((total + band - 1) / band >= wave &&
+                      bilinear_resize_bwd_smem(span, w, ow, p.g_pitch, p.r_pitch) <= most))
+      break;
+    band /= 2;
+  }
+  const long long smem = bilinear_resize_bwd_smem(span, w, ow, p.g_pitch, p.r_pitch);
+  p.staged = smem <= kResizeBwdSmemMax ? 1 : 0;
+  if (p.staged) {
+    p.band = (int)band;
+    p.span_rows = (int)span;
+    p.blocks = (total + band - 1) / band;
+    p.smem = smem;
+  } else {
+    p.threads = kResizeBwdThreads;
+    p.blocks = (total * w + p.threads - 1) / p.threads;
+  }
+  return p;
+}
+
+// A launch of K6's backward as its launcher made it.
+struct ResizeBwdLaunchShape {
+  long long blocks;
+  int threads, band, span_rows, vec, staged;
+  long long smem;
+};
+
 // K6, bilinear half, backward: g [planes, oh, ow]; dx [planes, h, w]; the forward's taps and
-// their adjoint ranges over [h] rows and [w] columns.
+// their adjoint ranges over [h] rows and [w] columns. *shape receives the launch's shape.
 cudaError_t bilinear_resize_bwd(const float* g, float* dx, int64_t planes, int h, int w, int oh,
                                 int ow, TapArrays ty, TapArrays tx, TapRanges ry, TapRanges rx,
-                                cudaStream_t stream);
+                                cudaStream_t stream, ResizeBwdLaunchShape* shape);
 
 // K7: edge [B, H, W]; out [B, n_dirs, H - rf, W - 2 * rf]; steps [n_steps, 2] the (dy, dx)
 // of every direction's path, direction d's at [offsets[d], offsets[d + 1]).

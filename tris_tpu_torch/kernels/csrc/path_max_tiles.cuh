@@ -96,11 +96,12 @@ __device__ __forceinline__ int pair_class(int a, int b, int max_valid) {
   return a != b ? 3 : a == 0 ? 1 : 2;
 }
 
-__device__ __forceinline__ float sgn(float v) { return (float)((v > 0.f) - (v < 0.f)); }
+// abs' slope as the JAX package takes it (jnp.abs: 1 where v >= 0, exact zeros included)
+__device__ __forceinline__ float sgn(float v) { return v >= 0.f ? 1.f : -1.f; }
 
 // The displacement losses' gradient (d pair_0, d pair_1) of a pair of class cls with source
 // values (s0, s1), destination values (t0, t1) and destination offset (dy, dx): a fg pair's
-// g_fg * sign(p - (dy, dx)), a bg pair's g_bg * sign(p) (p - 0 is p, so one formula)
+// g_fg * sgn(p - (dy, dx)), a bg pair's g_bg * sgn(p) (p - 0 is p, so one formula)
 __device__ __forceinline__ void dp_grad(int cls, float s0, float s1, float t0, float t1, float dy,
                                         float dx, float g_fg, float g_bg, float& g0, float& g1) {
   const bool fg = cls == 2;

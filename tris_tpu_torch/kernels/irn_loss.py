@@ -85,7 +85,13 @@ def loss_fields(aff, dp, search_dst, rf: int):
     pair = pair_displacement(dp, search_dst, rf)
     target = torch.as_tensor(np.asarray(search_dst, np.float32).T, device=dp.device)
     return (-torch.log(aff + EPS), -torch.log(ONE_EPS - aff),
-            (pair - target[None, :, :, None, None]).abs(), pair.abs())
+            _abs(pair - target[None, :, :, None, None]), _abs(pair))
+
+
+def _abs(v):
+    """``|v|`` with the JAX package's slope: 1 where ``v >= 0``, exact zeros
+    included, and -1 below (torch's ``abs`` takes 0 at 0)."""
+    return torch.where(v >= 0, v, -v)
 
 
 def irn_loss_plain(labels, aff, dp, search_dst, rf: int):

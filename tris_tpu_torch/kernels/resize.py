@@ -17,9 +17,15 @@ Both sample with the matrices' taps (``ops/resize.py::interp_taps``) rows
 first, each product and sum rounded alone, so kernel and plain version
 agree bit for bit; against the JAX matrix products they agree to rounding.
 On a CUDA tensor it is a ``torch.autograd.Function`` whose backward, the
-resize's adjoint, is a gather over tap ranges (IRN training backpropagates
-through the heads' upsamples); the plain version's gradient is autograd's
-through the taps' gather. ``ops/resize.py::bilinear_resize``
+resize's adjoint, is a gather over tap ranges (IRN training and stage 2
+backpropagate through the heads' and the decoder's upsamples): a block takes
+a band of the planes' flattened input rows, stages the run of g rows their
+ranges cover in shared memory and forms the column adjoint once per staged
+row, then the row adjoint (``launchers.h::bilinear_resize_bwd_plan``, read
+back by :func:`bilinear_resize_bwd_plan` and emulated by the schedule tool;
+:func:`bilinear_resize_bwd_launch_shape` gives the last launch's grid). The
+plain version's gradient is autograd's through the taps' gather.
+``ops/resize.py::bilinear_resize``
 (``F.interpolate``) stays for the stage-1 positional-embedding resize.
 """
 
@@ -39,13 +45,26 @@ def bilinear_resize_plain(x, size, align_corners: bool = False):
                                taps_on(w, ow, align_corners, x.device))
 
 
+def _check_shape(name: str, planes: int, h: int, w: int, oh: int, ow: int) -> None:
+    """The shapes the plans and kernels take, refused here before any launch."""
+    if planes < 0 or min(h, w, oh, ow) < 1 or max(h, w, oh, ow) >= 2 ** 31:
+        raise ValueError(f"{name}: bad shape {(planes, h, w, oh, ow)}")
+
+
 def bilinear_resize_plan(planes: int, h: int, w: int, oh: int, ow: int) -> dict:
     """The forward's launch for ``[planes, h, w] -> [oh, ow]`` (``launchers.h``'s
     rule, from the extension): vec, groups, tile_groups, tiles, rows, threads,
     pitch, staged, chunks, band_rows, bands, blocks, in_floats and smem_bytes."""
-    if planes < 0 or min(h, w, oh, ow) < 1 or max(h, w, oh, ow) >= 2 ** 31:
-        raise ValueError(f"bilinear_resize_plan: bad shape {(planes, h, w, oh, ow)}")
+    _check_shape("bilinear_resize_plan", planes, h, w, oh, ow)
     return dict(build.ops().bilinear_resize_plan(planes, h, w, oh, ow))
+
+
+def bilinear_resize_bwd_plan(planes: int, h: int, w: int, oh: int, ow: int) -> dict:
+    """The backward's launch for ``[planes, h, w] <- [oh, ow]`` (``launchers.h``'s
+    rule, from the extension): staged, band, span_rows, g_pitch, r_pitch, vec,
+    col_lanes, threads, blocks and smem_bytes."""
+    _check_shape("bilinear_resize_bwd_plan", planes, h, w, oh, ow)
+    return dict(build.ops().bilinear_resize_bwd_plan(planes, h, w, oh, ow))
 
 
 def bilinear_resize_launch_shape() -> dict:
@@ -54,6 +73,15 @@ def bilinear_resize_launch_shape() -> dict:
     if build.launches["bilinear_resize"] == 0:
         raise RuntimeError("bilinear_resize_launch_shape: no launch of bilinear_resize counted")
     return dict(build.ops().bilinear_resize_launch_shape())
+
+
+def bilinear_resize_bwd_launch_shape() -> dict:
+    """The grid of the last backward launch in this process: blocks, threads,
+    band, span_rows, vec, staged and smem_bytes."""
+    if build.launches["bilinear_resize_bwd"] == 0:
+        raise RuntimeError("bilinear_resize_bwd_launch_shape: no launch of bilinear_resize_bwd "
+                           "counted")
+    return dict(build.ops().bilinear_resize_bwd_launch_shape())
 
 
 class _BilinearResize(torch.autograd.Function):
@@ -91,6 +119,7 @@ def bilinear_resize(x, size, align_corners: bool = False):
     build.require_cuda_f32("bilinear_resize", x)
     if x.dtype != torch.float32:
         raise TypeError(f"bilinear_resize: expected float32, got {x.dtype}")
+    _check_shape("bilinear_resize", x.numel() // max(h * w, 1), h, w, oh, ow)
     lead = x.shape[:-2]
     out = _BilinearResize.apply(x.reshape(-1, h, w).contiguous(), oh, ow, align_corners)
     return out.reshape(*lead, oh, ow)

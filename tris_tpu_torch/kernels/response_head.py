@@ -6,6 +6,14 @@ pair ``i`` of image ``b = i // S``, ``relu(upsample(scale * <vis_p, lan[i]>))``
 with ``vis_p = vis_new[i] * alpha + vis_base[b]`` (just ``vis_base[b]`` when
 ``vis_new`` is None), upsampled ``align_corners=False`` from the [h, w] score
 plane to [H, W]. Returns ``[N*S, H, W]``.
+
+The kernel takes a cluster of blocks a pair: each rank forms the scores of
+its share of the pixels, the ranks exchange them through distributed shared
+memory, and each writes its band of output rows; the cluster's size is
+``csrc/launchers.h::response_head_plan``'s rule, which
+:func:`response_head_plan` reads back from the extension and
+``tris_tpu_torch/tools/response_head_schedule.py`` emulates on the host;
+:func:`response_head_launch_shape` gives the last launch's grid.
 """
 
 from __future__ import annotations
@@ -63,6 +71,32 @@ def response_head_plain(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_
     return torch.relu(upsample_taps_plain(score.reshape(N * S, h, w), ty, tx))
 
 
+MAX_PAIRS = 65535  # the grid's second dimension
+
+
+def response_head_plan(P: int, S: int, h: int, w: int, D: int, H: int, W: int) -> dict:
+    """The launch for ``P`` pairs of ``[h, w]`` score planes of ``D`` channels to
+    ``[H, W]`` maps (``launchers.h``'s rule, from the extension): ranks, threads,
+    pixels, band_rows, vec, blocks and smem_bytes. Refuses, before any launch,
+    a shape the kernel does not take."""
+    if (not 0 <= P <= MAX_PAIRS or min(S, h, w, D, H, W) < 1 or h * w >= 2 ** 31
+            or H * W >= 2 ** 31 or D >= 2 ** 31):
+        raise ValueError(f"response_head_plan: bad shape {(P, S, h, w, D, H, W)}")
+    plan = dict(build.ops().response_head_plan(P, S, h, w, D, H, W))
+    if plan["smem_bytes"] > build.MAX_SMEM:
+        raise ValueError(f"response_head: h*w = {h * w} scores and {plan['band_rows']} rows of "
+                         f"{w} must fit shared memory")
+    return plan
+
+
+def response_head_launch_shape() -> dict:
+    """The grid of the last launch in this process: blocks, cluster, threads,
+    vec and smem_bytes."""
+    if build.launches["response_head"] == 0:
+        raise RuntimeError("response_head_launch_shape: no launch of response_head counted")
+    return dict(build.ops().response_head_launch_shape())
+
+
 def response_head(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_shape, out_hw):
     """K3 on CUDA tensors; the plain version on CPU tensors. ``scale`` is a
     0-d tensor (``exp(logit_scale)``) that the kernel reads on the device."""
@@ -76,8 +110,7 @@ def response_head(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_shape,
             vis_new is not None and vis_new.shape != (P, HW, D)):
         raise ValueError(f"response_head: bad shapes vis_base{tuple(vis_base.shape)} "
                          f"lan{tuple(lan.shape)} S={S} hw={hw_shape}")
-    if 4 * HW > build.MAX_SMEM:
-        raise ValueError(f"response_head: h*w = {HW} scores must fit shared memory")
+    response_head_plan(P, S, h, w, D, H, W)
     vis_base, lan = vis_base.contiguous(), lan.contiguous()
     vis_new = None if vis_new is None else vis_new.contiguous()
     ty = taps_on(h, H, False, vis_base.device)

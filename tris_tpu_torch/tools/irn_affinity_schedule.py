@@ -108,7 +108,8 @@ def _f32(x):
 
 
 def _sgn(v):
-    return _f32((v > 0).astype(np.float32) - (v < 0).astype(np.float32))
+    """abs' slope as JAX takes it: 1 where ``v >= 0`` (exact zeros included), else -1."""
+    return _f32(np.where(v >= 0, 1, -1))
 
 
 def loss_terms(labels, edge, dp, path, rf, eps, one_eps, max_valid):

@@ -50,7 +50,8 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "response_head_kernel", "bmm_kernel", "head_fwd_kernel", "maps_fwd_kernel",
                 "head_bwd_kernel", "maps_bwd_kernel", "eval_metrics_kernel",
                 "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel",
-                "bilinear_resize_kernel", "bilinear_resize_bwd_kernel", "path_max_kernel",
+                "bilinear_resize_kernel", "bilinear_resize_bwd_kernel",
+                "bilinear_resize_bwd_direct_kernel", "path_max_kernel",
                 "path_max_gather_kernel", "irn_affinity_loss_kernel",
                 "irn_affinity_loss_final_kernel", "refine_centroids_kernel",
                 "walk_transition_kernel", "walk_square_kernel", "walk_thin_kernel",
