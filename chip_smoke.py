@@ -144,10 +144,10 @@ EVAL_KERNELS = ("mha_short", "cross_attn", "response_head", "eval_metrics", "nor
 TRAIN_B, TRAIN_NEG, TRAIN_STEPS, N_TRAIN_BATCHES = 48, 3, 3, 4
 # kernel launches per train step at that shape: K1 forward in the stage-1
 # text tower, the critic's vision tower and its text tower (12 layers each),
-# its backward in the first two; K2 1 + 2; K3's head 3 + 4; K5 1 + 2; K6 1;
+# its backward in the first two; K2 1 + 2; K3's head 1 + 1; K5 1 + 2; K6 1;
 # K13 at the RN50 trunk's 55 norms (bn_launches())
 TRAIN_LAUNCHES_PER_STEP = {"mha_short": 36, "mha_short_bwd": 24, "cross_attn": 1,
-                           "cross_attn_bwd": 2, "stage1_head": 3, "stage1_head_bwd": 4,
+                           "cross_attn_bwd": 2, "stage1_head": 1, "stage1_head_bwd": 1,
                            "critic_input": 1, "critic_input_bwd": 2, "normalize_u8": 1,
                            "response_head": 0, "eval_metrics": 0}
 # phase 7: IRNet's instance pseudo-masks on COCO-sized originals (each grid
@@ -758,8 +758,10 @@ def check_train_kernels(K, dev):
         **k2_launch_shapes("cross_attn_bwd_a", "cross_attn_bwd_b")))
 
     # K3's training head: vis_p [48, 100, 1024], lan_p [48, 48, 1024] -> cls
-    # [48, 48] and maps [48, 320, 320]; forward outputs within 1e-5 and the
-    # gradients within 1e-4 of their scale (1024-long dots, 4800-long sums)
+    # [48, 48] and maps [48, 320, 320], a cluster an image each way; forward
+    # outputs within 1e-5 and the gradients within 1e-4 of their scale
+    # (1024-long dots, 4800-long sums); the backward bit for bit run to run
+    # (the ranks' partials added in rank order, no atomics)
     D, hs = 1024, SIZE // 32
     vis, lan = leaves(F.normalize(randn(TRAIN_B, hw, D), dim=-1),
                       F.normalize(randn(TRAIN_B, T, D), dim=-1))
@@ -777,11 +779,17 @@ def check_train_kernels(K, dev):
         device_ms(lambda: K.stage1_head_plain(vis.detach(), lan.detach(), *args)),
         4 * (TRAIN_B * hw * D + TRAIN_B * T * D + TRAIN_B * T + TRAIN_B + maps_bytes),
         2 * TRAIN_B * hw * T * D + 20 * TRAIN_B * hw * T + 10 * maps_bytes, None,
-        shape=[TRAIN_B, hw, T, D, SIZE]))
+        shape=[TRAIN_B, hw, T, D, SIZE],
+        plan=K.stage1_head_plan(TRAIN_B, hs, hs, D, SIZE, SIZE),
+        launch_shape=K.stage1_head_launch_shape()))
     cot = [randn(TRAIN_B, T), None, None, randn(TRAIN_B, SIZE, SIZE)]   # the loss's: cls and sig
     kern = lambda v, l: K.stage1_head(v, l, *args)  # noqa: E731
     plain = lambda v, l: K.stage1_head_plain(v, l, *args)  # noqa: E731
     err, tol, _ = compare("stage1_head_bwd", kern, plain, [vis, lan], cot, 1e-4)
+    bitwise = all(bool(torch.equal(a, b)) for a, b in
+                  zip(input_grads(kern, [vis, lan], cot), input_grads(kern, [vis, lan], cot)))
+    if not bitwise:
+        failures.append("stage1_head_bwd: two runs differ")
     rows.append(row(
         "stage1_head_bwd", "tris_tpu_torch/kernels/csrc/stage1_head.cu",
         "tris_tpu/models/stage1.py:100", err, tol, bwd_ms(kern, [vis, lan], cot),
@@ -789,7 +797,9 @@ def check_train_kernels(K, dev):
         4 * (2 * (TRAIN_B * hw * D + TRAIN_B * T * D) + TRAIN_B * T + TRAIN_B * hw * T
              + TRAIN_B * SIZE * SIZE),
         4 * TRAIN_B * hw * T * D + 30 * TRAIN_B * hw * T + 12 * TRAIN_B * SIZE * SIZE, None,
-        shape=[TRAIN_B, hw, T, D, SIZE]))
+        shape=[TRAIN_B, hw, T, D, SIZE], bit_for_bit_run_to_run=bitwise,
+        plan=K.stage1_head_plan(TRAIN_B, hs, hs, D, SIZE, SIZE, backward=True),
+        launch_shape=K.stage1_head_launch_shape(backward=True)))
 
     # K5 backward: 48 sigmoid maps and images, 320 -> 224, patch 32; the
     # plain version's index backward scatters with atomics (its sums' order

@@ -13,8 +13,12 @@ length and head-dim buckets' edges (L up to 128, hd 32 to 128), with 4-byte
 loads where C % 4 != 0, its grids against the schedule tool's and its
 backward bit for bit from run to run, several text tokens in K2, K3 without the fusion and
 bit for bit with the schedule tool's emulation of its clusters (pair counts not a multiple
-of R, S = 1, ragged shares), ties in
-K4's peak, K5 at equal sizes (identity taps), K6 on odd shapes, and the
+of R, S = 1, ragged shares), K3's training head
+bit for bit (its score plane and relu map) with its schedule tool's
+emulation across its plans (B = 1, several ranks, ragged pixel shares,
+W % 4 != 0, ten passes of score tiles), with GMP's maxima planted tied and
+nearly tied, its backward bit for bit run to run and the shapes it refuses,
+ties in K4's peak, K5 at equal sizes (identity taps), K6 on odd shapes, and the
 inputs every wrapper refuses. K2 also at its tiles' edges (HW and T
 across 32-row tiles and 32-key slots up to the 256 keys a tile holds, S > 1,
 channel slices cut short), beyond its limits, and bit for bit from run to
@@ -60,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from tris_tpu_torch import kernels as K
+from tris_tpu_torch.kernels.response_head import taps_on
 from tris_tpu_torch.models.layers import causal_mask
 from tris_tpu_torch.tools import irn_affinity_schedule as T
 from tris_tpu_torch.tools import walk_schedule as S
@@ -584,13 +589,21 @@ def test_cross_attn_bwd_refuses_several_sentences(randn):
         K.cross_attn(qv, qv, qv, qt, qt, qt, 2, 8.0)
 
 
-@pytest.mark.parametrize("B,hw,out,relu", [(1, (3, 3), (24, 24), False), (4, (10, 10), (10, 10), True),
-                                           (6, (10, 10), (320, 288), False), (5, (4, 7), (33, 50), True)])
+# (B, (h, w), (H, W), d relu_map too): B = 1 (a softmax over bg and one text), identity taps
+# (out == hw), several ranks (R = 8 forward and backward at B = 6 and 3), W % 4 != 0 (a column
+# a thread), a ragged pixel share (25 pixels over 8 ranks), the train path's B = 48 (R = 2 and 4)
+K3_TRAIN_CASES = [(1, (3, 3), (24, 24), False), (4, (10, 10), (10, 10), True),
+                  (6, (10, 10), (320, 288), False), (5, (4, 7), (33, 50), True),
+                  (3, (5, 5), (96, 96), True), (48, (10, 10), (320, 320), False)]
+
+
+@pytest.mark.parametrize("B,hw,out,relu", K3_TRAIN_CASES)
 def test_stage1_head(randn, dev, B, hw, out, relu):
     # forward outputs and the gradients of vis_p and lan_p against the plain
     # version in float64: 2e-5 of each output's / gradient's scale. B = 1
     # (a softmax over bg and one text) and identity taps (out == hw) are the
-    # edges; with relu the map gradient also comes through relu_map
+    # edges; with relu the map gradient also comes through relu_map; one
+    # launch each way
     h, w = hw
     D = 256
     vis = F.normalize(randn(B, h * w, D), dim=-1)
@@ -606,11 +619,119 @@ def test_stage1_head(randn, dev, B, hw, out, relu):
     for a, b in zip(got_out, want_out):
         assert a.shape == b.shape
         assert _err(a, b) <= 2e-5 * max(1.0, float(b.abs().max()))
+    K.reset_launches()
     got = _grads(lambda v, l: run(K.stage1_head, v, l), _leaves(vis, lan), cot)
+    assert K.launches["stage1_head"] == 1 and K.launches["stage1_head_bwd"] == 1
     want = _grads(lambda v, l: run(K.stage1_head_plain, v, l), _leaves(vis, lan, double=True),
                   [None if c is None else c.double() for c in cot])
     for a, b in zip(got, want):
         assert _err(a, b) <= 2e-5 * max(1.0, float(b.abs().max()))
+
+
+# (B, (h, w), (H, W), D): the train path's shape, several ranks, W % 4 != 0, B = 1, a ragged
+# share, D past one stage but short of the next (96 channels: 24 groups, three a warp, a stage
+# half empty), and B = 200 (R = 1, ten passes of 56 x 48 score tiles over D)
+K3_TRAIN_EMULATED = [(48, (10, 10), (320, 320), 1024), (6, (10, 10), (320, 288), 256),
+                     (5, (4, 7), (33, 50), 48), (1, (3, 3), (24, 24), 32),
+                     (3, (5, 5), (96, 96), 96), (200, (10, 10), (64, 64), 64)]
+
+
+@pytest.mark.parametrize("B,hw,out,D", K3_TRAIN_EMULATED)
+def test_stage1_head_equals_the_emulation(dev, B, hw, out, D):
+    # the score plane and relu_map bit for bit with the schedule tool's emulation (each
+    # score's fmaf chain over the channels in order, the upsample's products and sums rounded
+    # alone), with the plan the tool gives and the launches the extension made, forward and
+    # backward
+    from tris_tpu_torch.tools import stage1_head_schedule as S1
+
+    (h, w), (H, W) = hw, out
+    g = torch.Generator(device=dev).manual_seed(B + D)
+    vis = F.normalize(torch.randn(B, h * w, D, generator=g, device=dev), dim=-1)
+    lan = F.normalize(torch.randn(B, B, D, generator=g, device=dev), dim=-1)
+    scale = torch.tensor(1 / 0.07, device=dev)
+    ty, tx = taps_on(h, H, False, dev), taps_on(w, W, False, dev)
+    score, _, _, _, relu_map, _ = K.build.ops().stage1_head(vis, lan, scale, list(ty), list(tx),
+                                                           h, w, 3.0, 0.01)
+    want = S1.emulate_forward(vis.cpu().numpy(), lan.cpu().numpy(), float(scale), hw, out, 3.0,
+                              0.01)
+    assert torch.equal(score.cpu(), torch.from_numpy(want[0]))
+    assert torch.equal(relu_map.cpu(), torch.from_numpy(want[3]))
+    for backward in (False, True):
+        plan = K.stage1_head_plan(B, h, w, D, H, W, backward)
+        assert plan == S1.plan(B, h, w, D, H, W, backward)
+        leaves = _leaves(vis, lan) if backward else (vis, lan)
+        outs = K.stage1_head(*leaves, scale, hw, out, 3.0, 0.01)
+        if backward:
+            torch.autograd.grad(outs[3].sum(), leaves)
+        assert K.stage1_head_launch_shape(backward) == {
+            "blocks": plan["blocks"], "cluster": plan["ranks"], "threads": plan["threads"],
+            "vec": plan["vec"], "smem_bytes": plan["smem_bytes"]}
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_stage1_head_gmp_near_ties(dev, exact):
+    # pixels planted at (or within a rounding of) another pixel's scores: GMP's maxima tie or
+    # nearly tie. The gradient goes to the first argmax of the kernel's own scores, which the
+    # emulation holds bit for bit, so the backward is held to the emulation's (2e-5 of the
+    # gradient's scale; the softmax's exps round apart)
+    from tris_tpu_torch.tools import stage1_head_schedule as S1
+
+    B, h, w, D, H, W = 6, 5, 5, 128, 40, 40
+    g = torch.Generator(device=dev).manual_seed(3)
+    vis = F.normalize(torch.randn(B, h * w, D, generator=g, device=dev), dim=-1)
+    lan = F.normalize(torch.randn(B, B, D, generator=g, device=dev), dim=-1)
+    vis[:, 1:] = 0.2 * vis[:, 1:]          # pixel 0 holds every text's max by far
+    eps = 0.0 if exact else 1e-7
+    for dst in (7, 18, 24):                # then ties with pixel 0 in every image and text
+        vis[:, dst] = vis[:, 0] * (1 + eps * dst)
+    scale = torch.tensor(1 / 0.07, device=dev)
+    cot = [torch.randn(B, B, generator=g, device=dev), None, None,
+           torch.randn(B, H, W, generator=g, device=dev)]
+    got = _grads(lambda v, l: K.stage1_head(v, l, scale, (h, w), (H, W), 3.0, 0.01),
+                 _leaves(vis, lan), cot)
+    ty, tx = taps_on(h, H, False, dev), taps_on(w, W, False, dev)
+    score = K.build.ops().stage1_head(vis, lan, scale, list(ty), list(tx), h, w, 3.0, 0.01)[0]
+    v_np, l_np = vis.cpu().numpy(), lan.cpu().numpy()
+    want_score = S1.emulate_forward(v_np, l_np, float(scale), (h, w), (H, W), 3.0, 0.01)[0]
+    assert torch.equal(score.cpu(), torch.from_numpy(want_score))
+    if exact:
+        assert (want_score[:, 7] == want_score[:, 0]).all()
+    want = S1.emulate_backward(cot[0].cpu().numpy(), None, cot[3].cpu().numpy(), v_np, l_np,
+                               float(scale), want_score, (h, w), (H, W), 3.0, 0.01)
+    for a, b in zip(got, want):
+        assert _err(a.cpu(), torch.from_numpy(b)) <= 2e-5 * max(1.0, float(np.abs(b).max()))
+
+
+def test_stage1_head_bwd_is_the_same_run_to_run(randn, dev):
+    # no atomics, the ranks' partials summed in rank order: a second backward is the first
+    # bit for bit, through both maps and cls_out
+    B, hw, out, D = 48, (10, 10), (320, 320), 1024
+    vis = F.normalize(randn(B, hw[0] * hw[1], D), dim=-1)
+    lan = F.normalize(randn(B, B, D), dim=-1)
+    scale = torch.tensor(1 / 0.07, device=dev)
+    cot = [randn(B, B), None, randn(B, *out), randn(B, *out)]
+    fn = lambda v, l: K.stage1_head(v, l, scale, hw, out, 3.0, 0.01)  # noqa: E731
+    first = _grads(fn, _leaves(vis, lan), cot)
+    second = _grads(fn, _leaves(vis, lan), cot)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_stage1_head_refuses(dev):
+    scale = torch.tensor(1.0, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K.stage1_head(torch.zeros(2, 4, 6, device=dev), torch.zeros(2, 2, 6, device=dev), scale,
+                      (2, 2), (8, 8), 3.0, 0.01)
+    with pytest.raises(ValueError, match="bad shape"):
+        K.stage1_head_plan(70000, 2, 2, 8, 8, 8)
+    # [400, 72] planes: the forward fits with two buffers, the backward does not, and is refused
+    # before the forward runs
+    big = torch.zeros(72, 400, 64, device=dev, requires_grad=True)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="backward's stages must fit shared memory"):
+        K.stage1_head(big, torch.zeros(72, 72, 64, device=dev), scale, (20, 20), (64, 64),
+                      3.0, 0.01)
+    assert K.launches["stage1_head"] == 0
 
 
 @pytest.mark.parametrize("size,out,patch,S", [(64, 64, 16, 1), (320, 224, 32, 1), (96, 64, 16, 2)])

@@ -255,3 +255,74 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          text=True, timeout=300, env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# ---- names in csrc/: launchers.h's namespace tris against the files' own ------------------
+
+CSRC = ROOT / "tris_tpu_torch" / "kernels" / "csrc"
+_DECL_FUNC = re.compile(r"(?<![\w:])(\w+)\s*\((?:[^()]|\([^()]*\))*\)\s*(?:const\s*)?$")
+_DECL_CONST = re.compile(r"\b(?:constexpr|const)\b[^=]*?(?<![\w:])(\w+)\s*(?:\[[^\]]*\]\s*)?=")
+_DECL_TYPE = re.compile(r"\b(?:struct|class|union|enum|using)\s+(\w+)")
+_NOT_NAMES = {"static_assert", "if", "for", "while", "switch", "return", "sizeof", "decltype"}
+
+
+def namespace_scope_names(src: str) -> set:
+    """``(name, namespaces)`` of each constant, type and function that C++ source ``src``
+    declares at namespace scope (not inside a function or a type): ``namespaces`` the names
+    of the namespaces around it, ``""`` for an anonymous one. Comments, strings and
+    preprocessor lines are dropped first; each statement is the text since the last
+    ``;``, ``{`` or ``}``."""
+    src = re.sub(r"/\*.*?\*/", "", src, flags=re.S)
+    src = re.sub(r"//[^\n]*", "", src)
+    src = re.sub(r"^\s*#[^\n]*", "", src, flags=re.M)
+    src = re.sub(r'"(?:\\.|[^"\\])*"', '""', src)
+    found, stack, last = set(), [], 0
+    for m in re.finditer(r"[{};]", src):
+        stmt, last = src[last:m.start()].strip(), m.end()
+        if stmt and all(kind == "ns" for kind, _ in stack):
+            names = set(_DECL_TYPE.findall(stmt))
+            const, func = _DECL_CONST.search(stmt), _DECL_FUNC.search(stmt)
+            if const:
+                names.add(const.group(1))
+            elif func and not stmt.startswith("namespace"):
+                names.add(func.group(1))
+            found |= {(n, tuple(ns for _, ns in stack)) for n in names - _NOT_NAMES}
+        if m.group() == "{":
+            ns = re.search(r"\bnamespace\s*(\w*)$", stmt)
+            stack.append(("ns", ns.group(1)) if ns else ("block", ""))
+        elif m.group() == "}":
+            stack.pop()
+    return found
+
+
+def shadowed_names(header: str, source: str) -> set:
+    """The names ``header`` declares in namespace tris that ``source`` declares again at file
+    scope, in the global or an anonymous namespace: inside ``namespace tris`` code of that
+    file, the file's own declaration and tris's are two entities of one name."""
+    ours = {n for n, ns in namespace_scope_names(header) if ns == ("tris",)}
+    return ours & {n for n, ns in namespace_scope_names(source) if "tris" not in ns}
+
+
+@pytest.mark.parametrize("path", sorted(CSRC.glob("*.cu*")), ids=lambda p: p.name)
+def test_no_file_local_name_shadows_launchers_h(path):
+    # a .cu (or the .cuh it includes) declares none of launchers.h's names for itself: a
+    # file-local constant of the same name as one in namespace tris has compiled into the
+    # wrong value where both were in sight
+    header = (CSRC / "launchers.h").read_text()
+    assert {"kStage1HeadThreads", "stage1_head_plan", "Stage1HeadPlan", "TapArrays",
+            "stage1_head"} <= {n for n, ns in namespace_scope_names(header) if ns == ("tris",)}
+    assert shadowed_names(header, path.read_text()) == set()
+
+
+@pytest.mark.parametrize("planted,name", [
+    ("constexpr int kStage1HeadThreads = 128;", "kStage1HeadThreads"),
+    ("__device__ __forceinline__ int stage1_head_plan(int x) { return x; }", "stage1_head_plan"),
+    ("struct TapArrays {\n  int n;\n};", "TapArrays"),
+])
+def test_shadowing_guard_catches_a_planted_collision(planted, name):
+    # the guard's own check: the same name declared in stage1_head.cu's anonymous namespace
+    header = (CSRC / "launchers.h").read_text()
+    source = (CSRC / "stage1_head.cu").read_text()
+    assert "namespace {\n" in source and shadowed_names(header, source) == set()
+    planted_source = source.replace("namespace {\n", f"namespace {{\n\n{planted}\n", 1)
+    assert shadowed_names(header, planted_source) == {name}

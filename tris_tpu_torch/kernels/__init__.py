@@ -32,7 +32,8 @@ from tris_tpu_torch.kernels.resize import (
     bilinear_resize_launch_shape, bilinear_resize_plain, bilinear_resize_plan)
 from tris_tpu_torch.kernels.response_head import (
     response_head, response_head_launch_shape, response_head_plain, response_head_plan)
-from tris_tpu_torch.kernels.stage1_head import stage1_head, stage1_head_plain
+from tris_tpu_torch.kernels.stage1_head import (
+    stage1_head, stage1_head_launch_shape, stage1_head_plain, stage1_head_plan)
 from tris_tpu_torch.kernels.walk import (
     walk_matmul, walk_matmul_plain, walk_square, walk_tile_occupancy, walk_tile_occupancy_plain,
     walk_transition, walk_transition_plain)
@@ -42,7 +43,7 @@ __all__ = [
     "mha_short", "mha_short_plain", "mha_short_launch_shape",
     "cross_attn", "cross_attn_plain", "cross_attn_launch_shape",
     "response_head", "response_head_plain", "response_head_plan", "response_head_launch_shape",
-    "stage1_head", "stage1_head_plain",
+    "stage1_head", "stage1_head_plain", "stage1_head_plan", "stage1_head_launch_shape",
     "eval_metrics", "eval_metrics_plain", "eval_tables", "eval_metrics_plan",
     "eval_metrics_launch_shape",
     "critic_input", "critic_input_plain", "normalize_u8_nchw", "normalize_u8_nchw_plain",

@@ -274,7 +274,11 @@ std::map<std::string, int64_t> response_head_launch_shape() {
 
 // K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D]; scale a 0-d tensor;
 // ty, tx the taps to [H] rows and [W] columns. Returns (score [B, h*w, B],
-// cls_out [B, B], cls_fg [B], relu_map [B, H, W], sig_map [B, H, W]).
+// stats [B, 2 (h*w + B)] (both for the backward), cls_out [B, B], cls_fg [B],
+// relu_map [B, H, W], sig_map [B, H, W]).
+tris::Stage1HeadLaunchShape k3_train_shapes[2];
+bool k3_train_launched[2] = {false, false};
+
 std::vector<at::Tensor> stage1_head(const at::Tensor& vis_p, const at::Tensor& lan_p,
                                     const at::Tensor& scale, const std::vector<at::Tensor>& ty,
                                     const std::vector<at::Tensor>& tx, int64_t h, int64_t w,
@@ -289,24 +293,29 @@ std::vector<at::Tensor> stage1_head(const at::Tensor& vis_p, const at::Tensor& l
   const int64_t B = vis_p.size(0), D = vis_p.size(2), H = ty[0].size(0), W = tx[0].size(0);
   const at::TensorOptions o = vis_p.options();
   at::Tensor score = at::empty({B, h * w, B}, o), cls_out = at::empty({B, B}, o);
+  at::Tensor stats = at::empty({B, tris::stage1_head_stats(h * w, B)}, o);
   at::Tensor cls_fg = at::empty({B}, o);
   at::Tensor relu_map = at::empty({B, H, W}, o), sig_map = at::empty({B, H, W}, o);
   launched(tris::stage1_head(vis_p.data_ptr<float>(), lan_p.data_ptr<float>(),
                              scale.data_ptr<float>(), score.data_ptr<float>(),
-                             cls_out.data_ptr<float>(), cls_fg.data_ptr<float>(),
+                             stats.data_ptr<float>(), cls_out.data_ptr<float>(),
+                             cls_fg.data_ptr<float>(),
                              relu_map.data_ptr<float>(), sig_map.data_ptr<float>(), B, h, w, D, H,
-                             W, (float)focal_p, (float)focal_c, y, x, stream()),
+                             W, (float)focal_p, (float)focal_c, y, x, stream(),
+                             &k3_train_shapes[0]),
            "stage1_head");
-  return {score, cls_out, cls_fg, relu_map, sig_map};
+  k3_train_launched[0] = true;
+  return {score, stats, cls_out, cls_fg, relu_map, sig_map};
 }
 
 // K3 backward: g_cls [B, B]; g_relu, g_sig [B, H, W] or None; the forward's
-// inputs and score; ry, rx the adjoint ranges of the taps. Returns
+// inputs, score and stats; ry, rx the adjoint ranges of the taps. Returns
 // (d_vis [B, h*w, D], d_lan [B, B, D]).
 std::vector<at::Tensor> stage1_head_bwd(
     const at::Tensor& g_cls, const std::optional<at::Tensor>& g_relu,
     const std::optional<at::Tensor>& g_sig, const at::Tensor& vis_p, const at::Tensor& lan_p,
-    const at::Tensor& scale, const at::Tensor& score, const std::vector<at::Tensor>& ty,
+    const at::Tensor& scale, const at::Tensor& score, const at::Tensor& stats,
+    const std::vector<at::Tensor>& ty,
     const std::vector<at::Tensor>& tx, const std::vector<at::Tensor>& ry,
     const std::vector<at::Tensor>& rx, int64_t h, int64_t w, double focal_p, double focal_c) {
   const at::Device dev = vis_p.device();
@@ -318,22 +327,48 @@ std::vector<at::Tensor> stage1_head_bwd(
   check(lan_p, "stage1_head_bwd: lan_p", at::kFloat, dev);
   check(scale, "stage1_head_bwd: scale", at::kFloat, dev);
   check(score, "stage1_head_bwd: score", at::kFloat, dev);
+  check(stats, "stage1_head_bwd: stats", at::kFloat, dev);
   const tris::TapArrays y = tap_arrays(ty, "stage1_head_bwd: row taps", dev);
   const tris::TapArrays x = tap_arrays(tx, "stage1_head_bwd: column taps", dev);
   const tris::TapRanges yr = tap_ranges(ry, "stage1_head_bwd: row ranges", dev);
   const tris::TapRanges xr = tap_ranges(rx, "stage1_head_bwd: column ranges", dev);
   const int64_t B = vis_p.size(0), D = vis_p.size(2), H = ty[0].size(0), W = tx[0].size(0);
-  const at::TensorOptions o = vis_p.options();
-  at::Tensor dt = at::empty({B, H, w}, o), dscore = at::empty({B, h * w, B}, o);
   at::Tensor d_vis = at::empty_like(vis_p), d_lan = at::empty_like(lan_p);
   launched(tris::stage1_head_bwd(g_cls.data_ptr<float>(), ptr<float>(g_relu), ptr<float>(g_sig),
                                  vis_p.data_ptr<float>(), lan_p.data_ptr<float>(),
                                  scale.data_ptr<float>(), score.data_ptr<float>(),
-                                 dt.data_ptr<float>(), dscore.data_ptr<float>(),
-                                 d_vis.data_ptr<float>(), d_lan.data_ptr<float>(), B, h, w, D, H,
-                                 W, (float)focal_p, (float)focal_c, y, x, yr, xr, stream()),
+                                 stats.data_ptr<float>(), d_vis.data_ptr<float>(),
+                                 d_lan.data_ptr<float>(), B, h, w, D, H,
+                                 W, (float)focal_p, (float)focal_c, y, x, yr, xr, stream(),
+                                 &k3_train_shapes[1]),
            "stage1_head_bwd");
+  k3_train_launched[1] = true;
   return {d_vis, d_lan};
+}
+
+// K3's training-head plan (launchers.h, stage1_head_plan): ranks, threads, pixels, band_rows,
+// vec, passes, stages, groups, blocks and smem_bytes.
+std::map<std::string, int64_t> stage1_head_plan(int64_t B, int64_t h, int64_t w, int64_t D,
+                                                int64_t H, int64_t W, bool backward) {
+  TORCH_CHECK(B > 0 && B <= 65535 && h > 0 && w > 0 && D > 0 && H > 0 && W > 0 &&
+                  h * w * B < INT32_MAX && H * W < INT32_MAX && D < INT32_MAX,
+              "stage1_head_plan: shape out of range");
+  const tris::Stage1HeadPlan p =
+      tris::stage1_head_plan(B, (int)h, (int)w, (int)D, (int)H, (int)W, backward);
+  return {{"ranks", p.ranks}, {"threads", p.threads}, {"pixels", p.pixels},
+          {"band_rows", p.band_rows}, {"vec", p.vec}, {"passes", p.passes},
+          {"stages", p.stages}, {"groups", p.groups}, {"blocks", p.blocks},
+          {"smem_bytes", p.smem}};
+}
+
+// The last launch in this process of K3's training head (backward: its backward): blocks,
+// blocks a cluster, threads a block, map columns a thread and bytes of shared memory a block.
+std::map<std::string, int64_t> stage1_head_launch_shape(bool backward) {
+  TORCH_CHECK(k3_train_launched[backward], "stage1_head_launch_shape: no launch of ",
+              backward ? "stage1_head_bwd" : "stage1_head");
+  const tris::Stage1HeadLaunchShape& s = k3_train_shapes[backward];
+  return {{"blocks", s.blocks}, {"cluster", s.cluster}, {"threads", s.threads},
+          {"vec", s.vec}, {"smem_bytes", s.smem}};
 }
 
 // K4: cams [B, S, h, w]; ty [B, maxH] x4, tx [B, maxW] x4; orig_hw [B, 2]
@@ -1136,6 +1171,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("response_head_launch_shape", &response_head_launch_shape, "K3: its last launch's grid");
   m.def("stage1_head", &stage1_head, "K3: stage-1 training head");
   m.def("stage1_head_bwd", &stage1_head_bwd, "K3: stage-1 training head, backward");
+  m.def("stage1_head_plan", &stage1_head_plan, "K3: the cluster an image takes in training");
+  m.def("stage1_head_launch_shape", &stage1_head_launch_shape,
+        "K3: its training head's last launch's grid");
   m.def("eval_metrics", &eval_metrics, "K4: eval resize, normalise and metrics");
   m.def("eval_metrics_plan", &eval_metrics_plan, "K4: the cluster a map takes on this card");
   m.def("eval_metrics_launch_shape", &eval_metrics_launch_shape, "K4: its last launch's grid");

@@ -147,23 +147,170 @@ cudaError_t cross_attn_bwd(const float* g_vis, const float* g_lan, const float* 
                            float* dvt, int N, int HW, int T, int m, float div,
                            cudaStream_t stream, LaunchShape* shapes);
 
-// K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D]; scale a device scalar; taps
-// h -> H rows and w -> W columns. Writes score [B, h*w, B], cls_out [B, B], cls_fg [B],
-// relu_map and sig_map [B, H, W].
-cudaError_t stage1_head(const float* vis_p, const float* lan_p, const float* scale,
-                        float* score, float* cls_out, float* cls_fg, float* relu_map,
-                        float* sig_map, int B, int h, int w, int D, int H, int W, float focal_p,
-                        float focal_c, TapArrays ty, TapArrays tx, cudaStream_t stream);
+// K3, training head (stage1_head.cu): one launch each way, a cluster of R blocks an image, grid
+// (R, B), T = B texts.
+// Forward: rank r forms the scores of the image's pixels [r hw / R, (r + 1) hw / R) against all T
+// texts, a tile of kStage1HeadTilePixels pixels by kStage1HeadTileTexts texts at a time (a pass; a
+// share or T past one tile takes more passes over D, each reading the texts' rows again). A pass
+// stages the tile's pixel and text rows kStage1HeadChunk channels at a time through `stages`
+// buffers (cp.async, stages - 1 in flight; kStage1HeadStages, fewer where the block would pass
+// kStage1HeadMaxSmem bytes, at least 2), each row followed by kStage1HeadPad floats. The channels
+// are split over the block's kStage1HeadKSplit warps by groups of 4: warp j takes the groups g = j
+// mod kStage1HeadKSplit, its lanes 4 rows of pixels by 8 of texts, a lane kStage1HeadTilePixels /
+// 4 pixels by kStage1HeadTileTexts / 8 texts (strided by 4 and 8), each an fmaf chain over the
+// warp's channels in order; the warps' sums are then added in warp order, so R does not enter a
+// score's rounding. Each rank forms its pixels' softmax statistics; the ranks copy each other's
+// rows and statistics through distributed shared memory; each then writes cls_out on its share of
+// the texts [r T / R, (r + 1) T / R) and both maps on its band of output rows [r H / R, (r + 1) H
+// / R) from t-rows, `vec` columns a thread (16-byte stores where W % 4 == 0). The statistics the
+// backward needs go to device memory beside the scores: per pixel the softmax max and sum, per
+// text mbar and the first argmax.
+// Backward: rank r stages the plane as the forward wrote it and forms d seg on its band from g_sig
+// (and g_relu): a thread `vec` columns and a row group's rows (the band cut into
+// stage1_head_map_groups(W) sub-bands), streamed in order kStage1HeadMapLoads rows at a time and
+// summed onto the h rows as they go (the row adjoint, an fmaf chain a tap); the row groups' sums
+// (rows of stage1_head_map_pitch(W) floats) are added in order and each h row reduced onto the w
+// columns (the column adjoint's ranges); the ranks' [h, w] partials are summed in rank order
+// through distributed shared memory. dscore [hw, T] is formed in shared memory from the forward's
+// statistics and never reaches device memory; rank r then writes d vis_p and d lan_p on its
+// channel groups [r G / R, (r + 1) G / R) of G = D / 4 groups of 4 channels, a thread a tile of
+// kStage1HeadGradRows pixels (or texts) by kStage1HeadGradGroups groups, each gradient a chain
+// over the T texts (or the hw pixels) in order, the operand's rows staged kStage1HeadGradChunk at
+// a time through kStage1HeadGradStages buffers (cp.async).
+// R: doubled from 1, up to the portable cluster of kStage1HeadMaxRanks, while the doubled grid B *
+// 2R stays within kStage1HeadWaveBlocks (backward: kStage1HeadBwdWaveBlocks) and a rank keeps at
+// least kStage1HeadMinRows output rows. At B = 48 the forward takes 2, a block an SM: a rank's
+// share of the pixels fits one tile, so the texts' rows are read once a rank. The backward takes
+// 4, two blocks an SM: its shared loads and FMAs overlap only with the warps of two blocks (R = 2
+// with 255 registers a thread and 8 x 16 tiles took 1.8x as long); clusters of 5 and of 8 did not
+// all fit the card at once, and their grids took two waves.
+constexpr int kStage1HeadThreads = 256;
+constexpr int kStage1HeadMaxRanks = 8;
+constexpr int kStage1HeadWaveBlocks = 132;     // a block an SM of 132
+constexpr int kStage1HeadBwdWaveBlocks = 264;  // two
+constexpr int kStage1HeadMinRows = 8;
+constexpr int kStage1HeadKSplit = 8;        // the block's warps
+constexpr int kStage1HeadTilePixels = 56;   // 4 rows of lanes x 14
+constexpr int kStage1HeadTileTexts = 48;    // 8 columns of lanes x 6
+constexpr int kStage1HeadChunk = 128;
+constexpr int kStage1HeadStages = 3;
+constexpr int kStage1HeadMaxSmem = 232448;  // 227 KiB, a block's most on Hopper
+constexpr int kStage1HeadPad = 4;
+constexpr int kStage1HeadMapGroups = 3;
+constexpr int kStage1HeadMapLoads = 4;
+constexpr int kStage1HeadGradRows = 8;
+constexpr int kStage1HeadGradGroups = 2;
+constexpr int kStage1HeadGradChunk = 8;
+constexpr int kStage1HeadGradStages = 3;
 
-// K3 backward: g_cls [B, B]; g_relu and g_sig [B, H, W] or null (both null: no map
-// gradient); score as the forward wrote it; scratch dt [B, H, w] and dscore
-// [B, h*w, B]; d_vis [B, h*w, D], d_lan [B, B, D].
+constexpr long long stage1_head_round(long long n, int m) { return (n + m - 1) / m * m; }
+constexpr int stage1_head_map_pitch(int W) { return W | 1; }
+// the backward's row groups: as many as a block holds of W's column groups (of 4 where W % 4 ==
+// 0), at most kStage1HeadMapGroups
+constexpr int stage1_head_map_groups(int W) {
+  const int groups = W % 4 == 0 ? W / 4 : W;
+  const int tg = groups < kStage1HeadThreads ? groups : kStage1HeadThreads;
+  return kStage1HeadThreads / tg < kStage1HeadMapGroups ? kStage1HeadThreads / tg
+                                                        : kStage1HeadMapGroups;
+}
+
+// floats of an image's statistics: the softmax max and sum a pixel, mbar and the first argmax
+// (as a float) a text
+constexpr long long stage1_head_stats(long long hw, long long T) { return 2 * (hw + T); }
+
+struct Stage1HeadPlan {
+  int ranks;      // blocks an image, one cluster
+  int threads;    // threads a block
+  int pixels;     // pixels a rank's share holds at most, ceil(hw / R)
+  int band_rows;  // output rows a rank's band holds at most, ceil(H / R)
+  int vec;        // map columns a thread takes: 4 (W % 4 == 0) or 1
+  int passes;     // forward: tiles of the rank's scores, a pass over D each
+  int stages;     // forward: the operands' buffers
+  int groups;     // backward: channel groups a rank's slice holds at most, ceil(D / 4 / R)
+  long long blocks;
+  long long smem;  // bytes of dynamic shared memory a block
+};
+
+// K3's rule, by the shape: B images (and texts), [h, w] score planes of D channels, maps [H, W].
+// The forward's block holds the plane [hw, T], then `stages` stages of kStage1HeadTilePixels +
+// kStage1HeadTileTexts rows of kStage1HeadChunk + kStage1HeadPad floats, or the warps' sums of a
+// tile [kStage1HeadKSplit, kStage1HeadTilePixels, kStage1HeadTileTexts], later the statistics
+// [2, hw] and the band's t-rows; the backward's the plane (rows padded to 8 floats), six [hw]
+// vectors, three [T], the band's t-rows [band_rows, w], and either the row groups' d seg on the h
+// rows [stage1_head_map_groups(W), h, stage1_head_map_pitch(W)] or dscore transposed ([T, hw],
+// rows padded to 8 floats; dscore itself takes the plane's place) with the gradients' operand
+// stages [kStage1HeadGradStages, kStage1HeadGradChunk, 4 groups]. Each vector starts on 16 bytes.
+constexpr Stage1HeadPlan stage1_head_plan(long long B, int h, int w, int D, int H, int W,
+                                          bool backward) {
+  const long long hw = (long long)h * w;
+  const int wave = backward ? kStage1HeadBwdWaveBlocks : kStage1HeadWaveBlocks;
+  int R = 1;
+  while (R < kStage1HeadMaxRanks && B * 2 * R <= wave && 2 * R * kStage1HeadMinRows <= H) R *= 2;
+  const int pixels = (int)((hw + R - 1) / R), band = (H + R - 1) / R;
+  const int groups = (D / 4 + R - 1) / R;
+  const long long passes = ((pixels + kStage1HeadTilePixels - 1) / kStage1HeadTilePixels) *
+                           ((B + kStage1HeadTileTexts - 1) / kStage1HeadTileTexts);
+  const long long vec_hw = stage1_head_round(hw, 4);
+  const long long trows = stage1_head_round((long long)band * w, 4);
+  long long floats = 0;
+  int stages = 0;
+  if (!backward) {
+    const long long stage = (long long)(kStage1HeadTilePixels + kStage1HeadTileTexts) *
+                            (kStage1HeadChunk + kStage1HeadPad);
+    const long long sums = (long long)kStage1HeadKSplit * kStage1HeadTilePixels *
+                           kStage1HeadTileTexts;
+    long long after = 2 * vec_hw + trows;
+    after = sums > after ? sums : after;
+    for (stages = kStage1HeadStages;; --stages) {
+      floats = stage1_head_round(hw * B, 4) + (stages * stage > after ? stages * stage : after);
+      if (stages == 2 || 4 * floats <= kStage1HeadMaxSmem) break;
+    }
+  } else {
+    const long long seg = (long long)stage1_head_map_groups(W) * h * stage1_head_map_pitch(W);
+    const long long grads =
+        B * stage1_head_round(hw, 8) + 4LL * kStage1HeadGradStages * kStage1HeadGradChunk * groups;
+    floats = hw * stage1_head_round(B, 8) + 6 * vec_hw + 3 * stage1_head_round(B, 4) + trows +
+             (seg > grads ? seg : grads);
+  }
+  return {R,
+          kStage1HeadThreads,
+          pixels,
+          band,
+          W % 4 == 0 ? 4 : 1,
+          backward ? 0 : (int)passes,
+          stages,
+          backward ? groups : 0,
+          B * R,
+          4 * floats};
+}
+
+// A launch of K3's training head as its launcher made it: blocks, blocks a cluster, threads a
+// block, map columns a thread and bytes of dynamic shared memory a block.
+struct Stage1HeadLaunchShape {
+  long long blocks;
+  int cluster, threads, vec;
+  long long smem;
+};
+
+// K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D] (D % 4 == 0, both 16-byte aligned);
+// scale a device scalar; taps h -> H rows and w -> W columns. Writes score [B, h*w, B] and stats
+// [B, stage1_head_stats(h*w, B)] (for the backward), cls_out [B, B], cls_fg [B], relu_map and
+// sig_map [B, H, W]. *shape receives the launch's shape.
+cudaError_t stage1_head(const float* vis_p, const float* lan_p, const float* scale,
+                        float* score, float* stats, float* cls_out, float* cls_fg,
+                        float* relu_map, float* sig_map, int B, int h, int w, int D, int H, int W,
+                        float focal_p, float focal_c, TapArrays ty, TapArrays tx,
+                        cudaStream_t stream, Stage1HeadLaunchShape* shape);
+
+// K3 backward: g_cls [B, B]; g_relu and g_sig [B, H, W] or null (both null: no map gradient;
+// 16-byte aligned); score and stats as the forward wrote them; taps and their adjoint ranges;
+// d_vis [B, h*w, D], d_lan [B, B, D]. *shape receives the launch's shape.
 cudaError_t stage1_head_bwd(const float* g_cls, const float* g_relu, const float* g_sig,
                             const float* vis_p, const float* lan_p, const float* scale,
-                            const float* score, float* dt, float* dscore, float* d_vis,
-                            float* d_lan, int B, int h, int w, int D, int H, int W,
-                            float focal_p, float focal_c, TapArrays ty, TapArrays tx,
-                            TapRanges ry, TapRanges rx, cudaStream_t stream);
+                            const float* score, const float* stats, float* d_vis, float* d_lan,
+                            int B, int h, int w, int D, int H, int W, float focal_p,
+                            float focal_c, TapArrays ty, TapArrays tx, TapRanges ry,
+                            TapRanges rx, cudaStream_t stream, Stage1HeadLaunchShape* shape);
 
 // K3, the eval head (response_head.cu): a cluster of R blocks a pair, grid (R, P). Rank r
 // forms the scores of the pair's pixels [r hw / R, (r + 1) hw / R) (a warp a pixel), the

@@ -14,6 +14,14 @@ backward is the hand-written kernel, from ``d cls_out``, ``d sig_map`` and
 gets no gradient; nor does ``scale`` (``logit_scale`` is frozen in stage 1,
 ``tris_tpu/train/state.py:85-86``), though the plain version, being
 autograd's, computes one that the optimizer ignores.
+
+Each way is one launch, a cluster of blocks an image: the ranks form the
+scores of their shares of the pixels and exchange them through distributed
+shared memory, and the backward forms dscore in shared memory; the
+cluster's size is ``csrc/launchers.h::stage1_head_plan``'s rule, which
+:func:`stage1_head_plan` reads back from the extension and
+``tris_tpu_torch/tools/stage1_head_schedule.py`` emulates on the host;
+:func:`stage1_head_launch_shape` gives the last launch's grid.
 """
 
 from __future__ import annotations
@@ -44,40 +52,77 @@ def stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, foc
     return cls[:, 1:], cls_fg, torch.relu(seg), torch.sigmoid(seg)
 
 
+MAX_IMAGES = 65535  # the grid's second dimension
+
+
+def stage1_head_plan(B: int, h: int, w: int, D: int, H: int, W: int,
+                     backward: bool = False) -> dict:
+    """The launch for ``B`` images and texts, ``[h, w]`` score planes of ``D``
+    channels and ``[H, W]`` maps, forward or backward (``launchers.h``'s rule,
+    from the extension): ranks, threads, pixels, band_rows, vec, passes, stages,
+    groups, blocks and smem_bytes. Refuses, before any launch, a shape the kernels do
+    not take."""
+    if (not 1 <= B <= MAX_IMAGES or min(h, w, D, H, W) < 1 or h * w * B >= 2 ** 31
+            or H * W >= 2 ** 31 or D >= 2 ** 31):
+        raise ValueError(f"stage1_head_plan: bad shape {(B, h, w, D, H, W)}")
+    if D % 4:
+        raise ValueError(f"stage1_head: D = {D} channels must be a multiple of 4 (16-byte copies)")
+    plan = dict(build.ops().stage1_head_plan(B, h, w, D, H, W, backward))
+    if plan["smem_bytes"] > build.MAX_SMEM:
+        raise ValueError(f"stage1_head: the [h*w, B] = [{h * w}, {B}] score plane and the "
+                         f"{'backward' if backward else 'forward'}'s stages must fit shared memory")
+    return plan
+
+
+def stage1_head_launch_shape(backward: bool = False) -> dict:
+    """The grid of the last launch in this process, forward or backward:
+    blocks, cluster, threads, vec and smem_bytes."""
+    name = "stage1_head_bwd" if backward else "stage1_head"
+    if build.launches[name] == 0:
+        raise RuntimeError(f"stage1_head_launch_shape: no launch of {name} counted")
+    return dict(build.ops().stage1_head_launch_shape(backward))
+
+
+def _aligned(t):
+    """``t`` contiguous on 16 bytes, as the kernels' float4 loads read it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class _Stage1Head(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vis_p, lan_p, scale, h, w, H, W, focal_p, focal_lambda, save):
         ty = taps_on(h, H, False, vis_p.device)
         tx = taps_on(w, W, False, vis_p.device)
-        score, cls_out, cls_fg, relu_map, sig_map = build.ops().stage1_head(
+        score, stats, cls_out, cls_fg, relu_map, sig_map = build.ops().stage1_head(
             vis_p, lan_p, scale, list(ty), list(tx), h, w, focal_p, focal_lambda)
-        build.count("stage1_head", n=3)
+        build.count("stage1_head")
         ctx.mark_non_differentiable(cls_fg)
         ctx.set_materialize_grads(False)
         ctx.shape, ctx.focal = (h, w, H, W), (focal_p, focal_lambda)
         if save:  # nothing is kept when no input needs a gradient
-            ctx.save_for_backward(vis_p, lan_p, scale, score)
+            ctx.save_for_backward(vis_p, lan_p, scale, score, stats)
         return cls_out, cls_fg, relu_map, sig_map
 
     @staticmethod
     def backward(ctx, g_cls, _g_fg, g_relu, g_sig):
-        vis_p, lan_p, scale, score = ctx.saved_tensors
+        vis_p, lan_p, scale, score, stats = ctx.saved_tensors
         h, w, H, W = ctx.shape
         dev = vis_p.device
         if g_cls is None:
             g_cls = torch.zeros(score.shape[0], score.shape[2], device=dev)
         d_vis, d_lan = build.ops().stage1_head_bwd(
-            g_cls.contiguous(), None if g_relu is None else g_relu.contiguous(),
-            None if g_sig is None else g_sig.contiguous(), vis_p, lan_p, scale, score,
+            g_cls.contiguous(), None if g_relu is None else _aligned(g_relu),
+            None if g_sig is None else _aligned(g_sig), vis_p, lan_p, scale, score, stats,
             list(taps_on(h, H, False, dev)), list(taps_on(w, W, False, dev)),
             list(adjoint_taps_on(h, H, False, dev)), list(adjoint_taps_on(w, W, False, dev)),
             h, w, *ctx.focal)
-        build.count("stage1_head_bwd", n=3 if g_relu is None and g_sig is None else 4)
+        build.count("stage1_head_bwd")
         return d_vis, d_lan, None, None, None, None, None, None, None, None
 
 
 def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float):
-    """K3's training head on CUDA tensors (3 launches forward, 3 or 4
+    """K3's training head on CUDA tensors (one launch forward, one
     backward); the plain version on CPU tensors. ``scale`` is a 0-d tensor
     (``exp(logit_scale)``) that the kernels read on the device."""
     if vis_p.device.type == "cpu":
@@ -88,10 +133,10 @@ def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lam
     if HW != h * w or lan_p.shape != (B, B, D):
         raise ValueError(f"stage1_head: bad shapes vis_p{tuple(vis_p.shape)} "
                          f"lan_p{tuple(lan_p.shape)} hw={hw_shape}")
-    if 4 * (HW * B + 4 * HW + 3 * B) > build.MAX_SMEM:
-        raise ValueError(f"stage1_head: the [h*w, B] = [{HW}, {B}] score plane must fit "
-                         f"shared memory")
     save = torch.is_grad_enabled() and (vis_p.requires_grad or lan_p.requires_grad)
-    return _Stage1Head.apply(vis_p.contiguous(), lan_p.contiguous(),
+    stage1_head_plan(B, h, w, D, H, W)
+    if save:  # the backward's shape is refused before the forward runs
+        stage1_head_plan(B, h, w, D, H, W, backward=True)
+    return _Stage1Head.apply(_aligned(vis_p), _aligned(lan_p),
                              scale.reshape(()).contiguous(), h, w, H, W, float(focal_p),
                              float(focal_lambda), save)

@@ -1,17 +1,26 @@
 """Times K6's bilinear backward at the ten shapes of the IRN and stage-2
-training steps, and K3's eval head at the stage-1 eval batch's shape, in the
-checkout at ``--root``: its kernels, timed by its own ``chip_smoke.py``
-(``resize_bwd_row``, ``measure_row``, ``device_ms``), so that two commits are
-timed in one call on one card, in turns (parent, change, change, parent).
+training steps (group ``k6_bwd``), K3's eval head at the stage-1 eval batch's
+shape (``k3_eval``) and K3's training head, forward and backward, at the
+stage-1 train step's (``k3_train``), in the checkout at ``--root``: its
+kernels, timed by its own ``chip_smoke.py`` (``resize_bwd_row``,
+``measure_row``, ``device_ms``, ``bwd_ms``), so that two commits are timed in
+one call on one card, in turns (parent, change, change, parent).
 
-    python tris_tpu_torch/tools/kernel_ab.py --root PATH --tag NAME [--out FILE] [--save DIR]
+    python tris_tpu_torch/tools/kernel_ab.py --root PATH --tag NAME \
+        [--groups k6_bwd,k3_eval,k3_train] [--out FILE] [--save DIR]
 
 Each row holds the kernel against its plain version at chip_smoke's bars
-(K6's backward 1e-5 of the gradient's scale, K3 1e-4). With ``--save``, the
-gradients at IRNet's dp6 tap and stage 2's x16 head and K3's maps, on the
-same seeded inputs in every checkout, go to ``DIR/<tag>.pt``, and each file
-of another tag already there is compared with them bit for bit. Prints one
-JSON line (``--out`` also writes it). Needs a card.
+(K6's backward 1e-5 of the gradient's scale, K3's eval head 1e-4, its
+training head 1e-5 of the outputs' scale forward and 1e-4 of the gradients'
+backward). K3's training rows also give each launch of a call apart (from
+``torch.profiler``, by position in the call: ``launches``) and, as a
+yardstick of its score product alone, ``torch.bmm`` of [48, 100, 1024] by
+[48, 1024, 48] in full float32 (``bmm_score_ms``). With ``--save``, the
+gradients at IRNet's dp6 tap and stage 2's x16 head, K3's eval maps and its
+training head's outputs and gradients, on the same seeded inputs in every
+checkout, go to ``DIR/<tag>.pt``, and each file of another tag already there
+is compared with them bit for bit. Prints one JSON line (``--out`` also
+writes it). Needs a card.
 """
 
 from __future__ import annotations
@@ -36,6 +45,110 @@ K6_SHAPES = [("dp6", (24, 256, 64, 64), (128, 128)),
              ("head_x8", (48, 1, 40, 40), (320, 320)),
              ("head_x16", (48, 1, 20, 20), (320, 320))]
 SAVED = ("dp6", "head_x16")
+GROUPS = ("k6_bwd", "k3_eval", "k3_train")
+
+
+def launch_times(fn, n: int = 10) -> list:
+    """Card ms of each kernel one ``fn()`` launches, in launch order, the
+    mean over ``n`` calls traced by ``torch.profiler``."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not evs or len(evs) % n:
+        return [{"error": f"{len(evs)} device events over {n} calls"}]
+    k = len(evs) // n
+    out = []
+    for i in range(k):
+        calls = evs[i::k]
+        name = re.search(r"(\w+_kernel)", calls[0].name)
+        out.append({"name": name.group(1) if name else calls[0].name[:60],
+                    "ms": sum(e.time_range.elapsed_us() for e in calls) / n / 1e3})
+    return out
+
+
+def k3_train_rows(cs, K, randn, failures, outs) -> list:
+    """K3's training head at the stage-1 train step's shape (chip_smoke's
+    check_train_kernels): vis_p [48, 100, 1024], lan_p [48, 48, 1024] -> cls
+    [48, 48] and maps [48, 320, 320], the loss's cotangents (cls and sig)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, hs, D, size = 48, 10, 1024, 320
+    hw = hs * hs
+    vis, lan = cs.leaves(F.normalize(randn(B, hw, D), dim=-1), F.normalize(randn(B, B, D), dim=-1))
+    scale = torch.tensor(1 / 0.07, device=vis.device)
+    args = (scale, (hs, hs), (size, size), 3.0, 0.01)
+    with torch.no_grad():
+        got, want = K.stage1_head(vis, lan, *args), K.stage1_head_plain(vis, lan, *args)
+    out_scale = max(float(w.abs().max()) for w in want)
+    err = max(cs.max_err(a, b) for a, b in zip(got, want))
+    fwd = lambda: K.stage1_head(vis.detach(), lan.detach(), *args)  # noqa: E731
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vd, ld = vis.detach(), lan.detach().transpose(1, 2)
+    bmm_ms = cs.device_ms(lambda: torch.bmm(vd, ld))
+    rows = [cs.measure_row(
+        failures, "stage1_head", err, 1e-5 * max(out_scale, 1.0), cs.device_ms(fwd),
+        cs.device_ms(lambda: K.stage1_head_plain(vis.detach(), lan.detach(), *args)),
+        4 * (B * hw * D + B * B * D + B * B + B + 2 * B * size * size),
+        2 * B * hw * B * D + 20 * B * hw * B + 20 * B * size * size, None,
+        shape=[B, hw, B, D, size], launches=launch_times(fwd), bmm_score_ms=bmm_ms)]
+    cot = [randn(B, B), None, None, randn(B, size, size)]
+    kern = lambda v, l: K.stage1_head(v, l, *args)  # noqa: E731
+    plain = lambda v, l: K.stage1_head_plain(v, l, *args)  # noqa: E731
+    grads = cs.input_grads(kern, [vis, lan], cot)
+    want_g = cs.input_grads(plain, [vis, lan], cot)
+    g_scale = max(float(w.abs().max()) for w in want_g)
+    outs_g, cs_g = cs._outs_cots(kern, [vis, lan], cot)
+    rows.append(cs.measure_row(
+        failures, "stage1_head_bwd", max(cs.max_err(a, b) for a, b in zip(grads, want_g)),
+        1e-4 * max(g_scale, 1.0), cs.bwd_ms(kern, [vis, lan], cot),
+        cs.bwd_ms(plain, [vis, lan], cot),
+        4 * (2 * (B * hw * D + B * B * D) + B * B + B * hw * B + B * size * size),
+        4 * B * hw * B * D + 30 * B * hw * B + 12 * B * size * size, None,
+        shape=[B, hw, B, D, size],
+        launches=launch_times(lambda: torch.autograd.grad(outs_g, [vis, lan], cs_g,
+                                                          retain_graph=True)),
+        bit_for_bit_run_to_run=all(bool(torch.equal(a, b)) for a, b in
+                                   zip(grads, cs.input_grads(kern, [vis, lan], cot)))))
+    names = ("cls_out", "relu_map", "sig_map", "d_vis", "d_lan")
+    for k, t in zip(names, (*got[:1], *got[2:], *grads)):
+        outs[f"stage1_head.{k}"] = t.cpu()
+    return rows
+
+
+def k3_eval_row(cs, K, randn, failures, rows, outs) -> None:
+    """K3's eval head at response_maps' shape, as chip_smoke's check_kernels holds it: 8
+    images x 4 pairs, D = 1024, 10 x 10 -> 320 x 320."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, hs, D, size = 8, 4, 10, 1024, 320
+    P, hw = B * S, hs * hs
+    vis_base = F.normalize(randn(B, hw, D), dim=-1)
+    vis_new = randn(P, hw, D)
+    lan = F.normalize(randn(P, D), dim=-1)
+    scale = torch.tensor(1 / 0.07, device=vis_base.device)
+    head = (vis_new, vis_base, lan, S, scale, 0.1, (hs, hs), (size, size))
+    outs["response_head"] = K.response_head(*head)
+    rows.append(cs.measure_row(
+        failures, "response_head",
+        cs.max_err(outs["response_head"], K.response_head_plain(*head)), 1e-4,
+        cs.device_ms(lambda: K.response_head(*head)),
+        cs.device_ms(lambda: K.response_head_plain(*head)),
+        4 * (P * hw * D + B * hw * D + P * D + P * size * size),
+        P * hw * D * 4 + P * size * size * 7, None, shape=[B, S, hw, D, size]))
+    outs["response_head"] = outs["response_head"].cpu()
 
 
 def main(argv=None) -> dict:
@@ -44,11 +157,15 @@ def main(argv=None) -> dict:
     p.add_argument("--tag", required=True, help="this run's name (its saved outputs' file)")
     p.add_argument("--out", default=None, help="also write the JSON here")
     p.add_argument("--save", default=None, help="directory of the outputs compared bit for bit")
+    p.add_argument("--groups", default=",".join(GROUPS),
+                   help=f"the rows to time, comma-separated, of {GROUPS}")
     args = p.parse_args(argv)
+    groups = args.groups.split(",")
+    if not set(groups) <= set(GROUPS):
+        raise SystemExit(f"kernel_ab: --groups {args.groups}: not all of {GROUPS}")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device: this script times kernels on the card")
@@ -65,7 +182,7 @@ def main(argv=None) -> dict:
         return torch.randn(*shape, generator=g, device=dev)
 
     failures, rows, outs = [], [], {}
-    for name, shape, size in K6_SHAPES:
+    for name, shape, size in K6_SHAPES if "k6_bwd" in groups else ():
         x, cot = randn(*shape), randn(*shape[:-2], *size)
         rows.append(cs.resize_bwd_row(K, failures, f"bilinear_resize_bwd@{name}", x, cot))
         if name in SAVED:
@@ -74,24 +191,10 @@ def main(argv=None) -> dict:
         del x, cot
         torch.cuda.empty_cache()
 
-    # K3 at response_maps' shape, as chip_smoke's check_kernels holds it: 8 images x 4 pairs,
-    # D = 1024, 10 x 10 -> 320 x 320
-    B, S, hs, D, size = 8, 4, 10, 1024, 320
-    P, hw = B * S, hs * hs
-    vis_base = F.normalize(randn(B, hw, D), dim=-1)
-    vis_new = randn(P, hw, D)
-    lan = F.normalize(randn(P, D), dim=-1)
-    scale = torch.tensor(1 / 0.07, device=dev)
-    head = (vis_new, vis_base, lan, S, scale, 0.1, (hs, hs), (size, size))
-    outs["response_head"] = K.response_head(*head)
-    rows.append(cs.measure_row(
-        failures, "response_head",
-        cs.max_err(outs["response_head"], K.response_head_plain(*head)), 1e-4,
-        cs.device_ms(lambda: K.response_head(*head)),
-        cs.device_ms(lambda: K.response_head_plain(*head)),
-        4 * (P * hw * D + B * hw * D + P * D + P * size * size),
-        P * hw * D * 4 + P * size * size * 7, None, shape=[B, S, hw, D, size]))
-    outs["response_head"] = outs["response_head"].cpu()
+    if "k3_eval" in groups:
+        k3_eval_row(cs, K, randn, failures, rows, outs)
+    if "k3_train" in groups:
+        rows += k3_train_rows(cs, K, randn, failures, outs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()

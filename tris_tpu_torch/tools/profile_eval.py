@@ -47,8 +47,8 @@ import torch
 # templated kernel (K1's mha_short_kernel<56, 64, true>, ...) files under its own
 HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "cross_attn_probs_bwd_kernel", "cross_attn_grads_bwd_kernel",
-                "response_head_kernel", "bmm_kernel", "head_fwd_kernel", "maps_fwd_kernel",
-                "head_bwd_kernel", "maps_bwd_kernel", "eval_metrics_kernel",
+                "response_head_kernel", "stage1_head_fwd_kernel", "stage1_head_bwd_kernel",
+                "eval_metrics_kernel",
                 "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel",
                 "bilinear_resize_kernel", "bilinear_resize_bwd_kernel",
                 "bilinear_resize_bwd_direct_kernel", "path_max_kernel",
