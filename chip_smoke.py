@@ -144,11 +144,11 @@ EVAL_KERNELS = ("mha_short", "cross_attn", "response_head", "eval_metrics", "nor
 TRAIN_B, TRAIN_NEG, TRAIN_STEPS, N_TRAIN_BATCHES = 48, 3, 3, 4
 # kernel launches per train step at that shape: K1 forward in the stage-1
 # text tower, the critic's vision tower and its text tower (12 layers each),
-# its backward in the first two; K2 1 + 2; K3's head 1 + 1; K5 1 + 2; K6 1;
+# its backward in the first two; K2 1 + 2; K3's head 1 + 1; K5 1 + 1; K6 1;
 # K13 at the RN50 trunk's 55 norms (bn_launches())
 TRAIN_LAUNCHES_PER_STEP = {"mha_short": 36, "mha_short_bwd": 24, "cross_attn": 1,
                            "cross_attn_bwd": 2, "stage1_head": 1, "stage1_head_bwd": 1,
-                           "critic_input": 1, "critic_input_bwd": 2, "normalize_u8": 1,
+                           "critic_input": 1, "critic_input_bwd": 1, "normalize_u8": 1,
                            "response_head": 0, "eval_metrics": 0}
 # phase 7: IRNet's instance pseudo-masks on COCO-sized originals (each grid
 # buckets to 128x160 or 160x128: HW = 20480), the reference walk (radius 5,
@@ -300,15 +300,20 @@ def bound_ms(nbytes: float, flops: float):
 
 
 @functools.lru_cache(maxsize=1)
-def smem_rate() -> float:
-    """4-byte shared-memory loads a second the card issues at most: a warp's
-    32 a clock on each SM, at the SM clock's maximum (``nvidia-smi``)."""
-    import torch
-
+def sm_clock_hz() -> float:
+    """The SM clock's maximum (``nvidia-smi``)."""
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.split()[0]
-    return torch.cuda.get_device_properties(0).multi_processor_count * 32 * float(mhz) * 1e6
+    return float(mhz) * 1e6
+
+
+def smem_rate() -> float:
+    """4-byte shared-memory loads a second the card issues at most: a warp's
+    32 a clock on each SM, at the SM clock's maximum."""
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count * 32 * sm_clock_hz()
 
 
 def smem_ms(loads: int) -> float:
@@ -803,7 +808,8 @@ def check_train_kernels(K, dev):
 
     # K5 backward: 48 sigmoid maps and images, 320 -> 224, patch 32; the
     # plain version's index backward scatters with atomics (its sums' order
-    # changes from run to run), so 1e-5 of the gradient's scale
+    # changes from run to run), so 1e-5 of the gradient's scale; the kernel
+    # bit for bit run to run (a gather in a fixed order, no atomics)
     n, ps = vit.image_resolution, vit.vision_patch_size
     (cams,) = leaves(torch.sigmoid(randn(TRAIN_B, SIZE, SIZE)))
     image = randn(TRAIN_B, 3, SIZE, SIZE)
@@ -811,13 +817,19 @@ def check_train_kernels(K, dev):
     kern = lambda c: K.critic_input(c, image, 1, n, ps)  # noqa: E731
     plain = lambda c: K.critic_input_plain(c, image, 1, n, ps)  # noqa: E731
     err, tol, _ = compare("critic_input_bwd", kern, plain, [cams], cot, 1e-5)
+    bitwise = bool(torch.equal(input_grads(kern, [cams], cot)[0],
+                               input_grads(kern, [cams], cot)[0]))
+    if not bitwise:
+        failures.append("critic_input_bwd: two runs differ")
     rows.append(row(
         "critic_input_bwd", "tris_tpu_torch/kernels/csrc/critic_input_bwd.cu",
         "tris_tpu/train/stage1.py:70", err, tol, bwd_ms(kern, [cams], cot),
         bwd_ms(plain, [cams], cot),
         4 * (cot[0].numel() + image.numel() + cams.numel()),
         TRAIN_B * n * n * 3 * 8 + TRAIN_B * (n * SIZE + SIZE * SIZE) * 4, None,
-        shape=[TRAIN_B, SIZE, n, ps]))
+        shape=[TRAIN_B, SIZE, n, ps], bit_for_bit_run_to_run=bitwise,
+        plan=K.critic_input_bwd_plan(TRAIN_B, SIZE, SIZE, n),
+        launch_shape=K.critic_input_bwd_launch_shape()))
     return rows, extra_rows, failures
 
 
@@ -871,16 +883,28 @@ def check_ins_seg_kernels(K, dev):
                 4 * (edge.numel() + got.numel()), (n_steps + got.shape[0]) * ch * cw, None,
                 shape=[*edge.shape, *got.shape], path_steps=n_steps)))
 
-    # K9 on the 120x160 grid: a smooth field of a few pixels, 300 steps; exact
+    # K9 on the 120x160 grid: a smooth field of a few pixels, up to 300 steps
+    # (a warp stops at a fixed point); exact. The bound counts the steps each
+    # warp took on its live lanes; the latency floor is the steps of the
+    # longest warp times a step of one warp alone on the card (a [1, 32] grid
+    # on a field that never settles: 300 steps less none, a step apart)
     field = F.avg_pool2d(torch.randn(1, 2, gh + 8, gw + 8, generator=g, device=dev), 9, 1)[0] * 12
     got = K.refine_centroids(field)
+    steps = centroid_steps(K, gh, gw)
+    lone = torch.zeros(2, 1, 32, device=dev)
+    lone[1] = (torch.arange(32, device=dev) % 2 == 0).float() * 2 - 1
+    step_ms = (device_ms(lambda: K.refine_centroids(lone, 300))
+               - device_ms(lambda: K.refine_centroids(lone, 0))) / 300
     rows.append(kernel_row(
         "refine_centroids", "tris_tpu_torch/kernels/csrc/refine_centroids.cu",
         "tris_tpu/pseudo/labels.py:71",
         measure("refine_centroids", max_err(got, K.refine_centroids_plain(field)), 0.0,
                 device_ms(lambda: K.refine_centroids(field)),
                 device_ms(lambda: K.refine_centroids_plain(field), n=3), 4 * 4 * gh * gw,
-                300 * 30 * gh * gw, None, shape=[2, gh, gw], iterations=300)))
+                30 * steps["pixel_steps"], None, shape=[2, gh, gw], iterations=300,
+                plan=K.refine_centroids_plan(gh, gw), steps_taken=steps,
+                latency_floor_ms=steps["max"] * step_ms,
+                step_cycles_alone=step_ms * 1e-3 * sm_clock_hz())))
 
     # K10 on the bucket from K7's grids: T [20480, 20480]
     dirs = np.asarray(pi.search_dst, np.int64)
@@ -916,6 +940,19 @@ def check_ins_seg_kernels(K, dev):
     del trans
     torch.cuda.empty_cache()
     return rows, failures
+
+
+def centroid_steps(K, H, W) -> dict:
+    """The steps K9's last launch on an [H, W] grid took: the longest warp's,
+    the warps' mean, the warps that took all the steps, and the steps summed
+    over the live pixels."""
+    from tris_tpu_torch.tools.centroids_schedule import live_lanes
+
+    steps = K.refine_centroids_steps().cpu().numpy()
+    lanes = live_lanes(H, W, K.refine_centroids_plan(H, W))
+    return {"max": int(steps.max()), "mean": float(steps.mean()), "warps": int(len(steps)),
+            "warps_at_max": int((steps == steps.max()).sum()),
+            "pixel_steps": int((steps.astype(np.int64) * lanes).sum())}
 
 
 def skipped_share(K, t, band):
@@ -2427,6 +2464,11 @@ def ins_seg_path(K, dev):
                 rw_err = float("inf")
         if not exact:
             failures.append("ins_seg: edge, displacement or centroids differ from the plain route")
+        # K9's steps on each image's own field (after the counted run)
+        centroid_steps_per_image = []
+        for st in stages["kernels"] if torch.device(dev).type == "cuda" else ():
+            K.refine_centroids(st["disp"])
+            centroid_steps_per_image.append(centroid_steps(K, *st["disp"].shape[1:]))
         if not (rw_err <= 1e-4 and shape_agree >= 0.999):
             failures.append(f"ins_seg: walk vs plain {rw_err} of its max (> 1e-4) or argmax "
                             f"agreement {shape_agree} < 0.999")
@@ -2467,6 +2509,7 @@ def ins_seg_path(K, dev):
         "peak_memory_gb": peak_gb,
         "stage_host_ms_per_image": {route: split(route) for route in stages},
         "pass_host_ms_one_image": {route: spread(t) for route, t in times.items()},
+        "centroid_steps": centroid_steps_per_image,
         "intermediates_exact": exact, "rw_rel_err": rw_err, "argmax_agreement": shape_agree,
         "npy_cam_rel_err": dict_err, "npy_mask_agreement": mask_agree,
     }

@@ -734,21 +734,64 @@ def test_stage1_head_refuses(dev):
     assert K.launches["stage1_head"] == 0
 
 
-@pytest.mark.parametrize("size,out,patch,S", [(64, 64, 16, 1), (320, 224, 32, 1), (96, 64, 16, 2)])
+@pytest.mark.parametrize("size,out,patch,S", [(64, 64, 16, 1), (320, 224, 32, 1), (96, 64, 16, 2),
+                                              (100, 64, 16, 1)])
 def test_critic_input_bwd(randn, size, out, patch, S):
     # the maps' gradient against autograd of the plain version in float64,
-    # 1e-5 of its scale; 64 -> 64 takes identity taps; the image is data
-    B = 2
+    # 1e-5 of its scale; 64 -> 64 takes identity taps; 100 -> 64 at 48 maps
+    # takes bands of 8, the last of 4 rows; the image is data; two runs give
+    # the same bits (a gather, no atomics)
+    B = 48 if size == 100 else 2
     cams = torch.relu(randn(B * S, size, size))
     image = randn(B, 3, size, size)
     g = out // patch
     cot = randn(B * S * g * g, 3 * patch * patch)
-    (got,) = _grads(lambda c: K.critic_input(c, image, S, out, patch), _leaves(cams), [cot])
+    K.reset_launches()
+    fn = lambda c: K.critic_input(c, image, S, out, patch)  # noqa: E731
+    (got,) = _grads(fn, _leaves(cams), [cot])
+    assert K.launches["critic_input_bwd"] == 1
     (want,) = _grads(lambda c: K.critic_input_plain(c, image.double(), S, out, patch),
                      _leaves(cams, double=True), [cot.double()])
     assert _err(got, want) <= 1e-5 * max(1.0, float(want.abs().max()))
+    assert torch.equal(got, _grads(fn, _leaves(cams), [cot])[0])
+    if size == 100:
+        assert K.critic_input_bwd_launch_shape()["band"] == 8
     with pytest.raises(ValueError, match="image is data"):
         K.critic_input(cams, image.requires_grad_(), S, out, patch)
+
+
+@pytest.mark.parametrize("P,S,size,out,patch", [(48, 1, 320, 224, 32), (6, 2, 96, 64, 16),
+                                                (48, 1, 100, 64, 16), (3, 3, 48, 48, 16)])
+def test_critic_input_bwd_equals_the_emulation(dev, P, S, size, out, patch):
+    # bit for bit with the schedule tool's emulation of the bands (the first design's fmaf
+    # chains in its order), with the plan the tool gives and the launch the extension made
+    from tris_tpu_torch.tools import critic_input_schedule as CS
+
+    g = torch.Generator(device=dev).manual_seed(P + size)
+    cams = torch.rand(P, size, size, generator=g, device=dev, requires_grad=True)
+    image = torch.randn(P // S, 3, size, size, generator=g, device=dev)
+    cot = torch.randn(P * (out // patch) ** 2, 3 * patch * patch, generator=g, device=dev)
+    K.reset_launches()
+    (got,) = torch.autograd.grad(K.critic_input(cams, image, S, out, patch), cams, cot)
+    plan = K.critic_input_bwd_plan(P, size, size, out)
+    assert plan == CS.plan(P, size, size, out)
+    assert K.critic_input_bwd_launch_shape() == {
+        "blocks": plan["blocks"], "threads": plan["threads"], "band": plan["band"],
+        "span_rows": plan["span_rows"], "smem_bytes": plan["smem_bytes"]}
+    want = CS.banded_critic_input_bwd(cot.cpu(), image.cpu(), S, out, patch)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_critic_input_bwd_refuses_bands_past_shared_memory(dev):
+    # a shape whose backward's band does not fit is refused in Python before any launch
+    cams = torch.rand(1, 8, 12000, device=dev, requires_grad=True)
+    image = torch.rand(1, 3, 8, 12000, device=dev)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="must fit shared memory"):
+        K.critic_input(cams, image, 1, 4000, 16)
+    assert K.launches["critic_input"] == 0
+    with torch.no_grad():   # no gradient, no backward: the forward alone is taken
+        assert K.critic_input(cams, image, 1, 64, 16).shape == (16, 3 * 16 * 16)
 
 
 def _directional(fn, x, u, eps):
@@ -878,10 +921,14 @@ def test_path_max_affinity(dev, radius, shape):
 
 
 @pytest.mark.parametrize("iterations,hw", [(1, (120, 160)), (300, (120, 160)), (300, (7, 5)),
-                                           (300, (1, 9))])
+                                           (300, (1, 9)), (300, (200, 200))])
 def test_refine_centroids(dev, iterations, hw):
     # exact int32 centroids: a smooth field of a few pixels plus a push
-    # towards the corners, so many centroids end clamped on the edge
+    # towards the corners, so many centroids end clamped on the edge; the
+    # 200 x 200 grid's table does not fit shared memory (the direct path);
+    # the steps each warp took are the emulation's
+    from tris_tpu_torch.tools import centroids_schedule as C
+
     H, W = hw
     g = torch.Generator(device=dev).manual_seed(3)
     field = F.avg_pool2d(torch.randn(1, 2, H + 8, W + 8, generator=g, device=dev), 9, 1)[0] * 12
@@ -893,6 +940,31 @@ def test_refine_centroids(dev, iterations, hw):
     assert torch.equal(got, K.refine_centroids_plain(field, iterations))
     if iterations == 300:   # some centroids end on the clamp edge
         assert bool(((got[0] == 0) | (got[0] == H - 1) | (got[1] == 0) | (got[1] == W - 1)).any())
+    plan = K.refine_centroids_plan(H, W)
+    assert plan == C.plan(H, W) and plan["staged"] == (hw != (200, 200))
+    want, steps = C.refine_centroids_early_exit(field.cpu().numpy(), iterations)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert np.array_equal(K.refine_centroids_steps().cpu().numpy(), steps)
+
+
+@pytest.mark.parametrize("hw", [(120, 160), (200, 200)])
+@pytest.mark.parametrize("kind", ["zero", "two_cycle"])
+def test_refine_centroids_exit(dev, hw, kind):
+    # a zero field: every warp stops after its first step; a two-cycle field
+    # (+1 on even columns, -1 on odd) never settles: every warp with a pixel takes all 300
+    H, W = hw
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :].expand(H, W)
+    field = torch.zeros(2, H, W, device=dev)
+    if kind == "two_cycle":
+        field[1] = torch.where(xx % 2 == 0, 1.0, -1.0)
+    from tris_tpu_torch.tools import centroids_schedule as C
+
+    got = K.refine_centroids(field)
+    assert torch.equal(got, K.refine_centroids_plain(field))
+    steps = K.refine_centroids_steps().cpu().numpy()
+    assert np.array_equal(steps, C.refine_centroids_early_exit(field.cpu().numpy())[1])
+    live = C.live_lanes(H, W) > 0   # the direct path's last block has warps with no pixel
+    assert (steps[live] == (1 if kind == "zero" else 300)).all()
 
 
 @pytest.mark.parametrize("H,W", [(32, 32), (64, 32), (32, 64)])

@@ -14,8 +14,10 @@ The extension is built from ``csrc/`` at the first launch (``build.py``).
 from tris_tpu_torch.kernels.batch_norm import (batch_norm_act, batch_norm_act_plain,
                                                batch_norm_act_reference)
 from tris_tpu_torch.kernels.build import KERNELS, build_all, launches, reset_launches
-from tris_tpu_torch.kernels.centroids import refine_centroids, refine_centroids_plain
-from tris_tpu_torch.kernels.critic_input import critic_input, critic_input_plain
+from tris_tpu_torch.kernels.centroids import (
+    refine_centroids, refine_centroids_plain, refine_centroids_plan, refine_centroids_steps)
+from tris_tpu_torch.kernels.critic_input import (
+    critic_input, critic_input_bwd_launch_shape, critic_input_bwd_plan, critic_input_plain)
 from tris_tpu_torch.kernels.cross_attn import cross_attn, cross_attn_launch_shape, cross_attn_plain
 from tris_tpu_torch.kernels.ema import EmaTable, ema_update, ema_update_plain
 from tris_tpu_torch.kernels.eval_metrics import (
@@ -46,11 +48,13 @@ __all__ = [
     "stage1_head", "stage1_head_plain", "stage1_head_plan", "stage1_head_launch_shape",
     "eval_metrics", "eval_metrics_plain", "eval_tables", "eval_metrics_plan",
     "eval_metrics_launch_shape",
-    "critic_input", "critic_input_plain", "normalize_u8_nchw", "normalize_u8_nchw_plain",
+    "critic_input", "critic_input_plain", "critic_input_bwd_plan",
+    "critic_input_bwd_launch_shape", "normalize_u8_nchw", "normalize_u8_nchw_plain",
     "bilinear_resize", "bilinear_resize_plain", "bilinear_resize_plan",
     "bilinear_resize_launch_shape", "bilinear_resize_bwd_plan", "bilinear_resize_bwd_launch_shape",
     "path_max_affinity", "path_max_affinity_plain",
-    "refine_centroids", "refine_centroids_plain", "walk_transition", "walk_transition_plain",
+    "refine_centroids", "refine_centroids_plain", "refine_centroids_plan",
+    "refine_centroids_steps", "walk_transition", "walk_transition_plain",
     "walk_matmul", "walk_matmul_plain", "walk_square", "walk_tile_occupancy",
     "walk_tile_occupancy_plain", "irn_loss", "irn_loss_plain",
     "irn_affinity_loss", "irn_affinity_loss_plain",

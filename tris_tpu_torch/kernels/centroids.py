@@ -7,6 +7,15 @@ stride-4 grid starts at its own coordinates and takes ``iterations`` steps
 rounded half to even to int32 ``[2, H, W]``. The bilinear sample reads the
 four corners of the edge-replicated field in the JAX term order, each
 product and sum rounded alone, so the centroids equal JAX's exactly.
+
+On a CUDA tensor one launch (``csrc/launchers.h::refine_centroids_plan``,
+read back by :func:`refine_centroids_plan` and emulated by
+``tris_tpu_torch/tools/centroids_schedule.py``): where the field's
+edge-replicated table fits shared memory, every block stages it and the
+pixels are spread evenly over one block an SM; else each thread reads the
+field from device memory. A warp of 32 pixels stops at the first step that
+leaves all its centroids as they were (every later step would repeat it),
+which :func:`refine_centroids_steps` reports.
 """
 
 from __future__ import annotations
@@ -42,6 +51,25 @@ def refine_centroids_plain(displacement, iterations: int = 300):
     return torch.stack([torch.round(cy), torch.round(cx)]).to(torch.int32)
 
 
+def refine_centroids_plan(H: int, W: int) -> dict:
+    """The launch for the grid ``[H, W]`` (``launchers.h``'s rule, from the
+    extension): staged, threads, blocks, warps and smem_bytes."""
+    if min(H, W) < 0 or H * W >= 2 ** 31:
+        raise ValueError(f"refine_centroids_plan: bad grid {(H, W)}")
+    return dict(build.ops().refine_centroids_plan(H, W))
+
+
+_last_steps = []
+
+
+def refine_centroids_steps():
+    """The steps each warp of the last launch in this process took (int32
+    [warps], on its device; ``iterations`` where a warp found no fixed point)."""
+    if not _last_steps:
+        raise RuntimeError("refine_centroids_steps: no launch of refine_centroids")
+    return _last_steps[0]
+
+
 def refine_centroids(displacement, iterations: int = 300):
     """K9 on a CUDA tensor (one launch); the plain version on a CPU tensor.
     displacement [2, H, W] float32 -> int32 centroids [2, H, W]."""
@@ -52,6 +80,10 @@ def refine_centroids(displacement, iterations: int = 300):
             or displacement.shape[0] != 2):
         raise TypeError(f"refine_centroids: expected float32 [2, H, W], got "
                         f"{displacement.dtype} {tuple(displacement.shape)}")
-    out = build.ops().refine_centroids(displacement.contiguous(), int(iterations))
+    if iterations < 0 or displacement.shape[1] * displacement.shape[2] >= 2 ** 31:
+        raise ValueError(f"refine_centroids: bad grid {tuple(displacement.shape)} or "
+                         f"iterations {iterations}")
+    out, steps = build.ops().refine_centroids(displacement.contiguous(), int(iterations))
     build.count("refine_centroids")
+    _last_steps[:] = [steps]
     return out

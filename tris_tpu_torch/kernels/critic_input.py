@@ -11,6 +11,16 @@ image ``p // S``, ``resize(cams[p]) * resize(image[p // S])``, resized
 ``VisionTransformer.forward_patches`` takes. On CUDA tensors it is a
 ``torch.autograd.Function`` whose backward, the hand-written kernel, gives
 the maps' gradient; the image is data and must not require one.
+
+The backward is one launch: a block takes a band of one map's source rows,
+stages the image rows the band's output rows sample, forms in shared memory
+the rows of d cam_n and their column adjoint that the band's adjoint ranges
+cover, and writes the band's gradient
+(``csrc/launchers.h::critic_input_bwd_plan``, read back by
+:func:`critic_input_bwd_plan` and emulated by
+``tris_tpu_torch/tools/critic_input_schedule.py``). A shape whose band does
+not fit shared memory is refused before the forward's launch when the maps
+need a gradient.
 """
 
 from __future__ import annotations
@@ -38,6 +48,33 @@ def critic_input_plain(cams, image, S: int, out_size: int, patch: int):
     return fg.reshape(P * g * g, 3 * patch * patch)
 
 
+def check_bwd_plan(plan: dict, P: int, H: int, W: int, out_size: int) -> dict:
+    """``plan`` if the backward takes it; else raises (before any launch)."""
+    if not plan["fits"]:
+        raise ValueError(f"critic_input: the backward's band of [{H}, {W}] maps <- "
+                         f"[{out_size}, {out_size}] must fit shared memory "
+                         f"({plan['smem_bytes']} bytes, at most {build.MAX_SMEM}) and its "
+                         f"{out_size} columns a block's {plan['threads']} threads")
+    return plan
+
+
+def critic_input_bwd_plan(P: int, H: int, W: int, out_size: int) -> dict:
+    """The backward's launch for ``P`` maps ``[H, W] <- [out_size, out_size]``
+    (``launchers.h``'s rule, from the extension): fits, band, span_rows,
+    threads, blocks and smem_bytes."""
+    if P < 0 or min(H, W, out_size) < 1 or max(H, W, out_size) >= 2 ** 31:
+        raise ValueError(f"critic_input_bwd_plan: bad shape {(P, H, W, out_size)}")
+    return dict(build.ops().critic_input_bwd_plan(P, H, W, out_size))
+
+
+def critic_input_bwd_launch_shape() -> dict:
+    """The grid of the last backward launch in this process: blocks, threads,
+    band, span_rows and smem_bytes."""
+    if build.launches["critic_input_bwd"] == 0:
+        raise RuntimeError("critic_input_bwd_launch_shape: no launch of critic_input_bwd counted")
+    return dict(build.ops().critic_input_bwd_launch_shape())
+
+
 class _CriticInput(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cams, image, S, out_size, patch, save):
@@ -60,12 +97,12 @@ class _CriticInput(torch.autograd.Function):
             d_a.contiguous(), image, list(taps_on(H, n, True, dev)), list(taps_on(W, n, True, dev)),
             list(adjoint_taps_on(H, n, True, dev)), list(adjoint_taps_on(W, n, True, dev)),
             P, S, patch)
-        build.count("critic_input_bwd", n=2)
+        build.count("critic_input_bwd")
         return d_cams, None, None, None, None, None
 
 
 def critic_input(cams, image, S: int, out_size: int, patch: int):
-    """K5 on CUDA tensors (1 launch forward, 2 backward); the plain version on
+    """K5 on CUDA tensors (1 launch forward, 1 backward); the plain version on
     CPU tensors.
 
     cams [P, H, W] f32 (P = B * S), image [B, 3, H, W] f32 (normalised).
@@ -81,5 +118,7 @@ def critic_input(cams, image, S: int, out_size: int, patch: int):
     grad = torch.is_grad_enabled()
     if grad and image.requires_grad:
         raise ValueError("critic_input: the image is data; it gets no gradient here")
-    return _CriticInput.apply(cams.contiguous(), image.contiguous(), S, out_size, patch,
-                              grad and cams.requires_grad)
+    save = grad and cams.requires_grad
+    if save:
+        check_bwd_plan(critic_input_bwd_plan(P, H, W, out_size), P, H, W, out_size)
+    return _CriticInput.apply(cams.contiguous(), image.contiguous(), S, out_size, patch, save)

@@ -452,9 +452,11 @@ at::Tensor critic_input(const at::Tensor& cams, const at::Tensor& image,
   return out;
 }
 
-// K5 backward: dA [P * (n/ps)^2, 3 * ps * ps]; image [P/S, 3, H, W]; ty, tx
-// the taps to [n] rows and columns, ry, rx their adjoint ranges over [H]
-// and [W]. Returns d cams [P, H, W].
+// K5 backward: dA [P * (n/ps)^2, 3 * ps * ps]; image [P/S, 3, H, W]; ty, tx the taps to [n]
+// rows and columns, ry, rx their adjoint ranges over [H] and [W]. Returns d cams [P, H, W].
+tris::CriticBwdLaunchShape k5_bwd_shape;
+bool k5_bwd_launched = false;
+
 at::Tensor critic_input_bwd(const at::Tensor& dA, const at::Tensor& image,
                             const std::vector<at::Tensor>& ty, const std::vector<at::Tensor>& tx,
                             const std::vector<at::Tensor>& ry, const std::vector<at::Tensor>& rx,
@@ -468,13 +470,34 @@ at::Tensor critic_input_bwd(const at::Tensor& dA, const at::Tensor& image,
   const tris::TapRanges yr = tap_ranges(ry, "critic_input_bwd: row ranges", dev);
   const tris::TapRanges xr = tap_ranges(rx, "critic_input_bwd: column ranges", dev);
   const int64_t H = image.size(2), W = image.size(3), n = ty[0].size(0);
-  at::Tensor dt = at::empty({P, n, W}, dA.options());
   at::Tensor dcams = at::empty({P, H, W}, dA.options());
   launched(tris::critic_input_bwd(dA.data_ptr<float>(), image.data_ptr<float>(),
-                                  dt.data_ptr<float>(), dcams.data_ptr<float>(), P, S, H, W, n,
-                                  ps, y, x, yr, xr, stream()),
+                                  dcams.data_ptr<float>(), P, S, H, W, n, ps, y, x, yr, xr,
+                                  stream(), &k5_bwd_shape),
            "critic_input_bwd");
+  k5_bwd_launched = true;
   return dcams;
+}
+
+// K5 backward's plan (launchers.h, critic_input_bwd_plan) for P maps [H, W] <- [n, n].
+std::map<std::string, int64_t> critic_input_bwd_plan(int64_t P, int64_t H, int64_t W,
+                                                     int64_t n) {
+  TORCH_CHECK(P >= 0 && H > 0 && W > 0 && n > 0 && H < INT32_MAX && W < INT32_MAX &&
+                  n < INT32_MAX,
+              "critic_input_bwd_plan: shape out of range");
+  const tris::CriticBwdPlan p = tris::critic_input_bwd_plan(P, (int)H, (int)W, (int)n);
+  return {{"fits", p.fits}, {"band", p.band}, {"span_rows", p.span_rows},
+          {"img_rows", p.img_rows}, {"threads", p.threads}, {"blocks", p.blocks},
+          {"smem_bytes", p.smem}};
+}
+
+// K5 backward's last launch in this process: blocks, threads a block, source rows a band, the
+// output rows it may span and bytes of shared memory a block.
+std::map<std::string, int64_t> critic_input_bwd_launch_shape() {
+  TORCH_CHECK(k5_bwd_launched, "critic_input_bwd_launch_shape: no launch of critic_input_bwd");
+  const tris::CriticBwdLaunchShape& s = k5_bwd_shape;
+  return {{"blocks", s.blocks}, {"threads", s.threads}, {"band", s.band},
+          {"span_rows", s.span_rows}, {"smem_bytes", s.smem}};
 }
 
 // K6: image uint8 [B, H, W, 3]; scale, bias 3 values each. Returns the
@@ -734,17 +757,28 @@ std::vector<at::Tensor> irn_affinity_loss_bwd(const at::Tensor& labels, const at
   return {dedge, ddp};
 }
 
-// K9: disp [2, H, W]. Returns the int32 centroids [2, H, W].
-at::Tensor refine_centroids(const at::Tensor& disp, int64_t iterations) {
+// K9: disp [2, H, W]. Returns the int32 centroids [2, H, W] and the steps each warp took
+// (int32 [refine_centroids_plan(H, W).warps]).
+std::vector<at::Tensor> refine_centroids(const at::Tensor& disp, int64_t iterations) {
   const at::Device dev = disp.device();
   const c10::cuda::CUDAGuard guard(dev);
   check(disp, "refine_centroids: disp", at::kFloat, dev);
   const int64_t H = disp.size(1), W = disp.size(2);
   at::Tensor out = at::empty({2, H, W}, disp.options().dtype(at::kInt));
-  launched(tris::refine_centroids(disp.data_ptr<float>(), out.data_ptr<int>(), H, W, iterations,
-                                  stream()),
+  at::Tensor steps = at::empty({tris::refine_centroids_plan((int)H, (int)W).warps},
+                               disp.options().dtype(at::kInt));
+  launched(tris::refine_centroids(disp.data_ptr<float>(), out.data_ptr<int>(),
+                                  steps.data_ptr<int>(), H, W, iterations, stream()),
            "refine_centroids");
-  return out;
+  return {out, steps};
+}
+
+// K9's plan (launchers.h, refine_centroids_plan) for the grid [H, W].
+std::map<std::string, int64_t> refine_centroids_plan(int64_t H, int64_t W) {
+  TORCH_CHECK(H >= 0 && W >= 0 && H * W < INT32_MAX, "refine_centroids_plan: shape out of range");
+  const tris::CentroidsPlan p = tris::refine_centroids_plan((int)H, (int)W);
+  return {{"staged", p.staged}, {"threads", p.threads}, {"blocks", p.blocks},
+          {"warps", p.warps}, {"smem_bytes", p.smem}};
 }
 
 // K10: aff [n_dirs, ch, cw]; dirs [n_dirs, 2], seq [n_seq] and lut [2 * max_off + 1]
@@ -1179,6 +1213,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("eval_metrics_launch_shape", &eval_metrics_launch_shape, "K4: its last launch's grid");
   m.def("critic_input", &critic_input, "K5: the critic's resized, modulated patch matrix");
   m.def("critic_input_bwd", &critic_input_bwd, "K5 backward, to the maps");
+  m.def("critic_input_bwd_plan", &critic_input_bwd_plan, "K5 backward's plan for a shape");
+  m.def("critic_input_bwd_launch_shape", &critic_input_bwd_launch_shape,
+        "K5 backward's last launch");
   m.def("normalize_u8", &normalize_u8, "K6: u8 NHWC image to normalised f32 NCHW");
   m.def("bilinear_resize", &bilinear_resize, "K6: bilinear resize of a stack of planes");
   m.def("bilinear_resize_plan", &bilinear_resize_plan, "K6: the bands and tiles a resize takes");
@@ -1195,6 +1232,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("irn_affinity_loss", &irn_affinity_loss, "K7 + K8: IRN's loss sums and pair counts");
   m.def("irn_affinity_loss_bwd", &irn_affinity_loss_bwd, "K7 + K8 backward: d edge and d dp");
   m.def("refine_centroids", &refine_centroids, "K9: centroid refinement by displacement");
+  m.def("refine_centroids_plan", &refine_centroids_plan, "K9's plan for a grid");
   m.def("walk_transition", &walk_transition, "K10: the walk's column-normalised transition");
   m.def("walk_square", &walk_square, "K10: the walk's squarings on the FP64 tensor cores");
   m.def("walk_thin", &walk_thin, "K10: the walk's thin step, summed in double");

@@ -454,12 +454,6 @@ cudaError_t critic_input(const float* cams, const float* image, float* out, int 
                          const float* wy1, const int* xlo, const int* xhi, const float* wx0,
                          const float* wx1, cudaStream_t stream);
 
-// K5 backward: dA [P * (n/ps)^2, 3 * ps * ps]; image [P/S, 3, H, W]; taps H -> n rows
-// and W -> n columns with their ranges; scratch dt [P, n, W]; dcams [P, H, W].
-cudaError_t critic_input_bwd(const float* dA, const float* image, float* dt, float* dcams, int P,
-                             int S, int H, int W, int n, int ps, TapArrays ty, TapArrays tx,
-                             TapRanges ry, TapRanges rx, cudaStream_t stream);
-
 // K6: image uint8 [B, H, W, 3] (n_pix = B*H*W pixels, hw = H*W); out [B, 3, H, W];
 // scale and bias point to 3 floats each in host memory.
 cudaError_t normalize_u8(const unsigned char* image, float* out, int64_t n_pix, int64_t hw,
@@ -672,6 +666,92 @@ cudaError_t bilinear_resize_bwd(const float* g, float* dx, int64_t planes, int h
                                 int ow, TapArrays ty, TapArrays tx, TapRanges ry, TapRanges rx,
                                 cudaStream_t stream, ResizeBwdLaunchShape* shape);
 
+// K5 backward (critic_input_bwd.cu): d cams = Ry^T (d cam_n) Rx, d cam_n[y, x] the sum over
+// the channels of dA and the image resized to n x n. A block takes a band of `band`
+// consecutive source rows [Y0, Y0 + band) of one map (the grid: bands of map 0, then of map 1,
+// ...). The output rows y whose adjoint ranges cover the band are one contiguous run (at most
+// span_rows: bilinear_resize_bwd_span_rows of one map), which sample the image rows
+// [Y0 - 1, Y0 + band] at most (img_rows). The block copies those image rows and the taps into
+// shared memory (cp.async, every copy in flight) while its threads load their columns' dA
+// values for the run's first kCriticBwdPrefetchRows rows, forms d cam_n's rows, then the
+// column adjoint R of every such row in the image rows' space, then d cams for the band's rows
+// from R, each chain the first design's: the same terms in the same order. A thread takes a
+// column in each pass (threads: the larger of n and W rounded up to a warp, at most
+// kCriticBwdMaxThreads). band: halved from kCriticBwdMaxBand while the grid is below
+// kCriticBwdWaveBlocks or a block's shared memory above kCriticBwdSmem; fits is 0 where one
+// row's band does not fit kCriticBwdSmemMax or n exceeds the threads (the wrapper refuses the
+// shape before a launch).
+constexpr int kCriticBwdMaxThreads = 1024;
+constexpr int kCriticBwdMaxBand = 8;
+constexpr int kCriticBwdPrefetchRows = 10;  // a band of 8 spans 10 rows at 320 -> 224
+constexpr int kCriticBwdWaveBlocks = 396;   // 3 blocks an SM of 132
+constexpr int kCriticBwdSmem = 75776;       // 74 KiB: three blocks an SM
+constexpr int kCriticBwdSmemMax = 232448;   // 227 KiB: the most a block may have
+
+constexpr int critic_input_bwd_img_rows(int band, int H) { return band + 2 < H ? band + 2 : H; }
+
+// floats of the image rows' space: the image rows [3][img_rows][W], then R [span][W]
+constexpr long long critic_input_bwd_img_floats(long long span, int img_rows, int W) {
+  return resize_bwd_round4((3LL * img_rows > span ? 3LL * img_rows : span) * W);
+}
+
+// bytes of a block: the image rows' space, d cam_n's rows [span][n] (rounded to 16 bytes) and
+// the taps: the columns' [4][n] and their ranges [4][W], the span rows' [4][span] and the band
+// rows' ranges [4][band]
+constexpr long long critic_input_bwd_smem(long long span, int band, int H, int W, int n) {
+  return 4 * (critic_input_bwd_img_floats(span, critic_input_bwd_img_rows(band, H), W) +
+              resize_bwd_round4(span * n) + 4LL * n + 4LL * W + 4 * span + 4LL * band);
+}
+
+struct CriticBwdPlan {
+  int fits;         // 0: one row's band does not fit shared memory, or n > threads (refused)
+  int band;         // source rows a band
+  int span_rows;    // output rows a band spans at most
+  int img_rows;     // image rows a band samples at most
+  int threads;      // threads a block: a column each
+  long long blocks; // P * ceil(H / band)
+  long long smem;   // bytes of dynamic shared memory a block
+};
+
+// K5 backward's rule, by the shape: P maps [H, W] <- [n, n] (align_corners=True).
+constexpr CriticBwdPlan critic_input_bwd_plan(long long P, int H, int W, int n) {
+  CriticBwdPlan p = {};
+  const long long cols = ((n > W ? n : W) + 31LL) / 32 * 32;
+  p.threads = (int)(cols < kCriticBwdMaxThreads ? cols : kCriticBwdMaxThreads);
+  long long band = kCriticBwdMaxBand, span = 0;
+  for (;;) {
+    span = bilinear_resize_bwd_span_rows(band - 1, H, n);
+    if (span > n) span = n;
+    if (band == 1 || (P * ((H + band - 1) / band) >= kCriticBwdWaveBlocks &&
+                      critic_input_bwd_smem(span, (int)band, H, W, n) <= kCriticBwdSmem))
+      break;
+    band /= 2;
+  }
+  p.smem = critic_input_bwd_smem(span, (int)band, H, W, n);
+  p.fits = p.smem <= kCriticBwdSmemMax && n <= p.threads ? 1 : 0;
+  p.band = (int)band;
+  p.span_rows = (int)span;
+  p.img_rows = critic_input_bwd_img_rows((int)band, H);
+  p.blocks = P * ((H + band - 1) / band);
+  return p;
+}
+
+// A launch of K5's backward as its launcher made it.
+struct CriticBwdLaunchShape {
+  long long blocks;
+  int threads, band, span_rows;
+  long long smem;
+};
+
+// K5 backward: dA [P * (n/ps)^2, 3 * ps * ps]; image [P/S, 3, H, W]; taps H -> n rows and
+// W -> n columns with their ranges over [H] and [W]; dcams [P, H, W]. One launch, as
+// critic_input_bwd_plan says (the caller has checked that it fits). *shape receives the
+// launch's shape.
+cudaError_t critic_input_bwd(const float* dA, const float* image, float* dcams, int P, int S,
+                             int H, int W, int n, int ps, TapArrays ty, TapArrays tx,
+                             TapRanges ry, TapRanges rx, cudaStream_t stream,
+                             CriticBwdLaunchShape* shape);
+
 // K7: edge [B, H, W]; out [B, n_dirs, H - rf, W - 2 * rf]; steps [n_steps, 2] the (dy, dx)
 // of every direction's path, direction d's at [offsets[d], offsets[d + 1]).
 cudaError_t path_max_affinity(const float* edge, float* out, int64_t B, int H, int W, int rf,
@@ -778,9 +858,55 @@ cudaError_t irn_affinity_loss_bwd(const PathTilePlan& plan, const PathSteps& tab
                                   int H, int W, int rf, float eps, float one_eps, int max_valid,
                                   cudaStream_t stream);
 
-// K9: disp [2, H, W]; out int32 [2, H, W], the rounded centroids after `iterations` steps.
-cudaError_t refine_centroids(const float* disp, int* out, int H, int W, int iterations,
-                             cudaStream_t stream);
+// K9 (refine_centroids.cu): where the edge-replicated table of the field, [(H + 1) * (W + 1)]
+// (dy, dx) pairs as float2, fits a block's shared memory (staged), at most kCentroidsBlocks
+// blocks, one an SM, share the H * W pixels evenly (block b takes the flat pixels
+// [b * n / blocks, (b + 1) * n / blocks)), a thread a pixel, and each block stages the whole
+// table once; else (direct, the first design) a thread a pixel in blocks of
+// kCentroidsDirectThreads, reading the field from device memory with the +1 corners clamped.
+// On both, a warp is 32 consecutive pixels of its block and stops once a step leaves every
+// lane's centroid as it was, bit for bit (a step is a pure function of the centroid and the
+// field, so every later step would repeat it); steps[warp] is the first such step (or
+// `iterations`). The staged kernel votes every kCentroidsCheck steps, so it may run up to
+// kCentroidsCheck - 1 steps past that step, which change nothing.
+constexpr int kCentroidsBlocks = 132;         // one an SM
+constexpr int kCentroidsCheck = 8;            // steps between a warp's votes
+constexpr int kCentroidsDirectThreads = 128;
+constexpr int kCentroidsSmemMax = 232448;     // 227 KiB: the most a block may have
+
+struct CentroidsPlan {
+  int staged;       // 1: the table in shared memory; 0: direct
+  int threads;      // threads a block
+  long long blocks;
+  long long warps;  // warps in the grid: the entries of steps
+  long long smem;   // bytes of dynamic shared memory a block (0 direct)
+};
+
+// K9's rule, by the grid [H, W].
+constexpr CentroidsPlan refine_centroids_plan(int H, int W) {
+  CentroidsPlan p = {};
+  const long long n = (long long)H * W;
+  const long long table = 8LL * (H + 1) * (W + 1);
+  long long blocks = (n + 31) / 32;
+  if (blocks > kCentroidsBlocks) blocks = kCentroidsBlocks;
+  const long long per = blocks > 0 ? (n + blocks - 1) / blocks : 0;
+  p.staged = n > 0 && table <= kCentroidsSmemMax && per <= 1024 ? 1 : 0;
+  if (p.staged) {
+    p.threads = (int)((per + 31) / 32 * 32);
+    p.blocks = blocks;
+    p.smem = table;
+  } else {
+    p.threads = kCentroidsDirectThreads;
+    p.blocks = (n + p.threads - 1) / p.threads;
+  }
+  p.warps = p.blocks * (p.threads / 32);
+  return p;
+}
+
+// K9: disp [2, H, W]; out int32 [2, H, W], the rounded centroids after `iterations` steps;
+// steps int32 [refine_centroids_plan(H, W).warps], the steps each warp took.
+cudaError_t refine_centroids(const float* disp, int* out, int* steps, int H, int W,
+                             int iterations, cudaStream_t stream);
 
 // K10: aff [n_dirs, ch, cw]; dirs [n_dirs, 2] (dy, dx); seq [n_seq] the band's nonzero
 // offsets in ascending order (2 * d + (offset > 0), -1 the diagonal); lut [2 * max_off + 1]

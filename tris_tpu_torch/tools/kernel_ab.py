@@ -1,25 +1,30 @@
 """Times K6's bilinear backward at the ten shapes of the IRN and stage-2
 training steps (group ``k6_bwd``), K3's eval head at the stage-1 eval batch's
-shape (``k3_eval``) and K3's training head, forward and backward, at the
-stage-1 train step's (``k3_train``), in the checkout at ``--root``: its
-kernels, timed by its own ``chip_smoke.py`` (``resize_bwd_row``,
-``measure_row``, ``device_ms``, ``bwd_ms``), so that two commits are timed in
-one call on one card, in turns (parent, change, change, parent).
+shape (``k3_eval``), K3's training head, forward and backward, and K5's
+backward at the stage-1 train step's (``k3_train``, ``k5_bwd``) and K9 on
+the 120 x 160 grid of a 480 x 640 image (``k9``), in the checkout at
+``--root``: its kernels, timed by its own ``chip_smoke.py``
+(``resize_bwd_row``, ``measure_row``, ``device_ms``, ``bwd_ms``), so that two
+commits are timed in one call on one card, in turns (parent, change, change,
+parent).
 
     python tris_tpu_torch/tools/kernel_ab.py --root PATH --tag NAME \
-        [--groups k6_bwd,k3_eval,k3_train] [--out FILE] [--save DIR]
+        [--groups k6_bwd,k3_eval,k3_train,k5_bwd,k9] [--out FILE] [--save DIR]
 
 Each row holds the kernel against its plain version at chip_smoke's bars
-(K6's backward 1e-5 of the gradient's scale, K3's eval head 1e-4, its
-training head 1e-5 of the outputs' scale forward and 1e-4 of the gradients'
-backward). K3's training rows also give each launch of a call apart (from
-``torch.profiler``, by position in the call: ``launches``) and, as a
-yardstick of its score product alone, ``torch.bmm`` of [48, 100, 1024] by
-[48, 1024, 48] in full float32 (``bmm_score_ms``). With ``--save``, the
-gradients at IRNet's dp6 tap and stage 2's x16 head, K3's eval maps and its
-training head's outputs and gradients, on the same seeded inputs in every
-checkout, go to ``DIR/<tag>.pt``, and each file of another tag already there
-is compared with them bit for bit. Prints one JSON line (``--out`` also
+(K6's and K5's backward 1e-5 of the gradient's scale, K3's eval head 1e-4,
+its training head 1e-5 of the outputs' scale forward and 1e-4 of the
+gradients' backward, K9 exact). K3's training rows, K5's backward and K9 also
+give each launch of a call apart (from ``torch.profiler``, by position in the
+call: ``launches``), K9 on chip_smoke's smooth field and on a two-cycle field
+that never settles (every step taken), with the steps its warps took where
+the checkout's kernel counts them; K3's training rows, as a yardstick of the
+score product alone, ``torch.bmm`` of [48, 100, 1024] by [48, 1024, 48] in
+full float32 (``bmm_score_ms``). With ``--save``, the gradients at IRNet's dp6
+tap and stage 2's x16 head, K3's eval maps, its training head's outputs and
+gradients, K5's gradient and K9's centroids, on the same seeded inputs in
+every checkout, go to ``DIR/<tag>.pt``, and each file of another tag already
+there is compared with them bit for bit. Prints one JSON line (``--out`` also
 writes it). Needs a card.
 """
 
@@ -45,7 +50,7 @@ K6_SHAPES = [("dp6", (24, 256, 64, 64), (128, 128)),
              ("head_x8", (48, 1, 40, 40), (320, 320)),
              ("head_x16", (48, 1, 20, 20), (320, 320))]
 SAVED = ("dp6", "head_x16")
-GROUPS = ("k6_bwd", "k3_eval", "k3_train")
+GROUPS = ("k6_bwd", "k3_eval", "k3_train", "k5_bwd", "k9")
 
 
 def launch_times(fn, n: int = 10) -> list:
@@ -127,6 +132,62 @@ def k3_train_rows(cs, K, randn, failures, outs) -> list:
     return rows
 
 
+def k5_bwd_row(cs, K, randn, failures, outs) -> dict:
+    """K5's backward at the stage-1 train step's shape (chip_smoke's
+    check_train_kernels): 48 sigmoid maps and images, 320 -> 224, patch 32 ->
+    d cams [48, 320, 320]."""
+    import torch
+
+    B, size, n, ps = 48, 320, 224, 32
+    (cams,) = cs.leaves(torch.sigmoid(randn(B, size, size)))
+    image = randn(B, 3, size, size)
+    cot = [randn(B * (n // ps) ** 2, 3 * ps * ps)]
+    kern = lambda c: K.critic_input(c, image, 1, n, ps)  # noqa: E731
+    plain = lambda c: K.critic_input_plain(c, image, 1, n, ps)  # noqa: E731
+    got = cs.input_grads(kern, [cams], cot)[0]
+    want = cs.input_grads(plain, [cams], cot)[0]
+    outs_g, cots_g = cs._outs_cots(kern, [cams], cot)
+    row = cs.measure_row(
+        failures, "critic_input_bwd", cs.max_err(got, want),
+        1e-5 * max(float(want.abs().max()), 1.0), cs.bwd_ms(kern, [cams], cot),
+        cs.bwd_ms(plain, [cams], cot), 4 * (cot[0].numel() + image.numel() + cams.numel()),
+        B * n * n * 3 * 8 + B * (n * size + size * size) * 4, None, shape=[B, size, n, ps],
+        launches=launch_times(lambda: torch.autograd.grad(outs_g, [cams], cots_g,
+                                                          retain_graph=True)),
+        bit_for_bit_run_to_run=bool(torch.equal(got, cs.input_grads(kern, [cams], cot)[0])))
+    outs["critic_input_bwd"] = got.cpu()
+    return row
+
+
+def k9_rows(cs, K, dev, failures, outs) -> list:
+    """K9 on the 120 x 160 grid: chip_smoke's smooth field (check_ins_seg_kernels)
+    and a two-cycle field (+1 on even columns, -1 on odd: no warp settles)."""
+    import torch
+    import torch.nn.functional as F
+
+    gh, gw = 120, 160
+    g = torch.Generator(device=dev).manual_seed(4)
+    smooth = F.avg_pool2d(torch.randn(1, 2, gh + 8, gw + 8, generator=g, device=dev), 9, 1)[0] * 12
+    cycle = torch.zeros(2, gh, gw, device=dev)
+    cycle[1] = (torch.arange(gw, device=dev) % 2 == 0).float() * 2 - 1
+    rows = []
+    for name, field in (("smooth", smooth), ("two_cycle", cycle)):
+        got = K.refine_centroids(field)
+        extra = {}
+        if hasattr(K, "refine_centroids_steps"):
+            steps = K.refine_centroids_steps().cpu()
+            extra = {"steps_max": int(steps.max()), "steps_mean": float(steps.float().mean())}
+        rows.append(cs.measure_row(
+            failures, f"refine_centroids@{name}",
+            cs.max_err(got, K.refine_centroids_plain(field)), 0.0,
+            cs.device_ms(lambda: K.refine_centroids(field)),
+            cs.device_ms(lambda: K.refine_centroids_plain(field), n=3), 4 * 4 * gh * gw,
+            300 * 30 * gh * gw, None, shape=[2, gh, gw],
+            launches=launch_times(lambda: K.refine_centroids(field)), **extra))
+        outs[f"refine_centroids@{name}"] = got.cpu()
+    return rows
+
+
 def k3_eval_row(cs, K, randn, failures, rows, outs) -> None:
     """K3's eval head at response_maps' shape, as chip_smoke's check_kernels holds it: 8
     images x 4 pairs, D = 1024, 10 x 10 -> 320 x 320."""
@@ -195,6 +256,10 @@ def main(argv=None) -> dict:
         k3_eval_row(cs, K, randn, failures, rows, outs)
     if "k3_train" in groups:
         rows += k3_train_rows(cs, K, randn, failures, outs)
+    if "k5_bwd" in groups:
+        rows.append(k5_bwd_row(cs, K, randn, failures, outs))
+    if "k9" in groups:
+        rows += k9_rows(cs, K, dev, failures, outs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()

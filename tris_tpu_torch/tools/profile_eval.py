@@ -49,11 +49,12 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "cross_attn_probs_bwd_kernel", "cross_attn_grads_bwd_kernel",
                 "response_head_kernel", "stage1_head_fwd_kernel", "stage1_head_bwd_kernel",
                 "eval_metrics_kernel",
-                "critic_input_kernel", "cols_kernel", "rows_kernel", "normalize_u8_kernel",
+                "critic_input_kernel", "critic_input_bwd_kernel", "normalize_u8_kernel",
                 "bilinear_resize_kernel", "bilinear_resize_bwd_kernel",
                 "bilinear_resize_bwd_direct_kernel", "path_max_kernel",
                 "path_max_gather_kernel", "irn_affinity_loss_kernel",
-                "irn_affinity_loss_final_kernel", "refine_centroids_kernel",
+                "irn_affinity_loss_final_kernel", "refine_centroids_staged_kernel",
+                "refine_centroids_direct_kernel",
                 "walk_transition_kernel", "walk_square_kernel", "walk_thin_kernel",
                 "walk_tile_occupancy_kernel", "pixel_attn_kernel", "pixel_attn_bwd_probs_dq_kernel", "pixel_attn_bwd_dkv_kernel",
                 "ema_update_kernel", "batch_norm_fwd_fused_kernel", "batch_norm_bwd_fused_kernel",
