@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--report PATH]
 
 Run from the root of a checkout. Phases, in order; an error stops the run,
-and a failed check of phases 3-9 exits 1 once all have run (so the report
+and a failed check of phases 3-10 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
@@ -109,7 +109,19 @@ holds every number):
              plain route (step-1 loss terms, every gradient, the teacher after
              the last step), step times of both routes at the default gate
              over ``ROUNDS``, peak memory; then ``validate`` of the trained
-             model on phase 4's batches on both routes.
+             model on phase 4's batches on both routes;
+10. referit - ``validate_referit`` at full width (RN50 stage 1, seeded) on a
+             synthetic flicker-pickle split written with PIL and the port's
+             ``mask_ops`` (8 JPEGs of 480x360 and 360x480, 1-6 refs each, a
+             box under 5 % skipped, a ref with two boxes) under reset
+             counters (the exact launches per image of K1, K2, K3's eval
+             head, K4 and K13), against K4's plain version on the same maps
+             (each ref's I and U equal) and the plain route (metrics 1e-4),
+             each image's host ms on both routes; then
+             the demo's compute at full-width stage 2 on a 480x640 image with
+             two comma-separated phrases against the plain route (the map
+             within 1e-4 of its scale, norm_cam within that bar carried
+             through its normalisation).
 
 Prints the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``--report`` writes a fuller JSON report
@@ -199,6 +211,16 @@ TRAIN2_LAUNCHES_PER_STEP = {"mha_short": 24, "mha_short_bwd": 12, "normalize_u8"
 # fold at the trunk's norms and the decoder's without the side heads
 EVAL2_LAUNCHES_PER_BATCH = {"mha_short": 12, "pixel_attn": 3, "bilinear_resize": 4,
                             "normalize_u8": 1, "eval_metrics": 1}
+# phase 10: ReferIt eval on a synthetic flicker-pickle tree (8 JPEGs, 480 x 360 and 360 x
+# 480, 1-6 refs each, one box under 5 % skipped, one ref with two boxes over a stack of two
+# RLEs) at full width, then the demo's compute on a 480 x 640 image with two phrases; a
+# kept expression's forward launches, per image: K1 in the text tower (12 layers), K2 and
+# K3's eval head once, K4 once, K13's eval fold at the trunk's norms
+REFERIT_SIZES = ((360, 480), (480, 360))
+REFERIT_IMAGES, REFERIT_ROUNDS = 8, 3
+REFERIT_LAUNCHES_PER_IMAGE = {"mha_short": 12, "cross_attn": 1, "response_head": 1,
+                              "eval_metrics": 1}
+DEMO_SIZE, DEMO_TEXT = (480, 640), "the man on the left, a red umbrella"
 # K13's rows in phase 3: (name, shape, activation, residual, mode) at the paths' shapes:
 # the stem's third norm (two-pass), a bottleneck's tail in layer1, layer2 and layer4,
 # layer3's first norms, layer1's first (the forward's widest cluster), stage 2's output1
@@ -872,6 +894,7 @@ def check_ins_seg_kernels(K, dev):
     edge = F.pad(torch.rand(H, W, generator=g, device=dev), (radius, radius, 0, radius), value=1.0)
     paths, rf = pi.paths_by_length, pi.radius_floor
     got = K.path_max_affinity(edge, paths, rf)
+    launch = K.path_max.launch_shape()
     n_steps = sum(len(p) for grp in paths for p in grp)
     ch, cw = got.shape[1:]
     rows.append(kernel_row(
@@ -881,7 +904,9 @@ def check_ins_seg_kernels(K, dev):
                 0.0, device_ms(lambda: K.path_max_affinity(edge, paths, rf)),
                 device_ms(lambda: K.path_max_affinity_plain(edge, paths, rf)),
                 4 * (edge.numel() + got.numel()), (n_steps + got.shape[0]) * ch * cw, None,
-                shape=[*edge.shape, *got.shape], path_steps=n_steps)))
+                shape=[*edge.shape, *got.shape], path_steps=n_steps,
+                plan=K.path_max.forward_plan(1, *edge.shape, rf, got.shape[0], n_steps),
+                launch_shape=launch)))
 
     # K9 on the 120x160 grid: a smooth field of a few pixels, up to 300 steps
     # (a warp stops at a fixed point); exact. The bound counts the steps each
@@ -1200,13 +1225,15 @@ def check_irn_train_kernels(K, dev):
     with torch.no_grad():
         edge = torch.rand(IRN_B, q, q, generator=g, device=dev)
         got = K.path_max_affinity(edge, paths, rf)
+        launch = K.path_max.launch_shape()
         k7_irn = measure_row(
             failures, "path_max_affinity@irn",
             max_err(got, K.path_max_affinity_plain(edge, paths, rf)), 0.0,
             device_ms(lambda: K.path_max_affinity(edge, paths, rf)),
             device_ms(lambda: K.path_max_affinity_plain(edge, paths, rf), 3, 1),
             4 * (edge.numel() + got.numel()), IRN_B * (n_steps + n_dirs) * ch * cw, None,
-            shape=[IRN_B, q, q, IRN_RADIUS, n_dirs, ch, cw], path_steps=n_steps)
+            shape=[IRN_B, q, q, IRN_RADIUS, n_dirs, ch, cw], path_steps=n_steps,
+            plan=K.path_max.forward_plan(IRN_B, q, q, rf, n_dirs, n_steps), launch_shape=launch)
     del edge, got
     torch.cuda.empty_cache()
 
@@ -2914,6 +2941,225 @@ def stage2_path(K, dev, init, eval_batches):
     return summary, failures
 
 
+# ---- phase 10: ReferIt eval and the demo --------------------------------------------------
+
+
+def make_referit_tree(root: str, seed: int) -> int:
+    """A flicker-pickle ReferIt test split (``annotations/test.pickle``, ``images/``): JPEGs
+    of a few flat rectangles on dim noise, each ref a rectangle's mask (RLE) and box, its
+    query a few words. Image 0 also has a ref whose box is under 5 % (skipped) and one whose
+    mask is a stack of two RLEs with a box each. Returns the kept refs."""
+    import pickle
+
+    from PIL import Image
+
+    from tris_tpu_torch.data import mask_ops
+
+    rng = np.random.default_rng(seed)
+    words = ("man", "woman", "left", "right", "red", "blue", "car", "tree", "sky", "dog",
+             "the", "big", "small", "building", "water", "top", "bottom", "middle")
+    os.makedirs(os.path.join(root, "annotations"))
+    os.makedirs(os.path.join(root, "images"))
+    ann, kept = {}, 0
+
+    def rect(h, w):
+        bh, bw = int(rng.integers(h // 4, h // 2)), int(rng.integers(w // 4, w // 2))
+        y0, x0 = int(rng.integers(0, h - bh)), int(rng.integers(0, w - bw))
+        mask = np.zeros((h, w), np.uint8)
+        mask[y0:y0 + bh, x0:x0 + bw] = 1
+        return mask, [x0, y0, x0 + bw, y0 + bh]
+
+    for k in range(REFERIT_IMAGES):
+        h, w = REFERIT_SIZES[k % 2]
+        img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+        refs = []
+        for _ in range(int(rng.integers(1, 7))):
+            mask, box = rect(h, w)
+            img[mask > 0] = rng.integers(80, 256, 3)
+            query = " ".join(rng.choice(words, int(rng.integers(2, 7))))
+            refs.append({"image_id": str(k), "query": query, "bbox": [box],
+                         "segmentation": mask_ops.rle_encode(mask)})
+        if k == 0:
+            tiny = np.zeros((h, w), np.uint8)
+            tiny[:20, :20] = 1
+            refs.append({"image_id": "0", "query": "a tiny thing", "bbox": [[0, 0, 20, 20]],
+                         "segmentation": mask_ops.rle_encode(tiny)})
+            (m1, b1), (m2, b2) = rect(h, w), rect(h, w)
+            refs.append({"image_id": "0", "query": "the two big ones", "bbox": [b1, b2],
+                         "segmentation": [mask_ops.rle_encode(m1), mask_ops.rle_encode(m2)]})
+        kept += len(refs) - (k == 0)
+        Image.fromarray(img).save(os.path.join(root, "images", f"{k}.jpg"), quality=90)
+        ann[str(k)] = {"annotations": refs}
+    with open(os.path.join(root, "annotations", "test.pickle"), "wb") as f:
+        pickle.dump(ann, f)
+    return kept
+
+
+def referit_path(K, dev):
+    """``validate_referit`` at full width (RN50 stage 1, hidden 1024, 320 px, seeded) on
+    :func:`make_referit_tree`'s split with the launch counters set to 0 just before (the
+    exact launches per image of K1, K2, K3's eval head, K4 and K13's eval fold), then with
+    K4 alone on its plain version (the same maps: each ref's I and U equal, some I nonzero)
+    and on the plain route (the metrics within 1e-4); each
+    image's host ms on both routes over ``REFERIT_ROUNDS``, alternating. Then the demo's
+    compute (``cli/demo.py::demo_cam``) at full-width stage 2 (seeded, eval mode) on a 480 x
+    640 image with two comma-separated phrases (40 tokens: K11's forward past 32) against
+    the plain route: the map (the logits) within 1e-4 of its scale, norm_cam (nonzero) within
+    that bar carried through the min-max normalisation."""
+    import torch
+    from PIL import Image
+
+    from tris_tpu_torch.cli import demo
+    from tris_tpu_torch.data.referit import ReferItTestDataset
+    from tris_tpu_torch.eval import validate_referit as VR
+    from tris_tpu_torch.eval.validate import image_to_nchw
+    from tris_tpu_torch.kernels import build
+    from tris_tpu_torch.tools import batch_norm_schedule as BS
+
+    records = []
+
+    class Recorded(VR.SegEvalAccumulator):
+        """The accumulator, each ref's (I, U, hit, hitm) kept."""
+
+        def add_stats(self, I, U, hit, hitm, weight=1):
+            records[-1].append((I, U, hit, hitm))
+            super().add_stats(I, U, hit, hitm, weight)
+
+    failures = []
+    quiet = lambda *a: None  # noqa: E731
+    with tempfile.TemporaryDirectory() as root:
+        n_refs = make_referit_tree(root, seed=10)
+        ds = ReferItTestDataset(root, split="test", size=SIZE, max_tokens=TXT_LEN)
+        model = build_stage1(dev)
+        # the seeded trunk's pixel features share one direction, so each map would be all
+        # zero or all positive: vis_project's bias takes away their mean over the first
+        # image, and the scores of a map take both signs
+        with torch.no_grad():
+            x = image_to_nchw(torch.as_tensor(ds.example(0)["image"][None], device=dev))
+            c4 = model.backbone.encode_image(x, pool=False)[3]
+            model.vis_project.bias -= model.vis_project(c4.flatten(2).transpose(1, 2))[0].mean(0)
+        saved, VR.SegEvalAccumulator = VR.SegEvalAccumulator, Recorded
+
+        def run(route=contextlib.nullcontext):
+            records.append([])
+            with route():
+                return VR.validate_referit(model, ds, log=quiet), records[-1]
+
+        @contextlib.contextmanager
+        def plain_k4():
+            """K4 alone on its plain version: the same maps, so I and U must be equal."""
+            kernel, K.eval_metrics = K.eval_metrics, K.eval_metrics_plain
+            try:
+                yield
+            finally:
+                K.eval_metrics = kernel
+
+        try:
+            run()                                   # warm-up (cuDNN, allocator)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            res, refs = run()                       # the counted run
+            torch.cuda.synchronize()
+            launches = dict(K.launches)
+            _, refs_k4 = run(plain_k4)
+            res_p, refs_p = run(lambda: plain_kernels(K))
+        finally:
+            VR.SegEvalAccumulator = saved
+        times = {"kernels": [], "plain": []}
+        for _ in range(REFERIT_ROUNDS):
+            for route in times:
+                with plain_kernels(K, baseline=True) if route == "plain" \
+                        else contextlib.nullcontext():
+                    times[route].append(host_ms(lambda: VR.validate_referit(
+                        model, ds, log=quiet)) / REFERIT_IMAGES)
+        del model
+        torch.cuda.empty_cache()
+
+        max_ranks = build.ops().batch_norm_plan(TRAIN_B, 64, 80 * 80, True, True, 1,
+                                                -1)["max_ranks"]
+        want = {k: n * REFERIT_IMAGES for k, n in REFERIT_LAUNCHES_PER_IMAGE.items()}
+        want["batch_norm"] = REFERIT_IMAGES * BS.launches_per_forward(
+            BS.trunk_shapes(1), "eval", max_ranks)
+        failures += [f"referit: {k} launched {launches[k]} times, want {n}"
+                     for k, n in want.items() if launches[k] != n]
+        if len(refs) != n_refs or len(refs_p) != n_refs:
+            failures.append(f"referit: {len(refs)} and {len(refs_p)} refs scored, want {n_refs}")
+        if not sum(r[0] for r in refs) > 0:
+            failures.append("referit: no ref's prediction meets its mask (I = 0 for all)")
+        iu_equal = [a[:2] for a in refs] == [b[:2] for b in refs_k4]
+        if not iu_equal:
+            failures.append("referit: I and U differ from K4's plain version's on the same maps")
+        # the plain route's maps round apart: a pixel within rounding of 0 may flip
+        iu_diff = max((abs(a[j] - b[j]) / max(b[j], 1.0) for a, b in zip(refs, refs_p)
+                       for j in (0, 1)), default=0.0)
+        metric_err = max(abs(res[k] - res_p[k]) for k in res)
+        if not metric_err <= 1e-4:
+            failures.append(f"referit vs plain: {res} vs {res_p}")
+        if not all(0.0 <= v <= 100.0 for v in res.values()):
+            failures.append(f"referit metrics out of range: {res}")
+
+        # the demo: stage 2 on one image, two phrases
+        h, w = DEMO_SIZE
+        img_path = os.path.join(root, "demo.jpg")
+        rng = np.random.default_rng(11)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(img_path)
+        model2 = build_stage2(dev).eval()
+        img, ids, _, _, _ = demo.prepare_data(img_path, DEMO_TEXT)
+        x, ids = image_to_nchw(torch.as_tensor(img[None], device=dev)), torch.as_tensor(
+            ids[None], device=dev)
+        with torch.no_grad():
+            # the seeded head's map is of one sign; where it is all negative (nothing to
+            # normalise), its last 1x1 conv is negated
+            if float(model2(x, ids).max()) <= 0:
+                model2.final_seg1[-1].weight.neg_()
+            demo.demo_cam(model2, img_path, DEMO_TEXT)          # warm-up
+            torch.cuda.synchronize()
+            K.reset_launches()
+            cam = demo.demo_cam(model2, img_path, DEMO_TEXT)
+            demo_launches = {k: n for k, n in K.launches.items() if n}
+            logits = model2(x, ids)
+            with plain_kernels(K):
+                cam_p = demo.demo_cam(model2, img_path, DEMO_TEXT)
+                logits_p = model2(x, ids)
+            demo_ms = {"kernels": host_ms(lambda: demo.demo_cam(model2, img_path, DEMO_TEXT))}
+            with plain_kernels(K, baseline=True):
+                demo_ms["plain"] = host_ms(lambda: demo.demo_cam(model2, img_path, DEMO_TEXT))
+        del model2
+        torch.cuda.empty_cache()
+    # the map (stage 2's logits) within 1e-4 of its scale, stage 2's bar; its min-max
+    # normalisation divides a difference by the relu'd map's range, so norm_cam is held to
+    # that bar carried through: 2e-4 of the scale over the range
+    cam_scale = float(np.abs(cam_p).max())
+    cam_err = float(np.abs(cam.astype(np.float64) - cam_p).max())
+    logit_scale = float(logits_p.abs().max())
+    logit_err = max_err(logits, logits_p)
+    relu = logits_p.clamp(min=0)
+    cam_tol = 2e-4 * logit_scale / (float(relu.max() - relu.min()) + 1e-5)
+    if cam.shape != (h, w) or not np.isfinite(cam).all() or not cam_scale > 0:
+        failures.append(f"demo: want a finite, nonzero [{h}, {w}] map, got {cam.shape}, "
+                        f"scale {cam_scale}")
+    if not (logit_err <= 1e-4 * logit_scale and cam_err <= cam_tol):
+        failures.append(f"demo vs plain: map {logit_err} > {1e-4 * logit_scale} or norm_cam "
+                        f"{cam_err} > {cam_tol}")
+    summary = {
+        "model": "RN50 stage 1, hidden 1024, 320 px, random weights (seed 0); the demo: RN50 "
+                 "stage 2, seed 0, eval mode",
+        "images": REFERIT_IMAGES, "refs": n_refs, "launches": launches,
+        "launches_expected": want, "metrics": res, "metrics_plain": res_p,
+        "metrics_max_abs_diff": metric_err, "i_u_equal_k4_plain": iu_equal,
+        "i_u_max_rel_diff_plain_route": iu_diff,
+        "refs_with_i": sum(r[0] > 0 for r in refs),
+        "host_ms_per_image": {route: spread(t) for route, t in times.items()},
+        "demo": {"size": [h, w], "text": DEMO_TEXT, "launches": demo_launches,
+                 "max_abs_err": cam_err, "scale": cam_scale, "tol": cam_tol,
+                 "logits_max_abs_err": logit_err, "logits_scale": logit_scale,
+                 "logits_tol": 1e-4 * logit_scale,
+                 "positive_share": float((cam > 0).mean()), "host_ms": demo_ms},
+    }
+    log(f"referit and demo: {json.dumps(summary)}")
+    return summary, failures
+
+
 def run_cli(args, timeout):
     """``python -m <args>`` from the checkout's root: (seconds, return code,
     its output)."""
@@ -3105,6 +3351,10 @@ def main(argv=None) -> int:
     del stage2_init
     torch.cuda.empty_cache()
 
+    # 10. ReferIt eval and the demo
+    referit, referit_failures = referit_path(K, dev)
+    failures += referit_failures
+
     # launches: on the stage-1 train path for its kernels (all but K3's eval
     # half and K4), else on the PRMS path, else on the ins-seg path, else on
     # the IRN training path, else on the stage-2 train path; per path beside
@@ -3114,7 +3364,8 @@ def main(argv=None) -> int:
         paths = {"stage1_eval": stage1["launches"][name], "prms": prms["launches"][name],
                  "stage1_train": train["launches"][name], "ins_seg": ins_seg["launches"][name],
                  "irn_train": irn["launches"][name], "stage2_train": stage2["launches"][name],
-                 "stage2_eval": stage2["eval"]["launches"][name]}
+                 "stage2_eval": stage2["eval"]["launches"][name],
+                 "referit": referit["launches"][name]}
         row["launches"] = (paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
                            or paths["irn_train"] or paths["stage2_train"])
         row["launches_by_path"] = paths
@@ -3129,7 +3380,7 @@ def main(argv=None) -> int:
                        "kernels": rows, "batch_norm_plans": bn_plans,
                        "stage1_eval": stage1, "prms": prms,
                        "stage1_train": train, "ins_seg": ins_seg, "irn_train": irn,
-                       "chain": chain, "stage2": stage2}, f, indent=1)
+                       "chain": chain, "stage2": stage2, "referit": referit}, f, indent=1)
     if failures:
         fail("; ".join(failures))
 

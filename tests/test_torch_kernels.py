@@ -920,6 +920,60 @@ def test_path_max_affinity(dev, radius, shape):
     assert torch.equal(got, K.path_max_affinity_plain(edge, pi.paths_by_length, rf))
 
 
+# K7's forward, tiled: both radii (the walk's padded grid at 5 with its direction groups,
+# IRN training's batch at 10), tiles partial in both axes, a map tied everywhere and one of
+# four levels, and a radius-13 table, which the plan sends to the direct kernel
+K7_FWD = [(5, (133, 170), "rand"), (10, (24, 128, 128), "rand"), (5, (2, 45, 77), "rand"),
+          (10, (3, 47, 61), "rand"), (5, (21, 30), "tied"), (10, (2, 45, 77), "levels"),
+          (13, (2, 40, 41), "rand"), (3, (1, 3, 5), "rand")]
+
+
+@pytest.mark.parametrize("radius,shape,kind", K7_FWD)
+def test_path_max_affinity_tiled(dev, radius, shape, kind):
+    # bit for bit the plain version and the schedule tool's emulation of the launch its plan
+    # makes (tiled or direct), with the plan and the launch's shape the tool's
+    g = torch.Generator(device=dev).manual_seed(7)
+    edge = torch.rand(*shape, generator=g, device=dev)
+    if kind == "tied":
+        edge = torch.full(shape, 0.625, device=dev)
+    elif kind == "levels":
+        edge = (edge * 4).floor() / 4
+    pi = _path_index(radius, shape[-2:])
+    rf, paths = pi.radius_floor, pi.paths_by_length
+    steps = K.path_max.path_steps(paths)
+    flat = edge.reshape(-1, *shape[-2:])
+    plan = K.path_max.forward_plan(flat.shape[0], *shape[-2:], rf, len(steps),
+                                   sum(map(len, steps)))
+    assert plan == T.forward_plan(flat.shape[0], *shape[-2:], rf, len(steps),
+                                  sum(map(len, steps)))
+    assert plan["tiled"] == (radius <= 12)
+    got = K.path_max_affinity(edge, paths, rf)
+    assert torch.equal(got, K.path_max_affinity_plain(edge, paths, rf))
+    launch = K.path_max.launch_shape()
+    assert launch["tiled"] == plan["tiled"]
+    if plan["tiled"]:
+        assert launch == {"tiled": 1, "blocks": plan["blocks"], "threads": 256,
+                          "rpt": plan["rpt"], "dir_groups": plan["dir_groups"],
+                          "smem_bytes": plan["smem_bytes"]}
+    want, writes = T.tiled_forward(flat.cpu().numpy(), steps, rf)
+    assert (writes == 1).all()
+    assert np.array_equal(got.reshape(want.shape).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 4, 8])
+def test_path_max_affinity_direction_groups(dev, groups):
+    # any count of direction groups covers every direction once (the measurement's
+    # override): bit for bit the plan's launch
+    pi = _path_index(5, (133, 170))
+    edge = torch.rand(1, 133, 170, generator=torch.Generator(device=dev).manual_seed(8),
+                      device=dev)
+    steps = K.path_max.path_steps(pi.paths_by_length)
+    got = K.path_max.forward_kernel(edge, steps, pi.radius_floor, groups)
+    assert K.build.ops().path_max_affinity_launch_shape()["dir_groups"] == groups
+    assert torch.equal(got, K.path_max_affinity_plain(edge, pi.paths_by_length,
+                                                      pi.radius_floor))
+
+
 @pytest.mark.parametrize("iterations,hw", [(1, (120, 160)), (300, (120, 160)), (300, (7, 5)),
                                            (300, (1, 9)), (300, (200, 200))])
 def test_refine_centroids(dev, iterations, hw):
@@ -1387,7 +1441,8 @@ def test_irn_loss_honours_another_threshold(dev, monkeypatch):
 
 @pytest.mark.parametrize("kind,B,H,W,radius", [
     (0, 24, 128, 128, 10), (1, 24, 128, 128, 10), (2, 24, 128, 128, 10),   # the IRN step
-    (2, 1, 133, 170, 5),                                                    # the walk's grid
+    (2, 1, 133, 170, 5), (3, 1, 133, 170, 5),                               # the walk's grid
+    (3, 24, 128, 128, 10), (3, 2, 45, 77, 5),
     (0, 1, 45, 77, 10), (1, 1, 45, 77, 10), (2, 3, 21, 30, 5), (1, 2, 5, 6, 3)])
 def test_path_tile_plan(dev, kind, B, H, W, radius):
     # the extension's plan is the schedule tool's (launchers.h's rule read twice)
@@ -1467,6 +1522,29 @@ def test_pixel_attn(randn, N, HW, C, T, S):
         g, _input_grads(lambda *x: K.pixel_attn(*x, S), q, lk, lv, upstream=up)))
 
 
+@pytest.mark.parametrize("N,HW,C,T,S", [(1, 1600, 512, 40, 1), (1, 400, 1024, 40, 1),
+                                         (1, 100, 2048, 40, 1), (2, 45, 260, 33, 2),
+                                         (1, 100, 2048, 48, 1), (3, 37, 130, 41, 1)])
+def test_pixel_attn_forward_past_32_tokens(randn, N, HW, C, T, S):
+    # the forward's buckets 40 and 48 (the demo's two phrases: T = 40 at stage 2's c2, c3 and
+    # c4): within 1e-5 of the output's scale against the plain version, one launch, the
+    # bucket and grid the schedule tool's; a gradient past 32 tokens is refused
+    from tris_tpu_torch.tools.pixel_attn_schedule import block_counts
+
+    q, lk, lv = randn(N, HW, C), randn(N * S, T, C), randn(N * S, T, C)
+    K.reset_launches()
+    with torch.no_grad():
+        got, want = K.pixel_attn(q, lk, lv, S), K.pixel_attn_plain(q, lk, lv, S)
+    assert K.launches["pixel_attn"] == 1 and got.shape == (N * S, HW, C)
+    assert _err(got, want) <= 1e-5 * float(want.abs().max())
+    shape = K.pixel_attn_launch_shape("pixel_attn")
+    want_grid = block_counts(N, S, HW, C, T)["pixel_attn"]
+    assert shape["t_bucket"] == (40 if T <= 40 else 48)
+    assert {k: shape[k] for k in want_grid} == want_grid
+    with pytest.raises(ValueError, match="32 with a gradient"):
+        K.pixel_attn(q.requires_grad_(), lk, lv, S)
+
+
 @pytest.mark.parametrize("N,S,HW,C", [(48, 1, 1600, 512), (48, 1, 400, 1024), (48, 1, 100, 2048),
                                       (8, 4, 1600, 512), (8, 4, 100, 2048), (3, 2, 45, 260)])
 def test_pixel_attn_launches_the_schedules_grid(randn, N, S, HW, C):
@@ -1499,8 +1577,9 @@ def test_pixel_attn_refuses(randn):
     from tris_tpu_torch.tools import pixel_attn_schedule
 
     q, lk = randn(2, 9, 64), randn(2, 33, 64)
-    with pytest.raises(ValueError, match="1 to 32 tokens: csrc/launchers.h::pixel_attn_takes"):
-        K.pixel_attn(q, lk, lk, 1)
+    with pytest.raises(ValueError, match="1 to 48 tokens, 32 with a gradient: "
+                                         "csrc/launchers.h::pixel_attn_takes"):
+        K.pixel_attn(q, randn(2, 49, 64), randn(2, 49, 64), 1)
     with pytest.raises(ValueError, match="do not take T=33, C=64, S=1"):
         K.pixel_attn(q.requires_grad_(), lk, lk, 1)
     with pytest.raises(ValueError, match="bad shapes"):
@@ -1510,7 +1589,7 @@ def test_pixel_attn_refuses(randn):
     with pytest.raises(RuntimeError):
         K.build.ops().pixel_attn(q.cpu(), lk.cpu(), lk.cpu(), 1, 8.0)
     for T, C, S in [(1, 1, 1), (32, 2048, 64), (33, 64, 1), (0, 64, 1), (20, 0, 1), (20, 64, 0),
-                    (20, 4100, 52), (31, 3, 1000)]:
+                    (20, 4100, 52), (31, 3, 1000), (40, 512, 1), (48, 2048, 3), (49, 64, 1)]:
         for backward in (False, True):
             assert build.ops().pixel_attn_takes(T, C, S, backward) == \
                 bool(pixel_attn_schedule.takes(T, C, S, backward))

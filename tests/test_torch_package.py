@@ -97,10 +97,26 @@ def test_load_pretrained_reads_a_torch_save(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--dataset", "referit", "--stage", "2"],
                                    ["--dataset", "referit"]])
-def test_cli_paths_not_yet_ported_exit(flags):
-    args = get_parser().parse_args(flags + ["--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_validate.main(args)
+def test_cli_paths_not_yet_ported_exit(monkeypatch, flags):
+    # --dataset referit exited "not ported" until ReferIt eval was ported: it now builds
+    # the test split's ReferItTestDataset from the flags and runs validate_referit on the
+    # stage the flags name (tests/test_torch_referit.py runs it end to end)
+    from tris_tpu_torch.data import referit
+    from tris_tpu_torch.eval import validate_referit
+
+    seen = {}
+    monkeypatch.setattr(cli_validate, "build_stage1", lambda args: "stage1")
+    monkeypatch.setattr(cli_validate, "build_stage2", lambda args: "stage2")
+    monkeypatch.setattr(cli_validate, "load_pretrained", lambda args, model: model)
+    monkeypatch.setattr(referit, "ReferItTestDataset",
+                        lambda root, split, size, max_tokens: (root, split, size, max_tokens))
+    monkeypatch.setattr(validate_referit, "validate_referit",
+                        lambda model, ds, **kw: seen.update(model=model, ds=ds, **kw) or {})
+    args = get_parser().parse_args(flags + ["--device", "cpu", "--refer_data_root", "r",
+                                            "--test_split", "test", "--size", "64"])
+    assert cli_validate.main(args) == {}
+    assert seen["model"] == ("stage2" if "2" in flags else "stage1")
+    assert seen["ds"] == ("r", "test", 64, 20) and seen["device_resize"] is True
 
 
 @pytest.mark.parametrize("flags", [["--prms"], ["--prms", "--critic_weights", "vit.pt"]])

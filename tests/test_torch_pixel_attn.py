@@ -8,7 +8,7 @@ what each block does: its group of pixel tiles, its channel slice and
 sub-slices, each warp's share of the channels, the warps' partials in order,
 the cluster's in rank order, the softmax over the real tokens, the products
 over tokens and pixels, and the elements it stores. Across the token
-buckets' edges (T from 1 to 32), channel widths off the 4-float loads and
+buckets' edges (T from 1 to 32, the forward's to 48), channel widths off the 4-float loads and
 past 2048 (sub-slices), pixel counts off the 32-pixel tile and S > 1 pairs per
 image, every output and gradient element is stored exactly once (dq once
 and then added to once per later pair of its image), the forward equals
@@ -77,11 +77,13 @@ def test_tile_constants_fit_the_thread_layouts():
     assert t["kPixelAttnMaxRanks"] <= 8                  # K2's cluster_sum4 sums at most 8
     assert t["kPixelAttnMaxBlockTiles"] >= 1 and t["kPixelAttnWaveBlocksBwd"] >= 132
     assert S.T_BUCKETS[-1] == t["kPixelAttnMaxT"]
-    for tb in S.T_BUCKETS:
+    assert S.T_BUCKETS_FORWARD[-1] == t["kPixelAttnMaxTForward"] > t["kPixelAttnMaxT"]
+    for tb in S.T_BUCKETS + S.T_BUCKETS_FORWARD:
         # tokens tg + 4 j on 4 lanes; [pixel][token] rows an odd number of 16-byte units
         assert tb % 4 == 0 and int(S.token_pitch(tb)) % 8 == 4
         for C in (1, 130, 512, 1024, 2048, 2052, 4096, 100000):
-            for backward in (False, True):
+            # the forward's buckets past kPixelAttnMaxT have no backward
+            for backward in (False, True) if tb in S.T_BUCKETS else (False,):
                 h = int(S.held(S.width(C, backward)))
                 assert h % 4 == 0 and h <= t["kPixelAttnSlice"] and int(S.pitch(h)) % 8 == 4
                 assert int(S.smem(tb, C, backward)) <= t["kPixelAttnMaxSmem"]
@@ -106,9 +108,12 @@ def test_takes_every_shape_the_parent_took(backward):
     ours = S.takes(T, C, Sp, backward)
     assert parent.any()
     assert not (parent & ~ours).any()
-    # wider still, and it refuses outside 1..32 tokens
+    # wider still, and it refuses outside 1..32 tokens (the forward: 1..48, the demo's
+    # phrases of 20 tokens each)
     assert S.takes(20, 1 << 20, 64, backward) and S.takes(32, 3, 1000, backward)
-    assert not S.takes(33, 512, 1, backward) and not S.takes(0, 512, 1, backward)
+    assert bool(S.takes(48, 2048, 1, backward)) == (not backward)
+    assert not S.takes(49 if not backward else 33, 512, 1, backward)
+    assert not S.takes(0, 512, 1, backward)
     assert not S.takes(20, 0, 1, backward) and not S.takes(20, 512, 0, backward)
 
 
@@ -166,6 +171,20 @@ def test_wide_channels_and_tile_groups(N, Sp, HW, C, T):
     _check_backward(N, Sp, HW, C, T, seed=HW + C + 1)
 
 
+@pytest.mark.parametrize("T,C,HW,Sp", [(33, 130, 17, 1), (40, 512, 63, 1), (41, 200, 40, 3),
+                                        (48, 48, 100, 1), (48, 2052, 33, 1)])
+def test_forward_past_32_tokens_writes_once_and_equals_plain(T, C, HW, Sp):
+    # the forward's buckets 40 and 48 (the demo's two phrases make T = 40): each output
+    # stored once, equal to the plain version in float64; the backward refuses them
+    q, lk, lv, _ = _inputs(1, Sp, HW, C, T, seed=T + C)
+    out, counts = S.forward(q, lk, lv, Sp)
+    assert bool((counts == 1).all())
+    want = pixel_attn_plain(q, lk, lv, Sp)
+    assert float((out - want).abs().max()) <= 1e-12 * max(1.0, float(want.abs().max()))
+    assert S.takes(T, C, Sp, False) and not S.takes(T, C, Sp, True)
+    assert int(S.t_bucket(T)) == (40 if T <= 40 else 48)
+
+
 def _jax_pixel_attn(q, Lk, Lv):
     """tris_tpu/models/fusion.py:38-39: the attention of PixelAttention on one
     sentence per row."""
@@ -175,7 +194,7 @@ def _jax_pixel_attn(q, Lk, Lv):
 
 
 @pytest.mark.parametrize("N,Sp,HW,C,T", [(2, 1, 63, 200, 20), (1, 4, 40, 130, 32),
-                                         (2, 2, 17, 512, 7)])
+                                         (2, 2, 17, 512, 7), (1, 1, 50, 256, 40)])
 def test_emulation_equals_the_jax_function(N, Sp, HW, C, T):
     # the emulated kernels against the JAX einsums and their vjp (each
     # image's q repeated over its S sentences, as JAX's model feeds it), in
@@ -188,6 +207,8 @@ def test_emulation_equals_the_jax_function(N, Sp, HW, C, T):
     out, _ = S.forward(q, lk, lv, Sp)
     want = np.asarray(want)
     assert np.abs(out.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    if T > S.tiles()["kPixelAttnMaxT"]:   # the forward alone takes it
+        return
     grads, _ = S.backward(dg, q, lk, lv, Sp)
     for a, b in zip(grads, vjp(jg)):
         b = np.asarray(b)

@@ -10,9 +10,10 @@ PRMS CAM dump for IRNet: add ``--prms --save_cam --cam_save_dir ...
 Port of ``tris_tpu/cli/validate.py``. ``--stage 2`` evaluates the stage-2
 encoder-decoder (the reference switches validate.py between its two models
 by editing an import); ``--prms`` scores stage-1 maps and exits with
-``--stage 2``, as the JAX CLI does. ``--dataset referit`` is not ported yet
-and exits with an error. ``--fast_eval`` skips the box metrics, so that the
-eval reduces to per-sentence scalars on the card.
+``--stage 2``, as the JAX CLI does. ``--dataset referit`` evaluates the
+flicker-pickle test protocol on ``--refer_data_root`` (``annotations/`` and
+``images/``) for the split ``--test_split``. ``--fast_eval`` skips the box
+metrics, so that the eval reduces to per-sentence scalars on the card.
 """
 
 from __future__ import annotations
@@ -29,17 +30,23 @@ from tris_tpu_torch.config import get_parser
 from tris_tpu_torch.eval.validate import validate, validate_prms
 from tris_tpu_torch.utils.logging import create_logger
 
-_NOT_PORTED = "is not ported to the PyTorch package yet; use tris_tpu.cli.validate"
-
 
 def main(args):
     stage = int(getattr(args, "stage", 1))
     if stage == 2 and args.prms:
         raise SystemExit("--prms scores stage-1 response maps; use --stage 1")
-    if args.dataset == "referit":
-        raise SystemExit(f"--dataset referit {_NOT_PORTED}")
     logger = create_logger(dist_rank_world()[0])
     model = load_pretrained(args, build_stage2(args) if stage == 2 else build_stage1(args))
+    if args.dataset == "referit":
+        from tris_tpu_torch.data.referit import ReferItTestDataset
+        from tris_tpu_torch.eval.validate_referit import validate_referit
+
+        ds = ReferItTestDataset(args.refer_data_root, split=args.test_split, size=args.size,
+                                max_tokens=args.max_query_len)
+        res = validate_referit(model, ds, log=logger.info,
+                               device_resize=not args.no_device_resize)
+        logger.info(f"[referit/{args.test_split}] {res}")
+        return res
     critic = build_critic(args) if args.prms else None
     splits = args.test_split.split(",")
     loaders = build_eval_loaders(args, splits)

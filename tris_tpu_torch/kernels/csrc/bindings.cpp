@@ -565,25 +565,6 @@ std::map<std::string, int64_t> bilinear_resize_launch_shape() {
           {"in_floats", s.in_floats}, {"smem_bytes", s.smem}};
 }
 
-// K7: edge [B, H, W]; steps [n_steps, 2] and offsets [n_dirs + 1] int32, the path
-// table. Returns [B, n_dirs, H - rf, W - 2 * rf].
-at::Tensor path_max_affinity(const at::Tensor& edge, const at::Tensor& steps,
-                             const at::Tensor& offsets, int64_t rf) {
-  const at::Device dev = edge.device();
-  const c10::cuda::CUDAGuard guard(dev);
-  check(edge, "path_max_affinity: edge", at::kFloat, dev);
-  check(steps, "path_max_affinity: steps", at::kInt, dev);
-  check(offsets, "path_max_affinity: offsets", at::kInt, dev);
-  const int64_t B = edge.size(0), H = edge.size(1), W = edge.size(2);
-  const int64_t n_dirs = offsets.size(0) - 1;
-  at::Tensor out = at::empty({B, n_dirs, H - rf, W - 2 * rf}, edge.options());
-  launched(tris::path_max_affinity(edge.data_ptr<float>(), out.data_ptr<float>(), B, H, W, rf,
-                                   n_dirs, steps.data_ptr<int>(), offsets.data_ptr<int>(),
-                                   stream()),
-           "path_max_affinity");
-  return out;
-}
-
 // K6, bilinear half, backward: g [N, oh, ow]; ty, tx the forward's taps to [oh] rows and
 // [ow] columns, ry, rx their adjoint ranges over [h] and [w]. Returns dx [N, h, w].
 tris::ResizeBwdLaunchShape k6_bwd_shape;
@@ -653,21 +634,95 @@ tris::PathSteps path_steps(const at::Tensor& steps, const at::Tensor& offsets, c
 
 tris::PathTilePlan tile_plan(int64_t kind, int64_t B, int64_t H, int64_t W, int64_t rf,
                              const char* name) {
-  TORCH_CHECK(kind >= 0 && kind <= 2 && B >= 0 && rf >= 0 && H > rf && W > 2 * rf &&
+  TORCH_CHECK(kind >= 0 && kind <= 3 && B >= 0 && rf >= 0 && H > rf && W > 2 * rf &&
                   H < INT32_MAX && W < INT32_MAX,
               name, ": shape out of range");
   return tris::path_tile_plan((int)kind, B, (int)H, (int)W, (int)rf);
 }
 
 // K7's tiles' plan (launchers.h, path_tile_plan): kind 0 the fused loss's forward, 1 its
-// backward, 2 K7's backward.
+// backward, 2 K7's backward, 3 K7's forward.
 std::map<std::string, int64_t> path_tile_plan(int64_t kind, int64_t B, int64_t H, int64_t W,
                                               int64_t rf) {
   const tris::PathTilePlan p = tile_plan(kind, B, H, W, rf, "path_tile_plan");
   return {{"rpt", p.rpt}, {"tile_rows", p.tile_rows}, {"tile_cols", p.tile_cols},
           {"pitch", p.pitch}, {"staged_rows", p.staged_rows}, {"region_rows", p.region_rows},
-          {"tiles_y", p.tiles_y}, {"tiles_x", p.tiles_x}, {"blocks", p.blocks},
-          {"smem_bytes", p.smem}};
+          {"tiles_y", p.tiles_y}, {"tiles_x", p.tiles_x}, {"dir_groups", p.dir_groups},
+          {"blocks", p.blocks}, {"smem_bytes", p.smem}};
+}
+
+// K7's forward plan (launchers.h: path_tile_plan's kPathMaxForward tiles and
+// path_max_forward_tiled) for B edge maps [H, W] and a table of n_dirs directions and n_steps
+// steps; with groups > 0 the tiled plan's dir_groups is set to it (a measurement's override).
+tris::PathTilePlan path_max_plan(int64_t B, int64_t H, int64_t W, int64_t rf, int64_t groups,
+                                 bool* tiled, int64_t n_dirs, int64_t n_steps) {
+  TORCH_CHECK(groups >= 0 && groups <= 64, "path_max_affinity: groups out of range");
+  tris::PathTilePlan p = tile_plan(tris::kPathMaxForward, B, H, W, rf, "path_max_affinity");
+  if (groups > 0) {
+    p.blocks = p.blocks / p.dir_groups * groups;
+    p.dir_groups = (int)groups;
+  }
+  *tiled = n_dirs <= INT32_MAX && n_steps <= INT32_MAX &&
+           tris::path_max_forward_tiled(p, (int)n_dirs, (int)n_steps);
+  return p;
+}
+
+std::map<std::string, int64_t> path_max_forward_plan(int64_t B, int64_t H, int64_t W,
+                                                     int64_t rf, int64_t n_dirs,
+                                                     int64_t n_steps) {
+  bool tiled = false;
+  const tris::PathTilePlan p = path_max_plan(B, H, W, rf, 0, &tiled, n_dirs, n_steps);
+  return {{"tiled", tiled}, {"rpt", p.rpt}, {"tile_rows", p.tile_rows},
+          {"tile_cols", p.tile_cols}, {"pitch", p.pitch}, {"staged_rows", p.staged_rows},
+          {"tiles_y", p.tiles_y}, {"tiles_x", p.tiles_x}, {"dir_groups", p.dir_groups},
+          {"blocks", p.blocks}, {"smem_bytes", p.smem}};
+}
+
+// K7: edge [B, H, W]; the path table twice, as int32 CPU tensors (the tiled kernel's
+// parameter) and on the device (the direct kernel's), steps [n_steps, 2] and offsets
+// [n_dirs + 1]. Returns [B, n_dirs, H - rf, W - 2 * rf]. groups > 0 overrides the tiled
+// plan's direction groups.
+tris::PathMaxLaunchShape k7_shape;
+bool k7_launched = false;
+
+at::Tensor path_max_affinity(const at::Tensor& edge, const at::Tensor& steps,
+                             const at::Tensor& offsets, const at::Tensor& dev_steps,
+                             const at::Tensor& dev_offsets, int64_t rf, int64_t groups) {
+  const at::Device dev = edge.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(edge, "path_max_affinity: edge", at::kFloat, dev);
+  check(dev_steps, "path_max_affinity: steps", at::kInt, dev);
+  check(dev_offsets, "path_max_affinity: offsets", at::kInt, dev);
+  TORCH_CHECK(steps.device().is_cpu() && offsets.device().is_cpu() &&
+                  steps.scalar_type() == at::kInt && offsets.scalar_type() == at::kInt &&
+                  steps.is_contiguous() && offsets.is_contiguous() && steps.dim() == 2 &&
+                  offsets.dim() == 1 && offsets.size(0) >= 1 &&
+                  steps.sizes() == dev_steps.sizes() && offsets.sizes() == dev_offsets.sizes(),
+              "path_max_affinity: expected the path table as int32 CPU tensors and on the "
+              "device");
+  const int64_t B = edge.size(0), H = edge.size(1), W = edge.size(2);
+  const int64_t n_dirs = offsets.size(0) - 1;
+  bool tiled = false;
+  const tris::PathTilePlan plan =
+      path_max_plan(B, H, W, rf, groups, &tiled, n_dirs, steps.size(0));
+  const tris::PathSteps table = {steps.data_ptr<int>(), offsets.data_ptr<int>(), (int)n_dirs};
+  at::Tensor out = at::empty({B, n_dirs, H - rf, W - 2 * rf}, edge.options());
+  launched(tris::path_max_affinity(tiled ? &plan : nullptr, table, dev_steps.data_ptr<int>(),
+                                   dev_offsets.data_ptr<int>(), edge.data_ptr<float>(),
+                                   out.data_ptr<float>(), B, (int)H, (int)W, (int)rf, stream(),
+                                   &k7_shape),
+           "path_max_affinity");
+  k7_launched = true;
+  return out;
+}
+
+// K7's last forward launch in this process: tiled (1) or direct (0), blocks, threads, rows a
+// thread, direction groups, bytes of shared memory a block.
+std::map<std::string, int64_t> path_max_affinity_launch_shape() {
+  TORCH_CHECK(k7_launched, "path_max_affinity_launch_shape: no launch of path_max_affinity");
+  const tris::PathMaxLaunchShape& s = k7_shape;
+  return {{"tiled", s.tiled}, {"blocks", s.blocks}, {"threads", s.threads}, {"rpt", s.rpt},
+          {"dir_groups", s.dir_groups}, {"smem_bytes", s.smem}};
 }
 
 // K7 backward: edge [B, H, W]; g [B, n_dirs, H - rf, W - 2 * rf]; the path table.
@@ -1228,7 +1283,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bilinear_resize_bwd_launch_shape", &bilinear_resize_bwd_launch_shape,
         "K6 backward: its last launch's grid");
   m.def("path_max_affinity_bwd", &path_max_affinity_bwd, "K7 backward, ties split evenly");
-  m.def("path_tile_plan", &path_tile_plan, "K7's tiles: the blocks a fused loss or K7 bwd takes");
+  m.def("path_tile_plan", &path_tile_plan, "K7's tiles: the blocks a fused loss or K7 takes");
+  m.def("path_max_forward_plan", &path_max_forward_plan, "K7's forward: tiled or direct, tiles");
+  m.def("path_max_affinity_launch_shape", &path_max_affinity_launch_shape,
+        "K7's last forward launch: kernel, grid, shared memory");
   m.def("irn_affinity_loss", &irn_affinity_loss, "K7 + K8: IRN's loss sums and pair counts");
   m.def("irn_affinity_loss_bwd", &irn_affinity_loss_bwd, "K7 + K8 backward: d edge and d dp");
   m.def("refine_centroids", &refine_centroids, "K9: centroid refinement by displacement");

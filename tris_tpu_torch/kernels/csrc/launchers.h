@@ -752,20 +752,17 @@ cudaError_t critic_input_bwd(const float* dA, const float* image, float* dcams, 
                              TapRanges ry, TapRanges rx, cudaStream_t stream,
                              CriticBwdLaunchShape* shape);
 
-// K7: edge [B, H, W]; out [B, n_dirs, H - rf, W - 2 * rf]; steps [n_steps, 2] the (dy, dx)
-// of every direction's path, direction d's at [offsets[d], offsets[d + 1]).
-cudaError_t path_max_affinity(const float* edge, float* out, int64_t B, int H, int W, int rf,
-                              int n_dirs, const int* steps, const int* offsets,
-                              cudaStream_t stream);
-
-// K7's tiles (path_max_tiles.cuh): K7's backward and the IRN loss fused with K7 (K7 + K8,
-// irn_affinity.cu). A block takes one image's tile of kPathTileCols columns and
-// kPathThreads / kPathTileCols * rpt rows: a warp on consecutive columns of a row, each
-// thread rpt rows 8 apart. The loss's forward tiles the pair window [H - rf, W - 2 rf] of
-// source pixels, each taking every direction of the table in turn; the backwards tile the
+// K7's tiles (path_max_tiles.cuh): K7's forward (path_max_affinity.cu), K7's backward and the
+// IRN loss fused with K7 (K7 + K8, irn_affinity.cu). A block takes one image's tile of
+// kPathTileCols columns and kPathThreads / kPathTileCols * rpt rows: a warp on consecutive
+// columns of a row, each thread rpt rows 8 apart. The forwards tile the pair window
+// [H - rf, W - 2 rf] of source pixels: the loss's takes every direction of the table in turn;
+// K7's splits the directions among dir_groups blocks a tile (contiguous runs in table order),
+// doubled from 1 up to kPathForwardGroups while the grid is below kPathWaveBlocks, once rpt
+// is down to 1, so that a small window still fills the card. The backwards tile the
 // [H, W] pixels, each gathering over every direction and step in table order. Shared memory
 // holds the edge map (the loss: with the labels and dp) over the tile and its halo, rows of
-// pitch = kPathTileCols + 2 rf values (the forward tile_rows + rf rows from its first
+// pitch = kPathTileCols + 2 rf values (a forward tile_rows + rf rows from its first
 // source row; a backward tile_rows + 2 rf rows from rf above its first pixel, rf left of its
 // first column), and, in a backward, one direction at a time, the path max and the cotangent
 // over the tie count (double) of every pair whose path reaches the tile (at most tile_rows +
@@ -780,10 +777,12 @@ constexpr int kPathPairs = 2;          // a backward's pairs a thread takes at o
 constexpr int kPathWaveBlocks = 264;   // 2 blocks an SM of 132
 constexpr int kPathTableSteps = 4096;  // radius 12: 3606 steps
 constexpr int kPathTableDirs = 256;    // radius 12: 218 directions
+constexpr int kPathForwardGroups = 2;  // K7's forward: the most blocks a tile's directions take
 // what a plan tiles
 constexpr int kPathLossForward = 0;    // the fused loss's forward: pairs, edge + labels + dp
 constexpr int kPathLossBackward = 1;   // its backward: pixels, edge + labels + dp
 constexpr int kPathMaxBackward = 2;    // K7's backward: pixels, edge
+constexpr int kPathMaxForward = 3;     // K7's forward: pairs, edge, directions in groups
 
 struct PathTilePlan {
   int rpt;          // rows a thread
@@ -793,6 +792,7 @@ struct PathTilePlan {
   int staged_rows;  // forward tile_rows + rf, backward tile_rows + 2 rf
   int region_rows;  // a backward's pairs a direction: tile_rows + rf (forward 0)
   int tiles_y, tiles_x;
+  int dir_groups;   // K7's forward: blocks a tile, each a run of directions (else 1)
   long long blocks;
   long long smem;   // bytes of dynamic shared memory a block
 };
@@ -800,8 +800,8 @@ struct PathTilePlan {
 // The tiles of `kind` over B images of [H, W] at radius floor rf (H > rf, W > 2 rf).
 constexpr PathTilePlan path_tile_plan(int kind, long long B, int H, int W, int rf) {
   PathTilePlan p = {};
-  const bool fwd = kind == kPathLossForward;
-  const int rows = fwd ? H - rf : H, cols = fwd ? W - 2 * rf : W;
+  const bool pairs = kind == kPathLossForward || kind == kPathMaxForward;
+  const int rows = pairs ? H - rf : H, cols = pairs ? W - 2 * rf : W;
   const int warps = kPathThreads / kPathTileCols;
   p.tile_cols = kPathTileCols;
   p.tiles_x = (cols + kPathTileCols - 1) / kPathTileCols;
@@ -811,17 +811,30 @@ constexpr PathTilePlan path_tile_plan(int kind, long long B, int H, int W, int r
     p.rpt /= 2;
   p.tile_rows = warps * p.rpt;
   p.tiles_y = (rows + p.tile_rows - 1) / p.tile_rows;
-  p.blocks = B * p.tiles_y * p.tiles_x;
+  const long long tiles = B * p.tiles_y * p.tiles_x;
+  p.dir_groups = 1;
+  while (kind == kPathMaxForward && p.dir_groups < kPathForwardGroups &&
+         tiles * p.dir_groups < kPathWaveBlocks)
+    p.dir_groups *= 2;
+  p.blocks = tiles * p.dir_groups;
   p.pitch = kPathTileCols + 2 * rf;
-  p.staged_rows = p.tile_rows + (fwd ? rf : 2 * rf);
-  p.region_rows = fwd ? 0 : p.tile_rows + rf;
+  p.staged_rows = p.tile_rows + (pairs ? rf : 2 * rf);
+  p.region_rows = pairs ? 0 : p.tile_rows + rf;
   // the table's step offsets (int16) first, then a backward's q (double) and path max, the
-  // edge map, dp's two planes, the labels
+  // edge map, the loss's dp planes and labels
   const long long staged = (long long)p.staged_rows * p.pitch;
   const long long region = (long long)p.region_rows * p.pitch;
-  p.smem = 2LL * kPathTableSteps +
-           (region * 12 + staged * (kind == kPathMaxBackward ? 4 : 13) + 15) / 16 * 16;
+  const bool edge_only = kind == kPathMaxBackward || kind == kPathMaxForward;
+  p.smem = 2LL * kPathTableSteps + (region * 12 + staged * (edge_only ? 4 : 13) + 15) / 16 * 16;
   return p;
+}
+
+// K7's forward takes the tiles (kPathMaxForward) where the table fits the kernel parameter
+// and the tile a block's shared memory (kPathMaxSmem); else the direct kernel, a thread an
+// output reading the table from device memory (any radius).
+constexpr int kPathMaxSmem = 232448;  // 227 KiB
+constexpr bool path_max_forward_tiled(const PathTilePlan& p, int n_dirs, int n_steps) {
+  return n_dirs <= kPathTableDirs && n_steps <= kPathTableSteps && p.smem <= kPathMaxSmem;
 }
 
 // A path table in host memory: steps [n_steps, 2] the (dy, dx) of every direction's path,
@@ -833,6 +846,24 @@ struct PathSteps {
   const int* offsets;
   int n_dirs;
 };
+
+// K7's last forward launch: tiled or direct, blocks, threads, rows a thread, direction groups,
+// bytes of dynamic shared memory a block.
+struct PathMaxLaunchShape {
+  int tiled;
+  long long blocks;
+  int threads, rpt, dir_groups;
+  long long smem;
+};
+
+// K7: edge [B, H, W]; out [B, n_dirs, H - rf, W - 2 * rf]. With `plan` (kPathMaxForward, the
+// caller has checked path_max_forward_tiled) the tiled kernel takes the host table as a
+// kernel parameter; with plan == nullptr the direct kernel reads dev_steps [n_steps, 2] and
+// dev_offsets [n_dirs + 1] (device memory). *shape receives the launch's shape.
+cudaError_t path_max_affinity(const PathTilePlan* plan, const PathSteps& table,
+                              const int* dev_steps, const int* dev_offsets, const float* edge,
+                              float* out, int64_t B, int H, int W, int rf, cudaStream_t stream,
+                              PathMaxLaunchShape* shape);
 
 // K7 backward as `plan` (kPathMaxBackward) says: edge [B, H, W]; g [B, n_dirs, H - rf,
 // W - 2 rf]; dedge [B, H, W].
@@ -965,7 +996,8 @@ cudaError_t walk_tile_occupancy(const float* x, bool* rows, bool* cols, int R, i
 // kPixelAttnWaveBlocks blocks (kPixelAttnWaveBlocksBwd backward); the backward writes its
 // dLk and dLv partials for each of pixel_attn_groups(N, HW, C, true) groups of tiles, which
 // its second kernel adds in ascending order.
-constexpr int kPixelAttnMaxT = 32;
+constexpr int kPixelAttnMaxT = 32;         // the backward's tokens (its buckets: 8 to 32)
+constexpr int kPixelAttnMaxTForward = 48;  // the forward's: buckets 40 and 48 past 32
 constexpr int kPixelAttnTile = 32;
 constexpr int kPixelAttnThreads = 256;
 constexpr int kPixelAttnSlice = 256;
@@ -977,7 +1009,8 @@ constexpr int kPixelAttnWaveBlocksBwd = 528;  // the backward's: 4 an SM
 constexpr int kPixelAttnSumBlocks = 8 * 132;  // at most the backward's second kernel's grid
 constexpr long long kPixelAttnMaxSmem = 227 * 1024;  // bytes one block may use on Hopper
 constexpr int pixel_attn_t_bucket(int T) {
-  return T <= 8 ? 8 : T <= 16 ? 16 : T <= 20 ? 20 : T <= 24 ? 24 : 32;
+  return T <= 8 ? 8 : T <= 16 ? 16 : T <= 20 ? 20 : T <= 24 ? 24 : T <= 32 ? 32
+         : T <= 40 ? 40 : 48;
 }
 // a [pixel][token] row: the bucket made an odd number of 16-byte units
 constexpr int pixel_attn_token_pitch(int tb) { return tb / 4 % 2 ? tb : tb + 4; }
@@ -1024,10 +1057,11 @@ constexpr long long pixel_attn_smem(int tb, int C, bool backward) {
   return 4 * (2 * tile * pitch + 2 * tb * pitch + red + 2 * part + tile * tp +
               2 * tb * (tile + 4));
 }
-// the shapes the kernels take: 1 <= T <= kPixelAttnMaxT tokens, any C >= 1 and S >= 1 (any
-// HW), within kPixelAttnMaxSmem
+// the shapes the kernels take: 1 <= T <= kPixelAttnMaxT tokens (the forward alone up to
+// kPixelAttnMaxTForward: the demo's comma-separated phrases, 20 tokens each), any C >= 1 and
+// S >= 1 (any HW), within kPixelAttnMaxSmem
 constexpr bool pixel_attn_takes(int T, int C, int S, bool backward) {
-  return T >= 1 && T <= kPixelAttnMaxT && C >= 1 && S >= 1 &&
+  return T >= 1 && T <= (backward ? kPixelAttnMaxT : kPixelAttnMaxTForward) && C >= 1 && S >= 1 &&
          pixel_attn_smem(pixel_attn_t_bucket(T), C, backward) <= kPixelAttnMaxSmem;
 }
 // A launch of K11 as its launcher made it: blocks, blocks a cluster, threads a block, the

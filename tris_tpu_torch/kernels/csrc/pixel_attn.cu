@@ -10,7 +10,8 @@
 //
 // Shapes on the stage-2 train path (B = 48 images, one sentence each, T = 20
 // tokens): c2 HW = 1600 pixels x Ci = 512, c3 400 x 1024, c4 100 x 2048; on
-// the eval path 8 images x S = 4 pairs. One launch per call.
+// the eval path 8 images x S = 4 pairs; the demo's T = 20 a comma-separated phrase (up to
+// kPixelAttnMaxTForward = 48 tokens here, 32 in the backward). One launch per call.
 //
 // Bound: bytes (q read once and G written once; 2 T multiply-adds per element
 // of G, a third of the FP32 rate's worth at T = 20). Design
@@ -169,7 +170,7 @@ cudaError_t tris::pixel_attn(const float* q, const float* lk, const float* lv, f
   const int groups = pixel_attn_groups(N, HW, C, false);
   const long long blocks = N * groups * ranks, smem = pixel_attn_smem(tb, C, false);
   if (shape != nullptr) *shape = {0, 0, 0, tb, pattn::kTile, width, groups, vec ? 16 : 4, 0};
-  return pattn::dispatch(tb, vec, [&](auto B, auto V) {
+  return pattn::dispatch<true>(tb, vec, [&](auto B, auto V) {
     constexpr int TB = decltype(B)::value;
     return pattn::launch(pixel_attn_kernel<TB, decltype(V)::value>, blocks, ranks, smem, stream,
                          shape, q, lk, lv, out, HW, T, C, S, width, per_block, groups, div);

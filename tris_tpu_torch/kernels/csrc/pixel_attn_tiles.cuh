@@ -56,7 +56,7 @@ static_assert(kPixelAttnSlice % kPass == 0 && kPasses == 2 &&
 template <int TB>
 struct Tok {
   static constexpr int kPitch = pixel_attn_token_pitch(TB);  // a [pixel][token] row
-  static_assert(TB % 4 == 0 && TB <= kPixelAttnMaxT && kPitch % 8 == 4, "token buckets");
+  static_assert(TB % 4 == 0 && TB <= kPixelAttnMaxTForward && kPitch % 8 == 4, "token buckets");
 };
 
 __device__ __forceinline__ int lane() { return threadIdx.x & 31; }
@@ -140,16 +140,18 @@ __device__ __forceinline__ void sum_partials(const float* red, float* part, int 
 }
 
 // dst's kTile rows x TB columns = (the sum over the cluster's blocks in rank order of
-// part's) / d, a float4 a thread; both [kTile][token pitch].
+// part's) / d, a float4 a thread (two in turn past kPixelAttnMaxT tokens); both [kTile][token
+// pitch].
 template <int TB>
 __device__ __forceinline__ void gather(cg::cluster_group& cluster, float* part, float* dst,
                                        float d) {
   constexpr int kTP = Tok<TB>::kPitch;
-  if (threadIdx.x >= kTile * TB / 4) return;
-  const int r = threadIdx.x / (TB / 4), c = threadIdx.x % (TB / 4) * 4;
-  const float4 s = xattn::cluster_sum4(cluster, part + r * kTP + c, (int)cluster.num_blocks());
-  *reinterpret_cast<float4*>(dst + r * kTP + c) =
-      make_float4(s.x / d, s.y / d, s.z / d, s.w / d);
+  for (int i = threadIdx.x; i < kTile * TB / 4; i += kThreads) {
+    const int r = i / (TB / 4), c = i % (TB / 4) * 4;
+    const float4 s = xattn::cluster_sum4(cluster, part + r * kTP + c, (int)cluster.num_blocks());
+    *reinterpret_cast<float4*>(dst + r * kTP + c) =
+        make_float4(s.x / d, s.y / d, s.z / d, s.w / d);
+  }
 }
 
 // The cluster's round: the warps' partials in red, `products` tiles of them (see
@@ -286,10 +288,15 @@ inline bool aligned16(std::initializer_list<const void*> ptrs, int C) {
 template <int V>
 using Int = std::integral_constant<int, V>;
 
-// f(Int<TB>, bool_constant<VEC>) at the launch's token bucket (pixel_attn_t_bucket)
-template <class F>
+// f(Int<TB>, bool_constant<VEC>) at the launch's token bucket (pixel_attn_t_bucket), of at
+// most kPixelAttnMaxT tokens (the backward's) or, `forward`, of kPixelAttnMaxTForward
+template <bool forward = false, class F>
 cudaError_t dispatch(int tb, bool vec, F&& f) {
   auto by_vec = [&](auto B) { return vec ? f(B, std::true_type{}) : f(B, std::false_type{}); };
+  if constexpr (forward) {
+    if (tb == 40) return by_vec(Int<40>{});
+    if (tb == 48) return by_vec(Int<48>{});
+  }
   return tb == 8    ? by_vec(Int<8>{})
          : tb == 16 ? by_vec(Int<16>{})
          : tb == 20 ? by_vec(Int<20>{})

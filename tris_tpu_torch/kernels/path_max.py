@@ -13,6 +13,12 @@ version and JAX agree bit for bit. IRN training does not call it: its loss
 takes the edge map itself (``kernels/irn_affinity.py``), so the affinity
 never reaches device memory there.
 
+The forward takes tiles of pairs over a staged edge map, the path table a
+kernel parameter (``launchers.h::path_tile_plan``'s ``kPathMaxForward``,
+:func:`forward_plan`), where the table fits that parameter (radius 12 and
+below); a larger table takes the direct kernel, a thread an output. The plan
+chooses, by the table's size alone; both are bit for bit the plain version.
+
 On a CUDA tensor it is a ``torch.autograd.Function``. Its backward sends
 each entry's gradient to the pixels of its path that equal the path's max,
 split evenly among them where several tie, as the JAX package's
@@ -44,8 +50,9 @@ def path_steps(paths_by_length) -> tuple:
 # the most steps and directions a path table may hold for the tiled kernels (launchers.h
 # kPathTableSteps, kPathTableDirs: radius 12 has 3606 steps and 218 directions)
 TABLE_STEPS, TABLE_DIRS = 4096, 256
-# what a tile plan tiles (launchers.h kPathLossForward, kPathLossBackward, kPathMaxBackward)
-LOSS_FORWARD, LOSS_BACKWARD, MAX_BACKWARD = 0, 1, 2
+# what a tile plan tiles (launchers.h kPathLossForward, kPathLossBackward, kPathMaxBackward,
+# kPathMaxForward)
+LOSS_FORWARD, LOSS_BACKWARD, MAX_BACKWARD, MAX_FORWARD = 0, 1, 2, 3
 
 
 @functools.lru_cache(maxsize=16)
@@ -57,22 +64,30 @@ def _path_table(steps: tuple, device: torch.device):
 
 
 @functools.lru_cache(maxsize=16)
+def check_window(steps: tuple, rf: int) -> None:
+    """Raises where a direction has no step or a step leaves the window of
+    radius floor ``rf`` (0 <= dy <= rf, |dx| <= rf), whose staged rows the
+    tiles read."""
+    if min(map(len, steps), default=1) < 1:
+        raise ValueError("path table: a direction has no step")
+    a = _path_table(steps, torch.device("cpu"))[0].numpy()
+    if a.size and not ((a[:, 0] >= 0) & (a[:, 0] <= rf) & (np.abs(a[:, 1]) <= rf)).all():
+        raise ValueError(f"path table: steps outside the window of radius floor {rf}")
+
+
+@functools.lru_cache(maxsize=16)
 def tile_table(steps: tuple, rf: int):
-    """The path table of the tiled kernels (``csrc/path_max_tiles.cuh``) as
-    int32 CPU tensors (steps [n_steps, 2], offsets [n_dirs + 1]): the
+    """The path table of the tiled backward kernels (``csrc/path_max_tiles.cuh``)
+    as int32 CPU tensors (steps [n_steps, 2], offsets [n_dirs + 1]): the
     launcher puts it in a kernel parameter. Raises before any launch where a
-    step leaves the window of radius floor ``rf`` (0 <= dy <= rf, |dx| <= rf)
-    or the table is larger than the kernels take."""
+    step leaves the window (:func:`check_window`) or the table is larger than
+    the kernels take."""
     flat, offsets = _path_table(steps, torch.device("cpu"))
     n_steps, n_dirs = flat.shape[0], offsets.shape[0] - 1
     if n_steps > TABLE_STEPS or n_dirs > TABLE_DIRS:
         raise ValueError(f"path table of {n_dirs} directions and {n_steps} steps: the tiled "
                          f"kernels take at most {TABLE_DIRS} and {TABLE_STEPS} (radius 12)")
-    if min(map(len, steps), default=1) < 1:
-        raise ValueError("path table: a direction has no step")
-    a = flat.numpy()
-    if a.size and not ((a[:, 0] >= 0) & (a[:, 0] <= rf) & (np.abs(a[:, 1]) <= rf)).all():
-        raise ValueError(f"path table: steps outside the window of radius floor {rf}")
+    check_window(steps, rf)
     return flat, offsets
 
 
@@ -86,6 +101,21 @@ def tile_plan(kind: int, B: int, H: int, W: int, rf: int) -> dict:
     return plan
 
 
+def forward_plan(B: int, H: int, W: int, rf: int, n_dirs: int, n_steps: int) -> dict:
+    """K7's forward launch as the extension plans it: ``tiled`` (1: the tiles
+    of ``path_tile_plan(kPathMaxForward)``, whose fields follow; 0: the direct
+    kernel)."""
+    return dict(build.ops().path_max_forward_plan(B, H, W, rf, n_dirs, n_steps))
+
+
+def launch_shape() -> dict:
+    """The last forward launch in this process: tiled, blocks, threads, rpt,
+    dir_groups, smem_bytes."""
+    if build.launches["path_max_affinity"] == 0:
+        raise RuntimeError("path_max_affinity: no launch of the forward counted")
+    return dict(build.ops().path_max_affinity_launch_shape())
+
+
 def path_max_affinity_plain(edge, paths_by_length, radius_floor: int):
     """The plain version: the JAX package's static slices, max per direction."""
     H, W = edge.shape[-2:]
@@ -96,10 +126,21 @@ def path_max_affinity_plain(edge, paths_by_length, radius_floor: int):
     return 1.0 - torch.stack(per, dim=-3)
 
 
+def forward_kernel(edge, key: tuple, rf: int, groups: int = 0):
+    """One launch of K7's forward on ``edge`` [B, H, W] (contiguous, on the
+    card) for the path table ``key`` (:func:`path_steps`); ``groups > 0``
+    overrides the tiled plan's direction groups (to measure them). Not
+    counted: :func:`path_max_affinity` counts its own."""
+    if not 0 <= groups <= 64:
+        raise ValueError(f"path_max_affinity: direction groups {groups} not in [0, 64]")
+    host = _path_table(key, torch.device("cpu"))
+    return build.ops().path_max_affinity(edge, *host, *_path_table(key, edge.device), rf, groups)
+
+
 class _PathMaxAffinity(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, edge, steps, offsets, rf, table):
-        out = build.ops().path_max_affinity(edge, steps, offsets, rf)
+    def forward(ctx, edge, key, rf, table):
+        out = forward_kernel(edge, key, rf)
         build.count("path_max_affinity")
         ctx.rf, ctx.table = rf, table
         if table is not None:  # the backward's table: nothing is kept when no gradient is needed
@@ -111,12 +152,13 @@ class _PathMaxAffinity(torch.autograd.Function):
         (edge,) = ctx.saved_tensors
         d_edge = build.ops().path_max_affinity_bwd(edge, g.contiguous(), *ctx.table, ctx.rf)
         build.count("path_max_affinity_bwd")
-        return d_edge, None, None, None, None
+        return d_edge, None, None, None
 
 
 def path_max_affinity(edge, paths_by_length, radius_floor: int):
-    """K7 on a CUDA tensor (one launch forward, one backward); the plain
-    version on a CPU tensor. edge ``[..., H, W]`` float32 -> ``[..., n_dirs,
+    """K7 on a CUDA tensor (one launch forward, tiled or direct as
+    :func:`forward_plan` says, one backward); the plain version on a CPU
+    tensor. edge ``[..., H, W]`` float32 -> ``[..., n_dirs,
     H - rf, W - 2 * rf]``."""
     if edge.device.type == "cpu":
         return path_max_affinity_plain(edge, paths_by_length, radius_floor)
@@ -129,11 +171,11 @@ def path_max_affinity(edge, paths_by_length, radius_floor: int):
     if H <= rf or W <= 2 * rf:
         raise ValueError(f"path_max_affinity: edge {H}x{W} too small for radius floor {rf}")
     key = path_steps(paths_by_length)
-    steps, offsets = _path_table(key, edge.device)
+    check_window(key, rf)
     flat = edge.reshape(-1, H, W).contiguous()
     table = None
     if torch.is_grad_enabled() and edge.requires_grad:  # the backward's table and tiles, checked
         table = tile_table(key, rf)
         tile_plan(MAX_BACKWARD, flat.shape[0], H, W, rf)
-    out = _PathMaxAffinity.apply(flat, steps, offsets, rf, table)
+    out = _PathMaxAffinity.apply(flat, key, rf, table)
     return out.reshape(*edge.shape[:-2], *out.shape[1:])

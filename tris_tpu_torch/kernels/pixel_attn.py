@@ -80,6 +80,6 @@ def pixel_attn(q, Lk, Lv, S: int = 1):
     T, C = Lk.shape[1], q.shape[2]
     save = torch.is_grad_enabled() and any(x.requires_grad for x in (q, Lk, Lv))
     if not build.ops().pixel_attn_takes(T, C, S, save):
-        raise ValueError(f"pixel_attn: the kernels do not take T={T}, C={C}, S={S} (1 to 32 "
-                         f"tokens: csrc/launchers.h::pixel_attn_takes)")
+        raise ValueError(f"pixel_attn: the kernels do not take T={T}, C={C}, S={S} (1 to 48 "
+                         f"tokens, 32 with a gradient: csrc/launchers.h::pixel_attn_takes)")
     return _PixelAttn.apply(q.contiguous(), Lk.contiguous(), Lv.contiguous(), int(S), save)

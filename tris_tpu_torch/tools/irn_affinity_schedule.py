@@ -1,12 +1,14 @@
 """How K7's tiles (``tris_tpu_torch/kernels/csrc/path_max_tiles.cuh``) cut
-the IRN loss fused with K7 (``csrc/irn_affinity.cu``) and K7's backward
-(``csrc/path_max_affinity_bwd.cu``) among their blocks, emulated on the
-host: the CPU tests hold the plan against ``launchers.h``'s rule, the
-partition (each pair summed by one block; each backward tile's pairs
-covering every pair and step that reaches its pixels) and the kernels'
-arithmetic against the plain version and JAX
-(``tests/test_torch_irn_affinity.py``). Nothing on the path calls it;
-``chip_smoke.py`` reads :func:`shared_loads` for its yardsticks.
+the IRN loss fused with K7 (``csrc/irn_affinity.cu``), K7's backward
+(``csrc/path_max_affinity_bwd.cu``) and K7's forward
+(``csrc/path_max_affinity.cu``) among their blocks, emulated on the host:
+the CPU tests hold the plan against ``launchers.h``'s rule, the partition
+(each pair summed by one block; each backward tile's pairs covering every
+pair and step that reaches its pixels; each forward output written by one
+block) and the kernels' arithmetic against the plain version and JAX
+(``tests/test_torch_irn_affinity.py``, ``tests/test_torch_path_max.py``).
+Nothing on the path calls it; ``chip_smoke.py`` reads :func:`shared_loads`
+for its yardsticks.
 
 The constants are read from ``csrc/launchers.h``, the kernels' own source
 of them; :func:`plan` is that file's ``path_tile_plan``.
@@ -22,7 +24,11 @@ pairs whose sources sit at staged rows [rf - dy_max, rf + tile_rows) and
 columns [rf - dx_max, rf + tile_cols - dx_min): each one's path max, tie
 count and q = cot / count in double; each pixel then subtracts q over d's
 steps whose pair's max equals it, directions in table order, steps in path
-order (:func:`tiled_backward`).
+order (:func:`tiled_backward`). K7's forward stages as the loss's forward
+does, with -inf off the image, and splits the table's directions among
+``dir_groups`` blocks a tile, contiguous runs in table order; a table the
+kernel parameter cannot hold takes the direct kernel (:func:`forward_plan`,
+:func:`tiled_forward`).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import re
 import numpy as np
 
 LAUNCHERS = pathlib.Path(__file__).resolve().parents[1] / "kernels" / "csrc" / "launchers.h"
-LOSS_FORWARD, LOSS_BACKWARD, MAX_BACKWARD = 0, 1, 2
+LOSS_FORWARD, LOSS_BACKWARD, MAX_BACKWARD, MAX_FORWARD = 0, 1, 2, 3
 
 
 @functools.lru_cache(maxsize=1)
@@ -52,8 +58,8 @@ def plan(kind: int, B: int, H: int, W: int, rf: int) -> dict:
     """``launchers.h::path_tile_plan``: the tiles of ``kind`` over B images
     of [H, W] at radius floor rf."""
     k = constants()
-    fwd = kind == LOSS_FORWARD
-    rows, cols = (H - rf, W - 2 * rf) if fwd else (H, W)
+    pairs = kind in (LOSS_FORWARD, MAX_FORWARD)
+    rows, cols = (H - rf, W - 2 * rf) if pairs else (H, W)
     warps = k["kPathThreads"] // k["kPathTileCols"]
     tiles_x = _ceil(cols, k["kPathTileCols"])
     rpt = k["kPathRowsPerThread"]
@@ -61,14 +67,32 @@ def plan(kind: int, B: int, H: int, W: int, rf: int) -> dict:
         rpt //= 2
     tile_rows = warps * rpt
     tiles_y = _ceil(rows, tile_rows)
+    tiles = B * tiles_y * tiles_x
+    groups = 1
+    while (kind == MAX_FORWARD and groups < k["kPathForwardGroups"]
+           and tiles * groups < k["kPathWaveBlocks"]):
+        groups *= 2
     pitch = k["kPathTileCols"] + 2 * rf
-    staged_rows = tile_rows + (rf if fwd else 2 * rf)
-    region_rows = 0 if fwd else tile_rows + rf
-    smem = region_rows * pitch * 12 + staged_rows * pitch * (4 if kind == MAX_BACKWARD else 13)
+    staged_rows = tile_rows + (rf if pairs else 2 * rf)
+    region_rows = 0 if pairs else tile_rows + rf
+    edge_only = kind in (MAX_BACKWARD, MAX_FORWARD)
+    smem = region_rows * pitch * 12 + staged_rows * pitch * (4 if edge_only else 13)
     return {"rpt": rpt, "tile_rows": tile_rows, "tile_cols": k["kPathTileCols"], "pitch": pitch,
             "staged_rows": staged_rows, "region_rows": region_rows, "tiles_y": tiles_y,
-            "tiles_x": tiles_x, "blocks": B * tiles_y * tiles_x,
+            "tiles_x": tiles_x, "dir_groups": groups, "blocks": tiles * groups,
             "smem_bytes": 2 * k["kPathTableSteps"] + _ceil(smem, 16) * 16}
+
+
+def forward_plan(B: int, H: int, W: int, rf: int, n_dirs: int, n_steps: int) -> dict:
+    """K7's forward (``path_max_forward_tiled``): the tiles of
+    :func:`plan` (``MAX_FORWARD``) with ``tiled`` 1 where the table fits the
+    kernel parameter and the tile a block's shared memory, else ``tiled`` 0
+    (the direct kernel)."""
+    k = constants()
+    p = plan(MAX_FORWARD, B, H, W, rf)
+    tiled = (n_dirs <= k["kPathTableDirs"] and n_steps <= k["kPathTableSteps"]
+             and p["smem_bytes"] <= k["kPathMaxSmem"])
+    return {"tiled": int(tiled), **{key: v for key, v in p.items() if key != "region_rows"}}
 
 
 def table(steps, pitch: int) -> dict:
@@ -336,14 +360,63 @@ def tiled_backward(edge, steps, rf, cot_of=None, labels=None, dp=None, gsum=None
     return out
 
 
+def tiled_forward(edge, steps, rf, groups: int = 0):
+    """K7's forward as its plan launches it (``edge`` [B, H, W] float32):
+    the tiled kernel block by block (each block's tile staged from its first
+    pair with -inf off the image, its group's directions in table order, each
+    pair's max over the step offsets from -inf, 1 - m written where the pair
+    lies in the window), or, for a table the tiles cannot take, the direct
+    kernel (a thread an output, the same steps in the same order). ``groups
+    > 0`` overrides the plan's direction groups as the binding does.
+    -> (out [B, n_dirs, ch, cw], writes: how many times each was written)."""
+    B, H, W = edge.shape
+    n_dirs, n_steps = len(steps), sum(len(s) for s in steps)
+    fp = forward_plan(B, H, W, rf, n_dirs, n_steps)
+    ch, cw = H - rf, W - 2 * rf
+    out = np.full((B, n_dirs, ch, cw), np.nan, np.float32)
+    writes = np.zeros(out.shape, np.int64)
+    one = np.float32(1)
+    if not fp["tiled"]:
+        for d, path in enumerate(steps):
+            m = np.full((B, ch, cw), -np.inf, np.float32)
+            for dy, dx in path:
+                m = np.maximum(m, edge[:, dy:dy + ch, rf + dx:rf + dx + cw])
+            out[:, d] = one - m
+            writes[:, d] += 1
+        return out, writes
+    G = groups or fp["dir_groups"]
+    t = table(steps, fp["pitch"])
+    P, TR, TC, SR = fp["pitch"], fp["tile_rows"], fp["tile_cols"], fp["staged_rows"]
+    pad = np.full((B, H + SR, W + P), -np.inf, np.float32)
+    pad[:, :H, :W] = edge
+    rr, cc = np.mgrid[0:TR, 0:TC]
+    pix = (rr * P + rf + cc).reshape(-1)
+    for blk in range(fp["blocks"] // fp["dir_groups"] * G):
+        g, tile = blk % G, blk // G
+        tx, ty = tile % fp["tiles_x"], tile // fp["tiles_x"] % fp["tiles_y"]
+        b = tile // (fp["tiles_x"] * fp["tiles_y"])
+        r0, c0 = ty * TR, tx * TC
+        se = pad[b, r0:r0 + SR, c0:c0 + P].reshape(-1)
+        r, c = (r0 + rr).reshape(-1), (c0 + cc).reshape(-1)
+        live = (r < ch) & (c < cw)
+        for d in range(n_dirs * g // G, n_dirs * (g + 1) // G):
+            m = np.full(pix.shape, -np.inf, np.float32)
+            for o in t["off"][t["begin"][d]:t["begin"][d + 1]]:
+                m = np.maximum(m, se[pix + o])
+            out[b, d, r[live], c[live]] = one - m[live]
+            writes[b, d, r[live], c[live]] += 1
+    return out, writes
+
+
 def shared_loads(kind: int, B: int, H: int, W: int, rf: int, steps) -> int:
     """The 4-byte shared-memory loads of a call's path steps, as issued
-    (every lane of every block, ragged tiles included): the forward's
-    maxima; a backward's pairs' maxima and its pixels' gather."""
+    (every lane of every block, ragged tiles included): a forward's maxima
+    (K7's direction groups share a tile's steps); a backward's pairs' maxima
+    and its pixels' gather."""
     p = plan(kind, B, H, W, rf)
     n_steps = sum(len(s) for s in steps)
-    lanes = p["blocks"] * constants()["kPathThreads"] * p["rpt"]
-    if kind == LOSS_FORWARD:
+    lanes = p["blocks"] // p["dir_groups"] * constants()["kPathThreads"] * p["rpt"]
+    if kind in (LOSS_FORWARD, MAX_FORWARD):
         return lanes * n_steps
     t = table(steps, p["pitch"])
     pairs = sum((p["tile_rows"] + int(t["dy_max"][d])) *

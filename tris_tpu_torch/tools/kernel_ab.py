@@ -1,28 +1,34 @@
 """Times K6's bilinear backward at the ten shapes of the IRN and stage-2
 training steps (group ``k6_bwd``), K3's eval head at the stage-1 eval batch's
 shape (``k3_eval``), K3's training head, forward and backward, and K5's
-backward at the stage-1 train step's (``k3_train``, ``k5_bwd``) and K9 on
-the 120 x 160 grid of a 480 x 640 image (``k9``), in the checkout at
+backward at the stage-1 train step's (``k3_train``, ``k5_bwd``), K9 on
+the 120 x 160 grid of a 480 x 640 image (``k9``) and K7's forward at radius
+5 on that image's padded edge map and at radius 10 on IRN training's batch
+(``k7_fwd``), in the checkout at
 ``--root``: its kernels, timed by its own ``chip_smoke.py``
 (``resize_bwd_row``, ``measure_row``, ``device_ms``, ``bwd_ms``), so that two
 commits are timed in one call on one card, in turns (parent, change, change,
 parent).
 
     python tris_tpu_torch/tools/kernel_ab.py --root PATH --tag NAME \
-        [--groups k6_bwd,k3_eval,k3_train,k5_bwd,k9] [--out FILE] [--save DIR]
+        [--groups k6_bwd,k3_eval,k3_train,k5_bwd,k9,k7_fwd] [--out FILE] [--save DIR]
 
 Each row holds the kernel against its plain version at chip_smoke's bars
 (K6's and K5's backward 1e-5 of the gradient's scale, K3's eval head 1e-4,
 its training head 1e-5 of the outputs' scale forward and 1e-4 of the
-gradients' backward, K9 exact). K3's training rows, K5's backward and K9 also
+gradients' backward, K9 and K7 exact). K3's training rows, K5's backward, K9
+and K7's forward also
 give each launch of a call apart (from ``torch.profiler``, by position in the
 call: ``launches``), K9 on chip_smoke's smooth field and on a two-cycle field
 that never settles (every step taken), with the steps its warps took where
 the checkout's kernel counts them; K3's training rows, as a yardstick of the
 score product alone, ``torch.bmm`` of [48, 100, 1024] by [48, 1024, 48] in
-full float32 (``bmm_score_ms``). With ``--save``, the gradients at IRNet's dp6
-tap and stage 2's x16 head, K3's eval maps, its training head's outputs and
-gradients, K5's gradient and K9's centroids, on the same seeded inputs in
+full float32 (``bmm_score_ms``); K7's rows, where the checkout plans its
+forward, the plan, the launch and, at radius 5, the tiled kernel at each
+count of direction groups (``groups_ms``). With ``--save``, the gradients at
+IRNet's dp6 tap and stage 2's x16 head, K3's eval maps, its training head's
+outputs and gradients, K5's gradient, K9's centroids and K7's affinities, on
+the same seeded inputs in
 every checkout, go to ``DIR/<tag>.pt``, and each file of another tag already
 there is compared with them bit for bit. Prints one JSON line (``--out`` also
 writes it). Needs a card.
@@ -50,7 +56,7 @@ K6_SHAPES = [("dp6", (24, 256, 64, 64), (128, 128)),
              ("head_x8", (48, 1, 40, 40), (320, 320)),
              ("head_x16", (48, 1, 20, 20), (320, 320))]
 SAVED = ("dp6", "head_x16")
-GROUPS = ("k6_bwd", "k3_eval", "k3_train", "k5_bwd", "k9")
+GROUPS = ("k6_bwd", "k3_eval", "k3_train", "k5_bwd", "k9", "k7_fwd")
 
 
 def launch_times(fn, n: int = 10) -> list:
@@ -188,6 +194,54 @@ def k9_rows(cs, K, dev, failures, outs) -> list:
     return rows
 
 
+def k7_fwd_rows(cs, K, dev, failures, outs) -> list:
+    """K7's forward as chip_smoke's check_ins_seg_kernels and check_irn_train_kernels
+    hold it: radius 5 on the 480 x 640 image's bucket [128, 160] padded to [133, 170]
+    -> [34, 129, 162], and radius 10 on IRN training's [24, 128, 128] -> [24, 152, 119,
+    110]; exact."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.pseudo.indexing import PathIndex
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    cases = (("r5", 5, F.pad(torch.rand(128, 160, generator=g, device=dev), (5, 5, 0, 5),
+                             value=1.0)),
+             ("r10", 10, torch.rand(24, 128, 128, generator=g, device=dev)))
+    rows = []
+    for name, radius, edge in cases:
+        pi = PathIndex(radius, tuple(edge.shape[-2:]))
+        paths, rf = pi.paths_by_length, pi.radius_floor
+        steps = K.path_max.path_steps(paths)
+        n_steps = sum(len(p) for p in steps)
+        with torch.no_grad():
+            got = K.path_max_affinity(edge, paths, rf)
+            run = lambda: K.path_max_affinity(edge, paths, rf)  # noqa: E731
+            plain = lambda: K.path_max_affinity_plain(edge, paths, rf)  # noqa: E731
+            extra = {}
+            if hasattr(K.path_max, "forward_plan"):
+                flat = edge.reshape(-1, *edge.shape[-2:])
+                extra["plan"] = K.path_max.forward_plan(flat.shape[0], *flat.shape[1:], rf,
+                                                        len(steps), n_steps)
+                run()
+                extra["launch_shape"] = K.path_max.launch_shape()
+                if radius == 5:
+                    extra["groups_ms"] = {n: cs.device_ms(
+                        lambda n=n: K.path_max.forward_kernel(flat, steps, rf, n))
+                        for n in (1, 2, 4)}
+            n_out = got.numel()
+            rows.append(cs.measure_row(
+                failures, f"path_max_affinity@{name}", cs.max_err(got, plain()), 0.0,
+                cs.device_ms(run), cs.device_ms(plain, 3, 1), 4 * (edge.numel() + n_out),
+                (n_steps + len(steps)) * n_out // len(steps), None,
+                shape=[*edge.shape, *got.shape], path_steps=n_steps,
+                launches=launch_times(run), **extra))
+        outs[f"path_max_affinity@{name}"] = got.cpu()
+        del got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def k3_eval_row(cs, K, randn, failures, rows, outs) -> None:
     """K3's eval head at response_maps' shape, as chip_smoke's check_kernels holds it: 8
     images x 4 pairs, D = 1024, 10 x 10 -> 320 x 320."""
@@ -260,6 +314,8 @@ def main(argv=None) -> dict:
         rows.append(k5_bwd_row(cs, K, randn, failures, outs))
     if "k9" in groups:
         rows += k9_rows(cs, K, dev, failures, outs)
+    if "k7_fwd" in groups:
+        rows += k7_fwd_rows(cs, K, dev, failures, outs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 LAUNCHERS = pathlib.Path(__file__).resolve().parents[1] / "kernels" / "csrc" / "launchers.h"
-T_BUCKETS = (8, 16, 20, 24, 32)  # pixel_attn_t_bucket
+T_BUCKETS = (8, 16, 20, 24, 32)  # pixel_attn_t_bucket, the backward's
+T_BUCKETS_FORWARD = (40, 48)      # and the forward's past kPixelAttnMaxT
 WARPS = 8
 
 
@@ -54,8 +55,9 @@ def tiles() -> dict:
 
 def t_bucket(T):
     T = np.asarray(T)
-    out = np.full(T.shape, T_BUCKETS[-1])
-    for b in reversed(T_BUCKETS[:-1]):
+    buckets = T_BUCKETS + T_BUCKETS_FORWARD
+    out = np.full(T.shape, buckets[-1])
+    for b in reversed(buckets[:-1]):
         out = np.where(T <= b, b, out)
     return out
 
@@ -128,7 +130,8 @@ def takes(T, C, S, backward: bool):
     """``pixel_attn_takes``, elementwise over arrays of shapes."""
     t = tiles()
     T, C, S = (np.asarray(x) for x in (T, C, S))
-    return ((T >= 1) & (T <= t["kPixelAttnMaxT"]) & (C >= 1) & (S >= 1)
+    max_t = t["kPixelAttnMaxT"] if backward else t["kPixelAttnMaxTForward"]
+    return ((T >= 1) & (T <= max_t) & (C >= 1) & (S >= 1)
             & (smem(t_bucket(T), C, backward) <= t["kPixelAttnMaxSmem"]))
 
 

@@ -51,7 +51,7 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "eval_metrics_kernel",
                 "critic_input_kernel", "critic_input_bwd_kernel", "normalize_u8_kernel",
                 "bilinear_resize_kernel", "bilinear_resize_bwd_kernel",
-                "bilinear_resize_bwd_direct_kernel", "path_max_kernel",
+                "bilinear_resize_bwd_direct_kernel", "path_max_tiled_kernel", "path_max_kernel",
                 "path_max_gather_kernel", "irn_affinity_loss_kernel",
                 "irn_affinity_loss_final_kernel", "refine_centroids_staged_kernel",
                 "refine_centroids_direct_kernel",
