@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--report PATH]
 
 Run from the root of a checkout. Phases, in order; an error stops the run,
-and a failed check of phases 3-10 exits 1 once all have run (so the report
+and a failed check of phases 3-12 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
@@ -121,7 +121,26 @@ holds every number):
              the demo's compute at full-width stage 2 on a 480x640 image with
              two comma-separated phrases against the plain route (the map
              within 1e-4 of its scale, norm_cam within that bar carried
-             through its normalisation).
+             through its normalisation);
+11. native - the port's native host library built with g++ (and whether
+             libjpeg was found): on phase 7's three JPEGs the CRF's native
+             lattice against the numpy lattice (ir-label agreement, max
+             |dQ|) with ms per image for both, the native one at 1 thread
+             and at the host's cores, and the ir-label pass's images/s by
+             design (``tris_tpu_torch.tools.crf_threads``); the fused u8 and
+             f32 decodes against the PIL chains with ms per image; the RLE
+             codec and polygon fill against the numpy codec;
+12. dp     - K3's rectangular training head (a rank's 24 images against 48
+             texts) and K13's cross-rank route (the wrapper's own stages, with
+             ReLU and PReLU) on the card against their plain versions, timed
+             beside the one-process calls; then
+             ``tris_tpu_torch.tools.dp_check``: two processes on this card in
+             a gloo group (K13's statistics, outputs and running buffers bit
+             for bit against one process, its gradients against one process
+             and the reference; stage-1, stage-2 and IRN steps at full width,
+             2 x half the batch, against one process on the whole batch:
+             losses, gradients against their measured noise, launches), then
+             a one-process NCCL group.
 
 Prints the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``--report`` writes a fuller JSON report
@@ -3160,6 +3179,300 @@ def referit_path(K, dev):
     return summary, failures
 
 
+# ---- phase 11: the native host library ------------------------------------------------------
+
+
+def native_path():
+    """The port's native library on the card's host: its build (and whether
+    libjpeg was found), the CRF's native lattice against the numpy lattice on
+    phase 7's three COCO-sized JPEGs (ir-label agreement >= 0.9999, the JAX
+    package's bar, and max |dQ| < 1e-3) with ms per image for both lattices,
+    the native one at 1 thread and at the host's cores; the ir-label pass's
+    throughput over 8 of them under each way of sharing the host's cores
+    (``tris_tpu_torch.tools.crf_threads``: a pool at one thread a call, the
+    same pool over a build without OpenMP, the pool at a full team a call,
+    one process at a full team); the fused u8 and f32 decodes against the
+    PIL chains (byte or bit equal) with ms per image for both; the RLE codec
+    and polygon fill against the numpy codec on a seeded mask set."""
+    from PIL import Image
+
+    from tris_tpu_torch import native
+    from tris_tpu_torch.data import mask_ops, transforms
+    from tris_tpu_torch.pseudo.crf import dense_crf_inference_multi, unary_from_labels
+    from tris_tpu_torch.pseudo.labels import cam_to_ir_label
+
+    failures = []
+    t0 = time.perf_counter()
+    lib = native.build_library()
+    build_s = time.perf_counter() - t0
+    jpeg = native.jpeg_available()
+    cores = os.cpu_count() or 1
+    log(f"native: built {os.path.basename(str(lib))} in {build_s:.1f} s; libjpeg "
+        f"{'found' if jpeg else 'NOT found: the JPEG half is unverified on this host'}")
+
+    def ms(fn, n=1):
+        t = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        return (time.perf_counter() - t) * 1e3 / n, out
+
+    crf = {"agreement": [], "max_dq": [], "native_ms_1": [], f"native_ms_{cores}": [],
+           "numpy_ms": []}
+    problems = []
+    dec = {"u8_equal": [], "f32_equal": [], "u8_native_ms": [], "u8_pil_ms": [],
+           "f32_native_ms": [], "f32_pil_ms": []}
+    tmp = tempfile.TemporaryDirectory()
+    with tmp:
+        names = make_ins_seg_data(tmp.name, seed=5)
+        for k, name in enumerate(names):
+            path = os.path.join(tmp.name, "train2014", f"COCO_train2014_{k + 1:012d}.jpg")
+            img = np.asarray(Image.open(path).convert("RGB"))
+            cam = np.load(os.path.join(tmp.name, "cam", name + ".npy"))
+            h, w = cam.shape
+            seeds = np.stack([np.argmax(np.concatenate([np.full((1, h, w), t), cam[None]]), 0)
+                              for t in (0.3, 0.1)]).astype(np.int32)
+            unaries = np.stack([unary_from_labels(sd, 2) for sd in seeds])
+            problems.append((img, unaries))
+            t1, q_nat = ms(lambda: dense_crf_inference_multi(img, unaries, threads=1))
+            tn, _ = ms(lambda: dense_crf_inference_multi(img, unaries, threads=cores))
+            tp, q_np = ms(lambda: dense_crf_inference_multi(img, unaries, backend="numpy"))
+            lab = cam_to_ir_label(img, cam)
+            lab_np = np.argmax(q_np, axis=1)
+            lab_np = _conf_of(lab_np)
+            crf["agreement"].append(float((lab == lab_np).mean()))
+            crf["max_dq"].append(float(np.abs(q_nat - q_np).max()))
+            crf["native_ms_1"].append(t1)
+            crf[f"native_ms_{cores}"].append(tn)
+            crf["numpy_ms"].append(tp)
+            if jpeg:
+                u8, u8_ref = (ms(lambda: transforms.load_transformed_u8(path, SIZE), 5),
+                              ms(lambda: np.asarray(transforms.load_image(path).resize(
+                                  (SIZE, SIZE), Image.BILINEAR)), 5))
+                f32, f32_ref = (ms(lambda: transforms.load_transformed(path, SIZE), 5),
+                                ms(lambda: transforms.image_to_array(
+                                    transforms.load_image(path), SIZE), 5))
+                dec["u8_equal"].append(bool(np.array_equal(u8[1], u8_ref[1])))
+                dec["f32_equal"].append(bool(np.array_equal(f32[1], f32_ref[1])))
+                for key, v in (("u8_native_ms", u8), ("u8_pil_ms", u8_ref),
+                               ("f32_native_ms", f32), ("f32_pil_ms", f32_ref)):
+                    dec[key].append(v[0])
+    from tris_tpu_torch.tools import crf_threads
+
+    crf["pass_throughput"] = crf_threads.run([problems[i % len(problems)] for i in range(8)])
+    if not (min(crf["agreement"]) >= 0.9999 and max(crf["max_dq"]) < 1e-3):
+        failures.append(f"native: CRF native vs numpy agreement {crf['agreement']}, max |dQ| "
+                        f"{crf['max_dq']}")
+    if jpeg and not (all(dec["u8_equal"]) and all(dec["f32_equal"])):
+        failures.append(f"native: fused decodes vs PIL u8 {dec['u8_equal']} f32 "
+                        f"{dec['f32_equal']}")
+    rng = np.random.default_rng(9)
+    codec_ok = True
+    for _ in range(20):
+        hh, ww = (int(v) for v in rng.integers(20, 120, 2))
+        m = (rng.random((hh, ww)) > rng.random()).astype(np.uint8)
+        rle = mask_ops.rle_encode(m)
+        poly = (rng.random((int(rng.integers(3, 9)), 2)) * [ww, hh] * 1.1).ravel().tolist()
+        codec_ok &= bool(np.array_equal(mask_ops.rle_decode(rle), m)
+                         and np.array_equal(mask_ops.rle_decode(rle, backend="numpy"), m)
+                         and np.array_equal(native.rle_encode(m),
+                                            mask_ops.string_to_counts(rle["counts"]))
+                         and mask_ops.polygon_to_rle(poly, hh, ww)
+                         == mask_ops.polygon_to_rle(poly, hh, ww, backend="numpy"))
+    if not codec_ok:
+        failures.append("native: the RLE codec or polygon fill differs from the numpy codec")
+    summary = {"library": os.path.basename(str(lib)), "build_s": build_s, "libjpeg": jpeg,
+               "host_cores": cores, "host_cpu": _cpu_model(), "load_avg": os.getloadavg(),
+               "crf": crf, "decode": dec if jpeg else "unverified: no "
+               "libjpeg on this host", "codec_equal": codec_ok,
+               "images": [list(sz) for sz in INS_SEG_SIZES]}
+    log(f"native: {json.dumps(summary)}")
+    return summary, failures
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``), or "not read"."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((ln.split(":", 1)[1].strip() for ln in f if ln.startswith("model name")),
+                        "not read")
+    except OSError:
+        return "not read"
+
+
+def _conf_of(labels):
+    """``cam_to_ir_label``'s map from the fg and bg refinements' argmaxes."""
+    fg, bg = labels
+    conf = fg.copy().astype(np.uint8)
+    conf[fg == 0] = 255
+    conf[(bg + fg) == 0] = 0
+    return conf
+
+
+# ---- phase 12: data parallelism on one card ----------------------------------------------------
+
+
+def check_dp_kernels(K, dev):
+    """The kernels the process group's route adds, on the card against their
+    plain versions, timed beside the one-process call: K3's training head for
+    a rank's 24 images against the 48 texts of the global batch (offset 24),
+    forward and backward; K13's cross-rank route (the wrapper's
+    ``ranks_forward`` and ``ranks_backward``: partial, final and apply
+    launches, the final over two ranks' partials; the gather between them is
+    not a kernel's) for a rank's 24 of 48 samples at the layer-1 tail
+    (residual, ReLU) and at stage 2's output1 (PReLU), its y, dx, dweight,
+    dbias and dslope held against ``batch_norm_act_reference``'s autograd on
+    the concatenated batch. Returns ``{row name: shape entry}`` and the
+    failures."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    failures, extra = [], {}
+    Bl, T, D, hs = TRAIN_B // 2, TRAIN_B, 1024, SIZE // 32
+    hw = hs * hs
+    vis, lan = leaves(F.normalize(randn(Bl, hw, D), dim=-1), F.normalize(randn(Bl, T, D), dim=-1))
+    args = (torch.tensor(1 / 0.07, device=dev), (hs, hs), (SIZE, SIZE), 3.0, 0.01, Bl)
+    one = (F.normalize(randn(TRAIN_B, hw, D), dim=-1), F.normalize(randn(TRAIN_B, T, D), dim=-1))
+    one_args = args[:-1] + (0,)
+    with torch.no_grad():
+        got, want = K.stage1_head(vis, lan, *args), K.stage1_head_plain(vis, lan, *args)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    maps_bytes = 2 * Bl * SIZE * SIZE
+    entry = measure_row(
+        failures, "stage1_head@rank_of_2", err, 1e-5 * max(scale, 1.0),
+        device_ms(lambda: K.stage1_head(vis.detach(), lan.detach(), *args)),
+        device_ms(lambda: K.stage1_head_plain(vis.detach(), lan.detach(), *args)),
+        4 * (Bl * hw * D + Bl * T * D + Bl * T + Bl + maps_bytes),
+        2 * Bl * hw * T * D + 20 * Bl * hw * T + 10 * maps_bytes, None,
+        shape=[Bl, hw, T, D, SIZE], offset=Bl,
+        plan=K.stage1_head_plan(Bl, hs, hs, D, SIZE, SIZE, T=T),
+        launch_shape=K.stage1_head_launch_shape(),
+        one_process_ms=device_ms(lambda: K.stage1_head(*one, *one_args)))
+    extra["stage1_head"] = entry
+    cot = [randn(Bl, T), None, None, randn(Bl, SIZE, SIZE)]
+    kern = lambda v, l: K.stage1_head(v, l, *args)  # noqa: E731
+    plain = lambda v, l: K.stage1_head_plain(v, l, *args)  # noqa: E731
+    got_g, want_g = input_grads(kern, [vis, lan], cot), input_grads(plain, [vis, lan], cot)
+    gscale = max(float(w.abs().max()) for w in want_g)
+    one_l = leaves(*one)
+    cot_one = [randn(TRAIN_B, T), None, None, randn(TRAIN_B, SIZE, SIZE)]
+    extra["stage1_head_bwd"] = measure_row(
+        failures, "stage1_head_bwd@rank_of_2", max(max_err(a, b) for a, b in zip(got_g, want_g)),
+        1e-4 * max(gscale, 1.0), bwd_ms(kern, [vis, lan], cot), bwd_ms(plain, [vis, lan], cot),
+        4 * (2 * (Bl * hw * D + Bl * T * D) + Bl * T + Bl * hw * T + Bl * SIZE * SIZE),
+        4 * Bl * hw * T * D + 30 * Bl * hw * T + 12 * Bl * SIZE * SIZE, None,
+        shape=[Bl, hw, T, D, SIZE], offset=Bl,
+        plan=K.stage1_head_plan(Bl, hs, hs, D, SIZE, SIZE, backward=True, T=T),
+        launch_shape=K.stage1_head_launch_shape(backward=True),
+        one_process_ms=bwd_ms(lambda v, l: K.stage1_head(v, l, *one_args), one_l, cot_one))
+
+    # K13's cross-rank route, the wrapper's own arithmetic (``ranks_forward`` and
+    # ``ranks_backward``) on one process, its gather a stand-in for two ranks that hold the same
+    # half: the route's statistics are then one process's on [x_l, x_l], and every output is
+    # held against ``batch_norm_act_reference``'s autograd on that concatenated batch
+    from tris_tpu_torch.kernels.batch_norm import (
+        batch_norm_act_reference, ranks_backward, ranks_forward)
+
+    ops = K.build.ops()
+
+    def two_ranks(p):  # [C, N, slices, k]: both ranks' partials, in rank order
+        return torch.cat([p, p], 1)
+
+    def route_case(N, C, H, act, residual):
+        """The route on a rank's half of [N, C, H, H] against the reference
+        on both halves: (errors, bars, tensors for timing)."""
+        xl, gy = randn(N // 2, C, H, H), randn(N // 2, C, H, H)
+        rl = randn(N // 2, C, H, H) if residual else None
+        w_, b_ = torch.rand(C, generator=g, device=dev) + 0.5, randn(C)
+        slope = torch.full((1,), 0.25, device=dev) if act == "prelu" else None
+        y, mean, rstd = ranks_forward(xl, w_, b_, slope, rl, None, None, 0.1, 1e-5, act,
+                                      gather=two_ranks)
+        dx, dw, db, dslope, _ = ranks_backward(gy, xl, y if act == "relu" else None, mean, rstd,
+                                               w_, b_, slope, act, residual, gather=two_ranks)
+        xx = torch.cat([xl, xl]).requires_grad_()
+        params = [t.clone().requires_grad_() for t in (w_, b_)]
+        sl = slope.clone().requires_grad_() if slope is not None else None
+        want = batch_norm_act_reference(
+            xx, *params, torch.zeros(C, device=dev), torch.ones(C, device=dev), training=True,
+            update_stats=False, momentum=0.1, eps=1e-5, act=act, slope=sl,
+            residual=None if rl is None else torch.cat([rl, rl]))
+        wants = torch.autograd.grad(want, [xx, *params] + ([sl] if sl is not None else []),
+                                    torch.cat([gy, gy]))
+        # one rank's dweight, dbias and dslope are half the concatenated batch's
+        got = {"y": y, "dx": dx, "dw": dw, "db": db, **({"dslope": dslope} if sl is not None
+                                                        else {})}
+        ref = {"y": want.detach()[:N // 2], "dx": wants[0][:N // 2], "dw": wants[1] / 2,
+               "db": wants[2] / 2, **({"dslope": wants[3] / 2} if sl is not None else {})}
+        errs = {k: max_err(got[k].reshape(ref[k].shape), ref[k]) for k in got}
+        bars = {k: (1e-5 * float(ref[k].abs().max())) for k in got}
+        for k in got:
+            if not errs[k] <= bars[k]:
+                failures.append(f"batch_norm@rank_of_2 {act}: {k} {errs[k]} > {bars[k]}")
+        return errs, bars, (xl, rl, gy, w_, b_, slope, y, mean, rstd)
+
+    N, C, H = TRAIN_B, 256, 80
+    errs, bars, (xl, rl, gy, w_, b_, _, y, mean, rstd) = route_case(N, C, H, "relu", True)
+    # stage 2's output1 with PReLU: the slope's sums go through the route's own final
+    prelu_errs, prelu_bars, _ = route_case(TRAIN2_B, 32, 80, "prelu", False)
+    x, res = randn(N, C, H, H), randn(N, C, H, H)
+    zeros, ones = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+
+    def route():
+        return ranks_forward(xl, w_, b_, None, rl, None, None, 0.1, 1e-5, "relu",
+                             gather=two_ranks)[0]
+
+    def route_bwd():
+        return ranks_backward(gy, xl, y, mean, rstd, w_, b_, None, "relu", True,
+                              gather=two_ranks)
+
+    nbytes = 4 * 3 * xl.numel()
+    extra["batch_norm"] = measure_row(
+        failures, "batch_norm@rank_of_2", errs["y"], bars["y"],
+        device_ms(route), device_ms(lambda: K.batch_norm_act_plain(
+            xl, w_, b_, zeros, ones, training=True, update_stats=False, momentum=0.1, eps=1e-5,
+            act="relu", residual=rl)),
+        nbytes, 8 * xl.numel(), device_ms(lambda: F.relu(F.batch_norm(
+            xl, None, None, w_, b_, True) + rl)),
+        shape=[N // 2, C, H * H], ranks=2, launches_per_call=3,
+        one_process_ms=device_ms(lambda: K.batch_norm_act(
+            x, w_, b_, zeros, ones, training=True, update_stats=False, momentum=0.1, eps=1e-5,
+            act="relu", residual=res)),
+        prelu_stage2_output1={"shape": [TRAIN2_B // 2, 32, 80 * 80], "max_abs_err": prelu_errs,
+                              "tol": prelu_bars})
+    # the backward's four launches on the rank's half, the coefficients over both ranks' partials
+    gy_one, y_one = randn(N, C, H, H), torch.relu(x)
+    (x_leaf,) = leaves(xl)
+    plain_bwd = bwd_ms(lambda t: K.batch_norm_act_plain(
+        t, w_, b_, zeros, ones, training=True, update_stats=False, momentum=0.1, eps=1e-5,
+        act="relu", residual=rl), [x_leaf], [gy])
+    extra["batch_norm_bwd"] = measure_row(
+        failures, "batch_norm_bwd@rank_of_2", errs["dx"], bars["dx"],
+        device_ms(route_bwd), plain_bwd, 4 * 4 * xl.numel(), 12 * xl.numel(), None,
+        shape=[N // 2, C, H * H], ranks=2, launches_per_call=4,
+        dweight_dbias_max_abs_err={k: errs[k] for k in ("dw", "db")},
+        dweight_dbias_tol={k: bars[k] for k in ("dw", "db")},
+        prelu_stage2_output1={"max_abs_err": {k: v for k, v in prelu_errs.items() if k != "y"},
+                              "tol": {k: v for k, v in prelu_bars.items() if k != "y"}},
+        one_process_ms=device_ms(lambda: ops.batch_norm_bwd(
+            gy_one, x, y_one, mean, rstd, w_, b_, None, 1, True, -1)))
+    return extra, failures
+
+
+def dp_path():
+    """Phase 12: ``tris_tpu_torch.tools.dp_check`` (two gloo ranks on this
+    card against one process, then a one-process NCCL group)."""
+    from tris_tpu_torch.tools import dp_check
+
+    summary, failures = dp_check.run()
+    log(f"dp: {json.dumps(summary, default=str)}")
+    return summary, failures
+
+
 def run_cli(args, timeout):
     """``python -m <args>`` from the checkout's root: (seconds, return code,
     its output)."""
@@ -3354,6 +3667,20 @@ def main(argv=None) -> int:
     # 10. ReferIt eval and the demo
     referit, referit_failures = referit_path(K, dev)
     failures += referit_failures
+    torch.cuda.empty_cache()
+
+    # 11. the native host library
+    native_summary, native_failures = native_path()
+    failures += native_failures
+
+    # 12. data parallelism on one card: the group's kernels, then two ranks against one process
+    dp_rows, dp_kernel_failures = check_dp_kernels(K, dev)
+    for r in rows:
+        if r["name"] in dp_rows:
+            r["shapes"].append(dp_rows[r["name"]])
+    torch.cuda.empty_cache()
+    dp, dp_failures = dp_path()
+    failures += dp_kernel_failures + dp_failures
 
     # launches: on the stage-1 train path for its kernels (all but K3's eval
     # half and K4), else on the PRMS path, else on the ins-seg path, else on
@@ -3365,7 +3692,9 @@ def main(argv=None) -> int:
                  "stage1_train": train["launches"][name], "ins_seg": ins_seg["launches"][name],
                  "irn_train": irn["launches"][name], "stage2_train": stage2["launches"][name],
                  "stage2_eval": stage2["eval"]["launches"][name],
-                 "referit": referit["launches"][name]}
+                 "referit": referit["launches"][name],
+                 **{f"dp_{job}_rank0": dp.get(job, {}).get("launches", {}).get(name, 0)
+                    for job in ("stage1", "stage2", "irn")}}
         row["launches"] = (paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
                            or paths["irn_train"] or paths["stage2_train"])
         row["launches_by_path"] = paths
@@ -3380,7 +3709,8 @@ def main(argv=None) -> int:
                        "kernels": rows, "batch_norm_plans": bn_plans,
                        "stage1_eval": stage1, "prms": prms,
                        "stage1_train": train, "ins_seg": ins_seg, "irn_train": irn,
-                       "chain": chain, "stage2": stage2, "referit": referit}, f, indent=1)
+                       "chain": chain, "stage2": stage2, "referit": referit,
+                       "native": native_summary, "dp": dp}, f, indent=1, default=str)
     if failures:
         fail("; ".join(failures))
 

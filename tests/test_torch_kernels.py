@@ -651,7 +651,7 @@ def test_stage1_head_equals_the_emulation(dev, B, hw, out, D):
     scale = torch.tensor(1 / 0.07, device=dev)
     ty, tx = taps_on(h, H, False, dev), taps_on(w, W, False, dev)
     score, _, _, _, relu_map, _ = K.build.ops().stage1_head(vis, lan, scale, list(ty), list(tx),
-                                                           h, w, 3.0, 0.01)
+                                                           h, w, 3.0, 0.01, 0)
     want = S1.emulate_forward(vis.cpu().numpy(), lan.cpu().numpy(), float(scale), hw, out, 3.0,
                               0.01)
     assert torch.equal(score.cpu(), torch.from_numpy(want[0]))
@@ -690,7 +690,7 @@ def test_stage1_head_gmp_near_ties(dev, exact):
     got = _grads(lambda v, l: K.stage1_head(v, l, scale, (h, w), (H, W), 3.0, 0.01),
                  _leaves(vis, lan), cot)
     ty, tx = taps_on(h, H, False, dev), taps_on(w, W, False, dev)
-    score = K.build.ops().stage1_head(vis, lan, scale, list(ty), list(tx), h, w, 3.0, 0.01)[0]
+    score = K.build.ops().stage1_head(vis, lan, scale, list(ty), list(tx), h, w, 3.0, 0.01, 0)[0]
     v_np, l_np = vis.cpu().numpy(), lan.cpu().numpy()
     want_score = S1.emulate_forward(v_np, l_np, float(scale), (h, w), (H, W), 3.0, 0.01)[0]
     assert torch.equal(score.cpu(), torch.from_numpy(want_score))
@@ -700,6 +700,55 @@ def test_stage1_head_gmp_near_ties(dev, exact):
                                float(scale), want_score, (h, w), (H, W), 3.0, 0.01)
     for a, b in zip(got, want):
         assert _err(a.cpu(), torch.from_numpy(b)) <= 2e-5 * max(1.0, float(np.abs(b).max()))
+
+
+# (B, T, offset, (h, w), (H, W), D): a rank's images against the global batch's texts, the
+# card check's 2 x 24 against 48 (R = 4 forward, 8 backward) and ragged small ones
+K3_RECT = [(24, 48, 0, (10, 10), (320, 320), 1024), (24, 48, 24, (10, 10), (320, 320), 1024),
+           (3, 9, 6, (4, 7), (33, 50), 48), (2, 5, 1, (3, 3), (24, 24), 32)]
+
+
+@pytest.mark.parametrize("B,T,off,hw,out,D", K3_RECT)
+def test_stage1_head_rectangular(dev, B, T, off, hw, out, D):
+    # B images against T texts, the own ones at off: the score plane and relu_map bit for bit
+    # with the emulation, the other outputs and both gradients against the plain version in
+    # float64 at test_stage1_head's bars, the plans the tool's, one launch each way
+    from tris_tpu_torch.tools import stage1_head_schedule as S1
+
+    (h, w), (H, W) = hw, out
+    g = torch.Generator(device=dev).manual_seed(B + T + off)
+    vis = F.normalize(torch.randn(B, h * w, D, generator=g, device=dev), dim=-1)
+    lan = F.normalize(torch.randn(B, T, D, generator=g, device=dev), dim=-1)
+    scale = torch.tensor(1 / 0.07, device=dev)
+    ty, tx = taps_on(h, H, False, dev), taps_on(w, W, False, dev)
+    score, _, _, _, relu_map, _ = K.build.ops().stage1_head(vis, lan, scale, list(ty), list(tx),
+                                                           h, w, 3.0, 0.01, off)
+    want = S1.emulate_forward(vis.cpu().numpy(), lan.cpu().numpy(), float(scale), hw, out, 3.0,
+                              0.01, offset=off)
+    assert torch.equal(score.cpu(), torch.from_numpy(want[0]))
+    assert torch.equal(relu_map.cpu(), torch.from_numpy(want[3]))
+    for backward in (False, True):
+        assert K.stage1_head_plan(B, h, w, D, H, W, backward, T=T) == S1.plan(
+            B, h, w, D, H, W, backward, T=T)
+
+    def run(fn, v, l):
+        return fn(v, l, scale.to(v.dtype), hw, out, 3.0, 0.01, off)
+
+    got_out = run(K.stage1_head, vis, lan)
+    want_out = run(K.stage1_head_plain, vis.double(), lan.double())
+    for a, b in zip(got_out, want_out):
+        assert a.shape == b.shape
+        assert _err(a, b) <= 2e-5 * max(1.0, float(b.abs().max()))
+    cot = [torch.randn(B, T, generator=g, device=dev), None,
+           torch.randn(B, H, W, generator=g, device=dev),
+           torch.randn(B, H, W, generator=g, device=dev)]
+    K.reset_launches()
+    got = _grads(lambda v, l: run(K.stage1_head, v, l), _leaves(vis, lan), cot)
+    assert K.launches["stage1_head"] == 1 and K.launches["stage1_head_bwd"] == 1
+    want = _grads(lambda v, l: run(K.stage1_head_plain, v, l), _leaves(vis, lan, double=True),
+                  [None if c is None else c.double() for c in cot])
+    for a, b in zip(got, want):
+        assert _err(a, b) <= 2e-5 * max(1.0, float(b.abs().max()))
 
 
 def test_stage1_head_bwd_is_the_same_run_to_run(randn, dev):
@@ -724,6 +773,11 @@ def test_stage1_head_refuses(dev):
                       (2, 2), (8, 8), 3.0, 0.01)
     with pytest.raises(ValueError, match="bad shape"):
         K.stage1_head_plan(70000, 2, 2, 8, 8, 8)
+    with pytest.raises(ValueError, match="bad shape"):
+        K.stage1_head_plan(4, 2, 2, 8, 8, 8, T=3)
+    with pytest.raises(ValueError, match="offset"):
+        K.stage1_head(torch.zeros(2, 4, 8, device=dev), torch.zeros(2, 3, 8, device=dev), scale,
+                      (2, 2), (8, 8), 3.0, 0.01, offset=2)
     # [400, 72] planes: the forward fits with two buffers, the backward does not, and is refused
     # before the forward runs
     big = torch.zeros(72, 400, 64, device=dev, requires_grad=True)
@@ -1750,6 +1804,50 @@ def test_batch_norm_act_launches_and_repeats(dev, shape, design):
     with torch.no_grad():
         _bn_call(K.batch_norm_act, x, w, b, rm, rv, None, None, "eval", "relu")
     assert K.launches["batch_norm"] == 1 and K.launches["batch_norm_bwd"] == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (4, 16, 16, 16), (3, 5, 1, 3)])
+@pytest.mark.parametrize("act,residual", BN_ACTS)
+def test_batch_norm_cross_rank_route(dev, shape, act, residual):
+    # the wrapper's cross-rank route on one process, its gather a stand-in for
+    # two ranks that hold the same half: y, dx, dweight, dbias and dslope
+    # within 1e-5 of their scale against the route reference's autograd on
+    # the concatenated batch (a rank's parameter gradients half of it), the
+    # running buffers moved by the global count, and its launches counted
+    from tris_tpu_torch.kernels.batch_norm import (
+        RANKS_LAUNCHES, batch_norm_act_reference, ranks_backward, ranks_forward)
+
+    x, w, b, rm, rv, slope, res = _bn_inputs(dev, shape, act, residual, 5)
+    cot = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+
+    def two_ranks(p):
+        return torch.cat([p, p], 1)
+
+    rm_k, rv_k = rm.clone(), rv.clone()
+    K.reset_launches()
+    y, mean, rstd = ranks_forward(x, w, b, slope, res, rm_k, rv_k, 0.1, 1e-5, act,
+                                  gather=two_ranks)
+    dx, dw, db, dslope, _ = ranks_backward(cot, x, y if act == "relu" else None, mean, rstd, w, b,
+                                           slope, act, residual, gather=two_ranks)
+    assert K.launches["batch_norm"] == RANKS_LAUNCHES["fwd"]
+    assert K.launches["batch_norm_bwd"] == RANKS_LAUNCHES["bwd"]
+    ins = [torch.cat([x, x])] + [t.clone() for t in (w, b)] + ([slope.clone()] if act == "prelu"
+                                                               else [])
+    ins = [t.requires_grad_() for t in ins]
+    rm_r, rv_r = rm.clone(), rv.clone()
+    want = batch_norm_act_reference(ins[0], ins[1], ins[2], rm_r, rv_r, training=True,
+                                    update_stats=True, momentum=0.1, eps=1e-5, act=act,
+                                    slope=ins[3] if act == "prelu" else None,
+                                    residual=None if res is None else torch.cat([res, res]))
+    grads = torch.autograd.grad(want, ins, torch.cat([cot, cot]))
+    n = x.shape[0]
+    pairs = [(y, want.detach()[:n]), (dx, grads[0][:n]), (dw, grads[1] / 2), (db, grads[2] / 2)]
+    if act == "prelu":
+        pairs.append((dslope.reshape(1), grads[3] / 2))
+    for got, ref in pairs:
+        assert _err(got, ref) <= 1e-5 * max(float(ref.abs().max()), 1e-6)
+    for buf, ref in ((rm_k, rm_r), (rv_k, rv_r)):
+        assert _err(buf, ref) <= 1e-6 * float(ref.abs().max())
 
 
 def _bn_against_reference(x, w, b, rm, rv, slope, res, mode, act):

@@ -139,11 +139,12 @@ def test_cli_prms_runs_and_critic_weights_parses(monkeypatch, flags):
     assert seen["device_resize"] is True
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--multihost"], ["--profile", "trace"],
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--tp", "1"], ["--scales", "0.5"],
                                    ["--multihost", "--tp", "4"], ["--scales", "1.0"],
                                    ["--profile", "steps", "--tp", "1"]])
 def test_parser_refuses_options_only_the_jax_package_has(flags, capsys):
-    # accepted and ignored, they would promise what the port does not do
+    # accepted and ignored, they would promise what the port does not do; --multihost and
+    # --profile are the port's own since data parallelism was ported
     with pytest.raises(SystemExit):
         get_parser().parse_args(flags)
     assert "unrecognized arguments" in capsys.readouterr().err
@@ -342,3 +343,71 @@ def test_shadowing_guard_catches_a_planted_collision(planted, name):
     assert "namespace {\n" in source and shadowed_names(header, source) == set()
     planted_source = source.replace("namespace {\n", f"namespace {{\n\n{planted}\n", 1)
     assert shadowed_names(header, planted_source) == {name}
+
+
+def test_parser_takes_multihost_and_profile():
+    args = get_parser().parse_args(["--multihost", "--profile", "trace"])
+    assert args.multihost is True and args.profile == "trace"
+    assert get_parser().parse_args([]).multihost is False
+
+
+def test_multihost_without_torchrun_raises(monkeypatch):
+    # --multihost never falls back to one process: without torchrun's environment the
+    # group cannot start, and the CLI says so
+    from tris_tpu_torch.cli.common import start_distributed
+
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    args = get_parser().parse_args(["--multihost", "--device", "cpu"])
+    with pytest.raises(ValueError):
+        start_distributed(args)
+
+
+def test_native_build_compiles_only_the_ports_sources_and_loads_no_jax_library():
+    """The port's native library is built from its own copies under
+    tris_tpu_torch/native/csrc into its git-ignored build directory; no
+    source under native/ is compiled and no library of tris_tpu/ or native/
+    is loaded (the process's own memory map, after a CRF, a decode and the
+    codec ran)."""
+    from tris_tpu_torch import native
+
+    port = ROOT / "tris_tpu_torch"
+    sources = [native.CSRC / n for n in native.SOURCES]
+    assert all(s.exists() and s.resolve().is_relative_to(port) for s in sources)
+    cmd = native.build_command(sources, str(native.BUILD_DIR / "x.so"))
+    named = [a for a in cmd if a.endswith((".cpp", ".cc", ".c", ".so"))]
+    assert named and all(pathlib.Path(a).resolve().is_relative_to(port) for a in named), cmd
+    assert native.BUILD_DIR.resolve().is_relative_to(port)
+    assert "tris_tpu_torch/native/build/" in (ROOT / ".gitignore").read_text().split()
+    code = ("import numpy as np\n"
+            "from tris_tpu_torch import native\n"
+            "from tris_tpu_torch.data import mask_ops\n"
+            "from tris_tpu_torch.pseudo.crf import crf_inference_label\n"
+            "m = np.eye(8, dtype=np.uint8)\n"
+            "mask_ops.rle_decode(mask_ops.rle_encode(m))\n"
+            "crf_inference_label(np.zeros((8, 8, 3), np.uint8), m.astype(np.int32))\n"
+            "native.jpeg_decode(b'not a jpeg') if native.jpeg_available() else None\n"
+            "print(native.library_path())\n"
+            "print(open('/proc/self/maps').read())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    lib, maps = out.stdout.split("\n", 1)
+    assert pathlib.Path(lib).resolve().parent == native.BUILD_DIR.resolve()
+    loaded = {line.split()[-1] for line in maps.splitlines() if "libtris_native" in line}
+    assert loaded == {str(pathlib.Path(lib).resolve())}
+    for bad in (ROOT / "tris_tpu", ROOT / "native"):
+        assert not any(p.startswith(str(bad) + os.sep) for p in loaded), loaded
+
+
+def test_step_profiler_writes_the_trace_of_steps_10_to_20(tmp_path):
+    from tris_tpu_torch.cli.common import StepProfiler
+
+    prof, seen = StepProfiler(str(tmp_path / "trace"), rank=1), []
+    for it in range(25):
+        prof.step(it, seen.append)
+        torch.ones(8).sum()
+    prof.close(seen.append)
+    assert seen == [f"profiler trace written to {tmp_path / 'trace' / 'trace_rank1.json'}"]
+    assert (tmp_path / "trace" / "trace_rank1.json").stat().st_size > 0
+    StepProfiler(None).step(10)  # no directory: nothing

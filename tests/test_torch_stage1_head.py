@@ -38,20 +38,20 @@ FOCAL = (3.0, 0.01)
 SCALE = np.float32(1 / 0.07)
 
 
-def _inputs(B, hw, D, seed):
+def _inputs(B, hw, D, seed, T=None):
     rng = np.random.default_rng(seed)
     vis = rng.standard_normal((B, hw, D)).astype(np.float32)
-    lan = rng.standard_normal((B, B, D)).astype(np.float32)
+    lan = rng.standard_normal((B, B if T is None else T, D)).astype(np.float32)
     vis /= np.linalg.norm(vis, axis=-1, keepdims=True)
     lan /= np.linalg.norm(lan, axis=-1, keepdims=True)
     return vis, lan
 
 
-def _plain64(vis, lan, hw_shape, out_hw):
+def _plain64(vis, lan, hw_shape, out_hw, offset=0):
     v = torch.from_numpy(vis).double().requires_grad_()
     l_ = torch.from_numpy(lan).double().requires_grad_()
     return v, l_, kernels.stage1_head_plain(v, l_, torch.tensor(float(SCALE), dtype=torch.float64),
-                                            hw_shape, out_hw, *FOCAL)
+                                            hw_shape, out_hw, *FOCAL, offset)
 
 
 # (B, (h, w), (H, W), d relu_map too, D): B = 1 (a softmax over bg and one text), identity
@@ -254,3 +254,95 @@ def test_emulation_in_the_model_matches_jax_loss_gradients(pair, monkeypatch):  
             continue
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=1e-4 * float(w.abs().max()) + 1e-12, err_msg=k)
+
+
+# the rectangular head of a process group: B images of a rank against the T texts of the
+# global batch, the rank's own at offset = rank * B. (B, T, offset, (h, w), (H, W), d relu_map
+# too, D): the first and last rank of two, a middle rank of three with a ragged share, and the
+# card check's 2 x 24 against 48 at the train maps (cut in D)
+RECT = [(2, 4, 0, (3, 3), (24, 24), True, 32), (2, 4, 2, (3, 3), (24, 24), False, 32),
+        (3, 9, 3, (4, 7), (33, 50), True, 16), (24, 48, 24, (10, 10), (320, 320), False, 8)]
+
+
+@pytest.mark.parametrize("B,T,off,hw,out,relu,D", RECT)
+def test_rectangular_emulation_covers_each_score_row_and_group_once(B, T, off, hw, out, relu, D):
+    (h, w), (H, W) = hw, out
+    vis, lan = _inputs(B, h * w, D, B + T, T)
+    scores, rows = np.zeros((B, h * w, T), np.int64), np.zeros((B, H), np.int64)
+    score, cls_out, cls_fg, relu_map, sig_map = S1.emulate_forward(
+        vis, lan, SCALE, hw, out, *FOCAL, scores, rows, offset=off)
+    assert (scores == 1).all() and (rows == 1).all() and cls_out.shape == (B, T)
+    rng = np.random.default_rng(T)
+    read, groups = np.zeros((B, H), np.int64), np.zeros((B, D // 4), np.int64)
+    d_vis, d_lan = S1.emulate_backward(
+        rng.standard_normal((B, T)).astype(np.float32),
+        rng.standard_normal((B, H, W)).astype(np.float32) if relu else None,
+        rng.standard_normal((B, H, W)).astype(np.float32), vis, lan, SCALE, score, hw, out,
+        *FOCAL, read, groups, offset=off)
+    assert (read == 1).all() and (groups == 1).all() and d_lan.shape == (B, T, D)
+    assert np.isfinite(d_vis).all() and np.isfinite(d_lan).all()
+
+
+@pytest.mark.parametrize("B,T,off,hw,out,relu,D", RECT)
+def test_rectangular_emulation_matches_the_plain_version(B, T, off, hw, out, relu, D):
+    # as test_emulation_matches_the_plain_version, at its bars, for B images against T texts
+    (h, w), (H, W) = hw, out
+    vis, lan = _inputs(B, h * w, D, B + T + 1, T)
+    score, *got = S1.emulate_forward(vis, lan, SCALE, hw, out, *FOCAL, offset=off)
+    v, l_, want = _plain64(vis, lan, hw, out, off)
+    for a, b in zip(got, want):
+        b = b.detach().numpy()
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 2e-5 * max(1.0, np.abs(b).max())
+    rng = np.random.default_rng(B + T)
+    cot = [rng.standard_normal((B, T)).astype(np.float32), None,
+           rng.standard_normal((B, H, W)).astype(np.float32) if relu else None,
+           rng.standard_normal((B, H, W)).astype(np.float32)]
+    got_g = S1.emulate_backward(cot[0], cot[2], cot[3], vis, lan, SCALE, score, hw, out, *FOCAL,
+                                offset=off)
+    outs = [o for o, c in zip(want, cot) if c is not None]
+    want_g = torch.autograd.grad(outs, [v, l_], [torch.from_numpy(c).double() for c in cot
+                                                 if c is not None])
+    for a, b in zip(got_g, want_g):
+        b = b.numpy()
+        assert np.abs(a - b).max() <= 2e-5 * max(1.0, np.abs(b).max())
+
+
+def test_rectangular_head_is_the_square_heads_rows():
+    # a rank's rows of the square head over the global batch: cls_out, cls_fg and both maps
+    # of images [off, off + B) equal the B x T head's with its own texts at off (the plain
+    # version, float64)
+    Bg, hw, out, D = 6, (4, 5), (16, 20), 16
+    vis, lan = _inputs(Bg, 20, D, 3)
+    lan_g = lan[0]  # every image the same T = Bg texts, as stage 1 expands them
+    full = _plain64(vis, np.broadcast_to(lan_g, (Bg, Bg, D)).copy(), hw, out)[2]
+    for off in (0, 2, 4):
+        part = _plain64(vis[off:off + 2], np.broadcast_to(lan_g, (2, Bg, D)).copy(), hw, out,
+                        off)[2]
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[off:off + 2])
+
+
+def test_rectangular_plain_refuses_an_offset_past_the_texts():
+    v = torch.zeros(2, 4, 8)
+    with pytest.raises(ValueError, match="own texts"):
+        kernels.stage1_head(v, torch.zeros(2, 3, 8), torch.tensor(1.0), (2, 2), (4, 4), 3.0,
+                            0.01, offset=2)
+
+
+# (B, T, h, w, D, H, W, backward) -> as PLANS; the card check's 2 x 24 images against 48 texts:
+# the forward's plane [100, 48] and stages as the train step's (R = 4 now: 24 images x 2 x 4 >
+# 132 stops the doubling at 4), the backward's R = 8 (24 x 2 x 8 = 384 > 264 stops it there)
+RECT_PLANS = {
+    (24, 48, 10, 10, 1024, 320, 320, False): (4, 25, 80, 4, 1, 3, 0, 96, 183936),
+    (24, 48, 10, 10, 1024, 320, 320, True): (8, 13, 40, 4, 0, 0, 32, 192, 62296),
+}
+
+
+@pytest.mark.parametrize("key", list(RECT_PLANS), ids=[str(k) for k in RECT_PLANS])
+def test_rectangular_plan_pinned(key):
+    B, T, *rest = key
+    p = S1.plan(B, *rest[:-1], backward=rest[-1], T=T)
+    got = tuple(p[k] for k in ("ranks", "pixels", "band_rows", "vec", "passes", "stages",
+                               "groups", "blocks", "smem_bytes"))
+    assert got == RECT_PLANS[key]

@@ -9,6 +9,7 @@ stage models from ``--seed``) without touching the global RNG, and
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import torch
@@ -18,6 +19,7 @@ from tris_tpu_torch.device import resolve_device
 from tris_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
 from tris_tpu_torch.models.stage1 import Stage1Config, TRISStage1
 from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
+from tris_tpu_torch.parallel import init_process_group, rank_world
 
 CRITIC_SEED = 7  # the critic's random init, fixed as in the JAX package
 
@@ -36,13 +38,54 @@ def resolve_dataset(args) -> Tuple[str, str]:
     return name, args.splitBy
 
 
-def dist_rank_world() -> Tuple[int, int]:
-    """(rank, world size) of an initialised ``torch.distributed`` group, else (0, 1)."""
-    import torch.distributed as dist
+def start_distributed(args) -> int:
+    """``--multihost``: join the process group torchrun describes (its
+    ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``; without them this raises), ``args.device`` becoming the
+    rank's own (``cuda:LOCAL_RANK``, or the CPU over gloo). Returns the rank
+    (0 without the flag)."""
+    if getattr(args, "multihost", False):
+        _, _, dev = init_process_group(getattr(args, "device", "cuda"))
+        args.device = str(dev)
+    return rank_world()[0]
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+
+class StepProfiler:
+    """``--profile DIR``: a ``torch.profiler`` trace (CPU and CUDA activity)
+    of the train steps ``[start, stop)``, written as
+    ``DIR/trace_rank{r}.json`` when step ``stop`` begins; nothing without a
+    directory."""
+
+    def __init__(self, out_dir, rank: int = 0, start: int = 10, stop: int = 20):
+        self.out_dir, self.rank, self.start, self.stop = out_dir, rank, start, stop
+        self.prof = None
+        self.path = None
+
+    def step(self, iteration: int, log=print) -> None:
+        """Call before train step ``iteration`` (0-based)."""
+        if not self.out_dir:
+            return
+        if iteration == self.start and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+        elif iteration == self.stop and self.prof is not None:
+            self.close(log)
+
+    def close(self, log=print) -> None:
+        if self.prof is None:
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.path = os.path.join(self.out_dir, f"trace_rank{self.rank}.json")
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        log(f"profiler trace written to {self.path}")
 
 
 def build_stage1(args, device=None, train: bool = False) -> TRISStage1:
@@ -157,7 +200,7 @@ def build_eval_loaders(args, splits):
     from tris_tpu_torch.data.dataset import Loader, ReferSegDataset
 
     dataset, split_by = resolve_dataset(args)
-    rank, world = dist_rank_world()
+    rank, world = rank_world()
     loaders = {}
     for split in splits:
         ds = ReferSegDataset(
@@ -176,7 +219,7 @@ def build_train_loader(args):
     from tris_tpu_torch.data.dataset import Loader, ReferSegDataset
 
     dataset, split_by = resolve_dataset(args)
-    rank, world = dist_rank_world()
+    rank, world = rank_world()
     ds = ReferSegDataset(
         args.refer_data_root, dataset, split_by, "train", size=args.size,
         max_tokens=args.max_query_len, eval_mode=False,

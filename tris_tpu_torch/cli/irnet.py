@@ -12,12 +12,16 @@ on the host; ``--train_irn_pass`` trains IRNet on them
 (``--irn_batch_size``, ``--irn_num_epoches``, ``--irn_learning_rate``) and
 saves a torch checkpoint to ``--irn_weights``; ``--make_ins_seg_pass``
 writes the instance pseudo-masks from the CAMs and that checkpoint.
+``--multihost`` runs the
+passes over the processes torchrun starts: the names strided over the
+ranks in the first and third, IRN training data parallel in the second.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from tris_tpu_torch.cli.common import start_distributed
 from tris_tpu_torch.pseudo.pipeline import (
     PseudoConfig, run_cam_to_ir_label, run_make_ins_seg, run_train_irn)
 
@@ -46,6 +50,8 @@ def get_irn_parser() -> argparse.ArgumentParser:
     p.add_argument("--exp_times", default=8, type=int)
     p.add_argument("--ins_seg_bg_thres", default=0.25, type=float)
     p.add_argument("--num_workers", default=8, type=int)
+    p.add_argument("--multihost", action="store_true",
+                   help="run over the processes torchrun starts (one a card)")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     # pass gates
     p.add_argument("--cam_to_ir_label_pass", action="store_true")
@@ -71,6 +77,7 @@ def main(args):
         ins_seg_bg_thres=args.ins_seg_bg_thres,
         num_workers=args.num_workers,
     )
+    start_distributed(args)
     if args.cam_to_ir_label_pass:
         print("== cam_to_ir_label ==")
         run_cam_to_ir_label(cfg)

@@ -13,8 +13,13 @@ validated on the train split. ``--fast_eval`` makes both validations
 scalars only (K4 on the card, no box metrics); the JAX trainer applies it
 to the per-epoch one alone. ``--resume --pretrain F`` continues a training
 checkpoint (model, optimizer, schedule, epoch) or starts from a plain
-``state_dict``; ``--eval`` only validates. One process: multi-GPU data
-parallelism is not ported yet.
+``state_dict``; ``--eval`` only validates. ``--multihost`` trains data
+parallel over the processes torchrun starts, one a card
+(``torchrun --nproc_per_node N -m tris_tpu_torch.cli.train_stage1
+--multihost ...``): ``--batch_size`` per process, the model under DDP, K13's
+statistics and the head's texts over the global batch, the refs and the
+validation sharded over the ranks. ``--profile DIR`` writes a
+``torch.profiler`` trace of steps 10-20.
 """
 
 from __future__ import annotations
@@ -36,10 +41,12 @@ from tris_tpu_torch.cli.common import (
     build_eval_loaders,
     build_stage1,
     build_train_loader,
-    dist_rank_world,
     load_pretrained,
+    start_distributed,
+    StepProfiler,
 )
 from tris_tpu_torch.config import get_parser
+from tris_tpu_torch.parallel import rank_world, wrap_ddp
 from tris_tpu_torch.eval.validate import validate
 from tris_tpu_torch.train.stage1 import Stage1LossWeights, batch_to_device, train_step
 from tris_tpu_torch.train.state import create_train_state
@@ -47,7 +54,7 @@ from tris_tpu_torch.utils.logging import MetricsWriter, create_logger
 
 
 def main(args):
-    rank, _ = dist_rank_world()
+    rank = start_distributed(args)
     logger = create_logger(rank)
     writer = MetricsWriter(args.board_folder)
     model = build_stage1(args, train=True)
@@ -86,6 +93,11 @@ def main(args):
             start_epoch = resumed_epoch
         logger.info(f"resumed from {resume_from} at epoch {start_epoch}")
     weights = Stage1LossWeights(w1=args.w1, w4=args.w4, w5=args.w5)
+    net = wrap_ddp(model, device)
+    if rank_world()[1] > 1:
+        logger.info(f"DP over {rank_world()[1]} processes "
+                    f"(global batch {args.batch_size * rank_world()[1]})")
+    profiler = StepProfiler(args.profile, rank)
 
     keeper = BestCheckpointKeeper(args.output or "./output", rank)
     iteration = start_epoch * steps_per_epoch
@@ -96,7 +108,8 @@ def main(args):
         batch_times = []
         for batch in loader.epoch(epoch):
             t0 = time.time()
-            metrics = train_step(model, critic, state.optimizer, state.scheduler,
+            profiler.step(iteration, logger.info)
+            metrics = train_step(net, critic, state.optimizer, state.scheduler,
                                  batch_to_device(batch, device), weights)
             iteration += 1
             if iteration % args.print_freq == 0:
@@ -124,6 +137,7 @@ def main(args):
                        epoch, prefix="test/")
         logger.info(f"best: {best}")
 
+    profiler.close(logger.info)
     # final: reload the best checkpoint, validate on the train split
     # (train_stage1.py:226-242 of the reference)
     if keeper.best["path"]:

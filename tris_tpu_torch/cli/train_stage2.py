@@ -18,8 +18,10 @@ process), and at the end the best checkpoint reloaded and validated on the
 train split. ``--fast_eval`` drops the box metrics from both validations,
 as ``cli.train_stage1`` does. ``--resume --pretrain F`` continues a
 training checkpoint (with its teacher) or starts from a plain
-``state_dict``; ``--eval`` only validates. One process: multi-GPU data
-parallelism is not ported yet.
+``state_dict``; ``--eval`` only validates. ``--multihost`` trains data
+parallel over the processes torchrun starts, as ``cli.train_stage1`` does
+(the teacher's batch statistics over the global batch too); ``--profile
+DIR`` writes a ``torch.profiler`` trace of steps 10-20.
 """
 
 from __future__ import annotations
@@ -38,10 +40,12 @@ from tris_tpu_torch.cli.common import (
     build_eval_loaders,
     build_stage2,
     build_train_loader,
-    dist_rank_world,
     load_pretrained,
+    start_distributed,
+    StepProfiler,
 )
 from tris_tpu_torch.config import get_parser
+from tris_tpu_torch.parallel import rank_world, wrap_ddp
 from tris_tpu_torch.eval.validate import validate
 from tris_tpu_torch.train.stage2 import Stage2TrainConfig, batch_to_device, train_step
 from tris_tpu_torch.train.state import create_train_state, poly_epoch_schedule
@@ -49,7 +53,7 @@ from tris_tpu_torch.utils.logging import MetricsWriter, create_logger
 
 
 def main(args):
-    rank, _ = dist_rank_world()
+    rank = start_distributed(args)
     logger = create_logger(rank)
     writer = MetricsWriter(args.board_folder)
     model = build_stage2(args, train=True)
@@ -95,6 +99,8 @@ def main(args):
             start_epoch = resumed_epoch
         logger.info(f"resumed from {resume_from} at epoch {start_epoch}")
     tcfg = Stage2TrainConfig(use_ema=args.model_ema, consistency=args.consistency_type)
+    state.ddp = wrap_ddp(model, device) if rank_world()[1] > 1 else None
+    profiler = StepProfiler(args.profile, rank)
 
     keeper = BestCheckpointKeeper(args.output or "./output", rank)
     iteration = start_epoch * steps_per_epoch
@@ -103,6 +109,7 @@ def main(args):
     for epoch in range(start_epoch, args.epoch):
         ep_start = time.time()
         for batch in loader.epoch(epoch):
+            profiler.step(iteration, logger.info)
             metrics = train_step(state, batch_to_device(batch, device), tcfg)
             iteration += 1
             if iteration % args.print_freq == 0:
@@ -126,6 +133,7 @@ def main(args):
                        epoch, prefix="test/")
         logger.info(f"best: {best}")
 
+    profiler.close(logger.info)
     # final: reload the best checkpoint, validate on the train split
     if keeper.best["path"]:
         load_params_only(keeper.best["path"], model)

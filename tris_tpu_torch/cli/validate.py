@@ -14,6 +14,8 @@ by editing an import); ``--prms`` scores stage-1 maps and exits with
 flicker-pickle test protocol on ``--refer_data_root`` (``annotations/`` and
 ``images/``) for the split ``--test_split``. ``--fast_eval`` skips the box
 metrics, so that the eval reduces to per-sentence scalars on the card.
+``--multihost``: the refs sharded over the processes torchrun starts, the
+metrics gathered (ReferIt's split runs whole on every rank).
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from tris_tpu_torch.cli.common import (
     build_eval_loaders,
     build_stage1,
     build_stage2,
-    dist_rank_world,
     load_pretrained,
+    start_distributed,
 )
 from tris_tpu_torch.config import get_parser
 from tris_tpu_torch.eval.validate import validate, validate_prms
@@ -35,7 +37,7 @@ def main(args):
     stage = int(getattr(args, "stage", 1))
     if stage == 2 and args.prms:
         raise SystemExit("--prms scores stage-1 response maps; use --stage 1")
-    logger = create_logger(dist_rank_world()[0])
+    logger = create_logger(start_distributed(args))
     model = load_pretrained(args, build_stage2(args) if stage == 2 else build_stage1(args))
     if args.dataset == "referit":
         from tris_tpu_torch.data.referit import ReferItTestDataset

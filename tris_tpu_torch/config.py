@@ -4,9 +4,11 @@ Copy of the JAX package's parser. It mirrors the reference's ``args.py``
 flag surface (same names/defaults, `reference/args.py:3-98`) so shell
 scripts written against the reference work unchanged, plus those of the JAX
 package's additions that this package implements (or refuses by name, as
-``--bf16``) and its own ``--device``. The JAX package's multi-host, tensor
-parallel and profiler options are not here: passing one is an argparse
-error, not a silent no-op.
+``--bf16``) and its own ``--device``. ``--multihost`` joins the process
+group torchrun describes (``tris_tpu_torch.parallel``) and ``--profile DIR``
+writes a ``torch.profiler`` trace of the trainers' steps 10-20. The JAX
+package's tensor-parallel ``--tp`` and its unread ``--scales`` are not here:
+passing one is an argparse error, not a silent no-op.
 """
 
 from __future__ import annotations
@@ -94,6 +96,12 @@ def get_parser() -> argparse.ArgumentParser:
                         help="OpenAI ViT-B-32.pt for the PRMS critic (default: random init)")
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device the model runs on (cuda or cpu)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="data parallel over the processes torchrun starts (one a card: "
+                             "nccl on cuda:LOCAL_RANK; gloo with --device cpu); "
+                             "--batch_size stays per process")
+    parser.add_argument("--profile", default=None, type=str,
+                        help="write a torch.profiler trace of train steps 10-20 to this dir")
     parser.add_argument("--eval_batch", default=8, type=int, help="refs per eval batch")
     parser.add_argument("--host_threads", default=0, type=int,
                         help="threads for per-ref host metric work (0 = cpu_count)")

@@ -21,13 +21,15 @@ prefetch and per-process sharding (the TPU equivalent of DistributedSampler).
 
 from __future__ import annotations
 
+import functools
+import logging
 import os
 from typing import Iterator, List, Optional
 
 import numpy as np
 
 from tris_tpu_torch.data.refer import REFER
-from tris_tpu_torch.data.transforms import load_transformed, resize_mask_nearest
+from tris_tpu_torch.data.transforms import load_transformed, native_jpeg, resize_mask_nearest
 from tris_tpu_torch.tokenizer import tokenize
 from tris_tpu_torch.utils.threads import threaded_in_order
 
@@ -188,8 +190,20 @@ class ReferSegDataset:
         return resize_mask_nearest(mask.astype(np.uint8), self.size)
 
 
+@functools.lru_cache(maxsize=None)
+def _state_decoder() -> None:
+    """Once a process, in the log: the native library was built without
+    libjpeg, so every image goes through PIL."""
+    if native_jpeg() is None:
+        logging.getLogger("tris").warning(
+            "tris_tpu_torch.native was built without libjpeg (<jpeglib.h> not found): "
+            "images are decoded by PIL")
+
+
 class Loader:
-    """Fixed-shape batched iterator with thread prefetch + process sharding."""
+    """Fixed-shape batched iterator with thread prefetch + process sharding.
+    The first ``Loader`` of a process builds the native library if needed
+    and states in the log when it has no JPEG decoder."""
 
     def __init__(
         self,
@@ -210,6 +224,7 @@ class Loader:
         self.num_threads = num_threads
         self.process_index = process_index
         self.process_count = process_count
+        _state_decoder()
 
     def _per_process(self) -> int:
         """Refs each process takes an epoch: all of them on one process; on

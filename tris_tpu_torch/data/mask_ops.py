@@ -5,8 +5,12 @@ Replaces the reference's ``pycocotools._mask`` C dependency
 `dataset/Dataset_referit.py:141-144`). Implements the COCO mask *format
 specification* (column-major run-length encoding; 5x-supersampled boundary
 rasterization for polygons) in vectorized NumPy, so masks are bit-identical
-with pycocotools' output. Copy of the JAX package's module without its
-native C++ fast path.
+with pycocotools' output. Copy of the JAX package's module: decoding and
+polygon fill take the native library (``tris_tpu_torch.native``) by default,
+as the JAX package does where its library is built; ``backend="numpy"``
+takes the numpy code here, their plain version (equal masks,
+``tests/test_torch_native.py``). A native library that cannot be built
+raises.
 """
 
 from __future__ import annotations
@@ -16,6 +20,18 @@ from typing import Dict, List, Sequence, Union
 import numpy as np
 
 RLE = Dict[str, object]  # {"size": [h, w], "counts": bytes | list[int]}
+BACKENDS = ("native", "numpy")
+
+
+def _native(backend: str):
+    """The native binding for ``backend="native"``, None for ``"numpy"``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"mask_ops: backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "numpy":
+        return None
+    from tris_tpu_torch import native
+
+    return native
 
 
 # ---------------------------------------------------------------------------
@@ -76,14 +92,17 @@ def _get_counts(rle: RLE) -> np.ndarray:
 # decode / encode / area / merge
 # ---------------------------------------------------------------------------
 
-def rle_decode(rle: Union[RLE, Sequence[RLE]]) -> np.ndarray:
+def rle_decode(rle: Union[RLE, Sequence[RLE]], backend: str = "native") -> np.ndarray:
     """Decode RLE(s) to a binary mask [h, w] or [h, w, n] (column-major runs),
     matching ``pycocotools.mask.decode``."""
     if isinstance(rle, (list, tuple)):
-        masks = [rle_decode(r) for r in rle]
+        masks = [rle_decode(r, backend) for r in rle]
         return np.stack(masks, axis=-1)
     h, w = rle["size"]
     counts = _get_counts(rle)
+    nat = _native(backend)
+    if nat is not None:
+        return nat.rle_decode(counts, h, w)
     flat = np.zeros(h * w, dtype=np.uint8)
     ends = np.cumsum(counts)
     starts = ends - counts
@@ -124,8 +143,12 @@ def rle_merge(rles: Sequence[RLE]) -> np.ndarray:
 _SCALE = 5.0
 
 
-def polygon_to_rle(poly: Sequence[float], h: int, w: int) -> RLE:
+def polygon_to_rle(poly: Sequence[float], h: int, w: int, backend: str = "native") -> RLE:
     """Rasterize one polygon [x0, y0, x1, y1, ...] to RLE with COCO semantics."""
+    nat = _native(backend)
+    if nat is not None:
+        counts = nat.polygon_to_counts(np.asarray(poly, np.float64), h, w)
+        return {"size": [h, w], "counts": counts_to_string(counts)}
     xy = np.asarray(poly, dtype=np.float64)
     k = len(xy) // 2
     # COCO uses (int)(scale*v+.5): truncation toward zero for positive coords

@@ -10,9 +10,16 @@ eval/train pipelines (`reference/dataset/transform.py:13-63`).
 - Output layout is HWC float32 numpy; the model moves batches to the device
   and to NCHW itself.
 
-Copy of the JAX package's module on the PIL path only (the native fused
-decoder is not bound by this package). PIL is imported inside the functions
-that use it, so importing this module needs numpy alone.
+Copy of the JAX package's module. A JPEG goes through the native library's
+fused decode (``tris_tpu_torch.native``: one call decodes, resizes and, for
+the f32 feed, normalises), bit-identical to the PIL chain; other files, and
+a JPEG the decoder declines (its call returns None: CMYK, a corrupt file),
+take the PIL chain. Nothing else is caught: a native library that cannot be
+built raises, and one built without libjpeg sends every file to PIL, which
+the ``Loader`` states once in its log. ``fast=True`` takes libjpeg's
+approximate DCT-scaled decode (off by default; the JAX package reads it from
+``TRIS_FAST_DECODE``). PIL is imported inside the functions that use it, so
+importing this module needs numpy alone.
 """
 
 from __future__ import annotations
@@ -29,16 +36,46 @@ def load_image(path: str):
     return Image.open(path).convert("RGB")
 
 
-def load_transformed(path: str, size: int, normalize: bool = True) -> np.ndarray:
-    """``image_to_array(load_image(path), size)``."""
+def native_jpeg():
+    """The native binding where it was built against libjpeg, else None."""
+    from tris_tpu_torch import native
+
+    return native if native.jpeg_available() else None
+
+
+def _jpeg_bytes(path: str):
+    """The file's bytes where the native decoder takes it (a JPEG, and the
+    library built with libjpeg), else None."""
+    if not path.lower().endswith((".jpg", ".jpeg")) or native_jpeg() is None:
+        return None
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def load_transformed(path: str, size: int, normalize: bool = True,
+                     fast: bool = False) -> np.ndarray:
+    """``image_to_array(load_image(path), size)``, bit for bit; a JPEG in one
+    native call."""
+    data = _jpeg_bytes(path)
+    if data is not None:
+        mean, std = (IMAGENET_MEAN, IMAGENET_STD) if normalize else (None, None)
+        res = native_jpeg().jpeg_decode_resize_norm(data, size, mean, std, fast=fast)
+        if res is not None:  # None: a file the decoder declines, for PIL
+            return res[0]
     return image_to_array(load_image(path), size, normalize=normalize)
 
 
-def load_transformed_u8(path: str, size: int) -> np.ndarray:
+def load_transformed_u8(path: str, size: int, fast: bool = False) -> np.ndarray:
     """Decode + bilinear-resize to [size, size, 3] uint8, WITHOUT normalizing
-    (the u8 feed: the model normalizes on device, ops/normalize.py)."""
+    (the u8 feed: the model normalizes on device, ops/normalize.py), byte
+    for byte PIL's; a JPEG in one native call."""
     from PIL import Image
 
+    data = _jpeg_bytes(path)
+    if data is not None:
+        res = native_jpeg().jpeg_decode_resize_u8(data, size, fast=fast)
+        if res is not None:  # None: a file the decoder declines, for PIL
+            return res[0]
     return np.asarray(load_image(path).resize((size, size), Image.BILINEAR))
 
 

@@ -29,6 +29,18 @@ Which design a call takes, fused (one launch, each input read once) or
 two-pass, is ``csrc/launchers.h::batch_norm_plan``'s rule on the shape; the
 extension's ``batch_norm_plan`` op gives it on the card, and the wrapper
 counts its launches from it.
+
+Across ranks (a train-mode call in a ``torch.distributed`` group of several
+processes, as ``SyncBatchNorm``): the statistics are the global batch's. On
+the card the call takes the two-pass design's stages apart: each rank forms
+its samples' partial sums (shifted by rank 0's first value of each channel,
+the shift one process takes on the whole batch), the ranks gather them in
+rank order along the batch, and the final launch combines every sample's,
+so the statistics equal one process's on the concatenated batch bit for
+bit; the backward gathers its partials the same way for dx's coefficients,
+while dweight, dbias and dslope are this rank's sums (DDP averages them, as
+``SyncBatchNorm``'s). The plain version takes the global sums by
+``all_reduce`` in the JAX package's arithmetic, with their gradient.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from tris_tpu_torch import parallel
 from tris_tpu_torch.kernels import build
 
 # the activation codes of csrc/launchers.h (kBatchNormAct*) and its kBatchNormMaxBatch
@@ -92,6 +105,9 @@ def batch_stats_plain(xf, eps: float):
     m64 = x64.mean(dim=(2, 3))                                       # [N, C]
     m = m64.float()
     q = (x64 - m64[:, :, None, None]).square().sum(dim=(2, 3)).float()
+    if parallel.distributed():  # every rank's samples, in rank order
+        m, q = (parallel.gather_stacked(t).flatten(0, 1) for t in (m, q))
+        N = m.shape[0]
     s, qs = m[0], q[0]
     for n in range(1, N):
         s, qs = s + m[n], qs + q[n]
@@ -109,10 +125,23 @@ def batch_stats_plain(xf, eps: float):
 
 def jax_batch_stats(xf, eps: float):
     """The JAX package's batch statistics op for op: float32 means, the
-    variance of x - mean, rstd in float32."""
+    variance of x - mean, rstd in float32. Across ranks the sums are
+    ``all_reduce``'s of each rank's (with their gradient), over the global
+    count."""
+    if parallel.distributed():
+        count = xf.numel() // xf.shape[1] * parallel.rank_world()[1]
+        mean = parallel.all_reduce_sum(xf.sum(dim=(0, 2, 3))) / count
+        var = parallel.all_reduce_sum((xf - mean[:, None, None]).square().sum(dim=(0, 2, 3)))
+        var = var / count
+        return mean, var, torch.rsqrt(var + eps)
     mean = xf.mean(dim=(0, 2, 3))
     var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
     return mean, var, torch.rsqrt(var + eps)
+
+
+def _batch_count(x) -> int:
+    """The values a channel's statistics take: N * HW, over every rank's batch."""
+    return x.numel() // x.shape[1] * parallel.rank_world()[1]
 
 
 def batch_norm_act_plain(x, weight, bias, running_mean, running_var, *, training: bool,
@@ -128,8 +157,7 @@ def batch_norm_act_plain(x, weight, bias, running_mean, running_var, *, training
     xf = x.float()
     mean, var, rstd = jax_batch_stats(xf, eps)
     if update_stats:
-        _update_running_stats(running_mean, running_var, mean, var, x.numel() // x.shape[1],
-                              momentum)
+        _update_running_stats(running_mean, running_var, mean, var, _batch_count(x), momentum)
     y = (xf - mean[:, None, None]) * rstd[:, None, None]
     y = y * weight[:, None, None] + bias[:, None, None]
     return _activate(y.to(x.dtype), act, slope, residual)
@@ -159,8 +187,7 @@ def batch_norm_act_reference(x, weight, bias, running_mean, running_var, *, trai
     xf = x.float()
     mean, var, rstd = batch_stats_plain(xf, eps)
     if update_stats:
-        _update_running_stats(running_mean, running_var, mean, var, x.numel() // x.shape[1],
-                              momentum)
+        _update_running_stats(running_mean, running_var, mean, var, _batch_count(x), momentum)
     y = (xf - mean[:, None, None]) * rstd[:, None, None]
     weight, bias = (_from_double(t[:, None, None], y) for t in (weight, bias))
     slope = None if slope is None else _from_double(slope, y)
@@ -181,22 +208,85 @@ def plan(N: int, C: int, HW: int, training: bool, backward: bool, act: str) -> d
     return build.ops().batch_norm_plan(N, C, HW, training, backward, ACTS[act], -1)
 
 
+def _gather_batch(partial):
+    """Every rank's per-sample partials [C, N, slices, k], concatenated along
+    the batch in rank order: [C, W * N, slices, k]."""
+    stacked = parallel.gather_stacked(partial)                      # [W, C, N, slices, k]
+    W, C, N = stacked.shape[:3]
+    return stacked.transpose(0, 1).reshape(C, W * N, *stacked.shape[3:])
+
+
+# launches of the cross-rank route: the forward's partial, final and apply; the backward's
+# partial, final twice (every rank's partials for dx's coefficients, this rank's for its
+# dweight, dbias and slope sums) and apply
+RANKS_LAUNCHES = {"fwd": 3, "bwd": 4}
+
+
+def ranks_forward(x, weight, bias, slope, residual, running_mean, running_var, momentum: float,
+                  eps: float, act: str, gather=_gather_batch):
+    """The cross-rank forward on CUDA tensors, three launches: this rank's
+    per-sample partials (shifted by rank 0's first value of each channel,
+    the shift one process takes on the whole batch), ``gather``'s of them
+    (every rank's, in rank order), the final over those (the running buffers,
+    where given, moved by the global count), the apply. Returns ``(y, mean,
+    rstd)``. ``gather`` is a measurement's hook: ``chip_smoke.py`` times the
+    route on one process with a gather of its own."""
+    ops = build.ops()
+    N, C = x.shape[:2]
+    HW = x.numel() // (N * C)
+    shift = parallel.from_rank0(x.reshape(N, C, HW)[0, :, 0].contiguous())
+    partial = ops.batch_norm_stats_partial(x, shift)
+    stats = ops.batch_norm_stats_final(gather(partial), shift, HW, running_mean, running_var,
+                                       momentum, eps)
+    mean, rstd = stats[0].contiguous(), stats[2].contiguous()
+    y = ops.batch_norm_apply(x, mean, rstd, weight, bias, residual, slope, ACTS[act])
+    build.count("batch_norm", n=RANKS_LAUNCHES["fwd"])
+    return y, mean, rstd
+
+
+def ranks_backward(g, x, out, mean, rstd, weight, bias, slope, act: str, has_residual: bool,
+                   gather=_gather_batch):
+    """The cross-rank backward on CUDA tensors, four launches: this rank's
+    per-sample partials, the final over ``gather``'s of them (dx's
+    coefficients, from every rank's), the final over this rank's own (its
+    dweight, dbias and the slope's sums: DDP averages them), the apply.
+    Returns ``(dx, dweight, dbias, dslope, dresidual)``."""
+    ops = build.ops()
+    HW = x.numel() // (x.shape[0] * x.shape[1])
+    partial = ops.batch_norm_bwd_partial(g, x, out, mean, rstd, weight, bias, slope, ACTS[act])
+    coef = ops.batch_norm_bwd_final(gather(partial), HW, False)[0]
+    _, dw, db, sums = ops.batch_norm_bwd_final(partial, HW, slope is not None)
+    dx, dslope, dres = ops.batch_norm_bwd_apply(g, x, out, mean, rstd, weight, bias, slope, coef,
+                                                sums if slope is not None else None, ACTS[act],
+                                                has_residual)
+    build.count("batch_norm_bwd", n=RANKS_LAUNCHES["bwd"])
+    return dx, dw, db, dslope, dres
+
+
 class _BatchNormAct(torch.autograd.Function):
+    """K13 on one process, or in train mode across the ranks of a process
+    group (``ranks``): the two-pass stages with every rank's per-sample
+    partials gathered between them."""
+
     @staticmethod
     def forward(ctx, x, weight, bias, slope, residual, running_mean, running_var, training,
-                momentum, eps, act, save):
+                momentum, eps, act, save, ranks):
         ops = build.ops()
         N, C = x.shape[:2]
         HW = x.numel() // (N * C)
         mean = rstd = None
-        if training:
+        if ranks:
+            y, mean, rstd = ranks_forward(x, weight, bias, slope, residual, running_mean,
+                                          running_var, momentum, eps, act)
+        elif training:
             y, stats = ops.batch_norm_fwd(x, weight, bias, residual, slope, running_mean,
                                           running_var, ACTS[act], momentum, eps, -1)
             mean, rstd = stats[0], stats[2]
+            build.count("batch_norm", n=plan(N, C, HW, training, False, act)["launches"])
         else:
             y = ops.batch_norm_apply(x, None, None, weight, bias, residual, slope, ACTS[act])
-        build.count("batch_norm", n=plan(N, C, HW, training, False, act)["launches"])
-        ctx.meta = (act, residual is not None, (N, C, HW, training))
+            build.count("batch_norm", n=plan(N, C, HW, training, False, act)["launches"])
+        ctx.meta = (act, residual is not None, (N, C, HW, training), ranks)
         if save:  # nothing is kept when no input needs a gradient
             ctx.save_for_backward(x, y if act == "relu" else None, mean, rstd, weight, bias,
                                   slope)
@@ -205,12 +295,17 @@ class _BatchNormAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, out, mean, rstd, weight, bias, slope = ctx.saved_tensors
-        act, has_residual, (N, C, HW, training) = ctx.meta
-        dx, dw, db, dslope, dres = build.ops().batch_norm_bwd(
-            g.contiguous(), x, out, mean, rstd, weight, bias, slope, ACTS[act], has_residual, -1)
-        build.count("batch_norm_bwd", n=plan(N, C, HW, training, True, act)["launches"])
-        return (dx, dw, db, None if slope is None else dslope.reshape(slope.shape), dres,
-                None, None, None, None, None, None, None)
+        act, has_residual, (N, C, HW, training), ranks = ctx.meta
+        g = g.contiguous()
+        if ranks:
+            dx, dw, db, dslope, dres = ranks_backward(g, x, out, mean, rstd, weight, bias, slope,
+                                                      act, has_residual)
+        else:
+            dx, dw, db, dslope, dres = build.ops().batch_norm_bwd(
+                g, x, out, mean, rstd, weight, bias, slope, ACTS[act], has_residual, -1)
+            build.count("batch_norm_bwd", n=plan(N, C, HW, training, True, act)["launches"])
+        return (dx, dw, db, None if slope is None else dslope.reshape(slope.shape),
+                dres if has_residual else None, None, None, None, None, None, None, None, None)
 
 
 def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool,
@@ -224,7 +319,8 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
     (with ``slope``, PReLU's one-element weight). ``training``: batch
     statistics, the running buffers moved in place when ``update_stats``;
     else the eval fold. Launches: :func:`plan`'s (train: fused 1, two-pass 3;
-    eval 1; backward: fused 1, with PReLU 2, two-pass 3)."""
+    eval 1; backward: fused 1, with PReLU 2, two-pass 3); in train mode
+    across the ranks of a group, ``RANKS_LAUNCHES`` (3 and 4)."""
     _check_act(act, slope, residual)
     if x.device.type == "cpu":
         return batch_norm_act_plain(x, weight, bias, running_mean, running_var,
@@ -257,4 +353,4 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
     save = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, w_eff, b_eff, slope, residual))
     return _BatchNormAct.apply(x, w_eff, b_eff, slope, residual, rm, rv, training, momentum,
-                               eps, act, save)
+                               eps, act, save, training and parallel.distributed())

@@ -193,13 +193,14 @@ batch_norm_fwd_fused_kernel(const float* __restrict__ x, const float* __restrict
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-batch_norm_stats_partial_kernel(const float* __restrict__ x, double* __restrict__ partial, int N,
+batch_norm_stats_partial_kernel(const float* __restrict__ x, const float* __restrict__ shift,
+                                long long shift_stride, double* __restrict__ partial, int N,
                                 int C, int HW, int slices, long long warps) {
   const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (w >= warps) return;
   const int lane = threadIdx.x % 32;
   const SliceWarp sw = slice_warp(w, N, C, HW, slices);
-  const double k = x[(long long)sw.c * HW];
+  const double k = shift[(long long)sw.c * shift_stride];
   const float* plane = x + sw.plane;
   const int e0 = sw.e0, e1 = sw.e1;
   double s1 = 0.0, s2 = 0.0;
@@ -229,13 +230,13 @@ batch_norm_stats_partial_kernel(const float* __restrict__ x, double* __restrict_
 // A warp per channel: the lanes form the samples' moments (sample n on lane n % 32, its
 // slices in order) into shared memory, then lane 0 combines them in batch order.
 __global__ void __launch_bounds__(32)
-batch_norm_stats_final_kernel(const float* __restrict__ x, const double* __restrict__ partial,
-                              float* __restrict__ stats, float* __restrict__ rm,
-                              float* __restrict__ rv, int N, int C, int HW, int slices,
-                              double momentum, double eps) {
+batch_norm_stats_final_kernel(const float* __restrict__ shift, long long shift_stride,
+                              const double* __restrict__ partial, float* __restrict__ stats,
+                              float* __restrict__ rm, float* __restrict__ rv, int N, int C,
+                              int HW, int slices, double momentum, double eps) {
   extern __shared__ float2 moments[];  // [N]
   const int c = blockIdx.x;
-  const double k = x[(long long)c * HW];
+  const double k = shift[(long long)c * shift_stride];
   const double* q = partial + 2 * (long long)c * N * slices;
   for (int n = threadIdx.x; n < N; n += 32) {
     const double* qn = q + 2 * (long long)n * slices;
@@ -295,29 +296,49 @@ extern "C" cudaError_t bn_set_stamps_fwd(unsigned long long* stamps) {
 
 namespace tris {
 
-cudaError_t batch_norm_stats(const float* x, double* partial, float* stats, float* running_mean,
-                             float* running_var, int N, int C, int HW, double momentum,
-                             double eps, cudaStream_t stream, BatchNormLaunchShape* shapes) {
+cudaError_t batch_norm_stats_partial(const float* x, const float* shift, double* partial, int N,
+                                     int C, int HW, cudaStream_t stream,
+                                     BatchNormLaunchShape* shape) {
   const int slices = (int)batch_norm_slices(HW);
   const long long warps = (long long)C * N * slices;
   const unsigned blocks = (unsigned)((warps + bn::kWarps - 1) / bn::kWarps);
   const bool vec = HW % 4 == 0 && bn::aligned16(x);
+  // the shift: x's first value of each channel, or the caller's [C]
+  const float* k = shift != nullptr ? shift : x;
+  const long long stride = shift != nullptr ? 1 : HW;
   if (vec)
     batch_norm_stats_partial_kernel<true><<<blocks, bn::kThreads, 0, stream>>>(
-        x, partial, N, C, HW, slices, warps);
+        x, k, stride, partial, N, C, HW, slices, warps);
   else
     batch_norm_stats_partial_kernel<false><<<blocks, bn::kThreads, 0, stream>>>(
-        x, partial, N, C, HW, slices, warps);
-  const long long smem = (long long)N * sizeof(float2);
-  batch_norm_stats_final_kernel<<<C, 32, smem, stream>>>(x, partial, stats, running_mean,
-                                                         running_var, N, C, HW, slices, momentum,
-                                                         eps);
+        x, k, stride, partial, N, C, HW, slices, warps);
   const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess && shapes != nullptr) {
-    shapes[0] = {(int)blocks, 1, bn::kThreads, 0, vec ? 16 : 4};
-    shapes[1] = {C, 1, 32, smem, 8};
-  }
+  if (err == cudaSuccess && shape != nullptr)
+    *shape = {(int)blocks, 1, bn::kThreads, 0, vec ? 16 : 4};
   return err;
+}
+
+cudaError_t batch_norm_stats_final(const float* shift, long long shift_stride,
+                                   const double* partial, float* stats, float* running_mean,
+                                   float* running_var, int N, int C, int HW, double momentum,
+                                   double eps, cudaStream_t stream, BatchNormLaunchShape* shape) {
+  const int slices = (int)batch_norm_slices(HW);
+  const long long smem = (long long)N * sizeof(float2);
+  batch_norm_stats_final_kernel<<<C, 32, smem, stream>>>(shift, shift_stride, partial, stats,
+                                                         running_mean, running_var, N, C, HW,
+                                                         slices, momentum, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && shape != nullptr) *shape = {C, 1, 32, smem, 8};
+  return err;
+}
+
+cudaError_t batch_norm_stats(const float* x, double* partial, float* stats, float* running_mean,
+                             float* running_var, int N, int C, int HW, double momentum,
+                             double eps, cudaStream_t stream, BatchNormLaunchShape* shapes) {
+  cudaError_t err = batch_norm_stats_partial(x, nullptr, partial, N, C, HW, stream, shapes);
+  if (err != cudaSuccess) return err;
+  return batch_norm_stats_final(x, HW, partial, stats, running_mean, running_var, N, C, HW,
+                                momentum, eps, stream, shapes != nullptr ? shapes + 1 : nullptr);
 }
 
 cudaError_t batch_norm_apply(const float* x, const float* mean, const float* rstd,

@@ -370,6 +370,65 @@ BatchNormPlan batch_norm_device_plan(int N, int C, int HW, bool training, bool b
   return p;
 }
 
+cudaError_t batch_norm_bwd_partial(const float* g, const float* x, const float* out,
+                                   const float* mean, const float* rstd, const float* weight,
+                                   const float* bias, const float* slope, double* partial, int N,
+                                   int C, int HW, int act, cudaStream_t stream,
+                                   BatchNormLaunchShape* shape) {
+  const bool vec = HW % 4 == 0 && bn::aligned16(g) && bn::aligned16(x) && bn::aligned16(out);
+  const int slices = (int)batch_norm_slices(HW);
+  const long long warps = (long long)C * N * slices;
+  const unsigned blocks = (unsigned)((warps + bn::kWarps - 1) / bn::kWarps);
+  if (vec)
+    batch_norm_bwd_partial_kernel<true><<<blocks, bn::kThreads, 0, stream>>>(
+        g, x, out, mean, rstd, weight, bias, slope, partial, N, C, HW, slices, warps, act);
+  else
+    batch_norm_bwd_partial_kernel<false><<<blocks, bn::kThreads, 0, stream>>>(
+        g, x, out, mean, rstd, weight, bias, slope, partial, N, C, HW, slices, warps, act);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && shape != nullptr)
+    *shape = {(int)blocks, 1, bn::kThreads, 0, vec ? 16 : 4};
+  return err;
+}
+
+cudaError_t batch_norm_bwd_final(const double* partial, float* coef, float* dweight,
+                                 float* dbias, double* slope_sums, int N, int C, int HW,
+                                 cudaStream_t stream, BatchNormLaunchShape* shape) {
+  const int slices = (int)batch_norm_slices(HW);
+  const unsigned final_blocks = (unsigned)((C + bn::kWarps - 1) / bn::kWarps);
+  batch_norm_bwd_final_kernel<<<final_blocks, bn::kThreads, 0, stream>>>(
+      partial, coef, dweight, dbias, slope_sums, C, N * slices, (long long)N * HW);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && shape != nullptr)
+    *shape = {(int)final_blocks, 1, bn::kThreads, 0, 8};
+  return err;
+}
+
+cudaError_t batch_norm_bwd_apply(const float* g, const float* x, const float* out,
+                                 const float* mean, const float* rstd, const float* weight,
+                                 const float* bias, const float* slope, const float* coef,
+                                 const double* slope_sums, float* dslope, float* dx, float* dres,
+                                 int N, int C, int HW, int act, cudaStream_t stream,
+                                 BatchNormLaunchShape* shape) {
+  const bool vec = HW % 4 == 0 && bn::aligned16(g) && bn::aligned16(x) && bn::aligned16(out) &&
+                   bn::aligned16(dx) && bn::aligned16(dres);
+  const long long total = (long long)N * HW * C;
+  const long long items = vec ? total / 4 : total;
+  const unsigned apply_blocks = (unsigned)((items + bn::kThreads - 1) / bn::kThreads);
+  if (vec)
+    batch_norm_bwd_apply_kernel<true><<<apply_blocks, bn::kThreads, 0, stream>>>(
+        g, x, out, mean, rstd, weight, bias, slope, coef, slope_sums, dslope, dx, dres, total, C,
+        HW, act);
+  else
+    batch_norm_bwd_apply_kernel<false><<<apply_blocks, bn::kThreads, 0, stream>>>(
+        g, x, out, mean, rstd, weight, bias, slope, coef, slope_sums, dslope, dx, dres, total, C,
+        HW, act);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && shape != nullptr)
+    *shape = {(int)apply_blocks, 1, bn::kThreads, 0, vec ? 16 : 4};
+  return err;
+}
+
 cudaError_t batch_norm_bwd(const BatchNormPlan& plan, const float* g, const float* x,
                            const float* out, const float* mean, const float* rstd,
                            const float* weight, const float* bias, const float* slope,
@@ -396,38 +455,16 @@ cudaError_t batch_norm_bwd(const BatchNormPlan& plan, const float* g, const floa
     if (err == cudaSuccess) shapes[1] = {1, 1, 32, 0, 8};
     return err;
   }
-  const long long M = (long long)N * HW, total = M * C;
-  const int slices = (int)batch_norm_slices(HW);
-  const long long warps = (long long)C * N * slices;
+  const long long warps = (long long)C * N * batch_norm_slices(HW);
   double* slope_sums = dslope != nullptr ? partial + 3 * warps : nullptr;
-  const unsigned blocks = (unsigned)((warps + bn::kWarps - 1) / bn::kWarps);
-  if (vec)
-    batch_norm_bwd_partial_kernel<true><<<blocks, bn::kThreads, 0, stream>>>(
-        g, x, out, mean, rstd, weight, bias, slope, partial, N, C, HW, slices, warps, act);
-  else
-    batch_norm_bwd_partial_kernel<false><<<blocks, bn::kThreads, 0, stream>>>(
-        g, x, out, mean, rstd, weight, bias, slope, partial, N, C, HW, slices, warps, act);
-  const unsigned final_blocks = (unsigned)((C + bn::kWarps - 1) / bn::kWarps);
-  batch_norm_bwd_final_kernel<<<final_blocks, bn::kThreads, 0, stream>>>(
-      partial, coef, dweight, dbias, slope_sums, C, N * slices, M);
-  const long long items = vec ? total / 4 : total;
-  const unsigned apply_blocks = (unsigned)((items + bn::kThreads - 1) / bn::kThreads);
-  if (vec)
-    batch_norm_bwd_apply_kernel<true><<<apply_blocks, bn::kThreads, 0, stream>>>(
-        g, x, out, mean, rstd, weight, bias, slope, coef, slope_sums, dslope, dx, dres, total, C,
-        HW, act);
-  else
-    batch_norm_bwd_apply_kernel<false><<<apply_blocks, bn::kThreads, 0, stream>>>(
-        g, x, out, mean, rstd, weight, bias, slope, coef, slope_sums, dslope, dx, dres, total, C,
-        HW, act);
-  const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) {
-    const int load = vec ? 16 : 4;
-    shapes[0] = {(int)blocks, 1, bn::kThreads, 0, load};
-    shapes[1] = {(int)final_blocks, 1, bn::kThreads, 0, 8};
-    shapes[2] = {(int)apply_blocks, 1, bn::kThreads, 0, load};
-  }
-  return err;
+  cudaError_t err = batch_norm_bwd_partial(g, x, out, mean, rstd, weight, bias, slope, partial,
+                                           N, C, HW, act, stream, shapes);
+  if (err != cudaSuccess) return err;
+  err = batch_norm_bwd_final(partial, coef, dweight, dbias, slope_sums, N, C, HW, stream,
+                             shapes + 1);
+  if (err != cudaSuccess) return err;
+  return batch_norm_bwd_apply(g, x, out, mean, rstd, weight, bias, slope, coef, slope_sums,
+                              dslope, dx, dres, N, C, HW, act, stream, shapes + 2);
 }
 
 }  // namespace tris

@@ -272,9 +272,9 @@ std::map<std::string, int64_t> response_head_launch_shape() {
           {"vec", s.vec}, {"smem_bytes", s.smem}};
 }
 
-// K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D]; scale a 0-d tensor;
-// ty, tx the taps to [H] rows and [W] columns. Returns (score [B, h*w, B],
-// stats [B, 2 (h*w + B)] (both for the backward), cls_out [B, B], cls_fg [B],
+// K3, training head: vis_p [B, h*w, D]; lan_p [B, T, D], image b's own text b + offset;
+// scale a 0-d tensor; ty, tx the taps to [H] rows and [W] columns. Returns (score [B, h*w,
+// T], stats [B, 2 (h*w + T)] (both for the backward), cls_out [B, T], cls_fg [B],
 // relu_map [B, H, W], sig_map [B, H, W]).
 tris::Stage1HeadLaunchShape k3_train_shapes[2];
 bool k3_train_launched[2] = {false, false};
@@ -282,7 +282,7 @@ bool k3_train_launched[2] = {false, false};
 std::vector<at::Tensor> stage1_head(const at::Tensor& vis_p, const at::Tensor& lan_p,
                                     const at::Tensor& scale, const std::vector<at::Tensor>& ty,
                                     const std::vector<at::Tensor>& tx, int64_t h, int64_t w,
-                                    double focal_p, double focal_c) {
+                                    double focal_p, double focal_c, int64_t offset) {
   const at::Device dev = vis_p.device();
   const c10::cuda::CUDAGuard guard(dev);
   check(vis_p, "stage1_head: vis_p", at::kFloat, dev);
@@ -290,34 +290,38 @@ std::vector<at::Tensor> stage1_head(const at::Tensor& vis_p, const at::Tensor& l
   check(scale, "stage1_head: scale", at::kFloat, dev);
   const tris::TapArrays y = tap_arrays(ty, "stage1_head: row taps", dev);
   const tris::TapArrays x = tap_arrays(tx, "stage1_head: column taps", dev);
-  const int64_t B = vis_p.size(0), D = vis_p.size(2), H = ty[0].size(0), W = tx[0].size(0);
+  const int64_t B = vis_p.size(0), T = lan_p.size(1), D = vis_p.size(2), H = ty[0].size(0),
+                W = tx[0].size(0);
+  TORCH_CHECK(offset >= 0 && B + offset <= T, "stage1_head: the own texts [offset, offset + B) ",
+              "must lie in the T texts");
   const at::TensorOptions o = vis_p.options();
-  at::Tensor score = at::empty({B, h * w, B}, o), cls_out = at::empty({B, B}, o);
-  at::Tensor stats = at::empty({B, tris::stage1_head_stats(h * w, B)}, o);
+  at::Tensor score = at::empty({B, h * w, T}, o), cls_out = at::empty({B, T}, o);
+  at::Tensor stats = at::empty({B, tris::stage1_head_stats(h * w, T)}, o);
   at::Tensor cls_fg = at::empty({B}, o);
   at::Tensor relu_map = at::empty({B, H, W}, o), sig_map = at::empty({B, H, W}, o);
   launched(tris::stage1_head(vis_p.data_ptr<float>(), lan_p.data_ptr<float>(),
                              scale.data_ptr<float>(), score.data_ptr<float>(),
                              stats.data_ptr<float>(), cls_out.data_ptr<float>(),
                              cls_fg.data_ptr<float>(),
-                             relu_map.data_ptr<float>(), sig_map.data_ptr<float>(), B, h, w, D, H,
-                             W, (float)focal_p, (float)focal_c, y, x, stream(),
+                             relu_map.data_ptr<float>(), sig_map.data_ptr<float>(), B, T, offset,
+                             h, w, D, H, W, (float)focal_p, (float)focal_c, y, x, stream(),
                              &k3_train_shapes[0]),
            "stage1_head");
   k3_train_launched[0] = true;
   return {score, stats, cls_out, cls_fg, relu_map, sig_map};
 }
 
-// K3 backward: g_cls [B, B]; g_relu, g_sig [B, H, W] or None; the forward's
-// inputs, score and stats; ry, rx the adjoint ranges of the taps. Returns
-// (d_vis [B, h*w, D], d_lan [B, B, D]).
+// K3 backward: g_cls [B, T]; g_relu, g_sig [B, H, W] or None; the forward's
+// inputs, score and stats, and its offset; ry, rx the adjoint ranges of the taps. Returns
+// (d_vis [B, h*w, D], d_lan [B, T, D]).
 std::vector<at::Tensor> stage1_head_bwd(
     const at::Tensor& g_cls, const std::optional<at::Tensor>& g_relu,
     const std::optional<at::Tensor>& g_sig, const at::Tensor& vis_p, const at::Tensor& lan_p,
     const at::Tensor& scale, const at::Tensor& score, const at::Tensor& stats,
     const std::vector<at::Tensor>& ty,
     const std::vector<at::Tensor>& tx, const std::vector<at::Tensor>& ry,
-    const std::vector<at::Tensor>& rx, int64_t h, int64_t w, double focal_p, double focal_c) {
+    const std::vector<at::Tensor>& rx, int64_t h, int64_t w, double focal_p, double focal_c,
+    int64_t offset) {
   const at::Device dev = vis_p.device();
   const c10::cuda::CUDAGuard guard(dev);
   check(g_cls, "stage1_head_bwd: g_cls", at::kFloat, dev);
@@ -332,13 +336,16 @@ std::vector<at::Tensor> stage1_head_bwd(
   const tris::TapArrays x = tap_arrays(tx, "stage1_head_bwd: column taps", dev);
   const tris::TapRanges yr = tap_ranges(ry, "stage1_head_bwd: row ranges", dev);
   const tris::TapRanges xr = tap_ranges(rx, "stage1_head_bwd: column ranges", dev);
-  const int64_t B = vis_p.size(0), D = vis_p.size(2), H = ty[0].size(0), W = tx[0].size(0);
+  const int64_t B = vis_p.size(0), T = lan_p.size(1), D = vis_p.size(2), H = ty[0].size(0),
+                W = tx[0].size(0);
+  TORCH_CHECK(offset >= 0 && B + offset <= T, "stage1_head_bwd: the own texts [offset, ",
+              "offset + B) must lie in the T texts");
   at::Tensor d_vis = at::empty_like(vis_p), d_lan = at::empty_like(lan_p);
   launched(tris::stage1_head_bwd(g_cls.data_ptr<float>(), ptr<float>(g_relu), ptr<float>(g_sig),
                                  vis_p.data_ptr<float>(), lan_p.data_ptr<float>(),
                                  scale.data_ptr<float>(), score.data_ptr<float>(),
                                  stats.data_ptr<float>(), d_vis.data_ptr<float>(),
-                                 d_lan.data_ptr<float>(), B, h, w, D, H,
+                                 d_lan.data_ptr<float>(), B, T, offset, h, w, D, H,
                                  W, (float)focal_p, (float)focal_c, y, x, yr, xr, stream(),
                                  &k3_train_shapes[1]),
            "stage1_head_bwd");
@@ -346,15 +353,15 @@ std::vector<at::Tensor> stage1_head_bwd(
   return {d_vis, d_lan};
 }
 
-// K3's training-head plan (launchers.h, stage1_head_plan): ranks, threads, pixels, band_rows,
-// vec, passes, stages, groups, blocks and smem_bytes.
-std::map<std::string, int64_t> stage1_head_plan(int64_t B, int64_t h, int64_t w, int64_t D,
-                                                int64_t H, int64_t W, bool backward) {
-  TORCH_CHECK(B > 0 && B <= 65535 && h > 0 && w > 0 && D > 0 && H > 0 && W > 0 &&
-                  h * w * B < INT32_MAX && H * W < INT32_MAX && D < INT32_MAX,
+// K3's training-head plan (launchers.h, stage1_head_plan) for B images and T texts: ranks,
+// threads, pixels, band_rows, vec, passes, stages, groups, blocks and smem_bytes.
+std::map<std::string, int64_t> stage1_head_plan(int64_t B, int64_t T, int64_t h, int64_t w,
+                                                int64_t D, int64_t H, int64_t W, bool backward) {
+  TORCH_CHECK(B > 0 && B <= 65535 && T >= B && h > 0 && w > 0 && D > 0 && H > 0 && W > 0 &&
+                  h * w * T < INT32_MAX && H * W < INT32_MAX && D < INT32_MAX,
               "stage1_head_plan: shape out of range");
   const tris::Stage1HeadPlan p =
-      tris::stage1_head_plan(B, (int)h, (int)w, (int)D, (int)H, (int)W, backward);
+      tris::stage1_head_plan(B, T, (int)h, (int)w, (int)D, (int)H, (int)W, backward);
   return {{"ranks", p.ranks}, {"threads", p.threads}, {"pixels", p.pixels},
           {"band_rows", p.band_rows}, {"vec", p.vec}, {"passes", p.passes},
           {"stages", p.stages}, {"groups", p.groups}, {"blocks", p.blocks},
@@ -1244,6 +1251,167 @@ std::vector<at::Tensor> batch_norm_bwd(const at::Tensor& g, const at::Tensor& x,
   return {dx, dw, db, dslope, dres};
 }
 
+// K13 across ranks (kernels/batch_norm.py): the two-pass design's stages apart, so that the
+// per-sample partials of every rank can be gathered between them.
+
+// The forward's partial launch: x [N, C, ...]; shift [C], the first value of each channel on
+// rank 0. Returns partial [C, N, slices, 2] (double).
+at::Tensor batch_norm_stats_partial(const at::Tensor& x, const at::Tensor& shift) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const auto [N, C, HW] = check_batch_norm(x, "batch_norm_stats_partial: x");
+  check_channels(shift, "batch_norm_stats_partial: shift", x.device(), C);
+  TORCH_CHECK((int64_t)N * HW < (1 << 24), "batch_norm_stats_partial: N * HW must be below 2^24");
+  at::Tensor partial =
+      at::empty({C, N, tris::batch_norm_slices(HW), 2}, x.options().dtype(at::kDouble));
+  tris::BatchNormLaunchShape shape = {};
+  launched(tris::batch_norm_stats_partial(x.data_ptr<float>(), shift.data_ptr<float>(),
+                                          partial.data_ptr<double>(), N, C, HW, stream(), &shape),
+           "batch_norm_stats_partial");
+  record_k13(kStatsNames, &shape, 1);
+  return partial;
+}
+
+// The forward's final launch over partial [C, N, slices, 2] of N samples (every rank's, in
+// rank order) with planes of HW values: returns stats [3, C] (mean, biased var, rstd); the
+// running buffers, when given, move by `momentum` with the count N * HW.
+at::Tensor batch_norm_stats_final(const at::Tensor& partial, const at::Tensor& shift, int64_t HW,
+                                  const std::optional<at::Tensor>& running_mean,
+                                  const std::optional<at::Tensor>& running_var, double momentum,
+                                  double eps) {
+  const at::Device dev = partial.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(partial, "batch_norm_stats_final: partial", at::kDouble, dev);
+  TORCH_CHECK(partial.dim() == 4 && partial.size(3) == 2 && HW > 0 &&
+                  partial.size(2) == tris::batch_norm_slices(HW),
+              "batch_norm_stats_final: expected partial [C, N, slices of HW, 2]");
+  const int64_t C = partial.size(0), N = partial.size(1);
+  TORCH_CHECK(N >= 1 && N <= tris::kBatchNormMaxBatch && N * HW < (1 << 24) &&
+                  N * C * HW < INT32_MAX,
+              "batch_norm_stats_final: N * HW must be below 2^24 and N at most ",
+              tris::kBatchNormMaxBatch);
+  check_channels(shift, "batch_norm_stats_final: shift", dev, C);
+  TORCH_CHECK(running_mean.has_value() == running_var.has_value(),
+              "batch_norm_stats_final: give both running buffers or neither");
+  if (running_mean) {
+    check_channels(*running_mean, "batch_norm_stats_final: running_mean", dev, C);
+    check_channels(*running_var, "batch_norm_stats_final: running_var", dev, C);
+  }
+  at::Tensor stats = at::empty({3, C}, partial.options().dtype(at::kFloat));
+  tris::BatchNormLaunchShape shape = {};
+  launched(tris::batch_norm_stats_final(shift.data_ptr<float>(), 1, partial.data_ptr<double>(),
+                                        stats.data_ptr<float>(), ptr<float>(running_mean),
+                                        ptr<float>(running_var), N, C, HW, momentum, eps,
+                                        stream(), &shape),
+           "batch_norm_stats_final");
+  record_k13(kStatsNames + 1, &shape, 1);
+  return stats;
+}
+
+void check_bwd_args(const at::Tensor& g, const at::Tensor& x, const std::optional<at::Tensor>& out,
+                    const at::Tensor& mean, const at::Tensor& rstd, const at::Tensor& weight,
+                    const at::Tensor& bias, const std::optional<at::Tensor>& slope, int64_t act,
+                    int C, const char* name) {
+  const at::Device dev = x.device();
+  check(g, name, at::kFloat, dev);
+  TORCH_CHECK(g.sizes() == x.sizes(), name, ": g not x's shape");
+  TORCH_CHECK(act >= tris::kBatchNormActNone && act <= tris::kBatchNormActPrelu, name,
+              ": unknown activation ", act);
+  TORCH_CHECK((act == tris::kBatchNormActRelu) == out.has_value(), name,
+              ": the output goes with ReLU and only with it");
+  TORCH_CHECK((act == tris::kBatchNormActPrelu) == slope.has_value(), name,
+              ": a slope goes with PReLU and only with it");
+  if (out) {
+    check(*out, name, at::kFloat, dev);
+    TORCH_CHECK(out->sizes() == x.sizes(), name, ": out not x's shape");
+  }
+  for (const at::Tensor* t : {&mean, &rstd, &weight, &bias}) check_channels(*t, name, dev, C);
+  if (slope) check_channels(*slope, name, dev, 1);
+}
+
+const char* const kBwdNames[] = {"batch_norm_bwd_partial", "batch_norm_bwd_final",
+                                 "batch_norm_bwd_apply"};
+
+// The backward's partial launch, as batch_norm_bwd's two-pass design: returns partial [C, N,
+// slices, 3] (double) of this rank's samples.
+at::Tensor batch_norm_bwd_partial(const at::Tensor& g, const at::Tensor& x,
+                                  const std::optional<at::Tensor>& out, const at::Tensor& mean,
+                                  const at::Tensor& rstd, const at::Tensor& weight,
+                                  const at::Tensor& bias, const std::optional<at::Tensor>& slope,
+                                  int64_t act) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const auto [N, C, HW] = check_batch_norm(x, "batch_norm_bwd_partial: x");
+  check_bwd_args(g, x, out, mean, rstd, weight, bias, slope, act, C, "batch_norm_bwd_partial");
+  at::Tensor partial =
+      at::empty({C, N, tris::batch_norm_slices(HW), 3}, x.options().dtype(at::kDouble));
+  tris::BatchNormLaunchShape shape = {};
+  launched(tris::batch_norm_bwd_partial(g.data_ptr<float>(), x.data_ptr<float>(), ptr<float>(out),
+                                        mean.data_ptr<float>(), rstd.data_ptr<float>(),
+                                        weight.data_ptr<float>(), bias.data_ptr<float>(),
+                                        ptr<float>(slope), partial.data_ptr<double>(), N, C, HW,
+                                        (int)act, stream(), &shape),
+           "batch_norm_bwd_partial");
+  record_k13(kBwdNames, &shape, 1);
+  return partial;
+}
+
+// The backward's final launch over partial [C, N, slices, 3] of N samples with planes of HW
+// values: returns (coef [2, C], dweight [C], dbias [C], slope sums [C] double or empty).
+std::vector<at::Tensor> batch_norm_bwd_final(const at::Tensor& partial, int64_t HW, bool slope) {
+  const at::Device dev = partial.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(partial, "batch_norm_bwd_final: partial", at::kDouble, dev);
+  TORCH_CHECK(partial.dim() == 4 && partial.size(3) == 3 && HW > 0 &&
+                  partial.size(2) == tris::batch_norm_slices(HW) && partial.size(1) >= 1 &&
+                  partial.size(1) * partial.size(0) * HW < INT32_MAX,
+              "batch_norm_bwd_final: expected partial [C, N, slices of HW, 3]");
+  const int64_t C = partial.size(0), N = partial.size(1);
+  const at::TensorOptions o = partial.options().dtype(at::kFloat);
+  at::Tensor coef = at::empty({2, C}, o), dw = at::empty({C}, o), db = at::empty({C}, o);
+  at::Tensor sums = slope ? at::empty({C}, partial.options()) : at::Tensor();
+  tris::BatchNormLaunchShape shape = {};
+  launched(tris::batch_norm_bwd_final(partial.data_ptr<double>(), coef.data_ptr<float>(),
+                                      dw.data_ptr<float>(), db.data_ptr<float>(),
+                                      slope ? sums.data_ptr<double>() : nullptr, N, C, HW,
+                                      stream(), &shape),
+           "batch_norm_bwd_final");
+  record_k13(kBwdNames + 1, &shape, 1);
+  return {coef, dw, db, sums};
+}
+
+// The backward's apply launch from coef [2, C] and, with PReLU, the slope sums [C] (double):
+// returns (dx, dslope [1] or empty, dres or empty); dres is written when `residual` is set.
+std::vector<at::Tensor> batch_norm_bwd_apply(
+    const at::Tensor& g, const at::Tensor& x, const std::optional<at::Tensor>& out,
+    const at::Tensor& mean, const at::Tensor& rstd, const at::Tensor& weight,
+    const at::Tensor& bias, const std::optional<at::Tensor>& slope, const at::Tensor& coef,
+    const std::optional<at::Tensor>& slope_sums, int64_t act, bool residual) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const auto [N, C, HW] = check_batch_norm(x, "batch_norm_bwd_apply: x");
+  check_bwd_args(g, x, out, mean, rstd, weight, bias, slope, act, C, "batch_norm_bwd_apply");
+  check_channels(coef, "batch_norm_bwd_apply: coef", dev, 2 * C);
+  TORCH_CHECK(slope.has_value() == slope_sums.has_value(),
+              "batch_norm_bwd_apply: the slope sums go with a slope and only with it");
+  if (slope_sums) {
+    check(*slope_sums, "batch_norm_bwd_apply: slope_sums", at::kDouble, dev);
+    TORCH_CHECK(slope_sums->numel() == C, "batch_norm_bwd_apply: expected [C] slope sums");
+  }
+  at::Tensor dx = at::empty_like(x);
+  at::Tensor dslope = slope ? at::empty({1}, x.options()) : at::Tensor();
+  at::Tensor dres = residual ? at::empty_like(x) : at::Tensor();
+  tris::BatchNormLaunchShape shape = {};
+  launched(tris::batch_norm_bwd_apply(
+               g.data_ptr<float>(), x.data_ptr<float>(), ptr<float>(out), mean.data_ptr<float>(),
+               rstd.data_ptr<float>(), weight.data_ptr<float>(), bias.data_ptr<float>(),
+               ptr<float>(slope), coef.data_ptr<float>(),
+               slope_sums ? slope_sums->data_ptr<double>() : nullptr,
+               slope ? dslope.data_ptr<float>() : nullptr, dx.data_ptr<float>(),
+               residual ? dres.data_ptr<float>() : nullptr, N, C, HW, (int)act, stream(), &shape),
+           "batch_norm_bwd_apply");
+  record_k13(kBwdNames + 2, &shape, 1);
+  return {dx, dslope, dres};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -1306,4 +1474,14 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("batch_norm_stats", &batch_norm_stats, "K13: BatchNorm's batch statistics (two-pass)");
   m.def("batch_norm_apply", &batch_norm_apply, "K13: the norm, its affine and activation");
   m.def("batch_norm_bwd", &batch_norm_bwd, "K13 backward: dx, dweight, dbias, dslope, dres");
+  m.def("batch_norm_stats_partial", &batch_norm_stats_partial,
+        "K13 across ranks: a rank's per-sample partial sums of the statistics");
+  m.def("batch_norm_stats_final", &batch_norm_stats_final,
+        "K13 across ranks: the statistics of every rank's partials");
+  m.def("batch_norm_bwd_partial", &batch_norm_bwd_partial,
+        "K13 across ranks: a rank's per-sample partial sums of the backward");
+  m.def("batch_norm_bwd_final", &batch_norm_bwd_final,
+        "K13 across ranks: the backward's coefficients and sums of given partials");
+  m.def("batch_norm_bwd_apply", &batch_norm_bwd_apply,
+        "K13 across ranks: dx from the backward's coefficients");
 }

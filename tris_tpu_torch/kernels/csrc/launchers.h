@@ -148,7 +148,9 @@ cudaError_t cross_attn_bwd(const float* g_vis, const float* g_lan, const float* 
                            cudaStream_t stream, LaunchShape* shapes);
 
 // K3, training head (stage1_head.cu): one launch each way, a cluster of R blocks an image, grid
-// (R, B), T = B texts.
+// (R, B), every image scored against T >= B texts (T = B on one process; across the ranks of a
+// process group, this rank's B images against the T texts of the global batch), image b's own
+// text at b + offset.
 // Forward: rank r forms the scores of the image's pixels [r hw / R, (r + 1) hw / R) against all T
 // texts, a tile of kStage1HeadTilePixels pixels by kStage1HeadTileTexts texts at a time (a pass; a
 // share or T past one tile takes more passes over D, each reading the texts' rows again). A pass
@@ -231,7 +233,7 @@ struct Stage1HeadPlan {
   long long smem;  // bytes of dynamic shared memory a block
 };
 
-// K3's rule, by the shape: B images (and texts), [h, w] score planes of D channels, maps [H, W].
+// K3's rule, by the shape: B images, T texts, [h, w] score planes of D channels, maps [H, W].
 // The forward's block holds the plane [hw, T], then `stages` stages of kStage1HeadTilePixels +
 // kStage1HeadTileTexts rows of kStage1HeadChunk + kStage1HeadPad floats, or the warps' sums of a
 // tile [kStage1HeadKSplit, kStage1HeadTilePixels, kStage1HeadTileTexts], later the statistics
@@ -240,8 +242,8 @@ struct Stage1HeadPlan {
 // rows [stage1_head_map_groups(W), h, stage1_head_map_pitch(W)] or dscore transposed ([T, hw],
 // rows padded to 8 floats; dscore itself takes the plane's place) with the gradients' operand
 // stages [kStage1HeadGradStages, kStage1HeadGradChunk, 4 groups]. Each vector starts on 16 bytes.
-constexpr Stage1HeadPlan stage1_head_plan(long long B, int h, int w, int D, int H, int W,
-                                          bool backward) {
+constexpr Stage1HeadPlan stage1_head_plan(long long B, long long T, int h, int w, int D, int H,
+                                          int W, bool backward) {
   const long long hw = (long long)h * w;
   const int wave = backward ? kStage1HeadBwdWaveBlocks : kStage1HeadWaveBlocks;
   int R = 1;
@@ -249,7 +251,7 @@ constexpr Stage1HeadPlan stage1_head_plan(long long B, int h, int w, int D, int 
   const int pixels = (int)((hw + R - 1) / R), band = (H + R - 1) / R;
   const int groups = (D / 4 + R - 1) / R;
   const long long passes = ((pixels + kStage1HeadTilePixels - 1) / kStage1HeadTilePixels) *
-                           ((B + kStage1HeadTileTexts - 1) / kStage1HeadTileTexts);
+                           ((T + kStage1HeadTileTexts - 1) / kStage1HeadTileTexts);
   const long long vec_hw = stage1_head_round(hw, 4);
   const long long trows = stage1_head_round((long long)band * w, 4);
   long long floats = 0;
@@ -262,14 +264,14 @@ constexpr Stage1HeadPlan stage1_head_plan(long long B, int h, int w, int D, int 
     long long after = 2 * vec_hw + trows;
     after = sums > after ? sums : after;
     for (stages = kStage1HeadStages;; --stages) {
-      floats = stage1_head_round(hw * B, 4) + (stages * stage > after ? stages * stage : after);
+      floats = stage1_head_round(hw * T, 4) + (stages * stage > after ? stages * stage : after);
       if (stages == 2 || 4 * floats <= kStage1HeadMaxSmem) break;
     }
   } else {
     const long long seg = (long long)stage1_head_map_groups(W) * h * stage1_head_map_pitch(W);
     const long long grads =
-        B * stage1_head_round(hw, 8) + 4LL * kStage1HeadGradStages * kStage1HeadGradChunk * groups;
-    floats = hw * stage1_head_round(B, 8) + 6 * vec_hw + 3 * stage1_head_round(B, 4) + trows +
+        T * stage1_head_round(hw, 8) + 4LL * kStage1HeadGradStages * kStage1HeadGradChunk * groups;
+    floats = hw * stage1_head_round(T, 8) + 6 * vec_hw + 3 * stage1_head_round(T, 4) + trows +
              (seg > grads ? seg : grads);
   }
   return {R,
@@ -292,23 +294,24 @@ struct Stage1HeadLaunchShape {
   long long smem;
 };
 
-// K3, training head: vis_p [B, h*w, D]; lan_p [B, B, D] (D % 4 == 0, both 16-byte aligned);
-// scale a device scalar; taps h -> H rows and w -> W columns. Writes score [B, h*w, B] and stats
-// [B, stage1_head_stats(h*w, B)] (for the backward), cls_out [B, B], cls_fg [B], relu_map and
-// sig_map [B, H, W]. *shape receives the launch's shape.
+// K3, training head: vis_p [B, h*w, D]; lan_p [B, T, D] (D % 4 == 0, both 16-byte aligned;
+// 0 <= offset, B + offset <= T: image b's own text is b + offset); scale a device scalar; taps
+// h -> H rows and w -> W columns. Writes score [B, h*w, T] and stats [B, stage1_head_stats(h*w,
+// T)] (for the backward), cls_out [B, T], cls_fg [B] (mbar of the own text), relu_map and
+// sig_map [B, H, W] (of the own text's plane). *shape receives the launch's shape.
 cudaError_t stage1_head(const float* vis_p, const float* lan_p, const float* scale,
                         float* score, float* stats, float* cls_out, float* cls_fg,
-                        float* relu_map, float* sig_map, int B, int h, int w, int D, int H, int W,
-                        float focal_p, float focal_c, TapArrays ty, TapArrays tx,
-                        cudaStream_t stream, Stage1HeadLaunchShape* shape);
+                        float* relu_map, float* sig_map, int B, int T, int offset, int h, int w,
+                        int D, int H, int W, float focal_p, float focal_c, TapArrays ty,
+                        TapArrays tx, cudaStream_t stream, Stage1HeadLaunchShape* shape);
 
-// K3 backward: g_cls [B, B]; g_relu and g_sig [B, H, W] or null (both null: no map gradient;
+// K3 backward: g_cls [B, T]; g_relu and g_sig [B, H, W] or null (both null: no map gradient;
 // 16-byte aligned); score and stats as the forward wrote them; taps and their adjoint ranges;
-// d_vis [B, h*w, D], d_lan [B, B, D]. *shape receives the launch's shape.
+// d_vis [B, h*w, D], d_lan [B, T, D]. *shape receives the launch's shape.
 cudaError_t stage1_head_bwd(const float* g_cls, const float* g_relu, const float* g_sig,
                             const float* vis_p, const float* lan_p, const float* scale,
                             const float* score, const float* stats, float* d_vis, float* d_lan,
-                            int B, int h, int w, int D, int H, int W, float focal_p,
+                            int B, int T, int offset, int h, int w, int D, int H, int W, float focal_p,
                             float focal_c, TapArrays ty, TapArrays tx, TapRanges ry,
                             TapRanges rx, cudaStream_t stream, Stage1HeadLaunchShape* shape);
 
@@ -1240,6 +1243,21 @@ cudaError_t batch_norm_stats(const float* x, double* partial, float* stats, floa
                              float* running_var, int N, int C, int HW, double momentum,
                              double eps, cudaStream_t stream, BatchNormLaunchShape* shapes);
 
+// K13's two-pass statistics in their stages, for a batch split across ranks
+// (kernels/batch_norm.py gathers the partials of every rank between them). The partial
+// launch writes partial [C, N, batch_norm_slices(HW), 2] (double) of x's N samples, each
+// sample's sums shifted by shift[c] (null: x's first value of channel c, as
+// batch_norm_stats takes); the final launch reads the partials of N samples (every rank's,
+// in rank order) and the shift as shift[c * shift_stride], and writes stats as
+// batch_norm_stats does, the running buffers moved by the count N * HW.
+cudaError_t batch_norm_stats_partial(const float* x, const float* shift, double* partial, int N,
+                                     int C, int HW, cudaStream_t stream,
+                                     BatchNormLaunchShape* shape);
+cudaError_t batch_norm_stats_final(const float* shift, long long shift_stride,
+                                   const double* partial, float* stats, float* running_mean,
+                                   float* running_var, int N, int C, int HW, double momentum,
+                                   double eps, cudaStream_t stream, BatchNormLaunchShape* shape);
+
 // K13 apply, one launch: y = act(((x - mean) * rstd) * weight + bias [+ residual]), each
 // product and sum rounded alone; mean and rstd null: y = act(x * weight + bias) (the eval
 // fold, weight and bias its a and b). residual as x or null; slope [1] (PReLU) or null.
@@ -1259,6 +1277,26 @@ cudaError_t batch_norm_forward(const BatchNormPlan& plan, const float* x, const 
                                float* running_var, int N, int C, int HW, int act,
                                double momentum, double eps, cudaStream_t stream,
                                BatchNormLaunchShape* shapes);
+
+// K13's two-pass backward in its stages (batch_norm_bwd's, for a batch split across
+// ranks). partial: [C, N, batch_norm_slices(HW), 3] (double) sums of dz, dz x-hat and
+// PReLU's g y; final: of N samples' partials (a rank's own, or every rank's in rank order),
+// coef [2, C] (the sums over M = N * HW), dweight and dbias [C] (the sums), slope_sums [C]
+// or null; apply: dx (and dres, dslope) from the coefficients and slope sums given.
+cudaError_t batch_norm_bwd_partial(const float* g, const float* x, const float* out,
+                                   const float* mean, const float* rstd, const float* weight,
+                                   const float* bias, const float* slope, double* partial, int N,
+                                   int C, int HW, int act, cudaStream_t stream,
+                                   BatchNormLaunchShape* shape);
+cudaError_t batch_norm_bwd_final(const double* partial, float* coef, float* dweight,
+                                 float* dbias, double* slope_sums, int N, int C, int HW,
+                                 cudaStream_t stream, BatchNormLaunchShape* shape);
+cudaError_t batch_norm_bwd_apply(const float* g, const float* x, const float* out,
+                                 const float* mean, const float* rstd, const float* weight,
+                                 const float* bias, const float* slope, const float* coef,
+                                 const double* slope_sums, float* dslope, float* dx, float* dres,
+                                 int N, int C, int HW, int act, cudaStream_t stream,
+                                 BatchNormLaunchShape* shape);
 
 // K13 backward as `plan` (batch_norm_device_plan, backward) says, from g = dL/dy: out the
 // forward's y (ReLU's mask; null for the other activations); mean and rstd as the forward

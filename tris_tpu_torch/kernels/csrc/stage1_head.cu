@@ -2,13 +2,15 @@
 // float32.
 //
 // Replaces tris_tpu/models/stage1.py::TRISStage1.__call__ lines 100-131 with
-// train=True (and its autodiff): per image b of the batch, with T = B texts,
+// train=True (and its autodiff): per image b of the batch, with T texts (T = B on one process;
+// a rank's B images against the global batch's T texts in a process group, image b's own text
+// o = b + offset),
 //   score[b, p, q] = exp(logit_scale) * <vis_p[b, p], lan_p[b, q]>   (D channels)
 //   feats = [1 (bg); score[b, :, q] for each q]  over the 1+T channels, per pixel p
 //   masks = softmax over the channels;  gap, gmp = mean and max over p;
 //   cls_out[b, q] = gap + gmp + (1 - mbar)^fp * log(fc + mbar),  mbar = mean_p masks
-//   cls_fg[b] = mbar of channel b (no gradient: a metric, as in the JAX package)
-//   seg[b] = upsample(score[b, :, b]) h*w -> H*W (align_corners=False);
+//   cls_fg[b] = mbar of channel o (no gradient: a metric, as in the JAX package)
+//   seg[b] = upsample(score[b, :, o]) h*w -> H*W (align_corners=False);
 //   relu_map = relu(seg), sig_map = sigmoid(seg).
 //
 // Shapes on the stage-1 train path: B = 48, h = w = 10, D = 1024,
@@ -348,15 +350,16 @@ stage1_head_fwd_kernel(const float* __restrict__ vis, const float* __restrict__ 
                        const float* __restrict__ scale_ptr, float* __restrict__ score,
                        float* __restrict__ stats, float* __restrict__ cls_out,
                        float* __restrict__ cls_fg, float* __restrict__ relu_map,
-                       float* __restrict__ sig_map, int h, int w, int D, int H, int W,
-                       int stages, float fp, float fc, tris::TapArrays ty, tris::TapArrays tx) {
+                       float* __restrict__ sig_map, int T, int off, int h, int w, int D, int H,
+                       int W, int stages, float fp, float fc, tris::TapArrays ty,
+                       tris::TapArrays tx) {
   // [hw][T] the image's scores (rounded to 16 bytes), then the operands' stages, later the
   // statistics [2][hw] and the band's t-rows
   extern __shared__ __align__(16) float smem[];
   S1_STAMP_ENTRY();
   cg::cluster_group cluster = cg::this_cluster();
   const int R = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int b = blockIdx.y, T = gridDim.y, hw = h * w, tid = threadIdx.x;
+  const int b = blockIdx.y, hw = h * w, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   float* plane = smem;
   float* work = smem + round_up(hw * T, 4);
@@ -486,7 +489,7 @@ stage1_head_fwd_kernel(const float* __restrict__ vis, const float* __restrict__ 
       cls_out[(long long)b * T + q] = gap / hw + gmp + focal(mbar, fp, fc);
       st[2 * hw + q] = mbar;
       st[2 * hw + T + q] = (float)arg;
-      if (q == b) cls_fg[b] = mbar;
+      if (q == b + off) cls_fg[b] = mbar;
     }
   }
   S1_PHASE(3);
@@ -495,7 +498,7 @@ stage1_head_fwd_kernel(const float* __restrict__ vis, const float* __restrict__ 
   // thread kVec columns of group q (its x taps in registers) and every rpar-th row from r0
   const int y0 = rank * H / R, nrows = (rank + 1) * H / R - y0;
   float* t = z + round_up(hw, 4);
-  t_rows(plane + b, T, w, y0, nrows, ty, t);
+  t_rows(plane + b + off, T, w, y0, nrows, ty, t);
   __syncthreads();
   S1_PHASE(4);
   const int groups = (W + kVec - 1) / kVec;
@@ -535,14 +538,14 @@ stage1_head_bwd_kernel(const float* __restrict__ g_cls, const float* __restrict_
                        const float* __restrict__ g_sig, const float* __restrict__ vis,
                        const float* __restrict__ lan, const float* __restrict__ scale_ptr,
                        const float* __restrict__ score, const float* __restrict__ stats,
-                       float* __restrict__ d_vis, float* __restrict__ d_lan, int h, int w, int D,
-                       int H, int W, float fp, float fc, tris::TapArrays ty, tris::TapArrays tx,
-                       tris::TapRanges ry, tris::TapRanges rx) {
+                       float* __restrict__ d_vis, float* __restrict__ d_lan, int T, int off, int h,
+                       int w, int D, int H, int W, float fp, float fc, tris::TapArrays ty,
+                       tris::TapArrays tx, tris::TapRanges ry, tris::TapRanges rx) {
   extern __shared__ __align__(16) float smem[];
   S1_STAMP_ENTRY();
   cg::cluster_group cluster = cg::this_cluster();
   const int R = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int b = blockIdx.y, T = gridDim.y, hw = h * w, tid = threadIdx.x;
+  const int b = blockIdx.y, hw = h * w, tid = threadIdx.x;
   const int band = (H + R - 1) / R, tq = round_up(T, 8), hq = round_up(hw, 8);
   const int vhw = round_up(hw, 4), vt = round_up(T, 4), vband = round_up(band * w, 4);
   const int G = D / 4, g0 = rank * G / R, ng = (rank + 1) * G / R - g0;
@@ -572,7 +575,7 @@ stage1_head_bwd_kernel(const float* __restrict__ g_cls, const float* __restrict_
   for (int p = tid; p < hw; p += kThreads) {
     tris::cp_async4(mx + p, st + p, true);
     tris::cp_async4(z + p, st + hw + p, true);
-    own[p] = sp[p * T + b];
+    own[p] = sp[p * T + b + off];
   }
   tris::cp_async_commit();
   for (int q = tid; q < T; q += kThreads) {
@@ -738,7 +741,7 @@ stage1_head_bwd_kernel(const float* __restrict__ g_cls, const float* __restrict_
     const int p = i / T, q = i - p * T, e = p * tq + q;
     float d = gc[q] / hw + plane[e] * (gq[q] - dot[p]);
     if (p == am[q]) d += gc[q];
-    if (q == b) d += down[p];
+    if (q == b + off) d += down[p];
     ds[e] = d;
     dsT[q * hq + p] = d;
   }
@@ -792,24 +795,25 @@ extern "C" cudaError_t s1_set_stamps(unsigned long long* stamps) {
 
 cudaError_t tris::stage1_head(const float* vis_p, const float* lan_p, const float* scale,
                               float* score, float* stats, float* cls_out, float* cls_fg,
-                              float* relu_map, float* sig_map, int B, int h, int w, int D, int H,
-                              int W, float focal_p, float focal_c, TapArrays ty, TapArrays tx,
-                              cudaStream_t stream, Stage1HeadLaunchShape* shape) {
-  const Stage1HeadPlan p = stage1_head_plan(B, h, w, D, H, W, false);
+                              float* relu_map, float* sig_map, int B, int T, int offset, int h,
+                              int w, int D, int H, int W, float focal_p, float focal_c,
+                              TapArrays ty, TapArrays tx, cudaStream_t stream,
+                              Stage1HeadLaunchShape* shape) {
+  const Stage1HeadPlan p = stage1_head_plan(B, T, h, w, D, H, W, false);
   const auto kernel = p.vec == 4 ? &stage1_head_fwd_kernel<4> : &stage1_head_fwd_kernel<1>;
   return launch(kernel, p, B, stream, shape, vis_p, lan_p, scale, score, stats, cls_out, cls_fg,
-                relu_map, sig_map, h, w, D, H, W, p.stages, focal_p, focal_c, ty, tx);
+                relu_map, sig_map, T, offset, h, w, D, H, W, p.stages, focal_p, focal_c, ty, tx);
 }
 
 cudaError_t tris::stage1_head_bwd(const float* g_cls, const float* g_relu, const float* g_sig,
                                   const float* vis_p, const float* lan_p, const float* scale,
                                   const float* score, const float* stats, float* d_vis,
-                                  float* d_lan, int B, int h, int w, int D, int H, int W,
-                                  float focal_p, float focal_c, TapArrays ty, TapArrays tx,
-                                  TapRanges ry, TapRanges rx, cudaStream_t stream,
+                                  float* d_lan, int B, int T, int offset, int h, int w, int D,
+                                  int H, int W, float focal_p, float focal_c, TapArrays ty,
+                                  TapArrays tx, TapRanges ry, TapRanges rx, cudaStream_t stream,
                                   Stage1HeadLaunchShape* shape) {
-  const Stage1HeadPlan p = stage1_head_plan(B, h, w, D, H, W, true);
+  const Stage1HeadPlan p = stage1_head_plan(B, T, h, w, D, H, W, true);
   const auto kernel = p.vec == 4 ? &stage1_head_bwd_kernel<4> : &stage1_head_bwd_kernel<1>;
   return launch(kernel, p, B, stream, shape, g_cls, g_relu, g_sig, vis_p, lan_p, scale, score,
-                stats, d_vis, d_lan, h, w, D, H, W, focal_p, focal_c, ty, tx, ry, rx);
+                stats, d_vis, d_lan, T, offset, h, w, D, H, W, focal_p, focal_c, ty, tx, ry, rx);
 }

@@ -3,13 +3,16 @@
 
 Replaces ``tris_tpu/models/stage1.py::TRISStage1.__call__`` lines 100-131
 with ``train=True``: per image ``b``, the scores of its pixels against all
-``B`` texts of the batch, ``scale * <vis_p[b, p], lan_p[b, q]>``; over the
-``1 + B`` channels (a constant bg logit 1 first) the softmax, GAP + GMP and
-the focal term ``(1 - x)^p * log(c + x)`` of the mean mask give
-``cls_out [B, B]`` (bg dropped) and ``cls_fg [B]``; the diagonal score
-plane, upsampled ``align_corners=False`` to ``[H, W]``, gives the relu and
-sigmoid maps. On CUDA tensors it is a ``torch.autograd.Function`` whose
-backward is the hand-written kernel, from ``d cls_out``, ``d sig_map`` and
+``T`` texts, ``scale * <vis_p[b, p], lan_p[b, q]>``; over the ``1 + T``
+channels (a constant bg logit 1 first) the softmax, GAP + GMP and the focal
+term ``(1 - x)^p * log(c + x)`` of the mean mask give ``cls_out [B, T]`` (bg
+dropped) and ``cls_fg [B]``; the score plane of image b's own text ``b +
+offset``, upsampled ``align_corners=False`` to ``[H, W]``, gives the relu
+and sigmoid maps. On one process ``T = B`` and the offset is 0; across the
+ranks of a process group each rank scores its ``B`` images against the
+global batch's ``T`` texts, its own at ``rank * B``. On CUDA tensors it is
+a ``torch.autograd.Function`` whose backward is the hand-written kernel,
+from ``d cls_out``, ``d sig_map`` and
 ``d relu_map`` to ``d vis_p`` and ``d lan_p``. ``cls_fg`` is a metric and
 gets no gradient; nor does ``scale`` (``logit_scale`` is frozen in stage 1,
 ``tris_tpu/train/state.py:85-86``), though the plain version, being
@@ -32,14 +35,18 @@ from tris_tpu_torch.kernels import build
 from tris_tpu_torch.kernels.response_head import adjoint_taps_on, taps_on, upsample_taps_plain
 
 
-def stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float):
+def stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float,
+                      offset: int = 0):
     """The plain version: the JAX head written out, the upsample with the
-    kernel's taps in its order. vis_p [B, h*w, D], lan_p [B, B, D], scale a
-    0-d tensor -> (cls_out [B, B], cls_fg [B], relu_map, sig_map [B, H, W])."""
+    kernel's taps in its order. vis_p [B, h*w, D], lan_p [B, T, D], scale a
+    0-d tensor -> (cls_out [B, T], cls_fg [B], relu_map, sig_map [B, H, W])."""
     (h, w), (H, W) = hw_shape, out_hw
-    B = vis_p.shape[0]
-    score = scale * torch.einsum("bpc,bqc->bpq", vis_p, lan_p)       # [B, hw, B]
-    own = torch.diagonal(score, dim1=0, dim2=2).T                    # [B, hw]: score[b, :, b]
+    B, T = vis_p.shape[0], lan_p.shape[1]
+    if not 0 <= offset <= T - B:
+        raise ValueError(f"stage1_head: the own texts [{offset}, {offset + B}) of {B} images "
+                         f"must lie in the {T} texts")
+    score = scale * torch.einsum("bpc,bqc->bpq", vis_p, lan_p)       # [B, hw, T]
+    own = torch.diagonal(score[:, :, offset:offset + B], dim1=0, dim2=2).T  # [b, :, b + offset]
     ty = taps_on(h, H, False, vis_p.device)
     tx = taps_on(w, W, False, vis_p.device)
     seg = upsample_taps_plain(own.reshape(B, h, w), ty, tx)
@@ -48,7 +55,7 @@ def stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, foc
     mbar = masks.mean(dim=-1)
     cls = feats.mean(dim=-1) + feats.amax(dim=-1) \
         + torch.pow(1.0 - mbar, focal_p) * torch.log(focal_lambda + mbar)
-    cls_fg = torch.diagonal(mbar[:, 1:]).detach()
+    cls_fg = torch.diagonal(mbar[:, 1 + offset:1 + offset + B]).detach()
     return cls[:, 1:], cls_fg, torch.relu(seg), torch.sigmoid(seg)
 
 
@@ -56,20 +63,21 @@ MAX_IMAGES = 65535  # the grid's second dimension
 
 
 def stage1_head_plan(B: int, h: int, w: int, D: int, H: int, W: int,
-                     backward: bool = False) -> dict:
-    """The launch for ``B`` images and texts, ``[h, w]`` score planes of ``D``
-    channels and ``[H, W]`` maps, forward or backward (``launchers.h``'s rule,
-    from the extension): ranks, threads, pixels, band_rows, vec, passes, stages,
-    groups, blocks and smem_bytes. Refuses, before any launch, a shape the kernels do
-    not take."""
-    if (not 1 <= B <= MAX_IMAGES or min(h, w, D, H, W) < 1 or h * w * B >= 2 ** 31
+                     backward: bool = False, T: int = None) -> dict:
+    """The launch for ``B`` images and ``T`` texts (default ``B``), ``[h, w]``
+    score planes of ``D`` channels and ``[H, W]`` maps, forward or backward
+    (``launchers.h``'s rule, from the extension): ranks, threads, pixels,
+    band_rows, vec, passes, stages, groups, blocks and smem_bytes. Refuses,
+    before any launch, a shape the kernels do not take."""
+    T = B if T is None else T
+    if (not 1 <= B <= MAX_IMAGES or T < B or min(h, w, D, H, W) < 1 or h * w * T >= 2 ** 31
             or H * W >= 2 ** 31 or D >= 2 ** 31):
-        raise ValueError(f"stage1_head_plan: bad shape {(B, h, w, D, H, W)}")
+        raise ValueError(f"stage1_head_plan: bad shape {(B, T, h, w, D, H, W)}")
     if D % 4:
         raise ValueError(f"stage1_head: D = {D} channels must be a multiple of 4 (16-byte copies)")
-    plan = dict(build.ops().stage1_head_plan(B, h, w, D, H, W, backward))
+    plan = dict(build.ops().stage1_head_plan(B, T, h, w, D, H, W, backward))
     if plan["smem_bytes"] > build.MAX_SMEM:
-        raise ValueError(f"stage1_head: the [h*w, B] = [{h * w}, {B}] score plane and the "
+        raise ValueError(f"stage1_head: the [h*w, T] = [{h * w}, {T}] score plane and the "
                          f"{'backward' if backward else 'forward'}'s stages must fit shared memory")
     return plan
 
@@ -91,15 +99,15 @@ def _aligned(t):
 
 class _Stage1Head(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vis_p, lan_p, scale, h, w, H, W, focal_p, focal_lambda, save):
+    def forward(ctx, vis_p, lan_p, scale, h, w, H, W, focal_p, focal_lambda, offset, save):
         ty = taps_on(h, H, False, vis_p.device)
         tx = taps_on(w, W, False, vis_p.device)
         score, stats, cls_out, cls_fg, relu_map, sig_map = build.ops().stage1_head(
-            vis_p, lan_p, scale, list(ty), list(tx), h, w, focal_p, focal_lambda)
+            vis_p, lan_p, scale, list(ty), list(tx), h, w, focal_p, focal_lambda, offset)
         build.count("stage1_head")
         ctx.mark_non_differentiable(cls_fg)
         ctx.set_materialize_grads(False)
-        ctx.shape, ctx.focal = (h, w, H, W), (focal_p, focal_lambda)
+        ctx.shape, ctx.focal, ctx.offset = (h, w, H, W), (focal_p, focal_lambda), offset
         if save:  # nothing is kept when no input needs a gradient
             ctx.save_for_backward(vis_p, lan_p, scale, score, stats)
         return cls_out, cls_fg, relu_map, sig_map
@@ -116,27 +124,31 @@ class _Stage1Head(torch.autograd.Function):
             None if g_sig is None else _aligned(g_sig), vis_p, lan_p, scale, score, stats,
             list(taps_on(h, H, False, dev)), list(taps_on(w, W, False, dev)),
             list(adjoint_taps_on(h, H, False, dev)), list(adjoint_taps_on(w, W, False, dev)),
-            h, w, *ctx.focal)
+            h, w, *ctx.focal, ctx.offset)
         build.count("stage1_head_bwd")
-        return d_vis, d_lan, None, None, None, None, None, None, None, None
+        return d_vis, d_lan, None, None, None, None, None, None, None, None, None
 
 
-def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float):
+def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float,
+                offset: int = 0):
     """K3's training head on CUDA tensors (one launch forward, one
     backward); the plain version on CPU tensors. ``scale`` is a 0-d tensor
-    (``exp(logit_scale)``) that the kernels read on the device."""
+    (``exp(logit_scale)``) that the kernels read on the device. vis_p [B,
+    h*w, D] against lan_p [B, T, D], image b's own text ``b + offset``."""
     if vis_p.device.type == "cpu":
-        return stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p, focal_lambda)
+        return stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p, focal_lambda,
+                                 offset)
     build.require_cuda_f32("stage1_head", vis_p, lan_p, scale)
-    (h, w), (H, W) = hw_shape, out_hw
     B, HW, D = vis_p.shape
-    if HW != h * w or lan_p.shape != (B, B, D):
+    T = lan_p.shape[1] if lan_p.dim() == 3 else -1
+    (h, w), (H, W) = hw_shape, out_hw
+    if HW != h * w or lan_p.shape != (B, T, D) or not 0 <= offset <= T - B:
         raise ValueError(f"stage1_head: bad shapes vis_p{tuple(vis_p.shape)} "
-                         f"lan_p{tuple(lan_p.shape)} hw={hw_shape}")
+                         f"lan_p{tuple(lan_p.shape)} hw={hw_shape} offset={offset}")
     save = torch.is_grad_enabled() and (vis_p.requires_grad or lan_p.requires_grad)
-    stage1_head_plan(B, h, w, D, H, W)
+    stage1_head_plan(B, h, w, D, H, W, T=T)
     if save:  # the backward's shape is refused before the forward runs
-        stage1_head_plan(B, h, w, D, H, W, backward=True)
+        stage1_head_plan(B, h, w, D, H, W, backward=True, T=T)
     return _Stage1Head.apply(_aligned(vis_p), _aligned(lan_p),
                              scale.reshape(()).contiguous(), h, w, H, W, float(focal_p),
-                             float(focal_lambda), save)
+                             float(focal_lambda), int(offset), save)

@@ -7,6 +7,12 @@ pixel-text score with its upsample is K3 (``kernels.response_head`` for
 eval, ``kernels.stage1_head`` for training); the fusion is K2 and the text
 tower K1. BatchNorm follows the module's mode: ``model.train()`` for batch
 statistics, as the JAX package's ``train=True``.
+
+In a process group of several ranks (``tris_tpu_torch.parallel``), the
+training forward scores this rank's images against the texts of the global
+batch, gathered in rank order with their gradient, as the JAX package's one
+program over the global batch does: ``cls_out`` is this rank's rows of the
+global ``[B_global, B_global]``, its own texts at ``rank * B``.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tris_tpu_torch import kernels
+from tris_tpu_torch import kernels, parallel
 from tris_tpu_torch.models.clip import CLIP, CLIP_CONFIGS, CLIPConfig
 from tris_tpu_torch.models.fusion import BilateralPrompt
 from tris_tpu_torch.models.layers import Conv1x1
@@ -75,23 +81,26 @@ class TRISStage1(nn.Module):
         """image [B, 3, H, W], word_ids [B, L], the fusion over all B texts.
 
         ``train=False``: the relu map [B, 1, H, W] of image b against its own
-        text. ``train=True``: ``(cls_out [B, B], cls_fg [B], relu_map,
+        text. ``train=True``: ``(cls_out [B, T], cls_fg [B], relu_map,
         sig_map [B, 1, H, W], scale)``, every image scored against every
-        text (call ``model.train()`` first for BatchNorm's batch statistics,
-        as the JAX package's ``train=True`` takes them)."""
+        text of the global batch (T = B on one process, image b's own text
+        at ``rank * B + b``; call ``model.train()`` first for BatchNorm's
+        batch statistics, as the JAX package's ``train=True`` takes them)."""
         B, _, H, W = image.shape
         norm_vis, norm_lan, hw = self._features(image, word_ids)
         scale = self.logit_scale.exp()
         cfg = self.config
         if train:
-            lan_p = norm_lan[None].expand(B, B, norm_lan.shape[-1])   # every image, all B texts
+            texts = parallel.all_gather(norm_lan)                      # [T, D], rank order
+            lan_p = texts[None].expand(B, texts.shape[0], texts.shape[1])  # every image, all T
             vis_p = norm_vis
             if cfg.attn_multi > 0:
                 new_vis, new_lan = self.attn_fusion(norm_vis, lan_p)
                 vis_p = new_vis * FUSION_RESIDUAL + norm_vis
                 lan_p = new_lan * FUSION_RESIDUAL + lan_p
             cls_out, cls_fg, relu_map, sig_map = kernels.stage1_head(
-                vis_p, lan_p, scale, hw, (H, W), cfg.focal_p, cfg.focal_lambda)
+                vis_p, lan_p, scale, hw, (H, W), cfg.focal_p, cfg.focal_lambda,
+                parallel.rank_world()[0] * B)
             return cls_out, cls_fg, relu_map[:, None], sig_map[:, None], scale
         new_vis = None
         lan_p = norm_lan

@@ -4,14 +4,20 @@ Port of ``tris_tpu/pseudo/crf.py`` (the reference's ``pydensecrf`` call,
 IRNet ``misc/imutils.py:169-183``): label-map unaries (``gt_prob=0.7``), a
 Gaussian pairwise kernel (sxy=3, compat=3) and a bilateral pairwise kernel
 (sxy=50, srgb=5, compat=10), 10 mean-field steps, filtered through the
-vectorised numpy permutohedral lattice (Adams et al. 2010) with densecrf's
-symmetric normalisation.
+permutohedral lattice (Adams et al. 2010) with densecrf's symmetric
+normalisation.
 
-Only the numpy lattice is here: the JAX package prefers its native C++
-library (``native/tris_native.cpp``) where built, and that binding is not
-part of this package yet. The two implement the same lattice and agree to
-float rounding. The CRF is host code in both packages (the reference runs
-it in CPU worker processes), not a device kernel.
+Two lattices compute it: the native one (``tris_tpu_torch.native``, this
+package's copy of ``native/tris_native.cpp``), the default, and the
+vectorised numpy one here, its plain version, which a caller takes by
+passing ``backend="numpy"``. They agree to float rounding
+(``tests/test_torch_native.py``). Where the native library cannot be built
+or loaded, the default raises: the JAX package warns once and falls back to
+numpy, which is several times slower per core and would hide the fault as a
+slow pass (``ROADMAP.md`` §3). ``threads`` is the native call's OpenMP team
+(default 1: the ir-label pass runs one process per core). The CRF is host
+code in both packages (the reference runs it in CPU worker processes), not a
+device kernel.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ def unary_from_labels(labels: np.ndarray, n_labels: int, gt_prob: float = 0.7) -
 class _PermutohedralLattice:
     """Vectorised numpy permutohedral lattice (Adams et al. 2010): splat onto
     the enclosing simplex vertices, blur along the d+1 lattice axes, slice
-    back (the construction of ``native/tris_native.cpp::Permutohedral``)."""
+    back (the construction of ``native/csrc/tris_native.cpp::Permutohedral``)."""
 
     def __init__(self, features: np.ndarray):
         f = np.ascontiguousarray(features, np.float32)  # [n, d]
@@ -175,7 +181,7 @@ def _bilateral_features(image: np.ndarray, sxy: float, srgb: float) -> np.ndarra
 
 class _GaussianFilter(_NormalizedLatticeFilter):
     """Spatial Gaussian term via the lattice (the feature layout of
-    ``native/tris_native.cpp::tris_dense_crf_multi``)."""
+    ``native/csrc/tris_native.cpp::tris_dense_crf_multi``)."""
 
     def __init__(self, shape, sxy: float):
         super().__init__(_gaussian_features(shape[0], shape[1], sxy), shape)
@@ -186,6 +192,15 @@ class _BilateralFilter(_NormalizedLatticeFilter):
 
     def __init__(self, image: np.ndarray, sxy: float, srgb: float):
         super().__init__(_bilateral_features(image, sxy, srgb), image.shape[:2])
+
+
+BACKENDS = ("native", "numpy")
+
+
+def _check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"dense_crf: backend must be one of {BACKENDS}, got {backend!r}")
+    return backend
 
 
 def _softmax0(x: np.ndarray) -> np.ndarray:
@@ -203,12 +218,21 @@ def dense_crf_inference(
     bilateral_sxy: float = 50.0,
     bilateral_srgb: float = 5.0,
     bilateral_compat: float = 10.0,
+    backend: str = "native",
+    threads: int = 1,
 ) -> np.ndarray:
     """Mean-field dense CRF. image: [H, W, 3] uint8; unary: [L, H*W] -log p.
 
-    Returns Q [L, H, W]."""
+    Returns Q [L, H, W], from the native lattice (on ``threads`` OpenMP
+    threads) or, with ``backend="numpy"``, the numpy one."""
     h, w = image.shape[:2]
     L = unary.shape[0]
+    if _check_backend(backend) == "native":
+        from tris_tpu_torch import native
+
+        return native.crf.dense_crf_inference(
+            image, unary.reshape(L, h, w), n_iters, gaussian_sxy, gaussian_compat,
+            bilateral_sxy, bilateral_srgb, bilateral_compat, threads)
     u = unary.reshape(L, h, w).astype(np.float32)
     gauss = _GaussianFilter((h, w), gaussian_sxy)
     bilat = _BilateralFilter(image, bilateral_sxy, bilateral_srgb)
@@ -229,13 +253,22 @@ def dense_crf_inference_multi(
     bilateral_sxy: float = 50.0,
     bilateral_srgb: float = 5.0,
     bilateral_compat: float = 10.0,
+    backend: str = "native",
+    threads: int = 1,
 ) -> np.ndarray:
     """K independent mean-field problems over one image, sharing the lattice
     build and fusing the K*L filter channels. unaries: [K, L, H*W] -log p.
     Returns Q [K, L, H, W]. Roughly 1.7x faster than K separate calls for
-    K=2 (the cam_to_ir_label fg/bg pair, cam_to_ir_label.py:61-69)."""
+    K=2 (the cam_to_ir_label fg/bg pair, cam_to_ir_label.py:61-69).
+    ``backend`` and ``threads`` as :func:`dense_crf_inference`'s."""
     h, w = image.shape[:2]
     K, L = unaries.shape[:2]
+    if _check_backend(backend) == "native":
+        from tris_tpu_torch import native
+
+        return native.crf.dense_crf_inference_multi(
+            image, unaries.reshape(K, L, h, w), n_iters, gaussian_sxy, gaussian_compat,
+            bilateral_sxy, bilateral_srgb, bilateral_compat, threads)
 
     # the filters are shared across the K problems
     u = unaries.reshape(K, L, h, w).astype(np.float32)
@@ -256,10 +289,11 @@ def crf_inference_label(
     t: int = 10,
     n_labels: int = 2,
     gt_prob: float = 0.7,
+    backend: str = "native",
 ) -> np.ndarray:
     """Refine a hard label map (imutils.py:169-183). Returns argmax labels [H, W]."""
     unary = unary_from_labels(labels, n_labels, gt_prob)
-    Q = dense_crf_inference(image, unary, n_iters=t)
+    Q = dense_crf_inference(image, unary, n_iters=t, backend=backend)
     return np.argmax(Q, axis=0)
 
 
@@ -269,10 +303,11 @@ def crf_inference_label_multi(
     t: int = 10,
     n_labels: int = 2,
     gt_prob: float = 0.7,
+    backend: str = "native",
 ) -> np.ndarray:
     """Refine K hard label maps over the same image in one fused CRF run.
 
     label_maps: [K, H, W] -> argmax labels [K, H, W]."""
     unaries = np.stack([unary_from_labels(m, n_labels, gt_prob) for m in label_maps])
-    Q = dense_crf_inference_multi(image, unaries, n_iters=t)
+    Q = dense_crf_inference_multi(image, unaries, n_iters=t, backend=backend)
     return np.argmax(Q, axis=1)

@@ -36,7 +36,8 @@ def cam_to_ir_label(image: np.ndarray, cam: np.ndarray, conf_fg_thres: float = 0
     label map: 1 confident foreground, 0 confident background, 255
     uncertain (cam_to_ir_label.py:48-76 of the reference). The two seeds,
     the CAM padded with each threshold and argmaxed, are refined by one
-    fused CRF over the image."""
+    fused CRF over the image (the native lattice on one thread: the pass's
+    processes carry the parallelism)."""
     cams = np.maximum(cam, 0.0)[None]
 
     def seed_label(thres: float) -> np.ndarray:

@@ -6,9 +6,11 @@ Port of ``tris_tpu/pseudo/pipeline.py``:
   1. cam_to_ir_label: ``{cam_dir}/{name}.npy`` -> ``{ir_label_dir}/{name}.png``
      (the dense CRF on the host, in worker processes);
   2. train_irn: ir labels -> a trained IRNet, ``torch.save`` of its
-     ``state_dict`` to ``irn_weights`` (``.pth``), on one device;
+     ``state_dict`` to ``irn_weights`` (``.pth``), on one device or data
+     parallel over a process group;
   3. make_ins_seg: CAMs (at the original image size, from PRMS) and an
-     IRNet -> ``{ins_seg_dir}/{name}.npy`` dicts, on one device.
+     IRNet -> ``{ins_seg_dir}/{name}.npy`` dicts, the names strided over the
+     ranks of a process group and fanned out over the local devices.
 
 Image naming follows the reference (voc12/dataloader.py:117-188): names are
 ``{idx}_{img_id}``, resolving to ``COCO_train2014_{img_id:012d}.jpg`` or
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from tris_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from tris_tpu_torch.parallel import rank_world, wrap_ddp
 from tris_tpu_torch.utils.threads import threaded_in_order
 
 
@@ -99,11 +102,19 @@ def run_cam_to_ir_label(cfg: PseudoConfig, names: Optional[List[str]] = None,
     """The CRF labelling of every name on the host, in ``cfg.num_workers``
     spawned processes, as the reference's multiprocessing.spawn
     (cam_to_ir_label.py:82-92): a fork would copy a parent whose CUDA
-    context and thread pools the workers must not share."""
+    context and thread pools the workers must not share. The parent builds
+    the native library first; each worker's CRF runs on one OpenMP thread,
+    so that the workers do not oversubscribe the host. In a process group each rank labels every
+    world-th name from its rank, then waits for the others."""
     import multiprocessing
 
+    from tris_tpu_torch import native
+
     names = names if names is not None else load_names(cfg)
+    rank, world = rank_world()
+    names = names[rank::world]  # a process group's ranks stride the names
     os.makedirs(cfg.ir_label_dir, exist_ok=True)
+    native.build_library()  # once, here, before the workers load it
     tasks = [(cfg, n) for n in names]
     if parallel and len(names) > 1:
         with ProcessPoolExecutor(max_workers=min(cfg.num_workers, len(names)),
@@ -112,11 +123,13 @@ def run_cam_to_ir_label(cfg: PseudoConfig, names: Optional[List[str]] = None,
     else:
         for t in tasks:
             _ir_label_one(t)
+    if world > 1:
+        torch.distributed.barrier()  # every rank's labels are on disk before training
 
 
 def irn_train_batches(cfg: PseudoConfig, names: List[str], path_index, batch_size: int,
                       epochs: int, seed: int = 1234, num_threads: Optional[int] = None,
-                      labels: str = "device"):
+                      labels: str = "device", process_index: int = 0, process_count: int = 1):
     """Augmented IRN training batches as numpy, the reference's
     ``ReferAffinityDataset``: rescale by (0.5, 1.5), normalise, flip, random
     crop to ``cfg.crop_size`` (image padded with 0, label with 255), the
@@ -127,9 +140,16 @@ def irn_train_batches(cfg: PseudoConfig, names: List[str], path_index, batch_siz
     and yielded in order, so the host builds the next batches while the
     card trains. A short final batch wraps around to the epoch's first
     samples. Every batch's augmentations draw from their own stream, seeded
-    from (seed, epoch, batch), whatever the threads' timing. These are the
-    JAX pass's batches for process 0 of 1: its per-process slices belong
-    to data-parallel training, which the port does not have yet.
+    from (seed, epoch, batch, process), whatever the threads' timing.
+
+    Across ``process_count`` processes (data-parallel IRN training,
+    ``batch_size`` per process) process ``process_index`` takes every
+    ``process_count``-th name of the epoch's permutation from its own, cut
+    to ``n // process_count`` so that every process yields as many batches
+    (a step is a collective): the JAX pass's slices and batches. Where a
+    process's slice would be empty (more processes than names) this raises;
+    the JAX pass fills it with the whole permutation, so that process trains
+    on the others' examples (``ROADMAP.md`` §3).
 
     ``labels="device"`` yields ``image`` [B, crop, crop, 3] float32 and
     ``reduced_label`` [B, crop/4, crop/4] uint8, from which K8 builds the
@@ -145,17 +165,23 @@ def irn_train_batches(cfg: PseudoConfig, names: List[str], path_index, batch_siz
 
     num_threads = cfg.num_workers if num_threads is None else num_threads
     n = len(names)
-    nb_per_epoch = -(-n // batch_size)
+    local_n = n // process_count
+    if local_n == 0 and process_count > 1:
+        raise ValueError(f"irn_train_batches: {n} names leave process {process_index} of "
+                         f"{process_count} no examples")
+    nb_per_epoch = -(-local_n // batch_size)
 
     epoch_rng = np.random.default_rng(seed)
-    orders = [epoch_rng.permutation(n) for _ in range(epochs)]
+    orders = [epoch_rng.permutation(n)[process_index::process_count][:local_n]
+              for _ in range(epochs)]
 
     def make_batch(epoch: int, b: int) -> dict:
         order = orders[epoch]
         idxs = order[b * batch_size:(b + 1) * batch_size]
         if len(idxs) < batch_size:  # wrap the final short batch (tiled if n < batch_size)
             idxs = np.concatenate([idxs, np.resize(order, batch_size - len(idxs))])
-        rng = np.random.default_rng((seed * 1000003 + epoch * 131 + b) % (2 ** 63))
+        rng = np.random.default_rng(
+            (seed * 1000003 + epoch * 131 + b + process_index * 97003) % (2 ** 63))
         imgs, reduceds, bgs, fgs, negs = [], [], [], [], []
         for i in idxs:
             name = names[i]
@@ -212,9 +238,15 @@ def run_train_irn(cfg: PseudoConfig, names: Optional[List[str]] = None, epochs: 
     IRNet), ``epochs`` over ``names`` at ``batch_size``, then the mean-shift
     calibration over the top-left crops of the full batches of ``names``
     (it raises, as the JAX pass does, when ``names`` has fewer than
-    ``batch_size``), saved as a ``state_dict`` to ``cfg.irn_weights``.
-    Returns the model. The JAX pass's data parallelism over devices and
-    processes is not ported."""
+    ``batch_size``), saved as a ``state_dict`` to ``cfg.irn_weights`` (by
+    rank 0). Returns the model.
+
+    In a process group of several ranks the heads train under DDP, each rank
+    on its slice of the names (:func:`irn_train_batches`), ``batch_size``
+    per rank: a step is the JAX pass's step on the global batch. The trunk
+    is frozen (``FrozenBatchNorm``, GroupNorm), so no statistics cross the
+    ranks. Every rank calibrates on all the names, as every JAX process
+    does."""
     from tris_tpu_torch.device import resolve_device
     from tris_tpu_torch.pseudo.indexing import PathIndex
     from tris_tpu_torch.pseudo.irnet import IRNet
@@ -231,12 +263,17 @@ def run_train_irn(cfg: PseudoConfig, names: Optional[List[str]] = None, epochs: 
     model = model.to(dev).train()
     tcfg = IRNTrainConfig(crop_size=cfg.crop_size, radius=cfg.radius, lr=lr, epochs=epochs,
                           batch_size=batch_size)
-    max_step = -(-len(names) // batch_size) * epochs  # the short batch wraps
+    rank, world = rank_world()
+    max_step = -(-(len(names) // world) // batch_size) * epochs  # the short batch wraps
     opt, sched = make_irn_optimizer(model, tcfg, max(max_step, 1))
+    net = wrap_ddp(model, dev)
+    if world > 1:
+        log(f"irn train: DP over {world} processes (global batch {batch_size * world})")
 
     it = 0
-    for batch in irn_train_batches(cfg, names, path_index, batch_size, epochs):
-        metrics = train_step(model, opt, sched, path_index, batch_to_device(batch, dev))
+    for batch in irn_train_batches(cfg, names, path_index, batch_size, epochs,
+                                   process_index=rank, process_count=world):
+        metrics = train_step(net, opt, sched, path_index, batch_to_device(batch, dev))
         it += 1
         if it % 50 == 0:
             log(f"irn step {it}/{max_step} loss={float(metrics['loss']):.4f}")
@@ -244,9 +281,12 @@ def run_train_irn(cfg: PseudoConfig, names: Optional[List[str]] = None, epochs: 
     model.eval().requires_grad_(False)
     calibrate_mean_shift(model, (torch.as_tensor(x, device=dev).permute(0, 3, 1, 2)
                                  for x in calibration_images(cfg, names, batch_size)))
-    if os.path.dirname(cfg.irn_weights):
-        os.makedirs(os.path.dirname(cfg.irn_weights), exist_ok=True)
-    torch.save(model.state_dict(), cfg.irn_weights)
+    if rank == 0:
+        if os.path.dirname(cfg.irn_weights):
+            os.makedirs(os.path.dirname(cfg.irn_weights), exist_ok=True)
+        torch.save(model.state_dict(), cfg.irn_weights)
+    if world > 1:
+        torch.distributed.barrier()  # the weights are on disk before any rank reads them
     return model
 
 
@@ -327,34 +367,65 @@ def _ins_seg_worker(cfg: PseudoConfig, model, names: List[str], device, progress
 
 def run_make_ins_seg(cfg: PseudoConfig, model=None, names: Optional[List[str]] = None,
                      log=print, device="cuda", num_shards: Optional[int] = None,
-                     shard_idx: Optional[int] = None, depth: int = 1):
-    """Instance pseudo-masks for ``names`` (default: the names json), on one
-    device (``"cuda"`` unless the caller asks for the CPU), pipelined one
-    image deep (:func:`_ins_seg_worker`). ``model`` is an IRNet on that
-    device; without it, ``cfg.irn_weights`` is loaded. ``num_shards`` /
-    ``shard_idx`` take every ``num_shards``-th name from ``shard_idx`` (the
-    reference's strided ``split_dataset``); by default the
-    ``torch.distributed`` rank and world size when a group is initialised.
-    The JAX package's fan-out over the local devices is not ported."""
-    from tris_tpu_torch.cli.common import dist_rank_world
+                     shard_idx: Optional[int] = None, depth: int = 1, devices=None):
+    """Instance pseudo-masks for ``names`` (default: the names json),
+    pipelined one image deep (:func:`_ins_seg_worker`) on each device, as the
+    JAX pass fans out: the names strided first across the processes, then
+    across this process's devices, one worker thread a device. Outputs are
+    the serial pass's: each image's work is unchanged, only overlapped.
+
+    ``device``: ``"cuda"`` unless the caller asks for the CPU. ``devices``
+    (default: every local card on one process; in a process group of
+    several ranks, the rank's own card) are the devices the workers take.
+    ``model`` is an IRNet (copied to each device); without it,
+    ``cfg.irn_weights`` is loaded on each. ``num_shards`` / ``shard_idx``
+    take every ``num_shards``-th name from ``shard_idx`` (the reference's
+    strided ``split_dataset``); by default the ``torch.distributed`` rank
+    and world size when a group is initialised."""
+    import copy
+    import threading
+
     from tris_tpu_torch.device import resolve_device
     from tris_tpu_torch.pseudo.irnet import build_irnet
 
     dev = resolve_device(device)
     names = names if names is not None else load_names(cfg)
     if num_shards is None:
-        shard_idx, num_shards = dist_rank_world()
+        shard_idx, num_shards = rank_world()
     if num_shards > 1:
         names = names[shard_idx::num_shards]
-    if model is None:
-        model = build_irnet(cfg.irn_weights, dev)
+    if devices is None:
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" and rank_world()[1] == 1 and dev.index is None
+                   else [dev])
+    devices = [torch.device(d) for d in devices][:max(1, len(names))]
+    models = [build_irnet(cfg.irn_weights, d) if model is None
+              else model if next(model.parameters()).device == d
+              else copy.deepcopy(model).to(d) for d in devices]
     os.makedirs(cfg.ins_seg_dir, exist_ok=True)
     done = 0
+    lock = threading.Lock()
 
     def progress(name):
         nonlocal done
-        done += 1
-        if done % 50 == 0:
-            log(f"ins_seg {done}/{len(names)}")
+        with lock:
+            done += 1
+            if done % 50 == 0:
+                log(f"ins_seg {done}/{len(names)}")
 
-    _ins_seg_worker(cfg, model, names, dev, progress, depth=depth)
+    if len(devices) == 1:
+        _ins_seg_worker(cfg, models[0], names, devices[0], progress, depth=depth)
+        return
+    threads = torch.get_num_threads()
+
+    def worker(model, part, device):
+        # a new thread starts with the host's default intra-op thread count, which splits
+        # (and so rounds) the host ops' sums otherwise than the caller's setting would
+        torch.set_num_threads(threads)
+        _ins_seg_worker(cfg, model, part, device, progress, depth=depth)
+
+    with ThreadPoolExecutor(max_workers=len(devices)) as pool:
+        futures = [pool.submit(worker, m, names[d::len(devices)], dv)
+                   for d, (m, dv) in enumerate(zip(models, devices))]
+        for f in futures:
+            f.result()  # a worker's failure raises here

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from tris_tpu_torch import kernels as K
+from tris_tpu_torch import parallel
 from tris_tpu_torch.kernels.irn_loss import masked_sums, pair_labels_plain
 from tris_tpu_torch.pseudo.irnet import IRNet, affinity_displacement_losses
 
@@ -111,6 +112,11 @@ def irn_loss(model: IRNet, path_index, batch: dict) -> dict:
                                                                       path_index)
         masks = [batch[k].reshape(pos_aff.shape) for k in ("aff_bg_pos", "aff_fg_pos", "aff_neg")]
         sums, counts = masked_sums(pos_aff, neg_aff, dp_fg.flatten(2), dp_bg.flatten(2), *masks)
+    if parallel.distributed():
+        # the global batch's pair counts; the sums scaled by the ranks, so that DDP's average
+        # of the ranks' losses is the global batch's sum over its count, as the JAX step's
+        counts = parallel.all_reduce_sum(counts)
+        sums = sums * parallel.rank_world()[1]
     return losses_from_sums(sums, counts)
 
 
@@ -124,13 +130,14 @@ def batch_to_device(batch: dict, device) -> dict:
 
 def train_step(model: IRNet, opt, sched, path_index, batch: dict) -> dict:
     """One SGD step on a batch already on the device; returns the loss
-    terms as 0-d tensors (detached)."""
+    terms as 0-d tensors (detached; across the ranks of a group, the global
+    batch's). ``model`` may be under DDP (``parallel.wrap_ddp``)."""
     opt.zero_grad(set_to_none=True)
     metrics = irn_loss(model, path_index, batch)
     metrics["loss"].backward()
     opt.step()
     sched.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return parallel.mean_over_ranks({k: v.detach() for k, v in metrics.items()})
 
 
 @torch.no_grad()

@@ -53,8 +53,9 @@ extern "C" int s1_fwd(const float* vis, const float* lan, const float* scale, fl
                       const void* const* tx, unsigned long long* stamps, void* stream) {
   cudaError_t e = s1_set_stamps(stamps);
   if (e == cudaSuccess)
-    e = tris::stage1_head(vis, lan, scale, score, stats, cls_out, cls_fg, relu, sig, B, h, w, D,
-                          H, W, 3.f, 0.01f, taps(ty), taps(tx), (cudaStream_t)stream, nullptr);
+    e = tris::stage1_head(vis, lan, scale, score, stats, cls_out, cls_fg, relu, sig, B, B, 0, h,
+                          w, D, H, W, 3.f, 0.01f, taps(ty), taps(tx), (cudaStream_t)stream,
+                          nullptr);
   return (int)e;
 }
 extern "C" int s1_bwd(const float* g_cls, const float* g_sig, const float* vis, const float* lan,
@@ -66,12 +67,12 @@ extern "C" int s1_bwd(const float* g_cls, const float* g_sig, const float* vis, 
   const tris::TapRanges yr = {ry[0], ry[1], ry[2], ry[3]}, xr = {rx[0], rx[1], rx[2], rx[3]};
   if (e == cudaSuccess)
     e = tris::stage1_head_bwd(g_cls, nullptr, g_sig, vis, lan, scale, score, stats, d_vis, d_lan,
-                              B, h, w, D, H, W, 3.f, 0.01f, taps(ty), taps(tx), yr, xr,
+                              B, B, 0, h, w, D, H, W, 3.f, 0.01f, taps(ty), taps(tx), yr, xr,
                               (cudaStream_t)stream, nullptr);
   return (int)e;
 }
 extern "C" void s1_plan(int B, int h, int w, int D, int H, int W, int backward, long long* out) {
-  const tris::Stage1HeadPlan p = tris::stage1_head_plan(B, h, w, D, H, W, backward != 0);
+  const tris::Stage1HeadPlan p = tris::stage1_head_plan(B, B, h, w, D, H, W, backward != 0);
   out[0] = p.ranks;
   out[1] = p.blocks;
   out[2] = p.smem;

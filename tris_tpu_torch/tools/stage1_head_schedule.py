@@ -12,7 +12,9 @@ The constants are read from ``csrc/launchers.h``, the kernels' own source of
 them; :func:`plan` is that file's ``stage1_head_plan``.
 
 The forward: image b is a cluster of R ranks; rank r forms the scores of pixels
-[r hw / R, (r + 1) hw / R) (:func:`share`) against the T = B texts, a tile of
+[r hw / R, (r + 1) hw / R) (:func:`share`) against the T texts (T = B on one
+process; a rank's images against the global batch's texts in a process group,
+image b's own text at b + offset), a tile of
 56 pixels by 48 texts a pass, a lane 14 pixels by 6 texts
 (:func:`score_tiles`); the block's warps split the channels by groups of 4,
 each score ``scale * sum`` with sum the warps' fmaf chains over their groups
@@ -63,8 +65,11 @@ def _round(n: int, m: int) -> int:
     return _ceil(n, m) * m
 
 
-def plan(B: int, h: int, w: int, D: int, H: int, W: int, backward: bool = False) -> dict:
-    """``launchers.h::stage1_head_plan``: the launch for ``B`` images."""
+def plan(B: int, h: int, w: int, D: int, H: int, W: int, backward: bool = False,
+         T: int = None) -> dict:
+    """``launchers.h::stage1_head_plan``: the launch for ``B`` images and ``T``
+    texts (default ``B``)."""
+    T = B if T is None else T
     k = constants()
     hw = h * w
     wave = k["kStage1HeadBwdWaveBlocks" if backward else "kStage1HeadWaveBlocks"]
@@ -80,17 +85,17 @@ def plan(B: int, h: int, w: int, D: int, H: int, W: int, backward: bool = False)
         stage = (tp + tt) * (k["kStage1HeadChunk"] + k["kStage1HeadPad"])
         after = max(2 * vec_hw + trows, k["kStage1HeadKSplit"] * tp * tt)
         for stages in range(k["kStage1HeadStages"], 1, -1):
-            floats = _round(hw * B, 4) + max(stages * stage, after)
+            floats = _round(hw * T, 4) + max(stages * stage, after)
             if 4 * floats <= k["kStage1HeadMaxSmem"]:
                 break
     else:
         seg = map_groups(W) * h * (W | 1)
-        grads = B * _round(hw, 8) + 4 * k["kStage1HeadGradStages"] * k["kStage1HeadGradChunk"] * (
+        grads = T * _round(hw, 8) + 4 * k["kStage1HeadGradStages"] * k["kStage1HeadGradChunk"] * (
             _ceil(D // 4, R))
-        floats = hw * _round(B, 8) + 6 * vec_hw + 3 * _round(B, 4) + trows + max(seg, grads)
+        floats = hw * _round(T, 8) + 6 * vec_hw + 3 * _round(T, 4) + trows + max(seg, grads)
     return {"ranks": R, "threads": k["kStage1HeadThreads"], "pixels": pixels,
             "band_rows": band, "vec": 4 if W % 4 == 0 else 1,
-            "passes": 0 if backward else _ceil(pixels, tp) * _ceil(B, tt),
+            "passes": 0 if backward else _ceil(pixels, tp) * _ceil(T, tt),
             "stages": stages, "groups": _ceil(D // 4, R) if backward else 0, "blocks": B * R,
             "smem_bytes": 4 * floats}
 
@@ -164,9 +169,9 @@ def upsample_rows(own, out_hw, rows):
     return wx0 * t[..., xlo] + wx1 * t[..., xhi]
 
 
-def _diagonal(score):
+def _diagonal(score, offset: int = 0):
     B = score.shape[0]
-    return score[np.arange(B), :, np.arange(B)]          # [B, hw]: score[b, :, b]
+    return score[np.arange(B), :, np.arange(B) + offset]  # [B, hw]: score[b, :, b + offset]
 
 
 def _softmax(score):
@@ -178,30 +183,31 @@ def _softmax(score):
 
 
 def emulate_forward(vis, lan, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float,
-                    score_visits=None, row_visits=None):
+                    score_visits=None, row_visits=None, offset: int = 0):
     """The kernel's ``(score [B, hw, T], cls_out [B, T], cls_fg [B], relu_map,
-    sig_map [B, H, W])`` (numpy float32). ``score_visits`` [B, hw, T] and
-    ``row_visits`` [B, H], where given, count each score formed and each output
-    row written, by any rank's any thread."""
+    sig_map [B, H, W])`` (numpy float32), image b's own text ``b + offset``.
+    ``score_visits`` [B, hw, T] and ``row_visits`` [B, H], where given, count
+    each score formed and each output row written, by any rank's any thread."""
     (h, w), (H, W) = hw_shape, out_hw
     vis, lan = np.asarray(vis, np.float32), np.asarray(lan, np.float32)
     B, hw, D = vis.shape
+    T = lan.shape[1]
     scale = np.float32(scale)
-    R = plan(B, h, w, D, H, W)["ranks"]
-    score = np.full((B, hw, B), np.nan, np.float32)
+    R = plan(B, h, w, D, H, W, T=T)["ranks"]
+    score = np.full((B, hw, T), np.nan, np.float32)
     for rank in range(R):
         px = share(hw, R, rank)
         score[:, px.start:px.stop] = scale * split_chain(vis[:, px.start:px.stop], lan)
         if score_visits is not None:
-            for pixels, texts in score_tiles(len(px), B):
+            for pixels, texts in score_tiles(len(px), T):
                 score_visits[:, np.asarray(pixels, np.int64)[:, None] + px.start,
                              np.asarray(texts, np.int64)[None]] += 1
     masks = _softmax(score)
     mbar = masks.mean(1)
     cls_out = (score.mean(1) + score.max(1)
                + np.power(1 - mbar, np.float32(focal_p)) * np.log(np.float32(focal_lambda) + mbar))
-    cls_fg = mbar[np.arange(B), np.arange(B)]
-    own = _diagonal(score).reshape(B, h, w)
+    cls_fg = mbar[np.arange(B), np.arange(B) + offset]
+    own = _diagonal(score, offset).reshape(B, h, w)
     relu = np.full((B, H, W), np.nan, np.float32)
     sig = np.full((B, H, W), np.nan, np.float32)
     for rank in range(R):
@@ -224,14 +230,14 @@ def adjoint_ranges(in_size: int, out_size: int):
         np.searchsorted(hi, idx, "left"), np.searchsorted(hi, idx, "right"))]
 
 
-def down(score, g_relu, g_sig, hw_shape, out_hw, R: int, row_visits=None):
+def down(score, g_relu, g_sig, hw_shape, out_hw, R: int, row_visits=None, offset: int = 0):
     """d seg onto the [h, w] plane [B, hw]: rank r's band cut into the row groups' sub-bands,
     each streamed in order onto the h rows (row y's lo tap, then its hi tap, an fmaf each),
     the groups' sums added in order, each h row reduced onto the w columns (the column
     adjoint's lo range, then its hi range); the ranks' partials added in rank order."""
     (h, w), (H, W) = hw_shape, out_hw
     B = score.shape[0]
-    own = _diagonal(score).reshape(B, h, w)
+    own = _diagonal(score, offset).reshape(B, h, w)
     ylo, yhi, wy0, wy1 = interp_taps(h, H, False)
     _, _, wx0, wx1 = interp_taps(w, W, False)
     cols = adjoint_ranges(w, W)
@@ -273,10 +279,10 @@ def down(score, g_relu, g_sig, hw_shape, out_hw, R: int, row_visits=None):
     return out
 
 
-def dscore(g_cls, score, seg_grad, focal_p: float, focal_lambda: float):
+def dscore(g_cls, score, seg_grad, focal_p: float, focal_lambda: float, offset: int = 0):
     """d score [B, hw, T] from d cls_out [B, T] and d seg on the plane [B, hw]:
     the mean's, the first argmax's (the whole GMP gradient), the focal term's
-    through the softmax, and the diagonal's."""
+    through the softmax, and the own texts' (``b + offset``)."""
     g_cls = np.asarray(g_cls, np.float32)
     B, hw, T = score.shape
     fp, fc = np.float32(focal_p), np.float32(focal_lambda)
@@ -290,12 +296,13 @@ def dscore(g_cls, score, seg_grad, focal_p: float, focal_lambda: float):
     am = score.argmax(1)                                  # the first argmax a text
     bb, qq = np.meshgrid(np.arange(B), np.arange(T), indexing="ij")
     ds[bb, am, qq] += g_cls
-    ds[np.arange(B), :, np.arange(B)] += seg_grad
+    ds[np.arange(B), :, np.arange(B) + offset] += seg_grad
     return ds.astype(np.float32)
 
 
 def emulate_backward(g_cls, g_relu, g_sig, vis, lan, scale, score, hw_shape, out_hw,
-                     focal_p: float, focal_lambda: float, row_visits=None, group_visits=None):
+                     focal_p: float, focal_lambda: float, row_visits=None, group_visits=None,
+                     offset: int = 0):
     """The kernel's ``(d_vis [B, hw, D], d_lan [B, T, D])`` (numpy float32) from
     ``d cls_out``, ``d relu_map`` and ``d sig_map`` (either may be None) and
     the forward's ``score``. ``row_visits`` [B, H] and ``group_visits``
@@ -304,10 +311,10 @@ def emulate_backward(g_cls, g_relu, g_sig, vis, lan, scale, score, hw_shape, out
     (h, w), (H, W) = hw_shape, out_hw
     vis, lan = np.asarray(vis, np.float32), np.asarray(lan, np.float32)
     B, hw, D = vis.shape
-    R = plan(B, h, w, D, H, W, backward=True)["ranks"]
-    seg_grad = (down(score, g_relu, g_sig, hw_shape, out_hw, R, row_visits)
+    R = plan(B, h, w, D, H, W, backward=True, T=lan.shape[1])["ranks"]
+    seg_grad = (down(score, g_relu, g_sig, hw_shape, out_hw, R, row_visits, offset)
                 if g_relu is not None or g_sig is not None else np.zeros((B, hw), np.float32))
-    ds = dscore(g_cls, score, seg_grad, focal_p, focal_lambda)
+    ds = dscore(g_cls, score, seg_grad, focal_p, focal_lambda, offset)
     scale = np.float32(scale)
     d_vis = np.full(vis.shape, np.nan, np.float32)
     d_lan = np.full(lan.shape, np.nan, np.float32)
@@ -323,11 +330,12 @@ def emulate_backward(g_cls, g_relu, g_sig, vis, lan, scale, score, hw_shape, out
 
 class _Emulated(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vis_p, lan_p, scale, h, w, H, W, focal_p, focal_lambda):
+    def forward(ctx, vis_p, lan_p, scale, h, w, H, W, focal_p, focal_lambda, offset):
         score, *outs = emulate_forward(vis_p.detach().numpy(), lan_p.detach().numpy(),
-                                       float(scale), (h, w), (H, W), focal_p, focal_lambda)
+                                       float(scale), (h, w), (H, W), focal_p, focal_lambda,
+                                       offset=offset)
         ctx.save_for_backward(vis_p, lan_p)
-        ctx.args = (float(scale), score, (h, w), (H, W), focal_p, focal_lambda)
+        ctx.args = (float(scale), score, (h, w), (H, W), focal_p, focal_lambda, offset)
         cls_out, cls_fg, relu_map, sig_map = (torch.from_numpy(o) for o in outs)
         ctx.mark_non_differentiable(cls_fg)
         ctx.set_materialize_grads(False)
@@ -336,20 +344,21 @@ class _Emulated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_cls, _g_fg, g_relu, g_sig):
         vis_p, lan_p = ctx.saved_tensors
-        scale, score, hw_shape, out_hw, fp, fc = ctx.args
-        B = score.shape[0]
-        g_cls = np.zeros((B, B), np.float32) if g_cls is None else g_cls.numpy()
+        scale, score, hw_shape, out_hw, fp, fc, offset = ctx.args
+        B, _, T = score.shape
+        g_cls = np.zeros((B, T), np.float32) if g_cls is None else g_cls.numpy()
         d_vis, d_lan = emulate_backward(
             g_cls, None if g_relu is None else g_relu.numpy(),
             None if g_sig is None else g_sig.numpy(), vis_p.detach().numpy(),
-            lan_p.detach().numpy(), scale, score, hw_shape, out_hw, fp, fc)
-        return torch.from_numpy(d_vis), torch.from_numpy(d_lan), *([None] * 7)
+            lan_p.detach().numpy(), scale, score, hw_shape, out_hw, fp, fc, offset=offset)
+        return torch.from_numpy(d_vis), torch.from_numpy(d_lan), *([None] * 8)
 
 
-def emulated_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float):
+def emulated_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float,
+                  offset: int = 0):
     """``kernels.stage1_head`` as the kernels compute it, on CPU float32
     tensors: forward and backward emulated (``scale`` gets no gradient, as
     from the kernels)."""
     (h, w), (H, W) = hw_shape, out_hw
     return _Emulated.apply(vis_p, lan_p.contiguous(), scale.detach().reshape(()), h, w, H, W,
-                           float(focal_p), float(focal_lambda))
+                           float(focal_p), float(focal_lambda), int(offset))

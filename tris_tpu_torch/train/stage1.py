@@ -15,6 +15,13 @@ The critic's parameters get no gradient (``requires_grad_(False)``), but the
 gradient flows through its vision tower's activations into the response
 map. Its text tower has no trainable input, so it runs without autograd.
 
+Across the ranks of a process group (``tris_tpu_torch.parallel``), with the
+model under DDP: each rank's loss is the mean over its own images against
+the global batch's texts, the ``l4`` target the identity offset by ``rank *
+B``; DDP averages the gradients, so the step is the JAX package's one step
+on the global batch (``l1``, ``l4`` and ``l5`` are means over images). The
+metrics returned are the ranks' mean, the global batch's.
+
 The JAX package's ``chain > 1`` (a ``lax.scan`` of several steps in one XLA
 program, to amortise TPU dispatch for ``bench.py``) has no counterpart in
 eager PyTorch and is not ported.
@@ -27,7 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tris_tpu_torch import kernels, losses
+from tris_tpu_torch import kernels, losses, parallel
 from tris_tpu_torch.device import to_device
 from tris_tpu_torch.eval.validate import image_to_nchw
 from tris_tpu_torch.train.state import apply_gradients
@@ -75,7 +82,9 @@ def stage1_loss(model, critic, batch: dict, weights: Stage1LossWeights):
     else:
         l5 = img_feat.new_zeros(())
     l1 = losses.max_loss(losses.clip_similarity(img_feat, txt_feat))
-    l4 = losses.multilabel_soft_margin_loss(cls_out, torch.eye(B, device=cls_out.device))
+    target = torch.zeros_like(cls_out)                  # [B, T]: image b's own text rank * B + b
+    target[torch.arange(B), parallel.rank_world()[0] * B + torch.arange(B)] = 1.0
+    l4 = losses.multilabel_soft_margin_loss(cls_out, target)
     loss = weights.w1 * l1 + weights.w4 * l4 + weights.w5 * l5
     metrics = {"loss": loss, "l1": l1, "l4": l4, "l5": l5, "cls_fg": cls_fg.mean()}
     return loss, {k: v.detach() for k, v in metrics.items()}
@@ -85,11 +94,12 @@ def train_step(model, critic, optimizer, scheduler, batch: dict,
                weights: Stage1LossWeights = Stage1LossWeights()) -> dict:
     """One optimizer step on a batch of device tensors; returns the metrics
     as 0-d device tensors (reading them waits for the step). The gradients
-    stay in ``p.grad`` until the next step."""
+    stay in ``p.grad`` until the next step. ``model`` may be under DDP
+    (``parallel.wrap_ddp``)."""
     model.train()
     critic.eval()
     model.zero_grad(set_to_none=True)      # logit_scale's too, which no group holds
     loss, metrics = stage1_loss(model, critic, batch, weights)
     loss.backward()
     apply_gradients(optimizer, scheduler)
-    return metrics
+    return parallel.mean_over_ranks(metrics)

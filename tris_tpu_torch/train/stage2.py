@@ -22,6 +22,15 @@ train_stage2.py:271-374):
   so the gate is a host ``if``: on skipped steps K12 is not launched and
   neither tree is read, as JAX's ``lax.cond`` skips them.
 
+Across the ranks of a process group, the student runs under DDP
+(``state.ddp``) and every BatchNorm in train mode, the teacher's included,
+takes the global batch's statistics (``kernels/batch_norm.py``), as the JAX
+package's one program over the global batch does; each rank's losses are
+means over its own equal share, so DDP's average of the gradients is the
+global mean's, and the teacher, updated from the same student on every
+rank, stays the same on every rank. The metrics returned are the ranks'
+mean.
+
 The JAX package's ``chain > 1`` has no counterpart here, as in stage 1.
 """
 
@@ -36,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tris_tpu_torch import losses
+from tris_tpu_torch import losses, parallel
 from tris_tpu_torch.device import to_device
 from tris_tpu_torch.eval.validate import image_to_nchw
 from tris_tpu_torch.train.state import TrainState, apply_gradients, ema_update
@@ -114,14 +123,15 @@ def train_step(state: TrainState, batch: dict, cfg: Stage2TrainConfig = Stage2Tr
     gate; returns the metrics as 0-d device tensors (reading them waits for
     the step). The gradients stay in ``p.grad`` until the next step."""
     model, teacher = state.model, state.ema
-    model.train()
+    net = model if state.ddp is None else state.ddp
+    net.train()
     if teacher is not None:
         teacher.train()
     model.zero_grad(set_to_none=True)
-    loss, metrics = stage2_loss(model, teacher, batch, cfg)
+    loss, metrics = stage2_loss(net, teacher, batch, cfg)
     loss.backward()
     apply_gradients(state.optimizer, state.scheduler)
     state.step += 1
     if cfg.use_ema and teacher is not None:
         update_teacher(state, cfg)
-    return metrics
+    return parallel.mean_over_ranks(metrics)

@@ -119,6 +119,9 @@ class TrainState:
     step: int = 0
     ema: Optional[nn.Module] = None
     ema_table: Optional[kernels.EmaTable] = None
+    # the model under DDP in a process group of several ranks (parallel.wrap_ddp), which the
+    # train step runs forward; None on one process
+    ddp: Optional[nn.Module] = None
 
 
 def ema_leaves(model: nn.Module) -> List[torch.Tensor]:
