@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--report PATH]
 
 Run from the root of a checkout. Phases, in order; an error stops the run,
-and a failed check of phases 3-12 exits 1 once all have run (so the report
+and a failed check of phases 3-13 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
@@ -41,7 +41,14 @@ holds every number):
              maps; K13's BatchNorm with its activation at the RN50 trunk's
              and stage 2's shapes, train forward and backward, the teacher's
              batch statistics and the eval fold, against the JAX package's
-             arithmetic and float64), with its stated tolerance;
+             arithmetic and float64); the four bfloat16 kernels of ``--bf16``
+             (K1 at the text tower's bfloat16 q, k, v; K2 and K3's eval head at
+             response_maps' shapes on both leaf regimes' operands; K13's eval
+             fold at the B=8 stem, layer1's and layer4's tails and a
+             downsample), each one's and its plain version's distance from a
+             float64 evaluation of the same bfloat16 inputs, the kernel's
+             within one bfloat16 ulp of the output's scale of the plain
+             version's, with its stated tolerance;
              device times of kernel, plain version and, where one exists, the
              one PyTorch call computing the same thing; the least time the card
              could take (bytes or operations over the published peak: FP32, and
@@ -97,7 +104,8 @@ holds every number):
              over ``ROUNDS``; then the user's chain as CLI processes on a
              fake RefCOCO tree: ``cli.train_stage1`` (one epoch) ->
              ``cli.validate --prms --save_cam`` -> ``cli.irnet`` with its
-             three passes -> ``cli.train_stage2 --model_ema`` (one epoch, on
+             three passes (after ``cli.validate --prms --bf16`` on the same
+             checkpoint) -> ``cli.train_stage2 --model_ema`` (one epoch, on
              the pseudo-masks the chain wrote) -> ``cli.validate --stage 2``,
              and the files each leaves;
 9. stage 2 - full-width RN50 stage 2 (seeded) at B=48, 320 px, u8, random
@@ -140,7 +148,17 @@ holds every number):
              and the reference; stage-1, stage-2 and IRN steps at full width,
              2 x half the batch, against one process on the whole batch:
              losses, gradients against their measured noise, launches), then
-             a one-process NCCL group.
+             a one-process NCCL group;
+13. bf16   - ``--bf16`` at full width on phase 4's batches: stage 1 in
+             bfloat16 on its seeded init (the 15 leaf kinds bfloat16) and on
+             the float32 model's weights loaded (every leaf float32);
+             ``validate`` and ``validate_prms`` under reset counters (K13's,
+             K2's and K3's bfloat16 kernels launched, K1's on bfloat16
+             leaves, K13's eval fold at every norm), the maps of a batch
+             against the plain bfloat16 route within ``BF16_MAPS_SHARE`` of
+             the float32-bfloat16 gap of the same run, the metrics beside
+             float32's, PRMS's selection against float32's, and one run
+             each of ``validate``'s host ms a batch, bfloat16 and float32.
 
 Prints the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``--report`` writes a fuller JSON report
@@ -261,6 +279,7 @@ BN_BOTH_DESIGNS = ("batch_norm@layer1",)
 # is also the FP64 tensor cores' peak (67 TFLOP/s both): the rate of K10's products
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12  # the bfloat16 tensor cores' dense peak: the bound of --bf16's rows
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of card time queued ahead of a timed run
 
 
@@ -333,10 +352,10 @@ def spread(times) -> dict:
             "n": len(times)}
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_ops: float = PEAK_F32_S):
     """The least time the card could take: bytes over the memory rate or
-    FP32 operations over the FP32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
+    operations over their type's peak (FP32 unless given), whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1875,6 +1894,171 @@ def check_batch_norm_kernels(K, dev):
                        "tris_tpu/models/layers.py:219", bwd[0], bwd[1:])]
     torch.cuda.empty_cache()
     return rows, plans, failures
+
+
+# ---- phase 3: the bfloat16 kernels (--bf16) -------------------------------------
+
+
+def bf16_ulp(scale: float) -> float:
+    """One bfloat16 ulp at ``scale`` (8 bits of precision)."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def check_bf16_kernels(K, dev):
+    """The four bfloat16 kernels of ``--bf16`` (stage-1 eval and PRMS) at
+    phase 13's shapes, against their plain versions (which also take
+    bfloat16) on the same bfloat16 inputs: each one's and the plain
+    version's max distance from a float64 evaluation of those inputs, the
+    kernel's no more than one bfloat16 ulp of the output's scale past the
+    plain version's (K13's fold also bit for bit to its plain version);
+    device ms of kernel and plain version, the bound at the inputs' and
+    outputs' widths (bytes over the memory rate, or operations over the
+    bfloat16 rate), and the library call in bfloat16 (SDPA for K1 and K2,
+    ``F.batch_norm`` for K13; none computes K3's). Rows ``mha_short.bf16``
+    (the text tower on bfloat16 leaves), ``cross_attn.bf16`` (bfloat16
+    leaves; float32 ones as a shape), ``response_head.bf16`` (likewise) and
+    ``batch_norm.bf16`` (the stem, a bottleneck's tails, a downsample)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.kernels import build
+    from tris_tpu_torch.models.layers import causal_mask
+    from tris_tpu_torch.ops.dtypes import weak
+
+    bf, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(20)
+    failures = []
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+
+    def d64(name, got, plain, want64, what=None):
+        """(kernel's and plain's distance from float64, the bar); a failure
+        when the kernel's passes the plain version's by more than one ulp"""
+        scale = float(want64.abs().max())
+        e_k, e_p = max_err(got, want64), max_err(plain, want64)
+        tol = e_p + bf16_ulp(scale)
+        if not e_k <= tol:
+            failures.append(f"{name}{what or ''}: {e_k} from float64 > the plain version's "
+                            f"{e_p} + one bfloat16 ulp of {scale}")
+        return e_k, e_p, tol, scale
+
+    def row(name, got, plain, want64, ms, plain_ms, nbytes, flops, library_ms, **extra):
+        e_k, e_p, tol, scale = d64(name, got, plain, want64)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_S)
+        r = {"name": name, "max_abs_err": e_k, "tol": tol, "max_abs_err_plain": e_p,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": library_ms, "output_scale": scale,
+             "max_abs_err_vs_plain": max_err(got, plain), **extra}
+        log(f"kernel {name}: float64 distance {e_k:.3g} (plain {e_p:.3g}, bar {tol:.3g}) ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
+            f"{library_ms}")
+        return r
+
+    # K13's eval fold at stage-1 eval's B = 8: the stem's first norm, layer1's and layer4's
+    # tails (the residual then ReLU), layer1's downsample (no activation)
+    fold_rows = []
+    for name, shape, act, with_res in (
+            ("batch_norm.bf16", (B, 32, 160, 160), "relu", False),
+            ("batch_norm.bf16@layer1_tail", (B, 256, 80, 80), "relu", True),
+            ("batch_norm.bf16@layer4_tail", (B, 2048, 10, 10), "relu", True),
+            ("batch_norm.bf16@layer1_downsample", (B, 256, 80, 80), "none", False)):
+        C = shape[1]
+        x = randn(*shape, scale=1.5)
+        res = randn(*shape) if with_res else None
+        w, b = 1 + 0.3 * randn(C, dtype=f32), 0.5 * randn(C, dtype=f32)
+        rm, rv = randn(C, dtype=f32), 0.5 + torch.rand(C, generator=g, device=dev)
+        kw = dict(training=False, update_stats=False, momentum=0.1, eps=1e-5, act=act)
+        call = lambda x=x, res=res: K.batch_norm_act(x, w, b, rm, rv, residual=res, **kw)  # noqa: E731
+        plain = lambda x=x, res=res: K.batch_norm_act_plain(x, w, b, rm, rv, residual=res, **kw)  # noqa: E731
+        got, want = call(), plain()
+        want64 = K.batch_norm_act_plain(x.double(), w, b, rm, rv, residual=None if res is None
+                                        else res.double(), **kw)
+        lib = lambda x=x: F.batch_norm(x, rm, rv, w, b, False, 0.1, 1e-5)  # noqa: E731
+        n = x.numel()
+        exact = bool(torch.equal(got, want))
+        if not exact:
+            failures.append(f"{name}: not bit for bit its plain version")
+        fold_rows.append(row(name, got, want, want64, device_ms(call), device_ms(plain),
+                             2 * (n * (2 + with_res) + 2 * C), n * (2 + with_res),
+                             device_ms(lib), shape=list(shape), act=act, residual=with_res,
+                             exact=exact,
+                             launch_shape=dict(build.ops().batch_norm_launch_shape(
+                                 "batch_norm_fold_bf16"))))
+
+    # K1 on the text tower's bfloat16 q, k, v (bfloat16 leaves): N = B*S, L = 20, C = 512,
+    # 8 heads, the float32 causal mask; out float32
+    N, C, H = B * S, 512, 8
+    q, k, v = randn(N, TXT_LEN, 3 * C).chunk(3, dim=-1)
+    mask = causal_mask(TXT_LEN, device=dev)
+    call = lambda: K.mha_short(q, k, v, H, mask)  # noqa: E731
+    plain = lambda: K.mha_short_plain(q, k, v, H, mask)  # noqa: E731
+    got, want = call(), plain()
+    want64 = K.mha_short_plain(q.double(), k.double(), v.double(), H, mask.double())
+    mask_bf = mask.to(bf)
+    k1 = row("mha_short.bf16", got, want, want64, device_ms(call), device_ms(plain),
+             2 * 3 * N * TXT_LEN * C + 4 * TXT_LEN * TXT_LEN + 4 * N * TXT_LEN * C,
+             4 * N * TXT_LEN * TXT_LEN * C, device_ms(lambda: sdpa(q, k, v, H, mask_bf)),
+             shape=[N, TXT_LEN, C, H], causal=True, out_dtype=str(got.dtype),
+             launch_shape=K.mha_short_launch_shape("mha_short_bf16"))
+
+    # K2 at response_maps' shape, 8 images x 4 pairs, T = 1: all bfloat16 (bfloat16 leaves)
+    # and float32 vision with bfloat16 text (float32 leaves)
+    hw, m, P = (SIZE // 32) ** 2, 1024, B * S
+    div = math.sqrt(m)
+    k2_rows = []
+    for name, vis_dt in (("cross_attn.bf16", bf), ("cross_attn.bf16@f32_leaves", f32)):
+        qv, kv, vv = (torch.relu(randn(B, hw, m, dtype=vis_dt)) for _ in range(3))
+        qt, kt, vt = (torch.relu(randn(P, 1, m)) for _ in range(3))
+        args = (qv, kv, vv, qt, kt, vt, S, div)
+        got, want = K.cross_attn(*args), K.cross_attn_plain(*args)
+        want64 = K.cross_attn_plain(*(t.double() for t in args[:6]), S, div)
+        vis_e = d64(name, got[0], want[0], want64[0], " new_vis")
+        lib_args = tuple(t.to(bf) for t in args[:6]) + (S, div)
+        vb, ob = (2 if vis_dt == bf else 4), (2 if vis_dt == bf else 4)
+        k2_rows.append(row(name, got[1], want[1], want64[1],
+                           device_ms(lambda: K.cross_attn(*args)),
+                           device_ms(lambda: K.cross_attn_plain(*args)),
+                           vb * 3 * B * hw * m + 2 * 3 * P * m + ob * (P * hw * m + P * m),
+                           2 * 2 * P * hw * m * 2, device_ms(lambda: k2_sdpa(*lib_args)),
+                           shape=[B, S, hw, m, 1], vision_dtype=str(vis_dt),
+                           out_dtype=str(got[0].dtype), new_vis_max_abs_err_f64=vis_e[0],
+                           new_vis_max_abs_err_plain_f64=vis_e[1],
+                           launch_shape=K.cross_attn_launch_shape("cross_attn_bf16")))
+
+    # K3 at response_maps' shape, 32 pairs, D = 1024, 10x10 -> 320x320: bfloat16 vis_new
+    # (bfloat16 leaves) and float32 vis_new (float32 leaves); maps float32
+    D, hs = 1024, SIZE // 32
+    vis_base = F.normalize(randn(B, hw, D, dtype=f32), dim=-1).to(bf)
+    lan = F.normalize(randn(P, D, dtype=f32), dim=-1).to(bf)
+    scale = torch.tensor(1 / 0.07, device=dev)
+    k3_rows = []
+    for name, new_dt in (("response_head.bf16", bf), ("response_head.bf16@f32_leaves", f32)):
+        vis_new = randn(P, hw, D, dtype=new_dt, scale=0.03)
+        alpha = weak(0.1, new_dt)
+        args = (vis_new, vis_base, lan, S, scale, alpha, (hs, hs), (SIZE, SIZE))
+        got, want = K.response_head(*args), K.response_head_plain(*args)
+        want64 = K.response_head_plain(vis_new.double(), vis_base.double(), lan.double(), S,
+                                       scale.double(), alpha, (hs, hs), (SIZE, SIZE))
+        nb = 2 if new_dt == bf else 4
+        k3_rows.append(row(name, got, want, want64,
+                           device_ms(lambda: K.response_head(*args)),
+                           device_ms(lambda: K.response_head_plain(*args)),
+                           nb * P * hw * D + 2 * (B * hw * D + P * D) + 4 * P * SIZE * SIZE,
+                           P * hw * D * 4 + P * SIZE * SIZE * 7, None,
+                           shape=[B, S, hw, D, SIZE], vis_new_dtype=str(new_dt),
+                           launch_shape=K.response_head_launch_shape()))
+    rows = [
+        kernel_row("mha_short.bf16", "tris_tpu_torch/kernels/csrc/mha_short.cu",
+                   "tris_tpu/models/layers.py:25", k1),
+        kernel_row("cross_attn.bf16", "tris_tpu_torch/kernels/csrc/cross_attn.cu",
+                   "tris_tpu/models/fusion.py:78", k2_rows[0], k2_rows[1:]),
+        kernel_row("response_head.bf16", "tris_tpu_torch/kernels/csrc/response_head.cu",
+                   "tris_tpu/models/stage1.py:158", k3_rows[0], k3_rows[1:]),
+        kernel_row("batch_norm.bf16", "tris_tpu_torch/kernels/csrc/batch_norm.cu",
+                   "tris_tpu/models/layers.py:213", fold_rows[0], fold_rows[1:])]
+    torch.cuda.empty_cache()
+    return rows, failures
 
 
 # ---- phase 4: the main path ------------------------------------------------
@@ -3473,6 +3657,117 @@ def dp_path():
     return summary, failures
 
 
+# ---- phase 13: --bf16 stage-1 eval and PRMS ---------------------------------------------------
+
+# the bfloat16 kernels every --bf16 eval launches; K1's bfloat16 kernel on bfloat16 leaves only
+# (on float32 leaves the text stream is float32 and K1 runs in float32)
+BF16_KERNELS = ("batch_norm.bf16", "cross_attn.bf16", "response_head.bf16")
+# the maps of the kernel route against the plain bfloat16 route, as a share of the gap between
+# the plain bfloat16 route and the float32 model in the same run: the routes differ in K1's,
+# K2's and K3's sums before their bfloat16 roundings (K13 is bit for bit), so a rounding may
+# flip by one ulp where the sums straddle it, and the flips spread downstream, through the
+# bfloat16 text tower most (0.39 and 0.20 of the gap on bfloat16 and float32 leaves, H100
+# 80GB HBM3); a route that computed in float32 would sit at the whole gap
+BF16_MAPS_SHARE = 0.5
+
+
+def bf16_path(K, dev, batches):
+    """``--bf16`` at full width on phase 4's batches, in both leaf regimes: the
+    seeded bfloat16 init (its 15 leaf kinds bfloat16) and the float32
+    model's weights loaded into the bfloat16 model (every leaf float32, as a
+    checkpoint gives). Per regime: ``validate`` and ``validate_prms`` under
+    reset counters (the bfloat16 kernels each launched; K13's eval fold at
+    every norm, none in float32); the maps of one batch against the plain
+    bfloat16 route within ``BF16_MAPS_SHARE`` of the gap to the float32 maps;
+    the metrics beside float32's; PRMS's selection against float32's; the
+    host ms a batch of ``validate``, bfloat16 and float32, one run each."""
+    import torch
+
+    from tris_tpu_torch.ckpt.io import load_state
+    from tris_tpu_torch.cli.common import build_critic
+    from tris_tpu_torch.config import get_parser
+    from tris_tpu_torch.eval.validate import (image_to_nchw, make_prms_forward, validate,
+                                              validate_prms)
+    from tris_tpu_torch.models.stage1 import Stage1Config, TRISStage1
+
+    model32 = build_stage1(dev)
+    critic = build_critic(get_parser().parse_args(["--max_query_len", str(TXT_LEN)]), dev)
+    cfg = Stage1Config(backbone="RN50", hidden_dim=1024, txt_length=TXT_LEN)
+    loader = SyntheticEvalLoader(batches)
+    image = image_to_nchw(torch.as_tensor(batches[0]["image"], device=dev))
+    ids = torch.as_tensor(batches[0]["word_ids"], device=dev)
+    quiet = lambda *a: None  # noqa: E731
+    bn_per_forward = sum(bn_launches()["stage1_eval"].values())
+    failures, summary = [], {}
+
+    def best_of(model):
+        fwd = make_prms_forward(model, critic)
+        return np.concatenate([fwd(b["image"], b["word_ids"], np.arange(S)[None]
+                                   < b["num_sents"][:, None])[0].cpu().numpy() for b in batches])
+
+    with torch.no_grad():
+        validate(model32, loader, with_boxes=False, log=quiet)  # warm-up
+        ms32 = host_ms(lambda: validate(model32, loader, with_boxes=False, log=quiet)) / len(batches)
+        res32 = validate(model32, loader, with_boxes=False, log=quiet)
+        prms32 = validate_prms(model32, critic, loader, log=quiet)
+        maps32, best32 = model32.response_maps(image, ids), best_of(model32)
+        for leaves in ("bf16_leaves", "f32_leaves"):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)
+                model = TRISStage1(cfg, torch.bfloat16).to(dev).eval()
+            if leaves == "f32_leaves":
+                load_state(model, model32.state_dict())
+            n_bf16 = sum(t.dtype == torch.bfloat16 for t in model.state_dict().values())
+            validate(model, loader, with_boxes=False, log=quiet)  # warm-up
+            torch.cuda.synchronize()
+            K.reset_launches()
+            res = validate(model, loader, with_boxes=False, log=quiet)
+            res_prms = validate_prms(model, critic, loader, log=quiet)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in K.launches.items() if n}
+            want = BF16_KERNELS + ("mha_short.bf16" if leaves == "bf16_leaves" else "mha_short",)
+            failures += [f"bf16 {leaves}: {k} launched no time" for k in want
+                         if not launches.get(k)]
+            bn_want = 2 * len(batches) * bn_per_forward
+            if launches.get("batch_norm.bf16") != bn_want or launches.get("batch_norm"):
+                failures.append(f"bf16 {leaves}: K13 launched {launches}, want "
+                                f"{bn_want} batch_norm.bf16 and no batch_norm")
+            maps = model.response_maps(image, ids)
+            with plain_kernels(K):
+                maps_p = model.response_maps(image, ids)
+            gap, err = max_err(maps_p, maps32), max_err(maps, maps_p)
+            if not (maps.dtype == torch.float32 and tuple(maps.shape) == (B, S, SIZE, SIZE)
+                    and bool(torch.isfinite(maps).all()) and err <= BF16_MAPS_SHARE * gap):
+                failures.append(f"bf16 {leaves}: maps {maps.dtype} {tuple(maps.shape)}, "
+                                f"{err} from the plain route, bar {BF16_MAPS_SHARE} of {gap}")
+            best = best_of(model)
+            ms16 = host_ms(lambda: validate(model, loader, with_boxes=False, log=quiet)) / len(batches)
+            if not all(0.0 <= res[k] <= 100.0 for k in ("mIoU", "oIoU", "hit", "hitm")):
+                failures.append(f"bf16 {leaves}: metrics out of range: {res}")
+            summary[leaves] = {
+                "bf16_leaves": n_bf16, "launches": launches,
+                "batch_norm_bf16_launches_expected": bn_want,
+                "maps_max_abs_err_vs_plain_bf16": err, "maps_gap_bf16_f32": gap,
+                "maps_share_of_gap": err / gap if gap else None, "maps_bar_share": BF16_MAPS_SHARE,
+                "map_scale": float(maps32.abs().max()),
+                "metrics": {k: res[k] for k in ("mIoU", "oIoU", "hit", "hitm")},
+                "prms_metrics": {k: res_prms[k] for k in ("mIoU", "oIoU", "hit", "hitm")},
+                "prms_selection_agreement_with_f32": float((best == best32).mean()),
+                "prms_refs": int(best.size),
+                "validate_host_ms_per_batch": {"bf16": ms16, "f32": ms32},
+            }
+            del model
+            torch.cuda.empty_cache()
+    summary["f32"] = {"metrics": {k: res32[k] for k in ("mIoU", "oIoU", "hit", "hitm")},
+                      "prms_metrics": {k: prms32[k] for k in ("mIoU", "oIoU", "hit", "hitm")}}
+    summary["model"] = ("RN50 stage 1 in bfloat16, hidden 1024, 320 px, seeded (seed 0) or the "
+                        "float32 model's weights loaded; the ViT-B/32 critic float32")
+    del model32, critic
+    torch.cuda.empty_cache()
+    log(f"bf16: {json.dumps(summary)}")
+    return summary, failures
+
+
 def run_cli(args, timeout):
     """``python -m <args>`` from the checkout's root: (seconds, return code,
     its output)."""
@@ -3520,6 +3815,10 @@ def cli_chain():
                                "--prms", "--save_cam", "--cam_save_dir", cam, "--name_save_dir",
                                names, "--eval_batch", "2", "--pretrain",
                                os.path.join(out, "ckpt_320_epoch_0_best.pth")]),
+            ("validate_prms_bf16", ["tris_tpu_torch.cli.validate", *common, "--test_split",
+                                    "train", "--prms", "--bf16", "--eval_batch", "2",
+                                    "--pretrain",
+                                    os.path.join(out, "ckpt_320_epoch_0_best.pth")]),
             ("irnet", ["tris_tpu_torch.cli.irnet", "--train_list",
                        os.path.join(names, "refcoco_train_names.json"), "--data_root",
                        os.path.join(data, "train2014"), "--cam_dir", cam, "--ir_label_out_dir",
@@ -3550,6 +3849,10 @@ def cli_chain():
             os.listdir(os.path.join(out, "stage2")))} if os.path.isdir(
             os.path.join(out, "stage2")) else {}
         s2_val = [ln for ln in logs.get("validate_stage2", "").splitlines() if "[val]" in ln]
+        bf16_val = [ln for ln in logs.get("validate_prms_bf16", "").splitlines()
+                    if "[train]" in ln]
+        if not bf16_val:
+            failures.append("chain: validate --prms --bf16 logged no [train] line")
         if not (read_pseudo and set(s2_files) == {"ckpt_320_epoch_0_best.pth",
                                                   "ckpt_320_epoch_0_hit.pth"} and s2_val):
             failures.append(f"chain: stage 2 read the pseudo-masks {read_pseudo}, left "
@@ -3571,7 +3874,8 @@ def cli_chain():
     summary = {"seconds": secs, "cams": n, "ir_labels": len(files["ir_label"]),
                "ins_seg_dicts": len(files["ins_seg"]), "ir_label_values": sorted(values),
                "irn_weights_written": pth, "stage2_read_pseudo_masks": read_pseudo,
-               "stage2_files_bytes": s2_files, "validate_stage2_log": s2_val[-1:]}
+               "stage2_files_bytes": s2_files, "validate_stage2_log": s2_val[-1:],
+               "validate_prms_bf16_log": bf16_val[-1:]}
     log(f"chain: {json.dumps(summary)}")
     return summary, failures
 
@@ -3632,6 +3936,9 @@ def main(argv=None) -> int:
     bn_rows, bn_plans, bn_failures = check_batch_norm_kernels(K, dev)
     rows += bn_rows
     failures += bn_failures
+    bf16_rows, bf16_kernel_failures = check_bf16_kernels(K, dev)
+    rows += bf16_rows
+    failures += bf16_kernel_failures
 
     # 4. stage-1 eval and 5. PRMS, on one stage-1 model and one set of batches
     model = build_stage1(dev)
@@ -3682,6 +3989,10 @@ def main(argv=None) -> int:
     dp, dp_failures = dp_path()
     failures += dp_kernel_failures + dp_failures
 
+    # 13. --bf16: stage-1 eval and PRMS in bfloat16, both leaf regimes
+    bf16, bf16_failures = bf16_path(K, dev, batches)
+    failures += bf16_failures
+
     # launches: on the stage-1 train path for its kernels (all but K3's eval
     # half and K4), else on the PRMS path, else on the ins-seg path, else on
     # the IRN training path, else on the stage-2 train path; per path beside
@@ -3694,9 +4005,12 @@ def main(argv=None) -> int:
                  "stage2_eval": stage2["eval"]["launches"][name],
                  "referit": referit["launches"][name],
                  **{f"dp_{job}_rank0": dp.get(job, {}).get("launches", {}).get(name, 0)
-                    for job in ("stage1", "stage2", "irn")}}
+                    for job in ("stage1", "stage2", "irn")},
+                 **{f"bf16_{leaves}": bf16[leaves]["launches"].get(name, 0)
+                    for leaves in ("bf16_leaves", "f32_leaves")}}
         row["launches"] = (paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
-                           or paths["irn_train"] or paths["stage2_train"])
+                           or paths["irn_train"] or paths["stage2_train"]
+                           or paths["bf16_bf16_leaves"])
         row["launches_by_path"] = paths
         for sub in row["shapes"]:
             if name == "mha_short":
@@ -3710,7 +4024,8 @@ def main(argv=None) -> int:
                        "stage1_eval": stage1, "prms": prms,
                        "stage1_train": train, "ins_seg": ins_seg, "irn_train": irn,
                        "chain": chain, "stage2": stage2, "referit": referit,
-                       "native": native_summary, "dp": dp}, f, indent=1, default=str)
+                       "native": native_summary, "dp": dp, "bf16": bf16}, f, indent=1,
+                      default=str)
     if failures:
         fail("; ".join(failures))
 

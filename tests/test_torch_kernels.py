@@ -50,7 +50,11 @@ of its fused design takes, shapes of its two-pass design, both designs
 against each other on the same inputs, its launch counts and grids against
 the schedule tool's plans, the backward bit for bit run to run, and the
 layouts it refuses; its forward against the route reference bit for bit
-(but for channels whose statistics round apart). One test is static and runs
+(but for channels whose statistics round apart). ``--bf16``'s four kernels
+(K1's, K2's and K3's eval head's bfloat16 forwards, K13's bfloat16 eval fold)
+at odd shapes and both leaf regimes' operand dtypes, against their plain
+versions from float64 (K13's bit for bit), and the combinations they refuse.
+One test is static and runs
 anywhere: each differentiable wrapper's CUDA branch goes through its
 ``torch.autograd.Function``.
 """
@@ -1992,3 +1996,119 @@ def test_batch_norm_act_refuses(dev):
         K.batch_norm_act(x, w[:3], b, rm, rv, **kw)
     with pytest.raises(ValueError, match="act must be one of"):
         K.batch_norm_act(x, w, b, rm, rv, act="gelu", **kw)
+
+
+# --bf16: the four bfloat16 kernels against their plain versions (which take bfloat16 too), each
+# within one bfloat16 ulp of the output's scale of the plain version's distance from a float64
+# evaluation of the same inputs; K13's fold bit for bit
+
+
+def _bf16_ulp(scale: float) -> float:
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _within_plain(got, plain, want64):
+    scale = float(want64.abs().max())
+    assert _err(got, want64) <= _err(plain, want64) + _bf16_ulp(scale)
+
+
+@pytest.mark.parametrize("shape,act,with_res", [((2, 8, 6, 8), "relu", False),
+                                                ((3, 5, 7, 7), "relu", True),
+                                                ((2, 16, 10, 10), "none", True),
+                                                ((1, 3, 1, 1), "none", False)])
+def test_batch_norm_fold_bf16(randn, shape, act, with_res):
+    # 16-byte accesses where HW % 8 == 0, 2-byte ones elsewhere: bit for bit the plain version
+    C = shape[1]
+    x = (2 * randn(*shape)).bfloat16()
+    res = randn(*shape).bfloat16() if with_res else None
+    w, b, rm, rv = 1 + 0.3 * randn(C), 0.5 * randn(C), randn(C), 0.5 + randn(C).abs()
+    kw = dict(training=False, update_stats=False, momentum=0.1, eps=1e-5, act=act, residual=res)
+    before = K.launches["batch_norm.bf16"]
+    got = K.batch_norm_act(x, w, b, rm, rv, **kw)
+    assert K.launches["batch_norm.bf16"] == before + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got, K.batch_norm_act_plain(x, w, b, rm, rv, **kw))
+
+
+@pytest.mark.parametrize("L,hd", [(20, 64), (7, 32), (50, 48), (128, 128), (33, 36)])
+def test_mha_short_bf16(randn, L, hd):
+    # bfloat16 q, k, v with the float32 causal mask, out float32 (hd 36: 2-byte loads)
+    n, H = 3, 4
+    C = H * hd
+    q, k, v = randn(n, L, 3 * C).bfloat16().chunk(3, dim=-1)
+    mask = causal_mask(L, device=q.device)
+    before = K.launches["mha_short.bf16"]
+    got = K.mha_short(q, k, v, H, mask)
+    assert K.launches["mha_short.bf16"] == before + 1 and got.dtype == torch.float32
+    _within_plain(got, K.mha_short_plain(q, k, v, H, mask),
+                  K.mha_short_plain(q.double(), k.double(), v.double(), H, mask.double()))
+
+
+@pytest.mark.parametrize("vis_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,S,HW,T,m", [(2, 1, 37, 3, 64), (3, 2, 100, 1, 1024),
+                                        (1, 3, 256, 5, 260)])
+def test_cross_attn_bf16(randn, vis_dtype, N, S, HW, T, m):
+    # bfloat16 text projections, vision ones bfloat16 (outputs bfloat16) or float32
+    qv, kv, vv = (torch.relu(randn(N, HW, m)).to(vis_dtype) for _ in range(3))
+    qt, kt, vt = (torch.relu(randn(N * S, T, m)).bfloat16() for _ in range(3))
+    args = (qv, kv, vv, qt, kt, vt, S, math.sqrt(m))
+    before = K.launches["cross_attn.bf16"]
+    got = K.cross_attn(*args)
+    assert K.launches["cross_attn.bf16"] == before + 1
+    plain = K.cross_attn_plain(*args)
+    want64 = K.cross_attn_plain(*(t.double() for t in args[:6]), S, math.sqrt(m))
+    for g, p, w in zip(got, plain, want64):
+        assert g.dtype == p.dtype == vis_dtype
+        _within_plain(g, p, w)
+
+
+@pytest.mark.parametrize("new", ["bf16", "f32", None])
+@pytest.mark.parametrize("P,S,hw,D,H", [(8, 4, (10, 10), 1024, 320), (3, 1, (3, 5), 34, 17)])
+def test_response_head_bf16(randn, new, P, S, hw, D, H):
+    # bfloat16 vis_base and lan; vis_new bfloat16, float32 or None; maps float32
+    from tris_tpu_torch.ops.dtypes import weak
+
+    N, (h, w) = P // S, hw
+    base = F.normalize(randn(N, h * w, D), dim=-1).bfloat16()
+    lan = F.normalize(randn(P, D), dim=-1).bfloat16()
+    dt = torch.float32 if new == "f32" else torch.bfloat16
+    vis_new = None if new is None else (0.03 * randn(P, h * w, D)).to(dt)
+    args = (vis_new, base, lan, S, torch.tensor(14.3, device=base.device), weak(0.1, dt), hw,
+            (H, H + 3))
+    before = K.launches["response_head.bf16"]
+    got = K.response_head(*args)
+    assert K.launches["response_head.bf16"] == before + 1 and got.dtype == torch.float32
+    want64 = K.response_head_plain(None if vis_new is None else vis_new.double(), base.double(),
+                                   lan.double(), S, args[4].double(), args[5], hw, (H, H + 3))
+    _within_plain(got, K.response_head_plain(*args), want64)
+
+
+def test_bf16_wrappers_refuse(randn):
+    # combinations the kernels do not take raise in Python, naming the dtypes they take;
+    # bfloat16 is forward only
+    bf = torch.bfloat16
+    q = randn(2, 8, 64)
+    mask = causal_mask(8, device=q.device)
+    with pytest.raises(TypeError, match="bfloat16, bfloat16, bfloat16, float32"):
+        K.mha_short(q.to(bf), q.to(bf), q, 2, mask)
+    with pytest.raises(ValueError, match="forward only"):
+        K.mha_short(*(q.to(bf).requires_grad_() for _ in range(3)), 2, mask)
+    v, t = randn(2, 300, 64), randn(2, 1, 64)
+    with pytest.raises(TypeError, match="takes dtypes"):
+        K.cross_attn(v.to(bf), v, v, t.to(bf), t.to(bf), t.to(bf), 1, 8.0)
+    with pytest.raises(ValueError, match="up to 256"):
+        K.cross_attn(*(x.to(bf) for x in (v, v, v, t, t, t)), 1, 8.0)
+    base, lan = randn(2, 9, 33).to(bf), randn(2, 33).to(bf)
+    scale = torch.tensor(1.0, device=q.device)
+    with pytest.raises(ValueError, match="even D"):
+        K.response_head(None, base, lan, 1, scale, 0.1, (3, 3), (6, 6))
+    with pytest.raises(TypeError, match="takes dtypes"):
+        K.response_head(None, base, lan.float(), 1, scale, 0.1, (3, 3), (6, 6))
+    x, w = randn(2, 4, 3, 3).to(bf), randn(4)
+    kw = dict(update_stats=False, momentum=0.1, eps=1e-5)
+    with pytest.raises(ValueError, match="eval fold"):
+        K.batch_norm_act(x, w, w, w, w.abs(), training=True, **kw)
+    with pytest.raises(ValueError, match="eval fold"):
+        K.batch_norm_act(x, w, w, w, w.abs(), training=False, act="prelu",
+                         slope=torch.ones(1, device=q.device), **kw)
+    with pytest.raises(TypeError, match="takes dtypes"):
+        K.batch_norm_act(x, w, w, w, w.abs(), training=False, residual=x.float(), **kw)

@@ -21,6 +21,10 @@ block, a layer). The inverse of ``tris_tpu/ckpt/convert*.py``:
 ``.1``, and PixelAttention's Dense kernels to the reference's 1x1 convs
 (``Wk``/``Wv`` Conv1d [out, in, 1], ``Wq``/``Wm``/``Ww``/``Wo`` Conv2d).
 
+Each leaf keeps the dtype JAX holds it in: float32, or bfloat16 for the
+leaves a ``dtype=bfloat16`` JAX module makes in its dtype (load them with
+``tris_tpu_torch.ckpt.io.load_state``, which keeps the loaded dtypes).
+
 ``irnet_state_dict_from_flax`` adds IRNet's module names: ``trunk`` ->
 ``resnet50``, ``<head>_conv`` / ``<head>_gn`` -> ``<head>.0`` / ``<head>.1``,
 ``fc_dp7_conv1`` / ``fc_dp7_gn`` / ``fc_dp7_conv2`` -> ``fc_dp7.0`` / ``.1``
@@ -80,6 +84,7 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, val in _flatten(variables.get(coll, {})):
+            bf16 = np.asarray(val).dtype.name == "bfloat16"   # ml_dtypes' bfloat16
             arr = np.asarray(val, np.float32)
             mod, leaf = _torch_module(path[:-1]), path[-1]
             if leaf == "kernel":
@@ -95,7 +100,8 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
             if coll == "batch_stats" and leaf == "mean":
                 sd[_key(mod, "num_batches_tracked")] = torch.tensor(0, dtype=torch.long)
             # copy: C order, and 0-d leaves stay 0-d
-            sd[_key(mod, _LEAVES.get(leaf, leaf))] = torch.from_numpy(arr.copy())
+            t = torch.from_numpy(arr.copy())
+            sd[_key(mod, _LEAVES.get(leaf, leaf))] = t.to(torch.bfloat16) if bf16 else t
     return sd
 
 

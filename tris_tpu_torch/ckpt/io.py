@@ -51,10 +51,26 @@ def is_train_checkpoint(path: str) -> bool:
     return isinstance(payload, dict) and "optimizer" in payload
 
 
+def load_state(module, state_dict) -> None:
+    """``module.load_state_dict(state_dict, strict=True)`` with each floating
+    tensor keeping the dtype it is loaded in: a float32 checkpoint into a
+    leaf that a bfloat16 module made gives a float32 leaf, as the JAX
+    package's loaders replace the init's leaves (``load_state_dict`` alone
+    would round it into the leaf's dtype). The parameters stay the same
+    objects."""
+    own = dict(module.named_parameters())
+    own.update(module.named_buffers())
+    for key, value in state_dict.items():
+        t = own.get(key)
+        if t is not None and value.is_floating_point() and t.dtype != value.dtype:
+            t.data = torch.empty(t.shape, dtype=value.dtype, device=t.device)
+    module.load_state_dict(state_dict, strict=True)
+
+
 def load_params_only(path: str, model):
     """Model-only restore (strict): a training checkpoint's ``"model"`` or a
     plain ``state_dict``, e.g. the reference's ``.pth``."""
-    model.load_state_dict(load_torch_checkpoint(path), strict=True)
+    load_state(model, load_torch_checkpoint(path))
     return model
 
 

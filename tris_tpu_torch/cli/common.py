@@ -4,6 +4,9 @@ Port of ``tris_tpu/cli/common.py``. Models live on ``args.device``
 (``cuda`` unless the caller asks for ``cpu``); random init is seeded (the
 stage models from ``--seed``) without touching the global RNG, and
 ``--clip_weights`` loads OpenAI's released CLIP into their backbone.
+``--bf16`` builds stage 1 in bfloat16 for eval and PRMS (the JAX package's
+``TRISStage1(cfg, dtype=bfloat16)``); elsewhere it raises, naming what it
+covers (:data:`BF16_SCOPE`).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from tris_tpu_torch.ckpt.io import load_state
 from tris_tpu_torch.config import backbone_name
 from tris_tpu_torch.device import resolve_device
 from tris_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
@@ -22,6 +26,15 @@ from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
 from tris_tpu_torch.parallel import init_process_group, rank_world
 
 CRITIC_SEED = 7  # the critic's random init, fixed as in the JAX package
+# what --bf16 covers in this package; the JAX package's bf16 training and stage 2 are not ported
+BF16_SCOPE = "stage-1 eval and PRMS (cli.validate --stage 1 on the RefCOCO datasets)"
+
+
+def refuse_bf16(args, what: str) -> None:
+    """Raise if ``--bf16`` asks for ``what``, which it does not cover."""
+    if getattr(args, "bf16", False):
+        raise NotImplementedError(f"--bf16 covers {BF16_SCOPE}; {what} with --bf16 is not "
+                                  f"ported yet")
 
 
 def resolve_dataset(args) -> Tuple[str, str]:
@@ -92,7 +105,10 @@ def build_stage1(args, device=None, train: bool = False) -> TRISStage1:
     """A ``TRISStage1`` on ``device`` (default ``args.device``, else
     ``"cuda"``), randomly initialised from ``args.seed`` (the backbone from
     ``--clip_weights`` when given), in train mode (BatchNorm's batch
-    statistics) when ``train``, else in eval mode."""
+    statistics) when ``train``, else in eval mode; with ``--bf16`` in
+    bfloat16, for eval only."""
+    if train:
+        refuse_bf16(args, "stage-1 training")
     cfg = Stage1Config(
         backbone=backbone_name(args),
         hidden_dim=args.hidden_dim,
@@ -101,11 +117,13 @@ def build_stage1(args, device=None, train: bool = False) -> TRISStage1:
         focal_p=args.FOCAL_P,
         focal_lambda=args.FOCAL_LAMBDA,
     )
-    return _build(args, device, train, lambda: TRISStage1(cfg))
+    dtype = torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
+    return _build(args, device, train, lambda: TRISStage1(cfg, dtype))
 
 
 def build_stage2(args, device=None, train: bool = False) -> TRISStage2:
-    """A ``TRISStage2`` as :func:`build_stage1` builds stage 1."""
+    """A ``TRISStage2`` as :func:`build_stage1` builds stage 1 (float32 only)."""
+    refuse_bf16(args, "stage 2")
     cfg = Stage2Config(backbone=backbone_name(args), txt_length=args.max_query_len)
     return _build(args, device, train, lambda: TRISStage2(cfg))
 
@@ -114,8 +132,6 @@ def _build(args, device, train: bool, make):
     if device is None:
         device = getattr(args, "device", "cuda")
     dev = resolve_device(device)
-    if getattr(args, "bf16", False):
-        raise NotImplementedError("bf16 is not ported yet: the kernels take float32")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = make()
@@ -138,7 +154,7 @@ def load_clip_weights(args, model):
     from tris_tpu_torch.ckpt.convert import load_torch_checkpoint
 
     sd = {k: v for k, v in load_torch_checkpoint(path).items() if k not in _CLIP_META}
-    own = model.backbone.positional_embedding.detach().clone()
+    own = model.backbone.positional_embedding.detach().float().clone()
     pe = sd.get("positional_embedding")
     txt = model.backbone.config.txt_length
     if pe is None or pe.shape[0] < txt or pe.shape[1] != own.shape[1]:
@@ -148,7 +164,7 @@ def load_clip_weights(args, model):
     n = min(pe.shape[0], own.shape[0])
     own[:n] = pe[:n]
     sd["positional_embedding"] = own
-    model.backbone.load_state_dict(sd, strict=True)
+    load_state(model.backbone, sd)
     return model
 
 
@@ -190,7 +206,7 @@ def load_pretrained(args, model):
             "convert JAX variables with tris_tpu_torch.ckpt.from_jax first")
     from tris_tpu_torch.ckpt.convert import load_torch_checkpoint
 
-    model.load_state_dict(load_torch_checkpoint(path), strict=True)
+    load_state(model, load_torch_checkpoint(path))
     return model
 
 

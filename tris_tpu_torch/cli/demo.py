@@ -24,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from tris_tpu_torch.cli.common import build_stage2, load_pretrained
+from tris_tpu_torch.cli.common import build_stage2, load_pretrained, refuse_bf16
 from tris_tpu_torch.config import get_parser
 from tris_tpu_torch.data.transforms import image_to_array
 from tris_tpu_torch.device import to_device
@@ -88,6 +88,7 @@ def demo_cam(model, img_path: str, text: str, size: int = SIZE,
 
 
 def main(args):
+    refuse_bf16(args, "the demo")
     model = load_pretrained(args, build_stage2(args)).eval()
     img, word_ids, h, w, bgr = prepare_data(args.img, args.text, SIZE, args.max_query_len)
     norm_cam = norm_cam_of(model, img, word_ids, h, w)

@@ -100,12 +100,14 @@ def image_to_nchw(image: torch.Tensor) -> torch.Tensor:
 
 def make_eval_forward(model):
     """(image [B, H, W, 3] numpy f32 or u8, word_ids [B, S, L] numpy) ->
-    relu maps [B, S, H, W] on the model's device (queued, not waited for)."""
+    relu maps [B, S, H, W] float32 on the model's device (queued, not waited
+    for): cast to float32 as the JAX package casts them before its metrics
+    (a no-op for stage 1, whose maps are float32 in every dtype)."""
     device = next(model.parameters()).device
 
     def forward(image: np.ndarray, word_ids: np.ndarray) -> torch.Tensor:
         x = image_to_nchw(to_device(image, device))
-        return model.response_maps(x, to_device(word_ids, device))
+        return model.response_maps(x, to_device(word_ids, device)).float()
 
     return forward
 
@@ -127,7 +129,7 @@ def make_prms_forward(model, critic):
         ids = to_device(word_ids, device)
         valid_t = to_device(valid, device)
         B, S, L = ids.shape
-        cams = model.response_maps(x, ids)                              # [B, S, H, W]
+        cams = model.response_maps(x, ids).float()                      # [B, S, H, W]
         a = kernels.critic_input(cams.reshape(B * S, *cams.shape[2:]), x, S, size, patch)
         img_feat = critic.visual.forward_patches(a)                     # [B*S, C]
         _, txt_feat = critic.encode_text(ids.reshape(B * S, L))

@@ -41,6 +41,12 @@ bit; the backward gathers its partials the same way for dx's coefficients,
 while dweight, dbias and dslope are this rank's sums (DDP averages them, as
 ``SyncBatchNorm``'s). The plain version takes the global sums by
 ``all_reduce`` in the JAX package's arithmetic, with their gradient.
+
+``--bf16``: the eval fold on bfloat16 x (and residual), a and b formed in
+float32 and rounded to bfloat16 as the JAX package rounds them, then
+``bf16(bf16(x * a) + b)`` [``+ residual``, rounded], each op rounded as the
+plain version's bfloat16 ops round: one launch of ``batch_norm_fold_bf16``
+(counted as ``batch_norm.bf16``), forward only, act "none" or "relu".
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from tris_tpu_torch.kernels import build
 # the activation codes of csrc/launchers.h (kBatchNormAct*) and its kBatchNormMaxBatch
 ACTS = {"none": 0, "relu": 1, "prelu": 2}
 MAX_BATCH = 4096
+BF16 = torch.bfloat16
 
 
 def _check_act(act, slope, residual):
@@ -327,7 +334,14 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
                                     training=training, update_stats=update_stats,
                                     momentum=momentum, eps=eps, act=act, slope=slope,
                                     residual=residual)
-    build.require_cuda_f32("batch_norm_act", x, weight, bias, running_mean, running_var, slope,
+    if x.dtype == BF16:
+        build.require_cuda("batch_norm_act", x, residual, accepted=((BF16, None), (BF16, BF16)))
+        build.require_cuda("batch_norm_act", weight, bias, running_mean, running_var)
+        if training or act == "prelu":
+            raise ValueError("batch_norm_act: bfloat16 takes the eval fold with act 'none' or "
+                             "'relu' (no bfloat16 training or PReLU kernel yet)")
+    else:
+        build.require_cuda("batch_norm_act", x, weight, bias, running_mean, running_var, slope,
                            residual)
     C = x.shape[1] if x.dim() == 4 else -1
     if (x.dim() != 4 or x.numel() == 0 or x.numel() >= 2 ** 31
@@ -344,6 +358,14 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
         raise ValueError(f"batch_norm_act: the residual must be contiguous {tuple(x.shape)}")
     if slope is not None and slope.numel() != 1:
         raise ValueError("batch_norm_act: PReLU's slope must be one value (channel-shared)")
+    if x.dtype == BF16:
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in (x, weight, bias, residual)):
+            raise ValueError("batch_norm_act: bfloat16 is forward only (no backward kernel yet)")
+        a, b = (t.to(BF16) for t in _fold(weight, bias, running_mean, running_var, eps))
+        y = build.ops().batch_norm_fold_bf16(x, a, b, residual, ACTS[act])
+        build.count("batch_norm.bf16")
+        return y
     if training:
         w_eff, b_eff = weight, bias
         rm, rv = (running_mean, running_var) if update_stats else (None, None)

@@ -11,8 +11,8 @@ package needs neither ``nvcc`` nor a card.
 ``csrc/launchers.h`` declares each kernel's launcher once, for the ``.cu``
 that defines it and for the bindings that call it. An op raises when its
 launch fails. ``launches`` counts, per kernel family and direction
-(``KERNELS``; a backward is ``<name>_bwd``), the kernel launches its
-wrapper made.
+(``KERNELS``; a backward is ``<name>_bwd``, a bfloat16 launch (``--bf16``)
+``<name>.bf16``), the kernel launches its wrapper made.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ KERNELS = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "respon
            "normalize_u8", "bilinear_resize", "bilinear_resize_bwd", "path_max_affinity",
            "path_max_affinity_bwd", "irn_affinity_loss", "irn_affinity_loss_bwd",
            "refine_centroids", "walk_transition", "walk_matmul", "walk_tile_occupancy",
-           "pixel_attn", "pixel_attn_bwd", "ema_update", "batch_norm", "batch_norm_bwd")
+           "pixel_attn", "pixel_attn_bwd", "ema_update", "batch_norm", "batch_norm_bwd",
+           "mha_short.bf16", "cross_attn.bf16", "response_head.bf16", "batch_norm.bf16")
 # no --use_fast_math or -ftz=true: K10 converts float32 subnormals to double exactly
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 MAX_SMEM = 227 * 1024  # shared memory one block may use on Hopper (opt-in above 48 KiB)
@@ -85,8 +86,12 @@ def count(name: str, n: int = 1) -> None:
     launches[name] += n
 
 
-def require_cuda_f32(name: str, *tensors) -> None:
-    """Kernel inputs: CUDA float32 on one device (bf16 is a later port)."""
+def require_cuda(name: str, *tensors, accepted=None) -> int:
+    """Kernel inputs: CUDA tensors on one device, in the dtypes the kernel
+    takes. ``accepted``: the combinations it takes, a tuple each with one
+    dtype (or None: absent) per tensor; without it, every floating tensor
+    float32. Returns the index of the combination given (0 without
+    ``accepted``); raises ``TypeError`` naming what the kernel takes."""
     import torch
 
     dev = None
@@ -95,8 +100,17 @@ def require_cuda_f32(name: str, *tensors) -> None:
             continue
         if not t.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
-        if t.dtype.is_floating_point and t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         dev = t.device
+    if accepted is None:
+        for t in tensors:
+            if t is not None and t.dtype.is_floating_point and t.dtype != torch.float32:
+                raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        return 0
+    given = tuple(None if t is None else t.dtype for t in tensors)
+    if given in accepted:
+        return accepted.index(given)
+    names = lambda combo: "(" + ", ".join("-" if d is None else str(d)[6:] for d in combo) + ")"
+    raise TypeError(f"{name}: takes dtypes {' or '.join(names(c) for c in accepted)}, "
+                    f"got {names(given)}")

@@ -75,7 +75,7 @@ def refine_centroids(displacement, iterations: int = 300):
     displacement [2, H, W] float32 -> int32 centroids [2, H, W]."""
     if displacement.device.type == "cpu":
         return refine_centroids_plain(displacement, iterations)
-    build.require_cuda_f32("refine_centroids", displacement)
+    build.require_cuda("refine_centroids", displacement)
     if (displacement.dtype != torch.float32 or displacement.dim() != 3
             or displacement.shape[0] != 2):
         raise TypeError(f"refine_centroids: expected float32 [2, H, W], got "

@@ -109,7 +109,7 @@ def critic_input(cams, image, S: int, out_size: int, patch: int):
     Returns A [P * g², 3 * patch²]."""
     if cams.device.type == "cpu":
         return critic_input_plain(cams, image, S, out_size, patch)
-    build.require_cuda_f32("critic_input", cams, image)
+    build.require_cuda("critic_input", cams, image)
     P, H, W = cams.shape
     if (image.dim() != 4 or tuple(image.shape[1:]) != (3, H, W) or P != image.shape[0] * S
             or out_size % patch):

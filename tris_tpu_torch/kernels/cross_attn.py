@@ -6,12 +6,18 @@ Replaces the two softmax-matmul pairs of
 projections ``qv, kv, vv`` are per image ``[N, HW, m]``; the text ones
 ``qt, kt, vt`` per pair ``[N*S, T, m]``, pair ``i`` belonging to image
 ``i // S``. Returns ``(new_vis [N*S, HW, m], new_lan [N*S, T, m])`` before
-the output projections. On CUDA tensors it is a ``torch.autograd.Function``
+the output projections. On CUDA tensors in float32 it is a ``torch.autograd.Function``
 whose backward is the hand-written kernel (with the probabilities the
 forward kept, [N, HW, T] and [N, T, HW]), for one sentence per image
 (S = 1, training's shape): with S > 1 a pair's gradient would have to be
 summed into its image's, and no path differentiates ``response_maps``, so
 the wrapper refuses it.
+
+``--bf16``: bfloat16 text projections with float32 vision ones (the fusion on
+float32 leaves; every product float32, outputs float32) or all six bfloat16
+(bfloat16 leaves; the logits, ``/ div`` and the softmax's ops rounded to
+bfloat16, outputs bfloat16, HW and T at most ``KEY_BLOCK``) launch
+``cross_attn_bf16`` (counted as ``cross_attn.bf16``), forward only.
 """
 
 from __future__ import annotations
@@ -19,18 +25,34 @@ from __future__ import annotations
 import torch
 
 from tris_tpu_torch.kernels import build
+from tris_tpu_torch.ops.dtypes import promote, softmax, weak
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (qv, kv, vv, qt, kt, vt): float32; float32 vision and bfloat16 text; bfloat16
+DTYPES = ((F32,) * 6, (F32,) * 3 + (BF16,) * 3, (BF16,) * 6)
+KEY_BLOCK = 256  # csrc/launchers.h kCrossAttnKeyBlock: the keys a bfloat16 launch takes
 
 
 def cross_attn_plain(qv, kv, vv, qt, kt, vt, S: int, div: float):
     """The plain version: the JAX einsums, with pairs as [N, S, ...] (its
-    gradient is autograd's)."""
+    gradient is autograd's), with jnp's dtypes: each einsum in its operands'
+    promoted dtype. Vision operands float32 and text ones bfloat16 (the
+    fusion on float32 leaves) promote to float32 throughout; all bfloat16
+    rounds each logit, ``/ bfloat16(div)``, each of the softmax's ops and
+    each output to bfloat16."""
     N, HW, m = qv.shape
     T = qt.shape[1]
     qt, kt, vt = (x.reshape(N, S, T, m) for x in (qt, kt, vt))
-    av = torch.softmax(torch.einsum("npm,nstm->nspt", qv, kt) / div, dim=3)
-    at = torch.softmax(torch.einsum("nstm,npm->nstp", qt, kv) / div, dim=3)
-    new_vis = torch.einsum("nspt,nstm->nspm", av, vt)
-    new_lan = torch.einsum("nstp,npm->nstm", at, vv)
+
+    def einsum(eq, a, b):
+        dt = promote(a, b)
+        return torch.einsum(eq, a.to(dt), b.to(dt))
+
+    lv, lt = einsum("npm,nstm->nspt", qv, kt), einsum("nstm,npm->nstp", qt, kv)
+    av = softmax(lv / weak(div, lv.dtype), dim=3)
+    at = softmax(lt / weak(div, lt.dtype), dim=3)
+    new_vis = einsum("nspt,nstm->nspm", av, vt)
+    new_lan = einsum("nstp,npm->nstm", at, vv)
     return new_vis.reshape(N * S, HW, m), new_lan.reshape(N * S, T, m)
 
 
@@ -69,7 +91,7 @@ def cross_attn(qv, kv, vv, qt, kt, vt, S: int, div: float):
     the extension asks): another m raises ``ValueError``."""
     if qv.device.type == "cpu":
         return cross_attn_plain(qv, kv, vv, qt, kt, vt, S, div)
-    build.require_cuda_f32("cross_attn", qv, kv, vv, qt, kt, vt)
+    combo = build.require_cuda("cross_attn", qv, kv, vv, qt, kt, vt, accepted=DTYPES)
     N, HW, m = qv.shape
     P, T = qt.shape[0], qt.shape[1]
     if P != N * S or kv.shape != qv.shape or vv.shape != qv.shape or \
@@ -80,6 +102,16 @@ def cross_attn(qv, kv, vv, qt, kt, vt, S: int, div: float):
                          f"(csrc/launchers.h::cross_attn_takes)")
     inputs = (qv, kv, vv, qt, kt, vt)
     save = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
+    if combo > 0:
+        if save:
+            raise ValueError("cross_attn: bfloat16 is forward only (no backward kernel yet)")
+        if combo == 2 and max(HW, T) > KEY_BLOCK:
+            raise ValueError(f"cross_attn: bfloat16 takes HW and T up to {KEY_BLOCK} (one key "
+                             f"block), got HW = {HW}, T = {T}")
+        outs = build.ops().cross_attn_bf16(*(x.contiguous() for x in inputs), S,
+                                           weak(div, qv.dtype))
+        build.count("cross_attn.bf16")
+        return outs[0], outs[1]
     if save and S != 1:
         raise ValueError(f"cross_attn: the backward takes one sentence per image (S = 1), "
                          f"got S = {S}; run S > 1 without gradients")

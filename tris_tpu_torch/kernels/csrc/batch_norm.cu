@@ -56,6 +56,10 @@
 // version's order: given the same mean and rstd it gives the plain route's bits, and the
 // eval fold gives them exactly.
 //
+// batch_norm_fold_bf16_kernel (--bf16): the eval fold on bfloat16 x, residual and y, the
+// apply kernel's layout with 8 values an item, each product and sum rounded to bfloat16 as
+// the plain version's bfloat16 ops round.
+//
 // Bound: bytes. The fused kernel reads x (and the residual) and writes y; the two-pass design
 // reads x twice.
 
@@ -285,6 +289,54 @@ batch_norm_apply_kernel(const float* __restrict__ x, const float* __restrict__ m
   }
 }
 
+// y of one bfloat16 element of the eval fold (a, b and r bfloat16 values as floats): each
+// product and sum exact in float32 or rounded there, then rounded to bfloat16
+__device__ __forceinline__ float fold_one_bf16(float x, float a, float b, float r, bool has_res,
+                                               int act) {
+  float o = round_bf16(__fadd_rn(round_bf16(__fmul_rn(x, a)), b));
+  if (has_res) o = round_bf16(__fadd_rn(o, r));
+  return act == kBatchNormActRelu && o < 0.f ? 0.f : o;
+}
+
+// The eval fold in bfloat16 with batch_norm_apply_kernel's layout: an item is 8 values (a
+// 16-byte access) with kVec, else one.
+template <bool kVec>
+__global__ void __launch_bounds__(kBatchNormApplyThreads)
+batch_norm_fold_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ a,
+                            const __nv_bfloat16* __restrict__ b,
+                            const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ y,
+                            long long planes, int C, int HW, int tpp, int chunks, int act) {
+  const int per = kBatchNormApplyThreads / tpp;
+  if ((int)threadIdx.x >= per * tpp) return;
+  const long long plane = blockIdx.x / chunks * per + threadIdx.x / tpp;
+  const int e = (int)(blockIdx.x % chunks) * tpp + threadIdx.x % tpp;
+  if (plane >= planes || e >= (kVec ? HW / 8 : HW)) return;
+  const int c = (int)(plane % C);
+  const float ac = __bfloat162float(a[c]), bc = __bfloat162float(b[c]);
+  const bool has_res = res != nullptr;
+  const long long off = plane * HW;
+  if (kVec) {
+    const uint4 xv = reinterpret_cast<const uint4*>(x + off)[e];
+    const uint4 rv = has_res ? reinterpret_cast<const uint4*>(res + off)[e] : make_uint4(0, 0, 0, 0);
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&rv);
+    uint4 out;
+    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(xp[i]), rf = __bfloat1622float2(rp[i]);
+      op[i] = __floats2bfloat162_rn(fold_one_bf16(xf.x, ac, bc, rf.x, has_res, act),
+                                    fold_one_bf16(xf.y, ac, bc, rf.y, has_res, act));
+    }
+    reinterpret_cast<uint4*>(y + off)[e] = out;
+  } else {
+    const float r = has_res ? __bfloat162float(res[off + e]) : 0.f;
+    y[off + e] = __float2bfloat16_rn(
+        fold_one_bf16(__bfloat162float(x[off + e]), ac, bc, r, has_res, act));
+  }
+}
+
 }  // namespace
 
 #ifdef TRIS_BN_STAMPS
@@ -362,6 +414,29 @@ cudaError_t batch_norm_apply(const float* x, const float* mean, const float* rst
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && shape != nullptr)
     *shape = {(int)blocks, 1, kBatchNormApplyThreads, 0, vec ? 16 : 4};
+  return err;
+}
+
+cudaError_t batch_norm_fold_bf16(const Bf16Bits* x, const Bf16Bits* a, const Bf16Bits* b,
+                                 const Bf16Bits* residual, Bf16Bits* y, int N, int C, int HW,
+                                 int act, cudaStream_t stream, BatchNormLaunchShape* shape) {
+  if (act != kBatchNormActNone && act != kBatchNormActRelu) return cudaErrorInvalidValue;
+  const bool vec = HW % 8 == 0 && bn::aligned16(x) && bn::aligned16(residual) &&
+                   bn::aligned16(y);
+  const int items = vec ? HW / 8 : HW;
+  const int tpp = items >= kBatchNormApplyThreads ? kBatchNormApplyThreads : items;
+  const int per = kBatchNormApplyThreads / tpp;
+  const long long planes = (long long)N * C;
+  const int chunks = (items + tpp - 1) / tpp;
+  const long long blocks = (planes + per - 1) / per * chunks;
+  auto* kernel = vec ? &batch_norm_fold_bf16_kernel<true> : &batch_norm_fold_bf16_kernel<false>;
+  kernel<<<(unsigned)blocks, kBatchNormApplyThreads, 0, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const __nv_bfloat16*>(a),
+      reinterpret_cast<const __nv_bfloat16*>(b), reinterpret_cast<const __nv_bfloat16*>(residual),
+      reinterpret_cast<__nv_bfloat16*>(y), planes, C, HW, tpp, chunks, act);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && shape != nullptr)
+    *shape = {(int)blocks, 1, kBatchNormApplyThreads, 0, vec ? 16 : 2};
   return err;
 }
 

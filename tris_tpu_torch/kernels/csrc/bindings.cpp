@@ -78,6 +78,14 @@ T* ptr(const std::optional<at::Tensor>& t) {
   return t ? t->data_ptr<T>() : nullptr;
 }
 
+// a bfloat16 tensor's data as the launchers take it (its bits)
+const tris::Bf16Bits* bits(const at::Tensor& t) {
+  return reinterpret_cast<const tris::Bf16Bits*>(t.data_ptr<at::BFloat16>());
+}
+tris::Bf16Bits* bits_out(at::Tensor& t) {
+  return reinterpret_cast<tris::Bf16Bits*>(t.data_ptr<at::BFloat16>());
+}
+
 // K1: q, k, v [N, L, C] (rows may be strided, as column slices of one qkv
 // tensor); mask [Lq, Lk] or None. Returns [N, Lq, C].
 at::Tensor mha_short(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
@@ -96,6 +104,26 @@ at::Tensor mha_short(const at::Tensor& q, const at::Tensor& k, const at::Tensor&
                            k.stride(1), v.stride(0), v.stride(1), (float)scale, stream(),
                            &k1_shapes["mha_short"]),
            "mha_short");
+  return out;
+}
+
+// K1 on bfloat16 q, k, v [N, L, C] (rows may be strided) with a float32 mask [Lq, Lk]
+// (--bf16): returns [N, Lq, C] float32.
+at::Tensor mha_short_bf16(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                          const at::Tensor& mask, int64_t n_head, double scale) {
+  const at::Device dev = q.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(q, "mha_short_bf16: q", at::kBFloat16, dev, true);
+  check(k, "mha_short_bf16: k", at::kBFloat16, dev, true);
+  check(v, "mha_short_bf16: v", at::kBFloat16, dev, true);
+  check(mask, "mha_short_bf16: mask", at::kFloat, dev);
+  const int64_t N = q.size(0), Lq = q.size(1), C = q.size(2);
+  at::Tensor out = at::empty({N, Lq, C}, q.options().dtype(at::kFloat));
+  launched(tris::mha_short_bf16(bits(q), bits(k), bits(v), mask.data_ptr<float>(),
+                                out.data_ptr<float>(), N, Lq, k.size(1), C / n_head, n_head,
+                                q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+                                v.stride(1), (float)scale, stream(), &k1_shapes["mha_short_bf16"]),
+           "mha_short_bf16");
   return out;
 }
 
@@ -226,6 +254,29 @@ std::map<std::string, int64_t> cross_attn_launch_shape(const std::string& name) 
 tris::ResponseHeadLaunchShape k3_shape;
 bool k3_launched = false;
 
+// K2 on bfloat16 text projections (--bf16): the vision ones float32 (outputs float32) or
+// bfloat16 (outputs bfloat16), as cross_attn's shapes; returns (new_vis, new_lan).
+std::vector<at::Tensor> cross_attn_bf16(const at::Tensor& qv, const at::Tensor& kv,
+                                        const at::Tensor& vv, const at::Tensor& qt,
+                                        const at::Tensor& kt, const at::Tensor& vt, int64_t S,
+                                        double div) {
+  const at::Device dev = qv.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const bool vis_bf16 = qv.scalar_type() == at::kBFloat16;
+  for (const at::Tensor* t : {&qv, &kv, &vv})
+    check(*t, "cross_attn_bf16: vision", vis_bf16 ? at::kBFloat16 : at::kFloat, dev);
+  for (const at::Tensor* t : {&qt, &kt, &vt}) check(*t, "cross_attn_bf16: text", at::kBFloat16, dev);
+  const int64_t HW = qv.size(1), m = qv.size(2), P = qt.size(0), T = qt.size(1);
+  at::Tensor new_vis = at::empty({P, HW, m}, qv.options());
+  at::Tensor new_lan = at::empty({P, T, m}, qv.options());
+  launched(tris::cross_attn_bf16(qv.data_ptr(), kv.data_ptr(), vv.data_ptr(), bits(qt),
+                                 bits(kt), bits(vt), new_vis.data_ptr(), new_lan.data_ptr(),
+                                 vis_bf16, P, HW, T, m, S, (float)div, stream(),
+                                 &k2_shapes["cross_attn_bf16"]),
+           "cross_attn_bf16");
+  return {new_vis, new_lan};
+}
+
 at::Tensor response_head(const std::optional<at::Tensor>& vis_new, const at::Tensor& vis_base,
                          const at::Tensor& lan, const at::Tensor& scale,
                          const std::vector<at::Tensor>& ty, const std::vector<at::Tensor>& tx,
@@ -245,6 +296,34 @@ at::Tensor response_head(const std::optional<at::Tensor>& vis_new, const at::Ten
                                (float)alpha, scale.data_ptr<float>(), y.lo, y.hi, y.w0, y.w1,
                                x.lo, x.hi, x.w0, x.w1, stream(), &k3_shape),
            "response_head");
+  k3_launched = true;
+  return out;
+}
+
+// K3's eval head on bfloat16 vis_base and lan (--bf16), vis_new float32, bfloat16 or None;
+// returns [P, H, W] float32.
+at::Tensor response_head_bf16(const std::optional<at::Tensor>& vis_new,
+                              const at::Tensor& vis_base, const at::Tensor& lan,
+                              const at::Tensor& scale, const std::vector<at::Tensor>& ty,
+                              const std::vector<at::Tensor>& tx, int64_t S, int64_t h, int64_t w,
+                              double alpha) {
+  const at::Device dev = vis_base.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const bool new_f32 = vis_new && vis_new->scalar_type() == at::kFloat;
+  if (vis_new)
+    check(*vis_new, "response_head_bf16: vis_new", new_f32 ? at::kFloat : at::kBFloat16, dev);
+  check(vis_base, "response_head_bf16: vis_base", at::kBFloat16, dev);
+  check(lan, "response_head_bf16: lan", at::kBFloat16, dev);
+  check(scale, "response_head_bf16: scale", at::kFloat, dev);
+  const Taps y = taps(ty, "response_head_bf16: row taps", dev);
+  const Taps x = taps(tx, "response_head_bf16: column taps", dev);
+  const int64_t P = lan.size(0), D = vis_base.size(2), H = ty[0].size(0), W = tx[0].size(0);
+  at::Tensor out = at::empty({P, H, W}, vis_base.options().dtype(at::kFloat));
+  launched(tris::response_head_bf16(vis_new ? vis_new->data_ptr() : nullptr, new_f32,
+                                    bits(vis_base), bits(lan), out.data_ptr<float>(), P, S, h, w,
+                                    D, H, W, (float)alpha, scale.data_ptr<float>(), y.lo, y.hi,
+                                    y.w0, y.w1, x.lo, x.hi, x.w0, x.w1, stream(), &k3_shape),
+           "response_head_bf16");
   k3_launched = true;
   return out;
 }
@@ -1145,6 +1224,35 @@ at::Tensor batch_norm_apply(const at::Tensor& x, const std::optional<at::Tensor>
   return y;
 }
 
+// K13's eval fold on bfloat16 x [N, C, ...] (--bf16): a and b [C] bfloat16 (the fold rounded),
+// residual as x or None, act 0 none or 1 ReLU; returns y bfloat16.
+at::Tensor batch_norm_fold_bf16(const at::Tensor& x, const at::Tensor& a, const at::Tensor& b,
+                                const std::optional<at::Tensor>& residual, int64_t act) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(x, "batch_norm_fold_bf16: x", at::kBFloat16, dev);
+  TORCH_CHECK(x.dim() >= 2 && x.numel() > 0 && x.numel() < INT32_MAX,
+              "batch_norm_fold_bf16: expected [N, C, ...] with 1 to 2^31 - 1 elements");
+  const int N = (int)x.size(0), C = (int)x.size(1), HW = (int)(x.numel() / (x.size(0) * x.size(1)));
+  check(a, "batch_norm_fold_bf16: a", at::kBFloat16, dev);
+  check(b, "batch_norm_fold_bf16: b", at::kBFloat16, dev);
+  TORCH_CHECK(a.numel() == C && b.numel() == C, "batch_norm_fold_bf16: expected [", C, "] a, b");
+  if (residual) {
+    check(*residual, "batch_norm_fold_bf16: residual", at::kBFloat16, dev);
+    TORCH_CHECK(residual->sizes() == x.sizes(), "batch_norm_fold_bf16: residual not x's shape");
+  }
+  TORCH_CHECK(act == tris::kBatchNormActNone || act == tris::kBatchNormActRelu,
+              "batch_norm_fold_bf16: act must be none or ReLU");
+  at::Tensor y = at::empty_like(x);
+  tris::BatchNormLaunchShape shape = {};
+  launched(tris::batch_norm_fold_bf16(bits(x), bits(a), bits(b),
+                                      residual ? bits(*residual) : nullptr, bits_out(y), N, C, HW,
+                                      (int)act, stream(), &shape),
+           "batch_norm_fold_bf16");
+  k13_shapes["batch_norm_fold_bf16"] = shape;
+  return y;
+}
+
 // K13 train forward, the design of the plan (`force` as batch_norm_plan's): returns (y,
 // stats [3, C] as batch_norm_stats'); with the running buffers given, they move by
 // `momentum` in place.
@@ -1416,14 +1524,17 @@ std::vector<at::Tensor> batch_norm_bwd_apply(
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mha_short", &mha_short, "K1: short-sequence multi-head attention");
+  m.def("mha_short_bf16", &mha_short_bf16, "K1 on bfloat16 q, k, v (--bf16)");
   m.def("mha_short_bwd", &mha_short_bwd, "K1 backward");
   m.def("mha_short_takes", &mha_short_takes, "K1: whether its kernels take (Lq, Lk, hd)");
   m.def("mha_short_launch_shape", &mha_short_launch_shape, "K1: its last launch's grid");
   m.def("cross_attn", &cross_attn, "K2: BilateralPrompt cross-attention");
+  m.def("cross_attn_bf16", &cross_attn_bf16, "K2 on bfloat16 text projections (--bf16)");
   m.def("cross_attn_bwd", &cross_attn_bwd, "K2 backward (one sentence per image)");
   m.def("cross_attn_takes", &cross_attn_takes, "K2: whether its kernels take width m");
   m.def("cross_attn_launch_shape", &cross_attn_launch_shape, "K2: its last launch's grid");
   m.def("response_head", &response_head, "K3: stage-1 response head");
+  m.def("response_head_bf16", &response_head_bf16, "K3 on bfloat16 operands (--bf16)");
   m.def("response_head_plan", &response_head_plan, "K3: the cluster a pair takes");
   m.def("response_head_launch_shape", &response_head_launch_shape, "K3: its last launch's grid");
   m.def("stage1_head", &stage1_head, "K3: stage-1 training head");
@@ -1473,6 +1584,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("batch_norm_fwd", &batch_norm_fwd, "K13: the train forward, y and the statistics");
   m.def("batch_norm_stats", &batch_norm_stats, "K13: BatchNorm's batch statistics (two-pass)");
   m.def("batch_norm_apply", &batch_norm_apply, "K13: the norm, its affine and activation");
+  m.def("batch_norm_fold_bf16", &batch_norm_fold_bf16, "K13: the eval fold in bfloat16 (--bf16)");
   m.def("batch_norm_bwd", &batch_norm_bwd, "K13 backward: dx, dweight, dbias, dslope, dres");
   m.def("batch_norm_stats_partial", &batch_norm_stats_partial,
         "K13 across ranks: a rank's per-sample partial sums of the statistics");

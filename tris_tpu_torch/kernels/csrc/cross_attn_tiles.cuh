@@ -15,11 +15,16 @@
 //    4 channels in registers, which may carry a sum from one key block to
 //    the next.
 // Every sum runs in a fixed order (channels, then ranks, then keys
-// ascending), so a result is the same run to run.
+// ascending), so a result is the same run to run. An operand may be bfloat16
+// (--bf16): it is read 4 values an 8-byte load and widened into the same
+// float32 staging (float32 operands keep their cp.async copies), and a
+// bfloat16 output is rounded once at its store.
 
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "launchers.h"
@@ -63,6 +68,17 @@ __host__ __device__ inline int stage_floats(int kcap) {
   return a > b ? a : b;
 }
 
+// 4 values at src into dst in shared memory, zeros when !ok (src is then any valid
+// pointer): a float32 operand by one 16-byte cp.async, a bfloat16 one by an 8-byte load
+// widened to float32
+template <class T>
+__device__ __forceinline__ void stage4(float* dst, const T* src, bool ok) {
+  if constexpr (std::is_same_v<T, float>)
+    cp_async16(dst, src, ok);
+  else
+    *reinterpret_cast<float4*>(dst) = ok ? load4_bf16(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 __device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
   return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
 }
@@ -84,8 +100,8 @@ __device__ __forceinline__ float4 axpy4(float4 p, const float4* v, float4 acc) {
 // against keys kx + 8 j (i, j < 4) over ascending channels, so that a warp's
 // 16-byte reads of a staged chunk fall on 4 consecutive rows of A and 8 of
 // B, one bank each: one shared-memory wavefront per read.
-template <int KS>
-__device__ __forceinline__ void slice_logits(const float* a, const float* b, int nrows, int nk,
+template <int KS, class TA = float, class TB = float>
+__device__ __forceinline__ void slice_logits(const TA* a, const TB* b, int nrows, int nk,
                                              int m, int c0, int mc, int kcap, float* stage,
                                              float* part, int pitch) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, ry = lane >> 3, kx = lane & 7;
@@ -102,9 +118,15 @@ __device__ __forceinline__ void slice_logits(const float* a, const float* b, int
       const bool is_a = rr < kRows;
       const int src = is_a ? rr : rr - kRows;
       const bool ok = (src < (is_a ? nrows : nk)) && c + piece < mc;
-      const float* base = is_a ? a : b;
-      cp_async16(st + rr * kChunkPitch + piece,
-                 ok ? base + (long long)src * m + c0 + c + piece : base, ok);
+      const long long at = (long long)src * m + c0 + c + piece;
+      if constexpr (std::is_same_v<TA, float> && std::is_same_v<TB, float>) {
+        const float* base = is_a ? a : b;
+        cp_async16(st + rr * kChunkPitch + piece, ok ? base + at : base, ok);
+      } else if (is_a) {
+        stage4(st + rr * kChunkPitch + piece, ok ? a + at : a, ok);
+      } else {
+        stage4(st + rr * kChunkPitch + piece, ok ? b + at : b, ok);
+      }
     }
   };
   // unit u of this warp: whether it has one, its first row and first key
@@ -179,12 +201,12 @@ __device__ __forceinline__ void slice_logits(const float* a, const float* b, int
 // kPvStages stages, kKeyChunk rows a chunk, one product after the other, so
 // the next product's first chunks come in while this one's last are used.
 // Thread (warp w, lane l) owns rows 8 (w / 2) .. + 8 and channels 128 (w % 2)
-// + 4 l .. + 4, summed over ascending keys.
-template <int NJ>
+// + 4 l .. + 4, summed over ascending keys. V and out may be bfloat16 (TV, TO).
+template <int NJ, class TV = float, class TO = float>
 struct PvStream {
   const float* pm[NJ];
-  const float* v[NJ];
-  float* out[NJ];
+  const TV* v[NJ];
+  TO* out[NJ];
   int nk, m, c0, mc;
 
   __device__ __forceinline__ int chunks() const { return (nk + kKeyChunk - 1) / kKeyChunk; }
@@ -201,13 +223,13 @@ struct PvStream {
   // chunk g of the stream (product g / chunks(), its chunk g % chunks()) into its stage
   __device__ __forceinline__ void load(int g, float* stage) const {
     const int per = chunks(), pieces = mc / 4;
-    const float* src = pick(v, g / per);
+    const TV* src = pick(v, g / per);
     float* st = stage + (g % kPvStages) * kPvStage;
     const int j0 = (g % per) * kKeyChunk;
     for (int i = threadIdx.x; i < kKeyChunk * pieces; i += kThreads) {
       const int row = i / pieces, piece = (i % pieces) * 4, j = j0 + row;
       const bool ok = j < nk;
-      cp_async16(st + row * kSlice + piece, ok ? src + (long long)j * m + c0 + piece : src, ok);
+      stage4(st + row * kSlice + piece, ok ? src + (long long)j * m + c0 + piece : src, ok);
     }
   }
 
@@ -270,10 +292,15 @@ struct PvStream {
           for (int jq = 0; jq < jn; jq += 4) quad(jq);
         }
         if (flush && g % per == per - 1) {  // product q is summed: write it, start the next
-          float* o = pick(out, q) + (long long)r0 * m + c0 + c;
+          TO* o = pick(out, q) + (long long)r0 * m + c0 + c;
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
-            if (r0 + r < nrows) *reinterpret_cast<float4*>(o + (long long)r * m) = acc[r];
+            if (r0 + r < nrows) {
+              if constexpr (std::is_same_v<TO, float>)
+                *reinterpret_cast<float4*>(o + (long long)r * m) = acc[r];
+              else
+                store4_bf16(o + (long long)r * m, acc[r]);
+            }
             acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
           }
         }
@@ -306,9 +333,11 @@ __device__ __forceinline__ float4 cluster_sum4(cg::cluster_group& cluster, float
 // dst[k][j] = (the sum over the cluster in rank order of part[r][j]) / d for
 // r = rank + n k < nrows and j < 32 slots: the rows this block owns of a tile
 // whose partials the n blocks of the cluster hold (every row when `all`, r =
-// k). dst and part are [kRows][pitch].
+// k). dst and part are [kRows][pitch]. With `round` (bfloat16 logits) the sum
+// and the quotient are each rounded to bfloat16.
 __device__ __forceinline__ void gather_rows(cg::cluster_group& cluster, float* part, float* dst,
-                                            int pitch, int slots, int nrows, bool all, float d) {
+                                            int pitch, int slots, int nrows, bool all, float d,
+                                            bool round = false) {
   const int n = cluster.num_blocks(), rank = cluster.block_rank();
   const int first = all ? 0 : rank, step = all ? 1 : n;
   const int owned = nrows > first ? (nrows - first + step - 1) / step : 0, quads = 8 * slots;
@@ -316,10 +345,15 @@ __device__ __forceinline__ void gather_rows(cg::cluster_group& cluster, float* p
   for (int i = threadIdx.x; i < owned * quads; i += kThreads) {
     const int q = (i % quads) * 4, k = i / quads;
     float4 s = cluster_sum4(cluster, part + (first + step * k) * pitch + q, n);
-    s.x /= d;
-    s.y /= d;
-    s.z /= d;
-    s.w /= d;
+    if (round) {
+      s = make_float4(round_bf16(round_bf16(s.x) / d), round_bf16(round_bf16(s.y) / d),
+                      round_bf16(round_bf16(s.z) / d), round_bf16(round_bf16(s.w) / d));
+    } else {
+      s.x /= d;
+      s.y /= d;
+      s.z /= d;
+      s.w /= d;
+    }
     *reinterpret_cast<float4*>(dst + k * pitch + q) = s;
   }
 }

@@ -2,7 +2,9 @@
 // each, included by the .cu file that defines it and by bindings.cpp that
 // calls it, so the compiler holds both sides to the same signature. Each
 // launches on `stream`, allocates nothing and returns cudaGetLastError().
-// Pointers are to contiguous float32 data unless a stride says otherwise.
+// Pointers are to contiguous float32 data unless a stride says otherwise;
+// bfloat16 data is passed as its bits (Bf16Bits), so that this header needs
+// no CUDA type, and the .cu files read it as __nv_bfloat16.
 #pragma once
 
 #include <cstdint>
@@ -10,6 +12,8 @@
 #include <cuda_runtime.h>
 
 namespace tris {
+
+using Bf16Bits = uint16_t;
 
 // A resize's interpolation taps (ops/resize.py::interp_taps), one entry per
 // output index o: out[o] = w0[o] * x[lo[o]] + w1[o] * x[hi[o]].
@@ -97,6 +101,16 @@ cudaError_t mha_short(const float* q, const float* k, const float* v, const floa
                       int64_t q_row, int64_t k_seq, int64_t k_row, int64_t v_seq,
                       int64_t v_row, float scale, cudaStream_t stream, MhaLaunchShape* shape);
 
+// K1 forward on bfloat16 q, k and v (--bf16, the text tower on bfloat16 leaves), the same
+// tiles: q * scale and the logits rounded to bfloat16 (scale bfloat16's hd^-1/2), then the
+// float32 mask (required) added, the softmax and P V in float32; out [N, Lq, C] float32.
+// 16-byte loads where hd % 8 == 0 and the pointers and strides allow, else 2-byte ones.
+cudaError_t mha_short_bf16(const Bf16Bits* q, const Bf16Bits* k, const Bf16Bits* v,
+                           const float* mask, float* out, int N, int Lq, int Lk, int hd,
+                           int n_head, int64_t q_seq, int64_t q_row, int64_t k_seq, int64_t k_row,
+                           int64_t v_seq, int64_t v_row, float scale, cudaStream_t stream,
+                           MhaLaunchShape* shape);
+
 // K1 backward: dout [N, Lq, C]; q/k/v as the forward; dq [N, Lq, C], dk and dv [N, Lk, C].
 cudaError_t mha_short_bwd(const float* dout, const float* q, const float* k, const float* v,
                           const float* mask, float* dq, float* dk, float* dv, int N, int Lq,
@@ -135,6 +149,16 @@ cudaError_t cross_attn(const float* qv, const float* kv, const float* vv, const 
                        const float* kt, const float* vt, float* new_vis, float* new_lan, float* pv,
                        float* pt, int P, int HW, int T, int m, int S, float div,
                        cudaStream_t stream, LaunchShape* shape);
+
+// K2 forward on bfloat16 text projections qt/kt/vt (--bf16), the same tiles: with vis_bf16
+// the vision projections and both outputs bfloat16 too, the logits, their quotient by div
+// and the softmax's ops rounded to bfloat16 (HW and T at most kCrossAttnKeyBlock, one key
+// block); else the vision projections and the outputs float32 and every product float32.
+// No probabilities are kept (no backward in bfloat16).
+cudaError_t cross_attn_bf16(const void* qv, const void* kv, const void* vv, const Bf16Bits* qt,
+                            const Bf16Bits* kt, const Bf16Bits* vt, void* new_vis, void* new_lan,
+                            bool vis_bf16, int P, int HW, int T, int m, int S, float div,
+                            cudaStream_t stream, LaunchShape* shape);
 
 // K2 backward, one sentence per image: g_vis, qv/kv/vv and their gradients [N, HW, m];
 // g_lan, qt/kt/vt and their gradients [N, T, m]; pv [N, HW, T] and pt [N, T, HW] as the
@@ -375,6 +399,19 @@ cudaError_t response_head(const float* vis_new, const float* vis_base, const flo
                           const float* wy0, const float* wy1, const int* xlo, const int* xhi,
                           const float* wx0, const float* wx1, cudaStream_t stream,
                           ResponseHeadLaunchShape* shape);
+
+// K3's eval head on bfloat16 operands (--bf16), the same grid: vis_base and lan bfloat16 and
+// vis_new either float32 (new_f32: the fusion on float32 leaves; the residual and the dot in
+// float32, as their promoted dtype is) or bfloat16 or null (the residual's product and sum
+// and the dot rounded to bfloat16, then times the float32 scale); out float32. D even: a
+// lane reads 2 channels a load (4-byte bfloat162 loads, 8-byte float2 ones of vis_new).
+cudaError_t response_head_bf16(const void* vis_new, bool new_f32, const Bf16Bits* vis_base,
+                               const Bf16Bits* lan, float* out, int P, int S, int h, int w, int D,
+                               int H, int W, float alpha, const float* scale, const int* ylo,
+                               const int* yhi, const float* wy0, const float* wy1,
+                               const int* xlo, const int* xhi, const float* wx0,
+                               const float* wx1, cudaStream_t stream,
+                               ResponseHeadLaunchShape* shape);
 
 // K4: a cluster of R blocks a map (eval_metrics.cu). Rank r of map (b, s) owns the valid
 // output rows [r oh / R, (r + 1) oh / R) of image b's original (oh, ow) and holds in shared
@@ -1265,6 +1302,15 @@ cudaError_t batch_norm_apply(const float* x, const float* mean, const float* rst
                              const float* weight, const float* bias, const float* residual,
                              const float* slope, float* y, int N, int C, int HW, int act,
                              cudaStream_t stream, BatchNormLaunchShape* shape);
+
+// K13's eval fold in bfloat16 (--bf16), one launch: x, residual and y bfloat16, a and b the
+// fold's [C] rounded to bfloat16; y = act(bf16(bf16(x * a) + b) [+ residual, rounded]), each
+// product and sum formed in float32 and rounded to bfloat16 as the bfloat16 ops of the plain
+// version round; act kBatchNormActNone or kBatchNormActRelu (no PReLU). 16-byte accesses
+// (8 values) where HW % 8 == 0 and x, residual and y are 16-byte aligned, else 2-byte ones.
+cudaError_t batch_norm_fold_bf16(const Bf16Bits* x, const Bf16Bits* a, const Bf16Bits* b,
+                                 const Bf16Bits* residual, Bf16Bits* y, int N, int C, int HW,
+                                 int act, cudaStream_t stream, BatchNormLaunchShape* shape);
 
 // K13 train forward as `plan` (batch_norm_device_plan, training) says: y = act(((x - mean) *
 // rstd) * weight + bias [+ residual]) on the batch statistics, which stats [3, C] receives as

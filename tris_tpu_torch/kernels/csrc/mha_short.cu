@@ -22,6 +22,11 @@
 // three shuffles a row; P goes to shared memory over q and k, and each
 // thread forms its rows x (HD/8) channels of P V, written with 16-byte
 // stores.
+//
+// mha_short_bf16_kernel (--bf16, the text tower on bfloat16 leaves): bfloat16 q, k and v
+// read with 16-byte loads and widened into the same float32 tiles (q times the bfloat16
+// scale, rounded to bfloat16), the logits rounded to bfloat16 before the float32 mask is
+// added, as the JAX function's einsum rounds them; the softmax and P V as above, out float32.
 
 #include "mha_short_tiles.cuh"
 
@@ -70,7 +75,103 @@ mha_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         hd, 1.f, o, [&](int i) { return ty + i * T::kGroups; });
 }
 
+// A bfloat16 [rows, hd] operand at src (row stride `row` elements) into a [LP][kPitch]
+// float32 tile, zeros past rows and hd: 8 values a 16-byte load (VEC) or one a load; with
+// `scale`, each value times scale rounded to bfloat16 (q).
+template <int LP, int HD, bool VEC>
+__device__ __forceinline__ void stage_bf16(float* dst, const __nv_bfloat16* __restrict__ src,
+                                           long long row, int rows, int hd, bool scaled,
+                                           float scale) {
+  using T = Tiles<LP, HD>;
+  auto put = [&](float x) { return scaled ? tris::round_bf16(x * scale) : x; };
+  constexpr int kPer = VEC ? 8 : 1;
+  for (int i = threadIdx.x; i < LP * HD / kPer; i += T::kThreads) {
+    const int r = i / (HD / kPer), c = i % (HD / kPer) * kPer;
+    float* d = dst + r * T::kPitch + c;
+    if constexpr (VEC) {
+      float f[8] = {};
+      if (r < rows && c < hd) {
+        const uint4 u = *reinterpret_cast<const uint4*>(src + r * row + c);
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 t = __bfloat1622float2(p[e]);
+          f[2 * e] = put(t.x);
+          f[2 * e + 1] = put(t.y);
+        }
+      }
+      reinterpret_cast<float4*>(d)[0] = make_float4(f[0], f[1], f[2], f[3]);
+      reinterpret_cast<float4*>(d)[1] = make_float4(f[4], f[5], f[6], f[7]);
+    } else {
+      *d = r < rows && c < hd ? put(__bfloat162float(src[r * row + c])) : 0.f;
+    }
+  }
+}
+
+template <int LP, int HD, bool VEC>
+__global__ void __launch_bounds__(Tiles<LP, HD>::kThreads)
+mha_short_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
+                      float* __restrict__ out, int Lq, int Lk, int hd, int n_head,
+                      long long q_seq, long long q_row, long long k_seq, long long k_row,
+                      long long v_seq, long long v_row, float scale) {
+  using T = Tiles<LP, HD>;
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const ks = qs + T::kOperand;
+  float* const ps = qs;  // P, over q and k once the logits are formed
+  constexpr int kFront = 2 * T::kOperand > LP * T::kPPitch ? 2 * T::kOperand : LP * T::kPPitch;
+  float* const vs = qs + kFront;
+
+  const int n = blockIdx.x / n_head, h = blockIdx.x % n_head;
+  const long long col = (long long)h * hd;
+  stage_bf16<LP, HD, VEC>(qs, q + n * q_seq + col, q_row, Lq, hd, true, scale);
+  stage_bf16<LP, HD, VEC>(ks, k + n * k_seq + col, k_row, Lk, hd, false, 1.f);
+  stage_bf16<LP, HD, VEC>(vs, v + n * v_seq + col, v_row, Lk, hd, false, 1.f);
+  __syncthreads();
+
+  float s[T::kRows][T::kKeys] = {};
+  logits<LP, HD>(qs, ks, s);
+#pragma unroll
+  for (int i = 0; i < T::kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kKeys; ++j) s[i][j] = tris::round_bf16(s[i][j]);
+  softmax<LP, HD>(s, mask, Lq, Lk);
+  __syncthreads();  // every thread's logits formed: P may overwrite q and k
+  put_probs<LP, HD>(ps, s);
+  __syncthreads();
+
+  float4 o[T::kRows][T::kChan4] = {};
+  rows_by_keys<LP, HD>(ps, vs, (Lk + 3) / 4 * 4, o);
+  const int ty = group_y();
+  put_rows<LP, HD, VEC>(out + (long long)n * Lq * n_head * hd + col, (long long)n_head * hd, Lq,
+                        hd, 1.f, o, [&](int i) { return ty + i * T::kGroups; });
+}
+
 }  // namespace
+
+cudaError_t tris::mha_short_bf16(const Bf16Bits* q, const Bf16Bits* k, const Bf16Bits* v,
+                                 const float* mask, float* out, int N, int Lq, int Lk, int hd,
+                                 int n_head, int64_t q_seq, int64_t q_row, int64_t k_seq,
+                                 int64_t k_row, int64_t v_seq, int64_t v_row, float scale,
+                                 cudaStream_t stream, MhaLaunchShape* shape) {
+  if (!mha_short_takes(Lq, Lk, hd, false) || mask == nullptr) return cudaErrorInvalidValue;
+  const int lp = mha_short_len_bucket(Lq > Lk ? Lq : Lk, false), hdb = mha_short_hd_bucket(hd);
+  // 16-byte loads: every pointer 16-byte aligned, hd and every stride a multiple of 8 values
+  const bool vec = hd % 8 == 0 && q_seq % 8 == 0 && q_row % 8 == 0 && k_seq % 8 == 0 &&
+                   k_row % 8 == 0 && v_seq % 8 == 0 && v_row % 8 == 0 &&
+                   aligned16({q, k, v, out}, {}, 4);
+  const cudaError_t err = dispatch<false>(lp, hdb, vec, [&](auto L, auto H, auto V) {
+    constexpr int LP = decltype(L)::value, HD = decltype(H)::value;
+    return launch(mha_short_bf16_kernel<LP, HD, decltype(V)::value>, LP, HD, decltype(V)::value,
+                  false, N, n_head, stream, shape, reinterpret_cast<const __nv_bfloat16*>(q),
+                  reinterpret_cast<const __nv_bfloat16*>(k),
+                  reinterpret_cast<const __nv_bfloat16*>(v), mask, out, Lq, Lk, hd, n_head,
+                  q_seq, q_row, k_seq, k_row, v_seq, v_row, scale);
+  });
+  if (err == cudaSuccess && shape != nullptr) shape->load_bytes = vec ? 16 : 2;
+  return err;
+}
 
 cudaError_t tris::mha_short(const float* q, const float* k, const float* v, const float* mask,
                             float* out, int N, int Lq, int Lk, int hd, int n_head,

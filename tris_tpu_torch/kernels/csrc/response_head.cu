@@ -27,6 +27,12 @@
 // sum rounded alone as tris::sample2 does, so the maps keep their bits too.
 // A cluster barrier after the last read of another rank's scores keeps every
 // rank's shared memory alive until its readers are done.
+//
+// --bf16: the same kernel reads bfloat16 norm_vis and lan_p, two channels a lane a load,
+// and vis_new in float32 (kMixed: the fusion on float32 leaves, whose residual and dot are
+// float32) or in bfloat16 (kBf16: the residual's product and sum rounded to bfloat16, and the
+// dot rounded to bfloat16 before the float32 scale, as the JAX einsum of two bfloat16
+// operands rounds); the upsample as above, in float32.
 
 #include <cooperative_groups.h>
 
@@ -47,11 +53,15 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Grid (R, pairs) in clusters of R along x; kVec columns a thread.
-template <int kVec>
+// the operands' dtypes: all float32; vis_new float32 with bfloat16 vis_base and lan; all
+// bfloat16 (vis_new may be null)
+enum In { kF32, kMixed, kBf16 };
+
+// Grid (R, pairs) in clusters of R along x; kVec columns a thread; kIn the operands' dtypes.
+template <int kVec, int kIn>
 __global__ void __launch_bounds__(kThreads)
-response_head_kernel(const float* __restrict__ vis_new, const float* __restrict__ vis_base,
-                     const float* __restrict__ lan, float* __restrict__ out, int S, int h,
+response_head_kernel(const void* __restrict__ vis_new_p, const void* __restrict__ vis_base_p,
+                     const void* __restrict__ lan_p, float* __restrict__ out, int S, int h,
                      int w, int D, int H, int W, float alpha,
                      const float* __restrict__ scale_ptr,
                      const int* __restrict__ ylo, const int* __restrict__ yhi,
@@ -70,17 +80,40 @@ response_head_kernel(const float* __restrict__ vis_new, const float* __restrict_
 
   // 1. the scores of this rank's pixels [p0, p1)
   const float scale = *scale_ptr;
-  const float* l = lan + (long long)pair * D;
   for (int p = rank * hw / R + warp; p < (rank + 1) * hw / R; p += kWarps) {
-    const float* vb = vis_base + ((long long)b * hw + p) * D;
-    const float* vn = vis_new ? vis_new + ((long long)pair * hw + p) * D : nullptr;
+    const long long base = ((long long)b * hw + p) * D, fresh = ((long long)pair * hw + p) * D;
     float s = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = vn ? __fadd_rn(__fmul_rn(vn[c], alpha), vb[c]) : vb[c];
-      s = fmaf(v, l[c], s);
+    if constexpr (kIn == kF32) {
+      const float* l = static_cast<const float*>(lan_p) + (long long)pair * D;
+      const float* vb = static_cast<const float*>(vis_base_p) + base;
+      const float* vn = vis_new_p ? static_cast<const float*>(vis_new_p) + fresh : nullptr;
+      for (int c = lane; c < D; c += 32) {
+        const float v = vn ? __fadd_rn(__fmul_rn(vn[c], alpha), vb[c]) : vb[c];
+        s = fmaf(v, l[c], s);
+      }
+    } else {
+      using Pair = __nv_bfloat162;
+      const Pair* l = static_cast<const Pair*>(lan_p) + (long long)pair * D / 2;
+      const Pair* vb = static_cast<const Pair*>(vis_base_p) + base / 2;
+      for (int c = lane; c < D / 2; c += 32) {
+        float2 v = __bfloat1622float2(vb[c]);
+        if (vis_new_p != nullptr) {
+          if constexpr (kIn == kMixed) {
+            const float2 n = static_cast<const float2*>(vis_new_p)[fresh / 2 + c];
+            v = make_float2(__fadd_rn(__fmul_rn(n.x, alpha), v.x),
+                            __fadd_rn(__fmul_rn(n.y, alpha), v.y));
+          } else {
+            const float2 n = __bfloat1622float2(static_cast<const Pair*>(vis_new_p)[fresh / 2 + c]);
+            v = make_float2(tris::round_bf16(__fadd_rn(tris::round_bf16(__fmul_rn(n.x, alpha)), v.x)),
+                            tris::round_bf16(__fadd_rn(tris::round_bf16(__fmul_rn(n.y, alpha)), v.y)));
+          }
+        }
+        const float2 lc = __bfloat1622float2(l[c]);
+        s = fmaf(v.y, lc.y, fmaf(v.x, lc.x, s));
+      }
     }
     s = tris::warp_sum(s);
-    if (lane == 0) score[p] = scale * s;
+    if (lane == 0) score[p] = scale * (kIn == kBf16 ? tris::round_bf16(s) : s);
   }
 
   // 2. every rank's scores into this rank's plane
@@ -148,15 +181,23 @@ response_head_kernel(const float* __restrict__ vis_new, const float* __restrict_
 
 }  // namespace
 
-cudaError_t tris::response_head(const float* vis_new, const float* vis_base, const float* lan,
-                                float* out, int P, int S, int h, int w, int D, int H, int W,
-                                float alpha, const float* scale, const int* ylo, const int* yhi,
-                                const float* wy0, const float* wy1, const int* xlo,
-                                const int* xhi, const float* wx0, const float* wx1,
-                                cudaStream_t stream, ResponseHeadLaunchShape* shape) {
+namespace {
+
+cudaError_t launch_head(int in, const void* vis_new, const void* vis_base, const void* lan,
+                        float* out, int P, int S, int h, int w, int D, int H, int W, float alpha,
+                        const float* scale, const int* ylo, const int* yhi, const float* wy0,
+                        const float* wy1, const int* xlo, const int* xhi, const float* wx0,
+                        const float* wx1, cudaStream_t stream,
+                        tris::ResponseHeadLaunchShape* shape) {
   if (P == 0) return cudaSuccess;
-  const ResponseHeadPlan p = response_head_plan(P, S, h, w, D, H, W);
-  const auto kernel = p.vec == 4 ? &response_head_kernel<4> : &response_head_kernel<1>;
+  const tris::ResponseHeadPlan p = tris::response_head_plan(P, S, h, w, D, H, W);
+  using Kernel = decltype(&response_head_kernel<1, kF32>);
+  const Kernel kernels[2][3] = {
+      {&response_head_kernel<1, kF32>, &response_head_kernel<1, kMixed>,
+       &response_head_kernel<1, kBf16>},
+      {&response_head_kernel<4, kF32>, &response_head_kernel<4, kMixed>,
+       &response_head_kernel<4, kBf16>}};
+  const Kernel kernel = kernels[p.vec == 4][in];
   cudaError_t err = tris::allow_smem(kernel, (size_t)p.smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -177,4 +218,29 @@ cudaError_t tris::response_head(const float* vis_new, const float* vis_base, con
   if (err == cudaSuccess && shape != nullptr)
     *shape = {p.blocks, p.ranks, p.threads, p.vec, p.smem};
   return err;
+}
+
+}  // namespace
+
+cudaError_t tris::response_head(const float* vis_new, const float* vis_base, const float* lan,
+                                float* out, int P, int S, int h, int w, int D, int H, int W,
+                                float alpha, const float* scale, const int* ylo, const int* yhi,
+                                const float* wy0, const float* wy1, const int* xlo,
+                                const int* xhi, const float* wx0, const float* wx1,
+                                cudaStream_t stream, ResponseHeadLaunchShape* shape) {
+  return launch_head(kF32, vis_new, vis_base, lan, out, P, S, h, w, D, H, W, alpha, scale, ylo,
+                     yhi, wy0, wy1, xlo, xhi, wx0, wx1, stream, shape);
+}
+
+cudaError_t tris::response_head_bf16(const void* vis_new, bool new_f32, const Bf16Bits* vis_base,
+                                     const Bf16Bits* lan, float* out, int P, int S, int h, int w,
+                                     int D, int H, int W, float alpha, const float* scale,
+                                     const int* ylo, const int* yhi, const float* wy0,
+                                     const float* wy1, const int* xlo, const int* xhi,
+                                     const float* wx0, const float* wx1, cudaStream_t stream,
+                                     ResponseHeadLaunchShape* shape) {
+  if (D % 2) return cudaErrorInvalidValue;
+  return launch_head(new_f32 && vis_new != nullptr ? kMixed : kBf16, vis_new, vis_base, lan, out,
+                     P, S, h, w, D, H, W, alpha, scale, ylo, yhi, wy0, wy1, xlo, xhi, wx0, wx1,
+                     stream, shape);
 }

@@ -127,7 +127,7 @@ def eval_metrics(cams, tables, targets=None, boxes=None, want_norm: bool = False
         return eval_metrics_plain(cams, tables, targets, boxes, want_norm)
     ylo, yhi, wy0, wy1 = tables["y"]
     xlo, xhi, wx0, wx1 = tables["x"]
-    build.require_cuda_f32("eval_metrics", cams, wy0, wx0, boxes)
+    build.require_cuda("eval_metrics", cams, wy0, wx0, boxes)
     B, S = cams.shape[:2]
     maxh, maxw = ylo.shape[1], xlo.shape[1]
     if tables["orig_hw"].shape != (B, 2) or wy0.shape[0] != B or wx0.shape[0] != B:

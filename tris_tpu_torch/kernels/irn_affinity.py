@@ -84,7 +84,7 @@ def irn_affinity_loss(labels, edge, dp, path_index):
     pair counts where both its labels are below ``irn_loss.MAX_VALID``."""
     if edge.device.type == "cpu":
         return irn_affinity_loss_plain(labels, edge, dp, path_index)
-    build.require_cuda_f32("irn_affinity_loss", edge, dp, labels)
+    build.require_cuda("irn_affinity_loss", edge, dp, labels)
     rf = int(path_index.radius_floor)
     if labels.dim() != 3:
         raise ValueError(f"irn_affinity_loss: expected labels [B, H, W], got "

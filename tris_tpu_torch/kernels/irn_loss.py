@@ -123,6 +123,6 @@ def irn_loss(labels, aff, dp, search_dst, rf: int):
     map instead (``irn_affinity_loss``): no kernel reads an affinity field."""
     if aff.device.type == "cpu":
         return irn_loss_plain(labels, aff, dp, search_dst, rf)
-    build.require_cuda_f32("irn_loss", aff, dp, labels)
+    build.require_cuda("irn_loss", aff, dp, labels)
     raise ValueError("irn_loss: no kernel takes the affinity on the card; call "
                      "kernels.irn_affinity_loss(labels, edge, dp, path_index) with the edge map")

@@ -14,6 +14,11 @@ The kernels take 1 <= Lq, Lk <= 128 and 1 <= hd <= 128, forward and
 backward (``csrc/launchers.h::mha_short_takes``, which the extension
 exposes): another shape raises ``ValueError`` here, before any launch.
 ``mha_short_launch_shape`` reads back the grid of the last launch.
+
+``--bf16`` (the text tower on bfloat16 leaves): bfloat16 q, k and v with the
+float32 causal mask launch ``mha_short_bf16`` (counted as ``mha_short.bf16``),
+forward only, out float32; the wrapper takes those dtypes and float32
+throughout, and raises on any other before a launch.
 """
 
 from __future__ import annotations
@@ -23,22 +28,32 @@ from typing import Optional
 import torch
 
 from tris_tpu_torch.kernels import build
+from tris_tpu_torch.ops.dtypes import promote, softmax, weak
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (q, k, v, attn_mask): float32 with or without a mask, or bfloat16 with a float32 mask
+DTYPES = ((F32, F32, F32, None), (F32, F32, F32, F32), (BF16, BF16, BF16, F32))
 
 
 def mha_short_plain(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = None):
     """The plain version: the JAX function's einsums written out (its
-    gradient is autograd's)."""
+    gradient is autograd's), with jnp's dtypes: on bfloat16 q, k and v,
+    ``q * bfloat16(hd^-1/2)`` and the logits are rounded to bfloat16, and a
+    float32 mask promotes them, so that the softmax and P V run in float32
+    (v exact in it) and the output is float32; without a mask all of it is
+    bfloat16, the softmax's ops each rounded."""
     N, Lq, C = q.shape
     Lk = k.shape[1]
     hd = C // n_head
-    qh = q.reshape(N, Lq, n_head, hd).transpose(1, 2)
-    kh = k.reshape(N, Lk, n_head, hd).transpose(1, 2)
-    vh = v.reshape(N, Lk, n_head, hd).transpose(1, 2)
-    logits = torch.einsum("nhqd,nhkd->nhqk", qh * (hd ** -0.5), kh)
+    dt = promote(q, k, v)
+    qh = q.to(dt).reshape(N, Lq, n_head, hd).transpose(1, 2)
+    kh = k.to(dt).reshape(N, Lk, n_head, hd).transpose(1, 2)
+    vh = v.to(dt).reshape(N, Lk, n_head, hd).transpose(1, 2)
+    logits = torch.einsum("nhqd,nhkd->nhqk", qh * weak(hd ** -0.5, dt), kh)
     if attn_mask is not None:
-        logits = logits + attn_mask
-    weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("nhqk,nhkd->nhqd", weights, vh)
+        logits = logits + attn_mask   # a float32 mask promotes bfloat16 logits
+    weights = softmax(logits, dim=-1)
+    out = torch.einsum("nhqk,nhkd->nhqd", weights, vh.to(weights.dtype))
     return out.transpose(1, 2).reshape(N, Lq, C)
 
 
@@ -77,7 +92,7 @@ def mha_short(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = None):
     channel stride); the kernels read them in place."""
     if q.device.type == "cpu":
         return mha_short_plain(q, k, v, n_head, attn_mask)
-    build.require_cuda_f32("mha_short", q, k, v, attn_mask)
+    combo = build.require_cuda("mha_short", q, k, v, attn_mask, accepted=DTYPES)
     N, Lq, C = q.shape
     Lk = k.shape[1]
     hd = C // n_head
@@ -95,4 +110,10 @@ def mha_short(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = None):
     if not build.ops().mha_short_takes(Lq, Lk, hd, save):
         raise ValueError(f"mha_short: the kernels do not take Lq={Lq}, Lk={Lk}, hd={hd} "
                          f"(L <= 128 and head dim <= 128: csrc/launchers.h::mha_short_takes)")
+    if DTYPES[combo][0] == BF16:
+        if save:
+            raise ValueError("mha_short: bfloat16 is forward only (no backward kernel yet)")
+        out = build.ops().mha_short_bf16(q, k, v, attn_mask, n_head, weak(hd ** -0.5, BF16))
+        build.count("mha_short.bf16")
+        return out
     return _MhaShort.apply(q, k, v, attn_mask, n_head, float(hd ** -0.5), save)

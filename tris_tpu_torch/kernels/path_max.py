@@ -162,7 +162,7 @@ def path_max_affinity(edge, paths_by_length, radius_floor: int):
     H - rf, W - 2 * rf]``."""
     if edge.device.type == "cpu":
         return path_max_affinity_plain(edge, paths_by_length, radius_floor)
-    build.require_cuda_f32("path_max_affinity", edge)
+    build.require_cuda("path_max_affinity", edge)
     if edge.dtype != torch.float32 or edge.dim() < 2:
         raise TypeError(f"path_max_affinity: expected float32 [..., H, W], got {edge.dtype} "
                         f"{tuple(edge.shape)}")

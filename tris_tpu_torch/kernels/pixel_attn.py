@@ -72,7 +72,7 @@ def pixel_attn(q, Lk, Lv, S: int = 1):
     version on CPU tensors."""
     if q.device.type == "cpu":
         return pixel_attn_plain(q, Lk, Lv, S)
-    build.require_cuda_f32("pixel_attn", q, Lk, Lv)
+    build.require_cuda("pixel_attn", q, Lk, Lv)
     if q.dim() != 3 or Lk.dim() != 3 or Lv.shape != Lk.shape or Lk.shape[0] != q.shape[0] * S \
             or Lk.shape[2] != q.shape[2]:
         raise ValueError(f"pixel_attn: bad shapes q{tuple(q.shape)} Lk{tuple(Lk.shape)} "

@@ -116,7 +116,7 @@ def bilinear_resize(x, size, align_corners: bool = False):
         return x
     if x.device.type == "cpu":
         return bilinear_resize_plain(x, (oh, ow), align_corners)
-    build.require_cuda_f32("bilinear_resize", x)
+    build.require_cuda("bilinear_resize", x)
     if x.dtype != torch.float32:
         raise TypeError(f"bilinear_resize: expected float32, got {x.dtype}")
     _check_shape("bilinear_resize", x.numel() // max(h * w, 1), h, w, oh, ow)

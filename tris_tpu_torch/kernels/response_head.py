@@ -14,6 +14,10 @@ memory, and each writes its band of output rows; the cluster's size is
 :func:`response_head_plan` reads back from the extension and
 ``tris_tpu_torch/tools/response_head_schedule.py`` emulates on the host;
 :func:`response_head_launch_shape` gives the last launch's grid.
+
+``--bf16``: bfloat16 ``vis_base`` and ``lan`` with ``vis_new`` float32 (the
+fusion on float32 leaves), bfloat16 or None launch ``response_head_bf16``
+(counted as ``response_head.bf16``; D even); the maps are float32.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from tris_tpu_torch.kernels import build
+from tris_tpu_torch.ops.dtypes import promote
 from tris_tpu_torch.ops.resize import interp_taps
 
 
@@ -60,18 +65,29 @@ def upsample_taps_plain(x, ty, tx):
 
 
 def response_head_plain(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_shape, out_hw):
-    """The plain version: the JAX einsum and the resize written out."""
+    """The plain version: the JAX einsum and the resize written out, with
+    jnp's dtypes: the residual ``vis_new * alpha + vis_base`` in the two's
+    promoted dtype (``alpha`` is given in vis_new's), the dot in that and
+    lan's promoted dtype (a bfloat16 dot rounded to bfloat16), then times the
+    float32 ``scale`` in float32; the resize and the maps float32."""
     (h, w), (H, W) = hw_shape, out_hw
     N, HW, D = vis_base.shape
     base = vis_base.reshape(N, 1, HW, D)
     v = base if vis_new is None else vis_new.reshape(N, S, HW, D) * alpha + base
-    score = scale * torch.einsum("nspc,nsc->nsp", v, lan.reshape(N, S, D))
+    dt = promote(v, lan)
+    dot = torch.einsum("nspc,nsc->nsp", v.to(dt), lan.reshape(N, S, D).to(dt))
+    score = scale * dot.to(promote(dot, scale))
     ty = taps_on(h, H, False, vis_base.device)
     tx = taps_on(w, W, False, vis_base.device)
     return torch.relu(upsample_taps_plain(score.reshape(N * S, h, w), ty, tx))
 
 
 MAX_PAIRS = 65535  # the grid's second dimension
+F32, BF16 = torch.float32, torch.bfloat16
+# (vis_new, vis_base, lan, scale): float32; bfloat16 vis_base and lan with vis_new float32,
+# bfloat16 or None
+DTYPES = ((F32, F32, F32, F32), (None, F32, F32, F32), (F32, BF16, BF16, F32),
+          (BF16, BF16, BF16, F32), (None, BF16, BF16, F32))
 
 
 def response_head_plan(P: int, S: int, h: int, w: int, D: int, H: int, W: int) -> dict:
@@ -92,7 +108,7 @@ def response_head_plan(P: int, S: int, h: int, w: int, D: int, H: int, W: int) -
 def response_head_launch_shape() -> dict:
     """The grid of the last launch in this process: blocks, cluster, threads,
     vec and smem_bytes."""
-    if build.launches["response_head"] == 0:
+    if build.launches["response_head"] + build.launches["response_head.bf16"] == 0:
         raise RuntimeError("response_head_launch_shape: no launch of response_head counted")
     return dict(build.ops().response_head_launch_shape())
 
@@ -102,7 +118,7 @@ def response_head(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_shape,
     0-d tensor (``exp(logit_scale)``) that the kernel reads on the device."""
     if vis_base.device.type == "cpu":
         return response_head_plain(vis_new, vis_base, lan, S, scale, alpha, hw_shape, out_hw)
-    build.require_cuda_f32("response_head", vis_new, vis_base, lan, scale)
+    combo = build.require_cuda("response_head", vis_new, vis_base, lan, scale, accepted=DTYPES)
     (h, w), (H, W) = hw_shape, out_hw
     N, HW, D = vis_base.shape
     P = lan.shape[0]
@@ -115,6 +131,14 @@ def response_head(vis_new, vis_base, lan, S: int, scale, alpha: float, hw_shape,
     vis_new = None if vis_new is None else vis_new.contiguous()
     ty = taps_on(h, H, False, vis_base.device)
     tx = taps_on(w, W, False, vis_base.device)
+    if DTYPES[combo][1] == BF16:
+        if D % 2:
+            raise ValueError(f"response_head: bfloat16 takes an even D, got {D}")
+        out = build.ops().response_head_bf16(vis_new, vis_base, lan,
+                                             scale.reshape(()).contiguous(), list(ty), list(tx),
+                                             S, h, w, float(alpha))
+        build.count("response_head.bf16")
+        return out
     out = build.ops().response_head(vis_new, vis_base, lan, scale.reshape(()).contiguous(),
                                     list(ty), list(tx), S, h, w, float(alpha))
     build.count("response_head")

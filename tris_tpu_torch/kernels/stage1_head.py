@@ -138,7 +138,7 @@ def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lam
     if vis_p.device.type == "cpu":
         return stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p, focal_lambda,
                                  offset)
-    build.require_cuda_f32("stage1_head", vis_p, lan_p, scale)
+    build.require_cuda("stage1_head", vis_p, lan_p, scale)
     B, HW, D = vis_p.shape
     T = lan_p.shape[1] if lan_p.dim() == 3 else -1
     (h, w), (H, W) = hw_shape, out_hw

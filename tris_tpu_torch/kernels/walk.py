@@ -140,7 +140,7 @@ def walk_transition(aff_grids, dirs, H: int, W: int, woff: int, beta: float):
     T [H * W, H * W]."""
     if aff_grids.device.type == "cpu":
         return walk_transition_plain(aff_grids, dirs, H, W, woff, beta)
-    build.require_cuda_f32("walk_transition", aff_grids)
+    build.require_cuda("walk_transition", aff_grids)
     key = tuple((int(dy), int(dx)) for dy, dx in dirs)
     if (aff_grids.dtype != torch.float32 or aff_grids.dim() != 3
             or aff_grids.shape[0] != len(key) or aff_grids.shape[1] < H
@@ -188,7 +188,7 @@ def walk_tile_occupancy(x):
     on a CPU tensor. x [R, C] float32, C % 4 == 0."""
     if x.device.type == "cpu":
         return walk_tile_occupancy_plain(x)
-    build.require_cuda_f32("walk_tile_occupancy", x)
+    build.require_cuda("walk_tile_occupancy", x)
     if x.dim() != 2 or x.shape[1] % 4:
         raise ValueError(f"walk_tile_occupancy: bad shape {tuple(x.shape)} (needs [R, C], "
                          f"C % 4 == 0)")
@@ -198,7 +198,7 @@ def walk_tile_occupancy(x):
 
 
 def _check_products(a, b):
-    build.require_cuda_f32("walk_matmul", a, b)
+    build.require_cuda("walk_matmul", a, b)
     if (a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] or a.shape[1] % 8
             or b.shape[1] % 4):
         raise ValueError(f"walk_matmul: bad shapes {tuple(a.shape)} @ {tuple(b.shape)} "

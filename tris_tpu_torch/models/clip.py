@@ -8,7 +8,9 @@ embedding; ``encode_text`` returns the token sequence after ``ln_final`` and
 the EOT embedding projected by ``text_projection``, with the causal mask
 built at the ids' length. Module tree and ``state_dict`` keys follow the
 reference CLIP (``visual.layer1.0.conv1.weight``, ``visual.conv1.weight``,
-``transformer.resblocks.0.attn.in_proj_weight``, ...).
+``transformer.resblocks.0.attn.in_proj_weight``, ...). ``dtype`` is the JAX
+module's (``tris_tpu_torch.models.layers``); the ResNet and the text tower
+take bfloat16, the ViT float32 only.
 """
 
 from __future__ import annotations
@@ -19,16 +21,19 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tris_tpu_torch.models.layers import (
     AttentionPool2d,
+    Conv2d,
     LayerNormFp32,
     ResidualAttentionBlock,
     TorchBatchNorm,
     avg_pool,
     causal_mask,
 )
+from tris_tpu_torch.ops.dtypes import promote
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +81,10 @@ CLIP_CONFIGS = {
 }
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False)
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
+          dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False,
+                  dtype=dtype)
 
 
 class Bottleneck(nn.Module):
@@ -86,21 +93,22 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = planes * self.expansion
         self.stride = stride
-        self.conv1 = _conv(inplanes, planes, 1)
+        self.conv1 = _conv(inplanes, planes, 1, dtype=dtype)
         self.bn1 = TorchBatchNorm(planes)
-        self.conv2 = _conv(planes, planes, 3)
+        self.conv2 = _conv(planes, planes, 3, dtype=dtype)
         self.bn2 = TorchBatchNorm(planes)
-        self.conv3 = _conv(planes, out_ch, 1)
+        self.conv3 = _conv(planes, out_ch, 1, dtype=dtype)
         self.bn3 = TorchBatchNorm(out_ch)
         self.downsample = None
         if stride > 1 or inplanes != out_ch:
             self.downsample = nn.Sequential(OrderedDict([
-                ("-1", nn.AvgPool2d(stride) if stride > 1 else nn.Identity()),
-                ("0", _conv(inplanes, out_ch, 1)),
+                ("-1", _AvgPool(stride) if stride > 1 else nn.Identity()),
+                ("0", _conv(inplanes, out_ch, 1, dtype=dtype)),
                 ("1", TorchBatchNorm(out_ch)),
             ]))
 
@@ -113,17 +121,28 @@ class Bottleneck(nn.Module):
         return self.bn3(self.conv3(h), act="relu", residual=identity)
 
 
+class _AvgPool(nn.Module):
+    """:func:`avg_pool` as a module (the downsample path's, no parameters)."""
+
+    def __init__(self, window: int):
+        super().__init__()
+        self.window = window
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return avg_pool(x, self.window)
+
+
 class ModifiedResNet(nn.Module):
     """CLIP ResNet trunk returning the full pyramid."""
 
     def __init__(self, layers, output_dim: int, heads: int, input_resolution: int = 224,
-                 width: int = 64):
+                 width: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = _conv(3, width // 2, 3, 2)
+        self.conv1 = _conv(3, width // 2, 3, 2, dtype=dtype)
         self.bn1 = TorchBatchNorm(width // 2)
-        self.conv2 = _conv(width // 2, width // 2, 3)
+        self.conv2 = _conv(width // 2, width // 2, 3, dtype=dtype)
         self.bn2 = TorchBatchNorm(width // 2)
-        self.conv3 = _conv(width // 2, width, 3)
+        self.conv3 = _conv(width // 2, width, 3, dtype=dtype)
         self.bn3 = TorchBatchNorm(width)
         inplanes = width
         for stage, (planes, blocks, stride) in enumerate(
@@ -131,10 +150,11 @@ class ModifiedResNet(nn.Module):
                  (width * 4, layers[2], 2), (width * 8, layers[3], 2)], start=1):
             mods = []
             for i in range(blocks):
-                mods.append(Bottleneck(inplanes, planes, stride if i == 0 else 1))
+                mods.append(Bottleneck(inplanes, planes, stride if i == 0 else 1, dtype=dtype))
                 inplanes = planes * Bottleneck.expansion
             setattr(self, f"layer{stage}", nn.Sequential(*mods))
-        self.attnpool = AttentionPool2d(input_resolution // 32, width * 32, heads, output_dim)
+        self.attnpool = AttentionPool2d(input_resolution // 32, width * 32, heads, output_dim,
+                                        dtype)
 
     def forward(self, x: torch.Tensor, pool: bool = True):
         """x: NCHW. Returns ``(c1, c2, c3, c4, (global, map))``; with
@@ -153,9 +173,10 @@ class ModifiedResNet(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.resblocks = nn.ModuleList([ResidualAttentionBlock(width, heads) for _ in range(layers)])
+        self.resblocks = nn.ModuleList([ResidualAttentionBlock(width, heads, dtype)
+                                        for _ in range(layers)])
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for block in self.resblocks:
@@ -221,27 +242,33 @@ class VisionTransformer(nn.Module):
 
 
 class CLIP(nn.Module):
-    """CLIP with the reference's modified outputs."""
+    """CLIP with the reference's modified outputs; ``dtype`` as the JAX
+    module's (bfloat16 for a ResNet CLIP only: the ViT critic stays float32,
+    as the JAX package builds it)."""
 
-    def __init__(self, config: CLIPConfig):
+    def __init__(self, config: CLIPConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         self.config = cfg
+        self.compute_dtype = dtype
         if cfg.is_vit:
+            if dtype != torch.float32:
+                raise NotImplementedError(f"CLIP: the ViT takes float32, not {dtype}")
             self.visual = VisionTransformer(cfg.image_resolution, cfg.vision_patch_size,
                                             cfg.vision_width, cfg.vision_layers,
                                             cfg.vision_heads, cfg.embed_dim)
         else:
             self.visual = ModifiedResNet(cfg.vision_layers, cfg.embed_dim, cfg.vision_heads,
-                                         cfg.image_resolution, cfg.vision_width)
+                                         cfg.image_resolution, cfg.vision_width, dtype)
         self.transformer = Transformer(cfg.transformer_width, cfg.transformer_layers,
-                                       cfg.transformer_heads)
+                                       cfg.transformer_heads, dtype)
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.transformer_width)
         self.positional_embedding = nn.Parameter(
-            torch.randn(cfg.context_length, cfg.transformer_width) * 0.01)
+            (torch.randn(cfg.context_length, cfg.transformer_width) * 0.01).to(dtype))
         self.ln_final = LayerNormFp32(cfg.transformer_width)
         self.text_projection = nn.Parameter(
-            torch.randn(cfg.transformer_width, cfg.embed_dim) * cfg.transformer_width ** -0.5)
+            (torch.randn(cfg.transformer_width, cfg.embed_dim)
+             * cfg.transformer_width ** -0.5).to(dtype))
         self.logit_scale = nn.Parameter(torch.tensor(float(np.log(1 / 0.07))))
 
     def encode_image(self, image: torch.Tensor, pool: bool = True):
@@ -254,9 +281,12 @@ class CLIP(nn.Module):
     def encode_text(self, text_ids: torch.Tensor):
         """text_ids: [N, L] int -> ``(seq [N, L, width], eot_embed [N, embed_dim])``."""
         L = text_ids.shape[1]
-        x = self.token_embedding(text_ids.long()) + self.positional_embedding[:L]
+        # flax's nn.Embed(dtype): the rows gathered, then cast; plus the embedding promoted
+        emb = F.embedding(text_ids.long(), self.token_embedding.weight).to(self.compute_dtype)
+        x = emb + self.positional_embedding[:L]
         x = self.transformer(x, causal_mask(L, device=x.device))
         x = self.ln_final(x)
         # EOT token = the first position of the highest id in each row
         eot = x[torch.arange(x.shape[0], device=x.device), text_ids.argmax(dim=-1)]
-        return x, eot @ self.text_projection
+        dt = promote(eot, self.text_projection)
+        return x, eot.to(dt) @ self.text_projection.to(dt)

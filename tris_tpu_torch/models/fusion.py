@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from tris_tpu_torch import kernels
-from tris_tpu_torch.models.layers import Conv1x1, InstanceNorm2d
+from tris_tpu_torch.models.layers import Conv1x1, Dense, InstanceNorm2d
 
 
 class PixelAttention(nn.Module):
@@ -56,17 +56,21 @@ class PixelAttention(nn.Module):
 
 class BilateralPrompt(nn.Module):
     """Symmetric cross-attention: vision queries attend the language keys and
-    values and vice versa, over InstanceNorm'd projections."""
+    values and vice versa, over InstanceNorm'd projections, in ``dtype`` (the
+    InstanceNorms' weights and biases made in it, as the JAX module makes
+    them; K2's operands promote as the JAX einsums promote theirs)."""
 
-    def __init__(self, vis_chans: int, lan_chans: int):
+    def __init__(self, vis_chans: int, lan_chans: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         m = vis_chans
         for i in (1, 2, 3):
             setattr(self, f"v_proj{i}", nn.Sequential(
-                Conv1x1(vis_chans, m), InstanceNorm2d(m), nn.ReLU()))
-            setattr(self, f"t_proj{i}", nn.Sequential(nn.Linear(lan_chans, m), nn.ReLU()))
-        self.v_output = nn.Sequential(Conv1x1(m, vis_chans), InstanceNorm2d(vis_chans))
-        self.t_output = nn.Sequential(nn.Linear(m, lan_chans))
+                Conv1x1(vis_chans, m, dtype=dtype), InstanceNorm2d(m, dtype=dtype), nn.ReLU()))
+            setattr(self, f"t_proj{i}", nn.Sequential(Dense(lan_chans, m, dtype=dtype),
+                                                      nn.ReLU()))
+        self.v_output = nn.Sequential(Conv1x1(m, vis_chans, dtype=dtype),
+                                      InstanceNorm2d(vis_chans, dtype=dtype))
+        self.t_output = nn.Sequential(Dense(m, lan_chans, dtype=dtype))
 
     def forward(self, vis: torch.Tensor, lan: torch.Tensor, S: int = 1):
         """vis [N, HW, C] per image, lan [N*S, T, Ct] per (image, sentence)

@@ -4,6 +4,13 @@ Port of ``tris_tpu/models/layers.py``. Modules keep the reference CLIP's
 parameter names (``in_proj_weight``, ``ln_1.weight``, ``running_mean``, ...)
 so released checkpoints load as they are. Convolution modules are NCHW; the
 attention modules work on token tensors [N, L, C], as the JAX package does.
+
+A module's ``dtype`` is the JAX module's: ``Dense``, ``Conv2d`` and
+``Conv1x1`` cast their input and parameters to it at use (flax's
+``nn.Dense`` and ``nn.Conv``; the stored parameters keep their own dtype),
+the leaves the JAX module makes with ``self.param(..., self.dtype)`` are made
+in it, and mixed operands promote as jnp promotes them
+(``tris_tpu_torch.ops.dtypes``).
 """
 
 from __future__ import annotations
@@ -16,12 +23,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from tris_tpu_torch import kernels
+from tris_tpu_torch.ops.dtypes import promote, weak
 from tris_tpu_torch.ops.resize import bilinear_resize
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """CLIP's QuickGELU: ``x * sigmoid(1.702 x)``."""
-    return x * torch.sigmoid(1.702 * x)
+    """CLIP's QuickGELU: ``x * sigmoid(1.702 x)``, 1.702 in x's dtype. Below
+    float32 the sigmoid is ``1 / (1 + exp(-t))``, each op rounded to x's
+    dtype, as XLA expands ``lax.logistic`` on the CPU."""
+    t = weak(1.702, x.dtype) * x
+    if x.dtype == torch.float32:
+        return x * torch.sigmoid(t)
+    return x * (1 / (1 + torch.exp(-t)))
 
 
 class QuickGELU(nn.Module):
@@ -35,20 +48,68 @@ def multi_head_attention(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor]
     return kernels.mha_short(q, k, v, n_head, attn_mask)
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``nn.Dense(dtype=dtype)`` with the weight in torch's [out, in]
+    layout: x, weight and bias cast to ``dtype``; below float32 the product is
+    rounded before the bias is added, as flax's two ops round."""
+    x, weight = x.to(dtype), weight.to(dtype)
+    if dtype == torch.float32 or bias is None:
+        return F.linear(x, weight, None if bias is None else bias.to(dtype))
+    return F.linear(x, weight) + bias.to(dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` (flax's ``nn.Dense``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` (flax's ``nn.Conv``): the input
+    and the parameters rounded to ``dtype``, the sums in float32, the output
+    rounded to ``dtype`` (cuDNN on the card; on the host the float32
+    convolution of the rounded operands, rounded once, which is XLA's CPU
+    convolution and sums in its order at the shapes of the tests, where
+    oneDNN's bfloat16 one does not)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x, w = x.to(dt), self.weight.to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
+        if dt == torch.float32 or x.device.type != "cpu":
+            return self._conv_forward(x, w, b)
+        return self._conv_forward(x.float(), w.float(), None if b is None else b.float()).to(dt)
+
+
 class TorchMultiheadAttention(nn.Module):
     """Self-attention with ``torch.nn.MultiheadAttention``'s fused qkv
-    parameters (``in_proj_weight`` [3C, C], ``out_proj``)."""
+    parameters (``in_proj_weight`` [3C, C] and its bias, made in ``dtype``;
+    ``out_proj``)."""
 
-    def __init__(self, d_model: int, n_head: int):
+    def __init__(self, d_model: int, n_head: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, dtype=dtype))
+        self.out_proj = Dense(d_model, d_model, dtype=dtype)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self.in_proj_weight.data = self.in_proj_weight.data.to(dtype)
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        # x @ in_kernel + in_bias, promoted as jnp promotes the three
+        qkv = dense(x, self.in_proj_weight, self.in_proj_bias,
+                    promote(x, self.in_proj_weight, self.in_proj_bias))
         q, k, v = qkv.chunk(3, dim=-1)          # views; K1 reads them in place
         return self.out_proj(multi_head_attention(q, k, v, self.n_head, attn_mask))
 
@@ -63,14 +124,14 @@ class LayerNormFp32(nn.LayerNorm):
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN transformer block with a QuickGELU MLP."""
 
-    def __init__(self, d_model: int, n_head: int):
+    def __init__(self, d_model: int, n_head: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attn = TorchMultiheadAttention(d_model, n_head)
+        self.attn = TorchMultiheadAttention(d_model, n_head, dtype)
         self.ln_1 = LayerNormFp32(d_model)
         self.mlp = nn.Sequential(OrderedDict([
-            ("c_fc", nn.Linear(d_model, d_model * 4)),
+            ("c_fc", Dense(d_model, d_model * 4, dtype=dtype)),
             ("gelu", QuickGELU()),
-            ("c_proj", nn.Linear(d_model * 4, d_model)),
+            ("c_proj", Dense(d_model * 4, d_model, dtype=dtype)),
         ]))
         self.ln_2 = LayerNormFp32(d_model)
 
@@ -85,16 +146,17 @@ class AttentionPool2d(nn.Module):
     (H, W), a mean token is prepended, and full self-attention runs over
     HW+1 tokens. NCHW in; returns ``(global [N, out], map [N, out, H, W])``."""
 
-    def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int, output_dim: int):
+    def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int, output_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.spacial_dim = spacial_dim
         self.num_heads = num_heads
         self.positional_embedding = nn.Parameter(
-            torch.randn(spacial_dim ** 2 + 1, embed_dim) / embed_dim ** 0.5)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.c_proj = nn.Linear(embed_dim, output_dim)
+            (torch.randn(spacial_dim ** 2 + 1, embed_dim) / embed_dim ** 0.5).to(dtype))
+        self.k_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.q_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.v_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.c_proj = Dense(embed_dim, output_dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor):
         N, C, H, W = x.shape
@@ -115,19 +177,27 @@ class AttentionPool2d(nn.Module):
 class InstanceNorm2d(nn.Module):
     """Affine instance norm over the token layout [N, HW, C] (or [N, H, W, C])
     the fusion works in: statistics over every axis but the first and last,
-    biased variance, eps 1e-5 (torch ``InstanceNorm2d(affine=True)`` keys)."""
+    biased variance, eps 1e-5 (torch ``InstanceNorm2d(affine=True)`` keys;
+    weight and bias made in ``dtype``).
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    As jnp's ``mean`` and ``var`` on x's dtype: both in float32 from x (the
+    variance about the float32 mean), each rounded once to x's dtype; then
+    ``(x - mean) * rsqrt(var + eps)`` in x's dtype, times the weight plus the
+    bias promoted with theirs."""
+
+    def __init__(self, features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.weight = nn.Parameter(torch.ones(features, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dims = tuple(range(1, x.dim() - 1))
-        mean = x.mean(dim=dims, keepdim=True)
-        var = (x - mean).square().mean(dim=dims, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        xf = x.float()
+        mean = xf.mean(dim=dims, keepdim=True)
+        var = (xf - mean).square().mean(dim=dims, keepdim=True).to(x.dtype)
+        y = (x - mean.to(x.dtype)) * torch.rsqrt(var + weak(self.eps, x.dtype))
+        return y.to(promote(y, self.weight)) * self.weight + self.bias
 
 
 class PReLU(nn.PReLU):
@@ -178,21 +248,34 @@ class TorchBatchNorm(nn.Module):
 class Conv1x1(nn.Module):
     """A 1x1 convolution kept in the reference's Conv2d layout (``weight``
     [out, in, 1, 1]; with ``dims=1`` its Conv1d layout [out, in, 1]) and
-    applied as a Dense layer on the channel-last axis."""
+    applied as a Dense layer (computing in ``dtype``) on the channel-last axis."""
 
-    def __init__(self, in_channels: int, out_channels: int, dims: int = 2):
+    def __init__(self, in_channels: int, out_channels: int, dims: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         conv = (nn.Conv2d if dims == 2 else nn.Conv1d)(in_channels, out_channels, 1)
         self.weight = conv.weight
         self.bias = conv.bias
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        return dense(x, self.weight.flatten(1), self.bias, self.compute_dtype)
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
-    """``nn.AvgPool2d(window)`` on NCHW (kernel = stride = window)."""
-    return F.avg_pool2d(x, window, window)
+    """``nn.AvgPool2d(window)`` on NCHW (kernel = stride = window). Below
+    float32 as flax's ``avg_pool``: the window summed in x's dtype, each add
+    rounded (``lax.reduce_window``'s accumulator is x's dtype), rows then
+    columns, then divided by the window's size."""
+    if x.dtype == torch.float32:
+        return F.avg_pool2d(x, window, window)
+    H, W = x.shape[-2] // window * window, x.shape[-1] // window * window
+    acc = None
+    for dy in range(window):
+        for dx in range(window):
+            t = x[..., dy:H:window, dx:W:window]
+            acc = t if acc is None else acc + t
+    return acc / window ** 2
 
 
 def causal_mask(length: int, device=None, dtype=torch.float32) -> torch.Tensor:

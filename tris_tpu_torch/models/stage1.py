@@ -13,6 +13,10 @@ training forward scores this rank's images against the texts of the global
 batch, gathered in rank order with their gradient, as the JAX package's one
 program over the global batch does: ``cls_out`` is this rank's rows of the
 global ``[B_global, B_global]``, its own texts at ``rank * B``.
+
+``dtype`` is the JAX module's (``tris_tpu_torch.models.layers``): with
+bfloat16, ``response_maps`` and the eval forward run K1, K2, K3's eval head
+and K13's eval fold on bfloat16 operands; the maps are float32 either way.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from torch import nn
 from tris_tpu_torch import kernels, parallel
 from tris_tpu_torch.models.clip import CLIP, CLIP_CONFIGS, CLIPConfig
 from tris_tpu_torch.models.fusion import BilateralPrompt
-from tris_tpu_torch.models.layers import Conv1x1
+from tris_tpu_torch.models.layers import Conv1x1, Dense
+from tris_tpu_torch.ops.dtypes import l2_normalize, weak
 
 FUSION_RESIDUAL = 0.1  # fixed residual weight of the fusion (model_stage1.py:73-74)
 
@@ -53,17 +58,17 @@ class Stage1Config:
 
 
 class TRISStage1(nn.Module):
-    def __init__(self, config: Stage1Config):
+    def __init__(self, config: Stage1Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         self.config = cfg
         ccfg = cfg.clip_config
-        self.backbone = CLIP(ccfg)
-        self.vis_project = Conv1x1(ccfg.vision_width * 32, cfg.hidden_dim)
-        self.lan_project = nn.Linear(cfg.text_dim, cfg.hidden_dim)
+        self.backbone = CLIP(ccfg, dtype)
+        self.vis_project = Conv1x1(ccfg.vision_width * 32, cfg.hidden_dim, dtype=dtype)
+        self.lan_project = Dense(cfg.text_dim, cfg.hidden_dim, dtype=dtype)
         self.logit_scale = nn.Parameter(torch.tensor(float(np.log(1 / 0.07))))
         if cfg.attn_multi > 0:
-            self.attn_fusion = BilateralPrompt(cfg.hidden_dim, cfg.hidden_dim)
+            self.attn_fusion = BilateralPrompt(cfg.hidden_dim, cfg.hidden_dim, dtype)
 
     def _features(self, image: torch.Tensor, word_ids: torch.Tensor):
         """L2-normalised pixel tokens [B, hw, D] (once per image), text
@@ -73,9 +78,7 @@ class TRISStage1(nn.Module):
         h, w = c4.shape[2], c4.shape[3]
         vis = self.vis_project(c4.flatten(2).transpose(1, 2))          # [B, hw, D]
         lan = self.lan_project(hidden)
-        norm_vis = vis / torch.linalg.vector_norm(vis, dim=-1, keepdim=True)
-        norm_lan = lan / torch.linalg.vector_norm(lan, dim=-1, keepdim=True)
-        return norm_vis, norm_lan, (h, w)
+        return l2_normalize(vis), l2_normalize(lan), (h, w)
 
     def forward(self, image: torch.Tensor, word_ids: torch.Tensor, train: bool = False):
         """image [B, 3, H, W], word_ids [B, L], the fusion over all B texts.
@@ -107,8 +110,9 @@ class TRISStage1(nn.Module):
         if cfg.attn_multi > 0:
             lan_all = norm_lan[None].expand(B, B, norm_lan.shape[-1])  # every image, all B texts
             new_vis, new_lan = self.attn_fusion(norm_vis, lan_all)
-            lan_p = new_lan.diagonal(dim1=0, dim2=1).T * FUSION_RESIDUAL + norm_lan
-        maps = kernels.response_head(new_vis, norm_vis, lan_p, 1, scale, FUSION_RESIDUAL, hw, (H, W))
+            lan_p = new_lan.diagonal(dim1=0, dim2=1).T * _residual(new_lan) + norm_lan
+        maps = kernels.response_head(new_vis, norm_vis, lan_p, 1, scale, _residual(new_vis), hw,
+                                     (H, W))
         return maps[:, None]
 
     def response_maps(self, image: torch.Tensor, word_ids: torch.Tensor) -> torch.Tensor:
@@ -125,6 +129,12 @@ class TRISStage1(nn.Module):
         lan_p = norm_lan
         if self.config.attn_multi > 0:
             new_vis, new_lan = self.attn_fusion(norm_vis, norm_lan[:, None], S)
-            lan_p = new_lan[:, 0] * FUSION_RESIDUAL + norm_lan
-        maps = kernels.response_head(new_vis, norm_vis, lan_p, S, scale, FUSION_RESIDUAL, hw, (H, W))
+            lan_p = new_lan[:, 0] * _residual(new_lan) + norm_lan
+        maps = kernels.response_head(new_vis, norm_vis, lan_p, S, scale, _residual(new_vis), hw,
+                                     (H, W))
         return maps.reshape(B, S, H, W)
+
+
+def _residual(new) -> float:
+    """The fusion's residual weight as jnp multiplies ``new`` by it: in new's dtype."""
+    return weak(FUSION_RESIDUAL, torch.float32 if new is None else new.dtype)

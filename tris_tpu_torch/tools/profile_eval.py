@@ -3,8 +3,8 @@ image of IRNet's instance pseudo-mask pass, one IRN training step or one
 stage-2 training step spends its time on the card.
 
     python -m tris_tpu_torch.tools.profile_eval [--prms | --train | --ins_seg | --train_irn |
-        --train_stage2] [--batch 8] [--sents 4] [--negatives 3] [--size 320] [--iters 5] \\
-        [--out PATH]
+        --train_stage2] [--bf16] [--batch 8] [--sents 4] [--negatives 3] [--size 320] \\
+        [--iters 5] [--out PATH]
 
 Builds RN50 stage 1 at full width with seeded random weights (as
 ``chip_smoke.py`` does), times ``response_maps`` on the host clock (with
@@ -27,9 +27,11 @@ traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times; one stream, so they do not overlap) and its idle share, and the
 device time by kernel class (the hand-written kernels by name, K13's
-summed and by design, cuDNN convolutions, GEMMs, everything else), by kernel name, and
-``InstanceNorm2d``'s (the kernels its forwards and their backward
-launched); ``--out`` also writes it to a file. Needs a card.
+summed and by design, cuDNN convolutions, cuDNN's layout transposes, GEMMs,
+everything else), by kernel name, and ``InstanceNorm2d``'s (the kernels its
+forwards and their backward launched); ``--out`` also writes it to a file.
+``--bf16``: stage 1 in bfloat16 (its seeded init), eval or ``--prms``.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ import torch
 
 # matched as substrings of the profiler's names, so every instantiation of a
 # templated kernel (K1's mha_short_kernel<56, 64, true>, ...) files under its own
-HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
+HAND_KERNELS = ("mha_short_kernel", "mha_short_bf16_kernel", "mha_short_bwd_kernel",
+                "cross_attn_kernel",
                 "cross_attn_probs_bwd_kernel", "cross_attn_grads_bwd_kernel",
                 "response_head_kernel", "stage1_head_fwd_kernel", "stage1_head_bwd_kernel",
                 "eval_metrics_kernel",
@@ -61,7 +64,7 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bwd_kernel", "cross_attn_kernel",
                 "batch_norm_bwd_slope_kernel", "batch_norm_stats_partial_kernel",
                 "batch_norm_stats_final_kernel", "batch_norm_apply_kernel",
                 "batch_norm_bwd_partial_kernel", "batch_norm_bwd_final_kernel",
-                "batch_norm_bwd_apply_kernel")
+                "batch_norm_bwd_apply_kernel", "batch_norm_fold_bf16_kernel")
 # K13's kernels by design: the fused (and PReLU's slope sum after the fused backward),
 # the rest two-pass (the eval fold's apply among them)
 K13_FUSED = ("batch_norm_fwd_fused_kernel", "batch_norm_bwd_fused_kernel",
@@ -73,6 +76,8 @@ def kernel_class(name: str) -> str:
         if k in name:
             return k
     low = name.lower()
+    if "nchwtonhwc" in low or "nhwctonchw" in low:  # cuDNN's layout transposes around a conv
+        return "layout"
     if "conv" in low or "cudnn" in low or "implicit" in low or "winograd" in low:
         return "convolution"
     if "gemm" in low or "cutlass" in low or "gemv" in low:
@@ -216,8 +221,12 @@ def main(argv=None) -> dict:
     p.add_argument("--negatives", type=int, default=3, help="negatives per image (--train)")
     p.add_argument("--size", type=int, default=320)
     p.add_argument("--iters", type=int, default=None, help="default 5 (1 with --ins_seg)")
+    p.add_argument("--bf16", action="store_true",
+                   help="stage 1 in bfloat16 (--bf16; eval and --prms only)")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
+    if args.bf16 and (args.train or args.ins_seg or args.train_irn or args.train_stage2):
+        p.error("--bf16 covers stage-1 eval and --prms")
     if args.iters is None:
         args.iters = 1 if args.ins_seg else 5
     if args.batch is None:
@@ -226,7 +235,8 @@ def main(argv=None) -> dict:
     dev = resolve_device("cuda")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        model = TRISStage1(Stage1Config(backbone="RN50", hidden_dim=1024, txt_length=20))
+        model = TRISStage1(Stage1Config(backbone="RN50", hidden_dim=1024, txt_length=20),
+                           torch.bfloat16 if args.bf16 else torch.float32)
     model = model.to(dev).train(args.train)
     rng = np.random.default_rng(0)
     image_u8 = rng.integers(0, 256, (args.batch, args.size, args.size, 3), dtype=np.uint8)
@@ -294,6 +304,7 @@ def main(argv=None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     res = {
         "device": torch.cuda.get_device_name(0),
+        "dtype": "bfloat16" if args.bf16 else "float32",
         "step": ("train_step" if args.train else "make_prms_forward" if args.prms else
                  "ins_seg_image" if args.ins_seg else "irn_train_step" if args.train_irn else
                  "stage2_train_step" if args.train_stage2 else "response_maps"),
