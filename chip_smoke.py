@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--report PATH]
 
 Run from the root of a checkout. Phases, in order; an error stops the run,
-and a failed check of phases 3-13 exits 1 once all have run (so the report
+and a failed check of phases 3-14 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
@@ -46,9 +46,15 @@ holds every number):
              response_maps' shapes on both leaf regimes' operands; K13's eval
              fold at the B=8 stem, layer1's and layer4's tails and a
              downsample), each one's and its plain version's distance from a
-             float64 evaluation of the same bfloat16 inputs, the kernel's
-             within one bfloat16 ulp of the output's scale of the plain
-             version's, with its stated tolerance;
+             float64 evaluation of the same bfloat16 inputs, and the
+             bfloat16 kernels of ``--bf16`` training at the train step's
+             shapes (K13's train forward and backward at the stem, layer1's
+             and layer4's tails and layer3; K1's backward at the text tower;
+             K2's forward keeping its probabilities and its backward, K3's
+             training head forward and backward, each on both mixes), the
+             kernel's within one bfloat16 ulp of the output's scale of the plain
+             version's (and, where the plain version lies past a tenth of the
+             scale from float64, within 4 such ulps of the plain version);
              device times of kernel, plain version and, where one exists, the
              one PyTorch call computing the same thing; the least time the card
              could take (bytes or operations over the published peak: FP32, and
@@ -125,7 +131,11 @@ holds every number):
              counters (the exact launches per image of K1, K2, K3's eval
              head, K4 and K13), against K4's plain version on the same maps
              (each ref's I and U equal) and the plain route (metrics 1e-4),
-             each image's host ms on both routes; then
+             each image's host ms on both routes, and once with ``--bf16`` on
+             the same weights (K2, K3's eval head and K13's fold in bfloat16,
+             none in float32) against the plain bfloat16 route (the first
+             image's maps and the refs' I and U within ``BF16_MAPS_SHARE``
+             of the gap to the float32 run); then
              the demo's compute at full-width stage 2 on a 480x640 image with
              two comma-separated phrases against the plain route (the map
              within 1e-4 of its scale, norm_cam within that bar carried
@@ -158,7 +168,19 @@ holds every number):
              against the plain bfloat16 route within ``BF16_MAPS_SHARE`` of
              the float32-bfloat16 gap of the same run, the metrics beside
              float32's, PRMS's selection against float32's, and one run
-             each of ``validate``'s host ms a batch, bfloat16 and float32.
+             each of ``validate``'s host ms a batch, bfloat16 and float32;
+14. bf16 train - ``--bf16`` stage-1 training at full width (B=48, 3
+             negatives, the ViT-B/32 critic float32): ``train_step``, 3 steps
+             under reset counters in three leaf regimes (the seeded init; the
+             float32 model's weights loaded, as ``--pretrain``; a float32
+             backbone, as ``--clip_weights``): the bfloat16 kernels launched
+             and K2's, K3's and K13's float32 ones never, step 1's losses and
+             each gradient against the plain bfloat16 route within
+             ``BF16_TRAIN_TAIL`` times the larger of the bf16-f32 gap and the
+             plain route's own spread (the step on the batch reversed), their
+             median within ``BF16_TRAIN_MEDIAN`` times the spread's, the GMP
+             channels with a tied maximum, the bfloat16 leaves' moments, and
+             the step's host ms in bfloat16 and float32 over ``ROUNDS``.
 
 Prints the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``--report`` writes a fuller JSON report
@@ -258,6 +280,9 @@ REFERIT_IMAGES, REFERIT_ROUNDS = 8, 3
 REFERIT_LAUNCHES_PER_IMAGE = {"mha_short": 12, "cross_attn": 1, "response_head": 1,
                               "eval_metrics": 1}
 DEMO_SIZE, DEMO_TEXT = (480, 640), "the man on the left, a red umbrella"
+# the kernels ReferIt eval with --bf16 launches on float32 leaves (K1 and K4 in float32)
+REFERIT_BF16_KERNELS = ("cross_attn.bf16", "response_head.bf16", "batch_norm.bf16", "mha_short",
+                        "eval_metrics")
 # K13's rows in phase 3: (name, shape, activation, residual, mode) at the paths' shapes:
 # the stem's third norm (two-pass), a bottleneck's tail in layer1, layer2 and layer4,
 # layer3's first norms, layer1's first (the forward's widest cluster), stage 2's output1
@@ -1904,13 +1929,55 @@ def bf16_ulp(scale: float) -> float:
     return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
 
 
+# where the plain version lies past this share of the output's scale from float64, the kernel
+# is held to BF16_ULPS_VS_PLAIN bfloat16 ulps of the scale from the plain version itself
+BF16_PLAIN_FAR, BF16_ULPS_VS_PLAIN = 0.1, 4
+
+
+def bf16_distances(failures, name, got, plain, want64) -> dict:
+    """The kernel's and the plain version's max distance from a float64
+    evaluation of the same bfloat16 inputs, and the bars, a failure noted
+    when the kernel passes one: the plain version's distance plus one
+    bfloat16 ulp of the output's scale; and where that bar is wide, the
+    plain version more than a tenth of the scale from float64 (float64 takes
+    another branch than bfloat16: a ReLU mask, GMP's maxima among bfloat16
+    dots), 4 such ulps from the plain version itself (elsewhere the
+    bfloat16 routes' orders of summation alone lie up to 3 ulps apart)."""
+    scale = float(want64.abs().max())
+    e_k, e_p, e_kp = max_err(got, want64), max_err(plain, want64), max_err(got, plain)
+    tol = e_p + bf16_ulp(scale)
+    tol_plain = BF16_ULPS_VS_PLAIN * bf16_ulp(scale) if e_p > BF16_PLAIN_FAR * scale else None
+    if not e_k <= tol:
+        failures.append(f"{name}: {e_k} from float64 > the plain version's {e_p} + one "
+                        f"bfloat16 ulp of {scale}")
+    if tol_plain is not None and not e_kp <= tol_plain:
+        failures.append(f"{name}: {e_kp} from the plain version > {BF16_ULPS_VS_PLAIN} "
+                        f"bfloat16 ulps of {scale}")
+    return {"max_abs_err": e_k, "tol": tol, "max_abs_err_plain": e_p, "output_scale": scale,
+            "max_abs_err_vs_plain": e_kp, "tol_vs_plain": tol_plain}
+
+
+def bf16_row(name, dists, ms, plain_ms, nbytes, flops, library_ms, **extra):
+    """A bfloat16 kernel's row, logged: its distances, its and the plain
+    version's device ms, the bound at bfloat16 widths and the library ms."""
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_S)
+    log(f"kernel {name}: float64 distance {dists['max_abs_err']:.3g} (plain "
+        f"{dists['max_abs_err_plain']:.3g}, bar {dists['tol']:.3g}), from the plain version "
+        f"{dists['max_abs_err_vs_plain']:.3g} (bar {dists['tol_vs_plain']}) ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {library_ms}")
+    return {"name": name, **dists, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, **extra}
+
+
 def check_bf16_kernels(K, dev):
     """The four bfloat16 kernels of ``--bf16`` (stage-1 eval and PRMS) at
     phase 13's shapes, against their plain versions (which also take
     bfloat16) on the same bfloat16 inputs: each one's and the plain
     version's max distance from a float64 evaluation of those inputs, the
     kernel's no more than one bfloat16 ulp of the output's scale past the
-    plain version's (K13's fold also bit for bit to its plain version);
+    plain version's (and no more than 4 from the plain version itself where
+    that lies past a tenth of the scale from float64; K13's fold also bit
+    for bit to its plain version);
     device ms of kernel and plain version, the bound at the inputs' and
     outputs' widths (bytes over the memory rate, or operations over the
     bfloat16 rate), and the library call in bfloat16 (SDPA for K1 and K2,
@@ -1932,28 +1999,9 @@ def check_bf16_kernels(K, dev):
     def randn(*shape, dtype=bf, scale=1.0):
         return (scale * torch.randn(*shape, generator=g, device=dev)).to(dtype)
 
-    def d64(name, got, plain, want64, what=None):
-        """(kernel's and plain's distance from float64, the bar); a failure
-        when the kernel's passes the plain version's by more than one ulp"""
-        scale = float(want64.abs().max())
-        e_k, e_p = max_err(got, want64), max_err(plain, want64)
-        tol = e_p + bf16_ulp(scale)
-        if not e_k <= tol:
-            failures.append(f"{name}{what or ''}: {e_k} from float64 > the plain version's "
-                            f"{e_p} + one bfloat16 ulp of {scale}")
-        return e_k, e_p, tol, scale
-
-    def row(name, got, plain, want64, ms, plain_ms, nbytes, flops, library_ms, **extra):
-        e_k, e_p, tol, scale = d64(name, got, plain, want64)
-        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_S)
-        r = {"name": name, "max_abs_err": e_k, "tol": tol, "max_abs_err_plain": e_p,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": library_ms, "output_scale": scale,
-             "max_abs_err_vs_plain": max_err(got, plain), **extra}
-        log(f"kernel {name}: float64 distance {e_k:.3g} (plain {e_p:.3g}, bar {tol:.3g}) ms "
-            f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
-            f"{library_ms}")
-        return r
+    def row(name, got, plain, want64, *times, **extra):
+        return bf16_row(name, bf16_distances(failures, name, got, plain, want64), *times,
+                        **extra)
 
     # K13's eval fold at stage-1 eval's B = 8: the stem's first norm, layer1's and layer4's
     # tails (the residual then ReLU), layer1's downsample (no activation)
@@ -2013,7 +2061,7 @@ def check_bf16_kernels(K, dev):
         args = (qv, kv, vv, qt, kt, vt, S, div)
         got, want = K.cross_attn(*args), K.cross_attn_plain(*args)
         want64 = K.cross_attn_plain(*(t.double() for t in args[:6]), S, div)
-        vis_e = d64(name, got[0], want[0], want64[0], " new_vis")
+        vis_e = bf16_distances(failures, name + " new_vis", got[0], want[0], want64[0])
         lib_args = tuple(t.to(bf) for t in args[:6]) + (S, div)
         vb, ob = (2 if vis_dt == bf else 4), (2 if vis_dt == bf else 4)
         k2_rows.append(row(name, got[1], want[1], want64[1],
@@ -2022,8 +2070,9 @@ def check_bf16_kernels(K, dev):
                            vb * 3 * B * hw * m + 2 * 3 * P * m + ob * (P * hw * m + P * m),
                            2 * 2 * P * hw * m * 2, device_ms(lambda: k2_sdpa(*lib_args)),
                            shape=[B, S, hw, m, 1], vision_dtype=str(vis_dt),
-                           out_dtype=str(got[0].dtype), new_vis_max_abs_err_f64=vis_e[0],
-                           new_vis_max_abs_err_plain_f64=vis_e[1],
+                           out_dtype=str(got[0].dtype),
+                           new_vis_max_abs_err_f64=vis_e["max_abs_err"],
+                           new_vis_max_abs_err_plain_f64=vis_e["max_abs_err_plain"],
                            launch_shape=K.cross_attn_launch_shape("cross_attn_bf16")))
 
     # K3 at response_maps' shape, 32 pairs, D = 1024, 10x10 -> 320x320: bfloat16 vis_new
@@ -2059,6 +2108,257 @@ def check_bf16_kernels(K, dev):
                    "tris_tpu/models/layers.py:213", fold_rows[0], fold_rows[1:])]
     torch.cuda.empty_cache()
     return rows, failures
+
+
+# ---- phase 3: the bfloat16 training kernels (--bf16 stage-1 training) ------------------------
+
+# K13's bfloat16 train rows: the stem's third norm, layer1's and layer4's tails (the residual
+# then ReLU) and layer3's first block's last norm, at the train step's B = 48
+BN_BF16_TRAIN_ROWS = (("stem", (TRAIN_B, 64, 160, 160), "relu", False),
+                      ("layer1_tail", (TRAIN_B, 256, 80, 80), "relu", True),
+                      ("layer3", (TRAIN_B, 1024, 20, 20), "relu", False),
+                      ("layer4_tail", (TRAIN_B, 2048, 10, 10), "relu", True))
+TRAIN_HW = (SIZE // 32) ** 2  # the train step's score plane: 10 x 10 pixels
+
+
+def check_bf16_train_kernels(K, dev):
+    """The bfloat16 kernels of ``--bf16`` stage-1 training at the train step's
+    shapes (B = 48, 3 negatives, 320 px), forward and backward, against
+    their plain versions on the same bfloat16 inputs and cotangents: each
+    output's (each gradient's) max distance from a float64 evaluation of
+    those inputs, the kernel's no more than one bfloat16 ulp of the output's
+    scale past the plain version's (and no more than 4 from the plain version
+    itself where that lies past a tenth of the scale from float64); device ms of the kernel (the backward
+    alone, on a retained graph) and of the plain version; the bound at the
+    inputs' and outputs' widths over the memory rate (or the operations over
+    the bfloat16 rate); the library call in bfloat16 where one computes the
+    function (``F.batch_norm`` for K13, SDPA's backward for K1, two SDPA for
+    K2; none for K3's head). Returns (new rows, {existing row: its train
+    shapes}, failures): rows ``batch_norm_bwd.bf16``, ``mha_short_bwd.bf16``,
+    ``cross_attn_bwd.bf16``, ``stage1_head.bf16`` and ``stage1_head_bwd.bf16``
+    (each mix or shape beside its first as a shape); K13's and K2's train
+    forwards join the rows ``batch_norm.bf16`` and ``cross_attn.bf16``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.kernels import build
+    from tris_tpu_torch.models.layers import causal_mask
+
+    bf, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(21)
+    failures = []
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+
+    def worst(name, gots, plains, wants, labels):
+        """Each output's distances and their bars (failures noted); the
+        output nearest a bar gives the row's."""
+        dists = [dict(bf16_distances(failures, f"{name} {label}", got, plain, want),
+                      output=label)
+                 for got, plain, want, label in zip(gots, plains, wants, labels)]
+        return max(dists, key=lambda d: max(
+            d["max_abs_err"] / d["tol"] if d["tol"] > 0 else 0.0,
+            d["max_abs_err_vs_plain"] / d["tol_vs_plain"] if d["tol_vs_plain"] else 0.0))
+
+    row = bf16_row
+
+    # K13 in training on bfloat16 x: forward (y, the statistics) and backward (dx, dweight,
+    # dbias, the residual's gradient) against the plain version and float64
+    bn_fwd, bn_bwd = [], []
+    for label, shape, act, with_res in BN_BF16_TRAIN_ROWS:
+        C, n = shape[1], math.prod(shape)
+        x = randn(*shape, scale=1.5)
+        res = randn(*shape) if with_res else None
+        w, b = 1 + 0.3 * randn(C, dtype=f32), 0.5 * randn(C, dtype=f32)
+        rm, rv = randn(C, dtype=f32), 0.5 + torch.rand(C, generator=g, device=dev)
+        kw = dict(training=True, update_stats=False, momentum=0.1, eps=1e-5, act=act)
+        ins = [x, w, b] + ([res] if with_res else [])
+
+        def bn(route, *t):
+            return route(t[0], t[1], t[2], rm, rv, residual=t[3] if with_res else None, **kw)
+
+        def bn64(*t):
+            return bn_reference64(t[0], t[1], t[2], rm.double(), rv.double(), True, False, act,
+                                  None, t[3] if with_res else None)
+
+        kern = functools.partial(bn, K.batch_norm_act)
+        plain = functools.partial(bn, K.batch_norm_act_plain)
+        with torch.no_grad():
+            got, want, want64 = kern(*ins), plain(*ins), bn64(*ins)
+        err = worst("batch_norm.bf16@train_" + label, [got], [want], [want64], ["y"])
+        lib = lambda x=x: F.batch_norm(x, None, None, w, b, True, 0.1, 1e-5)  # noqa: E731
+        with torch.no_grad():
+            bn_fwd.append(row(f"batch_norm.bf16@train_{label}", err, device_ms(lambda: kern(*ins)),
+                              device_ms(lambda: plain(*ins)), 2 * n * (2 + with_res) + 16 * C,
+                              10 * n, device_ms(lib), shape=list(shape), act=act,
+                              residual=with_res, mode="train",
+                              launch_shape=dict(build.ops().batch_norm_launch_shape(
+                                  "batch_norm_apply.bf16"))))
+        cot = [randn(*shape)]
+        lv = leaves(*ins)
+        gk = input_grads(kern, lv, cot)
+        gp = input_grads(plain, lv, cot)
+        g64 = input_grads(bn64, leaves(*(t.double() for t in ins)), [cot[0].double()])
+        names = ["dx", "dweight", "dbias"] + (["dresidual"] if with_res else [])
+        if not (gk[0].dtype == bf and gk[1].dtype == f32 and (not with_res or gk[3].dtype == bf)):
+            failures.append(f"batch_norm_bwd.bf16@{label}: gradient dtypes "
+                            f"{[str(t.dtype) for t in gk]}")
+        err = worst("batch_norm_bwd.bf16@" + label, gk, gp, g64, names)
+        lib_in = leaves(x, w, b)
+        lib_fn = lambda x, w, b: F.batch_norm(x, None, None, w, b, True, 0.1, 1e-5)  # noqa: E731
+        bn_bwd.append(row(f"batch_norm_bwd.bf16@{label}", err, bwd_ms(kern, lv, cot),
+                          bwd_ms(plain, lv, cot), 2 * n * (3 + 1 + with_res) + 24 * C, 12 * n,
+                          bwd_ms(lib_fn, lib_in, cot), shape=list(shape), act=act,
+                          residual=with_res,
+                          launch_shape=dict(build.ops().batch_norm_launch_shape(
+                              "batch_norm_bwd_apply.bf16"))))
+        del x, res, lv, gk, gp, g64, lib_in
+        torch.cuda.empty_cache()
+
+    # K1's backward in the text tower on the seeded init's bfloat16 leaves: q, k, v column
+    # views of one [48, 20, 1536] qkv, 8 heads, the float32 causal mask, a float32 cotangent
+    N, C, H = TRAIN_B, 512, 8
+    qkv = randn(N, TXT_LEN, 3 * C)
+    mask = causal_mask(TXT_LEN, device=dev)
+    cot = [randn(N, TXT_LEN, C, dtype=f32)]
+    kern = lambda t: K.mha_short(*t.chunk(3, dim=-1), H, mask)  # noqa: E731
+    plain = lambda t: K.mha_short_plain(*t.chunk(3, dim=-1), H, mask)  # noqa: E731
+    lv = leaves(qkv)
+    gk, gp = input_grads(kern, lv, cot), input_grads(plain, lv, cot)
+    g64 = input_grads(lambda t: K.mha_short_plain(*t.chunk(3, dim=-1), H, mask.double()),
+                      leaves(qkv.double()), [cot[0].double()])
+    err = worst("mha_short_bwd.bf16", [t for gr in (gk[0].chunk(3, -1),) for t in gr],
+                list(gp[0].chunk(3, -1)), list(g64[0].chunk(3, -1)), ["dq", "dk", "dv"])
+    mask_bf = mask.to(bf)
+    lib = lambda t: sdpa(*t.chunk(3, dim=-1), H, mask_bf)  # noqa: E731
+    lib_cot = [randn(N, H, TXT_LEN, C // H)]
+    nl = N * TXT_LEN * C
+    k1 = row("mha_short_bwd.bf16", err, bwd_ms(kern, lv, cot), bwd_ms(plain, lv, cot),
+             2 * 3 * nl + 4 * nl + 4 * TXT_LEN ** 2 + 2 * 3 * nl,
+             5 * 2 * N * TXT_LEN * TXT_LEN * C, bwd_ms(lib, leaves(qkv), lib_cot),
+             shape=[N, TXT_LEN, C, H], causal=True, grad_dtype=str(gk[0].dtype),
+             launch_shape=K.mha_short_launch_shape("mha_short_bwd_bf16"))
+
+    # K2 at the train step's shape: 48 images x T = 48 texts, HW = 100, m = 1024, S = 1, both
+    # mixes (bfloat16 leaves; float32 vision on float32 leaves): the forward keeping the
+    # probabilities, and the backward
+    m, T = 1024, TRAIN_B
+    div = math.sqrt(m)
+    k2_fwd, k2_bwd = [], []
+    for label, vis_dt in (("bf16", bf), ("f32_vision", f32)):
+        vis = [torch.relu(randn(TRAIN_B, TRAIN_HW, m, dtype=vis_dt)) for _ in range(3)]
+        txt = [torch.relu(randn(TRAIN_B, T, m)) for _ in range(3)]
+        ins = vis + txt
+        kern = lambda *t: K.cross_attn(*t, 1, div)  # noqa: E731
+        plain = lambda *t: K.cross_attn_plain(*t, 1, div)  # noqa: E731
+        lv = leaves(*ins)
+        with torch.enable_grad():
+            outs_k, outs_p = kern(*lv), plain(*lv)
+        with torch.no_grad():
+            outs64 = K.cross_attn_plain(*(t.double() for t in ins), 1, div)
+        err = worst(f"cross_attn.bf16@train_{label}", outs_k, outs_p, outs64,
+                    ["new_vis", "new_lan"])
+        vb = 2 if vis_dt == bf else 4
+        in_bytes = vb * 3 * TRAIN_B * TRAIN_HW * m + 2 * 3 * TRAIN_B * T * m
+        out_bytes = vb * TRAIN_B * (TRAIN_HW + T) * m
+        nbytes = in_bytes + out_bytes + 4 * 2 * TRAIN_B * TRAIN_HW * T
+        flops = 2 * 2 * 2 * TRAIN_B * TRAIN_HW * T * m
+        lib_in = [t.to(bf) for t in ins]
+        with torch.enable_grad():
+            k2_fwd.append(row(f"cross_attn.bf16@train_{label}", err,
+                              device_ms(lambda: kern(*lv)), device_ms(lambda: plain(*lv)),
+                              nbytes, flops, device_ms(lambda: k2_sdpa(*lib_in, 1, div)),
+                              shape=[TRAIN_B, 1, TRAIN_HW, m, T], vision_dtype=str(vis_dt),
+                              mode="train (probabilities kept)",
+                              launch_shape=K.cross_attn_launch_shape("cross_attn_bf16")))
+        cot = [randn(TRAIN_B, TRAIN_HW, m, dtype=vis_dt), randn(TRAIN_B, T, m, dtype=vis_dt)]
+        gk, gp = input_grads(kern, lv, cot), input_grads(plain, lv, cot)
+        g64 = input_grads(lambda *t: K.cross_attn_plain(*t, 1, div),
+                          leaves(*(t.double() for t in ins)), [c.double() for c in cot])
+        if [t.dtype for t in gk] != [t.dtype for t in ins]:
+            failures.append(f"cross_attn_bwd.bf16@{label}: gradient dtypes "
+                            f"{[str(t.dtype) for t in gk]}")
+        err = worst(f"cross_attn_bwd.bf16@{label}", gk, gp, g64,
+                    ["dqv", "dkv", "dvv", "dqt", "dkt", "dvt"])
+        lib_lv = leaves(*lib_in)
+        lib_cot = [c.to(bf) for c in cot]
+        # the backward's least bytes: the six inputs read, their gradients written (each in
+        # its input's dtype), the two cotangents read; the probabilities can be recomputed
+        k2_bwd.append(row(f"cross_attn_bwd.bf16@{label}", err, bwd_ms(kern, lv, cot),
+                          bwd_ms(plain, lv, cot), 2 * in_bytes + out_bytes, 2 * flops,
+                          bwd_ms(lambda *t: k2_sdpa(*t, 1, div), lib_lv, lib_cot),
+                          shape=[TRAIN_B, 1, TRAIN_HW, m, T], vision_dtype=str(vis_dt),
+                          **k2_launch_shapes("cross_attn_bwd_bf16_a", "cross_attn_bwd_bf16_b")))
+        del vis, txt, ins, lv, gk, gp, g64, lib_in, lib_lv
+        torch.cuda.empty_cache()
+
+    # K3's training head at the train step's shape: 48 images x 48 texts, 10 x 10 -> 320 x
+    # 320, D = 1024, both mixes; the GMP channels with tied maxima counted on the float64
+    # evaluation's bfloat16 dots
+    D, hs = 1024, SIZE // 32
+    scale = torch.tensor(1 / 0.07, device=dev)
+    k3_fwd, k3_bwd = [], []
+    for label, vis_dt in (("bf16", bf), ("f32_vision", f32)):
+        vis = F.normalize(randn(TRAIN_B, TRAIN_HW, D, dtype=f32), dim=-1).to(vis_dt)
+        lan = F.normalize(randn(TRAIN_B, T, D, dtype=f32), dim=-1).to(bf)
+        args = (scale, (hs, hs), (SIZE, SIZE), 3.0, 0.01)
+        kern = lambda v, l: K.stage1_head(v, l, *args)  # noqa: E731
+        plain = lambda v, l: K.stage1_head_plain(v, l, *args)  # noqa: E731
+        lv = leaves(vis, lan)
+        with torch.no_grad():
+            outs_k, outs_p = kern(vis, lan), plain(vis, lan)
+            outs64 = K.stage1_head_plain(vis.double(), lan.double(), scale.double(), *args[1:])
+            dot = torch.einsum("bpc,bqc->bpq", vis.double(), lan.double())
+            score = scale * (dot.to(bf) if vis_dt == bf else dot.float()).float()
+            ties = int(((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).sum())
+        err = worst(f"stage1_head.bf16@{label}", [outs_k[0], outs_k[2], outs_k[3]],
+                    [outs_p[0], outs_p[2], outs_p[3]], [outs64[0], outs64[2], outs64[3]],
+                    ["cls_out", "relu_map", "sig_map"])
+        vb = 2 if vis_dt == bf else 4
+        maps = 2 * 4 * TRAIN_B * SIZE * SIZE
+        nbytes = vb * TRAIN_B * TRAIN_HW * D + 2 * TRAIN_B * T * D + maps + 4 * TRAIN_B * T
+        flops = 2 * TRAIN_B * TRAIN_HW * T * D
+        with torch.no_grad():
+            k3_fwd.append(row(f"stage1_head.bf16@{label}", err,
+                              device_ms(lambda: kern(vis, lan)), device_ms(lambda: plain(vis, lan)),
+                              nbytes, flops, None, shape=[TRAIN_B, T, TRAIN_HW, D, SIZE],
+                              vision_dtype=str(vis_dt), gmp_channels_tied=ties,
+                              gmp_channels=TRAIN_B * T))
+        cot = [randn(TRAIN_B, T, dtype=f32), None,
+               randn(TRAIN_B, SIZE, SIZE, dtype=f32, scale=0.01),
+               randn(TRAIN_B, SIZE, SIZE, dtype=f32, scale=0.01)]
+        gk, gp = input_grads(kern, lv, cot), input_grads(plain, lv, cot)
+        g64 = input_grads(lambda v, l: K.stage1_head_plain(v, l, scale.double(), *args[1:]),
+                          leaves(vis.double(), lan.double()), [c if c is None else c.double()
+                                                               for c in cot])
+        if [t.dtype for t in gk] != [vis_dt, bf]:
+            failures.append(f"stage1_head_bwd.bf16@{label}: gradient dtypes "
+                            f"{[str(t.dtype) for t in gk]}")
+        err = worst(f"stage1_head_bwd.bf16@{label}", gk, gp, g64, ["d vis_p", "d lan_p"])
+        # the backward's least bytes: vis_p and lan_p read and their gradients written, the
+        # cotangents of cls_out and of the two maps read
+        in_bytes = vb * TRAIN_B * TRAIN_HW * D + 2 * TRAIN_B * T * D
+        k3_bwd.append(row(f"stage1_head_bwd.bf16@{label}", err, bwd_ms(kern, lv, cot),
+                          bwd_ms(plain, lv, cot), 2 * in_bytes + maps + 4 * TRAIN_B * T,
+                          2 * flops, None,
+                          shape=[TRAIN_B, T, TRAIN_HW, D, SIZE], vision_dtype=str(vis_dt)))
+        del vis, lan, lv, gk, gp, g64
+        torch.cuda.empty_cache()
+
+    rows = [
+        kernel_row("batch_norm_bwd.bf16", "tris_tpu_torch/kernels/csrc/batch_norm_bwd.cu",
+                   "tris_tpu/models/layers.py:219", bn_bwd[0], bn_bwd[1:]),
+        kernel_row("mha_short_bwd.bf16", "tris_tpu_torch/kernels/csrc/mha_short_bwd.cu",
+                   "tris_tpu/models/layers.py:25", k1),
+        kernel_row("cross_attn_bwd.bf16", "tris_tpu_torch/kernels/csrc/cross_attn_bwd.cu",
+                   "tris_tpu/models/fusion.py:78", k2_bwd[0], k2_bwd[1:]),
+        kernel_row("stage1_head.bf16", "tris_tpu_torch/kernels/csrc/stage1_head_bf16.cu",
+                   "tris_tpu/models/stage1.py:100", k3_fwd[0], k3_fwd[1:]),
+        kernel_row("stage1_head_bwd.bf16", "tris_tpu_torch/kernels/csrc/stage1_head_bf16.cu",
+                   "tris_tpu/models/stage1.py:100", k3_bwd[0], k3_bwd[1:])]
+    extra = {"batch_norm.bf16": bn_fwd, "cross_attn.bf16": k2_fwd}
+    return rows, extra, failures
 
 
 # ---- phase 4: the main path ------------------------------------------------
@@ -3204,7 +3504,9 @@ def referit_path(K, dev):
     exact launches per image of K1, K2, K3's eval head, K4 and K13's eval fold), then with
     K4 alone on its plain version (the same maps: each ref's I and U equal, some I nonzero)
     and on the plain route (the metrics within 1e-4); each
-    image's host ms on both routes over ``REFERIT_ROUNDS``, alternating. Then the demo's
+    image's host ms on both routes over ``REFERIT_ROUNDS``, alternating; ``--bf16`` on the
+    same weights against the plain bfloat16 route (the first image's maps and the refs' I
+    and U within ``BF16_MAPS_SHARE`` of the gap to the float32 run). Then the demo's
     compute (``cli/demo.py::demo_cam``) at full-width stage 2 (seeded, eval mode) on a 480 x
     640 image with two comma-separated phrases (40 tokens: K11's forward past 32) against
     the plain route: the map (the logits) within 1e-4 of its scale, norm_cam (nonzero) within
@@ -3212,9 +3514,11 @@ def referit_path(K, dev):
     import torch
     from PIL import Image
 
+    from tris_tpu_torch.ckpt.io import load_state
     from tris_tpu_torch.cli import demo
     from tris_tpu_torch.data.referit import ReferItTestDataset
     from tris_tpu_torch.eval import validate_referit as VR
+    from tris_tpu_torch.models.stage1 import TRISStage1
     from tris_tpu_torch.eval.validate import image_to_nchw
     from tris_tpu_torch.kernels import build
     from tris_tpu_torch.tools import batch_norm_schedule as BS
@@ -3243,10 +3547,10 @@ def referit_path(K, dev):
             model.vis_project.bias -= model.vis_project(c4.flatten(2).transpose(1, 2))[0].mean(0)
         saved, VR.SegEvalAccumulator = VR.SegEvalAccumulator, Recorded
 
-        def run(route=contextlib.nullcontext):
+        def run(route=contextlib.nullcontext, m=None):
             records.append([])
             with route():
-                return VR.validate_referit(model, ds, log=quiet), records[-1]
+                return VR.validate_referit(model if m is None else m, ds, log=quiet), records[-1]
 
         @contextlib.contextmanager
         def plain_k4():
@@ -3275,7 +3579,53 @@ def referit_path(K, dev):
                         else contextlib.nullcontext():
                     times[route].append(host_ms(lambda: VR.validate_referit(
                         model, ds, log=quiet)) / REFERIT_IMAGES)
-        del model
+        # --bf16: the same weights in the bfloat16 model (every leaf float32, as --pretrain
+        # gives): K2, K3's eval head and K13's eval fold in bfloat16, K1 and K4 float32; the
+        # counted run, then the plain bfloat16 route on the same images
+        with torch.random.fork_rng(devices=[]):
+            model16 = TRISStage1(model.config, torch.bfloat16)
+        load_state(model16, model.state_dict())
+        model16 = model16.to(dev).eval()
+        VR.SegEvalAccumulator = Recorded
+        try:
+            torch.cuda.synchronize()
+            K.reset_launches()
+            res16, refs16 = run(m=model16)
+            torch.cuda.synchronize()
+            launches16 = {k: n for k, n in K.launches.items() if n}
+            res16_p, refs16_p = run(lambda: plain_kernels(K), m=model16)
+        finally:
+            VR.SegEvalAccumulator = saved
+        ms16 = host_ms(lambda: VR.validate_referit(model16, ds, log=quiet)) / REFERIT_IMAGES
+        failures += [f"referit --bf16: {k} launched no time" for k in REFERIT_BF16_KERNELS
+                     if not launches16.get(k)]
+        failures += [f"referit --bf16: {k} launched in float32" for k in
+                     ("cross_attn", "response_head", "batch_norm") if launches16.get(k)]
+        if not all(0.0 <= v <= 100.0 for v in res16.values()):
+            failures.append(f"referit --bf16 metrics out of range: {res16}")
+        # against the plain bfloat16 route, as phase 13: the first image's maps, and the refs'
+        # I and U (pixels summed over the refs), each within BF16_MAPS_SHARE of the gap
+        # between the plain bfloat16 route and the float32 run
+        ex = next(e for e in ds.iter_examples() if e["refs"])
+        ids0 = np.stack([r["word_ids"] for r in ex["refs"]])[None]
+        with torch.no_grad():
+            maps16 = VR.make_eval_forward(model16)(ex["image"][None], ids0)
+            with plain_kernels(K):
+                maps16_p = VR.make_eval_forward(model16)(ex["image"][None], ids0)
+            maps32 = VR.make_eval_forward(model)(ex["image"][None], ids0)
+        maps_gap16, maps_err16 = max_err(maps16_p, maps32), max_err(maps16, maps16_p)
+        pixels = lambda a, b: sum(abs(x[j] - y[j]) for x, y in zip(a, b) for j in (0, 1))  # noqa: E731
+        iu_gap16, iu_err16 = pixels(refs16_p, refs), pixels(refs16, refs16_p)
+        if not (len(refs16) == len(refs16_p) == n_refs and maps_gap16 > 0 and iu_gap16 > 0):
+            failures.append(f"referit --bf16: {len(refs16)} and {len(refs16_p)} refs scored "
+                            f"(want {n_refs}), gaps {maps_gap16} and {iu_gap16} pixels")
+        if not maps_err16 <= BF16_MAPS_SHARE * maps_gap16:
+            failures.append(f"referit --bf16: maps {maps_err16} from the plain route, bar "
+                            f"{BF16_MAPS_SHARE} of {maps_gap16}")
+        if not iu_err16 <= BF16_MAPS_SHARE * iu_gap16:
+            failures.append(f"referit --bf16: I and U {iu_err16} pixels from the plain route, "
+                            f"bar {BF16_MAPS_SHARE} of {iu_gap16}")
+        del model, model16
         torch.cuda.empty_cache()
 
         max_ranks = build.ops().batch_norm_plan(TRAIN_B, 64, 80 * 80, True, True, 1,
@@ -3353,6 +3703,11 @@ def referit_path(K, dev):
         "i_u_max_rel_diff_plain_route": iu_diff,
         "refs_with_i": sum(r[0] > 0 for r in refs),
         "host_ms_per_image": {route: spread(t) for route, t in times.items()},
+        "bf16": {"leaves": "float32 (the float32 model's, loaded)", "metrics": res16,
+                 "metrics_plain_bf16": res16_p, "metrics_f32": res, "launches": launches16,
+                 "maps_max_abs_err_vs_plain_bf16": maps_err16, "maps_gap_bf16_f32": maps_gap16,
+                 "i_u_pixels_vs_plain_bf16": iu_err16, "i_u_pixels_gap_bf16_f32": iu_gap16,
+                 "bar_share": BF16_MAPS_SHARE, "host_ms_per_image": ms16},
         "demo": {"size": [h, w], "text": DEMO_TEXT, "launches": demo_launches,
                  "max_abs_err": cam_err, "scale": cam_scale, "tol": cam_tol,
                  "logits_max_abs_err": logit_err, "logits_scale": logit_scale,
@@ -3768,6 +4123,202 @@ def bf16_path(K, dev, batches):
     return summary, failures
 
 
+# ---- phase 14: --bf16 stage-1 training ------------------------------------------------------
+
+# the bfloat16 kernels a --bf16 train step launches in every leaf regime; K1's bfloat16 kernels
+# on the seeded init's leaves only (else the text stream is float32); the float32 counters of
+# K2, K3's head and K13 stay at 0 in every regime
+BF16_TRAIN_KERNELS = ("batch_norm.bf16", "batch_norm_bwd.bf16", "cross_attn.bf16",
+                      "cross_attn_bwd.bf16", "stage1_head.bf16", "stage1_head_bwd.bf16")
+BF16_TRAIN_F32_IDLE = ("batch_norm", "batch_norm_bwd", "cross_attn", "cross_attn_bwd",
+                       "stage1_head", "stage1_head_bwd")
+# step 1's losses and gradients, the kernel route against the plain bfloat16 route, with the
+# bf16-f32 gap and the plain route's own spread (the same step on the batch reversed) measured
+# in the run: a bfloat16 step is chaotic (one rounding flipped anywhere spreads through the
+# ReLU network), so two bfloat16 routes lie about the gap apart (JAX's two CPU compiles: a
+# median of 0.83 to 1.10 of it over the losses and leaves, tests/test_torch_bf16_step.py).
+# Bars: each loss and leaf within BF16_TRAIN_TAIL times the larger of the gap and the plain
+# route's spread, and the median over them within BF16_TRAIN_MEDIAN times the spread's median
+BF16_TRAIN_TAIL, BF16_TRAIN_MEDIAN = 4.0, 1.5
+
+
+def bf16_train_path(K, dev, batches):
+    """``--bf16`` stage-1 training at full width (RN50, hidden 1024, 320 px, B =
+    48, 3 negatives, the ViT-B/32 critic float32): ``train_step``, 3 steps under
+    reset counters, in the three leaf regimes: the seeded bfloat16 init (15
+    bfloat16 leaf kinds), the float32 model's weights loaded (every leaf
+    float32, as ``--pretrain`` of a float32 checkpoint gives) and the seeded
+    init with a float32 backbone (as ``--clip_weights`` gives: the fusion's 8
+    InstanceNorm leaves bfloat16). Per regime: the bfloat16 kernels each
+    launched and the float32 K2, K3 and K13 never; step 1's losses and each
+    leaf's gradient against the plain bfloat16 route at the bars above; the
+    GMP channels with a tied maximum in step 1's head; the dtypes of the
+    bfloat16 leaves' moments. On the seeded init, the step's host ms in
+    bfloat16 and in float32, ``ROUNDS`` rounds alternating."""
+    import copy
+
+    import torch
+
+    from tris_tpu_torch.ckpt.io import load_state
+    from tris_tpu_torch.cli.common import build_critic
+    from tris_tpu_torch.config import get_parser
+    from tris_tpu_torch.models.stage1 import Stage1Config, TRISStage1
+    from tris_tpu_torch.train.stage1 import batch_to_device, train_step
+    from tris_tpu_torch.train.state import label_params, make_optimizer
+
+    bf = torch.bfloat16
+    critic = build_critic(get_parser().parse_args(["--max_query_len", str(TXT_LEN)]), dev)
+    cfg = Stage1Config(backbone="RN50", hidden_dim=1024, txt_length=TXT_LEN)
+    data = [batch_to_device(b, dev) for b in batches]
+    model32 = build_stage1(dev).train()
+    failures, summary = [], {}
+
+    def seeded():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            return TRISStage1(cfg, bf).to(dev).train()
+
+    def pretrain():
+        model = seeded()
+        load_state(model, model32.state_dict())
+        return model
+
+    def clip():
+        model = seeded()
+        load_state(model.backbone, model32.backbone.state_dict())
+        return model
+
+    def run(model, n, batch0=None, ties=None):
+        """n steps from a copy of ``model`` and a fresh optimizer: the loss
+        terms, step 1's gradients, the optimizer"""
+        model = copy.deepcopy(model)
+        opt, sched = make_optimizer(model, total_steps=100)
+        out, grads = [], None
+        for i in range(n):
+            batch = batch0 if (i == 0 and batch0 is not None) else data[i % len(data)]
+            if i == 0 and ties is not None:
+                head = K.stage1_head
+
+                def counted(vis_p, lan_p, scale, *a):
+                    with torch.no_grad():
+                        score = torch.einsum("bpc,bqc->bpq", vis_p.double(), lan_p.double())
+                        score = scale * (score.to(bf) if vis_p.dtype == bf else score.float()
+                                         ).float()
+                        ties.append(int(((score == score.amax(dim=1, keepdim=True)).sum(dim=1)
+                                         > 1).sum()))
+                    return head(vis_p, lan_p, scale, *a)
+
+                K.stage1_head = counted
+            try:
+                m = train_step(model, critic, opt, sched, batch)
+            finally:
+                if i == 0 and ties is not None:
+                    K.stage1_head = head
+            out.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                         if p.grad is not None}
+        return out, grads, opt, model
+
+    def dist(a, b, scale):
+        s = float(scale.abs().max()) if torch.is_tensor(scale) else abs(scale)
+        return (max_err(a, b) if torch.is_tensor(a) else abs(a - b)) / max(s, 1e-30)
+
+    labels = label_params(model32)
+    for regime, make in (("seeded", seeded), ("pretrain", pretrain), ("clip", clip)):
+        model = make()
+        n_bf16 = sum(t.dtype == bf for t in model.state_dict().values())
+        ref32 = TRISStage1(cfg).to(dev).train()     # the regime's weights in float32
+        load_state(ref32, {k: v.float() if v.is_floating_point() else v
+                           for k, v in model.state_dict().items()})
+        run(model, 1)                               # warm-up (cuDNN, allocator), kernel route
+        torch.cuda.synchronize()
+        K.reset_launches()
+        ties = []
+        metrics, grads, opt, stepped = run(model, TRAIN_STEPS, ties=ties)    # the counted run
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in K.launches.items() if n}
+        with plain_kernels(K):
+            metrics_p, grads_p, _, _ = run(model, 1)
+            rev = {k: v.flip(0) for k, v in data[0].items()}
+            metrics_r, grads_r, _, _ = run(model, 1, batch0=rev)
+        metrics32, grads32, _, _ = run(ref32, 1)
+        torch.cuda.synchronize()
+        want = BF16_TRAIN_KERNELS + (("mha_short.bf16", "mha_short_bwd.bf16")
+                                     if regime == "seeded" else ())
+        failures += [f"bf16 train {regime}: {k} launched no time" for k in want
+                     if not launches.get(k)]
+        failures += [f"bf16 train {regime}: {k} launched in float32" for k in BF16_TRAIN_F32_IDLE
+                     if launches.get(k)]
+        rows = []
+        for k in ("loss", "l1", "l4", "l5"):
+            rows.append((k, dist(metrics[0][k], metrics_p[0][k], metrics32[0][k]),
+                         dist(metrics_p[0][k], metrics32[0][k], metrics32[0][k]),
+                         dist(metrics_r[0][k], metrics_p[0][k], metrics32[0][k])))
+        for k, gp in grads_p.items():
+            if labels[k] == "frozen" or not float(grads32[k].abs().max()) > 0:
+                continue
+            rows.append((k, dist(grads[k], gp, grads32[k]), dist(gp, grads32[k], grads32[k]),
+                         dist(grads_r[k], gp, grads32[k])))
+        shares, floors = [], []
+        worst = (0.0, "")
+        for name, err, gap, floor in rows:
+            bar = BF16_TRAIN_TAIL * max(gap, floor)
+            if not err <= bar:
+                failures.append(f"bf16 train {regime}: {name} {err} from the plain route > "
+                                f"{BF16_TRAIN_TAIL} x max(gap {gap}, spread {floor})")
+            if gap > 0:
+                shares.append(err / gap)
+                floors.append(floor / gap)
+            worst = max(worst, (err / max(gap, floor, 1e-30), name))
+        med, med_floor = float(np.median(shares)), float(np.median(floors))
+        if not med <= BF16_TRAIN_MEDIAN * med_floor:
+            failures.append(f"bf16 train {regime}: median {med} of the gap from the plain route > "
+                            f"{BF16_TRAIN_MEDIAN} x the plain route's spread {med_floor}")
+        low = [p for p in stepped.parameters() if p.dtype == bf]
+        moments = [opt.state[p][key].dtype for p in low for key in ("exp_avg", "exp_avg_sq")]
+        if len(low) != n_bf16 or any(dt != bf for dt in moments):
+            failures.append(f"bf16 train {regime}: {len(low)} bfloat16 leaves (want {n_bf16}), "
+                            f"moments {set(map(str, moments))}")
+        if not all(np.isfinite(m["loss"]) for m in metrics + metrics_p):
+            failures.append(f"bf16 train {regime}: a loss is not finite")
+        if not torch.equal(stepped.logit_scale, model.logit_scale):
+            failures.append(f"bf16 train {regime}: logit_scale moved")
+        summary[regime] = {
+            "bf16_leaves": n_bf16, "launches": launches, "metrics": metrics,
+            "metrics_plain_bf16": metrics_p[0], "metrics_f32": metrics32[0],
+            "losses_and_leaves": len(rows), "median_share_of_gap": med,
+            "median_plain_spread_share_of_gap": med_floor, "worst": {"name": worst[1],
+                                                                     "of_max_gap_spread": worst[0]},
+            "losses": {name: {"vs_plain": err, "gap": gap, "plain_spread": floor}
+                       for name, err, gap, floor in rows[:4]},
+            "gmp_channels_tied": ties[0] if ties else None, "gmp_channels": TRAIN_B * TRAIN_B,
+            "bf16_moments": len(moments)}
+        if regime == "seeded":
+            times = {"bf16": [], "f32": []}
+            model_f32 = copy.deepcopy(ref32)
+            states = {"bf16": (stepped, opt, None), "f32": (model_f32, *make_optimizer(
+                model_f32, total_steps=100))}
+            states["bf16"] = (stepped, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda i: 1.0))
+            for i in range(ROUNDS):
+                for route in times:
+                    mdl, o, sch = states[route]
+                    times[route].append(host_ms(lambda: train_step(mdl, critic, o, sch,
+                                                                   data[i % len(data)])))
+            del model_f32, states
+            summary[regime]["step_host_ms"] = {route: spread(t) for route, t in times.items()}
+        log(f"bf16 train {regime}: {json.dumps(summary[regime], default=str)}")
+        del model, ref32, stepped, opt, grads, grads_p, grads_r, grads32
+        torch.cuda.empty_cache()
+    summary["model"] = ("RN50 stage 1 in bfloat16, hidden 1024, 320 px, B = 48, 3 negatives, "
+                        "seeded (seed 0); the float32 model's weights (seed 0) loaded whole or "
+                        "as the backbone; the ViT-B/32 critic float32")
+    summary["bars"] = {"tail": BF16_TRAIN_TAIL, "median": BF16_TRAIN_MEDIAN}
+    del model32, critic
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
 def run_cli(args, timeout):
     """``python -m <args>`` from the checkout's root: (seconds, return code,
     its output)."""
@@ -3939,6 +4490,11 @@ def main(argv=None) -> int:
     bf16_rows, bf16_kernel_failures = check_bf16_kernels(K, dev)
     rows += bf16_rows
     failures += bf16_kernel_failures
+    bf16_train_rows, bf16_train_extra, bf16_train_kernel_failures = check_bf16_train_kernels(K, dev)
+    for r in rows:
+        r["shapes"] += bf16_train_extra.get(r["name"], [])
+    rows += bf16_train_rows
+    failures += bf16_train_kernel_failures
 
     # 4. stage-1 eval and 5. PRMS, on one stage-1 model and one set of batches
     model = build_stage1(dev)
@@ -3993,6 +4549,12 @@ def main(argv=None) -> int:
     bf16, bf16_failures = bf16_path(K, dev, batches)
     failures += bf16_failures
 
+    # 14. --bf16: stage-1 training in bfloat16, three leaf regimes
+    bf16_train, bf16_train_failures = bf16_train_path(K, dev,
+                                                      make_train_batches(N_TRAIN_BATCHES, seed=2))
+    failures += bf16_train_failures
+    torch.cuda.empty_cache()
+
     # launches: on the stage-1 train path for its kernels (all but K3's eval
     # half and K4), else on the PRMS path, else on the ins-seg path, else on
     # the IRN training path, else on the stage-2 train path; per path beside
@@ -4007,10 +4569,12 @@ def main(argv=None) -> int:
                  **{f"dp_{job}_rank0": dp.get(job, {}).get("launches", {}).get(name, 0)
                     for job in ("stage1", "stage2", "irn")},
                  **{f"bf16_{leaves}": bf16[leaves]["launches"].get(name, 0)
-                    for leaves in ("bf16_leaves", "f32_leaves")}}
+                    for leaves in ("bf16_leaves", "f32_leaves")},
+                 **{f"bf16_train_{regime}": bf16_train[regime]["launches"].get(name, 0)
+                    for regime in ("seeded", "pretrain", "clip")}}
         row["launches"] = (paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
                            or paths["irn_train"] or paths["stage2_train"]
-                           or paths["bf16_bf16_leaves"])
+                           or paths["bf16_train_seeded"] or paths["bf16_bf16_leaves"])
         row["launches_by_path"] = paths
         for sub in row["shapes"]:
             if name == "mha_short":
@@ -4024,7 +4588,8 @@ def main(argv=None) -> int:
                        "stage1_eval": stage1, "prms": prms,
                        "stage1_train": train, "ins_seg": ins_seg, "irn_train": irn,
                        "chain": chain, "stage2": stage2, "referit": referit,
-                       "native": native_summary, "dp": dp, "bf16": bf16}, f, indent=1,
+                       "native": native_summary, "dp": dp, "bf16": bf16,
+                       "bf16_train": bf16_train}, f, indent=1,
                       default=str)
     if failures:
         fail("; ".join(failures))

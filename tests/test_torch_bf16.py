@@ -54,7 +54,7 @@ from tris_tpu.models.fusion import BilateralPrompt as JBilateral
 from tris_tpu.models.stage1 import Stage1Config as JStage1Config, TRISStage1 as JStage1
 from tris_tpu_torch.ckpt.from_jax import stage1_state_dict_from_flax, state_dict_from_flax
 from tris_tpu_torch.ckpt.io import load_state
-from tris_tpu_torch.cli import common, demo, validate as cli_validate
+from tris_tpu_torch.cli import common, demo
 from tris_tpu_torch.config import get_parser
 from tris_tpu_torch.data.dataset import Loader, ReferSegDataset
 from tris_tpu_torch.eval.validate import validate, validate_prms
@@ -368,20 +368,21 @@ def _args(*extra):
     return get_parser().parse_args(["--bf16", "--device", "cpu", *extra])
 
 
-def test_bf16_refused_outside_stage1_eval(tmp_path):
-    # --bf16 builds stage 1 for eval; stage-1 training, stage 2, the demo and
-    # ReferIt raise, naming what --bf16 covers
+def test_bf16_refused_outside_stage1_eval(tmp_path, monkeypatch):
+    # --bf16 builds stage 1 for eval, ReferIt and training on one process;
+    # stage 2, the demo and training over several processes raise, naming
+    # what --bf16 covers
     args = _args("--hidden_dim", "32")
     args.clip_weights = None
-    with pytest.raises(NotImplementedError, match="stage-1 training with --bf16.*"):
-        common.build_stage1(args, train=True)
-    with pytest.raises(NotImplementedError, match="covers stage-1 eval and PRMS.*stage 2"):
+    with pytest.raises(NotImplementedError, match="covers stage-1 eval, PRMS.*stage 2"):
         common.build_stage2(args)
-    with pytest.raises(NotImplementedError, match="covers stage-1 eval and PRMS.*the demo"):
+    with pytest.raises(NotImplementedError, match="covers stage-1 eval, PRMS.*the demo"):
         demo.main(_args("--img", "x.jpg", "--text", "a"))
-    with pytest.raises(NotImplementedError, match="covers stage-1 eval and PRMS.*ReferIt"):
-        cli_validate.main(_args("--dataset", "referit", "--refer_data_root", str(tmp_path)))
-    assert "stage-1 eval and PRMS" in common.BF16_SCOPE
+    monkeypatch.setattr(common, "rank_world", lambda: (0, 2))
+    with pytest.raises(NotImplementedError, match="stage-1 training over 2 processes with --bf16"):
+        common.build_stage1(args, train=True)
+    assert "stage-1 eval, PRMS and ReferIt eval" in common.BF16_SCOPE
+    assert "stage-1 training on one process" in common.BF16_SCOPE
 
 
 def test_cli_builds_bf16_stage1(monkeypatch):

@@ -1264,13 +1264,15 @@ def test_irnet_kernels_refuse(dev):
 
 
 def test_differentiable_wrappers_apply_an_autograd_function():
-    # static, no card needed: the CUDA branch of each differentiable wrapper
-    # calls .apply of a torch.autograd.Function defined beside it (a kernel
-    # output returned bare would carry no grad_fn, and training would get
-    # no gradient without an error)
+    # static, no card needed: the CUDA branches of each differentiable wrapper
+    # (float32, and bfloat16 where --bf16 trains through it) call .apply of a
+    # torch.autograd.Function defined beside it, each with a counted backward
+    # (a kernel output returned bare would carry no grad_fn, and training
+    # would get no gradient without an error)
     import importlib
     import inspect
 
+    bf16_trained = ("mha_short", "cross_attn", "stage1_head", "batch_norm_act")
     wrappers = [("mha", "mha_short"), ("cross_attn", "cross_attn"),
                 ("stage1_head", "stage1_head"), ("critic_input", "critic_input"),
                 ("resize", "bilinear_resize"), ("path_max", "path_max_affinity"),
@@ -1281,8 +1283,9 @@ def test_differentiable_wrappers_apply_an_autograd_function():
         src = inspect.getsource(getattr(mod, name))
         fns = [c for c in vars(mod).values() if isinstance(c, type)
                and issubclass(c, torch.autograd.Function) and f"{c.__name__}.apply(" in src]
-        assert len(fns) == 1, name
-        assert "backward" in vars(fns[0]) and "build.count" in inspect.getsource(fns[0].backward)
+        assert len(fns) == (2 if name in bf16_trained else 1), name
+        for fn in fns:
+            assert "backward" in vars(fn) and "build.count" in inspect.getsource(fn.backward)
 
 
 def _input_grads(fn, *inputs, upstream):
@@ -1998,9 +2001,11 @@ def test_batch_norm_act_refuses(dev):
         K.batch_norm_act(x, w, b, rm, rv, act="gelu", **kw)
 
 
-# --bf16: the four bfloat16 kernels against their plain versions (which take bfloat16 too), each
+# --bf16: the bfloat16 kernels against their plain versions (which take bfloat16 too), each
 # within one bfloat16 ulp of the output's scale of the plain version's distance from a float64
-# evaluation of the same inputs; K13's fold bit for bit
+# evaluation of the same inputs; where that distance passes a tenth of the scale (float64 takes
+# another branch: a ReLU mask, GMP's maxima), within 4 such ulps of the plain version itself;
+# K13's fold bit for bit
 
 
 def _bf16_ulp(scale: float) -> float:
@@ -2010,6 +2015,8 @@ def _bf16_ulp(scale: float) -> float:
 def _within_plain(got, plain, want64):
     scale = float(want64.abs().max())
     assert _err(got, want64) <= _err(plain, want64) + _bf16_ulp(scale)
+    if _err(plain, want64) > 0.1 * scale:
+        assert _err(got, plain) <= 4 * _bf16_ulp(scale)
 
 
 @pytest.mark.parametrize("shape,act,with_res", [((2, 8, 6, 8), "relu", False),
@@ -2083,20 +2090,22 @@ def test_response_head_bf16(randn, new, P, S, hw, D, H):
 
 
 def test_bf16_wrappers_refuse(randn):
-    # combinations the kernels do not take raise in Python, naming the dtypes they take;
-    # bfloat16 is forward only
+    # combinations the kernels do not take raise in Python, naming the dtypes they take; the
+    # eval fold is forward only, PReLU takes no bfloat16, nor does K2's backward past one key
+    # block or K3's head with a float32 lan_p
     bf = torch.bfloat16
     q = randn(2, 8, 64)
     mask = causal_mask(8, device=q.device)
     with pytest.raises(TypeError, match="bfloat16, bfloat16, bfloat16, float32"):
         K.mha_short(q.to(bf), q.to(bf), q, 2, mask)
-    with pytest.raises(ValueError, match="forward only"):
-        K.mha_short(*(q.to(bf).requires_grad_() for _ in range(3)), 2, mask)
     v, t = randn(2, 300, 64), randn(2, 1, 64)
     with pytest.raises(TypeError, match="takes dtypes"):
         K.cross_attn(v.to(bf), v, v, t.to(bf), t.to(bf), t.to(bf), 1, 8.0)
     with pytest.raises(ValueError, match="up to 256"):
         K.cross_attn(*(x.to(bf) for x in (v, v, v, t, t, t)), 1, 8.0)
+    with pytest.raises(ValueError, match="with gradients takes HW and T up to 256"):
+        K.cross_attn(*(x.requires_grad_() for x in (v.clone(), v, v)),
+                     *(x.to(bf) for x in (t, t, t)), 1, 8.0)
     base, lan = randn(2, 9, 33).to(bf), randn(2, 33).to(bf)
     scale = torch.tensor(1.0, device=q.device)
     with pytest.raises(ValueError, match="even D"):
@@ -2105,10 +2114,145 @@ def test_bf16_wrappers_refuse(randn):
         K.response_head(None, base, lan.float(), 1, scale, 0.1, (3, 3), (6, 6))
     x, w = randn(2, 4, 3, 3).to(bf), randn(4)
     kw = dict(update_stats=False, momentum=0.1, eps=1e-5)
-    with pytest.raises(ValueError, match="eval fold"):
-        K.batch_norm_act(x, w, w, w, w.abs(), training=True, **kw)
-    with pytest.raises(ValueError, match="eval fold"):
-        K.batch_norm_act(x, w, w, w, w.abs(), training=False, act="prelu",
+    with pytest.raises(ValueError, match="forward only"):
+        K.batch_norm_act(x.requires_grad_(), w, w, w, w.abs(), training=False, **kw)
+    with pytest.raises(ValueError, match="no bfloat16 PReLU"):
+        K.batch_norm_act(x, w, w, w, w.abs(), training=True, act="prelu",
                          slope=torch.ones(1, device=q.device), **kw)
     with pytest.raises(TypeError, match="takes dtypes"):
         K.batch_norm_act(x, w, w, w, w.abs(), training=False, residual=x.float(), **kw)
+    with pytest.raises(TypeError, match="takes dtypes"):
+        K.stage1_head(randn(2, 4, 8).to(bf), randn(2, 2, 8), scale, (2, 2), (4, 4), 3.0, 0.01)
+
+
+# --bf16 training: the backward kernels and the train forwards against their plain versions
+# from float64, each output and gradient within one bfloat16 ulp of its scale of the plain
+# version's distance
+
+
+@pytest.mark.parametrize("shape,act,with_res", [((3, 8, 10, 10), "relu", True),
+                                                ((2, 5, 7, 7), "relu", False),
+                                                ((4, 16, 6, 6), "none", False),
+                                                ((1, 3, 2, 2), "relu", True)])
+def test_batch_norm_train_bf16(randn, shape, act, with_res):
+    # K13's train forward and backward on bfloat16 x (8-value accesses where HW % 8 == 0, 4
+    # where HW % 4 == 0, else one): three launches each way; y, dx, dweight, dbias and the
+    # residual's gradient against the plain version from float64; the running buffers moved
+    C = shape[1]
+    x = (2 * randn(*shape) + 0.5).bfloat16()
+    res = randn(*shape).bfloat16() if with_res else None
+    w, b, rm, rv = 1 + 0.3 * randn(C), 0.5 * randn(C), randn(C), 0.5 + randn(C).abs()
+    ins = [x, w, b] + ([res] if with_res else [])
+    cot = [randn(*shape).bfloat16()]
+
+    def bn(route, rm, rv, update=False):
+        def call(*t):
+            return route(t[0], t[1], t[2], rm, rv, training=True, update_stats=update,
+                         momentum=0.1, eps=1e-5, act=act, residual=t[3] if with_res else None)
+        return call
+
+    before = (K.launches["batch_norm.bf16"], K.launches["batch_norm_bwd.bf16"])
+    got = _grads(bn(K.batch_norm_act, rm, rv), _leaves(*ins), cot)
+    assert (K.launches["batch_norm.bf16"], K.launches["batch_norm_bwd.bf16"]) == \
+        (before[0] + 3, before[1] + 3)
+    plain = _grads(bn(K.batch_norm_act_plain, rm, rv), _leaves(*ins), cot)
+    want = _grads(bn(K.batch_norm_act_plain, rm.double(), rv.double()), _leaves(*ins, double=True),
+                  [cot[0].double()])
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    for gk, gp, g64 in zip(got, plain, want):
+        _within_plain(gk, gp, g64)
+    y = bn(K.batch_norm_act, rm, rv)(*ins)
+    y64 = bn(K.batch_norm_act_plain, rm.double(), rv.double())(*(t.double() for t in ins))
+    _within_plain(y, bn(K.batch_norm_act_plain, rm, rv)(*ins), y64)
+    rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    bn(K.batch_norm_act, rm_k, rv_k, True)(*ins)
+    bn(K.batch_norm_act_plain, rm_p, rv_p, True)(*ins)
+    assert _err(rm_k, rm_p) <= 1e-6 and _err(rv_k, rv_p) <= 1e-5 * float(rv_p.abs().max())
+
+
+@pytest.mark.parametrize("L,hd", [(20, 64), (7, 32), (50, 48), (64, 128), (33, 36)])
+def test_mha_short_bwd_bf16(randn, L, hd):
+    # K1's backward on bfloat16 q, k, v (column views of one qkv) with the float32 causal mask
+    # and a float32 cotangent: dq, dk, dv bfloat16, within the plain version's distance
+    n, H = 3, 4
+    C = H * hd
+    qkv = randn(n, L, 3 * C).bfloat16()
+    mask = causal_mask(L, device=qkv.device)
+    cot = [randn(n, L, C)]
+    before = K.launches["mha_short_bwd.bf16"]
+    got = _grads(lambda t: K.mha_short(*t.chunk(3, -1), H, mask), _leaves(qkv), cot)[0]
+    assert K.launches["mha_short_bwd.bf16"] == before + 1 and got.dtype == torch.bfloat16
+    plain = _grads(lambda t: K.mha_short_plain(*t.chunk(3, -1), H, mask), _leaves(qkv), cot)[0]
+    want = _grads(lambda t: K.mha_short_plain(*t.chunk(3, -1), H, mask.double()),
+                  _leaves(qkv, double=True), [cot[0].double()])[0]
+    for a, b, c in zip(got.chunk(3, -1), plain.chunk(3, -1), want.chunk(3, -1)):
+        _within_plain(a, b, c)
+
+
+@pytest.mark.parametrize("vis_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,HW,T,m", [(2, 37, 3, 64), (3, 100, 48, 1024), (1, 256, 5, 260)])
+def test_cross_attn_bwd_bf16(randn, vis_dtype, N, HW, T, m):
+    # K2's forward keeping the probabilities and its backward, both mixes: each gradient in
+    # its operand's dtype, within the plain version's distance
+    vis = [torch.relu(randn(N, HW, m)).to(vis_dtype) for _ in range(3)]
+    txt = [torch.relu(randn(N, T, m)).bfloat16() for _ in range(3)]
+    cot = [randn(N, HW, m).to(vis_dtype), randn(N, T, m).to(vis_dtype)]
+    div = math.sqrt(m)
+    before = (K.launches["cross_attn.bf16"], K.launches["cross_attn_bwd.bf16"])
+    got = _grads(lambda *t: K.cross_attn(*t, 1, div), _leaves(*vis, *txt), cot)
+    assert (K.launches["cross_attn.bf16"], K.launches["cross_attn_bwd.bf16"]) == \
+        (before[0] + 1, before[1] + 2)
+    plain = _grads(lambda *t: K.cross_attn_plain(*t, 1, div), _leaves(*vis, *txt), cot)
+    want = _grads(lambda *t: K.cross_attn_plain(*t, 1, div), _leaves(*vis, *txt, double=True),
+                  [c.double() for c in cot])
+    for gk, gp, g64, x in zip(got, plain, want, vis + txt):
+        assert gk.dtype == x.dtype
+        _within_plain(gk, gp, g64)
+
+
+def _head_case(randn, B, T, hw, D, vis_dtype, tie):
+    vis = F.normalize(randn(B, hw, D), dim=-1)
+    lan = F.normalize(randn(B, T, D), dim=-1)
+    if tie:  # pixels 3 and 5 copy pixel 1, made the largest: every text's GMP may tie three ways
+        vis[:, 1] = 3 * vis[:, 1]
+        vis[:, 3] = vis[:, 1]
+        vis[:, 5] = vis[:, 1]
+    return vis.to(vis_dtype), lan.bfloat16()
+
+
+@pytest.mark.parametrize("vis_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,hw,out,D,tie", [(4, 4, (3, 4), (10, 14), 32, False),
+                                              (6, 6, (5, 5), (40, 40), 128, True),
+                                              (48, 48, (10, 10), (320, 320), 1024, False),
+                                              (3, 5, (2, 3), (7, 9), 20, True)])
+def test_stage1_head_bf16(randn, vis_dtype, B, T, hw, out, D, tie):
+    # K3's training head on bfloat16 lan_p and bfloat16 or float32 vis_p, forward and
+    # backward, within the plain version's distance from float64; with planted ties the
+    # GMP's gradient is split among the tied pixels (as the plain version's amax and float64
+    # split it: the kernel's first-argmax rule would miss by the split share)
+    vis, lan = _head_case(randn, B, T, hw[0] * hw[1], D, vis_dtype, tie)
+    scale = torch.tensor(1 / 0.07, device=vis.device)
+    off = T - B
+    args = (scale, hw, out, 3.0, 0.01, off)
+    cot = [randn(B, T), None, 0.01 * randn(B, *out), 0.01 * randn(B, *out)]
+    before = (K.launches["stage1_head.bf16"], K.launches["stage1_head_bwd.bf16"])
+    outs = K.stage1_head(vis, lan, *args)
+    got = _grads(lambda v, l: K.stage1_head(v, l, *args), _leaves(vis, lan), cot)
+    assert (K.launches["stage1_head.bf16"], K.launches["stage1_head_bwd.bf16"]) == \
+        (before[0] + 2, before[1] + 1)
+    plain_outs = K.stage1_head_plain(vis, lan, *args)
+    args64 = (scale.double(),) + args[1:]
+    outs64 = K.stage1_head_plain(vis.double(), lan.double(), *args64)
+    for i in (0, 2, 3):
+        assert outs[i].dtype == torch.float32
+        _within_plain(outs[i], plain_outs[i], outs64[i])
+    plain = _grads(lambda v, l: K.stage1_head_plain(v, l, *args), _leaves(vis, lan), cot)
+    want = _grads(lambda v, l: K.stage1_head_plain(v, l, *args64), _leaves(vis, lan, double=True),
+                  [None if c is None else c.double() for c in cot])
+    assert got[0].dtype == vis_dtype and got[1].dtype == torch.bfloat16
+    for gk, gp, g64 in zip(got, plain, want):
+        _within_plain(gk, gp, g64)
+    if tie and vis_dtype == torch.bfloat16:
+        score = torch.einsum("bpc,bqc->bpq", vis.double(), lan.double())
+        top = score.amax(dim=1, keepdim=True)
+        assert int(((score == top).sum(dim=1) == 3).sum()) > 0, "no three-way tie planted"

@@ -4,9 +4,9 @@ Port of ``tris_tpu/cli/common.py``. Models live on ``args.device``
 (``cuda`` unless the caller asks for ``cpu``); random init is seeded (the
 stage models from ``--seed``) without touching the global RNG, and
 ``--clip_weights`` loads OpenAI's released CLIP into their backbone.
-``--bf16`` builds stage 1 in bfloat16 for eval and PRMS (the JAX package's
-``TRISStage1(cfg, dtype=bfloat16)``); elsewhere it raises, naming what it
-covers (:data:`BF16_SCOPE`).
+``--bf16`` builds stage 1 in bfloat16 (the JAX package's
+``TRISStage1(cfg, dtype=bfloat16)``) for eval, PRMS, ReferIt and training on
+one process; elsewhere it raises, naming what it covers (:data:`BF16_SCOPE`).
 """
 
 from __future__ import annotations
@@ -26,8 +26,10 @@ from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
 from tris_tpu_torch.parallel import init_process_group, rank_world
 
 CRITIC_SEED = 7  # the critic's random init, fixed as in the JAX package
-# what --bf16 covers in this package; the JAX package's bf16 training and stage 2 are not ported
-BF16_SCOPE = "stage-1 eval and PRMS (cli.validate --stage 1 on the RefCOCO datasets)"
+# what --bf16 covers in this package; the JAX package's bf16 stage 2, the demo and bf16
+# training over several processes are not ported
+BF16_SCOPE = ("stage-1 eval, PRMS and ReferIt eval (cli.validate --stage 1) and stage-1 "
+              "training on one process (cli.train_stage1)")
 
 
 def refuse_bf16(args, what: str) -> None:
@@ -106,9 +108,9 @@ def build_stage1(args, device=None, train: bool = False) -> TRISStage1:
     ``"cuda"``), randomly initialised from ``args.seed`` (the backbone from
     ``--clip_weights`` when given), in train mode (BatchNorm's batch
     statistics) when ``train``, else in eval mode; with ``--bf16`` in
-    bfloat16, for eval only."""
-    if train:
-        refuse_bf16(args, "stage-1 training")
+    bfloat16 (training on one process only)."""
+    if train and rank_world()[1] > 1:
+        refuse_bf16(args, f"stage-1 training over {rank_world()[1]} processes")
     cfg = Stage1Config(
         backbone=backbone_name(args),
         hidden_dim=args.hidden_dim,

@@ -16,7 +16,7 @@ flicker-pickle test protocol on ``--refer_data_root`` (``annotations/`` and
 metrics, so that the eval reduces to per-sentence scalars on the card.
 ``--multihost``: the refs sharded over the processes torchrun starts, the
 metrics gathered (ReferIt's split runs whole on every rank). ``--bf16``:
-stage 1 in bfloat16 (eval and ``--prms``; the critic stays float32).
+stage 1 in bfloat16 (eval, ``--prms`` and ReferIt; the critic stays float32).
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from tris_tpu_torch.cli.common import (
     build_stage1,
     build_stage2,
     load_pretrained,
-    refuse_bf16,
     start_distributed,
 )
 from tris_tpu_torch.config import get_parser
@@ -39,8 +38,6 @@ def main(args):
     stage = int(getattr(args, "stage", 1))
     if stage == 2 and args.prms:
         raise SystemExit("--prms scores stage-1 response maps; use --stage 1")
-    if args.dataset == "referit":
-        refuse_bf16(args, "ReferIt eval")
     logger = create_logger(start_distributed(args))
     model = load_pretrained(args, build_stage2(args) if stage == 2 else build_stage1(args))
     if args.dataset == "referit":

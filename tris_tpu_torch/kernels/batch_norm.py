@@ -46,7 +46,16 @@ while dweight, dbias and dslope are this rank's sums (DDP averages them, as
 float32 and rounded to bfloat16 as the JAX package rounds them, then
 ``bf16(bf16(x * a) + b)`` [``+ residual``, rounded], each op rounded as the
 plain version's bfloat16 ops round: one launch of ``batch_norm_fold_bf16``
-(counted as ``batch_norm.bf16``), forward only, act "none" or "relu".
+(counted as ``batch_norm.bf16``), forward only, act "none" or "relu". In
+training (stage 1's trunk, ``tris_tpu/models/layers.py:219-229`` on
+bfloat16 x): the statistics of x's values as the float32 route forms them,
+``y = bf16(norm(x))`` [``+ residual``, rounded], then ReLU; the running
+buffers float32; the backward from bfloat16 g to dx rounded to bfloat16 once,
+dweight and dbias float32 and the residual's gradient the masked g. Three
+launches each way, the two-pass design at every shape (``batch_norm_fwd_bf16``
+and ``batch_norm_bwd_bf16``, counted as ``batch_norm.bf16`` and
+``batch_norm_bwd.bf16``). PReLU (stage 2) and the cross-rank route take no
+bfloat16 and raise before any launch.
 """
 
 from __future__ import annotations
@@ -315,12 +324,42 @@ class _BatchNormAct(torch.autograd.Function):
                 dres if has_residual else None, None, None, None, None, None, None, None, None)
 
 
+BF16_LAUNCHES = 3  # the bfloat16 train route's launches each way (the two-pass design)
+
+
+class _BatchNormActBf16(torch.autograd.Function):
+    """K13's train forward and backward on bfloat16 x, three launches each."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, running_mean, running_var, momentum, eps, act,
+                save):
+        y, stats = build.ops().batch_norm_fwd_bf16(x, weight, bias, residual, running_mean,
+                                                   running_var, ACTS[act], momentum, eps)
+        build.count("batch_norm.bf16", n=BF16_LAUNCHES)
+        ctx.meta = (act, residual is not None)
+        if save:  # nothing is kept when no input needs a gradient
+            ctx.save_for_backward(x, y if act == "relu" else None, stats[0], stats[2], weight,
+                                  bias)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, mean, rstd, weight, bias = ctx.saved_tensors
+        act, has_residual = ctx.meta
+        dx, dw, db, dres = build.ops().batch_norm_bwd_bf16(g.contiguous(), x, out, mean, rstd,
+                                                           weight, bias, ACTS[act], has_residual)
+        build.count("batch_norm_bwd.bf16", n=BF16_LAUNCHES)
+        return dx, dw, db, dres if has_residual else None, None, None, None, None, None, None
+
+
+
 def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool,
                    update_stats: bool, momentum: float, eps: float, act: str = "none",
                    slope=None, residual=None):
     """K13 on CUDA tensors; the plain version on CPU tensors.
 
-    x [N, C, H, W] contiguous float32 (N * H * W >= 1, fewer than 2^31
+    x [N, C, H, W] contiguous float32, or bfloat16 (with a bfloat16 residual,
+    act "none" or "relu", on one process) (N * H * W >= 1, fewer than 2^31
     elements); weight, bias, running_mean, running_var [C]; act "none",
     "relu" (with an optional residual of x's shape added first) or "prelu"
     (with ``slope``, PReLU's one-element weight). ``training``: batch
@@ -337,9 +376,12 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
     if x.dtype == BF16:
         build.require_cuda("batch_norm_act", x, residual, accepted=((BF16, None), (BF16, BF16)))
         build.require_cuda("batch_norm_act", weight, bias, running_mean, running_var)
-        if training or act == "prelu":
-            raise ValueError("batch_norm_act: bfloat16 takes the eval fold with act 'none' or "
-                             "'relu' (no bfloat16 training or PReLU kernel yet)")
+        if act == "prelu":
+            raise ValueError("batch_norm_act: bfloat16 takes act 'none' or 'relu' (no bfloat16 "
+                             "PReLU kernel yet)")
+        if training and parallel.distributed():
+            raise ValueError("batch_norm_act: bfloat16 training runs on one process (the "
+                             "cross-rank route takes float32 only)")
     else:
         build.require_cuda("batch_norm_act", x, weight, bias, running_mean, running_var, slope,
                            residual)
@@ -359,9 +401,15 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
     if slope is not None and slope.numel() != 1:
         raise ValueError("batch_norm_act: PReLU's slope must be one value (channel-shared)")
     if x.dtype == BF16:
-        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                           for t in (x, weight, bias, residual)):
-            raise ValueError("batch_norm_act: bfloat16 is forward only (no backward kernel yet)")
+        grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                               for t in (x, weight, bias, residual))
+        if training:
+            rm, rv = (running_mean, running_var) if update_stats else (None, None)
+            return _BatchNormActBf16.apply(x, weight, bias, residual, rm, rv, momentum, eps, act,
+                                           grad)
+        if grad:
+            raise ValueError("batch_norm_act: bfloat16's eval fold is forward only (no backward "
+                             "kernel)")
         a, b = (t.to(BF16) for t in _fold(weight, bias, running_mean, running_var, eps))
         y = build.ops().batch_norm_fold_bf16(x, a, b, residual, ACTS[act])
         build.count("batch_norm.bf16")

@@ -23,14 +23,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# one csrc/<name>.cu each; stage1_head.cu holds K3's training head and its backward,
+# one csrc/<name>.cu each; stage1_head.cu holds K3's training head and its backward
+# (stage1_head_bf16.cu the same on bfloat16 operands),
 # irn_affinity.cu the IRN loss fused with K7 (K7 + K8), forward and backward, walk_matmul.cu
 # K10's products and occupancy maps
 SOURCES = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "response_head",
            "stage1_head", "eval_metrics", "critic_input", "critic_input_bwd", "normalize_u8",
            "bilinear_resize", "bilinear_resize_bwd", "path_max_affinity", "path_max_affinity_bwd",
            "irn_affinity", "refine_centroids", "walk_transition", "walk_matmul", "pixel_attn",
-           "pixel_attn_bwd", "ema_update", "batch_norm", "batch_norm_bwd")
+           "pixel_attn_bwd", "ema_update", "batch_norm", "batch_norm_bwd", "stage1_head_bf16")
 # the launch counters: one per kernel family and direction
 KERNELS = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "response_head",
            "stage1_head", "stage1_head_bwd", "eval_metrics", "critic_input", "critic_input_bwd",
@@ -38,7 +39,9 @@ KERNELS = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "respon
            "path_max_affinity_bwd", "irn_affinity_loss", "irn_affinity_loss_bwd",
            "refine_centroids", "walk_transition", "walk_matmul", "walk_tile_occupancy",
            "pixel_attn", "pixel_attn_bwd", "ema_update", "batch_norm", "batch_norm_bwd",
-           "mha_short.bf16", "cross_attn.bf16", "response_head.bf16", "batch_norm.bf16")
+           "mha_short.bf16", "cross_attn.bf16", "response_head.bf16", "batch_norm.bf16",
+           "batch_norm_bwd.bf16", "mha_short_bwd.bf16", "cross_attn_bwd.bf16",
+           "stage1_head.bf16", "stage1_head_bwd.bf16")
 # no --use_fast_math or -ftz=true: K10 converts float32 subnormals to double exactly
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 MAX_SMEM = 227 * 1024  # shared memory one block may use on Hopper (opt-in above 48 KiB)

@@ -17,7 +17,11 @@ the wrapper refuses it.
 float32 leaves; every product float32, outputs float32) or all six bfloat16
 (bfloat16 leaves; the logits, ``/ div`` and the softmax's ops rounded to
 bfloat16, outputs bfloat16, HW and T at most ``KEY_BLOCK``) launch
-``cross_attn_bf16`` (counted as ``cross_attn.bf16``), forward only.
+``cross_attn_bf16`` (counted as ``cross_attn.bf16``); with gradients (one
+sentence an image, HW and T at most ``KEY_BLOCK``) it keeps the
+probabilities and its backward ``cross_attn_bwd_bf16`` (two launches,
+counted as ``cross_attn_bwd.bf16``) returns each gradient in its operand's
+dtype.
 """
 
 from __future__ import annotations
@@ -75,9 +79,29 @@ class _CrossAttn(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+class _CrossAttnBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qv, kv, vv, qt, kt, vt, S, div, save):
+        outs = build.ops().cross_attn_bf16(qv, kv, vv, qt, kt, vt, S, div, save)
+        build.count("cross_attn.bf16")
+        ctx.div = div
+        if save:  # nothing is kept when no input needs a gradient
+            ctx.save_for_backward(qv, kv, vv, qt, kt, vt, *outs[2:])
+        return outs[0], outs[1]
+
+    @staticmethod
+    def backward(ctx, g_vis, g_lan):
+        grads = build.ops().cross_attn_bwd_bf16(g_vis.contiguous(), g_lan.contiguous(),
+                                                *ctx.saved_tensors, ctx.div)
+        build.count("cross_attn_bwd.bf16", n=2)
+        return (*grads, None, None, None)
+
+
 def cross_attn_launch_shape(name: str) -> dict:
     """The grid of the last launch of K2's ``name`` (``cross_attn``,
-    ``cross_attn_bwd_a`` or ``cross_attn_bwd_b``, the backward's two passes)
+    ``cross_attn_bwd_a`` or ``cross_attn_bwd_b``, the backward's two passes, and
+    their ``_bf16`` counterparts ``cross_attn_bf16``, ``cross_attn_bwd_bf16_a``,
+    ``cross_attn_bwd_bf16_b``)
     on the card, as its launcher made it: ``blocks``, ``cluster`` (blocks a
     cluster), ``threads``, ``tile_rows`` (query rows a tile) and
     ``smem_bytes``."""
@@ -103,15 +127,14 @@ def cross_attn(qv, kv, vv, qt, kt, vt, S: int, div: float):
     inputs = (qv, kv, vv, qt, kt, vt)
     save = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
     if combo > 0:
-        if save:
-            raise ValueError("cross_attn: bfloat16 is forward only (no backward kernel yet)")
-        if combo == 2 and max(HW, T) > KEY_BLOCK:
-            raise ValueError(f"cross_attn: bfloat16 takes HW and T up to {KEY_BLOCK} (one key "
-                             f"block), got HW = {HW}, T = {T}")
-        outs = build.ops().cross_attn_bf16(*(x.contiguous() for x in inputs), S,
-                                           weak(div, qv.dtype))
-        build.count("cross_attn.bf16")
-        return outs[0], outs[1]
+        if (combo == 2 or save) and max(HW, T) > KEY_BLOCK:
+            raise ValueError(f"cross_attn: bfloat16 {'with gradients ' if save else ''}takes HW "
+                             f"and T up to {KEY_BLOCK} (one key block), got HW = {HW}, T = {T}")
+        if save and S != 1:
+            raise ValueError(f"cross_attn: the backward takes one sentence per image (S = 1), "
+                             f"got S = {S}; run S > 1 without gradients")
+        return _CrossAttnBf16.apply(*(x.contiguous() for x in inputs), S, weak(div, qv.dtype),
+                                    save)
     if save and S != 1:
         raise ValueError(f"cross_attn: the backward takes one sentence per image (S = 1), "
                          f"got S = {S}; run S > 1 without gradients")

@@ -60,6 +60,12 @@
 // apply kernel's layout with 8 values an item, each product and sum rounded to bfloat16 as
 // the plain version's bfloat16 ops round.
 //
+// --bf16 training (batch_norm_forward_bf16): the two-pass design on bfloat16 x at every shape,
+// three launches: the partial and final kernels instantiated on bfloat16 (the statistics the
+// same numbers as on the float32 copy of x), then batch_norm_apply_bf16_kernel (the fold
+// kernel's layout): y in float32 as the float32 apply forms it, rounded to bfloat16 once, plus
+// the residual, rounded, then ReLU, as the plain version's bfloat16 ops.
+//
 // Bound: bytes. The fused kernel reads x (and the residual) and writes y; the two-pass design
 // reads x twice.
 
@@ -195,22 +201,23 @@ batch_norm_fwd_fused_kernel(const float* __restrict__ x, const float* __restrict
   BN_STAMP_EXIT();
 }
 
-template <bool kVec>
+// T: float, or __nv_bfloat16 (--bf16 training; each value exact in float and double).
+template <class T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-batch_norm_stats_partial_kernel(const float* __restrict__ x, const float* __restrict__ shift,
+batch_norm_stats_partial_kernel(const T* __restrict__ x, const T* __restrict__ shift,
                                 long long shift_stride, double* __restrict__ partial, int N,
                                 int C, int HW, int slices, long long warps) {
   const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (w >= warps) return;
   const int lane = threadIdx.x % 32;
   const SliceWarp sw = slice_warp(w, N, C, HW, slices);
-  const double k = shift[(long long)sw.c * shift_stride];
-  const float* plane = x + sw.plane;
+  const double k = load1(shift + (long long)sw.c * shift_stride);
+  const T* plane = x + sw.plane;
   const int e0 = sw.e0, e1 = sw.e1;
   double s1 = 0.0, s2 = 0.0;
   if (kVec) {
     for (int e = e0 + 4 * lane; e < e1; e += 4 * 32) {
-      const float4 v = *reinterpret_cast<const float4*>(plane + e);
+      const float4 v = load4(plane + e);
       const double d0 = (double)v.x - k, d1 = (double)v.y - k, d2 = (double)v.z - k,
                    d3 = (double)v.w - k;
       s1 += (d0 + d1) + (d2 + d3);
@@ -218,7 +225,7 @@ batch_norm_stats_partial_kernel(const float* __restrict__ x, const float* __rest
     }
   } else {
     for (int e = e0 + lane; e < e1; e += 32) {
-      const double d = (double)plane[e] - k;
+      const double d = (double)load1(plane + e) - k;
       s1 += d;
       s2 += d * d;
     }
@@ -233,14 +240,15 @@ batch_norm_stats_partial_kernel(const float* __restrict__ x, const float* __rest
 
 // A warp per channel: the lanes form the samples' moments (sample n on lane n % 32, its
 // slices in order) into shared memory, then lane 0 combines them in batch order.
+template <class T>
 __global__ void __launch_bounds__(32)
-batch_norm_stats_final_kernel(const float* __restrict__ shift, long long shift_stride,
+batch_norm_stats_final_kernel(const T* __restrict__ shift, long long shift_stride,
                               const double* __restrict__ partial, float* __restrict__ stats,
                               float* __restrict__ rm, float* __restrict__ rv, int N, int C,
                               int HW, int slices, double momentum, double eps) {
   extern __shared__ float2 moments[];  // [N]
   const int c = blockIdx.x;
-  const double k = shift[(long long)c * shift_stride];
+  const double k = load1(shift + (long long)c * shift_stride);
   const double* q = partial + 2 * (long long)c * N * slices;
   for (int n = threadIdx.x; n < N; n += 32) {
     const double* qn = q + 2 * (long long)n * slices;
@@ -337,6 +345,54 @@ batch_norm_fold_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// y of one bfloat16 element of the train forward: the norm in float32 as forward_one forms
+// it, rounded to bfloat16; plus the residual, rounded; then ReLU
+__device__ __forceinline__ float train_one_bf16(float x, float r, bool has_res, const Channel& p,
+                                                int act) {
+  float o = round_bf16(affine(xhat(x, p), p));
+  if (has_res) o = round_bf16(__fadd_rn(o, r));
+  return act == kBatchNormActRelu && o < 0.f ? 0.f : o;
+}
+
+// The train forward's apply pass on bfloat16 x, residual and y with float32 statistics and
+// parameters: batch_norm_fold_bf16_kernel's layout, 8 values an item with kVec, else one.
+template <bool kVec>
+__global__ void __launch_bounds__(kBatchNormApplyThreads)
+batch_norm_apply_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mean,
+                             const float* __restrict__ rstd, const float* __restrict__ w,
+                             const float* __restrict__ b, const __nv_bfloat16* __restrict__ res,
+                             __nv_bfloat16* __restrict__ y, long long planes, int C, int HW,
+                             int tpp, int chunks, int act) {
+  const int per = kBatchNormApplyThreads / tpp;
+  if ((int)threadIdx.x >= per * tpp) return;
+  const long long plane = blockIdx.x / chunks * per + threadIdx.x / tpp;
+  const int e = (int)(blockIdx.x % chunks) * tpp + threadIdx.x % tpp;
+  if (plane >= planes || e >= (kVec ? HW / 8 : HW)) return;
+  const Channel p = channel(mean, rstd, w, b, (int)(plane % C));
+  const bool has_res = res != nullptr;
+  const long long off = plane * HW;
+  if (kVec) {
+    const uint4 xv = reinterpret_cast<const uint4*>(x + off)[e];
+    const uint4 rv =
+        has_res ? reinterpret_cast<const uint4*>(res + off)[e] : make_uint4(0, 0, 0, 0);
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&rv);
+    uint4 out;
+    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(xp[i]), rf = __bfloat1622float2(rp[i]);
+      op[i] = __floats2bfloat162_rn(train_one_bf16(xf.x, rf.x, has_res, p, act),
+                                    train_one_bf16(xf.y, rf.y, has_res, p, act));
+    }
+    reinterpret_cast<uint4*>(y + off)[e] = out;
+  } else {
+    const float r = has_res ? __bfloat162float(res[off + e]) : 0.f;
+    y[off + e] = __float2bfloat16_rn(
+        train_one_bf16(__bfloat162float(x[off + e]), r, has_res, p, act));
+  }
+}
+
 }  // namespace
 
 #ifdef TRIS_BN_STAMPS
@@ -359,10 +415,10 @@ cudaError_t batch_norm_stats_partial(const float* x, const float* shift, double*
   const float* k = shift != nullptr ? shift : x;
   const long long stride = shift != nullptr ? 1 : HW;
   if (vec)
-    batch_norm_stats_partial_kernel<true><<<blocks, bn::kThreads, 0, stream>>>(
+    batch_norm_stats_partial_kernel<float, true><<<blocks, bn::kThreads, 0, stream>>>(
         x, k, stride, partial, N, C, HW, slices, warps);
   else
-    batch_norm_stats_partial_kernel<false><<<blocks, bn::kThreads, 0, stream>>>(
+    batch_norm_stats_partial_kernel<float, false><<<blocks, bn::kThreads, 0, stream>>>(
         x, k, stride, partial, N, C, HW, slices, warps);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && shape != nullptr)
@@ -376,7 +432,7 @@ cudaError_t batch_norm_stats_final(const float* shift, long long shift_stride,
                                    double eps, cudaStream_t stream, BatchNormLaunchShape* shape) {
   const int slices = (int)batch_norm_slices(HW);
   const long long smem = (long long)N * sizeof(float2);
-  batch_norm_stats_final_kernel<<<C, 32, smem, stream>>>(shift, shift_stride, partial, stats,
+  batch_norm_stats_final_kernel<float><<<C, 32, smem, stream>>>(shift, shift_stride, partial, stats,
                                                          running_mean, running_var, N, C, HW,
                                                          slices, momentum, eps);
   const cudaError_t err = cudaGetLastError();
@@ -437,6 +493,51 @@ cudaError_t batch_norm_fold_bf16(const Bf16Bits* x, const Bf16Bits* a, const Bf1
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && shape != nullptr)
     *shape = {(int)blocks, 1, kBatchNormApplyThreads, 0, vec ? 16 : 2};
+  return err;
+}
+
+cudaError_t batch_norm_forward_bf16(const Bf16Bits* x_bits, const float* weight, const float* bias,
+                                    const Bf16Bits* residual_bits, Bf16Bits* y_bits, float* stats,
+                                    double* partial, float* running_mean, float* running_var,
+                                    int N, int C, int HW, int act, double momentum, double eps,
+                                    cudaStream_t stream, BatchNormLaunchShape* shapes) {
+  if (act != kBatchNormActNone && act != kBatchNormActRelu) return cudaErrorInvalidValue;
+  const auto* x = reinterpret_cast<const __nv_bfloat16*>(x_bits);
+  const auto* residual = reinterpret_cast<const __nv_bfloat16*>(residual_bits);
+  auto* y = reinterpret_cast<__nv_bfloat16*>(y_bits);
+  // the statistics: the two-pass design's partial and final launches on bfloat16 x
+  const int slices = (int)batch_norm_slices(HW);
+  const long long warps = (long long)C * N * slices;
+  const unsigned blocks = (unsigned)((warps + bn::kWarps - 1) / bn::kWarps);
+  const bool vec = HW % 4 == 0 && bn::aligned(x, 8);
+  if (vec)
+    batch_norm_stats_partial_kernel<__nv_bfloat16, true><<<blocks, bn::kThreads, 0, stream>>>(
+        x, x, HW, partial, N, C, HW, slices, warps);
+  else
+    batch_norm_stats_partial_kernel<__nv_bfloat16, false><<<blocks, bn::kThreads, 0, stream>>>(
+        x, x, HW, partial, N, C, HW, slices, warps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  shapes[0] = {(int)blocks, 1, bn::kThreads, 0, vec ? 8 : 2};
+  const long long smem = (long long)N * sizeof(float2);
+  batch_norm_stats_final_kernel<__nv_bfloat16><<<C, 32, smem, stream>>>(
+      x, HW, partial, stats, running_mean, running_var, N, C, HW, slices, momentum, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  shapes[1] = {C, 1, 32, smem, 8};
+  // the apply pass
+  const bool vec8 = HW % 8 == 0 && bn::aligned16(x) && bn::aligned16(residual) &&
+                    bn::aligned16(y);
+  const int items = vec8 ? HW / 8 : HW;
+  const int tpp = items >= kBatchNormApplyThreads ? kBatchNormApplyThreads : items;
+  const int per = kBatchNormApplyThreads / tpp;
+  const long long planes = (long long)N * C;
+  const int chunks = (items + tpp - 1) / tpp;
+  const long long apply_blocks = (planes + per - 1) / per * chunks;
+  auto* kernel = vec8 ? &batch_norm_apply_bf16_kernel<true> : &batch_norm_apply_bf16_kernel<false>;
+  kernel<<<(unsigned)apply_blocks, kBatchNormApplyThreads, 0, stream>>>(
+      x, stats, stats + 2 * C, weight, bias, residual, y, planes, C, HW, tpp, chunks, act);
+  if ((err = cudaGetLastError()) == cudaSuccess)
+    shapes[2] = {(int)apply_blocks, 1, kBatchNormApplyThreads, 0, vec8 ? 16 : 2};
   return err;
 }
 

@@ -163,6 +163,18 @@ __device__ __forceinline__ float grad_x(float dz, float xh, const Channel& p, fl
   return __fmul_rn(__fmul_rn(p.w, p.rstd), __fsub_rn(__fsub_rn(dz, k1), __fmul_rn(xh, k2)));
 }
 
+// Four (or one) elements from float32 or bfloat16 data as floats: one 16-byte (8-byte) load.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) { return load4_bf16(p); }
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+inline bool aligned(const void* p, unsigned bytes) {
+  return p == nullptr || (reinterpret_cast<unsigned long long>(p) & (bytes - 1)) == 0;
+}
+
 inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }

@@ -38,6 +38,12 @@
 // 4 != 0 or a pointer is not 16-byte aligned) writes dx and dres; for PReLU its first warp
 // also adds the channels' slope sums into dslope.
 //
+// --bf16 training (batch_norm_bwd_bf16): the two-pass design on bfloat16 g, x and out at every
+// shape, three launches: the partial kernel instantiated on bfloat16, the final kernel, and
+// batch_norm_bwd_apply_bf16_kernel (8 values a thread): dx formed in float32 as the float32
+// apply forms it and rounded to bfloat16 once; dres the masked g (bfloat16 exactly); dweight
+// and dbias float32. ReLU or nothing (no PReLU: stage 2's, not in bfloat16 yet).
+//
 // Bound: bytes. The fused kernel reads g and x (and out) once and writes dx (and dres); the
 // two-pass design reads them twice.
 
@@ -213,10 +219,11 @@ batch_norm_bwd_slope_kernel(const double* __restrict__ slope_sums, int C,
   slope_total(slope_sums, C, dslope);
 }
 
-template <bool kVec>
+// T: float, or __nv_bfloat16 (--bf16 training: g, x and out bfloat16, widened exactly).
+template <class T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-batch_norm_bwd_partial_kernel(const float* __restrict__ g, const float* __restrict__ x,
-                              const float* __restrict__ out, const float* __restrict__ mean,
+batch_norm_bwd_partial_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                              const T* __restrict__ out, const float* __restrict__ mean,
                               const float* __restrict__ rstd, const float* __restrict__ w,
                               const float* __restrict__ b, const float* __restrict__ slope,
                               double* __restrict__ partial, int N, int C, int HW, int slices,
@@ -227,16 +234,15 @@ batch_norm_bwd_partial_kernel(const float* __restrict__ g, const float* __restri
   const SliceWarp sw = slice_warp(wi, N, C, HW, slices);
   const Channel p = channel(mean, rstd, w, b, sw.c);
   const float a = slope != nullptr ? *slope : 0.f;
-  const float* gp = g + sw.plane;
-  const float* xp = x + sw.plane;
-  const float* op = out != nullptr ? out + sw.plane : nullptr;
+  const T* gp = g + sw.plane;
+  const T* xp = x + sw.plane;
+  const T* op = out != nullptr ? out + sw.plane : nullptr;
   double sdz = 0.0, sdzx = 0.0, sslope = 0.0;
   if (kVec) {
     for (int e = sw.e0 + 4 * lane; e < sw.e1; e += 4 * 32) {
-      const float4 gv = *reinterpret_cast<const float4*>(gp + e);
-      const float4 xv = *reinterpret_cast<const float4*>(xp + e);
-      const float4 ov = op != nullptr ? *reinterpret_cast<const float4*>(op + e)
-                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 gv = load4(gp + e);
+      const float4 xv = load4(xp + e);
+      const float4 ov = op != nullptr ? load4(op + e) : make_float4(0.f, 0.f, 0.f, 0.f);
       const float gs[4] = {gv.x, gv.y, gv.z, gv.w}, xs[4] = {xv.x, xv.y, xv.z, xv.w},
                   os[4] = {ov.x, ov.y, ov.z, ov.w};
 #pragma unroll
@@ -249,8 +255,9 @@ batch_norm_bwd_partial_kernel(const float* __restrict__ g, const float* __restri
     }
   } else {
     for (int e = sw.e0 + lane; e < sw.e1; e += 32) {
-      const float xh = xhat(xp[e], p);
-      const float dz = grad_z(gp[e], xh, op != nullptr ? op[e] : 0.f, p, act, a, sslope);
+      const float xh = xhat(load1(xp + e), p);
+      const float dz = grad_z(load1(gp + e), xh, op != nullptr ? load1(op + e) : 0.f, p, act, a,
+                              sslope);
       sdz += dz;
       sdzx += (double)dz * (double)xh;
     }
@@ -336,6 +343,57 @@ batch_norm_bwd_apply_kernel(const float* __restrict__ g, const float* __restrict
   }
 }
 
+// dx (rounded to bfloat16 once) and the residual's dz (exact in bfloat16) of 8 bfloat16
+// elements (kVec: 16-byte accesses) or one; a thread an item, its channel's coefficients
+// read once.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_bwd_apply_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                                 const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ out,
+                                 const float* __restrict__ mean, const float* __restrict__ rstd,
+                                 const float* __restrict__ w, const float* __restrict__ b,
+                                 const float* __restrict__ coef, __nv_bfloat16* __restrict__ dx,
+                                 __nv_bfloat16* __restrict__ dres, long long total, int C, int HW,
+                                 int act) {
+  const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) * (kVec ? 8 : 1);
+  if (i >= total) return;
+  const int c = (int)(((unsigned long long)i / (unsigned)HW) % (unsigned)C);
+  const Channel p = channel(mean, rstd, w, b, c);
+  const float k1 = coef[c], k2 = coef[C + c];
+  if (kVec) {
+    const uint4 gv = *reinterpret_cast<const uint4*>(g + i);
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + i);
+    const uint4 ov =
+        out != nullptr ? *reinterpret_cast<const uint4*>(out + i) : make_uint4(0, 0, 0, 0);
+    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    uint4 dxv, dzv;
+    __nv_bfloat162* dxp = reinterpret_cast<__nv_bfloat162*>(&dxv);
+    __nv_bfloat162* dzp = reinterpret_cast<__nv_bfloat162*>(&dzv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 gf = __bfloat1622float2(gp[j]), xf = __bfloat1622float2(xp[j]),
+                   of = __bfloat1622float2(op[j]);
+      float dz0, dz1;
+      const float d0 = grad_x_of(gf.x, xf.x, of.x, p, act, 0.f, k1, k2, dz0);
+      const float d1 = grad_x_of(gf.y, xf.y, of.y, p, act, 0.f, k1, k2, dz1);
+      dxp[j] = __floats2bfloat162_rn(d0, d1);
+      dzp[j] = __floats2bfloat162_rn(dz0, dz1);
+    }
+    *reinterpret_cast<uint4*>(dx + i) = dxv;
+    if (dres != nullptr) *reinterpret_cast<uint4*>(dres + i) = dzv;
+  } else {
+    float dz;
+    const float d = grad_x_of(__bfloat162float(g[i]), __bfloat162float(x[i]),
+                              out != nullptr ? __bfloat162float(out[i]) : 0.f, p, act, 0.f, k1,
+                              k2, dz);
+    dx[i] = __float2bfloat16_rn(d);
+    if (dres != nullptr) dres[i] = __float2bfloat16_rn(dz);
+  }
+}
+
 }  // namespace
 
 namespace tris {
@@ -380,10 +438,10 @@ cudaError_t batch_norm_bwd_partial(const float* g, const float* x, const float* 
   const long long warps = (long long)C * N * slices;
   const unsigned blocks = (unsigned)((warps + bn::kWarps - 1) / bn::kWarps);
   if (vec)
-    batch_norm_bwd_partial_kernel<true><<<blocks, bn::kThreads, 0, stream>>>(
+    batch_norm_bwd_partial_kernel<float, true><<<blocks, bn::kThreads, 0, stream>>>(
         g, x, out, mean, rstd, weight, bias, slope, partial, N, C, HW, slices, warps, act);
   else
-    batch_norm_bwd_partial_kernel<false><<<blocks, bn::kThreads, 0, stream>>>(
+    batch_norm_bwd_partial_kernel<float, false><<<blocks, bn::kThreads, 0, stream>>>(
         g, x, out, mean, rstd, weight, bias, slope, partial, N, C, HW, slices, warps, act);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && shape != nullptr)
@@ -426,6 +484,48 @@ cudaError_t batch_norm_bwd_apply(const float* g, const float* x, const float* ou
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && shape != nullptr)
     *shape = {(int)apply_blocks, 1, bn::kThreads, 0, vec ? 16 : 4};
+  return err;
+}
+
+cudaError_t batch_norm_bwd_bf16(const Bf16Bits* g_bits, const Bf16Bits* x_bits,
+                                const Bf16Bits* out_bits, const float* mean, const float* rstd,
+                                const float* weight, const float* bias, double* partial,
+                                float* coef, float* dweight, float* dbias, Bf16Bits* dx_bits,
+                                Bf16Bits* dres_bits, int N, int C, int HW, int act,
+                                cudaStream_t stream, BatchNormLaunchShape* shapes) {
+  if (act != kBatchNormActNone && act != kBatchNormActRelu) return cudaErrorInvalidValue;
+  const auto* g = reinterpret_cast<const __nv_bfloat16*>(g_bits);
+  const auto* x = reinterpret_cast<const __nv_bfloat16*>(x_bits);
+  const auto* out = reinterpret_cast<const __nv_bfloat16*>(out_bits);
+  auto* dx = reinterpret_cast<__nv_bfloat16*>(dx_bits);
+  auto* dres = reinterpret_cast<__nv_bfloat16*>(dres_bits);
+  const int slices = (int)batch_norm_slices(HW);
+  const long long warps = (long long)C * N * slices;
+  const unsigned blocks = (unsigned)((warps + bn::kWarps - 1) / bn::kWarps);
+  const bool vec = HW % 4 == 0 && bn::aligned(g, 8) && bn::aligned(x, 8) && bn::aligned(out, 8);
+  if (vec)
+    batch_norm_bwd_partial_kernel<__nv_bfloat16, true><<<blocks, bn::kThreads, 0, stream>>>(
+        g, x, out, mean, rstd, weight, bias, nullptr, partial, N, C, HW, slices, warps, act);
+  else
+    batch_norm_bwd_partial_kernel<__nv_bfloat16, false><<<blocks, bn::kThreads, 0, stream>>>(
+        g, x, out, mean, rstd, weight, bias, nullptr, partial, N, C, HW, slices, warps, act);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  shapes[0] = {(int)blocks, 1, bn::kThreads, 0, vec ? 8 : 2};
+  if ((err = batch_norm_bwd_final(partial, coef, dweight, dbias, nullptr, N, C, HW, stream,
+                                  shapes + 1)) != cudaSuccess)
+    return err;
+  const bool vec8 = HW % 8 == 0 && bn::aligned16(g) && bn::aligned16(x) && bn::aligned16(out) &&
+                    bn::aligned16(dx) && bn::aligned16(dres);
+  const long long total = (long long)N * HW * C;
+  const long long items = vec8 ? total / 8 : total;
+  const unsigned apply_blocks = (unsigned)((items + bn::kThreads - 1) / bn::kThreads);
+  auto* kernel = vec8 ? &batch_norm_bwd_apply_bf16_kernel<true>
+                      : &batch_norm_bwd_apply_bf16_kernel<false>;
+  kernel<<<apply_blocks, bn::kThreads, 0, stream>>>(g, x, out, mean, rstd, weight, bias, coef,
+                                                     dx, dres, total, C, HW, act);
+  if ((err = cudaGetLastError()) == cudaSuccess)
+    shapes[2] = {(int)apply_blocks, 1, bn::kThreads, 0, vec8 ? 16 : 2};
   return err;
 }
 

@@ -154,6 +154,32 @@ std::vector<at::Tensor> mha_short_bwd(const at::Tensor& dout, const at::Tensor& 
   return {dq, dk, dv};
 }
 
+// K1 backward on bfloat16 q, k, v (rows may be strided) with the float32 mask and dout
+// [N, Lq, C] (--bf16). Returns (dq, dk, dv) bfloat16, each contiguous [N, L, C].
+std::vector<at::Tensor> mha_short_bwd_bf16(const at::Tensor& dout, const at::Tensor& q,
+                                           const at::Tensor& k, const at::Tensor& v,
+                                           const at::Tensor& mask, int64_t n_head, double scale) {
+  const at::Device dev = q.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(dout, "mha_short_bwd_bf16: dout", at::kFloat, dev);
+  check(q, "mha_short_bwd_bf16: q", at::kBFloat16, dev, true);
+  check(k, "mha_short_bwd_bf16: k", at::kBFloat16, dev, true);
+  check(v, "mha_short_bwd_bf16: v", at::kBFloat16, dev, true);
+  check(mask, "mha_short_bwd_bf16: mask", at::kFloat, dev);
+  const int64_t N = q.size(0), Lq = q.size(1), Lk = k.size(1), C = q.size(2);
+  at::Tensor dq = at::empty({N, Lq, C}, q.options());
+  at::Tensor dk = at::empty({N, Lk, C}, q.options());
+  at::Tensor dv = at::empty({N, Lk, C}, q.options());
+  launched(tris::mha_short_bwd_bf16(dout.data_ptr<float>(), bits(q), bits(k), bits(v),
+                                    mask.data_ptr<float>(), bits_out(dq), bits_out(dk),
+                                    bits_out(dv), N, Lq, Lk, C / n_head, n_head, q.stride(0),
+                                    q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+                                    v.stride(1), (float)scale, stream(),
+                                    &k1_shapes["mha_short_bwd_bf16"]),
+           "mha_short_bwd_bf16");
+  return {dq, dk, dv};
+}
+
 // Whether K1's kernels take (Lq, Lk, hd), forward or (with backward) both (launchers.h).
 bool mha_short_takes(int64_t Lq, int64_t Lk, int64_t hd, bool backward) {
   return Lq <= INT32_MAX && Lk <= INT32_MAX && hd <= INT32_MAX &&
@@ -255,26 +281,72 @@ tris::ResponseHeadLaunchShape k3_shape;
 bool k3_launched = false;
 
 // K2 on bfloat16 text projections (--bf16): the vision ones float32 (outputs float32) or
-// bfloat16 (outputs bfloat16), as cross_attn's shapes; returns (new_vis, new_lan).
+// bfloat16 (outputs bfloat16), as cross_attn's shapes; returns (new_vis, new_lan) and, with
+// save_p, the probabilities for the backward (float32, as cross_attn's).
 std::vector<at::Tensor> cross_attn_bf16(const at::Tensor& qv, const at::Tensor& kv,
                                         const at::Tensor& vv, const at::Tensor& qt,
                                         const at::Tensor& kt, const at::Tensor& vt, int64_t S,
-                                        double div) {
+                                        double div, bool save_p) {
   const at::Device dev = qv.device();
   const c10::cuda::CUDAGuard guard(dev);
   const bool vis_bf16 = qv.scalar_type() == at::kBFloat16;
   for (const at::Tensor* t : {&qv, &kv, &vv})
     check(*t, "cross_attn_bf16: vision", vis_bf16 ? at::kBFloat16 : at::kFloat, dev);
   for (const at::Tensor* t : {&qt, &kt, &vt}) check(*t, "cross_attn_bf16: text", at::kBFloat16, dev);
-  const int64_t HW = qv.size(1), m = qv.size(2), P = qt.size(0), T = qt.size(1);
+  const int64_t N = qv.size(0), HW = qv.size(1), m = qv.size(2), P = qt.size(0), T = qt.size(1);
   at::Tensor new_vis = at::empty({P, HW, m}, qv.options());
   at::Tensor new_lan = at::empty({P, T, m}, qv.options());
+  std::vector<at::Tensor> out = {new_vis, new_lan};
+  if (save_p) {
+    const at::TensorOptions f = qv.options().dtype(at::kFloat);
+    out.push_back(at::empty({P, HW, T}, f));
+    out.push_back(at::empty({N, P / N * T, HW}, f));
+  }
   launched(tris::cross_attn_bf16(qv.data_ptr(), kv.data_ptr(), vv.data_ptr(), bits(qt),
                                  bits(kt), bits(vt), new_vis.data_ptr(), new_lan.data_ptr(),
-                                 vis_bf16, P, HW, T, m, S, (float)div, stream(),
-                                 &k2_shapes["cross_attn_bf16"]),
+                                 save_p ? out[2].data_ptr<float>() : nullptr,
+                                 save_p ? out[3].data_ptr<float>() : nullptr, vis_bf16, P, HW, T,
+                                 m, S, (float)div, stream(), &k2_shapes["cross_attn_bf16"]),
            "cross_attn_bf16");
-  return {new_vis, new_lan};
+  return out;
+}
+
+// K2 backward on cross_attn_bf16's operands at S = 1 (--bf16): g_vis and g_lan in the
+// outputs' dtype, pv and pt float32 as its save_p wrote them. Returns (dqv, dkv, dvv, dqt,
+// dkt, dvt), each in its operand's dtype.
+std::vector<at::Tensor> cross_attn_bwd_bf16(const at::Tensor& g_vis, const at::Tensor& g_lan,
+                                            const at::Tensor& qv, const at::Tensor& kv,
+                                            const at::Tensor& vv, const at::Tensor& qt,
+                                            const at::Tensor& kt, const at::Tensor& vt,
+                                            const at::Tensor& pv, const at::Tensor& pt,
+                                            double div) {
+  const at::Device dev = qv.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const bool vis_bf16 = qv.scalar_type() == at::kBFloat16;
+  const at::ScalarType vis_type = vis_bf16 ? at::kBFloat16 : at::kFloat;
+  for (const at::Tensor* t : {&g_vis, &g_lan, &qv, &kv, &vv})
+    check(*t, "cross_attn_bwd_bf16: vision and cotangents", vis_type, dev);
+  for (const at::Tensor* t : {&qt, &kt, &vt})
+    check(*t, "cross_attn_bwd_bf16: text", at::kBFloat16, dev);
+  check(pv, "cross_attn_bwd_bf16: pv", at::kFloat, dev);
+  check(pt, "cross_attn_bwd_bf16: pt", at::kFloat, dev);
+  const int64_t N = qv.size(0), HW = qv.size(1), m = qv.size(2), T = qt.size(1);
+  TORCH_CHECK(qt.size(0) == N, "cross_attn_bwd_bf16: one sentence per image");
+  at::Tensor dlv = at::empty({N, HW, T}, pv.options()), dlt = at::empty({N, T, HW}, pv.options());
+  at::Tensor dqv = at::empty_like(qv), dkv = at::empty_like(kv), dvv = at::empty_like(vv);
+  at::Tensor dqt = at::empty_like(qt), dkt = at::empty_like(kt), dvt = at::empty_like(vt);
+  tris::LaunchShape shapes[2] = {};
+  launched(tris::cross_attn_bwd_bf16(g_vis.data_ptr(), g_lan.data_ptr(), qv.data_ptr(),
+                                     kv.data_ptr(), vv.data_ptr(), bits(qt), bits(kt), bits(vt),
+                                     pv.data_ptr<float>(), pt.data_ptr<float>(),
+                                     dlv.data_ptr<float>(), dlt.data_ptr<float>(), dqv.data_ptr(),
+                                     dkv.data_ptr(), dvv.data_ptr(), bits_out(dqt),
+                                     bits_out(dkt), bits_out(dvt), vis_bf16, N, HW, T, m,
+                                     (float)div, stream(), shapes),
+           "cross_attn_bwd_bf16");
+  k2_shapes["cross_attn_bwd_bf16_a"] = shapes[0];
+  k2_shapes["cross_attn_bwd_bf16_b"] = shapes[1];
+  return {dqv, dkv, dvv, dqt, dkt, dvt};
 }
 
 at::Tensor response_head(const std::optional<at::Tensor>& vis_new, const at::Tensor& vis_base,
@@ -434,6 +506,85 @@ std::vector<at::Tensor> stage1_head_bwd(
 
 // K3's training-head plan (launchers.h, stage1_head_plan) for B images and T texts: ranks,
 // threads, pixels, band_rows, vec, passes, stages, groups, blocks and smem_bytes.
+// K3's training head on bfloat16 lan_p and bfloat16 or float32 vis_p (--bf16), as
+// stage1_head's arguments; returns (score, stats, cls_out, cls_fg, relu_map, sig_map) float32.
+std::vector<at::Tensor> stage1_head_bf16(const at::Tensor& vis_p, const at::Tensor& lan_p,
+                                         const at::Tensor& scale,
+                                         const std::vector<at::Tensor>& ty,
+                                         const std::vector<at::Tensor>& tx, int64_t h, int64_t w,
+                                         double focal_p, double focal_c, int64_t offset) {
+  const at::Device dev = vis_p.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const bool vis_bf16 = vis_p.scalar_type() == at::kBFloat16;
+  check(vis_p, "stage1_head_bf16: vis_p", vis_bf16 ? at::kBFloat16 : at::kFloat, dev);
+  check(lan_p, "stage1_head_bf16: lan_p", at::kBFloat16, dev);
+  check(scale, "stage1_head_bf16: scale", at::kFloat, dev);
+  const tris::TapArrays y = tap_arrays(ty, "stage1_head_bf16: row taps", dev);
+  const tris::TapArrays x = tap_arrays(tx, "stage1_head_bf16: column taps", dev);
+  const int64_t B = vis_p.size(0), T = lan_p.size(1), D = vis_p.size(2), H = ty[0].size(0),
+                W = tx[0].size(0);
+  TORCH_CHECK(offset >= 0 && B + offset <= T, "stage1_head_bf16: the own texts [offset, ",
+              "offset + B) must lie in the T texts");
+  const at::TensorOptions o = vis_p.options().dtype(at::kFloat);
+  at::Tensor score = at::empty({B, h * w, T}, o), cls_out = at::empty({B, T}, o);
+  at::Tensor stats = at::empty({B, tris::stage1_head_bf16_stats(h * w, T)}, o);
+  at::Tensor cls_fg = at::empty({B}, o);
+  at::Tensor relu_map = at::empty({B, H, W}, o), sig_map = at::empty({B, H, W}, o);
+  launched(tris::stage1_head_bf16(vis_p.data_ptr(), vis_bf16, bits(lan_p),
+                                  scale.data_ptr<float>(), score.data_ptr<float>(),
+                                  stats.data_ptr<float>(), cls_out.data_ptr<float>(),
+                                  cls_fg.data_ptr<float>(), relu_map.data_ptr<float>(),
+                                  sig_map.data_ptr<float>(), B, T, offset, h, w, D, H, W,
+                                  (float)focal_p, (float)focal_c, y, x, stream()),
+           "stage1_head_bf16");
+  return {score, stats, cls_out, cls_fg, relu_map, sig_map};
+}
+
+// K3's training head backward on stage1_head_bf16's operands: d_vis in vis_p's dtype, d_lan
+// bfloat16.
+std::vector<at::Tensor> stage1_head_bwd_bf16(
+    const at::Tensor& g_cls, const std::optional<at::Tensor>& g_relu,
+    const std::optional<at::Tensor>& g_sig, const at::Tensor& vis_p, const at::Tensor& lan_p,
+    const at::Tensor& scale, const at::Tensor& score, const at::Tensor& stats,
+    const std::vector<at::Tensor>& ty, const std::vector<at::Tensor>& tx,
+    const std::vector<at::Tensor>& ry, const std::vector<at::Tensor>& rx, int64_t h, int64_t w,
+    double focal_p, double focal_c, int64_t offset) {
+  const at::Device dev = vis_p.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const bool vis_bf16 = vis_p.scalar_type() == at::kBFloat16;
+  check(g_cls, "stage1_head_bwd_bf16: g_cls", at::kFloat, dev);
+  if (g_relu) check(*g_relu, "stage1_head_bwd_bf16: g_relu", at::kFloat, dev);
+  if (g_sig) check(*g_sig, "stage1_head_bwd_bf16: g_sig", at::kFloat, dev);
+  check(vis_p, "stage1_head_bwd_bf16: vis_p", vis_bf16 ? at::kBFloat16 : at::kFloat, dev);
+  check(lan_p, "stage1_head_bwd_bf16: lan_p", at::kBFloat16, dev);
+  check(scale, "stage1_head_bwd_bf16: scale", at::kFloat, dev);
+  check(score, "stage1_head_bwd_bf16: score", at::kFloat, dev);
+  check(stats, "stage1_head_bwd_bf16: stats", at::kFloat, dev);
+  const tris::TapArrays y = tap_arrays(ty, "stage1_head_bwd_bf16: row taps", dev);
+  const tris::TapArrays x = tap_arrays(tx, "stage1_head_bwd_bf16: column taps", dev);
+  const tris::TapRanges yr = tap_ranges(ry, "stage1_head_bwd_bf16: row ranges", dev);
+  const tris::TapRanges xr = tap_ranges(rx, "stage1_head_bwd_bf16: column ranges", dev);
+  const int64_t B = vis_p.size(0), T = lan_p.size(1), D = vis_p.size(2), H = ty[0].size(0),
+                W = tx[0].size(0);
+  TORCH_CHECK(offset >= 0 && B + offset <= T, "stage1_head_bwd_bf16: the own texts [offset, ",
+              "offset + B) must lie in the T texts");
+  at::Tensor d_vis = at::empty_like(vis_p), d_lan = at::empty_like(lan_p);
+  launched(tris::stage1_head_bwd_bf16(g_cls.data_ptr<float>(), ptr<float>(g_relu),
+                                      ptr<float>(g_sig), vis_p.data_ptr(), vis_bf16,
+                                      bits(lan_p), scale.data_ptr<float>(),
+                                      score.data_ptr<float>(), stats.data_ptr<float>(),
+                                      d_vis.data_ptr(), bits_out(d_lan), B, T, offset, h, w, D,
+                                      H, W, (float)focal_p, (float)focal_c, y, x, yr, xr,
+                                      stream()),
+           "stage1_head_bwd_bf16");
+  return {d_vis, d_lan};
+}
+
+// The shared memory of a launch of K3's bfloat16 training head (launchers.h).
+int64_t stage1_head_bf16_smem(int64_t hw, int64_t T, int64_t H, int64_t w, bool backward) {
+  return tris::stage1_head_bf16_smem(hw, T, H, w, backward);
+}
+
 std::map<std::string, int64_t> stage1_head_plan(int64_t B, int64_t T, int64_t h, int64_t w,
                                                 int64_t D, int64_t H, int64_t W, bool backward) {
   TORCH_CHECK(B > 0 && B <= 65535 && T >= B && h > 0 && w > 0 && D > 0 && H > 0 && W > 0 &&
@@ -1297,6 +1448,99 @@ std::vector<at::Tensor> batch_norm_fwd(const at::Tensor& x, const at::Tensor& we
   return {y, stats};
 }
 
+// K13 train forward on bfloat16 x [N, C, ...] (--bf16), three launches: weight, bias [C]
+// float32, residual as x or None, act 0 none or 1 ReLU, the running buffers (float32, both
+// or neither) moved in place. Returns (y bfloat16, stats [3, C] float32).
+std::vector<at::Tensor> batch_norm_fwd_bf16(const at::Tensor& x, const at::Tensor& weight,
+                                            const at::Tensor& bias,
+                                            const std::optional<at::Tensor>& residual,
+                                            const std::optional<at::Tensor>& running_mean,
+                                            const std::optional<at::Tensor>& running_var,
+                                            int64_t act, double momentum, double eps) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(x, "batch_norm_fwd_bf16: x", at::kBFloat16, dev);
+  TORCH_CHECK(x.dim() >= 2 && x.numel() > 0 && x.numel() < INT32_MAX,
+              "batch_norm_fwd_bf16: expected [N, C, ...] with 1 to 2^31 - 1 elements");
+  const int N = (int)x.size(0), C = (int)x.size(1), HW = (int)(x.numel() / (x.size(0) * x.size(1)));
+  TORCH_CHECK((int64_t)N * HW < (1 << 24) && N <= tris::kBatchNormMaxBatch,
+              "batch_norm_fwd_bf16: N * HW must be below 2^24 and N at most ",
+              tris::kBatchNormMaxBatch);
+  check_channels(weight, "batch_norm_fwd_bf16: weight", dev, C);
+  check_channels(bias, "batch_norm_fwd_bf16: bias", dev, C);
+  TORCH_CHECK(running_mean.has_value() == running_var.has_value(),
+              "batch_norm_fwd_bf16: give both running buffers or neither");
+  if (running_mean) {
+    check_channels(*running_mean, "batch_norm_fwd_bf16: running_mean", dev, C);
+    check_channels(*running_var, "batch_norm_fwd_bf16: running_var", dev, C);
+  }
+  if (residual) {
+    check(*residual, "batch_norm_fwd_bf16: residual", at::kBFloat16, dev);
+    TORCH_CHECK(residual->sizes() == x.sizes(), "batch_norm_fwd_bf16: residual not x's shape");
+  }
+  TORCH_CHECK(act == tris::kBatchNormActNone || act == tris::kBatchNormActRelu,
+              "batch_norm_fwd_bf16: act must be none or ReLU");
+  at::Tensor partial = at::empty({(int64_t)C * N * tris::batch_norm_slices(HW) * 2},
+                                 x.options().dtype(at::kDouble));
+  at::Tensor y = at::empty_like(x), stats = at::empty({3, C}, x.options().dtype(at::kFloat));
+  tris::BatchNormLaunchShape shapes[3] = {};
+  launched(tris::batch_norm_forward_bf16(bits(x), weight.data_ptr<float>(), bias.data_ptr<float>(),
+                                         residual ? bits(*residual) : nullptr, bits_out(y),
+                                         stats.data_ptr<float>(), partial.data_ptr<double>(),
+                                         ptr<float>(running_mean), ptr<float>(running_var), N, C,
+                                         HW, (int)act, momentum, eps, stream(), shapes),
+           "batch_norm_fwd_bf16");
+  static const char* const names[] = {"batch_norm_stats_partial.bf16",
+                                      "batch_norm_stats_final.bf16", "batch_norm_apply.bf16"};
+  record_k13(names, shapes, 3);
+  return {y, stats};
+}
+
+// K13 train backward on bfloat16 g, x (and out, the forward's y, with ReLU) (--bf16), three
+// launches: mean, rstd, weight, bias [C] float32. Returns (dx bfloat16, dweight, dbias [C]
+// float32, dres bfloat16 or empty); dres is written when `residual` is set.
+std::vector<at::Tensor> batch_norm_bwd_bf16(const at::Tensor& g, const at::Tensor& x,
+                                            const std::optional<at::Tensor>& out,
+                                            const at::Tensor& mean, const at::Tensor& rstd,
+                                            const at::Tensor& weight, const at::Tensor& bias,
+                                            int64_t act, bool residual) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(x, "batch_norm_bwd_bf16: x", at::kBFloat16, dev);
+  check(g, "batch_norm_bwd_bf16: g", at::kBFloat16, dev);
+  TORCH_CHECK(x.dim() >= 2 && x.numel() > 0 && x.numel() < INT32_MAX && g.sizes() == x.sizes(),
+              "batch_norm_bwd_bf16: expected g and x [N, C, ...] with 1 to 2^31 - 1 elements");
+  const int N = (int)x.size(0), C = (int)x.size(1), HW = (int)(x.numel() / (x.size(0) * x.size(1)));
+  TORCH_CHECK(act == tris::kBatchNormActNone || act == tris::kBatchNormActRelu,
+              "batch_norm_bwd_bf16: act must be none or ReLU");
+  TORCH_CHECK((act == tris::kBatchNormActRelu) == out.has_value(),
+              "batch_norm_bwd_bf16: the output goes with ReLU and only with it");
+  if (out) {
+    check(*out, "batch_norm_bwd_bf16: out", at::kBFloat16, dev);
+    TORCH_CHECK(out->sizes() == x.sizes(), "batch_norm_bwd_bf16: out not x's shape");
+  }
+  for (const at::Tensor* t : {&mean, &rstd, &weight, &bias})
+    check_channels(*t, "batch_norm_bwd_bf16: statistics and parameters", dev, C);
+  const at::TensorOptions f = x.options().dtype(at::kFloat);
+  at::Tensor partial = at::empty({(int64_t)C * N * tris::batch_norm_slices(HW) * 3},
+                                 x.options().dtype(at::kDouble));
+  at::Tensor coef = at::empty({2, C}, f), dw = at::empty({C}, f), db = at::empty({C}, f);
+  at::Tensor dx = at::empty_like(x), dres = residual ? at::empty_like(x) : at::Tensor();
+  tris::BatchNormLaunchShape shapes[3] = {};
+  launched(tris::batch_norm_bwd_bf16(bits(g), bits(x), out ? bits(*out) : nullptr,
+                                     mean.data_ptr<float>(), rstd.data_ptr<float>(),
+                                     weight.data_ptr<float>(), bias.data_ptr<float>(),
+                                     partial.data_ptr<double>(), coef.data_ptr<float>(),
+                                     dw.data_ptr<float>(), db.data_ptr<float>(), bits_out(dx),
+                                     residual ? bits_out(dres) : nullptr, N, C, HW, (int)act,
+                                     stream(), shapes),
+           "batch_norm_bwd_bf16");
+  static const char* const names[] = {"batch_norm_bwd_partial.bf16", "batch_norm_bwd_final.bf16",
+                                      "batch_norm_bwd_apply.bf16"};
+  record_k13(names, shapes, 3);
+  return {dx, dw, db, dres};
+}
+
 // K13 backward from g = dL/dout, the design of the plan (`force` as batch_norm_plan's): out
 // the forward's output (ReLU only), mean and rstd as the forward's (none: the eval fold).
 // Returns (dx, dweight, dbias, dslope [1] or empty, dres or empty); dres is written when
@@ -1526,11 +1770,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("mha_short", &mha_short, "K1: short-sequence multi-head attention");
   m.def("mha_short_bf16", &mha_short_bf16, "K1 on bfloat16 q, k, v (--bf16)");
   m.def("mha_short_bwd", &mha_short_bwd, "K1 backward");
+  m.def("mha_short_bwd_bf16", &mha_short_bwd_bf16, "K1 backward on bfloat16 q, k, v (--bf16)");
   m.def("mha_short_takes", &mha_short_takes, "K1: whether its kernels take (Lq, Lk, hd)");
   m.def("mha_short_launch_shape", &mha_short_launch_shape, "K1: its last launch's grid");
   m.def("cross_attn", &cross_attn, "K2: BilateralPrompt cross-attention");
   m.def("cross_attn_bf16", &cross_attn_bf16, "K2 on bfloat16 text projections (--bf16)");
   m.def("cross_attn_bwd", &cross_attn_bwd, "K2 backward (one sentence per image)");
+  m.def("cross_attn_bwd_bf16", &cross_attn_bwd_bf16, "K2 backward on cross_attn_bf16's operands");
   m.def("cross_attn_takes", &cross_attn_takes, "K2: whether its kernels take width m");
   m.def("cross_attn_launch_shape", &cross_attn_launch_shape, "K2: its last launch's grid");
   m.def("response_head", &response_head, "K3: stage-1 response head");
@@ -1539,6 +1785,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("response_head_launch_shape", &response_head_launch_shape, "K3: its last launch's grid");
   m.def("stage1_head", &stage1_head, "K3: stage-1 training head");
   m.def("stage1_head_bwd", &stage1_head_bwd, "K3: stage-1 training head, backward");
+  m.def("stage1_head_bf16", &stage1_head_bf16, "K3's training head on bfloat16 (--bf16)");
+  m.def("stage1_head_bwd_bf16", &stage1_head_bwd_bf16, "K3's training head backward, bfloat16");
+  m.def("stage1_head_bf16_smem", &stage1_head_bf16_smem,
+        "K3's bfloat16 training head: a launch's shared memory");
   m.def("stage1_head_plan", &stage1_head_plan, "K3: the cluster an image takes in training");
   m.def("stage1_head_launch_shape", &stage1_head_launch_shape,
         "K3: its training head's last launch's grid");
@@ -1584,6 +1834,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("batch_norm_fwd", &batch_norm_fwd, "K13: the train forward, y and the statistics");
   m.def("batch_norm_stats", &batch_norm_stats, "K13: BatchNorm's batch statistics (two-pass)");
   m.def("batch_norm_apply", &batch_norm_apply, "K13: the norm, its affine and activation");
+  m.def("batch_norm_fwd_bf16", &batch_norm_fwd_bf16, "K13 train forward on bfloat16 (--bf16)");
+  m.def("batch_norm_bwd_bf16", &batch_norm_bwd_bf16, "K13 train backward on bfloat16 (--bf16)");
   m.def("batch_norm_fold_bf16", &batch_norm_fold_bf16, "K13: the eval fold in bfloat16 (--bf16)");
   m.def("batch_norm_bwd", &batch_norm_bwd, "K13 backward: dx, dweight, dbias, dslope, dres");
   m.def("batch_norm_stats_partial", &batch_norm_stats_partial,

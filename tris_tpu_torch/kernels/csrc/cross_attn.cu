@@ -40,6 +40,8 @@
 // and each op of the softmax (x - max, exp, the sum, the quotient) rounded to bfloat16, P V
 // summed in float32 and rounded at the store; such a launch takes one key block (HW and T
 // at most kCrossAttnKeyBlock), where the softmax's max is over every key before any exp.
+// With pv and pt (training), it writes the probabilities as the float32 launch does, each
+// rounded to bfloat16 on bfloat16 leaves, for the backward (cross_attn_bwd.cu).
 
 #include <type_traits>
 
@@ -63,17 +65,6 @@ struct HalfT {
 };
 using Half = HalfT<float, float, float>;
 
-// The operands' dtypes of a launch: kF32 all float32; kMixed the vision projections float32
-// and the text ones bfloat16 (the fusion on float32 leaves: every product float32, as jnp
-// promotes them); kBf16 all bfloat16, the logits, the quotient by div and each op of the
-// softmax rounded to bfloat16 and the outputs bfloat16.
-enum Mode { kF32, kMixed, kBf16 };
-template <int kMode>
-struct Dtypes {
-  using Vis = std::conditional_t<kMode == kBf16, __nv_bfloat16, float>;
-  using Txt = std::conditional_t<kMode == kF32, float, __nv_bfloat16>;
-  using Out = Vis;
-};
 
 // Tile t of half h: a block's share (its channel slice) of kRows query rows against every key.
 // smem: P [kRows][pitch], the partial logits [kRows][pitch], the staging area.
@@ -286,12 +277,12 @@ cudaError_t tris::cross_attn(const float* qv, const float* kv, const float* vv, 
 
 cudaError_t tris::cross_attn_bf16(const void* qv, const void* kv, const void* vv,
                                   const Bf16Bits* qt, const Bf16Bits* kt, const Bf16Bits* vt,
-                                  void* new_vis, void* new_lan, bool vis_bf16, int P, int HW,
-                                  int T, int m, int S, float div, cudaStream_t stream,
-                                  LaunchShape* shape) {
+                                  void* new_vis, void* new_lan, float* pv, float* pt,
+                                  bool vis_bf16, int P, int HW, int T, int m, int S, float div,
+                                  cudaStream_t stream, LaunchShape* shape) {
   if (vis_bf16)
-    return launch_mode<kBf16>(qv, kv, vv, qt, kt, vt, new_vis, new_lan, nullptr, nullptr, P, HW,
-                              T, m, S, div, stream, shape);
-  return launch_mode<kMixed>(qv, kv, vv, qt, kt, vt, new_vis, new_lan, nullptr, nullptr, P, HW,
-                             T, m, S, div, stream, shape);
+    return launch_mode<kBf16>(qv, kv, vv, qt, kt, vt, new_vis, new_lan, pv, pt, P, HW, T, m, S,
+                              div, stream, shape);
+  return launch_mode<kMixed>(qv, kv, vv, qt, kt, vt, new_vis, new_lan, pv, pt, P, HW, T, m, S,
+                             div, stream, shape);
 }

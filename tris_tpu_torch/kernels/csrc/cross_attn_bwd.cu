@@ -207,7 +207,231 @@ cross_attn_grads_bwd_kernel(Products g0, Products g1, int tiles0, int slices, in
     }
 }
 
+// --bf16 (training on the fusion's two leaf regimes, one key block: HW and T at most
+// kCrossAttnKeyBlock). Pass A per tile as above, on the operands' dtypes: G the outputs'
+// cotangent (float32 with float32 vision projections, else bfloat16), V the value plane; on
+// bfloat16 leaves (kRound) dA = G V^T is rounded to bfloat16 as the JAX einsum rounds it, and
+// dL = P (dA - rowsum(P dA)) / div formed in float32 and rounded once. Pass B takes the six
+// products one after the other, each through one coefficient tile and a PvStream of its own
+// operand's dtype, written in the gradient's dtype (the text projections' bfloat16 in both
+// regimes, rounded at the store).
+template <class TG, class TV>
+struct ProbsHalfT {
+  const TG* g;
+  const TV* v;
+  const float* p;
+  float* dl;
+  int rows, keys;
+};
+
+template <int KS, bool kRound, class TG, class TV>
+__device__ __forceinline__ void probs_body(const ProbsHalfT<TG, TV>& h, int t, int m, int kcap,
+                                           float div, float* part, float* stage, int pitch) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slices = cluster.num_blocks(), rank = cluster.block_rank();
+  const int tiles = row_tiles(h.rows);
+  const int n = t / tiles, q0 = (t % tiles) * kRows, nrows = min(kRows, h.rows - q0);
+  const int c0 = rank * kSlice, mc = min(kSlice, m - c0), nk = h.keys, slots = (nk + 31) >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kOwn = kRows / kWarps;
+  float* rows = stage;  // [kRows][pitch]: this block's rows of dA
+  slice_logits<KS>(h.g + ((long long)n * h.rows + q0) * m, h.v + (long long)n * nk * m, nrows,
+                   nk, m, c0, mc, kcap, stage, part, pitch);
+  cluster.sync();  // every block's partials are written
+  gather_rows(cluster, part, rows, pitch, slots, nrows, false, 1.f, kRound);
+  cluster_arrive();  // this block reads the others' partials no more
+  __syncthreads();
+#pragma unroll
+  for (int ki = 0; ki < kOwn; ++ki) {
+    const int k = warp + kWarps * ki, r = rank + slices * k;
+    if (r >= nrows) break;
+    const long long o = ((long long)n * h.rows + q0 + r) * nk;
+    float x[KS], da[KS], ds = 0.f;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      const int j = lane + 32 * i;
+      const bool in = i < slots && j < nk;
+      x[i] = in ? h.p[o + j] : 0.f;
+      da[i] = in ? rows[k * pitch + j] : 0.f;
+      ds = fmaf(x[i], da[i], ds);
+    }
+    ds = tris::warp_sum(ds);
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      const int j = lane + 32 * i;
+      if (j < nk) {
+        const float d = x[i] * (da[i] - ds) / div;
+        h.dl[o + j] = kRound ? tris::round_bf16(d) : d;
+      }
+    }
+  }
+}
+
+template <int KS, int kMode>
+__global__ void __launch_bounds__(kThreads, KS <= 4 ? kMinBlocks : 1)
+cross_attn_probs_bwd_bf16_kernel(
+    ProbsHalfT<typename Dtypes<kMode>::Out, typename Dtypes<kMode>::Vis> h0,
+    ProbsHalfT<typename Dtypes<kMode>::Out, typename Dtypes<kMode>::Txt> h1, int tiles0, int m,
+    int kcap, float div) {
+  extern __shared__ float4 smem4[];
+  float* part = reinterpret_cast<float*>(smem4);
+  const int pitch = tile_pitch(kcap);
+  float* stage = part + kRows * pitch;
+  const int tile = blockIdx.x / cg::this_cluster().num_blocks();
+  constexpr bool kRound = kMode == kBf16;
+  if (tile < tiles0)
+    probs_body<KS, kRound>(h0, tile, m, kcap, div, part, stage, pitch);
+  else
+    probs_body<KS, kRound>(h1, tile - tiles0, m, kcap, div, part, stage, pitch);
+  cluster_wait();  // no block leaves while its partials may be read
+}
+
+// Pass B's three products of one row group with their operands' dtypes: out_q[n] ([rows, m],
+// TO) = C_q[n] x_q[n] as in Products.
+template <class X0, class X1, class X2, class TO>
+struct ProductsT {
+  const float* coef[3];
+  const X0* x0;
+  const X1* x1;
+  const X2* x2;
+  TO* out[3];
+  int trans[3];
+  int rows, keys;
+};
+
+// coefficient tile q of image n ([rows, keys] or, transposed, [keys, rows]) into dst, zeros
+// past the rows and keys to the 4-key step; one key block
+__device__ __forceinline__ void load_coef_tile(const float* coef, bool trans, int rows, int nk,
+                                               int q0, int nrows, float* dst, int pitch) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, kr = (nk + 3) / 4 * 4;
+  if (trans) {  // lanes along the rows, which are contiguous in coef
+    for (int j = warp; j < kr; j += kWarps)
+      for (int r = lane; r < kRows; r += 32) {
+        const bool ok = r < nrows && j < nk;
+        tris::cp_async4(dst + r * pitch + j, ok ? coef + (long long)j * rows + q0 + r : coef, ok);
+      }
+  } else {
+    for (int r = warp; r < kRows; r += kWarps)
+      for (int j = lane; j < kr; j += 32) {
+        const bool ok = r < nrows && j < nk;
+        tris::cp_async4(dst + r * pitch + j, ok ? coef + (long long)(q0 + r) * nk + j : coef, ok);
+      }
+  }
+}
+
+template <class TX, class TO>
+__device__ __forceinline__ void one_product(const float* coef, bool trans, const TX* x, TO* out,
+                                            int n, int rows, int nk, int q0, int nrows, int m,
+                                            int c0, int mc, float* cm, float* stage, int pitch) {
+  __syncthreads();  // the coefficient tile and the staging area are free
+  load_coef_tile(coef + (long long)n * rows * nk, trans, rows, nk, q0, nrows, cm, pitch);
+  const PvStream<1, TX, TO> pv{{cm}, {x + (long long)n * nk * m},
+                               {out + ((long long)n * rows + q0) * m}, nk, m, c0, mc};
+  pv.prologue(stage);  // the coefficients land with the first chunk
+  pv.run(pitch, nrows, stage);
+}
+
+template <class X0, class X1, class X2, class TO>
+__device__ __forceinline__ void grads_body(const ProductsT<X0, X1, X2, TO>& pr, int t, int slice,
+                                           int m, float* cm, float* stage, int pitch) {
+  const int tiles = row_tiles(pr.rows);
+  const int n = t / tiles, q0 = (t % tiles) * kRows, nrows = min(kRows, pr.rows - q0);
+  const int c0 = slice * kSlice, mc = min(kSlice, m - c0);
+  one_product(pr.coef[0], pr.trans[0], pr.x0, pr.out[0], n, pr.rows, pr.keys, q0, nrows, m, c0,
+              mc, cm, stage, pitch);
+  one_product(pr.coef[1], pr.trans[1], pr.x1, pr.out[1], n, pr.rows, pr.keys, q0, nrows, m, c0,
+              mc, cm, stage, pitch);
+  one_product(pr.coef[2], pr.trans[2], pr.x2, pr.out[2], n, pr.rows, pr.keys, q0, nrows, m, c0,
+              mc, cm, stage, pitch);
+}
+
+template <int kMode>
+using LanRows = ProductsT<typename Dtypes<kMode>::Vis, typename Dtypes<kMode>::Vis,
+                          typename Dtypes<kMode>::Out, typename Dtypes<kMode>::Txt>;
+template <int kMode>
+using VisRows = ProductsT<typename Dtypes<kMode>::Txt, typename Dtypes<kMode>::Txt,
+                          typename Dtypes<kMode>::Out, typename Dtypes<kMode>::Vis>;
+
+// smem: one coefficient tile [kRows][pitch], the staging area.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cross_attn_grads_bwd_bf16_kernel(LanRows<kMode> g0, VisRows<kMode> g1, int tiles0, int slices,
+                                 int m, int kcap) {
+  extern __shared__ float4 smem4[];
+  float* cm = reinterpret_cast<float*>(smem4);
+  const int pitch = tile_pitch(kcap);
+  float* stage = cm + kRows * pitch;
+  const int tile = blockIdx.x / slices, slice = blockIdx.x % slices;
+  if (tile < tiles0)
+    grads_body(g0, tile, slice, m, cm, stage, pitch);
+  else
+    grads_body(g1, tile - tiles0, slice, m, cm, stage, pitch);
+}
+
+template <int kMode>
+cudaError_t launch_bwd_mode(const void* g_vis, const void* g_lan, const void* qv, const void* kv,
+                            const void* vv, const void* qt, const void* kt, const void* vt,
+                            const float* pv, const float* pt, float* dlv, float* dlt, void* dqv,
+                            void* dkv, void* dvv, void* dqt, void* dkt, void* dvt, int N, int HW,
+                            int T, int m, float div, cudaStream_t stream,
+                            tris::LaunchShape* shapes) {
+  using D = Dtypes<kMode>;
+  using V = typename D::Vis;
+  using X = typename D::Txt;
+  using O = typename D::Out;
+  if (!tris::cross_attn_takes(m) || key_blocks(HW > T ? HW : T) > 1) return cudaErrorInvalidValue;
+  const int slices = tris::cross_attn_slices(m);
+  const int kcap = key_capacity(HW > T ? HW : T), pitch = tile_pitch(kcap);
+  // pass A: the text half (HW keys) first
+  const ProbsHalfT<O, V> lan{static_cast<const O*>(g_lan), static_cast<const V*>(vv), pt, dlt, T,
+                             HW};
+  const ProbsHalfT<O, X> vis{static_cast<const O*>(g_vis), static_cast<const X*>(vt), pv, dlv, HW,
+                             T};
+  const int tiles_lan = N * row_tiles(T), tiles_vis = N * row_tiles(HW);
+  const size_t smem_a = sizeof(float) * ((size_t)kRows * pitch + stage_floats(kcap));
+  const int blocks_a = slices * (tiles_lan + tiles_vis);
+  cudaError_t err =
+      kcap <= 128 ? launch_clusters(cross_attn_probs_bwd_bf16_kernel<4, kMode>, blocks_a, slices,
+                                    smem_a, stream, &shapes[0], lan, vis, tiles_lan, m, kcap, div)
+                  : launch_clusters(cross_attn_probs_bwd_bf16_kernel<8, kMode>, blocks_a, slices,
+                                    smem_a, stream, &shapes[0], lan, vis, tiles_lan, m, kcap, div);
+  if (err != cudaSuccess) return err;
+  // pass B: rows T (summed over HW) first, then rows HW (summed over T)
+  // dQt = dLt Kv, dKt = dLv^T Qv, dVt = Av^T G; dQv = dLv Kt, dKv = dLt^T Qt, dVv = At^T H
+  const LanRows<kMode> lan_rows{{dlt, dlv, pv}, static_cast<const V*>(kv),
+                                static_cast<const V*>(qv), static_cast<const O*>(g_vis),
+                                {static_cast<X*>(dqt), static_cast<X*>(dkt), static_cast<X*>(dvt)},
+                                {0, 1, 1}, T, HW};
+  const VisRows<kMode> vis_rows{{dlv, dlt, pt}, static_cast<const X*>(kt),
+                                static_cast<const X*>(qt), static_cast<const O*>(g_lan),
+                                {static_cast<V*>(dqv), static_cast<V*>(dkv), static_cast<V*>(dvv)},
+                                {0, 1, 1}, HW, T};
+  const int tiles_t = N * row_tiles(T), tiles_p = N * row_tiles(HW);
+  const size_t smem_b = sizeof(float) * ((size_t)kRows * pitch + kPvStages * kPvStage);
+  const int blocks_b = slices * (tiles_t + tiles_p);
+  auto* grads = &cross_attn_grads_bwd_bf16_kernel<kMode>;
+  if ((err = tris::allow_smem(grads, smem_b)) != cudaSuccess) return err;
+  grads<<<blocks_b, kThreads, smem_b, stream>>>(lan_rows, vis_rows, tiles_t, slices, m, kcap);
+  if ((err = cudaGetLastError()) == cudaSuccess)
+    shapes[1] = {blocks_b, 1, kThreads, kRows, (long long)smem_b};
+  return err;
+}
+
 }  // namespace
+
+cudaError_t tris::cross_attn_bwd_bf16(const void* g_vis, const void* g_lan, const void* qv,
+                                      const void* kv, const void* vv, const Bf16Bits* qt,
+                                      const Bf16Bits* kt, const Bf16Bits* vt, const float* pv,
+                                      const float* pt, float* dlv, float* dlt, void* dqv,
+                                      void* dkv, void* dvv, Bf16Bits* dqt, Bf16Bits* dkt,
+                                      Bf16Bits* dvt, bool vis_bf16, int N, int HW, int T, int m,
+                                      float div, cudaStream_t stream, LaunchShape* shapes) {
+  if (vis_bf16)
+    return launch_bwd_mode<kBf16>(g_vis, g_lan, qv, kv, vv, qt, kt, vt, pv, pt, dlv, dlt, dqv,
+                                  dkv, dvv, dqt, dkt, dvt, N, HW, T, m, div, stream, shapes);
+  return launch_bwd_mode<kMixed>(g_vis, g_lan, qv, kv, vv, qt, kt, vt, pv, pt, dlv, dlt, dqv,
+                                 dkv, dvv, dqt, dkt, dvt, N, HW, T, m, div, stream, shapes);
+}
 
 cudaError_t tris::cross_attn_bwd(const float* g_vis, const float* g_lan, const float* qv,
                                  const float* kv, const float* vv, const float* qt,

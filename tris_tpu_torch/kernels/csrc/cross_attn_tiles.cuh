@@ -68,6 +68,18 @@ __host__ __device__ inline int stage_floats(int kcap) {
   return a > b ? a : b;
 }
 
+// The operands' dtypes of a launch: kF32 all float32; kMixed the vision projections float32
+// and the text ones bfloat16 (the fusion on float32 leaves: every product float32, as jnp
+// promotes them); kBf16 all bfloat16, the logits, the quotient by div and each op of the
+// softmax rounded to bfloat16 and the outputs bfloat16.
+enum Mode { kF32, kMixed, kBf16 };
+template <int kMode>
+struct Dtypes {
+  using Vis = std::conditional_t<kMode == kBf16, __nv_bfloat16, float>;
+  using Txt = std::conditional_t<kMode == kF32, float, __nv_bfloat16>;
+  using Out = Vis;
+};
+
 // 4 values at src into dst in shared memory, zeros when !ok (src is then any valid
 // pointer): a float32 operand by one 16-byte cp.async, a bfloat16 one by an 8-byte load
 // widened to float32

@@ -118,6 +118,16 @@ cudaError_t mha_short_bwd(const float* dout, const float* q, const float* k, con
                           int64_t k_seq, int64_t k_row, int64_t v_seq, int64_t v_row,
                           float scale, cudaStream_t stream, MhaLaunchShape* shape);
 
+// K1 backward on bfloat16 q, k and v with the float32 mask (required) and dout (--bf16): the
+// same tiles and limits as mha_short_bwd; dq, dk and dv bfloat16 [N, L, C], each rounded
+// where the JAX function's VJP rounds (see mha_short_bwd.cu). scale: bfloat16's hd^-1/2.
+cudaError_t mha_short_bwd_bf16(const float* dout, const Bf16Bits* q, const Bf16Bits* k,
+                               const Bf16Bits* v, const float* mask, Bf16Bits* dq, Bf16Bits* dk,
+                               Bf16Bits* dv, int N, int Lq, int Lk, int hd, int n_head,
+                               int64_t q_seq, int64_t q_row, int64_t k_seq, int64_t k_row,
+                               int64_t v_seq, int64_t v_row, float scale, cudaStream_t stream,
+                               MhaLaunchShape* shape);
+
 // K2: qv/kv/vv [P/S, HW, m]; qt/kt/vt [P, T, m]; new_vis [P, HW, m]; new_lan [P, T, m].
 // Its kernels (cross_attn.cu, cross_attn_bwd.cu, cross_attn_tiles.cuh) take tiles of
 // kCrossAttnRows query rows against their keys (T for the vision queries, HW for the text
@@ -154,11 +164,24 @@ cudaError_t cross_attn(const float* qv, const float* kv, const float* vv, const 
 // the vision projections and both outputs bfloat16 too, the logits, their quotient by div
 // and the softmax's ops rounded to bfloat16 (HW and T at most kCrossAttnKeyBlock, one key
 // block); else the vision projections and the outputs float32 and every product float32.
-// No probabilities are kept (no backward in bfloat16).
+// With pv and pt (both or neither), the probabilities for the backward as cross_attn's
+// (float32; on bfloat16 leaves each a bfloat16 value).
 cudaError_t cross_attn_bf16(const void* qv, const void* kv, const void* vv, const Bf16Bits* qt,
                             const Bf16Bits* kt, const Bf16Bits* vt, void* new_vis, void* new_lan,
-                            bool vis_bf16, int P, int HW, int T, int m, int S, float div,
-                            cudaStream_t stream, LaunchShape* shape);
+                            float* pv, float* pt, bool vis_bf16, int P, int HW, int T, int m,
+                            int S, float div, cudaStream_t stream, LaunchShape* shape);
+
+// K2 backward on cross_attn_bf16's operands (--bf16), one sentence per image and one key block
+// (HW and T at most kCrossAttnKeyBlock): with vis_bf16 every operand, cotangent and gradient
+// bfloat16; else the vision projections, both cotangents and the vision gradients float32 and
+// the text ones bfloat16. pv, pt, dlv and dlt as cross_attn_bwd's (float32).
+cudaError_t cross_attn_bwd_bf16(const void* g_vis, const void* g_lan, const void* qv,
+                                const void* kv, const void* vv, const Bf16Bits* qt,
+                                const Bf16Bits* kt, const Bf16Bits* vt, const float* pv,
+                                const float* pt, float* dlv, float* dlt, void* dqv, void* dkv,
+                                void* dvv, Bf16Bits* dqt, Bf16Bits* dkt, Bf16Bits* dvt,
+                                bool vis_bf16, int N, int HW, int T, int m, float div,
+                                cudaStream_t stream, LaunchShape* shapes);
 
 // K2 backward, one sentence per image: g_vis, qv/kv/vv and their gradients [N, HW, m];
 // g_lan, qt/kt/vt and their gradients [N, T, m]; pv [N, HW, T] and pt [N, T, HW] as the
@@ -338,6 +361,39 @@ cudaError_t stage1_head_bwd(const float* g_cls, const float* g_relu, const float
                             int B, int T, int offset, int h, int w, int D, int H, int W, float focal_p,
                             float focal_c, TapArrays ty, TapArrays tx, TapRanges ry,
                             TapRanges rx, cudaStream_t stream, Stage1HeadLaunchShape* shape);
+
+// K3's training head on bfloat16 operands (stage1_head_bf16.cu, --bf16): lan_p [B, T, D]
+// bfloat16, vis_p [B, h*w, D] bfloat16 (vis_bf16) or float32, scale float32; a block of
+// kS1Bf16Threads an image each way, the operands widened kS1Bf16Chunk (forward) or
+// kS1Bf16GradChunk (backward) channels at a time into shared memory. Writes score [B, h*w, T]
+// and stats [B, stage1_head_bf16_stats(h*w, T)] (per pixel the softmax's max and sum, per text
+// mbar, GMP and its count of tied pixels) for the backward, cls_out [B, T], cls_fg [B] and
+// the maps [B, H, W], float32. The backward takes stage1_head_bwd's arguments and writes
+// d_vis in vis_p's dtype and d_lan bfloat16. A launch needs stage1_head_bf16_smem bytes of
+// shared memory, at most kS1Bf16MaxSmem.
+constexpr int kS1Bf16Threads = 512;
+constexpr int kS1Bf16Chunk = 32;
+constexpr int kS1Bf16GradChunk = 64;
+constexpr long long kS1Bf16MaxSmem = 227 * 1024;
+constexpr long long stage1_head_bf16_stats(long long hw, long long T) { return 2 * hw + 3 * T; }
+constexpr long long stage1_head_bf16_smem(long long hw, long long T, long long H, long long w,
+                                          bool backward) {
+  const long long plane = (hw * T + 3) / 4 * 4, hw4 = (hw + 3) / 4 * 4, t4 = (T + 3) / 4 * 4;
+  return 4 * (backward ? plane + 2 * hw + H * w + T + (hw > T ? hw : T) * kS1Bf16GradChunk
+                       : plane + kS1Bf16Chunk * (hw4 + t4) + 3 * hw);
+}
+cudaError_t stage1_head_bf16(const void* vis_p, bool vis_bf16, const Bf16Bits* lan_p,
+                             const float* scale, float* score, float* stats, float* cls_out,
+                             float* cls_fg, float* relu_map, float* sig_map, int B, int T,
+                             int offset, int h, int w, int D, int H, int W, float focal_p,
+                             float focal_c, TapArrays ty, TapArrays tx, cudaStream_t stream);
+cudaError_t stage1_head_bwd_bf16(const float* g_cls, const float* g_relu, const float* g_sig,
+                                 const void* vis_p, bool vis_bf16, const Bf16Bits* lan_p,
+                                 const float* scale, const float* score, const float* stats,
+                                 void* d_vis, Bf16Bits* d_lan, int B, int T, int offset, int h,
+                                 int w, int D, int H, int W, float focal_p, float focal_c,
+                                 TapArrays ty, TapArrays tx, TapRanges ry, TapRanges rx,
+                                 cudaStream_t stream);
 
 // K3, the eval head (response_head.cu): a cluster of R blocks a pair, grid (R, P). Rank r
 // forms the scores of the pair's pixels [r hw / R, (r + 1) hw / R) (a warp a pixel), the
@@ -1312,6 +1368,18 @@ cudaError_t batch_norm_fold_bf16(const Bf16Bits* x, const Bf16Bits* a, const Bf1
                                  const Bf16Bits* residual, Bf16Bits* y, int N, int C, int HW,
                                  int act, cudaStream_t stream, BatchNormLaunchShape* shape);
 
+// K13 train forward on bfloat16 x, residual and y (--bf16), three launches (the two-pass
+// design at every shape): the statistics of x's values as batch_norm_stats forms them (stats
+// [3, C] float32, the running buffers moved unless null; partial as batch_norm_stats'), then
+// y = act(bf16(bf16(((x - mean) * rstd) * weight + bias) [+ residual])), the norm formed in
+// float32 as batch_norm_apply forms it and each rounding the plain version's; weight and bias
+// float32; act kBatchNormActNone or kBatchNormActRelu. shapes[0..3) receive the launches'.
+cudaError_t batch_norm_forward_bf16(const Bf16Bits* x, const float* weight, const float* bias,
+                                    const Bf16Bits* residual, Bf16Bits* y, float* stats,
+                                    double* partial, float* running_mean, float* running_var,
+                                    int N, int C, int HW, int act, double momentum, double eps,
+                                    cudaStream_t stream, BatchNormLaunchShape* shapes);
+
 // K13 train forward as `plan` (batch_norm_device_plan, training) says: y = act(((x - mean) *
 // rstd) * weight + bias [+ residual]) on the batch statistics, which stats [3, C] receives as
 // batch_norm_stats does, the running buffers moved unless null. partial: the two-pass
@@ -1343,6 +1411,17 @@ cudaError_t batch_norm_bwd_apply(const float* g, const float* x, const float* ou
                                  const double* slope_sums, float* dslope, float* dx, float* dres,
                                  int N, int C, int HW, int act, cudaStream_t stream,
                                  BatchNormLaunchShape* shape);
+
+// K13 train backward on bfloat16 g, x and out (--bf16), three launches (the two-pass
+// design): partial [C * N * batch_norm_slices(HW) * 3] double and coef [2, C] scratch;
+// dweight and dbias [C] float32; dx (rounded to bfloat16 once) and dres (the masked g, or
+// null) bfloat16 as x. act kBatchNormActNone or kBatchNormActRelu (out the forward's y, the
+// ReLU's mask). shapes[0..3) receive the launches' shapes.
+cudaError_t batch_norm_bwd_bf16(const Bf16Bits* g, const Bf16Bits* x, const Bf16Bits* out,
+                                const float* mean, const float* rstd, const float* weight,
+                                const float* bias, double* partial, float* coef, float* dweight,
+                                float* dbias, Bf16Bits* dx, Bf16Bits* dres, int N, int C, int HW,
+                                int act, cudaStream_t stream, BatchNormLaunchShape* shapes);
 
 // K13 backward as `plan` (batch_norm_device_plan, backward) says, from g = dL/dy: out the
 // forward's y (ReLU's mask; null for the other activations); mean and rstd as the forward

@@ -75,39 +75,6 @@ mha_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         hd, 1.f, o, [&](int i) { return ty + i * T::kGroups; });
 }
 
-// A bfloat16 [rows, hd] operand at src (row stride `row` elements) into a [LP][kPitch]
-// float32 tile, zeros past rows and hd: 8 values a 16-byte load (VEC) or one a load; with
-// `scale`, each value times scale rounded to bfloat16 (q).
-template <int LP, int HD, bool VEC>
-__device__ __forceinline__ void stage_bf16(float* dst, const __nv_bfloat16* __restrict__ src,
-                                           long long row, int rows, int hd, bool scaled,
-                                           float scale) {
-  using T = Tiles<LP, HD>;
-  auto put = [&](float x) { return scaled ? tris::round_bf16(x * scale) : x; };
-  constexpr int kPer = VEC ? 8 : 1;
-  for (int i = threadIdx.x; i < LP * HD / kPer; i += T::kThreads) {
-    const int r = i / (HD / kPer), c = i % (HD / kPer) * kPer;
-    float* d = dst + r * T::kPitch + c;
-    if constexpr (VEC) {
-      float f[8] = {};
-      if (r < rows && c < hd) {
-        const uint4 u = *reinterpret_cast<const uint4*>(src + r * row + c);
-        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 t = __bfloat1622float2(p[e]);
-          f[2 * e] = put(t.x);
-          f[2 * e + 1] = put(t.y);
-        }
-      }
-      reinterpret_cast<float4*>(d)[0] = make_float4(f[0], f[1], f[2], f[3]);
-      reinterpret_cast<float4*>(d)[1] = make_float4(f[4], f[5], f[6], f[7]);
-    } else {
-      *d = r < rows && c < hd ? put(__bfloat162float(src[r * row + c])) : 0.f;
-    }
-  }
-}
-
 template <int LP, int HD, bool VEC>
 __global__ void __launch_bounds__(Tiles<LP, HD>::kThreads)
 mha_short_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

@@ -17,8 +17,11 @@ exposes): another shape raises ``ValueError`` here, before any launch.
 
 ``--bf16`` (the text tower on bfloat16 leaves): bfloat16 q, k and v with the
 float32 causal mask launch ``mha_short_bf16`` (counted as ``mha_short.bf16``),
-forward only, out float32; the wrapper takes those dtypes and float32
-throughout, and raises on any other before a launch.
+out float32; its backward ``mha_short_bwd_bf16`` (counted as
+``mha_short_bwd.bf16``) takes the float32 cotangent and returns bfloat16 dq,
+dk and dv, each rounded where the JAX function's VJP rounds it. The wrapper
+takes those dtypes and float32 throughout, and raises on any other before a
+launch.
 """
 
 from __future__ import annotations
@@ -76,9 +79,29 @@ class _MhaShort(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class _MhaShortBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, attn_mask, n_head, scale, save):
+        out = build.ops().mha_short_bf16(q, k, v, attn_mask, n_head, scale)
+        build.count("mha_short.bf16")
+        ctx.n_head, ctx.scale = n_head, scale
+        if save:  # nothing is kept when no input needs a gradient
+            ctx.save_for_backward(q, k, v, attn_mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, attn_mask = ctx.saved_tensors
+        dq, dk, dv = build.ops().mha_short_bwd_bf16(grad_out.contiguous(), q, k, v, attn_mask,
+                                                    ctx.n_head, ctx.scale)
+        build.count("mha_short_bwd.bf16")
+        return dq, dk, dv, None, None, None, None
+
+
 def mha_short_launch_shape(name: str) -> dict:
-    """The grid of the last launch of K1's ``name`` (``mha_short`` or
-    ``mha_short_bwd``) on the card, as its launcher made it: ``blocks``,
+    """The grid of the last launch of K1's ``name`` (``mha_short``,
+    ``mha_short_bwd``, ``mha_short_bf16`` or ``mha_short_bwd_bf16``) on the
+    card, as its launcher made it: ``blocks``,
     ``threads``, ``smem_bytes``, the buckets ``lp`` and ``hd_bucket``, and
     ``load_bytes`` (16, or 4 where a pointer, a stride or hd is not a
     multiple of 16 bytes)."""
@@ -111,9 +134,5 @@ def mha_short(q, k, v, n_head: int, attn_mask: Optional[torch.Tensor] = None):
         raise ValueError(f"mha_short: the kernels do not take Lq={Lq}, Lk={Lk}, hd={hd} "
                          f"(L <= 128 and head dim <= 128: csrc/launchers.h::mha_short_takes)")
     if DTYPES[combo][0] == BF16:
-        if save:
-            raise ValueError("mha_short: bfloat16 is forward only (no backward kernel yet)")
-        out = build.ops().mha_short_bf16(q, k, v, attn_mask, n_head, weak(hd ** -0.5, BF16))
-        build.count("mha_short.bf16")
-        return out
+        return _MhaShortBf16.apply(q, k, v, attn_mask, n_head, weak(hd ** -0.5, BF16), save)
     return _MhaShort.apply(q, k, v, attn_mask, n_head, float(hd ** -0.5), save)

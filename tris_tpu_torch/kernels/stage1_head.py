@@ -25,6 +25,16 @@ cluster's size is ``csrc/launchers.h::stage1_head_plan``'s rule, which
 :func:`stage1_head_plan` reads back from the extension and
 ``tris_tpu_torch/tools/stage1_head_schedule.py`` emulates on the host;
 :func:`stage1_head_launch_shape` gives the last launch's grid.
+
+``--bf16``: lan_p bfloat16 with vis_p bfloat16 (the seeded init, and
+``--clip_weights``) or float32 (``--pretrain`` of a float32 checkpoint), the
+scale float32, as jnp promotes them: the dot in the promoted dtype with
+float32 sums (rounded to bfloat16 when both are), times the scale in float32,
+the head and the maps float32; GMP's gradient split evenly among tied maxima.
+``csrc/stage1_head_bf16.cu``, a block an image, one launch each way (counted
+as ``stage1_head.bf16`` and ``stage1_head_bwd.bf16``); the gradients in their
+operands' dtypes. The float32 route keeps its kernels (GMP's gradient to the
+first argmax).
 """
 
 from __future__ import annotations
@@ -33,19 +43,27 @@ import torch
 
 from tris_tpu_torch.kernels import build
 from tris_tpu_torch.kernels.response_head import adjoint_taps_on, taps_on, upsample_taps_plain
+from tris_tpu_torch.ops.dtypes import promote
 
 
 def stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float,
                       offset: int = 0):
     """The plain version: the JAX head written out, the upsample with the
     kernel's taps in its order. vis_p [B, h*w, D], lan_p [B, T, D], scale a
-    0-d tensor -> (cls_out [B, T], cls_fg [B], relu_map, sig_map [B, H, W])."""
+    0-d float32 tensor -> (cls_out [B, T], cls_fg [B], relu_map, sig_map [B,
+    H, W]), all float32. With jnp's dtypes (``--bf16``): the dot in the
+    operands' promoted dtype, float32 sums rounded to it (bfloat16 when both
+    are), then times ``scale`` in float32, and everything after in float32.
+    GMP's gradient is amax's, split evenly among tied maxima, as JAX's max
+    splits it."""
     (h, w), (H, W) = hw_shape, out_hw
     B, T = vis_p.shape[0], lan_p.shape[1]
     if not 0 <= offset <= T - B:
         raise ValueError(f"stage1_head: the own texts [{offset}, {offset + B}) of {B} images "
                          f"must lie in the {T} texts")
-    score = scale * torch.einsum("bpc,bqc->bpq", vis_p, lan_p)       # [B, hw, T]
+    dt = promote(vis_p, lan_p)
+    dot = torch.einsum("bpc,bqc->bpq", vis_p.to(dt), lan_p.to(dt))
+    score = scale * dot.to(promote(dot, scale))                      # [B, hw, T]
     own = torch.diagonal(score[:, :, offset:offset + B], dim1=0, dim2=2).T  # [b, :, b + offset]
     ty = taps_on(h, H, False, vis_p.device)
     tx = taps_on(w, W, False, vis_p.device)
@@ -60,6 +78,9 @@ def stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, foc
 
 
 MAX_IMAGES = 65535  # the grid's second dimension
+F32, BF16 = torch.float32, torch.bfloat16
+# (vis_p, lan_p, scale): float32; or bfloat16 text with bfloat16 or float32 vision (--bf16)
+DTYPES = ((F32, F32, F32), (BF16, BF16, F32), (F32, BF16, F32))
 
 
 def stage1_head_plan(B: int, h: int, w: int, D: int, H: int, W: int,
@@ -129,6 +150,38 @@ class _Stage1Head(torch.autograd.Function):
         return d_vis, d_lan, None, None, None, None, None, None, None, None, None
 
 
+class _Stage1HeadBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vis_p, lan_p, scale, h, w, H, W, focal_p, focal_lambda, offset, save):
+        dev = vis_p.device
+        score, stats, cls_out, cls_fg, relu_map, sig_map = build.ops().stage1_head_bf16(
+            vis_p, lan_p, scale, list(taps_on(h, H, False, dev)), list(taps_on(w, W, False, dev)),
+            h, w, focal_p, focal_lambda, offset)
+        build.count("stage1_head.bf16")
+        ctx.mark_non_differentiable(cls_fg)
+        ctx.set_materialize_grads(False)
+        ctx.shape, ctx.focal, ctx.offset = (h, w, H, W), (focal_p, focal_lambda), offset
+        if save:  # nothing is kept when no input needs a gradient
+            ctx.save_for_backward(vis_p, lan_p, scale, score, stats)
+        return cls_out, cls_fg, relu_map, sig_map
+
+    @staticmethod
+    def backward(ctx, g_cls, _g_fg, g_relu, g_sig):
+        vis_p, lan_p, scale, score, stats = ctx.saved_tensors
+        h, w, H, W = ctx.shape
+        dev = vis_p.device
+        if g_cls is None:
+            g_cls = torch.zeros(score.shape[0], score.shape[2], device=dev)
+        d_vis, d_lan = build.ops().stage1_head_bwd_bf16(
+            g_cls.contiguous(), None if g_relu is None else g_relu.contiguous(),
+            None if g_sig is None else g_sig.contiguous(), vis_p, lan_p, scale, score, stats,
+            list(taps_on(h, H, False, dev)), list(taps_on(w, W, False, dev)),
+            list(adjoint_taps_on(h, H, False, dev)), list(adjoint_taps_on(w, W, False, dev)),
+            h, w, *ctx.focal, ctx.offset)
+        build.count("stage1_head_bwd.bf16")
+        return d_vis, d_lan, None, None, None, None, None, None, None, None, None
+
+
 def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lambda: float,
                 offset: int = 0):
     """K3's training head on CUDA tensors (one launch forward, one
@@ -138,7 +191,7 @@ def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lam
     if vis_p.device.type == "cpu":
         return stage1_head_plain(vis_p, lan_p, scale, hw_shape, out_hw, focal_p, focal_lambda,
                                  offset)
-    build.require_cuda("stage1_head", vis_p, lan_p, scale)
+    combo = build.require_cuda("stage1_head", vis_p, lan_p, scale, accepted=DTYPES)
     B, HW, D = vis_p.shape
     T = lan_p.shape[1] if lan_p.dim() == 3 else -1
     (h, w), (H, W) = hw_shape, out_hw
@@ -146,6 +199,17 @@ def stage1_head(vis_p, lan_p, scale, hw_shape, out_hw, focal_p: float, focal_lam
         raise ValueError(f"stage1_head: bad shapes vis_p{tuple(vis_p.shape)} "
                          f"lan_p{tuple(lan_p.shape)} hw={hw_shape} offset={offset}")
     save = torch.is_grad_enabled() and (vis_p.requires_grad or lan_p.requires_grad)
+    if combo > 0:
+        if not 1 <= B <= MAX_IMAGES or min(h, w, D, H, W) < 1 or H * W >= 2 ** 31:
+            raise ValueError(f"stage1_head: bad shape {(B, T, h, w, D, H, W)}")
+        for backward in (False, True) if save else (False,):
+            if build.ops().stage1_head_bf16_smem(HW, T, H, w, backward) > build.MAX_SMEM:
+                raise ValueError(f"stage1_head: bfloat16's [h*w, T] = [{HW}, {T}] score plane "
+                                 f"and its {'backward' if backward else 'forward'}'s buffers "
+                                 f"must fit shared memory")
+        return _Stage1HeadBf16.apply(vis_p.contiguous(), lan_p.contiguous(),
+                                     scale.reshape(()).contiguous(), h, w, H, W, float(focal_p),
+                                     float(focal_lambda), int(offset), save)
     stage1_head_plan(B, h, w, D, H, W, T=T)
     if save:  # the backward's shape is refused before the forward runs
         stage1_head_plan(B, h, w, D, H, W, backward=True, T=T)

@@ -23,18 +23,35 @@ import torch.nn.functional as F
 from torch import nn
 
 from tris_tpu_torch import kernels
-from tris_tpu_torch.ops.dtypes import promote, weak
+from tris_tpu_torch.ops.dtypes import broadcast_to, low, promote, reduce_sum, weak
 from tris_tpu_torch.ops.resize import bilinear_resize
+
+
+class _QuickGeluLow(torch.autograd.Function):
+    """QuickGELU below float32 with JAX's VJP: ``s = logistic(a x)``, ``dx =
+    g s + a ((x g) (s (1 - s)))``, each op rounded to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-(weak(1.702, x.dtype) * x)))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + weak(1.702, x.dtype) * ((x * g) * (s * (1 - s)))
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's QuickGELU: ``x * sigmoid(1.702 x)``, 1.702 in x's dtype. Below
     float32 the sigmoid is ``1 / (1 + exp(-t))``, each op rounded to x's
-    dtype, as XLA expands ``lax.logistic`` on the CPU."""
-    t = weak(1.702, x.dtype) * x
+    dtype, as XLA expands ``lax.logistic`` on the CPU, with JAX's VJP."""
     if x.dtype == torch.float32:
-        return x * torch.sigmoid(t)
-    return x * (1 / (1 + torch.exp(-t)))
+        return x * torch.sigmoid(weak(1.702, x.dtype) * x)
+    if low(x):
+        return _QuickGeluLow.apply(x)
+    return x * (1 / (1 + torch.exp(-(weak(1.702, x.dtype) * x))))
 
 
 class QuickGELU(nn.Module):
@@ -56,7 +73,8 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     x, weight = x.to(dtype), weight.to(dtype)
     if dtype == torch.float32 or bias is None:
         return F.linear(x, weight, None if bias is None else bias.to(dtype))
-    return F.linear(x, weight) + bias.to(dtype)
+    y = F.linear(x, weight)
+    return y + broadcast_to(bias.to(dtype), y.shape)
 
 
 class Dense(nn.Linear):
@@ -193,11 +211,48 @@ class InstanceNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dims = tuple(range(1, x.dim() - 1))
+        if not low(x):
+            mean = x.mean(dim=dims, keepdim=True)
+            var = (x - mean).square().mean(dim=dims, keepdim=True)
+            y = (x - mean) * torch.rsqrt(var + self.eps)
+        else:
+            y = _InstanceNormLow.apply(x, dims, weak(self.eps, x.dtype))
+        y = y.to(promote(y, self.weight))
+        return y * broadcast_to(self.weight, y.shape) + broadcast_to(self.bias, y.shape)
+
+
+class _InstanceNormLow(torch.autograd.Function):
+    """The normalisation of :class:`InstanceNorm2d` below float32 and JAX's
+    VJP of ``jnp.mean``, ``jnp.var`` and ``(x - mean) * rsqrt(var + eps)`` on
+    x's dtype: bfloat16 ops each rounded, the statistics' cotangents in
+    float32, rounded where JAX converts them."""
+
+    @staticmethod
+    def forward(ctx, x, dims, eps):
         xf = x.float()
+        n = torch.tensor(float(xf[0].numel() // xf.shape[-1]))
         mean = xf.mean(dim=dims, keepdim=True)
-        var = (xf - mean).square().mean(dim=dims, keepdim=True).to(x.dtype)
-        y = (x - mean.to(x.dtype)) * torch.rsqrt(var + weak(self.eps, x.dtype))
-        return y.to(promote(y, self.weight)) * self.weight + self.bias
+        t = xf - mean
+        var = t.square().mean(dim=dims, keepdim=True).to(x.dtype)
+        d = x - mean.to(x.dtype)
+        ve = var + eps
+        r = torch.rsqrt(ve)
+        ctx.dims = dims
+        ctx.save_for_backward(d, r, ve, t, n)
+        return d * r
+
+    @staticmethod
+    def backward(ctx, g):
+        d, r, ve, t, n = ctx.saved_tensors
+        dims, low = ctx.dims, g.dtype
+        dr = reduce_sum(d * g, dims)
+        dd = g * r
+        dve = dr * (-0.5 * (r / ve))
+        dmean = reduce_sum(-dd, dims)
+        tt = 2 * t
+        cj = (dve.float() / n) * tt
+        dvar = (cj + (-cj).sum(dim=dims, keepdim=True) / n).to(low)
+        return (dd + dvar) + (dmean.float() / n).to(low), None, None
 
 
 class PReLU(nn.PReLU):

@@ -16,7 +16,9 @@ global ``[B_global, B_global]``, its own texts at ``rank * B``.
 
 ``dtype`` is the JAX module's (``tris_tpu_torch.models.layers``): with
 bfloat16, ``response_maps`` and the eval forward run K1, K2, K3's eval head
-and K13's eval fold on bfloat16 operands; the maps are float32 either way.
+and K13's eval fold on bfloat16 operands, and the training forward K1, K2,
+K3's training head and K13's batch statistics, forward and backward; the
+maps, ``cls_out`` and ``scale`` are float32 either way.
 """
 
 from __future__ import annotations
@@ -99,8 +101,8 @@ class TRISStage1(nn.Module):
             vis_p = norm_vis
             if cfg.attn_multi > 0:
                 new_vis, new_lan = self.attn_fusion(norm_vis, lan_p)
-                vis_p = new_vis * FUSION_RESIDUAL + norm_vis
-                lan_p = new_lan * FUSION_RESIDUAL + lan_p
+                vis_p = new_vis * _residual(new_vis) + norm_vis
+                lan_p = new_lan * _residual(new_lan) + lan_p
             cls_out, cls_fg, relu_map, sig_map = kernels.stage1_head(
                 vis_p, lan_p, scale, hw, (H, W), cfg.focal_p, cfg.focal_lambda,
                 parallel.rank_world()[0] * B)

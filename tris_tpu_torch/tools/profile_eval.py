@@ -25,12 +25,14 @@ unless given) images and random 0/1 pseudo-masks, student and teacher
 forward, backward, AdamW), then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
-times; one stream, so they do not overlap) and its idle share, and the
+times, the ranges the trace also spans on the device left out; one stream,
+so they do not overlap) and its idle share, and the
 device time by kernel class (the hand-written kernels by name, K13's
 summed and by design, cuDNN convolutions, cuDNN's layout transposes, GEMMs,
 everything else), by kernel name, and ``InstanceNorm2d``'s (the kernels its
 forwards and their backward launched); ``--out`` also writes it to a file.
-``--bf16``: stage 1 in bfloat16 (its seeded init), eval or ``--prms``.
+``--bf16``: stage 1 in bfloat16 (its seeded init), eval, ``--prms`` or
+``--train`` (the critic float32).
 Needs a card.
 """
 
@@ -64,7 +66,11 @@ HAND_KERNELS = ("mha_short_kernel", "mha_short_bf16_kernel", "mha_short_bwd_kern
                 "batch_norm_bwd_slope_kernel", "batch_norm_stats_partial_kernel",
                 "batch_norm_stats_final_kernel", "batch_norm_apply_kernel",
                 "batch_norm_bwd_partial_kernel", "batch_norm_bwd_final_kernel",
-                "batch_norm_bwd_apply_kernel", "batch_norm_fold_bf16_kernel")
+                "batch_norm_bwd_apply_kernel", "batch_norm_fold_bf16_kernel",
+                "batch_norm_apply_bf16_kernel", "batch_norm_bwd_apply_bf16_kernel",
+                "mha_short_bwd_bf16_kernel", "cross_attn_probs_bwd_bf16_kernel",
+                "cross_attn_grads_bwd_bf16_kernel", "stage1_head_bf16_fwd_kernel",
+                "stage1_head_bf16_bwd_kernel")
 # K13's kernels by design: the fused (and PReLU's slope sum after the fused backward),
 # the rest two-pass (the eval fold's apply among them)
 K13_FUSED = ("batch_norm_fwd_fused_kernel", "batch_norm_bwd_fused_kernel",
@@ -222,11 +228,11 @@ def main(argv=None) -> dict:
     p.add_argument("--size", type=int, default=320)
     p.add_argument("--iters", type=int, default=None, help="default 5 (1 with --ins_seg)")
     p.add_argument("--bf16", action="store_true",
-                   help="stage 1 in bfloat16 (--bf16; eval and --prms only)")
+                   help="stage 1 in bfloat16 (--bf16; eval, --prms and --train)")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
-    if args.bf16 and (args.train or args.ins_seg or args.train_irn or args.train_stage2):
-        p.error("--bf16 covers stage-1 eval and --prms")
+    if args.bf16 and (args.ins_seg or args.train_irn or args.train_stage2):
+        p.error("--bf16 covers stage-1 eval, --prms and --train")
     if args.iters is None:
         args.iters = 1 if args.ins_seg else 5
     if args.batch is None:
@@ -291,8 +297,12 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize()
 
     by_name = {}
+    # the trace's ranges (record_function's, the optimizer's step) also have a device span:
+    # they are no kernels, and they share their names with host events
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = {evt.name for evt in prof.events() if evt.device_type != cuda}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == cuda and evt.name not in ranges:
             t = by_name.setdefault(evt.name, [0.0, 0])
             t[0] += evt.time_range.elapsed_us() / 1e3 / args.iters   # ms per forward
             t[1] += 1

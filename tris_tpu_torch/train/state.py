@@ -20,6 +20,9 @@ recipe) in PyTorch's idiom: ``torch.optim.AdamW`` parameter groups and a
   zero because the step never uses them (the attention pool's). AdamW here
   skips a parameter whose ``.grad`` is None, so :func:`apply_gradients`
   gives such parameters zero gradients first.
+- ``--bf16``: on a bfloat16 leaf optax computes in bfloat16, each op
+  rounded, and keeps the leaf's moments in bfloat16; :class:`AdamW` follows
+  it there op for op (``torch.optim.AdamW`` on the float32 leaves).
 - The stage-2 EMA teacher (``create_train_state(with_ema=True)``) is a
   copy of the model with storage of its own, its parameters without
   gradients and in no group, its BatchNorms normalising by batch statistics
@@ -38,6 +41,7 @@ from torch import nn
 
 from tris_tpu_torch import kernels
 from tris_tpu_torch.models.layers import TorchBatchNorm
+from tris_tpu_torch.ops.dtypes import weak
 
 Schedule = Callable[[int], float]
 
@@ -81,6 +85,78 @@ def label_params(model: nn.Module, stage: str = "stage1") -> Dict[str, str]:
     return labels
 
 
+class AdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` on float32 parameters; on a bfloat16 parameter
+    (``--bf16``'s leaves) optax 0.2.6's ``adamw`` as XLA runs it, each op in
+    bfloat16 and rounded, its moments held in bfloat16 (under torch's state
+    keys, so that ``state_dict`` and ``load_state_dict`` keep them):
+
+        m = bf16(1 - b1) g + bf16(b1) m;   v = bf16(1 - b2) (g g) + bf16(b2) v
+        u = (m / bf16(1 - b1^t)) / (sqrt(v / bf16(1 - b2^t)) + bf16(eps))
+        p = p + bf16(-lr) (u + bf16(wd) p)
+
+    with ``t`` the updates counted including this one, ``b^t`` in float32
+    (float64 rounded once) and ``lr`` the group's, rounded to float32 then
+    to bfloat16."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        low = [(group, p, p.grad) for group in self.param_groups for p in group["params"]
+               if p.grad is not None and p.dtype != torch.float32]
+        for _, p, _ in low:
+            p.grad = None           # torch's step skips them
+        try:
+            loss = super().step(closure)
+        finally:
+            for _, p, g in low:
+                p.grad = g
+        scalars = {}
+        for group, p, g in low:
+            self._step_low(group, p, g, scalars)
+        return loss
+
+    def _step_low(self, group: dict, p: torch.Tensor, g: torch.Tensor, scalars: dict) -> None:
+        state = self.state[p]
+        if not state:
+            state["step"] = torch.tensor(0.0)
+            state["exp_avg"] = torch.zeros_like(p)
+            state["exp_avg_sq"] = torch.zeros_like(p)
+        state["step"] += 1
+        t, dt = int(state["step"]), p.dtype
+        key = (id(group), t, dt)
+        if key not in scalars:  # the step's constants, once a group
+            b1, b2 = group["betas"]
+            scalars[key] = (weak(1 - b1, dt), weak(b1, dt), weak(1 - b2, dt), weak(b2, dt),
+                            _bias_correction(b1, t, dt), _bias_correction(b2, t, dt),
+                            weak(group["eps"], dt), weak(group["weight_decay"], dt),
+                            _low(-float(torch.tensor(group["lr"], dtype=torch.float32)), dt))
+        c1, b1, c2, b2, bc1, bc2, eps, wd, lr = scalars[key]
+        g = g.to(dt)
+        m = c1 * g + b1 * state["exp_avg"]
+        v = c2 * (g * g) + b2 * state["exp_avg_sq"]
+        state["exp_avg"].copy_(m)
+        state["exp_avg_sq"].copy_(v)
+        # divisors as tensors: a division by a Python number may run as a product with its
+        # reciprocal, which rounds otherwise
+        m_hat = m / torch.full_like(m, bc1)
+        v_hat = v / torch.full_like(v, bc2)
+        u = m_hat / (v_hat.sqrt() + eps)
+        p.copy_(p + lr * (u + wd * p))
+
+
+def _low(value: float, dtype: torch.dtype) -> float:
+    """A float32 ``value`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(value, dtype=torch.float32).to(dtype))
+
+
+def _bias_correction(b: float, t: int, dtype: torch.dtype) -> float:
+    """optax's ``1 - b^t``: in float32 (the power in float64, rounded once),
+    then rounded to ``dtype``."""
+    bt = float(torch.tensor(float(torch.tensor(b, dtype=torch.float32)) ** t,
+                            dtype=torch.float32))
+    return _low(float(torch.tensor(1.0 - bt, dtype=torch.float32)), dtype)
+
+
 def make_optimizer(model: nn.Module, base_lr: float = 5e-5, lr_multi: float = 0.1,
                    weight_decay: float = 0.01, total_steps: int = 1, power: float = 0.9,
                    schedule_factory: Optional[Callable[[float], Schedule]] = None,
@@ -99,8 +175,8 @@ def make_optimizer(model: nn.Module, base_lr: float = 5e-5, lr_multi: float = 0.
                        "lr": group_lr, "name": label})
         schedules.append(schedule_factory(group_lr) if schedule_factory is not None
                          else poly_schedule(group_lr, total_steps, power))
-    optimizer = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=weight_decay)
+    optimizer = AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                      weight_decay=weight_decay)
     lambdas = [(lambda step, f=f, lr=g["lr"]: f(step) / lr if lr else 0.0)
                for f, g in zip(schedules, groups)]
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
