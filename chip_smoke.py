@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--report PATH]
 
 Run from the root of a checkout. Phases, in order; an error stops the run,
-and a failed check of phases 3-14 exits 1 once all have run (so the report
+and a failed check of phases 3-15 exits 1 once all have run (so the report
 holds every number):
 
 1. device  - the card's name and ``nvidia-smi`` name / power limit;
@@ -51,7 +51,13 @@ holds every number):
              shapes (K13's train forward and backward at the stem, layer1's
              and layer4's tails and layer3; K1's backward at the text tower;
              K2's forward keeping its probabilities and its backward, K3's
-             training head forward and backward, each on both mixes), the
+             training head forward and backward, each on both mixes), and the
+             bfloat16 kernels of ``--bf16`` stage-2 eval and the demo (K11's
+             forward at c2, c3 and c4 of an 8 x 4 eval batch on both leaf
+             regimes' q and at the demo's 40 tokens; K6's bilinear forward at
+             the decoder's x2 upsamples and the head's to 320 px, bit for
+             bit; K13's eval fold with PReLU at the decoder's norms with a
+             bfloat16 and a float32 slope, bit for bit), the
              kernel's within one bfloat16 ulp of the output's scale of the plain
              version's (and, where the plain version lies past a tenth of the
              scale from float64, within 4 such ulps of the plain version);
@@ -112,8 +118,8 @@ holds every number):
              ``cli.validate --prms --save_cam`` -> ``cli.irnet`` with its
              three passes (after ``cli.validate --prms --bf16`` on the same
              checkpoint) -> ``cli.train_stage2 --model_ema`` (one epoch, on
-             the pseudo-masks the chain wrote) -> ``cli.validate --stage 2``,
-             and the files each leaves;
+             the pseudo-masks the chain wrote) -> ``cli.validate --stage 2``
+             and ``--stage 2 --bf16``, and the files each leaves;
 9. stage 2 - full-width RN50 stage 2 (seeded) at B=48, 320 px, u8, random
              0/1 pseudo-masks: ``TRAIN2_STEPS`` steps with the EMA teacher
              updated every step (update_after 0: two copies, then decay
@@ -180,7 +186,24 @@ holds every number):
              plain route's own spread (the step on the batch reversed), their
              median within ``BF16_TRAIN_MEDIAN`` times the spread's, the GMP
              channels with a tied maximum, the bfloat16 leaves' moments, and
-             the step's host ms in bfloat16 and float32 over ``ROUNDS``.
+             the step's host ms in bfloat16 and float32 over ``ROUNDS``;
+15. bf16 stage 2 - ``--bf16`` stage-2 eval and the demo at full width (RN50
+             stage 2, text 512 x 12, 20 tokens, 320 px) on phase 4's batches
+             of 8 x 4, on the seeded bfloat16 init and on the float32 model's
+             weights loaded: ``validate`` under reset counters (each route's
+             launches by name and dtype, exactly: K1, K11, K6 bilinear,
+             K13's 55 folds and 9 with PReLU a batch, the slopes the regime's
+             dtype), ``response_maps`` of a batch against the plain bfloat16
+             route (chaotic in bfloat16: within ``BF16_SPREAD_SHARE`` of the
+             plain route's spread, the farthest of its re-evaluations with
+             cuDNN off and with K1's, then K11's, sums in float64, and at
+             least ``BF16_MAPS_SHARE`` of the bf16-f32 gap from the float32
+             maps, which fail these bars as a control; each kernel's share of
+             the gap, launched alone, reported), the metrics beside float32's,
+             ``validate``'s host ms a batch in bfloat16 and float32 over
+             ``ROUNDS``; then ``demo_cam`` on phase 10's 480 x 640 image with
+             two phrases (K1 12, K6 4, K11 3, K13 55 + 9 launches) at the same
+             bars.
 
 Prints the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``--report`` writes a fuller JSON report
@@ -1957,10 +1980,13 @@ def bf16_distances(failures, name, got, plain, want64) -> dict:
             "max_abs_err_vs_plain": e_kp, "tol_vs_plain": tol_plain}
 
 
-def bf16_row(name, dists, ms, plain_ms, nbytes, flops, library_ms, **extra):
+def bf16_row(name, dists, ms, plain_ms, nbytes, flops, library_ms, peak_ops=PEAK_BF16_S,
+             **extra):
     """A bfloat16 kernel's row, logged: its distances, its and the plain
-    version's device ms, the bound at bfloat16 widths and the library ms."""
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_S)
+    version's device ms, the bound at bfloat16 widths (the operations at
+    ``peak_ops``: the bfloat16 tensor cores', FP32's for a float32 mix) and
+    the library ms."""
+    b_ms, b_by = bound_ms(nbytes, flops, peak_ops)
     log(f"kernel {name}: float64 distance {dists['max_abs_err']:.3g} (plain "
         f"{dists['max_abs_err_plain']:.3g}, bar {dists['tol']:.3g}), from the plain version "
         f"{dists['max_abs_err_vs_plain']:.3g} (bar {dists['tol_vs_plain']}) ms {ms:.4f} "
@@ -2361,6 +2387,143 @@ def check_bf16_train_kernels(K, dev):
     return rows, extra, failures
 
 
+# ---- phase 3: the bfloat16 kernels of stage 2's eval (--bf16 stage 2, the demo) -------------
+
+# stage 2's eval batch: B images x S pairs (phase 4's batches), T tokens; the pyramid's levels
+# (pixels, channels) at c2, c3 and c4 of RN50 at 320 px; the decoder's x2 upsamples (channels,
+# input side) and the head's upsample to the input size; the ConvBNRelus with PReLU (name,
+# shape) whose eval fold phase 15 runs (the trunk's folds are phase 13's rows)
+S2_LEVELS = (("c2", 1600, 512), ("c3", 400, 1024), ("c4", 100, 2048))
+S2_UPSAMPLES = (("output4", 256, 10), ("output3", 128, 20), ("output2", 64, 40))
+S2_PRELU_ROWS = (("reduced_c1", (B, 64, 80, 80)), ("output1", (B * S, 32, 80, 80)),
+                 ("reduced_c4", (B * S, 512, 10, 10)), ("output4", (B * S, 256, 10, 10)),
+                 ("final_seg1", (B * S, 32, 80, 80)))
+
+
+def check_bf16_stage2_kernels(K, dev):
+    """The three bfloat16 kernels of ``--bf16`` stage-2 eval and the demo at
+    phase 15's shapes, on both leaf regimes' operands, against their plain
+    versions on the same inputs with phase 3's bfloat16 bars (within one
+    bfloat16 ulp of the output's scale of the plain version's distance from a
+    float64 evaluation; within 4 of the plain version where that distance
+    passes a tenth of the scale; K6 and K13 also bit for bit): K11's forward
+    (``pixel_attn.bf16``: q, Lk, Lv bfloat16, or q float32 on a float32
+    checkpoint) at c2, c3 and c4 of an eval batch of 8 images x 4 pairs, T =
+    20, and the demo's one image at T = 40; K6's bilinear forward
+    (``bilinear_resize.bf16``) at the decoder's three x2 upsamples and the
+    head's to 320 px, eval and demo; K13's eval fold with PReLU
+    (``batch_norm.bf16@prelu``: a bfloat16 or a float32 slope) at the
+    decoder's norms, planes of 100 (2-byte accesses) among them. Device ms of
+    kernel, plain version and library call (SDPA in bfloat16;
+    ``F.interpolate``; ``F.batch_norm`` then ``F.prelu``), the bound at the
+    operands' widths. Returns (rows, failures)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tris_tpu_torch.kernels import build
+
+    bf, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(22)
+    failures = []
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+
+    def row(name, got, plain, want64, *times, **extra):
+        return bf16_row(name, bf16_distances(failures, name, got, plain, want64), *times,
+                        **extra)
+
+    # K11: an eval batch's three levels in both mixes, then the demo's image at T = 40
+    k11 = []
+    cases = [(f"{lvl}@{mix}", B, S, TXT_LEN, hw, C, q_dt) for mix, q_dt in
+             (("bf16_leaves", bf), ("f32_leaves", f32)) for lvl, hw, C in S2_LEVELS]
+    cases += [(f"demo_{lvl}", 1, 1, 2 * TXT_LEN, hw, C, bf) for lvl, hw, C in S2_LEVELS[:1]]
+    for label, N, Sp, T, hw, C, q_dt in cases:
+        q = randn(N, hw, C, dtype=q_dt)
+        Lk, Lv = randn(N * Sp, T, C), randn(N * Sp, T, C)
+        args = (q, Lk, Lv, Sp)
+        with torch.no_grad():
+            got, plain = K.pixel_attn(*args), K.pixel_attn_plain(*args)
+            want64 = K.pixel_attn_plain(q.double(), Lk.double(), Lv.double(), Sp)
+        qb = 2 if q_dt == bf else 4
+        P = N * Sp
+        qs = q.to(bf)[:, None].expand(N, Sp, hw, C)
+        ks, vs = (t.reshape(N, Sp, T, C) for t in (Lk, Lv))
+        k11.append(row(f"pixel_attn.bf16@{label}", got, plain, want64,
+                       device_ms(lambda: K.pixel_attn(*args)),
+                       device_ms(lambda: K.pixel_attn_plain(*args)),
+                       qb * N * hw * C + 2 * 2 * P * T * C + qb * P * hw * C,
+                       4 * P * hw * T * C,
+                       device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+                       peak_ops=PEAK_BF16_S if q_dt == bf else PEAK_F32_S,
+                       shape=[N, Sp, hw, T, C], q_dtype=str(q_dt), out_dtype=str(got.dtype),
+                       launch_shape=K.pixel_attn_launch_shape("pixel_attn_bf16")))
+        del q, Lk, Lv, qs, ks, vs, got, plain, want64
+
+    # K6: the decoder's x2 upsamples of an eval batch's pairs, the head's to 320 px, the demo's
+    k6 = []
+    cases = [(f"{name}", (B * S, C, h, h), (2 * h, 2 * h)) for name, C, h in S2_UPSAMPLES]
+    cases += [("head", (B * S, 1, 80, 80), (SIZE, SIZE)), ("demo_head", (1, 1, 80, 80),
+                                                             (SIZE, SIZE))]
+    for label, shape, size in cases:
+        x = randn(*shape)
+        with torch.no_grad():
+            got, plain = K.bilinear_resize(x, size), K.bilinear_resize_plain(x, size)
+            want64 = K.bilinear_resize_plain(x.double(), size)
+        exact = bool(torch.equal(got, plain))
+        if not exact:
+            failures.append(f"bilinear_resize.bf16@{label}: not bit for bit its plain version")
+        n_in, n_out = x.numel(), x.numel() // (shape[2] * shape[3]) * size[0] * size[1]
+        k6.append(row(f"bilinear_resize.bf16@{label}", got, plain, want64,
+                      device_ms(lambda: K.bilinear_resize(x, size)),
+                      device_ms(lambda: K.bilinear_resize_plain(x, size)),
+                      2 * (n_in + n_out), 6 * n_out,
+                      device_ms(lambda: F.interpolate(x, size=size, mode="bilinear",
+                                                      align_corners=False)),
+                      shape=list(shape), size=list(size), exact=exact,
+                      launch_shape=K.bilinear_resize_launch_shape()))
+        del x, got, plain, want64
+
+    # K13: the eval fold with PReLU at the decoder's norms, the slope bfloat16 (the seeded
+    # init's) and float32 (a float32 checkpoint's: y float32)
+    k13 = []
+    for (name, shape), slope_dt in [(r, bf) for r in S2_PRELU_ROWS] + \
+            [(S2_PRELU_ROWS[1], f32), (S2_PRELU_ROWS[2], f32)]:
+        C = shape[1]
+        x = randn(*shape, scale=1.5)
+        w, b = 1 + 0.3 * randn(C, dtype=f32), 0.5 * randn(C, dtype=f32)
+        rm, rv = randn(C, dtype=f32), 0.5 + torch.rand(C, generator=g, device=dev)
+        slope = torch.full((1,), 0.25, device=dev).to(slope_dt)
+        kw = dict(training=False, update_stats=False, momentum=0.1, eps=1e-5, act="prelu")
+        call = lambda x=x, slope=slope: K.batch_norm_act(x, w, b, rm, rv, slope=slope, **kw)  # noqa: E731
+        plain = lambda x=x, slope=slope: K.batch_norm_act_plain(x, w, b, rm, rv, slope=slope, **kw)  # noqa: E731
+        got, want = call(), plain()
+        want64 = K.batch_norm_act_plain(x.double(), w, b, rm, rv, slope=slope.double(), **kw)
+        exact = bool(torch.equal(got, want))
+        if not exact or got.dtype != slope_dt:
+            failures.append(f"batch_norm.bf16@prelu_{name}: {got.dtype}, not bit for bit its "
+                            f"plain version ({exact})")
+        lib = lambda x=x, slope=slope: F.prelu(F.batch_norm(x, rm, rv, w, b, False, 0.1, 1e-5),  # noqa: E731
+                                               slope.to(bf))
+        n = x.numel()
+        k13.append(row(f"batch_norm.bf16@prelu_{name}_{str(slope_dt)[6:]}", got, want, want64,
+                       device_ms(call), device_ms(plain),
+                       2 * n + (2 if slope_dt == bf else 4) * n + 2 * 2 * C, 4 * n,
+                       device_ms(lib), shape=list(shape), slope_dtype=str(slope_dt),
+                       out_dtype=str(got.dtype), exact=exact,
+                       launch_shape=dict(build.ops().batch_norm_launch_shape(
+                           "batch_norm_fold_bf16"))))
+        del x, got, want, want64
+    torch.cuda.empty_cache()
+    rows = [kernel_row("pixel_attn.bf16", "tris_tpu_torch/kernels/csrc/pixel_attn.cu",
+                       "tris_tpu/models/fusion.py:37", k11[0], k11[1:]),
+            kernel_row("bilinear_resize.bf16", "tris_tpu_torch/kernels/csrc/bilinear_resize.cu",
+                       "tris_tpu/ops/resize.py:57", k6[0], k6[1:]),
+            kernel_row("batch_norm.bf16@prelu", "tris_tpu_torch/kernels/csrc/batch_norm.cu",
+                       "tris_tpu/models/layers.py:209", k13[0], k13[1:])]
+    return rows, failures
+
+
 # ---- phase 4: the main path ------------------------------------------------
 
 
@@ -2416,6 +2579,19 @@ class SyntheticEvalLoader:
 
 
 @contextlib.contextmanager
+def swapped(K, **fns):
+    """K's functions ``fns`` in place of its own for the block."""
+    saved = {name: getattr(K, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(K, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+
+
+@contextlib.contextmanager
 def plain_kernels(K, baseline: bool = False):
     """Route the models' kernel calls to the plain versions. K13 goes to its
     route reference (``batch_norm_act_reference``: the plain version on the
@@ -2433,14 +2609,8 @@ def plain_kernels(K, baseline: bool = False):
              "irn_affinity_loss": K.irn_affinity_loss_plain, "pixel_attn": K.pixel_attn_plain,
              "ema_update": K.ema_update_plain,
              "batch_norm_act": K.batch_norm_act_plain if baseline else K.batch_norm_act_reference}
-    saved = {name: getattr(K, name) for name in plain}
-    for name, fn in plain.items():
-        setattr(K, name, fn)
-    try:
+    with swapped(K, **plain):
         yield
-    finally:
-        for name, fn in saved.items():
-            setattr(K, name, fn)
 
 
 @contextlib.contextmanager
@@ -4319,6 +4489,298 @@ def bf16_train_path(K, dev, batches):
     return summary, failures
 
 
+# ---- phase 15: --bf16 stage-2 eval and the demo -----------------------------------------------
+
+# a --bf16 stage-2 eval batch's launches, by leaf regime: the text tower's K1 (bfloat16 on the
+# seeded leaves, else the float32 text stream's), K11 at c2, c3 and c4, K6 at the decoder's
+# three x2 upsamples (bfloat16, or float32 after a float32 checkpoint's PReLU) and the head's
+# to 320 px (bfloat16 in both), K13's eval fold at the trunk's 55 norms and the decoder's 9
+# (all bfloat16, the decoder's with PReLU), the u8 feed and K4 in float32
+BF16_EVAL2_LAUNCHES_PER_BATCH = {
+    "bf16_leaves": {"mha_short.bf16": 12, "pixel_attn.bf16": 3, "bilinear_resize.bf16": 4,
+                    "normalize_u8": 1, "eval_metrics": 1},
+    "f32_leaves": {"mha_short": 12, "pixel_attn.bf16": 3, "bilinear_resize": 3,
+                   "bilinear_resize.bf16": 1, "normalize_u8": 1, "eval_metrics": 1}}
+S2_PRELU_PER_FORWARD = 9  # the decoder's ConvBNRelus of an eval forward (no side heads)
+# Stage 2's maps in bfloat16 are chaotic. The text tower's float32 softmax and P V (K1: the
+# float32 causal mask promotes the bfloat16 logits) differ by a float32 ulp between any two
+# evaluations of the same arithmetic; the next Dense rounds them to bfloat16, and the flips
+# spread through the tower, the three PixelAttentions and the decoder. Swapping one kernel
+# at a time (H100 80GB HBM3): the plain route with K1 alone launched lies 1.40 of the
+# bf16-f32 gap from the plain route at its max, with K11 alone 0.30, K6 and K13 0 (bit for
+# bit); K1's output lies as near a float64 evaluation of its arithmetic as its plain
+# version's, and the plain route with K1's sums in float64 lies 1.0-1.2 from the plain route.
+# So the spread is measured on the plain route itself, re-evaluated five ways, each the
+# float32 arithmetic with its bfloat16 rounding points and other float32 sums: cuDNN off
+# (PyTorch's own convolutions); K1's sums in float64, each result rounded once where jnp
+# rounds it (``mha_short_exact``), or its float32 softmax and P V rounded once at the end;
+# K1's and K11's (``pixel_attn_exact``), with cuDNN on and off. The kernel route's distance
+# from the plain route, max and mean, within BF16_SPREAD_SHARE of the farthest of those; and
+# at least BF16_MAPS_SHARE of the
+# gap from the float32 maps, max and mean, which a route that computes in float32 does not
+# reach: the float32 maps go through the same bars and must fail them.
+BF16_SPREAD_SHARE = 1.25
+
+
+def softmax_exact(x):
+    """``jax.nn.softmax`` over the last axis in x's dtype, each op (x - max,
+    exp, the sum, the quotient) evaluated in float64 and rounded once to it."""
+    dt = x.dtype
+    x = x.double()
+    e = (x - x.amax(dim=-1, keepdim=True)).to(dt).double().exp().to(dt).double()
+    return (e / e.sum(dim=-1, keepdim=True).to(dt).double()).to(dt)
+
+
+def mha_short_exact(q, k, v, n_head, attn_mask=None, once: bool = False):
+    """K1's plain version with every sum in float64, each result rounded once
+    where jnp rounds it: the scaled q and the logits to q's dtype, the masked
+    logits to the mask's promotion, the softmax's ops, P V. With ``once``,
+    the softmax and P V in float64 and only their result rounded (the
+    float32 output correctly rounded)."""
+    import torch
+
+    from tris_tpu_torch.ops.dtypes import promote, weak
+
+    N, Lq, C = q.shape
+    hd = C // n_head
+    dt = promote(q, k, v)
+    qh, kh, vh = (x.double().reshape(N, -1, n_head, hd).transpose(1, 2) for x in (q, k, v))
+    qh = (qh * weak(hd ** -0.5, dt)).to(dt).double()
+    logits = torch.einsum("nhqd,nhkd->nhqk", qh, kh).to(dt)
+    if attn_mask is not None:
+        dt = promote(logits, attn_mask)
+        logits = (logits.double() + attn_mask.double()).to(dt)
+    p = torch.softmax(logits.double(), dim=-1) if once else softmax_exact(logits).double()
+    out = torch.einsum("nhqk,nhkd->nhqd", p, vh).to(dt)
+    return out.transpose(1, 2).reshape(N, Lq, C)
+
+
+def pixel_attn_exact(q, Lk, Lv, S: int):
+    """K11's plain version with every sum in float64, each result rounded
+    once where jnp rounds it: the logits, ``/ sqrt(Ci)``, the softmax's ops,
+    G."""
+    import torch
+
+    from tris_tpu_torch.ops.dtypes import promote, weak
+
+    N, HW, Ci = q.shape
+    T = Lk.shape[1]
+    dt = promote(q, Lk, Lv)
+    Lk, Lv = (x.double().reshape(N, S, T, Ci) for x in (Lk, Lv))
+    logits = torch.einsum("npc,nstc->nspt", q.double(), Lk).to(dt).double()
+    logits = (logits / weak(math.sqrt(Ci), dt)).to(dt)
+    G = torch.einsum("nspt,nstc->nspc", softmax_exact(logits).double(), Lv).to(dt)
+    return G.reshape(N * S, HW, Ci)
+
+
+S2_ROUTE_KERNELS = {"K1": "mha_short", "K11": "pixel_attn", "K6": "bilinear_resize",
+                    "K13": "batch_norm_act"}
+
+
+def maps_bars(got, plain, witnesses, ref32) -> dict:
+    """``got``'s distances (max and mean) from the plain route, against the
+    farthest of the plain route's re-evaluations ``witnesses`` (the spread),
+    and from the float32 maps ``ref32``, against the gap (the plain route's
+    distance from them); ``ok`` where both bars above hold."""
+    dist = lambda a, b: (float((a - b).abs().max()), float((a - b).abs().mean()))  # noqa: E731
+    spreads = {name: dist(w, plain) for name, w in witnesses.items()}
+    spread, mean_spread = (max(d[i] for d in spreads.values()) for i in (0, 1))
+    (gap, mean_gap), (err, mean_err), (away, mean_away) = (
+        dist(plain, ref32), dist(got, plain), dist(got, ref32))
+    ok = (gap > 0 and err <= BF16_SPREAD_SHARE * spread
+          and mean_err <= BF16_SPREAD_SHARE * mean_spread
+          and away >= BF16_MAPS_SHARE * gap and mean_away >= BF16_MAPS_SHARE * mean_gap)
+    return {"ok": ok, "max_err": err, "mean_err": mean_err, "spread": spread,
+            "mean_spread": mean_spread, "spreads": spreads, "away_from_f32": away,
+            "mean_away_from_f32": mean_away, "gap": gap, "mean_gap": mean_gap,
+            "share_of_gap": err / gap if gap else None,
+            "mean_share_of_gap": mean_err / mean_gap if mean_gap else None}
+
+
+def route_distances(K, what, failures, run, got, ref32):
+    """``got`` (the kernel route's ``run()``) at the bars above, against the
+    plain bfloat16 route's ``run()`` and its five re-evaluations, and the
+    float32 maps ``ref32``, which must fail the same bars (the control); with
+    each kernel's share of the gap (the plain route with that kernel alone
+    launched). A failure noted where a bar does not hold or the control
+    passes. Returns the numbers."""
+    import torch
+
+    kernels = {tag: getattr(K, name) for tag, name in S2_ROUTE_KERNELS.items()}
+    cpu = lambda t: t.double().cpu()  # noqa: E731
+    with torch.no_grad():
+        with plain_kernels(K):
+            plain = cpu(run())
+            with torch.backends.cudnn.flags(enabled=False):
+                witnesses = {"cudnn_off": cpu(run())}
+            with swapped(K, mha_short=functools.partial(mha_short_exact, once=True)):
+                witnesses["exact_K1_once"] = cpu(run())
+            with swapped(K, mha_short=mha_short_exact):
+                witnesses["exact_K1"] = cpu(run())
+                with swapped(K, pixel_attn=pixel_attn_exact):
+                    witnesses["exact_K1_K11"] = cpu(run())
+                    with torch.backends.cudnn.flags(enabled=False):
+                        witnesses["exact_K1_K11_cudnn_off"] = cpu(run())
+            alone = {}
+            for tag, name in S2_ROUTE_KERNELS.items():
+                with swapped(K, **{name: kernels[tag]}):
+                    alone[tag] = cpu(run())
+    got, ref32 = cpu(got), cpu(ref32)
+    d = maps_bars(got, plain, witnesses, ref32)
+    d["kernel_alone_share_of_gap"] = {
+        tag: [float((m - plain).abs().max()) / d["gap"],
+              float((m - plain).abs().mean()) / d["mean_gap"]]
+        for tag, m in alone.items()} if d["gap"] and d["mean_gap"] else None
+    d["f32_control"] = control = maps_bars(ref32, plain, witnesses, ref32)
+    if not d["ok"]:
+        failures.append(f"{what}: {d} past the bars (within {BF16_SPREAD_SHARE} x the spread "
+                        f"of the plain route, {BF16_MAPS_SHARE} x the gap from the float32 "
+                        "maps)")
+    if control["ok"]:
+        failures.append(f"{what}: the float32 maps pass the bars: {control}")
+    return d
+
+
+def bf16_stage2_path(K, dev, batches):
+    """``--bf16`` stage 2 at full width (RN50 stage 2, text 512 x 12, 20 tokens,
+    320 px) on phase 4's eval batches of 8 x 4, in both leaf regimes: the seeded
+    bfloat16 init (31 + 4 leaf kinds bfloat16 at RN50: the backbone's, the
+    InstanceNorms', the PReLU slopes) and the float32 model's weights loaded
+    (every leaf float32, as ``--pretrain`` of a float32 checkpoint). Per regime:
+    ``validate`` under reset counters (each route's launches by name and dtype,
+    exactly: ``BF16_EVAL2_LAUNCHES_PER_BATCH`` and K13's 55 eval folds and 9
+    with PReLU a batch in bfloat16, the PReLU slopes in the regime's dtype; no
+    float32 K11 or K13); ``response_maps`` of one batch at the bars above
+    (:func:`route_distances`); the metrics beside
+    float32's; ``validate``'s host ms a batch, bfloat16 against float32,
+    alternating over ``ROUNDS``. Then ``demo_cam`` (``cli/demo.py``) on phase
+    10's 480 x 640 image with two phrases (40 tokens) under reset counters (K1
+    12, K6 4, K11 3, K13 55 + 9 a forward) at the same bars, on the head's sign that gives a nonzero map (phase 10's rule)."""
+    import torch
+    from PIL import Image
+
+    from tris_tpu_torch.ckpt.io import load_state
+    from tris_tpu_torch.cli import demo
+    from tris_tpu_torch.eval.validate import image_to_nchw, validate
+    from tris_tpu_torch.models.layers import PReLU
+    from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
+
+    model32 = build_stage2(dev).eval()
+    cfg = Stage2Config(backbone="RN50", txt_length=TXT_LEN)
+    loader = SyntheticEvalLoader(batches)
+    image = image_to_nchw(torch.as_tensor(batches[0]["image"], device=dev))
+    ids = torch.as_tensor(batches[0]["word_ids"], device=dev)
+    quiet = lambda *a: None  # noqa: E731
+    bn_per_batch = sum(bn_launches()["stage2_eval"].values())
+    failures, summary = [], {}
+    with tempfile.TemporaryDirectory() as root:
+        h, w = DEMO_SIZE
+        img_path = os.path.join(root, "demo.jpg")
+        rng = np.random.default_rng(11)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(img_path)
+        with torch.no_grad():
+            # the seeded head's demo map is of one sign; where it is all negative (nothing to
+            # normalise), its last 1x1 conv is negated, as phase 10 does (the bfloat16 models
+            # below take the float32 one's sign)
+            img, dids, _, _, _ = demo.prepare_data(img_path, DEMO_TEXT)
+            negate = float(model32(image_to_nchw(torch.as_tensor(img[None], device=dev)),
+                                   torch.as_tensor(dids[None], device=dev)).max()) <= 0
+            if negate:
+                model32.final_seg1[-1].weight.neg_()
+            validate(model32, loader, with_boxes=False, log=quiet)  # warm-up
+            res32 = validate(model32, loader, with_boxes=False, log=quiet)
+            maps32 = model32.response_maps(image, ids)
+            cam32 = demo.demo_cam(model32, img_path, DEMO_TEXT)
+            for leaves in ("bf16_leaves", "f32_leaves"):
+                with torch.random.fork_rng(devices=[]):
+                    torch.manual_seed(0)
+                    model = TRISStage2(cfg, torch.bfloat16).to(dev).eval()
+                if leaves == "f32_leaves":
+                    load_state(model, model32.state_dict())
+                elif negate:
+                    model.final_seg1[-1].weight.neg_()
+                n_bf16 = sum(t.dtype == torch.bfloat16 for t in model.state_dict().values())
+                slope_dt = "bfloat16" if leaves == "bf16_leaves" else "float32"
+                validate(model, loader, with_boxes=False, log=quiet)  # warm-up
+                torch.cuda.synchronize()
+                K.reset_launches()
+                res = validate(model, loader, with_boxes=False, log=quiet)
+                torch.cuda.synchronize()
+                launches = {k: n for k, n in K.launches.items() if n}
+                want = {k: n * len(batches)
+                        for k, n in BF16_EVAL2_LAUNCHES_PER_BATCH[leaves].items()}
+                want["batch_norm.bf16"] = (bn_per_batch - S2_PRELU_PER_FORWARD) * len(batches)
+                want["batch_norm.bf16@prelu"] = S2_PRELU_PER_FORWARD * len(batches)
+                if launches != want:
+                    failures.append(f"bf16 stage 2 {leaves}: launched {launches}, want {want}")
+                slopes = sorted({str(m.weight.dtype)[6:] for m in model.modules()
+                                 if isinstance(m, PReLU)})
+                if slopes != [slope_dt]:
+                    failures.append(f"bf16 stage 2 {leaves}: PReLU slopes {slopes}, want "
+                                    f"{slope_dt}")
+                maps = model.response_maps(image, ids)
+                if not (maps.dtype == torch.bfloat16 and tuple(maps.shape) == (B, S, SIZE, SIZE)
+                        and bool(torch.isfinite(maps).all())):
+                    failures.append(f"bf16 stage 2 {leaves}: maps {maps.dtype} "
+                                    f"{tuple(maps.shape)}, finite {bool(torch.isfinite(maps).all())}")
+                maps_d = route_distances(K, f"bf16 stage 2 {leaves} maps", failures,
+                                         lambda: model.response_maps(image, ids), maps, maps32)
+                if not all(0.0 <= res[k] <= 100.0 for k in ("mIoU", "oIoU", "hit", "hitm")):
+                    failures.append(f"bf16 stage 2 {leaves}: metrics out of range: {res}")
+                times = {"bf16": [], "f32": []}
+                for _ in range(ROUNDS):
+                    for route, m in (("bf16", model), ("f32", model32)):
+                        times[route].append(host_ms(lambda: validate(
+                            m, loader, with_boxes=False, log=quiet)) / len(batches))
+                summary[leaves] = {
+                    "bf16_leaves": n_bf16, "launches": launches, "launches_expected": want,
+                    "prelu_slope_dtypes": slopes,
+                    "maps_bars": maps_d, "map_scale": float(maps32.abs().max()),
+                    "metrics": {k: res[k] for k in ("mIoU", "oIoU", "hit", "hitm")},
+                    "validate_host_ms_per_batch": {r: spread(t) for r, t in times.items()}}
+                if leaves == "bf16_leaves":
+                    # the demo's compute on the seeded bfloat16 model
+                    demo.demo_cam(model, img_path, DEMO_TEXT)  # warm-up
+                    torch.cuda.synchronize()
+                    K.reset_launches()
+                    cam = demo.demo_cam(model, img_path, DEMO_TEXT)
+                    torch.cuda.synchronize()
+                    demo_launches = {k: n for k, n in K.launches.items() if n}
+                    # one forward: the float image takes no u8 feed, the map no K4
+                    demo_want = {"mha_short.bf16": 12, "pixel_attn.bf16": 3,
+                                 "bilinear_resize.bf16": 4,
+                                 "batch_norm.bf16": bn_per_batch - S2_PRELU_PER_FORWARD,
+                                 "batch_norm.bf16@prelu": S2_PRELU_PER_FORWARD}
+                    if demo_launches != demo_want:
+                        failures.append(f"bf16 demo: launched {demo_launches}, want {demo_want}")
+                    cam_d = route_distances(
+                        K, "bf16 demo norm_cam", failures,
+                        lambda: torch.from_numpy(demo.demo_cam(model, img_path, DEMO_TEXT)),
+                        torch.from_numpy(cam), torch.from_numpy(cam32))
+                    summary["demo"] = {"size": [h, w], "text": DEMO_TEXT,
+                                       "launches": demo_launches,
+                                       "norm_cam_bars": cam_d,
+                                       "positive_share": float((cam > 0).mean()),
+                                       "host_ms": {"bf16": host_ms(lambda: demo.demo_cam(
+                                           model, img_path, DEMO_TEXT)),
+                                           "f32": host_ms(lambda: demo.demo_cam(
+                                               model32, img_path, DEMO_TEXT))}}
+                    if cam.shape != (h, w) or not np.isfinite(cam).all() or not cam.max() > 0:
+                        failures.append(f"bf16 demo: want a finite, nonzero [{h}, {w}] norm_cam, "
+                                        f"got {cam.shape}, max {cam.max()}")
+                    summary["demo"]["launches_expected"] = demo_want
+                del model
+                torch.cuda.empty_cache()
+    summary["f32"] = {"metrics": {k: res32[k] for k in ("mIoU", "oIoU", "hit", "hitm")}}
+    summary["model"] = ("RN50 stage 2 in bfloat16 (text 512 x 12, 20 tokens, 320 px), seeded "
+                        "(seed 0) or the float32 model's weights loaded; final_seg1's last conv "
+                        f"negated: {negate}")
+    del model32
+    torch.cuda.empty_cache()
+    log(f"bf16 stage 2: {json.dumps(summary)}")
+    return summary, failures
+
+
 def run_cli(args, timeout):
     """``python -m <args>`` from the checkout's root: (seconds, return code,
     its output)."""
@@ -4336,7 +4798,9 @@ def cli_chain():
     passes (CRF ir labels, IRN training at crop 512 and radius 10, the
     instance pseudo-masks), ``cli.train_stage2 --model_ema`` (one epoch) on
     those pseudo-masks and ``cli.validate --stage 2`` on its best
-    checkpoint. Checks the files each leaves. The tree is the
+    checkpoint, then ``cli.validate --stage 2 --bf16`` on the same checkpoint
+    (after ``cli.validate --prms --bf16`` on stage 1's). Checks the files each
+    leaves. The tree is the
     test suite's fixture (``tests/fixtures.py``, numpy and PIL only),
     loaded from its file: another installed package may be named
     ``tests``."""
@@ -4386,6 +4850,10 @@ def cli_chain():
             ("validate_stage2", ["tris_tpu_torch.cli.validate", *common, "--test_split", "val",
                                  "--stage", "2", "--eval_batch", "2", "--fast_eval", "--pretrain",
                                  os.path.join(out, "stage2", "ckpt_320_epoch_0_best.pth")]),
+            ("validate_stage2_bf16", ["tris_tpu_torch.cli.validate", *common, "--test_split",
+                                      "val", "--stage", "2", "--bf16", "--eval_batch", "2",
+                                      "--fast_eval", "--pretrain",
+                                      os.path.join(out, "stage2", "ckpt_320_epoch_0_best.pth")]),
         ]
         logs = {}
         for name, args in steps:
@@ -4400,6 +4868,10 @@ def cli_chain():
             os.listdir(os.path.join(out, "stage2")))} if os.path.isdir(
             os.path.join(out, "stage2")) else {}
         s2_val = [ln for ln in logs.get("validate_stage2", "").splitlines() if "[val]" in ln]
+        s2_bf16_val = [ln for ln in logs.get("validate_stage2_bf16", "").splitlines()
+                       if "[val]" in ln]
+        if not s2_bf16_val:
+            failures.append("chain: validate --stage 2 --bf16 logged no [val] line")
         bf16_val = [ln for ln in logs.get("validate_prms_bf16", "").splitlines()
                     if "[train]" in ln]
         if not bf16_val:
@@ -4426,7 +4898,8 @@ def cli_chain():
                "ins_seg_dicts": len(files["ins_seg"]), "ir_label_values": sorted(values),
                "irn_weights_written": pth, "stage2_read_pseudo_masks": read_pseudo,
                "stage2_files_bytes": s2_files, "validate_stage2_log": s2_val[-1:],
-               "validate_prms_bf16_log": bf16_val[-1:]}
+               "validate_prms_bf16_log": bf16_val[-1:],
+               "validate_stage2_bf16_log": s2_bf16_val[-1:]}
     log(f"chain: {json.dumps(summary)}")
     return summary, failures
 
@@ -4495,6 +4968,9 @@ def main(argv=None) -> int:
         r["shapes"] += bf16_train_extra.get(r["name"], [])
     rows += bf16_train_rows
     failures += bf16_train_kernel_failures
+    bf16_s2_rows, bf16_s2_kernel_failures = check_bf16_stage2_kernels(K, dev)
+    rows += bf16_s2_rows
+    failures += bf16_s2_kernel_failures
 
     # 4. stage-1 eval and 5. PRMS, on one stage-1 model and one set of batches
     model = build_stage1(dev)
@@ -4555,9 +5031,14 @@ def main(argv=None) -> int:
     failures += bf16_train_failures
     torch.cuda.empty_cache()
 
+    # 15. --bf16: stage-2 eval and the demo in bfloat16, both leaf regimes
+    bf16_s2, bf16_s2_failures = bf16_stage2_path(K, dev, batches)
+    failures += bf16_s2_failures
+
     # launches: on the stage-1 train path for its kernels (all but K3's eval
     # half and K4), else on the PRMS path, else on the ins-seg path, else on
-    # the IRN training path, else on the stage-2 train path; per path beside
+    # the IRN training path, else on the stage-2 train path, else on the bfloat16
+    # paths (phases 14, 13, 15); per path beside
     by_shape = prms["mha_short_launches_by_shape"]
     for row in rows:
         name = row["name"]
@@ -4571,10 +5052,14 @@ def main(argv=None) -> int:
                  **{f"bf16_{leaves}": bf16[leaves]["launches"].get(name, 0)
                     for leaves in ("bf16_leaves", "f32_leaves")},
                  **{f"bf16_train_{regime}": bf16_train[regime]["launches"].get(name, 0)
-                    for regime in ("seeded", "pretrain", "clip")}}
+                    for regime in ("seeded", "pretrain", "clip")},
+                 **{f"bf16_stage2_{leaves}": bf16_s2[leaves]["launches"].get(name, 0)
+                    for leaves in ("bf16_leaves", "f32_leaves")},
+                 "bf16_demo": bf16_s2["demo"]["launches"].get(name, 0)}
         row["launches"] = (paths["stage1_train"] or paths["prms"] or paths["ins_seg"]
                            or paths["irn_train"] or paths["stage2_train"]
-                           or paths["bf16_train_seeded"] or paths["bf16_bf16_leaves"])
+                           or paths["bf16_train_seeded"] or paths["bf16_bf16_leaves"]
+                           or paths["bf16_stage2_bf16_leaves"])
         row["launches_by_path"] = paths
         for sub in row["shapes"]:
             if name == "mha_short":
@@ -4589,7 +5074,7 @@ def main(argv=None) -> int:
                        "stage1_train": train, "ins_seg": ins_seg, "irn_train": irn,
                        "chain": chain, "stage2": stage2, "referit": referit,
                        "native": native_summary, "dp": dp, "bf16": bf16,
-                       "bf16_train": bf16_train}, f, indent=1,
+                       "bf16_train": bf16_train, "bf16_stage2": bf16_s2}, f, indent=1,
                       default=str)
     if failures:
         fail("; ".join(failures))

@@ -61,6 +61,7 @@ from tris_tpu_torch.eval.validate import validate, validate_prms
 from tris_tpu_torch.models import clip as tclip, layers as tlayers
 from tris_tpu_torch.models.fusion import BilateralPrompt
 from tris_tpu_torch.models.stage1 import Stage1Config, TRISStage1
+from tris_tpu_torch.models.stage2 import Stage2Config
 
 torch.set_num_threads(2)
 
@@ -369,20 +370,26 @@ def _args(*extra):
 
 
 def test_bf16_refused_outside_stage1_eval(tmp_path, monkeypatch):
-    # --bf16 builds stage 1 for eval, ReferIt and training on one process;
-    # stage 2, the demo and training over several processes raise, naming
-    # what --bf16 covers
+    # --bf16 builds stage 1 for eval, ReferIt and training on one process, and stage 2 for
+    # eval and the demo; stage-2 training and training over several processes raise,
+    # naming what --bf16 covers
     args = _args("--hidden_dim", "32")
     args.clip_weights = None
-    with pytest.raises(NotImplementedError, match="covers stage-1 eval, PRMS.*stage 2"):
-        common.build_stage2(args)
-    with pytest.raises(NotImplementedError, match="covers stage-1 eval, PRMS.*the demo"):
-        demo.main(_args("--img", "x.jpg", "--text", "a"))
+    with pytest.raises(NotImplementedError, match="covers stage-1 eval, PRMS.*stage-2 training"):
+        common.build_stage2(args, train=True)
     monkeypatch.setattr(common, "rank_world", lambda: (0, 2))
     with pytest.raises(NotImplementedError, match="stage-1 training over 2 processes with --bf16"):
         common.build_stage1(args, train=True)
     assert "stage-1 eval, PRMS and ReferIt eval" in common.BF16_SCOPE
     assert "stage-1 training on one process" in common.BF16_SCOPE
+    assert "stage-2 eval and the demo (cli.validate --stage 2, cli.demo)" in common.BF16_SCOPE
+    # stage-2 eval and the demo no longer raise (their parity: tests/test_torch_bf16_stage2.py):
+    # at the tiny config the model builds in bfloat16, and the demo gets as far as the image
+    monkeypatch.setattr(common, "Stage2Config", lambda **kw: dataclasses.replace(
+        Stage2Config(clip_override=TINY), txt_length=kw["txt_length"]))
+    assert common.build_stage2(args).reduced_c1.relu.weight.dtype == torch.bfloat16
+    with pytest.raises(FileNotFoundError):
+        demo.main(_args("--img", str(tmp_path / "missing.jpg"), "--text", "a"))
 
 
 def test_cli_builds_bf16_stage1(monkeypatch):

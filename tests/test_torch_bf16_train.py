@@ -83,6 +83,7 @@ from tris_tpu_torch.kernels.stage1_head import stage1_head_plain
 from tris_tpu_torch.models import clip as tclip, layers as tlayers
 from tris_tpu_torch.models.fusion import BilateralPrompt
 from tris_tpu_torch.models.stage1 import Stage1Config, TRISStage1
+from tris_tpu_torch.models.stage2 import Stage2Config
 from tris_tpu_torch.train.stage1 import Stage1LossWeights, batch_to_device, stage1_loss, train_step
 from tris_tpu_torch.train.state import apply_gradients, make_optimizer
 
@@ -702,12 +703,15 @@ def _args(*extra):
 
 
 def test_bf16_still_refused(monkeypatch, tmp_path):
-    # stage 2, the demo and bfloat16 training over several ranks raise, naming what --bf16 covers
+    # stage-2 training and bfloat16 training over several ranks raise, naming what --bf16
+    # covers; the demo, now covered, gets past its model to the image (tiny stage 2)
     args = _args("--hidden_dim", "32")
-    with pytest.raises(NotImplementedError, match="stage-1 eval.*stage 2 with --bf16"):
-        common.build_stage2(args)
-    with pytest.raises(NotImplementedError, match="stage-1 training on one process.*the demo"):
-        demo.main(_args("--img", "x.jpg", "--text", "a"))
+    with pytest.raises(NotImplementedError, match="stage-1 eval.*stage-2 training with --bf16"):
+        common.build_stage2(args, train=True)
+    monkeypatch.setattr(common, "Stage2Config", lambda **kw: dataclasses.replace(
+        Stage2Config(clip_override=TINY), txt_length=kw["txt_length"]))
+    with pytest.raises(FileNotFoundError):
+        demo.main(_args("--img", str(tmp_path / "x.jpg"), "--text", "a"))
     monkeypatch.setattr(common, "rank_world", lambda: (0, 2))
     with pytest.raises(NotImplementedError, match="stage-1 training over 2 processes with "
                                                   "--bf16 is not ported"):

@@ -53,7 +53,12 @@ layouts it refuses; its forward against the route reference bit for bit
 (but for channels whose statistics round apart). ``--bf16``'s four kernels
 (K1's, K2's and K3's eval head's bfloat16 forwards, K13's bfloat16 eval fold)
 at odd shapes and both leaf regimes' operand dtypes, against their plain
-versions from float64 (K13's bit for bit), and the combinations they refuse.
+versions from float64 (K13's bit for bit), and the combinations they refuse;
+stage 2's bfloat16 forwards (K11 at T = 1 and 48, C not a multiple of 8 or
+of 4, S > 1 and sub-slices, bfloat16 or float32 q; K6 bit for bit at odd
+sizes, both align_corners, staged and direct; K13's eval fold with PReLU at
+planes of 100 and a bfloat16 or a float32 slope, bit for bit) and the mixes
+they refuse before any launch.
 One test is static and runs
 anywhere: each differentiable wrapper's CUDA branch goes through its
 ``torch.autograd.Function``.
@@ -1234,7 +1239,7 @@ def test_irnet_kernels_refuse(dev):
     with pytest.raises(ValueError, match="bad shapes"):
         K.walk_matmul(torch.zeros(4, 12, device=dev), torch.zeros(12, 8, device=dev))
     with pytest.raises(TypeError, match="float32"):
-        K.bilinear_resize(x.bfloat16(), (16, 16))
+        K.bilinear_resize(x.half(), (16, 16))  # bfloat16 is --bf16's: see below
     with pytest.raises(TypeError, match="float32"):
         K.path_max_affinity(x.bfloat16(), _path_index(3, (8, 8)).paths_by_length, 2)
     with pytest.raises(TypeError, match="float32"):
@@ -2091,8 +2096,8 @@ def test_response_head_bf16(randn, new, P, S, hw, D, H):
 
 def test_bf16_wrappers_refuse(randn):
     # combinations the kernels do not take raise in Python, naming the dtypes they take; the
-    # eval fold is forward only, PReLU takes no bfloat16, nor does K2's backward past one key
-    # block or K3's head with a float32 lan_p
+    # eval fold is forward only, PReLU in training takes no bfloat16, nor does K2's backward
+    # past one key block or K3's head with a float32 lan_p
     bf = torch.bfloat16
     q = randn(2, 8, 64)
     mask = causal_mask(8, device=q.device)
@@ -2256,3 +2261,90 @@ def test_stage1_head_bf16(randn, vis_dtype, B, T, hw, out, D, tie):
         score = torch.einsum("bpc,bqc->bpq", vis.double(), lan.double())
         top = score.amax(dim=1, keepdim=True)
         assert int(((score == top).sum(dim=1) == 3).sum()) > 0, "no three-way tie planted"
+
+
+# --bf16 stage-2 eval: K11's forward, K6's bilinear forward and K13's eval fold with PReLU on
+# the operands of both leaf regimes
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,S,HW,T,C", [(2, 1, 37, 1, 64), (1, 2, 50, 48, 36),
+                                        (2, 4, 100, 20, 60), (1, 1, 33, 40, 30),
+                                        (1, 2, 33, 5, 2056)])
+def test_pixel_attn_bf16(randn, q_dtype, N, S, HW, T, C):
+    # bfloat16 Lk, Lv with bfloat16 q (G bfloat16) or float32 q (G float32): one token and
+    # the forward's 48, C % 8 != 0 (36, 60: 16-byte loads) and C % 4 != 0 (30: 4-byte
+    # ones), S > 1 pairs on one image, sub-slices past 2048 channels; within the plain
+    # version's distance from float64
+    q = randn(N, HW, C).to(q_dtype)
+    Lk, Lv = (randn(N * S, T, C).bfloat16() for _ in range(2))
+    before = (K.launches["pixel_attn.bf16"], K.launches["pixel_attn"])
+    got = K.pixel_attn(q, Lk, Lv, S)
+    assert (K.launches["pixel_attn.bf16"], K.launches["pixel_attn"]) == (before[0] + 1, before[1])
+    assert got.dtype == q_dtype
+    want64 = K.pixel_attn_plain(q.double(), Lk.double(), Lv.double(), S)
+    _within_plain(got, K.pixel_attn_plain(q, Lk, Lv, S), want64)
+    assert K.pixel_attn_launch_shape("pixel_attn_bf16")["t_bucket"] >= T
+
+
+@pytest.mark.parametrize("shape,size,align_corners", [
+    ((32, 64, 40, 40), (80, 80), False),   # the decoder's last x2
+    ((1, 1, 80, 80), (320, 320), False),   # the demo's head
+    ((3, 5, 7, 9), (13, 22), False),       # sizes not a multiple of 4
+    ((3, 5, 7, 9), (13, 22), True),
+    ((2, 3, 60, 80), (30, 37), True),      # a downscale: the direct path
+])
+def test_bilinear_resize_bf16(randn, shape, size, align_corners):
+    # bit for bit the plain version (taps rounded to bfloat16, each sum rounded to bfloat16)
+    x = randn(*shape).bfloat16()
+    before = K.launches["bilinear_resize.bf16"]
+    got = K.bilinear_resize(x, size, align_corners)
+    assert K.launches["bilinear_resize.bf16"] == before + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got, K.bilinear_resize_plain(x, size, align_corners))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 10, 10), (3, 5, 8, 8), (1, 3, 7, 9)])
+@pytest.mark.parametrize("slope_dtype", [torch.bfloat16, torch.float32])
+def test_batch_norm_fold_prelu_bf16(randn, shape, slope_dtype):
+    # planes of 100 and 63 (2-byte accesses) and of 64 (16-byte); a bfloat16 slope gives
+    # bfloat16 y, a float32 one float32 y: bit for bit the plain version
+    C = shape[1]
+    x = (2 * randn(*shape)).bfloat16()
+    w, b, rm, rv = 1 + 0.3 * randn(C), 0.5 * randn(C), randn(C), 0.5 + randn(C).abs()
+    slope = torch.full((1,), 0.25, device=x.device, dtype=slope_dtype) - 0.3 * randn(1).to(
+        slope_dtype)
+    kw = dict(training=False, update_stats=False, momentum=0.1, eps=1e-5, act="prelu",
+              slope=slope)
+    before = K.launches["batch_norm.bf16@prelu"]
+    got = K.batch_norm_act(x, w, b, rm, rv, **kw)
+    assert K.launches["batch_norm.bf16@prelu"] == before + 1 and got.dtype == slope_dtype
+    assert torch.equal(got, K.batch_norm_act_plain(x, w, b, rm, rv, **kw))
+    assert bool((got < 0).any())  # the slope's branch taken
+
+
+def test_bf16_stage2_wrappers_refuse(randn):
+    # the mixes the stage-2 instances do not take raise in Python before any launch: K11
+    # with float32 keys beside a bfloat16 q, or with a gradient; K6 on float16 or with a
+    # gradient; K13's fold with a float16 slope or a residual before PReLU
+    bf = torch.bfloat16
+    before = dict(K.launches)
+    q, k = randn(2, 9, 16), randn(2, 3, 16)
+    with pytest.raises(TypeError, match="takes dtypes"):
+        K.pixel_attn(q.to(bf), k, k, 1)
+    with pytest.raises(ValueError, match="takes no gradient"):
+        K.pixel_attn(q.to(bf).requires_grad_(), k.to(bf), k.to(bf), 1)
+    x = randn(2, 3, 5, 5)
+    with pytest.raises(TypeError, match="takes dtypes"):
+        K.bilinear_resize(x.half(), (10, 10))
+    with pytest.raises(ValueError, match="takes no gradient"):
+        K.bilinear_resize(x.to(bf).requires_grad_(), (10, 10))
+    w = randn(3)
+    kw = dict(training=False, update_stats=False, momentum=0.1, eps=1e-5, act="prelu")
+    with pytest.raises(TypeError, match="takes dtypes"):
+        K.batch_norm_act(x.to(bf), w, w, w, w.abs(), slope=torch.ones(1, device=x.device).half(),
+                         **kw)
+    with pytest.raises(ValueError, match="no residual before a PReLU"):
+        K.batch_norm_act(x.to(bf), w, w, w, w.abs(), slope=torch.ones(1, device=x.device),
+                         residual=x.to(bf), **kw)
+    assert dict(K.launches) == before
+

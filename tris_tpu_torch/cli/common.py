@@ -6,7 +6,8 @@ stage models from ``--seed``) without touching the global RNG, and
 ``--clip_weights`` loads OpenAI's released CLIP into their backbone.
 ``--bf16`` builds stage 1 in bfloat16 (the JAX package's
 ``TRISStage1(cfg, dtype=bfloat16)``) for eval, PRMS, ReferIt and training on
-one process; elsewhere it raises, naming what it covers (:data:`BF16_SCOPE`).
+one process, and stage 2 (``TRISStage2(cfg, dtype=bfloat16)``) for eval and
+the demo; elsewhere it raises, naming what it covers (:data:`BF16_SCOPE`).
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
 from tris_tpu_torch.parallel import init_process_group, rank_world
 
 CRITIC_SEED = 7  # the critic's random init, fixed as in the JAX package
-# what --bf16 covers in this package; the JAX package's bf16 stage 2, the demo and bf16
+# what --bf16 covers in this package; the JAX package's bf16 stage-2 training and bf16
 # training over several processes are not ported
-BF16_SCOPE = ("stage-1 eval, PRMS and ReferIt eval (cli.validate --stage 1) and stage-1 "
-              "training on one process (cli.train_stage1)")
+BF16_SCOPE = ("stage-1 eval, PRMS and ReferIt eval (cli.validate --stage 1), stage-2 eval "
+              "and the demo (cli.validate --stage 2, cli.demo) and stage-1 training on one "
+              "process (cli.train_stage1)")
 
 
 def refuse_bf16(args, what: str) -> None:
@@ -124,10 +126,13 @@ def build_stage1(args, device=None, train: bool = False) -> TRISStage1:
 
 
 def build_stage2(args, device=None, train: bool = False) -> TRISStage2:
-    """A ``TRISStage2`` as :func:`build_stage1` builds stage 1 (float32 only)."""
-    refuse_bf16(args, "stage 2")
+    """A ``TRISStage2`` as :func:`build_stage1` builds stage 1; with
+    ``--bf16`` in bfloat16 for eval only (stage-2 training raises)."""
+    if train:
+        refuse_bf16(args, "stage-2 training")
     cfg = Stage2Config(backbone=backbone_name(args), txt_length=args.max_query_len)
-    return _build(args, device, train, lambda: TRISStage2(cfg))
+    dtype = torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
+    return _build(args, device, train, lambda: TRISStage2(cfg, dtype))
 
 
 def _build(args, device, train: bool, make):

@@ -14,7 +14,8 @@ The image is read with PIL and resized with PIL's bilinear filter, not
 cv2's ``INTER_LINEAR`` as the JAX package does (a decided divergence: the
 reference's eval transforms resize with PIL); its channels are in the order
 ``cv2.imread`` gives, BGR, as the JAX package feeds them. cv2 and
-matplotlib are imported only by :func:`visualize_cam`.
+matplotlib are imported only by :func:`visualize_cam`. ``--bf16`` runs stage 2
+in bfloat16 (``cli/common.py::build_stage2``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import os
 import numpy as np
 import torch
 
-from tris_tpu_torch.cli.common import build_stage2, load_pretrained, refuse_bf16
+from tris_tpu_torch.cli.common import build_stage2, load_pretrained
 from tris_tpu_torch.config import get_parser
 from tris_tpu_torch.data.transforms import image_to_array
 from tris_tpu_torch.device import to_device
@@ -74,10 +75,12 @@ def prepare_data(img_path: str, text: str, size: int = SIZE, max_length: int = 2
 @torch.no_grad()
 def norm_cam_of(model, img: np.ndarray, word_ids: np.ndarray, h: int, w: int) -> np.ndarray:
     """One eval forward of the stage-2 ``model`` on its device: image [size,
-    size, 3] and word_ids [L] -> the min-max normalized map at [h, w]."""
+    size, 3] and word_ids [L] -> the min-max normalized map at [h, w] (the
+    logits cast to float32 first: bfloat16 under ``--bf16``, as the JAX
+    package's ``np.asarray`` casts them before its resize)."""
     device = next(model.parameters()).device
     out = model(image_to_nchw(to_device(img[None], device)), to_device(word_ids[None], device))
-    return get_norm_cam(resize_to_original_np(out[0, 0].cpu().numpy(), h, w))
+    return get_norm_cam(resize_to_original_np(out[0, 0].float().cpu().numpy(), h, w))
 
 
 def demo_cam(model, img_path: str, text: str, size: int = SIZE,
@@ -88,7 +91,6 @@ def demo_cam(model, img_path: str, text: str, size: int = SIZE,
 
 
 def main(args):
-    refuse_bf16(args, "the demo")
     model = load_pretrained(args, build_stage2(args)).eval()
     img, word_ids, h, w, bgr = prepare_data(args.img, args.text, SIZE, args.max_query_len)
     norm_cam = norm_cam_of(model, img, word_ids, h, w)

@@ -16,7 +16,8 @@ flicker-pickle test protocol on ``--refer_data_root`` (``annotations/`` and
 metrics, so that the eval reduces to per-sentence scalars on the card.
 ``--multihost``: the refs sharded over the processes torchrun starts, the
 metrics gathered (ReferIt's split runs whole on every rank). ``--bf16``:
-stage 1 in bfloat16 (eval, ``--prms`` and ReferIt; the critic stays float32).
+stage 1 in bfloat16 (eval, ``--prms`` and ReferIt; the critic stays float32),
+or with ``--stage 2`` stage 2 in bfloat16.
 """
 
 from __future__ import annotations

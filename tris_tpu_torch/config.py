@@ -4,8 +4,8 @@ Copy of the JAX package's parser. It mirrors the reference's ``args.py``
 flag surface (same names/defaults, `reference/args.py:3-98`) so shell
 scripts written against the reference work unchanged, plus those of the JAX
 package's additions that this package implements (``--bf16`` for stage-1
-eval, PRMS, ReferIt and training on one process, refused by name
-elsewhere) and its own ``--device``. ``--multihost`` joins the process
+eval, PRMS, ReferIt and training on one process and for stage-2 eval and the
+demo, refused by name elsewhere) and its own ``--device``. ``--multihost`` joins the process
 group torchrun describes (``tris_tpu_torch.parallel``) and ``--profile DIR``
 writes a ``torch.profiler`` trace of the trainers' steps 10-20. The JAX
 package's tensor-parallel ``--tp`` and its unread ``--scales`` are not here:
@@ -87,8 +87,9 @@ def get_parser() -> argparse.ArgumentParser:
     # additions over the reference
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute, as the JAX package's flax dtype: stage-1 eval, "
-                             "PRMS and ReferIt (cli.validate --stage 1) and stage-1 training "
-                             "on one process; stage 2, the demo and training over several "
+                             "PRMS and ReferIt (cli.validate --stage 1), stage-2 eval and the "
+                             "demo (cli.validate --stage 2, cli.demo) and stage-1 training on "
+                             "one process; stage-2 training and training over several "
                              "processes refuse it (not ported yet)")
     parser.add_argument("--seed", default=1234, type=int)
     parser.add_argument("--clip_weights", default=None, type=str,

@@ -46,7 +46,12 @@ while dweight, dbias and dslope are this rank's sums (DDP averages them, as
 float32 and rounded to bfloat16 as the JAX package rounds them, then
 ``bf16(bf16(x * a) + b)`` [``+ residual``, rounded], each op rounded as the
 plain version's bfloat16 ops round: one launch of ``batch_norm_fold_bf16``
-(counted as ``batch_norm.bf16``), forward only, act "none" or "relu". In
+(counted as ``batch_norm.bf16``, or ``batch_norm.bf16@prelu`` with PReLU),
+forward only, act "none", "relu" or
+"prelu" (stage 2's ``ConvBNRelu``): with a bfloat16 slope (the seeded
+bfloat16 leaf) y is bfloat16 and ``a * y`` rounded; with a float32 slope (a
+float32 checkpoint's) y is float32, as jnp promotes ``where(y >= 0, y, a *
+y)``. In
 training (stage 1's trunk, ``tris_tpu/models/layers.py:219-229`` on
 bfloat16 x): the statistics of x's values as the float32 route forms them,
 ``y = bf16(norm(x))`` [``+ residual``, rounded], then ReLU; the running
@@ -54,7 +59,7 @@ buffers float32; the backward from bfloat16 g to dx rounded to bfloat16 once,
 dweight and dbias float32 and the residual's gradient the masked g. Three
 launches each way, the two-pass design at every shape (``batch_norm_fwd_bf16``
 and ``batch_norm_bwd_bf16``, counted as ``batch_norm.bf16`` and
-``batch_norm_bwd.bf16``). PReLU (stage 2) and the cross-rank route take no
+``batch_norm_bwd.bf16``). PReLU in training and the cross-rank route take no
 bfloat16 and raise before any launch.
 """
 
@@ -359,7 +364,8 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
     """K13 on CUDA tensors; the plain version on CPU tensors.
 
     x [N, C, H, W] contiguous float32, or bfloat16 (with a bfloat16 residual,
-    act "none" or "relu", on one process) (N * H * W >= 1, fewer than 2^31
+    act "none" or "relu", on one process; or in eval, PReLU with a bfloat16 or
+    float32 slope) (N * H * W >= 1, fewer than 2^31
     elements); weight, bias, running_mean, running_var [C]; act "none",
     "relu" (with an optional residual of x's shape added first) or "prelu"
     (with ``slope``, PReLU's one-element weight). ``training``: batch
@@ -374,11 +380,13 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
                                     momentum=momentum, eps=eps, act=act, slope=slope,
                                     residual=residual)
     if x.dtype == BF16:
-        build.require_cuda("batch_norm_act", x, residual, accepted=((BF16, None), (BF16, BF16)))
+        build.require_cuda("batch_norm_act", x, residual, slope, accepted=(
+            (BF16, None, None), (BF16, BF16, None), (BF16, None, BF16),
+            (BF16, None, torch.float32)))
         build.require_cuda("batch_norm_act", weight, bias, running_mean, running_var)
-        if act == "prelu":
-            raise ValueError("batch_norm_act: bfloat16 takes act 'none' or 'relu' (no bfloat16 "
-                             "PReLU kernel yet)")
+        if act == "prelu" and training:
+            raise ValueError("batch_norm_act: bfloat16 training takes act 'none' or 'relu' (no "
+                             "bfloat16 PReLU train kernel yet)")
         if training and parallel.distributed():
             raise ValueError("batch_norm_act: bfloat16 training runs on one process (the "
                              "cross-rank route takes float32 only)")
@@ -402,7 +410,7 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
         raise ValueError("batch_norm_act: PReLU's slope must be one value (channel-shared)")
     if x.dtype == BF16:
         grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                               for t in (x, weight, bias, residual))
+                                               for t in (x, weight, bias, residual, slope))
         if training:
             rm, rv = (running_mean, running_var) if update_stats else (None, None)
             return _BatchNormActBf16.apply(x, weight, bias, residual, rm, rv, momentum, eps, act,
@@ -411,8 +419,8 @@ def batch_norm_act(x, weight, bias, running_mean, running_var, *, training: bool
             raise ValueError("batch_norm_act: bfloat16's eval fold is forward only (no backward "
                              "kernel)")
         a, b = (t.to(BF16) for t in _fold(weight, bias, running_mean, running_var, eps))
-        y = build.ops().batch_norm_fold_bf16(x, a, b, residual, ACTS[act])
-        build.count("batch_norm.bf16")
+        y = build.ops().batch_norm_fold_bf16(x, a, b, residual, slope, ACTS[act])
+        build.count("batch_norm.bf16@prelu" if act == "prelu" else "batch_norm.bf16")
         return y
     if training:
         w_eff, b_eff = weight, bias

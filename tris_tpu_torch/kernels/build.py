@@ -12,7 +12,8 @@ package needs neither ``nvcc`` nor a card.
 that defines it and for the bindings that call it. An op raises when its
 launch fails. ``launches`` counts, per kernel family and direction
 (``KERNELS``; a backward is ``<name>_bwd``, a bfloat16 launch (``--bf16``)
-``<name>.bf16``), the kernel launches its wrapper made.
+``<name>.bf16``, K13's bfloat16 eval fold with PReLU ``batch_norm.bf16@prelu``),
+the kernel launches its wrapper made.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ KERNELS = ("mha_short", "mha_short_bwd", "cross_attn", "cross_attn_bwd", "respon
            "pixel_attn", "pixel_attn_bwd", "ema_update", "batch_norm", "batch_norm_bwd",
            "mha_short.bf16", "cross_attn.bf16", "response_head.bf16", "batch_norm.bf16",
            "batch_norm_bwd.bf16", "mha_short_bwd.bf16", "cross_attn_bwd.bf16",
-           "stage1_head.bf16", "stage1_head_bwd.bf16")
+           "stage1_head.bf16", "stage1_head_bwd.bf16", "pixel_attn.bf16", "bilinear_resize.bf16",
+           "batch_norm.bf16@prelu")
 # no --use_fast_math or -ftz=true: K10 converts float32 subnormals to double exactly
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-lineinfo"]
 MAX_SMEM = 227 * 1024  # shared memory one block may use on Hopper (opt-in above 48 KiB)

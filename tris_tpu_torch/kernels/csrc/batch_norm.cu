@@ -58,7 +58,9 @@
 //
 // batch_norm_fold_bf16_kernel (--bf16): the eval fold on bfloat16 x, residual and y, the
 // apply kernel's layout with 8 values an item, each product and sum rounded to bfloat16 as
-// the plain version's bfloat16 ops round.
+// the plain version's bfloat16 ops round; then ReLU, or stage 2's PReLU with a bfloat16 slope
+// (y bfloat16, a * y rounded) or a float32 one (a float32 checkpoint's: y float32, as jnp
+// promotes where(y >= 0, y, a * y)).
 //
 // --bf16 training (batch_norm_forward_bf16): the two-pass design on bfloat16 x at every shape,
 // three launches: the partial and final kernels instantiated on bfloat16 (the statistics the
@@ -298,22 +300,29 @@ batch_norm_apply_kernel(const float* __restrict__ x, const float* __restrict__ m
 }
 
 // y of one bfloat16 element of the eval fold (a, b and r bfloat16 values as floats): each
-// product and sum exact in float32 or rounded there, then rounded to bfloat16
+// product and sum exact in float32 or rounded there, then rounded to bfloat16; then ReLU, or
+// PReLU with slope s (kF32Out: a float32 product; else rounded to bfloat16)
+template <bool kF32Out = false>
 __device__ __forceinline__ float fold_one_bf16(float x, float a, float b, float r, bool has_res,
-                                               int act) {
+                                               int act, float s = 0.f) {
   float o = round_bf16(__fadd_rn(round_bf16(__fmul_rn(x, a)), b));
   if (has_res) o = round_bf16(__fadd_rn(o, r));
+  if (act == kBatchNormActPrelu && !(o >= 0.f))
+    return kF32Out ? __fmul_rn(s, o) : round_bf16(__fmul_rn(s, o));
   return act == kBatchNormActRelu && o < 0.f ? 0.f : o;
 }
 
 // The eval fold in bfloat16 with batch_norm_apply_kernel's layout: an item is 8 values (a
-// 16-byte access) with kVec, else one.
-template <bool kVec>
+// 16-byte access of x) with kVec, else one. y bfloat16, or float32 with kF32Out (PReLU with a
+// float32 slope).
+template <bool kVec, bool kF32Out>
 __global__ void __launch_bounds__(kBatchNormApplyThreads)
 batch_norm_fold_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                             const __nv_bfloat16* __restrict__ a,
                             const __nv_bfloat16* __restrict__ b,
-                            const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ y,
+                            const __nv_bfloat16* __restrict__ res,
+                            const __nv_bfloat16* __restrict__ slope16,
+                            const float* __restrict__ slope32, void* __restrict__ yv,
                             long long planes, int C, int HW, int tpp, int chunks, int act) {
   const int per = kBatchNormApplyThreads / tpp;
   if ((int)threadIdx.x >= per * tpp) return;
@@ -322,6 +331,9 @@ batch_norm_fold_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   if (plane >= planes || e >= (kVec ? HW / 8 : HW)) return;
   const int c = (int)(plane % C);
   const float ac = __bfloat162float(a[c]), bc = __bfloat162float(b[c]);
+  const float s = slope32 != nullptr   ? *slope32
+                  : slope16 != nullptr ? __bfloat162float(*slope16)
+                                       : 0.f;
   const bool has_res = res != nullptr;
   const long long off = plane * HW;
   if (kVec) {
@@ -329,19 +341,32 @@ batch_norm_fold_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     const uint4 rv = has_res ? reinterpret_cast<const uint4*>(res + off)[e] : make_uint4(0, 0, 0, 0);
     const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
     const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&rv);
-    uint4 out;
-    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+    float o[8];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 xf = __bfloat1622float2(xp[i]), rf = __bfloat1622float2(rp[i]);
-      op[i] = __floats2bfloat162_rn(fold_one_bf16(xf.x, ac, bc, rf.x, has_res, act),
-                                    fold_one_bf16(xf.y, ac, bc, rf.y, has_res, act));
+      o[2 * i] = fold_one_bf16<kF32Out>(xf.x, ac, bc, rf.x, has_res, act, s);
+      o[2 * i + 1] = fold_one_bf16<kF32Out>(xf.y, ac, bc, rf.y, has_res, act, s);
     }
-    reinterpret_cast<uint4*>(y + off)[e] = out;
+    if constexpr (kF32Out) {
+      float4* yp = reinterpret_cast<float4*>(static_cast<float*>(yv) + off) + 2 * e;
+      yp[0] = make_float4(o[0], o[1], o[2], o[3]);
+      yp[1] = make_float4(o[4], o[5], o[6], o[7]);
+    } else {
+      uint4 out;
+      __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) op[i] = __floats2bfloat162_rn(o[2 * i], o[2 * i + 1]);
+      reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(yv) + off)[e] = out;
+    }
   } else {
     const float r = has_res ? __bfloat162float(res[off + e]) : 0.f;
-    y[off + e] = __float2bfloat16_rn(
-        fold_one_bf16(__bfloat162float(x[off + e]), ac, bc, r, has_res, act));
+    const float o =
+        fold_one_bf16<kF32Out>(__bfloat162float(x[off + e]), ac, bc, r, has_res, act, s);
+    if constexpr (kF32Out)
+      static_cast<float*>(yv)[off + e] = o;
+    else
+      static_cast<__nv_bfloat16*>(yv)[off + e] = __float2bfloat16_rn(o);
   }
 }
 
@@ -474,9 +499,14 @@ cudaError_t batch_norm_apply(const float* x, const float* mean, const float* rst
 }
 
 cudaError_t batch_norm_fold_bf16(const Bf16Bits* x, const Bf16Bits* a, const Bf16Bits* b,
-                                 const Bf16Bits* residual, Bf16Bits* y, int N, int C, int HW,
-                                 int act, cudaStream_t stream, BatchNormLaunchShape* shape) {
-  if (act != kBatchNormActNone && act != kBatchNormActRelu) return cudaErrorInvalidValue;
+                                 const Bf16Bits* residual, const Bf16Bits* slope16,
+                                 const float* slope32, void* y, int N, int C, int HW, int act,
+                                 cudaStream_t stream, BatchNormLaunchShape* shape) {
+  const bool prelu = act == kBatchNormActPrelu;
+  if (act != kBatchNormActNone && act != kBatchNormActRelu && !prelu) return cudaErrorInvalidValue;
+  if (prelu != (slope16 != nullptr || slope32 != nullptr) || (slope16 && slope32) ||
+      (prelu && residual != nullptr))
+    return cudaErrorInvalidValue;
   const bool vec = HW % 8 == 0 && bn::aligned16(x) && bn::aligned16(residual) &&
                    bn::aligned16(y);
   const int items = vec ? HW / 8 : HW;
@@ -485,11 +515,16 @@ cudaError_t batch_norm_fold_bf16(const Bf16Bits* x, const Bf16Bits* a, const Bf1
   const long long planes = (long long)N * C;
   const int chunks = (items + tpp - 1) / tpp;
   const long long blocks = (planes + per - 1) / per * chunks;
-  auto* kernel = vec ? &batch_norm_fold_bf16_kernel<true> : &batch_norm_fold_bf16_kernel<false>;
+  const bool f32_out = slope32 != nullptr;
+  auto* kernel = vec ? (f32_out ? &batch_norm_fold_bf16_kernel<true, true>
+                                : &batch_norm_fold_bf16_kernel<true, false>)
+                     : (f32_out ? &batch_norm_fold_bf16_kernel<false, true>
+                                : &batch_norm_fold_bf16_kernel<false, false>);
   kernel<<<(unsigned)blocks, kBatchNormApplyThreads, 0, stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const __nv_bfloat16*>(a),
       reinterpret_cast<const __nv_bfloat16*>(b), reinterpret_cast<const __nv_bfloat16*>(residual),
-      reinterpret_cast<__nv_bfloat16*>(y), planes, C, HW, tpp, chunks, act);
+      reinterpret_cast<const __nv_bfloat16*>(slope16), slope32, y, planes, C, HW, tpp, chunks,
+      act);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && shape != nullptr)
     *shape = {(int)blocks, 1, kBatchNormApplyThreads, 0, vec ? 16 : 2};

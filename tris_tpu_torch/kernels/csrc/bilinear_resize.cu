@@ -64,12 +64,33 @@ __device__ __forceinline__ void store(float* o, const float (&v)[kVec]) {
     o[0] = v[0];
 }
 
+// bfloat16 outputs: each value rounded once, 4 of them an 8-byte store
+template <int kVec>
+__device__ __forceinline__ void store(__nv_bfloat16* o, const float (&v)[kVec]) {
+  if constexpr (kVec == 4)
+    tris::store4_bf16(o, make_float4(v[0], v[1], v[2], v[3]));
+  else
+    o[0] = __float2bfloat16_rn(v[0]);
+}
+
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// w0 a + w1 b, each product and the sum rounded on their own; rounded to bfloat16 for a
+// bfloat16 resize (T)
+template <class T>
+__device__ __forceinline__ float lerp2(float w0, float a, float w1, float b) {
+  const float v = __fadd_rn(__fmul_rn(w0, a), __fmul_rn(w1, b));
+  return std::is_same_v<T, float> ? v : tris::round_bf16(v);
+}
+
 // Grid (bands, tiles); threads (rows of tile_groups); kVec columns a thread, rpt rows of each
 // chunk. in_floats > 0: the band's input rows are copied to shared memory first (kAligned: 16
-// bytes a copy, w % 4 == 0 and x 16-byte aligned; else 4).
-template <int kVec, bool kStaged, bool kAligned>
+// bytes a copy, w % 4 == 0 and x 16-byte aligned; else 4; bfloat16 widened a value at a time).
+// T: float, or __nv_bfloat16 (--bf16).
+template <int kVec, bool kStaged, bool kAligned, class T>
 __global__ void __launch_bounds__(tris::kResizeThreads)
-bilinear_resize_kernel(const float* __restrict__ x, float* __restrict__ out, long long total,
+bilinear_resize_kernel(const T* __restrict__ x, T* __restrict__ out, long long total,
                        int h, int w, int oh, int ow, int tile_groups, int pitch, int rpt,
                        int chunks, long long in_floats, tris::TapArrays ty, tris::TapArrays tx) {
   // [in_floats] the band's input rows, then [2][rows * rpt][pitch] t-rows
@@ -96,8 +117,10 @@ bilinear_resize_kernel(const float* __restrict__ x, float* __restrict__ out, lon
       const long long need = (p1 * h + ty.hi[oy1] + 1 - f0) * w;
       in_smem = need <= in_floats;
       if (in_smem) {
-        const float* src = x + f0 * w;
-        if constexpr (kAligned) {
+        const T* src = x + f0 * w;
+        if constexpr (!std::is_same_v<T, float>) {
+          for (long long k = threadIdx.x; k < need; k += blockDim.x) smem[k] = load(src + k);
+        } else if constexpr (kAligned) {
           for (long long k = 4LL * threadIdx.x; k < need; k += 4LL * blockDim.x)
             tris::cp_async16(smem + k, src + k, true);
         } else {
@@ -120,7 +143,7 @@ bilinear_resize_kernel(const float* __restrict__ x, float* __restrict__ out, lon
     b[k] = in ? tx.w1[c + k] : 0.f;
   }
   if constexpr (kStaged) {
-    if (in_smem) tris::cp_async_wait<0>();
+    if (in_smem && std::is_same_v<T, float>) tris::cp_async_wait<0>();
     __syncthreads();
   }
   float* tbuf = smem + in_floats;
@@ -140,12 +163,16 @@ bilinear_resize_kernel(const float* __restrict__ x, float* __restrict__ out, lon
         const float wy0 = ty.w0[oy], wy1 = ty.w1[oy];
         // input rows f = plane * h + y, from shared memory (row f - f0) or from x
         const long long f0r = plane * h + ty.lo[oy], f1r = plane * h + ty.hi[oy];
-        const float* r0 = in_smem ? smem + (f0r - f0) * w : x + f0r * w;
-        const float* r1 = in_smem ? smem + (f1r - f0) * w : x + f1r * w;
         float* t = tb + lr * pitch;
+        auto t_row = [&](const auto* r0, const auto* r1) {
 #pragma unroll 4
-        for (int j = j0 + q; j < j1; j += tile_groups)
-          t[j - j0] = __fadd_rn(__fmul_rn(wy0, r0[j]), __fmul_rn(wy1, r1[j]));
+          for (int j = j0 + q; j < j1; j += tile_groups)
+            t[j - j0] = lerp2<T>(wy0, load(r0 + j), wy1, load(r1 + j));
+        };
+        if (in_smem)
+          t_row(smem + (f0r - f0) * w, smem + (f1r - f0) * w);
+        else
+          t_row(x + f0r * w, x + f1r * w);
       }
       __syncthreads();  // the chunk's t-rows are in; the buffer written next was read a chunk ago
       for (int k = 0; k < rpt; ++k) {
@@ -154,8 +181,7 @@ bilinear_resize_kernel(const float* __restrict__ x, float* __restrict__ out, lon
         if (r >= total || c >= ow) break;
         const float* t = tb + lr * pitch;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          v[e] = __fadd_rn(__fmul_rn(a[e], t[lo[e]]), __fmul_rn(b[e], t[hi[e]]));
+        for (int e = 0; e < kVec; ++e) v[e] = lerp2<T>(a[e], t[lo[e]], b[e], t[hi[e]]);
         store<kVec>(out + r * ow + c, v);
       }
     } else {
@@ -165,37 +191,43 @@ bilinear_resize_kernel(const float* __restrict__ x, float* __restrict__ out, lon
         long long plane;
         int oy;
         plane_row(r, oh, plane, oy);
-        const float* src = x + plane * h * w;
+        const T* src = x + plane * h * w;
+        const T* y0 = src + (long long)ty.lo[oy] * w;
+        const T* y1 = src + (long long)ty.hi[oy] * w;
+        const float wy0 = ty.w0[oy], wy1 = ty.w1[oy];
+        // the two t values of each column, then the column's lerp: sample2's order
 #pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          v[e] = tris::sample2(src, w, ty.lo[oy], ty.hi[oy], ty.w0[oy], ty.w1[oy], lo[e] + j0,
-                               hi[e] + j0, a[e], b[e]);
+        for (int e = 0; e < kVec; ++e) {
+          const int x0 = lo[e] + j0, x1 = hi[e] + j0;
+          v[e] = lerp2<T>(a[e], lerp2<T>(wy0, load(y0 + x0), wy1, load(y1 + x0)), b[e],
+                          lerp2<T>(wy0, load(y0 + x1), wy1, load(y1 + x1)));
+        }
         store<kVec>(out + r * ow + c, v);
       }
     }
   }
 }
 
-template <int kVec, bool kStaged, bool kAligned>
-cudaError_t launch(const tris::ResizePlan& p, const float* x, float* out, long long total, int h,
-                   int w, int oh, int ow, tris::TapArrays ty, tris::TapArrays tx,
-                   cudaStream_t stream) {
-  bilinear_resize_kernel<kVec, kStaged, kAligned>
+template <int kVec, bool kStaged, bool kAligned, class T>
+cudaError_t launch(const tris::ResizePlan& p, const T* x, T* out, long long total, int h, int w,
+                   int oh, int ow, tris::TapArrays ty, tris::TapArrays tx, cudaStream_t stream) {
+  bilinear_resize_kernel<kVec, kStaged, kAligned, T>
       <<<dim3((unsigned)p.bands, (unsigned)p.tiles), p.threads, p.smem, stream>>>(
           x, out, total, h, w, oh, ow, p.tile_groups, p.pitch, p.rpt, p.chunks, p.in_floats, ty,
           tx);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-cudaError_t tris::bilinear_resize(const float* x, float* out, int64_t planes, int h, int w,
-                                  int oh, int ow, TapArrays ty, TapArrays tx,
-                                  cudaStream_t stream, ResizeLaunchShape* shape) {
+// The plan's launch on T's planes (bfloat16 staging takes no cp.async: kAligned false).
+template <class T>
+cudaError_t resize(const T* x, T* out, int64_t planes, int h, int w, int oh, int ow,
+                   tris::TapArrays ty, tris::TapArrays tx, cudaStream_t stream,
+                   tris::ResizeLaunchShape* shape) {
   const long long total = planes * oh;
   if (total == 0 || ow == 0) return cudaSuccess;
-  const ResizePlan p = bilinear_resize_plan(planes, h, w, oh, ow);
-  const bool aligned = w % 4 == 0 && (reinterpret_cast<unsigned long long>(x) & 15) == 0;
+  const tris::ResizePlan p = tris::bilinear_resize_plan(planes, h, w, oh, ow);
+  const bool aligned = std::is_same_v<T, float> && w % 4 == 0 &&
+                       (reinterpret_cast<unsigned long long>(x) & 15) == 0;
   cudaError_t err;
   if (!p.staged)
     err = p.vec == 4 ? launch<4, false, false>(p, x, out, total, h, w, oh, ow, ty, tx, stream)
@@ -209,4 +241,19 @@ cudaError_t tris::bilinear_resize(const float* x, float* out, int64_t planes, in
   if (err == cudaSuccess && shape != nullptr)
     *shape = {p.blocks, p.tiles, p.threads, p.band_rows, p.vec, p.staged, p.in_floats, p.smem};
   return err;
+}
+
+}  // namespace
+
+cudaError_t tris::bilinear_resize(const float* x, float* out, int64_t planes, int h, int w,
+                                  int oh, int ow, TapArrays ty, TapArrays tx,
+                                  cudaStream_t stream, ResizeLaunchShape* shape) {
+  return resize(x, out, planes, h, w, oh, ow, ty, tx, stream, shape);
+}
+
+cudaError_t tris::bilinear_resize_bf16(const Bf16Bits* x, Bf16Bits* out, int64_t planes, int h,
+                                       int w, int oh, int ow, TapArrays ty, TapArrays tx,
+                                       cudaStream_t stream, ResizeLaunchShape* shape) {
+  return resize(reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<__nv_bfloat16*>(out),
+                planes, h, w, oh, ow, ty, tx, stream, shape);
 }

@@ -776,6 +776,24 @@ at::Tensor bilinear_resize(const at::Tensor& x, const std::vector<at::Tensor>& t
   return out;
 }
 
+// K6 on bfloat16 x [N, h, w] (--bf16): the taps' weights rounded to bfloat16 (float32
+// tensors). Returns [N, oh, ow] bfloat16.
+at::Tensor bilinear_resize_bf16(const at::Tensor& x, const std::vector<at::Tensor>& ty,
+                                const std::vector<at::Tensor>& tx) {
+  const at::Device dev = x.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  check(x, "bilinear_resize_bf16: x", at::kBFloat16, dev);
+  const tris::TapArrays y = tap_arrays(ty, "bilinear_resize_bf16: row taps", dev);
+  const tris::TapArrays c = tap_arrays(tx, "bilinear_resize_bf16: column taps", dev);
+  const int64_t N = x.size(0), oh = ty[0].size(0), ow = tx[0].size(0);
+  at::Tensor out = at::empty({N, oh, ow}, x.options());
+  launched(tris::bilinear_resize_bf16(bits(x), bits_out(out), N, x.size(1), x.size(2), oh, ow, y,
+                                      c, stream(), &k6_shape),
+           "bilinear_resize_bf16");
+  k6_launched = true;
+  return out;
+}
+
 // K6's plan (launchers.h, bilinear_resize_plan) for [planes, h, w] -> [oh, ow].
 std::map<std::string, int64_t> bilinear_resize_plan(int64_t planes, int64_t h, int64_t w,
                                                     int64_t oh, int64_t ow) {
@@ -1193,6 +1211,26 @@ at::Tensor pixel_attn(const at::Tensor& q, const at::Tensor& lk, const at::Tenso
   return out;
 }
 
+// K11 on bfloat16 lk, lv [N*S, T, C] (--bf16), q [N, HW, C] bfloat16 or float32. Returns G
+// [N*S, HW, C] in q's dtype.
+at::Tensor pixel_attn_bf16(const at::Tensor& q, const at::Tensor& lk, const at::Tensor& lv,
+                           int64_t S, double div) {
+  const at::Device dev = q.device();
+  const c10::cuda::CUDAGuard guard(dev);
+  const bool q_bf16 = q.scalar_type() == at::kBFloat16;
+  check(q, "pixel_attn_bf16: q", q_bf16 ? at::kBFloat16 : at::kFloat, dev);
+  check(lk, "pixel_attn_bf16: lk", at::kBFloat16, dev);
+  check(lv, "pixel_attn_bf16: lv", at::kBFloat16, dev);
+  const int64_t HW = q.size(1), C = q.size(2), P = lk.size(0), T = lk.size(1);
+  TORCH_CHECK(HW <= INT32_MAX && C <= INT32_MAX && P <= INT32_MAX && S <= INT32_MAX,
+              "pixel_attn_bf16: sizes past 32-bit indices");
+  at::Tensor out = at::empty({P, HW, C}, q.options());
+  launched(tris::pixel_attn_bf16(q.data_ptr(), q_bf16, bits(lk), bits(lv), out.data_ptr(), P, HW,
+                                 T, C, S, (float)div, stream(), &k11_shapes["pixel_attn_bf16"]),
+           "pixel_attn_bf16");
+  return out;
+}
+
 // K11 backward: dg [N*S, HW, C] and the forward's inputs. Returns (dq, dlk, dlv).
 std::vector<at::Tensor> pixel_attn_bwd(const at::Tensor& dg, const at::Tensor& q,
                                        const at::Tensor& lk, const at::Tensor& lv, int64_t S,
@@ -1223,7 +1261,8 @@ bool pixel_attn_takes(int64_t T, int64_t C, int64_t S, bool backward) {
          tris::pixel_attn_takes((int)T, (int)C, (int)S, backward);
 }
 
-// The last launch of K11's `name` (pixel_attn, pixel_attn_bwd_probs_dq, pixel_attn_bwd_dkv)
+// The last launch of K11's `name` (pixel_attn, pixel_attn_bf16, pixel_attn_bwd_probs_dq,
+// pixel_attn_bwd_dkv)
 // in this process: blocks, blocks a cluster, threads a block, bytes of shared memory a
 // block, the token bucket, pixels a tile, channels a rank, tile groups an image and the
 // bytes of each global load.
@@ -1378,7 +1417,8 @@ at::Tensor batch_norm_apply(const at::Tensor& x, const std::optional<at::Tensor>
 // K13's eval fold on bfloat16 x [N, C, ...] (--bf16): a and b [C] bfloat16 (the fold rounded),
 // residual as x or None, act 0 none or 1 ReLU; returns y bfloat16.
 at::Tensor batch_norm_fold_bf16(const at::Tensor& x, const at::Tensor& a, const at::Tensor& b,
-                                const std::optional<at::Tensor>& residual, int64_t act) {
+                                const std::optional<at::Tensor>& residual,
+                                const std::optional<at::Tensor>& slope, int64_t act) {
   const at::Device dev = x.device();
   const c10::cuda::CUDAGuard guard(dev);
   check(x, "batch_norm_fold_bf16: x", at::kBFloat16, dev);
@@ -1392,13 +1432,23 @@ at::Tensor batch_norm_fold_bf16(const at::Tensor& x, const at::Tensor& a, const 
     check(*residual, "batch_norm_fold_bf16: residual", at::kBFloat16, dev);
     TORCH_CHECK(residual->sizes() == x.sizes(), "batch_norm_fold_bf16: residual not x's shape");
   }
-  TORCH_CHECK(act == tris::kBatchNormActNone || act == tris::kBatchNormActRelu,
-              "batch_norm_fold_bf16: act must be none or ReLU");
-  at::Tensor y = at::empty_like(x);
+  const bool prelu = act == tris::kBatchNormActPrelu;
+  TORCH_CHECK(act == tris::kBatchNormActNone || act == tris::kBatchNormActRelu || prelu,
+              "batch_norm_fold_bf16: act must be none, ReLU or PReLU");
+  TORCH_CHECK(prelu == slope.has_value() && !(prelu && residual),
+              "batch_norm_fold_bf16: a slope with PReLU alone, and no residual before it");
+  const bool f32_slope = slope && slope->scalar_type() == at::kFloat;
+  if (slope) {
+    check(*slope, "batch_norm_fold_bf16: slope", f32_slope ? at::kFloat : at::kBFloat16, dev);
+    TORCH_CHECK(slope->numel() == 1, "batch_norm_fold_bf16: one slope");
+  }
+  at::Tensor y = at::empty_like(x, f32_slope ? x.options().dtype(at::kFloat) : x.options());
   tris::BatchNormLaunchShape shape = {};
   launched(tris::batch_norm_fold_bf16(bits(x), bits(a), bits(b),
-                                      residual ? bits(*residual) : nullptr, bits_out(y), N, C, HW,
-                                      (int)act, stream(), &shape),
+                                      residual ? bits(*residual) : nullptr,
+                                      slope && !f32_slope ? bits(*slope) : nullptr,
+                                      f32_slope ? slope->data_ptr<float>() : nullptr,
+                                      y.data_ptr(), N, C, HW, (int)act, stream(), &shape),
            "batch_norm_fold_bf16");
   k13_shapes["batch_norm_fold_bf16"] = shape;
   return y;
@@ -1802,6 +1852,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K5 backward's last launch");
   m.def("normalize_u8", &normalize_u8, "K6: u8 NHWC image to normalised f32 NCHW");
   m.def("bilinear_resize", &bilinear_resize, "K6: bilinear resize of a stack of planes");
+  m.def("bilinear_resize_bf16", &bilinear_resize_bf16, "K6 on bfloat16 planes (--bf16)");
   m.def("bilinear_resize_plan", &bilinear_resize_plan, "K6: the bands and tiles a resize takes");
   m.def("bilinear_resize_launch_shape", &bilinear_resize_launch_shape,
         "K6: its last forward launch's grid");
@@ -1825,6 +1876,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("walk_thin", &walk_thin, "K10: the walk's thin step, summed in double");
   m.def("walk_tile_occupancy", &walk_tile_occupancy, "K10: the operands' tile occupancy maps");
   m.def("pixel_attn", &pixel_attn, "K11: PixelAttention's pixel-word attention");
+  m.def("pixel_attn_bf16", &pixel_attn_bf16, "K11 on bfloat16 keys and values (--bf16)");
   m.def("pixel_attn_bwd", &pixel_attn_bwd, "K11 backward: dq, dLk, dLv");
   m.def("pixel_attn_takes", &pixel_attn_takes, "K11: whether its kernels take (T, C, S)");
   m.def("pixel_attn_launch_shape", &pixel_attn_launch_shape, "K11: its last launch's grid");

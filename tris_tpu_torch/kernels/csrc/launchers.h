@@ -654,6 +654,13 @@ cudaError_t bilinear_resize(const float* x, float* out, int64_t planes, int h, i
                             int ow, TapArrays ty, TapArrays tx, cudaStream_t stream,
                             ResizeLaunchShape* shape);
 
+// K6, bilinear half, on bfloat16 x and out (--bf16), the same plan: the taps' weights given
+// rounded to bfloat16, each t-row value and each output a float32 sum of two products
+// rounded to bfloat16 (the JAX package's two bfloat16 matrix products).
+cudaError_t bilinear_resize_bf16(const Bf16Bits* x, Bf16Bits* out, int64_t planes, int h, int w,
+                                 int oh, int ow, TapArrays ty, TapArrays tx, cudaStream_t stream,
+                                 ResizeLaunchShape* shape);
+
 // K6, bilinear half, backward (bilinear_resize_bwd.cu): dx = Ry^T g Rx. The planes' input rows
 // are flattened, planes * h rows of w columns, and a block takes a band of `band` consecutive
 // ones. The g rows their adjoint ranges cover are one contiguous run of the flattened g (at
@@ -1174,6 +1181,13 @@ cudaError_t pixel_attn(const float* q, const float* lk, const float* lv, float* 
                        int T, int C, int S, float div, cudaStream_t stream,
                        PixelAttnLaunchShape* shape);
 
+// K11 on bfloat16 lk, lv (--bf16), the same tiles: with q_bf16, q and out bfloat16 too, the
+// logits, their quotient by div and the softmax's ops rounded to bfloat16, P V summed in
+// float32 and rounded once; else q and out float32 and every product float32.
+cudaError_t pixel_attn_bf16(const void* q, bool q_bf16, const Bf16Bits* lk, const Bf16Bits* lv,
+                            void* out, int P, int HW, int T, int C, int S, float div,
+                            cudaStream_t stream, PixelAttnLaunchShape* shape);
+
 // K11 backward: dg [P, HW, C]; q, lk, lv as the forward; scratch partials [2, P,
 // pixel_attn_groups(P / S, HW, C, true), T, C] (dLk's, then dLv's); dq [P/S, HW, C], dlk and
 // dlv [P, T, C]. shapes[0] and shapes[1] receive its two launches' shapes.
@@ -1362,11 +1376,15 @@ cudaError_t batch_norm_apply(const float* x, const float* mean, const float* rst
 // K13's eval fold in bfloat16 (--bf16), one launch: x, residual and y bfloat16, a and b the
 // fold's [C] rounded to bfloat16; y = act(bf16(bf16(x * a) + b) [+ residual, rounded]), each
 // product and sum formed in float32 and rounded to bfloat16 as the bfloat16 ops of the plain
-// version round; act kBatchNormActNone or kBatchNormActRelu (no PReLU). 16-byte accesses
-// (8 values) where HW % 8 == 0 and x, residual and y are 16-byte aligned, else 2-byte ones.
+// version round; act kBatchNormActNone, kBatchNormActRelu or kBatchNormActPrelu (no
+// residual) with one slope: slope16 bfloat16 (y bfloat16, a * y rounded where y < 0) or
+// slope32 float32 (y float32: y widened, a * y a float32 product where y < 0, as jnp promotes
+// them). 16-byte accesses (8 values) where HW % 8 == 0 and x, residual and y are 16-byte
+// aligned, else 2-byte ones.
 cudaError_t batch_norm_fold_bf16(const Bf16Bits* x, const Bf16Bits* a, const Bf16Bits* b,
-                                 const Bf16Bits* residual, Bf16Bits* y, int N, int C, int HW,
-                                 int act, cudaStream_t stream, BatchNormLaunchShape* shape);
+                                 const Bf16Bits* residual, const Bf16Bits* slope16,
+                                 const float* slope32, void* y, int N, int C, int HW, int act,
+                                 cudaStream_t stream, BatchNormLaunchShape* shape);
 
 // K13 train forward on bfloat16 x, residual and y (--bf16), three launches (the two-pass
 // design at every shape): the statistics of x's values as batch_norm_stats forms them (stats

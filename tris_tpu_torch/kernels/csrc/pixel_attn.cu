@@ -1,4 +1,4 @@
-// K11: PixelAttention's pixel-word attention, forward, float32.
+// K11: PixelAttention's pixel-word attention, forward, float32 (and --bf16's operands).
 //
 // Replaces the two einsums and the softmax between them of the JAX
 // package's tris_tpu/models/fusion.py::PixelAttention (lines 37-40):
@@ -26,25 +26,45 @@
 // pixels x 4 channels, written with 16-byte stores. The next tile's q (and,
 // with S > 1, the next pair's keys and values) is copied while the current
 // one is formed; with S = 1 a block stages the pair's keys and values once.
+//
+// --bf16 (the same kernel, instantiated per operand dtypes, as K2's): on
+// bfloat16 leaves q, Lk and Lv are bfloat16, widened as they are staged; each
+// logit's float32 sum is rounded to bfloat16, its quotient by d (given in
+// bfloat16) too, and each op of the softmax (x - max, exp, the sum, the
+// quotient), as jnp rounds them; P V is summed in float32 and rounded once at
+// the store, G bfloat16. On float32 leaves the InstanceNorm's float32 scale
+// makes q float32 while Lk and Lv are bfloat16: every product is float32 and G
+// float32, as jnp promotes them.
 
 #include "pixel_attn_tiles.cuh"
 
 namespace {
 
 using namespace tris::pattn;
+using tris::xattn::kBf16;
+using tris::xattn::kF32;
+using tris::xattn::kMixed;
+
+// The operands' dtypes of a launch (cross_attn_tiles.cuh's modes): q as K2's vision
+// projections, Lk and Lv as its text ones, G as q.
+template <int kMode>
+struct Operands {
+  using Q = typename tris::xattn::Dtypes<kMode>::Vis;
+  using KV = typename tris::xattn::Dtypes<kMode>::Txt;
+};
 
 // The logits of warp-partials acc made probabilities in prob, through the cluster's round.
-template <int TB>
+template <int TB, bool kRound>
 __device__ __forceinline__ void probabilities(cg::cluster_group& cluster,
                                               const float (&acc)[4][TB / 4], float* red,
                                               float* part, float* prob, int T, bool later,
                                               float div) {
   put_logits<TB>(red, acc);
   __syncthreads();
-  exchange<TB>(cluster, red, part, red, 1, later, div);
+  exchange<TB, kRound>(cluster, red, part, red, 1, later, div);
   if (warp() < 4) {
     float s[TB / 4];
-    softmax<TB>(red, T, s);
+    softmax<TB, kRound>(red, T, s);
     float* pr = prob + (warp() * 8 + (lane() >> 2)) * Tok<TB>::kPitch + (lane() & 3);
 #pragma unroll
     for (int k = 0; k < TB / 4; ++k) pr[4 * k] = s[k];
@@ -53,12 +73,15 @@ __device__ __forceinline__ void probabilities(cg::cluster_group& cluster,
 
 // grid: (image, group of per_block tiles, rank) with rank fastest, clusters of the ranks;
 // width channels a rank, `groups` groups an image
-template <int TB, bool VEC>
+template <int TB, bool VEC, int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
-pixel_attn_kernel(const float* __restrict__ q, const float* __restrict__ lk,
-                  const float* __restrict__ lv, float* __restrict__ out, int HW, int T, int C,
-                  int S, int width, int per_block, int groups, float div) {
+pixel_attn_kernel(const typename Operands<kMode>::Q* __restrict__ q,
+                  const typename Operands<kMode>::KV* __restrict__ lk,
+                  const typename Operands<kMode>::KV* __restrict__ lv,
+                  typename Operands<kMode>::Q* __restrict__ out, int HW, int T, int C, int S,
+                  int width, int per_block, int groups, float div) {
   constexpr int kTP = Tok<TB>::kPitch;
+  constexpr bool kRound = kMode == kBf16;
   extern __shared__ float4 smem4[];
   const int held = tris::pixel_attn_held(width), nsub = tris::pixel_attn_subslices(width);
   const int pitch = tris::pixel_attn_pitch(held);
@@ -105,7 +128,7 @@ pixel_attn_kernel(const float* __restrict__ q, const float* __restrict__ lk,
           stage<VEC>(ks, pitch, lk + pair_of(next_tile ? 0 : j + 1) * T * C + c0, C, TB, T,
                      held, cw, lk);
         tris::cp_async_commit();
-        probabilities<TB>(cluster, acc, red, part, prob, T, later, div);
+        probabilities<TB, kRound>(cluster, acc, red, part, prob, T, later, div);
         later = true;
         tris::cp_async_wait<1>();  // B: this pair's values
         __syncthreads();
@@ -138,7 +161,7 @@ pixel_attn_kernel(const float* __restrict__ q, const float* __restrict__ lk,
         const int2 k = share(held / 4, warp(), kWarps);
         logits<TB>(qs, ks, pitch, k.x, k.y, acc);
       }
-      probabilities<TB>(cluster, acc, red, part, prob, T, j > 0, div);
+      probabilities<TB, kRound>(cluster, acc, red, part, prob, T, j > 0, div);
       for (int u = 0; u < nsub; ++u) {
         const int c0 = rank * width + u * tris::kPixelAttnSlice;
         const int cw = max(0, min(min(held, width - u * tris::kPixelAttnSlice), C - c0));
@@ -155,24 +178,43 @@ pixel_attn_kernel(const float* __restrict__ q, const float* __restrict__ lk,
   tris::xattn::cluster_wait();  // the others are done reading this block's partials
 }
 
+template <int kMode>
+cudaError_t launch_mode(const void* q, const void* lk, const void* lv, void* out, int P, int HW,
+                        int T, int C, int S, float div, cudaStream_t stream,
+                        tris::PixelAttnLaunchShape* shape) {
+  using Q = typename Operands<kMode>::Q;
+  using KV = typename Operands<kMode>::KV;
+  if (!tris::pixel_attn_takes(T, C, S, false)) return cudaErrorInvalidValue;
+  if (P == 0 || HW == 0) return cudaSuccess;
+  const int tb = tris::pixel_attn_t_bucket(T), ranks = tris::pixel_attn_ranks(C, false);
+  const int width = tris::pixel_attn_width(C, false);
+  const bool vec = aligned16({q, lk, lv, out}, C);
+  const long long N = P / S;
+  const int per_block = tris::pixel_attn_block_tiles(N, HW, C, false);
+  const int groups = tris::pixel_attn_groups(N, HW, C, false);
+  const long long blocks = N * groups * ranks, smem = tris::pixel_attn_smem(tb, C, false);
+  if (shape != nullptr) *shape = {0, 0, 0, tb, kTile, width, groups, vec ? 16 : 4, 0};
+  return dispatch<true>(tb, vec, [&](auto B, auto V) {
+    constexpr int TB = decltype(B)::value;
+    return launch(pixel_attn_kernel<TB, decltype(V)::value, kMode>, blocks, ranks, smem, stream,
+                  shape, static_cast<const Q*>(q), static_cast<const KV*>(lk),
+                  static_cast<const KV*>(lv), static_cast<Q*>(out), HW, T, C, S, width,
+                  per_block, groups, div);
+  });
+}
+
 }  // namespace
 
 cudaError_t tris::pixel_attn(const float* q, const float* lk, const float* lv, float* out, int P,
                              int HW, int T, int C, int S, float div, cudaStream_t stream,
                              PixelAttnLaunchShape* shape) {
-  if (!pixel_attn_takes(T, C, S, false)) return cudaErrorInvalidValue;
-  if (P == 0 || HW == 0) return cudaSuccess;
-  const int tb = pixel_attn_t_bucket(T), ranks = pixel_attn_ranks(C, false);
-  const int width = pixel_attn_width(C, false);
-  const bool vec = pattn::aligned16({q, lk, lv, out}, C);
-  const long long N = P / S;
-  const int per_block = pixel_attn_block_tiles(N, HW, C, false);
-  const int groups = pixel_attn_groups(N, HW, C, false);
-  const long long blocks = N * groups * ranks, smem = pixel_attn_smem(tb, C, false);
-  if (shape != nullptr) *shape = {0, 0, 0, tb, pattn::kTile, width, groups, vec ? 16 : 4, 0};
-  return pattn::dispatch<true>(tb, vec, [&](auto B, auto V) {
-    constexpr int TB = decltype(B)::value;
-    return pattn::launch(pixel_attn_kernel<TB, decltype(V)::value>, blocks, ranks, smem, stream,
-                         shape, q, lk, lv, out, HW, T, C, S, width, per_block, groups, div);
-  });
+  return launch_mode<kF32>(q, lk, lv, out, P, HW, T, C, S, div, stream, shape);
+}
+
+cudaError_t tris::pixel_attn_bf16(const void* q, bool q_bf16, const Bf16Bits* lk,
+                                  const Bf16Bits* lv, void* out, int P, int HW, int T, int C,
+                                  int S, float div, cudaStream_t stream,
+                                  PixelAttnLaunchShape* shape) {
+  if (q_bf16) return launch_mode<kBf16>(q, lk, lv, out, P, HW, T, C, S, div, stream, shape);
+  return launch_mode<kMixed>(q, lk, lv, out, P, HW, T, C, S, div, stream, shape);
 }

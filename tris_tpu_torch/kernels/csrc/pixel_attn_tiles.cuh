@@ -26,7 +26,9 @@
 //    dL^T q, dLv = A^T dG), thread holding tokens tg + 4 j against 4
 //    channels of a pass.
 // Every sum has one owner and a fixed order, so a result is the same run to
-// run. Staging is cp.async, 16 bytes a copy (VEC) or 4.
+// run. Staging is cp.async, 16 bytes a copy (VEC) or 4; a bfloat16 operand
+// (--bf16, the forward) is widened into the same float32 rows as it is
+// loaded, and its logits, softmax and output rounded where jnp rounds them.
 
 #pragma once
 
@@ -68,25 +70,36 @@ __device__ __forceinline__ int2 share(int pieces, int m, int members) {
   return make_int2(k0, min(pieces, k0 + per));
 }
 
-// Rows [0, nrows) x channels [0, cw) of src (rows ld floats apart) into dst's
+// Rows [0, nrows) x channels [0, cw) of src (rows ld values apart) into dst's
 // rows [0, cap) x columns [0, held) (pitch floats apart): zeros past nrows and
-// cw. `any` is a valid address for the zero-filled copies.
-template <bool VEC>
-__device__ __forceinline__ void stage(float* dst, int pitch, const float* src, long long ld,
-                                      int cap, int nrows, int held, int cw, const float* any) {
+// cw. `any` is a valid address for the zero-filled copies. A float32 operand by
+// cp.async; a bfloat16 one (--bf16) widened to float32 as it is loaded, 4 values an
+// 8-byte load with VEC.
+template <bool VEC, class T>
+__device__ __forceinline__ void stage(float* dst, int pitch, const T* src, long long ld,
+                                      int cap, int nrows, int held, int cw, const T* any) {
   const int pieces = held >> 2, n = cap * pieces;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int r = i / pieces, c = (i - r * pieces) << 2;
     float* d = dst + r * pitch + c;
-    if constexpr (VEC) {
-      const bool ok = r < nrows && c < cw;
-      cp_async16(d, ok ? src + r * ld + c : any, ok);
+    if constexpr (std::is_same_v<T, float>) {
+      if constexpr (VEC) {
+        const bool ok = r < nrows && c < cw;
+        cp_async16(d, ok ? src + r * ld + c : any, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = r < nrows && c + e < cw;
+          cp_async4(d + e, ok ? src + r * ld + c + e : any, ok);
+        }
+      }
+    } else if constexpr (VEC) {
+      *reinterpret_cast<float4*>(d) =
+          r < nrows && c < cw ? load4_bf16(src + r * ld + c) : make_float4(0.f, 0.f, 0.f, 0.f);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = r < nrows && c + e < cw;
-        cp_async4(d + e, ok ? src + r * ld + c + e : any, ok);
-      }
+      for (int e = 0; e < 4; ++e)
+        d[e] = r < nrows && c + e < cw ? __bfloat162float(src[r * ld + c + e]) : 0.f;
     }
   }
 }
@@ -141,24 +154,25 @@ __device__ __forceinline__ void sum_partials(const float* red, float* part, int 
 
 // dst's kTile rows x TB columns = (the sum over the cluster's blocks in rank order of
 // part's) / d, a float4 a thread (two in turn past kPixelAttnMaxT tokens); both [kTile][token
-// pitch].
-template <int TB>
+// pitch]. kRound (bfloat16 logits): the sum and the quotient each rounded to bfloat16.
+template <int TB, bool kRound = false>
 __device__ __forceinline__ void gather(cg::cluster_group& cluster, float* part, float* dst,
                                        float d) {
   constexpr int kTP = Tok<TB>::kPitch;
+  auto q = [d](float s) { return kRound ? round_bf16(round_bf16(s) / d) : s / d; };
   for (int i = threadIdx.x; i < kTile * TB / 4; i += kThreads) {
     const int r = i / (TB / 4), c = i % (TB / 4) * 4;
     const float4 s = xattn::cluster_sum4(cluster, part + r * kTP + c, (int)cluster.num_blocks());
-    *reinterpret_cast<float4*>(dst + r * kTP + c) =
-        make_float4(s.x / d, s.y / d, s.z / d, s.w / d);
+    *reinterpret_cast<float4*>(dst + r * kTP + c) = make_float4(q(s.x), q(s.y), q(s.z), q(s.w));
   }
 }
 
 // The cluster's round: the warps' partials in red, `products` tiles of them (see
 // sum_partials), summed into part and then over the cluster in rank order into full (the
-// first divided by div0); part and full [products][kTile][token pitch]. A block's part is
-// written after the others have read its previous round (`later`: not its first).
-template <int TB>
+// first divided by div0, rounded to bfloat16 as gather's kRound); part and full
+// [products][kTile][token pitch]. A block's part is written after the others have read its
+// previous round (`later`: not its first).
+template <int TB, bool kRound = false>
 __device__ __forceinline__ void exchange(cg::cluster_group& cluster, const float* red,
                                          float* part, float* full, int products, bool later,
                                          float div0) {
@@ -167,17 +181,20 @@ __device__ __forceinline__ void exchange(cg::cluster_group& cluster, const float
   xattn::cluster_arrive();
   xattn::cluster_wait();
   for (int k = 0; k < products; ++k)
-    gather<TB>(cluster, part + k * kTile * Tok<TB>::kPitch, full + k * kTile * Tok<TB>::kPitch,
-               k == 0 ? div0 : 1.f);
+    gather<TB, kRound>(cluster, part + k * kTile * Tok<TB>::kPitch,
+                       full + k * kTile * Tok<TB>::kPitch, k == 0 ? div0 : 1.f);
   xattn::cluster_arrive();
   __syncthreads();
 }
 
 // The row softmax of warp w < 4's pixels 8 w + lane / 4 over tokens lane % 4 + 4 k: s[k]
 // from full (-inf past T), the max and the sum of exponentials over the pixel's 4 lanes.
-template <int TB>
+// kRound (bfloat16 logits, jax.nn.softmax's ops on bfloat16): x - max, its exp, the sum and
+// the quotient each rounded to bfloat16.
+template <int TB, bool kRound = false>
 __device__ __forceinline__ void softmax(const float* full, int T, float (&s)[TB / 4]) {
   const int p = warp() * 8 + (lane() >> 2), tl = lane() & 3;
+  auto rnd = [](float v) { return kRound ? round_bf16(v) : v; };
   float mx = -INFINITY;
 #pragma unroll
   for (int k = 0; k < TB / 4; ++k) {
@@ -189,13 +206,14 @@ __device__ __forceinline__ void softmax(const float* full, int T, float (&s)[TB 
   float sum = 0.f;
 #pragma unroll
   for (int k = 0; k < TB / 4; ++k) {
-    s[k] = tl + 4 * k < T ? expf(s[k] - mx) : 0.f;
+    s[k] = tl + 4 * k < T ? rnd(expf(rnd(s[k] - mx))) : 0.f;
     sum += s[k];
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  sum = rnd(sum);
 #pragma unroll
-  for (int k = 0; k < TB / 4; ++k) s[k] = s[k] / sum;
+  for (int k = 0; k < TB / 4; ++k) s[k] = rnd(s[k] / sum);
 }
 
 // 4 floats to dst (the first `left` of them without VEC); with `add`, added to what is
@@ -216,12 +234,27 @@ __device__ __forceinline__ void put4(float* dst, float4 v, int left, bool add) {
   }
 }
 
+// 4 values rounded to bfloat16 at dst (the first `left` of them without VEC): the forward's
+// bfloat16 output (--bf16), never added to.
+template <bool VEC>
+__device__ __forceinline__ void put4(__nv_bfloat16* dst, float4 v, int left, bool) {
+  if constexpr (VEC) {
+    store4_bf16(dst, v);
+  } else {
+    const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < left) dst[k] = __float2bfloat16_rn(e[k]);
+  }
+}
+
 // out[pg + 8 i][4 pc ..] = (sum over tokens ascending of prob[pg + 8 i][t] b[t][4 pc ..]) /
 // div for the rows below nrows and channels below cw, pc = 32 pass + 4 warp + lane % 4 over
-// the held channels' pieces; with `add`, added to out. prob is [kTile][token pitch].
-template <int TB, bool VEC>
+// the held channels' pieces; with `add`, added to out. prob is [kTile][token pitch]. A
+// bfloat16 out takes each sum rounded once.
+template <int TB, bool VEC, class TO = float>
 __device__ __forceinline__ void rows_by_tokens(const float* prob, const float* b, int pitch,
-                                               int held, float* out, long long ld, int nrows,
+                                               int held, TO* out, long long ld, int nrows,
                                                int cw, float div, bool add) {
   constexpr int kTP = Tok<TB>::kPitch;
   const int pg = lane() >> 2;

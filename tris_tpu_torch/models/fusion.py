@@ -26,19 +26,22 @@ class PixelAttention(nn.Module):
     """Pixel-word attention: every pixel attends over the T language tokens.
 
     The 1x1 projections are Dense layers on the channel axis (cuBLAS), the
-    attention K11."""
+    attention K11; in ``dtype`` as :class:`BilateralPrompt` (the
+    InstanceNorms' weights and biases made in it; K11's operands promote as
+    the JAX einsums promote theirs)."""
 
-    def __init__(self, visual_channel: int, language_channel: int):
+    def __init__(self, visual_channel: int, language_channel: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         ci, ct = visual_channel, language_channel
-        self.Wk = Conv1x1(ct, ci, dims=1)
-        self.Wv = Conv1x1(ct, ci, dims=1)
-        self.Wq = Conv1x1(ci, ci)
-        self.Wm = Conv1x1(ci, ci)
-        self.Ww = Conv1x1(ci, ci)
-        self.Wo = Conv1x1(ci, ci)
-        self.ins_q = InstanceNorm2d(ci)
-        self.ins_w = InstanceNorm2d(ci)
+        self.Wk = Conv1x1(ct, ci, dims=1, dtype=dtype)
+        self.Wv = Conv1x1(ct, ci, dims=1, dtype=dtype)
+        self.Wq = Conv1x1(ci, ci, dtype=dtype)
+        self.Wm = Conv1x1(ci, ci, dtype=dtype)
+        self.Ww = Conv1x1(ci, ci, dtype=dtype)
+        self.Wo = Conv1x1(ci, ci, dtype=dtype)
+        self.ins_q = InstanceNorm2d(ci, dtype=dtype)
+        self.ins_w = InstanceNorm2d(ci, dtype=dtype)
 
     def forward(self, vis: torch.Tensor, lan: torch.Tensor, S: int = 1) -> torch.Tensor:
         """vis [N, HW, Ci] per image, lan [N*S, T, Ct] per (image, sentence)

@@ -256,8 +256,12 @@ class _InstanceNormLow(torch.autograd.Function):
 
 
 class PReLU(nn.PReLU):
-    """Channel-shared PReLU, one slope initialised to 0.25 (``weight``):
-    ``where(x >= 0, x, a * x)``, as the JAX package's PReLU."""
+    """Channel-shared PReLU, one slope initialised to 0.25 (``weight``, made
+    in ``dtype`` as the JAX module makes ``alpha``): ``where(x >= 0, x, a *
+    x)``, as the JAX package's PReLU."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__(dtype=dtype)
 
 
 class TorchBatchNorm(nn.Module):

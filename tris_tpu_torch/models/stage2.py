@@ -13,6 +13,14 @@ so a released stage-2 ``.pth`` loads as it is.
 BatchNorm follows the module's mode, as stage 1's does: ``model.train()``
 for batch statistics and the four side outputs (the JAX package's
 ``train=True``), ``model.eval()`` for running statistics and ``out1``.
+
+``dtype`` is the JAX module's (``tris_tpu_torch.models.layers``): with
+bfloat16 (``--bf16``, eval), the convolutions compute in bfloat16, K11, K6's
+upsamples and K13's eval fold with PReLU run on bfloat16 operands, and the
+PReLU slopes and the InstanceNorms' leaves are made in bfloat16; a float32
+checkpoint's leaves promote where jnp promotes (a float32 slope makes its
+``ConvBNRelu``'s output float32). The logits are in the dtype the last 1x1
+convolution gives, bfloat16; ``validate`` and the demo cast them to float32.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from torch import nn
 from tris_tpu_torch import kernels
 from tris_tpu_torch.models.clip import CLIP, CLIP_CONFIGS, CLIPConfig
 from tris_tpu_torch.models.fusion import PixelAttention
-from tris_tpu_torch.models.layers import PReLU, TorchBatchNorm
+from tris_tpu_torch.models.layers import Conv2d, PReLU, TorchBatchNorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,12 +53,13 @@ class ConvBNRelu(nn.Module):
     """3x3 conv without bias, BatchNorm, PReLU (model_stage2.py:11-27); the
     norm and the PReLU are one K13 call (``relu`` keeps the slope)."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel, padding=(kernel - 1) // 2,
-                              bias=False)
+        self.conv = Conv2d(in_channels, out_channels, kernel, padding=(kernel - 1) // 2,
+                           bias=False, dtype=dtype)
         self.bn = TorchBatchNorm(out_channels)
-        self.relu = PReLU()
+        self.relu = PReLU(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the fusion hands reduced_c2..4 a channels-last view, whose convolution cuDNN lays
@@ -62,8 +71,9 @@ class SegHead(nn.Sequential):
     """ConvBNRelu, then a 1x1 conv to one channel (the final_seg heads,
     model_stage2.py:74-85)."""
 
-    def __init__(self, in_channels: int, mid: int):
-        super().__init__(ConvBNRelu(in_channels, mid), nn.Conv2d(mid, 1, 1, bias=False))
+    def __init__(self, in_channels: int, mid: int, dtype: torch.dtype = torch.float32):
+        super().__init__(ConvBNRelu(in_channels, mid, dtype=dtype),
+                         Conv2d(mid, 1, 1, bias=False, dtype=dtype))
 
 
 def _up_to(x: torch.Tensor, hw) -> torch.Tensor:
@@ -78,29 +88,29 @@ def _per_pair(pairs: torch.Tensor, images: torch.Tensor, S: int) -> torch.Tensor
 
 
 class TRISStage2(nn.Module):
-    def __init__(self, config: Stage2Config):
+    def __init__(self, config: Stage2Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         ccfg = config.clip_config
-        self.backbone = CLIP(ccfg)
+        self.backbone = CLIP(ccfg, dtype)
         lan = ccfg.transformer_width                       # 512 for RN50/RN101
         w = ccfg.vision_width
         v = (w * 4, w * 8, w * 16, w * 32)                 # (256, 512, 1024, 2048) at w = 64
-        self.attention2 = PixelAttention(v[1], lan)
-        self.attention3 = PixelAttention(v[2], lan)
-        self.attention4 = PixelAttention(v[3], lan)
-        self.reduced_c1 = ConvBNRelu(v[0], 64)
-        self.reduced_c2 = ConvBNRelu(v[1], 128)
-        self.reduced_c3 = ConvBNRelu(v[2], 256)
-        self.reduced_c4 = ConvBNRelu(v[3], 512)
-        self.output4 = ConvBNRelu(512, 256)
-        self.output3 = ConvBNRelu(256, 128)
-        self.output2 = ConvBNRelu(128, 64)
-        self.output1 = ConvBNRelu(64, 32)
-        self.final_seg1 = SegHead(32, 32)
-        self.final_seg2 = SegHead(64, 32)
-        self.final_seg3 = SegHead(128, 64)
-        self.final_seg4 = SegHead(256, 64)
+        self.attention2 = PixelAttention(v[1], lan, dtype)
+        self.attention3 = PixelAttention(v[2], lan, dtype)
+        self.attention4 = PixelAttention(v[3], lan, dtype)
+        self.reduced_c1 = ConvBNRelu(v[0], 64, dtype=dtype)
+        self.reduced_c2 = ConvBNRelu(v[1], 128, dtype=dtype)
+        self.reduced_c3 = ConvBNRelu(v[2], 256, dtype=dtype)
+        self.reduced_c4 = ConvBNRelu(v[3], 512, dtype=dtype)
+        self.output4 = ConvBNRelu(512, 256, dtype=dtype)
+        self.output3 = ConvBNRelu(256, 128, dtype=dtype)
+        self.output2 = ConvBNRelu(128, 64, dtype=dtype)
+        self.output1 = ConvBNRelu(64, 32, dtype=dtype)
+        self.final_seg1 = SegHead(32, 32, dtype)
+        self.final_seg2 = SegHead(64, 32, dtype)
+        self.final_seg3 = SegHead(128, 64, dtype)
+        self.final_seg4 = SegHead(256, 64, dtype)
 
     def forward(self, image: torch.Tensor, word_ids: torch.Tensor):
         """image [B, 3, H, W], word_ids [B, L] -> logits: in train mode the

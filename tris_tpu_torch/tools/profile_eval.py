@@ -3,8 +3,8 @@ image of IRNet's instance pseudo-mask pass, one IRN training step or one
 stage-2 training step spends its time on the card.
 
     python -m tris_tpu_torch.tools.profile_eval [--prms | --train | --ins_seg | --train_irn |
-        --train_stage2] [--bf16] [--batch 8] [--sents 4] [--negatives 3] [--size 320] \\
-        [--iters 5] [--out PATH]
+        --train_stage2 | --eval_stage2] [--bf16] [--batch 8] [--sents 4] [--negatives 3] \\
+        [--size 320] [--iters 5] [--out PATH]
 
 Builds RN50 stage 1 at full width with seeded random weights (as
 ``chip_smoke.py`` does), times ``response_maps`` on the host clock (with
@@ -22,7 +22,9 @@ with ``--train_stage2``: one stage-2 ``train_step`` of seeded full-width
 RN50 stage 2 with the EMA teacher at the default gate (an update every 10
 steps, after 100) and consistency mse on a u8 batch of ``--batch`` (48
 unless given) images and random 0/1 pseudo-masks, student and teacher
-forward, backward, AdamW), then
+forward, backward, AdamW; with ``--eval_stage2``: seeded full-width RN50
+stage 2's ``response_maps`` in eval mode on ``--batch`` x ``--sents`` pairs, the
+eval forward of ``cli.validate --stage 2``), then
 traces ``--iters`` calls with ``torch.profiler`` and prints one JSON line:
 wall ms per forward, the card's busy ms per forward (the sum of its kernels'
 times, the ranges the trace also spans on the device left out; one stream,
@@ -32,7 +34,7 @@ summed and by design, cuDNN convolutions, cuDNN's layout transposes, GEMMs,
 everything else), by kernel name, and ``InstanceNorm2d``'s (the kernels its
 forwards and their backward launched); ``--out`` also writes it to a file.
 ``--bf16``: stage 1 in bfloat16 (its seeded init), eval, ``--prms`` or
-``--train`` (the critic float32).
+``--train`` (the critic float32), or stage 2 in bfloat16 with ``--eval_stage2``.
 Needs a card.
 """
 
@@ -221,6 +223,8 @@ def main(argv=None) -> dict:
                       help="profile one IRN training step (crop 512, radius 10)")
     mode.add_argument("--train_stage2", action="store_true",
                       help="profile one stage-2 training step with the EMA teacher")
+    mode.add_argument("--eval_stage2", action="store_true",
+                      help="profile stage 2's eval forward (response_maps)")
     p.add_argument("--batch", type=int, default=None,
                    help="default 8 (24 with --train_irn, 48 with --train_stage2)")
     p.add_argument("--sents", type=int, default=4)
@@ -228,11 +232,12 @@ def main(argv=None) -> dict:
     p.add_argument("--size", type=int, default=320)
     p.add_argument("--iters", type=int, default=None, help="default 5 (1 with --ins_seg)")
     p.add_argument("--bf16", action="store_true",
-                   help="stage 1 in bfloat16 (--bf16; eval, --prms and --train)")
+                   help="bfloat16 (--bf16): stage 1 (eval, --prms and --train) or stage 2 "
+                        "(--eval_stage2)")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
     if args.bf16 and (args.ins_seg or args.train_irn or args.train_stage2):
-        p.error("--bf16 covers stage-1 eval, --prms and --train")
+        p.error("--bf16 covers stage-1 eval, --prms, --train and --eval_stage2")
     if args.iters is None:
         args.iters = 1 if args.ins_seg else 5
     if args.batch is None:
@@ -271,6 +276,18 @@ def main(argv=None) -> dict:
                                 dev)
         step = lambda: train_step(model, critic, optimizer, scheduler, batch)  # noqa: E731
         grad = True
+    elif args.eval_stage2:
+        from tris_tpu_torch.models.stage2 import Stage2Config, TRISStage2
+
+        del model
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = TRISStage2(Stage2Config(backbone="RN50", txt_length=20),
+                               torch.bfloat16 if args.bf16 else torch.float32)
+        model = model.to(dev).eval()
+        image = image_to_nchw(torch.as_tensor(image_u8, device=dev))
+        ids_d = torch.as_tensor(ids, device=dev)
+        step = lambda: model.response_maps(image, ids_d)  # noqa: E731
     elif args.prms:
         forward = make_prms_forward(model, build_critic(get_parser().parse_args([]), dev))
         valid = np.ones((args.batch, args.sents), bool)
@@ -317,7 +334,8 @@ def main(argv=None) -> dict:
         "dtype": "bfloat16" if args.bf16 else "float32",
         "step": ("train_step" if args.train else "make_prms_forward" if args.prms else
                  "ins_seg_image" if args.ins_seg else "irn_train_step" if args.train_irn else
-                 "stage2_train_step" if args.train_stage2 else "response_maps"),
+                 "stage2_train_step" if args.train_stage2 else
+                 "stage2_response_maps" if args.eval_stage2 else "response_maps"),
         "shape": ({"image": [480, 640]} if args.ins_seg else
                   {"batch": args.batch, "crop": 512, "radius": 10} if args.train_irn else
                   {"batch": args.batch, "size": args.size, "ema": "default gate"}
